@@ -1,0 +1,257 @@
+"""Wire and verdict layer of the classify path, in plain PyTorch.
+
+Counterpart of the wire/verdict half of the JAX package's
+``kernels/jaxpath.py``: unpacking the packed host-to-device wire, the
+ordered first-match rule scan, the XDP verdict and per-rule statistics
+(``finalize``/``result_stats``), and the single-buffer device-to-host
+packing of results + statistics (``fuse_wire_outputs``) with its host
+inverse.
+
+Integer conventions (PyTorch has no general uint32 arithmetic):
+- 32-bit words travel as int32 tensors holding the uint32 bit pattern;
+  every right shift is arithmetic in torch, so each is followed by a mask
+  no wider than the bits the shift keeps (a logical shift in effect);
+- packed results ``(ruleId << 8) | action`` are int32 bit patterns;
+- statistics are summed in int64 and reduced to int32 two's complement,
+  reproducing the int32 wrap of the XLA ``segment_sum`` bit for bit.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Tuple
+
+import numpy as np
+import torch
+
+from ..constants import (
+    ALLOW,
+    DENY,
+    IPPROTO_ICMP,
+    IPPROTO_ICMPV6,
+    IPPROTO_SCTP,
+    IPPROTO_TCP,
+    IPPROTO_UDP,
+    KIND_IPV4,
+    KIND_IPV6,
+    KIND_MALFORMED,
+    MAX_TARGETS,
+    XDP_DROP,
+    XDP_PASS,
+)
+from ..packets import PacketBatch
+
+STATS_COLS = 6  # allow, allow_hi, allow_lo, deny, deny_hi, deny_lo
+
+
+class DeviceBatch(NamedTuple):
+    """Struct-of-arrays packet batch on one device; every column is int32
+    (``ip_words`` holds the uint32 bit patterns, shape (B, 4))."""
+
+    kind: torch.Tensor
+    l4_ok: torch.Tensor
+    ifindex: torch.Tensor
+    ip_words: torch.Tensor
+    proto: torch.Tensor
+    dst_port: torch.Tensor
+    icmp_type: torch.Tensor
+    icmp_code: torch.Tensor
+    pkt_len: torch.Tensor
+
+
+def device_batch(batch: PacketBatch, device="cpu") -> DeviceBatch:
+    """Host PacketBatch -> DeviceBatch on ``device``."""
+    def put(a):
+        a = np.ascontiguousarray(a)
+        if a.dtype == np.uint32:
+            a = a.view(np.int32)
+        return torch.from_numpy(a.astype(np.int32, copy=False)).to(device)
+
+    return DeviceBatch(*(put(getattr(batch, f)) for f in DeviceBatch._fields))
+
+
+def wrap_int32(x: torch.Tensor) -> torch.Tensor:
+    """int64 -> int32 two's complement (value modulo 2^32)."""
+    x = x & 0xFFFFFFFF
+    return torch.where(x >= 2**31, x - 2**32, x).to(torch.int32)
+
+
+def unpack_wire(wire: torch.Tensor) -> DeviceBatch:
+    """Inverse of PacketBatch.pack_wire / pack_wire_v4 / packets.narrow_wire,
+    discriminated by the wire width: (B, 7) full layout, (B, 4) v4-compact
+    (IP word 0 only, high words zero), (B, 3) / (B, 6) the narrow layouts
+    (ifindex folded into w0, dst_port overlaid with the ICMP fields in one
+    l4 word).  ``wire`` is int32 holding the uint32 words."""
+    w0 = wire[:, 0]
+    w1 = wire[:, 1]
+    width = wire.shape[1]
+    narrow = width in (3, 6)
+    ip_off = 2 if narrow else 3
+    if width in (3, 4):
+        ip_words = torch.cat(
+            [wire[:, ip_off : ip_off + 1], wire.new_zeros((wire.shape[0], 3))], dim=1
+        )
+    else:
+        ip_words = wire[:, ip_off : ip_off + 4]
+    proto = (w0 >> 3) & 0xFF
+    if narrow:
+        is_icmp = (proto == IPPROTO_ICMP) | (proto == IPPROTO_ICMPV6)
+        l4w = w1 & 0xFFFF
+        zero = torch.zeros_like(l4w)
+        ifindex = (w0 >> 11) & 0xFFFF
+        dst_port = torch.where(is_icmp, zero, l4w)
+        icmp_type = torch.where(is_icmp, l4w >> 8, zero)
+        icmp_code = torch.where(is_icmp, l4w & 0xFF, zero)
+        pkt_len = (w1 >> 16) & 0xFFFF
+    else:
+        ifindex = wire[:, 2]
+        dst_port = w1 & 0xFFFF
+        icmp_type = (w0 >> 11) & 0xFF
+        icmp_code = (w0 >> 19) & 0xFF
+        pkt_len = ((w1 >> 16) & 0xFFFF) | (((w0 >> 27) & 0x1F) << 16)
+    return DeviceBatch(
+        kind=w0 & 3,
+        l4_ok=(w0 >> 2) & 1,
+        ifindex=ifindex.contiguous(),
+        ip_words=ip_words.contiguous(),
+        proto=proto,
+        dst_port=dst_port,
+        icmp_type=icmp_type,
+        icmp_code=icmp_code,
+        pkt_len=pkt_len,
+    )
+
+
+def rule_scan(rows: torch.Tensor, batch: DeviceBatch) -> torch.Tensor:
+    """Ordered first-match scan (kernel.c:222-258) over already-gathered
+    (B, R, 7) int32 rule rows (all-zero rows for packets without an LPM
+    match -> ruleId 0 everywhere -> UNDEF).  Returns packed int32 results."""
+    rid, rproto, ps, pe, it, ic, act = rows.unbind(-1)  # each (B, R)
+    proto = batch.proto[:, None]
+    dport = batch.dst_port[:, None]
+    valid = rid != 0
+    proto_eq = (rproto != 0) & (rproto == proto)
+    is_transport = (
+        (rproto == IPPROTO_TCP) | (rproto == IPPROTO_UDP) | (rproto == IPPROTO_SCTP)
+    )
+    port_hit = torch.where(pe == 0, dport == ps, (dport >= ps) & (dport < pe))
+    fam = torch.where(
+        batch.kind == KIND_IPV4,
+        torch.full_like(batch.kind, IPPROTO_ICMP),
+        torch.full_like(batch.kind, IPPROTO_ICMPV6),
+    )[:, None]
+    icmp_hit = (
+        (rproto == fam)
+        & (it == batch.icmp_type[:, None])
+        & (ic == batch.icmp_code[:, None])
+    )
+    hit = valid & ((proto_eq & ((is_transport & port_hit) | icmp_hit)) | (rproto == 0))
+
+    R = rows.shape[1]
+    idx = torch.arange(R, device=rows.device, dtype=torch.int32)[None, :]
+    first = torch.where(hit, idx, R).min(dim=1).values
+    any_hit = first < R
+    pick = first.clamp(max=R - 1).long()[:, None]
+    rid_f = rid.gather(1, pick)[:, 0].to(torch.int64)
+    act_f = act.gather(1, pick)[:, 0].to(torch.int64)
+    packed = ((rid_f & 0xFFFFFF) << 8) | (act_f & 0xFF)
+    return wrap_int32(torch.where(any_hit, packed, 0))
+
+
+def result_stats(result: torch.Tensor, batch: DeviceBatch) -> torch.Tensor:
+    """(MAX_TARGETS, 6) int32 per-batch statistics from packed results
+    (kernel.c:361-400: allow/deny only, ruleId < MAX_TARGETS).  Byte counts
+    travel as (hi, lo) = (len >> 8, len & 0xFF) columns; sums wrap modulo
+    2^32 exactly as the reference's int32 segment_sum does."""
+    is_ip = (batch.kind == KIND_IPV4) | (batch.kind == KIND_IPV6)
+    action = result & 0xFF
+    rule_id = (result >> 8) & 0xFFFFFF
+    allow = (action == ALLOW) & is_ip
+    deny = (action == DENY) & is_ip
+    recorded = (allow | deny) & (rule_id < MAX_TARGETS)
+    sid = torch.where(recorded, rule_id, MAX_TARGETS).long()
+    ln = batch.pkt_len.to(torch.int64)
+    hi = (ln >> 8) & 0xFFFFFF
+    lo = ln & 0xFF
+    a = allow.to(torch.int64)
+    d = deny.to(torch.int64)
+    data = torch.stack([a, a * hi, a * lo, d, d * hi, d * lo], dim=1)
+    stats = torch.zeros(
+        (MAX_TARGETS + 1, STATS_COLS), dtype=torch.int64, device=result.device
+    ).index_add_(0, sid, data)
+    return wrap_int32(stats[:MAX_TARGETS])
+
+
+def finalize(
+    result: torch.Tensor, batch: DeviceBatch
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Ethertype/kind dispatch and stats (kernel.c:412-457, 361-400).
+    Returns (results int32, xdp int32, stats (MAX_TARGETS, 6) int32)."""
+    is_ip = (batch.kind == KIND_IPV4) | (batch.kind == KIND_IPV6)
+    looked_up = is_ip & (batch.l4_ok != 0)
+    result = torch.where(looked_up, result, 0).to(torch.int32)
+    action = result & 0xFF
+    drop = torch.full_like(result, XDP_DROP)
+    xdp = torch.where(
+        (batch.kind == KIND_MALFORMED) | (is_ip & (action == DENY)),
+        drop,
+        torch.full_like(result, XDP_PASS),
+    )
+    return result, xdp, result_stats(result, batch)
+
+
+def _pack_res16(res16: torch.Tensor) -> torch.Tensor:
+    """(B,) 16-bit values -> ceil(B/2) int32 words, element 2k in the low
+    half and 2k+1 in the high half (the little-endian u16-pair bitcast)."""
+    r = res16.to(torch.int64) & 0xFFFF
+    if r.shape[0] % 2:
+        r = torch.cat([r, r.new_zeros(1)])
+    pairs = r.view(-1, 2)
+    return wrap_int32(pairs[:, 0] | (pairs[:, 1] << 16))
+
+
+def unpack_res16_host(arr: np.ndarray, b: int) -> np.ndarray:
+    u = arr.view(np.uint32)
+    res16 = np.empty(len(u) * 2, np.uint16)
+    res16[0::2] = u & 0xFFFF
+    res16[1::2] = u >> 16
+    return res16[:b]
+
+
+def fuse_wire_outputs(res16: torch.Tensor, stats: torch.Tensor) -> torch.Tensor:
+    """Pack (results_u16, stats_i32) into ONE int32 device buffer, so the
+    host reads back once per batch: ceil(B/2) words of u16-pair-packed
+    results, then the stats flattened."""
+    return torch.cat([_pack_res16(res16), stats.reshape(-1)])
+
+
+def split_wire_outputs(arr: np.ndarray, b: int) -> Tuple[np.ndarray, np.ndarray]:
+    """Host inverse of fuse_wire_outputs -> (results_u16[b], stats_i32)."""
+    nw = (b + 1) // 2
+    res16 = unpack_res16_host(arr[:nw], b)
+    stats = arr[nw:].reshape(MAX_TARGETS, STATS_COLS)
+    return res16[:b], stats
+
+
+def host_finalize_wire(res16: np.ndarray, kind: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """Host-side completion of the wire path: widen results to u32 and
+    rebuild the XDP verdict as finalize() does on the device
+    (kernel.c:423-455 — malformed DROP, deny DROP, else PASS)."""
+    results = res16.astype(np.uint32)
+    action = results & 0xFF
+    xdp = np.where(
+        kind == KIND_MALFORMED,
+        XDP_DROP,
+        np.where(action == DENY, XDP_DROP, XDP_PASS),
+    ).astype(np.int32)
+    return results, xdp
+
+
+def merge_stats_host(stats: np.ndarray) -> np.ndarray:
+    """Device (MAX_TARGETS, 6) int32 -> host (MAX_TARGETS, 4) int64
+    [allow_pkts, allow_bytes, deny_pkts, deny_bytes]."""
+    s = stats.astype(np.int64)
+    out = np.zeros((stats.shape[0], 4), np.int64)
+    out[:, 0] = s[:, 0]
+    out[:, 1] = s[:, 1] * 256 + s[:, 2]
+    out[:, 2] = s[:, 3]
+    out[:, 3] = s[:, 4] * 256 + s[:, 5]
+    return out

@@ -1,0 +1,188 @@
+"""Scalar NumPy oracle classifier.
+
+A direct, per-packet transliteration of the XDP program's semantics
+(bpf/ingress_node_firewall_kernel.c:189-457) over the compiled table
+*content* (the LPM key -> rule-rows map), independent of the dense tensor
+encoding and of PyTorch.  The ground truth the port's main path is checked
+against.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Dict, List, Tuple
+
+import numpy as np
+
+from .compiler import CompiledTables
+from .constants import (
+    ALLOW,
+    DENY,
+    IPPROTO_ICMP,
+    IPPROTO_ICMPV6,
+    IPPROTO_SCTP,
+    IPPROTO_TCP,
+    IPPROTO_UDP,
+    KIND_IPV4,
+    KIND_MALFORMED,
+    KIND_OTHER,
+    MAX_TARGETS,
+    UNDEF,
+    V4_KEY_PREFIX_LEN,
+    V6_KEY_PREFIX_LEN,
+    XDP_DROP,
+    XDP_PASS,
+    set_actionrule_response,
+)
+from .packets import PacketBatch
+
+_TRANSPORT = (IPPROTO_TCP, IPPROTO_UDP, IPPROTO_SCTP)
+
+
+@dataclass
+class ClassifyResult:
+    """Per-batch outputs: packed u32 results (action | ruleId<<8), XDP
+    verdicts, and statistics keyed by ruleId with [allow_packets,
+    allow_bytes, deny_packets, deny_bytes] values (ruleStatistics_st,
+    bpf/ingress_node_firewall.h:45-54)."""
+
+    results: np.ndarray  # (B,) uint32
+    xdp: np.ndarray      # (B,) int32
+    stats: Dict[int, List[int]] = field(default_factory=dict)
+
+
+def _lpm_lookup(
+    entries: List[Tuple[int, int, int, int]],  # (ifindex, mask_len, masked_ip_int, target)
+    ifindex: int,
+    ip_int: int,
+    cap_prefix_len: int,
+) -> int:
+    """Longest-prefix match over the (ifindex || ip) key space.  Entries
+    with prefixLen (mask_len + 32) above the packet key's prefix length
+    cannot match (BPF LPM trie lookup with the packet key of
+    kernel.c:206-212 / 292-295)."""
+    best_target = -1
+    best_len = -1
+    for e_ifindex, e_mask_len, e_masked_ip, target in entries:
+        if e_ifindex != ifindex:
+            continue
+        if e_mask_len + 32 > cap_prefix_len:
+            continue
+        if e_mask_len > 0 and (ip_int >> (128 - e_mask_len)) != (
+            e_masked_ip >> (128 - e_mask_len)
+        ):
+            continue
+        # Strictly greater: equal-length duplicates cannot both exist after
+        # masked-identity dedup.
+        if e_mask_len > best_len:
+            best_len = e_mask_len
+            best_target = target
+    return best_target
+
+
+def _scan_rules(
+    rows: np.ndarray, proto: int, dport: int, icmp_type: int, icmp_code: int, is_v4: bool
+) -> int:
+    """The ordered rule scan (kernel.c:222-258 / 305-340)."""
+    icmp_proto = IPPROTO_ICMP if is_v4 else IPPROTO_ICMPV6
+    for i in range(rows.shape[0]):
+        rid, rproto, ps, pe, it, ic, act = (int(x) for x in rows[i])
+        if rid == 0:  # INVALID_RULE_ID -> empty slot
+            continue
+        if rproto != 0 and rproto == proto:
+            if rproto in _TRANSPORT:
+                if pe == 0:
+                    if ps == dport:
+                        return set_actionrule_response(act, rid)
+                else:
+                    if ps <= dport < pe:
+                        return set_actionrule_response(act, rid)
+            if rproto == icmp_proto:
+                if it == icmp_type and ic == icmp_code:
+                    return set_actionrule_response(act, rid)
+        if rproto == 0:
+            # Protocol not set: catch-all (kernel.c:254-257).
+            return set_actionrule_response(act, rid)
+    return UNDEF
+
+
+def _dedup_entries(tables: CompiledTables):
+    """Masked-identity dedup of the table content.  Returns (entries,
+    rules_by_target), entries being (ifindex, mask_len, masked_ip_int,
+    target)."""
+    dedup: Dict[Tuple[int, int, bytes], int] = {}
+    ordered: List[Tuple[Tuple[int, int, int, int], np.ndarray]] = []
+    for key, rows in tables.content.items():
+        ident = key.masked_identity()
+        e = (key.ingress_ifindex, key.mask_len, int.from_bytes(ident[2], "big"))
+        if ident in dedup:
+            ordered[dedup[ident]] = ((*e, dedup[ident]), rows)
+        else:
+            dedup[ident] = len(ordered)
+            ordered.append(((*e, len(ordered)), rows))
+    return [e for e, _ in ordered], [rows for _, rows in ordered]
+
+
+def classify(tables: CompiledTables, batch: PacketBatch) -> ClassifyResult:
+    """Reference classification of a whole batch, including the ethertype
+    dispatch, stats and final XDP verdict of ingress_node_firewall_main
+    (kernel.c:412-457)."""
+    entries, rules_by_target = _dedup_entries(tables)
+    b = len(batch)
+    results = np.zeros(b, np.uint32)
+    xdp = np.zeros(b, np.int32)
+    stats: Dict[int, List[int]] = {}
+
+    for i in range(b):
+        kind = int(batch.kind[i])
+        if kind == KIND_MALFORMED:
+            xdp[i] = XDP_DROP  # kernel.c:423-426
+            continue
+        if kind == KIND_OTHER:
+            xdp[i] = XDP_PASS  # kernel.c:436-438
+            continue
+        is_v4 = kind == KIND_IPV4
+        if not int(batch.l4_ok[i]):
+            result = UNDEF  # extract failure -> SET_ACTION(UNDEF), kernel.c:199-202
+        else:
+            ip_int = 0
+            for w in range(4):
+                ip_int = (ip_int << 32) | int(batch.ip_words[i, w])
+            cap = V4_KEY_PREFIX_LEN if is_v4 else V6_KEY_PREFIX_LEN
+            target = _lpm_lookup(entries, int(batch.ifindex[i]), ip_int, cap)
+            if target < 0:
+                result = UNDEF
+            else:
+                result = _scan_rules(
+                    rules_by_target[target],
+                    int(batch.proto[i]),
+                    int(batch.dst_port[i]),
+                    int(batch.icmp_type[i]),
+                    int(batch.icmp_code[i]),
+                    is_v4,
+                )
+        results[i] = result
+        action = result & 0xFF
+        rule_id = (result >> 8) & 0xFFFFFF
+        if action == DENY:
+            xdp[i] = XDP_DROP
+            _bump(stats, rule_id, deny=True, length=int(batch.pkt_len[i]))
+        elif action == ALLOW:
+            xdp[i] = XDP_PASS
+            _bump(stats, rule_id, deny=False, length=int(batch.pkt_len[i]))
+        else:
+            xdp[i] = XDP_PASS  # UNDEF -> default pass, no stats (kernel.c:453-455)
+    return ClassifyResult(results=results, xdp=xdp, stats=stats)
+
+
+def _bump(stats: Dict[int, List[int]], rule_id: int, deny: bool, length: int) -> None:
+    # The stats map has MAX_TARGETS entries; larger ruleIds record nothing
+    # (kernel.c:376-390).
+    if rule_id >= MAX_TARGETS:
+        return
+    entry = stats.setdefault(rule_id, [0, 0, 0, 0])
+    if deny:
+        entry[2] += 1
+        entry[3] += length
+    else:
+        entry[0] += 1
+        entry[1] += length

@@ -1,0 +1,189 @@
+"""Seeded ruleset and packet generators (numpy), for tests and chip_smoke.
+
+The same generators as the JAX package's ``infw/testing.py``, drawing the
+same numbers from the same numpy Generator, so one seed gives the same
+tables and batches on both sides.
+"""
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+
+from .compiler import CompiledTables, LpmKey, compile_tables_from_content
+from .constants import (
+    IPPROTO_ICMP,
+    IPPROTO_ICMPV6,
+    IPPROTO_SCTP,
+    IPPROTO_TCP,
+    IPPROTO_UDP,
+)
+from .packets import PacketBatch
+
+_PROTOS = [IPPROTO_TCP, IPPROTO_UDP, IPPROTO_SCTP, IPPROTO_ICMP, IPPROTO_ICMPV6, 0]
+
+
+def random_rules(
+    rng: np.random.Generator, width: int, max_rules: Optional[int] = None
+) -> np.ndarray:
+    """Random packed rule rows (width, 7) with the loader's invariants:
+    index == order == ruleId, index 0 empty."""
+    rows = np.zeros((width, 7), np.int32)
+    n = rng.integers(0, max_rules if max_rules is not None else width - 1, endpoint=True)
+    orders = rng.choice(np.arange(1, width), size=min(n, width - 1), replace=False)
+    for order in orders:
+        proto = _PROTOS[rng.integers(0, len(_PROTOS))]
+        rows[order, 0] = order
+        rows[order, 1] = proto
+        if proto in (IPPROTO_TCP, IPPROTO_UDP, IPPROTO_SCTP):
+            if rng.random() < 0.5:
+                start = int(rng.integers(1, 65000))
+                rows[order, 2] = start
+                rows[order, 3] = int(rng.integers(start + 1, 65536))
+            else:
+                rows[order, 2] = int(rng.integers(1, 65536))
+                rows[order, 3] = 0
+        elif proto in (IPPROTO_ICMP, IPPROTO_ICMPV6):
+            rows[order, 4] = int(rng.integers(0, 256))
+            rows[order, 5] = int(rng.integers(0, 3))
+        rows[order, 6] = int(rng.integers(1, 3))  # DENY or ALLOW
+    return rows
+
+
+def random_tables(
+    rng: np.random.Generator,
+    n_entries: int,
+    ifindexes: Tuple[int, ...] = (2, 3),
+    width: int = 16,
+    v6_fraction: float = 0.3,
+    overlap_fraction: float = 0.3,
+) -> CompiledTables:
+    """Random LPM content with deliberately overlapping prefixes (nested
+    CIDRs of different lengths over shared bases) to stress longest-match
+    tie-breaks."""
+    content: Dict[LpmKey, np.ndarray] = {}
+    bases: List[Tuple[bytes, bool]] = []
+    while len(content) < n_entries:
+        is_v6 = rng.random() < v6_fraction
+        if bases and rng.random() < overlap_fraction:
+            base, is_v6 = bases[rng.integers(0, len(bases))]
+            data = bytearray(base)
+            pos = rng.integers(1, 16)
+            data[pos] = rng.integers(0, 256)
+            data = bytes(data)
+        else:
+            if is_v6:
+                data = bytes(rng.integers(0, 256, 16, dtype=np.uint8))
+            else:
+                data = bytes(rng.integers(0, 256, 4, dtype=np.uint8)) + bytes(12)
+            bases.append((data, is_v6))
+        if is_v6:
+            mask_len = int(rng.choice([0, 8, 13, 24, 32, 48, 64, 96, 128]))
+        else:
+            mask_len = int(rng.choice([0, 1, 8, 13, 16, 24, 30, 31, 32]))
+            data = data[:4] + bytes(12)
+        ifindex = int(ifindexes[rng.integers(0, len(ifindexes))])
+        key = LpmKey(prefix_len=mask_len + 32, ingress_ifindex=ifindex, ip_data=data)
+        content[key] = random_rules(rng, width)
+    return compile_tables_from_content(content, rule_width=width)
+
+
+def random_batch_fast(
+    rng: np.random.Generator,
+    tables: CompiledTables,
+    n_packets: int,
+    extra_ifindexes: Tuple[int, ...] = (9,),
+    hit_fraction: float = 0.7,
+) -> PacketBatch:
+    """Vectorized packets biased toward table hits (address sampled from a
+    random entry, bits flipped beyond — or occasionally inside — the mask)
+    and toward rule-match boundaries (protocol/port copied from a random
+    populated rule of that entry)."""
+    b = n_packets
+    T = int(tables.num_entries)
+    kind = rng.choice([0, 1, 2, 3], size=b, p=[0.02, 0.55, 0.4, 0.03]).astype(np.int32)
+    l4_ok = (rng.random(b) > 0.05).astype(np.int32)
+    all_if = np.unique(
+        np.concatenate([tables.key_words[:T, 0].astype(np.int64),
+                        np.asarray(extra_ifindexes, np.int64)])
+    )
+    ifindex = all_if[rng.integers(0, len(all_if), b)].astype(np.int32)
+    ip = rng.integers(0, 256, (b, 16), dtype=np.uint8)
+    proto = np.asarray([6, 17, 132, 1, 58, 47, 0])[rng.integers(0, 7, b)].astype(np.int32)
+    dst_port = rng.integers(0, 65536, b).astype(np.int32)
+    icmp_type = rng.integers(0, 256, b).astype(np.int32)
+    icmp_code = rng.integers(0, 3, b).astype(np.int32)
+
+    hit = rng.random(b) < (hit_fraction if T else 0.0)
+    if T:
+        e = rng.integers(0, T, b)
+        ent_ip = (
+            tables.key_words[:T, 1:5].astype(">u4").copy().view(np.uint8).reshape(T, 16)
+        )
+        ent_mask = tables.mask_len[:T].astype(np.int64)
+        ent_if = tables.key_words[:T, 0].astype(np.int32)
+        m = ent_mask[e]
+        hip = ent_ip[e].copy()
+        beyond_ok = m < 128
+        bit_beyond = (m + (rng.integers(0, 1 << 16, b) % np.maximum(128 - m, 1)))
+        inside = (rng.random(b) < 0.3) & (m > 0)
+        bit_inside = rng.integers(0, 1 << 16, b) % np.maximum(m, 1)
+        bit = np.where(inside, bit_inside, np.where(beyond_ok, bit_beyond, 0))
+        do_flip = beyond_ok | inside
+        byte_i, mask_v = (bit // 8).astype(np.int64), (0x80 >> (bit % 8)).astype(np.uint8)
+        sel = np.where(hit & do_flip)[0]
+        hip[sel, byte_i[sel]] ^= mask_v[sel]
+        ip[hit] = hip[hit]
+        ifindex = np.where(hit & (rng.random(b) < 0.9), ent_if[e], ifindex)
+        is_v4_key = (ent_mask[e] <= 32) & ~np.any(hip[:, 4:] != 0, axis=1)
+        kind = np.where(
+            hit & is_v4_key & (rng.random(b) < 0.8), 1,
+            np.where(hit & ~is_v4_key & (rng.random(b) < 0.8), 2, kind),
+        ).astype(np.int32)
+        R = tables.rules.shape[1]
+        ridx = rng.integers(0, R, b)
+        rule = tables.rules[np.clip(e, 0, T - 1), ridx]  # (b, 7)
+        has_rule = rule[:, 0] != 0
+        use_rule = hit & has_rule & (rng.random(b) < 0.8)
+        rproto = rule[:, 1]
+        proto = np.where(use_rule & (rproto != 0), rproto, proto)
+        is_tr = (rproto == IPPROTO_TCP) | (rproto == IPPROTO_UDP) | (rproto == IPPROTO_SCTP)
+        jitter = rng.integers(-1, 2, b)
+        port_single = np.clip(rule[:, 2] + jitter, 0, 65535)
+        edge = np.stack([
+            rule[:, 2] - 1, rule[:, 2], rule[:, 3] - 1, rule[:, 3], rule[:, 3] + 1
+        ], 1)[np.arange(b), rng.integers(0, 5, b)]
+        port_range = np.clip(edge, 0, 65535)
+        dst_port = np.where(
+            use_rule & is_tr,
+            np.where(rule[:, 3] == 0, port_single, port_range),
+            dst_port,
+        ).astype(np.int32)
+        is_ic = (rproto == IPPROTO_ICMP) | (rproto == IPPROTO_ICMPV6)
+        icmp_type = np.where(
+            use_rule & is_ic, rule[:, 4] + rng.integers(0, 2, b), icmp_type
+        ).astype(np.int32)
+        icmp_code = np.where(use_rule & is_ic, rule[:, 5], icmp_code).astype(np.int32)
+
+    ip[kind == 1, 4:] = 0
+    words = np.ascontiguousarray(ip).view(">u4").astype(np.uint32).reshape(b, 4)
+    return PacketBatch(
+        kind=kind,
+        l4_ok=l4_ok,
+        ifindex=ifindex,
+        ip_words=words,
+        proto=proto,
+        dst_port=dst_port.astype(np.int32),
+        icmp_type=icmp_type,
+        icmp_code=icmp_code,
+        pkt_len=rng.integers(60, 1500, b).astype(np.int32),
+    )
+
+
+def stats_dict_from_array(stats4: np.ndarray) -> Dict[int, List[int]]:
+    """(MAX_TARGETS, 4) int64 -> {ruleId: [ap, ab, dp, db]} with zero rows
+    dropped, for comparison against the oracle's dict."""
+    return {
+        int(rid): [int(x) for x in stats4[rid]]
+        for rid in np.nonzero(stats4.any(axis=1))[0]
+    }
