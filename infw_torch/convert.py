@@ -14,13 +14,17 @@ import numpy as np
 
 from .compiler import CompiledTables, LpmKey
 
-FIELDS = ("rule_width", "num_entries", "key_words", "mask_words", "mask_len", "rules")
+FIELDS = (
+    "rule_width", "num_entries", "key_words", "mask_words", "mask_len", "rules",
+    "trie_levels", "root_lut",
+)
 
 
 def tables_from_jax_arrays(d: Mapping) -> CompiledTables:
-    """{rule_width, num_entries, key_words, mask_words, mask_len, rules
-    [, content]} -> CompiledTables.  ``content`` maps (prefix_len, ifindex,
-    ip_data) keys — the JAX LpmKey is such a tuple — to (R, 7) rule rows."""
+    """{rule_width, num_entries, key_words, mask_words, mask_len, rules,
+    trie_levels, root_lut [, content]} -> CompiledTables.  ``content`` maps
+    (prefix_len, ifindex, ip_data) keys — the JAX LpmKey is such a tuple —
+    to (R, 7) rule rows."""
     missing = [f for f in FIELDS if f not in d]
     if missing:
         raise KeyError(f"tables_from_jax_arrays: missing fields {missing}")
@@ -35,5 +39,7 @@ def tables_from_jax_arrays(d: Mapping) -> CompiledTables:
         mask_words=np.asarray(d["mask_words"], np.uint32),
         mask_len=np.asarray(d["mask_len"], np.int32),
         rules=np.asarray(d["rules"], np.int32),
+        trie_levels=[np.asarray(t, np.int32) for t in d["trie_levels"]],
+        root_lut=np.asarray(d["root_lut"], np.int32),
         content=content,
     )

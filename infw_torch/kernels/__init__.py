@@ -8,9 +8,9 @@ from __future__ import annotations
 
 from typing import List
 
-from . import dense
+from . import dense, walk
 from ._build import Kernel
 
 
 def all_kernels() -> List[Kernel]:
-    return [dense.KERNEL]
+    return [dense.KERNEL, walk.KERNEL]

@@ -32,8 +32,10 @@ from ..constants import KIND_IPV4
 from . import _build
 from .torchpath import (
     DeviceBatch,
+    batch_from_fields,
     finalize,
     fuse_wire_outputs,
+    packet_fields,
     rule_scan,
     unpack_wire,
 )
@@ -120,26 +122,6 @@ def build_dense_tables(tables: CompiledTables, device="cpu") -> DenseTables:
     return DenseTables(entries=put(entries), rules=put(packed))
 
 
-def packet_fields(batch: DeviceBatch) -> Tuple[torch.Tensor, torch.Tensor]:
-    """DeviceBatch -> the kernel's (B, 8) fields and (B, 4) words operands."""
-    fields = torch.stack(
-        [
-            batch.kind, batch.ifindex, batch.proto, batch.dst_port,
-            batch.icmp_type, batch.icmp_code, batch.l4_ok, batch.pkt_len,
-        ],
-        dim=1,
-    ).to(torch.int32)
-    return fields, batch.ip_words.to(torch.int32).contiguous()
-
-
-def _batch_from_fields(fields: torch.Tensor, words: torch.Tensor) -> DeviceBatch:
-    return DeviceBatch(
-        kind=fields[:, 0], l4_ok=fields[:, 6], ifindex=fields[:, 1],
-        ip_words=words, proto=fields[:, 2], dst_port=fields[:, 3],
-        icmp_type=fields[:, 4], icmp_code=fields[:, 5], pkt_len=fields[:, 7],
-    )
-
-
 def _unpack_rule_slots(slots: torch.Tensor) -> torch.Tensor:
     """(..., R, 2) packed slots -> (..., R, 7) rule rows
     [ruleId, proto, portStart, portEnd, icmpType, icmpCode, action]."""
@@ -183,7 +165,7 @@ def dense_classify_plain(
         matched = best[:, 0] > 0
         slots = dt.rules[tidx.clamp(max=Tp - 1).long()]  # (b, R, 2)
         slots = torch.where(matched[:, None, None], slots, 0)
-        result = rule_scan(_unpack_rule_slots(slots), _batch_from_fields(f, w))
+        result = rule_scan(_unpack_rule_slots(slots), batch_from_fields(f, w))
         out[s : s + chunk, 0] = result
         out[s : s + chunk, 1] = torch.where(matched, tidx, -1)
     return out

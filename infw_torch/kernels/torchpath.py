@@ -22,6 +22,7 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
+from ..compiler import trie_level_strides
 from ..constants import (
     ALLOW,
     DENY,
@@ -66,6 +67,29 @@ def device_batch(batch: PacketBatch, device="cpu") -> DeviceBatch:
         return torch.from_numpy(a.astype(np.int32, copy=False)).to(device)
 
     return DeviceBatch(*(put(getattr(batch, f)) for f in DeviceBatch._fields))
+
+
+def packet_fields(batch: DeviceBatch) -> Tuple[torch.Tensor, torch.Tensor]:
+    """DeviceBatch -> the kernels' (B, 8) int32 fields [kind, ifindex,
+    proto, dst_port, icmp_type, icmp_code, l4_ok, pkt_len] and (B, 4) int32
+    words operands."""
+    fields = torch.stack(
+        [
+            batch.kind, batch.ifindex, batch.proto, batch.dst_port,
+            batch.icmp_type, batch.icmp_code, batch.l4_ok, batch.pkt_len,
+        ],
+        dim=1,
+    ).to(torch.int32)
+    return fields, batch.ip_words.to(torch.int32).contiguous()
+
+
+def batch_from_fields(fields: torch.Tensor, words: torch.Tensor) -> DeviceBatch:
+    """Inverse of packet_fields (views, no copy)."""
+    return DeviceBatch(
+        kind=fields[:, 0], l4_ok=fields[:, 6], ifindex=fields[:, 1],
+        ip_words=words, proto=fields[:, 2], dst_port=fields[:, 3],
+        icmp_type=fields[:, 4], icmp_code=fields[:, 5], pkt_len=fields[:, 7],
+    )
 
 
 def wrap_int32(x: torch.Tensor) -> torch.Tensor:
@@ -154,6 +178,91 @@ def rule_scan(rows: torch.Tensor, batch: DeviceBatch) -> torch.Tensor:
     act_f = act.gather(1, pick)[:, 0].to(torch.int64)
     packed = ((rid_f & 0xFFFFFF) << 8) | (act_f & 0xFF)
     return wrap_int32(torch.where(any_hit, packed, 0))
+
+
+def _popcount32(x: torch.Tensor) -> torch.Tensor:
+    """SWAR popcount of int64 tensors holding uint32 values in [0, 2^32)."""
+    x = x - ((x >> 1) & 0x55555555)
+    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
+    x = (x + (x >> 4)) & 0x0F0F0F0F
+    return ((x * 0x01010101) & 0xFFFFFFFF) >> 24
+
+
+def _u32(x: torch.Tensor) -> torch.Tensor:
+    """int32 bit patterns -> int64 uint32 values."""
+    return x.to(torch.int64) & 0xFFFFFFFF
+
+
+def trie_walk(trie_levels, trie_targets: torch.Tensor, root_lut: torch.Tensor,
+              batch: DeviceBatch) -> torch.Tensor:
+    """Poptrie walk (layout.build_poptrie): the DIR-16 root level is one
+    direct-indexed slot-row read; every deeper level reads one 18-word node
+    row, and the child is child_base + rank(nib) over the child bitmap.  A
+    target hit records a global index into ``trie_targets``, resolved once
+    after the walk.  Returns the target index (int64) or -1.
+
+    ``trie_levels`` are int32 tensors (uint32 bit patterns for the deep
+    rows); the arithmetic runs in int64 masked to 32 bits.  Every read
+    clamps its index and pairs it with a range mask, as the reference's
+    clipped gathers do: an out-of-range lane stops descending, so an
+    ifindex outside ``root_lut`` reads root 0.  Targets at a level cover
+    prefixes ending in (prev boundary, boundary]; the IPv4 packet-side cap
+    is the test ``bit_end <= cap`` (32 for IPv4, 128 for every other kind)."""
+    strides = trie_level_strides(len(trie_levels))
+    lut_size = root_lut.shape[0]
+    ifx = batch.ifindex.to(torch.int64)
+    if_ok = (ifx >= 0) & (ifx < lut_size)
+    root = torch.where(if_ok, root_lut[ifx.clamp(0, lut_size - 1)].to(torch.int64), 0)
+
+    words = _u32(batch.ip_words)
+    e0 = root * 65536 + (words[:, 0] >> 16)
+    n0 = trie_levels[0].shape[0]
+    in0 = (e0 >= 0) & (e0 < n0)
+    rows0 = trie_levels[0][e0.clamp(0, n0 - 1)].to(torch.int64)
+    best0 = torch.where(in0 & (rows0[:, 1] > 0), rows0[:, 1] - 1, -1)
+    alive = in0 & (rows0[:, 0] > 0)  # child ids are stored + 1
+    node = torch.where(alive, rows0[:, 0] - 1, 0)
+
+    cap = torch.where(batch.kind == KIND_IPV4, 32, 128)
+    win = torch.zeros_like(node)  # trie_targets[0] is the 0 sentinel
+    widx8 = torch.arange(8, device=node.device)[None, :]
+    bit_end = strides[0]
+    for stride, tbl in zip(strides[1:], trie_levels[1:]):
+        bit_start, bit_end = bit_end, bit_end + stride
+        nib = (words[:, bit_start // 32] >> (32 - stride - bit_start % 32)) & ((1 << stride) - 1)
+        n_l = tbl.shape[0]
+        alive = alive & (node >= 0) & (node < n_l)
+        r = _u32(tbl[node.clamp(0, n_l - 1)])
+        w = (nib >> 5)[:, None]
+        bit = nib & 31
+        below = (1 << bit) - 1  # exact at bit 31: int64
+        cb, tb = r[:, 2:10], r[:, 10:18]
+        prefix = torch.where(widx8 < w, _popcount32(cb), 0).sum(dim=1)
+        tprefix = torch.where(widx8 < w, _popcount32(tb), 0).sum(dim=1)
+        cw = cb.gather(1, w)[:, 0]
+        tw = tb.gather(1, w)[:, 0]
+        ok_t = alive & (((tw >> bit) & 1) > 0) & (bit_end <= cap)
+        win = torch.where(ok_t, (r[:, 1] + tprefix + _popcount32(tw & below)) & 0xFFFFFFFF, win)
+        alive = alive & (((cw >> bit) & 1) > 0)
+        # the child id is a uint32 sum read as int32 (a wrap reads as
+        # negative and fails the next level's range test)
+        child = (r[:, 0] + prefix + _popcount32(cw & below)) & 0xFFFFFFFF
+        node = torch.where(alive, torch.where(child >= 2**31, child - 2**32, child), 0)
+    win = torch.where(win >= 2**31, win - 2**32, win)  # int32 view
+    n_t = trie_targets.shape[0]
+    in_w = (win >= 0) & (win < n_t)
+    tval = trie_targets[win.clamp(0, n_t - 1)].to(torch.int64)
+    return torch.where(in_w & (tval > 0), tval - 1, best0)
+
+
+def gather_rule_rows(rules: torch.Tensor, tidx: torch.Tensor) -> torch.Tensor:
+    """(T, R, 7) rules, (B,) target indices -> (B, R, 7) rows for the scan;
+    packets without a target (tidx < 0, or past the table) get all-zero
+    rows -> ruleId 0 everywhere -> UNDEF."""
+    T = rules.shape[0]
+    ok = (tidx >= 0) & (tidx < T)
+    rows = rules[tidx.clamp(0, T - 1)]
+    return torch.where(ok[:, None, None], rows, 0)
 
 
 def result_stats(result: torch.Tensor, batch: DeviceBatch) -> torch.Tensor:

@@ -50,33 +50,34 @@ class ClassifyResult:
     stats: Dict[int, List[int]] = field(default_factory=dict)
 
 
-def _lpm_lookup(
-    entries: List[Tuple[int, int, int, int]],  # (ifindex, mask_len, masked_ip_int, target)
-    ifindex: int,
-    ip_int: int,
-    cap_prefix_len: int,
-) -> int:
-    """Longest-prefix match over the (ifindex || ip) key space.  Entries
-    with prefixLen (mask_len + 32) above the packet key's prefix length
-    cannot match (BPF LPM trie lookup with the packet key of
-    kernel.c:206-212 / 292-295)."""
-    best_target = -1
-    best_len = -1
+LpmIndex = Dict[int, List[Tuple[int, Dict[int, int]]]]
+
+
+def _lpm_index(entries: List[Tuple[int, int, int, int]]) -> LpmIndex:
+    """(ifindex, mask_len, masked_ip_int, target) entries -> per ifindex,
+    the mask lengths present, longest first, each with a dict from the
+    prefix's top mask_len bits to its target.  Masked-identity dedup leaves
+    one entry per (ifindex, mask_len, prefix)."""
+    by_len: Dict[int, Dict[int, Dict[int, int]]] = {}
     for e_ifindex, e_mask_len, e_masked_ip, target in entries:
-        if e_ifindex != ifindex:
-            continue
-        if e_mask_len + 32 > cap_prefix_len:
-            continue
-        if e_mask_len > 0 and (ip_int >> (128 - e_mask_len)) != (
+        by_len.setdefault(e_ifindex, {}).setdefault(e_mask_len, {})[
             e_masked_ip >> (128 - e_mask_len)
-        ):
+        ] = target
+    return {ifx: sorted(lens.items(), reverse=True) for ifx, lens in by_len.items()}
+
+
+def _lpm_lookup(index: LpmIndex, ifindex: int, ip_int: int, cap_prefix_len: int) -> int:
+    """Longest-prefix match over the (ifindex || ip) key space: probe the
+    ifindex's mask lengths from the longest down.  Entries with prefixLen
+    (mask_len + 32) above the packet key's prefix length cannot match (BPF
+    LPM trie lookup with the packet key of kernel.c:206-212 / 292-295)."""
+    for mask_len, prefixes in index.get(ifindex, ()):
+        if mask_len + 32 > cap_prefix_len:
             continue
-        # Strictly greater: equal-length duplicates cannot both exist after
-        # masked-identity dedup.
-        if e_mask_len > best_len:
-            best_len = e_mask_len
-            best_target = target
-    return best_target
+        target = prefixes.get(ip_int >> (128 - mask_len))
+        if target is not None:
+            return target
+    return -1
 
 
 def _scan_rules(
@@ -127,6 +128,7 @@ def classify(tables: CompiledTables, batch: PacketBatch) -> ClassifyResult:
     dispatch, stats and final XDP verdict of ingress_node_firewall_main
     (kernel.c:412-457)."""
     entries, rules_by_target = _dedup_entries(tables)
+    index = _lpm_index(entries)
     b = len(batch)
     results = np.zeros(b, np.uint32)
     xdp = np.zeros(b, np.int32)
@@ -148,7 +150,7 @@ def classify(tables: CompiledTables, batch: PacketBatch) -> ClassifyResult:
             for w in range(4):
                 ip_int = (ip_int << 32) | int(batch.ip_words[i, w])
             cap = V4_KEY_PREFIX_LEN if is_v4 else V6_KEY_PREFIX_LEN
-            target = _lpm_lookup(entries, int(batch.ifindex[i]), ip_int, cap)
+            target = _lpm_lookup(index, int(batch.ifindex[i]), ip_int, cap)
             if target < 0:
                 result = UNDEF
             else:

@@ -16,7 +16,7 @@ Field conventions:
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -97,6 +97,14 @@ class PacketBatch:
         self._pack_wire_header(out)
         out[:, 3] = self.ip_words[:, 0].astype(np.uint32)
         return out
+
+    def pack_wire_subset(self, idx: np.ndarray) -> Tuple[np.ndarray, bool]:
+        """take(idx) then pack_wire[_v4] -> (wire, v4_only): the 4-word
+        format when the subset is v4-compactable, the 7-word one otherwise;
+        ``v4_only`` is True when the subset holds no IPv6 packet."""
+        sub = self.take(np.asarray(idx, np.int64))
+        wire = sub.pack_wire_v4() if sub.is_v4_compactable() else sub.pack_wire()
+        return wire, not bool((np.asarray(sub.kind) == KIND_IPV6).any())
 
 
 def make_batch(

@@ -88,6 +88,93 @@ def random_tables(
     return compile_tables_from_content(content, rule_width=width)
 
 
+def random_rules_bulk(rng: np.random.Generator, n: int, width: int) -> np.ndarray:
+    """(n, width, 7) packed rule rows, the vectorized random_rules: index ==
+    order == ruleId, index 0 empty, mixed protocols, half port ranges and
+    half single ports, DENY or ALLOW actions."""
+    rows = np.zeros((n, width, 7), np.int32)
+    if width < 2:
+        return rows
+    # per-entry fill probability in [0.3, 1.0] so table density varies
+    fill_p = rng.uniform(0.3, 1.0, (n, 1))
+    populated = rng.random((n, width)) < fill_p
+    populated[:, 0] = False  # order 0 is reserved
+    order = np.broadcast_to(np.arange(width, dtype=np.int32), (n, width))
+    proto = np.asarray(_PROTOS)[rng.integers(0, len(_PROTOS), (n, width))]
+    is_transport = (proto == IPPROTO_TCP) | (proto == IPPROTO_UDP) | (proto == IPPROTO_SCTP)
+    is_icmp = (proto == IPPROTO_ICMP) | (proto == IPPROTO_ICMPV6)
+    start = rng.integers(1, 65000, (n, width))
+    use_range = rng.random((n, width)) < 0.5
+    span = rng.integers(1, 500, (n, width))
+    end = np.where(use_range, np.minimum(start + span, 65535), 0)
+    rows[..., 0] = np.where(populated, order, 0)
+    rows[..., 1] = np.where(populated, proto, 0)
+    rows[..., 2] = np.where(populated & is_transport, start, 0)
+    rows[..., 3] = np.where(populated & is_transport, end, 0)
+    rows[..., 4] = np.where(populated & is_icmp, rng.integers(0, 256, (n, width)), 0)
+    rows[..., 5] = np.where(populated & is_icmp, rng.integers(0, 3, (n, width)), 0)
+    rows[..., 6] = np.where(populated, rng.integers(1, 3, (n, width)), 0)
+    return rows
+
+
+def random_tables_fast(
+    rng: np.random.Generator,
+    n_entries: int,
+    ifindexes: Tuple[int, ...] = (2, 3),
+    width: int = 16,
+    v6_fraction: float = 0.3,
+    group_size: int = 8,
+) -> CompiledTables:
+    """Vectorized large-table generator (the 100K-entry trie tier): entries
+    cluster into groups sharing a base address with realistic prefix-length
+    mixes (v4 peaked at /24, v6 at /48), so nested and sibling prefixes
+    stress longest-match tie-breaks.  Exactly ``n_entries`` distinct masked
+    identities."""
+    content: Dict[LpmKey, np.ndarray] = {}
+    seen = set()
+    while len(content) < n_entries:
+        n = int((n_entries - len(content)) * 1.4) + 64
+        is_v6 = rng.random(n) < v6_fraction
+        n_groups = max(1, n // group_size)
+        bases = rng.integers(0, 256, (n_groups, 16), dtype=np.uint8)
+        gid = rng.integers(0, n_groups, n)
+        ip = bases[gid].copy()
+        # sibling prefixes: perturb one tail byte on half the entries
+        perturb = rng.random(n) < 0.5
+        pos = rng.integers(1, 16, n)
+        val = rng.integers(0, 256, n, dtype=np.uint8)
+        ip[np.arange(n)[perturb], pos[perturb]] = val[perturb]
+
+        v4_lens = np.array([0, 8, 12, 16, 20, 24, 24, 24, 28, 32])
+        v6_lens = np.array([0, 32, 40, 48, 48, 48, 56, 64, 96, 128])
+        mask_len = np.where(
+            is_v6,
+            v6_lens[rng.integers(0, len(v6_lens), n)],
+            v4_lens[rng.integers(0, len(v4_lens), n)],
+        ).astype(np.int64)
+        ip[~is_v6, 4:] = 0
+        ifindex = np.asarray(ifindexes)[rng.integers(0, len(ifindexes), n)]
+        rules = random_rules_bulk(rng, n, width)
+
+        ip_bytes = [bytes(row) for row in ip]
+        for i in range(n):
+            # exact masked-identity dedup, so the entry count is exact
+            m = int(mask_len[i])
+            nb, rem = m // 8, m % 8
+            data = ip_bytes[i][:nb]
+            if rem:
+                data += bytes([ip_bytes[i][nb] & ((0xFF << (8 - rem)) & 0xFF)])
+            ident = (int(ifindex[i]), m, data)
+            if ident in seen:
+                continue
+            seen.add(ident)
+            key = LpmKey(prefix_len=m + 32, ingress_ifindex=int(ifindex[i]), ip_data=ip_bytes[i])
+            content[key] = rules[i]
+            if len(content) >= n_entries:
+                break
+    return compile_tables_from_content(content, rule_width=width)
+
+
 def random_batch_fast(
     rng: np.random.Generator,
     tables: CompiledTables,

@@ -272,7 +272,13 @@ def _content(n, rid=1, width=4):
 
 
 @pytest.mark.parametrize("case", ["entries", "rule_id", "rule_width"])
-def test_load_tables_refuses_what_only_the_trie_path_serves(case):
+def test_load_tables_routes_to_the_trie_path(case):
+    """What the dense packing cannot hold (more than 4096 entries, ruleIds
+    above 127, rule width above 128) loads on the trie path and classifies
+    as the oracle does."""
+    from infw_torch import oracle
+    from infw_torch.packets import make_batch as port_make_batch
+
     content, width = {
         "entries": (_content(4097), 4),
         "rule_id": (_content(3, rid=200), 4),
@@ -280,9 +286,17 @@ def test_load_tables_refuses_what_only_the_trie_path_serves(case):
     }[case]
     tables = compiler.compile_tables_from_content(content, rule_width=width)
     clf = TorchClassifier(device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        clf.load_tables(tables)
-    assert clf.active_path is None
+    clf.load_tables(tables)
+    assert clf.active_path == "trie"
+    batch = port_make_batch(
+        src=["0.0.0.1", "0.0.2.255", "0.0.16.0", "0.0.0.2", "2001:db8::1"],
+        proto=[6, 6, 6, 17, 6], dst_port=[80, 80, 80, 80, 80], ifindex=[2, 2, 2, 2, 2],
+    )
+    out = clf.classify(batch)
+    ref = oracle.classify(tables, batch)
+    np.testing.assert_array_equal(out.results, ref.results)
+    np.testing.assert_array_equal(out.xdp, ref.xdp)
+    assert out.results[0] == (content[next(iter(content))][1, 0] << 8) | 1
 
 
 def test_load_tables_refuses_an_overlay():
@@ -292,6 +306,19 @@ def test_load_tables_refuses_an_overlay():
         clf.load_tables(main, overlay=compiler.compile_tables_from_content(_content(1)))
     clf.load_tables(main, overlay=compiler.compile_tables_from_content({}))
     assert clf.active_path == "dense"
+
+
+def test_trie_path_overlay_is_not_implemented():
+    """The trie path's overlay combine comes with incremental loads."""
+    clf = TorchClassifier(device="cpu", force_path="trie")
+    main = compiler.compile_tables_from_content(_content(3))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        clf.load_tables(main, overlay=compiler.compile_tables_from_content(_content(1)))
+    assert clf.active_path is None
+    clf.load_tables(main, overlay=compiler.compile_tables_from_content({}))
+    assert clf.active_path == "trie"
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        TorchClassifier(device="cpu", force_path="ctrie")
 
 
 def test_import_loads_no_jax_and_no_infw():
