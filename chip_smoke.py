@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Drives the port's dense and trie classify paths on the card and fails
+Drives the port's dense, trie and ctrie classify paths on the card and fails
 (non-zero exit, no result line) on any error:
 
 1. device: the card's name and power limit (nvidia-smi);
@@ -33,13 +33,28 @@ Drives the port's dense and trie classify paths on the card and fails
    kind of the 2^20-packet runs, the statistics against a host recount; K2
    times per level count, its bound, the plain version's time, the
    steered and unsteered end-to-end times and the stage split;
-7. one JSON ``kernels`` line, then the device JSON as the last line.
+7. the ctrie path at the JAX package's 10M-entry tier (bench.py
+   bench_scale_10m: clean_columns_fast, 10,000,000 disjoint /24 and /48
+   entries x 4 rule slots on ifindexes 2, 3, one Allow rule each, 2^19
+   packets): the host build timed phase by phase with the peak RSS; kernel
+   K3 against its plain version on every packet of that table and of the
+   trie phase's 100K table; the main path (TorchClassifier(force_path=
+   "ctrie") and TorchClassifier(compressed=True) pick "ctrie"; classify
+   and the packed chunks), launch counts zeroed before and read after
+   (ctrie_walk launched, trie_walk not), checked against the trie path
+   (K2) on the whole batch, a host recount of the statistics and the
+   HashLpmOracle on 4096-packet subsets and the first packets of the run;
+   K3 times on both tables, its bound, the plain version's time, the
+   device pass, end to end and the stage split;
+8. one JSON ``kernels`` line, then the device JSON as the last line.
 
 Imports nothing of JAX or of the JAX package ``infw``.
 """
 from __future__ import annotations
 
 import json
+import os
+import resource
 import subprocess
 import sys
 import time
@@ -51,6 +66,8 @@ HEADLINE_ENTRIES, HEADLINE_WIDTH, HEADLINE_PACKETS = 1000, 100, 1 << 20
 LIMIT_ENTRIES, LIMIT_WIDTH, LIMIT_PACKETS = 4096, 16, 1 << 18
 # bench config 3 of the JAX package (bench.py bench_trie_100k)
 TRIE_ENTRIES, TRIE_WIDTH, TRIE_PACKETS = 100_000, 8, 1 << 20
+# the JAX package's 10M-entry tier (bench.py bench_scale_10m)
+CTRIE_ENTRIES, CTRIE_WIDTH, CTRIE_PACKETS = 10_000_000, 4, 1 << 19
 ORACLE_PACKETS = 4096
 # Published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, dense int8 ops/s.
 HBM_BYTES_PER_S = 3.35e12
@@ -162,14 +179,15 @@ def check_recount(batch, results, stats_delta, label: str) -> None:
         raise SystemExit(f"{label}: statistics disagree with the verdicts")
 
 
-def check_oracle(clf, tables, subsets, label: str) -> None:
+def check_oracle(clf, reference, subsets, label: str) -> None:
     """Each subset classified again on its own: results, XDP verdicts and
-    statistics bit for bit against the scalar oracle."""
-    from infw_torch import oracle, testing
+    statistics bit for bit against ``reference(subset)``, an oracle's
+    classify."""
+    from infw_torch import testing
 
     for name, sub in subsets.items():
         got = clf.classify(sub, apply_stats=False)
-        ref = oracle.classify(tables, sub)
+        ref = reference(sub)
         ok = (
             np.array_equal(got.results, ref.results)
             and np.array_equal(got.xdp, ref.xdp)
@@ -249,8 +267,9 @@ def steered_classify(clf, batch):
     return results, xdp, stats, chunks
 
 
-def trie_phase(tag: str) -> dict:
-    """The trie path at bench config 3; returns K2's kernels-line entry."""
+def trie_phase(tag: str):
+    """The trie path at bench config 3; returns K2's kernels-line entry,
+    the tables and the batch."""
     import torch
 
     from infw_torch import layout, oracle, testing
@@ -313,7 +332,7 @@ def trie_phase(tag: str) -> dict:
     log(f"trie main path verdicts: drop={hist[1]} pass={hist[2]} "
         f"rule hits={int((out.results != 0).sum())}")
     groups = clf.v6_depth_groups(batch.ifindex, batch.ip_words, np.nonzero(batch.kind == 2)[0])
-    check_oracle(clf, tables, {
+    check_oracle(clf, lambda sub: oracle.classify(tables, sub), {
         "mixed": batch.slice(0, ORACLE_PACKETS),
         "v4-only": batch.take(np.nonzero(batch.kind != 2)[0][:ORACLE_PACKETS]),
         "full-depth v6 class": batch.take(groups[-1][1][:ORACLE_PACKETS]),
@@ -365,18 +384,21 @@ def trie_phase(tag: str) -> dict:
 
     timed_stage(stages, "host finalize", host_finalize)
 
-    # Bound: each input read once (48 B of fields + words per packet, the
-    # resident tables) and the (B, 2) output written once, over the HBM
-    # rate.  The per-packet node rows mostly hit L2, so this is a floor.
+    # Bound: each input read once (48 B of fields + words per packet, and
+    # the table rows this batch's walks touch, each once) and the (B, 2)
+    # output written once, over the HBM rate.  The per-packet node rows
+    # mostly hit L2, so this is a floor.
     table_bytes = sum(t.numel() * 4 for t in tt[:6])
-    bytes_moved = B * (48 + 8) + table_bytes
+    touched = k2_footprint(walk, torchpath, tt, fields, words, n)
+    bytes_moved = B * (48 + 8) + sum(touched.values())
     bound_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
     for nl in level_counts:
         log(f"{tag} K2 trie_walk [{nl} levels]: {k2_ms[nl]:.4f} ms at B={B} "
             f"({B / k2_ms[nl] / 1e3:.1f} M packets/s; {nl + 3} dependent loads per packet)")
     log(f"{tag} K2 bound: {bound_ms:.4f} ms by bytes ({bytes_moved / 1e6:.1f} MB: "
-        f"{table_bytes / 1e6:.1f} MB of tables + {B * 56 / 1e6:.1f} MB in/out); "
-        f"K2 at {n} levels is {k2_ms[n] / bound_ms:.1f}x its bound")
+        f"{B * 56 / 1e6:.1f} MB in/out + {sum(touched.values()) / 1e6:.1f} MB of the "
+        f"{table_bytes / 1e6:.1f} MB of tables touched at {n} levels, in MB: "
+        f"{footprint_text(touched)}); K2 at {n} levels is {k2_ms[n] / bound_ms:.1f}x its bound")
     log(f"{tag} K2 plain version [{n} levels]: {plain_ms:.4f} ms")
     log(f"{tag} trie device pass (unpack + K2 + finalize + stats + fuse, {n} levels): "
         f"{fused_ms:.4f} ms")
@@ -403,6 +425,313 @@ def trie_phase(tag: str) -> dict:
         "ms_by_levels": {str(nl): k2_ms[nl] for nl in level_counts},
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
+        "bound_by": "bytes",
+        "library_ms": None,
+    }, tables, batch
+
+
+def peak_rss_gib() -> float:
+    """This process's peak resident set (getrusage: KiB on Linux)."""
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
+
+
+class TableReads:
+    """Stands in for a table tensor in a plain walk (``t.shape``, ``t[idx]``)
+    and records the row indices the walk reads, so that the walk tells
+    which rows of the table a batch touches."""
+
+    def __init__(self, t):
+        self.t, self.shape, self.reads = t, t.shape, []
+
+    def __getitem__(self, idx):
+        self.reads.append(idx.reshape(-1))
+        return self.t[idx]
+
+    def bytes_read(self) -> int:
+        """Distinct rows read x bytes per row."""
+        import torch
+
+        if not self.reads:
+            return 0
+        rows = torch.unique(torch.cat(self.reads)).numel()
+        return rows * int(np.prod(self.t.shape[1:])) * self.t.element_size()
+
+
+def k2_footprint(walk, torchpath, tt, fields, words, n_levels: int) -> dict:
+    """The bytes of the trie tables that K2 must read for this batch at
+    ``n_levels`` levels, each row once however many packets share it: the
+    root-LUT entries, DIR-16 slots, node rows and target entries the plain
+    walk reads, the level offsets, and the rule rows of the matched entries
+    (none for packets without a match).  The plain walk reads every lane,
+    so a lane that has stopped may add its clamped row: at most one row of
+    each table."""
+    import torch
+
+    levels = [TableReads(t) for t in tt.levels(n_levels)]
+    targets, lut = TableReads(tt.targets), TableReads(tt.root_lut)
+    tidx = torch.cat([
+        torchpath.trie_walk(levels, targets, lut, torchpath.batch_from_fields(
+            fields[s:s + walk.PLAIN_CHUNK], words[s:s + walk.PLAIN_CHUNK]))
+        for s in range(0, fields.shape[0], walk.PLAIN_CHUNK)])
+    matched = torch.unique(tidx[(tidx >= 0) & (tidx < tt.rules.shape[0])]).numel()
+    return {
+        "root LUT": lut.bytes_read(), "DIR-16 slots": levels[0].bytes_read(),
+        "node rows": sum(lv.bytes_read() for lv in levels[1:]),
+        "level offsets": (n_levels - 1) * 8, "targets": targets.bytes_read(),
+        "rule rows": matched * tt.rules[0].numel() * 4,
+    }
+
+
+def k3_footprint(cwalk, torchpath, ct, fields, words) -> dict:
+    """The bytes of the ctrie tables that K3 must read for this batch, each
+    row once however many packets share it: the root-LUT entries, DIR-16
+    slots, node rows and target entries the plain walk reads, and the
+    joined rows of the matched entries (none for packets without a match).
+    The plain walk reads every lane, so a lane that has stopped may add its
+    clamped row: at most one row of each table."""
+    import torch
+
+    rec = cwalk.CTrieTables(TableReads(ct.root_lut), TableReads(ct.l0), TableReads(ct.nodes),
+                            TableReads(ct.targets), ct.joined, ct.d_max)
+    sel = torch.cat([
+        torchpath.ctrie_walk_rows(rec, torchpath.batch_from_fields(
+            fields[s:s + cwalk.PLAIN_CHUNK], words[s:s + cwalk.PLAIN_CHUNK]), ct.d_max)[1]
+        for s in range(0, fields.shape[0], cwalk.PLAIN_CHUNK)])
+    matched = torch.unique(sel[(sel > 0) & (sel < ct.joined.shape[0])]).numel()
+    return {
+        "root LUT": rec.root_lut.bytes_read(), "DIR-16 slots": rec.l0.bytes_read(),
+        "node rows": rec.nodes.bytes_read(), "targets": rec.targets.bytes_read(),
+        "joined rows": matched * ct.joined.shape[1] * 2,
+    }
+
+
+def footprint_text(parts: dict) -> str:
+    return ", ".join(f"{k} {v / 1e6:.3f}" for k, v in parts.items())
+
+
+def compare_k3(cwalk, ct, fields, words, label: str) -> int:
+    """K3 against its plain version on every packet; returns the largest
+    absolute difference (0 when equal)."""
+    import torch
+
+    got = cwalk.ctrie_walk_classify(fields, words, ct)
+    want = cwalk.ctrie_walk_classify_plain(fields, words, ct)
+    torch.cuda.synchronize()
+    mism = int((got != want).any(dim=1).sum().item())
+    err = int((got.long() - want.long()).abs().max().item())
+    log(f"K3 vs plain [{label}]: B={fields.shape[0]} mismatching packets={mism} "
+        f"max_abs_err={err} lpm-matched={int((got[:, 1] >= 0).sum().item())}")
+    if mism:
+        raise SystemExit(f"K3 disagrees with its plain version on {label}")
+    return err
+
+
+def ctrie_phase(tag: str, trie_tables, trie_batch) -> dict:
+    """The ctrie path at the JAX package's 10M-entry tier (table A), with
+    K3 also held against its plain version on the trie phase's 100K table
+    (table B, deep /128 skip chains); returns K3's kernels-line entry."""
+    import torch
+
+    from infw_torch import compiler, layout, oracle, testing
+    from infw_torch.backend.cuda import TorchClassifier
+    from infw_torch.kernels import all_kernels, cwalk, torchpath
+    from infw_torch.packets import narrow_wire
+
+    # table A: clean /24 + /48 columns, Allow-only, ifindexes 2 and 3
+    build = {}
+    rng = np.random.default_rng(2024)
+    cols = timed_stage(build, "corpus", lambda: testing.clean_columns_fast(
+        rng, CTRIE_ENTRIES, width=CTRIE_WIDTH))
+    # the compile's two parts: the arrays (compiler._compile_columns, timed
+    # by a wrapper for this call) and the {LpmKey: rules} content map after
+    arrays_s = []
+    compile_columns = compiler._compile_columns
+
+    def timed_compile_columns(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = compile_columns(*args, **kwargs)
+        arrays_s.append(time.perf_counter() - t0)
+        return out
+
+    compiler._compile_columns = timed_compile_columns
+    try:
+        tables = timed_stage(build, "compile", lambda: compiler.compile_tables_from_columns(
+            cols, rule_width=CTRIE_WIDTH))
+    finally:
+        compiler._compile_columns = compile_columns
+    del cols
+    timed_stage(build, "build_poptrie", lambda: layout.build_poptrie(tables))
+    _l0, nodes, _targets, d_max = timed_stage(build, "build_cpoptrie",
+                                              lambda: layout.build_cpoptrie(tables))
+    timed_stage(build, "joined rows", lambda: layout.joined_by_tidx(tables))
+    ct = timed_stage(build, "upload", lambda: cwalk.build_ctrie_tables(tables, "cuda"))
+    batch = testing.random_batch_fast(rng, tables, CTRIE_PACKETS)
+    table_bytes = sum(t.numel() * t.element_size() for t in ct[:5])
+    log(f"ctrie table A: {tables.num_entries} entries x {tables.rule_width} rule slots, "
+        f"{tables.levels} trie levels; {nodes.shape[0]} node rows, "
+        f"{int((nodes[:, 2] > 0).sum())} skip nodes, d_max {d_max}; device tables "
+        f"{table_bytes / 1e6:.1f} MB (l0 {ct.l0.numel() * 4 / 1e6:.1f}, nodes "
+        f"{ct.nodes.numel() * 4 / 1e6:.1f}, targets {ct.targets.numel() * 4 / 1e6:.1f}, "
+        f"joined {ct.joined.numel() * 2 / 1e6:.1f})")
+    log("ctrie table A build (host clock, s): "
+        + ", ".join(f"{k} {v:.2f}" for k, v in build.items())
+        + f"; compile split: arrays {arrays_s[0]:.2f}, "
+        f"content map {build['compile'] - arrays_s[0]:.2f}")
+    log(f"host memory after the build: peak RSS {peak_rss_gib():.2f} GiB of "
+        f"{os.sysconf('SC_PAGE_SIZE') * os.sysconf('SC_PHYS_PAGES') / 2**30:.2f} GiB host RAM")
+
+    # 1. K3 against its plain version, every packet of both tables
+    fields, words = torchpath.packet_fields(torchpath.device_batch(batch, "cuda"))
+    ct_b = cwalk.build_ctrie_tables(trie_tables, "cuda")
+    fields_b, words_b = torchpath.packet_fields(torchpath.device_batch(trie_batch, "cuda"))
+    log(f"ctrie table B: the trie phase's {trie_tables.num_entries} entries, "
+        f"{ct_b.nodes.shape[0]} node rows, "
+        f"{int((ct_b.nodes[:, 2] != 0).sum().item())} skip nodes, d_max {ct_b.d_max}")
+    label_a = f"table A, {tables.num_entries} entries"
+    label_b = f"table B, {trie_tables.num_entries} entries"
+    err = max(compare_k3(cwalk, ct, fields, words, label_a),
+              compare_k3(cwalk, ct_b, fields_b, words_b, label_b))
+
+    # 2. the main path: both knobs pick the ctrie path; the trie path (K2)
+    # on the same table is the cross-check
+    loads = {}
+    clf = TorchClassifier(force_path="ctrie")
+    timed_stage(loads, "force_path='ctrie'", lambda: clf.load_tables(tables))
+    comp = TorchClassifier(compressed=True)
+    timed_stage(loads, "compressed=True", lambda: comp.load_tables(tables))
+    trie = TorchClassifier(force_path="trie")
+    timed_stage(loads, "force_path='trie' (K2)", lambda: trie.load_tables(tables))
+    if (clf.active_path, comp.active_path, trie.active_path) != ("ctrie", "ctrie", "trie"):
+        raise SystemExit(f"paths chosen: {clf.active_path}, {comp.active_path}, "
+                         f"{trie.active_path}; expected ctrie, ctrie, trie")
+    kernels = all_kernels()
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    out = clf.classify(batch)
+    out_c = comp.classify(batch)
+    idx6 = np.nonzero(batch.kind == 2)[0]
+    packed = {"results": np.zeros(len(batch), np.uint32), "xdp": np.zeros(len(batch), np.int32),
+              "stats": np.zeros((1024, 4), np.int64)}
+    jobs = [(None, np.nonzero(batch.kind != 2)[0])]
+    jobs += clf.v6_depth_groups(batch.ifindex, batch.ip_words, idx6)
+    for depth, idx in jobs:
+        wire, v4_only = batch.pack_wire_subset(idx)
+        o = clf.classify_async_packed(wire, v4_only, apply_stats=False, depth=depth).result()
+        packed["results"][idx], packed["xdp"][idx] = o.results, o.xdp
+        packed["stats"] += o.stats_delta
+    main_s = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in kernels}
+    log(f"ctrie main path: classify({len(batch)}) by force_path='ctrie' and by "
+        f"compressed=True, then {len(jobs)} packed chunks, in {main_s:.3f} s (first calls), "
+        f"launches {launches}")
+    if launches["ctrie_walk"] <= 0 or launches["trie_walk"] != 0:
+        raise SystemExit("the ctrie main path must launch ctrie_walk and never trie_walk")
+    ref = trie.classify(batch)
+    for name, got in (("compressed=True", (out_c.results, out_c.xdp, out_c.stats_delta)),
+                      ("packed chunks", (packed["results"], packed["xdp"], packed["stats"])),
+                      ("trie path (K2)", (ref.results, ref.xdp, ref.stats_delta))):
+        if not all(np.array_equal(a, b) for a, b in
+                   zip((out.results, out.xdp, out.stats_delta), got)):
+            raise SystemExit(f"ctrie main path disagrees with {name}")
+        log(f"ctrie main path vs {name} [{len(batch)} packets]: equal")
+    check_recount(batch, out.results, out.stats_delta, "ctrie main path")
+    hist = np.bincount(out.xdp, minlength=3)
+    log(f"ctrie main path verdicts: drop={hist[1]} pass={hist[2]} "
+        f"rule hits={int((out.results != 0).sum())}")
+    hashed = timed_stage(loads, "HashLpmOracle", lambda: oracle.HashLpmOracle(tables))
+    check_oracle(clf, hashed.classify, {
+        "mixed": batch.slice(0, ORACLE_PACKETS),
+        "v4-only": batch.take(np.nonzero(batch.kind != 2)[0][:ORACLE_PACKETS]),
+        "v6-only": batch.take(idx6[:ORACLE_PACKETS]),
+    }, "ctrie main path")
+    first = hashed.classify(batch.slice(0, ORACLE_PACKETS))
+    if not (np.array_equal(out.results[:ORACLE_PACKETS], first.results)
+            and np.array_equal(out.xdp[:ORACLE_PACKETS], first.xdp)):
+        raise SystemExit("the timed ctrie run disagrees with the oracle on its first packets")
+    log(f"ctrie {len(batch)}-packet run vs oracle [first {ORACLE_PACKETS} packets]: equal")
+    log("ctrie loads and oracle build (host clock, s): "
+        + ", ".join(f"{k} {v:.2f}" for k, v in loads.items())
+        + f"; peak RSS now {peak_rss_gib():.2f} GiB")
+
+    # 3. timings: K3 on both tables, its plain version, the device pass,
+    # end to end and the stage split
+    B = len(batch)
+    k3_ms = cuda_ms(lambda: cwalk.ctrie_walk_classify(fields, words, ct), reps=20)
+    k3_b_ms = cuda_ms(lambda: cwalk.ctrie_walk_classify(fields_b, words_b, ct_b), reps=20)
+    # where table A's chains are served from: the same table, the same
+    # packet count, but the first 4096 packets repeated, so the rows the
+    # walks read (a few MB) stay in the 50 MB L2 after their first reads
+    hot = torch.arange(B, device=fields.device) % ORACLE_PACKETS
+    fields_hot, words_hot = fields[hot].contiguous(), words[hot].contiguous()
+    k3_hot_ms = cuda_ms(lambda: cwalk.ctrie_walk_classify(fields_hot, words_hot, ct), reps=20)
+    plain_ms = cuda_ms(lambda: cwalk.ctrie_walk_classify_plain(fields, words, ct), reps=3,
+                       warmup=1)
+    plain_b_ms = cuda_ms(lambda: cwalk.ctrie_walk_classify_plain(fields_b, words_b, ct_b),
+                         reps=3, warmup=1)
+    e2e_s = median_s(lambda: clf.classify(batch))
+    stages = {}
+    wire_np = timed_stage(stages, "wire pack", lambda: narrow_wire(batch.pack_wire()))
+    wire_dev = timed_stage(stages, "host-to-device copy",
+                           lambda: torch.from_numpy(wire_np.view(np.int32)).to("cuda"))
+    fused = timed_stage(stages, "device pass",
+                        lambda: cwalk.classify_ctrie_wire_fused(ct, wire_dev))
+    host = timed_stage(stages, "device-to-host read", lambda: fused.cpu().numpy())
+    fused_ms = cuda_ms(lambda: cwalk.classify_ctrie_wire_fused(ct, wire_dev), reps=10)
+
+    def host_finalize():
+        res16, st = torchpath.split_wire_outputs(host, B)
+        torchpath.merge_stats_host(st)
+        return torchpath.host_finalize_wire(res16, batch.kind)
+
+    timed_stage(stages, "host finalize", host_finalize)
+
+    # 4. the bound, by bytes: 56 B per packet in and out, plus the table
+    # rows this batch's walks touch, each once
+    def bound(ct_, fields_, words_):
+        touched = k3_footprint(cwalk, torchpath, ct_, fields_, words_)
+        io = fields_.shape[0] * 56
+        return (io + sum(touched.values())) / HBM_BYTES_PER_S * 1e3, io, touched
+
+    bound_ms, io_a, touched_a = bound(ct, fields, words)
+    bound_b_ms, io_b, touched_b = bound(ct_b, fields_b, words_b)
+    for label, ms, bms, io, touched, ct_, n in (
+        (label_a, k3_ms, bound_ms, io_a, touched_a, ct, B),
+        (label_b, k3_b_ms, bound_b_ms, io_b, touched_b, ct_b, fields_b.shape[0]),
+    ):
+        tb = sum(t.numel() * t.element_size() for t in ct_[:5])
+        log(f"{tag} K3 ctrie_walk [{label}]: {ms:.4f} ms at B={n} ({n / ms / 1e3:.1f} M packets/s)")
+        log(f"{tag} K3 bound [{label}]: {bms:.4f} ms by bytes = ({io / 1e6:.1f} MB in/out + "
+            f"{sum(touched.values()) / 1e6:.1f} MB of the {tb / 1e6:.1f} MB of tables touched, "
+            f"in MB: {footprint_text(touched)}) / 3.35 TB/s; K3 is {ms / bms:.1f}x its bound")
+    hot = k3_footprint(cwalk, torchpath, ct, fields_hot[:ORACLE_PACKETS],
+                       words_hot[:ORACLE_PACKETS])
+    log(f"{tag} K3 L2 probe [{label_a}]: {B} packets repeating the first {ORACLE_PACKETS} "
+        f"(tables touched {sum(hot.values()) / 1e6:.3f} MB: {footprint_text(hot)}) "
+        f"{k3_hot_ms:.4f} ms, against {k3_ms:.4f} ms for {B} distinct packets "
+        f"({sum(touched_a.values()) / 1e6:.1f} MB touched)")
+    log(f"{tag} K3 plain version: {plain_ms:.4f} ms [table A], {plain_b_ms:.4f} ms [table B]")
+    log(f"{tag} ctrie device pass (unpack + K3 + finalize + stats + fuse, table A): "
+        f"{fused_ms:.4f} ms")
+    log(f"{tag} ctrie end-to-end classify: {e2e_s * 1e3:.2f} ms per {B} packets (median of 5) = "
+        f"{B / e2e_s / 1e6:.3f} M packets/s")
+    log(f"{tag} ctrie stages of one classify (host clock, ms): "
+        + ", ".join(f"{k} {v * 1e3:.2f}" for k, v in stages.items()))
+    return {
+        "name": "ctrie_walk",
+        "route": "cuda",
+        "source": "infw_torch/kernels/csrc/ctrie_walk.cu",
+        "replaces": "infw/kernels/pallas_walk.py:918",
+        "launches": launches["ctrie_walk"],
+        "mismatches": 0,
+        "max_abs_err": err,
+        "ms": k3_ms,
+        "ms_table_b": k3_b_ms,
+        "ms_first_4096_repeated": k3_hot_ms,
+        "plain_ms": plain_ms,
+        "plain_ms_table_b": plain_b_ms,
+        "bound_ms": bound_ms,
+        "bound_ms_table_b": bound_b_ms,
         "bound_by": "bytes",
         "library_ms": None,
     }
@@ -494,7 +823,7 @@ def main() -> int:
     hist = np.bincount(out.xdp, minlength=3)
     log(f"main path verdicts: drop={hist[1]} pass={hist[2]} "
         f"rule hits={int((out.results != 0).sum())}")
-    check_oracle(clf, tables, {
+    check_oracle(clf, lambda sub: oracle.classify(tables, sub), {
         "mixed": batch.slice(0, ORACLE_PACKETS),  # 6-word narrow wire
         "v4-only": batch.take(np.nonzero(batch.kind != 2)[0][:ORACLE_PACKETS]),  # 3-word
     }, "dense main path")
@@ -566,10 +895,13 @@ def main() -> int:
     }
 
     # 6. the trie path
-    k2 = trie_phase(tag)
+    k2, trie_tables, trie_batch = trie_phase(tag)
 
-    # 7. the kernels line, then the device line last
-    print(json.dumps({"kernels": [k1, k2]}), flush=True)
+    # 7. the ctrie path
+    k3 = ctrie_phase(tag, trie_tables, trie_batch)
+
+    # 8. the kernels line, then the device line last
+    print(json.dumps({"kernels": [k1, k2, k3]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}),
           flush=True)
     return 0

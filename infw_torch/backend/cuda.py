@@ -1,20 +1,29 @@
-"""Single-GPU classifier backend: the dense and the trie paths.
+"""Single-GPU classifier backend: the dense, trie and ctrie paths.
 
 The counterpart of the JAX package's TpuClassifier, stateless serving on
 one device: compiled rule tables live on the card, each batch is packed
 into the wire format on the host, copied in once, unpacked and classified
-by kernel K1 (kernels/dense.py, tables of at most ``dense_limit`` entries)
-or kernel K2 (kernels/walk.py, every larger table), and read back once as
-one int32 buffer of results and statistics.
+by kernel K1 (kernels/dense.py, tables of at most ``dense_limit`` entries),
+kernel K2 (kernels/walk.py, the trie path) or kernel K3 (kernels/cwalk.py,
+the compressed ctrie path), and read back once as one int32 buffer of
+results and statistics.
 
 - **path choice** (``load_tables``): dense up to ``dense_limit`` entries,
   trie above; a table whose ruleIds or rule width the dense packing cannot
-  hold takes the trie path too.  ``force_path`` pins a path.
+  hold takes the trie path too.  ``compressed`` (else the
+  ``INFW_COMPRESSED`` env, else off) upgrades the auto-selected trie path
+  to the ctrie path; ``force_path`` pins a path and wins over
+  ``compressed`` (``force_path="ctrie"`` is the per-instance form).  A
+  ctrie table whose results do not fit the 16-bit wire or whose rules do
+  not fit the uint16 joined rows falls back to the trie path.
 - **depth steering** (trie path): an IPv4-only chunk walks the levels
   within /32; ``v6_depth_groups`` bins IPv6 positions into the table's
   depth classes, and a chunk of class d walks 1 + d levels.  The class
   travels with the generation of the tables it was computed on; a stale
-  generation walks every level (never under-walk a newer table).
+  generation walks every level (never under-walk a newer table).  The
+  ctrie path does not steer: K3 serves every chunk whole, so
+  ``v6_depth_groups`` returns its steering-off form and depth tokens
+  change nothing.
 - **wide ruleIds** (above 255, trie path): the 16-bit wire result cannot
   carry them, so ``classify`` ships the whole batch and reads u32 results
   back, through the same kernel.
@@ -33,6 +42,7 @@ what the CPU tests do).  There is no silent fallback to the CPU.
 """
 from __future__ import annotations
 
+import os
 import threading
 from typing import NamedTuple, Optional, Union
 
@@ -41,11 +51,12 @@ import torch
 
 from ..compiler import CompiledTables
 from ..constants import KIND_IPV6
-from ..kernels import dense, torchpath, walk
+from ..kernels import cwalk, dense, torchpath, walk
 from ..layout import (
     build_depth_lut,
     check_wire_ruleids,
     depth_group_indices,
+    joined_by_tidx,
     tune_depth_classes,
     v4_trie_depth,
 )
@@ -54,42 +65,40 @@ from .base import ClassifyOutput, PendingClassify, StatsAccumulator
 
 #: where the parts this backend does not serve yet are queued
 OVERLAY_ITEM = "ROADMAP.md item 5 (incremental patches and the overlay combine)"
-CTRIE_ITEM = "ROADMAP.md item 7 (the compressed ctrie and kernel K3)"
 
 
 class _Active(NamedTuple):
-    path: str  # "dense" | "trie"
-    dev: Union[dense.DenseTables, walk.TrieTables]
+    path: str  # "dense" | "trie" | "ctrie"
+    dev: Union[dense.DenseTables, walk.TrieTables, cwalk.CTrieTables]
     wide_rids: bool
 
 
 class TorchClassifier:
-    """Single-device classifier (dense and trie paths)."""
+    """Single-device classifier (dense, trie and ctrie paths)."""
 
     def __init__(self, device=None, dense_limit: int = dense.MAX_DENSE_TARGETS,
-                 force_path: Optional[str] = None) -> None:
-        if force_path == "ctrie":
-            raise NotImplementedError(f"force_path='ctrie': the compressed path is {CTRIE_ITEM}")
-        if force_path not in (None, "dense", "trie"):
-            raise ValueError(f"unknown force_path {force_path!r} (expected 'dense', 'trie' or None)")
-        if device is None:
-            if not torch.cuda.is_available():
-                raise RuntimeError(
-                    "TorchClassifier: no CUDA device; pass device='cpu' to run "
-                    "the plain PyTorch version on the CPU"
-                )
-            device = "cuda:0"
-        self._device = torch.device(device)
-        if self._device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(f"TorchClassifier: {self._device} requested but CUDA is unavailable")
+                 force_path: Optional[str] = None,
+                 compressed: Optional[bool] = None) -> None:
+        if force_path not in (None, "dense", "trie", "ctrie"):
+            raise ValueError(
+                f"unknown force_path {force_path!r} (expected 'dense', 'trie', 'ctrie' or None)"
+            )
+        self._device = torchpath.resolve_device(device)
         self._dense_limit = dense_limit
         self._force_path = force_path
+        # the JAX package's precedence: the argument, else INFW_COMPRESSED,
+        # else off
+        if compressed is None:
+            env = os.environ.get("INFW_COMPRESSED", "")
+            compressed = bool(env) and env not in ("0", "false", "no")
+        self._compressed = bool(compressed)
         self._lock = threading.Lock()
         self._stats = StatsAccumulator()
         self._tables: Optional[CompiledTables] = None
         self._active: Optional[_Active] = None
         # (root_lut, depth LUT, classes, generation) of the trie tables in
-        # service; the generation is assigned under the install lock
+        # service (None on the other paths); the generation is assigned
+        # under the install lock
         self._depth_steer = None
         self._depth_gen = 0
         self._closed = False
@@ -104,13 +113,25 @@ class TorchClassifier:
                     overlay: Optional[CompiledTables] = None) -> None:
         """Swap in a newly compiled ruleset (a full upload).  An overlay
         with entries raises: ValueError where the JAX package refuses one
-        too (dense path, wide ruleIds), NotImplementedError on the trie
-        path."""
+        too (dense path, wide ruleIds), NotImplementedError on the trie and
+        ctrie paths."""
         if self._closed:
             raise RuntimeError("classifier is closed")
         path = self._force_path or (
             "dense" if tables.num_entries <= self._dense_limit else "trie"
         )
+        if path == "trie" and self._compressed and self._force_path is None:
+            path = "ctrie"  # the upgrade applies to the auto-selected trie path only
+        if path == "ctrie":
+            # results must fit the 16-bit wire and rules the uint16 joined
+            # rows; otherwise the trie path serves the table
+            try:
+                check_wire_ruleids(tables)
+            except ValueError:
+                path = "trie"
+            else:
+                if joined_by_tidx(tables) is None:
+                    path = "trie"
         if path == "dense":
             try:
                 dev = dense.build_dense_tables(tables, self._device)
@@ -127,14 +148,16 @@ class TorchClassifier:
             except ValueError:
                 wide_rids = True  # the u32 result path
         if overlay is not None and overlay.num_entries > 0:
-            if path != "trie" or wide_rids:
+            if path not in ("trie", "ctrie") or wide_rids:
                 raise ValueError(
                     f"overlay not supported on path={path} (wide_rids={wide_rids}); "
                     "merge it into the main table"
                 )
-            raise NotImplementedError(f"the trie path's overlay combine is {OVERLAY_ITEM}")
+            raise NotImplementedError(f"the {path} path's overlay combine is {OVERLAY_ITEM}")
         steer = None
-        if path == "trie":
+        if path == "ctrie":
+            dev = cwalk.build_ctrie_tables(tables, self._device)
+        elif path == "trie":
             dev = walk.build_trie_tables(tables, self._device)
             steer = (
                 np.asarray(tables.root_lut, np.int64),
@@ -261,6 +284,8 @@ class TorchClassifier:
         active, wire, n = plan["active"], plan["wire"], plan["n"]
         if active.path == "dense":
             fused = dense.classify_dense_wire_fused(active.dev, wire)
+        elif active.path == "ctrie":
+            fused = cwalk.classify_ctrie_wire_fused(active.dev, wire)
         else:
             fused = walk.classify_walk_wire_fused(active.dev, wire, plan["n_levels"])
 

@@ -23,8 +23,8 @@
 //
 // What bounds it on this card: the chain of dependent loads per packet
 // (levels walked + 3), i.e. memory latency, hidden only by the number of
-// packets in flight; the bytes it must move (56 per packet plus the
-// tables once) take ~0.03 ms at 2^20 packets.  Design: one thread per
+// packets in flight; the bytes it must move are 56 per packet plus the
+// table rows the batch's walks touch, each once.  Design: one thread per
 // packet, 256 per block, so 2^20 packets give 4096 blocks to cover the
 // 132 SMs many times over; a lane that leaves the trie stops walking.
 //

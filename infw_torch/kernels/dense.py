@@ -36,6 +36,7 @@ from .torchpath import (
     finalize,
     fuse_wire_outputs,
     packet_fields,
+    resolve_device,
     rule_scan,
     unpack_wire,
 )
@@ -72,10 +73,12 @@ def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
 
 
-def build_dense_tables(tables: CompiledTables, device="cpu") -> DenseTables:
-    """Host-side packing of CompiledTables into the dense layout.  Raises
-    ValueError for tables the packing cannot hold, with the same checks in
-    the same order as the TPU packing (pallas_dense.build_pallas_tables)."""
+def build_dense_tables(tables: CompiledTables, device=None) -> DenseTables:
+    """Host-side packing of CompiledTables into the dense layout on
+    ``device`` (resolve_device).  Raises ValueError for tables the packing
+    cannot hold, with the same checks in the same order as the TPU packing
+    (pallas_dense.build_pallas_tables)."""
+    device = resolve_device(device)
     T = tables.num_entries
     if T > MAX_DENSE_TARGETS:
         raise ValueError(

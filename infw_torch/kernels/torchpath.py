@@ -5,7 +5,8 @@ Counterpart of the wire/verdict half of the JAX package's
 ordered first-match rule scan, the XDP verdict and per-rule statistics
 (``finalize``/``result_stats``), and the single-buffer device-to-host
 packing of results + statistics (``fuse_wire_outputs``) with its host
-inverse.
+inverse; and the plain trie and ctrie walks (``trie_walk``,
+``ctrie_walk_rows``), the specifications of kernels K2 and K3.
 
 Integer conventions (PyTorch has no general uint32 arithmetic):
 - 32-bit words travel as int32 tensors holding the uint32 bit pattern;
@@ -58,8 +59,28 @@ class DeviceBatch(NamedTuple):
     pkt_len: torch.Tensor
 
 
-def device_batch(batch: PacketBatch, device="cpu") -> DeviceBatch:
-    """Host PacketBatch -> DeviceBatch on ``device``."""
+def resolve_device(device=None) -> torch.device:
+    """The port's device rule for every function that puts operands on a
+    device: None means the first CUDA card, a CUDA device without a card
+    raises, and the CPU (the plain PyTorch versions) only when the caller
+    names it."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device; pass device='cpu' to run the plain PyTorch "
+                "version on the CPU"
+            )
+        return torch.device("cuda:0")
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"{device} requested but CUDA is unavailable")
+    return device
+
+
+def device_batch(batch: PacketBatch, device=None) -> DeviceBatch:
+    """Host PacketBatch -> DeviceBatch on ``device`` (resolve_device)."""
+    device = resolve_device(device)
+
     def put(a):
         a = np.ascontiguousarray(a)
         if a.dtype == np.uint32:
@@ -146,9 +167,17 @@ def unpack_wire(wire: torch.Tensor) -> DeviceBatch:
 
 def rule_scan(rows: torch.Tensor, batch: DeviceBatch) -> torch.Tensor:
     """Ordered first-match scan (kernel.c:222-258) over already-gathered
-    (B, R, 7) int32 rule rows (all-zero rows for packets without an LPM
-    match -> ruleId 0 everywhere -> UNDEF).  Returns packed int32 results."""
-    rid, rproto, ps, pe, it, ic, act = rows.unbind(-1)  # each (B, R)
+    rule rows: (B, R, 7) int32, or (B, R, 5) int16 holding the uint16
+    packed rows of layout.pack_rules_u16 (all-zero rows for packets
+    without an LPM match -> ruleId 0 everywhere -> UNDEF).  Returns packed
+    int32 results."""
+    if rows.shape[-1] == 5:
+        s = (rows.to(torch.int32) & 0xFFFF).unbind(-1)  # uint16 values
+        rid, act = s[0] & 0xFF, s[0] >> 8
+        rproto, it = s[1] & 0xFF, s[1] >> 8
+        ic, ps, pe = s[2], s[3], s[4]
+    else:
+        rid, rproto, ps, pe, it, ic, act = rows.unbind(-1)  # each (B, R)
     proto = batch.proto[:, None]
     dport = batch.dst_port[:, None]
     valid = rid != 0
@@ -191,6 +220,13 @@ def _popcount32(x: torch.Tensor) -> torch.Tensor:
 def _u32(x: torch.Tensor) -> torch.Tensor:
     """int32 bit patterns -> int64 uint32 values."""
     return x.to(torch.int64) & 0xFFFFFFFF
+
+
+def _i32(x: torch.Tensor) -> torch.Tensor:
+    """int64 sums of uint32 values -> the int32 reading of their low 32
+    bits, as int64."""
+    x = x & 0xFFFFFFFF
+    return torch.where(x >= 2**31, x - 2**32, x)
 
 
 def trie_walk(trie_levels, trie_targets: torch.Tensor, root_lut: torch.Tensor,
@@ -263,6 +299,103 @@ def gather_rule_rows(rules: torch.Tensor, tidx: torch.Tensor) -> torch.Tensor:
     ok = (tidx >= 0) & (tidx < T)
     rows = rules[tidx.clamp(0, T - 1)]
     return torch.where(ok[:, None, None], rows, 0)
+
+
+def extract_ip_bits(ip_words: torch.Tensor, pos: torch.Tensor, n) -> torch.Tensor:
+    """(B,) int64 values of the ``n`` bits at bit offset ``pos`` (both per
+    lane) of the 128-bit address, ``ip_words`` (B, 4) holding its big-endian
+    uint32 words (bit 0 is the top bit of word 0).  The window spans at most
+    two words; the word index is clipped to [0, 4] and word 4 reads 0, so a
+    window past bit 128 reads zeros.  n = 0 reads 0 and off = 0 takes no
+    bits of the next word (the reference guards both shifts by 32); an n
+    above 32, as uint32, shifts everything out."""
+    words = _u32(ip_words)
+    words = torch.cat([words, words.new_zeros((words.shape[0], 1))], 1)
+    pos = pos.to(torch.int64)
+    w = (pos >> 5).clamp(0, 4)
+    lo = words.gather(1, w[:, None])[:, 0]
+    hi = words.gather(1, (w + 1).clamp(max=4)[:, None])[:, 0]
+    off = pos & 31
+    hi_part = torch.where(off == 0, 0, hi >> (32 - off).clamp(max=31))
+    top32 = ((lo << off) & 0xFFFFFFFF) | hi_part
+    n = torch.as_tensor(n, dtype=torch.int64, device=pos.device) & 0xFFFFFFFF
+    return torch.where((n == 0) | (n > 32), 0, top32 >> (32 - n).clamp(0, 32))
+
+
+def ctrie_descend(nodes: torch.Tensor, batch: DeviceBatch, node: torch.Tensor,
+                  alive: torch.Tensor, d_max: int) -> torch.Tensor:
+    """``d_max`` skip-node steps over the merged node array
+    (layout.build_cpoptrie; int32 bit patterns) from a resolved entry (node
+    id + alive mask).  Each step checks the node's skip chain against the
+    address bits at ``pos``, consumes its 8-bit stride and rank-indexes the
+    contiguous children; a target counts only if its prefix ends within
+    the kind's cap (32 bits for IPv4, 128 for every other kind).  Returns
+    the winning flat target position (int64, 0 = none).  uint32 sums run in
+    int64 masked to 32 bits and are read back as int32, as the reference's
+    casts do."""
+    n_nodes = nodes.shape[0]
+    node = node.to(torch.int64)
+    pos = torch.full_like(node, 16)
+    cap = torch.where(batch.kind == KIND_IPV4, 32, 128)
+    widx8 = torch.arange(8, device=node.device)[None, :]
+    win = torch.zeros_like(node)
+    for _ in range(d_max):
+        alive = alive & (node >= 0) & (node < n_nodes)
+        r = _u32(nodes[node.clamp(0, n_nodes - 1)])
+        skip_len = _i32(r[:, 2])
+        skip_ok = torch.where(skip_len > 0,
+                              extract_ip_bits(batch.ip_words, pos, skip_len) == r[:, 3], True)
+        alive = alive & skip_ok
+        pos = pos + skip_len
+        nib = extract_ip_bits(batch.ip_words, pos, 8)
+        pos = pos + 8
+        w = (nib >> 5)[:, None]
+        bit = nib & 31
+        below = (1 << bit) - 1  # exact at bit 31: int64
+        cb, tb = r[:, 4:12], r[:, 12:20]
+        prefix = torch.where(widx8 < w, _popcount32(cb), 0).sum(dim=1)
+        tprefix = torch.where(widx8 < w, _popcount32(tb), 0).sum(dim=1)
+        cw = cb.gather(1, w)[:, 0]
+        tw = tb.gather(1, w)[:, 0]
+        ok_t = alive & (((tw >> bit) & 1) > 0) & (pos <= cap)
+        win = torch.where(ok_t, _i32(r[:, 1] + tprefix + _popcount32(tw & below)), win)
+        alive = alive & (((cw >> bit) & 1) > 0)
+        node = torch.where(alive, _i32(r[:, 0] + prefix + _popcount32(cw & below)), 0)
+    return win
+
+
+def ctrie_walk_rows(ct, batch: DeviceBatch, d_max: int):
+    """The compressed walk over ``ct`` (root_lut, l0, nodes, targets,
+    joined; cwalk.CTrieTables): the DIR-16 root slot, then ctrie_descend,
+    then the target resolve (the descent's target, else the root slot's).
+    Returns ((B, 3 + 5R) int16 joined rows, all zero for packets without a
+    match or past the table; (B,) int64 tidx + 1, 0 = none).  ``l0[:, 1]``
+    holds tidx + 1 here, not a position."""
+    lut_size = ct.root_lut.shape[0]
+    ifx = batch.ifindex.to(torch.int64)
+    if_ok = (ifx >= 0) & (ifx < lut_size)
+    root = torch.where(if_ok, ct.root_lut[ifx.clamp(0, lut_size - 1)].to(torch.int64), 0)
+    e0 = root * 65536 + (_u32(batch.ip_words[:, 0]) >> 16)
+    n0 = ct.l0.shape[0]
+    in0 = (e0 >= 0) & (e0 < n0)
+    rows0 = ct.l0[e0.clamp(0, n0 - 1)].to(torch.int64)
+    best0 = torch.where(in0 & (rows0[:, 1] > 0), rows0[:, 1], 0)
+    alive = in0 & (rows0[:, 0] > 0)
+    node = torch.where(alive, rows0[:, 0] - 1, 0)
+    win = ctrie_descend(ct.nodes, batch, node, alive, d_max)
+    n_t = ct.targets.shape[0]
+    in_w = (win >= 0) & (win < n_t)
+    tval = torch.where(in_w, ct.targets[win.clamp(0, n_t - 1)].to(torch.int64), 0)
+    sel = torch.where(tval > 0, tval, best0)
+    P = ct.joined.shape[0]
+    in_j = (sel > 0) & (sel < P)
+    rows = torch.where(in_j[:, None], ct.joined[sel.clamp(0, P - 1)], 0)
+    return rows, sel
+
+
+def joined_rule_rows(rows: torch.Tensor) -> torch.Tensor:
+    """(B, 3 + 5R) int16 joined rows -> the (B, R, 5) rule_scan operand."""
+    return rows[:, 3:].reshape(rows.shape[0], -1, 5)
 
 
 def result_stats(result: torch.Tensor, batch: DeviceBatch) -> torch.Tensor:

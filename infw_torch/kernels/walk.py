@@ -42,6 +42,7 @@ from .torchpath import (
     fuse_wire_outputs,
     gather_rule_rows,
     packet_fields,
+    resolve_device,
     rule_scan,
     trie_walk,
     unpack_wire,
@@ -95,9 +96,11 @@ class TrieTables(NamedTuple):
         return out
 
 
-def build_trie_tables(tables: CompiledTables, device="cpu") -> TrieTables:
+def build_trie_tables(tables: CompiledTables, device=None) -> TrieTables:
     """Host-side packing of CompiledTables into the trie layout (a full
-    upload).  Raises ValueError for a trie deeper than MAX_LEVELS."""
+    upload to ``device``, resolve_device).  Raises ValueError for a trie
+    deeper than MAX_LEVELS."""
+    device = resolve_device(device)
     levels, targets = build_poptrie(tables)
     if len(levels) > MAX_LEVELS:
         raise ValueError(f"trie has {len(levels)} levels; the walk reads at most {MAX_LEVELS}")

@@ -1,23 +1,28 @@
-"""Host layout builders of the trie path (numpy only).
+"""Host layouts of the trie and ctrie paths (numpy only).
 
 The port's own copies of the JAX package's host transforms from the
-compiler's slot trie to what the walk reads, and of the depth-steering
+compiler's slot trie to what the walks read, and of the depth-steering
 helpers:
 
 - ``build_poptrie``: the slot trie -> poptrie node rows (bitmap +
   popcount-rank, implicit child numbering) and the compact targets array;
+- ``build_cpoptrie``: the poptrie -> the merged path-compressed node
+  array of the ctrie path (skip nodes absorb single-child chains);
+- ``pack_rules_u16`` / ``joined_by_tidx``: the (T, R, 7) rule rows packed
+  into 5 uint16 per rule, and the per-target joined rows the ctrie path
+  scans;
 - ``build_depth_lut`` / ``tune_depth_classes`` / ``depth_group_indices``:
   depth-class steering of IPv6 chunks (a packet whose root slot needs at
   most d deep levels is fully classified by a walk of 1 + d levels);
 - ``v4_trie_depth``: the levels an IPv4-only chunk walks;
 - ``check_wire_ruleids``: whether results fit the 16-bit wire result.
 
-Every builder that scans a whole table is memoized on the CompiledTables
+Every function that scans a whole table is memoized on the CompiledTables
 instance, which is never mutated after the build.
 """
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 
@@ -28,11 +33,16 @@ from .compiler import CompiledTables, trie_level_strides
 DEPTH_CLASS_THRESHOLDS = (0, 3, 7)
 #: the most depth classes a tuned table steers into, the full depth included
 MAX_DEPTH_CLASSES = 4
+#: the most chain bits one skip node absorbs: the skip plus the node's own
+#: 8-bit stride stay within a 32-bit window of two address words
+CPOP_MAX_SKIP = 24
+
+_MISSING = object()
 
 
 def _memo(tables: CompiledTables, name: str, build):
-    cached = getattr(tables, name, None)
-    if cached is None:
+    cached = getattr(tables, name, _MISSING)
+    if cached is _MISSING:
         cached = build()
         setattr(tables, name, cached)
     return cached
@@ -114,6 +124,226 @@ def _build_poptrie(tables: CompiledTables):
         out_levels.append(rows)
         targets_parts.append(lvl_targets)
     return out_levels, np.concatenate(targets_parts)
+
+
+def _popcount32(x: np.ndarray) -> np.ndarray:
+    """SWAR popcount of uint32 values -> int64."""
+    x = x.astype(np.uint32)
+    x = x - ((x >> 1) & np.uint32(0x55555555))
+    x = (x & np.uint32(0x33333333)) + ((x >> 2) & np.uint32(0x33333333))
+    x = (x + (x >> 4)) & np.uint32(0x0F0F0F0F)
+    return ((x * np.uint32(0x01010101)) >> 24).astype(np.int64)
+
+
+def _pc_rows(words: np.ndarray) -> np.ndarray:
+    return _popcount32(words).sum(axis=1).astype(np.int64)
+
+
+def _single_child_nib(rows: np.ndarray) -> np.ndarray:
+    """Slot index of the single set child-bitmap bit per node (valid only
+    where the child count is exactly 1)."""
+    cbm = rows[:, 2:10].astype(np.uint32)
+    w = np.argmax(cbm != 0, axis=1)
+    wv = cbm[np.arange(len(rows)), w].astype(np.float64)
+    # log2 is exact for single-bit values up to 2^31
+    bit = np.zeros(len(rows), np.int64)
+    pos = wv > 0
+    bit[pos] = np.log2(wv[pos]).astype(np.int64)
+    return w.astype(np.int64) * 32 + bit
+
+
+def _crange_concat(starts: np.ndarray, counts: np.ndarray) -> np.ndarray:
+    """The [s, s + c) ranges concatenated (int64)."""
+    total = int(counts.sum())
+    if total == 0:
+        return np.zeros(0, np.int64)
+    ends = np.cumsum(counts)
+    offs = np.repeat(starts - np.concatenate([[0], ends[:-1]]), counts)
+    return offs + np.arange(total, dtype=np.int64)
+
+
+def build_cpoptrie(tables: CompiledTables) -> Tuple[np.ndarray, np.ndarray, np.ndarray, int]:
+    """Poptrie levels -> the merged path-compressed node array.  Returns
+    (l0, nodes, targets, d_max):
+
+    - l0:      (n_0 * 65536, 2) int32 root slots [node id + 1, tidx + 1];
+    - nodes:   (max(N, 1), 20) uint32 skip-node rows [child_base,
+      target_base, skip_len <= CPOP_MAX_SKIP, skip_bits, child bitmap x8,
+      target bitmap x8].  A chain of single-child, target-free nodes folds
+      into its last node's skip fields; nodes are numbered breadth-first
+      in (parent, slot) order, so a node's children are the contiguous
+      [child_base, child_base + popcount) and the child of slot s is
+      child_base + rank(s);
+    - targets: (1 + n_targets,) int32 tidx + 1 per target position,
+      position 0 the sentinel, each node's targets contiguous from
+      target_base;
+    - d_max:   the most skip nodes a walk visits (the breadth-first depth).
+    """
+    return _memo(tables, "_cpoptrie_cache", lambda: _build_cpoptrie(tables))
+
+
+def _build_cpoptrie(tables: CompiledTables):
+    levels, targets = build_poptrie(tables)
+    deep = [np.asarray(lv, np.uint32) for lv in levels[1:]]
+    L = len(deep)
+    n_l = [d.shape[0] for d in deep]
+    empty = np.zeros(0, np.int64)
+    cc = [_pc_rows(d[:, 2:10]) if d.size else empty for d in deep]
+    tc = [_pc_rows(d[:, 10:18]) if d.size else empty for d in deep]
+    cb_base = [d[:, 0].astype(np.int64) if d.size else empty for d in deep]
+    tb_base = [d[:, 1].astype(np.int64) if d.size else empty for d in deep]
+    nib1 = [_single_child_nib(d) if d.size else empty for d in deep]
+
+    # top-down: pending skip accumulation and the skip/emit decision
+    pend_len = [np.zeros(n, np.int64) for n in n_l]
+    pend_bits = [np.zeros(n, np.int64) for n in n_l]
+    skipped = []
+    for l in range(L):
+        chain = (cc[l] == 1) & (tc[l] == 0) & (l + 1 < L)
+        sk = chain & (pend_len[l] + 8 <= CPOP_MAX_SKIP)
+        skipped.append(sk)
+        if l + 1 < L and sk.any():
+            idx = np.nonzero(sk)[0]
+            ch = cb_base[l][idx]  # the single child's id at level l + 1
+            ok = ch < n_l[l + 1]
+            idx, ch = idx[ok], ch[ok]
+            pend_len[l + 1][ch] = pend_len[l][idx] + 8
+            pend_bits[l + 1][ch] = (pend_bits[l][idx] << 8) | nib1[l][idx]
+
+    # bottom-up: resolve every node to the emitted node absorbing it
+    res_lvl: list = [None] * L
+    res_id: list = [None] * L
+    for l in range(L - 1, -1, -1):
+        lv = np.full(n_l[l], l, np.int64)
+        ids = np.arange(n_l[l], dtype=np.int64)
+        if l + 1 < L and n_l[l + 1]:
+            ch = np.clip(cb_base[l], 0, n_l[l + 1] - 1)
+            lv = np.where(skipped[l], res_lvl[l + 1][ch], lv)
+            ids = np.where(skipped[l], res_id[l + 1][ch], ids)
+        res_lvl[l], res_id[l] = lv, ids
+
+    # breadth-first numbering: emitted nodes in (parent, slot) order, so
+    # every node's children stay contiguous
+    l0 = np.asarray(levels[0], np.int32)
+    c0 = l0[:, 0].astype(np.int64)
+    has0 = c0 > 0
+    if L and has0.any() and n_l[0]:
+        ch0 = np.clip(c0[has0] - 1, 0, n_l[0] - 1)
+        f_lvl, f_id = res_lvl[0][ch0], res_id[0][ch0]
+    else:
+        f_lvl, f_id = empty, empty
+
+    rows_out: list = []
+    tgt_out: list = []
+    total = 0
+    t_total = 1  # targets[0] is the sentinel
+    first_ids = None
+    d_max = 0
+    while len(f_lvl):
+        d_max += 1
+        n_f = len(f_lvl)
+        gids = total + np.arange(n_f, dtype=np.int64)
+        total += n_f
+        if first_ids is None:
+            first_ids = gids
+        # per-node data, gathered by source level
+        cc_f = np.empty(n_f, np.int64)
+        tc_f = np.empty(n_f, np.int64)
+        cb_f = np.empty(n_f, np.int64)
+        tb_f = np.empty(n_f, np.int64)
+        pl_f = np.empty(n_f, np.int64)
+        pb_f = np.empty(n_f, np.int64)
+        bm_f = np.zeros((n_f, 16), np.uint32)
+        lvl_next = np.empty(n_f, np.int64)
+        for l in np.unique(f_lvl):
+            m = f_lvl == l
+            sel = f_id[m]
+            cc_f[m] = cc[l][sel]
+            tc_f[m] = tc[l][sel]
+            cb_f[m] = cb_base[l][sel]
+            tb_f[m] = tb_base[l][sel]
+            pl_f[m] = pend_len[l][sel]
+            pb_f[m] = pend_bits[l][sel]
+            bm_f[m] = deep[l][sel, 2:18]
+            lvl_next[m] = l + 1
+        # next frontier: the resolved children, whole contiguous ranges
+        child_old = _crange_concat(cb_f, cc_f)
+        child_lvl_src = np.repeat(lvl_next, cc_f)
+        nf_lvl = np.empty(len(child_old), np.int64)
+        nf_id = np.empty(len(child_old), np.int64)
+        for l in np.unique(child_lvl_src):
+            m = child_lvl_src == l
+            if l >= L or n_l[l] == 0:
+                # dead pointers below the last level resolve to self; their
+                # bitmaps are zero, so the walk never descends
+                nf_lvl[m] = l - 1
+                nf_id[m] = 0
+                continue
+            sel = np.clip(child_old[m], 0, n_l[l] - 1)
+            nf_lvl[m] = res_lvl[l][sel]
+            nf_id[m] = res_id[l][sel]
+        excl_c = np.concatenate([[0], np.cumsum(cc_f)[:-1]])
+        excl_t = np.concatenate([[0], np.cumsum(tc_f)[:-1]])
+        rows = np.zeros((n_f, 20), np.uint32)
+        rows[:, 0] = (total + excl_c).astype(np.uint32)
+        rows[:, 1] = (t_total + excl_t).astype(np.uint32)
+        rows[:, 2] = pl_f.astype(np.uint32)
+        rows[:, 3] = pb_f.astype(np.uint32)
+        rows[:, 4:20] = bm_f
+        rows_out.append(rows)
+        # flat targets in node order (values are tidx + 1)
+        tgt_out.append(targets[_crange_concat(tb_f, tc_f)].astype(np.int64))
+        t_total += int(tc_f.sum())
+        f_lvl, f_id = nf_lvl, nf_id
+
+    nodes = np.concatenate(rows_out) if rows_out else np.zeros((1, 20), np.uint32)
+    new_targets = np.concatenate([np.zeros(1, np.int64)] + tgt_out).astype(np.int32)
+    l0_new = l0.copy()
+    l0_new[:, 0] = 0
+    if first_ids is not None:
+        l0_new[np.nonzero(has0)[0], 0] = (first_ids + 1).astype(np.int32)
+    return l0_new, nodes, new_targets, d_max
+
+
+def pack_rules_u16(rules: np.ndarray) -> Optional[np.ndarray]:
+    """(T, R, 7) int32 -> (T, R, 5) uint16 packed rule rows [ruleId |
+    action << 8, proto | icmpType << 8, icmpCode, portStart, portEnd], or
+    None when a field exceeds its packed width (ruleId, proto, ICMP fields
+    and action 8 bits, ports 16)."""
+    if rules.size == 0:
+        return np.zeros(rules.shape[:2] + (5,), np.uint16)
+    mx = rules.max(axis=(0, 1))
+    if int(rules.min()) < 0 or (mx[[0, 1, 4, 5, 6]] > 0xFF).any() or (mx[[2, 3]] > 0xFFFF).any():
+        return None
+    out = np.empty(rules.shape[:2] + (5,), np.uint16)
+    out[..., 0] = rules[..., 0] | (rules[..., 6] << 8)
+    out[..., 1] = rules[..., 1] | (rules[..., 4] << 8)
+    out[..., 2] = rules[..., 5]
+    out[..., 3] = rules[..., 2]
+    out[..., 4] = rules[..., 3]
+    return out
+
+
+def joined_by_tidx(tables: CompiledTables) -> Optional[np.ndarray]:
+    """(T + 1, 3 + 5R) uint16 joined rows indexed by tidx + 1, row 0 the
+    no-match sentinel: [tidx + 1 low half, high half, mask_len, the
+    target's packed rules].  None for rule tables pack_rules_u16 refuses
+    (the ctrie path then does not serve the table)."""
+    return _memo(tables, "_joined_tidx_cache", lambda: _joined_by_tidx(tables))
+
+
+def _joined_by_tidx(tables: CompiledTables):
+    packed = pack_rules_u16(tables.rules)
+    if packed is None:
+        return None
+    T = packed.shape[0]
+    rows = np.zeros((T + 1, 3 + 5 * packed.shape[1]), np.uint16)
+    tvals = np.arange(1, T + 1, dtype=np.int64)
+    rows[1:, 0] = (tvals & 0xFFFF).astype(np.uint16)
+    rows[1:, 1] = (tvals >> 16).astype(np.uint16)
+    rows[1:, 2] = np.minimum(np.maximum(tables.mask_len, 0), 0xFFFF).astype(np.uint16)
+    rows[1:, 3:] = packed.reshape(T, -1)
+    return rows
 
 
 def build_depth_lut(tables: CompiledTables) -> np.ndarray:

@@ -1,10 +1,11 @@
-"""Scalar NumPy oracle classifier.
+"""Scalar NumPy oracle classifiers.
 
 A direct, per-packet transliteration of the XDP program's semantics
 (bpf/ingress_node_firewall_kernel.c:189-457) over the compiled table
-*content* (the LPM key -> rule-rows map), independent of the dense tensor
-encoding and of PyTorch.  The ground truth the port's main path is checked
-against.
+*content* (the LPM key -> rule-rows map), independent of the tensor
+encodings and of PyTorch.  The ground truth the port's main path is checked
+against: ``classify`` indexes the table on every call, ``HashLpmOracle``
+indexes it once for many batches of a large table.
 """
 from __future__ import annotations
 
@@ -129,6 +130,46 @@ def classify(tables: CompiledTables, batch: PacketBatch) -> ClassifyResult:
     (kernel.c:412-457)."""
     entries, rules_by_target = _dedup_entries(tables)
     index = _lpm_index(entries)
+    return _classify_with_lookup(
+        lambda ifindex, ip_int, cap: _lpm_lookup(index, ifindex, ip_int, cap),
+        rules_by_target, batch,
+    )
+
+
+class HashLpmOracle:
+    """LPM-by-hash oracle for the large tables (1M-10M entries): built
+    once, then any number of batches.  The deduped entries are bucketed by
+    mask length into hash maps keyed by (ifindex, prefix bits); a lookup
+    probes the mask lengths longest first, O(distinct mask lengths) per
+    packet.  It shares the entry dedup, the rule scan and the per-packet
+    dispatch with ``classify``, and its lookup structure is independent of
+    the tensor layouts."""
+
+    def __init__(self, tables: CompiledTables) -> None:
+        entries, self._rules_by_target = _dedup_entries(tables)
+        buckets: Dict[int, Dict[Tuple[int, int], int]] = {}
+        for ifindex, mask_len, masked_ip, target in entries:
+            b = buckets.setdefault(mask_len, {})
+            b[(ifindex, masked_ip >> (128 - mask_len) if mask_len else 0)] = target
+        # longest first (equal lengths cannot coexist after the dedup)
+        self._probe = sorted(buckets.items(), key=lambda kv: -kv[0])
+
+    def _lookup(self, ifindex: int, ip_int: int, cap: int) -> int:
+        for mask_len, bucket in self._probe:
+            if mask_len + 32 > cap:
+                continue  # entry longer than the packet-side key cap
+            t = bucket.get((ifindex, ip_int >> (128 - mask_len) if mask_len else 0))
+            if t is not None:
+                return t
+        return -1
+
+    def classify(self, batch: PacketBatch) -> ClassifyResult:
+        return _classify_with_lookup(self._lookup, self._rules_by_target, batch)
+
+
+def _classify_with_lookup(lookup, rules_by_target, batch: PacketBatch) -> ClassifyResult:
+    """The per-packet dispatch of kernel.c:412-457 around ``lookup(ifindex,
+    ip_int, cap_prefix_len) -> target or -1``."""
     b = len(batch)
     results = np.zeros(b, np.uint32)
     xdp = np.zeros(b, np.int32)
@@ -150,7 +191,7 @@ def classify(tables: CompiledTables, batch: PacketBatch) -> ClassifyResult:
             for w in range(4):
                 ip_int = (ip_int << 32) | int(batch.ip_words[i, w])
             cap = V4_KEY_PREFIX_LEN if is_v4 else V6_KEY_PREFIX_LEN
-            target = _lpm_lookup(index, int(batch.ifindex[i]), ip_int, cap)
+            target = lookup(int(batch.ifindex[i]), ip_int, cap)
             if target < 0:
                 result = UNDEF
             else:

@@ -10,7 +10,13 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
-from .compiler import CompiledTables, LpmKey, compile_tables_from_content
+from .compiler import (
+    CompiledTables,
+    LpmKey,
+    TableColumns,
+    compile_tables_from_columns,
+    compile_tables_from_content,
+)
 from .constants import (
     IPPROTO_ICMP,
     IPPROTO_ICMPV6,
@@ -173,6 +179,60 @@ def random_tables_fast(
             if len(content) >= n_entries:
                 break
     return compile_tables_from_content(content, rule_width=width)
+
+
+def clean_columns_fast(
+    rng: np.random.Generator,
+    n_entries: int,
+    ifindexes: Tuple[int, ...] = (2, 3),
+    width: int = 4,
+    v6_fraction: float = 0.3,
+) -> TableColumns:
+    """Semantically clean columnar content at the 10M-entry scale, with no
+    per-key Python: disjoint prefixes (distinct v4 /24s and v6 /48s under
+    0x20, so no entry nests in another) carrying one distinct Allow rule
+    each (TCP to one port, in rule slot 1)."""
+    n_v6 = int(n_entries * v6_fraction)
+    n_v4 = n_entries - n_v6
+    if n_v4 > 1 << 24 or n_v6 > 1 << 40:
+        raise ValueError("n_entries exceeds the disjoint-prefix space")
+    v4_vals = rng.choice(1 << 24, size=n_v4, replace=False).astype(np.int64)
+    # distinct 40-bit v6 prefixes: random draws deduped, topped up on collision
+    v6_vals = np.unique(rng.integers(0, 1 << 40, n_v6 + 64, dtype=np.int64))
+    while len(v6_vals) < n_v6:
+        v6_vals = np.unique(np.concatenate([
+            v6_vals, rng.integers(0, 1 << 40, n_v6, dtype=np.int64)
+        ]))
+    v6_vals = v6_vals[:n_v6]
+    ifx = np.asarray(ifindexes, np.int64)[rng.integers(0, len(ifindexes), n_entries)]
+    ip = np.zeros((n_entries, 16), np.uint8)
+    # v4 /24: value << 8 as the first 4 big-endian bytes
+    ip[:n_v4, :4] = (v4_vals << 8).astype(">u4").view(np.uint8).reshape(n_v4, 4)
+    # v6 /48: the 0x20 byte and the 40-bit value in bytes 1..5
+    v6_hi = (np.int64(0x20) << 40) | v6_vals
+    ip[n_v4:, :6] = v6_hi.astype(">u8").view(np.uint8).reshape(n_v6, 8)[:, 2:]
+    plen = np.empty(n_entries, np.int32)
+    plen[:n_v4] = 24 + 32
+    plen[n_v4:] = 48 + 32
+    rules = np.zeros((n_entries, width, 7), np.int32)
+    rules[:, 1, 0] = 1
+    rules[:, 1, 1] = IPPROTO_TCP
+    rules[:, 1, 2] = 70 + (np.arange(n_entries) % 60000)
+    rules[:, 1, 6] = 2  # ALLOW
+    return TableColumns(prefix_len=plen, ifindex=ifx, ip=ip, rules=rules)
+
+
+def clean_tables_scale(
+    rng: np.random.Generator,
+    n_entries: int,
+    ifindexes: Tuple[int, ...] = (2, 3),
+    width: int = 4,
+    v6_fraction: float = 0.3,
+) -> CompiledTables:
+    """clean_columns_fast through the columnar compiler."""
+    return compile_tables_from_columns(
+        clean_columns_fast(rng, n_entries, ifindexes, width, v6_fraction), rule_width=width
+    )
 
 
 def random_batch_fast(

@@ -63,8 +63,8 @@ def assert_dense_matches(tables, batch, block_b=pallas_dense.BLOCK_B, check_orac
     jres, jxdp, jstats = pallas_dense.jitted_classify_pallas(True, block_b)(
         pt, jaxpath.device_batch(batch)
     )
-    dt = dense.build_dense_tables(to_port(tables))
-    res, xdp, stats = dense.classify_dense(dt, torchpath.device_batch(port_batch(batch)))
+    dt = dense.build_dense_tables(to_port(tables), "cpu")
+    res, xdp, stats = dense.classify_dense(dt, torchpath.device_batch(port_batch(batch), "cpu"))
     np.testing.assert_array_equal(res.numpy().view(np.uint32), np.asarray(jres))
     np.testing.assert_array_equal(xdp.numpy(), np.asarray(jxdp))
     np.testing.assert_array_equal(stats.numpy(), np.asarray(jstats))
@@ -227,4 +227,4 @@ def test_dense_eligibility_errors(case):
     with pytest.raises(ValueError, match=match):
         pallas_dense.build_pallas_tables(jt)
     with pytest.raises(ValueError, match=match):
-        dense.build_dense_tables(pt)
+        dense.build_dense_tables(pt, "cpu")

@@ -309,21 +309,47 @@ def test_load_tables_refuses_an_overlay():
 
 
 def test_trie_path_overlay_is_not_implemented():
-    """The trie path's overlay combine comes with incremental loads."""
-    clf = TorchClassifier(device="cpu", force_path="trie")
+    """The trie and ctrie paths' overlay combine comes with incremental
+    loads."""
     main = compiler.compile_tables_from_content(_content(3))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        clf.load_tables(main, overlay=compiler.compile_tables_from_content(_content(1)))
-    assert clf.active_path is None
-    clf.load_tables(main, overlay=compiler.compile_tables_from_content({}))
-    assert clf.active_path == "trie"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TorchClassifier(device="cpu", force_path="ctrie")
+    for path in ("trie", "ctrie"):
+        clf = TorchClassifier(device="cpu", force_path=path)
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            clf.load_tables(main, overlay=compiler.compile_tables_from_content(_content(1)))
+        assert clf.active_path is None
+        clf.load_tables(main, overlay=compiler.compile_tables_from_content({}))
+        assert clf.active_path == path
+    with pytest.raises(ValueError, match="force_path"):
+        TorchClassifier(device="cpu", force_path="arena")
+
+
+@pytest.mark.parametrize("fn_name", ["build_dense_tables", "device_batch", "build_trie_tables"])
+def test_device_operands_default_to_the_card(fn_name):
+    """The functions that put tables and batches on a device take the
+    classifier's device rule: no device means the first CUDA card, and
+    without one they raise; the CPU only when named."""
+    from infw_torch import packets as port_packets
+    from infw_torch.kernels import dense, torchpath, walk
+
+    tables = compiler.compile_tables_from_content(_content(3))
+    fn, arg = {
+        "build_dense_tables": (dense.build_dense_tables, tables),
+        "device_batch": (torchpath.device_batch, port_packets.make_batch(src=["0.0.0.1"], proto=[6], ifindex=[2])),
+        "build_trie_tables": (walk.build_trie_tables, tables),
+    }[fn_name]
+    if torch.cuda.is_available():
+        assert fn(arg)[0].device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            fn(arg)
+    assert fn(arg, "cpu")[0].device.type == "cpu"
 
 
 def test_import_loads_no_jax_and_no_infw():
     code = (
-        "import sys, pkgutil, importlib, infw_torch\n"
+        "import sys, pkgutil, importlib, infw_torch.kernels.cwalk, infw_torch\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'infw')]\n"
+        "assert not bad, ('infw_torch.kernels.cwalk', bad)\n"
         "for m in pkgutil.walk_packages(infw_torch.__path__, 'infw_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'infw')]\n"

@@ -87,7 +87,7 @@ def random_verdict_batch(rng, n, pkt_len_max=1 << 21):
         icmp_code=rng.integers(0, 3, n).astype(np.int32),
         pkt_len=rng.integers(0, pkt_len_max, n).astype(np.int32),
     )
-    return torchpath.device_batch(port_packets.PacketBatch(**cols))
+    return torchpath.device_batch(port_packets.PacketBatch(**cols), "cpu")
 
 
 def random_results(rng, n):

@@ -78,8 +78,8 @@ def case():
     db = jaxpath.device_batch(batch)
     ref = jaxpath.jitted_classify(True)(jaxpath.device_tables(jt), db)
     res, xdp, stats = (np.asarray(a) for a in ref)
-    tt = walk.build_trie_tables(pt)
-    port = walk.classify_walk(tt, torchpath.device_batch(port_batch(batch)), tt.n_levels)
+    tt = walk.build_trie_tables(pt, "cpu")
+    port = walk.classify_walk(tt, torchpath.device_batch(port_batch(batch), "cpu"), tt.n_levels)
     return {
         "jt": jt, "pt": pt, "batch": batch, "pb": port_batch(batch), "tt": tt,
         "res": res, "xdp": xdp, "stats": stats,
@@ -134,7 +134,7 @@ def test_walk_matches_pallas_k2_on_the_extracted_deep_class(case):
     wt = pallas_walk.build_walk_tables(jt, min_depth=classes[-2], vmem_budget=64 << 20)
     res, xdp, _ = pallas_walk.jitted_classify_walk(True)(wt, jaxpath.device_batch(batch.take(deep)))
     tt = case["tt"]
-    port = walk.classify_walk(tt, torchpath.device_batch(case["pb"].take(deep)), tt.n_levels)
+    port = walk.classify_walk(tt, torchpath.device_batch(case["pb"].take(deep), "cpu"), tt.n_levels)
     _assert_same([a.numpy() for a in port], np.asarray(res), np.asarray(xdp))
 
 
@@ -158,7 +158,7 @@ def test_hazards_are_exercised(case):
     act, rid = res & 0xFF, res >> 8
     assert ((act == 0) & (rid > 0)).sum() > 5 and (act == 3).sum() > 5
     tidx = walk.trie_walk_classify(*torchpath.packet_fields(
-        torchpath.device_batch(case["pb"])), case["tt"], case["tt"].n_levels)[:, 1].numpy()
+        torchpath.device_batch(case["pb"], "cpu")), case["tt"], case["tt"].n_levels)[:, 1].numpy()
     v4_zero = np.nonzero(case["pt"].mask_len[: case["pt"].num_entries] == 0)[0]
     assert np.isin(tidx[case["batch"].kind == 2], v4_zero).sum() > 0
     assert (tidx[-6:-3] == -1).all()  # the out-of-LUT and unknown ifindexes
@@ -208,10 +208,10 @@ def test_depth_class_truncation(case):
     jobs += [(tt.n_levels if d is None else 1 + d, g) for d, g in groups]
     assert len(jobs) >= 4
     for n_levels, idx in jobs:
-        res, xdp, _ = walk.classify_walk(tt, torchpath.device_batch(pb.take(idx)), n_levels)
+        res, xdp, _ = walk.classify_walk(tt, torchpath.device_batch(pb.take(idx), "cpu"), n_levels)
         _assert_same((res.numpy(), xdp.numpy()), case["res"][idx], case["xdp"][idx])
     deep = groups[-1][1]
-    res, _, _ = walk.classify_walk(tt, torchpath.device_batch(pb.take(deep)), 1)
+    res, _, _ = walk.classify_walk(tt, torchpath.device_batch(pb.take(deep), "cpu"), 1)
     assert (res.numpy().view(np.uint32) != case["res"][deep]).any()
 
 
