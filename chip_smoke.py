@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py
 
-Drives the port's dense, trie and ctrie classify paths on the card and fails
-(non-zero exit, no result line) on any error:
+Drives the port's dense, trie and ctrie classify paths and its wire codecs
+on the card and fails (non-zero exit, no result line) on any error:
 
 1. device: the card's name and power limit (nvidia-smi);
 2. build: every hand-written kernel from its source with nvcc, one nvcc
@@ -46,7 +46,21 @@ Drives the port's dense, trie and ctrie classify paths on the card and fails
    HashLpmOracle on 4096-packet subsets and the first packets of the run;
    K3 times on both tables, its bound, the plain version's time, the
    device pass, end to end and the stage split;
-8. one JSON ``kernels`` line, then the device JSON as the last line.
+8. the wire codecs (the JAX package's default for a 4-word chunk on the
+   trie and ctrie paths): kernel K4 against its plain version, exact, at
+   widths 1, 2, 4 and n around its 1024-value block and 2^20, from aligned
+   and odd byte offsets; on the IPv4-compact chunk of the trie phase's batch
+   (100K table, K2) and of the ctrie phase's (table A, K3), the main path
+   once per ``TorchClassifier(wire_codec=...)`` ("auto", "wire8", "delta"),
+   launch counts zeroed before and read after (K4 on delta chunks only),
+   its wire_stats(), and results, verdicts and statistics checked against
+   the narrow-wire classify of the same packets, a host recount and the
+   oracle on 4096-packet subsets; a clustered chunk for each reachable
+   fixed-stride plan (1 and 2 bytes) against the oracle; the stages of one
+   classify per format (host pack, H2D bytes and time, device pass on CUDA
+   events, D2H, host finalize, end to end); K4 times per width at 2^20
+   values, its bound, the plain version and torch.cumsum;
+9. one JSON ``kernels`` line, then the device JSON as the last line.
 
 Imports nothing of JAX or of the JAX package ``infw``.
 """
@@ -69,6 +83,11 @@ TRIE_ENTRIES, TRIE_WIDTH, TRIE_PACKETS = 100_000, 8, 1 << 20
 # the JAX package's 10M-entry tier (bench.py bench_scale_10m)
 CTRIE_ENTRIES, CTRIE_WIDTH, CTRIE_PACKETS = 10_000_000, 4, 1 << 19
 ORACLE_PACKETS = 4096
+# K4 against its plain version: sizes around its 1024-value block and the
+# main path's 2^20 (timed there), each at byte offsets 0 and 1
+K4_SIZES = (1, 1023, 1024, 1025, 1 << 20, (1 << 20) + 7)
+# packets of each clustered chunk that takes a fixed-stride delta plan
+FIXED_PACKETS = 8192
 # Published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, dense int8 ops/s.
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1.979e15
@@ -99,6 +118,27 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def profiled_kernels(fn, reps: int):
+    """torch.profiler over ``reps`` calls after a warm one: {kernel name:
+    device microseconds per call}, from the CUDA events of the trace (kernels
+    only, no copies or fills); empty when the trace holds no device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and not e.name.startswith(("Memcpy", "Memset")):
+            out[e.name] = out.get(e.name, 0.0) + e.time_range.elapsed_us() / reps
+    return out
 
 
 def tables_with_entries(testing, compiler, rng, n: int, width: int, ifindexes):
@@ -321,7 +361,8 @@ def trie_phase(tag: str):
     launches = {k.name: k.launches for k in kernels}
     log(f"trie main path: steered chunks {chunks} + one unsteered classify({len(batch)}) in "
         f"{main_s:.3f} s (first calls), launches {launches} "
-        f"(steered {steered_launches}, unsteered {launches['trie_walk'] - steered_launches})")
+        f"(steered {steered_launches}, unsteered {launches['trie_walk'] - steered_launches}); "
+        f"wire_stats {clf.wire_stats()}")
     if launches["trie_walk"] <= 0:
         raise SystemExit("kernel trie_walk was not launched on the trie main path")
     if not (np.array_equal(res, out.results) and np.array_equal(xdp, out.xdp)
@@ -526,10 +567,11 @@ def compare_k3(cwalk, ct, fields, words, label: str) -> int:
     return err
 
 
-def ctrie_phase(tag: str, trie_tables, trie_batch) -> dict:
+def ctrie_phase(tag: str, trie_tables, trie_batch):
     """The ctrie path at the JAX package's 10M-entry tier (table A), with
     K3 also held against its plain version on the trie phase's 100K table
-    (table B, deep /128 skip chains); returns K3's kernels-line entry."""
+    (table B, deep /128 skip chains); returns K3's kernels-line entry,
+    table A, its batch and its HashLpmOracle."""
     import torch
 
     from infw_torch import compiler, layout, oracle, testing
@@ -624,7 +666,7 @@ def ctrie_phase(tag: str, trie_tables, trie_batch) -> dict:
     launches = {k.name: k.launches for k in kernels}
     log(f"ctrie main path: classify({len(batch)}) by force_path='ctrie' and by "
         f"compressed=True, then {len(jobs)} packed chunks, in {main_s:.3f} s (first calls), "
-        f"launches {launches}")
+        f"launches {launches}; wire_stats {clf.wire_stats()}")
     if launches["ctrie_walk"] <= 0 or launches["trie_walk"] != 0:
         raise SystemExit("the ctrie main path must launch ctrie_walk and never trie_walk")
     ref = trie.classify(batch)
@@ -734,6 +776,274 @@ def ctrie_phase(tag: str, trie_tables, trie_batch) -> dict:
         "bound_ms_table_b": bound_b_ms,
         "bound_by": "bytes",
         "library_ms": None,
+    }, tables, batch, hashed
+
+
+def compare_k4(wire_decode) -> int:
+    """K4 against its plain version on the card, exact, at every width and
+    size the codec phase names, from an aligned and an odd byte offset, on
+    seeded random bytes; returns the largest absolute difference."""
+    import torch
+
+    rng = np.random.default_rng(44)
+    err, checked = 0, 0
+    for w in (1, 2, 4):
+        for n in K4_SIZES:
+            buf = torch.from_numpy(rng.integers(0, 256, n * w + 1, dtype=np.uint8)).to("cuda")
+            for off in (0, 1):
+                c = buf[off:off + n * w]
+                got = wire_decode.decode_scan(c, n, w)
+                want = wire_decode.decode_scan_plain(c, n, w)
+                torch.cuda.synchronize()
+                mism = int((got != want).sum().item())
+                err = max(err, int((got.long() - want.long()).abs().max().item()))
+                checked += 1
+                if mism:
+                    raise SystemExit(f"K4 disagrees with its plain version at w={w} n={n} "
+                                     f"offset {off}: {mism} values")
+        total = int(wire_decode._decode_fixed_deltas(buf[:K4_SIZES[-1] * w], K4_SIZES[-1], w)
+                    .sum().item())
+        log(f"K4 vs plain [w={w}]: n in {K4_SIZES}, byte offsets 0 and 1: 0 mismatching values, "
+            f"max_abs_err={err}; the {K4_SIZES[-1]}-value sum is {total} "
+            f"({'wraps' if total >= 2**32 else 'does not wrap'} past 2^32)")
+    log(f"K4 vs plain: {checked} comparisons, all equal")
+    return err
+
+
+def codec_phase(tag: str, cells) -> dict:
+    """The wire codecs (delta + K4, wire8) on the IPv4-compact chunk of each
+    path's batch: ``cells`` are (path, label, tables, batch, oracle) for the
+    trie phase's 100K table (K2) and the ctrie phase's table A (K3).
+    Returns K4's kernels-line entry."""
+    import torch
+
+    from infw_torch import testing
+    from infw_torch.backend.base import stats_from_results
+    from infw_torch.backend.cuda import TorchClassifier
+    from infw_torch.kernels import all_kernels, cwalk, torchpath, walk, wire_decode
+    from infw_torch.layout import v4_trie_depth
+    from infw_torch.packets import encode_delta_wire, narrow_wire, wire8
+
+    # 1. K4 against its plain version
+    err = compare_k4(wire_decode)
+    kernels = all_kernels()
+    k4_launches = 0
+    timings = {}
+    for path, label, tables, batch, reference in cells:
+        walker = "ctrie_walk" if path == "ctrie" else "trie_walk"
+        idx = np.nonzero((batch.kind != 2) & ~batch.ip_words[:, 1:].any(axis=1))[0]
+        sub = batch.take(idx)
+        wire, v4_only = batch.pack_wire_subset(idx)
+        if wire.shape[1] != 4 or not v4_only:
+            raise SystemExit(f"{label}: the IPv4-compact chunk did not pack to 4 words")
+        # the references: the mixed batch through classify (narrow wire,
+        # device statistics), the same packets as a 7-word packed chunk
+        # (narrow wire, device statistics), the oracle
+        ref_clf = TorchClassifier(force_path=path)
+        ref_clf.load_tables(tables)
+        mixed = ref_clf.classify(batch, apply_stats=False)
+        narrow = ref_clf.classify_async_packed(sub.pack_wire(), True, apply_stats=False).result()
+        if set(ref_clf.wire_stats()) - {"wire6", "wire7"}:
+            raise SystemExit(f"{label}: the reference classify shipped {ref_clf.wire_stats()}")
+        if not (np.array_equal(narrow.results, mixed.results[idx])
+                and np.array_equal(narrow.xdp, mixed.xdp[idx])):
+            raise SystemExit(f"{label}: the narrow-wire references disagree")
+        head = idx[:ORACLE_PACKETS]
+        ref_head = reference(batch.take(head))
+        log(f"codec main path [{path}, {label}]: IPv4-compact chunk of {len(idx)} packets "
+            f"({len(idx) / len(batch):.1%} of the batch)")
+
+        # 2. the main path, once per codec
+        for codec in ("auto", "wire8", "delta"):
+            clf = TorchClassifier(force_path=path, wire_codec=codec)
+            clf.load_tables(tables)
+            for k in kernels:
+                k.launches = 0
+            t0 = time.perf_counter()
+            out = clf.classify_async_packed(wire, v4_only).result()
+            first_s = time.perf_counter() - t0
+            launches = {k.name: k.launches for k in kernels}
+            ws = clf.wire_stats()
+            (fmt, (pkts, nbytes)), = ws.items()
+            log(f"codec main path [{path}, codec={codec}]: shipped {fmt}, {pkts} packets, "
+                f"{nbytes} bytes = {nbytes / pkts:.3f} B/packet; first call {first_s:.3f} s; "
+                f"launches {launches}")
+            want_k4 = 1 if fmt == "delta" else 0
+            if (fmt not in ("delta", "wire8") or pkts != len(idx)
+                    or (codec != "auto" and fmt != codec)):
+                raise SystemExit(f"{path} codec={codec}: shipped {ws}")
+            if launches["wire_decode"] != want_k4 or launches[walker] != 1 or sum(
+                    launches.values()) != 1 + want_k4:
+                raise SystemExit(f"{path} codec={codec}: launches {launches}")
+            k4_launches += launches["wire_decode"]
+            if not (np.array_equal(out.results, mixed.results[idx])
+                    and np.array_equal(out.xdp, mixed.xdp[idx])
+                    and np.array_equal(out.results, narrow.results)
+                    and np.array_equal(out.stats_delta, narrow.stats_delta)):
+                raise SystemExit(f"{path} codec={codec}: disagrees with the narrow-wire classify")
+            check_recount(sub, out.results, out.stats_delta, f"{path} codec={codec}")
+            if not (np.array_equal(out.results[:len(head)], ref_head.results)
+                    and np.array_equal(out.xdp[:len(head)], ref_head.xdp)):
+                raise SystemExit(f"{path} codec={codec}: the chunk disagrees with the oracle")
+            again = clf.classify_async_packed(batch.pack_wire_subset(head)[0], True,
+                                              apply_stats=False).result()
+            if not (np.array_equal(again.results, ref_head.results)
+                    and np.array_equal(again.xdp, ref_head.xdp)
+                    and testing.stats_dict_from_array(again.stats_delta) == ref_head.stats):
+                raise SystemExit(f"{path} codec={codec}: a {len(head)}-packet chunk disagrees "
+                                 "with the oracle")
+            hist = np.bincount(out.xdp, minlength=3)
+            log(f"codec main path [{path}, codec={codec}]: equal to the mixed classify and the "
+                f"7-word packed classify (results, verdicts, statistics), the host recount, and "
+                f"the oracle on the chunk's first {len(head)} packets and on them as a chunk "
+                f"({again.results.shape[0]} packets, {clf.wire_stats()}); drop={hist[1]} "
+                f"pass={hist[2]} rule hits={int((out.results != 0).sum())}")
+
+        # 3. the fixed-stride plans, on clustered addresses near 0.0.0.0
+        rng = np.random.default_rng(45)
+        for want_w, hi in ((1, 200), (2, 60000)):
+            chunk = batch.take(idx[:FIXED_PACKETS])
+            chunk.ip_words[:, 0] = rng.permutation(
+                np.cumsum(rng.integers(0, hi, FIXED_PACKETS))).astype(np.uint32)
+            w4 = chunk.pack_wire_v4()
+            enc = encode_delta_wire(w4)
+            if enc is None or enc.fixed_w != want_w:
+                raise SystemExit(f"{path}: the clustered chunk took fixed_w "
+                                 f"{None if enc is None else enc.fixed_w}, not {want_w}")
+            clf = TorchClassifier(force_path=path, wire_codec="delta")
+            clf.load_tables(tables)
+            for k in kernels:
+                k.launches = 0
+            out = clf.classify_async_packed(w4, True).result()
+            launches = {k.name: k.launches for k in kernels}
+            if launches["wire_decode"] != 1 or launches[walker] != 1:
+                raise SystemExit(f"{path} fixed_w={want_w}: launches {launches}")
+            k4_launches += 1
+            ref = reference(chunk)
+            if not (np.array_equal(out.results, ref.results) and np.array_equal(out.xdp, ref.xdp)
+                    and testing.stats_dict_from_array(out.stats_delta) == ref.stats):
+                raise SystemExit(f"{path} fixed_w={want_w}: disagrees with the oracle")
+            log(f"codec fixed plan [{path}, fixed_w={want_w}, dict_mode {enc.dict_mode}]: "
+                f"{FIXED_PACKETS} packets, {enc.wire_bytes / FIXED_PACKETS:.3f} B/packet, "
+                f"equal to the oracle; rule hits={int((out.results != 0).sum())}; "
+                f"launches {launches}")
+
+        # 4. the stages of one classify per format on this chunk
+        n = len(idx)
+        if path == "ctrie":
+            dev = cwalk.build_ctrie_tables(tables, "cuda")
+            narrow_pass = lambda wd: cwalk.classify_ctrie_wire_fused(dev, wd)
+            wire8_pass = lambda wd, im: cwalk.classify_ctrie_wire8(dev, wd, im)
+            delta_entry = wire_decode.classify_delta_ctrie
+        else:
+            dev = walk.build_trie_tables(tables, "cuda")
+            depth = v4_trie_depth(dev.n_levels)
+            narrow_pass = lambda wd: walk.classify_walk_wire_fused(dev, wd, depth)
+            wire8_pass = lambda wd, im: walk.classify_wire8(dev, wd, im)
+            delta_entry = wire_decode.classify_delta
+        pkt_len = sub.pkt_len.astype(np.int64)
+        put = lambda a: torch.from_numpy(a if a.dtype == np.uint8 else a.view(np.int32)).to("cuda")
+        for fmt in ("narrow", "wire8", "delta"):
+            st = {}
+            if fmt == "narrow":
+                w3 = timed_stage(st, "host pack", lambda: narrow_wire(wire))
+                dargs = timed_stage(st, "H2D", lambda: (put(w3),))
+                h2d_bytes = w3.nbytes
+                run = lambda: narrow_pass(*dargs)
+            elif fmt == "wire8":
+                w8, ifmap = timed_stage(st, "host pack", lambda: wire8(wire))
+                dargs = timed_stage(st, "H2D", lambda: (put(w8), put(ifmap)))
+                h2d_bytes = w8.nbytes + ifmap.nbytes
+                run = lambda: wire8_pass(*dargs)
+            else:
+                enc = timed_stage(st, "host pack", lambda: encode_delta_wire(wire))
+                pay = wire_decode.pad_payload(enc.payload)
+                dv = wire_decode.pad_dict(enc.dict_vals)
+                dargs = timed_stage(st, "H2D", lambda: (put(pay), put(dv), put(enc.ifmap)))
+                h2d_bytes = pay.nbytes + dv.nbytes + enc.ifmap.nbytes
+                run = lambda: delta_entry(dev, *dargs, n=n, dict_mode=enc.dict_mode,
+                                          fixed_w=enc.fixed_w)
+            fused = timed_stage(st, "device pass", run)
+            host = timed_stage(st, "D2H", lambda: fused.cpu().numpy())
+
+            def finalize():
+                if fmt == "narrow":
+                    res16, stats = torchpath.split_wire_outputs(host, n)
+                    torchpath.merge_stats_host(stats)
+                    return torchpath.host_finalize_wire(res16, sub.kind)
+                res16 = torchpath.unpack_res16_host(host, n)
+                if fmt == "delta":
+                    unsorted = np.empty(n, np.uint16)
+                    unsorted[enc.perm] = res16
+                    res16 = unsorted
+                results, xdp = torchpath.host_finalize_wire(res16, sub.kind)
+                stats_from_results(results, pkt_len)
+                return results, xdp
+
+            results, _ = timed_stage(st, "host finalize", finalize)
+            if not np.array_equal(results, narrow.results):
+                raise SystemExit(f"{path} {fmt}: the staged classify disagrees")
+            dev_ms = cuda_ms(run, reps=10)
+            if fmt == "delta":
+                decode_ms = cuda_ms(lambda: wire_decode.decode_delta(
+                    *dargs, n=n, dict_mode=enc.dict_mode, fixed_w=enc.fixed_w), reps=10)
+                top = sorted(profiled_kernels(run, reps=5).items(), key=lambda kv: -kv[1])
+                log(f"{tag} codec delta device pass [{path}]: decode alone {decode_ms:.4f} ms "
+                    f"(CUDA events); profiler, device us per pass, {len(top)} kernels, total "
+                    f"{sum(v for _, v in top):.1f}: "
+                    + "; ".join(f"{k[:60]} {v:.1f}" for k, v in top[:6]))
+            if fmt == "narrow":
+                e2e = None
+            else:
+                clf = TorchClassifier(force_path=path, wire_codec=fmt)
+                clf.load_tables(tables)
+                e2e = median_s(lambda: clf.classify_async_packed(wire, True, apply_stats=False)
+                               .result())
+            timings[f"{path} {fmt}"] = {"h2d_bytes": h2d_bytes, "device_ms": dev_ms, "e2e_s": e2e}
+            log(f"{tag} codec stages [{path}, {fmt}, {n} packets]: H2D {h2d_bytes} bytes = "
+                f"{h2d_bytes / n:.3f} B/packet; device pass {dev_ms:.4f} ms (CUDA events); "
+                f"host clock, ms: " + ", ".join(f"{k} {v * 1e3:.2f}" for k, v in st.items())
+                + ("" if e2e is None else f"; end to end {e2e * 1e3:.2f} ms (median of 5) = "
+                   f"{n / e2e / 1e6:.3f} M packets/s"))
+
+    # 5. K4 times at 2^20 values per width, its bound, the plain version and
+    # torch.cumsum of the combined deltas (the prefix sum alone)
+    rng = np.random.default_rng(46)
+    n = K4_SIZES[-2]
+    k4 = {}
+    for w in (1, 2, 4):
+        c = torch.from_numpy(rng.integers(0, 256, n * w + 1, dtype=np.uint8)).to("cuda")[1:]
+        deltas = wire_decode._decode_fixed_deltas(c, n, w)
+        device_us = profiled_kernels(lambda: wire_decode.decode_scan(c, n, w), reps=20)
+        k4[w] = {
+            "ms": cuda_ms(lambda: wire_decode.decode_scan(c, n, w), reps=50),
+            "device_ms": sum(device_us.values()) / 1e3 if device_us else None,
+            "plain_ms": cuda_ms(lambda: wire_decode.decode_scan_plain(c, n, w), reps=20),
+            "library_ms": cuda_ms(lambda: torch.cumsum(deltas, 0), reps=50),
+            "bound_ms": n * (w + 4) / HBM_BYTES_PER_S * 1e3,
+        }
+        log(f"{tag} K4 wire_decode [w={w}, n={n}]: {k4[w]['ms']:.4f} ms; bound "
+            f"{k4[w]['bound_ms']:.4f} ms by bytes ({n * (w + 4)} bytes / 3.35 TB/s), "
+            f"{k4[w]['ms'] / k4[w]['bound_ms']:.1f}x it; plain version {k4[w]['plain_ms']:.4f} ms; "
+            f"torch.cumsum of the int64 deltas {k4[w]['library_ms']:.4f} ms; profiler device "
+            f"time per call (us): " + (", ".join(f"{k[:40]} {v:.2f}" for k, v in device_us.items())
+                                     or "not measured (no device events in the trace)"))
+    return {
+        "name": "wire_decode",
+        "route": "cuda",
+        "source": "infw_torch/kernels/csrc/wire_decode.cu",
+        "replaces": "infw/kernels/wire_decode.py:222",
+        "launches": k4_launches,
+        "mismatches": 0,
+        "max_abs_err": err,
+        "ms": k4[4]["ms"],
+        "device_ms": k4[4]["device_ms"],
+        "plain_ms": k4[4]["plain_ms"],
+        "bound_ms": k4[4]["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": k4[4]["library_ms"],
+        "by_width": {str(w): v for w, v in k4.items()},
+        "codec_stages": timings,
     }
 
 
@@ -898,10 +1208,18 @@ def main() -> int:
     k2, trie_tables, trie_batch = trie_phase(tag)
 
     # 7. the ctrie path
-    k3 = ctrie_phase(tag, trie_tables, trie_batch)
+    k3, ctrie_tables, ctrie_batch, hashed = ctrie_phase(tag, trie_tables, trie_batch)
 
-    # 8. the kernels line, then the device line last
-    print(json.dumps({"kernels": [k1, k2, k3]}), flush=True)
+    # 8. the wire codecs on both paths' IPv4-compact chunks
+    k4 = codec_phase(tag, [
+        ("trie", f"100K trie table, {TRIE_PACKETS}-packet batch", trie_tables, trie_batch,
+         lambda sub: oracle.classify(trie_tables, sub)),
+        ("ctrie", f"10M table A, {CTRIE_PACKETS}-packet batch", ctrie_tables, ctrie_batch,
+         hashed.classify),
+    ])
+
+    # 9. the kernels line, then the device line last
+    print(json.dumps({"kernels": [k1, k2, k3, k4]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}),
           flush=True)
     return 0

@@ -43,6 +43,28 @@ class PendingClassify:
         return self._out
 
 
+def stats_from_results(results: np.ndarray, pkt_len: np.ndarray) -> np.ndarray:
+    """Per-batch statistics from host-resident verdicts, (MAX_TARGETS, 4)
+    int64 [allow_pkts, allow_bytes, deny_pkts, deny_bytes], with the device
+    accumulation's semantics (kernel.c:361-399: allow and deny only, ruleId
+    < MAX_TARGETS).  The wire8 and delta formats never ship pkt_len, so
+    their statistics come from here.  No is_ip term: the results of packets
+    that are not IP are already zero."""
+    action = results & 0xFF
+    rid = (results >> 8).astype(np.int64)
+    pl = np.asarray(pkt_len, np.int64)
+    out = np.zeros((MAX_TARGETS, 4), np.int64)
+    for col, act in ((0, 2), (2, 1)):  # ALLOW=2, DENY=1
+        m = (action == act) & (rid < MAX_TARGETS)
+        if m.any():
+            r = rid[m]
+            out[:, col] = np.bincount(r, minlength=MAX_TARGETS)[:MAX_TARGETS]
+            out[:, col + 1] = np.bincount(
+                r, weights=pl[m], minlength=MAX_TARGETS
+            )[:MAX_TARGETS].astype(np.int64)
+    return out
+
+
 class StatsAccumulator:
     """Host-side equivalent of the per-CPU statistics map
     (bpf/ingress_node_firewall_kernel.c:36-41): accumulates per-ruleId

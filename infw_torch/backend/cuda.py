@@ -6,7 +6,22 @@ into the wire format on the host, copied in once, unpacked and classified
 by kernel K1 (kernels/dense.py, tables of at most ``dense_limit`` entries),
 kernel K2 (kernels/walk.py, the trie path) or kernel K3 (kernels/cwalk.py,
 the compressed ctrie path), and read back once as one int32 buffer of
-results and statistics.
+results and statistics (results only for the wire8 and delta formats).
+
+- **wire format** (``_plan``, the JAX package's ``_plan_wire``): a
+  non-empty 4-word (IPv4-compact) chunk on the trie or ctrie path ships the
+  delta stream (packets.encode_delta_wire: the chunk sorted by IP, varint or
+  fixed-stride deltas, dictionary-coded metadata; decoded on the card by
+  kernels/wire_decode.py with kernel K4) when ``wire_codec`` is "delta", or
+  "auto" and its bucket-padded bytes come to less than 8 per packet;
+  otherwise the 8-byte wire8 (packets.wire8) when it qualifies.  Both leave
+  pkt_len on the host: statistics come from the returned verdicts
+  (base.stats_from_results), and a delta chunk's verdicts are put back in
+  chunk order on the host.  The dense path, 7-word chunks and empty chunks
+  ship the narrow wire (packets.narrow_wire), or the full one when it does
+  not qualify.  ``wire_codec`` is the argument, else ``INFW_WIRE_CODEC``,
+  else "auto"; ``wire_stats()`` counts the packets and bytes each format
+  shipped.
 
 - **path choice** (``load_tables``): dense up to ``dense_limit`` entries,
   trie above; a table whose ruleIds or rule width the dense packing cannot
@@ -51,7 +66,7 @@ import torch
 
 from ..compiler import CompiledTables
 from ..constants import KIND_IPV6
-from ..kernels import cwalk, dense, torchpath, walk
+from ..kernels import cwalk, dense, torchpath, walk, wire_decode
 from ..layout import (
     build_depth_lut,
     check_wire_ruleids,
@@ -60,11 +75,13 @@ from ..layout import (
     tune_depth_classes,
     v4_trie_depth,
 )
-from ..packets import PacketBatch, narrow_wire
-from .base import ClassifyOutput, PendingClassify, StatsAccumulator
+from ..packets import PacketBatch, encode_delta_wire, narrow_wire, wire8
+from .base import ClassifyOutput, PendingClassify, StatsAccumulator, stats_from_results
 
 #: where the parts this backend does not serve yet are queued
 OVERLAY_ITEM = "ROADMAP.md item 5 (incremental patches and the overlay combine)"
+#: host-to-device formats of a 4-word chunk on the trie and ctrie paths
+WIRE_CODECS = ("auto", "wire8", "delta")
 
 
 class _Active(NamedTuple):
@@ -78,11 +95,20 @@ class TorchClassifier:
 
     def __init__(self, device=None, dense_limit: int = dense.MAX_DENSE_TARGETS,
                  force_path: Optional[str] = None,
-                 compressed: Optional[bool] = None) -> None:
+                 compressed: Optional[bool] = None,
+                 wire_codec: Optional[str] = None) -> None:
         if force_path not in (None, "dense", "trie", "ctrie"):
             raise ValueError(
                 f"unknown force_path {force_path!r} (expected 'dense', 'trie', 'ctrie' or None)"
             )
+        # the JAX package's precedence: the argument, else INFW_WIRE_CODEC,
+        # else "auto"
+        if wire_codec is None:
+            wire_codec = os.environ.get("INFW_WIRE_CODEC") or "auto"
+        if wire_codec not in WIRE_CODECS:
+            raise ValueError(f"unknown wire codec {wire_codec!r} (expected one of {WIRE_CODECS})")
+        self._wire_codec = wire_codec
+        self._wire_counts = {}
         self._device = torchpath.resolve_device(device)
         self._dense_limit = dense_limit
         self._force_path = force_path
@@ -189,8 +215,9 @@ class TorchClassifier:
         active = self._snapshot()
         if active.wide_rids:
             return self._classify_async_wide(active.dev, batch, apply_stats)
-        # Packed wire: 16 B/packet for v4-only chunks, 28 B otherwise, one
-        # word less when narrow_wire qualifies the chunk.
+        # Packed wire: 16 B/packet for v4-only chunks, 28 B otherwise, which
+        # _plan turns into the delta or wire8 format (a 4-word chunk on the
+        # trie and ctrie paths) or the narrow wire.
         kind = np.asarray(batch.kind)
         v4_only = not bool((kind == KIND_IPV6).any())
         wire_np = batch.pack_wire_v4() if batch.is_v4_compactable() else batch.pack_wire()
@@ -271,16 +298,55 @@ class TorchClassifier:
         """Second half: launch the classify on a prepare_packed plan."""
         return self._launch(plan, apply_stats)
 
+    def _put(self, a: np.ndarray) -> torch.Tensor:
+        a = np.ascontiguousarray(a)
+        if a.dtype != np.uint8:
+            a = a.view(np.int32)
+        return torch.from_numpy(a).to(self._device)
+
     def _plan(self, active: _Active, wire_np: np.ndarray, kind: np.ndarray, n_levels):
+        """Format choice and the host-to-device copy (tpu.py _plan_wire): a
+        non-empty 4-word chunk on the trie or ctrie path ships the delta
+        stream (codec "delta", or "auto" when its bucket-padded bytes beat
+        8 per packet), else wire8; everything else the narrow wire when it
+        qualifies, else the full one."""
+        n = wire_np.shape[0]
+        plan = {"active": active, "kind": kind, "n": n, "n_levels": n_levels}
+        if active.path in ("trie", "ctrie") and wire_np.shape[1] == 4 and n:
+            codec = self._wire_codec
+            if codec in ("auto", "delta"):
+                enc = encode_delta_wire(wire_np, max_bytes_per_pkt=8.0 if codec == "auto" else None)
+                if enc is not None:
+                    # what crosses the link: the bucket-padded payload, the
+                    # 256-slot dictionary and the ifmap
+                    shipped = wire_decode.payload_bucket(len(enc.payload)) + 256 * 4 + enc.ifmap.nbytes
+                    if codec == "delta" or shipped < 8 * n:
+                        plan.update(
+                            fmt="delta", enc=enc, pkt_len=self._wire4_pkt_len(wire_np),
+                            payload=self._put(wire_decode.pad_payload(enc.payload)),
+                            dictv=self._put(wire_decode.pad_dict(enc.dict_vals)),
+                            ifmap=self._put(enc.ifmap),
+                        )
+                        self._note_wire("delta", n, shipped)
+                        return plan
+            w8 = wire8(wire_np)
+            if w8 is not None:
+                wire8_np, ifmap = w8
+                plan.update(fmt="wire8", pkt_len=self._wire4_pkt_len(wire_np),
+                            wire=self._put(wire8_np), ifmap=self._put(ifmap))
+                self._note_wire("wire8", n, wire8_np.nbytes + ifmap.nbytes)
+                return plan
         if wire_np.shape[1] in (4, 7):
             narrow = narrow_wire(wire_np)
             if narrow is not None:
                 wire_np = narrow
-        wire = torch.from_numpy(np.ascontiguousarray(wire_np).view(np.int32)).to(self._device)
-        return {"active": active, "wire": wire, "kind": kind, "n": wire_np.shape[0],
-                "n_levels": n_levels}
+        plan.update(fmt="wire", wire=self._put(wire_np))
+        self._note_wire(f"wire{wire_np.shape[1]}", n, wire_np.nbytes)
+        return plan
 
     def _launch(self, plan, apply_stats: bool) -> PendingClassify:
+        if plan["fmt"] != "wire":
+            return self._launch_res16(plan, apply_stats)
         active, wire, n = plan["active"], plan["wire"], plan["n"]
         if active.path == "dense":
             fused = dense.classify_dense_wire_fused(active.dev, wire)
@@ -298,6 +364,58 @@ class TorchClassifier:
             return ClassifyOutput(results=results, xdp=xdp, stats_delta=stats_delta)
 
         return PendingClassify(materialize)
+
+    def _launch_res16(self, plan, apply_stats: bool) -> PendingClassify:
+        """The wire8 and delta launches (tpu.py _launch_wire8,
+        _launch_delta): one read back of the packed res16 results; the
+        statistics come from the verdicts and the pkt_len column that never
+        crossed the link.  A delta chunk is classified in sorted order and
+        its results are put back in chunk order here."""
+        active, n, kind = plan["active"], plan["n"], plan["kind"]
+        if plan["fmt"] == "wire8":
+            entry = cwalk.classify_ctrie_wire8 if active.path == "ctrie" else walk.classify_wire8
+            fused = entry(active.dev, plan["wire"], plan["ifmap"])
+            perm = None
+        else:
+            enc = plan["enc"]
+            entry = (wire_decode.classify_delta_ctrie if active.path == "ctrie"
+                     else wire_decode.classify_delta)
+            fused = entry(active.dev, plan["payload"], plan["dictv"], plan["ifmap"],
+                          n=n, dict_mode=enc.dict_mode, fixed_w=enc.fixed_w)
+            perm = enc.perm
+
+        def materialize() -> ClassifyOutput:
+            res16 = torchpath.unpack_res16_host(fused.cpu().numpy(), n)
+            if perm is not None:
+                unsorted = np.empty(n, np.uint16)
+                unsorted[perm] = res16
+                res16 = unsorted
+            results, xdp = torchpath.host_finalize_wire(res16, kind)
+            stats_delta = stats_from_results(results, plan["pkt_len"])
+            if apply_stats:
+                self._stats.add(stats_delta)
+            return ClassifyOutput(results=results, xdp=xdp, stats_delta=stats_delta)
+
+        return PendingClassify(materialize)
+
+    def _note_wire(self, fmt: str, n: int, nbytes: int) -> None:
+        with self._lock:
+            c = self._wire_counts.setdefault(fmt, [0, 0])
+            c[0] += n
+            c[1] += nbytes
+
+    def wire_stats(self):
+        """{format: (packets, host-to-device bytes)} since construction:
+        "delta", "wire8", or "wire<width>" for the narrow (3, 6) and full
+        (4, 7) wires."""
+        with self._lock:
+            return {k: tuple(v) for k, v in self._wire_counts.items()}
+
+    @staticmethod
+    def _wire4_pkt_len(wire4_np: np.ndarray) -> np.ndarray:
+        """pkt_len from the 4-word wire (w1 >> 16 plus the w0 >> 27 high
+        bits); it stays on the host for the wire8 and delta formats."""
+        return (((wire4_np[:, 1] >> 16) & 0xFFFF) | ((wire4_np[:, 0] >> 27) << 16)).astype(np.int64)
 
     def _classify_async_wide(
         self, tt: walk.TrieTables, batch: PacketBatch, apply_stats: bool

@@ -8,9 +8,9 @@ from __future__ import annotations
 
 from typing import List
 
-from . import cwalk, dense, walk
+from . import cwalk, dense, walk, wire_decode
 from ._build import Kernel
 
 
 def all_kernels() -> List[Kernel]:
-    return [dense.KERNEL, walk.KERNEL, cwalk.KERNEL]
+    return [dense.KERNEL, walk.KERNEL, cwalk.KERNEL, wire_decode.KERNEL]

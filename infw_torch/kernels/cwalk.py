@@ -24,7 +24,10 @@ first hit.
   (ctrie_walk_rows, joined_rule_rows, rule_scan), chunked over packets so
   it also runs at 2^20 packets on the card;
 - ``classify_ctrie`` / ``classify_ctrie_wire_fused``: the forward pass
-  around the kernel (wire unpack, verdict, statistics, one-buffer output).
+  around the kernel (wire unpack, verdict, statistics, one-buffer output);
+  ``classify_ctrie_res16`` / ``classify_ctrie_wire8``: the results-only
+  pass of the v4-compact wire formats (wire8 here, delta in
+  kernels/wire_decode.py).
 
 As on the trie path, the rule scan reports action and ruleId as stored.
 """
@@ -41,15 +44,18 @@ from ..layout import build_cpoptrie, joined_by_tidx
 from . import _build
 from .torchpath import (
     DeviceBatch,
+    _pack_res16,
     batch_from_fields,
     ctrie_walk_rows,
     finalize,
     fuse_wire_outputs,
     joined_rule_rows,
+    looked_up_results,
     packet_fields,
     resolve_device,
     rule_scan,
     unpack_wire,
+    unpack_wire8,
 )
 
 NODE_WORDS = 20  # child_base, target_base, skip_len, skip_bits, bitmaps 8 + 8
@@ -193,3 +199,18 @@ def classify_ctrie_wire_fused(ct: CTrieTables, wire: torch.Tensor) -> torch.Tens
     words of u16-pair-packed results, then the (MAX_TARGETS, 6) stats."""
     res, _xdp, stats = classify_ctrie(ct, unpack_wire(wire))
     return fuse_wire_outputs(res & 0xFFFF, stats)
+
+
+def classify_ctrie_res16(ct: CTrieTables, batch: DeviceBatch) -> torch.Tensor:
+    """The v4-compact formats' classify (wire8, delta) through K3: the
+    results only, as ceil(B/2) int32 words of u16-pair-packed results (the
+    host derives the statistics).  No depth truncation: the walk's per-lane
+    /32 cap bounds an IPv4 descent."""
+    fields, words = packet_fields(batch)
+    return _pack_res16(looked_up_results(ctrie_walk_classify(fields, words, ct)[:, 0], batch))
+
+
+def classify_ctrie_wire8(ct: CTrieTables, wire: torch.Tensor, ifmap: torch.Tensor) -> torch.Tensor:
+    """wire8 (B, 2) int32 + its (16,) ifindex dictionary in, packed res16
+    out (jaxpath.jitted_classify_ctrie_wire8_fused)."""
+    return classify_ctrie_res16(ct, unpack_wire8(wire, ifmap))

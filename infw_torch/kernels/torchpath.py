@@ -1,7 +1,8 @@
 """Wire and verdict layer of the classify path, in plain PyTorch.
 
 Counterpart of the wire/verdict half of the JAX package's
-``kernels/jaxpath.py``: unpacking the packed host-to-device wire, the
+``kernels/jaxpath.py``: unpacking the packed host-to-device wire
+(``unpack_wire``, and ``unpack_wire8`` for the 8-byte format), the
 ordered first-match rule scan, the XDP verdict and per-rule statistics
 (``finalize``/``result_stats``), and the single-buffer device-to-host
 packing of results + statistics (``fuse_wire_outputs``) with its host
@@ -162,6 +163,31 @@ def unpack_wire(wire: torch.Tensor) -> DeviceBatch:
         icmp_type=icmp_type,
         icmp_code=icmp_code,
         pkt_len=pkt_len,
+    )
+
+
+def unpack_wire8(wire: torch.Tensor, ifmap: torch.Tensor) -> DeviceBatch:
+    """Inverse of packets.wire8: (B, 2) int32 rows (uint32 words) plus the
+    (16,) int32 ifindex dictionary.  pkt_len is ZERO: the format carries no
+    lengths, so the caller computes byte statistics on the host from the
+    verdicts (backend.base.stats_from_results) and never reads the device
+    statistics of a wire8 classify."""
+    w0 = wire[:, 0]
+    proto = (w0 >> 3) & 0xFF
+    is_icmp = (proto == IPPROTO_ICMP) | (proto == IPPROTO_ICMPV6)
+    l4w = (w0 >> 15) & 0xFFFF
+    ifd = (w0 >> 11) & 0xF
+    zero = torch.zeros_like(proto)
+    return DeviceBatch(
+        kind=w0 & 3,
+        l4_ok=(w0 >> 2) & 1,
+        ifindex=ifmap[ifd.clamp(0, ifmap.shape[0] - 1).long()].to(torch.int32),
+        ip_words=torch.cat([wire[:, 1:2], wire.new_zeros((wire.shape[0], 3))], dim=1),
+        proto=proto,
+        dst_port=torch.where(is_icmp, zero, l4w),
+        icmp_type=torch.where(is_icmp, l4w >> 8, zero),
+        icmp_code=torch.where(is_icmp, l4w & 0xFF, zero),
+        pkt_len=zero,
     )
 
 
@@ -422,14 +448,20 @@ def result_stats(result: torch.Tensor, batch: DeviceBatch) -> torch.Tensor:
     return wrap_int32(stats[:MAX_TARGETS])
 
 
+def looked_up_results(result: torch.Tensor, batch: DeviceBatch) -> torch.Tensor:
+    """The results finalize keeps: zero for packets that are not IP or whose
+    L4 parse failed (kernel.c:412-439), int32."""
+    is_ip = (batch.kind == KIND_IPV4) | (batch.kind == KIND_IPV6)
+    return torch.where(is_ip & (batch.l4_ok != 0), result, 0).to(torch.int32)
+
+
 def finalize(
     result: torch.Tensor, batch: DeviceBatch
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Ethertype/kind dispatch and stats (kernel.c:412-457, 361-400).
     Returns (results int32, xdp int32, stats (MAX_TARGETS, 6) int32)."""
     is_ip = (batch.kind == KIND_IPV4) | (batch.kind == KIND_IPV6)
-    looked_up = is_ip & (batch.l4_ok != 0)
-    result = torch.where(looked_up, result, 0).to(torch.int32)
+    result = looked_up_results(result, batch)
     action = result & 0xFF
     drop = torch.full_like(result, XDP_DROP)
     xdp = torch.where(

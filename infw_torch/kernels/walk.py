@@ -16,7 +16,10 @@ first hit.
 - ``trie_walk_classify_plain``: the same function in plain PyTorch,
   chunked over packets so it also runs at 2^20 packets on the card;
 - ``classify_walk`` / ``classify_walk_wire_fused``: the forward pass
-  around the kernel (wire unpack, verdict, statistics, one-buffer output).
+  around the kernel (wire unpack, verdict, statistics, one-buffer output);
+  ``classify_walk_res16`` / ``classify_wire8``: the results-only pass of
+  the v4-compact wire formats (wire8 here, delta in kernels/wire_decode.py)
+  at the IPv4 depth.
 
 ``n_levels`` is the number of trie levels walked: all of them for a mixed
 batch, ``layout.v4_trie_depth`` for an IPv4-only chunk, 1 + d for an IPv6
@@ -33,19 +36,22 @@ import numpy as np
 import torch
 
 from ..compiler import CompiledTables, trie_levels_for_mask
-from ..layout import build_poptrie
+from ..layout import build_poptrie, v4_trie_depth
 from . import _build
 from .torchpath import (
     DeviceBatch,
+    _pack_res16,
     batch_from_fields,
     finalize,
     fuse_wire_outputs,
     gather_rule_rows,
+    looked_up_results,
     packet_fields,
     resolve_device,
     rule_scan,
     trie_walk,
     unpack_wire,
+    unpack_wire8,
 )
 
 #: the deepest trie the walk reads: the root level plus 8-bit levels down
@@ -206,3 +212,19 @@ def classify_walk_wire_fused(tt: TrieTables, wire: torch.Tensor, n_levels: int) 
     words of u16-pair-packed results, then the (MAX_TARGETS, 6) stats."""
     res, _xdp, stats = classify_walk(tt, unpack_wire(wire), n_levels)
     return fuse_wire_outputs(res & 0xFFFF, stats)
+
+
+def classify_walk_res16(tt: TrieTables, batch: DeviceBatch) -> torch.Tensor:
+    """The v4-compact formats' classify (wire8, delta): K2 at the IPv4
+    depth (``layout.v4_trie_depth``, the chunk holds no IPv6 packet), the
+    results only, as ceil(B/2) int32 words of u16-pair-packed results (the
+    host derives the statistics)."""
+    fields, words = packet_fields(batch)
+    res = trie_walk_classify(fields, words, tt, v4_trie_depth(tt.n_levels))[:, 0]
+    return _pack_res16(looked_up_results(res, batch))
+
+
+def classify_wire8(tt: TrieTables, wire: torch.Tensor, ifmap: torch.Tensor) -> torch.Tensor:
+    """wire8 (B, 2) int32 + its (16,) ifindex dictionary in, packed res16
+    out (jaxpath.classify_wire8 with v4_only)."""
+    return classify_walk_res16(tt, unpack_wire8(wire, ifmap))

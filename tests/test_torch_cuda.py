@@ -1,5 +1,5 @@
-"""Kernels K1, K2 and K3 on the card against their plain PyTorch versions,
-at small sizes.
+"""Kernels K1, K2, K3 and K4 on the card against their plain PyTorch
+versions, at small sizes, and the wire codecs through the classifier.
 
 Needs a CUDA card and nvcc; skips elsewhere.  Run on the card with
 
@@ -14,7 +14,7 @@ import torch
 
 from infw_torch import compiler, oracle, testing
 from infw_torch.backend.cuda import TorchClassifier
-from infw_torch.kernels import cwalk, dense, torchpath, walk
+from infw_torch.kernels import cwalk, dense, torchpath, walk, wire_decode
 
 pytestmark = pytest.mark.cuda
 
@@ -188,5 +188,64 @@ def test_ctrie_classifier_on_card_matches_trie_path_and_oracle(cuda):
     for f in ("results", "xdp", "stats_delta"):
         np.testing.assert_array_equal(getattr(out, f), getattr(ref, f), err_msg=f)
     want = oracle.classify(tables, batch)
+    np.testing.assert_array_equal(out.results, want.results)
+    assert testing.stats_dict_from_array(out.stats_delta) == want.stats
+
+
+@pytest.mark.parametrize("fixed_w", [1, 2, 4])
+@pytest.mark.parametrize("n", [1, 1023, 1024, 1025, 5000, (1 << 20) + 7])
+def test_k4_matches_plain(cuda, fixed_w, n):
+    """K4 against its plain version, from an odd byte offset, on random
+    bytes (the width-4 sums wrap past 2^32), and on the CPU."""
+    rng = np.random.default_rng(fixed_w * 7 + n)
+    buf = torch.from_numpy(rng.integers(0, 256, n * fixed_w + 5).astype(np.uint8)).to(cuda)
+    c = buf[3:]
+    assert c.data_ptr() % 2 == 1
+    before = wire_decode.KERNEL.launches
+    got = wire_decode.decode_scan(c, n, fixed_w)
+    torch.cuda.synchronize()
+    assert wire_decode.KERNEL.launches == before + 1
+    assert torch.equal(got, wire_decode.decode_scan_plain(c, n, fixed_w))
+    assert torch.equal(got.cpu(), wire_decode.decode_scan(c.cpu(), n, fixed_w))
+
+
+def test_k4_rejects_bad_operands(cuda):
+    c = torch.zeros(64, dtype=torch.uint8, device=cuda)
+    with pytest.raises(ValueError):
+        wire_decode.decode_scan(c.to(torch.int32), 4, 1)
+    with pytest.raises(ValueError):
+        wire_decode.decode_scan(c, 4, 3)
+    with pytest.raises(ValueError):
+        wire_decode.decode_scan(c, 17, 4)
+    with pytest.raises(ValueError):
+        wire_decode.decode_scan(c[::2], 8, 1)
+    assert wire_decode.decode_scan(c, 0, 2).shape == (0,)
+
+
+@pytest.mark.parametrize("path", ["trie", "ctrie"])
+@pytest.mark.parametrize("codec", ["auto", "wire8", "delta"])
+def test_codec_classifier_on_card_matches_cpu_and_oracle(cuda, path, codec):
+    """The IPv4-compact chunk through each codec on the card: the same
+    results, verdicts, statistics and wire_stats() as on the CPU, and the
+    oracle's; the delta chunks launch K4, the wire8 chunks do not."""
+    rng = np.random.default_rng(10)
+    tables = testing.random_tables_fast(rng, 4200, ifindexes=(2, 3, 4), width=10)
+    batch = testing.random_batch_fast(rng, tables, 6000)
+    v4 = np.nonzero(batch.kind == 1)[0]
+    wire, v4_only = batch.pack_wire_subset(v4)
+    assert wire.shape[1] == 4
+    clf = TorchClassifier(force_path=path, wire_codec=codec)
+    cpu = TorchClassifier(device="cpu", force_path=path, wire_codec=codec)
+    clf.load_tables(tables)
+    cpu.load_tables(tables)
+    before = wire_decode.KERNEL.launches
+    out = clf.classify_async_packed(wire, v4_only).result()
+    launched = wire_decode.KERNEL.launches - before
+    ref = cpu.classify_async_packed(wire, v4_only).result()
+    for f in ("results", "xdp", "stats_delta"):
+        np.testing.assert_array_equal(getattr(out, f), getattr(ref, f), err_msg=f)
+    assert clf.wire_stats() == cpu.wire_stats()
+    assert launched == (1 if "delta" in clf.wire_stats() else 0)
+    want = oracle.classify(tables, batch.take(v4))
     np.testing.assert_array_equal(out.results, want.results)
     assert testing.stats_dict_from_array(out.stats_delta) == want.stats

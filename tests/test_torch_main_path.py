@@ -347,9 +347,13 @@ def test_device_operands_default_to_the_card(fn_name):
 
 def test_import_loads_no_jax_and_no_infw():
     code = (
-        "import sys, pkgutil, importlib, infw_torch.kernels.cwalk, infw_torch\n"
-        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'infw')]\n"
-        "assert not bad, ('infw_torch.kernels.cwalk', bad)\n"
+        "import sys, pkgutil, importlib\n"
+        "for name in ('infw_torch.kernels.wire_decode', 'infw_torch.backend.cuda',\n"
+        "             'infw_torch.kernels.cwalk', 'infw_torch'):\n"
+        "    importlib.import_module(name)\n"
+        "    bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'infw')]\n"
+        "    assert not bad, (name, bad)\n"
+        "import infw_torch\n"
         "for m in pkgutil.walk_packages(infw_torch.__path__, 'infw_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'infw')]\n"
