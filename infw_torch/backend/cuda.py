@@ -1,4 +1,6 @@
-"""Single-GPU classifier backend: the dense, trie and ctrie paths.
+"""Single-GPU classifier backends: the dense, trie and ctrie paths
+(TorchClassifier) and the multi-tenant ctrie arena (TorchArenaClassifier,
+at the end of this module).
 
 The counterpart of the JAX package's TpuClassifier, stateless serving on
 one device: compiled rule tables live on the card, each batch is packed
@@ -64,9 +66,10 @@ from typing import NamedTuple, Optional, Union
 import numpy as np
 import torch
 
+from .. import arena as arena_mod
 from ..compiler import CompiledTables
-from ..constants import KIND_IPV6
-from ..kernels import cwalk, dense, torchpath, walk, wire_decode
+from ..constants import ALLOW, DENY, KIND_IPV6
+from ..kernels import arena_walk, cwalk, dense, torchpath, walk, wire_decode
 from ..layout import (
     build_depth_lut,
     check_wire_ruleids,
@@ -79,7 +82,9 @@ from ..packets import PacketBatch, encode_delta_wire, narrow_wire, wire8
 from .base import ClassifyOutput, PendingClassify, StatsAccumulator, stats_from_results
 
 #: where the parts this backend does not serve yet are queued
-OVERLAY_ITEM = "ROADMAP.md item 5 (incremental patches and the overlay combine)"
+OVERLAY_ITEM = arena_mod.PATCH_ITEM
+FLOW_ITEM = "ROADMAP.md item 9 (the stateful flow tier)"
+INVARIANTS_ITEM = "ROADMAP.md item 17 (verifiers for the port)"
 #: host-to-device formats of a 4-word chunk on the trie and ctrie paths
 WIRE_CODECS = ("auto", "wire8", "delta")
 
@@ -461,3 +466,198 @@ class TorchClassifier:
             self._tables = None
             self._depth_steer = None
             self._closed = True
+
+
+class TorchArenaClassifier:
+    """Multi-tenant paged-arena classifier (ctrie family): many tenant
+    rulesets resident in ONE device pool, batches of mixed-tenant traffic
+    steered per packet by the device tenant -> page table (kernel K3b,
+    kernels/arena_walk.py), tenant activation and hot-swap as a page-table
+    flip.  The counterpart of the JAX package's ArenaClassifier.
+
+    Serves the packed-wire contract with a tenant column:
+    ``classify_async_packed_tenant(wire_np, tenant_np)`` ships the narrow
+    wire (packets.narrow_wire) when it qualifies, else the wire as given,
+    plus the (B,) int32 tenant column; tenant ids outside the table, absent
+    and destroyed tenants classify to UNDEF.  One read back per batch.
+
+    A structural install runs stage -> activate (the slab write of a new
+    page is issued before the flip that makes it reachable), with the
+    allocator's in-place path as the fallback when no page is free, as the
+    JAX classifier serving its fused walk does.  A classify is enqueued
+    under the allocator's lock, so it runs wholly before or after any slab
+    write or flip.
+
+    Not in this slice (NotImplementedError): rules-only patches (``hint``)
+    and the overlay side-pool (ROADMAP item 5), the flow tier (item 9),
+    invariant checks (item 17), the dense family and spliced geometries
+    (arena.DENSE_ITEM, arena.SPLICE_ITEM)."""
+
+    def __init__(self, spec: "arena_mod.ArenaSpec", device=None, overlay_spec=None,
+                 flow_table=None, check_invariants: Optional[bool] = None) -> None:
+        if overlay_spec is not None:
+            raise NotImplementedError(f"the arena overlay side-pool is {OVERLAY_ITEM}")
+        if flow_table is not None and flow_table is not False:
+            raise NotImplementedError(f"the arena flow table is {FLOW_ITEM}")
+        if check_invariants:
+            raise NotImplementedError(f"arena invariant checks are {INVARIANTS_ITEM}")
+        self._alloc = arena_mod.ArenaAllocator(spec, device)
+        self._device = self._alloc.device
+        self._lock = threading.Lock()
+        self._stats = StatsAccumulator()
+        self._wire_counts = {}
+        # per-tenant verdict accounting {tid: [packets, allow, deny]}
+        self._tenant_counts = {}
+        self._closed = False
+
+    # -- tenant lifecycle ----------------------------------------------------
+
+    @property
+    def allocator(self) -> "arena_mod.ArenaAllocator":
+        return self._alloc
+
+    @property
+    def spec(self) -> "arena_mod.ArenaSpec":
+        return self._alloc.spec
+
+    @property
+    def device(self) -> torch.device:
+        return self._device
+
+    def load_tenant(self, tenant: int, tables: CompiledTables, hint=None) -> str:
+        """Install or replace one tenant's table: stage, then activate;
+        returns "assign" or "rewrite".  With no free page to stage into,
+        the allocator's own install (a content hit, or an in-place rewrite
+        of a private page) and its path."""
+        if self._closed:
+            raise RuntimeError("classifier is closed")
+        if hint is not None:
+            raise NotImplementedError(f"rules-only arena patches are {OVERLAY_ITEM}")
+        had_page = self._alloc.page_of(tenant) is not None
+        try:
+            page = self._alloc.stage(tables)
+        except arena_mod.ArenaCapacityError:
+            return self._alloc.load_tenant(tenant, tables)
+        self._alloc.activate(tenant, page, tables)
+        return "rewrite" if had_page else "assign"
+
+    def load_tenant_overlay(self, tenant: int, overlay: Optional[CompiledTables]) -> None:
+        raise NotImplementedError(f"the arena overlay side-pool is {OVERLAY_ITEM}")
+
+    def stage_tenant(self, tables: CompiledTables) -> int:
+        return self._alloc.stage(tables)
+
+    def activate_tenant(self, tenant: int, page: int,
+                        tables: Optional[CompiledTables] = None) -> None:
+        self._alloc.activate(tenant, page, tables)
+
+    def swap_tenant(self, tenant: int, tables: CompiledTables) -> None:
+        self._alloc.swap_tenant(tenant, tables)
+
+    def destroy_tenant(self, tenant: int) -> None:
+        self._alloc.destroy_tenant(tenant)
+
+    def compact(self) -> int:
+        return self._alloc.compact()
+
+    def dedup_sweep(self, limit: Optional[int] = None) -> dict:
+        return self._alloc.dedup_sweep(limit)
+
+    def tenant_ids(self):
+        return self._alloc.tenants()
+
+    # -- classify ------------------------------------------------------------
+
+    def classify_async_packed_tenant(self, wire_np: np.ndarray, tenant_np: np.ndarray,
+                                     apply_stats: bool = True) -> PendingClassify:
+        """The mixed-tenant packed-wire dispatch (tpu.py
+        _classify_stateless_tenant): one batch, each packet steered to its
+        tenant's slab in-kernel; the host-to-device copy of the wire and of
+        the tenant column, the fused pass, and a handle whose .result()
+        reads back once."""
+        if self._closed:
+            raise RuntimeError("classifier is closed")
+        n = wire_np.shape[0]
+        kind = (wire_np[:, 0] & 3).astype(np.int32)
+        if wire_np.shape[1] in (4, 7):
+            narrow = narrow_wire(wire_np)
+            if narrow is not None:
+                wire_np = narrow
+        wire = torch.from_numpy(np.ascontiguousarray(wire_np).view(np.int32)).to(self._device)
+        tenant = torch.from_numpy(np.ascontiguousarray(tenant_np, np.int32)).to(self._device)
+        self._note_wire(f"wire{wire_np.shape[1]}", n, wire_np.nbytes)
+        spec = self._alloc.spec
+        with self._alloc.lock:
+            fused = arena_walk.classify_arena_wire_fused(
+                self._alloc.arena, wire, tenant, pages=spec.pages, d_max=spec.d_max
+            )
+
+        def materialize() -> ClassifyOutput:
+            res16, stats = torchpath.split_wire_outputs(fused.cpu().numpy(), n)
+            stats_delta = torchpath.merge_stats_host(stats)
+            if apply_stats:
+                self._stats.add(stats_delta)
+            results, xdp = torchpath.host_finalize_wire(res16, kind)
+            self._note_tenants(tenant_np, results)
+            return ClassifyOutput(results=results, xdp=xdp, stats_delta=stats_delta)
+
+        return PendingClassify(materialize)
+
+    def classify_tenants(self, batch: PacketBatch, tenant_np: np.ndarray,
+                         apply_stats: bool = True) -> ClassifyOutput:
+        """Batch-object convenience over the packed-tenant dispatch."""
+        return self.classify_async_packed_tenant(
+            batch.pack_wire(), tenant_np, apply_stats=apply_stats
+        ).result()
+
+    def _note_wire(self, fmt: str, n: int, nbytes: int) -> None:
+        with self._lock:
+            c = self._wire_counts.setdefault(fmt, [0, 0])
+            c[0] += n
+            c[1] += nbytes
+
+    def wire_stats(self):
+        """{format: (packets, host-to-device wire bytes)} since
+        construction."""
+        with self._lock:
+            return {k: tuple(v) for k, v in self._wire_counts.items()}
+
+    def _note_tenants(self, tenant_np, results) -> None:
+        """Per-tenant packets/allow/deny accounting, three bincounts over
+        the batch."""
+        t = np.asarray(tenant_np, np.int64)
+        ok = (t >= 0) & (t < self._alloc.spec.max_tenants)
+        t = t[ok]
+        if len(t) == 0:
+            return
+        act = (np.asarray(results)[ok]) & 0xFF
+        n = int(t.max()) + 1
+        pkts = np.bincount(t, minlength=n)
+        allow = np.bincount(t[act == ALLOW], minlength=n)
+        deny = np.bincount(t[act == DENY], minlength=n)
+        with self._lock:
+            for tid in np.nonzero(pkts)[0]:
+                c = self._tenant_counts.setdefault(int(tid), [0, 0, 0])
+                c[0] += int(pkts[tid])
+                c[1] += int(allow[tid])
+                c[2] += int(deny[tid])
+
+    def tenant_counters(self) -> dict:
+        """The allocator's tenant_* counters plus per-tenant packet and
+        verdict totals."""
+        out = dict(self._alloc.counter_values())
+        with self._lock:
+            for tid, (pk, al, dn) in sorted(self._tenant_counts.items()):
+                out[f"tenant_{tid}_packets_total"] = pk
+                out[f"tenant_{tid}_allow_total"] = al
+                out[f"tenant_{tid}_deny_total"] = dn
+        return out
+
+    # -- accessors / lifecycle ----------------------------------------------
+
+    @property
+    def stats(self) -> StatsAccumulator:
+        return self._stats
+
+    def close(self) -> None:
+        self._closed = True

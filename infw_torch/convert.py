@@ -1,18 +1,23 @@
-"""Carry compiled table state from the JAX package into the port.
+"""Carry compiled table and arena state from the JAX package into the port.
 
 ``tables_from_jax_arrays`` takes the fields of the JAX package's
 CompiledTables as plain values (numpy arrays, ints, and optionally the
-content map) and returns the port's CompiledTables.  It imports nothing
-from the JAX package: the caller does ``{f: getattr(t, f) for f in
-FIELDS}`` (plus ``content``) on its side.
+content map) and returns the port's CompiledTables; ``arena_from_jax_arrays``
+takes the seven arrays of a JAX arena pool and returns the port's
+CtrieArena.  Neither imports anything from the JAX package: the caller
+does ``{f: getattr(t, f) for f in FIELDS}`` (plus ``content``), or the same
+over the pool's fields, on its side.
 """
 from __future__ import annotations
 
 from typing import Mapping
 
 import numpy as np
+import torch
 
+from .arena import CtrieArena
 from .compiler import CompiledTables, LpmKey
+from .kernels.torchpath import resolve_device
 
 FIELDS = (
     "rule_width", "num_entries", "key_words", "mask_words", "mask_len", "rules",
@@ -42,4 +47,27 @@ def tables_from_jax_arrays(d: Mapping) -> CompiledTables:
         trie_levels=[np.asarray(t, np.int32) for t in d["trie_levels"]],
         root_lut=np.asarray(d["root_lut"], np.int32),
         content=content,
+    )
+
+
+def arena_from_jax_arrays(l0, nodes, targets, joined, root_lut, splice, page_table,
+                          device=None) -> CtrieArena:
+    """The seven pool arrays of a JAX ``CtrieArena`` (numpy, e.g. ``{f:
+    np.asarray(getattr(alloc.arena, f)) for f in CtrieArena._fields}``) ->
+    the port's CtrieArena on ``device`` (resolve_device), uint32 and uint16
+    columns as int32 and int16 bit patterns."""
+    device = resolve_device(device)
+
+    def put(a, dtype, dev_dtype):
+        a = np.require(np.asarray(a, dtype).view(dev_dtype), requirements="CW")
+        return torch.from_numpy(a).to(device)
+
+    return CtrieArena(
+        l0=put(l0, np.int32, np.int32),
+        nodes=put(nodes, np.uint32, np.int32),
+        targets=put(targets, np.int32, np.int32),
+        joined=put(joined, np.uint16, np.int16),
+        root_lut=put(root_lut, np.int32, np.int32),
+        splice=put(splice, np.int32, np.int32),
+        page_table=put(page_table, np.int32, np.int32),
     )

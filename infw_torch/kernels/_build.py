@@ -3,9 +3,10 @@
 Each ``csrc/<name>.cu`` exposes a plain C entry point and is compiled on
 first use by ``nvcc`` for ``sm_90a`` into its own shared library under
 ``build/infw_torch/`` at the repository root (a git-ignored directory).
-The library name carries a digest of the source and the flags, so an edit
-rebuilds and an unchanged source loads the cached library.  No PyTorch
-headers are included, so a build takes seconds.
+The library name carries a digest of the source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edit rebuilds and an unchanged source
+loads the cached library.  No PyTorch headers are included, so a build
+takes seconds.
 
 Nothing here runs at import: the CPU test host has no ``nvcc``, and the
 tests import every module.
@@ -53,6 +54,8 @@ class Kernel:
 
     def library_path(self) -> Path:
         h = hashlib.sha256(self.source.read_bytes())
+        for header in sorted(CSRC.glob("*.cuh")):
+            h.update(header.read_bytes())
         h.update(" ".join(NVCC_FLAGS).encode())
         return BUILD_DIR / f"{self.name}-{h.hexdigest()[:16]}.so"
 

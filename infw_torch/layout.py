@@ -10,7 +10,8 @@ helpers:
   array of the ctrie path (skip nodes absorb single-child chains);
 - ``pack_rules_u16`` / ``joined_by_tidx``: the (T, R, 7) rule rows packed
   into 5 uint16 per rule, and the per-target joined rows the ctrie path
-  scans;
+  scans; ``packed_rules_flat``: the packed rows flattened, what the arena
+  sizes its slabs by;
 - ``build_depth_lut`` / ``tune_depth_classes`` / ``depth_group_indices``:
   depth-class steering of IPv6 chunks (a packet whose root slot needs at
   most d deep levels is fully classified by a walk of 1 + d levels);
@@ -322,6 +323,18 @@ def pack_rules_u16(rules: np.ndarray) -> Optional[np.ndarray]:
     out[..., 3] = rules[..., 2]
     out[..., 4] = rules[..., 3]
     return out
+
+
+def packed_rules_flat(tables: CompiledTables) -> np.ndarray:
+    """(T, 5R) uint16 flattened packed rules, or the (T, 7R) int32 rows of
+    a table pack_rules_u16 refuses (jaxpath._packed_rules_flat)."""
+    def build():
+        rules = pack_rules_u16(tables.rules)
+        if rules is None:
+            rules = tables.rules
+        return np.ascontiguousarray(rules).reshape(rules.shape[0], -1)
+
+    return _memo(tables, "_packed_rules_cache", build)
 
 
 def joined_by_tidx(tables: CompiledTables) -> Optional[np.ndarray]:

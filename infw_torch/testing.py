@@ -235,6 +235,20 @@ def clean_tables_scale(
     )
 
 
+def clean_tables_fast(
+    rng: np.random.Generator,
+    n_entries: int,
+    ifindexes: Tuple[int, ...] = (2, 3),
+    width: int = 4,
+    v6_fraction: float = 0.3,
+) -> CompiledTables:
+    """The JAX package's ``clean_tables_fast`` (the tenant bench's 1M-entry
+    swap pair): it draws the same numbers as clean_columns_fast, and its
+    content dict compiles to the same tables as the columns do, so this is
+    the columnar build."""
+    return clean_tables_scale(rng, n_entries, ifindexes, width, v6_fraction)
+
+
 def random_batch_fast(
     rng: np.random.Generator,
     tables: CompiledTables,

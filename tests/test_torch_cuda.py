@@ -1,5 +1,6 @@
-"""Kernels K1, K2, K3 and K4 on the card against their plain PyTorch
-versions, at small sizes, and the wire codecs through the classifier.
+"""Kernels K1, K2, K3, K4 and K3b on the card against their plain PyTorch
+versions, at small sizes, the wire codecs through the classifier, and the
+multi-tenant arena classifier.
 
 Needs a CUDA card and nvcc; skips elsewhere.  Run on the card with
 
@@ -12,9 +13,10 @@ import numpy as np
 import pytest
 import torch
 
-from infw_torch import compiler, oracle, testing
-from infw_torch.backend.cuda import TorchClassifier
-from infw_torch.kernels import cwalk, dense, torchpath, walk, wire_decode
+from infw_torch import arena, compiler, oracle, testing
+from infw_torch.backend.cuda import TorchArenaClassifier, TorchClassifier
+from infw_torch.kernels import arena_walk, cwalk, dense, torchpath, walk, wire_decode
+from infw_torch.packets import concat
 
 pytestmark = pytest.mark.cuda
 
@@ -249,3 +251,115 @@ def test_codec_classifier_on_card_matches_cpu_and_oracle(cuda, path, codec):
     want = oracle.classify(tables, batch.take(v4))
     np.testing.assert_array_equal(out.results, want.results)
     assert testing.stats_dict_from_array(out.stats_delta) == want.stats
+
+
+def _arena_tenants(n, entries, seed0=100):
+    return [testing.random_tables_fast(np.random.default_rng(seed0 + t), entries, width=4,
+                                       ifindexes=(2, 3), v6_fraction=0.4)
+            for t in range(n)]
+
+
+@pytest.mark.parametrize("n_tenants,entries,per", [(3, 24, 200), (40, 64, 500)])
+def test_k3b_matches_plain(cuda, n_tenants, entries, per):
+    """K3b against its plain version on the card and on the CPU, on a
+    mixed-tenant batch with invalid tenant ids (-1, max_tenants, a destroyed
+    tenant), ifindexes outside the slab LUTs and lanes that die in the
+    descent."""
+    tabs = _arena_tenants(n_tenants, entries)
+    spec = arena.arena_spec_for("ctrie", tabs, pages=n_tenants + 2, max_tenants=n_tenants + 1)
+    allocs = {d: arena.ArenaAllocator(spec, d) for d in (cuda, "cpu")}
+    for a in allocs.values():
+        for t, tab in enumerate(tabs):
+            a.load_tenant(t, tab)
+        a.destroy_tenant(1)
+    parts = [testing.random_batch_fast(np.random.default_rng(7 + t), tab, per)
+             for t, tab in enumerate(tabs)]
+    batch = concat(parts)
+    tenant = np.repeat(np.arange(n_tenants, dtype=np.int32), per)
+    tenant[:16], tenant[-16:] = -1, n_tenants + 1
+    batch.ifindex[16:32] = [9, -1, 70000, 1 << 30] * 4
+    fields, words = torchpath.packet_fields(torchpath.device_batch(batch, cuda))
+    tt = torch.from_numpy(tenant).to(cuda)
+    before = arena_walk.KERNEL.launches
+    got = arena_walk.arena_ctrie_walk_classify(fields, words, tt, allocs[cuda].arena,
+                                               pages=spec.pages, d_max=spec.d_max)
+    torch.cuda.synchronize()
+    assert arena_walk.KERNEL.launches == before + 1
+    want = arena_walk.arena_ctrie_walk_classify_plain(fields, words, tt, allocs[cuda].arena,
+                                                      pages=spec.pages, d_max=spec.d_max)
+    assert torch.equal(got, want)
+    cpu = arena_walk.arena_ctrie_walk_classify(fields.cpu(), words.cpu(), tt.cpu(),
+                                               allocs["cpu"].arena, pages=spec.pages,
+                                               d_max=spec.d_max)
+    assert torch.equal(got.cpu(), cpu)
+    off = (tenant < 0) | (tenant > n_tenants - 1) | (tenant == 1)
+    assert (got[torch.from_numpy(off).to(cuda)] == torch.tensor([0, -1], device=cuda)).all()
+    assert int((got[:, 1] >= 0).sum()) > per // 4
+
+
+def test_k3b_rejects_bad_operands(cuda):
+    tabs = _arena_tenants(2, 24)
+    spec = arena.arena_spec_for("ctrie", tabs, pages=4, max_tenants=4)
+    al = arena.ArenaAllocator(spec, cuda)
+    fields = torch.zeros((8, 8), dtype=torch.int32, device=cuda)
+    words = torch.zeros((8, 4), dtype=torch.int32, device=cuda)
+    tenant = torch.zeros(8, dtype=torch.int32, device=cuda)
+    kw = {"pages": spec.pages, "d_max": spec.d_max}
+    with pytest.raises(ValueError):
+        arena_walk.arena_ctrie_walk_classify(fields, words, tenant.long(), al.arena, **kw)
+    with pytest.raises(ValueError):
+        arena_walk.arena_ctrie_walk_classify(fields, words, tenant[:7], al.arena, **kw)
+    with pytest.raises(ValueError):
+        arena_walk.arena_ctrie_walk_classify(fields, words, tenant, al.arena, pages=3,
+                                             d_max=spec.d_max)
+    with pytest.raises(ValueError):
+        arena_walk.arena_ctrie_walk_classify(fields, words, tenant,
+                                             al.arena._replace(joined=al.arena.joined.int()), **kw)
+    assert arena_walk.arena_ctrie_walk_classify(fields[:0], words[:0], tenant[:0], al.arena,
+                                                **kw).shape == (0, 2)
+
+
+def test_arena_classifier_on_card_matches_oracle_after_swap(cuda):
+    """TorchArenaClassifier() on the card: K3b once per mixed classify, the
+    per-tenant oracles before and after a swap (the swapped tenant's
+    packets then give the new table's verdicts), UNDEF for absent tenants,
+    and the same outputs as on the CPU."""
+    from infw_torch.packets import concat
+
+    tabs = _arena_tenants(6, 48)
+    new = testing.random_tables_fast(np.random.default_rng(999), 48, width=4)
+    spec = arena.arena_spec_for("ctrie", tabs + [new], pages=9, max_tenants=8)
+    clf, cpu = TorchArenaClassifier(spec), TorchArenaClassifier(spec, device="cpu")
+    assert clf.device.type == "cuda"
+    for c in (clf, cpu):
+        for t, tab in enumerate(tabs):
+            c.load_tenant(t, tab)
+    parts = [testing.random_batch_fast(np.random.default_rng(50 + t), tab, 400)
+             for t, tab in enumerate(tabs)]
+    batch = concat(parts)
+    tenant = np.repeat(np.arange(6, dtype=np.int32), 400)
+    tenant[:20] = 7  # absent
+    wire = batch.pack_wire()
+
+    def check(tables_of):
+        k3b, k3 = arena_walk.KERNEL.launches, cwalk.KERNEL.launches
+        out = clf.classify_async_packed_tenant(wire, tenant).result()
+        assert arena_walk.KERNEL.launches == k3b + 1 and cwalk.KERNEL.launches == k3
+        ref = cpu.classify_async_packed_tenant(wire, tenant).result()
+        for f in ("results", "xdp", "stats_delta"):
+            np.testing.assert_array_equal(getattr(out, f), getattr(ref, f), err_msg=f)
+        for t in range(6):
+            idx = np.nonzero(tenant == t)[0]
+            want = oracle.classify(tables_of(t), batch.take(idx))
+            np.testing.assert_array_equal(out.results[idx], want.results)
+            np.testing.assert_array_equal(out.xdp[idx], want.xdp)
+        assert not out.results[:20].any()
+        return out
+
+    before = check(lambda t: tabs[t])
+    for c in (clf, cpu):
+        c.swap_tenant(2, new)
+    after = check(lambda t: new if t == 2 else tabs[t])
+    idx2 = tenant == 2
+    assert not np.array_equal(before.results[idx2], after.results[idx2])
+    assert clf.tenant_counters() == cpu.tenant_counters()
