@@ -80,6 +80,7 @@ Imports nothing of JAX or of the JAX package ``infw``.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import resource
@@ -106,6 +107,9 @@ FIXED_PACKETS = 8192
 # mixed batch and the 1M-entry hot-swap pair
 ARENA_TENANTS, ARENA_ENTRIES, ARENA_PER_TENANT = 512, 64, 2048
 SWAP_ENTRIES, SWAP_PACKETS = 1_000_000, 1 << 19
+# the JAX package's churn tier (bench.py bench_churn on a chip) and the
+# overlay the syncer fills (infw/syncer.py OVERLAY_CAP)
+CHURN_ENTRIES, CHURN_WIDTH, CHURN_PACKETS, CHURN_OVERLAY = 1_000_000, 4, 1 << 19, 1024
 # Published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, dense int8 ops/s.
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1.979e15
@@ -348,7 +352,7 @@ def trie_phase(tag: str):
         f"{[lv.shape[0] for lv in levels]}, {len(targets)} targets, depth classes {classes}")
 
     # K2 against its plain version at every level count the path walks
-    tt = walk.build_trie_tables(tables, "cuda")
+    tt = walk.build_trie_tables(tables, "cuda", pad=True)  # the layout TorchClassifier serves
     fields, words = torchpath.packet_fields(torchpath.device_batch(batch, "cuda"))
     level_counts = sorted({n, layout.v4_trie_depth(n)} | {1 + d for d in classes[:-1]})
     err = 0
@@ -624,7 +628,8 @@ def ctrie_phase(tag: str, trie_tables, trie_batch):
     _l0, nodes, _targets, d_max = timed_stage(build, "build_cpoptrie",
                                               lambda: layout.build_cpoptrie(tables))
     timed_stage(build, "joined rows", lambda: layout.joined_by_tidx(tables))
-    ct = timed_stage(build, "upload", lambda: cwalk.build_ctrie_tables(tables, "cuda"))
+    ct = timed_stage(build, "upload", lambda: cwalk.build_ctrie_tables(tables, "cuda",
+                                                                              pad=True))
     batch = testing.random_batch_fast(rng, tables, CTRIE_PACKETS)
     table_bytes = sum(t.numel() * t.element_size() for t in ct[:5])
     log(f"ctrie table A: {tables.num_entries} entries x {tables.rule_width} rule slots, "
@@ -642,7 +647,7 @@ def ctrie_phase(tag: str, trie_tables, trie_batch):
 
     # 1. K3 against its plain version, every packet of both tables
     fields, words = torchpath.packet_fields(torchpath.device_batch(batch, "cuda"))
-    ct_b = cwalk.build_ctrie_tables(trie_tables, "cuda")
+    ct_b = cwalk.build_ctrie_tables(trie_tables, "cuda", pad=True)
     fields_b, words_b = torchpath.packet_fields(torchpath.device_batch(trie_batch, "cuda"))
     log(f"ctrie table B: the trie phase's {trie_tables.num_entries} entries, "
         f"{ct_b.nodes.shape[0]} node rows, "
@@ -949,12 +954,12 @@ def codec_phase(tag: str, cells) -> dict:
         # 4. the stages of one classify per format on this chunk
         n = len(idx)
         if path == "ctrie":
-            dev = cwalk.build_ctrie_tables(tables, "cuda")
+            dev = cwalk.build_ctrie_tables(tables, "cuda", pad=True)
             narrow_pass = lambda wd: cwalk.classify_ctrie_wire_fused(dev, wd)
             wire8_pass = lambda wd, im: cwalk.classify_ctrie_wire8(dev, wd, im)
             delta_entry = wire_decode.classify_delta_ctrie
         else:
-            dev = walk.build_trie_tables(tables, "cuda")
+            dev = walk.build_trie_tables(tables, "cuda", pad=True)
             depth = v4_trie_depth(dev.n_levels)
             narrow_pass = lambda wd: walk.classify_walk_wire_fused(dev, wd, depth)
             wire8_pass = lambda wd, im: walk.classify_wire8(dev, wd, im)
@@ -1228,6 +1233,20 @@ def arena_phase(tag: str) -> dict:
     hist = np.bincount(out.xdp, minlength=3)
     log(f"arena main path verdicts: drop={hist[1]} pass={hist[2]} "
         f"rule hits={int((out.results != 0).sum())}")
+    # tenant ids outside int32 must not wrap onto a served tenant: tenant
+    # 1's own packets under ids 2^32 + 1 and -2^32 + 1 are UNDEF, uncounted
+    sub1 = parts[1].slice(0, ORACLE_PACKETS)
+    before = clf.tenant_counters()
+    for bad in (2**32 + 1, -(2**32) + 1):
+        o = clf.classify_async_packed_tenant(sub1.pack_wire(),
+                                             np.full(len(sub1), bad, np.int64)).result()
+        if (o.results.any() or o.stats_delta.any()
+                or not np.array_equal(o.xdp, np.where(sub1.kind == 0, 1, 2))):
+            raise SystemExit(f"tenant id {bad} is not UNDEF")
+    if clf.tenant_counters() != before:
+        raise SystemExit("out-of-range tenant ids were counted")
+    log(f"arena: tenant 1's first {len(sub1)} packets under tenant ids 2^32 + 1 and -2^32 + 1 "
+        "are all UNDEF and counted nowhere")
 
     # 4. timings: K3b, its plain version, its bound, end to end against
     # sequential per-tenant dispatch, the stage split, the footprint
@@ -1363,7 +1382,7 @@ def arena_phase(tag: str) -> dict:
     def upload_once(i):
         t = big2 if i % 2 == 0 else big
         t0 = time.perf_counter()
-        cwalk.build_ctrie_tables(t, "cuda")
+        cwalk.build_ctrie_tables(t, "cuda", pad=True)
         torch.cuda.synchronize()
         return time.perf_counter() - t0
 
@@ -1376,7 +1395,7 @@ def arena_phase(tag: str) -> dict:
         upload_s = min(upload_s, upload_once(i))
         check_active(big2 if i % 2 == 0 else big, f"after flip {i}")
     log(f"{tag} swap @{SWAP_ENTRIES} entries: page-table flip {flip_s * 1e6:.1f} us against a full "
-        f"upload (cwalk.build_ctrie_tables) {upload_s * 1e3:.2f} ms = {upload_s / flip_s:.0f}x "
+        f"upload (cwalk.build_ctrie_tables, padded) {upload_s * 1e3:.2f} ms = {upload_s / flip_s:.0f}x "
         f"(min of 3, interleaved, host clock to a synchronize)")
     # the flip again, back to back (the card kept busy), and a synchronize
     # of an idle card alone: what the interleaved reading is made of
@@ -1431,6 +1450,349 @@ def arena_phase(tag: str) -> dict:
         "flip_ms": flip_s * 1e3,
         "flip_back_to_back_ms": warm_s * 1e3,
         "upload_ms": upload_s * 1e3,
+    }
+
+
+def churn_keys(rng, n: int, taken: set, compiler, testing, width: int):
+    """``n`` new /24 (IPv4) and /48 (IPv6) keys on ifindexes 2, 3, 4 whose
+    masked identities are not in ``taken`` (which takes them), with
+    random rule rows."""
+    out = {}
+    while len(out) < n:
+        v6 = rng.random() < 0.5
+        ip = bytes(rng.integers(0, 256, 6 if v6 else 3, dtype=np.uint8))
+        key = compiler.LpmKey(32 + (48 if v6 else 24), int(rng.choice([2, 3, 4])),
+                              ip + bytes(16 - len(ip)))
+        ident = key.masked_identity()
+        if ident not in taken:
+            taken.add(ident)
+            out[key] = testing.random_rules(rng, width)
+    return out
+
+
+class _Content:
+    """What HashLpmOracle reads of a table: its content map."""
+
+    def __init__(self, content):
+        self.content = content
+
+
+def churn_phase(tag: str, n_entries: int = CHURN_ENTRIES, n_packets: int = CHURN_PACKETS,
+                device: str = "cuda") -> dict:
+    """The JAX package's churn tier (bench.py:1899-1938, bench_churn) at
+    full size on both layouts: one table of random_tables_fast(1,000,000
+    entries, width 4, ifindexes 2, 3, 4) loaded through
+    IncrementalTables.from_content into TorchClassifier(force_path=...,
+    wire_codec="wire8"), then four steps: one rules-only edit, 64 folded
+    rules-only edits, a structural round (4 deletes, 5 adds) and a
+    1024-key overlay.  After each step: the resident tables against a fresh
+    padded build, K2/K3 against the plain version, the batch against the
+    HashLpmOracle of the merged content and a recount, launch counts, and
+    the trie and ctrie layouts against each other.  Returns the timings."""
+    import torch
+
+    from infw_torch import compiler, oracle, testing
+    from infw_torch.backend.cuda import TorchClassifier
+    from infw_torch.kernels import all_kernels, cwalk, dense, overlay, torchpath, walk
+    from infw_torch.packets import concat, narrow_wire
+
+    phase_t0 = time.perf_counter()
+    oracle_s = 0.0
+    t0 = time.perf_counter()
+    base = testing.random_tables_fast(np.random.default_rng(1899), n_entries=n_entries,
+                                      width=CHURN_WIDTH, ifindexes=(2, 3, 4))
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    taken = {k.masked_identity() for k in base.content}
+    # the overlay keys (step 4) are drawn now, so a slice of the batch can
+    # aim at them; the structural round's adds come from the edit stream
+    ov_content = churn_keys(np.random.default_rng(4243), CHURN_OVERLAY, taken, compiler,
+                            testing, CHURN_WIDTH)
+    ov = compiler.compile_tables_from_content(ov_content, rule_width=CHURN_WIDTH)
+    rng = np.random.default_rng(1900)
+    batch = concat([testing.random_batch_fast(rng, base, n_packets - ORACLE_PACKETS),
+                    testing.random_batch_fast(rng, ov, ORACLE_PACKETS)])
+    batch.ip_words[batch.kind != 2, 1:] = 0  # the IPv4 chunk ships wire8
+    v4 = np.nonzero(batch.kind == 1)[0]
+    subsets = {"first": np.arange(ORACLE_PACKETS),
+               "overlay-aimed": np.arange(len(batch) - ORACLE_PACKETS, len(batch))}
+    prep_s = time.perf_counter() - t0
+    log(f"churn: {n_entries} entries x {CHURN_WIDTH} rule slots (random_tables_fast, ifindexes "
+        f"2, 3, 4) in {gen_s:.2f} s; {CHURN_OVERLAY} overlay keys, {len(batch)}-packet batch "
+        f"({len(v4)} IPv4, {ORACLE_PACKETS} aimed at the overlay) in {prep_s:.2f} s")
+
+    oracles = {}  # step -> HashLpmOracle, shared by the two layouts
+    by_layout = {}
+    timings = {}
+    kernels = all_kernels()
+    for layout_name in ("trie", "ctrie"):
+        t0 = time.perf_counter()
+        it = compiler.IncrementalTables.from_content(base.content, rule_width=CHURN_WIDTH)
+        clf = TorchClassifier(device=device, force_path=layout_name, wire_codec="wire8")
+        clf.load_tables(it.snapshot())
+        it.clear_dirty()
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        if clf.active_path != layout_name:
+            raise SystemExit(f"churn[{layout_name}]: the table is served on {clf.active_path}")
+        t0 = time.perf_counter()
+        keys = list(it.content)  # the first edit builds the content maps
+        maps_s = time.perf_counter() - t0
+        log(f"churn[{layout_name}]: IncrementalTables.from_content + snapshot + load "
+            f"{load_s:.2f} s, content maps {maps_s:.2f} s, {clf._last_load}")
+        edit_rng = np.random.default_rng(4242)
+        seen = set(taken)  # each layout draws the same adds
+
+        def mk_edits(n):
+            # rules-only edits on live keys (bench.py:1927-1938)
+            picks = edit_rng.choice(len(keys), size=n, replace=False)
+            return {keys[int(i)]: testing.random_rules(edit_rng, CHURN_WIDTH) for i in picks}
+
+        build = cwalk.build_ctrie_tables if layout_name == "ctrie" else walk.build_trie_tables
+        main_k = cwalk.KERNEL if layout_name == "ctrie" else walk.KERNEL
+        results = []
+        steps = (("edit1", "1 rules-only edit"), ("edit64", "64 folded rules-only edits"),
+                 ("struct", "structural round (4 deletes, 5 adds)"),
+                 ("overlay", f"{CHURN_OVERLAY}-key overlay"))
+        for kind, step in steps:
+            ov_arg = None
+            if kind == "edit1":
+                it.apply(mk_edits(1))
+            elif kind == "edit64":
+                it.apply(mk_edits(64))
+            elif kind == "struct":
+                dels = [keys[int(i)] for i in edit_rng.choice(len(keys), size=4, replace=False)]
+                adds = churn_keys(edit_rng, 5, seen, compiler, testing, CHURN_WIDTH)
+                it.apply(adds, deletes=dels)
+                gone = set(dels)
+                keys = [k for k in keys if k not in gone] + list(adds)
+            else:
+                ov_arg = ov
+            t0 = time.perf_counter()
+            snap = it.snapshot()
+            hint = it.peek_dirty()
+            snap_s = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            clf.load_tables(snap, dirty_hint=hint, overlay=ov_arg)
+            stop.record()
+            torch.cuda.synchronize()
+            patch_s = time.perf_counter() - t0
+            patch_ev = start.elapsed_time(stop)
+            it.clear_dirty()
+            mode = clf._last_load
+            if kind in ("edit1", "edit64") and mode[0] != "patch":
+                raise SystemExit(f"churn[{layout_name}] {step}: loaded by {mode}, not a patch")
+            # a full upload of the same table through the same entry point,
+            # on the host layouts the patch left built (the cold load with
+            # the layout build is the first load above)
+            full = TorchClassifier(device=device, force_path=layout_name, wire_codec="wire8")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            full.load_tables(snap)
+            torch.cuda.synchronize()
+            full_s = time.perf_counter() - t0
+            cold_s = None
+            if kind == "struct":
+                # a structural patch builds the edited snapshot's layouts, so
+                # it is also held against a cold full load of that snapshot:
+                # a copy without its memoized layouts, built and uploaded
+                cold = TorchClassifier(device=device, force_path=layout_name, wire_codec="wire8")
+                t0 = time.perf_counter()
+                cold.load_tables(dataclasses.replace(snap))
+                torch.cuda.synchronize()
+                cold_s = time.perf_counter() - t0
+                del cold
+            fresh = build(snap, device, pad=True)
+            dev = clf._active.dev
+            for f in fresh._fields:
+                a, b = getattr(dev, f), getattr(fresh, f)
+                if not (torch.equal(a, b) if isinstance(b, torch.Tensor) else a == b):
+                    raise SystemExit(f"churn[{layout_name}] {step}: resident {f} differs from a "
+                                     f"fresh padded build")
+            del full, fresh
+            # the kernel against its plain version on the batch
+            fields, words = torchpath.packet_fields(torchpath.device_batch(batch, device))
+            if layout_name == "ctrie":
+                got = cwalk.ctrie_walk_classify(fields, words, dev)
+                want = cwalk.ctrie_walk_classify_plain(fields, words, dev)
+            else:
+                got = walk.trie_walk_classify(fields, words, dev, dev.n_levels)
+                want = walk.trie_walk_classify_plain(fields, words, dev, dev.n_levels)
+            if not torch.equal(got, want):
+                raise SystemExit(f"churn[{layout_name}] {step}: {main_k.name} disagrees with "
+                                 f"its plain version")
+            del got, want
+            # the main path: the whole batch (narrow wire), then the IPv4
+            # chunk (wire8), launch counts zeroed before and read after
+            for k in kernels:
+                k.launches = 0
+            out = clf.classify(batch)
+            w4, v4_only = batch.pack_wire_subset(v4)
+            out4 = clf.classify_async_packed(w4, v4_only).result()
+            launches = {k.name: k.launches for k in kernels if k.launches}
+            want_k = {main_k.name: 2, **({"dense_classify": 2} if ov_arg is not None else {})}
+            if launches != want_k:
+                raise SystemExit(f"churn[{layout_name}] {step}: launches {launches}, expected "
+                                 f"{want_k}")
+            check_recount(batch, out.results, out.stats_delta, f"churn[{layout_name}] {step}")
+            if not np.array_equal(out4.results, out.results[v4]):
+                raise SystemExit(f"churn[{layout_name}] {step}: the wire8 chunk disagrees")
+            if step not in oracles:
+                content = dict(snap.content)
+                if ov_arg is not None:
+                    content.update(ov_arg.content)
+                t0 = time.perf_counter()
+                oracles[step] = oracle.HashLpmOracle(_Content(content))
+                oracle_s += time.perf_counter() - t0
+            for name, ix in subsets.items():
+                ref = oracles[step].classify(batch.take(ix))
+                if not (np.array_equal(out.results[ix], ref.results)
+                        and np.array_equal(out.xdp[ix], ref.xdp)):
+                    raise SystemExit(f"churn[{layout_name}] {step}: disagrees with the oracle "
+                                     f"({name})")
+            results.append(out.results)
+            timings.setdefault(step, {})[layout_name] = {
+                "mode": mode, "patch_ms": patch_s * 1e3, "patch_event_ms": patch_ev,
+                "full_ms": full_s * 1e3, "snapshot_ms": snap_s * 1e3,
+                "cold_full_ms": None if cold_s is None else cold_s * 1e3}
+            cold_txt = ("" if cold_s is None else
+                        f", a cold full load (layout build included) {cold_s * 1e3:.2f} ms")
+            log(f"{tag} churn[{layout_name}] {step}: load_tables {mode}, {patch_s * 1e3:.2f} ms "
+                f"host clock ({patch_ev:.2f} ms CUDA events) against a full upload "
+                f"{full_s * 1e3:.2f} ms ({full_s / patch_s:.1f}x){cold_txt}; snapshot + hint "
+                f"{snap_s * 1e3:.2f} ms; launches {launches}; oracle on "
+                f"{', '.join(f'{k} {len(v)}' for k, v in subsets.items())} packets and the "
+                f"recount equal; rule hits {int((out.results != 0).sum())}")
+        # the overlay side on the operands it is served with: K1 over the
+        # overlay's dense layout, and K2 over the overlay's own padded trie
+        # (the layout an overlay K1 cannot hold is served on), each against
+        # its plain version on both columns, then both sides in the combine
+        dev, ov_dev = clf._active.dev, clf._active.ov
+        n_lv = dev.n_levels if layout_name == "trie" else None
+        if not isinstance(ov_dev, dense.DenseTables):
+            raise SystemExit(f"churn[{layout_name}]: the overlay is not served on K1")
+        ov_trie = walk.build_trie_tables(ov, device, pad=True)
+        for name, got, want in (
+                ("dense_classify (K1) over the overlay", dense.dense_classify(fields, words, ov_dev),
+                 dense.dense_classify_plain(fields, words, ov_dev)),
+                ("trie_walk (K2) over the overlay's trie",
+                 walk.trie_walk_classify(fields, words, ov_trie, ov_trie.n_levels),
+                 walk.trie_walk_classify_plain(fields, words, ov_trie, ov_trie.n_levels))):
+            if not torch.equal(got, want):
+                raise SystemExit(f"churn[{layout_name}]: {name} disagrees with its plain version "
+                                 f"({int((got != want).any(dim=1).sum().item())} packets)")
+        dbatch = torchpath.device_batch(batch, device)
+        if not torch.equal(overlay.combined_results(dev, ov_dev, dbatch, n_lv),
+                           overlay.combined_results(dev, ov_trie, dbatch, n_lv)):
+            raise SystemExit(f"churn[{layout_name}]: the K1 and K2 overlay sides combine "
+                             f"differently")
+        del got, want, dbatch
+        log(f"churn[{layout_name}]: K1 over the {ov.num_entries}-entry overlay and K2 over its "
+            f"padded trie ({ov_trie.n_levels} levels) equal their plain versions on both columns "
+            f"for all {len(batch)} packets; both combine to the same results")
+        # the device pass with and without the overlay, on the narrow wire
+        wire = torch.from_numpy(narrow_wire(batch.pack_wire()).view(np.int32)).to(device)
+        plain_pass = ((lambda: cwalk.classify_ctrie_wire_fused(dev, wire)) if layout_name == "ctrie"
+                      else (lambda: walk.classify_walk_wire_fused(dev, wire, n_lv)))
+        with_ov = cuda_ms(lambda: overlay.classify_overlay_wire_fused(dev, ov_dev, wire, n_lv), 10)
+        without = cuda_ms(plain_pass, 10)
+        k1_ms = cuda_ms(lambda: dense.dense_classify(fields, words, ov_dev), 10)
+        k2_ms = cuda_ms(lambda: walk.trie_walk_classify(fields, words, ov_trie, ov_trie.n_levels),
+                        10)
+        with_k2 = cuda_ms(lambda: overlay.classify_overlay_wire_fused(dev, ov_trie, wire, n_lv), 10)
+        timings.setdefault("device pass", {})[layout_name] = {
+            "with_overlay_ms": with_ov, "without_ms": without, "k1_overlay_ms": k1_ms,
+            "k2_overlay_ms": k2_ms, "with_k2_overlay_ms": with_k2}
+        log(f"{tag} churn[{layout_name}] device pass ({len(batch)} packets, narrow wire, CUDA "
+            f"events): {without:.4f} ms without the overlay, {with_ov:.4f} ms with it (K1 over "
+            f"the {ov.num_entries}-entry overlay alone {k1_ms:.4f} ms); with the overlay on K2 "
+            f"over its trie instead {with_k2:.4f} ms (K2 alone {k2_ms:.4f} ms)")
+        by_layout[layout_name] = results
+        clf.close()
+        del it, clf, dev, ov_dev, ov_trie, wire, fields, words
+    for a, b in zip(by_layout["trie"], by_layout["ctrie"]):
+        if not np.array_equal(a, b):
+            raise SystemExit("churn: the trie and ctrie layouts disagree")
+    log(f"churn: the trie and ctrie layouts agree on the whole batch after every step; phase "
+        f"{time.perf_counter() - phase_t0:.2f} s (host clock), of which {len(oracles)} "
+        f"HashLpmOracle builds {oracle_s:.2f} s")
+    return timings
+
+
+def gather_phase(tag: str) -> dict:
+    """K5 against its plain version (exact, B = 2^20 and 1, 1023, 1025,
+    indices outside [0, 4095] among them), its times against its bound,
+    the plain version and index_select + sum, then the main path: a short
+    run of infw_torch/tools/profile_gather.py's ladder and K5 chain.
+    Returns K5's kernels-line entry."""
+    import torch
+
+    from infw_torch.kernels import all_kernels, gather
+    from infw_torch.tools import profile_gather
+
+    rng = np.random.default_rng(23)
+    n, w = profile_gather.K5_ROWS, profile_gather.K5_WIDTH
+    table = torch.from_numpy(rng.integers(0, 2**32, (n, w), dtype=np.int64).astype(np.uint32)
+                             .view(np.int32)).to("cuda")
+    err = 0
+    for b in (1 << 20, 1, 1023, 1025):
+        idx_np = rng.integers(0, n, b).astype(np.int32)
+        idx_np[::97] = rng.integers(-(2**31), 2**31 - 1, len(idx_np[::97]), dtype=np.int64)
+        idx = torch.from_numpy(idx_np).to("cuda")
+        got = gather.gather_rowsum(idx, table)
+        want = gather.gather_rowsum_plain(idx, table)
+        torch.cuda.synchronize()
+        mism = int((got != want).sum().item())
+        err = max(err, int((got.long() - want.long()).abs().max().item()))
+        log(f"K5 vs plain [B={b}]: mismatching rows={mism} (indices outside [0, {n - 1}]: "
+            f"{int(((idx_np < 0) | (idx_np >= n)).sum())})")
+        if mism:
+            raise SystemExit(f"K5 disagrees with its plain version at B={b}")
+    idx = torch.from_numpy(rng.integers(0, n, 1 << 20).astype(np.int32)).to("cuda")
+    k5_ms = cuda_ms(lambda: gather.gather_rowsum(idx, table), reps=50)
+    plain_ms = cuda_ms(lambda: gather.gather_rowsum_plain(idx, table), reps=5, warmup=1)
+    lib_ms = cuda_ms(lambda: table.index_select(0, idx).sum(dim=1, dtype=torch.int32), reps=20)
+    b = idx.shape[0]
+    moved = b * 4 + n * w * 4 + b * 4
+    bound_ms = moved / HBM_BYTES_PER_S * 1e3
+    slope_s = profile_gather.slope(profile_gather.k5_step(table), idx, "K5 chain (phase)",
+                                   min_span=0.05)
+    log(f"{tag} K5 gather_rowsum: {k5_ms:.4f} ms at B={b}, table ({n}, {w}) u32; bound "
+        f"{bound_ms:.4f} ms by bytes ({moved / 1e6:.2f} MB: indices, table and sums once each, "
+        f"over 3.35 TB/s; the {b * w * 4 / 2**20:.0f} MiB of row reads come from L2 and are not "
+        f"counted); {k5_ms / bound_ms:.1f}x its bound; chained step (K5 + add + mod, two-point "
+        f"slope) {slope_s * 1e3:.4f} ms")
+    log(f"{tag} K5 plain version: {plain_ms:.4f} ms; library call index_select + sum (W=128, "
+        f"N=4096): {lib_ms:.4f} ms")
+    # the main path: the port's profiling tool, launch counts zeroed first
+    kernels = all_kernels()
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    ladder = profile_gather.main(["--min-span", "0.05"])
+    launches = {k.name: k.launches for k in kernels if k.launches}
+    log(f"gather main path: python -m infw_torch.tools.profile_gather --min-span 0.05 in "
+        f"{time.perf_counter() - t0:.2f} s, launches {launches}; " + ", ".join(
+            f"{k} {v * 1e3:.4f} ms/step" for k, v in ladder.items()))
+    if set(launches) != {"gather_rowsum"}:
+        raise SystemExit("the gather tool must launch gather_rowsum and nothing else")
+    return {
+        "name": "gather_rowsum",
+        "route": "cuda",
+        "source": "infw_torch/kernels/csrc/gather_rowsum.cu",
+        "replaces": "tools/profile_gather.py:92",
+        "launches": launches["gather_rowsum"],
+        "mismatches": 0,
+        "max_abs_err": err,
+        "ms": k5_ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": "bytes",
+        "library_ms": lib_ms,
+        "slope_step_ms": slope_s * 1e3,
     }
 
 
@@ -1610,8 +1972,14 @@ def main() -> int:
     # 9. the multi-tenant arena
     k3b = arena_phase(tag)
 
-    # 10. the kernels line, then the device line last
-    print(json.dumps({"kernels": [k1, k2, k3, k4, k3b]}), flush=True)
+    # 10. incremental patches and the overlay at the churn tier
+    churn_phase(tag)
+
+    # 11. the gather microbenchmark's kernel and tool
+    k5 = gather_phase(tag)
+
+    # 12. the kernels line, then the device line last
+    print(json.dumps({"kernels": [k1, k2, k3, k4, k3b, k5]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}),
           flush=True)
     return 0

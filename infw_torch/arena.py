@@ -46,7 +46,8 @@ from .kernels.torchpath import resolve_device
 from .layout import build_cpoptrie, joined_by_tidx, packed_rules_flat
 
 #: where the parts of the arena this slice does not serve are queued
-PATCH_ITEM = "ROADMAP.md item 5 (incremental patches and the overlay combine)"
+PATCH_ITEM = ("ROADMAP.md item 20 (the dense-family arena, then the arena's rules-only "
+              "patches and overlay side-pool)")
 DENSE_ITEM = "ROADMAP.md item 20 (the dense-family arena)"
 SPLICE_ITEM = "ROADMAP.md item 21 (spliced arenas)"
 

@@ -47,6 +47,30 @@ results and statistics (results only for the wire8 and delta formats).
 - **table swap**: the next tables are packed and uploaded outside the
   lock; the swap is one reference assignment under it, so batches in
   flight finish on the tables they were launched against.
+- **incremental patches** (``load_tables(tables, dirty_hint=...)``, the
+  JAX package's Map.Update analogue): on the trie and ctrie paths, when
+  the resident generation is on the same path, only the rows that changed
+  cross the link (walk.patch_trie_tables, cwalk.patch_ctrie; the hint of
+  IncrementalTables.peek_dirty() names them without a host diff), retried
+  without the hint where the reference retries, else a full padded upload.
+  A patch never writes a resident tensor: each changed array is a
+  device-side clone that takes the staged rows with ``index_copy_``, and
+  the unchanged ones are shared.  A batch that snapshotted the old
+  generation (``prepare_packed`` holds it until ``classify_prepared``)
+  may launch after the patch and still reads exactly the old tables, with
+  the depth class it was steered by; writing in place would need every
+  such launch ordered before the write, which no lock here can promise.
+  The clone costs a device-to-device copy of each changed array (a read
+  and a write of its bytes) and its size in memory until the old
+  generation is released.
+  ``_last_load`` records ("patch" | "full", rows).  The dense path always
+  uploads in full, as the reference does.
+- **overlay** (``load_tables(..., overlay=ov)``): a small side table of
+  structurally new keys, combined with the main table by longest prefix
+  on the trie and ctrie paths (kernels/overlay.py: the main side on K2 or
+  K3, the overlay on K1).  An unchanged overlay object keeps its device
+  copy.  The dense path and wide ruleIds refuse an overlay with
+  ValueError, as the reference does.
 - **asynchronous launch**: ``classify_async``/``classify_prepared``
   enqueue the copy and the kernels on the current CUDA stream and return
   a PendingClassify; the device-to-host read happens in ``.result()``.
@@ -70,11 +94,14 @@ from .. import arena as arena_mod
 from ..compiler import CompiledTables
 from ..constants import ALLOW, DENY, KIND_IPV6
 from ..kernels import arena_walk, cwalk, dense, torchpath, walk, wire_decode
+from ..kernels import overlay as overlay_mod
 from ..layout import (
     build_depth_lut,
     check_wire_ruleids,
     depth_group_indices,
+    hint_trie_unchanged,
     joined_by_tidx,
+    seed_caches_forward,
     tune_depth_classes,
     v4_trie_depth,
 )
@@ -93,6 +120,7 @@ class _Active(NamedTuple):
     path: str  # "dense" | "trie" | "ctrie"
     dev: Union[dense.DenseTables, walk.TrieTables, cwalk.CTrieTables]
     wide_rids: bool
+    ov: Optional[overlay_mod.OverlayTables] = None  # the overlay's device tables
 
 
 class TorchClassifier:
@@ -127,6 +155,8 @@ class TorchClassifier:
         self._stats = StatsAccumulator()
         self._tables: Optional[CompiledTables] = None
         self._active: Optional[_Active] = None
+        self._last_load = None  # ("patch" | "full", rows) of the last load
+        self._ov_cache = None  # (overlay CompiledTables, its device tables)
         # (root_lut, depth LUT, classes, generation) of the trie tables in
         # service (None on the other paths); the generation is assigned
         # under the install lock
@@ -140,12 +170,16 @@ class TorchClassifier:
 
     # -- rule loading -------------------------------------------------------
 
-    def load_tables(self, tables: CompiledTables,
+    def load_tables(self, tables: CompiledTables, dirty_hint=None,
                     overlay: Optional[CompiledTables] = None) -> None:
-        """Swap in a newly compiled ruleset (a full upload).  An overlay
-        with entries raises: ValueError where the JAX package refuses one
-        too (dense path, wide ruleIds), NotImplementedError on the trie and
-        ctrie paths."""
+        """Swap in a ruleset (tpu.py load_tables).  On the trie and ctrie
+        paths a generation that follows one on the same path is patched
+        (see the module docstring); ``dirty_hint`` is
+        IncrementalTables.peek_dirty() since the resident generation's
+        load, the rows to ship without a host diff.  ``overlay`` is a small
+        side table of keys disjoint from ``tables``, combined by longest
+        prefix; an overlay with entries on the dense path or with wide
+        ruleIds raises ValueError."""
         if self._closed:
             raise RuntimeError("classifier is closed")
         path = self._force_path or (
@@ -153,7 +187,13 @@ class TorchClassifier:
         )
         if path == "trie" and self._compressed and self._force_path is None:
             path = "ctrie"  # the upgrade applies to the auto-selected trie path only
+        with self._lock:
+            prev_tables, prev_active = self._tables, self._active
         if path == "ctrie":
+            # a rules-only edit carries the old generation's host layouts
+            # forward before the probes below build any of them
+            if prev_tables is not None and dirty_hint is not None:
+                seed_caches_forward(prev_tables, tables, dirty_hint)
             # results must fit the 16-bit wire and rules the uint16 joined
             # rows; otherwise the trie path serves the table
             try:
@@ -178,26 +218,56 @@ class TorchClassifier:
                 check_wire_ruleids(tables)
             except ValueError:
                 wide_rids = True  # the u32 result path
-        if overlay is not None and overlay.num_entries > 0:
-            if path not in ("trie", "ctrie") or wide_rids:
-                raise ValueError(
-                    f"overlay not supported on path={path} (wide_rids={wide_rids}); "
-                    "merge it into the main table"
-                )
-            raise NotImplementedError(f"the {path} path's overlay combine is {OVERLAY_ITEM}")
-        steer = None
-        if path == "ctrie":
-            dev = cwalk.build_ctrie_tables(tables, self._device)
-        elif path == "trie":
-            dev = walk.build_trie_tables(tables, self._device)
-            steer = (
-                np.asarray(tables.root_lut, np.int64),
-                build_depth_lut(tables),
-                tune_depth_classes(tables),
+        if overlay is not None and overlay.num_entries > 0 and (
+                path not in ("trie", "ctrie") or wide_rids):
+            raise ValueError(
+                f"overlay not supported on path={path} (wide_rids={wide_rids}); "
+                "merge it into the main table"
             )
+        steer = None
+        if path == "dense":
+            last = ("full", tables.num_entries)
+        else:
+            same_path = prev_active is not None and prev_active.path == path
+            build, patch = ((cwalk.build_ctrie_tables, cwalk.patch_ctrie) if path == "ctrie"
+                            else (walk.build_trie_tables, walk.patch_trie_tables))
+            patched = None
+            if same_path:
+                patched = patch(prev_active.dev, prev_tables, tables, self._device,
+                                hint=dirty_hint)
+                # a retry without the hint differs only where the hint took
+                # a fast path: any hint on the trie path, a rules-only one
+                # on the ctrie path (tpu.py:433-442, 475-480)
+                retry = (hint_trie_unchanged(dirty_hint) if path == "ctrie"
+                         else dirty_hint is not None)
+                if patched is None and retry:
+                    patched = patch(prev_active.dev, prev_tables, tables, self._device)
+            if patched is not None:
+                dev, rows = patched
+                last = ("patch", rows)
+            else:
+                dev = build(tables, self._device, pad=True)
+                last = ("full", tables.num_entries)
+            if path == "trie":
+                steer = (
+                    np.asarray(tables.root_lut, np.int64),
+                    build_depth_lut(tables),
+                    tune_depth_classes(tables),
+                )
+        ov_dev = None
+        if overlay is not None and overlay.num_entries > 0:
+            with self._lock:
+                cached = self._ov_cache
+            if cached is not None and cached[0] is overlay:
+                ov_dev = cached[1]  # the same overlay: keep its device copy
+            else:
+                ov_dev = overlay_mod.build_overlay_tables(overlay, self._device)
+                with self._lock:
+                    self._ov_cache = (overlay, ov_dev)
         with self._lock:
             self._tables = tables
-            self._active = _Active(path, dev, wide_rids)
+            self._active = _Active(path, dev, wide_rids, ov_dev)
+            self._last_load = last
             self._depth_gen += 1
             self._depth_steer = None if steer is None else steer + (self._depth_gen,)
 
@@ -353,7 +423,10 @@ class TorchClassifier:
         if plan["fmt"] != "wire":
             return self._launch_res16(plan, apply_stats)
         active, wire, n = plan["active"], plan["wire"], plan["n"]
-        if active.path == "dense":
+        if active.ov is not None:
+            fused = overlay_mod.classify_overlay_wire_fused(active.dev, active.ov, wire,
+                                                        plan["n_levels"])
+        elif active.path == "dense":
             fused = dense.classify_dense_wire_fused(active.dev, wire)
         elif active.path == "ctrie":
             fused = cwalk.classify_ctrie_wire_fused(active.dev, wire)
@@ -378,15 +451,24 @@ class TorchClassifier:
         its results are put back in chunk order here."""
         active, n, kind = plan["active"], plan["n"], plan["kind"]
         if plan["fmt"] == "wire8":
-            entry = cwalk.classify_ctrie_wire8 if active.path == "ctrie" else walk.classify_wire8
-            fused = entry(active.dev, plan["wire"], plan["ifmap"])
+            if active.ov is not None:
+                fused = overlay_mod.classify_overlay_wire8(active.dev, active.ov, plan["wire"],
+                                                       plan["ifmap"])
+            else:
+                entry = (cwalk.classify_ctrie_wire8 if active.path == "ctrie"
+                         else walk.classify_wire8)
+                fused = entry(active.dev, plan["wire"], plan["ifmap"])
             perm = None
         else:
             enc = plan["enc"]
-            entry = (wire_decode.classify_delta_ctrie if active.path == "ctrie"
-                     else wire_decode.classify_delta)
-            fused = entry(active.dev, plan["payload"], plan["dictv"], plan["ifmap"],
-                          n=n, dict_mode=enc.dict_mode, fixed_w=enc.fixed_w)
+            args = (plan["payload"], plan["dictv"], plan["ifmap"])
+            kw = {"n": n, "dict_mode": enc.dict_mode, "fixed_w": enc.fixed_w}
+            if active.ov is not None:
+                fused = overlay_mod.classify_overlay_delta(active.dev, active.ov, *args, **kw)
+            else:
+                entry = (wire_decode.classify_delta_ctrie if active.path == "ctrie"
+                         else wire_decode.classify_delta)
+                fused = entry(active.dev, *args, **kw)
             perm = enc.perm
 
         def materialize() -> ClassifyOutput:
@@ -465,6 +547,7 @@ class TorchClassifier:
             self._active = None
             self._tables = None
             self._depth_steer = None
+            self._ov_cache = None
             self._closed = True
 
 
@@ -478,8 +561,11 @@ class TorchArenaClassifier:
     Serves the packed-wire contract with a tenant column:
     ``classify_async_packed_tenant(wire_np, tenant_np)`` ships the narrow
     wire (packets.narrow_wire) when it qualifies, else the wire as given,
-    plus the (B,) int32 tenant column; tenant ids outside the table, absent
-    and destroyed tenants classify to UNDEF.  One read back per batch.
+    plus the (B,) int32 tenant column; tenant ids outside [0,
+    max_tenants) (of any integer width: they are mapped to -1 before the
+    int32 cast, where the JAX package wraps them), absent and destroyed
+    tenants classify to UNDEF and are counted nowhere.  One read back per
+    batch.
 
     A structural install runs stage -> activate (the slab write of a new
     page is issued before the flip that makes it reachable), with the
@@ -584,7 +670,12 @@ class TorchArenaClassifier:
             if narrow is not None:
                 wire_np = narrow
         wire = torch.from_numpy(np.ascontiguousarray(wire_np).view(np.int32)).to(self._device)
-        tenant = torch.from_numpy(np.ascontiguousarray(tenant_np, np.int32)).to(self._device)
+        # ids outside [0, max_tenants) become -1 before the int32 cast, so
+        # they classify to UNDEF (an id such as 2^32 + 1 must not wrap onto
+        # tenant 1); _note_tenants counts them nowhere
+        t64 = np.asarray(tenant_np, np.int64)
+        t32 = np.where((t64 >= 0) & (t64 < self._alloc.spec.max_tenants), t64, -1)
+        tenant = torch.from_numpy(t32.astype(np.int32)).to(self._device)
         self._note_wire(f"wire{wire_np.shape[1]}", n, wire_np.nbytes)
         spec = self._alloc.spec
         with self._alloc.lock:

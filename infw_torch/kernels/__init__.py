@@ -8,9 +8,10 @@ from __future__ import annotations
 
 from typing import List
 
-from . import arena_walk, cwalk, dense, walk, wire_decode
+from . import arena_walk, cwalk, dense, gather, walk, wire_decode
 from ._build import Kernel
 
 
 def all_kernels() -> List[Kernel]:
-    return [dense.KERNEL, walk.KERNEL, cwalk.KERNEL, wire_decode.KERNEL, arena_walk.KERNEL]
+    return [dense.KERNEL, walk.KERNEL, cwalk.KERNEL, wire_decode.KERNEL, arena_walk.KERNEL,
+            gather.KERNEL]

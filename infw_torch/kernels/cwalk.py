@@ -12,7 +12,15 @@ its contiguous children), then the winning target's joined row
 first hit.
 
 - ``build_ctrie_tables``: CompiledTables -> CTrieTables on one device
-  (ValueError for rule tables the uint16 joined rows cannot hold);
+  (ValueError for rule tables the uint16 joined rows cannot hold), with
+  ``pad=True`` the node, target, joined and root-LUT row counts bucketed
+  as jaxpath.device_ctrie(pad=True) does.  TorchClassifier serves padded
+  builds only; ``pad=False`` is the reference's unpadded layout, which the
+  port is held against;
+- ``patch_ctrie``: the incremental device update of a padded upload
+  (jaxpath.patch_ctrie): a rules-only edit rewrites the dirty targets'
+  joined rows, a structural one the changed rows of every array; the
+  result equals a fresh padded build bit for bit;
   ``ctrie_tables_from_arrays`` does the upload from host arrays, also those
   of the JAX package's ctrie upload (``jaxpath.device_ctrie``);
 - ``ctrie_walk_classify``: the wrapper of the hand-written CUDA kernel
@@ -40,8 +48,18 @@ import numpy as np
 import torch
 
 from ..compiler import CompiledTables
-from ..layout import build_cpoptrie, joined_by_tidx
+from ..layout import (
+    build_cpoptrie,
+    hint_dense_rows,
+    hint_trie_unchanged,
+    joined_by_tidx,
+    joined_tidx_patch_rows,
+    pad_rows,
+    row_bucket,
+    seed_caches_forward,
+)
 from . import _build
+from .walk import diff_rows, exact_diff_rows, staged_rows
 from .torchpath import (
     DeviceBatch,
     _pack_res16,
@@ -116,16 +134,69 @@ def ctrie_tables_from_arrays(l0, nodes, targets, joined, root_lut, d_max: int,
     )
 
 
-def build_ctrie_tables(tables: CompiledTables, device=None) -> CTrieTables:
-    """Host-side packing of CompiledTables into the ctrie layout (a full
-    upload to ``device``, resolve_device).  Raises ValueError when
-    joined_by_tidx cannot pack the rule table."""
-    device = resolve_device(device)
+def _host_layout(tables: CompiledTables):
+    """The unpadded host arrays in CTrieTables order (root_lut, l0, nodes,
+    targets, joined) and d_max, or None when the joined rows cannot hold
+    the rules."""
     joined = joined_by_tidx(tables)
     if joined is None:
-        raise ValueError("build_ctrie_tables: the rules do not fit the uint16 joined rows")
+        return None
     l0, nodes, targets, d_max = build_cpoptrie(tables)
-    return ctrie_tables_from_arrays(l0, nodes, targets, joined, tables.root_lut, d_max, device)
+    return (np.asarray(tables.root_lut, np.int32), l0, nodes, targets, joined), d_max
+
+
+def build_ctrie_tables(tables: CompiledTables, device=None, pad: bool = False) -> CTrieTables:
+    """Host-side packing of CompiledTables into the ctrie layout (a full
+    upload to ``device``, resolve_device), with the node, target, joined
+    and root-LUT rows bucket-padded when ``pad``.  Raises ValueError when
+    joined_by_tidx cannot pack the rule table."""
+    device = resolve_device(device)
+    host = _host_layout(tables)
+    if host is None:
+        raise ValueError("build_ctrie_tables: the rules do not fit the uint16 joined rows")
+    (root_lut, l0, nodes, targets, joined), d_max = host
+    if pad:
+        root_lut, nodes, targets, joined = (
+            pad_rows(a, row_bucket(a.shape[0])) for a in (root_lut, nodes, targets, joined))
+    return ctrie_tables_from_arrays(l0, nodes, targets, joined, root_lut, d_max, device)
+
+
+def patch_ctrie(ct: CTrieTables, old: CompiledTables, new: CompiledTables, device=None,
+                hint=None):
+    """Incremental update of ``ct``, a padded upload of ``old``, to ``new``
+    (jaxpath.patch_ctrie).  A rules-only hint rewrites exactly the dirty
+    targets' joined rows (position tidx + 1) and carries the old
+    generation's host layouts to the new one; otherwise every array's rows
+    are diffed against the old host layout.  Returns (CTrieTables, rows
+    shipped), bit-identical to ``build_ctrie_tables(new, pad=True)``, or
+    None when d_max, a row bucket or the DIR-16 root level's shape changes,
+    a delta is too large or the rules stop fitting the joined rows (the
+    caller uploads in full).  Changed arrays become new tensors
+    (walk.staged_rows); ``device`` is where ``ct`` lives."""
+    if hint_trie_unchanged(hint):
+        seed_caches_forward(old, new, hint)
+        pr = joined_tidx_patch_rows(new, hint_dense_rows(hint, new))
+        if pr is None:
+            return None
+        pos, rows = pr
+        if len(pos) == 0:
+            return ct, 0
+        if (int(pos.max()) >= ct.joined.shape[0] or rows.shape[1] != ct.joined.shape[1]
+                or len(pos) > ct.joined.shape[0] // 4):
+            return None
+        return ct._replace(joined=staged_rows(ct.joined, pos, rows)), len(pos)
+    o, n = _host_layout(old), _host_layout(new)
+    if o is None or n is None or o[1] != n[1] or n[1] != ct.d_max:
+        return None
+    payload = {}
+    for name, o_arr, n_arr in zip(CTrieTables._fields, o[0], n[0]):
+        dev = getattr(ct, name)
+        payload[name] = (exact_diff_rows(o_arr, n_arr) if name == "l0"
+                         else diff_rows(dev.shape[0], o_arr, n_arr))
+        if payload[name] is None:
+            return None
+    patched = {name: staged_rows(getattr(ct, name), *pr) for name, pr in payload.items()}
+    return ct._replace(**patched), sum(len(pr[0]) for pr in payload.values())
 
 
 def ctrie_walk_classify_plain(fields: torch.Tensor, words: torch.Tensor,

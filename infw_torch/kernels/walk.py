@@ -8,7 +8,14 @@ the poptrie (layout.build_poptrie): the DIR-16 root slot of (ifindex, top
 child step, then the winning target's rule row scanned in order for the
 first hit.
 
-- ``build_trie_tables``: CompiledTables -> TrieTables on one device;
+- ``build_trie_tables``: CompiledTables -> TrieTables on one device, with
+  ``pad=True`` every row count bucketed (layout.row_bucket) so that a
+  later edit can be patched.  TorchClassifier serves padded builds only,
+  the overlay's included; ``pad=False`` is the reference's unpadded
+  ``jaxpath.device_tables`` layout, which the port is held against;
+- ``patch_trie_tables``: the incremental device update of a padded upload
+  (jaxpath.patch_device_tables on K2's own layout): only the changed rows
+  cross the link, and the result equals a fresh padded build bit for bit;
 - ``trie_walk_classify``: the wrapper of the hand-written CUDA kernel
   ``csrc/trie_walk.cu`` (which replaces the Pallas ``_make_walk_kernel``).
   On a CUDA tensor it launches the kernel or raises; on a CPU tensor it
@@ -36,7 +43,15 @@ import numpy as np
 import torch
 
 from ..compiler import CompiledTables, trie_levels_for_mask
-from ..layout import build_poptrie, v4_trie_depth
+from ..layout import (
+    build_poptrie,
+    hint_dense_rows,
+    hint_trie_unchanged,
+    pad_rows,
+    row_bucket,
+    seed_caches_forward,
+    v4_trie_depth,
+)
 from . import _build
 from .torchpath import (
     DeviceBatch,
@@ -79,7 +94,18 @@ class TrieTables(NamedTuple):
                 deep level;
     targets:    (P,) target + 1 per deep-level target, 0 sentinel first;
     rules:      (T, R, 7) the compiled rule rows;
-    deep_rows:  the row counts of ``level_rows`` on the host."""
+    mask_len:   (T,) each entry's mask length, -1 for tombstones and
+                padding (the overlay combine's LPM score; K2 does not read
+                it);
+    deep_rows:  the row counts of ``level_rows`` on the host.
+
+    A padded build (``pad=True``) rounds each deep level, ``targets``,
+    ``rules``, ``mask_len`` and ``root_lut`` up to layout.row_bucket rows;
+    ``level_rows`` and ``deep_rows`` then hold the padded counts.  Padding
+    rows are zero (mask_len -1) and unreachable: no child rank or target
+    points there, and a zero node row stops a walk as leaving the level
+    does, so every clip bound K2 takes from these shapes gives the result
+    of the unpadded layout."""
 
     root_lut: torch.Tensor
     l0: torch.Tensor
@@ -87,6 +113,7 @@ class TrieTables(NamedTuple):
     level_rows: torch.Tensor
     targets: torch.Tensor
     rules: torch.Tensor
+    mask_len: torch.Tensor
     deep_rows: Tuple[int, ...]
 
     @property
@@ -102,15 +129,33 @@ class TrieTables(NamedTuple):
         return out
 
 
-def build_trie_tables(tables: CompiledTables, device=None) -> TrieTables:
-    """Host-side packing of CompiledTables into the trie layout (a full
-    upload to ``device``, resolve_device).  Raises ValueError for a trie
-    deeper than MAX_LEVELS."""
-    device = resolve_device(device)
+def _host_layout(tables: CompiledTables, pad: bool):
+    """The host arrays of the trie layout: (root_lut, l0, deep levels,
+    targets, rules, mask_len), bucket-padded when ``pad``."""
     levels, targets = build_poptrie(tables)
     if len(levels) > MAX_LEVELS:
         raise ValueError(f"trie has {len(levels)} levels; the walk reads at most {MAX_LEVELS}")
-    deep = levels[1:]
+    mask_len = np.array(tables.mask_len, np.int32)
+    mask_len[tables.num_entries:] = -1
+    root_lut = np.asarray(tables.root_lut, np.int32)
+    deep = [np.asarray(d).view(np.int32) for d in levels[1:]]
+    rules = np.asarray(tables.rules, np.int32)
+    targets = np.asarray(targets, np.int32)
+    if pad:
+        deep = [pad_rows(d, row_bucket(d.shape[0])) for d in deep]
+        targets = pad_rows(targets, row_bucket(targets.shape[0]))
+        rules = pad_rows(rules, row_bucket(rules.shape[0]))
+        mask_len = pad_rows(mask_len, row_bucket(mask_len.shape[0]), fill=-1)
+        root_lut = pad_rows(root_lut, row_bucket(root_lut.shape[0]))
+    return root_lut, np.asarray(levels[0], np.int32), deep, targets, rules, mask_len
+
+
+def build_trie_tables(tables: CompiledTables, device=None, pad: bool = False) -> TrieTables:
+    """Host-side packing of CompiledTables into the trie layout (a full
+    upload to ``device``, resolve_device), bucket-padded when ``pad``.
+    Raises ValueError for a trie deeper than MAX_LEVELS."""
+    device = resolve_device(device)
+    root_lut, l0, deep, targets, rules, mask_len = _host_layout(tables, pad)
     counts = np.array([d.shape[0] for d in deep], np.int64)
     level_rows = np.stack([np.cumsum(counts) - counts, counts], axis=1).astype(np.int32)
 
@@ -118,17 +163,162 @@ def build_trie_tables(tables: CompiledTables, device=None) -> TrieTables:
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
     return TrieTables(
-        root_lut=put(np.asarray(tables.root_lut, np.int32)),
-        l0=put(levels[0]),
-        deep=put(
-            np.concatenate(deep).view(np.int32) if deep
-            else np.zeros((0, ROW_WORDS), np.int32)
-        ),
+        root_lut=put(root_lut),
+        l0=put(l0),
+        deep=put(np.concatenate(deep) if deep else np.zeros((0, ROW_WORDS), np.int32)),
         level_rows=put(level_rows.reshape(-1, 2)),
-        targets=put(np.asarray(targets, np.int32)),
-        rules=put(np.asarray(tables.rules, np.int32)),
+        targets=put(targets),
+        rules=put(rules),
+        mask_len=put(mask_len),
         deep_rows=tuple(int(c) for c in counts),
     )
+
+
+def staged_rows(dev: torch.Tensor, pos: np.ndarray, rows: np.ndarray) -> torch.Tensor:
+    """``dev`` with ``rows`` written at the unique row positions ``pos``,
+    as a NEW tensor: the positions and rows cross to the device in one
+    staged copy, then a device-side clone of ``dev`` takes them with
+    ``index_copy_``.  The resident tensor is never written, so a batch
+    launched against it reads the old rows whatever it was ordered
+    after."""
+    if len(pos) == 0:
+        return dev
+    k = len(pos)
+    np_dtype = {torch.int32: np.int32, torch.int16: np.int16}[dev.dtype]
+    vals = np.ascontiguousarray(rows).view(np_dtype).reshape((k,) + tuple(dev.shape[1:]))
+    buf = np.empty(4 * k + vals.nbytes, np.uint8)
+    buf[: 4 * k] = np.asarray(pos, np.int32).view(np.uint8)
+    buf[4 * k:] = vals.reshape(-1).view(np.uint8)
+    staged = torch.from_numpy(buf).to(dev.device)
+    idx = staged[: 4 * k].view(torch.int32).long()
+    out = dev.clone()
+    out.index_copy_(0, idx, staged[4 * k:].view(dev.dtype).reshape(vals.shape))
+    return out
+
+
+def diff_rows(n_dev: int, old: np.ndarray, new: np.ndarray, fill=0):
+    """(positions, rows) that turn a padded upload of ``old`` (``n_dev``
+    rows) into one of ``new`` (jaxpath._patch_diff_payload): the changed
+    rows, the rows ``new`` appends, and the rows it drops reset to
+    ``fill``.  None when the row bucket or the row shape changes, or when
+    more than a quarter of the rows change (a full upload then wins)."""
+    if (old.shape[1:] != new.shape[1:] or row_bucket(new.shape[0]) != n_dev
+            or row_bucket(old.shape[0]) != n_dev):
+        return None
+    no, nn = old.shape[0], new.shape[0]
+    common = min(no, nn)
+    changed = np.nonzero((old[:common].reshape(common, -1)
+                          != new[:common].reshape(common, -1)).any(axis=1))[0]
+    pos, rows = [changed], [new[changed]]
+    if nn > no:
+        pos.append(np.arange(no, nn))
+        rows.append(new[no:])
+    elif no > nn:
+        pos.append(np.arange(nn, no))
+        rows.append(np.full((no - nn,) + new.shape[1:], fill, new.dtype))
+    pos = np.concatenate(pos)
+    if len(pos) > n_dev // 4:
+        return None
+    return pos, np.concatenate(rows)
+
+
+def exact_diff_rows(old: np.ndarray, new: np.ndarray):
+    """(positions, rows) for an unpadded array whose shape must not change
+    (the DIR-16 root slots); None when it does or more than a quarter of
+    its rows change."""
+    if old.shape != new.shape:
+        return None
+    changed = np.nonzero((old != new).reshape(old.shape[0], -1).any(axis=1))[0]
+    if len(changed) > max(old.shape[0] // 4, 1):
+        return None
+    return changed, new[changed]
+
+
+def patch_trie_tables(tt: TrieTables, old: CompiledTables, new: CompiledTables,
+                      device=None, hint=None):
+    """Incremental update of ``tt``, a padded upload of ``old``, to ``new``
+    (jaxpath.patch_device_tables with _patch_array_rows, _capped_scatter
+    and txn_scatter, on K2's own layout).  Returns (TrieTables, rows
+    shipped), bit-identical to ``build_trie_tables(new, pad=True)``, or
+    None when the level count or the rule rows' bucket changes or their
+    delta is too large (the caller uploads in full).
+
+    With an IncrementalTables hint the rule and mask-length rows are the
+    hinted ones (no host diff); a rules-only hint also proves the trie
+    unchanged, so the node levels, targets and DIR-16 slots carry over by
+    reference and the new generation inherits the old one's host layouts.
+    Without a hint, or for a structural one, the trie arrays are diffed
+    against the old generation's host layout; as in the reference, an
+    array whose bucket or shape changed, or whose delta is too large, is
+    uploaded whole (a node inserted early in a level renumbers the rows
+    after it, so a structural edit often re-uploads the node levels and
+    targets).  Each changed array ships its rows in one staged copy into a
+    new tensor (staged_rows); an unchanged array is shared with ``tt``.
+    ``device`` is where ``tt`` lives."""
+    if len(old.trie_levels) != len(new.trie_levels) or tt.n_levels != len(new.trie_levels):
+        return None
+    rules_only = hint_trie_unchanged(hint)
+    if rules_only:
+        seed_caches_forward(old, new, hint)
+    new_mask = np.array(new.mask_len, np.int32)
+    new_mask[new.num_entries:] = -1
+    if hint is not None:
+        rows = hint_dense_rows(hint, new)
+        n_rules = tt.rules.shape[0]
+        if (row_bucket(new.rules.shape[0]) != n_rules or len(rows) > n_rules // 4
+                or tuple(tt.rules.shape[1:]) != new.rules.shape[1:]):
+            return None
+        dense = {"rules": (rows, new.rules[rows]), "mask_len": (rows, new_mask[rows])}
+    else:
+        old_mask = np.array(old.mask_len, np.int32)
+        old_mask[old.num_entries:] = -1
+        dense = {"rules": diff_rows(tt.rules.shape[0], np.asarray(old.rules, np.int32),
+                                    np.asarray(new.rules, np.int32)),
+                 "mask_len": diff_rows(tt.mask_len.shape[0], old_mask, new_mask, fill=-1)}
+        if dense["rules"] is None or dense["mask_len"] is None:
+            return None
+    out = {name: staged_rows(getattr(tt, name), *pr) for name, pr in dense.items()}
+    total = sum(len(pr[0]) for pr in dense.values())
+    dev = tt.rules.device
+
+    def put(a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    def patch_or_upload(name, pr, whole):
+        nonlocal total
+        if pr is None:
+            out[name] = put(whole)
+            total += whole.shape[0]
+        else:
+            out[name] = staged_rows(getattr(tt, name), *pr)
+            total += len(pr[0])
+
+    o_lut = np.asarray(old.root_lut, np.int32)
+    n_lut = np.asarray(new.root_lut, np.int32)
+    patch_or_upload("root_lut", diff_rows(tt.root_lut.shape[0], o_lut, n_lut),
+                    pad_rows(n_lut, row_bucket(n_lut.shape[0])))
+    if not rules_only:
+        _, o_l0, o_deep, o_targets, _, _ = _host_layout(old, pad=False)
+        _, n_l0, n_deep, n_targets, _, _ = _host_layout(new, pad=False)
+        patch_or_upload("l0", exact_diff_rows(o_l0, n_l0), n_l0)
+        patch_or_upload("targets", diff_rows(tt.targets.shape[0], o_targets, n_targets),
+                        pad_rows(n_targets, row_bucket(n_targets.shape[0])))
+        deep = [diff_rows(n, o, w) for n, o, w in zip(tt.deep_rows, o_deep, n_deep)]
+        if all(p is not None for p in deep):
+            offsets = np.cumsum((0,) + tt.deep_rows[:-1])
+            patch_or_upload("deep", (
+                np.concatenate([np.zeros(0, np.int64)] + [p[0] + o for p, o in zip(deep, offsets)]),
+                np.concatenate([np.zeros((0, ROW_WORDS), np.int32)] + [p[1] for p in deep]),
+            ), None)
+        else:  # the whole node array, and with it the level offsets
+            padded = [pad_rows(d, row_bucket(d.shape[0])) for d in n_deep]
+            counts = np.array([d.shape[0] for d in padded], np.int64)
+            patch_or_upload("deep", None, np.concatenate(padded) if padded
+                            else np.zeros((0, ROW_WORDS), np.int32))
+            out["level_rows"] = put(np.stack([np.cumsum(counts) - counts, counts],
+                                             axis=1).astype(np.int32).reshape(-1, 2))
+            out["deep_rows"] = tuple(int(c) for c in counts)
+    return tt._replace(**out), total
 
 
 def _check_levels(tt: TrieTables, n_levels: int) -> None:

@@ -16,7 +16,14 @@ helpers:
   depth-class steering of IPv6 chunks (a packet whose root slot needs at
   most d deep levels is fully classified by a walk of 1 + d levels);
 - ``v4_trie_depth``: the levels an IPv4-only chunk walks;
-- ``check_wire_ruleids``: whether results fit the 16-bit wire result.
+- ``check_wire_ruleids``: whether results fit the 16-bit wire result;
+- ``row_bucket`` / ``pad_rows``: the bucketed row counts of a padded
+  upload, so a small edit keeps every device array's shape and can be
+  patched (kernels/walk.py, kernels/cwalk.py);
+- ``hint_trie_unchanged`` / ``seed_caches_forward`` /
+  ``joined_tidx_patch_rows``: a rules-only edit's host side, which carries
+  the structural caches of the old generation to the new one and patches
+  the joined rows at the dirty targets instead of rebuilding them.
 
 Every function that scans a whole table is memoized on the CompiledTables
 instance, which is never mutated after the build.
@@ -469,3 +476,87 @@ def check_wire_ruleids(tables: CompiledTables) -> None:
             f"max ruleId {max_rid} > 255 does not fit the uint16 wire "
             "result; use the u32 (non-wire) classify path"
         )
+
+
+def row_bucket(n: int) -> int:
+    """Bucketed device row count (jaxpath._row_bucket): a power of two (at
+    least 8) up to 4096 rows, then whole 4096-row chunks, so a few appended
+    rows keep the array's shape."""
+    if n <= 0:
+        return 8
+    if n <= 4096:
+        return max(8, 1 << (n - 1).bit_length())
+    return -(-n // 4096) * 4096
+
+
+def pad_rows(a: np.ndarray, n_rows: int, fill=0) -> np.ndarray:
+    """``a`` with rows of ``fill`` appended up to ``n_rows`` (jaxpath._pad_rows)."""
+    if a.shape[0] >= n_rows:
+        return a
+    out = np.zeros((n_rows,) + a.shape[1:], a.dtype)
+    if fill:
+        out[a.shape[0]:] = fill
+    out[: a.shape[0]] = a
+    return out
+
+
+def hint_trie_unchanged(hint) -> bool:
+    """True when an IncrementalTables dirty hint proves the edit rules-only
+    (no trie slot row written): the condition for carrying the structural
+    caches forward and for the joined-row fast path."""
+    return hint is not None and all(len(h) == 0 for h in hint.get("levels", [np.zeros(1)]))
+
+
+def hint_dense_rows(hint, tables: CompiledTables) -> np.ndarray:
+    """The hint's dirty dense rows that exist in ``tables``, unique."""
+    dirty = np.unique(np.asarray(hint.get("dense", ()), np.int64))
+    return dirty[(dirty >= 0) & (dirty < tables.rules.shape[0])]
+
+
+def joined_tidx_patch_rows(tables: CompiledTables, dirty: np.ndarray):
+    """(positions, rows) of joined_by_tidx's rows at the dirty dense rows
+    (jaxpath._joined_tidx_patch_rows): position tidx + 1, row [tidx + 1 low,
+    high, mask_len, packed rules]; None when those rules do not pack into
+    uint16."""
+    dirty = dirty[(dirty >= 0) & (dirty < tables.rules.shape[0])]
+    packed = pack_rules_u16(tables.rules[dirty])
+    if packed is None:
+        return None
+    pos = dirty + 1
+    rows = np.zeros((len(pos), 3 + 5 * packed.shape[1]), np.uint16)
+    rows[:, 0] = (pos & 0xFFFF).astype(np.uint16)
+    rows[:, 1] = (pos >> 16).astype(np.uint16)
+    rows[:, 2] = np.minimum(np.maximum(np.asarray(tables.mask_len)[dirty], 0),
+                            0xFFFF).astype(np.uint16)
+    rows[:, 3:] = packed.reshape(len(pos), rows.shape[1] - 3)
+    return pos, rows
+
+
+def seed_caches_forward(old: CompiledTables, new: CompiledTables, hint) -> None:
+    """Across a rules-only edit (the hint proves the trie untouched), give
+    ``new`` the host layouts ``old`` has built: the poptrie, the cpoptrie
+    and the depth-steering caches read the trie only, so they are shared;
+    the per-target joined rows are copied and patched at the dirty rows
+    (jaxpath._seed_caches_forward and seed_ctrie_caches_forward).  Runs
+    before anything builds a layout of ``new``: a 1-key edit at 1M entries
+    then costs no rebuild.  A cache ``new`` already has is kept; a joined
+    patch that does not fit leaves the cache to be rebuilt."""
+    if not hint_trie_unchanged(hint) or old.rules.shape != new.rules.shape:
+        return
+    for name in ("_poptrie_cache", "_cpoptrie_cache", "_depth_lut_cache",
+                 "_depth_classes_cache"):
+        if hasattr(old, name) and not hasattr(new, name):
+            setattr(new, name, getattr(old, name))
+    if not hasattr(old, "_joined_tidx_cache") or hasattr(new, "_joined_tidx_cache"):
+        return
+    jt = old._joined_tidx_cache
+    dirty = hint_dense_rows(hint, new)
+    if jt is None or len(dirty) == 0:
+        # the reference carries an unpackable table's verdict forward too
+        new._joined_tidx_cache = jt
+        return
+    pr = joined_tidx_patch_rows(new, dirty)
+    if pr is not None and pr[1].shape[1] == jt.shape[1] and int(pr[0].max()) < jt.shape[0]:
+        jn = jt.copy()
+        jn[pr[0]] = pr[1]
+        new._joined_tidx_cache = jn

@@ -1,0 +1,1 @@
+"""Profiling tools of the port, run on the card."""

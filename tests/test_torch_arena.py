@@ -528,6 +528,40 @@ def test_classifier_matches_jax_arena_classifier(width):
         pc.classify_async_packed_tenant(wire, tenant)
 
 
+def test_out_of_range_tenant_ids_are_undef_and_uncounted():
+    """Tenant ids outside int32 (2^32 + 1, -2^32 + 1) are outside [0,
+    max_tenants): every lane UNDEF, no tenant counted, as the per-tenant
+    oracle and the reference's own docstring say.  The JAX classifier wraps
+    such an id onto tenant 1 (a fault of the reference, kept as it is), so
+    it is compared only on the in-range lanes."""
+    jtabs, ptabs = _tenants(jax_testing), _tenants(testing)
+    js, ps = _specs(jtabs, ptabs)
+    jc = ArenaClassifier(js, interpret=True, fused_deep=True)
+    pc = TorchArenaClassifier(ps, device="cpu")
+    for t in jtabs:
+        jc.load_tenant(t, jtabs[t])
+        pc.load_tenant(t, ptabs[t])
+    pb = testing.random_batch_fast(np.random.default_rng(3), ptabs[1], 64)
+    wire = pb.pack_wire()
+    for bad in (2**32 + 1, -(2**32) + 1):
+        tenant = np.full(64, bad, np.int64)
+        got = pc.classify_async_packed_tenant(wire, tenant).result()
+        assert not got.results.any()
+        np.testing.assert_array_equal(got.xdp, np.where(pb.kind == 0, 1, 2))
+        assert not got.stats_delta.any()
+        assert not any(k.startswith("tenant_1_") for k in pc.tenant_counters())
+    # a mixed column: in-range lanes equal to the JAX classifier and to
+    # tenant 1's oracle, the others UNDEF
+    tenant = np.where(np.arange(64) % 2 == 0, 1, 2**32 + 1).astype(np.int64)
+    got = pc.classify_async_packed_tenant(wire, tenant).result()
+    want = jc.classify_async_packed_tenant(wire, tenant).result()
+    ok = tenant == 1
+    np.testing.assert_array_equal(got.results[ok], want.results[ok])
+    np.testing.assert_array_equal(got.results[ok], oracle.classify(ptabs[1], pb).results[ok])
+    assert not got.results[~ok].any()
+    assert pc.tenant_counters()["tenant_1_packets_total"] == int(ok.sum())
+
+
 def _jax_batch(pb):
     return jax_packets.PacketBatch(**{f: np.array(getattr(pb, f)) for f in (
         "kind", "l4_ok", "ifindex", "ip_words", "proto", "dst_port", "icmp_type", "icmp_code",

@@ -9,6 +9,7 @@ import torch
 
 import jax.numpy as jnp
 
+from infw import compiler as jax_compiler
 from infw import oracle as jax_oracle
 from infw import testing as jax_testing
 from infw.backend.tpu import TpuClassifier
@@ -304,7 +305,8 @@ def test_v6_depth_groups_on_ctrie_is_the_steering_off_form(case):
 def test_precedence_and_fallbacks(case, monkeypatch):
     """force_path="trie" wins over compressed; the INFW_COMPRESSED env
     applies when the argument is absent; wide ruleIds fall back to the trie
-    path on both sides; a ctrie overlay with entries raises."""
+    path on both sides; a ctrie overlay with entries is served, with the
+    JAX classifier's results."""
     pt, jt = case["pt"], case["jt"]
     clf = TorchClassifier(device="cpu", force_path="trie", compressed=True)
     clf.load_tables(pt)
@@ -337,12 +339,18 @@ def test_precedence_and_fallbacks(case, monkeypatch):
     jclf.close()
 
     clf = TorchClassifier(device="cpu", force_path="ctrie")
+    ov_content = {(64, 2, bytes([192, 0, 2, 1]) + bytes(12)): np.eye(8, 7, dtype=np.int32)}
     overlay = compiler.compile_tables_from_content(
-        {compiler.LpmKey(64, 2, bytes([192, 0, 2, 1]) + bytes(12)): np.eye(8, 7, dtype=np.int32)},
-        rule_width=8)
-    with pytest.raises(NotImplementedError, match="ctrie path's overlay"):
-        clf.load_tables(pt, overlay=overlay)
-    assert clf.active_path is None
+        {compiler.LpmKey(*k): v for k, v in ov_content.items()}, rule_width=8)
+    clf.load_tables(pt, overlay=overlay)
+    assert clf.active_path == "ctrie"
+    jclf = TpuClassifier(force_path="ctrie", interpret=True)
+    jclf.load_tables(jt, overlay=jax_compiler.compile_tables_from_content(
+        {jax_compiler.LpmKey(*k): v for k, v in ov_content.items()}, rule_width=8))
+    jout, out = jclf.classify(case["batch"]), clf.classify(case["pb"])
+    for f in ("results", "xdp", "stats_delta"):
+        np.testing.assert_array_equal(getattr(out, f), getattr(jout, f), err_msg=f)
+    jclf.close()
     clf.load_tables(pt, overlay=compiler.compile_tables_from_content({}, rule_width=8))
     assert clf.active_path == "ctrie"
 

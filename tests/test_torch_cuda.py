@@ -1,6 +1,7 @@
-"""Kernels K1, K2, K3, K4 and K3b on the card against their plain PyTorch
-versions, at small sizes, the wire codecs through the classifier, and the
-multi-tenant arena classifier.
+"""Kernels K1, K2, K3, K4, K3b and K5 on the card against their plain
+PyTorch versions, at small sizes, the wire codecs through the classifier,
+the multi-tenant arena classifier, patched tables and the overlay
+combine.
 
 Needs a CUDA card and nvcc; skips elsewhere.  Run on the card with
 
@@ -15,7 +16,7 @@ import torch
 
 from infw_torch import arena, compiler, oracle, testing
 from infw_torch.backend.cuda import TorchArenaClassifier, TorchClassifier
-from infw_torch.kernels import arena_walk, cwalk, dense, torchpath, walk, wire_decode
+from infw_torch.kernels import arena_walk, cwalk, dense, gather, torchpath, walk, wire_decode
 from infw_torch.packets import concat
 
 pytestmark = pytest.mark.cuda
@@ -363,3 +364,130 @@ def test_arena_classifier_on_card_matches_oracle_after_swap(cuda):
     idx2 = tenant == 2
     assert not np.array_equal(before.results[idx2], after.results[idx2])
     assert clf.tenant_counters() == cpu.tenant_counters()
+
+
+@pytest.mark.parametrize("n", [1, 1023, 1025, 4096])
+def test_k5_matches_plain(cuda, n):
+    """K5 against its plain version, exact, with indices outside [0, N)
+    and row sums that wrap."""
+    rng = np.random.default_rng(n)
+    table = torch.from_numpy((2**32 - rng.integers(1, 2**20, (4096, 128))).astype(np.uint32)
+                             .view(np.int32)).to(cuda)
+    idx = rng.integers(-5000, 9000, n).astype(np.int32)
+    idx[:1] = 2**31 - 1
+    idx = torch.from_numpy(idx).to(cuda)
+    before = gather.KERNEL.launches
+    got = gather.gather_rowsum(idx, table)
+    torch.cuda.synchronize()
+    assert gather.KERNEL.launches == before + 1
+    assert torch.equal(got, gather.gather_rowsum_plain(idx, table))
+    assert torch.equal(got.cpu(), gather.gather_rowsum(idx.cpu(), table.cpu()))
+
+
+def _churn(rng, content, r):
+    """Even rounds: 4 deletes and 5 new /24-/32 keys; odd rounds: 3
+    rules-only rewrites."""
+    keys = list(content)
+    if r % 2 == 0:
+        dels = [keys[int(i)] for i in rng.choice(len(keys), size=4, replace=False)]
+        for k in dels:
+            del content[k]
+        adds = {}
+        while len(adds) < 5:
+            m = int(rng.integers(24, 33))
+            ip = (int(rng.integers(0, 2**32)) & (0xFFFFFFFF << (32 - m))).to_bytes(4, "big")
+            key = compiler.LpmKey(32 + m, 2, ip + bytes(12))
+            if key not in content:
+                rows = np.zeros((4, 7), np.int32)
+                rows[1] = [1, 6, int(rng.integers(1, 65000)), 0, 0, 0, int(rng.integers(1, 3))]
+                adds[key] = rows
+        content.update(adds)
+        return adds, dels
+    ups = {}
+    for i in rng.choice(len(keys), size=3, replace=False):
+        rows = np.array(content[keys[int(i)]])
+        rows[1, 6] = 3 - rows[1, 6]
+        ups[keys[int(i)]] = rows
+    content.update(ups)
+    return ups, []
+
+
+@pytest.mark.parametrize("layout_name", ["trie", "ctrie"])
+def test_patched_tables_on_card_equal_fresh_padded_builds(cuda, layout_name):
+    """walk.patch_trie_tables / cwalk.patch_ctrie on the card, hinted:
+    every round equal to a fresh padded build on the card, and K2 / K3 on
+    the patched tables equal to the plain version."""
+    build, patch = {"trie": (walk.build_trie_tables, walk.patch_trie_tables),
+                    "ctrie": (cwalk.build_ctrie_tables, cwalk.patch_ctrie)}[layout_name]
+    rng = np.random.default_rng(61)
+    content = dict(testing.random_tables_fast(rng, 3000, width=4).content)
+    it = compiler.IncrementalTables.from_content(content, rule_width=4)
+    prev = it.snapshot()
+    dev = build(prev, cuda, pad=True)
+    it.clear_dirty()
+    patched = 0
+    for r in range(4):
+        ups, dels = _churn(rng, content, r)
+        it.apply(ups, deletes=dels)
+        new = it.snapshot()
+        out = patch(dev, prev, new, cuda, hint=it.peek_dirty())
+        fresh = build(new, cuda, pad=True)
+        dev = fresh if out is None else out[0]
+        patched += out is not None
+        for f in fresh._fields:
+            a, b = getattr(dev, f), getattr(fresh, f)
+            assert (torch.equal(a, b) if isinstance(b, torch.Tensor) else a == b), f
+        it.clear_dirty()
+        prev = new
+    assert patched >= 2
+    batch = testing.random_batch_fast(rng, prev, 3000)
+    fields, words = torchpath.packet_fields(torchpath.device_batch(batch, cuda))
+    if layout_name == "trie":
+        got = walk.trie_walk_classify(fields, words, dev, dev.n_levels)
+        want = walk.trie_walk_classify_plain(fields, words, dev, dev.n_levels)
+    else:
+        got = cwalk.ctrie_walk_classify(fields, words, dev)
+        want = cwalk.ctrie_walk_classify_plain(fields, words, dev)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("codec", ["wire8", "delta"])
+@pytest.mark.parametrize("path", ["trie", "ctrie"])
+def test_overlay_classify_on_card_matches_cpu(cuda, path, codec):
+    """TorchClassifier with an overlay on the card: K1 for the overlay and
+    K2 or K3 for the main table once per classify, results equal to the
+    port on the CPU and to the oracle over both tables."""
+    rng = np.random.default_rng(62)
+    main = dict(testing.random_tables_fast(rng, 3000, width=4, ifindexes=(2, 3)).content)
+    ov_content = {}
+    while len(ov_content) < 40:
+        ip = int(rng.integers(0, 2**32)).to_bytes(4, "big")
+        key = compiler.LpmKey(32 + 30, int(rng.choice([2, 3])), ip + bytes(12))
+        if key.masked_identity() not in {k.masked_identity() for k in main}:
+            rows = np.zeros((4, 7), np.int32)
+            rows[2] = [2, 0, 0, 0, 0, 0, 1]
+            ov_content[key] = rows
+    tables = compiler.compile_tables_from_content(main, rule_width=4)
+    ov = compiler.compile_tables_from_content(ov_content, rule_width=4)
+    merged = compiler.compile_tables_from_content({**main, **ov_content}, rule_width=4)
+    batch = testing.random_batch_fast(rng, merged, 4000)
+    batch.ip_words[batch.kind != 2, 1:] = 0
+    clf = TorchClassifier(force_path=path, wire_codec=codec)
+    cpu = TorchClassifier(device="cpu", force_path=path, wire_codec=codec)
+    for c in (clf, cpu):
+        c.load_tables(tables, overlay=ov)
+    main_k = walk.KERNEL if path == "trie" else cwalk.KERNEL
+    v4 = np.nonzero(batch.kind == 1)[0]
+    for label, run in (("mixed", lambda c: c.classify(batch)),
+                       ("v4 chunk", lambda c: c.classify_async_packed(
+                           *batch.pack_wire_subset(v4)).result())):
+        k1, km = dense.KERNEL.launches, main_k.launches
+        out = run(clf)
+        assert dense.KERNEL.launches == k1 + 1 and main_k.launches == km + 1, label
+        ref = run(cpu)
+        for f in ("results", "xdp", "stats_delta"):
+            np.testing.assert_array_equal(getattr(out, f), getattr(ref, f), err_msg=f"{label} {f}")
+    out = clf.classify(batch)
+    want = oracle.classify(merged, batch)
+    np.testing.assert_array_equal(out.results, want.results)
+    assert (out.results >> 8 == 2).any()
