@@ -9,7 +9,8 @@ its multi-tenant arena on the card and fails (non-zero exit, no result line) on 
 1. device: the card's name and power limit (nvidia-smi);
 2. build: every hand-written kernel from its source with nvcc, one nvcc
    per source, all started together; prints ptxas register /
-   shared-memory / spill lines;
+   shared-memory / spill lines and the count of IMMA (tensor-core)
+   instructions in K1's SASS (cuobjdump -sass), which must not be 0;
 3. kernel K1 against its plain PyTorch version on the card, exact
    (result, tidx) equality, at the headline shape (1000 entries x 100
    rules on ifindexes 2, 3, 4, 2^20 packets) and at the dense limit
@@ -19,9 +20,15 @@ its multi-tenant arena on the card and fails (non-zero exit, no result line) on 
    launch counts zeroed just before and read just after; results, XDP
    verdicts and statistics checked bit for bit against the scalar oracle
    on 4096-packet subsets;
-5. dense timings with CUDA events (K1, its plain version, torch._int_mm of
-   the LPM's int8 mismatch product as a stage-1 yardstick the port never
-   calls) and end-to-end classify packets/s on the host clock;
+5. dense timings with CUDA events (K1, K1 with zero rule slots: the LPM
+   alone, without its ordered scan; the LPM alone under two other entry
+   groupings of the same table, k-step skipping without the ifindex
+   folding and all five k-steps, each held against the shipped grouping;
+   its plain version, torch._int_mm of the LPM's int8 mismatch product as
+   a stage-1 yardstick the port never calls), K1's profiler kernel list,
+   which must be one lpm_kernel and one rule_scan_kernel per call, with
+   their device times, and end-to-end classify packets/s on the host
+   clock;
 6. the trie path at the JAX package's bench config 3 (100,000 CIDRs x 8
    rule slots on ifindexes 2, 3, 4, 2^20 packets): kernel K2 against its
    plain version at every level count the path walks; the main path
@@ -59,7 +66,10 @@ its multi-tenant arena on the card and fails (non-zero exit, no result line) on 
    fixed-stride plan (1 and 2 bytes) against the oracle; the stages of one
    classify per format (host pack, H2D bytes and time, device pass on CUDA
    events, D2H, host finalize, end to end); K4 times per width at 2^20
-   values, its bound, the plain version and torch.cumsum;
+   values (CUDA events, the profiler's device time, which must list one
+   launch of one kernel per call, and the host's time per call over 1000
+   calls without a synchronize), its bound, the plain version and
+   torch.cumsum on the same three clocks;
 9. the multi-tenant ctrie arena at the JAX package's tenant bench
    (bench.py bench_tenant): 512 tenants of 64 entries (random_tables_fast,
    seeds 9000 + t) in one 514-page pool, loaded through
@@ -74,7 +84,10 @@ its multi-tenant arena on the card and fails (non-zero exit, no result line) on 
    tables; then the 1M-entry swap pair (clean_tables_fast): the
    page-table flip against a full upload, each flip checked against the
    active table's HashLpmOracle, and a destroy + compaction;
-10. one JSON ``kernels`` line, then the device JSON as the last line.
+10. incremental patches and the overlay at the churn tier (K1 over the
+    overlay against its plain version);
+11. the gather microbenchmark's kernel K5 and its tool;
+12. one JSON ``kernels`` line, then the device JSON as the last line.
 
 Imports nothing of JAX or of the JAX package ``infw``.
 """
@@ -83,6 +96,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import re
 import resource
 import subprocess
 import sys
@@ -142,25 +156,65 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def profiled_kernels(fn, reps: int):
+def profiled_kernels(fn, reps: int, counts: dict = None):
     """torch.profiler over ``reps`` calls after a warm one: {kernel name:
-    device microseconds per call}, from the CUDA events of the trace (kernels
-    only, no copies or fills); empty when the trace holds no device time."""
+    device microseconds per call}, from the CUDA events of the trace
+    (kernels only, no copies or fills).  The calls run inside the recorded
+    window with 20 ms of margin on each side, after a warm-up step.  A
+    trace that holds fewer kernels than the launches the runtime recorded
+    lost events: it is taken again, up to five times, and after that the
+    result is empty (not measured), never a short count.  ``counts``, when
+    given, receives {kernel name: launches per call}."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
+    for attempt in range(5):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
             fn()
-        torch.cuda.synchronize()
-    out = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA and not e.name.startswith(("Memcpy", "Memset")):
-            out[e.name] = out.get(e.name, 0.0) + e.time_range.elapsed_us() / reps
+            torch.cuda.synchronize()
+            prof.step()
+            time.sleep(0.02)
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            time.sleep(0.02)
+            prof.step()
+        out, launches, api = {}, {}, 0
+        for e in prof.events():
+            if e.is_user_annotation or e.name.startswith("ProfilerStep"):
+                continue  # the schedule's step ranges, on both timelines
+            if e.device_type == DeviceType.CUDA and not e.name.startswith(("Memcpy", "Memset")):
+                out[e.name] = out.get(e.name, 0.0) + e.time_range.elapsed_us() / reps
+                launches[e.name] = launches.get(e.name, 0) + 1
+            elif e.device_type == DeviceType.CPU and e.name.startswith(("cudaLaunch", "cuLaunch")):
+                api += 1
+        if sum(launches.values()) >= api:
+            break
+        log(f"profiler: {sum(launches.values())} kernels in the trace of {api} launches "
+            f"(attempt {attempt + 1}); tracing again")
+    else:
+        out, launches = {}, {}
+    if counts is not None:
+        counts.update({name: n / reps for name, n in launches.items()})
     return out
+
+
+def sass_count(kernel, opcodes) -> int:
+    """Instructions of the built library's SASS whose opcode starts with one
+    of ``opcodes`` (cuobjdump -sass, beside nvcc in the toolkit)."""
+    from pathlib import Path
+
+    from infw_torch.kernels import _build
+
+    tool = Path(_build.nvcc_path()).with_name("cuobjdump")
+    sass = subprocess.run([str(tool), "-sass", str(kernel.library_path())],
+                          capture_output=True, text=True, timeout=120, check=True).stdout
+    ops = re.findall(r"\*/\s*(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", sass)
+    return sum(op.startswith(opcodes) for op in ops)
 
 
 def tables_with_entries(testing, compiler, rng, n: int, width: int, ifindexes):
@@ -190,10 +244,111 @@ def compare_k1(dense, torchpath, tables, batch, label: str):
     matched = int((got[:, 1] >= 0).sum().item())
     log(f"K1 vs plain [{label}]: T={tables.num_entries} R={tables.rule_width} "
         f"B={len(batch)} mismatching packets={mism} max_abs_err={err} "
-        f"lpm-matched={matched}")
+        f"lpm-matched={matched}; {k1_groups(dense, dt)}")
     if mism:
         raise SystemExit(f"K1 disagrees with its plain version at {label}")
     return dt, fields, words, err
+
+
+def k1_groups(dense, dt) -> str:
+    """The kernel's entry groups of ``dt``: how many, and how many of the
+    entries it walks sit in folded groups (one ifindex, compared instead of
+    multiplied)."""
+    g = dt.groups.numpy()
+    live = dt.order.cpu().numpy() >= 0
+    folded = np.repeat((g[:, 1] & dense.FOLDED) != 0, g[:, 0])
+    return f"{len(g)} groups, {int((folded & live).sum())} of {int(live.sum())} entries folded"
+
+
+def k1_layouts(dense, dt) -> dict:
+    """``dt`` in the same entry order with other groups: "k-step skipping
+    alone" multiplies each folded group's ifindex word instead of comparing
+    it (the constants then cover the whole key), "five k-steps" multiplies
+    every key word of every row besides.  Both compute K1's function with
+    more products; {name: (DenseTables, k-step rows)}."""
+    import torch
+
+    e = dt.entries.cpu().numpy().view(np.uint32)
+    _, m1sum = dense.lpm_planes(e[:, 0:5], e[:, 5:10])
+    const = torch.from_numpy(dense.lpm_constants(m1sum, e[:, 10].view(np.int32)))
+    const = const.to(dt.lpm_const.device)
+    info = dt.groups[:, 1]
+    skip = dt.groups.clone()
+    skip[:, 1] = torch.where((info & dense.FOLDED) != 0, (info & ~dense.FOLDED) + 1, info)
+    skip[:, 2] = 0
+    five = skip.clone()
+    five[:, 1] = (info & dense.LONGER) | 5
+    return {name: (dt._replace(lpm_const=const, groups=g), int((g[:, 0] * (g[:, 1] & 7)).sum()))
+            for name, g in (("k-step skipping alone", skip), ("five k-steps", five))}
+
+
+def k1_layout_times(tag: str, dense, fields, words, dt, lpm_ms: float) -> dict:
+    """K1's LPM alone (zero rule slots, CUDA events) under the shipped
+    groups (k-step skipping and ifindex folding) and under each of
+    ``k1_layouts``, each held against the shipped layout on both columns."""
+    import torch
+
+    g = dt.groups
+    rows = {"skipping + folding (shipped)": int((g[:, 0] * (g[:, 1] & 7)).sum())}
+    times = {"skipping + folding (shipped)": lpm_ms}
+    want = dense.dense_classify(fields, words, dt)
+    for name, (var, krows) in k1_layouts(dense, dt).items():
+        if not torch.equal(dense.dense_classify(fields, words, var), want):
+            raise SystemExit(f"K1 with {name} disagrees with the shipped groups")
+        lpm_only = var._replace(rules=var.rules[:, :0].contiguous())
+        times[name] = cuda_ms(lambda: dense.dense_classify(fields, words, lpm_only), reps=20)
+        rows[name] = krows
+    log(f"{tag} K1 LPM alone by entry grouping (CUDA events, {dt.order.shape[0]} kernel rows): "
+        + "; ".join(f"{k} {v:.4f} ms ({rows[k]} k-step rows)" for k, v in times.items()))
+    return times
+
+
+def k1_device(tag: str, dense, fields, words, dt) -> dict:
+    """K1's profiler kernel list per call, which must be one lpm_kernel and
+    one rule_scan_kernel: {kernel: device ms per call}."""
+    per_call = {}
+    dev_us = profiled_kernels(lambda: dense.dense_classify(fields, words, dt), reps=20,
+                              counts=per_call)
+    def short(name: str) -> str:
+        m = re.search(r"([A-Za-z_]\w*)\(", name)
+        return m.group(1) if m else name
+
+    launches = {short(k): v for k, v in per_call.items()}
+    if launches != {"lpm_kernel": 1.0, "rule_scan_kernel": 1.0}:
+        raise SystemExit(f"K1: the profiler shows kernels per call {per_call}, expected one "
+                         "lpm_kernel and one rule_scan_kernel")
+    out = {short(k): v / 1e3 for k, v in dev_us.items()}
+    log(f"{tag} K1 profiler device time per call: lpm_kernel {out['lpm_kernel'] * 1e3:.2f} us, "
+        f"rule_scan_kernel {out['rule_scan_kernel'] * 1e3:.2f} us (one launch of each)")
+    return out
+
+
+def k1_split(tag: str, dense, fields, words, dt):
+    """K1's time on its operands and with zero rule slots, where the kernel
+    does the LPM only and skips the ordered scan: (full ms, LPM-only ms),
+    CUDA events."""
+    lpm_only = dt._replace(rules=dt.rules[:, :0].contiguous())
+    k1_ms = cuda_ms(lambda: dense.dense_classify(fields, words, dt), reps=20)
+    lpm_ms = cuda_ms(lambda: dense.dense_classify(fields, words, lpm_only), reps=20)
+    log(f"{tag} K1 LPM only (zero rule slots, no scan): {lpm_ms:.4f} ms of K1's {k1_ms:.4f} ms "
+        f"at B={fields.shape[0]} Tp={dt.entries.shape[0]} R={dt.rules.shape[1]}; the scan "
+        f"{k1_ms - lpm_ms:.4f} ms")
+    return k1_ms, lpm_ms
+
+
+def host_ms_per_call(fn, calls: int = 1000) -> float:
+    """Host-clock milliseconds per call of ``fn`` over ``calls`` calls with
+    no synchronize between them: the cost of enqueueing the work."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    elapsed = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return elapsed / calls * 1e3
 
 
 def median_s(fn, n: int = 5) -> float:
@@ -833,6 +988,58 @@ def compare_k4(wire_decode) -> int:
     return err
 
 
+def k4_timings(tag: str, wire_decode) -> dict:
+    """K4 at 2^20 values per width from an odd byte offset: CUDA-event time
+    per call, profiler device time (which must list one launch of one
+    kernel; also at 4096 values, one block), host time per call (no
+    synchronize), its bound, the plain version, and torch.cumsum of the
+    combined deltas (the prefix sum alone) on the same three clocks.
+    {width: numbers}."""
+    import torch
+
+    rng = np.random.default_rng(46)
+    n = K4_SIZES[-2]
+    k4 = {}
+    for w in (1, 2, 4):
+        c = torch.from_numpy(rng.integers(0, 256, n * w + 1, dtype=np.uint8)).to("cuda")[1:]
+        deltas = wire_decode._decode_fixed_deltas(c, n, w)
+        k4_fn = lambda: wire_decode.decode_scan(c, n, w)
+        cumsum_fn = lambda: torch.cumsum(deltas, 0)
+        per_call = {}
+        device_us = profiled_kernels(k4_fn, reps=20, counts=per_call)
+        if list(per_call.values()) != [1.0]:
+            raise SystemExit(f"K4 [w={w}]: the profiler shows kernels per call {per_call}, "
+                             "expected one launch of one kernel")
+        cumsum_us = profiled_kernels(cumsum_fn, reps=20)
+        # one block's worth of values: the launch and its phases without the bytes
+        one_block_us = profiled_kernels(lambda: wire_decode.decode_scan(c, 4096, w), reps=20)
+        k4[w] = {
+            "ms": cuda_ms(k4_fn, reps=50),
+            "device_ms": sum(device_us.values()) / 1e3,
+            "one_block_device_ms": sum(one_block_us.values()) / 1e3 if one_block_us else None,
+            "host_ms": host_ms_per_call(k4_fn),
+            "plain_ms": cuda_ms(lambda: wire_decode.decode_scan_plain(c, n, w), reps=20),
+            "library_ms": cuda_ms(cumsum_fn, reps=50),
+            "library_device_ms": sum(cumsum_us.values()) / 1e3 if cumsum_us else None,
+            "library_host_ms": host_ms_per_call(cumsum_fn),
+            "bound_ms": n * (w + 4) / HBM_BYTES_PER_S * 1e3,
+        }
+        t = k4[w]
+        log(f"{tag} K4 wire_decode [w={w}, n={n}]: {t['ms']:.4f} ms; bound "
+            f"{t['bound_ms']:.4f} ms by bytes ({n * (w + 4)} bytes / 3.35 TB/s), "
+            f"{t['ms'] / t['bound_ms']:.1f}x it; plain version {t['plain_ms']:.4f} ms; "
+            f"torch.cumsum of the int64 deltas {t['library_ms']:.4f} ms; profiler device "
+            f"time per call (us): " + ", ".join(f"{k[:40]} {v:.2f}" for k, v in device_us.items())
+            + "; at n=4096 (one block) " + (f"{t['one_block_device_ms'] * 1e3:.2f} us"
+                                             if one_block_us else "not measured"))
+        log(f"{tag} K4 host time per call [w={w}] (1000 calls, no synchronize): "
+            f"{t['host_ms'] * 1e3:.2f} us; torch.cumsum {t['library_host_ms'] * 1e3:.2f} us, "
+            f"its profiler device time per call (us): "
+            + (", ".join(f"{k[:40]} {v:.2f}" for k, v in cumsum_us.items())
+               or "not measured (no device events in the trace)"))
+    return k4
+
+
 def codec_phase(tag: str, cells) -> dict:
     """The wire codecs (delta + K4, wire8) on the IPv4-compact chunk of each
     path's batch: ``cells`` are (path, label, tables, batch, oracle) for the
@@ -1014,7 +1221,7 @@ def codec_phase(tag: str, cells) -> dict:
                 log(f"{tag} codec delta device pass [{path}]: decode alone {decode_ms:.4f} ms "
                     f"(CUDA events); profiler, device us per pass, {len(top)} kernels, total "
                     f"{sum(v for _, v in top):.1f}: "
-                    + "; ".join(f"{k[:60]} {v:.1f}" for k, v in top[:6]))
+                    + ("; ".join(f"{k[:60]} {v:.1f}" for k, v in top[:6]) or "not measured"))
             if fmt == "narrow":
                 e2e = None
             else:
@@ -1029,28 +1236,8 @@ def codec_phase(tag: str, cells) -> dict:
                 + ("" if e2e is None else f"; end to end {e2e * 1e3:.2f} ms (median of 5) = "
                    f"{n / e2e / 1e6:.3f} M packets/s"))
 
-    # 5. K4 times at 2^20 values per width, its bound, the plain version and
-    # torch.cumsum of the combined deltas (the prefix sum alone)
-    rng = np.random.default_rng(46)
-    n = K4_SIZES[-2]
-    k4 = {}
-    for w in (1, 2, 4):
-        c = torch.from_numpy(rng.integers(0, 256, n * w + 1, dtype=np.uint8)).to("cuda")[1:]
-        deltas = wire_decode._decode_fixed_deltas(c, n, w)
-        device_us = profiled_kernels(lambda: wire_decode.decode_scan(c, n, w), reps=20)
-        k4[w] = {
-            "ms": cuda_ms(lambda: wire_decode.decode_scan(c, n, w), reps=50),
-            "device_ms": sum(device_us.values()) / 1e3 if device_us else None,
-            "plain_ms": cuda_ms(lambda: wire_decode.decode_scan_plain(c, n, w), reps=20),
-            "library_ms": cuda_ms(lambda: torch.cumsum(deltas, 0), reps=50),
-            "bound_ms": n * (w + 4) / HBM_BYTES_PER_S * 1e3,
-        }
-        log(f"{tag} K4 wire_decode [w={w}, n={n}]: {k4[w]['ms']:.4f} ms; bound "
-            f"{k4[w]['bound_ms']:.4f} ms by bytes ({n * (w + 4)} bytes / 3.35 TB/s), "
-            f"{k4[w]['ms'] / k4[w]['bound_ms']:.1f}x it; plain version {k4[w]['plain_ms']:.4f} ms; "
-            f"torch.cumsum of the int64 deltas {k4[w]['library_ms']:.4f} ms; profiler device "
-            f"time per call (us): " + (", ".join(f"{k[:40]} {v:.2f}" for k, v in device_us.items())
-                                     or "not measured (no device events in the trace)"))
+    # 5. K4 times at 2^20 values per width
+    k4 = k4_timings(tag, wire_decode)
     return {
         "name": "wire_decode",
         "route": "cuda",
@@ -1061,10 +1248,13 @@ def codec_phase(tag: str, cells) -> dict:
         "max_abs_err": err,
         "ms": k4[4]["ms"],
         "device_ms": k4[4]["device_ms"],
+        "host_ms": k4[4]["host_ms"],
         "plain_ms": k4[4]["plain_ms"],
         "bound_ms": k4[4]["bound_ms"],
         "bound_by": "bytes",
         "library_ms": k4[4]["library_ms"],
+        "library_device_ms": k4[4]["library_device_ms"],
+        "library_host_ms": k4[4]["library_host_ms"],
         "by_width": {str(w): v for w, v in k4.items()},
         "codec_stages": timings,
     }
@@ -1690,6 +1880,7 @@ def churn_phase(tag: str, n_entries: int = CHURN_ENTRIES, n_packets: int = CHURN
             raise SystemExit(f"churn[{layout_name}]: the K1 and K2 overlay sides combine "
                              f"differently")
         del got, want, dbatch
+        log(f"churn[{layout_name}]: overlay K1 layout: {k1_groups(dense, ov_dev)}")
         log(f"churn[{layout_name}]: K1 over the {ov.num_entries}-entry overlay and K2 over its "
             f"padded trie ({ov_trie.n_levels} levels) equal their plain versions on both columns "
             f"for all {len(batch)} packets; both combine to the same results")
@@ -1826,6 +2017,11 @@ def main() -> int:
         for line in k.build_log().splitlines():
             if any(s in line for s in ("registers", "spill", "smem", "Compiling entry")):
                 log(f"  ptxas {k.name}: {line.strip()}")
+    imma = sass_count(dense.KERNEL, ("IMMA", "HGMMA"))
+    log(f"K1 on the tensor cores: {imma} IMMA/HGMMA instructions in the SASS of "
+        f"{dense.KERNEL.library_path().name} (cuobjdump -sass)")
+    if imma == 0:
+        raise SystemExit("K1's SASS holds no IMMA or HGMMA instruction")
 
     # 3. K1 against its plain version
     rng = np.random.default_rng(20)
@@ -1864,6 +2060,7 @@ def main() -> int:
     log(f"main path tables: {tables.num_entries} entries x {tables.rule_width} rule slots")
     clf = TorchClassifier()
     clf.load_tables(tables)
+    log(f"main path K1 layout: {k1_groups(dense, clf._active.dev)}")
     batch = testing.random_batch_fast(np.random.default_rng(8), tables, HEADLINE_PACKETS)
 
     for k in kernels:
@@ -1892,7 +2089,9 @@ def main() -> int:
 
     # 5. timings at the headline shape
     B, Tp, R = fields.shape[0], dt.entries.shape[0], dt.rules.shape[1]
-    k1_ms = cuda_ms(lambda: dense.dense_classify(fields, words, dt), reps=20)
+    k1_ms, lpm_ms = k1_split(tag, dense, fields, words, dt)
+    k1_dev = k1_device(tag, dense, fields, words, dt)
+    layout_ms = k1_layout_times(tag, dense, fields, words, dt, lpm_ms)
     plain_ms = cuda_ms(lambda: dense.dense_classify_plain(fields, words, dt), reps=3, warmup=1)
     bits = torch.randint(0, 2, (B, 160), dtype=torch.int8, device="cuda")
     mdt = torch.randint(-1, 2, (Tp, 160), dtype=torch.int8, device="cuda").t()  # column-major
@@ -1951,6 +2150,10 @@ def main() -> int:
         "bound_by": bound_by,
         "library_ms": None,
         "int_mm_stage1_ms": intmm_ms,
+        "lpm_only_ms": lpm_ms,
+        "device_ms": k1_dev,
+        "lpm_by_grouping_ms": layout_ms,
+        "imma_instructions": imma,
     }
 
     # 6. the trie path

@@ -96,7 +96,7 @@ class Kernel:
     def launch(self, *args) -> None:
         """Call the C entry point (which launches on the given stream and
         returns cudaGetLastError()); raise if it reports an error."""
-        rc = self._entry()(*args)
+        rc = (self._fn or self._entry())(*args)
         if rc != 0:
             raise RuntimeError(f"{self.name}: CUDA launch failed with error {rc}")
         self.launches += 1

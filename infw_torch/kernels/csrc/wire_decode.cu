@@ -11,37 +11,51 @@
 // What the TPU kernel does and why this one differs: the Pallas grid walks
 // 1024-value blocks IN ORDER on one core and carries the running total from
 // one block to the next in an SMEM scalar.  Blocks of a CUDA grid run in
-// parallel in no order, so nothing carries between them; this is a
-// reduce-then-scan in three launches on the caller's stream:
-//   1. scan_blocks: each block of 256 threads takes 1024 values (4 per
-//      thread, the Pallas block of 8 x 128), stages its bytes in shared
-//      memory with coalesced loads, combines them, scans within the thread,
-//      then across the block (__shfl_up_sync within warps, warp totals
-//      through shared memory), and writes the block-local inclusive scan
-//      and the block total;
-//   2. scan_totals: one block turns the block totals into exclusive
-//      prefixes in place, looping with a carry over 1024 totals at a time;
-//   3. add_offsets: every value of block b > 0 gets block b's prefix.
-// Steps 2 and 3 run only when there is more than one block.  uint32
-// arithmetic wraps by itself, as the encoder's 32-bit domain needs.
+// parallel in no order, so the carry needs a grid-wide step.  This kernel
+// is ONE cooperative launch of G co-resident blocks (G = the occupancy
+// maximum x the SM count, queried once per device and width, capped by the
+// number of 4096-value chunks):
+//   1. block b takes a contiguous span of chunks; for each chunk it stages
+//      the bytes in shared memory with coalesced byte loads, combines them
+//      (4 values per thread of 1024), scans within the thread, then across the
+//      block (__shfl_up_sync within warps, warp totals through shared
+//      memory), and adds the running total of its earlier chunks; it stores
+//      every chunk but the last (which stays in registers) and writes the
+//      span's total to totals[b];
+//   2. cooperative_groups::this_grid().sync();
+//   3. block b sums totals[0..b) (at most G values, a few per thread, in a
+//      fixed order), adds that prefix to its stored chunks (re-read from L2)
+//      and to the chunk in registers, and stores.
+// At the main path's n = 2^20 every block holds one chunk, so every value is
+// read once and written once.  No flag words, no scratch that must be reset
+// between calls (totals[b] is written before the barrier that precedes every
+// read), deterministic.  uint32 arithmetic wraps by itself, as the encoder's
+// 32-bit domain needs.
 //
 // What bounds it on this card: bytes.  It must read n * fixed_w bytes and
-// write 4n; at n = 2^20 that is 5-8 MB, about 2 us at 3.35 TB/s, so the
-// three launches' latency dominates.  A single-pass scan with decoupled
-// look-back would need one launch; that is later work.
+// write 4n; at n = 2^20 that is 5-8 MB, 1.6-2.5 us at 3.35 TB/s; the grid
+// barrier and the launch are the rest.  Blocks of 1024 threads keep the grid
+// small (2^20 values in 256 blocks): every block arrives at the barrier
+// through one counter, so its cost grows with the block count.
 //
 // Section C starts at n_a + 2n bytes into the payload, in general not
-// 4-byte aligned: the kernel reads bytes and never casts `c` to a wider
-// type.  `out` and `block_tot` come from torch.empty (256-byte aligned).
+// 4-byte aligned: the kernel reads `c` byte by byte and never through a
+// wider type.  `out` and `totals` come from one torch.empty (out 256-byte
+// aligned, totals right after it).
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 1024;
 constexpr int kPerThread = 4;
-constexpr int kBlock = kThreads * kPerThread;  // values per block
+constexpr int kChunk = kThreads * kPerThread;  // values per chunk
 constexpr int kWarps = kThreads / 32;
+constexpr int kMaxGrid = 1024;  // the totals scratch the wrapper allocates
+constexpr int kMaxDevices = 64;
 
 // Inclusive scan of `v` over the block's threads (in thread order); sets
 // `total` to the block's sum.  Every thread of the block must call it.
@@ -74,98 +88,139 @@ __device__ __forceinline__ uint32_t block_scan(uint32_t v, uint32_t* warp_sums,
 
 template <int W>
 __global__ void __launch_bounds__(kThreads)
-scan_blocks(const uint8_t* __restrict__ c, uint32_t* __restrict__ out,
-            uint32_t* __restrict__ block_tot, int n) {
-  __shared__ uint8_t bytes[kBlock * W];
+decode_scan_kernel(const uint8_t* __restrict__ c, uint32_t* __restrict__ out,
+                   uint32_t* totals, long long n, long long span) {
+  __shared__ __align__(16) uint8_t bytes[kChunk * W];
   __shared__ uint32_t warp_sums[kWarps];
-  const int base = blockIdx.x * kBlock;
-  const int nb = min(kBlock, n - base) * W;  // this block's bytes
-  const uint8_t* src = c + (size_t)base * W;
-  for (int j = threadIdx.x; j < kBlock * W; j += kThreads) bytes[j] = j < nb ? src[j] : 0;
-  __syncthreads();
+  const long long first = (long long)blockIdx.x * span;
+  const long long end = min(n, first + span);
+  const long long last = end - 1 - (end - 1 - first) % kChunk;  // the last chunk's base
 
+  // 1. local scans; the last chunk stays in x
   uint32_t x[kPerThread];
-  uint32_t run = 0;
-#pragma unroll
-  for (int k = 0; k < kPerThread; ++k) {
-    const uint8_t* p = bytes + (threadIdx.x * kPerThread + k) * W;
-    uint32_t d = p[0];
-#pragma unroll
-    for (int b = 1; b < W; ++b) d |= (uint32_t)p[b] << (8 * b);
-    run += d;
-    x[k] = run;
-  }
-  uint32_t total;
-  const uint32_t before = block_scan(run, warp_sums, total) - run;
-  const int i0 = base + threadIdx.x * kPerThread;
-  if (i0 + kPerThread <= n) {
-    *reinterpret_cast<uint4*>(out + i0) =
-        make_uint4(x[0] + before, x[1] + before, x[2] + before, x[3] + before);
-  } else {
-    for (int k = 0; k < kPerThread && i0 + k < n; ++k) out[i0 + k] = x[k] + before;
-  }
-  if (threadIdx.x == 0) block_tot[blockIdx.x] = total;
-}
-
-// block_tot[0..m) -> its exclusive prefix sums, in place, by one block.
-__global__ void __launch_bounds__(kThreads)
-scan_totals(uint32_t* __restrict__ block_tot, int m) {
-  __shared__ uint32_t warp_sums[kWarps];
-  uint32_t carry = 0;
-  for (int start = 0; start < m; start += kBlock) {
-    const int i0 = start + threadIdx.x * kPerThread;
-    uint32_t x[kPerThread];
+  uint32_t carry = 0;  // this block's earlier chunks
+  for (long long base = first; base < end; base += kChunk) {
+    const int nb = (int)min((long long)kChunk, end - base) * W;
+    const uint8_t* src = c + base * W;
+    __syncthreads();  // the previous chunk's bytes are consumed
+    for (int j = threadIdx.x; j < kChunk * W; j += kThreads) bytes[j] = j < nb ? src[j] : 0;
+    __syncthreads();
+    // this thread's kPerThread * W bytes: W aligned words of shared memory,
+    // read as one vector
+    uint32_t wd[W];
+    if constexpr (W == 4) {
+      const uint4 v = reinterpret_cast<const uint4*>(bytes)[threadIdx.x];
+      wd[0] = v.x; wd[1] = v.y; wd[2] = v.z; wd[3] = v.w;
+    } else if constexpr (W == 2) {
+      const uint2 v = reinterpret_cast<const uint2*>(bytes)[threadIdx.x];
+      wd[0] = v.x; wd[1] = v.y;
+    } else {
+      wd[0] = reinterpret_cast<const uint32_t*>(bytes)[threadIdx.x];
+    }
     uint32_t run = 0;
 #pragma unroll
     for (int k = 0; k < kPerThread; ++k) {
-      x[k] = run;  // exclusive within the thread
-      run += i0 + k < m ? block_tot[i0 + k] : 0u;
+      uint32_t d;
+      if constexpr (W == 4) d = wd[k];
+      else if constexpr (W == 2) d = (wd[k >> 1] >> (16 * (k & 1))) & 0xFFFFu;
+      else d = (wd[0] >> (8 * k)) & 0xFFu;
+      run += d;
+      x[k] = run;
     }
     uint32_t total;
-    const uint32_t before = block_scan(run, warp_sums, total) - run;
+    const uint32_t before = block_scan(run, warp_sums, total) - run + carry;
 #pragma unroll
-    for (int k = 0; k < kPerThread; ++k)
-      if (i0 + k < m) block_tot[i0 + k] = carry + before + x[k];
+    for (int k = 0; k < kPerThread; ++k) x[k] += before;
     carry += total;
+    if (base != last) {  // stored now, re-read after the barrier
+      const long long i0 = base + threadIdx.x * kPerThread;  // a full chunk
+      *reinterpret_cast<uint4*>(out + i0) = make_uint4(x[0], x[1], x[2], x[3]);
+    }
+  }
+  if (threadIdx.x == 0) totals[blockIdx.x] = carry;
+
+  // 2. every span's total is written
+  cg::this_grid().sync();
+
+  // 3. this block's prefix: totals[0..b), summed in a fixed order
+  uint32_t s = 0;
+  for (int j = threadIdx.x; j < (int)blockIdx.x; j += kThreads) s += __ldcg(totals + j);
+  uint32_t prefix;
+  block_scan(s, warp_sums, prefix);
+  for (long long base = first; base < last; base += kChunk) {
+    uint4* p = reinterpret_cast<uint4*>(out + base + threadIdx.x * kPerThread);
+    uint4 v = *p;
+    v.x += prefix; v.y += prefix; v.z += prefix; v.w += prefix;
+    *p = v;
+  }
+  const long long i0 = last + threadIdx.x * kPerThread;
+  if (i0 + kPerThread <= end) {
+    *reinterpret_cast<uint4*>(out + i0) =
+        make_uint4(x[0] + prefix, x[1] + prefix, x[2] + prefix, x[3] + prefix);
+  } else {
+    for (int k = 0; k < kPerThread && i0 + k < end; ++k) out[i0 + k] = x[k] + prefix;
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-add_offsets(uint32_t* __restrict__ out, const uint32_t* __restrict__ block_excl, int n) {
-  const int b = blockIdx.x + 1;  // block 0's prefix is 0
-  const uint32_t off = block_excl[b];
-  const int base = b * kBlock;
-#pragma unroll
-  for (int k = 0; k < kPerThread; ++k) {
-    const int i = base + k * kThreads + threadIdx.x;
-    if (i < n) out[i] += off;
+// Co-resident blocks of decode_scan_kernel<W> on `device`: the occupancy
+// maximum per SM times the SM count, queried once.
+template <int W>
+int max_grid(int device, cudaError_t* err) {
+  static int cached[kMaxDevices];
+  if (device < 0 || device >= kMaxDevices) {
+    *err = cudaErrorInvalidDevice;
+    return 0;
   }
+  if (cached[device] == 0) {
+    int sms = 0, per_sm = 0;
+    *err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    if (*err == cudaSuccess)
+      *err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, decode_scan_kernel<W>,
+                                                           kThreads, 0);
+    if (*err != cudaSuccess) return 0;
+    cached[device] = sms * per_sm < kMaxGrid ? sms * per_sm : kMaxGrid;
+  }
+  return cached[device];
+}
+
+template <int W>
+cudaError_t launch(const uint8_t* c, uint32_t* out, uint32_t* totals, long long n,
+                   cudaStream_t stream) {
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  const int g_max = max_grid<W>(device, &err);
+  if (err != cudaSuccess) return err;
+  if (g_max <= 0) return cudaErrorCooperativeLaunchTooLarge;
+  const long long chunks = (n + kChunk - 1) / kChunk;
+  const long long per_block = (chunks + g_max - 1) / g_max;
+  long long span = per_block * kChunk;
+  int grid = (int)((n + span - 1) / span);
+  void* args[] = {(void*)&c, (void*)&out, (void*)&totals, (void*)&n, (void*)&span};
+  return cudaLaunchCooperativeKernel((const void*)decode_scan_kernel<W>, dim3(grid),
+                                     dim3(kThreads), args, 0, stream);
 }
 
 }  // namespace
 
-// Launches on `stream` and returns cudaGetLastError(); allocates nothing.
-// c: at least n * fixed_w bytes, any alignment; out: n u32; block_tot:
-// ceil(n / 1024) u32 of scratch; 0 < n and n * fixed_w < 2^31 (the Python
-// wrapper checks them).
-extern "C" int infw_decode_scan(const void* c, void* out, void* block_tot, int n, int fixed_w,
-                                void* stream) {
-  if (n > 0) {
-    const cudaStream_t s = (cudaStream_t)stream;
-    const int blocks = (n + kBlock - 1) / kBlock;
-    const uint8_t* cb = (const uint8_t*)c;
-    uint32_t* o = (uint32_t*)out;
-    uint32_t* t = (uint32_t*)block_tot;
-    switch (fixed_w) {
-      case 1: scan_blocks<1><<<blocks, kThreads, 0, s>>>(cb, o, t, n); break;
-      case 2: scan_blocks<2><<<blocks, kThreads, 0, s>>>(cb, o, t, n); break;
-      case 4: scan_blocks<4><<<blocks, kThreads, 0, s>>>(cb, o, t, n); break;
-      default: return (int)cudaErrorInvalidValue;
-    }
-    if (blocks > 1) {
-      scan_totals<<<1, kThreads, 0, s>>>(t, blocks);
-      add_offsets<<<blocks - 1, kThreads, 0, s>>>(o, t, n);
-    }
+// One cooperative launch on `stream`; returns its error (or
+// cudaGetLastError()), e.g. cudaErrorCooperativeLaunchTooLarge when the grid
+// cannot be co-resident.  Allocates nothing.  c: at least n * fixed_w bytes,
+// any alignment; out: n u32 followed by min(ceil(n / 4096), 1024) u32 of
+// scratch; 0 < n and n * fixed_w < 2^31 (the Python wrapper checks them).
+extern "C" int infw_decode_scan(const void* c, void* out, int n, int fixed_w, void* stream) {
+  if (n <= 0) return (int)cudaGetLastError();
+  const uint8_t* cb = (const uint8_t*)c;
+  uint32_t* o = (uint32_t*)out;
+  uint32_t* totals = o + n;
+  const cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t err;
+  switch (fixed_w) {
+    case 1: err = launch<1>(cb, o, totals, n, s); break;
+    case 2: err = launch<2>(cb, o, totals, n, s); break;
+    case 4: err = launch<4>(cb, o, totals, n, s); break;
+    default: return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
+  const cudaError_t last = cudaGetLastError();
+  return (int)(err != cudaSuccess ? err : last);
 }

@@ -225,6 +225,8 @@ def rule_scan(rows: torch.Tensor, batch: DeviceBatch) -> torch.Tensor:
     hit = valid & ((proto_eq & ((is_transport & port_hit) | icmp_hit)) | (rproto == 0))
 
     R = rows.shape[1]
+    if R == 0:  # no rule slots: nothing hits
+        return torch.zeros(rows.shape[0], dtype=torch.int32, device=rows.device)
     idx = torch.arange(R, device=rows.device, dtype=torch.int32)[None, :]
     first = torch.where(hit, idx, R).min(dim=1).values
     any_hit = first < R

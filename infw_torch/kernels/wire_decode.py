@@ -43,13 +43,15 @@ from .walk import TrieTables, classify_walk_res16
 
 #: device payload buffers are padded to bucketed sizes, at least 256 bytes
 _PAYLOAD_BUCKET_MIN = 256
-#: values per block of K4 (256 threads x 4), the Pallas kernel's 8 x 128
-SCAN_BLOCK = 1024
+#: values per chunk of K4 (1024 threads x 4; the Pallas kernel's block is 8 x 128)
+SCAN_CHUNK = 4096
+#: most blocks of K4's cooperative grid (csrc/wire_decode.cu kMaxGrid)
+MAX_GRID = 1024
 
 KERNEL = _build.Kernel(
     "wire_decode",
     "infw_decode_scan",
-    [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p],
+    [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p],
 )
 
 
@@ -136,7 +138,9 @@ def decode_scan(c: torch.Tensor, n: int, fixed_w: int) -> torch.Tensor:
     -> (n,) int32, the inclusive prefix sum modulo 2^32 of the n
     little-endian deltas.  ``c`` may start at any byte offset.  A CPU tensor
     runs the plain version; a CUDA tensor launches the CUDA kernel (building
-    it on first use) or raises."""
+    it on first use), one cooperative launch, or raises.  Per call on the
+    card: one allocation (the output and the kernel's per-block totals), no
+    device switch when ``c`` lies on the current device."""
     if fixed_w not in (1, 2, 4):
         raise ValueError(f"decode_scan: fixed_w {fixed_w} not in (1, 2, 4)")
     if c.dim() != 1 or c.dtype != torch.uint8 or n < 0 or c.shape[0] < n * fixed_w:
@@ -144,22 +148,26 @@ def decode_scan(c: torch.Tensor, n: int, fixed_w: int) -> torch.Tensor:
             f"decode_scan: need a 1-D uint8 tensor of at least n * fixed_w = {n * fixed_w} "
             f"bytes, got {c.dtype} {tuple(c.shape)}"
         )
-    if c.device.type == "cpu":
+    dev = c.device
+    if dev.type == "cpu":
         return decode_scan_plain(c, n, fixed_w)
-    if c.device.type != "cuda":
-        raise ValueError(f"decode_scan: unsupported device {c.device}")
+    if dev.type != "cuda":
+        raise ValueError(f"decode_scan: unsupported device {dev}")
     if not c.is_contiguous():
         raise ValueError("decode_scan: the byte tensor must be contiguous")
     if n >= 2**31 // fixed_w:
         raise ValueError(f"decode_scan: n {n} too large for 32-bit byte offsets")
-    out = torch.empty(n, dtype=torch.int32, device=c.device)
     if n == 0:
-        return out
-    block_tot = torch.empty(-(-n // SCAN_BLOCK), dtype=torch.int32, device=c.device)
-    with torch.cuda.device(c.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        KERNEL.launch(c.data_ptr(), out.data_ptr(), block_tot.data_ptr(), n, fixed_w, stream)
-    return out
+        return torch.empty(0, dtype=torch.int32, device=dev)
+    # the output, then one total per block of the cooperative grid
+    buf = torch.empty(n + min(-(-n // SCAN_CHUNK), MAX_GRID), dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if dev.index == torch.cuda.current_device():
+        KERNEL.launch(c.data_ptr(), buf.data_ptr(), n, fixed_w, stream)
+    else:
+        with torch.cuda.device(dev):
+            KERNEL.launch(c.data_ptr(), buf.data_ptr(), n, fixed_w, stream)
+    return buf[:n]
 
 
 def decode_delta(payload: torch.Tensor, dict_vals: torch.Tensor, ifmap: torch.Tensor, *,

@@ -48,6 +48,90 @@ def test_k1_matches_plain(cuda, n_entries, width, n_packets):
     assert torch.equal(got.cpu(), cpu)
 
 
+def _k1_against_plain(dt, batch, device):
+    fields, words = torchpath.packet_fields(torchpath.device_batch(batch, device))
+    before = dense.KERNEL.launches
+    got = dense.dense_classify(fields, words, dt)
+    torch.cuda.synchronize()
+    assert dense.KERNEL.launches == before + 1
+    want = dense.dense_classify_plain(fields, words, dt)
+    assert torch.equal(got, want)
+    return got
+
+
+@pytest.mark.parametrize("rule_width", [0, 4, 100, 128])
+@pytest.mark.parametrize("n_entries", [128, 1000, 4096])
+def test_k1_tensor_cores_match_plain(cuda, n_entries, rule_width):
+    """K1 at batch sizes that are no multiple of its packet tile, at the
+    smallest, the headline and the largest table, and at rule widths 0
+    (LPM only) through 128."""
+    rng = np.random.default_rng(n_entries + rule_width)
+    tables = testing.random_tables_fast(rng, n_entries, ifindexes=(2, 3, 4),
+                                        width=max(rule_width, 2), v6_fraction=0.4)
+    dt = dense.build_dense_tables(tables, cuda)
+    dt = dt._replace(rules=dt.rules[:, :rule_width].contiguous())
+    for n_packets in (1, 17, 1000, (1 << 16) + 5):
+        got = _k1_against_plain(dt, testing.random_batch_fast(rng, tables, n_packets), cuda)
+    assert (got[:, 1] >= 0).sum() > n_packets // 4
+
+
+def test_k1_cap_zero_full_and_duplicate_rows(cuda):
+    """The IPv4 /32 cap for every kind, /0 and /128 entries, and two rows
+    with identical key, mask and length (the first index wins)."""
+    rows = np.zeros((4, 7), np.int32)
+    rows[1] = [1, 0, 0, 0, 0, 0, 2]
+    addr = bytes([203, 0, 113, 9])
+    content = {
+        compiler.LpmKey(32, 2, bytes(16)): rows,
+        compiler.LpmKey(32 + 24, 2, addr + bytes(12)): rows,
+        compiler.LpmKey(32 + 32, 2, addr + bytes(12)): rows,
+        compiler.LpmKey(32 + 48, 2, addr + bytes([0, 0]) + bytes(10)): rows,
+        compiler.LpmKey(32 + 128, 2, bytes.fromhex("20010db8000000000000000000000001")): rows,
+    }
+    tables = compiler.compile_tables_from_content(content, rule_width=4)
+    batch = testing.random_batch_fast(np.random.default_rng(4), tables, 3000)
+    batch.ip_words[::3] = [0xCB007109, 0, 0, 0]
+    batch.ifindex[::2] = 2
+    out = _k1_against_plain(dense.build_dense_tables(tables, cuda), batch, cuda)
+    assert set(tables.mask_len[out[:, 1][out[:, 1] >= 0].cpu().numpy()]) >= {0, 32, 48}
+
+    rng = np.random.default_rng(17)
+    dup = testing.random_tables(rng, 30, ifindexes=(2,), width=4)
+    for name in ("key_words", "mask_words", "mask_len", "rules"):
+        arr = getattr(dup, name)
+        arr[7] = arr[3]
+        arr[20] = arr[3]
+    batch = testing.random_batch_fast(rng, dup, 2000)
+    batch.ifindex[::2] = 2
+    batch.ip_words[::2] = dup.key_words[3, 1:5]
+    out = _k1_against_plain(dense.build_dense_tables(dup, cuda), batch, cuda)
+    assert (out[:, 1] == 3).any() and not np.isin(out[:, 1].cpu().numpy(), [7, 20]).any()
+
+
+def test_k1_many_ifindexes_folded_and_generic_groups(cuda):
+    """Forty ifindexes: the common ones fold, the rest and a rare ifindex
+    of four entries stay in the generic groups, where the ifindex word is
+    multiplied, so a packet on an unfolded ifindex must win over the
+    folded groups' maxima."""
+    rng = np.random.default_rng(40)
+    tables = testing.random_tables_fast(rng, 1500, ifindexes=tuple(range(2, 42)), width=4,
+                                        v6_fraction=0.5)
+    tables.key_words[:4, 0] = 77  # a rare ifindex of four entries
+    dt = dense.build_dense_tables(tables, cuda)
+    groups = dt.groups.numpy()
+    folded_ifx = groups[(groups[:, 1] & dense.FOLDED) != 0, 2]
+    assert len(folded_ifx) and 77 not in folded_ifx
+    assert ((groups[:, 1] & dense.FOLDED) == 0).any()
+    batch = testing.random_batch_fast(rng, tables, 3000)
+    batch.ifindex[:100] = 77
+    batch.ip_words[:100] = tables.key_words[np.arange(100) % 4, 1:5]
+    batch.kind[:100] = np.where(tables.mask_len[np.arange(100) % 4] > 32, 2, 1)
+    out = _k1_against_plain(dt, batch, cuda)[:, 1].cpu().numpy()
+    assert np.isin(out[:100], [0, 1, 2, 3]).all()
+    won = batch.ifindex[out >= 0]
+    assert np.isin(won, folded_ifx).any() and (~np.isin(won, folded_ifx)).sum() > 100
+
+
 def test_k1_empty_table_and_empty_batch(cuda):
     tables = compiler.compile_tables_from_content({}, rule_width=4)
     dt = dense.build_dense_tables(tables, cuda)
@@ -195,21 +279,47 @@ def test_ctrie_classifier_on_card_matches_trie_path_and_oracle(cuda):
     assert testing.stats_dict_from_array(out.stats_delta) == want.stats
 
 
+@pytest.mark.parametrize("offset", [0, 1])
 @pytest.mark.parametrize("fixed_w", [1, 2, 4])
-@pytest.mark.parametrize("n", [1, 1023, 1024, 1025, 5000, (1 << 20) + 7])
-def test_k4_matches_plain(cuda, fixed_w, n):
-    """K4 against its plain version, from an odd byte offset, on random
-    bytes (the width-4 sums wrap past 2^32), and on the CPU."""
+@pytest.mark.parametrize("n", [1, 1023, 1024, 1025, 5000, (1 << 20) + 7, (1 << 24) + 7])
+def test_k4_matches_plain(cuda, fixed_w, n, offset):
+    """K4 against its plain version, from an aligned and an odd byte offset,
+    on random bytes (the width-4 sums wrap past 2^32), and on the CPU; at
+    2^24 + 7 values every block of the grid scans more than one chunk."""
     rng = np.random.default_rng(fixed_w * 7 + n)
     buf = torch.from_numpy(rng.integers(0, 256, n * fixed_w + 5).astype(np.uint8)).to(cuda)
-    c = buf[3:]
-    assert c.data_ptr() % 2 == 1
+    c = buf[offset:]
+    assert c.data_ptr() % 2 == offset
     before = wire_decode.KERNEL.launches
     got = wire_decode.decode_scan(c, n, fixed_w)
     torch.cuda.synchronize()
     assert wire_decode.KERNEL.launches == before + 1
     assert torch.equal(got, wire_decode.decode_scan_plain(c, n, fixed_w))
     assert torch.equal(got.cpu(), wire_decode.decode_scan(c.cpu(), n, fixed_w))
+
+
+def test_k4_on_two_streams_at_once(cuda):
+    """Cooperative launches of K4 queued on two streams together: every
+    call's result exact."""
+    rng = np.random.default_rng(77)
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    inputs = [
+        torch.from_numpy(rng.integers(0, 256, n * w + 1).astype(np.uint8)).to(cuda)[1:]
+        for n, w in (((1 << 20) + 3, 4), ((1 << 22) + 9, 1))
+    ]
+    widths = (4, 1)
+    sizes = ((1 << 20) + 3, (1 << 22) + 9)
+    torch.cuda.synchronize()
+    outs = [[], []]
+    for _ in range(8):
+        for k in range(2):
+            with torch.cuda.stream(streams[k]):
+                outs[k].append(wire_decode.decode_scan(inputs[k], sizes[k], widths[k]))
+    torch.cuda.synchronize()
+    for k in range(2):
+        want = wire_decode.decode_scan_plain(inputs[k], sizes[k], widths[k])
+        for got in outs[k]:
+            assert torch.equal(got, want)
 
 
 def test_k4_rejects_bad_operands(cuda):
