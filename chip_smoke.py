@@ -1,7 +1,12 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch port (infw_torch) on one CUDA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent DIR]
+
+``--parent DIR`` names the root of another tree of this repository (for
+example a ``git archive`` of the parent commit, unpacked): its K2, K3 and
+K3b are built from its sources and, after their outputs are held equal
+to this tree's, timed beside them in turns on the same inputs.
 
 Drives the port's dense, trie and ctrie classify paths, its wire codecs and
 its multi-tenant arena on the card and fails (non-zero exit, no result line) on any error:
@@ -39,7 +44,11 @@ its multi-tenant arena on the card and fails (non-zero exit, no result line) on 
    4096-packet subsets classified again and on the first packets of each
    kind of the 2^20-packet runs, the statistics against a host recount; K2
    times per level count, its bound, the plain version's time, the
-   steered and unsteered end-to-end times and the stage split;
+   steered and unsteered end-to-end times and the stage split; per level
+   count the batch's depth line (walk.walk_depths: mean node rows per
+   packet, the mean of the maximum over consecutive 32-packet groups, the
+   histogram) and K2 on the batch permuted into order of depth (outputs
+   put back and held equal to the as-is run);
 7. the ctrie path at the JAX package's 10M-entry tier (bench.py
    bench_scale_10m: clean_columns_fast, 10,000,000 disjoint /24 and /48
    entries x 4 rule slots on ifindexes 2, 3, one Allow rule each, 2^19
@@ -52,7 +61,12 @@ its multi-tenant arena on the card and fails (non-zero exit, no result line) on 
    (K2) on the whole batch, a host recount of the statistics and the
    HashLpmOracle on 4096-packet subsets and the first packets of the run;
    K3 times on both tables, its bound, the plain version's time, the
-   device pass, end to end and the stage split;
+   device pass, end to end and the stage split; each table's depth line
+   (cwalk.walk_depths: skip steps) and K3 on its depth-sorted batch; then
+   K2 at every level count and K3 against their plain versions on the
+   depth-adversarial batches (testing.depth_adversarial: all deep, deep
+   and root-only alternating, one deep per 32, all root-only; the known
+   depths checked), with their depth lines and times;
 8. the wire codecs (the JAX package's default for a 4-word chunk on the
    trie and ctrie paths): kernel K4 against its plain version, exact, at
    widths 1, 2, 4 and n around its 1024-value block and 2^20, from aligned
@@ -89,10 +103,16 @@ its multi-tenant arena on the card and fails (non-zero exit, no result line) on 
 11. the gather microbenchmark's kernel K5 and its tool;
 12. one JSON ``kernels`` line, then the device JSON as the last line.
 
+With ``--parent``, K2 (as is and depth-sorted, every level count), K3
+(tables A and B, as is and depth-sorted; the adversarial batches) and K3b
+are also run from the other tree's build on the same operands, held
+equal, and timed in turns with this tree's (parent, this, this, parent).
+
 Imports nothing of JAX or of the JAX package ``infw``.
 """
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import json
 import os
@@ -112,6 +132,8 @@ TRIE_ENTRIES, TRIE_WIDTH, TRIE_PACKETS = 100_000, 8, 1 << 20
 # the JAX package's 10M-entry tier (bench.py bench_scale_10m)
 CTRIE_ENTRIES, CTRIE_WIDTH, CTRIE_PACKETS = 10_000_000, 4, 1 << 19
 ORACLE_PACKETS = 4096
+# packets of each depth-adversarial batch (testing.depth_adversarial)
+DEPTH_PACKETS = 1 << 18
 # K4 against its plain version: sizes around its 1024-value block and the
 # main path's 2^20 (timed there), each at byte offsets 0 and 1
 K4_SIZES = (1, 1023, 1024, 1025, 1 << 20, (1 << 20) + 7)
@@ -127,6 +149,63 @@ CHURN_ENTRIES, CHURN_WIDTH, CHURN_PACKETS, CHURN_OVERLAY = 1_000_000, 4, 1 << 19
 # Published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, dense int8 ops/s.
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1.979e15
+
+
+#: --parent's kernels by name (K2, K3, K3b), built from its sources; empty
+#: without --parent
+PARENT_KERNELS: dict = {}
+
+
+def parent_kernels(root: str) -> dict:
+    """K2, K3 and K3b of the tree at ``root``, unbuilt, under this tree's
+    names and C signatures; a K2 entry point without the trailing grid cap
+    (``max_grid``, added with the lane-refilling walk) is bound without
+    it."""
+    from pathlib import Path
+
+    from infw_torch.kernels import _build, arena_walk, cwalk, walk
+
+    csrc = Path(root) / "infw_torch" / "kernels" / "csrc"
+    out = {}
+    for k in (walk.KERNEL, cwalk.KERNEL, arena_walk.KERNEL):
+        argtypes = k.argtypes
+        if k is walk.KERNEL and "int max_grid" not in (csrc / "trie_walk.cu").read_text():
+            argtypes = argtypes[:-2] + argtypes[-1:]
+        out[k.name] = _build.Kernel(k.name, k.symbol, argtypes, csrc=csrc)
+    return out
+
+
+def parent_run(name: str, kernel_args):
+    """A call of --parent's kernel ``name`` on the operands of this tree's
+    ``kernel_args`` (its own launch count; a grid cap of 0 where the
+    parent's entry point takes one)."""
+    import torch
+
+    kernel = PARENT_KERNELS[name]
+
+    def run():
+        out, args = kernel_args()
+        cap = (0,) * (len(kernel.argtypes) - len(args) - 1)
+        kernel.launch(*args, *cap, torch.cuda.current_stream().cuda_stream)
+        return out
+
+    return run
+
+
+def parent_turns(tag: str, label: str, this_fn, parent_fn) -> dict:
+    """--parent's kernel against this tree's on the same inputs: outputs
+    equal, then CUDA-event times in turns (parent, this, this, parent).
+    Returns {"ms": this tree's mean, "parent_ms": the parent's}."""
+    import torch
+
+    a, b = parent_fn(), this_fn()
+    torch.cuda.synchronize()
+    if not torch.equal(a, b):
+        raise SystemExit(f"--parent's kernel disagrees with this tree's [{label}]")
+    p1, t1, t2, p2 = (cuda_ms(fn, reps=20) for fn in (parent_fn, this_fn, this_fn, parent_fn))
+    log(f"{tag} parent vs this tree [{label}], in turns: parent {p1:.4f}, {p2:.4f} ms; this "
+        f"{t1:.4f}, {t2:.4f} ms; this / parent {(t1 + t2) / (p1 + p2):.3f}")
+    return {"ms": (t1 + t2) / 2, "parent_ms": (p1 + p2) / 2}
 
 
 def log(msg: str) -> None:
@@ -573,6 +652,20 @@ def trie_phase(tag: str):
     B = len(batch)
     k2_ms = {nl: cuda_ms(lambda nl=nl: walk.trie_walk_classify(fields, words, tt, nl), reps=20)
              for nl in level_counts}
+    # the walk depths, and K2 on the batch in order of depth at each level count
+    depths, k2_sorted_ms, k2_parent = {}, {}, {}
+    for nl in level_counts:
+        d = walk.walk_depths(fields, words, tt, nl)
+        depths[nl] = depth_line(tag, f"K2, trie 100K, {nl} levels", d)
+        k2_sorted_ms[nl], fs, ws = depth_sorted(
+            lambda f, w, nl=nl: walk.trie_walk_classify(f, w, tt, nl), fields, words, d,
+            f"K2, {nl} levels")
+        if PARENT_KERNELS:  # as is, then depth-sorted
+            k2_parent[nl] = [parent_turns(
+                tag, f"K2, trie 100K, {nl} levels, {form}",
+                lambda f=f, w=w, nl=nl: walk.trie_walk_classify(f, w, tt, nl),
+                parent_run("trie_walk", lambda f=f, w=w, nl=nl: walk.kernel_args(f, w, tt, nl)))
+                for form, f, w in (("as is", fields, words), ("depth-sorted", fs, ws))]
     plain_ms = cuda_ms(lambda: walk.trie_walk_classify_plain(fields, words, tt, n), reps=3,
                        warmup=1)
     steered_s = median_s(lambda: steered_classify(clf, batch))
@@ -612,7 +705,8 @@ def trie_phase(tag: str):
     bound_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
     for nl in level_counts:
         log(f"{tag} K2 trie_walk [{nl} levels]: {k2_ms[nl]:.4f} ms at B={B} "
-            f"({B / k2_ms[nl] / 1e3:.1f} M packets/s; {nl + 3} dependent loads per packet)")
+            f"({B / k2_ms[nl] / 1e3:.1f} M packets/s); depth-sorted batch "
+            f"{k2_sorted_ms[nl]:.4f} ms ({k2_sorted_ms[nl] / k2_ms[nl]:.3f}x)")
     log(f"{tag} K2 bound: {bound_ms:.4f} ms by bytes ({bytes_moved / 1e6:.1f} MB: "
         f"{B * 56 / 1e6:.1f} MB in/out + {sum(touched.values()) / 1e6:.1f} MB of the "
         f"{table_bytes / 1e6:.1f} MB of tables touched at {n} levels, in MB: "
@@ -641,11 +735,72 @@ def trie_phase(tag: str):
         "max_abs_err": err,
         "ms": k2_ms[n],
         "ms_by_levels": {str(nl): k2_ms[nl] for nl in level_counts},
+        "ms_depth_sorted_by_levels": {str(nl): k2_sorted_ms[nl] for nl in level_counts},
+        "parent_in_turns_by_levels": {str(nl): v for nl, v in k2_parent.items()},
+        "depth_by_levels": {str(nl): {k: v for k, v in depths[nl].items() if k != "hist"}
+                            for nl in level_counts},
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
         "bound_by": "bytes",
         "library_ms": None,
     }, tables, batch
+
+
+def depth_phase(tag: str):
+    """K2 (at every level count) and K3 against their plain versions on the
+    depth-adversarial batches (testing.depth_adversarial: a /128 chain per
+    ifindex; every packet deep, deep and root-only alternating, one deep
+    packet per 32, every packet leaving at the root), with each batch's
+    depth line, the known depths checked, and K2 (all levels) and K3
+    timed.  Returns {pattern: ms} for K2 and for K3."""
+    import torch
+
+    from infw_torch import testing
+    from infw_torch.kernels import cwalk, torchpath, walk
+
+    k2_ms, k3_ms = {}, {}
+    for n, pattern in enumerate(testing.DEPTH_PATTERNS):
+        tables, batch, deep = testing.depth_adversarial(np.random.default_rng(808 + n),
+                                                        DEPTH_PACKETS, pattern)
+        tt = walk.build_trie_tables(tables, "cuda", pad=True)
+        ct = cwalk.build_ctrie_tables(tables, "cuda", pad=True)
+        fields, words = torchpath.packet_fields(torchpath.device_batch(batch, "cuda"))
+        deep_t = torch.from_numpy(deep).to("cuda")
+        for nl in range(1, tt.n_levels + 1):
+            d = walk.walk_depths(fields, words, tt, nl)
+            if not torch.equal(d, torch.where(deep_t, min(nl - 1, testing.DEEP_ROWS), 0)
+                               .to(torch.int32)):
+                raise SystemExit(f"K2 depths of {pattern} at {nl} levels are not the known ones")
+            got = walk.trie_walk_classify(fields, words, tt, nl)
+            want = walk.trie_walk_classify_plain(fields, words, tt, nl)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise SystemExit(f"K2 disagrees with its plain version on {pattern} at {nl} levels")
+        d3 = cwalk.walk_depths(fields, words, ct)
+        if not torch.equal(d3, torch.where(deep_t, testing.DEEP_ROWS, 0).to(torch.int32)):
+            raise SystemExit(f"K3 depths of {pattern} are not the known ones")
+        got = cwalk.ctrie_walk_classify(fields, words, ct)
+        want = cwalk.ctrie_walk_classify_plain(fields, words, ct)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise SystemExit(f"K3 disagrees with its plain version on {pattern}")
+        depth_line(tag, f"{pattern}, K2 at {tt.n_levels} levels and K3",
+                   walk.walk_depths(fields, words, tt, tt.n_levels))
+        k2_ms[pattern] = cuda_ms(lambda: walk.trie_walk_classify(fields, words, tt, tt.n_levels),
+                                 reps=20)
+        k3_ms[pattern] = cuda_ms(lambda: cwalk.ctrie_walk_classify(fields, words, ct), reps=20)
+        if PARENT_KERNELS:
+            nl = tt.n_levels
+            parent_turns(tag, f"K2, {pattern}, {nl} levels",
+                         lambda: walk.trie_walk_classify(fields, words, tt, nl),
+                         parent_run("trie_walk", lambda: walk.kernel_args(fields, words, tt, nl)))
+            parent_turns(tag, f"K3, {pattern}", lambda: cwalk.ctrie_walk_classify(fields, words, ct),
+                         parent_run("ctrie_walk", lambda: cwalk.kernel_args(fields, words, ct)))
+        log(f"{tag} depth-adversarial [{pattern}, {tables.num_entries} entries, B={len(batch)}, "
+            f"{int(deep.sum())} deep]: K2 equal to its plain version at 1-{tt.n_levels} levels, "
+            f"K3 equal (d_max {ct.d_max}); K2 [{tt.n_levels} levels] {k2_ms[pattern]:.4f} ms, "
+            f"K3 {k3_ms[pattern]:.4f} ms")
+    return k2_ms, k3_ms
 
 
 def peak_rss_gib() -> float:
@@ -725,6 +880,41 @@ def k3_footprint(cwalk, torchpath, ct, fields, words) -> dict:
 
 def footprint_text(parts: dict) -> str:
     return ", ".join(f"{k} {v / 1e6:.3f}" for k, v in parts.items())
+
+
+def depth_line(tag: str, label: str, depths) -> dict:
+    """Print and return the walk depths of a batch: the mean node rows (K2)
+    or skip steps (K3) per packet, the mean over consecutive 32-packet
+    groups (one warp's packets in the one-thread-per-packet kernels) of
+    their maximum, and the histogram."""
+    import torch
+
+    d = depths.to(torch.int64)
+    groups = torch.nn.functional.pad(d, (0, -d.numel() % 32)).view(-1, 32)
+    out = {"mean": d.float().mean().item(),
+           "warp_max_mean": groups.max(dim=1).values.float().mean().item(),
+           "hist": torch.bincount(d).tolist()}
+    log(f"{tag} depth [{label}]: mean {out['mean']:.4f} rows per packet, mean of the 32-packet "
+        f"group maximum {out['warp_max_mean']:.4f}, histogram {out['hist']}")
+    return out
+
+
+def depth_sorted(run, fields, words, depths, label: str):
+    """``run(fields, words)`` on the batch permuted into order of walk
+    depth: its outputs, put back in batch order, must equal the as-is
+    run's.  Returns (its CUDA-event time, the permutation not timed; the
+    permuted fields and words)."""
+    import torch
+
+    order = torch.argsort(depths, stable=True)
+    fs, ws = fields[order].contiguous(), words[order].contiguous()
+    back = torch.empty_like(run(fs, ws))
+    back[order] = run(fs, ws)
+    want = run(fields, words)
+    torch.cuda.synchronize()
+    if not torch.equal(back, want):
+        raise SystemExit(f"the depth-sorted run disagrees with the as-is run [{label}]")
+    return cuda_ms(lambda: run(fs, ws), reps=20), fs, ws
 
 
 def compare_k3(cwalk, ct, fields, words, label: str) -> int:
@@ -879,6 +1069,20 @@ def ctrie_phase(tag: str, trie_tables, trie_batch):
     B = len(batch)
     k3_ms = cuda_ms(lambda: cwalk.ctrie_walk_classify(fields, words, ct), reps=20)
     k3_b_ms = cuda_ms(lambda: cwalk.ctrie_walk_classify(fields_b, words_b, ct_b), reps=20)
+    # the skip steps per packet, and K3 on each batch in order of depth
+    k3_depth, k3_sorted_ms, k3_parent = {}, {}, {}
+    for key, label, ct_, f_, w_ in (("A", label_a, ct, fields, words),
+                                    ("B", label_b, ct_b, fields_b, words_b)):
+        d = cwalk.walk_depths(f_, w_, ct_)
+        k3_depth[key] = depth_line(tag, f"K3, {label}", d)
+        k3_sorted_ms[key], fs, ws = depth_sorted(
+            lambda f, w, ct_=ct_: cwalk.ctrie_walk_classify(f, w, ct_), f_, w_, d, f"K3, {label}")
+        if PARENT_KERNELS:  # as is, then depth-sorted
+            k3_parent[key] = [parent_turns(
+                tag, f"K3, {label}, {form}",
+                lambda f=f, w=w, ct_=ct_: cwalk.ctrie_walk_classify(f, w, ct_),
+                parent_run("ctrie_walk", lambda f=f, w=w, ct_=ct_: cwalk.kernel_args(f, w, ct_)))
+                for form, f, w in (("as is", f_, w_), ("depth-sorted", fs, ws))]
     # where table A's chains are served from: the same table, the same
     # packet count, but the first 4096 packets repeated, so the rows the
     # walks read (a few MB) stay in the 50 MB L2 after their first reads
@@ -920,7 +1124,9 @@ def ctrie_phase(tag: str, trie_tables, trie_batch):
         (label_b, k3_b_ms, bound_b_ms, io_b, touched_b, ct_b, fields_b.shape[0]),
     ):
         tb = sum(t.numel() * t.element_size() for t in ct_[:5])
-        log(f"{tag} K3 ctrie_walk [{label}]: {ms:.4f} ms at B={n} ({n / ms / 1e3:.1f} M packets/s)")
+        key = "A" if ct_ is ct else "B"
+        log(f"{tag} K3 ctrie_walk [{label}]: {ms:.4f} ms at B={n} ({n / ms / 1e3:.1f} M packets/s); "
+            f"depth-sorted batch {k3_sorted_ms[key]:.4f} ms ({k3_sorted_ms[key] / ms:.3f}x)")
         log(f"{tag} K3 bound [{label}]: {bms:.4f} ms by bytes = ({io / 1e6:.1f} MB in/out + "
             f"{sum(touched.values()) / 1e6:.1f} MB of the {tb / 1e6:.1f} MB of tables touched, "
             f"in MB: {footprint_text(touched)}) / 3.35 TB/s; K3 is {ms / bms:.1f}x its bound")
@@ -948,6 +1154,11 @@ def ctrie_phase(tag: str, trie_tables, trie_batch):
         "ms": k3_ms,
         "ms_table_b": k3_b_ms,
         "ms_first_4096_repeated": k3_hot_ms,
+        "ms_depth_sorted": k3_sorted_ms["A"],
+        "ms_depth_sorted_table_b": k3_sorted_ms["B"],
+        "depth": {k: v for k, v in k3_depth["A"].items() if k != "hist"},
+        "depth_table_b": {k: v for k, v in k3_depth["B"].items() if k != "hist"},
+        "parent_in_turns": k3_parent,
         "plain_ms": plain_ms,
         "plain_ms_table_b": plain_b_ms,
         "bound_ms": bound_ms,
@@ -1442,6 +1653,12 @@ def arena_phase(tag: str) -> dict:
     # sequential per-tenant dispatch, the stage split, the footprint
     k3b_ms = cuda_ms(lambda: arena_walk.arena_ctrie_walk_classify(fields, words, tt, pool, **kw),
                      reps=20)
+    k3b_parent = parent_turns(
+        tag, f"K3b, {ARENA_TENANTS} tenants",
+        lambda: arena_walk.arena_ctrie_walk_classify(fields, words, tt, pool, **kw),
+        parent_run("arena_ctrie_walk",
+                   lambda: arena_walk.kernel_args(fields, words, tt, pool, **kw)),
+    ) if PARENT_KERNELS else None
     device_us = profiled_kernels(
         lambda: arena_walk.arena_ctrie_walk_classify(fields, words, tt, pool, **kw), reps=10)
     plain_ms = cuda_ms(lambda: arena_walk.arena_ctrie_walk_classify_plain(
@@ -1630,6 +1847,7 @@ def arena_phase(tag: str) -> dict:
         "mismatches": 0,
         "max_abs_err": err,
         "ms": k3b_ms,
+        "parent_in_turns": k3b_parent,
         "device_ms": sum(device_us.values()) / 1e3 if device_us else None,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
@@ -1990,6 +2208,11 @@ def gather_phase(tag: str) -> dict:
 def main() -> int:
     import torch
 
+    parser = argparse.ArgumentParser(description="Chip smoke test of infw_torch on one card.")
+    parser.add_argument("--parent", metavar="DIR",
+                        help="another tree of this repository whose K2, K3 and K3b are timed "
+                             "beside this tree's")
+    opts = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -2010,9 +2233,14 @@ def main() -> int:
     # 2. build: one nvcc per source, all at once
     t0 = time.perf_counter()
     kernels = all_kernels()
-    with ThreadPoolExecutor(len(kernels)) as pool:
-        list(pool.map(lambda k: k.build(), kernels))
-    log(f"build: {len(kernels)} kernel(s) in {time.perf_counter() - t0:.2f} s")
+    if opts.parent:
+        PARENT_KERNELS.update(parent_kernels(opts.parent))
+    builds = kernels + list(PARENT_KERNELS.values())
+    with ThreadPoolExecutor(len(builds)) as pool:
+        list(pool.map(lambda k: k.build(), builds))
+    log(f"build: {len(kernels)} kernel(s)"
+        + (f" and --parent's {len(builds) - len(kernels)}" if opts.parent else "")
+        + f" in {time.perf_counter() - t0:.2f} s")
     for k in kernels:
         for line in k.build_log().splitlines():
             if any(s in line for s in ("registers", "spill", "smem", "Compiling entry")):
@@ -2159,8 +2387,9 @@ def main() -> int:
     # 6. the trie path
     k2, trie_tables, trie_batch = trie_phase(tag)
 
-    # 7. the ctrie path
+    # 7. the ctrie path, then both walks on the depth-adversarial batches
     k3, ctrie_tables, ctrie_batch, hashed = ctrie_phase(tag, trie_tables, trie_batch)
+    k2["ms_depth_adversarial"], k3["ms_depth_adversarial"] = depth_phase(tag)
 
     # 8. the wire codecs on both paths' IPv4-compact chunks
     k4 = codec_phase(tag, [

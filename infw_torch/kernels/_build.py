@@ -39,22 +39,24 @@ def nvcc_path() -> str:
 
 
 class Kernel:
-    """One hand-written CUDA kernel: its source, its shared library, its C
+    """One hand-written CUDA kernel: its source (``csrc/<name>.cu``; another
+    tree's ``csrc`` builds that tree's version), its shared library, its C
     entry point, and ``launches``, the number of times a wrapper launched
     it (incremented in ``launch`` and nowhere else)."""
 
-    def __init__(self, name: str, symbol: str, argtypes: List) -> None:
+    def __init__(self, name: str, symbol: str, argtypes: List, csrc: Path = CSRC) -> None:
         self.name = name
         self.symbol = symbol
         self.argtypes = argtypes
-        self.source = CSRC / f"{name}.cu"
+        self.csrc = Path(csrc)
+        self.source = self.csrc / f"{name}.cu"
         self.launches = 0
         self._fn = None
         self._lock = threading.Lock()
 
     def library_path(self) -> Path:
         h = hashlib.sha256(self.source.read_bytes())
-        for header in sorted(CSRC.glob("*.cuh")):
+        for header in sorted(self.csrc.glob("*.cuh")):
             h.update(header.read_bytes())
         h.update(" ".join(NVCC_FLAGS).encode())
         return BUILD_DIR / f"{self.name}-{h.hexdigest()[:16]}.so"
@@ -73,7 +75,7 @@ class Kernel:
         if lib.exists():
             return
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+        tmp = lib.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
         cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(self.source)]
         proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         if proc.returncode != 0:

@@ -155,6 +155,25 @@ def _check_operands(fields, words, tenant, arena, pages: int, d_max: int) -> Non
                              "16-byte aligned")
 
 
+def kernel_args(fields: torch.Tensor, words: torch.Tensor, tenant: torch.Tensor, arena, *,
+                pages: int, d_max: int):
+    """K3b's operand checks for CUDA tensors: (out, the C entry point's
+    arguments before the stream), ``out`` a new (B, 2) int32 tensor the
+    kernel fills."""
+    _check_operands(fields, words, tenant, arena, pages, d_max)
+    B = fields.shape[0]
+    out = torch.empty((B, 2), dtype=torch.int32, device=fields.device)
+    return out, (
+        fields.data_ptr(), words.data_ptr(), tenant.data_ptr(), arena.page_table.data_ptr(),
+        arena.root_lut.data_ptr(), arena.l0.data_ptr(), arena.nodes.data_ptr(),
+        arena.targets.data_ptr(), arena.joined.data_ptr(), out.data_ptr(),
+        B, arena.page_table.shape[0], arena.root_lut.shape[0] // pages,
+        arena.l0.shape[0] // (pages * 65536), arena.root_lut.shape[0], arena.l0.shape[0],
+        arena.nodes.shape[0], arena.targets.shape[0], arena.joined.shape[0],
+        (arena.joined.shape[1] - 3) // 5, d_max,
+    )
+
+
 def arena_ctrie_walk_classify(fields: torch.Tensor, words: torch.Tensor, tenant: torch.Tensor,
                               arena, *, pages: int, d_max: int) -> torch.Tensor:
     """Kernel K3b: (B, 8) int32 fields + (B, 4) int32 words + (B,) int32
@@ -166,21 +185,9 @@ def arena_ctrie_walk_classify(fields: torch.Tensor, words: torch.Tensor, tenant:
                                                d_max=d_max)
     if fields.device.type != "cuda":
         raise ValueError(f"arena_ctrie_walk_classify: unsupported device {fields.device}")
-    _check_operands(fields, words, tenant, arena, pages, d_max)
-    B = fields.shape[0]
-    out = torch.empty((B, 2), dtype=torch.int32, device=fields.device)
+    out, args = kernel_args(fields, words, tenant, arena, pages=pages, d_max=d_max)
     with torch.cuda.device(fields.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        KERNEL.launch(
-            fields.data_ptr(), words.data_ptr(), tenant.data_ptr(), arena.page_table.data_ptr(),
-            arena.root_lut.data_ptr(), arena.l0.data_ptr(), arena.nodes.data_ptr(),
-            arena.targets.data_ptr(), arena.joined.data_ptr(), out.data_ptr(),
-            B, arena.page_table.shape[0], arena.root_lut.shape[0] // pages,
-            arena.l0.shape[0] // (pages * 65536), arena.root_lut.shape[0], arena.l0.shape[0],
-            arena.nodes.shape[0], arena.targets.shape[0], arena.joined.shape[0],
-            (arena.joined.shape[1] - 3) // 5, d_max,
-            stream,
-        )
+        KERNEL.launch(*args, torch.cuda.current_stream().cuda_stream)
     return out
 
 

@@ -30,7 +30,12 @@
 // joined rows (~0.5 GB) do not fit the 50 MB L2, so the chain goes to HBM;
 // the bytes it must move are 56 per packet plus the table rows the
 // batch's walks touch, each once.
-// Design: one thread per packet, 256 per block.
+// Design: one thread per packet, 256 per block.  A warp steps until the
+// deepest of its 32 packets is done, but K3's walks are shallow and even
+// (on the 100K table one skip step per packet on average, four for the
+// warp's deepest): the same kernel on the batch sorted by depth is at
+// best 10% faster, and the lane-refilling schedule K2 runs
+// (trie_walk.cu) costs more than that, so it is not used here.
 //
 // Layouts (built by infw_torch/kernels/cwalk.py:build_ctrie_tables; nodes,
 // targets and joined as in ctrie_walk.cuh, where the descent, the target

@@ -31,6 +31,7 @@ first hit.
 - ``ctrie_walk_classify_plain``: the same function in plain PyTorch
   (ctrie_walk_rows, joined_rule_rows, rule_scan), chunked over packets so
   it also runs at 2^20 packets on the card;
+- ``walk_depths``: the skip steps each packet's walk takes;
 - ``classify_ctrie`` / ``classify_ctrie_wire_fused``: the forward pass
   around the kernel (wire unpack, verdict, statistics, one-buffer output);
   ``classify_ctrie_res16`` / ``classify_ctrie_wire8``: the results-only
@@ -213,16 +214,23 @@ def ctrie_walk_classify_plain(fields: torch.Tensor, words: torch.Tensor,
     return out
 
 
-def ctrie_walk_classify(fields: torch.Tensor, words: torch.Tensor,
-                        ct: CTrieTables) -> torch.Tensor:
-    """Kernel K3: (B, 8) int32 fields + (B, 4) int32 words -> (B, 2) int32
-    [result, tidx or -1].  A CPU tensor runs the plain version; a CUDA
-    tensor launches the CUDA kernel (building it on first use) or
-    raises."""
-    if fields.device.type == "cpu":
-        return ctrie_walk_classify_plain(fields, words, ct)
-    if fields.device.type != "cuda":
-        raise ValueError(f"ctrie_walk_classify: unsupported device {fields.device}")
+def walk_depths(fields: torch.Tensor, words: torch.Tensor, ct: CTrieTables) -> torch.Tensor:
+    """(B,) int32: the skip-node rows K3 reads for each packet (its skip
+    steps, at most ``d_max``; 0 for a packet that leaves at the DIR-16
+    root), from the plain walk, on the tensors' device."""
+    rows = torch.zeros(fields.shape[0], dtype=torch.int64, device=fields.device)
+    for s in range(0, fields.shape[0], PLAIN_CHUNK):
+        e = s + PLAIN_CHUNK
+        ctrie_walk_rows(ct, batch_from_fields(fields[s:e], words[s:e]), ct.d_max,
+                        rows_read=rows[s:e])
+    return rows.to(torch.int32)
+
+
+def kernel_args(fields: torch.Tensor, words: torch.Tensor, ct: CTrieTables):
+    """K3's operand checks for CUDA tensors: (out, the C entry point's
+    arguments before the stream), ``out`` a new (B, 2) int32 tensor the
+    kernel fills.  Raises ValueError on operands that are not a
+    CTrieTables layout on one device."""
     B = fields.shape[0]
     if fields.shape != (B, 8) or words.shape != (B, 4):
         raise ValueError(
@@ -245,15 +253,27 @@ def ctrie_walk_classify(fields: torch.Tensor, words: torch.Tensor,
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError("ctrie_walk_classify: operands must be contiguous and 16-byte aligned")
     out = torch.empty((B, 2), dtype=torch.int32, device=fields.device)
+    return out, (
+        fields.data_ptr(), words.data_ptr(), ct.root_lut.data_ptr(), ct.l0.data_ptr(),
+        ct.nodes.data_ptr(), ct.targets.data_ptr(), ct.joined.data_ptr(), out.data_ptr(),
+        B, ct.root_lut.shape[0], ct.l0.shape[0], ct.nodes.shape[0], ct.targets.shape[0],
+        ct.joined.shape[0], (W - 3) // 5, ct.d_max,
+    )
+
+
+def ctrie_walk_classify(fields: torch.Tensor, words: torch.Tensor,
+                        ct: CTrieTables) -> torch.Tensor:
+    """Kernel K3: (B, 8) int32 fields + (B, 4) int32 words -> (B, 2) int32
+    [result, tidx or -1].  A CPU tensor runs the plain version; a CUDA
+    tensor launches the CUDA kernel (building it on first use) or
+    raises."""
+    if fields.device.type == "cpu":
+        return ctrie_walk_classify_plain(fields, words, ct)
+    if fields.device.type != "cuda":
+        raise ValueError(f"ctrie_walk_classify: unsupported device {fields.device}")
+    out, args = kernel_args(fields, words, ct)
     with torch.cuda.device(fields.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        KERNEL.launch(
-            fields.data_ptr(), words.data_ptr(), ct.root_lut.data_ptr(), ct.l0.data_ptr(),
-            ct.nodes.data_ptr(), ct.targets.data_ptr(), ct.joined.data_ptr(), out.data_ptr(),
-            B, ct.root_lut.shape[0], ct.l0.shape[0], ct.nodes.shape[0], ct.targets.shape[0],
-            ct.joined.shape[0], (W - 3) // 5, ct.d_max,
-            stream,
-        )
+        KERNEL.launch(*args, torch.cuda.current_stream().cuda_stream)
     return out
 
 

@@ -19,7 +19,7 @@ Integer conventions (PyTorch has no general uint32 arithmetic):
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -258,7 +258,7 @@ def _i32(x: torch.Tensor) -> torch.Tensor:
 
 
 def trie_walk(trie_levels, trie_targets: torch.Tensor, root_lut: torch.Tensor,
-              batch: DeviceBatch) -> torch.Tensor:
+              batch: DeviceBatch, rows_read: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Poptrie walk (layout.build_poptrie): the DIR-16 root level is one
     direct-indexed slot-row read; every deeper level reads one 18-word node
     row, and the child is child_base + rank(nib) over the child bitmap.  A
@@ -271,7 +271,9 @@ def trie_walk(trie_levels, trie_targets: torch.Tensor, root_lut: torch.Tensor,
     clipped gathers do: an out-of-range lane stops descending, so an
     ifindex outside ``root_lut`` reads root 0.  Targets at a level cover
     prefixes ending in (prev boundary, boundary]; the IPv4 packet-side cap
-    is the test ``bit_end <= cap`` (32 for IPv4, 128 for every other kind)."""
+    is the test ``bit_end <= cap`` (32 for IPv4, 128 for every other kind).
+    ``rows_read``, when given, a (B,) int64 tensor, gains the number of
+    deep node rows each packet's walk reads."""
     strides = trie_level_strides(len(trie_levels))
     lut_size = root_lut.shape[0]
     ifx = batch.ifindex.to(torch.int64)
@@ -296,6 +298,8 @@ def trie_walk(trie_levels, trie_targets: torch.Tensor, root_lut: torch.Tensor,
         nib = (words[:, bit_start // 32] >> (32 - stride - bit_start % 32)) & ((1 << stride) - 1)
         n_l = tbl.shape[0]
         alive = alive & (node >= 0) & (node < n_l)
+        if rows_read is not None:
+            rows_read += alive
         r = _u32(tbl[node.clamp(0, n_l - 1)])
         w = (nib >> 5)[:, None]
         bit = nib & 31
@@ -351,7 +355,8 @@ def extract_ip_bits(ip_words: torch.Tensor, pos: torch.Tensor, n) -> torch.Tenso
 
 
 def ctrie_descend(nodes: torch.Tensor, batch: DeviceBatch, node: torch.Tensor,
-                  alive: torch.Tensor, d_max: int) -> torch.Tensor:
+                  alive: torch.Tensor, d_max: int,
+                  rows_read: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``d_max`` skip-node steps over the merged node array
     (layout.build_cpoptrie; int32 bit patterns) from a resolved entry (node
     id + alive mask).  Each step checks the node's skip chain against the
@@ -360,7 +365,8 @@ def ctrie_descend(nodes: torch.Tensor, batch: DeviceBatch, node: torch.Tensor,
     the kind's cap (32 bits for IPv4, 128 for every other kind).  Returns
     the winning flat target position (int64, 0 = none).  uint32 sums run in
     int64 masked to 32 bits and are read back as int32, as the reference's
-    casts do."""
+    casts do.  ``rows_read``, when given, a (B,) int64 tensor, gains the
+    number of node rows each packet's descent reads (its skip steps)."""
     n_nodes = nodes.shape[0]
     node = node.to(torch.int64)
     pos = torch.full_like(node, 16)
@@ -369,6 +375,8 @@ def ctrie_descend(nodes: torch.Tensor, batch: DeviceBatch, node: torch.Tensor,
     win = torch.zeros_like(node)
     for _ in range(d_max):
         alive = alive & (node >= 0) & (node < n_nodes)
+        if rows_read is not None:
+            rows_read += alive
         r = _u32(nodes[node.clamp(0, n_nodes - 1)])
         skip_len = _i32(r[:, 2])
         skip_ok = torch.where(skip_len > 0,
@@ -392,13 +400,15 @@ def ctrie_descend(nodes: torch.Tensor, batch: DeviceBatch, node: torch.Tensor,
     return win
 
 
-def ctrie_walk_rows(ct, batch: DeviceBatch, d_max: int):
+def ctrie_walk_rows(ct, batch: DeviceBatch, d_max: int,
+                    rows_read: Optional[torch.Tensor] = None):
     """The compressed walk over ``ct`` (root_lut, l0, nodes, targets,
     joined; cwalk.CTrieTables): the DIR-16 root slot, then ctrie_descend,
     then the target resolve (the descent's target, else the root slot's).
     Returns ((B, 3 + 5R) int16 joined rows, all zero for packets without a
     match or past the table; (B,) int64 tidx + 1, 0 = none).  ``l0[:, 1]``
-    holds tidx + 1 here, not a position."""
+    holds tidx + 1 here, not a position.  ``rows_read`` as in
+    ctrie_descend."""
     lut_size = ct.root_lut.shape[0]
     ifx = batch.ifindex.to(torch.int64)
     if_ok = (ifx >= 0) & (ifx < lut_size)
@@ -410,7 +420,7 @@ def ctrie_walk_rows(ct, batch: DeviceBatch, d_max: int):
     best0 = torch.where(in0 & (rows0[:, 1] > 0), rows0[:, 1], 0)
     alive = in0 & (rows0[:, 0] > 0)
     node = torch.where(alive, rows0[:, 0] - 1, 0)
-    win = ctrie_descend(ct.nodes, batch, node, alive, d_max)
+    win = ctrie_descend(ct.nodes, batch, node, alive, d_max, rows_read)
     n_t = ct.targets.shape[0]
     in_w = (win >= 0) & (win < n_t)
     tval = torch.where(in_w, ct.targets[win.clamp(0, n_t - 1)].to(torch.int64), 0)

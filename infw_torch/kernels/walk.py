@@ -17,11 +17,15 @@ first hit.
   (jaxpath.patch_device_tables on K2's own layout): only the changed rows
   cross the link, and the result equals a fresh padded build bit for bit;
 - ``trie_walk_classify``: the wrapper of the hand-written CUDA kernel
-  ``csrc/trie_walk.cu`` (which replaces the Pallas ``_make_walk_kernel``).
+  ``csrc/trie_walk.cu`` (which replaces the Pallas ``_make_walk_kernel``;
+  a persistent walk whose warps refill the lanes of finished packets).
   On a CUDA tensor it launches the kernel or raises; on a CPU tensor it
   runs ``trie_walk_classify_plain``;
 - ``trie_walk_classify_plain``: the same function in plain PyTorch,
   chunked over packets so it also runs at 2^20 packets on the card;
+- ``walk_depths``: the node rows each packet's walk reads (with one
+  thread per packet a warp steps until its deepest packet is done: their
+  spread within 32 packets is what K2's lane refilling saves);
 - ``classify_walk`` / ``classify_walk_wire_fused``: the forward pass
   around the kernel (wire unpack, verdict, statistics, one-buffer output);
   ``classify_walk_res16`` / ``classify_wire8``: the results-only pass of
@@ -79,7 +83,7 @@ PLAIN_CHUNK = 1 << 16
 KERNEL = _build.Kernel(
     "trie_walk",
     "infw_trie_walk",
-    [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
+    [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [ctypes.c_void_p],
 )
 
 
@@ -343,17 +347,26 @@ def trie_walk_classify_plain(
     return out
 
 
-def trie_walk_classify(
-    fields: torch.Tensor, words: torch.Tensor, tt: TrieTables, n_levels: int
-) -> torch.Tensor:
-    """Kernel K2: (B, 8) int32 fields + (B, 4) int32 words -> (B, 2) int32
-    [result, tidx or -1] after walking ``n_levels`` levels.  A CPU tensor
-    runs the plain version; a CUDA tensor launches the CUDA kernel
-    (building it on first use) or raises."""
-    if fields.device.type == "cpu":
-        return trie_walk_classify_plain(fields, words, tt, n_levels)
-    if fields.device.type != "cuda":
-        raise ValueError(f"trie_walk_classify: unsupported device {fields.device}")
+def walk_depths(fields: torch.Tensor, words: torch.Tensor, tt: TrieTables,
+                n_levels: int) -> torch.Tensor:
+    """(B,) int32: the deep node rows K2 reads for each packet at
+    ``n_levels`` levels (0 for a packet that leaves at the DIR-16 root),
+    from the plain walk, on the tensors' device."""
+    _check_levels(tt, n_levels)
+    levels = tt.levels(n_levels)
+    rows = torch.zeros(fields.shape[0], dtype=torch.int64, device=fields.device)
+    for s in range(0, fields.shape[0], PLAIN_CHUNK):
+        e = s + PLAIN_CHUNK
+        trie_walk(levels, tt.targets, tt.root_lut, batch_from_fields(fields[s:e], words[s:e]),
+                  rows_read=rows[s:e])
+    return rows.to(torch.int32)
+
+
+def kernel_args(fields: torch.Tensor, words: torch.Tensor, tt: TrieTables, n_levels: int):
+    """K2's operand checks for CUDA tensors: (out, the C entry point's
+    arguments before the grid cap and the stream), ``out`` a new (B, 2)
+    int32 tensor the kernel fills.  Raises ValueError on operands that are
+    not a TrieTables layout on one device."""
     _check_levels(tt, n_levels)
     B = fields.shape[0]
     T, R = tt.rules.shape[0], tt.rules.shape[1]
@@ -376,15 +389,29 @@ def trie_walk_classify(
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError("trie_walk_classify: operands must be contiguous and 16-byte aligned")
     out = torch.empty((B, 2), dtype=torch.int32, device=fields.device)
+    return out, (
+        fields.data_ptr(), words.data_ptr(), tt.root_lut.data_ptr(), tt.l0.data_ptr(),
+        tt.deep.data_ptr(), tt.level_rows.data_ptr(), tt.targets.data_ptr(),
+        tt.rules.data_ptr(), out.data_ptr(),
+        B, tt.root_lut.shape[0], tt.l0.shape[0], tt.targets.shape[0], T, R, n_levels,
+    )
+
+
+def trie_walk_classify(
+    fields: torch.Tensor, words: torch.Tensor, tt: TrieTables, n_levels: int, *, _grid: int = 0
+) -> torch.Tensor:
+    """Kernel K2: (B, 8) int32 fields + (B, 4) int32 words -> (B, 2) int32
+    [result, tidx or -1] after walking ``n_levels`` levels.  A CPU tensor
+    runs the plain version; a CUDA tensor launches the CUDA kernel
+    (building it on first use) or raises.  ``_grid`` > 0 caps the
+    kernel's grid (tests only: every lane then refills many times)."""
+    if fields.device.type == "cpu":
+        return trie_walk_classify_plain(fields, words, tt, n_levels)
+    if fields.device.type != "cuda":
+        raise ValueError(f"trie_walk_classify: unsupported device {fields.device}")
+    out, args = kernel_args(fields, words, tt, n_levels)
     with torch.cuda.device(fields.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        KERNEL.launch(
-            fields.data_ptr(), words.data_ptr(), tt.root_lut.data_ptr(), tt.l0.data_ptr(),
-            tt.deep.data_ptr(), tt.level_rows.data_ptr(), tt.targets.data_ptr(),
-            tt.rules.data_ptr(), out.data_ptr(),
-            B, tt.root_lut.shape[0], tt.l0.shape[0], tt.targets.shape[0], T, R, n_levels,
-            stream,
-        )
+        KERNEL.launch(*args, _grid, torch.cuda.current_stream().cuda_stream)
     return out
 
 

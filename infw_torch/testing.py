@@ -341,6 +341,95 @@ def random_batch_fast(
     )
 
 
+#: the packet orders of depth_adversarial
+DEPTH_PATTERNS = ("full_depth", "alternating", "one_deep_per_32", "root_only")
+#: the node rows a deep packet of depth_adversarial reads on either walk
+#: (K2 at its 15 levels, K3 with d_max at least this)
+DEEP_ROWS = 14
+
+
+def depth_adversarial(
+    rng: np.random.Generator,
+    n_packets: int,
+    pattern: str,
+    ifindexes: Tuple[int, ...] = (2, 3, 4),
+    width: int = 8,
+    leaves: int = 16,
+) -> Tuple[CompiledTables, PacketBatch, np.ndarray]:
+    """A table and a batch that make the trie and ctrie walks diverge within
+    a warp, with every packet's walk depth known by construction.
+
+    Per ifindex, one IPv6 chain: an entry at every 8-bit boundary from /24
+    to /120 along one address and ``leaves`` /128 entries under the /120.
+    Every level below the DIR-16 root then holds a node with a target, so
+    no skip node compresses the chain, and a packet at a leaf reads
+    DEEP_ROWS node rows on both walks (K2 at 1 + d levels reads min(d,
+    DEEP_ROWS)).  Beside it one IPv4 /8 (10/8), whose DIR-16 slots hold a
+    target and no child.  Deep packets are IPv6 at a random leaf of their
+    ifindex's chain; root-only packets are IPv4 under 10/8 (a match at the
+    root) or under 11/8 (no entry), and leave at the DIR-16 slot having
+    read no node row.  Protocol, port and ICMP fields copy a random rule of
+    the entry the packet matches, 80% of the time.
+
+    ``pattern`` orders deep and root-only packets (DEPTH_PATTERNS):
+    "full_depth" every packet deep, "alternating" deep on even positions,
+    "one_deep_per_32" deep at every position divisible by 32, "root_only"
+    none deep.  Returns (tables, batch, deep), ``deep`` the (B,) bool mask
+    of the deep packets."""
+    if pattern not in DEPTH_PATTERNS:
+        raise ValueError(f"pattern {pattern!r} not in {DEPTH_PATTERNS}")
+    n_if = len(ifindexes)
+    chain_lens = list(range(24, 128, 8))
+    n_chain = len(chain_lens) + leaves
+    # per ifindex: the chain entries, the leaves, then the /8
+    per_if = n_chain + 1
+    rules = random_rules_bulk(rng, n_if * per_if, width)
+    content: Dict[LpmKey, np.ndarray] = {}
+    leaf_ip = np.zeros((n_if, leaves, 16), np.uint8)
+    for k, ifx in enumerate(ifindexes):
+        base = rng.integers(0, 256, 16, dtype=np.uint8)
+        base[0] = 0x20
+        keys = [(m, base) for m in chain_lens]
+        for j in range(leaves):
+            ip = base.copy()
+            ip[15] = j
+            leaf_ip[k, j] = ip
+            keys.append((128, ip))
+        keys.append((8, np.array([10] + [0] * 15, np.uint8)))
+        for e, (m, ip) in enumerate(keys):
+            content[LpmKey(prefix_len=m + 32, ingress_ifindex=int(ifx),
+                           ip_data=bytes(ip))] = rules[k * per_if + e]
+    tables = compile_tables_from_content(content, rule_width=width)
+
+    b = n_packets
+    pos = np.arange(b)
+    deep = {"full_depth": np.ones(b, bool), "alternating": pos % 2 == 0,
+            "one_deep_per_32": pos % 32 == 0, "root_only": np.zeros(b, bool)}[pattern]
+    k = rng.integers(0, n_if, b)
+    leaf = rng.integers(0, leaves, b)
+    hit_root = rng.random(b) < 0.5
+    ip = rng.integers(0, 256, (b, 16), dtype=np.uint8)
+    ip[:, 0] = np.where(hit_root, 10, 11)
+    ip[:, 4:] = 0
+    ip[deep] = leaf_ip[k[deep], leaf[deep]]
+    entry = k * per_if + np.where(deep, len(chain_lens) + leaf, n_chain)
+    rule = rules[entry, rng.integers(0, width, b)]
+    use = (rule[:, 0] != 0) & (rng.random(b) < 0.8) & (deep | hit_root)
+    proto = np.asarray(_PROTOS)[rng.integers(0, len(_PROTOS), b)]
+    proto = np.where(use & (rule[:, 1] != 0), rule[:, 1], proto).astype(np.int32)
+    return tables, PacketBatch(
+        kind=np.where(deep, 2, 1).astype(np.int32),
+        l4_ok=np.ones(b, np.int32),
+        ifindex=np.asarray(ifindexes, np.int32)[k],
+        ip_words=np.ascontiguousarray(ip).view(">u4").astype(np.uint32).reshape(b, 4),
+        proto=proto,
+        dst_port=np.where(use, rule[:, 2], rng.integers(0, 65536, b)).astype(np.int32),
+        icmp_type=np.where(use, rule[:, 4], rng.integers(0, 256, b)).astype(np.int32),
+        icmp_code=np.where(use, rule[:, 5], rng.integers(0, 3, b)).astype(np.int32),
+        pkt_len=rng.integers(60, 1500, b).astype(np.int32),
+    ), deep
+
+
 def stats_dict_from_array(stats4: np.ndarray) -> Dict[int, List[int]]:
     """(MAX_TARGETS, 4) int64 -> {ruleId: [ap, ab, dp, db]} with zero rows
     dropped, for comparison against the oracle's dict."""

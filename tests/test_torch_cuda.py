@@ -172,6 +172,69 @@ def test_classifier_on_card_matches_oracle(cuda):
     assert testing.stats_dict_from_array(out.stats_delta) == ref.stats
 
 
+def _k2_k3_against_plain(fields, words, tt, ct, grid=0):
+    """K2 at every level count and K3 on the card, each one launch, equal
+    to their plain versions; ``grid`` > 0 caps K2's grid."""
+    for n_levels in range(1, tt.n_levels + 1):
+        before = walk.KERNEL.launches
+        got = walk.trie_walk_classify(fields, words, tt, n_levels, _grid=grid)
+        torch.cuda.synchronize()
+        assert walk.KERNEL.launches == before + 1
+        assert torch.equal(got, walk.trie_walk_classify_plain(fields, words, tt, n_levels)), n_levels
+    before = cwalk.KERNEL.launches
+    got = cwalk.ctrie_walk_classify(fields, words, ct)
+    torch.cuda.synchronize()
+    assert cwalk.KERNEL.launches == before + 1
+    assert torch.equal(got, cwalk.ctrie_walk_classify_plain(fields, words, ct))
+
+
+@pytest.mark.parametrize("pattern", testing.DEPTH_PATTERNS)
+def test_k2_k3_match_plain_on_depth_adversarial_batches(cuda, pattern):
+    """K2 (the lane-refilling walk) and K3 where a warp's lanes diverge
+    most: a /128 chain per ifindex (every level below the root holds a
+    target) under all-deep, alternating, one-deep-per-32 and root-only
+    batches."""
+    tables, batch, deep = testing.depth_adversarial(np.random.default_rng(1), 20_000, pattern)
+    tt = walk.build_trie_tables(tables, cuda, pad=True)
+    ct = cwalk.build_ctrie_tables(tables, cuda, pad=True)
+    fields, words = torchpath.packet_fields(torchpath.device_batch(batch, cuda))
+    assert torch.equal(cwalk.walk_depths(fields, words, ct).cpu(),
+                       torch.from_numpy(np.where(deep, testing.DEEP_ROWS, 0).astype(np.int32)))
+    _k2_k3_against_plain(fields, words, tt, ct)
+
+
+@pytest.mark.parametrize("B", [0, 1, 31, 33, 257, (1 << 16) + 5])
+def test_k2_k3_ragged_batches(cuda, B):
+    """Batches that fill no warp, a warp and one lane, and many warps
+    unevenly; K2's last 32-packet chunk is short."""
+    rng = np.random.default_rng(B)
+    tables = testing.random_tables_fast(rng, 5000, ifindexes=(2, 3, 4), width=8, v6_fraction=0.6)
+    batch = testing.random_batch_fast(rng, tables, max(B, 1)).slice(0, B)
+    tt = walk.build_trie_tables(tables, cuda, pad=True)
+    ct = cwalk.build_ctrie_tables(tables, cuda, pad=True)
+    fields, words = torchpath.packet_fields(torchpath.device_batch(batch, cuda))
+    _k2_k3_against_plain(fields, words, tt, ct)
+
+
+@pytest.mark.parametrize("grid", [1, 2, 7])
+@pytest.mark.parametrize("pattern", ["alternating", "one_deep_per_32", "random"])
+def test_k2_k3_forced_small_grid(cuda, grid, pattern):
+    """K2 on a grid of 1, 2 or 7 blocks over 50,000 packets: every lane
+    refills tens of times, across depth changes, and the warps' chunk
+    sequences differ in length (K3 alongside, on its own grid)."""
+    rng = np.random.default_rng(grid)
+    if pattern == "random":
+        tables = testing.random_tables_fast(rng, 5000, ifindexes=(2, 3, 4), width=8,
+                                            v6_fraction=0.6)
+        batch = testing.random_batch_fast(rng, tables, 50_000)
+    else:
+        tables, batch, _ = testing.depth_adversarial(rng, 50_000, pattern)
+    tt = walk.build_trie_tables(tables, cuda, pad=True)
+    ct = cwalk.build_ctrie_tables(tables, cuda, pad=True)
+    fields, words = torchpath.packet_fields(torchpath.device_batch(batch, cuda))
+    _k2_k3_against_plain(fields, words, tt, ct, grid=grid)
+
+
 @pytest.mark.parametrize("n_entries,width,n_packets", [(1, 2, 1), (300, 8, 3000), (5000, 12, 20000)])
 def test_k2_matches_plain_at_every_level_count(cuda, n_entries, width, n_packets):
     rng = np.random.default_rng(n_entries)
