@@ -60,8 +60,14 @@ its multi-tenant arena on the card and fails (non-zero exit, no result line) on 
    (ctrie_walk launched, trie_walk not), checked against the trie path
    (K2) on the whole batch, a host recount of the statistics and the
    HashLpmOracle on 4096-packet subsets and the first packets of the run;
-   K3 times on both tables, its bound, the plain version's time, the
-   device pass, end to end and the stage split; each table's depth line
+   K3's fused wire-to-verdict entry against its plain version on every
+   wire width and wire8, both tables, every word of the read-back buffer;
+   the device pass on the main path's narrow wire, fused against the
+   composition it replaced (the torch ops around the two-column K3), in
+   turns, with each pass's kernels and memsets from the profiler (the fused
+   pass must be one kernel and at most one memset) and the fused entry's
+   bound; K3 times on both tables, its bound, the plain version's time,
+   end to end and the stage split; each table's depth line
    (cwalk.walk_depths: skip steps) and K3 on its depth-sorted batch; then
    K2 at every level count and K3 against their plain versions on the
    depth-adversarial batches (testing.depth_adversarial: all deep, deep
@@ -89,19 +95,25 @@ its multi-tenant arena on the card and fails (non-zero exit, no result line) on 
    seeds 9000 + t) in one 514-page pool, loaded through
    TorchArenaClassifier(); a 2^20-packet mixed batch (2048 per tenant)
    plus 4096 packets of tenant ids -1 and 513 and a destroyed tenant's
-   2048; kernel K3b against its plain version on every packet; the main
-   path (classify_async_packed_tenant), launch counts zeroed before and
-   read after (K3b once, nothing else), against the per-tenant oracles on
-   8 packets per tenant, a host recount and UNDEF for every invalid lane;
-   K3b times, its bound, the plain version, mixed against sequential
+   2048; kernel K3b against its plain version on every packet, and its
+   fused entry on every wire width; the main path
+   (classify_async_packed_tenant), launch counts zeroed before and read
+   after (K3b's fused entry once, nothing else), against the per-tenant
+   oracles on 8 packets per tenant, a host recount and UNDEF for every
+   invalid lane; the device pass fused against composed in turns with its
+   device operations, as for K3; K3b times, its bound, the plain
+   version, mixed against sequential
    per-tenant dispatch, the stage split and the pool against padded
    tables; then the 1M-entry swap pair (clean_tables_fast): the
    page-table flip against a full upload, each flip checked against the
    active table's HashLpmOracle, and a destroy + compaction;
 10. incremental patches and the overlay at the churn tier (K1 over the
-    overlay against its plain version);
+    overlay against its plain version; the ctrie pass without the overlay
+    fused against composed in turns);
 11. the gather microbenchmark's kernel K5 and its tool;
-12. one JSON ``kernels`` line, then the device JSON as the last line.
+12. one JSON ``kernels`` line (K3 and K3b as their fused entries, which
+    the main path runs, each with its two-column entry's readings under
+    ``two_column``), then the device JSON as the last line.
 
 With ``--parent``, K2 (as is and depth-sorted, every level count), K3
 (tables A and B, as is and depth-sorted; the adversarial batches) and K3b
@@ -235,7 +247,7 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def profiled_kernels(fn, reps: int, counts: dict = None):
+def profiled_kernels(fn, reps: int, counts: dict = None, memsets: dict = None):
     """torch.profiler over ``reps`` calls after a warm one: {kernel name:
     device microseconds per call}, from the CUDA events of the trace
     (kernels only, no copies or fills).  The calls run inside the recorded
@@ -243,7 +255,8 @@ def profiled_kernels(fn, reps: int, counts: dict = None):
     trace that holds fewer kernels than the launches the runtime recorded
     lost events: it is taken again, up to five times, and after that the
     result is empty (not measured), never a short count.  ``counts``, when
-    given, receives {kernel name: launches per call}."""
+    given, receives {kernel name: launches per call}, ``memsets`` {memset
+    event name: per call}."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
@@ -262,11 +275,13 @@ def profiled_kernels(fn, reps: int, counts: dict = None):
             torch.cuda.synchronize()
             time.sleep(0.02)
             prof.step()
-        out, launches, api = {}, {}, 0
+        out, launches, fills, api = {}, {}, {}, 0
         for e in prof.events():
             if e.is_user_annotation or e.name.startswith("ProfilerStep"):
                 continue  # the schedule's step ranges, on both timelines
-            if e.device_type == DeviceType.CUDA and not e.name.startswith(("Memcpy", "Memset")):
+            if e.device_type == DeviceType.CUDA and e.name.startswith("Memset"):
+                fills[e.name] = fills.get(e.name, 0) + 1
+            elif e.device_type == DeviceType.CUDA and not e.name.startswith("Memcpy"):
                 out[e.name] = out.get(e.name, 0.0) + e.time_range.elapsed_us() / reps
                 launches[e.name] = launches.get(e.name, 0) + 1
             elif e.device_type == DeviceType.CPU and e.name.startswith(("cudaLaunch", "cuLaunch")):
@@ -276,9 +291,11 @@ def profiled_kernels(fn, reps: int, counts: dict = None):
         log(f"profiler: {sum(launches.values())} kernels in the trace of {api} launches "
             f"(attempt {attempt + 1}); tracing again")
     else:
-        out, launches = {}, {}
+        out, launches, fills = {}, {}, {}
     if counts is not None:
         counts.update({name: n / reps for name, n in launches.items()})
+    if memsets is not None:
+        memsets.update({name: n / reps for name, n in fills.items()})
     return out
 
 
@@ -934,6 +951,129 @@ def compare_k3(cwalk, ct, fields, words, label: str) -> int:
     return err
 
 
+def composed_ctrie(cwalk, torchpath, ct, wire):
+    """The ctrie device pass as it was composed before K3's fused entry:
+    unpack_wire, packet_fields, the two-column K3, finalize (verdict,
+    result_stats' index_add_) and fuse_wire_outputs."""
+    res, _xdp, stats = cwalk.classify_ctrie(ct, torchpath.unpack_wire(wire))
+    return torchpath.fuse_wire_outputs(res & 0xFFFF, stats)
+
+
+def composed_arena(arena_walk, torchpath, pool, wire, tenant, **kw):
+    """The arena device pass as it was composed before K3b's fused entry
+    (composed_ctrie's ops around the two-column K3b)."""
+    res, _xdp, stats = arena_walk.classify_arena_ctrie(pool, torchpath.unpack_wire(wire), tenant,
+                                                       **kw)
+    return torchpath.fuse_wire_outputs(res & 0xFFFF, stats)
+
+
+def fused_wires(batch, tenant=None) -> dict:
+    """{width: (wire, ifmap or None, tenant or None, rows)} on the card for
+    every width of the fused entries: 7 and 6 (narrow) on the packets
+    whose ifindex fits 16 bits (6) or all (7), 4, 3 (narrow) and wire8 (2)
+    on the IPv4-compactable ones, each also with its tenant column when
+    ``tenant`` is given (no wire8 then)."""
+    import torch
+
+    from infw_torch.packets import narrow_wire, wire8
+
+    ok = (batch.ifindex >= 0) & (batch.ifindex < 1 << 16)
+    v4 = np.nonzero(ok & (batch.kind != 2) & ~batch.ip_words[:, 1:].any(axis=1))[0]
+    rows = {7: np.arange(len(batch)), 6: np.nonzero(ok)[0], 4: v4, 3: v4}
+    if tenant is None:
+        rows[2] = v4
+    put = lambda a: torch.from_numpy(np.ascontiguousarray(a).view(np.int32)).to("cuda")
+    out = {}
+    for width, idx in rows.items():
+        sub = batch.take(idx)
+        wire = sub.pack_wire_v4() if width in (2, 3, 4) else sub.pack_wire()
+        wire = narrow_wire(wire) if width in (3, 6) else wire
+        ifmap = None
+        if width == 2:
+            wire, ifmap = wire8(wire)
+            ifmap = put(ifmap)
+        out[width] = (put(wire), ifmap, None if tenant is None else put(tenant[idx]), idx)
+    return out
+
+
+def check_fused(label: str, run, plain, B: int) -> int:
+    """A fused entry against its plain version on the card, every word of
+    the read-back buffer; returns the largest absolute difference (0)."""
+    import torch
+
+    got, want = run(), plain()
+    torch.cuda.synchronize()
+    if got.shape != want.shape:
+        raise SystemExit(f"{label}: buffer {tuple(got.shape)} against {tuple(want.shape)}")
+    mism = int((got != want).sum().item())
+    err = int((got.long() - want.long()).abs().max().item()) if got.numel() else 0
+    log(f"{label} vs plain: B={B}, {got.numel()} words, mismatching words={mism}, "
+        f"max_abs_err={err}, result words non-zero={int((got[:(B + 1) // 2] != 0).sum().item())}")
+    if mism:
+        raise SystemExit(f"{label} disagrees with its plain version")
+    return err
+
+
+def fused_turns(tag: str, label: str, fused_fn, composed_fn) -> dict:
+    """The fused device pass against the composition it replaces (the torch
+    ops around the two-column kernel) on the same wire: buffers equal,
+    CUDA-event times in turns (composed, fused, fused, composed), and each
+    pass's device operations from the profiler (kernels and memsets per
+    call; the fused pass must be one kernel and at most one memset).
+    Returns the readings."""
+    import torch
+
+    a, b = composed_fn(), fused_fn()
+    torch.cuda.synchronize()
+    if not torch.equal(a, b):
+        raise SystemExit(f"the fused pass disagrees with the composed one [{label}]")
+    c1, f1, f2, c2 = (cuda_ms(fn, reps=20) for fn in (composed_fn, fused_fn, fused_fn,
+                                                     composed_fn))
+    ops = {}
+    for name, fn in (("fused", fused_fn), ("composed", composed_fn)):
+        counts, fills, by_name = {}, {}, {}
+        dev_us = profiled_kernels(fn, reps=10, counts=counts, memsets=fills)
+        for k, v in counts.items():  # launches per call by kernel name, cut short
+            by_name[k[:48]] = by_name.get(k[:48], 0) + v
+        ops[name] = {"kernels_per_call": sum(counts.values()) if dev_us else None,
+                     "memsets_per_call": sum(fills.values()) if dev_us else None,
+                     "device_us": sum(dev_us.values()) if dev_us else None,
+                     "kernels": by_name}
+    log(f"{tag} device pass in turns [{label}]: composed {c1:.4f}, {c2:.4f} ms; fused "
+        f"{f1:.4f}, {f2:.4f} ms; fused / composed {(f1 + f2) / (c1 + c2):.3f}")
+    for name, o in ops.items():
+        log(f"{tag} device operations per pass [{label}, {name}]: "
+            + ("not measured (no device events in the trace)" if o["device_us"] is None else
+               f"{o['kernels_per_call']:g} kernels + {o['memsets_per_call']:g} memsets, device "
+               f"{o['device_us']:.2f} us; {o['kernels']}"))
+    f = ops["fused"]
+    if f["device_us"] is not None and (f["kernels_per_call"] != 1 or f["memsets_per_call"] > 1):
+        raise SystemExit(f"the fused pass is not one kernel and at most one memset [{label}]")
+    return {"fused_ms": (f1 + f2) / 2, "composed_ms": (c1 + c2) / 2, "ops": ops}
+
+
+def fused_bound(wire, tenant, touched: dict) -> tuple:
+    """The fused entry's bytes bound (ms) and its I/O bytes: the wire and
+    tenant column read once, ceil(B/2) result words and the 24 KiB of
+    statistics written once, plus the table rows the looked-up lanes'
+    walks touch."""
+    B = wire.shape[0]
+    io = (wire.numel() * 4 + (0 if tenant is None else B * 4) + (B + 1) // 2 * 4
+          + (0 if wire.shape[1] == 2 else 6144 * 4))
+    return (io + sum(touched.values())) / HBM_BYTES_PER_S * 1e3, io
+
+
+def looked_up_operands(torchpath, wire, ifmap=None):
+    """(fields, words, mask) of a wire, decoded by the plain unpack on the
+    card; ``mask`` marks the lanes whose walk the fused entries run (IP
+    with an L4 header)."""
+    batch = (torchpath.unpack_wire(wire) if ifmap is None
+             else torchpath.unpack_wire8(wire, ifmap))
+    fields, words = torchpath.packet_fields(batch)
+    mask = ((fields[:, 0] == 1) | (fields[:, 0] == 2)) & (fields[:, 6] != 0)
+    return fields, words, mask
+
+
 def ctrie_phase(tag: str, trie_tables, trie_batch):
     """The ctrie path at the JAX package's 10M-entry tier (table A), with
     K3 also held against its plain version on the trie phase's 100K table
@@ -1001,6 +1141,19 @@ def ctrie_phase(tag: str, trie_tables, trie_batch):
     label_b = f"table B, {trie_tables.num_entries} entries"
     err = max(compare_k3(cwalk, ct, fields, words, label_a),
               compare_k3(cwalk, ct_b, fields_b, words_b, label_b))
+    # K3's fused entry against its plain version on every width, both tables
+    wires = {"A": fused_wires(batch), "B": fused_wires(trie_batch)}
+    fused_err = 0
+    for key, ct_, label in (("A", ct, label_a), ("B", ct_b, label_b)):
+        for width, (w, ifmap, _t, _idx) in wires[key].items():
+            if ifmap is None:
+                run = lambda w=w, ct_=ct_: cwalk.classify_ctrie_wire_fused(ct_, w)
+                plain = lambda w=w, ct_=ct_: cwalk.classify_ctrie_wire_fused_plain(ct_, w)
+            else:
+                run = lambda w=w, m=ifmap, ct_=ct_: cwalk.classify_ctrie_wire8(ct_, w, m)
+                plain = lambda w=w, m=ifmap, ct_=ct_: cwalk.classify_ctrie_wire8_plain(ct_, w, m)
+            fused_err = max(fused_err, check_fused(f"fused K3 [{label}, width {width}]", run,
+                                                   plain, w.shape[0]))
 
     # 2. the main path: both knobs pick the ctrie path; the trie path (K2)
     # on the same table is the cross-check
@@ -1035,8 +1188,8 @@ def ctrie_phase(tag: str, trie_tables, trie_batch):
     log(f"ctrie main path: classify({len(batch)}) by force_path='ctrie' and by "
         f"compressed=True, then {len(jobs)} packed chunks, in {main_s:.3f} s (first calls), "
         f"launches {launches}; wire_stats {clf.wire_stats()}")
-    if launches["ctrie_walk"] <= 0 or launches["trie_walk"] != 0:
-        raise SystemExit("the ctrie main path must launch ctrie_walk and never trie_walk")
+    if launches["ctrie_wire_fused"] <= 0 or launches["trie_walk"] != 0:
+        raise SystemExit("the ctrie main path must launch ctrie_wire_fused and never trie_walk")
     ref = trie.classify(batch)
     for name, got in (("compressed=True", (out_c.results, out_c.xdp, out_c.stats_delta)),
                       ("packed chunks", (packed["results"], packed["xdp"], packed["stats"])),
@@ -1101,7 +1254,17 @@ def ctrie_phase(tag: str, trie_tables, trie_batch):
     fused = timed_stage(stages, "device pass",
                         lambda: cwalk.classify_ctrie_wire_fused(ct, wire_dev))
     host = timed_stage(stages, "device-to-host read", lambda: fused.cpu().numpy())
-    fused_ms = cuda_ms(lambda: cwalk.classify_ctrie_wire_fused(ct, wire_dev), reps=10)
+    # the device pass: K3's fused entry against the composition it replaced
+    # (unpack_wire, the two-column K3, finalize, stats, fuse), in turns, on
+    # the main path's narrow wire of both tables
+    turns = {}
+    for key, ct_, label in (("A", ct, label_a), ("B", ct_b, label_b)):
+        w = wires[key][6][0]
+        turns[key] = fused_turns(
+            tag, f"ctrie, {label}, {w.shape[0]} packets, narrow wire",
+            lambda w=w, ct_=ct_: cwalk.classify_ctrie_wire_fused(ct_, w),
+            lambda w=w, ct_=ct_: composed_ctrie(cwalk, torchpath, ct_, w))
+    fused_ms = turns["A"]["fused_ms"]
 
     def host_finalize():
         res16, st = torchpath.split_wire_outputs(host, B)
@@ -1137,34 +1300,64 @@ def ctrie_phase(tag: str, trie_tables, trie_batch):
         f"{k3_hot_ms:.4f} ms, against {k3_ms:.4f} ms for {B} distinct packets "
         f"({sum(touched_a.values()) / 1e6:.1f} MB touched)")
     log(f"{tag} K3 plain version: {plain_ms:.4f} ms [table A], {plain_b_ms:.4f} ms [table B]")
-    log(f"{tag} ctrie device pass (unpack + K3 + finalize + stats + fuse, table A): "
-        f"{fused_ms:.4f} ms")
+    # the fused entry's bound: the narrow wire and the results, the rows
+    # the looked-up lanes' walks touch, the statistics
+    fused_k3 = {}
+    for key, ct_, label in (("A", ct, label_a), ("B", ct_b, label_b)):
+        w = wires[key][6][0]
+        f_, w_, mask = looked_up_operands(torchpath, w)
+        touched = k3_footprint(cwalk, torchpath, ct_, f_[mask].contiguous(),
+                               w_[mask].contiguous())
+        fbound, fio = fused_bound(w, None, touched)
+        fplain = cuda_ms(lambda w=w, ct_=ct_: cwalk.classify_ctrie_wire_fused_plain(ct_, w),
+                         reps=1, warmup=0)
+        fused_k3[key] = {"ms": turns[key]["fused_ms"], "bound_ms": fbound, "plain_ms": fplain,
+                         "composed_ms": turns[key]["composed_ms"], "ops": turns[key]["ops"]}
+        log(f"{tag} fused K3 ctrie_wire_fused [{label}, narrow wire]: "
+            f"{turns[key]['fused_ms']:.4f} ms at B={w.shape[0]}; bound {fbound:.4f} ms by bytes = "
+            f"({fio / 1e6:.2f} MB wire + results + statistics + {sum(touched.values()) / 1e6:.1f} "
+            f"MB of tables touched by {int(mask.sum().item())} looked-up lanes, in MB: "
+            f"{footprint_text(touched)}) / 3.35 TB/s ({turns[key]['fused_ms'] / fbound:.1f}x); "
+            f"plain version {fplain:.4f} ms; the two-column K3 on the same packets "
+            f"{k3_ms if key == 'A' else k3_b_ms:.4f} ms")
+    log(f"{tag} ctrie device pass (fused K3, table A): {fused_ms:.4f} ms")
     log(f"{tag} ctrie end-to-end classify: {e2e_s * 1e3:.2f} ms per {B} packets (median of 5) = "
         f"{B / e2e_s / 1e6:.3f} M packets/s")
     log(f"{tag} ctrie stages of one classify (host clock, ms): "
         + ", ".join(f"{k} {v * 1e3:.2f}" for k, v in stages.items()))
     return {
-        "name": "ctrie_walk",
+        "name": "ctrie_wire_fused",
         "route": "cuda",
         "source": "infw_torch/kernels/csrc/ctrie_walk.cu",
         "replaces": "infw/kernels/pallas_walk.py:918",
-        "launches": launches["ctrie_walk"],
+        "launches": launches["ctrie_wire_fused"],
         "mismatches": 0,
-        "max_abs_err": err,
-        "ms": k3_ms,
-        "ms_table_b": k3_b_ms,
-        "ms_first_4096_repeated": k3_hot_ms,
-        "ms_depth_sorted": k3_sorted_ms["A"],
-        "ms_depth_sorted_table_b": k3_sorted_ms["B"],
-        "depth": {k: v for k, v in k3_depth["A"].items() if k != "hist"},
-        "depth_table_b": {k: v for k, v in k3_depth["B"].items() if k != "hist"},
-        "parent_in_turns": k3_parent,
-        "plain_ms": plain_ms,
-        "plain_ms_table_b": plain_b_ms,
-        "bound_ms": bound_ms,
-        "bound_ms_table_b": bound_b_ms,
+        "max_abs_err": fused_err,
+        "ms": fused_k3["A"]["ms"],
+        "plain_ms": fused_k3["A"]["plain_ms"],
+        "bound_ms": fused_k3["A"]["bound_ms"],
         "bound_by": "bytes",
         "library_ms": None,
+        "table_b": fused_k3["B"],
+        "composed_pass_ms": fused_k3["A"]["composed_ms"],
+        "device_ops": fused_k3["A"]["ops"],
+        "two_column": {
+            "name": "ctrie_walk",
+            "launches": launches["ctrie_walk"],
+            "max_abs_err": err,
+            "ms": k3_ms,
+            "ms_table_b": k3_b_ms,
+            "ms_first_4096_repeated": k3_hot_ms,
+            "ms_depth_sorted": k3_sorted_ms["A"],
+            "ms_depth_sorted_table_b": k3_sorted_ms["B"],
+            "depth": {k: v for k, v in k3_depth["A"].items() if k != "hist"},
+            "depth_table_b": {k: v for k, v in k3_depth["B"].items() if k != "hist"},
+            "parent_in_turns": k3_parent,
+            "plain_ms": plain_ms,
+            "plain_ms_table_b": plain_b_ms,
+            "bound_ms": bound_ms,
+            "bound_ms_table_b": bound_b_ms,
+        },
     }, tables, batch, hashed
 
 
@@ -1271,7 +1464,10 @@ def codec_phase(tag: str, cells) -> dict:
     k4_launches = 0
     timings = {}
     for path, label, tables, batch, reference in cells:
+        # the walk a chunk launches: K2 on the trie path; on the ctrie path
+        # K3's fused entry for wire8, its two-column entry behind K4 for delta
         walker = "ctrie_walk" if path == "ctrie" else "trie_walk"
+        wire8_walker = "ctrie_wire_fused" if path == "ctrie" else "trie_walk"
         idx = np.nonzero((batch.kind != 2) & ~batch.ip_words[:, 1:].any(axis=1))[0]
         sub = batch.take(idx)
         wire, v4_only = batch.pack_wire_subset(idx)
@@ -1313,7 +1509,8 @@ def codec_phase(tag: str, cells) -> dict:
             if (fmt not in ("delta", "wire8") or pkts != len(idx)
                     or (codec != "auto" and fmt != codec)):
                 raise SystemExit(f"{path} codec={codec}: shipped {ws}")
-            if launches["wire_decode"] != want_k4 or launches[walker] != 1 or sum(
+            if launches["wire_decode"] != want_k4 or launches[
+                    walker if fmt == "delta" else wire8_walker] != 1 or sum(
                     launches.values()) != 1 + want_k4:
                 raise SystemExit(f"{path} codec={codec}: launches {launches}")
             k4_launches += launches["wire_decode"]
@@ -1589,8 +1786,18 @@ def arena_phase(tag: str) -> dict:
         f"max_abs_err={err} lpm-matched={int((got[:, 1] >= 0).sum().item())}")
     if mism:
         raise SystemExit("K3b disagrees with its plain version on the mixed batch")
+    # K3b's fused entry against its plain version on every width
+    wires = fused_wires(batch, tenant)
+    fused_err = 0
+    for width, (w, _m, tw, _idx) in wires.items():
+        fused_err = max(fused_err, check_fused(
+            f"fused K3b [{ARENA_TENANTS} tenants, width {width}]",
+            lambda w=w, tw=tw: arena_walk.classify_arena_wire_fused(pool, w, tw, **kw),
+            lambda w=w, tw=tw: arena_walk.classify_arena_wire_fused_plain(pool, w, tw, **kw),
+            w.shape[0]))
 
-    # 3. the main path: one mixed classify launches K3b once, K3 never
+    # 3. the main path: one mixed classify launches K3b's fused entry once
+    # and nothing else
     kernels = all_kernels()
     for k in kernels:
         k.launches = 0
@@ -1600,8 +1807,8 @@ def arena_phase(tag: str) -> dict:
     launches = {k.name: k.launches for k in kernels}
     log(f"arena main path: classify_async_packed_tenant({B}) in {main_s:.3f} s (first call), "
         f"launches {launches}; wire_stats {clf.wire_stats()}")
-    if launches["arena_ctrie_walk"] != 1 or sum(launches.values()) != 1:
-        raise SystemExit("the arena main path must launch arena_ctrie_walk once and nothing else")
+    if launches["arena_wire_fused"] != 1 or sum(launches.values()) != 1:
+        raise SystemExit("the arena main path must launch arena_wire_fused once and nothing else")
     check_recount(batch, out.results, out.stats_delta, "arena main path")
     if out.results[off].any() or not np.array_equal(out.xdp[off],
                                                     np.where(batch.kind[off] == 0, 1, 2)):
@@ -1706,7 +1913,19 @@ def arena_phase(tag: str) -> dict:
 
     results, _ = timed_stage(stages, "host finalize", host_finalize)
     timed_stage(stages, "per-tenant counts", lambda: clf._note_tenants(main_tenant, results))
-    fused_ms = cuda_ms(run, reps=10)
+    # the device pass: K3b's fused entry against the composition it
+    # replaced, in turns, on the main path's narrow wire; its bound and
+    # plain version
+    tturns = fused_turns(tag, f"arena, {ARENA_TENANTS} tenants, {main_b} packets, narrow wire",
+                         run, lambda: composed_arena(arena_walk, torchpath, pool, dev[0], dev[1],
+                                                     **kw))
+    fused_ms = tturns["fused_ms"]
+    f_, w_, mask = looked_up_operands(torchpath, dev[0])
+    ftouched = k3b_footprint(arena_walk, torchpath, pool, f_[mask].contiguous(),
+                             w_[mask].contiguous(), dev[1][mask].contiguous(), **kw)
+    fbound, fio = fused_bound(dev[0], dev[1], ftouched)
+    fplain = cuda_ms(lambda: arena_walk.classify_arena_wire_fused_plain(pool, dev[0], dev[1],
+                                                                        **kw), reps=1, warmup=0)
     table_b = sum(padded_table_bytes(layout, arena, t) for t in tabs[:ARENA_TENANTS])
     log(f"{tag} K3b arena_ctrie_walk [{ARENA_TENANTS} tenants, mixed batch]: {k3b_ms:.4f} ms at "
         f"B={B} ({B / k3b_ms / 1e3:.1f} M packets/s); profiler device time per call (us): "
@@ -1718,8 +1937,12 @@ def arena_phase(tag: str) -> dict:
         f"{k3b_ms / bound_ms:.1f}x its bound")
     log(f"{tag} K3b plain version: {plain_ms:.4f} ms; library call: none (no PyTorch call "
         f"computes the walk)")
-    log(f"{tag} arena device pass (unpack + K3b + finalize + stats + fuse, {main_b} packets): "
-        f"{fused_ms:.4f} ms")
+    log(f"{tag} fused K3b arena_wire_fused [{ARENA_TENANTS} tenants, {main_b} packets, narrow "
+        f"wire]: {fused_ms:.4f} ms; bound {fbound:.4f} ms by bytes = ({fio / 1e6:.2f} MB wire + "
+        f"tenant + results + statistics + {sum(ftouched.values()) / 1e6:.1f} MB of the pool "
+        f"touched by {int(mask.sum().item())} looked-up lanes, in MB: {footprint_text(ftouched)}) "
+        f"/ 3.35 TB/s ({fused_ms / fbound:.1f}x); plain version {fplain:.4f} ms")
+    log(f"{tag} arena device pass (fused K3b, {main_b} packets): {fused_ms:.4f} ms")
     log(f"{tag} arena mixed batch: {mixed_s * 1e3:.2f} ms per {main_b} packets = "
         f"{main_b / mixed_s / 1e6:.3f} M packets/s, against sequential per-tenant dispatch "
         f"({ARENA_TENANTS} calls) {seq_s * 1e3:.2f} ms = {main_b / seq_s / 1e6:.3f} M packets/s "
@@ -1759,14 +1982,14 @@ def arena_phase(tag: str) -> dict:
     def check_active(active, label):
         """Both tables' batches as tenant 0: each must get the active
         table's verdicts (on 4096-packet subsets and the first packets of
-        each kind), K3b once per classify."""
+        each kind), K3b's fused entry once per classify."""
         ref = oracles[id(active)]
         for name, b in (("its own batch", batches[id(active)]),
                         ("the other table's batch", batches[id(big2 if active is big else big)])):
-            before = arena_walk.KERNEL.launches
+            before = arena_walk.FUSED_KERNEL.launches
             o = sw.classify_async_packed_tenant(b.pack_wire(), np.zeros(len(b), np.int32)).result()
-            if arena_walk.KERNEL.launches != before + 1:
-                raise SystemExit(f"{label}: K3b was not launched once")
+            if arena_walk.FUSED_KERNEL.launches != before + 1:
+                raise SystemExit(f"{label}: K3b's fused entry was not launched once")
             check_recount(b, o.results, o.stats_delta, label)
             subsets = {"first": np.arange(ORACLE_PACKETS)}
             for kind, kname in ((1, "v4"), (2, "v6"), (0, "malformed"), (3, "other")):
@@ -1839,20 +2062,30 @@ def arena_phase(tag: str) -> dict:
         f"packets, the destroyed tenant 0 UNDEF")
     sw.close()
     return {
-        "name": "arena_ctrie_walk",
+        "name": "arena_wire_fused",
         "route": "cuda",
         "source": "infw_torch/kernels/csrc/arena_ctrie_walk.cu",
         "replaces": "infw/kernels/pallas_walk.py:1156",
-        "launches": launches["arena_ctrie_walk"],
+        "launches": launches["arena_wire_fused"],
         "mismatches": 0,
-        "max_abs_err": err,
-        "ms": k3b_ms,
-        "parent_in_turns": k3b_parent,
-        "device_ms": sum(device_us.values()) / 1e3 if device_us else None,
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
+        "max_abs_err": fused_err,
+        "ms": fused_ms,
+        "plain_ms": fplain,
+        "bound_ms": fbound,
         "bound_by": "bytes",
         "library_ms": None,
+        "composed_pass_ms": tturns["composed_ms"],
+        "device_ops": tturns["ops"],
+        "two_column": {
+            "name": "arena_ctrie_walk",
+            "launches": launches["arena_ctrie_walk"],
+            "max_abs_err": err,
+            "ms": k3b_ms,
+            "parent_in_turns": k3b_parent,
+            "device_ms": sum(device_us.values()) / 1e3 if device_us else None,
+            "plain_ms": plain_ms,
+            "bound_ms": bound_ms,
+        },
         "mixed_packets_per_s": main_b / mixed_s,
         "sequential_packets_per_s": main_b / seq_s,
         "flip_ms": flip_s * 1e3,
@@ -2041,7 +2274,11 @@ def churn_phase(tag: str, n_entries: int = CHURN_ENTRIES, n_packets: int = CHURN
             w4, v4_only = batch.pack_wire_subset(v4)
             out4 = clf.classify_async_packed(w4, v4_only).result()
             launches = {k.name: k.launches for k in kernels if k.launches}
-            want_k = {main_k.name: 2, **({"dense_classify": 2} if ov_arg is not None else {})}
+            # without an overlay the ctrie classify is K3's fused entry;
+            # the overlay combine reads K3's two-column entry
+            walk_name = ("ctrie_wire_fused" if layout_name == "ctrie" and ov_arg is None
+                         else main_k.name)
+            want_k = {walk_name: 2, **({"dense_classify": 2} if ov_arg is not None else {})}
             if launches != want_k:
                 raise SystemExit(f"churn[{layout_name}] {step}: launches {launches}, expected "
                                  f"{want_k}")
@@ -2115,6 +2352,10 @@ def churn_phase(tag: str, n_entries: int = CHURN_ENTRIES, n_packets: int = CHURN
         timings.setdefault("device pass", {})[layout_name] = {
             "with_overlay_ms": with_ov, "without_ms": without, "k1_overlay_ms": k1_ms,
             "k2_overlay_ms": k2_ms, "with_k2_overlay_ms": with_k2}
+        if layout_name == "ctrie":  # K3's fused entry against the composed pass
+            timings["device pass"]["ctrie"]["fused_turns"] = fused_turns(
+                tag, f"churn[ctrie] without the overlay, {len(batch)} packets, narrow wire",
+                plain_pass, lambda: composed_ctrie(cwalk, torchpath, dev, wire))
         log(f"{tag} churn[{layout_name}] device pass ({len(batch)} packets, narrow wire, CUDA "
             f"events): {without:.4f} ms without the overlay, {with_ov:.4f} ms with it (K1 over "
             f"the {ov.num_entries}-entry overlay alone {k1_ms:.4f} ms); with the overlay on K2 "
@@ -2235,16 +2476,18 @@ def main() -> int:
     kernels = all_kernels()
     if opts.parent:
         PARENT_KERNELS.update(parent_kernels(opts.parent))
-    builds = kernels + list(PARENT_KERNELS.values())
+    # one build per library: two entry points of one source share it
+    own = list({k.library_path(): k for k in kernels}.values())
+    builds = own + list(PARENT_KERNELS.values())
     with ThreadPoolExecutor(len(builds)) as pool:
         list(pool.map(lambda k: k.build(), builds))
-    log(f"build: {len(kernels)} kernel(s)"
-        + (f" and --parent's {len(builds) - len(kernels)}" if opts.parent else "")
+    log(f"build: {len(kernels)} kernel entry points from {len(own)} sources"
+        + (f" and --parent's {len(builds) - len(own)}" if opts.parent else "")
         + f" in {time.perf_counter() - t0:.2f} s")
-    for k in kernels:
+    for k in own:
         for line in k.build_log().splitlines():
             if any(s in line for s in ("registers", "spill", "smem", "Compiling entry")):
-                log(f"  ptxas {k.name}: {line.strip()}")
+                log(f"  ptxas {k.source.stem}: {line.strip()}")
     imma = sass_count(dense.KERNEL, ("IMMA", "HGMMA"))
     log(f"K1 on the tensor cores: {imma} IMMA/HGMMA instructions in the SASS of "
         f"{dense.KERNEL.library_path().name} (cuobjdump -sass)")
@@ -2389,7 +2632,7 @@ def main() -> int:
 
     # 7. the ctrie path, then both walks on the depth-adversarial batches
     k3, ctrie_tables, ctrie_batch, hashed = ctrie_phase(tag, trie_tables, trie_batch)
-    k2["ms_depth_adversarial"], k3["ms_depth_adversarial"] = depth_phase(tag)
+    k2["ms_depth_adversarial"], k3["two_column"]["ms_depth_adversarial"] = depth_phase(tag)
 
     # 8. the wire codecs on both paths' IPv4-compact chunks
     k4 = codec_phase(tag, [

@@ -1,8 +1,9 @@
 """Device kernels of the port and the plain PyTorch code around them.
 
-``all_kernels()`` lists every hand-written kernel (its ``launches`` count
-included); ``chip_smoke.py`` builds them together and checks each against
-its plain version.
+``all_kernels()`` lists every hand-written kernel entry point (its
+``launches`` count included; K3's and K3b's fused entries share their
+sources' libraries); ``chip_smoke.py`` builds them together and checks
+each against its plain version.
 """
 from __future__ import annotations
 
@@ -13,5 +14,5 @@ from ._build import Kernel
 
 
 def all_kernels() -> List[Kernel]:
-    return [dense.KERNEL, walk.KERNEL, cwalk.KERNEL, wire_decode.KERNEL, arena_walk.KERNEL,
-            gather.KERNEL]
+    return [dense.KERNEL, walk.KERNEL, cwalk.KERNEL, cwalk.FUSED_KERNEL, wire_decode.KERNEL,
+            arena_walk.KERNEL, arena_walk.FUSED_KERNEL, gather.KERNEL]

@@ -1,6 +1,6 @@
 """Build the CUDA sources under ``kernels/csrc`` and load them with ctypes.
 
-Each ``csrc/<name>.cu`` exposes a plain C entry point and is compiled on
+Each ``csrc/<name>.cu`` exposes plain C entry points and is compiled on
 first use by ``nvcc`` for ``sm_90a`` into its own shared library under
 ``build/infw_torch/`` at the repository root (a git-ignored directory).
 The library name carries a digest of the source, the shared headers
@@ -20,7 +20,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import List
+from typing import List, Optional
 
 CSRC = Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = CSRC.parents[2] / "build" / "infw_torch"
@@ -39,17 +39,20 @@ def nvcc_path() -> str:
 
 
 class Kernel:
-    """One hand-written CUDA kernel: its source (``csrc/<name>.cu``; another
-    tree's ``csrc`` builds that tree's version), its shared library, its C
-    entry point, and ``launches``, the number of times a wrapper launched
-    it (incremented in ``launch`` and nowhere else)."""
+    """One hand-written CUDA kernel: its source (``csrc/<source>.cu``,
+    ``source`` defaulting to ``name``; another tree's ``csrc`` builds that
+    tree's version), its shared library (one per source, so two entry
+    points of one source share it), its C entry point, and ``launches``,
+    the number of times a wrapper launched it (incremented in ``launch``
+    and nowhere else)."""
 
-    def __init__(self, name: str, symbol: str, argtypes: List, csrc: Path = CSRC) -> None:
+    def __init__(self, name: str, symbol: str, argtypes: List, csrc: Path = CSRC,
+                 source: Optional[str] = None) -> None:
         self.name = name
         self.symbol = symbol
         self.argtypes = argtypes
         self.csrc = Path(csrc)
-        self.source = self.csrc / f"{name}.cu"
+        self.source = self.csrc / f"{source or name}.cu"
         self.launches = 0
         self._fn = None
         self._lock = threading.Lock()
@@ -59,7 +62,7 @@ class Kernel:
         for header in sorted(self.csrc.glob("*.cuh")):
             h.update(header.read_bytes())
         h.update(" ".join(NVCC_FLAGS).encode())
-        return BUILD_DIR / f"{self.name}-{h.hexdigest()[:16]}.so"
+        return BUILD_DIR / f"{self.source.stem}-{h.hexdigest()[:16]}.so"
 
     def build_log(self) -> str:
         """nvcc's output for the current library (ptxas register, shared

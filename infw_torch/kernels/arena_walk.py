@@ -16,8 +16,14 @@ the walk is the ctrie path's.
 - ``arena_ctrie_walk_classify_plain``: the same function in plain PyTorch
   (the tenant-steered entry, torchpath.ctrie_descend, the target resolve,
   the joined-row gather, rule_scan), chunked over packets;
-- ``classify_arena_ctrie`` / ``classify_arena_wire_fused``: the forward pass
-  around the kernel (wire unpack, verdict, statistics, one-buffer output).
+- ``classify_arena_wire_fused``: the whole device pass of a mixed-tenant
+  classify, wire and tenant column in, the one read-back buffer out; on a
+  CUDA tensor one memset and one launch of K3b's fused entry
+  (``infw_arena_wire_fused``, counted by ``FUSED_KERNEL``), else
+  ``classify_arena_wire_fused_plain``, the same function composed of the
+  plain K3b and the torch ops of kernels/torchpath.py;
+- ``classify_arena_ctrie``: the forward pass of a decoded batch through
+  K3b (verdict, statistics).
 
 Only unspliced arenas: a spliced pool is not served (arena.SPLICE_ITEM).
 As on the ctrie path, the rule scan reports action and ruleId as stored.
@@ -29,9 +35,11 @@ from typing import Tuple
 
 import torch
 
+from ..constants import MAX_TARGETS
 from . import _build
-from .cwalk import NODE_WORDS
+from .cwalk import NODE_WORDS, WIRE_WIDTHS, check_wire
 from .torchpath import (
+    STATS_COLS,
     DeviceBatch,
     _u32,
     batch_from_fields,
@@ -51,6 +59,13 @@ KERNEL = _build.Kernel(
     "arena_ctrie_walk",
     "infw_arena_ctrie_walk",
     [ctypes.c_void_p] * 10 + [ctypes.c_int] * 11 + [ctypes.c_void_p],
+)
+#: K3b's fused wire-to-verdict entry, built from the same source
+FUSED_KERNEL = _build.Kernel(
+    "arena_wire_fused",
+    "infw_arena_wire_fused",
+    [ctypes.c_void_p] * 9 + [ctypes.c_int] * 13 + [ctypes.c_void_p],
+    source="arena_ctrie_walk",
 )
 
 
@@ -124,13 +139,7 @@ def arena_ctrie_walk_classify_plain(fields: torch.Tensor, words: torch.Tensor,
     return out
 
 
-def _check_operands(fields, words, tenant, arena, pages: int, d_max: int) -> None:
-    B = fields.shape[0]
-    if fields.shape != (B, 8) or words.shape != (B, 4) or tenant.shape != (B,):
-        raise ValueError(
-            f"arena_ctrie_walk_classify: fields {tuple(fields.shape)} / words "
-            f"{tuple(words.shape)} / tenant {tuple(tenant.shape)}, expected (B, 8) / (B, 4) / (B,)"
-        )
+def _check_pool(arena, pages: int, d_max: int, device: torch.device, who: str) -> None:
     W = arena.joined.shape[-1] if arena.joined.dim() == 2 else 0
     if (
         pages < 1 or d_max < 0
@@ -142,12 +151,39 @@ def _check_operands(fields, words, tenant, arena, pages: int, d_max: int) -> Non
         or arena.targets.dim() != 1 or arena.page_table.dim() != 1
         or arena.page_table.shape[0] == 0
     ):
-        raise ValueError("arena_ctrie_walk_classify: operands are not a CtrieArena layout")
-    operands = (fields, words, tenant, arena.page_table, arena.root_lut, arena.l0,
-                arena.nodes, arena.targets, arena.joined)
-    for t in operands:
+        raise ValueError(f"{who}: operands are not a CtrieArena layout")
+    for t in (arena.page_table, arena.root_lut, arena.l0, arena.nodes, arena.targets,
+              arena.joined):
         want = torch.int16 if t is arena.joined else torch.int32
-        if t.device != fields.device or t.dtype != want:
+        if t.device != device or t.dtype != want:
+            raise ValueError(f"{who}: operands must be on one device, int32 (joined int16)")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{who}: operands must be contiguous and 16-byte aligned")
+
+
+def _pool_args(arena, pages: int, d_max: int) -> tuple:
+    """The pool operands of K3b's C entry points: the six pointers, then
+    MT, SL, R0, the row counts, R and d_max."""
+    return (
+        (arena.page_table.data_ptr(), arena.root_lut.data_ptr(), arena.l0.data_ptr(),
+         arena.nodes.data_ptr(), arena.targets.data_ptr(), arena.joined.data_ptr()),
+        (arena.page_table.shape[0], arena.root_lut.shape[0] // pages,
+         arena.l0.shape[0] // (pages * 65536), arena.root_lut.shape[0], arena.l0.shape[0],
+         arena.nodes.shape[0], arena.targets.shape[0], arena.joined.shape[0],
+         (arena.joined.shape[1] - 3) // 5, d_max),
+    )
+
+
+def _check_operands(fields, words, tenant, arena, pages: int, d_max: int) -> None:
+    B = fields.shape[0]
+    if fields.shape != (B, 8) or words.shape != (B, 4) or tenant.shape != (B,):
+        raise ValueError(
+            f"arena_ctrie_walk_classify: fields {tuple(fields.shape)} / words "
+            f"{tuple(words.shape)} / tenant {tuple(tenant.shape)}, expected (B, 8) / (B, 4) / (B,)"
+        )
+    _check_pool(arena, pages, d_max, fields.device, "arena_ctrie_walk_classify")
+    for t in (fields, words, tenant):
+        if t.device != fields.device or t.dtype != torch.int32:
             raise ValueError("arena_ctrie_walk_classify: operands must be on one device, "
                              "int32 (joined int16)")
         if not t.is_contiguous() or t.data_ptr() % 16:
@@ -163,15 +199,9 @@ def kernel_args(fields: torch.Tensor, words: torch.Tensor, tenant: torch.Tensor,
     _check_operands(fields, words, tenant, arena, pages, d_max)
     B = fields.shape[0]
     out = torch.empty((B, 2), dtype=torch.int32, device=fields.device)
-    return out, (
-        fields.data_ptr(), words.data_ptr(), tenant.data_ptr(), arena.page_table.data_ptr(),
-        arena.root_lut.data_ptr(), arena.l0.data_ptr(), arena.nodes.data_ptr(),
-        arena.targets.data_ptr(), arena.joined.data_ptr(), out.data_ptr(),
-        B, arena.page_table.shape[0], arena.root_lut.shape[0] // pages,
-        arena.l0.shape[0] // (pages * 65536), arena.root_lut.shape[0], arena.l0.shape[0],
-        arena.nodes.shape[0], arena.targets.shape[0], arena.joined.shape[0],
-        (arena.joined.shape[1] - 3) // 5, d_max,
-    )
+    ptrs, dims = _pool_args(arena, pages, d_max)
+    return out, (fields.data_ptr(), words.data_ptr(), tenant.data_ptr(), *ptrs, out.data_ptr(),
+                 B, *dims)
 
 
 def arena_ctrie_walk_classify(fields: torch.Tensor, words: torch.Tensor, tenant: torch.Tensor,
@@ -201,12 +231,52 @@ def classify_arena_ctrie(arena, batch: DeviceBatch, tenant: torch.Tensor, *, pag
     return finalize(raw[:, 0], batch)
 
 
-def classify_arena_wire_fused(arena, wire: torch.Tensor, tenant: torch.Tensor, *, pages: int,
-                              d_max: int) -> torch.Tensor:
-    """Packed wire (B, 3|4|6|7) int32 + (B,) tenant in, ONE int32 buffer
-    out: ceil(B/2) words of u16-pair-packed results, then the (MAX_TARGETS,
-    6) stats (jaxpath.jitted_classify_arena_wire_fused, ctrie family, no
-    overlay)."""
-    res, _xdp, stats = classify_arena_ctrie(arena, unpack_wire(wire), tenant, pages=pages,
-                                            d_max=d_max)
+def classify_arena_wire_fused_plain(arena, wire: torch.Tensor, tenant: torch.Tensor, *,
+                                    pages: int, d_max: int) -> torch.Tensor:
+    """The fused entry's function in plain PyTorch: unpack_wire, the plain
+    K3b, finalize and fuse_wire_outputs."""
+    batch = unpack_wire(wire)
+    fields, words = packet_fields(batch)
+    raw = arena_ctrie_walk_classify_plain(fields, words, tenant.to(torch.int32), arena,
+                                          pages=pages, d_max=d_max)
+    res, _xdp, stats = finalize(raw[:, 0], batch)
     return fuse_wire_outputs(res & 0xFFFF, stats)
+
+
+def fused_args(arena, wire: torch.Tensor, tenant: torch.Tensor, *, pages: int, d_max: int):
+    """The fused entry's operand checks for CUDA tensors: (out, the C entry
+    point's arguments before the grid cap and the stream), ``out`` a new
+    int32 buffer of ceil(B/2) result words, then MAX_TARGETS * 6
+    statistics words."""
+    who = "classify_arena_wire_fused"
+    check_wire(wire, WIRE_WIDTHS, who)
+    B = wire.shape[0]
+    if (tenant.shape != (B,) or tenant.dtype != torch.int32 or tenant.device != wire.device
+            or not tenant.is_contiguous()):
+        raise ValueError(f"{who}: tenant {tuple(tenant.shape)} {tenant.dtype}, expected a "
+                         f"contiguous ({B},) int32 tensor on the wire's device")
+    _check_pool(arena, pages, d_max, wire.device, who)
+    out = torch.empty((B + 1) // 2 + MAX_TARGETS * STATS_COLS, dtype=torch.int32,
+                      device=wire.device)
+    ptrs, dims = _pool_args(arena, pages, d_max)
+    return out, (wire.data_ptr(), tenant.data_ptr(), *ptrs, out.data_ptr(), B, wire.shape[1],
+                 *dims)
+
+
+def classify_arena_wire_fused(arena, wire: torch.Tensor, tenant: torch.Tensor, *, pages: int,
+                              d_max: int, _grid: int = 0) -> torch.Tensor:
+    """Packed wire (B, 3|4|6|7) int32 + (B,) int32 tenant in, ONE int32
+    buffer out: ceil(B/2) words of u16-pair-packed results, then the
+    (MAX_TARGETS, 6) stats (jaxpath.jitted_classify_arena_wire_fused, ctrie
+    family, no overlay).  A CPU tensor runs the plain version; a CUDA
+    tensor is one memset and one launch of K3b's fused entry (building it
+    on first use), or raises.  ``_grid`` > 0 caps the kernel's grid
+    (tests)."""
+    if wire.device.type == "cpu":
+        return classify_arena_wire_fused_plain(arena, wire, tenant, pages=pages, d_max=d_max)
+    if wire.device.type != "cuda":
+        raise ValueError(f"classify_arena_wire_fused: unsupported device {wire.device}")
+    out, args = fused_args(arena, wire, tenant, pages=pages, d_max=d_max)
+    with torch.cuda.device(wire.device):
+        FUSED_KERNEL.launch(*args, _grid, torch.cuda.current_stream().cuda_stream)
+    return out

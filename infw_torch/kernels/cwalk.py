@@ -32,11 +32,17 @@ first hit.
   (ctrie_walk_rows, joined_rule_rows, rule_scan), chunked over packets so
   it also runs at 2^20 packets on the card;
 - ``walk_depths``: the skip steps each packet's walk takes;
-- ``classify_ctrie`` / ``classify_ctrie_wire_fused``: the forward pass
-  around the kernel (wire unpack, verdict, statistics, one-buffer output);
-  ``classify_ctrie_res16`` / ``classify_ctrie_wire8``: the results-only
-  pass of the v4-compact wire formats (wire8 here, delta in
-  kernels/wire_decode.py).
+- ``classify_ctrie_wire_fused`` / ``classify_ctrie_wire8``: the whole
+  device pass of a classify, wire in, the one read-back buffer out; on a
+  CUDA tensor one memset and one launch of K3's fused entry
+  (``infw_ctrie_wire_fused``, counted by ``FUSED_KERNEL``: the wire
+  decoded in registers, the u16 results and the per-rule statistics
+  written by the kernel), else ``classify_ctrie_wire_fused_plain`` /
+  ``classify_ctrie_wire8_plain``, the same function composed of the plain
+  K3 and the torch ops of kernels/torchpath.py;
+- ``classify_ctrie``: the forward pass of a decoded batch through K3
+  (verdict, statistics); ``classify_ctrie_res16``: the results-only pass
+  of the delta format (kernels/wire_decode.py).
 
 As on the trie path, the rule scan reports action and ruleId as stored.
 """
@@ -49,6 +55,7 @@ import numpy as np
 import torch
 
 from ..compiler import CompiledTables
+from ..constants import MAX_TARGETS
 from ..layout import (
     build_cpoptrie,
     hint_dense_rows,
@@ -62,6 +69,7 @@ from ..layout import (
 from . import _build
 from .walk import diff_rows, exact_diff_rows, staged_rows
 from .torchpath import (
+    STATS_COLS,
     DeviceBatch,
     _pack_res16,
     batch_from_fields,
@@ -86,6 +94,15 @@ KERNEL = _build.Kernel(
     "infw_ctrie_walk",
     [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_void_p],
 )
+#: K3's fused wire-to-verdict entry, built from the same source
+FUSED_KERNEL = _build.Kernel(
+    "ctrie_wire_fused",
+    "infw_ctrie_wire_fused",
+    [ctypes.c_void_p] * 8 + [ctypes.c_int] * 11 + [ctypes.c_void_p],
+    source="ctrie_walk",
+)
+#: the wire widths of the fused entry with statistics (wire8 is width 2)
+WIRE_WIDTHS = (3, 4, 6, 7)
 
 
 class CTrieTables(NamedTuple):
@@ -237,28 +254,16 @@ def kernel_args(fields: torch.Tensor, words: torch.Tensor, ct: CTrieTables):
             f"ctrie_walk_classify: fields {tuple(fields.shape)} / words "
             f"{tuple(words.shape)}, expected (B, 8) / (B, 4)"
         )
-    W = ct.joined.shape[-1]
-    if (
-        ct.l0.dim() != 2 or ct.l0.shape[1] != 2 or ct.l0.shape[0] % 65536
-        or ct.nodes.dim() != 2 or ct.nodes.shape[1] != NODE_WORDS
-        or ct.joined.dim() != 2 or W < 3 or (W - 3) % 5
-        or ct.targets.dim() != 1 or ct.root_lut.dim() != 1 or ct.d_max < 0
-    ):
-        raise ValueError("ctrie_walk_classify: operands are not a CTrieTables layout")
-    for t in (fields, words) + tuple(ct[:5]):
-        want = torch.int16 if t is ct.joined else torch.int32
-        if t.device != fields.device or t.dtype != want:
+    check_table(ct, fields.device, "ctrie_walk_classify")
+    for t in (fields, words):
+        if t.device != fields.device or t.dtype != torch.int32:
             raise ValueError("ctrie_walk_classify: operands must be on one device, "
                              "int32 (joined int16)")
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError("ctrie_walk_classify: operands must be contiguous and 16-byte aligned")
     out = torch.empty((B, 2), dtype=torch.int32, device=fields.device)
-    return out, (
-        fields.data_ptr(), words.data_ptr(), ct.root_lut.data_ptr(), ct.l0.data_ptr(),
-        ct.nodes.data_ptr(), ct.targets.data_ptr(), ct.joined.data_ptr(), out.data_ptr(),
-        B, ct.root_lut.shape[0], ct.l0.shape[0], ct.nodes.shape[0], ct.targets.shape[0],
-        ct.joined.shape[0], (W - 3) // 5, ct.d_max,
-    )
+    ptrs, dims = table_args(ct)
+    return out, (fields.data_ptr(), words.data_ptr(), *ptrs, out.data_ptr(), B, *dims)
 
 
 def ctrie_walk_classify(fields: torch.Tensor, words: torch.Tensor,
@@ -285,23 +290,129 @@ def classify_ctrie(ct: CTrieTables, batch: DeviceBatch
     return finalize(ctrie_walk_classify(fields, words, ct)[:, 0], batch)
 
 
-def classify_ctrie_wire_fused(ct: CTrieTables, wire: torch.Tensor) -> torch.Tensor:
-    """Packed wire (B, 3|4|6|7) int32 in, ONE int32 buffer out: ceil(B/2)
-    words of u16-pair-packed results, then the (MAX_TARGETS, 6) stats."""
-    res, _xdp, stats = classify_ctrie(ct, unpack_wire(wire))
+def classify_ctrie_wire_fused_plain(ct: CTrieTables, wire: torch.Tensor) -> torch.Tensor:
+    """The fused entry's function in plain PyTorch: unpack_wire, the plain
+    K3, finalize and fuse_wire_outputs."""
+    batch = unpack_wire(wire)
+    fields, words = packet_fields(batch)
+    res, _xdp, stats = finalize(ctrie_walk_classify_plain(fields, words, ct)[:, 0], batch)
     return fuse_wire_outputs(res & 0xFFFF, stats)
 
 
+def classify_ctrie_wire8_plain(ct: CTrieTables, wire: torch.Tensor,
+                               ifmap: torch.Tensor) -> torch.Tensor:
+    """The wire8 entry's function in plain PyTorch: unpack_wire8, the plain
+    K3, looked_up_results and _pack_res16."""
+    batch = unpack_wire8(wire, ifmap)
+    fields, words = packet_fields(batch)
+    return _pack_res16(looked_up_results(ctrie_walk_classify_plain(fields, words, ct)[:, 0],
+                                         batch))
+
+
+def check_table(ct: CTrieTables, device: torch.device, who: str) -> None:
+    """K3's table checks for CUDA operands on ``device``: a CTrieTables
+    layout, int32 (joined int16), contiguous and 16-byte aligned.  Raises
+    ValueError."""
+    W = ct.joined.shape[-1]
+    if (
+        ct.l0.dim() != 2 or ct.l0.shape[1] != 2 or ct.l0.shape[0] % 65536
+        or ct.nodes.dim() != 2 or ct.nodes.shape[1] != NODE_WORDS
+        or ct.joined.dim() != 2 or W < 3 or (W - 3) % 5
+        or ct.targets.dim() != 1 or ct.root_lut.dim() != 1 or ct.d_max < 0
+    ):
+        raise ValueError(f"{who}: operands are not a CTrieTables layout")
+    for t in ct[:5]:
+        want = torch.int16 if t is ct.joined else torch.int32
+        if t.device != device or t.dtype != want:
+            raise ValueError(f"{who}: operands must be on one device, int32 (joined int16)")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{who}: operands must be contiguous and 16-byte aligned")
+
+
+def table_args(ct: CTrieTables) -> tuple:
+    """The table operands of K3's C entry points: the five pointers, then
+    the row counts, R and d_max."""
+    return (
+        (ct.root_lut.data_ptr(), ct.l0.data_ptr(), ct.nodes.data_ptr(), ct.targets.data_ptr(),
+         ct.joined.data_ptr()),
+        (ct.root_lut.shape[0], ct.l0.shape[0], ct.nodes.shape[0], ct.targets.shape[0],
+         ct.joined.shape[0], (ct.joined.shape[1] - 3) // 5, ct.d_max),
+    )
+
+
+def check_wire(wire: torch.Tensor, widths, who: str) -> None:
+    """A (B, W) int32 wire with W in ``widths``, contiguous (rows of W
+    words).  Raises ValueError."""
+    if wire.dim() != 2 or wire.shape[1] not in widths or wire.dtype != torch.int32:
+        raise ValueError(f"{who}: wire {tuple(wire.shape)} {wire.dtype}, expected (B, W) int32 "
+                         f"with W in {tuple(widths)}")
+    if not wire.is_contiguous():
+        raise ValueError(f"{who}: the wire must be contiguous")
+
+
+def fused_args(ct: CTrieTables, wire: torch.Tensor, ifmap=None):
+    """The fused entry's operand checks for CUDA tensors: (out, the C entry
+    point's arguments before the grid cap and the stream), ``out`` a new
+    int32 buffer of ceil(B/2) result words, then (with statistics, every
+    width but wire8's) MAX_TARGETS * 6 statistics words."""
+    wire8 = ifmap is not None
+    who = "classify_ctrie_wire8" if wire8 else "classify_ctrie_wire_fused"
+    check_wire(wire, (2,) if wire8 else WIRE_WIDTHS, who)
+    check_table(ct, wire.device, who)
+    if wire8:
+        if (ifmap.dim() != 1 or ifmap.shape[0] < 1 or ifmap.dtype != torch.int32
+                or ifmap.device != wire.device or not ifmap.is_contiguous()):
+            raise ValueError(f"{who}: ifmap must be a non-empty 1-D int32 tensor on the wire's "
+                             "device")
+    B = wire.shape[0]
+    n = (B + 1) // 2 + (0 if wire8 else MAX_TARGETS * STATS_COLS)
+    out = torch.empty(n, dtype=torch.int32, device=wire.device)
+    ptrs, dims = table_args(ct)
+    return out, (
+        wire.data_ptr(), ifmap.data_ptr() if wire8 else 0, *ptrs, out.data_ptr(),
+        B, wire.shape[1], ifmap.shape[0] if wire8 else 0, *dims,
+    )
+
+
+def _launch_fused(ct: CTrieTables, wire: torch.Tensor, ifmap, grid: int) -> torch.Tensor:
+    out, args = fused_args(ct, wire, ifmap)
+    with torch.cuda.device(wire.device):
+        FUSED_KERNEL.launch(*args, grid, torch.cuda.current_stream().cuda_stream)
+    return out
+
+
+def classify_ctrie_wire_fused(ct: CTrieTables, wire: torch.Tensor, *,
+                              _grid: int = 0) -> torch.Tensor:
+    """Packed wire (B, 3|4|6|7) int32 in, ONE int32 buffer out: ceil(B/2)
+    words of u16-pair-packed results, then the (MAX_TARGETS, 6) stats
+    (jaxpath.jitted_classify_ctrie_wire_fused).  A CPU tensor runs the
+    plain version; a CUDA tensor is one memset and one launch of K3's fused
+    entry (building it on first use), or raises.  ``_grid`` > 0 caps the
+    kernel's grid (tests)."""
+    if wire.device.type == "cpu":
+        return classify_ctrie_wire_fused_plain(ct, wire)
+    if wire.device.type != "cuda":
+        raise ValueError(f"classify_ctrie_wire_fused: unsupported device {wire.device}")
+    return _launch_fused(ct, wire, None, _grid)
+
+
 def classify_ctrie_res16(ct: CTrieTables, batch: DeviceBatch) -> torch.Tensor:
-    """The v4-compact formats' classify (wire8, delta) through K3: the
-    results only, as ceil(B/2) int32 words of u16-pair-packed results (the
-    host derives the statistics).  No depth truncation: the walk's per-lane
-    /32 cap bounds an IPv4 descent."""
+    """The delta format's classify through K3: the results only, as
+    ceil(B/2) int32 words of u16-pair-packed results (the host derives the
+    statistics).  No depth truncation: the walk's per-lane /32 cap bounds
+    an IPv4 descent."""
     fields, words = packet_fields(batch)
     return _pack_res16(looked_up_results(ctrie_walk_classify(fields, words, ct)[:, 0], batch))
 
 
-def classify_ctrie_wire8(ct: CTrieTables, wire: torch.Tensor, ifmap: torch.Tensor) -> torch.Tensor:
+def classify_ctrie_wire8(ct: CTrieTables, wire: torch.Tensor, ifmap: torch.Tensor, *,
+                         _grid: int = 0) -> torch.Tensor:
     """wire8 (B, 2) int32 + its (16,) ifindex dictionary in, packed res16
-    out (jaxpath.jitted_classify_ctrie_wire8_fused)."""
-    return classify_ctrie_res16(ct, unpack_wire8(wire, ifmap))
+    out (jaxpath.jitted_classify_ctrie_wire8_fused).  A CPU tensor runs the
+    plain version; a CUDA tensor is at most one memset and one launch of
+    K3's fused entry, or raises."""
+    if wire.device.type == "cpu":
+        return classify_ctrie_wire8_plain(ct, wire, ifmap)
+    if wire.device.type != "cuda":
+        raise ValueError(f"classify_ctrie_wire8: unsupported device {wire.device}")
+    return _launch_fused(ct, wire, ifmap, _grid)

@@ -1,7 +1,7 @@
 """Kernels K1, K2, K3, K4, K3b and K5 on the card against their plain
-PyTorch versions, at small sizes, the wire codecs through the classifier,
-the multi-tenant arena classifier, patched tables and the overlay
-combine.
+PyTorch versions, at small sizes, K3's and K3b's fused wire-to-verdict
+entries, the wire codecs through the classifier, the multi-tenant arena
+classifier, patched tables and the overlay combine.
 
 Needs a CUDA card and nvcc; skips elsewhere.  Run on the card with
 
@@ -16,8 +16,9 @@ import torch
 
 from infw_torch import arena, compiler, oracle, testing
 from infw_torch.backend.cuda import TorchArenaClassifier, TorchClassifier
-from infw_torch.kernels import arena_walk, cwalk, dense, gather, torchpath, walk, wire_decode
-from infw_torch.packets import concat
+from infw_torch.kernels import (all_kernels, arena_walk, cwalk, dense, gather, torchpath, walk,
+                                wire_decode)
+from infw_torch.packets import concat, narrow_wire, wire8
 
 pytestmark = pytest.mark.cuda
 
@@ -331,9 +332,10 @@ def test_ctrie_classifier_on_card_matches_trie_path_and_oracle(cuda):
     clf.load_tables(tables)
     trie.load_tables(tables)
     assert clf.active_path == "ctrie" and trie.active_path == "trie"
-    k3, k2 = cwalk.KERNEL.launches, walk.KERNEL.launches
+    k3, k3f, k2 = cwalk.KERNEL.launches, cwalk.FUSED_KERNEL.launches, walk.KERNEL.launches
     out = clf.classify(batch)
-    assert cwalk.KERNEL.launches == k3 + 1 and walk.KERNEL.launches == k2
+    assert cwalk.FUSED_KERNEL.launches == k3f + 1
+    assert cwalk.KERNEL.launches == k3 and walk.KERNEL.launches == k2
     ref = trie.classify(batch)
     for f in ("results", "xdp", "stats_delta"):
         np.testing.assert_array_equal(getattr(out, f), getattr(ref, f), err_msg=f)
@@ -494,7 +496,8 @@ def test_k3b_rejects_bad_operands(cuda):
 
 
 def test_arena_classifier_on_card_matches_oracle_after_swap(cuda):
-    """TorchArenaClassifier() on the card: K3b once per mixed classify, the
+    """TorchArenaClassifier() on the card: K3b's fused entry once per mixed
+    classify and no other kernel, the
     per-tenant oracles before and after a swap (the swapped tenant's
     packets then give the new table's verdicts), UNDEF for absent tenants,
     and the same outputs as on the CPU."""
@@ -516,9 +519,9 @@ def test_arena_classifier_on_card_matches_oracle_after_swap(cuda):
     wire = batch.pack_wire()
 
     def check(tables_of):
-        k3b, k3 = arena_walk.KERNEL.launches, cwalk.KERNEL.launches
+        before = _launch_counts()
         out = clf.classify_async_packed_tenant(wire, tenant).result()
-        assert arena_walk.KERNEL.launches == k3b + 1 and cwalk.KERNEL.launches == k3
+        assert _launch_deltas(before) == {"arena_wire_fused": 1}
         ref = cpu.classify_async_packed_tenant(wire, tenant).result()
         for f in ("results", "xdp", "stats_delta"):
             np.testing.assert_array_equal(getattr(out, f), getattr(ref, f), err_msg=f)
@@ -664,3 +667,243 @@ def test_overlay_classify_on_card_matches_cpu(cuda, path, codec):
     want = oracle.classify(merged, batch)
     np.testing.assert_array_equal(out.results, want.results)
     assert (out.results >> 8 == 2).any()
+
+
+# --- K3's and K3b's fused wire-to-verdict entries ----------------------------
+
+FUSED_SIZES = [0, 1, 31, 33, 257, 4097, (1 << 16) + 5]
+LONG_LENGTHS = ((1 << 21) - 1, 1 << 16)
+
+
+def _launch_counts():
+    return {k.name: k.launches for k in all_kernels()}
+
+
+def _launch_deltas(before):
+    """{kernel name: launches since ``before``}, the kernels launched only."""
+    return {k.name: k.launches - before[k.name] for k in all_kernels()
+            if k.launches != before[k.name]}
+
+
+def _fused_wires(batch, device):
+    """{width: (wire, ifmap or None)} on ``device``, every fused width: the
+    full formats with every 97th packet 2^21 - 1 and the next 2^16 bytes
+    long, the v4-compact ones (4, 3, wire8 2) on the IPv4-compactable
+    packets (kinds 0 and 3 among them), the narrow ones on the packets
+    whose ifindex fits 16 bits."""
+    ok = (batch.ifindex >= 0) & (batch.ifindex < 1 << 16)
+    v4 = batch.take(np.nonzero(ok & (batch.kind != 2) & ~batch.ip_words[:, 1:].any(axis=1))[0])
+    mixed = batch.take(np.nonzero(ok)[0])
+    long = batch.take(np.arange(len(batch)))
+    long_v4 = v4.take(np.arange(len(v4)))
+    for b in (long, long_v4):
+        for k, n in enumerate(LONG_LENGTHS):
+            b.pkt_len[k::97] = n
+    put = lambda a: torch.from_numpy(np.ascontiguousarray(a).view(np.int32)).to(device)
+    w8, ifmap = wire8(v4.pack_wire_v4())
+    return {7: (put(long.pack_wire()), None), 4: (put(long_v4.pack_wire_v4()), None),
+            6: (put(narrow_wire(mixed.pack_wire())), None),
+            3: (put(narrow_wire(v4.pack_wire_v4())), None), 2: (put(w8), put(ifmap))}
+
+
+@pytest.fixture(scope="module")
+def fused_case():
+    """A 5000-entry ctrie table (60% IPv6) with 200,000 packets, and a
+    6-tenant arena (tenant 1 destroyed) with 210,000 packets of its tenants
+    plus ids -1, 6 (absent) and 7 (past max_tenants); each batch packed at
+    every fused width, on the card and on the CPU."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the CUDA kernel has no CPU mode)")
+    rng = np.random.default_rng(77)
+    tables = testing.random_tables_fast(rng, 5000, ifindexes=(2, 3, 4), width=8, v6_fraction=0.6)
+    batch = testing.random_batch_fast(rng, tables, 200_000)
+    tabs = _arena_tenants(6, 64)
+    spec = arena.arena_spec_for("ctrie", tabs, pages=8, max_tenants=7)
+    pools = {}
+    for d in ("cuda", "cpu"):
+        al = arena.ArenaAllocator(spec, d)
+        for t, tab in enumerate(tabs):
+            al.load_tenant(t, tab)
+        al.destroy_tenant(1)
+        pools[d] = al.arena
+    parts = [testing.random_batch_fast(np.random.default_rng(300 + t), tab, 35_000)
+             for t, tab in enumerate(tabs)]
+    order = rng.permutation(6 * 35_000)
+    tb = concat(parts).take(order)
+    tenant = np.repeat(np.arange(6, dtype=np.int32), 35_000)[order]
+    tenant[::50], tenant[1::50], tenant[2::50] = -1, 6, 7
+    return {
+        "ct": {d: cwalk.build_ctrie_tables(tables, d, pad=True) for d in ("cuda", "cpu")},
+        "wires": {d: _fused_wires(batch, d) for d in ("cuda", "cpu")},
+        "pool": pools, "kw": {"pages": spec.pages, "d_max": spec.d_max},
+        "arena_wires": {d: _fused_wires(tb, d) for d in ("cuda", "cpu")},
+        "tenant": tenant, "arena_rows": _fused_rows(tb),
+    }
+
+
+def _fused_rows(batch):
+    """The batch rows behind each width's wire (_fused_wires' selection)."""
+    ok = (batch.ifindex >= 0) & (batch.ifindex < 1 << 16)
+    v4 = np.nonzero(ok & (batch.kind != 2) & ~batch.ip_words[:, 1:].any(axis=1))[0]
+    return {7: np.arange(len(batch)), 4: v4, 6: np.nonzero(ok)[0], 3: v4}
+
+
+def _ctrie_fused(case, width, B, device="cuda", grid=0):
+    wire, ifmap = case["wires"][device][width]
+    ct = case["ct"][device]
+    if ifmap is None:
+        return (lambda: cwalk.classify_ctrie_wire_fused(ct, wire[:B], _grid=grid),
+                lambda: cwalk.classify_ctrie_wire_fused_plain(ct, wire[:B]))
+    return (lambda: cwalk.classify_ctrie_wire8(ct, wire[:B], ifmap, _grid=grid),
+            lambda: cwalk.classify_ctrie_wire8_plain(ct, wire[:B], ifmap))
+
+
+def _arena_fused(case, width, B, device="cuda", grid=0):
+    wire, _ = case["arena_wires"][device][width]
+    tenant = torch.from_numpy(case["tenant"][case["arena_rows"][width]][:B].copy()).to(device)
+    pool, kw = case["pool"][device], case["kw"]
+    return (lambda: arena_walk.classify_arena_wire_fused(pool, wire[:B], tenant, _grid=grid,
+                                                         **kw),
+            lambda: arena_walk.classify_arena_wire_fused_plain(pool, wire[:B], tenant, **kw))
+
+
+def _one_launch_equal(kernel, pair, cpu_pair=None):
+    """The fused entry once on the card: one count of ``kernel`` and no
+    other, its buffer equal to the plain version's on the card (and to the
+    CPU's when given)."""
+    run, plain = pair
+    before = _launch_counts()
+    got = run()
+    torch.cuda.synchronize()
+    assert _launch_deltas(before) == {kernel.name: 1}
+    assert torch.equal(got, plain())
+    if cpu_pair is not None:
+        assert torch.equal(got.cpu(), cpu_pair[0]())
+    return got
+
+
+@pytest.mark.parametrize("B", FUSED_SIZES)
+def test_k3_fused_matches_plain(fused_case, B):
+    """K3's fused entry at every width and wire8 on ragged batches: the
+    whole read-back buffer equal to the plain version's, on the card and
+    on the CPU, one launch and no other kernel."""
+    for width in (7, 6, 4, 3, 2):
+        got = _one_launch_equal(cwalk.FUSED_KERNEL, _ctrie_fused(fused_case, width, B),
+                                _ctrie_fused(fused_case, width, B, "cpu"))
+        n = (B + 1) // 2 + (0 if width == 2 else 6144)
+        assert got.shape == (n,), width
+        if B > 1000:
+            assert int((got[:(B + 1) // 2] != 0).sum()) > B // 8, width
+            if width != 2:
+                assert int(got[-6144:].view(-1, 6)[:, [1, 4]].sum()) > 0, width
+
+
+@pytest.mark.parametrize("B", FUSED_SIZES)
+def test_k3b_fused_matches_plain(fused_case, B):
+    """K3b's fused entry at every width on ragged mixed-tenant batches
+    (invalid, absent and destroyed tenants among them): equal to the plain
+    version on the card and on the CPU, one launch and no other kernel."""
+    for width in cwalk.WIRE_WIDTHS:
+        got = _one_launch_equal(arena_walk.FUSED_KERNEL, _arena_fused(fused_case, width, B),
+                                _arena_fused(fused_case, width, B, "cpu"))
+        assert got.shape == ((B + 1) // 2 + 6144,), width
+        if B > 1000:
+            assert int((got[:(B + 1) // 2] != 0).sum()) > B // 8 and got[-6144:].any(), width
+
+
+@pytest.mark.parametrize("grid", [1, 2, 7])
+def test_fused_forced_small_grid(fused_case, grid):
+    """Both fused entries on a grid of 1, 2 or 7 blocks over the whole
+    batch: each thread takes hundreds of packets and each block's
+    statistics table sums them all before its one flush."""
+    for width in (7, 3, 2):
+        _one_launch_equal(cwalk.FUSED_KERNEL, _ctrie_fused(fused_case, width, None, grid=grid))
+    for width in (6, 4):
+        _one_launch_equal(arena_walk.FUSED_KERNEL,
+                          _arena_fused(fused_case, width, None, grid=grid))
+
+
+def test_fused_stats_wrap(cuda):
+    """525,312 ALLOW packets of 2^21 - 1 bytes on a 1-entry table (a v4 /0
+    on ifindex 2) and on an arena holding it: the allow_hi column passes
+    2^32 and wraps, equal to the plain versions."""
+    rows = np.zeros((4, 7), np.int32)
+    rows[0] = [7, 0, 0, 0, 0, 0, 2]
+    tables = compiler.compile_tables_from_content(
+        {compiler.LpmKey(32, 2, bytes(16)): rows}, rule_width=4)
+    n = 525_312
+    pb = testing.random_batch_fast(np.random.default_rng(5), tables, 16).take(np.zeros(n, np.int64))
+    pb.kind[:], pb.l4_ok[:], pb.ifindex[:], pb.pkt_len[:] = 1, 1, 2, (1 << 21) - 1
+    pb.ip_words[:, 1:] = 0
+    wire = torch.from_numpy(pb.pack_wire_v4().view(np.int32)).to(cuda)
+    ct = cwalk.build_ctrie_tables(tables, cuda, pad=True)
+    got = _one_launch_equal(cwalk.FUSED_KERNEL, (
+        lambda: cwalk.classify_ctrie_wire_fused(ct, wire),
+        lambda: cwalk.classify_ctrie_wire_fused_plain(ct, wire)))
+    stats = got[(n + 1) // 2:].view(-1, 6).cpu().numpy().view(np.uint32)
+    assert stats[7, 0] == n and stats[7, 1] == (8191 * n) % (1 << 32) and 8191 * n > 1 << 32
+    spec = arena.arena_spec_for("ctrie", [tables], pages=4, max_tenants=2)
+    al = arena.ArenaAllocator(spec, cuda)
+    al.load_tenant(0, tables)
+    tenant = torch.zeros(n, dtype=torch.int32, device=cuda)
+    kw = {"pages": spec.pages, "d_max": spec.d_max}
+    got_b = _one_launch_equal(arena_walk.FUSED_KERNEL, (
+        lambda: arena_walk.classify_arena_wire_fused(al.arena, wire, tenant, **kw),
+        lambda: arena_walk.classify_arena_wire_fused_plain(al.arena, wire, tenant, **kw)))
+    assert torch.equal(got_b, got)
+
+
+def _device_ops(fn):
+    """torch.profiler over one call after a warm one: (kernels, memsets)
+    the card ran, traced again (up to three times) when the trace holds
+    fewer kernels than the runtime's launch records."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        dev = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+        api = sum(e.name.startswith(("cudaLaunch", "cuLaunch")) for e in prof.events()
+                  if e.device_type == DeviceType.CPU)
+        kernels = [n for n in dev if not n.startswith(("Memset", "Memcpy"))]
+        if len(kernels) >= api:
+            return kernels, [n for n in dev if n.startswith("Memset")]
+    raise AssertionError("the profiler lost kernel events three times")
+
+
+def test_fused_passes_are_one_memset_and_one_kernel(fused_case):
+    """On the card each fused entry runs no torch op on the batch: the
+    profiler sees one kernel (the fused K3 or K3b) and at most one memset
+    per pass."""
+    for name, (run, _plain) in (
+            ("ctrie_wire_fused", _ctrie_fused(fused_case, 6, 4097)),
+            ("ctrie_wire_fused", _ctrie_fused(fused_case, 2, 4097)),
+            ("arena_wire_fused", _arena_fused(fused_case, 7, 4097))):
+        kernels, memsets = _device_ops(run)
+        assert len(kernels) == 1 and name in kernels[0], (name, kernels)
+        assert len(memsets) <= 1, (name, memsets)
+
+
+def test_fused_rejects_bad_operands(fused_case):
+    ct = fused_case["ct"]["cuda"]
+    wire, _ = fused_case["wires"]["cuda"][7]
+    w8, ifmap = fused_case["wires"]["cuda"][2]
+    for bad in (wire[:8, :5].contiguous(), wire[:8].long(), wire[:8, ::2], w8[:8]):
+        with pytest.raises(ValueError):
+            cwalk.classify_ctrie_wire_fused(ct, bad)
+    with pytest.raises(ValueError):
+        cwalk.classify_ctrie_wire8(ct, w8[:8], ifmap[:0])
+    with pytest.raises(ValueError):
+        cwalk.classify_ctrie_wire8(ct, wire[:8], ifmap)
+    with pytest.raises(ValueError):
+        cwalk.classify_ctrie_wire_fused(ct._replace(joined=ct.joined.int()), wire[:8])
+    pool, kw = fused_case["pool"]["cuda"], fused_case["kw"]
+    tenant = torch.zeros(8, dtype=torch.int32, device="cuda")
+    for bad_wire, bad_tenant in ((wire[:8], tenant.long()), (wire[:8], tenant[:7]),
+                                 (w8[:8], tenant), (wire[:8], tenant.cpu())):
+        with pytest.raises(ValueError):
+            arena_walk.classify_arena_wire_fused(pool, bad_wire, bad_tenant, **kw)
