@@ -111,7 +111,13 @@ its multi-tenant arena on the card and fails (non-zero exit, no result line) on 
     overlay against its plain version; the ctrie pass without the overlay
     fused against composed in turns);
 11. the gather microbenchmark's kernel K5 and its tool;
-12. one JSON ``kernels`` line (K3 and K3b as their fused entries, which
+12. the port's daemon (infw_torch.daemon.Daemon, threads started): the
+    headline CRs' ingress blocks as one NodeState file, then bench config
+    5a's replay of the 100K trie re-adopted from a checkpoint, then one
+    pass under compressed=True; every file's verdicts against the oracle
+    on subsets and a host recount, stats, deny events and /metrics;
+    launches per pass go on the kernels line as ``daemon_launches``;
+13. one JSON ``kernels`` line (K3 and K3b as their fused entries, which
     the main path runs, each with its two-column entry's readings under
     ``two_column``), then the device JSON as the last line.
 
@@ -2446,6 +2452,367 @@ def gather_phase(tag: str) -> dict:
     }
 
 
+# the daemon phase: a NodeState file and frames files through the port's
+# daemon (bench config 5a of the JAX package, bench.py bench_replay_10m)
+REPLAY_FILES, REPLAY_PACKETS, REPLAY_PASSES = 10, 1_000_000, 3
+DAEMON_NODE = "node-0"
+DAEMON_IFACES = {"eth0": 2, "eth1": 3, "eth2": 4}
+
+
+def _wait(cond, what: str, timeout: float = 300.0, every: float = 0.005) -> float:
+    """Poll ``cond`` until it holds; seconds waited.  Fails the script on
+    timeout."""
+    t0 = time.perf_counter()
+    while not cond():
+        if time.perf_counter() - t0 > timeout:
+            raise SystemExit(f"daemon: timed out waiting for {what}")
+        time.sleep(every)
+    return time.perf_counter() - t0
+
+
+def _metric(d, name: str) -> int:
+    import urllib.request
+
+    body = urllib.request.urlopen(f"http://127.0.0.1:{d.actual_metrics_port}/metrics",
+                                  timeout=10).read().decode()
+    for line in body.splitlines():
+        if line.startswith(f"ingressnodefirewall_node_{name} "):
+            return int(line.split()[1])
+    raise SystemExit(f"/metrics has no {name}")
+
+
+def copy_overlap(prof) -> tuple:
+    """From a torch.profiler trace: (milliseconds of host-to-device copy,
+    of them the milliseconds during which a kernel ran on the card, the
+    copies' kinds by name, milliseconds during which any kernel ran)."""
+    from torch.autograd import DeviceType
+
+    copies, kernels, names = [], [], {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        span = (e.time_range.start, e.time_range.end)
+        if e.name.startswith("Memcpy"):
+            names[e.name] = names.get(e.name, 0) + 1
+            if "HtoD" in e.name:
+                copies.append(span)
+        elif not e.name.startswith("Memset"):
+            kernels.append(span)
+    kernels.sort()
+    merged = []
+    for s, t in kernels:
+        if merged and s <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], t)
+        else:
+            merged.append([s, t])
+    total = sum(t - s for s, t in copies)
+    over = 0.0
+    for s, t in copies:
+        for ks, kt in merged:
+            if kt > s and ks < t:
+                over += min(t, kt) - max(s, ks)
+    busy = sum(t - s for s, t in merged)
+    return total / 1e3, over / 1e3, names, busy / 1e3
+
+
+def stage_split(d, wall: float) -> str:
+    """The daemon's stage seconds of the last pass (Daemon.stage_seconds,
+    file-loop thread) and the rest of the wall time (between ticks)."""
+    parts = ", ".join(f"{k} {v:.3f}" for k, v in d.stage_seconds.items())
+    return (f"stage split (s): {parts}, outside the ticks "
+            f"{wall - sum(d.stage_seconds.values()):.3f}")
+
+
+def check_daemon_files(d, files, reference, label: str) -> dict:
+    """Every file's summary against a host recount of its verdict sidecar,
+    its first ORACLE_PACKETS packets against ``reference`` (an oracle's
+    classify of the parsed frames); returns the recounted statistics and
+    deny count."""
+    from infw_torch.backend.base import stats_from_results
+    from infw_torch.obs import pcap
+
+    stats = np.zeros((1024, 4), np.int64)
+    denies = 0
+    for name, fb in files:
+        res = np.fromfile(os.path.join(d.out_dir, name + ".verdicts.bin"), "<u4")
+        summary = json.load(open(os.path.join(d.out_dir, name + ".verdicts.json")))
+        parsed = pcap.parse_frames_buf(fb)
+        drop = (parsed.kind == 0) | ((res & 0xFF) == 1)
+        want = {"file": name, "packets": len(fb), "pass": int((~drop).sum()),
+                "drop": int(drop.sum()), "results_file": name + ".verdicts.bin"}
+        if len(res) != len(fb) or summary != want:
+            raise SystemExit(f"{label}: {name}'s summary {summary} disagrees with its "
+                             f"verdicts {want}")
+        n = ORACLE_PACKETS
+        sub = pcap.FramesBuf(fb.buf, fb.offsets[:n], fb.lengths[:n], fb.ifindex[:n])
+        ref = reference(pcap.parse_frames_buf(sub))
+        if not np.array_equal(res[:n], ref.results):
+            raise SystemExit(f"{label}: {name} disagrees with the oracle on its first "
+                             f"{n} packets")
+        stats += stats_from_results(res, parsed.pkt_len)
+        denies += int(((res & 0xFF) == 1).sum())
+    return {"stats": stats, "denies": denies}
+
+
+def check_daemon_counters(d, clf, before: dict, got: dict, label: str) -> None:
+    """The daemon's statistics against the recount, the deny events
+    (decoded spill rows, and no lost sample) against the deny verdicts, the
+    /metrics deny counter against the statistics."""
+    from infw_torch.obs import events
+
+    delta = clf.stats.snapshot() - before["stats"]
+    if not np.array_equal(delta, got["stats"]):
+        raise SystemExit(f"{label}: the daemon's statistics disagree with the verdicts")
+    spill = os.path.join(d.state_dir, "deny-events.bin")
+    row = events.BatchDenyRecord.SPILL_DTYPE.itemsize
+    size = lambda: os.path.getsize(spill) if os.path.exists(spill) else 0
+    _wait(lambda: size() >= before["spill"] + got["denies"] * row, "the deny-event spill", 60)
+    d.events_logger.drain_once()
+    rows = np.fromfile(spill, events.BatchDenyRecord.SPILL_DTYPE)[before["spill"] // row:]
+    small = d.ring.queued_total - before["queued"] - len(rows)
+    if (len(rows) != got["denies"] or not ((rows["result"] & 0xFF) == 1).all()
+            or d.ring.lost_samples or small):
+        raise SystemExit(f"{label}: {len(rows)} spilled deny events (+{small} as lines, "
+                         f"{d.ring.lost_samples} lost) for {got['denies']} deny verdicts")
+    want = int(clf.stats.snapshot()[1:100, 2].sum())
+    _wait(lambda: _metric(d, "packet_deny_total") == want, "the /metrics deny counter", 30, 0.05)
+    log(f"{label}: summaries, oracle subsets, statistics, {got['denies']} deny events "
+        f"(spill rows, 0 lost) and /metrics deny total {want}: equal")
+
+
+def daemon_phase(tag: str, iface_rules: dict) -> dict:
+    """The port's daemon as a user runs it (infw_torch.daemon.Daemon, the
+    default cuda backend, threads started): the headline dense NodeState,
+    then the 100K-CIDR trie state re-adopted from a checkpoint and bench
+    config 5a's replay, then one pass under compressed=True.  Returns
+    {pass: {kernel name: launches}} for the dense pass, the trie replay's
+    passes summed, and the compressed pass."""
+    import shutil
+
+    import torch
+
+    from infw_torch import compiler, daemon, oracle, spec, testing
+    from infw_torch.compiler import LazyContent
+    from infw_torch.interfaces import Interface, InterfaceRegistry
+    from infw_torch.kernels import all_kernels
+    from infw_torch.obs import pcap
+    from torch.profiler import ProfilerActivity, profile
+
+    t_phase = time.perf_counter()
+    kernels = all_kernels()
+    registry = InterfaceRegistry()
+    for name, index in DAEMON_IFACES.items():
+        registry.add(Interface(name=name, index=index))
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "daemon-smoke")
+    shutil.rmtree(root, ignore_errors=True)
+    daemons = []
+
+    def start(name: str, **kw):
+        d = daemon.Daemon(state_dir=os.path.join(root, name), node_name=DAEMON_NODE,
+                          registry=registry, metrics_port=0, health_port=0,
+                          poll_period_s=0.1, file_poll_interval_s=0.02, **kw)
+        daemons.append(d)
+        return d
+
+    def write_state(d, doc):
+        p = os.path.join(d.nodestates_dir, f"{DAEMON_NODE}.json")
+        with open(p + ".tmp", "w") as f:
+            json.dump(doc, f)
+        os.replace(p + ".tmp", p)
+
+    def ready(d) -> bool:
+        """Serving: the classifier holds tables and the sync that loaded
+        them has returned (attached_interfaces takes the syncer's lock,
+        which the file loop holds to the end of the sync: the diff against
+        a re-adopted checkpoint, the manifest)."""
+        c = d.syncer.classifier
+        return c is not None and c.tables is not None and bool(d.syncer.attached_interfaces())
+
+    def counters(d):
+        clf = d.syncer.classifier
+        return {"stats": clf.stats.snapshot(), "queued": d.ring.queued_total,
+                "spill": os.path.getsize(os.path.join(d.state_dir, "deny-events.bin"))
+                if os.path.exists(os.path.join(d.state_dir, "deny-events.bin")) else 0}
+
+    def run_pass(d, files, label: str):
+        """Stage the files, zero the counts, move them into ingest/ and
+        wait for every summary; returns (seconds, launches)."""
+        stage = os.path.join(d.state_dir, "staging")
+        os.makedirs(stage, exist_ok=True)
+        for name, fb in files:
+            daemon.write_frames_file_v2(os.path.join(stage, name), fb)
+        torch.cuda.synchronize()
+        for k in kernels:
+            k.launches = 0
+        d.stage_seconds.update(dict.fromkeys(d.stage_seconds, 0.0))
+        t0 = time.perf_counter()
+        for name, _fb in files:
+            os.replace(os.path.join(stage, name), os.path.join(d.ingest_dir, name))
+        last = [os.path.join(d.out_dir, name + ".verdicts.json") for name, _fb in files]
+        _wait(lambda: all(os.path.exists(p) for p in last), f"{label}'s summaries", 600, 0.002)
+        dt = time.perf_counter() - t0
+        return dt, {k.name: k.launches for k in kernels if k.launches}
+
+    try:
+        # 1. the headline dense state as one NodeState file
+        doc = {"metadata": {"name": DAEMON_NODE},
+               "spec": {"interfaceIngressRules": iface_rules}}
+        ns = spec.IngressNodeFirewallNodeState.from_dict(doc)
+        dense_tables = compiler.compile_tables(ns.spec.interface_ingress_rules, registry)
+        d = start("dense")
+        d.start()
+        t0 = time.perf_counter()
+        write_state(d, doc)
+        _wait(lambda: ready(d), "the dense NodeState", 300)
+        clf = d.syncer.classifier
+        log(f"daemon dense: NodeState of {dense_tables.num_entries} entries synced in "
+            f"{time.perf_counter() - t0:.3f} s; path {clf.active_path} on {clf.device}")
+        if clf.active_path != "dense" or clf.device.type != "cuda":
+            raise SystemExit("daemon: the headline state must serve on the dense path on the card")
+        b = testing.random_batch_fast(np.random.default_rng(40), dense_tables, HEADLINE_PACKETS)
+        fb = pcap.build_frames_bulk(b.kind, b.ip_words, b.proto, b.dst_port, b.icmp_type,
+                                    b.icmp_code, l4_ok=b.l4_ok)
+        fb.ifindex = np.asarray(b.ifindex, np.uint32)
+        before = counters(d)
+        dt, launches = run_pass(d, [("dense.frames", fb)], "the dense file")
+        by_pass = {"dense": launches}
+        log(f"{tag} daemon dense: 1 file x {len(fb)} frames in {dt:.3f} s = "
+            f"{len(fb) / dt / 1e6:.3f} M packets/s, launches {launches}; {stage_split(d, dt)}")
+        if launches.get("dense_classify", 0) <= 0 or set(launches) != {"dense_classify"}:
+            raise SystemExit(f"daemon: the dense state must launch K1 and nothing else: {launches}")
+        got = check_daemon_files(d, [("dense.frames", fb)],
+                                 lambda sub: oracle.classify(dense_tables, sub), "daemon dense")
+        check_daemon_counters(d, clf, before, got, "daemon dense")
+        d.stop()
+
+        # 2. bench config 5a: the 100K-CIDR trie state, re-adopted from a
+        # checkpoint the port's CompiledTables.save wrote, as a restart
+        # finds it (the NodeState file beside it, unchanged)
+        t0 = time.perf_counter()
+        doc = testing.random_nodestate(np.random.default_rng(31), DAEMON_NODE, DAEMON_IFACES,
+                                       TRIE_ENTRIES, width=TRIE_WIDTH)
+        ns = spec.IngressNodeFirewallNodeState.from_dict(doc)
+        tables = compiler.compile_tables(ns.spec.interface_ingress_rules, registry)
+        compile_s = time.perf_counter() - t0
+        ck = os.path.join(root, "trie", "checkpoint")
+        os.makedirs(ck)
+        t0 = time.perf_counter()
+        tables.save(os.path.join(ck, "tables.npz"))
+        with open(os.path.join(ck, "manifest.json"), "w") as f:
+            json.dump({"attached": sorted(DAEMON_IFACES)}, f)
+        save_s = time.perf_counter() - t0
+        shutil.copytree(ck, os.path.join(root, "ctrie", "checkpoint"))
+        log(f"daemon trie: NodeState of {tables.num_entries} entries x {tables.rule_width} rule "
+            f"slots compiled in {compile_s:.2f} s (host), checkpoint written in {save_s:.2f} s "
+            f"({os.path.getsize(os.path.join(ck, 'tables.npz')) / 1e6:.1f} MB)")
+        d = start("trie")
+        write_state(d, doc)
+        t0 = time.perf_counter()
+        d.start()
+        _wait(lambda: ready(d), "the re-adopted trie state", 300)
+        clf = d.syncer.classifier
+        adopted = d.syncer._updater is None and isinstance(clf.tables.content, LazyContent)
+        log(f"daemon trie: started and serving in {time.perf_counter() - t0:.2f} s "
+            f"(re-adopted the checkpoint: {adopted}); path {clf.active_path}, "
+            f"{clf.tables.levels} levels, attached {sorted(d.syncer.attached_interfaces())}")
+        if not adopted or clf.active_path != "trie":
+            raise SystemExit("daemon: the trie state must be re-adopted from the checkpoint "
+                             "and served on the trie path")
+
+        t0 = time.perf_counter()
+        b = testing.random_batch_fast(np.random.default_rng(32), tables, REPLAY_PACKETS)
+        fb = pcap.build_frames_bulk(b.kind, b.ip_words, b.proto, b.dst_port, b.icmp_type,
+                                    b.icmp_code, l4_ok=b.l4_ok)
+        base_ifx = np.asarray(b.ifindex, np.uint32)
+        hashed = oracle.HashLpmOracle(tables)
+        # the ifindex rotation of bench.py:897-910: every (pass, file) is
+        # distinct, hit and miss traffic as in the generated batch
+        live = np.asarray(tables.mask_len[: tables.num_entries]) >= 0
+        dom = np.unique(np.asarray(tables.key_words[: tables.num_entries, 0])[live]).astype(np.uint32)
+        pos = np.searchsorted(dom, base_ifx)
+        pos_ok = (pos < len(dom)) & (dom[np.minimum(pos, len(dom) - 1)] == base_ifx)
+        log(f"daemon replay: {REPLAY_PACKETS} frames synthesized in "
+            f"{time.perf_counter() - t0:.2f} s ({len(fb.buf) / 1e6:.1f} MB per file)")
+
+        def pass_files(p: int, n_files: int = REPLAY_FILES):
+            out = []
+            for i in range(n_files):
+                k = p * REPLAY_FILES + i
+                ifx = np.where(pos_ok, dom[(pos + k) % len(dom)], base_ifx).astype(np.uint32)
+                out.append((f"p{p}-f{i:02d}.frames",
+                            pcap.FramesBuf(fb.buf, fb.offsets, fb.lengths, np.roll(ifx, 977 * k))))
+            return out
+
+        def replay_pass(d, p: int, label: str):
+            clf = d.syncer.classifier
+            files = pass_files(p)
+            before = counters(d)
+            ws0 = clf.wire_stats()
+            dt, launches = run_pass(d, files, label)
+            ws = {k: tuple(v - ws0.get(k, (0, 0))[j] for j, v in enumerate(vals))
+                  for k, vals in clf.wire_stats().items()}
+            got = check_daemon_files(d, files, hashed.classify, label)
+            check_daemon_counters(d, clf, before, got, label)
+            n = REPLAY_FILES * REPLAY_PACKETS
+            log(f"{tag} {label}: {REPLAY_FILES} x {REPLAY_PACKETS} frames in {dt:.3f} s = "
+                f"{n / dt / 1e6:.3f} M packets/s; launches {launches}; {stage_split(d, dt)}; "
+                f"wire {ws}")
+            return dt, launches, ws
+
+        times, total = [], {}
+        by_pass["trie"] = total
+        for p in range(REPLAY_PASSES):
+            dt, launches, ws = replay_pass(d, p, f"daemon replay pass {p}")
+            times.append(dt)
+            if launches.get("trie_walk", 0) <= 0:
+                raise SystemExit(f"daemon replay: K2 was not launched: {launches}")
+            if (ws.get("delta", (0, 0))[0] > 0) != (launches.get("wire_decode", 0) > 0):
+                raise SystemExit(f"daemon replay: K4 launches {launches} do not match the "
+                                 f"delta chunks {ws}")
+            for k, v in launches.items():
+                total[k] = total.get(k, 0) + v
+        n = REPLAY_FILES * REPLAY_PACKETS
+        log(f"{tag} daemon replay (bench config 5a, 100K trie, {REPLAY_PASSES} passes): "
+            f"min {n / max(times) / 1e6:.3f} / median {n / float(np.median(times)) / 1e6:.3f} / "
+            f"max {n / min(times) / 1e6:.3f} M packets/s; wire_stats() {clf.wire_stats()}")
+
+        # where the copies went: two files under the profiler, the copies'
+        # time beside the time a kernel ran at the same moment
+        files = pass_files(REPLAY_PASSES, 2)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            dt, _launches = run_pass(d, files, "the profiled files")
+        copy_ms, over_ms, names, busy_ms = copy_overlap(prof)
+        log(f"{tag} daemon trace (2 files, {dt:.3f} s under the profiler): host-to-device "
+            f"copies {copy_ms:.3f} ms, of which {over_ms:.3f} ms overlapped a kernel; copies by "
+            f"kind {names}; a kernel ran during {busy_ms:.3f} ms (the card idle "
+            f"{100 * (1 - busy_ms / 1e3 / dt):.2f}% of the pass)")
+        d.stop()
+
+        # 3. one pass under compressed=True: the ctrie path and the fused K3
+        d = start("ctrie", compressed=True)
+        write_state(d, doc)
+        t0 = time.perf_counter()
+        d.start()
+        _wait(lambda: ready(d), "the compressed state", 300)
+        clf = d.syncer.classifier
+        log(f"daemon ctrie: re-adopted and serving in {time.perf_counter() - t0:.2f} s; "
+            f"path {clf.active_path}")
+        if clf.active_path != "ctrie":
+            raise SystemExit("daemon: compressed=True must serve the ctrie path")
+        dt, launches, _ws = replay_pass(d, REPLAY_PASSES + 1, "daemon replay compressed")
+        if launches.get("ctrie_wire_fused", 0) <= 0:
+            raise SystemExit(f"daemon compressed: K3's fused entry was not launched: {launches}")
+        by_pass["ctrie"] = launches
+        d.stop()
+        log(f"daemon phase: {time.perf_counter() - t_phase:.1f} s")
+        return by_pass
+    finally:
+        for d in daemons:
+            if d._threads:
+                d.stop()
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main() -> int:
     import torch
 
@@ -2653,7 +3020,23 @@ def main() -> int:
     # 11. the gather microbenchmark's kernel and tool
     k5 = gather_phase(tag)
 
-    # 12. the kernels line, then the device line last
+    # 12. the daemon: the headline CRs' ingress blocks as one NodeState,
+    # then bench config 5a's replay, through infw_torch.daemon
+    crs = make_crs(np.random.default_rng(7))
+    daemon_launches = daemon_phase(tag, {
+        name: [ing for cr in crs if name in cr["spec"]["interfaces"] for ing in cr["spec"]["ingress"]]
+        for name in DAEMON_IFACES
+    })
+    # each kernel's launches in each daemon pass, the two-column walks
+    # under their own entries; a launch no entry names fails the run
+    entries = [k1, k2, k3, k4, k3b, k5, k3["two_column"], k3b["two_column"]]
+    for k in entries:
+        k["daemon_launches"] = {p: c.get(k["name"], 0) for p, c in daemon_launches.items()}
+    unlisted = {n for c in daemon_launches.values() for n in c} - {k["name"] for k in entries}
+    if unlisted:
+        raise SystemExit(f"daemon: kernels {sorted(unlisted)} launched but not on the kernels line")
+
+    # 13. the kernels line, then the device line last
     print(json.dumps({"kernels": [k1, k2, k3, k4, k3b, k5]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}),
           flush=True)

@@ -126,6 +126,10 @@ class _Active(NamedTuple):
 class TorchClassifier:
     """Single-device classifier (dense, trie and ctrie paths)."""
 
+    #: load_tables takes an overlay (see the module docstring), so the
+    #: syncer routes structurally new keys on a trie-scale table to it
+    supports_overlay = True
+
     def __init__(self, device=None, dense_limit: int = dense.MAX_DENSE_TARGETS,
                  force_path: Optional[str] = None,
                  compressed: Optional[bool] = None,

@@ -24,6 +24,7 @@ icmpCode, action] — all int32.
 """
 from __future__ import annotations
 
+import json
 from dataclasses import dataclass, field
 from collections.abc import MutableMapping
 from typing import Dict, List, Mapping, NamedTuple, Optional, Sequence, Tuple
@@ -736,6 +737,78 @@ class CompiledTables:
     @property
     def levels(self) -> int:
         return len(self.trie_levels)
+
+    def save(self, path) -> None:
+        """Persist the tables (the daemon's checkpoint, the pinned-map
+        equivalent) as the JAX package's npz layout, key for key: the
+        content as packed columns and each trie level sparsely (the row
+        index of its nonzero rows, those rows, its shape).  ``path`` is a
+        filename or a writable binary file."""
+        meta = {
+            "rule_width": self.rule_width,
+            "num_entries": self.num_entries,
+            "n_trie_levels": len(self.trie_levels),
+        }
+        cols = columns_from_content(self.content, self.rule_width)
+        content_rules = (
+            np.asarray(cols.rules, np.int32) if len(cols)
+            else np.zeros((0, self.rule_width, RULE_COLS), np.int32)
+        )
+        levels = {}
+        for i, tbl in enumerate(self.trie_levels):
+            nnz = np.nonzero(tbl.any(axis=tuple(range(1, tbl.ndim))))[0]
+            levels[f"trie_level_{i}_nnz"] = nnz.astype(np.int64)
+            levels[f"trie_level_{i}_rows"] = tbl[nnz]
+            levels[f"trie_level_{i}_shape"] = np.asarray(tbl.shape, np.int64)
+        np.savez_compressed(
+            path,
+            meta=json.dumps(meta),
+            key_words=self.key_words,
+            mask_words=self.mask_words,
+            mask_len=self.mask_len,
+            rules=self.rules,
+            root_lut=self.root_lut,
+            content_rules=content_rules,
+            content_key_plen=np.asarray(cols.prefix_len, np.uint16),
+            content_key_ifx=np.asarray(cols.ifindex, np.uint32),
+            content_key_ip=cols.ip,
+            **levels,
+        )
+
+    @classmethod
+    def load(cls, path) -> "CompiledTables":
+        """Read a checkpoint written by ``save`` or by the JAX package's
+        CompiledTables.save; the content comes back as a LazyContent over
+        the stored columns."""
+        with np.load(path, allow_pickle=False) as z:
+            meta = json.loads(str(z["meta"]))
+            if "n_trie_levels" not in meta or "content_key_plen" not in z:
+                raise CompileError(
+                    f"{path}: incompatible compiled-table format; recompile from the spec"
+                )
+            content = LazyContent(
+                z["content_key_plen"].astype(np.int64),
+                z["content_key_ifx"].astype(np.int64),
+                z["content_key_ip"],
+                z["content_rules"],
+            )
+            trie_levels = []
+            for i in range(meta["n_trie_levels"]):
+                rows = z[f"trie_level_{i}_rows"]
+                tbl = np.zeros(tuple(z[f"trie_level_{i}_shape"]), rows.dtype)
+                tbl[z[f"trie_level_{i}_nnz"]] = rows
+                trie_levels.append(tbl)
+            return cls(
+                rule_width=meta["rule_width"],
+                num_entries=meta["num_entries"],
+                key_words=z["key_words"],
+                mask_words=z["mask_words"],
+                mask_len=z["mask_len"],
+                rules=z["rules"],
+                trie_levels=trie_levels,
+                root_lut=z["root_lut"],
+                content=content,
+            )
 
 
 def _mask_words_vec(mask_len: np.ndarray) -> np.ndarray:

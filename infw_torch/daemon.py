@@ -1,0 +1,905 @@
+"""The per-node daemon: watch desired state, program the dataplane on the
+card, classify ingest traffic, serve metrics, stream deny events.
+
+The counterpart of the JAX package's ``infw.daemon`` for stateless serving,
+and like it of the reference daemon binary (cmd/daemon/daemon.go): the env
+contract NODE_NAME / NAMESPACE / POLL_PERIOD_SECONDS / ENABLE_LPM_LOOKUP_DBG
+(:69-84), loopback-bound metrics and health endpoints (:57-58, ports
+39301/39300), the NodeState controller and the statistics poller
+(:96-130).
+
+- Desired state arrives through an in-process store watch or a **state
+  directory**: ``<state-dir>/nodestates/<node>.json`` holds the NodeState
+  CR; deleting the file deletes the CR.
+- Packet ingest is file replay: a frames file (``write_frames_file[_v2]``)
+  dropped into ``<state-dir>/ingest/`` is classified, its verdicts land in
+  ``<state-dir>/out/`` (a u32 sidecar per packet and a JSON summary), and
+  its deny events go to ``events.log`` (replay-scale deny sets as 28-byte
+  rows in ``deny-events.bin``).
+- The classifier is ``TorchClassifier``: on the first CUDA card by default
+  (``--backend cuda``; no card raises at start, there is no fallback), or
+  the plain PyTorch versions on the CPU when ``--backend cpu`` is asked
+  for.  Its classify kernels (K1 dense, K2 trie, K3 ctrie, K4 delta
+  decode) are launched and read back on the file-loop thread alone; a
+  table load runs on the thread that syncs (the file loop for the state
+  dir, the writer's for the in-process store); the HTTP and statistics
+  threads read only host counters.
+- ``ENABLE_LPM_LOOKUP_DBG`` fills a bounded key buffer served at
+  ``/debug/lookup-keys`` (the debug hash map, kernel.c:59-64,214-216).
+
+The JAX daemon's scheduler, edit transactions, ingest ring, events socket,
+mesh, flow tier, resident loop, telemetry, tracing, scoring, payload and
+tenant options are not in the port yet: ``main`` refuses each of their
+flags, naming its ROADMAP item.
+"""
+from __future__ import annotations
+
+import argparse
+import functools
+import json
+import logging
+import mmap
+import os
+import signal
+import struct
+import threading
+import time
+from collections import deque
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from . import packets as packets_mod
+from ._threads import CRASH_COUNTERS, spawn
+from .backend.base import stats_from_results
+from .backend.cuda import WIRE_CODECS, TorchClassifier
+from .compiler import CompileError
+from .constants import KIND_IPV6, KIND_OTHER
+from .interfaces import InterfaceError, InterfaceRegistry, default_registry
+from .kernels.torchpath import resolve_device
+from .nodestate_controller import NodeStateReconciler
+from .obs.events import EventRing, EventsLogger, emit_deny_events
+from .obs.pcap import FramesBuf, parse_frames_buf
+from .obs.statistics import Registry as MetricsRegistry, Statistics
+from .packets import PacketBatch, expand_wire_v4
+from .schema import validate_nodestate_schema
+from .spec import IngressNodeFirewallNodeState
+from .store import InMemoryStore
+from .syncer import DataplaneSyncer, SyncError
+
+log = logging.getLogger("infw_torch.daemon")
+
+DEFAULT_METRICS_PORT = 39301   # cmd/daemon/daemon.go:57
+DEFAULT_HEALTH_PORT = 39300    # cmd/daemon/daemon.go:58
+DEBUG_MAP_ENTRIES = 16384      # kernel.c:63 debug map max_entries
+DEFAULT_INGEST_CHUNK = 1 << 16     # packets per in-flight sub-batch
+DEFAULT_PIPELINE_DEPTH = 16        # in-flight classify jobs
+DEFAULT_MAX_TICK_PACKETS = 4 << 20   # parse-ahead bound for one ingest tick
+#: upcoming jobs packed, encoded and staged (prepare_packed) while earlier
+#: jobs' classifies run
+H2D_STAGE_DEPTH = 2
+BACKENDS = ("cuda", "cpu")
+
+_FRAMES_MAGIC = b"INFW1\n"
+_FRAMES_MAGIC2 = b"INFW2\n"
+
+#: the JAX daemon's options that the port does not take yet, and where each
+#: is queued: (flag, env variable, ROADMAP item); the environment variable
+#: asks for the option when it is set to anything but "", "0", "false" or
+#: "no" (INFW_FUSED_DEEP the other way round: "0", "false" or "no" turn the
+#: fused walk off, which is what --no-fused-deep asks for)
+_ITEM_24 = "ROADMAP.md item 24 (edit transactions, the ingest ring, the events sidecar)"
+REFUSED_FLAGS = (
+    ("--mesh", "INFW_MESH", "ROADMAP.md item 15 (multi-device)"),
+    ("--flow-table", "INFW_FLOW_TABLE", "ROADMAP.md item 9 (the stateful flow tier)"),
+    ("--resident", "INFW_RESIDENT", "ROADMAP.md item 10 (resident program and superbatch)"),
+    ("--superbatch-k", "INFW_SUPERBATCH_K", "ROADMAP.md item 10 (resident program and superbatch)"),
+    ("--telemetry", "INFW_TELEMETRY", "ROADMAP.md item 12 (telemetry)"),
+    ("--telemetry-drain", "INFW_TELEMETRY_DRAIN", "ROADMAP.md item 12 (telemetry)"),
+    ("--trace", "INFW_TRACE", "ROADMAP.md item 12 (telemetry and tracing)"),
+    ("--trace-slow-us", "INFW_TRACE_SLOW_US", "ROADMAP.md item 12 (telemetry and tracing)"),
+    ("--mlscore", "INFW_MLSCORE", "ROADMAP.md item 13 (anomaly scoring)"),
+    ("--mlscore-mode", "INFW_MLSCORE_MODE", "ROADMAP.md item 13 (anomaly scoring)"),
+    ("--payload", "INFW_PAYLOAD", "ROADMAP.md item 14 (the payload tier)"),
+    ("--payload-mode", "INFW_PAYLOAD_MODE", "ROADMAP.md item 14 (the payload tier)"),
+    ("--payload-plen", "INFW_PAYLOAD_PLEN", "ROADMAP.md item 14 (the payload tier)"),
+    ("--tenants", "INFW_TENANTS", "ROADMAP.md items 20 and 21 (the tenant arenas)"),
+    ("--deadline-us", "INFW_DEADLINE_US", _ITEM_24),
+    ("--max-batch", "INFW_MAX_BATCH", _ITEM_24),
+    ("--patch-staleness-us", "INFW_PATCH_STALENESS_US", _ITEM_24),
+    ("--patch-max-ops", "INFW_PATCH_MAX_OPS", _ITEM_24),
+    ("--ring", "INFW_RING", _ITEM_24),
+    ("--events-socket", "INFW_EVENTS_SOCKET", _ITEM_24),
+    ("--no-fused-deep", "INFW_FUSED_DEEP", _ITEM_24),
+    ("--no-h2d-overlap", "INFW_H2D_OVERLAP",
+     "ROADMAP.md item 19 (pinned staging; the copy does not overlap yet)"),
+)
+
+
+# --- frames-file replay format ----------------------------------------------
+
+def write_frames_file(path: str, frames: Sequence[bytes], ifindex) -> None:
+    """v1 length-prefixed raw-frame container for ingest replay: per
+    record a u32 ingress ifindex + u32 length + frame bytes."""
+    if np.isscalar(ifindex):
+        ifindex = [int(ifindex)] * len(frames)
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:
+        f.write(_FRAMES_MAGIC)
+        f.write(struct.pack("<I", len(frames)))
+        for idx, frame in zip(ifindex, frames):
+            f.write(struct.pack("<II", int(idx), len(frame)))
+            f.write(frame)
+    os.replace(tmp, path)
+
+
+def write_frames_file_v2(path: str, fb: FramesBuf) -> None:
+    """v2 columnar container: u32 count, then the ifindex and length
+    arrays, then all frame bytes concatenated; three bulk writes (the
+    replay-scale format)."""
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:
+        f.write(_FRAMES_MAGIC2)
+        f.write(struct.pack("<I", len(fb)))
+        f.write(np.ascontiguousarray(fb.ifindex, "<u4").tobytes())
+        f.write(np.ascontiguousarray(fb.lengths, "<u4").tobytes())
+        f.write(np.ascontiguousarray(fb.buf).tobytes())
+    os.replace(tmp, path)
+
+
+def read_frames_file(path: str) -> Tuple[List[bytes], List[int]]:
+    with open(path, "rb") as f:
+        if f.read(len(_FRAMES_MAGIC)) != _FRAMES_MAGIC:
+            raise ValueError(f"{path}: not an infw frames file")
+        (count,) = struct.unpack("<I", f.read(4))
+        frames, ifindexes = [], []
+        for _ in range(count):
+            idx, length = struct.unpack("<II", f.read(8))
+            frames.append(f.read(length))
+            ifindexes.append(idx)
+    return frames, ifindexes
+
+
+def read_frames_any(path: str) -> FramesBuf:
+    """Read either frames-file version into a FramesBuf.  The v2 frame
+    buffer is memory-mapped, not read: the parser faults pages straight
+    from the page cache, and the map lives as long as the FramesBuf."""
+    with open(path, "rb") as f:
+        magic = f.read(len(_FRAMES_MAGIC2))
+        if magic == _FRAMES_MAGIC2:
+            (count,) = struct.unpack("<I", f.read(4))
+            # bound the declared count by the file size before reading: a
+            # corrupt header must not ask for gigabytes
+            st_size = os.fstat(f.fileno()).st_size
+            if 8 * count + f.tell() > st_size:
+                raise ValueError(f"{path}: v2 header count {count} exceeds file size")
+            ifindex = np.frombuffer(f.read(4 * count), "<u4")
+            lengths = np.frombuffer(f.read(4 * count), "<u4")
+            payload_off = f.tell()
+            total = st_size - payload_off
+            if len(lengths) != count or total != int(lengths.astype(np.int64).sum()):
+                raise ValueError(f"{path}: truncated v2 frames file")
+            if total:
+                mm = mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_READ)
+                buf = np.frombuffer(mm, np.uint8, count=total, offset=payload_off)
+            else:
+                buf = np.zeros(0, np.uint8)
+            return FramesBuf.from_lengths(buf, lengths, ifindex)
+    if magic != _FRAMES_MAGIC:
+        raise ValueError(f"{path}: not an infw frames file")
+    frames, ifindexes = read_frames_file(path)
+    return FramesBuf.from_frames(frames, ifindexes)
+
+
+# --- debug lookup buffer (ENABLE_LPM_LOOKUP_DBG) -----------------------------
+
+class DebugLookupBuffer:
+    """Bounded record of the LPM lookup keys the dataplane constructed,
+    (ifindex, ip_words) per classified packet, the debug hash map
+    (kernel.c:59-64) kept on the host; the oldest keys are overwritten."""
+
+    def __init__(self, capacity: int = DEBUG_MAP_ENTRIES) -> None:
+        self._lock = threading.Lock()
+        self._buf: deque = deque(maxlen=capacity)
+
+    def record_batch(self, batch: PacketBatch) -> None:
+        ifx = np.asarray(batch.ifindex)
+        if len(ifx) == 0:
+            return
+        words = np.asarray(batch.ip_words)
+        rows = np.column_stack([ifx.reshape(-1, 1), words.reshape(len(ifx), -1)])
+        items = [(r[0], tuple(r[1:])) for r in rows.tolist()]
+        with self._lock:
+            self._buf.extend(items)
+
+    def snapshot(self) -> List[Tuple[int, Tuple[int, int, int, int]]]:
+        with self._lock:
+            return list(self._buf)
+
+
+# --- classifier factory ------------------------------------------------------
+
+def make_classifier_factory(backend: str, wire_codec: Optional[str] = None,
+                            compressed: Optional[bool] = None):
+    """The syncer's classifier constructor.  "cuda" is TorchClassifier on
+    the first CUDA card, resolved here, so a host without a card fails at
+    start and never at the first NodeState; "cpu" runs the plain PyTorch
+    versions, only when asked for.  ``wire_codec`` and ``compressed`` are
+    TorchClassifier's (None keeps its INFW_WIRE_CODEC / INFW_COMPRESSED
+    defaults)."""
+    if backend == "cuda":
+        device = resolve_device(None)
+    elif backend == "cpu":
+        device = "cpu"
+    else:
+        raise ValueError(f"unknown backend {backend!r} (expected one of {BACKENDS})")
+    kw = {}
+    if wire_codec is not None:
+        kw["wire_codec"] = wire_codec
+    if compressed is not None:
+        kw["compressed"] = compressed
+    return functools.partial(TorchClassifier, device=device, **kw)
+
+
+class _WireStatsCounters:
+    """The classifier's per-format host-to-device accounting (wire_stats)
+    as /metrics counters, ingressnodefirewall_node_wire_<fmt>_{packets,
+    bytes}_total.  The getter follows the syncer's current classifier
+    across table loads."""
+
+    def __init__(self, clf_getter) -> None:
+        self._get = clf_getter
+
+    def counter_values(self) -> Dict[str, int]:
+        clf = self._get()
+        if clf is None:
+            return {}
+        out: Dict[str, int] = {}
+        for fmt, (pkts, nbytes) in sorted(clf.wire_stats().items()):
+            out[f"wire_{fmt}_packets_total"] = int(pkts)
+            out[f"wire_{fmt}_bytes_total"] = int(nbytes)
+        return out
+
+
+# --- daemon ------------------------------------------------------------------
+
+#: the stages process_ingest_once times (seconds, summed over calls):
+#: read the file, parse the frames, group the packets into jobs, pack and
+#: encode the wire and start its copy (prepare), launch the classify, wait
+#: for its read back, and copy the verdicts out and finalize each file
+#: (verdicts, summary, stats, events)
+STAGES = ("read", "parse", "group", "pack", "launch", "wait", "finalize")
+
+
+class Daemon:
+    def __init__(
+        self,
+        state_dir: str,
+        node_name: str,
+        namespace: str = "ingress-node-firewall-system",
+        backend: str = "cuda",
+        poll_period_s: float = 30.0,
+        debug_lookup: bool = False,
+        registry: Optional[InterfaceRegistry] = None,
+        metrics_port: int = DEFAULT_METRICS_PORT,
+        health_port: int = DEFAULT_HEALTH_PORT,
+        file_poll_interval_s: float = 0.2,
+        ingest_chunk: int = DEFAULT_INGEST_CHUNK,
+        pipeline_depth: int = DEFAULT_PIPELINE_DEPTH,
+        max_tick_packets: int = DEFAULT_MAX_TICK_PACKETS,
+        event_ring_size: int = 1 << 21,
+        wire_codec: Optional[str] = None,
+        compressed: Optional[bool] = None,
+    ) -> None:
+        # resolve the device first: without a card the default backend
+        # fails here, before any directory, thread or file is made
+        factory = make_classifier_factory(backend, wire_codec=wire_codec,
+                                          compressed=compressed)
+        self.state_dir = state_dir
+        self.node_name = node_name
+        self.namespace = namespace
+        self.backend = backend
+        self.debug_lookup = debug_lookup
+        self.file_poll_interval_s = file_poll_interval_s
+        self.ingest_chunk = max(1, int(ingest_chunk))
+        self.pipeline_depth = max(1, int(pipeline_depth))
+        self.max_tick_packets = max(1, int(max_tick_packets))
+        self.stage_seconds = dict.fromkeys(STAGES, 0.0)
+        self.registry = registry if registry is not None else default_registry
+
+        self.nodestates_dir = os.path.join(state_dir, "nodestates")
+        self.ingest_dir = os.path.join(state_dir, "ingest")
+        self.out_dir = os.path.join(state_dir, "out")
+        self.events_path = os.path.join(state_dir, "events.log")
+        for d in (self.nodestates_dir, self.ingest_dir, self.out_dir):
+            os.makedirs(d, exist_ok=True)
+
+        # a per-daemon metrics registry (statistics.go:79-86): /metrics
+        # serves whatever is registered here
+        self.metrics_registry = MetricsRegistry()
+        self.stats = Statistics(poll_period_s=poll_period_s)
+        self.stats.register(self.metrics_registry)
+        self.syncer = DataplaneSyncer(
+            classifier_factory=factory,
+            registry=self.registry,
+            stats_poller=self.stats,
+            checkpoint_dir=os.path.join(state_dir, "checkpoint"),
+        )
+        self.store = InMemoryStore()
+        self.reconciler = NodeStateReconciler(
+            self.store, self.syncer, node_name=node_name, namespace=namespace
+        )
+        self.store.watch(IngressNodeFirewallNodeState.KIND, self._on_store_event)
+
+        # the perf-ring analogue (kernel.c perf event array): once full,
+        # incoming records are dropped and counted as lost samples
+        self.ring = EventRing(capacity=max(64, int(event_ring_size)))
+        self._event_file = open(self.events_path, "a", buffering=1)
+        self.events_logger = EventsLogger(
+            self.ring,
+            self._write_event_line,
+            # replay-scale batches drain as binary rows next to events.log;
+            # the line sink gets one summary line each
+            spill_path=os.path.join(state_dir, "deny-events.bin"),
+            iface_names={i.index: i.name for i in self.registry.list()},
+        )
+        # deny-event loss/queue totals, background-thread crashes and the
+        # per-format wire counters on /metrics (the registry holds
+        # providers weakly, so the daemon keeps the strong references)
+        self.metrics_registry.register_counters(self.ring)
+        self.metrics_registry.register_counters(CRASH_COUNTERS)
+        self._wire_counters = _WireStatsCounters(lambda: self.syncer.classifier)
+        self.metrics_registry.register_counters(self._wire_counters)
+        self.debug_buffer = DebugLookupBuffer()
+
+        self._stop = threading.Event()
+        self._threads: List[threading.Thread] = []
+        self._servers: List[ThreadingHTTPServer] = []
+        self._known_state_files: Dict[str, float] = {}
+        # files rejected deterministically (schema, compile), remembered by
+        # mtime so they are logged once; kept apart from _known_state_files
+        # so deleting a rejected file never counts as a CR deletion
+        self._rejected_state_files: Dict[str, float] = {}
+        self.metrics_port = metrics_port
+        self.health_port = health_port
+
+    # -- event sink ----------------------------------------------------------
+
+    def _write_event_line(self, line: str) -> None:
+        self._event_file.write(line + "\n")
+
+    # -- store-driven reconcile ----------------------------------------------
+
+    def _on_store_event(self, event: str, obj) -> None:
+        try:
+            if event == "DELETED":
+                if (obj.metadata.name == self.node_name
+                        and obj.metadata.namespace == self.namespace):
+                    return  # the finalizer path already synced the delete
+            self.reconciler.reconcile(obj.metadata.name, obj.metadata.namespace)
+        except (SyncError, CompileError, InterfaceError) as e:
+            log.error("reconcile failed: %s", e)
+
+    # -- file-driven desired state -------------------------------------------
+
+    def scan_nodestates_once(self) -> None:
+        """State-dir protocol: <nodestates>/<node-name>.json holds the
+        NodeState CR dict; deleting the file deletes the CR."""
+        seen = {}
+        for fn in os.listdir(self.nodestates_dir):
+            if not fn.endswith(".json"):
+                continue
+            path = os.path.join(self.nodestates_dir, fn)
+            try:
+                mtime = os.path.getmtime(path)
+            except FileNotFoundError:
+                continue
+            seen[fn] = mtime
+            if self._known_state_files.get(fn) == mtime:
+                continue
+            if self._rejected_state_files.get(fn) == mtime:
+                continue
+            try:
+                with open(path) as f:
+                    doc = json.load(f)
+                ns_obj = IngressNodeFirewallNodeState.from_dict(doc)
+            except OSError as e:
+                log.error("bad nodestate file %s: %s", fn, e)  # may be transient
+                continue
+            except (json.JSONDecodeError, TypeError, AttributeError, ValueError, KeyError) as e:
+                log.error("bad nodestate file %s: %s", fn, e)
+                self._rejected_state_files[fn] = mtime
+                continue
+            if not ns_obj.metadata.name:
+                ns_obj.metadata.name = fn[: -len(".json")]
+            if not ns_obj.metadata.namespace:
+                ns_obj.metadata.namespace = self.namespace
+            if ns_obj.metadata.name != self.node_name:
+                continue
+            schema_errs = validate_nodestate_schema(ns_obj)
+            if schema_errs:
+                # no API server in front of the file protocol: the schema
+                # tier rejects here with CRD-style messages
+                log.error("schema-invalid nodestate %s: %s", fn, "; ".join(schema_errs))
+                self._rejected_state_files[fn] = mtime
+                continue
+            try:
+                self.syncer.sync_interface_ingress_rules(
+                    ns_obj.spec.interface_ingress_rules, False
+                )
+                self._known_state_files[fn] = mtime
+            except CompileError as e:
+                # deterministic: the same bytes can never compile
+                log.error("sync failed for %s: %s", fn, e)
+                self._rejected_state_files[fn] = mtime
+            except (SyncError, InterfaceError) as e:
+                # possibly transient: retried next tick
+                log.error("sync failed for %s: %s", fn, e)
+        for fn in list(self._rejected_state_files):
+            if fn not in seen:
+                del self._rejected_state_files[fn]
+        for fn in list(self._known_state_files):
+            if fn not in seen:
+                del self._known_state_files[fn]
+                try:
+                    self.syncer.sync_interface_ingress_rules({}, True)
+                except (SyncError, CompileError, InterfaceError) as e:
+                    log.error("delete sync failed for %s: %s", fn, e)
+
+    # -- ingest --------------------------------------------------------------
+
+    def process_ingest_once(self) -> int:
+        """Classify every frames file in the ingest dir; write verdict
+        summaries to out/; emit deny events; consume the file.  Returns the
+        number of files finalized.
+
+        Cross-file batching: the pending files (bounded by
+        ``max_tick_packets``) are parsed up front and their packets
+        regrouped into family-homogeneous jobs of ``ingest_chunk`` rows
+        that span file boundaries, IPv6 further split by the classifier's
+        depth classes (v6_depth_groups).  Up to ``H2D_STAGE_DEPTH`` jobs are
+        packed and staged ahead (prepare_packed) and up to
+        ``pipeline_depth`` are in flight.
+
+        Failure isolation: a failed merged job is re-dispatched as
+        per-file jobs, so a fault attributable to one file's packets
+        poisons only that file (left on disk for the next tick) while its
+        job-mates complete; statistics are computed on the host per file
+        from the verdicts and applied only after the file is consumed,
+        exactly once across any retry."""
+        clf = self.syncer.classifier
+        if clf is None or clf.tables is None:
+            return 0
+        processed = 0
+        chunk = self.ingest_chunk
+        st = self.stage_seconds
+
+        def finalize(fctx) -> None:
+            """Write verdicts, consume the file, then apply stats and emit
+            events, strictly after the source file is removed: a failure
+            anywhere earlier leaves the file for a clean retry with no
+            double-counted statistics and no duplicate deny events."""
+            nonlocal processed
+            batch, fb, fn = fctx["batch"], fctx["frames"], fctx["fn"]
+            results, xdp = fctx["results"], fctx["xdp"]
+            if self.debug_lookup:
+                self.debug_buffer.record_batch(batch)
+            # per-packet verdicts go to a binary sidecar (little-endian u32
+            # per packet, file order); the JSON stays a bounded summary
+            results.astype("<u4").tofile(os.path.join(self.out_dir, fn + ".verdicts.bin"))
+            summary = {
+                "file": fn,
+                "packets": len(batch),
+                "pass": int((xdp == 2).sum()),
+                "drop": int((xdp == 1).sum()),
+                "results_file": fn + ".verdicts.bin",
+            }
+            jpath = os.path.join(self.out_dir, fn + ".verdicts.json")
+            with open(jpath + ".tmp", "w") as f:
+                json.dump(summary, f)
+            os.replace(jpath + ".tmp", jpath)
+            os.remove(fctx["path"])
+            clf.stats.add(stats_from_results(results, np.asarray(batch.pkt_len)))
+            emit_deny_events(self.ring, results, batch.ifindex, batch.pkt_len, fb, batch=batch)
+            processed += 1
+
+        def seg_done(fctx) -> None:
+            fctx["remaining"] -= 1
+            if fctx["remaining"] == 0 and not fctx["failed"]:
+                t0 = time.perf_counter()
+                try:
+                    finalize(fctx)
+                except Exception as e:
+                    log.error("ingest finalize failed for %s: %s", fctx["fn"], e)
+                st["finalize"] += time.perf_counter() - t0
+
+        # ---- phase 1: read and parse the pending files (bounded per tick) ----
+        files = []
+        total = 0
+        for fn in sorted(os.listdir(self.ingest_dir)):
+            path = os.path.join(self.ingest_dir, fn)
+            if fn.endswith(".tmp") or not os.path.isfile(path):
+                continue
+            if files and total >= self.max_tick_packets:
+                break  # the rest belongs to the next tick
+            try:
+                t0 = time.perf_counter()
+                fb = read_frames_any(path)
+                t1 = time.perf_counter()
+                batch = parse_frames_buf(fb)
+                st["read"] += t1 - t0
+                st["parse"] += time.perf_counter() - t1
+            except (OSError, ValueError, struct.error, IndexError) as e:
+                # a bad file is consumed, or it would wedge every tick
+                log.error("bad ingest file %s: %s", fn, e)
+                try:
+                    os.remove(path)
+                except OSError as re:
+                    log.error("could not remove bad ingest file %s: %s", fn, re)
+                continue
+            n = len(batch)
+            fctx = {
+                "fn": fn, "path": path, "frames": fb, "batch": batch,
+                "results": np.zeros(n, np.uint32),
+                "xdp": np.full(n, 2, np.int32),
+                "remaining": 0, "failed": False,
+            }
+            if n == 0:
+                try:
+                    finalize(fctx)  # no device work for an empty file
+                except Exception as e:
+                    log.error("ingest finalize failed for %s: %s", fn, e)
+                continue
+            files.append(fctx)
+            total += n
+        if not files:
+            return processed
+
+        # ---- phase 2: family- and depth-homogeneous jobs spanning files ----
+        t_group = time.perf_counter()
+        jobs: deque = deque()
+        per_file_v6 = {}
+        seen_depths = set()
+        for fctx in files:
+            b = fctx["batch"]
+            g = np.nonzero(np.asarray(b.kind) == KIND_IPV6)[0]
+            groups = clf.v6_depth_groups(b.ifindex, b.ip_words, g)
+            per_file_v6[id(fctx)] = dict(groups)
+            seen_depths.update(d for d, _ in groups)
+        # d is the (class, generation) pair of v6_depth_groups; shallow
+        # classes first, the full depth (class None) last
+        group_keys = [(False, None)] + [(True, d) for d in sorted(
+            seen_depths, key=lambda d: (d[0] is None, -1 if d[0] is None else d[0]))]
+        for want_v6, depth in group_keys:
+            cur, cur_n = [], 0
+            for fctx in files:
+                if want_v6:
+                    g = per_file_v6[id(fctx)].get(depth)
+                    if g is None:
+                        continue
+                else:
+                    g = np.nonzero(np.asarray(fctx["batch"].kind) != KIND_IPV6)[0]
+                pos = 0
+                while pos < len(g):
+                    take = g[pos: pos + (chunk - cur_n)]
+                    cur.append((fctx, take))
+                    fctx["remaining"] += 1
+                    cur_n += len(take)
+                    pos += len(take)
+                    if cur_n >= chunk:
+                        jobs.append({"segments": cur, "retry": False, "depth": depth})
+                        cur, cur_n = [], 0
+            if cur:
+                jobs.append({"segments": cur, "retry": False, "depth": depth})
+        st["group"] += time.perf_counter() - t_group
+
+        packed_ok = clf.supports_packed()
+
+        def _bucket(n: int) -> int:
+            """Pad a job to a power-of-two row count (capped at the chunk):
+            the JAX daemon's shape buckets, kept so both daemons ship the
+            same wire.  Padding rows are KIND_OTHER (PASS, no stats) and
+            are dropped before the verdicts are written."""
+            if n >= chunk:
+                return n
+            return min(1 << max(6, (n - 1).bit_length()), chunk)
+
+        def prepare(job):
+            """The host half of a job: gather its segments, pack the wire,
+            pad it, and (prepare_packed) choose the format, encode and
+            start the copy.  None when every segment already failed."""
+            nonlocal packed_ok
+            segs = [(f, idx) for f, idx in job["segments"] if not f["failed"]]
+            job["segments"] = segs
+            if not segs:
+                return None
+            n = sum(len(idx) for _f, idx in segs)
+            if packed_ok:
+                parts = [f["batch"].pack_wire_subset(np.ascontiguousarray(idx, np.int64))
+                         for f, idx in segs]
+                width = max(w.shape[1] for w, _v4 in parts)
+                wire = np.concatenate(
+                    [w if w.shape[1] == width else expand_wire_v4(w) for w, _v4 in parts]
+                )
+                pad = _bucket(n) - n
+                if pad:
+                    padrows = np.zeros((pad, width), np.uint32)
+                    padrows[:, 0] = KIND_OTHER
+                    wire = np.concatenate([wire, padrows])
+                v4_only = all(v4 for _w, v4 in parts)
+                try:
+                    return ("plan", clf.prepare_packed(wire, v4_only, depth=job["depth"]))
+                except RuntimeError:
+                    # a concurrent load can flip the table to wide ruleIds
+                    # (the full-batch path); a closed classifier re-raises
+                    if clf.supports_packed() or clf.active_path is None:
+                        raise
+                    packed_ok = False
+                    log.warning("table flipped to wide ruleIds mid-tick; "
+                                "classifying unpacked batches")
+            merged = packets_mod.concat([f["batch"].take(idx) for f, idx in segs])
+            return ("batch", merged.pad_to(_bucket(n)))
+
+        def launch(prep):
+            if prep[0] == "plan":
+                return clf.classify_prepared(prep[1], apply_stats=False)
+            return clf.classify_async(prep[1], apply_stats=False)
+
+        def job_failed(job, err) -> None:
+            """A merged job's fault cannot be attributed to one file: each
+            segment is re-dispatched as its own single-file job.  A retry
+            job's fault can: that file is poisoned for this tick."""
+            if not job["retry"]:
+                log.warning("ingest job failed (%s); retrying per file", err)
+                for f, idx in job["segments"]:
+                    jobs.append({"segments": [(f, idx)], "retry": True, "depth": job["depth"]})
+                return
+            for f, _idx in job["segments"]:
+                if not f["failed"]:
+                    f["failed"] = True
+                    log.error("ingest classify failed for %s: %s", f["fn"], err)
+                seg_done(f)
+
+        def drain_one() -> None:
+            job, pending = inflight.popleft()
+            t0 = time.perf_counter()
+            try:
+                out = pending.result()
+            except Exception as e:
+                st["wait"] += time.perf_counter() - t0
+                job_failed(job, e)
+                return
+            t1 = time.perf_counter()
+            st["wait"] += t1 - t0
+            results, xdp = np.asarray(out.results), np.asarray(out.xdp)
+            off = 0
+            for f, idx in job["segments"]:
+                k = len(idx)
+                if not f["failed"]:
+                    f["results"][idx] = results[off: off + k]
+                    f["xdp"][idx] = xdp[off: off + k]
+                off += k
+            st["finalize"] += time.perf_counter() - t1
+            for f, _idx in job["segments"]:
+                seg_done(f)
+
+        inflight: deque = deque()
+        staged: deque = deque()
+
+        def stage_more() -> None:
+            # keep the staging window full: the next jobs' pack, encode and
+            # copy start while earlier classifies are still in flight
+            while jobs and len(staged) < H2D_STAGE_DEPTH:
+                job = jobs.popleft()
+                t0 = time.perf_counter()
+                try:
+                    prep = prepare(job)
+                except Exception as e:
+                    job_failed(job, e)
+                    continue
+                finally:
+                    st["pack"] += time.perf_counter() - t0
+                if prep is not None:
+                    staged.append((job, prep))
+
+        while jobs or staged or inflight:
+            stage_more()
+            while staged and len(inflight) < self.pipeline_depth:
+                job, prep = staged.popleft()
+                t0 = time.perf_counter()
+                try:
+                    pending = launch(prep)
+                except Exception as e:
+                    job_failed(job, e)
+                    continue
+                finally:
+                    st["launch"] += time.perf_counter() - t0
+                inflight.append((job, pending))
+                stage_more()
+            if inflight:
+                drain_one()
+        return processed
+
+    # -- HTTP endpoints ------------------------------------------------------
+
+    def _make_handler(daemon_self):
+        class Handler(BaseHTTPRequestHandler):
+            def log_message(self, *a):  # quiet
+                pass
+
+            def _send(self, code: int, body: str, ctype="text/plain; charset=utf-8"):
+                data = body.encode()
+                self.send_response(code)
+                self.send_header("Content-Type", ctype)
+                self.send_header("Content-Length", str(len(data)))
+                self.end_headers()
+                self.wfile.write(data)
+
+            def do_GET(self):
+                if self.path == "/metrics":
+                    self._send(200, daemon_self.metrics_registry.render_text())
+                elif self.path in ("/healthz", "/readyz"):
+                    self._send(200, "ok")
+                elif self.path == "/debug/lookup-keys":
+                    keys = daemon_self.debug_buffer.snapshot()
+                    self._send(
+                        200,
+                        json.dumps([{"ifindex": k[0], "ip_words": list(k[1])} for k in keys]),
+                        ctype="application/json",
+                    )
+                else:
+                    self._send(404, "not found")
+
+        return Handler
+
+    # -- lifecycle -----------------------------------------------------------
+
+    def start(self) -> None:
+        handler = self._make_handler()
+        for port in {self.metrics_port, self.health_port}:
+            srv = ThreadingHTTPServer(("127.0.0.1", port), handler)
+            self._servers.append(srv)
+            self._threads.append(spawn(srv.serve_forever, name="infw-daemon-http"))
+        self.events_logger.start()
+        self._threads.append(spawn(self._file_loop, name="infw-file-loop"))
+        log.info("daemon started node=%s backend=%s metrics=127.0.0.1:%d",
+                 self.node_name, self.backend, self.actual_metrics_port)
+
+    def _file_loop(self) -> None:
+        """The one thread that classifies: every classify launch and every
+        read back happens here, and the state-dir syncs too."""
+        while not self._stop.wait(self.file_poll_interval_s):
+            # scan and ingest are isolated: a persistently bad nodestate
+            # file must not starve packet classification
+            try:
+                self.scan_nodestates_once()
+            except Exception as e:
+                log.error("nodestate scan error: %s", e)
+            try:
+                self.process_ingest_once()
+            except Exception as e:
+                log.error("ingest error: %s", e)
+
+    def stop(self) -> None:
+        """SIGTERM path: stop polling and serving, detach the dataplane but
+        keep the checkpoint (ebpfsyncer.go:90-97), so a restart re-adopts
+        the rules."""
+        self._stop.set()
+        for srv in self._servers:
+            srv.shutdown()
+            srv.server_close()
+        for t in self._threads:
+            t.join()
+        self._threads = []
+        self.events_logger.stop()
+        self.stats.stop_poll()
+        self.stats.unregister()
+        self.syncer.shutdown()
+        self._event_file.close()
+
+    @property
+    def actual_metrics_port(self) -> int:
+        return self._servers[0].server_address[1] if self._servers else self.metrics_port
+
+
+def _env_set(name: str) -> bool:
+    return os.environ.get(name, "") not in ("", "0", "false", "no")
+
+
+def _env_asks(env: str) -> bool:
+    """Whether the environment asks for a refused option (REFUSED_FLAGS)."""
+    if env in ("INFW_FUSED_DEEP", "INFW_H2D_OVERLAP"):  # "0" / "false" / "no" turn these off
+        return os.environ.get(env, "") in ("0", "false", "no")
+    return _env_set(env)
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    """CLI entry with the reference env contract
+    (cmd/daemon/daemon.go:69-84): flags beat env, env beats defaults."""
+    p = argparse.ArgumentParser(
+        prog="infw_torch.daemon",
+        description="The ingress node firewall daemon on a CUDA card (the "
+                    "PyTorch port of infw.daemon, stateless serving).",
+    )
+    p.add_argument("--state-dir", required=True)
+    p.add_argument("--node-name", default=os.environ.get("NODE_NAME", ""))
+    p.add_argument("--namespace",
+                   default=os.environ.get("NAMESPACE", "ingress-node-firewall-system"))
+    p.add_argument("--backend", default=os.environ.get("INFW_BACKEND") or "cuda",
+                   help="cuda (default): TorchClassifier on the first CUDA card, "
+                        "raising at start without one; cpu: the plain PyTorch "
+                        "versions on the CPU.  CLI beats INFW_BACKEND")
+    p.add_argument("--poll-period-seconds", type=float,
+                   default=float(os.environ.get("POLL_PERIOD_SECONDS", "30")))
+    p.add_argument("--metrics-port", type=int, default=DEFAULT_METRICS_PORT)
+    p.add_argument("--health-port", type=int, default=DEFAULT_HEALTH_PORT)
+    p.add_argument("--ingest-chunk", type=int, default=DEFAULT_INGEST_CHUNK)
+    p.add_argument("--pipeline-depth", type=int, default=DEFAULT_PIPELINE_DEPTH)
+    p.add_argument("--max-tick-packets", type=int, default=DEFAULT_MAX_TICK_PACKETS)
+    p.add_argument("--event-ring-size", type=int, default=1 << 21,
+                   help="deny-event ring capacity, minimum 64 (overflow drops new "
+                        "records and counts them as lost samples)")
+    p.add_argument("--compressed", action="store_true", default=_env_set("INFW_COMPRESSED"),
+                   help="serve trie-sized tables from the compressed ctrie layout "
+                        "(kernel K3); tables it cannot hold take the trie path.  "
+                        "CLI beats INFW_COMPRESSED")
+    p.add_argument("--no-compressed", action="store_true",
+                   help="the trie layout even when INFW_COMPRESSED is set")
+    p.add_argument("--wire-codec", default=os.environ.get("INFW_WIRE_CODEC") or None,
+                   help="host-to-device format of 4-word trie and ctrie chunks: "
+                        "auto | wire8 | delta.  CLI beats INFW_WIRE_CODEC")
+    for flag, env, item in REFUSED_FLAGS:
+        p.add_argument(flag, nargs="?", const="1", default=None,
+                       help=f"not in the port yet: {item} (also {env})")
+    args = p.parse_args(argv)
+
+    for flag, env, item in REFUSED_FLAGS:
+        given = getattr(args, flag[2:].replace("-", "_"))
+        if given is not None or _env_asks(env):
+            p.error(f"{flag} ({env}) is not in the port yet: {item}")
+    if not args.node_name:
+        p.error("environment variable NODE_NAME or --node-name is required")
+    if args.backend not in BACKENDS:
+        p.error(f"invalid backend {args.backend!r} (expected one of {BACKENDS})")
+    # argparse checks choices only on explicit flags, not env defaults: a
+    # bad INFW_WIRE_CODEC must fail the launch, not the first sync
+    if args.wire_codec is not None and args.wire_codec not in WIRE_CODECS:
+        p.error(f"invalid wire codec {args.wire_codec!r} (expected one of {WIRE_CODECS})")
+
+    logging.basicConfig(level=logging.INFO,
+                        format="%(asctime)s %(name)s %(levelname)s %(message)s")
+    daemon = Daemon(
+        state_dir=args.state_dir,
+        node_name=args.node_name,
+        namespace=args.namespace,
+        backend=args.backend,
+        poll_period_s=args.poll_period_seconds,
+        debug_lookup=os.environ.get("ENABLE_LPM_LOOKUP_DBG", "0") not in ("0", "", "false"),
+        metrics_port=args.metrics_port,
+        health_port=args.health_port,
+        ingest_chunk=args.ingest_chunk,
+        max_tick_packets=args.max_tick_packets,
+        event_ring_size=args.event_ring_size,
+        pipeline_depth=args.pipeline_depth,
+        wire_codec=args.wire_codec,
+        compressed=False if args.no_compressed else (True if args.compressed else None),
+    )
+    stop = threading.Event()
+
+    def on_term(signum, frame):
+        stop.set()
+
+    signal.signal(signal.SIGTERM, on_term)
+    signal.signal(signal.SIGINT, on_term)
+    daemon.start()
+    try:
+        while not stop.wait(0.5):
+            pass
+    finally:
+        daemon.stop()
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -27,6 +27,7 @@ class Interface:
     loopback: bool = False
     type: str = "device"          # "device" | "bond"
     master: Optional[str] = None  # bond master name for member links
+    xdp_attached: bool = False    # mirrors netlink's Xdp.Attached flag
 
 
 class InterfaceRegistry:
@@ -69,3 +70,20 @@ class InterfaceRegistry:
         if iface.type != "bond":
             return [iface.index]
         return [l.index for l in self.list() if l.master == name]
+
+    def get_interfaces_with_xdp_attached(self) -> List[str]:
+        """GetInterfacesWithXDPAttached (interfaces.go:38-50)."""
+        return [l.name for l in self.list() if l.xdp_attached]
+
+    def set_xdp(self, name: str, attached: bool) -> None:
+        """The daemon's attach/detach seam (the XDP link up/down)."""
+        iface = self.get(name)
+        if iface is None:
+            raise InterfaceError(f"link {name!r} not found")
+        iface.xdp_attached = attached
+
+
+# The process-wide registry the daemon uses unless given one: a single-NIC
+# node (eth0, index 2).
+default_registry = InterfaceRegistry()
+default_registry.add(Interface(name="eth0", index=2))

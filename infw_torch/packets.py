@@ -51,6 +51,20 @@ class PacketBatch:
     def take(self, idx: np.ndarray) -> "PacketBatch":
         return PacketBatch(**{f: getattr(self, f)[idx] for f in _FIELDS})
 
+    def pad_to(self, n: int) -> "PacketBatch":
+        """Pad to ``n`` packets with KIND_OTHER rows (always XDP_PASS, no
+        stats), the daemon's bucket padding."""
+        pad = n - len(self)
+        if pad <= 0:
+            return self
+
+        def _pad(a, value=0):
+            return np.pad(a, [(0, pad)] + [(0, 0)] * (a.ndim - 1), constant_values=value)
+
+        out = {f: _pad(getattr(self, f)) for f in _FIELDS}
+        out["kind"] = _pad(self.kind, 3)  # KIND_OTHER
+        return PacketBatch(**out)
+
     def pack_wire(self) -> np.ndarray:
         """Pack into the (B, 7) uint32 wire format (28 B/packet):
 
@@ -154,6 +168,15 @@ def concat(batches: List[PacketBatch]) -> PacketBatch:
     return PacketBatch(
         **{f: np.concatenate([getattr(b, f) for b in batches]) for f in _FIELDS}
     )
+
+
+def expand_wire_v4(w: np.ndarray) -> np.ndarray:
+    """(n, 4) compact wire rows -> (n, 7) with zero high IP words (the
+    compact format's eligibility guarantee); a merged ingest job that mixes
+    compact and full segments ships one width."""
+    out = np.zeros((w.shape[0], 7), np.uint32)
+    out[:, :4] = w
+    return out
 
 
 def _l4_word(w0: np.ndarray, w1: np.ndarray) -> np.ndarray:

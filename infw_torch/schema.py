@@ -24,6 +24,7 @@ from .spec import (
     PROTOCOL_TYPE_UDP,
     PROTOCOL_TYPE_UNSET,
     IngressNodeFirewall,
+    IngressNodeFirewallNodeState,
     IngressNodeFirewallProtocolRule,
 )
 
@@ -113,4 +114,24 @@ def validate_ingress_node_firewall_schema(inf: IngressNodeFirewall) -> List[str]
             )
         for r, rule in enumerate(ingress.rules):
             errs.extend(validate_rule_schema(rule, f"spec.ingress[{i}].rules[{r}]"))
+    return errs
+
+
+def validate_nodestate_schema(ns: IngressNodeFirewallNodeState) -> List[str]:
+    """Schema-tier errors for a NodeState, which embeds the same rule types
+    (ingressnodefirewallnodestate_types.go:26-32).  Applied by the daemon's
+    state-dir file protocol (daemon.Daemon.scan_nodestates_once), which has
+    no API server in front of it."""
+    errs: List[str] = []
+    for iface, rule_sets in sorted(ns.spec.interface_ingress_rules.items()):
+        for i, ingress in enumerate(rule_sets):
+            path = f"spec.interfaceIngressRules[{iface}][{i}]"
+            # sourceCIDRs MinItems:=1 (types.go:141-143), the same embedded type
+            if len(ingress.source_cidrs) == 0:
+                errs.append(
+                    f"{path}.sourceCIDRs: Invalid value: 0: "
+                    f"{path}.sourceCIDRs in body should have at least 1 items"
+                )
+            for r, rule in enumerate(ingress.rules):
+                errs.extend(validate_rule_schema(rule, f"{path}.rules[{r}]"))
     return errs

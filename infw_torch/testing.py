@@ -437,3 +437,59 @@ def stats_dict_from_array(stats4: np.ndarray) -> Dict[int, List[int]]:
         int(rid): [int(x) for x in stats4[rid]]
         for rid in np.nonzero(stats4.any(axis=1))[0]
     }
+
+
+def random_nodestate(rng: np.random.Generator, name: str, interfaces: Dict[str, int],
+                     n_cidrs: int, width: int = 8, blocks: int = 4,
+                     deny_share: float = 0.5) -> dict:
+    """A NodeState CR dict (ingressnodefirewallnodestate_types.go) holding
+    about ``n_cidrs`` LPM entries: each interface gets ``blocks`` ingress
+    blocks of its own source CIDRs (two IPv4 /20-/32 for each IPv6
+    /32-/128, host bits set) with rules at orders 1..width-1 (TCP, UDP and
+    SCTP ports and ranges, ICMP, ICMPv6, a catch-all last), each Deny with
+    probability ``deny_share``, else Allow.  ``interfaces`` maps names to ifindexes, which only fix the
+    iteration order; the daemon's registry resolves the names."""
+    rules_of_iface = {}
+    per_block = max(1, n_cidrs // (len(interfaces) * blocks))
+    for iface in interfaces:
+        ingress = []
+        for _ in range(blocks):
+            v4 = rng.integers(0, 1 << 32, per_block, dtype=np.uint64)
+            v6 = rng.integers(0, 1 << 16, (per_block, 8))
+            plen4 = rng.integers(20, 33, per_block)
+            plen6 = rng.choice([32, 48, 64, 96, 128], per_block)
+            is6 = rng.random(per_block) < 1 / 3
+            cidrs = [
+                ":".join(f"{int(w):x}" for w in v6[i]) + f"/{int(plen6[i])}" if is6[i]
+                else ".".join(str((int(v4[i]) >> s) & 0xFF) for s in (24, 16, 8, 0))
+                + f"/{int(plen4[i])}"
+                for i in range(per_block)
+            ]
+            rules = []
+            for order in range(1, width):
+                action = "Deny" if rng.random() < deny_share else "Allow"
+                kind = int(rng.integers(0, 6)) if order < width - 1 else 6
+                start = int(rng.integers(20000, 60000))
+                if kind < 3:
+                    proto = ("TCP", "UDP", "SCTP")[kind]
+                    ports = start if rng.random() < 0.5 else f"{start}-{start + int(rng.integers(1, 3000))}"
+                    cfg = {"protocol": proto, proto.lower(): {"ports": ports}}
+                elif kind == 3:
+                    cfg = {"protocol": "ICMP", "icmp": {"icmpType": int(rng.integers(0, 20)),
+                                                        "icmpCode": int(rng.integers(0, 3))}}
+                elif kind == 4:
+                    cfg = {"protocol": "ICMPv6", "icmpv6": {"icmpType": int(rng.integers(128, 140)),
+                                                            "icmpCode": 0}}
+                elif kind == 5:
+                    cfg = {"protocol": "TCP", "tcp": {"ports": "1-30000"}}
+                else:
+                    cfg = {"protocol": ""}
+                rules.append({"order": order, "protocolConfig": cfg, "action": action})
+            ingress.append({"sourceCIDRs": cidrs, "rules": rules})
+        rules_of_iface[iface] = ingress
+    return {
+        "apiVersion": "ingressnodefirewall.tpu/v1alpha1",
+        "kind": "IngressNodeFirewallNodeState",
+        "metadata": {"name": name, "namespace": "ingress-node-firewall-system"},
+        "spec": {"interfaceIngressRules": rules_of_iface},
+    }

@@ -907,3 +907,48 @@ def test_fused_rejects_bad_operands(fused_case):
                                  (w8[:8], tenant), (wire[:8], tenant.cpu())):
         with pytest.raises(ValueError):
             arena_walk.classify_arena_wire_fused(pool, bad_wire, bad_tenant, **kw)
+
+
+@pytest.mark.parametrize("n_cidrs,kernel", [(60, "dense_classify"), (4400, "trie_walk")])
+def test_daemon_serves_on_the_card(cuda, tmp_path, n_cidrs, kernel):
+    """Daemon() (the default backend: the first card) over one NodeState
+    and one frames file: its verdicts equal the oracle's and the launch
+    counts show the path's kernel."""
+    import json
+    import os
+
+    from infw_torch import daemon, spec
+    from infw_torch.interfaces import Interface, InterfaceRegistry
+    from infw_torch.obs import pcap
+
+    ifaces = {"eth0": 2, "eth1": 3}
+    reg = InterfaceRegistry()
+    for name, index in ifaces.items():
+        reg.add(Interface(name=name, index=index))
+    d = daemon.Daemon(state_dir=str(tmp_path / "state"), node_name="n", registry=reg,
+                      metrics_port=0, health_port=0, file_poll_interval_s=60.0)
+    try:
+        assert d.syncer._factory.keywords["device"].type == "cuda"
+        doc = testing.random_nodestate(np.random.default_rng(n_cidrs), "n", ifaces, n_cidrs)
+        with open(os.path.join(d.nodestates_dir, "n.json"), "w") as f:
+            json.dump(doc, f)
+        d.scan_nodestates_once()
+        clf = d.syncer.classifier
+        assert clf.device.type == "cuda"
+        ns = spec.IngressNodeFirewallNodeState.from_dict(doc)
+        tables = compiler.compile_tables(ns.spec.interface_ingress_rules, reg)
+        b = testing.random_batch_fast(np.random.default_rng(1), tables, 5000)
+        fb = pcap.build_frames_bulk(b.kind, b.ip_words, b.proto, b.dst_port, b.icmp_type,
+                                    b.icmp_code, l4_ok=b.l4_ok)
+        fb.ifindex = np.asarray(b.ifindex, np.uint32)
+        daemon.write_frames_file_v2(os.path.join(d.ingest_dir, "t.frames"), fb)
+        for k in all_kernels():
+            k.launches = 0
+        assert d.process_ingest_once() == 1
+        launches = {k.name: k.launches for k in all_kernels()}
+        assert launches[kernel] > 0, launches
+        got = np.fromfile(os.path.join(d.out_dir, "t.frames.verdicts.bin"), "<u4")
+        parsed = pcap.parse_frames_buf(fb)
+        np.testing.assert_array_equal(got, oracle.classify(tables, parsed).results)
+    finally:
+        d.stop()
