@@ -109,14 +109,25 @@ its multi-tenant arena on the card and fails (non-zero exit, no result line) on 
    active table's HashLpmOracle, and a destroy + compaction;
 10. incremental patches and the overlay at the churn tier (K1 over the
     overlay against its plain version; the ctrie pass without the overlay
-    fused against composed in turns);
+    fused against composed in turns), then edit transactions on both
+    layouts (txn.TxnApplier): one 64-op transaction of the edit generator's
+    full mix, bench_churn's A/B of 64 folded rules-only edits against 64
+    one-edit generations (interleaved, min of 2 rounds) and one folded
+    flush under the profiler (host-to-device copies and kernels per
+    flush), each step checked as the others;
 11. the gather microbenchmark's kernel K5 and its tool;
 12. the port's daemon (infw_torch.daemon.Daemon, threads started): the
     headline CRs' ingress blocks as one NodeState file, then bench config
-    5a's replay of the 100K trie re-adopted from a checkpoint, then one
-    pass under compressed=True; every file's verdicts against the oracle
-    on subsets and a host recount, stats, deny events and /metrics;
-    launches per pass go on the kernels line as ``daemon_launches``;
+    5a's replay of the 100K trie re-adopted from a checkpoint; then an
+    edit file of 1024 ops of the full mix into ``edits/`` (one "batch"
+    flush; the edit-visible latency, the patch_txn_* counters against
+    /metrics) and a 1M-frame file against the oracle of the edited
+    content, then rules edits dropped while a pass is in flight (each
+    packet the oracle's verdict before or after them); then an edit file
+    and one pass under compressed=True (both K3 entries on the patched
+    tables); every file's verdicts against the oracle on subsets and a
+    host recount, stats, deny events and /metrics; launches per pass go
+    on the kernels line as ``daemon_launches``;
 13. one JSON ``kernels`` line (K3 and K3b as their fused entries, which
     the main path runs, each with its two-column entry's readings under
     ``two_column``), then the device JSON as the last line.
@@ -2117,6 +2128,72 @@ def churn_keys(rng, n: int, taken: set, compiler, testing, width: int):
     return out
 
 
+def timed_flush(applier, ops):
+    """applier.apply(ops) to the end of its device work: (report, host
+    milliseconds, CUDA-event milliseconds)."""
+    import torch
+
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start.record()
+    rep = applier.apply(ops)
+    stop.record()
+    torch.cuda.synchronize()
+    return rep, (time.perf_counter() - t0) * 1e3, start.elapsed_time(stop)
+
+
+def flush_operations(fn, windows: int = 3):
+    """Flushes (``fn()``) under torch.profiler, in ``windows`` windows of
+    two: a warm flush, then the recorded one with 20 ms of margin on each
+    side, as profiled_kernels records its calls.  Always 2 * ``windows``
+    flushes, so what they apply does not depend on the trace.  Returns (the
+    last flush's result, the counts of the first window whose trace holds
+    a device event for every kernel launch call, else of the last one):
+    host-to-device copies, device-to-device copies, kernels and memsets on
+    the device timeline ("lost" when the trace has fewer kernels than
+    launch calls), and on the host the runtime's copy, launch and memset
+    calls and the aten copies (``_to_copy``: the staged rows in, ``clone``:
+    the device clones) per flush."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    best = None
+    for _window in range(windows):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+            time.sleep(0.02)
+            out = fn()
+            torch.cuda.synchronize()
+            time.sleep(0.02)
+            prof.step()
+        dev = {"h2d": 0, "d2d": 0, "kernels": 0, "memsets": 0}
+        host = {"cudaMemcpyAsync": 0, "cudaLaunchKernel": 0, "cudaMemsetAsync": 0,
+                "aten::_to_copy": 0, "aten::clone": 0, "aten::index_copy_": 0}
+        for e in prof.events():
+            if e.is_user_annotation or e.name.startswith("ProfilerStep"):
+                continue
+            if e.device_type == DeviceType.CUDA:
+                if e.name.startswith("Memcpy"):
+                    kind = "h2d" if "HtoD" in e.name else "d2d" if "DtoD" in e.name else "d2h"
+                    dev[kind] = dev.get(kind, 0) + 1
+                else:
+                    dev["memsets" if e.name.startswith("Memset") else "kernels"] += 1
+            elif e.name in host:
+                host[e.name] += 1
+            elif e.name.startswith(("cudaLaunch", "cuLaunch")):
+                host["cudaLaunchKernel"] += 1
+        complete = dev["kernels"] >= host["cudaLaunchKernel"]
+        if best is None or (complete and not best[0]):
+            best = (complete, {"device": dev if complete else "lost", "host": host})
+    return out, best[1]
+
+
 class _Content:
     """What HashLpmOracle reads of a table: its content map."""
 
@@ -2132,13 +2209,19 @@ def churn_phase(tag: str, n_entries: int = CHURN_ENTRIES, n_packets: int = CHURN
     IncrementalTables.from_content into TorchClassifier(force_path=...,
     wire_codec="wire8"), then four steps: one rules-only edit, 64 folded
     rules-only edits, a structural round (4 deletes, 5 adds) and a
-    1024-key overlay.  After each step: the resident tables against a fresh
-    padded build, K2/K3 against the plain version, the batch against the
+    1024-key overlay; then the edit transactions (txn.TxnApplier): one
+    64-op transaction of the edit generator's full mix (rules edits, new
+    CIDRs to the overlay, deletes, re-adds), bench_churn's A/B (64
+    rules-only edits folded into one transaction against 64 one-edit
+    generations, interleaved, the min of 2 rounds) and one folded flush
+    under the profiler (its host-to-device copies and kernels).  After each
+    step: the resident tables against a fresh padded build, K2/K3 (and K1
+    over the overlay) against the plain version, the batch against the
     HashLpmOracle of the merged content and a recount, launch counts, and
     the trie and ctrie layouts against each other.  Returns the timings."""
     import torch
 
-    from infw_torch import compiler, oracle, testing
+    from infw_torch import compiler, oracle, testing, txn
     from infw_torch.backend.cuda import TorchClassifier
     from infw_torch.kernels import all_kernels, cwalk, dense, overlay, torchpath, walk
     from infw_torch.packets import concat, narrow_wire
@@ -2198,6 +2281,78 @@ def churn_phase(tag: str, n_entries: int = CHURN_ENTRIES, n_packets: int = CHURN
         build = cwalk.build_ctrie_tables if layout_name == "ctrie" else walk.build_trie_tables
         main_k = cwalk.KERNEL if layout_name == "ctrie" else walk.KERNEL
         results = []
+
+        def verify(step: str, snap, ov_content):
+            """The resident tables against a fresh padded build of ``snap``,
+            the walk (and K1 over an overlay) against its plain version,
+            the main path (launch counts, recount, the wire8 chunk) and the
+            oracle of the merged content; returns (results, launches)."""
+            nonlocal oracle_s
+            fresh = build(snap, device, pad=True)
+            dev = clf._active.dev
+            for f in fresh._fields:
+                a, b = getattr(dev, f), getattr(fresh, f)
+                if not (torch.equal(a, b) if isinstance(b, torch.Tensor) else a == b):
+                    raise SystemExit(f"churn[{layout_name}] {step}: resident {f} differs from a "
+                                     f"fresh padded build")
+            del fresh
+            # the kernel against its plain version on the batch
+            fields, words = torchpath.packet_fields(torchpath.device_batch(batch, device))
+            if layout_name == "ctrie":
+                got = cwalk.ctrie_walk_classify(fields, words, dev)
+                want = cwalk.ctrie_walk_classify_plain(fields, words, dev)
+            else:
+                got = walk.trie_walk_classify(fields, words, dev, dev.n_levels)
+                want = walk.trie_walk_classify_plain(fields, words, dev, dev.n_levels)
+            if not torch.equal(got, want):
+                raise SystemExit(f"churn[{layout_name}] {step}: {main_k.name} disagrees with "
+                                 f"its plain version")
+            ov_dev = clf._active.ov
+            if isinstance(ov_dev, dense.DenseTables):
+                got = dense.dense_classify(fields, words, ov_dev)
+                want = dense.dense_classify_plain(fields, words, ov_dev)
+                if not torch.equal(got, want):
+                    raise SystemExit(f"churn[{layout_name}] {step}: K1 over the overlay disagrees "
+                                     f"with its plain version")
+            del got, want, fields, words
+            # the main path: the whole batch (narrow wire), then the IPv4
+            # chunk (wire8), launch counts zeroed before and read after
+            for k in kernels:
+                k.launches = 0
+            out = clf.classify(batch)
+            w4, v4_only = batch.pack_wire_subset(v4)
+            out4 = clf.classify_async_packed(w4, v4_only).result()
+            launches = {k.name: k.launches for k in kernels if k.launches}
+            # without an overlay the ctrie classify is K3's fused entry;
+            # the overlay combine reads K3's two-column entry, and K1 over
+            # the overlay (K2 over a table K1 cannot hold)
+            if ov_dev is None:
+                want_k = {("ctrie_wire_fused" if layout_name == "ctrie" else main_k.name): 2}
+            else:
+                want_k = {main_k.name: 2}
+                ov_name = "dense_classify" if isinstance(ov_dev, dense.DenseTables) else "trie_walk"
+                want_k[ov_name] = want_k.get(ov_name, 0) + 2
+            if launches != want_k:
+                raise SystemExit(f"churn[{layout_name}] {step}: launches {launches}, expected "
+                                 f"{want_k}")
+            check_recount(batch, out.results, out.stats_delta, f"churn[{layout_name}] {step}")
+            if not np.array_equal(out4.results, out.results[v4]):
+                raise SystemExit(f"churn[{layout_name}] {step}: the wire8 chunk disagrees")
+            if step not in oracles:
+                content = dict(snap.content)
+                content.update(ov_content)
+                t0 = time.perf_counter()
+                oracles[step] = oracle.HashLpmOracle(_Content(content))
+                oracle_s += time.perf_counter() - t0
+            for name, ix in subsets.items():
+                ref = oracles[step].classify(batch.take(ix))
+                if not (np.array_equal(out.results[ix], ref.results)
+                        and np.array_equal(out.xdp[ix], ref.xdp)):
+                    raise SystemExit(f"churn[{layout_name}] {step}: disagrees with the oracle "
+                                     f"({name})")
+            results.append(out.results)
+            return out.results, launches
+
         steps = (("edit1", "1 rules-only edit"), ("edit64", "64 folded rules-only edits"),
                  ("struct", "structural round (4 deletes, 5 adds)"),
                  ("overlay", f"{CHURN_OVERLAY}-key overlay"))
@@ -2252,59 +2407,8 @@ def churn_phase(tag: str, n_entries: int = CHURN_ENTRIES, n_packets: int = CHURN
                 torch.cuda.synchronize()
                 cold_s = time.perf_counter() - t0
                 del cold
-            fresh = build(snap, device, pad=True)
-            dev = clf._active.dev
-            for f in fresh._fields:
-                a, b = getattr(dev, f), getattr(fresh, f)
-                if not (torch.equal(a, b) if isinstance(b, torch.Tensor) else a == b):
-                    raise SystemExit(f"churn[{layout_name}] {step}: resident {f} differs from a "
-                                     f"fresh padded build")
-            del full, fresh
-            # the kernel against its plain version on the batch
-            fields, words = torchpath.packet_fields(torchpath.device_batch(batch, device))
-            if layout_name == "ctrie":
-                got = cwalk.ctrie_walk_classify(fields, words, dev)
-                want = cwalk.ctrie_walk_classify_plain(fields, words, dev)
-            else:
-                got = walk.trie_walk_classify(fields, words, dev, dev.n_levels)
-                want = walk.trie_walk_classify_plain(fields, words, dev, dev.n_levels)
-            if not torch.equal(got, want):
-                raise SystemExit(f"churn[{layout_name}] {step}: {main_k.name} disagrees with "
-                                 f"its plain version")
-            del got, want
-            # the main path: the whole batch (narrow wire), then the IPv4
-            # chunk (wire8), launch counts zeroed before and read after
-            for k in kernels:
-                k.launches = 0
-            out = clf.classify(batch)
-            w4, v4_only = batch.pack_wire_subset(v4)
-            out4 = clf.classify_async_packed(w4, v4_only).result()
-            launches = {k.name: k.launches for k in kernels if k.launches}
-            # without an overlay the ctrie classify is K3's fused entry;
-            # the overlay combine reads K3's two-column entry
-            walk_name = ("ctrie_wire_fused" if layout_name == "ctrie" and ov_arg is None
-                         else main_k.name)
-            want_k = {walk_name: 2, **({"dense_classify": 2} if ov_arg is not None else {})}
-            if launches != want_k:
-                raise SystemExit(f"churn[{layout_name}] {step}: launches {launches}, expected "
-                                 f"{want_k}")
-            check_recount(batch, out.results, out.stats_delta, f"churn[{layout_name}] {step}")
-            if not np.array_equal(out4.results, out.results[v4]):
-                raise SystemExit(f"churn[{layout_name}] {step}: the wire8 chunk disagrees")
-            if step not in oracles:
-                content = dict(snap.content)
-                if ov_arg is not None:
-                    content.update(ov_arg.content)
-                t0 = time.perf_counter()
-                oracles[step] = oracle.HashLpmOracle(_Content(content))
-                oracle_s += time.perf_counter() - t0
-            for name, ix in subsets.items():
-                ref = oracles[step].classify(batch.take(ix))
-                if not (np.array_equal(out.results[ix], ref.results)
-                        and np.array_equal(out.xdp[ix], ref.xdp)):
-                    raise SystemExit(f"churn[{layout_name}] {step}: disagrees with the oracle "
-                                     f"({name})")
-            results.append(out.results)
+            del full
+            out_results, launches = verify(step, snap, ov_content if ov_arg is not None else {})
             timings.setdefault(step, {})[layout_name] = {
                 "mode": mode, "patch_ms": patch_s * 1e3, "patch_event_ms": patch_ev,
                 "full_ms": full_s * 1e3, "snapshot_ms": snap_s * 1e3,
@@ -2316,13 +2420,14 @@ def churn_phase(tag: str, n_entries: int = CHURN_ENTRIES, n_packets: int = CHURN
                 f"{full_s * 1e3:.2f} ms ({full_s / patch_s:.1f}x){cold_txt}; snapshot + hint "
                 f"{snap_s * 1e3:.2f} ms; launches {launches}; oracle on "
                 f"{', '.join(f'{k} {len(v)}' for k, v in subsets.items())} packets and the "
-                f"recount equal; rule hits {int((out.results != 0).sum())}")
+                f"recount equal; rule hits {int((out_results != 0).sum())}")
         # the overlay side on the operands it is served with: K1 over the
         # overlay's dense layout, and K2 over the overlay's own padded trie
         # (the layout an overlay K1 cannot hold is served on), each against
         # its plain version on both columns, then both sides in the combine
         dev, ov_dev = clf._active.dev, clf._active.ov
         n_lv = dev.n_levels if layout_name == "trie" else None
+        fields, words = torchpath.packet_fields(torchpath.device_batch(batch, device))
         if not isinstance(ov_dev, dense.DenseTables):
             raise SystemExit(f"churn[{layout_name}]: the overlay is not served on K1")
         ov_trie = walk.build_trie_tables(ov, device, pad=True)
@@ -2366,9 +2471,65 @@ def churn_phase(tag: str, n_entries: int = CHURN_ENTRIES, n_packets: int = CHURN
             f"events): {without:.4f} ms without the overlay, {with_ov:.4f} ms with it (K1 over "
             f"the {ov.num_entries}-entry overlay alone {k1_ms:.4f} ms); with the overlay on K2 "
             f"over its trie instead {with_k2:.4f} ms (K2 alone {k2_ms:.4f} ms)")
+        del dev, ov_dev, ov_trie, wire, fields, words
+
+        # the edit transactions, through a TxnApplier over the same
+        # IncrementalTables and classifier; its overlay starts empty, so
+        # the churn overlay leaves service at its first load
+        applier = txn.TxnApplier(clf, it, stats=txn.TxnStats())
+        t0 = time.perf_counter()
+        ops = testing.generate_edit_ops(np.random.default_rng(4244), 64, it, CHURN_WIDTH)
+        draw_s = time.perf_counter() - t0
+        rep, ms, ev_ms = timed_flush(applier, ops)
+        _res, launches = verify("txn", clf.tables, applier.overlay)
+        kinds = {k: sum(op.kind == k for op in ops) for k in sorted({op.kind for op in ops})}
+        log(f"{tag} churn[{layout_name}] txn (one 64-op transaction, ops {kinds}, drawn in "
+            f"{draw_s:.2f} s): {rep.n_ops} ops, {rep.n_folded} folded, load {rep.mode}, "
+            f"{rep.dirty_rows} rows shipped, escalated {rep.escalated}, overlay "
+            f"{len(applier.overlay)} keys; {ms:.2f} ms host clock ({ev_ms:.2f} ms CUDA events) "
+            f"per flush; launches {launches}; the fresh build, plain versions, oracle and "
+            f"recount equal")
+        txn_t = {"mix": {"ops": rep.n_ops, "folded": rep.n_folded, "mode": rep.mode,
+                         "rows": rep.dirty_rows, "ms": ms, "event_ms": ev_ms}}
+        # bench_churn's A/B on live keys: 64 one-edit generations against
+        # one folded 64-edit transaction, interleaved, the min of 2 rounds
+        keys = list(applier.updater.content)
+        rules_only = lambda n: [txn.EditOp("rules_edit", k, r) for k, r in mk_edits(n).items()]
+        timed_flush(applier, rules_only(1))  # the first edit's one-time costs
+        seq, folded_ms, seq_rows, folded_rows = [], [], [], []
+        for _round in range(2):
+            t0 = time.perf_counter()
+            for op in rules_only(64):
+                r1, _ms, _ev = timed_flush(applier, [op])
+                if r1.mode != "patch":
+                    raise SystemExit(f"churn[{layout_name}] txn A/B: a one-edit generation "
+                                     f"loaded by {r1.mode}")
+                seq_rows.append(r1.dirty_rows)
+            seq.append((time.perf_counter() - t0) * 1e3 / 64)
+            r64, ms, _ev = timed_flush(applier, rules_only(64))
+            if r64.mode != "patch":
+                raise SystemExit(f"churn[{layout_name}] txn A/B: the folded transaction loaded "
+                                 f"by {r64.mode}")
+            folded_ms.append(ms / 64)
+            folded_rows.append(r64.dirty_rows)
+        # six more folded flushes, every second one under the profiler:
+        # their copies and kernels
+        r64, ops_per_flush = flush_operations(lambda: applier.apply(rules_only(64)))
+        _res, launches = verify("txn A/B", clf.tables, applier.overlay)
+        log(f"{tag} churn[{layout_name}] txn A/B (64 rules-only edits, 2 rounds interleaved): "
+            f"per edit {min(seq):.3f} ms as one-edit generations (rounds {seq[0]:.3f}, "
+            f"{seq[1]:.3f}; {sum(seq_rows) / len(seq_rows):.1f} rows each) against "
+            f"{min(folded_ms):.3f} ms folded (rounds {folded_ms[0]:.3f}, {folded_ms[1]:.3f}; "
+            f"{folded_rows} rows per flush), {min(seq) / min(folded_ms):.1f}x, host clock; one "
+            f"folded flush under the profiler ({r64.dirty_rows} rows): {ops_per_flush}; "
+            f"launches {launches}; the fresh build, plain versions, oracle and recount equal")
+        txn_t["ab"] = {"seq_ms_per_edit": seq, "folded_ms_per_edit": folded_ms,
+                       "seq_rows_mean": sum(seq_rows) / len(seq_rows),
+                       "folded_rows": folded_rows, "profiled_flush": ops_per_flush}
+        timings.setdefault("txn", {})[layout_name] = txn_t
         by_layout[layout_name] = results
         clf.close()
-        del it, clf, dev, ov_dev, ov_trie, wire, fields, words
+        del it, clf
     for a, b in zip(by_layout["trie"], by_layout["ctrie"]):
         if not np.array_equal(a, b):
             raise SystemExit("churn: the trie and ctrie layouts disagree")
@@ -2523,16 +2684,19 @@ def stage_split(d, wall: float) -> str:
             f"{wall - sum(d.stage_seconds.values()):.3f}")
 
 
-def check_daemon_files(d, files, reference, label: str) -> dict:
+def check_daemon_files(d, files, reference, label: str, n_check: int = ORACLE_PACKETS) -> dict:
     """Every file's summary against a host recount of its verdict sidecar,
-    its first ORACLE_PACKETS packets against ``reference`` (an oracle's
-    classify of the parsed frames); returns the recounted statistics and
-    deny count."""
+    its first ``n_check`` packets against ``reference`` (an oracle's
+    classify of the parsed frames, or a tuple of classifies when edits land
+    during the pass: each packet must equal one of them); returns the
+    recounted statistics and deny count, and per reference the packets
+    that equal it and no other."""
     from infw_torch.backend.base import stats_from_results
     from infw_torch.obs import pcap
 
     stats = np.zeros((1024, 4), np.int64)
     denies = 0
+    only = None
     for name, fb in files:
         res = np.fromfile(os.path.join(d.out_dir, name + ".verdicts.bin"), "<u4")
         summary = json.load(open(os.path.join(d.out_dir, name + ".verdicts.json")))
@@ -2543,21 +2707,26 @@ def check_daemon_files(d, files, reference, label: str) -> dict:
         if len(res) != len(fb) or summary != want:
             raise SystemExit(f"{label}: {name}'s summary {summary} disagrees with its "
                              f"verdicts {want}")
-        n = ORACLE_PACKETS
+        n = min(n_check, len(fb))
         sub = pcap.FramesBuf(fb.buf, fb.offsets[:n], fb.lengths[:n], fb.ifindex[:n])
-        ref = reference(pcap.parse_frames_buf(sub))
-        if not np.array_equal(res[:n], ref.results):
+        refs = reference(pcap.parse_frames_buf(sub))
+        refs = refs if isinstance(refs, tuple) else (refs,)
+        hits = np.stack([res[:n] == r.results for r in refs])
+        if not hits.any(axis=0).all():
             raise SystemExit(f"{label}: {name} disagrees with the oracle on its first "
                              f"{n} packets")
+        alone = hits & (hits.sum(axis=0) == 1)
+        only = alone.sum(axis=1) if only is None else only + alone.sum(axis=1)
         stats += stats_from_results(res, parsed.pkt_len)
         denies += int(((res & 0xFF) == 1).sum())
-    return {"stats": stats, "denies": denies}
+    return {"stats": stats, "denies": denies, "only": [int(c) for c in only]}
 
 
 def check_daemon_counters(d, clf, before: dict, got: dict, label: str) -> None:
     """The daemon's statistics against the recount, the deny events
-    (decoded spill rows, and no lost sample) against the deny verdicts, the
-    /metrics deny counter against the statistics."""
+    (decoded spill rows, and no lost sample) against the deny verdicts (the
+    ring's other records: one patch-txn line per edit flush), the /metrics
+    deny counter against the statistics."""
     from infw_torch.obs import events
 
     delta = clf.stats.snapshot() - before["stats"]
@@ -2569,7 +2738,8 @@ def check_daemon_counters(d, clf, before: dict, got: dict, label: str) -> None:
     _wait(lambda: size() >= before["spill"] + got["denies"] * row, "the deny-event spill", 60)
     d.events_logger.drain_once()
     rows = np.fromfile(spill, events.BatchDenyRecord.SPILL_DTYPE)[before["spill"] // row:]
-    small = d.ring.queued_total - before["queued"] - len(rows)
+    flushes = d.txn_stats.snapshot()["txns"] - before["txns"]
+    small = d.ring.queued_total - before["queued"] - len(rows) - flushes
     if (len(rows) != got["denies"] or not ((rows["result"] & 0xFF) == 1).all()
             or d.ring.lost_samples or small):
         raise SystemExit(f"{label}: {len(rows)} spilled deny events (+{small} as lines, "
@@ -2591,11 +2761,12 @@ def daemon_phase(tag: str, iface_rules: dict) -> dict:
 
     import torch
 
-    from infw_torch import compiler, daemon, oracle, spec, testing
+    from infw_torch import compiler, daemon, oracle, spec, testing, txn
     from infw_torch.compiler import LazyContent
     from infw_torch.interfaces import Interface, InterfaceRegistry
     from infw_torch.kernels import all_kernels
     from infw_torch.obs import pcap
+    from infw_torch.packets import concat
     from torch.profiler import ProfilerActivity, profile
 
     t_phase = time.perf_counter()
@@ -2631,12 +2802,14 @@ def daemon_phase(tag: str, iface_rules: dict) -> dict:
     def counters(d):
         clf = d.syncer.classifier
         return {"stats": clf.stats.snapshot(), "queued": d.ring.queued_total,
+                "txns": d.txn_stats.snapshot()["txns"],
                 "spill": os.path.getsize(os.path.join(d.state_dir, "deny-events.bin"))
                 if os.path.exists(os.path.join(d.state_dir, "deny-events.bin")) else 0}
 
-    def run_pass(d, files, label: str):
-        """Stage the files, zero the counts, move them into ingest/ and
-        wait for every summary; returns (seconds, launches)."""
+    def run_pass(d, files, label: str, before=None, during=None):
+        """Stage the files, zero the counts, call ``before`` (when given),
+        move them into ingest/, call ``during`` (when given) and wait for
+        every summary; returns (seconds, launches)."""
         stage = os.path.join(d.state_dir, "staging")
         os.makedirs(stage, exist_ok=True)
         for name, fb in files:
@@ -2645,9 +2818,13 @@ def daemon_phase(tag: str, iface_rules: dict) -> dict:
         for k in kernels:
             k.launches = 0
         d.stage_seconds.update(dict.fromkeys(d.stage_seconds, 0.0))
+        if before is not None:
+            before()
         t0 = time.perf_counter()
         for name, _fb in files:
             os.replace(os.path.join(stage, name), os.path.join(d.ingest_dir, name))
+        if during is not None:
+            during()
         last = [os.path.join(d.out_dir, name + ".verdicts.json") for name, _fb in files]
         _wait(lambda: all(os.path.exists(p) for p in last), f"{label}'s summaries", 600, 0.002)
         dt = time.perf_counter() - t0
@@ -2743,7 +2920,7 @@ def daemon_phase(tag: str, iface_rules: dict) -> dict:
                             pcap.FramesBuf(fb.buf, fb.offsets, fb.lengths, np.roll(ifx, 977 * k))))
             return out
 
-        def replay_pass(d, p: int, label: str):
+        def replay_pass(d, p: int, label: str, reference=None):
             clf = d.syncer.classifier
             files = pass_files(p)
             before = counters(d)
@@ -2751,13 +2928,161 @@ def daemon_phase(tag: str, iface_rules: dict) -> dict:
             dt, launches = run_pass(d, files, label)
             ws = {k: tuple(v - ws0.get(k, (0, 0))[j] for j, v in enumerate(vals))
                   for k, vals in clf.wire_stats().items()}
-            got = check_daemon_files(d, files, hashed.classify, label)
+            got = check_daemon_files(d, files, reference or hashed.classify, label)
             check_daemon_counters(d, clf, before, got, label)
             n = REPLAY_FILES * REPLAY_PACKETS
             log(f"{tag} {label}: {REPLAY_FILES} x {REPLAY_PACKETS} frames in {dt:.3f} s = "
                 f"{n / dt / 1e6:.3f} M packets/s; launches {launches}; {stage_split(d, dt)}; "
                 f"wire {ws}")
             return dt, launches, ws
+
+        def land_edits(d, name: str, ops) -> float:
+            """Write an edit file beside edits/ and move it in; the moment
+            it landed (host clock)."""
+            stage = os.path.join(d.state_dir, "edit-staging")
+            os.makedirs(stage, exist_ok=True)
+            txn.write_edit_file(os.path.join(stage, name), ops)
+            t = time.perf_counter()
+            os.replace(os.path.join(stage, name), os.path.join(d.edits_dir, name))
+            return t
+
+        def wait_flushed(d, ops_before: int, n_ops: int) -> float:
+            """Wait until the flushes counted ``n_ops`` more ops, edits/ is
+            empty and no flush runs; the moment the count was reached."""
+            want = ops_before + n_ops
+            _wait(lambda: d.txn_stats.snapshot()["ops"] >= want, "the edit flush", 300, 0.0005)
+            t = time.perf_counter()
+            _wait(lambda: not os.listdir(d.edits_dir) and not (
+                d._edit_flush_thread is not None and d._edit_flush_thread.is_alive()),
+                "edits/ to drain", 60)
+            if d.txn_stats.snapshot()["ops"] != want:
+                raise SystemExit(f"daemon edits: {d.txn_stats.snapshot()['ops']} ops flushed, "
+                                 f"expected {want}")
+            return t
+
+        def aimed_batch(rng, content: dict, n: int):
+            """A batch of ``n`` packets inside ``content``'s prefixes."""
+            t = compiler.compile_tables_from_content(content, rule_width=TRIE_WIDTH)
+            b = testing.random_batch_fast(rng, t, n, hit_fraction=1.0)
+            return b
+
+        def frames_of(b):
+            fb_ = pcap.build_frames_bulk(b.kind, b.ip_words, b.proto, b.dst_port, b.icmp_type,
+                                         b.icmp_code, l4_ok=b.l4_ok)
+            fb_.ifindex = np.asarray(b.ifindex, np.uint32)
+            return fb_
+
+        def edit_pass(d, tables):
+            """The replay state's edit pass: one DEFAULT_MAX_OPS-op file of
+            the generator's full mix, a 1M-frame file against the oracle of
+            the edited content (the first 2^17 packets, 20480 of them aimed
+            at the edited and deleted prefixes) and a recount; then 256
+            rules edits in four files landing while a pass is in flight,
+            each packet's verdict the oracle's before or after them.
+            Returns the launches of each part."""
+            clf = d.syncer.classifier
+            pre = {k: v for k, v in clf.tables.content.items()}
+            ops = testing.generate_edit_ops(np.random.default_rng(33), txn.DEFAULT_MAX_OPS,
+                                            tables, TRIE_WIDTH)
+            kinds = {k: sum(op.kind == k for op in ops) for k in sorted({op.kind for op in ops})}
+            for k in kernels:
+                k.launches = 0
+            before = d.txn_stats.snapshot()
+            t_land = land_edits(d, "e0.json", ops)
+            visible = wait_flushed(d, before["ops"], len(ops)) - t_land
+            flush_launches = {k.name: k.launches for k in kernels if k.launches}
+            after = d.txn_stats.snapshot()
+            if after["txns"] != before["txns"] + 1 or (
+                    after["reasons"].get("batch", 0) != before["reasons"].get("batch", 0) + 1):
+                raise SystemExit(f"daemon edits: expected one 'batch' flush: {before} -> {after}")
+            counters_now = d.txn_stats.counter_values()
+            for name, value in counters_now.items():
+                if _metric(d, name) != value:
+                    raise SystemExit(f"daemon edits: /metrics {name} disagrees with the counters")
+            post = dict(d.syncer._content)
+            log(f"{tag} daemon edit: {len(ops)} ops ({kinds}) visible {visible * 1e3:.1f} ms "
+                f"after the file landed (one 'batch' flush, load {clf._last_load}, overlay "
+                f"{len(d.syncer._overlay)} keys); patch_txn_* {counters_now}; launches during "
+                f"the flush {flush_launches}")
+            # the post-edit file: packets aimed at the edited prefixes, at the
+            # deleted ones, then the edited table at large
+            t0 = time.perf_counter()
+            rng = np.random.default_rng(34)
+            edited = {op.key.masked_identity() for op in ops}
+            live = {k.masked_identity() for k in post}
+            parts = [aimed_batch(rng, {k: v for k, v in post.items()
+                                        if k.masked_identity() in edited}, 16384)]
+            gone = {k: v for k, v in pre.items()
+                    if k.masked_identity() in edited and k.masked_identity() not in live}
+            if gone:
+                parts.append(aimed_batch(rng, gone, 4096))
+            n_rest = REPLAY_PACKETS - sum(len(p_) for p_ in parts)
+            parts.append(testing.random_batch_fast(
+                rng, compiler.compile_tables_from_content(post, rule_width=TRIE_WIDTH), n_rest))
+            files = [("edit-f0.frames", frames_of(concat(parts)))]
+            post_oracle = oracle.HashLpmOracle(_Content(post))
+            prep_s = time.perf_counter() - t0
+            before_c = counters(d)
+            dt, launches = run_pass(d, files, "the post-edit file")
+            got = check_daemon_files(d, files, post_oracle.classify, "daemon edit", n_check=1 << 17)
+            check_daemon_counters(d, clf, before_c, got, "daemon edit")
+            for k, v in flush_launches.items():
+                launches[k] = launches.get(k, 0) + v
+            log(f"{tag} daemon edit: the post-edit file ({REPLAY_PACKETS} frames, made in "
+                f"{prep_s:.2f} s) in {dt:.3f} s = {REPLAY_PACKETS / dt / 1e6:.3f} M packets/s; "
+                f"launches {launches}; oracle of the edited content on the first {1 << 17} "
+                f"packets, the recount and the counters equal")
+            if launches.get("trie_walk", 0) <= 0 or (d.syncer._overlay and
+                                                     launches.get("dense_classify", 0) <= 0):
+                raise SystemExit(f"daemon edit: K2 (and K1 over the overlay) must serve the "
+                                 f"edited tables: {launches}")
+            edit_launches = launches
+
+            # rules edits of 256 live keys in four files, landing in flight
+            rng = np.random.default_rng(35)
+            keys = list(post)
+            pick = rng.choice(len(keys), 256, replace=False)
+            late = [txn.EditOp("rules_edit", keys[int(i)], testing.random_rules(rng, TRIE_WIDTH))
+                    for i in pick]
+            post2 = dict(post)
+            post2.update({op.key: op.rules for op in late})
+            aimed = frames_of(aimed_batch(rng, {op.key: op.rules for op in late}, 65536))
+            base_files = pass_files(REPLAY_PASSES + 2, 4)
+            pre_o, post_o = post_oracle, oracle.HashLpmOracle(_Content(post2))
+            both = lambda sub: (pre_o.classify(sub), post_o.classify(sub))
+            before_c = counters(d)
+            before = d.txn_stats.snapshot()
+            landed = []
+
+            def drop(js):
+                for j in js:
+                    landed.append(land_edits(d, f"late-{j}.json", late[64 * j: 64 * (j + 1)]))
+                    time.sleep(0.05)
+
+            # two files land just before the frames: the next tick queues
+            # them and its admissions trip their flush mid-pass; two land
+            # while the tick runs, queued after it
+            dt, launches = run_pass(d, base_files + [("p9-z-aimed.frames", aimed)],
+                                    "the in-flight pass", before=lambda: drop((0, 1)),
+                                    during=lambda: drop((2, 3)))
+            done = wait_flushed(d, before["ops"], len(late))
+            after = d.txn_stats.snapshot()
+            got = check_daemon_files(d, base_files, both, "daemon in-flight", n_check=16384)
+            got_a = check_daemon_files(d, [("p9-z-aimed.frames", aimed)], both,
+                                       "daemon in-flight", n_check=65536)
+            check_daemon_counters(d, clf, before_c, {
+                "stats": got["stats"] + got_a["stats"], "denies": got["denies"] + got_a["denies"]},
+                "daemon in-flight")
+            reasons = {r: c - before["reasons"].get(r, 0) for r, c in after["reasons"].items()}
+            log(f"{tag} daemon in-flight: 4 edit files of 64 rules edits landed "
+                f"{(landed[-1] - landed[0]) * 1e3:.0f} ms apart, two before and two after the "
+                f"frames of a pass of 4 x "
+                f"{REPLAY_PACKETS} + 65536 frames ({dt:.3f} s); {after['txns'] - before['txns']} "
+                f"flushes {reasons}, the last visible {(done - landed[-1]) * 1e3:.1f} ms after it landed; every "
+                f"checked packet is the oracle's before or after them (aimed file: "
+                f"{got_a['only'][0]} only before, {got_a['only'][1]} only after); edits/ empty; "
+                f"launches {launches}")
+            return edit_launches, launches
 
         times, total = [], {}
         by_pass["trie"] = total
@@ -2786,9 +3111,14 @@ def daemon_phase(tag: str, iface_rules: dict) -> dict:
             f"copies {copy_ms:.3f} ms, of which {over_ms:.3f} ms overlapped a kernel; copies by "
             f"kind {names}; a kernel ran during {busy_ms:.3f} ms (the card idle "
             f"{100 * (1 - busy_ms / 1e3 / dt):.2f}% of the pass)")
+
+        # 3. edit files on the replay state: one file of DEFAULT_MAX_OPS ops
+        # of the generator's full mix (a "batch" flush), then a file aimed at
+        # what it changed; then rules edits landing while a pass is in flight
+        by_pass["trie edit"], by_pass["trie in-flight"] = edit_pass(d, tables)
         d.stop()
 
-        # 3. one pass under compressed=True: the ctrie path and the fused K3
+        # 4. one pass under compressed=True: the ctrie path and the fused K3
         d = start("ctrie", compressed=True)
         write_state(d, doc)
         t0 = time.perf_counter()
@@ -2799,9 +3129,24 @@ def daemon_phase(tag: str, iface_rules: dict) -> dict:
             f"path {clf.active_path}")
         if clf.active_path != "ctrie":
             raise SystemExit("daemon: compressed=True must serve the ctrie path")
-        dt, launches, _ws = replay_pass(d, REPLAY_PASSES + 1, "daemon replay compressed")
-        if launches.get("ctrie_wire_fused", 0) <= 0:
-            raise SystemExit(f"daemon compressed: K3's fused entry was not launched: {launches}")
+        # an edit file first (no new CIDRs, so no overlay): both K3 entries
+        # then run on patched tables, the fused one and, for the delta
+        # chunks, the two-column one
+        ops = [op for op in testing.generate_edit_ops(np.random.default_rng(36), 512, tables,
+                                                      TRIE_WIDTH) if op.kind != "cidr_add"]
+        before = d.txn_stats.snapshot()
+        t_land = land_edits(d, "c0.json", ops)
+        visible = wait_flushed(d, before["ops"], len(ops)) - t_land
+        if d.syncer._overlay:
+            raise SystemExit("daemon compressed: the edit file filled the overlay")
+        edited = oracle.HashLpmOracle(_Content(dict(d.syncer._content)))
+        log(f"{tag} daemon ctrie edit: {len(ops)} ops visible {visible * 1e3:.1f} ms after the "
+            f"file landed; load {clf._last_load}")
+        dt, launches, _ws = replay_pass(d, REPLAY_PASSES + 1, "daemon replay compressed",
+                                        reference=edited.classify)
+        if launches.get("ctrie_wire_fused", 0) <= 0 or launches.get("ctrie_walk", 0) <= 0:
+            raise SystemExit(f"daemon compressed: K3's fused and two-column entries must both "
+                             f"run after the patch: {launches}")
         by_pass["ctrie"] = launches
         d.stop()
         log(f"daemon phase: {time.perf_counter() - t_phase:.1f} s")

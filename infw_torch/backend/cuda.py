@@ -62,7 +62,10 @@ results and statistics (results only for the wire8 and delta formats).
   such launch ordered before the write, which no lock here can promise.
   The clone costs a device-to-device copy of each changed array (a read
   and a write of its bytes) and its size in memory until the old
-  generation is released.
+  generation is released.  The clones and copies are enqueued on the
+  loading thread's current stream (an edit flush loads from its own
+  thread); the load records an event there, and a classify that
+  snapshots the new generation on another stream waits on it first.
   ``_last_load`` records ("patch" | "full", rows).  The dense path always
   uploads in full, as the reference does.
 - **overlay** (``load_tables(..., overlay=ov)``): a small side table of
@@ -121,6 +124,8 @@ class _Active(NamedTuple):
     dev: Union[dense.DenseTables, walk.TrieTables, cwalk.CTrieTables]
     wide_rids: bool
     ov: Optional[overlay_mod.OverlayTables] = None  # the overlay's device tables
+    # (event, stream) recorded after the generation's uploads on a card
+    ready: Optional[tuple] = None
 
 
 class TorchClassifier:
@@ -268,9 +273,14 @@ class TorchClassifier:
                 ov_dev = overlay_mod.build_overlay_tables(overlay, self._device)
                 with self._lock:
                     self._ov_cache = (overlay, ov_dev)
+        ready = None
+        if self._device.type == "cuda":
+            stream = torch.cuda.current_stream(self._device)
+            ready = (torch.cuda.Event(), stream)
+            ready[0].record(stream)
         with self._lock:
             self._tables = tables
-            self._active = _Active(path, dev, wide_rids, ov_dev)
+            self._active = _Active(path, dev, wide_rids, ov_dev, ready)
             self._last_load = last
             self._depth_gen += 1
             self._depth_steer = None if steer is None else steer + (self._depth_gen,)
@@ -279,9 +289,17 @@ class TorchClassifier:
 
     def _snapshot(self) -> _Active:
         with self._lock:
-            if self._active is None:
-                raise RuntimeError("no rule tables loaded")
-            return self._active
+            active = self._active
+        if active is None:
+            raise RuntimeError("no rule tables loaded")
+        if active.ready is not None:
+            event, stream = active.ready
+            current = torch.cuda.current_stream(self._device)
+            if current != stream:
+                # the generation was uploaded on another thread's stream:
+                # order this classify's work after it
+                current.wait_event(event)
+        return active
 
     def classify_async(
         self, batch: PacketBatch, apply_stats: bool = True

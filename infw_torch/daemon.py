@@ -14,20 +14,31 @@ contract NODE_NAME / NAMESPACE / POLL_PERIOD_SECONDS / ENABLE_LPM_LOOKUP_DBG
 - Packet ingest is file replay: a frames file (``write_frames_file[_v2]``)
   dropped into ``<state-dir>/ingest/`` is classified, its verdicts land in
   ``<state-dir>/out/`` (a u32 sidecar per packet and a JSON summary), and
-  its deny events go to ``events.log`` (replay-scale deny sets as 28-byte
+  its deny events go to ``events.log`` (replay-scale deny sets as 32-byte
   rows in ``deny-events.bin``).
+- Rule edits arrive as edit files (``txn.write_edit_file``) dropped into
+  ``<state-dir>/edits/``: they queue in a ``txn.TxnBatcher`` and flush as
+  one folded patch transaction (``DataplaneSyncer.apply_edit_transaction``)
+  when the oldest edit is older than ``--patch-staleness-us`` or
+  ``--patch-max-ops`` edits wait.  The flush runs on its own thread, at
+  most one at a time, between the ingest tick's admissions and on the
+  file loop; counters go to /metrics (``patch_txn_*``), one
+  ``patch-txn:`` line per flush to ``events.log``.
 - The classifier is ``TorchClassifier``: on the first CUDA card by default
   (``--backend cuda``; no card raises at start, there is no fallback), or
   the plain PyTorch versions on the CPU when ``--backend cpu`` is asked
   for.  Its classify kernels (K1 dense, K2 trie, K3 ctrie, K4 delta
   decode) are launched and read back on the file-loop thread alone; a
   table load runs on the thread that syncs (the file loop for the state
-  dir, the writer's for the in-process store); the HTTP and statistics
-  threads read only host counters.
+  dir, the writer's for the in-process store) or on the edit-flush
+  thread; the HTTP and statistics threads read only host counters.  A
+  load swaps the generation under the classifier's lock, and a job holds
+  the one it snapshotted: a flush landing between ``prepare_packed`` and
+  ``classify_prepared`` leaves that job on the old tables.
 - ``ENABLE_LPM_LOOKUP_DBG`` fills a bounded key buffer served at
   ``/debug/lookup-keys`` (the debug hash map, kernel.c:59-64,214-216).
 
-The JAX daemon's scheduler, edit transactions, ingest ring, events socket,
+The JAX daemon's scheduler, ingest ring, events socket,
 mesh, flow tier, resident loop, telemetry, tracing, scoring, payload and
 tenant options are not in the port yet: ``main`` refuses each of their
 flags, naming its ROADMAP item.
@@ -67,6 +78,7 @@ from .schema import validate_nodestate_schema
 from .spec import IngressNodeFirewallNodeState
 from .store import InMemoryStore
 from .syncer import DataplaneSyncer, SyncError
+from .txn import DEFAULT_MAX_OPS, DEFAULT_STALENESS_US, TxnBatcher, TxnStats, read_edit_file
 
 log = logging.getLogger("infw_torch.daemon")
 
@@ -89,7 +101,7 @@ _FRAMES_MAGIC2 = b"INFW2\n"
 #: asks for the option when it is set to anything but "", "0", "false" or
 #: "no" (INFW_FUSED_DEEP the other way round: "0", "false" or "no" turn the
 #: fused walk off, which is what --no-fused-deep asks for)
-_ITEM_24 = "ROADMAP.md item 24 (edit transactions, the ingest ring, the events sidecar)"
+_ITEM_24 = "ROADMAP.md item 24 (the scheduler, the ingest ring, the events sidecar)"
 REFUSED_FLAGS = (
     ("--mesh", "INFW_MESH", "ROADMAP.md item 15 (multi-device)"),
     ("--flow-table", "INFW_FLOW_TABLE", "ROADMAP.md item 9 (the stateful flow tier)"),
@@ -107,8 +119,6 @@ REFUSED_FLAGS = (
     ("--tenants", "INFW_TENANTS", "ROADMAP.md items 20 and 21 (the tenant arenas)"),
     ("--deadline-us", "INFW_DEADLINE_US", _ITEM_24),
     ("--max-batch", "INFW_MAX_BATCH", _ITEM_24),
-    ("--patch-staleness-us", "INFW_PATCH_STALENESS_US", _ITEM_24),
-    ("--patch-max-ops", "INFW_PATCH_MAX_OPS", _ITEM_24),
     ("--ring", "INFW_RING", _ITEM_24),
     ("--events-socket", "INFW_EVENTS_SOCKET", _ITEM_24),
     ("--no-fused-deep", "INFW_FUSED_DEEP", _ITEM_24),
@@ -291,6 +301,8 @@ class Daemon:
         event_ring_size: int = 1 << 21,
         wire_codec: Optional[str] = None,
         compressed: Optional[bool] = None,
+        patch_staleness_us: Optional[float] = None,
+        patch_max_ops: Optional[int] = None,
     ) -> None:
         # resolve the device first: without a card the default backend
         # fails here, before any directory, thread or file is made
@@ -307,12 +319,25 @@ class Daemon:
         self.max_tick_packets = max(1, int(max_tick_packets))
         self.stage_seconds = dict.fromkeys(STAGES, 0.0)
         self.registry = registry if registry is not None else default_registry
+        # edit batching (txn): edit files queue here and flush as one
+        # folded transaction on the staleness deadline or the batch
+        # threshold, checked between ingest admissions and on the file loop
+        self.patch_staleness_us = float(
+            patch_staleness_us if patch_staleness_us is not None else DEFAULT_STALENESS_US)
+        self.patch_max_ops = int(patch_max_ops or DEFAULT_MAX_OPS)
+        self.txn_stats = TxnStats()
+        self.txn_batcher = TxnBatcher(staleness_s=self.patch_staleness_us * 1e-6,
+                                      max_ops=self.patch_max_ops)
+        # at most one flush in flight, on its own thread (_maybe_flush_edits);
+        # only the file-loop thread sets this
+        self._edit_flush_thread: Optional[threading.Thread] = None
 
         self.nodestates_dir = os.path.join(state_dir, "nodestates")
         self.ingest_dir = os.path.join(state_dir, "ingest")
+        self.edits_dir = os.path.join(state_dir, "edits")
         self.out_dir = os.path.join(state_dir, "out")
         self.events_path = os.path.join(state_dir, "events.log")
-        for d in (self.nodestates_dir, self.ingest_dir, self.out_dir):
+        for d in (self.nodestates_dir, self.ingest_dir, self.edits_dir, self.out_dir):
             os.makedirs(d, exist_ok=True)
 
         # a per-daemon metrics registry (statistics.go:79-86): /metrics
@@ -351,6 +376,9 @@ class Daemon:
         self.metrics_registry.register_counters(CRASH_COUNTERS)
         self._wire_counters = _WireStatsCounters(lambda: self.syncer.classifier)
         self.metrics_registry.register_counters(self._wire_counters)
+        # patch-transaction counters and the staleness histogram
+        # (ingressnodefirewall_node_patch_txn_*)
+        self.metrics_registry.register_counters(self.txn_stats)
         self.debug_buffer = DebugLookupBuffer()
 
         self._stop = threading.Event()
@@ -446,6 +474,78 @@ class Daemon:
                     self.syncer.sync_interface_ingress_rules({}, True)
                 except (SyncError, CompileError, InterfaceError) as e:
                     log.error("delete sync failed for %s: %s", fn, e)
+
+    # -- rule-edit files -----------------------------------------------------
+
+    def scan_edits_once(self) -> int:
+        """Queue every edit file in <state-dir>/edits/ into the
+        transaction batcher (txn edit-file protocol: one JSON document of
+        single-key ops per file, written tmp + rename).  Files are
+        consumed in sorted order; a bad file is removed and logged, never
+        wedging the scan.  Returns the ops queued."""
+        n = 0
+        for fn in sorted(os.listdir(self.edits_dir)):
+            path = os.path.join(self.edits_dir, fn)
+            if fn.endswith(".tmp") or not os.path.isfile(path):
+                continue
+            if fn.endswith("-manifest.json"):
+                continue  # an edit generator's schedule sidecar, not an edit file
+            try:
+                ops = read_edit_file(path)
+            except (OSError, ValueError, KeyError, TypeError) as e:
+                log.error("bad edit file %s: %s", fn, e)
+                try:
+                    os.remove(path)
+                except OSError as re:
+                    log.error("could not remove bad edit file %s: %s", fn, re)
+                continue
+            self.txn_batcher.queue_many(ops)
+            n += len(ops)
+            try:
+                os.remove(path)
+            except OSError as e:
+                log.error("could not remove edit file %s: %s", fn, e)
+        return n
+
+    def _maybe_flush_edits(self, force: bool = False) -> bool:
+        """Start a flush of the queued edits when the staleness policy
+        trips (or ``force``): ONE folded transaction through the syncer,
+        its counters into TxnStats and a PatchTxnRecord on the event ring.
+        The flush runs on its own thread, at most one in flight (later
+        edits keep coalescing toward the next transaction), so neither
+        the ingest tick nor the file loop waits on it, not even on an
+        escalated rebuild.  Until a sync has created the dataplane the
+        edits stay queued.  Returns True when a flush was started."""
+        batcher = self.txn_batcher
+        if len(batcher) == 0:
+            return False
+        t = self._edit_flush_thread
+        if t is not None and t.is_alive():
+            return False
+        reason = "manual" if force else batcher.should_flush()
+        if reason is None:
+            return False
+        clf = self.syncer.classifier
+        if clf is None or clf.tables is None:
+            return False
+        items = batcher.drain()
+        if not items:
+            return False
+
+        def work() -> None:
+            try:
+                self.syncer.apply_edit_transaction(
+                    [op for op, _ts in items], reason=reason,
+                    enqueue_ts=[ts for _op, ts in items],
+                    stats=self.txn_stats, ring=self.ring,
+                )
+            except Exception as e:
+                # a bad transaction is dropped, never re-queued forever
+                log.error("edit transaction flush failed (%d ops dropped): %s",
+                          len(items), e)
+
+        self._edit_flush_thread = spawn(work, name="infw-edit-flush")
+        return True
 
     # -- ingest --------------------------------------------------------------
 
@@ -704,6 +804,13 @@ class Daemon:
                     staged.append((job, prep))
 
         while jobs or staged or inflight:
+            # a tripped edit flush starts between admissions: jobs already
+            # launched or staged keep the generation they snapshotted, the
+            # next prepared job picks up the patched tables
+            try:
+                self._maybe_flush_edits()
+            except Exception as e:
+                log.error("edit flush error: %s", e)
             stage_more()
             while staged and len(inflight) < self.pipeline_depth:
                 job, prep = staged.popleft()
@@ -777,6 +884,11 @@ class Daemon:
             except Exception as e:
                 log.error("nodestate scan error: %s", e)
             try:
+                self.scan_edits_once()
+                self._maybe_flush_edits()
+            except Exception as e:
+                log.error("edit scan error: %s", e)
+            try:
                 self.process_ingest_once()
             except Exception as e:
                 log.error("ingest error: %s", e)
@@ -792,6 +904,8 @@ class Daemon:
         for t in self._threads:
             t.join()
         self._threads = []
+        if self._edit_flush_thread is not None:
+            self._edit_flush_thread.join()
         self.events_logger.stop()
         self.stats.stop_poll()
         self.stats.unregister()
@@ -849,6 +963,20 @@ def main(argv: Optional[List[str]] = None) -> int:
     p.add_argument("--wire-codec", default=os.environ.get("INFW_WIRE_CODEC") or None,
                    help="host-to-device format of 4-word trie and ctrie chunks: "
                         "auto | wire8 | delta.  CLI beats INFW_WIRE_CODEC")
+    p.add_argument("--patch-staleness-us", type=float,
+                   default=os.environ.get("INFW_PATCH_STALENESS_US") or None,
+                   help="bounded verdict staleness for batched rule edits "
+                        "(infw_torch.txn): edits dropped into <state-dir>/edits/ "
+                        "coalesce into ONE folded patch transaction and flush "
+                        "when the oldest queued edit exceeds this budget (or "
+                        "--patch-max-ops trips) — between classify admissions, "
+                        "never stalling them.  Default 2000us.  CLI beats "
+                        "INFW_PATCH_STALENESS_US")
+    p.add_argument("--patch-max-ops", type=int,
+                   default=os.environ.get("INFW_PATCH_MAX_OPS") or None,
+                   help="batch-size flush threshold for queued rule edits "
+                        "(default 1024): a queue this deep flushes regardless of "
+                        "staleness.  CLI beats INFW_PATCH_MAX_OPS")
     for flag, env, item in REFUSED_FLAGS:
         p.add_argument(flag, nargs="?", const="1", default=None,
                        help=f"not in the port yet: {item} (also {env})")
@@ -866,6 +994,12 @@ def main(argv: Optional[List[str]] = None) -> int:
     # bad INFW_WIRE_CODEC must fail the launch, not the first sync
     if args.wire_codec is not None and args.wire_codec not in WIRE_CODECS:
         p.error(f"invalid wire codec {args.wire_codec!r} (expected one of {WIRE_CODECS})")
+    # flag or env-derived (argparse converts a string default by type): a
+    # non-positive value fails the launch, not the first flush
+    if args.patch_staleness_us is not None and not args.patch_staleness_us > 0:
+        p.error(f"--patch-staleness-us must be positive, got {args.patch_staleness_us}")
+    if args.patch_max_ops is not None and args.patch_max_ops < 1:
+        p.error(f"--patch-max-ops must be >= 1, got {args.patch_max_ops}")
 
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(name)s %(levelname)s %(message)s")
@@ -884,6 +1018,8 @@ def main(argv: Optional[List[str]] = None) -> int:
         pipeline_depth=args.pipeline_depth,
         wire_codec=args.wire_codec,
         compressed=False if args.no_compressed else (True if args.compressed else None),
+        patch_staleness_us=args.patch_staleness_us,
+        patch_max_ops=args.patch_max_ops,
     )
     stop = threading.Event()
 

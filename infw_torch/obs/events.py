@@ -11,7 +11,9 @@ allow generates no event, kernel.c:446,450) pushed into a bounded ring that
 tolerates overflow with a lost-sample counter (the perf ring's LostSamples
 accounting, events.go:79-82); a consumer thread decodes them and writes the
 same line format to a sink.  Replay-scale deny sets travel as one columnar
-BatchDenyRecord and drain as 28-byte binary spill rows.
+BatchDenyRecord and drain as 32-byte binary spill rows (the summary line
+keeps the reference's "28B/event" text).  Other line records (one
+PatchTxnRecord per flushed edit transaction) share the ring.
 """
 from __future__ import annotations
 
@@ -108,7 +110,7 @@ class BatchDenyRecord:
                 "proto", "dst_port", "icmp_type", "icmp_code")}
         )
 
-    #: binary spill row layout (little-endian, 28 bytes):
+    #: binary spill row layout (little-endian, 32 bytes):
     #: u32 ifindex, u32 result, u16 pkt_len, u8 kind, u8 proto,
     #: 16B src address (network order), u16 dst_port, u8 icmpType,
     #: u8 icmpCode
@@ -135,6 +137,32 @@ class BatchDenyRecord:
         out["icmp_type"] = (self.icmp_type & 0xFF).astype(np.uint8)
         out["icmp_code"] = (self.icmp_code & 0xFF).astype(np.uint8)
         return out
+
+
+@dataclass
+class PatchTxnRecord:
+    """One flushed multi-edit patch transaction (infw_torch.txn): how many
+    ops coalesced, how many folded away (superseded/annihilated), the
+    dirty-row count the device load shipped, why the flush tripped
+    (deadline | batch | manual), and whether the transaction escalated to
+    the columnar rebuild path.  Counters and the staleness histogram live
+    on /metrics (TxnStats); the event carries the SHAPE of each flush in
+    the same stream as deny events."""
+
+    ops: int
+    folded: int
+    dirty_rows: int
+    reason: str
+    escalated: bool
+    staleness_us: float = 0.0
+
+    def lines(self) -> List[str]:
+        esc = ", ESCALATED to rebuild" if self.escalated else ""
+        return [
+            f"patch-txn: {self.ops} op(s) ({self.folded} folded) -> "
+            f"{self.dirty_rows} dirty row(s), flush={self.reason}, "
+            f"worst staleness {self.staleness_us:.0f}us{esc}"
+        ]
 
 
 def convert_xdp_action_to_string(action: int) -> str:

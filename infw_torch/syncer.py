@@ -25,9 +25,13 @@ Lifecycle semantics kept from the reference:
   new keys on a trie-scale table go to a small overlay when the classifier
   ``supports_overlay``.
 
-Not in the port yet: batched edit transactions (``apply_edit_transaction``)
-and the multi-tenant ``TenantRegistry``; each raises NotImplementedError
-naming its ROADMAP item.
+- **batched edit transactions** (``apply_edit_transaction``, the
+  infw_torch.txn fold): N queued single-key edits land as one folded
+  ``IncrementalTables.apply`` and one ``load_tables``, with the sync
+  path's overlay, journal and checkpoint discipline.
+
+Not in the port yet: the multi-tenant ``TenantRegistry``, which raises
+NotImplementedError naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -35,13 +39,16 @@ import json
 import logging
 import os
 import threading
+import time
 from typing import Callable, Dict, List, Optional, Protocol, Set, Tuple
 
 import numpy as np
 
 from . import interfaces as interfaces_mod
+from . import txn as txn_mod
 from .compiler import (
     CompiledTables,
+    CompileError,
     IncrementalTables,
     LpmKey,
     build_table_content,
@@ -51,11 +58,11 @@ from .compiler import (
 from .constants import MAX_RULES_PER_TARGET
 from .interfaces import InterfaceRegistry
 from .spec import IngressNodeFirewallRules
+from .txn import merge_rebuild_content
 
 log = logging.getLogger("infw_torch.syncer")
 
 #: where the parts of the reference syncer that the port leaves out are queued
-EDIT_TXN_ITEM = "ROADMAP.md item 24 (edit transactions, the ingest ring, the events sidecar)"
 TENANTS_ITEM = "ROADMAP.md items 20 and 21 (the dense-family and spliced tenant arenas)"
 ANALYSIS_ITEM = "ROADMAP.md item 17 (verifiers for the port)"
 
@@ -184,9 +191,139 @@ class DataplaneSyncer:
 
     def apply_edit_transaction(self, ops, reason: str = "manual",
                                enqueue_ts=None, stats=None, ring=None):
-        """Batched edit transactions (the JAX package's infw.txn) are not in
-        the port yet."""
-        raise NotImplementedError(f"edit transactions are {EDIT_TXN_ITEM}")
+        """Apply one batched edit transaction (infw_torch.txn fold
+        semantics) as ONE device generation, the update-storm counterpart
+        of ``sync_interface_ingress_rules``: where a sync reconciles a full
+        desired state, this folds N queued single-key edits
+        (``txn.EditOp``) into their net effect and lands them with one
+        ``IncrementalTables.apply`` and one ``load_tables`` (on the trie
+        and ctrie paths the hinted patch: each changed array a device
+        clone taking the staged rows), with the same overlay / journal /
+        checkpoint discipline as the sync path.  The old generation
+        serves until the swap; a transaction the updater cannot absorb
+        escalates to the columnar rebuild.
+
+        Requires a live dataplane (a prior sync created the classifier).
+        A re-adopted checkpoint whose content the first sync found
+        unchanged serves without incremental state; the first edit builds
+        it from the tables in service (the JAX package's syncer refuses
+        that edit instead, ROADMAP.md section 3).  ``enqueue_ts``/
+        ``stats``/``ring`` feed the per-op staleness histogram, the
+        TxnStats counters and the PatchTxnRecord event."""
+        with self._lock:
+            if self._classifier is None or self._classifier.tables is None:
+                raise SyncError(
+                    "no dataplane to edit (sync rules before queuing edits)"
+                )
+            t0 = time.monotonic()
+            if self._updater is None:
+                tables = self._classifier.tables
+                self._updater = IncrementalTables.from_content(
+                    tables.content, rule_width=tables.rule_width
+                )
+            if self._stats_poller is not None:
+                self._stats_poller.stop_poll()
+            try:
+                report = self._apply_edit_txn_locked(ops, reason)
+            finally:
+                if self._stats_poller is not None and self._classifier is not None:
+                    self._stats_poller.start_poll(self._classifier)
+            report.apply_s = time.monotonic() - t0
+            txn_mod.report_flush(report, t0, enqueue_ts, stats, ring)
+            return report
+
+    def _apply_edit_txn_locked(self, ops, reason):
+        """The routing half, under the lock: fold, route (overlay vs
+        main vs escalation, mirroring _load_ingress_node_firewall_rules),
+        one updater apply, one device load, journal + checkpoint."""
+        ov_idents_before = {k.masked_identity() for k in self._overlay}
+        folded = txn_mod.fold_ops(
+            ops, txn_mod.live_idents(self._updater._ident_to_t, self._overlay))
+        # same post-delete size gate as the sync path: a shrunken main
+        # table may land on the dense path, which cannot honor overlays
+        # (folded.deletes over-counts by the overlay's own deletes —
+        # conservative toward merging, never wrong)
+        overlay_ok = (
+            getattr(self._classifier, "supports_overlay", False)
+            and len(self._updater._ident_to_t) - len(folded.deletes)
+            > self.OVERLAY_MIN_MAIN
+        )
+        ups, deletes, ov_dirty = txn_mod.route_folded(
+            folded, self._overlay, overlay_ok, self.OVERLAY_CAP
+        )
+        if ov_dirty:
+            self._overlay_compiled = None
+        escalated = False
+        try:
+            if ups and not self._updater.fits(ups):
+                raise CompileError("trie depth exceeded; rebuild")
+            self._updater.apply(ups, deletes)
+            if self._updater.maybe_compact():
+                log.info("txn flush: compacted table, tombstones reclaimed")
+                escalated = True
+        except CompileError:
+            # columnar-rebuild escalation: a fresh updater absorbs the
+            # overlay too; the OLD generation keeps serving until the
+            # load below swaps
+            content = merge_rebuild_content(
+                self._updater.content, ups, deletes, extra=self._overlay
+            )
+            self._overlay = {}
+            self._overlay_compiled = None
+            self._updater = IncrementalTables.from_content(
+                content, rule_width=self._updater.rule_width
+            )
+            escalated = True
+        # journal records reflect the folded net effect regardless of
+        # routing, so restart replay reconstructs everything (same
+        # discipline as the sync path's desired diff)
+        journal_ups = dict(ups)
+        journal_ups.update(
+            {k: r for k, (r, _kind) in folded.new_keys.items()}
+        )
+        journal_ups.update(
+            {k: r for k, r in folded.upserts.items()
+             if k.masked_identity() in ov_idents_before}
+        )
+        journal_dels = list(folded.deletes)
+        if journal_ups or journal_dels:
+            self._pending_deltas.append((journal_ups, journal_dels))
+        tables = self._updater.snapshot()
+        if os.environ.get("INFW_CHECK_INVARIANTS", "") not in (
+            "", "0", "false", "no"
+        ):
+            self._check_overlay_contract()
+        width = self._updater.rule_width
+        if getattr(self._classifier, "supports_overlay", False):
+            self._classifier.load_tables(
+                tables, dirty_hint=self._updater.peek_dirty(),
+                overlay=self._compile_overlay(width),
+            )
+        else:
+            if self._overlay:
+                raise SyncError("overlay routed to a non-overlay backend")
+            self._classifier.load_tables(
+                tables, dirty_hint=self._updater.peek_dirty()
+            )
+        self._updater.clear_dirty()
+        self._save_overlay()
+        self._content = dict(self._updater.content)
+        self._content.update(self._overlay)
+        if escalated or not self._journal_pending():
+            self._save_checkpoint(tables)
+        mode, dirty_rows = getattr(
+            self._classifier, "_last_load", ("full", 0)
+        )
+        log.info(
+            "edit txn (%s): %d op(s), %d folded, mode=%s, %d dirty "
+            "row(s)%s", reason, folded.n_ops, folded.n_folded, mode,
+            dirty_rows, ", escalated" if escalated else "",
+        )
+        return txn_mod.TxnReport(
+            n_ops=folded.n_ops, n_folded=folded.n_folded,
+            dirty_rows=int(dirty_rows), mode=mode, reason=reason,
+            escalated=escalated,
+        )
 
     @property
     def classifier(self):

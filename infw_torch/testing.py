@@ -493,3 +493,66 @@ def random_nodestate(rng: np.random.Generator, name: str, interfaces: Dict[str, 
         "metadata": {"name": name, "namespace": "ingress-node-firewall-system"},
         "spec": {"interfaceIngressRules": rules_of_iface},
     }
+
+
+#: the edit generator's op mix, the JAX package's tools/churngen.py OP_MIX:
+#: (kind, probability); "readd" expands to the re-add of a deleted key
+EDIT_OP_MIX = (
+    ("rules_edit", 0.70),
+    ("cidr_add", 0.15),
+    ("key_delete", 0.10),
+    ("readd", 0.05),
+)
+
+
+def generate_edit_ops(rng: np.random.Generator, n: int, tables, width: int) -> list:
+    """A seeded edit stream (txn.EditOp) over ``tables.content``'s live
+    keys with EDIT_OP_MIX, the JAX package's tools/churngen.py generate_ops:
+    keys leave on delete and return on re-add, so the stream never edits a
+    dead identity; a cidr_add is a fresh /24 from 198.18.0.0 up on ifindex
+    2.  One difference: churngen counts its serial in the fourth byte, which
+    the /24 masks away, so all but one cidr_add in 256 collide and are
+    drawn again; here the serial fills the second and third bytes, so the
+    stream holds the mix's share of new CIDRs."""
+    from .txn import EditOp
+
+    live = list(tables.content)
+    idents = {k.masked_identity() for k in live}
+    deleted: list = []
+    kinds = [k for k, _p in EDIT_OP_MIX]
+    probs = np.array([p for _k, p in EDIT_OP_MIX])
+    probs /= probs.sum()
+    ops = []
+    serial = 0
+    while len(ops) < n:
+        kind = str(rng.choice(kinds, p=probs))
+        if kind in ("rules_edit", "key_delete") and not live:
+            kind = "cidr_add"
+        if kind == "readd" and not deleted:
+            kind = "key_delete" if live else "cidr_add"
+        if kind == "rules_edit":
+            k = live[int(rng.integers(0, len(live)))]
+            ops.append(EditOp("rules_edit", k, random_rules(rng, width)))
+        elif kind == "key_delete":
+            k = live.pop(int(rng.integers(0, len(live))))
+            idents.discard(k.masked_identity())
+            deleted.append(k)
+            ops.append(EditOp("key_delete", k))
+        elif kind == "readd":
+            k = deleted.pop(int(rng.integers(0, len(deleted))))
+            if k.masked_identity() in idents:
+                continue
+            idents.add(k.masked_identity())
+            live.append(k)
+            ops.append(EditOp("key_add", k, random_rules(rng, width)))
+        else:  # cidr_add: a fresh structural identity
+            serial += 1
+            k = LpmKey(prefix_len=56, ingress_ifindex=2,
+                       ip_data=bytes([198, (18 + (serial >> 8)) & 0xFF, serial & 0xFF, 0])
+                       + bytes(12))
+            if k.masked_identity() in idents:
+                continue
+            idents.add(k.masked_identity())
+            live.append(k)
+            ops.append(EditOp("cidr_add", k, random_rules(rng, width)))
+    return ops

@@ -952,3 +952,83 @@ def test_daemon_serves_on_the_card(cuda, tmp_path, n_cidrs, kernel):
         np.testing.assert_array_equal(got, oracle.classify(tables, parsed).results)
     finally:
         d.stop()
+
+
+@pytest.mark.parametrize("path", ["trie", "ctrie"])
+def test_flush_on_a_side_stream_orders_the_next_classify(cuda, path):
+    """An edit transaction loaded on another stream (as a flush thread
+    could): a job prepared before it still reads the old generation, and a
+    classify on the default stream after it waits for the new generation's
+    copies (the load's event) and reads the edited tables."""
+    from infw_torch import txn
+
+    rng = np.random.default_rng(61)
+    table = testing.random_tables_fast(rng, 6000, ifindexes=(2, 3), width=8)
+    content = dict(table.content)
+    it = compiler.IncrementalTables.from_content(content, rule_width=8)
+    clf = TorchClassifier(force_path=path)
+    clf.load_tables(it.snapshot())
+    it.clear_dirty()
+    batch = testing.random_batch_fast(rng, table, 20000, hit_fraction=0.95)
+    wire, v4_only = batch.pack_wire_subset(np.arange(len(batch)))
+    plan = clf.prepare_packed(wire, v4_only)
+    ops = [txn.EditOp("rules_edit", k, testing.random_rules(rng, 8)) for k in list(content)[:1000]]
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        report = txn.TxnApplier(clf, it).apply(ops)
+    assert clf._active.ready[1] == side
+    got_old = clf.classify_prepared(plan).result()
+    got_new = clf.classify_async_packed(wire, v4_only).result()
+    new = dict(content)
+    new.update({op.key: op.rules for op in ops})
+    edited = compiler.compile_tables_from_content(new, rule_width=8)
+    np.testing.assert_array_equal(got_old.results, oracle.HashLpmOracle(table).classify(batch).results)
+    np.testing.assert_array_equal(got_new.results,
+                                  oracle.HashLpmOracle(edited).classify(batch).results)
+    assert report.mode == "patch" and not np.array_equal(got_old.results, got_new.results)
+
+
+def test_daemon_applies_edit_files_on_the_card(cuda, tmp_path):
+    """An edit file in the card daemon's edits/ (the generator's full mix):
+    one flush, and the next frames file's verdicts equal the oracle of the
+    edited content, K1 over the overlay launched beside K2."""
+    import json
+    import os
+
+    from infw_torch import daemon, txn
+    from infw_torch.interfaces import Interface, InterfaceRegistry
+    from infw_torch.obs import pcap
+
+    ifaces = {"eth0": 2, "eth1": 3}
+    reg = InterfaceRegistry()
+    for name, index in ifaces.items():
+        reg.add(Interface(name=name, index=index))
+    d = daemon.Daemon(state_dir=str(tmp_path / "state"), node_name="n", registry=reg,
+                      metrics_port=0, health_port=0, file_poll_interval_s=60.0)
+    try:
+        doc = testing.random_nodestate(np.random.default_rng(62), "n", ifaces, 4400)
+        with open(os.path.join(d.nodestates_dir, "n.json"), "w") as f:
+            json.dump(doc, f)
+        d.scan_nodestates_once()
+        ops = testing.generate_edit_ops(np.random.default_rng(63), 256, d.syncer.classifier.tables,
+                                        8)
+        txn.write_edit_file(os.path.join(d.edits_dir, "e.json"), ops)
+        assert d.scan_edits_once() == 256 and d._maybe_flush_edits(force=True)
+        d._edit_flush_thread.join(timeout=300)
+        assert d.txn_stats.snapshot()["ops"] == 256 and os.listdir(d.edits_dir) == []
+        assert d.syncer._overlay  # the new CIDRs
+        edited = compiler.compile_tables_from_content(dict(d.syncer._content), rule_width=8)
+        b = testing.random_batch_fast(np.random.default_rng(64), edited, 8000)
+        fb = pcap.build_frames_bulk(b.kind, b.ip_words, b.proto, b.dst_port, b.icmp_type,
+                                    b.icmp_code, l4_ok=b.l4_ok)
+        fb.ifindex = np.asarray(b.ifindex, np.uint32)
+        daemon.write_frames_file_v2(os.path.join(d.ingest_dir, "t.frames"), fb)
+        for k in all_kernels():
+            k.launches = 0
+        assert d.process_ingest_once() == 1
+        launches = {k.name: k.launches for k in all_kernels()}
+        assert launches["trie_walk"] > 0 and launches["dense_classify"] > 0, launches
+        got = np.fromfile(os.path.join(d.out_dir, "t.frames.verdicts.bin"), "<u4")
+        np.testing.assert_array_equal(got, oracle.classify(edited, pcap.parse_frames_buf(fb)).results)
+    finally:
+        d.stop()

@@ -3,13 +3,18 @@
 same NodeState CR and the same frames files through ``scan_nodestates_once``
 and ``process_ingest_once`` must give the same verdict sidecars, summaries,
 statistics, deny-event lines and spill rows and /metrics text, on the dense,
-trie and ctrie paths under the wire8 and delta codecs.  Also: checkpoints
-move between the two daemons in both directions, failures stay isolated
-with statistics counted exactly once, deleting the state file resets the
-dataplane, the default backend needs a card, and every refused flag names
-its ROADMAP item."""
+trie and ctrie paths under the wire8 and delta codecs.  The same edit files
+dropped into both daemons' ``edits/`` (every edit kind, folding, overlay
+routing and its spill, a bad file, a generator's manifest, edits queued
+before the first NodeState, a restart that replays the journal, an
+escalated rebuild) leave the same verdicts, statistics, events and /metrics.
+Also: checkpoints move between the two daemons in both directions, failures
+stay isolated with statistics counted exactly once, deleting the state file
+resets the dataplane, the default backend needs a card, the edit batching
+flags reach the batcher, and every refused flag names its ROADMAP item."""
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -21,12 +26,14 @@ import torch
 
 import infw._threads as jax_threads
 import infw.daemon as jax_daemon
+import infw.syncer as jax_syncer
+import infw.txn as jax_txn
 from infw.compiler import CompiledTables as JaxTables
 from infw.interfaces import Interface as JaxInterface
 from infw.interfaces import InterfaceRegistry as JaxRegistry
 from infw.obs import events as jax_events
 from infw.obs import pcap as jax_pcap
-from infw_torch import _threads, compiler, daemon, spec, testing
+from infw_torch import _threads, compiler, daemon, spec, syncer, testing, txn
 from infw_torch.backend.base import PendingClassify
 from infw_torch.compiler import CompiledTables, LazyContent
 from infw_torch.interfaces import Interface, InterfaceRegistry
@@ -75,13 +82,18 @@ def _write_state(d, doc) -> None:
     os.replace(p + ".tmp", p)
 
 
-def _frames(doc, seed: int, sizes=FILE_SIZES):
-    """FramesBufs of random_batch_fast packets over the NodeState's own
-    tables (IPv4, IPv6, ICMP, malformed and other ethertypes), one per
-    file size."""
+def _compile(doc):
     _, preg = _registries()
     ns = spec.IngressNodeFirewallNodeState.from_dict(doc)
-    tables = compiler.compile_tables(ns.spec.interface_ingress_rules, preg)
+    return compiler.compile_tables(ns.spec.interface_ingress_rules, preg)
+
+
+def _frames(doc, seed: int, sizes=FILE_SIZES, tables=None):
+    """FramesBufs of random_batch_fast packets over the NodeState's own
+    tables, or ``tables`` (IPv4, IPv6, ICMP, malformed and other
+    ethertypes), one per file size."""
+    if tables is None:
+        tables = _compile(doc)
     b = testing.random_batch_fast(np.random.default_rng(seed), tables, sum(sizes), hit_fraction=0.95)
     out, start = [], 0
     for n in sizes:
@@ -108,19 +120,6 @@ def _metrics(d, clf, crash_reset) -> str:
     crash_reset()
     d.stats.update_metrics(clf)
     return d.metrics_registry.render_text()
-
-
-def _jax_metrics_without_txn(text: str) -> str:
-    """The JAX daemon's exposition less its edit-transaction series
-    (patch_txn_*, a feature the port leaves out), which must all be 0."""
-    keep = []
-    for line in text.splitlines(keepends=True):
-        if "ingressnodefirewall_node_patch_txn_" in line:
-            if not line.startswith("#"):
-                assert line.split()[-1] == "0", line
-            continue
-        keep.append(line)
-    return "".join(keep)
 
 
 def _events(d) -> tuple:
@@ -167,7 +166,7 @@ def test_daemons_agree_bit_for_bit(tmp_path, path, codec):
         assert events.BatchDenyRecord.SPILL_DTYPE.itemsize == 32
         assert len(rows) > events.BATCH_EMIT_THRESHOLD and ((rows["result"] & 0xFF) == 1).all()
         ptext = _metrics(pd, pclf, _threads.reset_crash_counters)
-        jtext = _jax_metrics_without_txn(_metrics(jd, jclf, jax_threads.reset_crash_counters))
+        jtext = _metrics(jd, jclf, jax_threads.reset_crash_counters)
         pws, jws = pclf.wire_stats(), jclf.wire_stats()
         if path == "ctrie":
             # the one deliberate difference: on the ctrie path the JAX
@@ -408,7 +407,7 @@ def test_threads_serve_metrics_health_and_debug_keys(tmp_path, monkeypatch):
 
 def test_deny_events_match_the_reference_byte_for_byte():
     """Per-event records (frame capture, full line decode) and a
-    replay-scale BatchDenyRecord (28-byte spill rows, summary line), with
+    replay-scale BatchDenyRecord (32-byte spill rows, summary line), with
     ifindexes at and above 2^31 carried as int32 as the parser gives them."""
     rng = np.random.default_rng(6)
     n = 3000
@@ -561,3 +560,359 @@ def test_pad_to_and_expand_wire_v4_match_the_reference():
     w = v4.pack_wire_v4()
     np.testing.assert_array_equal(packets.expand_wire_v4(w), jax_packets.expand_wire_v4(w))
     np.testing.assert_array_equal(packets.expand_wire_v4(w), v4.pack_wire())
+
+
+# --- edit files -----------------------------------------------------------
+
+#: v4-only NodeStates (an IPv6 key_add then exceeds the trie depth and
+#: escalates): the dense path, and above 4096 entries the trie and ctrie
+EDIT_PATHS = {"dense": (60, False), "trie": (6600, False), "ctrie": (6600, True)}
+_STALENESS_LINE = re.compile(r"worst staleness \d+us")
+_DIRTY_LINE = re.compile(r"-> \d+ dirty row\(s\)")
+
+
+def _v4_nodestate(n_cidrs: int, seed: int) -> dict:
+    doc = _nodestate(n_cidrs, seed)
+    for blocks in doc["spec"]["interfaceIngressRules"].values():
+        for block in blocks:
+            block["sourceCIDRs"] = [c for c in block["sourceCIDRs"] if ":" not in c]
+        blocks[:] = [b for b in blocks if b["sourceCIDRs"]]
+    return doc
+
+
+def _edit_both(jd, pd, name: str, ops) -> None:
+    """The same ops as an edit file in each daemon's edits/, written by
+    each package's codec (the bytes must be equal)."""
+    jax_txn.write_edit_file(os.path.join(jd.edits_dir, name),
+                            [jax_txn.op_from_json(txn.op_to_json(op)) for op in ops])
+    txn.write_edit_file(os.path.join(pd.edits_dir, name), ops)
+    assert (open(os.path.join(jd.edits_dir, name), "rb").read()
+            == open(os.path.join(pd.edits_dir, name), "rb").read())
+
+
+def _flush(d, n_ops: int) -> None:
+    """Scan, force a flush and join it; the dirty-row counter grows by
+    exactly the rows the flush's load reports."""
+    before = d.txn_stats.snapshot()["dirty_rows"]
+    assert d.scan_edits_once() == n_ops
+    assert d._maybe_flush_edits(force=True)
+    d._edit_flush_thread.join(timeout=300)
+    assert not d._edit_flush_thread.is_alive()
+    assert d.txn_stats.snapshot()["dirty_rows"] - before == d.syncer.classifier._last_load[1]
+
+
+def _txn_view(text: str, trie: bool) -> tuple:
+    """/metrics or events.log text with the timing-dependent values (the
+    staleness histogram's buckets, the worst staleness) masked, and on the
+    trie path the dirty-row counts (K2's own arrays, ROADMAP.md section 3);
+    returns (masked text, the histogram's total)."""
+    total, out = 0, []
+    for line in text.splitlines(keepends=True):
+        if "_patch_txn_staleness_us_bucket_" in line and not line.startswith("#"):
+            name, value = line.split()
+            total += int(value)
+            line = f"{name} <n>\n"
+        elif trie and "_patch_txn_dirty_rows_total " in line:
+            line = line.split()[0] + " <rows>\n"
+        line = _STALENESS_LINE.sub("worst staleness <us>", line)
+        if trie:
+            line = _DIRTY_LINE.sub("-> <rows> dirty row(s)", line)
+        out.append(line)
+    return "".join(out), total
+
+
+def _agree(jd, pd, path: str, doc, seed: int, tables=None) -> None:
+    """One frames file through both daemons; out files, statistics, the
+    events (deny and patch-txn lines, spill rows) and /metrics equal, the
+    timing-dependent values compared by their totals."""
+    fbs = _frames(doc, seed=seed, sizes=(2500,), tables=tables)
+    for d in (jd, pd):
+        for fn in os.listdir(d.out_dir):
+            os.remove(os.path.join(d.out_dir, fn))
+        _drop(d, fbs, prefix=f"s{seed}-")
+        assert d.process_ingest_once() == 1
+    assert _out_files(pd) == _out_files(jd)
+    jclf, pclf = jd.syncer.classifier, pd.syncer.classifier
+    np.testing.assert_array_equal(pclf.stats.snapshot(), jclf.stats.snapshot())
+    (jev, jspill), (pev, pspill) = _events(jd), _events(pd)
+    assert pspill == jspill
+    assert _txn_view(pev, path == "trie") == _txn_view(jev, path == "trie")
+    ptext = _metrics(pd, pclf, _threads.reset_crash_counters)
+    jtext = _metrics(jd, jclf, jax_threads.reset_crash_counters)
+    if path == "ctrie":  # the depth-class padding difference, as above
+        ptext, jtext = ("".join(l for l in t.splitlines(keepends=True) if "_node_wire_" not in l)
+                        for t in (ptext, jtext))
+    assert _txn_view(ptext, path == "trie") == _txn_view(jtext, path == "trie")
+
+
+def _replayed_content(syncer_cls, ck_dir) -> dict:
+    """What a restart re-adopts: the checkpoint's base, its journal
+    replayed, and the overlay sidecar, by masked identity."""
+    s = syncer_cls(classifier_factory=lambda: None, checkpoint_dir=ck_dir)
+    tables, _attached = s._load_checkpoint()
+    s._load_overlay({k.masked_identity() for k in tables.content})
+    out = {k.masked_identity(): np.asarray(v).tolist() for k, v in tables.content.items()}
+    out.update({k.masked_identity(): np.asarray(v).tolist() for k, v in s._overlay.items()})
+    return out
+
+
+@pytest.mark.parametrize("path", sorted(EDIT_PATHS))
+def test_daemons_apply_the_same_edit_files(tmp_path, monkeypatch, path):
+    n_cidrs, compressed = EDIT_PATHS[path]
+    # a small overlay cap, so a burst of new CIDRs spills into the main table
+    for cls in (jax_syncer.DataplaneSyncer, syncer.DataplaneSyncer):
+        monkeypatch.setattr(cls, "OVERLAY_CAP", 8)
+    jd, pd = _daemons(tmp_path, compressed=compressed)
+    try:
+        doc = _v4_nodestate(n_cidrs, seed=11)
+        keys = list(_compile(doc).content)
+        width = 8
+        rng = np.random.default_rng(12)
+        rules = lambda: testing.random_rules(rng, width)
+        ifx = sorted(IFACES.values())
+        fresh = [compiler.LpmKey(56, ifx[i % 3], bytes([198, 51, i, 0]) + bytes(12))
+                 for i in range(40)]
+
+        # 1. edits queued before the first NodeState, beside a bad file, a
+        # generator's manifest sidecar and a file still being written
+        _edit_both(jd, pd, "a0.json", [txn.EditOp("rules_edit", keys[i], rules())
+                                       for i in range(3)])
+        for d in (jd, pd):
+            for name, body in (("a1-bad.json", "{not json"), ("churn-manifest.json", "{}"),
+                               ("a2.json.tmp", "{}")):
+                with open(os.path.join(d.edits_dir, name), "w") as f:
+                    f.write(body)
+            assert d.scan_edits_once() == 3
+            assert not d._maybe_flush_edits(force=True)  # no dataplane yet: kept queued
+            assert sorted(os.listdir(d.edits_dir)) == ["a2.json.tmp", "churn-manifest.json"]
+            _write_state(d, doc)
+            d.scan_nodestates_once()
+            assert d._maybe_flush_edits(force=True)
+            d._edit_flush_thread.join(timeout=300)
+        assert pd.syncer.classifier.active_path == path
+        _agree(jd, pd, path, doc, seed=13)
+
+        # 2. every kind, and the fold: an add then a delete of a new key
+        # annihilates, a delete then a re-add of a live key is an upsert,
+        # the last of two edits of one key wins
+        ops = [txn.EditOp("key_add", fresh[0], rules()),
+               txn.EditOp("cidr_add", fresh[1], rules()),
+               txn.EditOp("cidr_add", fresh[2], rules()),
+               txn.EditOp("key_delete", keys[3]),
+               txn.EditOp("rules_edit", keys[4], rules()),
+               txn.EditOp("order_change", keys[5], rules()),
+               txn.EditOp("cidr_add", fresh[3], rules()),
+               txn.EditOp("key_delete", fresh[3]),
+               txn.EditOp("key_delete", keys[6]),
+               txn.EditOp("key_add", keys[6], rules()),
+               txn.EditOp("rules_edit", keys[7], rules()),
+               txn.EditOp("rules_edit", keys[7], rules())]
+        _edit_both(jd, pd, "b0.json", ops)
+        for d in (jd, pd):
+            _flush(d, len(ops))
+        assert sorted(pd.syncer._overlay) == sorted(jd.syncer._overlay)
+        assert len(pd.syncer._overlay) == (0 if path == "dense" else 2)
+        assert pd.txn_stats.snapshot()["folded"] == 4
+        live = compiler.compile_tables_from_content(dict(pd.syncer._content), rule_width=width)
+        _agree(jd, pd, path, doc, seed=14, tables=live)
+
+        # 3. ten more new CIDRs in two files, one transaction: the overlay
+        # (cap 8) spills into the main table
+        _edit_both(jd, pd, "c0.json", [txn.EditOp("cidr_add", k, rules()) for k in fresh[4:9]])
+        _edit_both(jd, pd, "c1.json", [txn.EditOp("cidr_add", k, rules()) for k in fresh[9:14]])
+        for d in (jd, pd):
+            _flush(d, 10)
+            assert d.syncer._overlay == {}  # the two it held spilled with the rest
+        live = compiler.compile_tables_from_content(dict(pd.syncer._content), rule_width=width)
+        _agree(jd, pd, path, doc, seed=15, tables=live)
+
+        # 4. a restart: both journals hold the same records, and what each
+        # re-adopts (base + journal + overlay sidecar) is the edited content
+        cks = [os.path.join(d.state_dir, "checkpoint") for d in (jd, pd)]
+        journals = [sorted(os.listdir(os.path.join(ck, "journal"))) for ck in cks]
+        assert journals[0] == journals[1] and len(journals[0]) == 3
+        for fn in journals[0]:
+            assert (open(os.path.join(cks[0], "journal", fn), "rb").read()
+                    == open(os.path.join(cks[1], "journal", fn), "rb").read())
+        want = {k.masked_identity(): np.asarray(v).tolist() for k, v in pd.syncer._content.items()}
+        assert _replayed_content(syncer.DataplaneSyncer, cks[1]) == want
+        assert _replayed_content(jax_syncer.DataplaneSyncer, cks[0]) == want
+        _stop(jd, pd)
+        jd, pd = _daemons(tmp_path, compressed=compressed)
+        for d in (jd, pd):
+            d.scan_nodestates_once()  # re-adopts, then converges to the NodeState
+        _agree(jd, pd, path, doc, seed=16)
+
+        # 5. an IPv6 key beyond the v4-only trie's depth: the flush escalates
+        # to a rebuild, the old generation serving until the swap
+        v6 = compiler.LpmKey(32 + 64, ifx[0], bytes(range(16)))
+        _edit_both(jd, pd, "d0.json", [txn.EditOp("key_add", v6, rules()),
+                                       txn.EditOp("rules_edit", keys[8], rules())])
+        for d in (jd, pd):
+            _flush(d, 2)
+            assert d.txn_stats.snapshot()["escalations"] == 1
+        live = compiler.compile_tables_from_content(dict(pd.syncer._content), rule_width=width)
+        _agree(jd, pd, path, doc, seed=17, tables=live)
+    finally:
+        _stop(jd, pd)
+
+
+def test_edit_file_repro_of_the_ignored_edits(tmp_path):
+    """The seeded repro of the port's daemon ignoring edit files: 64 keys
+    deleted by an edit file on the trie path, then 3000 frames; every
+    verdict equals the JAX daemon's and edits/ is empty after the scan."""
+    jd, pd = _daemons(tmp_path)
+    try:
+        doc = _nodestate(4400, seed=3)
+        for d in (jd, pd):
+            _write_state(d, doc)
+            d.scan_nodestates_once()
+        assert pd.syncer.classifier.active_path == "trie"
+        ops = [txn.EditOp("key_delete", k) for k in list(jd.syncer.classifier.tables.content)[:64]]
+        _edit_both(jd, pd, "e0.json", ops)
+        for d in (jd, pd):
+            _flush(d, 64)
+            assert os.listdir(d.edits_dir) == []
+        fbs = _frames(doc, seed=4, sizes=(3000,))
+        for d in (jd, pd):
+            _drop(d, fbs)
+            assert d.process_ingest_once() == 1
+        jres, pres = (np.fromfile(os.path.join(d.out_dir, "f0.frames.verdicts.bin"), "<u4")
+                      for d in (jd, pd))
+        assert len(pres) == 3000 and int((jres != pres).sum()) == 0
+        assert _out_files(pd) == _out_files(jd)
+    finally:
+        _stop(jd, pd)
+
+
+def test_flush_lands_between_ingest_admissions(tmp_path):
+    """A tripped flush starts inside the ingest tick (between admissions):
+    jobs launched before it keep their generation, later ones read the
+    patched tables; the file's verdicts are each packet's old or new
+    oracle verdict, and a file after the flush reads the new one only."""
+    from infw_torch import oracle
+
+    _, preg = _registries()
+    d = daemon.Daemon(state_dir=str(tmp_path / "state"), node_name=NODE, backend="cpu",
+                      poll_period_s=3600.0, registry=preg, metrics_port=0, health_port=0,
+                      file_poll_interval_s=60.0, ingest_chunk=CHUNK, pipeline_depth=2,
+                      patch_max_ops=4)
+    try:
+        doc = _nodestate(4400, seed=21)
+        _write_state(d, doc)
+        d.scan_nodestates_once()
+        old = _compile(doc)
+        keys = list(d.syncer.classifier.tables.content)
+        rng = np.random.default_rng(22)
+        ops = [txn.EditOp("rules_edit", k, testing.random_rules(rng, 8)) for k in keys[:200:50]]
+        txn.write_edit_file(os.path.join(d.edits_dir, "e.json"), ops)
+        assert d.scan_edits_once() == 4 and d.txn_batcher.should_flush() == "batch"
+        new_content = dict(old.content)
+        new_content.update({op.key: op.rules for op in ops})
+        new = compiler.compile_tables_from_content(new_content, rule_width=8)
+        fbs = _frames(doc, seed=23, sizes=(3000,), tables=new)
+        _drop(d, fbs)
+        assert d.process_ingest_once() == 1  # the flush started in this tick
+        d._edit_flush_thread.join(timeout=300)
+        assert d.txn_stats.snapshot()["reasons"] == {"batch": 1}
+        got = np.fromfile(os.path.join(d.out_dir, "f0.frames.verdicts.bin"), "<u4")
+        batch = pcap.parse_frames_buf(fbs[0])
+        ro, rn = oracle.classify(old, batch).results, oracle.classify(new, batch).results
+        assert ((got == ro) | (got == rn)).all() and not np.array_equal(ro, rn)
+        _drop(d, fbs, prefix="g")
+        assert d.process_ingest_once() == 1
+        np.testing.assert_array_equal(
+            np.fromfile(os.path.join(d.out_dir, "g0.frames.verdicts.bin"), "<u4"), rn)
+    finally:
+        d.stop()
+
+
+def test_patch_flags_reach_the_batcher(tmp_path, monkeypatch):
+    """--patch-staleness-us / --patch-max-ops (and their environment
+    variables) reach the daemon's TxnBatcher; a non-positive value fails
+    the launch."""
+    made = []
+
+    class Started(Exception):
+        pass
+
+    def start(self):
+        made.append(self)
+        raise Started
+
+    monkeypatch.setattr(daemon.Daemon, "start", start)
+    monkeypatch.setattr(daemon.signal, "signal", lambda *a: None)
+    for _f, e, _i in daemon.REFUSED_FLAGS:
+        monkeypatch.delenv(e, raising=False)
+    base = ["--node-name", NODE, "--backend", "cpu", "--metrics-port", "0", "--health-port", "0"]
+    cases = ((["--patch-staleness-us", "500", "--patch-max-ops", "64"], {}, 500e-6, 64),
+             ([], {"INFW_PATCH_STALENESS_US": "750", "INFW_PATCH_MAX_OPS": "9"}, 750e-6, 9),
+             ([], {}, txn.DEFAULT_STALENESS_US * 1e-6, txn.DEFAULT_MAX_OPS))
+    for i, (flags, env, staleness_s, max_ops) in enumerate(cases):
+        for k in ("INFW_PATCH_STALENESS_US", "INFW_PATCH_MAX_OPS"):
+            monkeypatch.delenv(k, raising=False)
+        for k, v in env.items():
+            monkeypatch.setenv(k, v)
+        with pytest.raises(Started):
+            daemon.main(["--state-dir", str(tmp_path / f"s{i}")] + base + flags)
+        d = made.pop()
+        try:
+            assert d.txn_batcher.staleness_s == pytest.approx(staleness_s)
+            assert d.txn_batcher.max_ops == max_ops
+            assert os.path.isdir(d.edits_dir)
+        finally:
+            d.stop()
+    for bad in (["--patch-staleness-us", "0"], ["--patch-max-ops", "0"]):
+        with pytest.raises(SystemExit) as e:
+            daemon.main(["--state-dir", str(tmp_path / "bad")] + base + bad)
+        assert e.value.code == 2
+    assert not (tmp_path / "bad").exists()
+
+
+@pytest.mark.parametrize("compressed", [False, True], ids=["trie", "ctrie"])
+def test_edits_after_readoption(tmp_path, compressed):
+    """A restart re-adopts the checkpoint, and the first sync finds the
+    NodeState unchanged, so no incremental state exists.  The port builds it
+    on the first edit and applies the file; the JAX daemon drops the whole
+    transaction with an error (a fault of the reference, ROADMAP.md section
+    3).  The port's verdicts then equal the oracle of the edited content,
+    the JAX daemon's that of the unedited one."""
+    from infw_torch import oracle
+
+    jd, pd = _daemons(tmp_path, compressed=compressed)
+    try:
+        doc = _nodestate(4400, seed=25)
+        for d in (jd, pd):
+            _write_state(d, doc)
+            d.scan_nodestates_once()
+        _stop(jd, pd)
+        jd, pd = _daemons(tmp_path, compressed=compressed)
+        for d in (jd, pd):
+            d.scan_nodestates_once()
+            assert d.syncer._updater is None  # re-adopted, content unchanged
+        old = _compile(doc)
+        keys = list(old.content)
+        rng = np.random.default_rng(26)
+        ops = ([txn.EditOp("rules_edit", k, testing.random_rules(rng, 8)) for k in keys[:40]]
+               + [txn.EditOp("key_delete", k) for k in keys[40:80]]
+               + [txn.EditOp("cidr_add", compiler.LpmKey(56, 10, bytes([198, 51, i, 0]) + bytes(12)),
+                             testing.random_rules(rng, 8)) for i in range(5)])
+        _edit_both(jd, pd, "e.json", ops)
+        for d in (jd, pd):
+            assert d.scan_edits_once() == len(ops)
+            assert d._maybe_flush_edits(force=True)
+            d._edit_flush_thread.join(timeout=300)
+        assert jd.txn_stats.snapshot()["txns"] == 0  # dropped with a logged error
+        assert pd.txn_stats.snapshot()["txns"] == 1 and len(pd.syncer._overlay) == 5
+        new = compiler.compile_tables_from_content(dict(pd.syncer._content), rule_width=8)
+        fbs = _frames(doc, seed=27, sizes=(2000,), tables=new)
+        for d in (jd, pd):
+            _drop(d, fbs)
+            assert d.process_ingest_once() == 1
+        batch = pcap.parse_frames_buf(fbs[0])
+        got = {id(d): np.fromfile(os.path.join(d.out_dir, "f0.frames.verdicts.bin"), "<u4")
+               for d in (jd, pd)}
+        np.testing.assert_array_equal(got[id(pd)], oracle.classify(new, batch).results)
+        np.testing.assert_array_equal(got[id(jd)], oracle.classify(old, batch).results)
+    finally:
+        _stop(jd, pd)
