@@ -107,12 +107,36 @@ its multi-tenant arena on the card and fails (non-zero exit, no result line) on 
    tables; then the 1M-entry swap pair (clean_tables_fast): the
    page-table flip against a full upload, each flip checked against the
    active table's HashLpmOracle, and a destroy + compaction;
+9b. the daemon with --tenants 512 (Daemon(tenants=512), threads started,
+    the JAX daemon's default slab geometry, 1024 entries x 16 rule slots,
+    514 pages): one creating edit file of 1000 key_adds per tenant dir,
+    all landed at once (64 tenants with identical content share a page),
+    then one rules-only file per tenant (449 "patch", 63 "cow"), a swap, a
+    destroy and a dedup sweep that merges two re-converged clones; a
+    2^20-packet classify_mixed with ids -1, >= 512, 2^32 + 1 and the
+    destroyed tenant: one launch of K3b's fused entry, against the plain
+    K3b on every packet and each updater's oracle; ms per create, fill,
+    patch and cow on the host clock and in CUDA events, the edit-file to
+    visible latency, tenant_* from /metrics, tenant-* lines in events.log;
+9c. the clone-then-patch at the JAX bench's 200K entries
+    (bench.py:2418-2470): "cow" against a full re-bake and "patch" on the
+    private page, min of 3, the clone equal to a cold bake;
+9d. the dense-family arena (512 tenants x 1024 rows x 16 slots, 1000
+    entries each; kernel K6): K6's two-column entry and its fused entry on
+    every wire width against the plain versions, the main path (one
+    memset and one launch of K6's fused entry) against the oracles, K6's
+    time, bound and row compares;
+9e. the overlay side-pool: the 512-tenant ctrie arena with a dense
+    side-pool of 1024 rows x 16 slots, half the tenants with overlays of
+    longer prefixes; one classify launches K3b's and K6's two-column
+    entries once each, against the plain composition and the oracles of
+    the merged content;
 10. incremental patches and the overlay at the churn tier (K1 over the
     overlay against its plain version; the ctrie pass without the overlay
     fused against composed in turns), then edit transactions on both
     layouts (txn.TxnApplier): one 64-op transaction of the edit generator's
-    full mix, bench_churn's A/B of 64 folded rules-only edits against 64
-    one-edit generations (interleaved, min of 2 rounds) and one folded
+    full mix, bench_churn's A/B of 64 folded rules-only edits against 32
+    one-edit generations per edit (interleaved, min of 2 rounds) and one folded
     flush under the profiler (host-to-device copies and kernels per
     flush), each step checked as the others;
 11. the gather microbenchmark's kernel K5 and its tool;
@@ -128,9 +152,9 @@ its multi-tenant arena on the card and fails (non-zero exit, no result line) on 
     tables); every file's verdicts against the oracle on subsets and a
     host recount, stats, deny events and /metrics; launches per pass go
     on the kernels line as ``daemon_launches``;
-13. one JSON ``kernels`` line (K3 and K3b as their fused entries, which
-    the main path runs, each with its two-column entry's readings under
-    ``two_column``), then the device JSON as the last line.
+13. one JSON ``kernels`` line (K3, K3b and K6 as their fused entries,
+    which the main paths run, each with its two-column entry's readings
+    under ``two_column``), then the device JSON as the last line.
 
 With ``--parent``, K2 (as is and depth-sorted, every level count), K3
 (tables A and B, as is and depth-sorted; the adversarial batches) and K3b
@@ -175,6 +199,9 @@ SWAP_ENTRIES, SWAP_PACKETS = 1_000_000, 1 << 19
 # the JAX package's churn tier (bench.py bench_churn on a chip) and the
 # overlay the syncer fills (infw/syncer.py OVERLAY_CAP)
 CHURN_ENTRIES, CHURN_WIDTH, CHURN_PACKETS, CHURN_OVERLAY = 1_000_000, 4, 1 << 19, 1024
+# one-edit generations a round of the churn A/B (bench_churn runs 64; 32
+# keep the script within its time since the tenant phases came in)
+AB_ONE_EDITS = 32
 # Published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, dense int8 ops/s.
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1.979e15
@@ -2212,8 +2239,8 @@ def churn_phase(tag: str, n_entries: int = CHURN_ENTRIES, n_packets: int = CHURN
     1024-key overlay; then the edit transactions (txn.TxnApplier): one
     64-op transaction of the edit generator's full mix (rules edits, new
     CIDRs to the overlay, deletes, re-adds), bench_churn's A/B (64
-    rules-only edits folded into one transaction against 64 one-edit
-    generations, interleaved, the min of 2 rounds) and one folded flush
+    rules-only edits folded into one transaction against 32 one-edit
+    generations, per edit, interleaved, the min of 2 rounds) and one folded flush
     under the profiler (its host-to-device copies and kernels).  After each
     step: the resident tables against a fresh padded build, K2/K3 (and K1
     over the overlay) against the plain version, the batch against the
@@ -2491,21 +2518,22 @@ def churn_phase(tag: str, n_entries: int = CHURN_ENTRIES, n_packets: int = CHURN
             f"recount equal")
         txn_t = {"mix": {"ops": rep.n_ops, "folded": rep.n_folded, "mode": rep.mode,
                          "rows": rep.dirty_rows, "ms": ms, "event_ms": ev_ms}}
-        # bench_churn's A/B on live keys: 64 one-edit generations against
-        # one folded 64-edit transaction, interleaved, the min of 2 rounds
+        # bench_churn's A/B on live keys: one-edit generations (32 a round,
+        # the script's time limit) against one folded 64-edit transaction,
+        # per edit, interleaved, the min of 2 rounds
         keys = list(applier.updater.content)
         rules_only = lambda n: [txn.EditOp("rules_edit", k, r) for k, r in mk_edits(n).items()]
         timed_flush(applier, rules_only(1))  # the first edit's one-time costs
         seq, folded_ms, seq_rows, folded_rows = [], [], [], []
         for _round in range(2):
             t0 = time.perf_counter()
-            for op in rules_only(64):
+            for op in rules_only(AB_ONE_EDITS):
                 r1, _ms, _ev = timed_flush(applier, [op])
                 if r1.mode != "patch":
                     raise SystemExit(f"churn[{layout_name}] txn A/B: a one-edit generation "
                                      f"loaded by {r1.mode}")
                 seq_rows.append(r1.dirty_rows)
-            seq.append((time.perf_counter() - t0) * 1e3 / 64)
+            seq.append((time.perf_counter() - t0) * 1e3 / AB_ONE_EDITS)
             r64, ms, _ev = timed_flush(applier, rules_only(64))
             if r64.mode != "patch":
                 raise SystemExit(f"churn[{layout_name}] txn A/B: the folded transaction loaded "
@@ -2516,7 +2544,8 @@ def churn_phase(tag: str, n_entries: int = CHURN_ENTRIES, n_packets: int = CHURN
         # their copies and kernels
         r64, ops_per_flush = flush_operations(lambda: applier.apply(rules_only(64)))
         _res, launches = verify("txn A/B", clf.tables, applier.overlay)
-        log(f"{tag} churn[{layout_name}] txn A/B (64 rules-only edits, 2 rounds interleaved): "
+        log(f"{tag} churn[{layout_name}] txn A/B ({AB_ONE_EDITS} one-edit generations against 64 "
+            f"rules-only edits folded, 2 rounds interleaved): "
             f"per edit {min(seq):.3f} ms as one-edit generations (rounds {seq[0]:.3f}, "
             f"{seq[1]:.3f}; {sum(seq_rows) / len(seq_rows):.1f} rows each) against "
             f"{min(folded_ms):.3f} ms folded (rounds {folded_ms[0]:.3f}, {folded_ms[1]:.3f}; "
@@ -3158,6 +3187,657 @@ def daemon_phase(tag: str, iface_rules: dict) -> dict:
         shutil.rmtree(root, ignore_errors=True)
 
 
+# -- the tenant arena, rules-only patches, the dense family, the overlay ------
+
+# the daemon's --tenants arena at the JAX daemon's default slab geometry
+# (infw/daemon.py:1019-1055: 1024 entries x 16 rule slots, tenants + 2
+# pages) for the arena tier's 512 tenants, each filled by one edit file of
+# about 1000 key_adds, 64 of them with byte-identical content; 2048
+# packets per tenant
+TENANT_COUNT, TENANT_KEYS, TENANT_SHARED, TENANT_PER = 512, 1000, 64, 2048
+# the JAX bench's production-sized clone-then-patch (bench.py:2418-2470)
+CLONE_ENTRIES = 200_000
+# the dense-family arena: 512 tenants x S = 1024 rows x 16 rule slots
+DENSE_TENANTS, DENSE_SLAB, DENSE_SLOTS, DENSE_ENTRIES = 512, 1024, 16, 1000
+# the overlay side-pool: the syncer's overlay cap (infw/syncer.py
+# OVERLAY_CAP) as the slab rows, 16 rule slots
+OVERLAY_CAP, OVERLAY_SLOTS = 1024, 16
+# K6's operations per (packet, live slab row): 5 XOR, 5 AND and 5 zero
+# tests of the 160-bit key, one mask-length compare; against the card's
+# float32 rate outside the tensor cores (67 TFLOP/s, the guide's table,
+# which lists no int32 rate)
+K6_OPS_PER_ROW = 16
+SIMT_OPS_PER_S = 67e12
+#: the device of the tenant, clone, dense-arena and overlay phases
+DEV = "cuda"
+
+
+def timed_device(fn):
+    """(result, host ms, CUDA-event ms) of one call, the card idle before
+    and synchronized after."""
+    import torch
+
+    torch.cuda.synchronize()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    out = fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3, start.elapsed_time(stop)
+
+
+def spread(xs) -> str:
+    xs = sorted(xs)
+    return (f"min {xs[0]:.2f} / median {xs[len(xs) // 2]:.2f} / max {xs[-1]:.2f}"
+            if xs else "none")
+
+
+def tenant_keys_edit(txn, content, t: int, n: int = 8):
+    """A rules-only edit file's ops for one tenant: ``n`` of its keys (from
+    a position that depends on ``t``) with rule slot 1 replaced."""
+    keys = sorted(content, key=lambda k: (k.ingress_ifindex, k.ip_data, k.prefix_len))
+    ops = []
+    for j in range(n):
+        k = keys[(37 * t + 11 * j) % len(keys)]
+        r = np.zeros((2, 7), np.int32)
+        r[: len(content[k])] = np.asarray(content[k])[:2]
+        r[1] = [1 + (t + j) % 250, 6, 1000 + t % 60000, 0, 0, 0, 1 + j % 2]
+        ops.append(txn.EditOp(kind="key_add", key=k, rules=r))
+    return ops
+
+
+def tenant_phase(tag: str) -> dict:
+    """The port's daemon with --tenants 512 on the card (threads started,
+    the default slab geometry): one creating edit file per tenant dir
+    landed at once (64 tenants with identical content share a page), then
+    one rules-only file per tenant (private pages "patch", the shared ones
+    "cow"), one swap, one destroy, a dedup sweep once two clones
+    re-converged; then a 2^20-packet classify_mixed across the tenants
+    (ids -1, >= 512 and the destroyed one among them): one launch of K3b's
+    fused entry, bit for bit against the plain K3b and each updater's
+    per-tenant oracle.  Returns the readings for the kernels line."""
+    import shutil
+
+    import torch
+
+    from infw_torch import daemon, oracle, testing, txn
+    from infw_torch.kernels import all_kernels, arena_walk, torchpath
+    from infw_torch.packets import concat, narrow_wire
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "tenant-smoke")
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    shared = testing.random_content_fast(np.random.default_rng(5000), TENANT_KEYS, width=2)
+    contents = [shared if t < TENANT_SHARED else testing.random_content_fast(
+        np.random.default_rng(5000 + t), TENANT_KEYS, width=2) for t in range(TENANT_COUNT)]
+    names = [f"t{t:04d}" for t in range(TENANT_COUNT)]
+    staging = os.path.join(root, "staging")
+    for name, content in zip(names, contents):
+        os.makedirs(os.path.join(staging, name, "edits"))
+        txn.write_edit_file(os.path.join(staging, name, "edits", "e0.json"),
+                            [txn.EditOp(kind="key_add", key=k, rules=r) for k, r in content.items()])
+    gen_s = time.perf_counter() - t0
+    d = daemon.Daemon(state_dir=os.path.join(root, "state"), node_name=DAEMON_NODE,
+                      backend=DEV, metrics_port=0, health_port=0, poll_period_s=0.1,
+                      file_poll_interval_s=0.02, tenants=TENANT_COUNT)
+    reg = d.tenant_registry
+    clf = reg.classifier
+    spec = clf.spec
+    log(f"tenants: Daemon(tenants={TENANT_COUNT}) spec {spec}; pool "
+        f"{clf.allocator.pool_bytes() / 1e6:.1f} MB; {TENANT_COUNT} contents of {TENANT_KEYS} "
+        f"keys ({TENANT_SHARED} identical) and their edit files in {gen_s:.2f} s")
+    calls = []  # (kind, result, host ms, event ms, end time)
+
+    def timed_method(name: str, kind: str):
+        fn = getattr(reg, name)
+
+        def run(*a, **kw):
+            out, host_ms, ev_ms = timed_device(lambda: fn(*a, **kw))
+            calls.append((kind, out, host_ms, ev_ms, time.perf_counter(), a[0]))
+            return out
+
+        setattr(reg, name, run)
+
+    timed_method("create_tenant", "create")
+    timed_method("apply_edit_transaction", "txn")
+    d.start()
+    try:
+        def land(round_name: str, move) -> tuple:
+            """Land every tenant's file at once, wait until all are consumed;
+            (landing time, seconds to the last)."""
+            calls.clear()
+            t_land = time.perf_counter()
+            move()
+            waited = _wait(lambda: all(not os.listdir(os.path.join(d.tenants_dir, n, "edits"))
+                                       for n in names if os.path.isdir(
+                                           os.path.join(d.tenants_dir, n, "edits"))) and
+                           sum(c[0] == "txn" for c in calls) >= TENANT_COUNT,
+                           f"the {round_name} edit files", timeout=600, every=0.01)
+            return t_land, waited
+
+        # round 1: the creating files, every tenant dir landed at once
+        t_land, waited = land("creating", lambda: [
+            os.rename(os.path.join(staging, n), os.path.join(d.tenants_dir, n)) for n in names])
+        creates = [c for c in calls if c[0] == "create"]
+        fills = [c for c in calls if c[0] == "txn"]
+        paths = {}
+        for c in fills:
+            paths[c[1]] = paths.get(c[1], 0) + 1
+        visible = [(c[4] - t_land) * 1e3 for c in fills]
+        log(f"{tag} tenants create round: {len(creates)} creates, host ms {spread([c[2] for c in creates])}, "
+            f"CUDA events ms {spread([c[3] for c in creates])}; {len(fills)} filling files "
+            f"(paths {paths}), host ms {spread([c[2] for c in fills])}, CUDA events ms "
+            f"{spread([c[3] for c in fills])}; edit file to visible ms {spread(visible)}; all "
+            f"{TENANT_COUNT} consumed {waited * 1e3:.1f} ms after landing")
+        if len(reg.tenant_names()) != TENANT_COUNT:
+            raise SystemExit(f"tenants: {len(reg.tenant_names())} tenants created")
+        pages = {clf.allocator.page_of(reg.tenant_id(n)) for n in names[:TENANT_SHARED]}
+        if len(pages) != 1 or clf.allocator.distinct_slabs() != TENANT_COUNT - TENANT_SHARED + 1:
+            raise SystemExit(f"tenants: the {TENANT_SHARED} identical tenants are on pages "
+                             f"{sorted(pages)}, {clf.allocator.distinct_slabs()} distinct slabs")
+
+        # round 2: one rules-only file per tenant; tenants 1 and 2 take the
+        # same edit, so their clones re-converge
+        for t, n in enumerate(names):
+            upd = reg._updaters[reg.tenant_id(n)]
+            ops = tenant_keys_edit(txn, dict(upd.content), 1 if t == 2 else t)
+            txn.write_edit_file(os.path.join(staging, f"{n}.json"), ops)
+        t_land, waited = land("rules-only", lambda: [
+            os.rename(os.path.join(staging, f"{n}.json"),
+                      os.path.join(d.tenants_dir, n, "edits", "e1.json")) for n in names])
+        paths = {}
+        by_path = {}
+        for c in calls:
+            paths[c[1]] = paths.get(c[1], 0) + 1
+            by_path.setdefault(c[1], []).append(c)
+        visible = [(c[4] - t_land) * 1e3 for c in calls]
+        log(f"{tag} tenants rules-only round: paths {paths}; "
+            + "; ".join(f"{p} host ms {spread([c[2] for c in cs])}, CUDA events ms "
+                        f"{spread([c[3] for c in cs])}" for p, cs in sorted(by_path.items()))
+            + f"; edit file to visible ms {spread(visible)}; all consumed {waited * 1e3:.1f} ms "
+            f"after landing")
+        if paths != {"patch": TENANT_COUNT - TENANT_SHARED + 1, "cow": TENANT_SHARED - 1}:
+            raise SystemExit(f"tenants: the rules-only round took paths {paths}")
+
+        # a swap, a destroy, the dedup sweep
+        swapped, gone = names[5], names[9]
+        new = testing.random_content_fast(np.random.default_rng(4999), TENANT_KEYS, width=2)
+        _, swap_ms, swap_ev = timed_device(lambda: reg.swap_tenant(swapped, new))
+        gone_id = reg.tenant_id(gone)
+        # the directory goes first, or the file loop creates the tenant anew
+        shutil.rmtree(os.path.join(d.tenants_dir, gone))
+        _, destroy_ms, _ = timed_device(lambda: reg.destroy_tenant(gone))
+        p1, p2 = (clf.allocator.page_of(reg.tenant_id(n)) for n in names[1:3])
+        rep, sweep_ms, _ = timed_device(lambda: clf.dedup_sweep())
+        q1, q2 = (clf.allocator.page_of(reg.tenant_id(n)) for n in names[1:3])
+        log(f"{tag} tenants: swap of {swapped} {swap_ms:.2f} ms host ({swap_ev:.3f} ms events), "
+            f"destroy of {gone} {destroy_ms:.2f} ms; dedup sweep {sweep_ms:.2f} ms: "
+            f"{rep['hashed']} pages re-hashed, {rep['merged']} rows merged; {names[1]} and "
+            f"{names[2]} on pages {p1}, {p2} -> {q1}, {q2}")
+        if p1 == p2 or q1 != q2 or rep["merged"] < 1:
+            raise SystemExit("tenants: the re-converged clones were not merged")
+
+        # 2^20 packets across the tenants through classify_mixed
+        snaps = {n: reg._updaters[reg.tenant_id(n)].snapshot() for n in reg.tenant_names()}
+        parts, tags = [], []
+        for t, n in enumerate(names):
+            tab = snaps.get(n, snaps[names[0]])
+            parts.append(testing.random_batch_fast(np.random.default_rng(6000 + t), tab,
+                                                   TENANT_PER))
+            tags.append(np.full(TENANT_PER, t if n != gone else gone_id, np.int64))
+        batch = concat(parts)
+        tag_ids = np.concatenate(tags)
+        tag_ids[::257] = -1
+        tag_ids[1::263] = TENANT_COUNT
+        tag_ids[2::269] = TENANT_COUNT + 12345
+        tag_ids[3::271] = 2**32 + 1
+        name_of = {reg.tenant_id(n): n for n in reg.tenant_names()}
+        kernels = all_kernels()
+        for k in kernels:
+            k.launches = 0
+        out, mixed_ms, _ = timed_device(lambda: reg.classify_mixed(batch, tag_ids.tolist()))
+        launches = {k.name: k.launches for k in kernels if k.launches}
+        log(f"{tag} tenants classify_mixed({len(batch)}): {mixed_ms:.2f} ms host, launches "
+            f"{launches}")
+        if launches != {"arena_wire_fused": 1}:
+            raise SystemExit("tenants: classify_mixed must launch K3b's fused entry once and "
+                             "nothing else")
+        check_recount(batch, out.results, out.stats_delta, "tenants classify_mixed")
+        t32 = np.where((tag_ids >= 0) & (tag_ids < TENANT_COUNT), tag_ids, -1).astype(np.int32)
+        wire = torch.from_numpy(narrow_wire(batch.pack_wire()).view(np.int32)).to(DEV)
+        tdev = torch.from_numpy(t32).to(DEV)
+        kw = {"pages": spec.pages, "d_max": spec.d_max}
+        pool = clf.allocator.arena
+        err = check_fused(f"tenants fused K3b [{TENANT_COUNT} tenants, classify_mixed's wire]",
+                          lambda: arena_walk.classify_arena_wire_fused(pool, wire, tdev, **kw),
+                          lambda: arena_walk.classify_arena_wire_fused_plain(pool, wire, tdev,
+                                                                             **kw), len(batch))
+        fused = arena_walk.classify_arena_wire_fused(pool, wire, tdev, **kw).cpu().numpy()
+        res16, _st = torchpath.split_wire_outputs(fused, len(batch))
+        if not np.array_equal(torchpath.host_finalize_wire(res16, batch.kind)[0], out.results):
+            raise SystemExit("tenants: classify_mixed disagrees with the fused K3b's buffer")
+        bad = ~np.isin(tag_ids, list(name_of))
+        if out.results[bad].any():
+            raise SystemExit("tenants: invalid, destroyed or out-of-range ids are not UNDEF")
+        checked = 0
+        for tid, n in name_of.items():
+            idx = np.nonzero(tag_ids == tid)[0][:16]
+            r = oracle.classify(snaps[n], batch.take(idx))
+            if not (np.array_equal(out.results[idx], r.results)
+                    and np.array_equal(out.xdp[idx], r.xdp)):
+                raise SystemExit(f"tenants: {n} disagrees with its updater's oracle")
+            checked += len(idx)
+        log(f"{tag} tenants: classify_mixed equal to the plain K3b on all {len(batch)} packets, "
+            f"to each updater's oracle on {checked} packets of {len(name_of)} tenants; "
+            f"{int(bad.sum())} lanes of ids -1, {TENANT_COUNT}, {TENANT_COUNT + 12345}, 2^32 + 1 "
+            f"and the destroyed {gone} UNDEF; rule hits {int((out.results != 0).sum())}")
+        text = d.metrics_registry.render_text()
+        lines = [l.split("ingressnodefirewall_node_")[-1] for l in text.splitlines()
+                 if "_tenant_" in l and not l.startswith("#") and not re.search(r"tenant_\d", l)]
+        log(f"{tag} tenants /metrics: " + ", ".join(lines))
+        d.events_logger.drain_once()
+        kinds = {}
+        for rec_line in open(d.events_path).read().splitlines():
+            m = re.match(r"tenant-(\w+):", rec_line)
+            if m:
+                kinds[m.group(1)] = kinds.get(m.group(1), 0) + 1
+        log(f"{tag} tenants events.log: {kinds}")
+        if kinds != {"create": TENANT_COUNT, "swap": 1, "destroy": 1}:
+            raise SystemExit(f"tenants: events.log holds {kinds}")
+    finally:
+        d.stop()
+        shutil.rmtree(root, ignore_errors=True)
+    return {"launches": launches.get("arena_wire_fused", 0), "max_abs_err": err,
+            "classify_mixed_ms": mixed_ms}
+
+
+def clone_phase(tag: str) -> None:
+    """The JAX bench's clone-then-patch at production size
+    (bench.py:2418-2470): a 200K-entry slab shared by two tenants, a third
+    joining it, then one rules-only edit of the third: "cow", timed (min of
+    3) against a full re-bake of the edited table, and "patch" on the now
+    private page; the cloned slab's bytes equal a cold bake of the edited
+    table, on the host mirror and on the card."""
+    import torch
+
+    from infw_torch import arena, oracle, testing
+    from infw_torch.compiler import IncrementalTables
+    from infw_torch.kernels import arena_walk, torchpath
+
+    t0 = time.perf_counter()
+    base = testing.clean_tables_fast(np.random.default_rng(777), CLONE_ENTRIES, width=4)
+    content = dict(base.content)
+    spec = arena.arena_spec_for("ctrie", (base,), pages=6, max_tenants=8, headroom=1.5)
+    al = arena.ArenaAllocator(spec, DEV)
+    paths = [al.load_tenant(0, base), al.load_tenant(1, base)]
+    build_s = time.perf_counter() - t0
+    k_edit = sorted(content, key=lambda k: (k.ingress_ifindex, k.ip_data))[0]
+    best = {"cow": [], "patch": [], "rebake": []}
+    for i in range(3):
+        upd = IncrementalTables.from_content(dict(content), rule_width=4)
+        if al.load_tenant(2, upd.snapshot()) != "share" or not al.tenant_shares_page(2):
+            raise SystemExit("clone: the third tenant did not join the shared slab")
+        upd.start_dirty_tracking()
+        r = np.asarray(content[k_edit]).copy()
+        r[1] = [1, 6, 1000 + i, 0, 0, 0, 2]
+        upd.apply({k_edit: r}, [])
+        hint, snap1 = upd.peek_dirty(), upd.snapshot()
+        upd.clear_dirty()
+        path, host_ms, ev_ms = timed_device(lambda: al.load_tenant(2, snap1, hint=hint))
+        if path != "cow":
+            raise SystemExit(f"clone: the shared slab's rules-only edit took {path!r}")
+        best["cow"].append((host_ms, ev_ms))
+        if i == 0:
+            cold = arena.ArenaAllocator(spec, DEV)
+            cold.load_tenant(0, snap1)
+            p, q = al.page_of(2), cold.page_of(0)
+            same = all(np.array_equal(a, b) for a, b in zip(al._canonical_of_page(p),
+                                                            cold._canonical_of_page(q)))
+            rows = dict(zip(("l0", "nodes", "targets", "joined", "root_lut"), al._slab_rows()))
+            dev_same = all(np.array_equal(
+                getattr(al.arena, f)[p * n:(p + 1) * n].cpu().numpy(),
+                al._host[f][p * n:(p + 1) * n].view(getattr(al.arena, f).cpu().numpy().dtype))
+                for f, n in rows.items())
+            b = testing.random_batch_fast(np.random.default_rng(778), snap1, ORACLE_PACKETS)
+            o = arena_walk.classify_arena_wire_fused(
+                al.arena, torch.from_numpy(b.pack_wire().view(np.int32)).to(DEV),
+                torch.full((len(b),), 2, dtype=torch.int32, device=DEV),
+                pages=spec.pages, d_max=spec.d_max).cpu().numpy()
+            res16, _ = torchpath.split_wire_outputs(o, len(b))
+            want = oracle.HashLpmOracle(snap1).classify(b)
+            is_ip = ((b.kind == 1) | (b.kind == 2)) & (b.l4_ok != 0)
+            oracle_ok = np.array_equal(np.where(is_ip, res16, 0), want.results & 0xFFFF)
+            log(f"clone @{CLONE_ENTRIES}: the cloned slab against a cold bake of the edited "
+                f"table: host mirror {'equal' if same else 'DIFFERENT'}, the card's pool rows "
+                f"{'equal' if dev_same else 'DIFFERENT'} to the mirror; tenant 2's "
+                f"{len(b)} packets {'equal' if oracle_ok else 'DIFFERENT'} to the oracle")
+            if not (same and dev_same and oracle_ok):
+                raise SystemExit("clone: the cloned slab is not the edited table's bake")
+            del cold
+        r2 = r.copy()
+        r2[1] = [1, 17, 2000 + i, 0, 0, 0, 1]
+        upd.apply({k_edit: r2}, [])
+        hint2, snap2 = upd.peek_dirty(), upd.snapshot()
+        path, host_ms, ev_ms = timed_device(lambda: al.load_tenant(2, snap2, hint=hint2))
+        if path != "patch":
+            raise SystemExit(f"clone: the private slab's rules-only edit took {path!r}")
+        best["patch"].append((host_ms, ev_ms))
+        al.destroy_tenant(2)
+        upd3 = IncrementalTables.from_content(dict(content), rule_width=4)
+        upd3.apply({k_edit: r}, [])
+        snap3 = upd3.snapshot()
+        path, host_ms, ev_ms = timed_device(lambda: al.load_tenant(3, snap3))
+        if path != "assign":
+            raise SystemExit(f"clone: the re-bake took {path!r}")
+        best["rebake"].append((host_ms, ev_ms))
+        al.destroy_tenant(3)
+    m = {k: (min(h for h, _e in v), min(e for _h, e in v)) for k, v in best.items()}
+    log(f"{tag} clone-then-patch @{CLONE_ENTRIES} entries (spec {spec}, build {build_s:.2f} s, "
+        f"paths {paths}): cow {m['cow'][0]:.2f} ms host ({m['cow'][1]:.3f} ms events) against a "
+        f"full re-bake {m['rebake'][0]:.2f} ms ({m['rebake'][1]:.3f} ms events) = "
+        f"{m['rebake'][0] / m['cow'][0]:.1f}x; patch of the private page {m['patch'][0]:.2f} ms "
+        f"({m['patch'][1]:.3f} ms events); min of 3")
+
+
+def dense_bound(arena_dense, torchpath, pool, wire, tenant, pages: int):
+    """K6's fused-entry bound: (ms, "bytes" | "operations", bytes, ops).
+    Bytes: the wire, tenant, results and statistics once, then for the
+    lanes finalize keeps (IP with an L4 header) whose tenant holds a page:
+    its page-table entry, the key, mask and length of each live row
+    (mask_len >= 0) of every slab they reach, and the rule row of each
+    distinct winning row.  Operations: K6_OPS_PER_ROW for every live row
+    of each such lane's slab."""
+    import torch
+
+    fields, words, mask = looked_up_operands(torchpath, wire)
+    S = pool.mask_len.shape[0] // pages
+    t = tenant.long()
+    MT = pool.page_table.shape[0]
+    pt = pool.page_table.long()
+    pg = torch.where(mask & (t >= 0) & (t < MT), pt[t.clamp(0, MT - 1)], -1)
+    keep = pg >= 0
+    live = (pool.mask_len.view(-1, S) >= 0).sum(dim=1)
+    ops = int(live[pg[keep]].sum().item()) * K6_OPS_PER_ROW
+    pages_read = torch.unique(pg[keep])
+    won = []
+    f, w, tk = fields[keep], words[keep], tenant[keep]
+    step = max(1, arena_dense.PLAIN_ROWS // S)
+    for s in range(0, f.shape[0], step):
+        _rows, score, win = arena_dense.arena_dense_rows(
+            pool, torchpath.batch_from_fields(f[s:s + step], w[s:s + step]), tk[s:s + step], pages)
+        won.append(win[score > 0])
+    n_won = torch.unique(torch.cat(won)).numel() if won else 0
+    nbytes = (fused_bound(wire, tenant, {})[1] + torch.unique(t[keep]).numel() * 4
+              + int(live[pages_read].sum().item()) * 44 + n_won * pool.rules.shape[1] * 2)
+    b_ms, o_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / SIMT_OPS_PER_S * 1e3
+    return max(b_ms, o_ms), ("operations" if o_ms > b_ms else "bytes"), nbytes, ops
+
+
+def dense_arena_phase(tag: str) -> dict:
+    """The dense-family arena (jaxpath.make_arena_spec("dense", 514, 512,
+    1024, 16)): 512 tenant tables of 1000 entries x 16 rule slots loaded
+    through TorchArenaClassifier, a 2^20-packet mixed batch with ids -1,
+    512 and a destroyed tenant; K6's two-column and fused entries against
+    the plain versions, the main path (one memset and one launch of K6's
+    fused entry, nothing else) against the per-tenant oracles; K6's time,
+    its bound and compare count.  Returns its kernels-line entry."""
+    import torch
+
+    from infw_torch import arena, oracle, testing
+    from infw_torch.backend.cuda import TorchArenaClassifier
+    from infw_torch.kernels import all_kernels, arena_dense, torchpath
+    from infw_torch.packets import concat, narrow_wire
+
+    t0 = time.perf_counter()
+    tabs = [testing.random_tables_fast(np.random.default_rng(7000 + t), DENSE_ENTRIES, width=DENSE_SLOTS,
+                                       v6_fraction=0.3) for t in range(DENSE_TENANTS)]
+    gen_s = time.perf_counter() - t0
+    spec = arena.make_arena_spec("dense", DENSE_TENANTS + 2, DENSE_TENANTS, DENSE_SLAB,
+                                 DENSE_SLOTS)
+    clf = TorchArenaClassifier(spec, device=DEV)
+    t0 = time.perf_counter()
+    paths = [clf.load_tenant(t, tab) for t, tab in enumerate(tabs)]
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    gone = DENSE_TENANTS - 1
+    clf.destroy_tenant(gone)
+    if set(paths) != {"assign"}:
+        raise SystemExit(f"dense arena loads took paths {sorted(set(paths))}")
+    pool = clf.allocator.arena
+    log(f"dense arena: spec {spec}; pool {clf.allocator.pool_bytes() / 1e6:.1f} MB; "
+        f"{DENSE_TENANTS} tables {gen_s:.2f} s, loads {load_s:.2f} s; tenant {gone} destroyed")
+    parts = [testing.random_batch_fast(np.random.default_rng(7500 + t), tab, TENANT_PER)
+             for t, tab in enumerate(tabs)]
+    batch = concat(parts)
+    tenant = np.repeat(np.arange(DENSE_TENANTS, dtype=np.int32), TENANT_PER)
+    tenant[::251], tenant[1::257] = -1, DENSE_TENANTS
+    B = len(batch)
+    kw = {"pages": spec.pages}
+
+    # K6 against its plain versions on every packet
+    fields, words = torchpath.packet_fields(torchpath.device_batch(batch, DEV))
+    tt = torch.from_numpy(tenant).to(DEV)
+    got = arena_dense.arena_dense_classify(fields, words, tt, pool, **kw)
+    want = arena_dense.arena_dense_classify_plain(fields, words, tt, pool, **kw)
+    torch.cuda.synchronize()
+    mism = int((got != want).any(dim=1).sum().item())
+    err = int((got.long() - want.long()).abs().max().item())
+    log(f"K6 two-column vs plain [{DENSE_TENANTS} tenants x {DENSE_SLAB} rows]: B={B} "
+        f"mismatching packets={mism} max_abs_err={err} matched={int((got[:, 1] > 0).sum().item())}")
+    if mism:
+        raise SystemExit("K6 disagrees with its plain version on the mixed batch")
+    wires = fused_wires(batch, tenant)
+    fused_err = 0
+    for width, (w, _m, tw, _idx) in wires.items():
+        fused_err = max(fused_err, check_fused(
+            f"fused K6 [{DENSE_TENANTS} tenants, width {width}]",
+            lambda w=w, tw=tw: arena_dense.classify_arena_dense_wire_fused(pool, w, tw, **kw),
+            lambda w=w, tw=tw: arena_dense.classify_arena_dense_wire_fused_plain(pool, w, tw,
+                                                                                 **kw),
+            w.shape[0]))
+
+    # the main path: one mixed classify, K6's fused entry once, nothing else
+    wire = batch.pack_wire()
+    kernels = all_kernels()
+    for k in kernels:
+        k.launches = 0
+    out, main_ms, _ = timed_device(lambda: clf.classify_async_packed_tenant(wire, tenant).result())
+    launches = {k.name: k.launches for k in kernels if k.launches}
+    log(f"dense arena main path: classify_async_packed_tenant({B}) {main_ms:.2f} ms (first call), "
+        f"launches {launches}")
+    if launches != {"arena_dense_fused": 1}:
+        raise SystemExit("the dense arena main path must launch arena_dense_fused once and "
+                         "nothing else")
+    check_recount(batch, out.results, out.stats_delta, "dense arena main path")
+    off = (tenant < 0) | (tenant >= DENSE_TENANTS) | (tenant == gone)
+    if out.results[off].any():
+        raise SystemExit("dense arena: lanes of invalid or destroyed tenants are not UNDEF")
+    for t in range(DENSE_TENANTS - 1):
+        idx = np.nonzero(tenant == t)[0][:8]
+        r = oracle.classify(tabs[t], batch.take(idx))
+        if not (np.array_equal(out.results[idx], r.results) and np.array_equal(out.xdp[idx], r.xdp)):
+            raise SystemExit(f"dense arena: tenant {t} disagrees with its oracle")
+    log(f"dense arena main path: equal to the per-tenant oracles on 8 packets x "
+        f"{DENSE_TENANTS - 1} tenants; {int(off.sum())} lanes of ids -1, {DENSE_TENANTS} and the "
+        f"destroyed {gone} UNDEF; rule hits {int((out.results != 0).sum())}")
+
+    # timings on the main path's narrow wire
+    nw = torch.from_numpy(narrow_wire(wire).view(np.int32)).to(DEV)
+    ntt = torch.from_numpy(tenant).to(DEV)
+    run = lambda: arena_dense.classify_arena_dense_wire_fused(pool, nw, ntt, **kw)
+    fused_ms = cuda_ms(run, reps=5)
+    device_us = profiled_kernels(run, reps=3)
+    fplain = cuda_ms(lambda: arena_dense.classify_arena_dense_wire_fused_plain(pool, nw, ntt, **kw),
+                     reps=1, warmup=0)
+    two_ms = cuda_ms(lambda: arena_dense.arena_dense_classify(fields, words, tt, pool, **kw),
+                     reps=5)
+    two_plain = cuda_ms(lambda: arena_dense.arena_dense_classify_plain(fields, words, tt, pool,
+                                                                       **kw), reps=1, warmup=0)
+    bound_ms, bound_by, nbytes, ops = dense_bound(arena_dense, torchpath, pool, nw, ntt,
+                                                  spec.pages)
+    log(f"{tag} K6 arena_dense_fused [{DENSE_TENANTS} tenants x S={DENSE_SLAB} x R={DENSE_SLOTS}, "
+        f"B={B}, narrow wire]: {fused_ms:.4f} ms ({B / fused_ms / 1e3:.1f} M packets/s); profiler "
+        f"device time per call (us): " + (", ".join(f"{k[:40]} {v:.2f}" for k, v in device_us.items())
+                                         or "not measured (no device events in the trace)"))
+    log(f"{tag} K6 bound: {bound_ms:.4f} ms by {bound_by} ({nbytes / 1e6:.2f} MB: wire, tenant, "
+        f"results, statistics, the live rows of the slabs reached and the winning rule rows / "
+        f"3.35 TB/s; {ops / K6_OPS_PER_ROW:.4g} row compares = B x live rows, x {K6_OPS_PER_ROW} "
+        f"ops / 67 TOP/s); K6 is {fused_ms / bound_ms:.1f}x its bound; plain version "
+        f"{fplain:.4f} ms; library call: none (no PyTorch call computes the lookup)")
+    log(f"{tag} K6 arena_dense two-column [{B} packets]: {two_ms:.4f} ms; plain version "
+        f"{two_plain:.4f} ms")
+    clf.close()
+    return {
+        "name": "arena_dense_fused",
+        "route": "cuda",
+        "source": "infw_torch/kernels/csrc/arena_dense.cu",
+        "replaces": "infw/kernels/jaxpath.py:3755",
+        "launches": launches["arena_dense_fused"],
+        "mismatches": 0,
+        "max_abs_err": fused_err,
+        "ms": fused_ms,
+        "plain_ms": fplain,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": None,
+        "device_ms": sum(device_us.values()) / 1e3 if device_us else None,
+        "row_compares": ops // K6_OPS_PER_ROW,
+        "two_column": {
+            "name": "arena_dense",
+            "max_abs_err": err,
+            "ms": two_ms,
+            "plain_ms": two_plain,
+        },
+    }
+
+
+def overlay_longer_prefixes(compiler, content, t: int):
+    """Up to 32 new, longer prefixes inside a tenant's own: each key four
+    bits longer (eight past /28), with one Deny catch-all of ruleId
+    200 + t % 50; identities the tenant already holds are left out."""
+    taken = {k.masked_identity() for k in content}
+    out = {}
+    for k in content:
+        grow = 4 if k.prefix_len - 32 <= 28 else 8
+        nk = compiler.LpmKey(k.prefix_len + grow, k.ingress_ifindex, k.ip_data)
+        if k.prefix_len - 32 + grow > 128 or nk.masked_identity() in taken:
+            continue
+        taken.add(nk.masked_identity())
+        r = np.zeros((1, 7), np.int32)
+        r[0] = [200 + t % 50, 0, 0, 0, 0, 0, 1]
+        out[nk] = r
+        if len(out) == 32:
+            break
+    return out
+
+
+def overlay_phase(tag: str, k6: dict) -> dict:
+    """The 512-tenant ctrie arena of the arena phase with a dense overlay
+    side-pool of OVERLAY_CAP entries per slab and 16 slots: half the
+    tenants get an overlay of new, longer prefixes; a 2^20-packet mixed
+    classify launches K3b's two-column entry once and K6's once, and is
+    held against the plain composition on every word and the oracle of the
+    merged content.  Adds K6's two-column readings to ``k6``; returns the
+    launches."""
+    import torch
+
+    from infw_torch import arena, compiler, oracle, testing
+    from infw_torch.backend.cuda import TorchArenaClassifier
+    from infw_torch.kernels import all_kernels, arena_dense, arena_walk, overlay, torchpath
+    from infw_torch.packets import concat, narrow_wire
+
+    tabs = [testing.random_tables_fast(np.random.default_rng(9000 + t), n_entries=ARENA_ENTRIES,
+                                       width=4, v6_fraction=0.3, ifindexes=(2, 3))
+            for t in range(ARENA_TENANTS)]
+    spec = arena.arena_spec_for("ctrie", tabs, pages=ARENA_TENANTS + 2, max_tenants=ARENA_TENANTS)
+    ov_spec = arena.make_arena_spec("dense", ARENA_TENANTS + 2, ARENA_TENANTS, OVERLAY_CAP,
+                                    OVERLAY_SLOTS)
+    clf = TorchArenaClassifier(spec, device=DEV, overlay_spec=ov_spec)
+    merged = {}
+    t0 = time.perf_counter()
+    for t, tab in enumerate(tabs):
+        clf.load_tenant(t, tab)
+        merged[t] = tab
+        if t % 2 == 0:
+            ov = overlay_longer_prefixes(compiler, tab.content, t)
+            clf.load_tenant_overlay(t, compiler.compile_tables_from_content(
+                ov, rule_width=OVERLAY_SLOTS))
+            merged[t] = compiler.compile_tables_from_content({**tab.content, **ov},
+                                                             rule_width=OVERLAY_SLOTS)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    ov_alloc = clf.overlay_allocator
+    n_ov = [ov_alloc.tables_of(t).num_entries for t in ov_alloc.tenants()]
+    log(f"overlay: {ARENA_TENANTS}-tenant ctrie arena + dense side-pool {ov_spec}; "
+        f"{len(n_ov)} overlays of {min(n_ov)}-{max(n_ov)} entries; loads {load_s:.2f} s; pools "
+        f"{clf.allocator.pool_bytes() / 1e6:.1f} + {ov_alloc.pool_bytes() / 1e6:.1f} MB")
+    parts = [testing.random_batch_fast(np.random.default_rng(9500 + t), merged[t], TENANT_PER)
+             for t in range(ARENA_TENANTS)]
+    batch = concat(parts)
+    tenant = np.repeat(np.arange(ARENA_TENANTS, dtype=np.int32), TENANT_PER)
+    tenant[::253] = -1
+    B = len(batch)
+    wire = batch.pack_wire()
+    kernels = all_kernels()
+    for k in kernels:
+        k.launches = 0
+    out, main_ms, _ = timed_device(lambda: clf.classify_async_packed_tenant(wire, tenant).result())
+    launches = {k.name: k.launches for k in kernels if k.launches}
+    log(f"overlay main path: classify_async_packed_tenant({B}) {main_ms:.2f} ms (first call), "
+        f"launches {launches}")
+    if launches != {"arena_ctrie_walk": 1, "arena_dense": 1}:
+        raise SystemExit("the overlay classify must launch K3b's and K6's two-column entries "
+                         "once each and nothing else")
+    check_recount(batch, out.results, out.stats_delta, "overlay main path")
+    # the whole device pass against the same composition of plain versions
+    main, ov = clf.allocator.arena, ov_alloc.arena
+    nw = torch.from_numpy(narrow_wire(wire).view(np.int32)).to(DEV)
+    tt = torch.from_numpy(tenant).to(DEV)
+    okw = {"pages": spec.pages, "ov_pages": ov_spec.pages, "d_max": spec.d_max}
+
+    def plain_pass():
+        b = torchpath.unpack_wire(nw)
+        f, w = torchpath.packet_fields(b)
+        m = arena_walk.arena_ctrie_walk_classify_plain(f, w, tt, main, pages=spec.pages,
+                                                       d_max=spec.d_max)
+        score_m = overlay.joined_score(main.joined, m[:, 1])
+        o = arena_dense.arena_dense_classify_plain(f, w, tt, ov, pages=ov_spec.pages)
+        res, _x, st = torchpath.finalize(torch.where(o[:, 1] > score_m, o[:, 0], m[:, 0]), b)
+        return torchpath.fuse_wire_outputs(res & 0xFFFF, st)
+
+    run = lambda: arena_dense.classify_arena_overlay_wire(main, ov, nw, tt, **okw)
+    check_fused(f"overlay pass [{ARENA_TENANTS} tenants, half with overlays]", run, plain_pass, B)
+    ok_lanes = 0
+    for t in range(ARENA_TENANTS):
+        idx = np.nonzero(tenant == t)[0][:8]
+        r = oracle.classify(merged[t], batch.take(idx))
+        if not (np.array_equal(out.results[idx], r.results) and np.array_equal(out.xdp[idx], r.xdp)):
+            raise SystemExit(f"overlay: tenant {t} disagrees with the oracle of its merged content")
+        ok_lanes += len(idx)
+    won = int(((out.results >> 8) & 0xFF >= 200).sum())
+    log(f"overlay main path: equal to the oracles of the merged content on {ok_lanes} packets; "
+        f"{won} verdicts from overlay rules; tenant -1 lanes UNDEF: "
+        f"{not out.results[tenant < 0].any()}")
+    if out.results[tenant < 0].any() or won == 0:
+        raise SystemExit("overlay: no overlay verdicts, or tenant -1 lanes not UNDEF")
+    pass_ms = cuda_ms(run, reps=5)
+    fields, words = torchpath.packet_fields(torchpath.unpack_wire(nw))
+    two = lambda: arena_dense.arena_dense_classify(fields, words, tt, ov, pages=ov_spec.pages)
+    two_ms = cuda_ms(two, reps=5)
+    two_plain = cuda_ms(lambda: arena_dense.arena_dense_classify_plain(
+        fields, words, tt, ov, pages=ov_spec.pages), reps=1, warmup=0)
+    k3b_ms = cuda_ms(lambda: arena_walk.arena_ctrie_walk_classify(
+        fields, words, tt, main, pages=spec.pages, d_max=spec.d_max), reps=5)
+    log(f"{tag} overlay device pass (K3b two-column + K6 two-column + combine, {B} packets): "
+        f"{pass_ms:.4f} ms; K6 two-column over the side-pool {two_ms:.4f} ms (plain "
+        f"{two_plain:.4f} ms), K3b two-column {k3b_ms:.4f} ms")
+    k6["two_column"].update({"launches": launches["arena_dense"], "overlay_ms": two_ms,
+                             "overlay_plain_ms": two_plain})
+    clf.close()
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -3176,6 +3856,7 @@ def main() -> int:
     from infw_torch.packets import narrow_wire
 
     # 1. device
+    t_start = time.perf_counter()
     kind = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
     card = card_line()
@@ -3339,14 +4020,22 @@ def main() -> int:
         "imma_instructions": imma,
     }
 
+    log(f"phase dense: {time.perf_counter() - t_start:.1f} s since the start")
     # 6. the trie path
+    t_phase = time.perf_counter()
     k2, trie_tables, trie_batch = trie_phase(tag)
+    log(f"phase trie: {time.perf_counter() - t_phase:.1f} s")
 
     # 7. the ctrie path, then both walks on the depth-adversarial batches
+    t_phase = time.perf_counter()
     k3, ctrie_tables, ctrie_batch, hashed = ctrie_phase(tag, trie_tables, trie_batch)
+    log(f"phase ctrie: {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
     k2["ms_depth_adversarial"], k3["two_column"]["ms_depth_adversarial"] = depth_phase(tag)
+    log(f"phase depth-adversarial: {time.perf_counter() - t_phase:.1f} s")
 
     # 8. the wire codecs on both paths' IPv4-compact chunks
+    t_phase = time.perf_counter()
     k4 = codec_phase(tag, [
         ("trie", f"100K trie table, {TRIE_PACKETS}-packet batch", trie_tables, trie_batch,
          lambda sub: oracle.classify(trie_tables, sub)),
@@ -3354,27 +4043,53 @@ def main() -> int:
          hashed.classify),
     ])
 
+    log(f"phase codecs: {time.perf_counter() - t_phase:.1f} s")
     del trie_tables, trie_batch, ctrie_tables, ctrie_batch, hashed
 
-    # 9. the multi-tenant arena
+    # 9. the multi-tenant arena, the daemon's tenants, the clone-then-patch,
+    # the dense-family arena (K6) and the overlay side-pool
+    t_phase = time.perf_counter()
     k3b = arena_phase(tag)
+    log(f"phase arena: {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+    tenants = tenant_phase(tag)
+    k3b["tenant_launches"] = tenants["launches"]
+    log(f"phase tenants: {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+    clone_phase(tag)
+    log(f"phase clone-then-patch: {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+    k6 = dense_arena_phase(tag)
+    log(f"phase dense arena: {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+    ov_launches = overlay_phase(tag, k6)
+    k3b["two_column"]["overlay_launches"] = ov_launches["arena_ctrie_walk"]
+    log(f"phase overlay: {time.perf_counter() - t_phase:.1f} s")
 
     # 10. incremental patches and the overlay at the churn tier
+    t_phase = time.perf_counter()
     churn_phase(tag)
+    log(f"phase churn: {time.perf_counter() - t_phase:.1f} s")
 
     # 11. the gather microbenchmark's kernel and tool
+    t_phase = time.perf_counter()
     k5 = gather_phase(tag)
+    log(f"phase gather: {time.perf_counter() - t_phase:.1f} s")
 
     # 12. the daemon: the headline CRs' ingress blocks as one NodeState,
     # then bench config 5a's replay, through infw_torch.daemon
     crs = make_crs(np.random.default_rng(7))
+    t_phase = time.perf_counter()
     daemon_launches = daemon_phase(tag, {
         name: [ing for cr in crs if name in cr["spec"]["interfaces"] for ing in cr["spec"]["ingress"]]
         for name in DAEMON_IFACES
     })
+    log(f"phase daemon: {time.perf_counter() - t_phase:.1f} s; script "
+        f"{time.perf_counter() - t_start:.1f} s so far")
     # each kernel's launches in each daemon pass, the two-column walks
     # under their own entries; a launch no entry names fails the run
-    entries = [k1, k2, k3, k4, k3b, k5, k3["two_column"], k3b["two_column"]]
+    entries = [k1, k2, k3, k4, k3b, k5, k6, k3["two_column"], k3b["two_column"],
+               k6["two_column"]]
     for k in entries:
         k["daemon_launches"] = {p: c.get(k["name"], 0) for p, c in daemon_launches.items()}
     unlisted = {n for c in daemon_launches.values() for n in c} - {k["name"] for k in entries}
@@ -3382,7 +4097,7 @@ def main() -> int:
         raise SystemExit(f"daemon: kernels {sorted(unlisted)} launched but not on the kernels line")
 
     # 13. the kernels line, then the device line last
-    print(json.dumps({"kernels": [k1, k2, k3, k4, k3b, k5]}), flush=True)
+    print(json.dumps({"kernels": [k1, k2, k3, k4, k3b, k5, k6]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}),
           flush=True)
     return 0

@@ -1,33 +1,36 @@
-"""Multi-tenant paged arena of the ctrie family: geometry, slab baking, the
-device pool and its host allocator.
+"""Multi-tenant paged arena of both families: geometry, slab baking, the
+device pools and their host allocator.
 
 Counterpart of the arena half of the JAX package's ``kernels/jaxpath.py``
 (``ArenaSpec`` through ``ArenaAllocator``).  Thousands of tenant rulesets
 live in ONE device pool of ``pages`` fixed-geometry slabs; a device page
-table maps each tenant to its slab, and the paged walk (kernel K3b,
-``kernels/arena_walk.py``) steers each packet of a mixed-tenant batch
-through it.  Activating or hot-swapping a tenant is a one-element write of
-the page table.
+table maps each tenant to its slab, and the paged classify (kernel K3b,
+``kernels/arena_walk.py``, for the ctrie family; kernel K6,
+``kernels/arena_dense.py``, for the dense family) steers each packet of a
+mixed-tenant batch through it.  Activating or hot-swapping a tenant is a
+one-element write of the page table.
 
 - ``ArenaSpec`` / ``make_arena_spec`` / ``arena_spec_for``: the geometry,
   with the JAX package's bucketing, validation and error texts (splice
   fields included, so specs compare equal to the JAX package's as tuples);
-- ``_ctrie_canonical_slab`` / ``_offset_ctrie_slab`` /
-  ``_unoffset_ctrie_slab`` / ``_ctrie_slab_arrays`` / ``slab_content_hash``:
+- ``_dense_slab_arrays``, ``_ctrie_canonical_slab`` / ``_offset_ctrie_slab``
+  / ``_unoffset_ctrie_slab`` / ``_ctrie_slab_arrays`` / ``slab_content_hash``:
   the host slab bake, byte-identical to jaxpath's;
-- ``CtrieArena``: the seven pool tensors on one device;
+- ``DenseArena`` / ``CtrieArena``: the pool tensors on one device;
 - ``ArenaAllocator``: pages, content-addressed sharing with refcounts and
-  copy-on-write, stage / activate / release, destroy, compaction and the
-  dedup sweep.  Every device write is an in-place copy into the resident
-  pool tensors (a whole slab is one contiguous row range per array, a flip
-  one element of ``page_table``), issued on the device's current stream
-  after the host mirror is updated.  A classify enqueued before a write
-  runs on the pool as it stood; the slab write of a new page is issued
-  before the flip that makes it reachable.
+  copy-on-write, rules-only patches (a hinted edit of a private slab
+  writes its dirty rows; of a shared slab, the clone-then-patch "cow"),
+  stage / activate / release, destroy, compaction and the dedup sweep.
+  Every device write is an in-place copy into the resident pool tensors
+  (a whole slab is one contiguous row range per array, a patch one staged
+  copy plus ``index_copy_`` at the dirty rows, a flip one element of
+  ``page_table``), issued on the device's current stream after the host
+  mirror is updated, under the allocator's lock.  A classify enqueued
+  before a write runs on the pool as it stood; the slab write of a new
+  page is issued before the flip that makes it reachable.
 
-Not in this slice (each raises NotImplementedError naming its ROADMAP
-item): rules-only patches (a non-None ``hint``), the dense family and
-spliced geometries.  The JAX package's Pallas byte planes, their refresh
+Spliced geometries are not served (NotImplementedError naming
+``SPLICE_ITEM``).  The JAX package's Pallas byte planes, their refresh
 hooks and its warmed scatter executables have no counterpart: K3b reads
 the uint32 node pool in place.
 """
@@ -43,12 +46,19 @@ import torch
 
 from .compiler import CompiledTables
 from .kernels.torchpath import resolve_device
-from .layout import build_cpoptrie, joined_by_tidx, packed_rules_flat
+from .kernels.walk import write_rows
+from .layout import (
+    build_cpoptrie,
+    hint_dense_rows,
+    hint_trie_unchanged,
+    joined_by_tidx,
+    joined_tidx_patch_rows,
+    packed_rules_flat,
+    pad_rows,
+    seed_caches_forward,
+)
 
-#: where the parts of the arena this slice does not serve are queued
-PATCH_ITEM = ("ROADMAP.md item 20 (the dense-family arena, then the arena's rules-only "
-              "patches and overlay side-pool)")
-DENSE_ITEM = "ROADMAP.md item 20 (the dense-family arena)"
+#: where the spliced arena, which the port does not serve, is queued
 SPLICE_ITEM = "ROADMAP.md item 21 (spliced arenas)"
 
 #: the splice-tag value of a spliced l0 slot (jaxpath.SPLICE_TAG), which
@@ -227,6 +237,20 @@ def arena_spec_for(family: str, tables_iter, pages: int, max_tenants: int,
     )
 
 
+class DenseArena(NamedTuple):
+    """Dense-family device pool: ``pages`` compare-all slabs of S =
+    ``entries`` rows, flat along rows, plus the tenant -> page table.
+    Unassigned rows carry the mask_len == -1 sentinel (inert as a single
+    table's padding rows).  uint32 and uint16 columns travel as int32 and
+    int16 bit patterns."""
+
+    key_words: torch.Tensor   # (P*S, 5) int32 [ifindex, ip words 0-3]
+    mask_words: torch.Tensor  # (P*S, 5) int32
+    mask_len: torch.Tensor    # (P*S,) int32, -1 = padding
+    rules: torch.Tensor       # (P*S, R*5) int16 (uint16 packed rule rows)
+    page_table: torch.Tensor  # (max_tenants,) int32, -1 = absent
+
+
 class CtrieArena(NamedTuple):
     """Ctrie-family device pool: per-slab compressed-poptrie layouts with
     PAGE-GLOBAL indices baked at slab-write time (node ids, target
@@ -256,6 +280,45 @@ def _dev_view(a: np.ndarray) -> torch.Tensor:
 
 
 # -- slab baking (host) ------------------------------------------------------
+
+
+def _dense_host_layout(tables: CompiledTables):
+    """(key_words, mask_words, mask_len, rules) of one table, unpadded, in
+    the dense device layout (jaxpath._host_device_layout(pad=False,
+    with_trie=False)): the mask_len sentinel -1 past ``num_entries``, the
+    flat packed rules (uint16 where they pack)."""
+    mask_len = tables.mask_len.copy()
+    mask_len[tables.num_entries:] = -1
+    return (tables.key_words.astype(np.uint32, copy=False),
+            tables.mask_words.astype(np.uint32, copy=False),
+            mask_len, packed_rules_flat(tables))
+
+
+def _dense_fits(spec: ArenaSpec, layout) -> bool:
+    kw, _mw, _ml, rules = layout
+    return (rules.dtype == np.uint16 and rules.shape[1] == spec.rule_slots * 5
+            and kw.shape[0] <= spec.entries)
+
+
+def _dense_slab_arrays(spec: ArenaSpec, tables: CompiledTables):
+    """Full-slab host arrays for the dense family (page-independent: a
+    dense slab holds no cross-row index).  Raises ArenaCapacityError when
+    the table exceeds the slab geometry."""
+    kw, mw, ml, rules = _dense_host_layout(tables)
+    S = spec.entries
+    if kw.shape[0] > S:
+        raise ArenaCapacityError(
+            f"tenant has {kw.shape[0]} entries > slab capacity {S}"
+        )
+    if rules.dtype != np.uint16:
+        raise ArenaCapacityError("arena slabs hold u16-packed rules")
+    if rules.shape[1] != spec.rule_slots * 5:
+        raise ArenaCapacityError(
+            f"rule row width {rules.shape[1]} != slab width "
+            f"{spec.rule_slots * 5} (compile tenants with rule_width="
+            f"{spec.rule_slots})"
+        )
+    return pad_rows(kw, S), pad_rows(mw, S), pad_rows(ml, S, fill=-1), pad_rows(rules, S)
 
 
 def _ctrie_host_layout(tables: CompiledTables):
@@ -393,22 +456,27 @@ def slab_content_hash(arrays, n_nodes: int = 0) -> bytes:
 
 # -- the allocator -----------------------------------------------------------
 
-_NAMES = ("l0", "nodes", "targets", "joined", "root_lut")
+#: the slab arrays of each family, in slab order
+_NAMES = {"dense": ("key_words", "mask_words", "mask_len", "rules"),
+          "ctrie": ("l0", "nodes", "targets", "joined", "root_lut")}
 
 
 class ArenaAllocator:
-    """Host-side slab allocator over one ctrie pool: page alloc and free,
-    full-slab bakes, page-table flips and compaction.
+    """Host-side slab allocator over one pool of either family: page alloc
+    and free, full-slab bakes, rules-only per-slab patches, page-table
+    flips and compaction.
 
     Slabs are CONTENT-ADDRESSED and shared copy-on-write: a sha256 over the
     baked canonical slab maps identical rulesets to ONE physical page with
     refcounted page-table rows, and installing a ruleset whose content is
-    already resident is a flip (no bake, no slab write).  A structural edit
-    of a shared page bakes a private copy into a free page before the
-    editing tenant's flip; the donor's refcount drops (free at zero) and
-    every other sharer keeps serving it.  ``dedup_sweep`` re-hashes pages
-    whose hash went stale (free-list claim-back) and re-merges re-converged
-    content.
+    already resident is a flip (no bake, no slab write).  An edit of a
+    shared page bakes a private copy into a free page before the editing
+    tenant's flip (a rules-only edit clones the donor's canonical arrays
+    and patches the copy's dirty rows, no bake); the donor's refcount
+    drops (free at zero) and every other sharer keeps serving it.  A
+    rules-only edit of a private page writes its dirty rows in place.
+    ``dedup_sweep`` re-hashes pages whose hash went stale (patch, clone,
+    free-list claim-back) and re-merges re-converged content.
 
     All mutating entry points hold the internal lock; a caller that
     enqueues a classify under ``lock`` orders it wholly before or after
@@ -416,28 +484,36 @@ class ArenaAllocator:
     allocator's does (nothing here reads it)."""
 
     def __init__(self, spec: ArenaSpec, device=None):
-        if spec.family == "dense":
-            raise NotImplementedError(f"the dense-family arena is {DENSE_ITEM}")
         if spec.spliced:
             raise NotImplementedError(f"a spliced arena is {SPLICE_ITEM}")
         self.spec = spec
         self._device = resolve_device(device)
         self.lock = threading.RLock()
         P = spec.pages
-        host = {
-            "l0": np.zeros((P * spec.l0_rows, 2), np.int32),
-            "nodes": np.zeros((P * spec.node_rows, 20), np.uint32),
-            "targets": np.zeros(P * spec.target_rows, np.int32),
-            "joined": np.zeros((P * spec.joined_rows, 3 + spec.rule_slots * 5), np.uint16),
-            "root_lut": np.zeros(P * spec.lut_rows, np.int32),
-            "splice": np.full(spec.splice_rows, -1, np.int32),
-            "page_table": np.full(spec.max_tenants, -1, np.int32),
-        }
+        if spec.family == "dense":
+            S = P * spec.entries
+            host = {
+                "key_words": np.zeros((S, 5), np.uint32),
+                "mask_words": np.zeros((S, 5), np.uint32),
+                "mask_len": np.full(S, -1, np.int32),
+                "rules": np.zeros((S, spec.rule_slots * 5), np.uint16),
+            }
+        else:
+            host = {
+                "l0": np.zeros((P * spec.l0_rows, 2), np.int32),
+                "nodes": np.zeros((P * spec.node_rows, 20), np.uint32),
+                "targets": np.zeros(P * spec.target_rows, np.int32),
+                "joined": np.zeros((P * spec.joined_rows, 3 + spec.rule_slots * 5), np.uint16),
+                "root_lut": np.zeros(P * spec.lut_rows, np.int32),
+                "splice": np.full(spec.splice_rows, -1, np.int32),
+            }
+        host["page_table"] = np.full(spec.max_tenants, -1, np.int32)
         self._host = host
         # the device pool starts equal to the mirror: zeros, and -1 rows
-        # in the splice placeholder and the page table
-        self._dev = CtrieArena(**{
-            k: torch.full(v.shape, -1 if k in ("splice", "page_table") else 0,
+        # in mask_len, the splice placeholder and the page table
+        pool = DenseArena if spec.family == "dense" else CtrieArena
+        self._dev = pool(**{
+            k: torch.full(v.shape, -1 if k in ("mask_len", "splice", "page_table") else 0,
                           dtype=torch.int16 if v.dtype == np.uint16 else torch.int32,
                           device=self._device)
             for k, v in host.items()
@@ -468,7 +544,7 @@ class ArenaAllocator:
     # -- introspection -------------------------------------------------------
 
     @property
-    def arena(self) -> CtrieArena:
+    def arena(self):
         """The device pool (written in place, in stream order)."""
         with self.lock:
             return self._dev
@@ -522,10 +598,12 @@ class ArenaAllocator:
         with self.lock:
             return sum(t.numel() * t.element_size() for t in self._dev)
 
-    def host_nodes(self) -> np.ndarray:
-        """A copy of the host mirror of the merged skip-node pool."""
+    def host_nodes(self) -> Optional[np.ndarray]:
+        """A copy of the host mirror of the merged skip-node pool (None for
+        the dense family)."""
         with self.lock:
-            return self._host["nodes"].copy()
+            arr = self._host.get("nodes")
+            return None if arr is None else arr.copy()
 
     def counter_values(self) -> dict:
         """tenant_* counters: slab occupancy gauges plus monotonic
@@ -550,6 +628,8 @@ class ArenaAllocator:
 
     def _slab_rows(self):
         s = self.spec
+        if s.family == "dense":
+            return (s.entries,) * 4
         return (s.l0_rows, s.node_rows, s.target_rows, s.joined_rows, s.lut_rows)
 
     def _on_device(self):
@@ -564,7 +644,8 @@ class ArenaAllocator:
         synchronous copy per array into the slab's row range (whole slab
         rows, so a reused page carries no stale bytes)."""
         with self._on_device():
-            for name, rows, arr in zip(_NAMES, self._slab_rows(), slab_arrays):
+            for name, rows, arr in zip(_NAMES[self.spec.family], self._slab_rows(),
+                                       slab_arrays):
                 base = page * rows
                 self._host[name][base: base + rows] = arr
                 getattr(self._dev, name)[base: base + rows].copy_(
@@ -593,21 +674,30 @@ class ArenaAllocator:
         cached = getattr(tables, "_arena_slab_cache", None)
         if cached is not None and cached[0] == self.spec:
             return cached[1], cached[2], cached[3]
-        arrays, n_nodes = _ctrie_canonical_slab(self.spec, tables)
+        if self.spec.family == "dense":
+            arrays, n_nodes = _dense_slab_arrays(self.spec, tables), 0
+        else:
+            arrays, n_nodes = _ctrie_canonical_slab(self.spec, tables)
         chash = slab_content_hash(arrays, n_nodes)
         tables._arena_slab_cache = (self.spec, arrays, n_nodes, chash)
         return arrays, n_nodes, chash
 
     def _offset(self, arrays, n_nodes: int, page: int):
+        """Canonical arrays -> the page's resident form (the identity for
+        the dense family)."""
+        if self.spec.family == "dense":
+            return arrays
         return _offset_ctrie_slab(self.spec, arrays, n_nodes, page)
 
     def _canonical_of_page(self, page: int):
         """Canonical arrays of one resident page from the host mirror (views
-        for page 0: callers that mutate must copy)."""
+        for the dense family and page 0: callers that mutate must copy)."""
         arrays = tuple(
             self._host[name][page * r: (page + 1) * r]
-            for name, r in zip(_NAMES, self._slab_rows())
+            for name, r in zip(_NAMES[self.spec.family], self._slab_rows())
         )
+        if self.spec.family == "dense":
+            return arrays
         return _unoffset_ctrie_slab(self.spec, arrays, self._page_nnodes.get(page, 0), page)
 
     def _unindex(self, page: int) -> None:
@@ -627,6 +717,13 @@ class ArenaAllocator:
         self._hash_page[chash] = page
         self._page_hash[page] = chash
         return True
+
+    def _mark_hash_dirty(self, page: int) -> None:
+        """The page's content left its registered hash (an in-place patch):
+        unindex it now, dedup_sweep re-hashes it, so a patch stays
+        O(dirty rows)."""
+        self._unindex(page)
+        self._hash_dirty.add(page)
 
     def _incref(self, page: int) -> None:
         self._page_refs[page] = self._page_refs.get(page, 0) + 1
@@ -688,18 +785,37 @@ class ArenaAllocator:
         return page
 
     def load_tenant(self, tenant: int, tables: CompiledTables, hint=None) -> str:
-        """Install or refresh one tenant's table; returns the path taken:
-        "share" (the content is resident: a refcount and a flip, or
-        nothing), "assign" (fresh page + flip), "rewrite" (in-place full
-        bake of a private page) or "cow" (a shared page's structural edit
-        baked into a free page, flipped, donor decremented).  A non-None
-        ``hint`` (the rules-only patch) is not served yet."""
-        if hint is not None:
-            raise NotImplementedError(f"rules-only arena patches are {PATCH_ITEM}")
+        """Install or refresh one tenant's table; returns the path taken
+        (jaxpath.ArenaAllocator._load_tenant_whole):
+
+        - "patch": a rules-only ``hint`` (an IncrementalTables dirty hint
+          whose trie levels are untouched) on the tenant's PRIVATE page:
+          the dirty dense rows, or the dirty joined rows, written in place;
+        - "share": the content is resident: a refcount and a flip, or
+          nothing;
+        - "cow": the tenant's page is shared, so the edit lands in a
+          private copy in a free page, then the flip and the donor's
+          decrement (a rules-only edit clones the donor's canonical arrays
+          and patches the dirty rows, skipping the bake and the hash);
+        - "rewrite": an in-place full bake of a private page;
+        - "assign": a fresh page and a flip."""
         self._check_tenant(tenant)
         with self.lock:
             page = self._tenant_page.get(tenant)
+            old = self._tenant_tables.get(tenant)
             shared = page is not None and self._is_shared(page)
+            if page is not None and not shared and old is not None and hint is not None:
+                if self._try_patch(page, old, tables, hint):
+                    self._tenant_tables[tenant] = tables
+                    self.counters["patches"] += 1
+                    self._mark_hash_dirty(page)
+                    return "patch"
+            if shared and old is not None and hint_trie_unchanged(hint):
+                # no hash probe: hashing would cost the bake the clone
+                # avoids; re-convergence is dedup_sweep's
+                can = self._clone_patched_canonical(page, old, tables, hint)
+                if can is not None:
+                    return self._cow_install(tenant, page, can[0], can[1], None, tables)
             arrays, n_nodes, chash = self._bake_canonical(tables)
             hit = self._hash_page.get(chash)
             if hit is not None:
@@ -731,12 +847,74 @@ class ArenaAllocator:
                 return "rewrite"
             return self._cow_install(tenant, page, arrays, n_nodes, chash, tables)
 
+    def _dirty_rows(self, old: CompiledTables, new: CompiledTables, hint):
+        """For a rules-only hint: the family's (array name, positions, rows)
+        relative to the slab base, or None when the patch cannot express
+        the edit (jaxpath._try_patch / _clone_patched_canonical): the dense
+        group at the dirty rows, or the ctrie joined rows at the dirty
+        targets, after carrying ``old``'s host caches forward to ``new``."""
+        dirty = hint_dense_rows(hint, new)
+        if self.spec.family == "dense":
+            layout = _dense_host_layout(new)
+            if not _dense_fits(self.spec, layout):
+                return None
+            rows = dirty[dirty < layout[0].shape[0]]
+            return [(name, rows, src[rows]) for name, src in zip(_NAMES["dense"], layout)]
+        seed_caches_forward(old, new, hint)
+        pr = joined_tidx_patch_rows(new, dirty)
+        if pr is None:
+            return None
+        pos, rows = pr
+        if len(pos) and (int(pos.max()) >= self.spec.joined_rows
+                         or rows.shape[1] != self._host["joined"].shape[1]):
+            return None
+        return [("joined", pos, rows)]
+
+    def _try_patch(self, page: int, old: CompiledTables, new: CompiledTables, hint) -> bool:
+        """The rules-only per-slab patch: the dirty rows written at the
+        slab base, the mirror first, then one staged copy and an
+        ``index_copy_`` per array into the live pool.  False: the caller
+        bakes the slab instead."""
+        if not hint_trie_unchanged(hint):
+            return False
+        patch = self._dirty_rows(old, new, hint)
+        if patch is None:
+            return False
+        rows_per = dict(zip(_NAMES[self.spec.family], self._slab_rows()))
+        entries = []
+        for name, pos, vals in patch:
+            gpos = page * rows_per[name] + pos
+            self._host[name][gpos] = vals
+            entries.append((getattr(self._dev, name), gpos, vals))
+        with self._on_device():
+            write_rows(entries)
+        return True
+
+    def _clone_patched_canonical(self, donor: int, old: CompiledTables,
+                                 new: CompiledTables, hint):
+        """The copy-on-write clone-then-patch: the donor page's canonical
+        arrays copied (no recompile, no bake) with the rules-only dirty
+        rows of ``new`` applied.  (arrays, n_nodes), or None when the patch
+        cannot express the edit."""
+        patch = self._dirty_rows(old, new, hint)
+        if patch is None:
+            return None
+        arrays = [np.array(a, copy=True) for a in self._canonical_of_page(donor)]
+        by_name = dict(zip(_NAMES[self.spec.family], arrays))
+        for name, pos, vals in patch:
+            by_name[name][pos] = vals
+        return tuple(arrays), self._page_nnodes.get(donor, 0)
+
     def _cow_install(self, tenant, donor, arrays, n_nodes, chash, tables) -> str:
         """Write the private copy into a free page, flip the editing
         tenant's row, and only then decrement the donor: every other sharer
-        serves the untouched donor slab throughout."""
+        serves the untouched donor slab throughout.  ``chash`` None (a
+        clone-then-patch) leaves the new page hash-dirty for dedup_sweep."""
         new_page = self._write_new_page(arrays, n_nodes)
-        self._index_page(new_page, chash)
+        if chash is not None:
+            self._index_page(new_page, chash)
+        else:
+            self._hash_dirty.add(new_page)
         self._tenant_page[tenant] = new_page
         self._page_refs[new_page] = 1
         self._tenant_tables[tenant] = tables

@@ -1,6 +1,6 @@
 """Single-GPU classifier backends: the dense, trie and ctrie paths
-(TorchClassifier) and the multi-tenant ctrie arena (TorchArenaClassifier,
-at the end of this module).
+(TorchClassifier) and the multi-tenant arena of either family with its
+dense overlay side-pool (TorchArenaClassifier, at the end of this module).
 
 The counterpart of the JAX package's TpuClassifier, stateless serving on
 one device: compiled rule tables live on the card, each batch is packed
@@ -86,6 +86,7 @@ what the CPU tests do).  There is no silent fallback to the CPU.
 """
 from __future__ import annotations
 
+import contextlib
 import os
 import threading
 from typing import NamedTuple, Optional, Union
@@ -96,7 +97,7 @@ import torch
 from .. import arena as arena_mod
 from ..compiler import CompiledTables
 from ..constants import ALLOW, DENY, KIND_IPV6
-from ..kernels import arena_walk, cwalk, dense, torchpath, walk, wire_decode
+from ..kernels import arena_dense, arena_walk, cwalk, dense, torchpath, walk, wire_decode
 from ..kernels import overlay as overlay_mod
 from ..layout import (
     build_depth_lut,
@@ -112,7 +113,6 @@ from ..packets import PacketBatch, encode_delta_wire, narrow_wire, wire8
 from .base import ClassifyOutput, PendingClassify, StatsAccumulator, stats_from_results
 
 #: where the parts this backend does not serve yet are queued
-OVERLAY_ITEM = arena_mod.PATCH_ITEM
 FLOW_ITEM = "ROADMAP.md item 9 (the stateful flow tier)"
 INVARIANTS_ITEM = "ROADMAP.md item 17 (verifiers for the port)"
 #: host-to-device formats of a 4-word chunk on the trie and ctrie paths
@@ -574,11 +574,12 @@ class TorchClassifier:
 
 
 class TorchArenaClassifier:
-    """Multi-tenant paged-arena classifier (ctrie family): many tenant
-    rulesets resident in ONE device pool, batches of mixed-tenant traffic
-    steered per packet by the device tenant -> page table (kernel K3b,
-    kernels/arena_walk.py), tenant activation and hot-swap as a page-table
-    flip.  The counterpart of the JAX package's ArenaClassifier.
+    """Multi-tenant paged-arena classifier: many tenant rulesets resident
+    in ONE device pool, batches of mixed-tenant traffic steered per packet
+    by the device tenant -> page table, tenant activation and hot-swap as a
+    page-table flip.  The counterpart of the JAX package's ArenaClassifier.
+    A ctrie-family pool is served by kernel K3b (kernels/arena_walk.py), a
+    dense-family pool by kernel K6 (kernels/arena_dense.py).
 
     Serves the packed-wire contract with a tenant column:
     ``classify_async_packed_tenant(wire_np, tenant_np)`` ships the narrow
@@ -587,30 +588,40 @@ class TorchArenaClassifier:
     max_tenants) (of any integer width: they are mapped to -1 before the
     int32 cast, where the JAX package wraps them), absent and destroyed
     tenants classify to UNDEF and are counted nowhere.  One read back per
-    batch.
+    batch: without an overlay tenant, one memset and one launch of the
+    family's fused entry; with one, the longest-prefix combine of the main
+    pool and the overlay side-pool (arena_dense.classify_arena_overlay_
+    wire: K3b's or K6's two-column entry, K6's over the side-pool).
 
-    A structural install runs stage -> activate (the slab write of a new
-    page is issued before the flip that makes it reachable), with the
-    allocator's in-place path as the fallback when no page is free, as the
-    JAX classifier serving its fused walk does.  A classify is enqueued
-    under the allocator's lock, so it runs wholly before or after any slab
-    write or flip.
+    On a ctrie pool a structural install runs stage -> activate (the slab
+    write of a new page is issued before the flip that makes it
+    reachable), with the allocator's in-place path as the fallback when no
+    page is free, as the JAX classifier serving its fused walk does; a
+    rules-only edit (a hint whose trie levels are untouched) of a tenant
+    with a page, and every install on a dense pool, go to the allocator's
+    ``load_tenant`` ("patch", "cow", "share", "rewrite", "assign").  A
+    classify is enqueued under the allocators' locks, so it runs wholly
+    before or after any slab write, patch or flip.
 
-    Not in this slice (NotImplementedError): rules-only patches (``hint``)
-    and the overlay side-pool (ROADMAP item 5), the flow tier (item 9),
-    invariant checks (item 17), the dense family and spliced geometries
-    (arena.DENSE_ITEM, arena.SPLICE_ITEM)."""
+    ``overlay_spec`` (dense-family, else ValueError) adds the per-tenant
+    overlay side-pool (``load_tenant_overlay``), which the tenant registry
+    fills with the structurally new keys of a tenant on a shared page.
+
+    Not in this slice (NotImplementedError): the flow tier (item 9),
+    invariant checks (item 17) and spliced geometries (arena.SPLICE_ITEM)."""
 
     def __init__(self, spec: "arena_mod.ArenaSpec", device=None, overlay_spec=None,
                  flow_table=None, check_invariants: Optional[bool] = None) -> None:
-        if overlay_spec is not None:
-            raise NotImplementedError(f"the arena overlay side-pool is {OVERLAY_ITEM}")
         if flow_table is not None and flow_table is not False:
             raise NotImplementedError(f"the arena flow table is {FLOW_ITEM}")
         if check_invariants:
             raise NotImplementedError(f"arena invariant checks are {INVARIANTS_ITEM}")
         self._alloc = arena_mod.ArenaAllocator(spec, device)
         self._device = self._alloc.device
+        if overlay_spec is not None and overlay_spec.family != "dense":
+            raise ValueError("the overlay side-pool must be dense-family")
+        self._ov_alloc = (arena_mod.ArenaAllocator(overlay_spec, self._device)
+                          if overlay_spec is not None else None)
         self._lock = threading.Lock()
         self._stats = StatsAccumulator()
         self._wire_counts = {}
@@ -625,6 +636,10 @@ class TorchArenaClassifier:
         return self._alloc
 
     @property
+    def overlay_allocator(self) -> "Optional[arena_mod.ArenaAllocator]":
+        return self._ov_alloc
+
+    @property
     def spec(self) -> "arena_mod.ArenaSpec":
         return self._alloc.spec
 
@@ -633,24 +648,33 @@ class TorchArenaClassifier:
         return self._device
 
     def load_tenant(self, tenant: int, tables: CompiledTables, hint=None) -> str:
-        """Install or replace one tenant's table: stage, then activate;
-        returns "assign" or "rewrite".  With no free page to stage into,
-        the allocator's own install (a content hit, or an in-place rewrite
-        of a private page) and its path."""
+        """Install or replace one tenant's table and return the path taken.
+        A dense pool, or a rules-only ``hint`` for a tenant with a page:
+        the allocator's own install.  Otherwise stage, then activate
+        ("assign" or "rewrite"); with no free page to stage into, the
+        allocator's own install."""
         if self._closed:
             raise RuntimeError("classifier is closed")
-        if hint is not None:
-            raise NotImplementedError(f"rules-only arena patches are {OVERLAY_ITEM}")
         had_page = self._alloc.page_of(tenant) is not None
+        if self._alloc.family == "dense" or (had_page and hint_trie_unchanged(hint)):
+            return self._alloc.load_tenant(tenant, tables, hint=hint)
         try:
             page = self._alloc.stage(tables)
         except arena_mod.ArenaCapacityError:
-            return self._alloc.load_tenant(tenant, tables)
+            return self._alloc.load_tenant(tenant, tables, hint=hint)
         self._alloc.activate(tenant, page, tables)
         return "rewrite" if had_page else "assign"
 
     def load_tenant_overlay(self, tenant: int, overlay: Optional[CompiledTables]) -> None:
-        raise NotImplementedError(f"the arena overlay side-pool is {OVERLAY_ITEM}")
+        """Install or clear one tenant's dense overlay side-slab (None or an
+        empty table destroys it)."""
+        if self._ov_alloc is None:
+            raise RuntimeError("arena built without an overlay side-pool")
+        if overlay is None or overlay.num_entries == 0:
+            if self._ov_alloc.page_of(tenant) is not None:
+                self._ov_alloc.destroy_tenant(tenant)
+        else:
+            self._ov_alloc.load_tenant(tenant, overlay)
 
     def stage_tenant(self, tables: CompiledTables) -> int:
         return self._alloc.stage(tables)
@@ -664,6 +688,8 @@ class TorchArenaClassifier:
 
     def destroy_tenant(self, tenant: int) -> None:
         self._alloc.destroy_tenant(tenant)
+        if self._ov_alloc is not None and self._ov_alloc.page_of(tenant) is not None:
+            self._ov_alloc.destroy_tenant(tenant)
 
     def compact(self) -> int:
         return self._alloc.compact()
@@ -681,8 +707,9 @@ class TorchArenaClassifier:
         """The mixed-tenant packed-wire dispatch (tpu.py
         _classify_stateless_tenant): one batch, each packet steered to its
         tenant's slab in-kernel; the host-to-device copy of the wire and of
-        the tenant column, the fused pass, and a handle whose .result()
-        reads back once."""
+        the tenant column, the device pass (the family's fused entry, or
+        the overlay combine while the side-pool holds a tenant), and a
+        handle whose .result() reads back once."""
         if self._closed:
             raise RuntimeError("classifier is closed")
         n = wire_np.shape[0]
@@ -700,10 +727,19 @@ class TorchArenaClassifier:
         tenant = torch.from_numpy(t32.astype(np.int32)).to(self._device)
         self._note_wire(f"wire{wire_np.shape[1]}", n, wire_np.nbytes)
         spec = self._alloc.spec
-        with self._alloc.lock:
-            fused = arena_walk.classify_arena_wire_fused(
-                self._alloc.arena, wire, tenant, pages=spec.pages, d_max=spec.d_max
-            )
+        d_max = spec.d_max if spec.family == "ctrie" else 0
+        ov = self._ov_alloc
+        with self._alloc.lock, (ov.lock if ov is not None else contextlib.nullcontext()):
+            if ov is not None and ov.tenants():
+                fused = arena_dense.classify_arena_overlay_wire(
+                    self._alloc.arena, ov.arena, wire, tenant, pages=spec.pages,
+                    ov_pages=ov.spec.pages, d_max=d_max)
+            elif spec.family == "dense":
+                fused = arena_dense.classify_arena_dense_wire_fused(
+                    self._alloc.arena, wire, tenant, pages=spec.pages)
+            else:
+                fused = arena_walk.classify_arena_wire_fused(
+                    self._alloc.arena, wire, tenant, pages=spec.pages, d_max=d_max)
 
         def materialize() -> ClassifyOutput:
             res16, stats = torchpath.split_wire_outputs(fused.cpu().numpy(), n)
@@ -759,6 +795,9 @@ class TorchArenaClassifier:
         """The allocator's tenant_* counters plus per-tenant packet and
         verdict totals."""
         out = dict(self._alloc.counter_values())
+        if self._ov_alloc is not None:
+            for k, v in self._ov_alloc.counter_values().items():
+                out[f"{k}_overlay"] = v
         with self._lock:
             for tid, (pk, al, dn) in sorted(self._tenant_counts.items()):
                 out[f"tenant_{tid}_packets_total"] = pk

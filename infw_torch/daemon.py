@@ -37,11 +37,21 @@ contract NODE_NAME / NAMESPACE / POLL_PERIOD_SECONDS / ENABLE_LPM_LOOKUP_DBG
   ``classify_prepared`` leaves that job on the old tables.
 - ``ENABLE_LPM_LOOKUP_DBG`` fills a bounded key buffer served at
   ``/debug/lookup-keys`` (the debug hash map, kernel.c:59-64,214-216).
+- ``--tenants N`` (``INFW_TENANTS``) adds the multi-tenant arena: one
+  preallocated ctrie pool of N tenant ids on the daemon's device
+  (``syncer.TenantRegistry`` over ``TorchArenaClassifier``, kernel K3b),
+  slab geometry from ``INFW_TENANT_SLAB_ENTRIES`` (1024) and
+  ``INFW_TENANT_RULE_SLOTS`` (16).  A tenant is created, empty, when
+  ``<state-dir>/tenants/<name>/edits/`` first appears on the file loop;
+  each edit file there applies as one folded transaction of that tenant
+  (the same codec as ``edits/``); a dedup sweep every 5 s re-merges slabs
+  whose content re-converged; ``tenant_*`` counters go to /metrics and
+  ``tenant-*`` lines to ``events.log``.
 
 The JAX daemon's scheduler, ingest ring, events socket,
-mesh, flow tier, resident loop, telemetry, tracing, scoring, payload and
-tenant options are not in the port yet: ``main`` refuses each of their
-flags, naming its ROADMAP item.
+mesh, flow tier, resident loop, telemetry, tracing, scoring and payload
+options are not in the port yet: ``main`` refuses each of their flags,
+naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -64,7 +74,8 @@ import numpy as np
 from . import packets as packets_mod
 from ._threads import CRASH_COUNTERS, spawn
 from .backend.base import stats_from_results
-from .backend.cuda import WIRE_CODECS, TorchClassifier
+from .arena import make_arena_spec
+from .backend.cuda import WIRE_CODECS, TorchArenaClassifier, TorchClassifier
 from .compiler import CompileError
 from .constants import KIND_IPV6, KIND_OTHER
 from .interfaces import InterfaceError, InterfaceRegistry, default_registry
@@ -77,7 +88,7 @@ from .packets import PacketBatch, expand_wire_v4
 from .schema import validate_nodestate_schema
 from .spec import IngressNodeFirewallNodeState
 from .store import InMemoryStore
-from .syncer import DataplaneSyncer, SyncError
+from .syncer import DataplaneSyncer, SyncError, TenantRegistry
 from .txn import DEFAULT_MAX_OPS, DEFAULT_STALENESS_US, TxnBatcher, TxnStats, read_edit_file
 
 log = logging.getLogger("infw_torch.daemon")
@@ -116,7 +127,6 @@ REFUSED_FLAGS = (
     ("--payload", "INFW_PAYLOAD", "ROADMAP.md item 14 (the payload tier)"),
     ("--payload-mode", "INFW_PAYLOAD_MODE", "ROADMAP.md item 14 (the payload tier)"),
     ("--payload-plen", "INFW_PAYLOAD_PLEN", "ROADMAP.md item 14 (the payload tier)"),
-    ("--tenants", "INFW_TENANTS", "ROADMAP.md items 20 and 21 (the tenant arenas)"),
     ("--deadline-us", "INFW_DEADLINE_US", _ITEM_24),
     ("--max-batch", "INFW_MAX_BATCH", _ITEM_24),
     ("--ring", "INFW_RING", _ITEM_24),
@@ -230,20 +240,25 @@ class DebugLookupBuffer:
 
 # --- classifier factory ------------------------------------------------------
 
+def backend_device(backend: str):
+    """The device of a backend: "cuda" is the first CUDA card, resolved
+    here, so a host without a card fails at start and never at the first
+    NodeState; "cpu" runs the plain PyTorch versions, only when asked
+    for."""
+    if backend == "cuda":
+        return resolve_device(None)
+    if backend == "cpu":
+        return "cpu"
+    raise ValueError(f"unknown backend {backend!r} (expected one of {BACKENDS})")
+
+
 def make_classifier_factory(backend: str, wire_codec: Optional[str] = None,
                             compressed: Optional[bool] = None):
-    """The syncer's classifier constructor.  "cuda" is TorchClassifier on
-    the first CUDA card, resolved here, so a host without a card fails at
-    start and never at the first NodeState; "cpu" runs the plain PyTorch
-    versions, only when asked for.  ``wire_codec`` and ``compressed`` are
+    """The syncer's classifier constructor: TorchClassifier on
+    ``backend_device(backend)``.  ``wire_codec`` and ``compressed`` are
     TorchClassifier's (None keeps its INFW_WIRE_CODEC / INFW_COMPRESSED
     defaults)."""
-    if backend == "cuda":
-        device = resolve_device(None)
-    elif backend == "cpu":
-        device = "cpu"
-    else:
-        raise ValueError(f"unknown backend {backend!r} (expected one of {BACKENDS})")
+    device = backend_device(backend)
     kw = {}
     if wire_codec is not None:
         kw["wire_codec"] = wire_codec
@@ -303,6 +318,7 @@ class Daemon:
         compressed: Optional[bool] = None,
         patch_staleness_us: Optional[float] = None,
         patch_max_ops: Optional[int] = None,
+        tenants: Optional[int] = None,
     ) -> None:
         # resolve the device first: without a card the default backend
         # fails here, before any directory, thread or file is made
@@ -337,7 +353,16 @@ class Daemon:
         self.edits_dir = os.path.join(state_dir, "edits")
         self.out_dir = os.path.join(state_dir, "out")
         self.events_path = os.path.join(state_dir, "events.log")
-        for d in (self.nodestates_dir, self.ingest_dir, self.edits_dir, self.out_dir):
+        # the multi-tenant arena (--tenants): tenants are created lazily
+        # when <state-dir>/tenants/<name>/edits/ first appears, and their
+        # edit files apply through the same folded-transaction codec
+        self.tenants_max = max(0, int(tenants or 0))
+        self.tenants_dir = os.path.join(state_dir, "tenants")
+        self.tenant_registry = None
+        dirs = [self.nodestates_dir, self.ingest_dir, self.edits_dir, self.out_dir]
+        if self.tenants_max:
+            dirs.append(self.tenants_dir)
+        for d in dirs:
             os.makedirs(d, exist_ok=True)
 
         # a per-daemon metrics registry (statistics.go:79-86): /metrics
@@ -379,6 +404,15 @@ class Daemon:
         # patch-transaction counters and the staleness histogram
         # (ingressnodefirewall_node_patch_txn_*)
         self.metrics_registry.register_counters(self.txn_stats)
+        if self.tenants_max:
+            self.tenant_registry = self._build_tenant_registry(backend)
+            # tenant_* counters (slabs, swaps, flips, clones, per-tenant
+            # packets and verdicts) on /metrics
+            self.metrics_registry.register_counters(self.tenant_registry)
+        # tenant names whose create failed (a pool smaller than the
+        # directories an operator made): logged once, then skipped
+        self._tenant_create_failed: set = set()
+        self._tenant_dedup_last = 0.0
         self.debug_buffer = DebugLookupBuffer()
 
         self._stop = threading.Event()
@@ -506,6 +540,86 @@ class Daemon:
             except OSError as e:
                 log.error("could not remove edit file %s: %s", fn, e)
         return n
+
+    def _build_tenant_registry(self, backend: str):
+        """The multi-tenant arena control plane (the JAX daemon's
+        geometry): one preallocated unspliced ctrie pool of --tenants ids,
+        two pages beyond them for staging, on the daemon's device."""
+        entries = int(os.environ.get("INFW_TENANT_SLAB_ENTRIES") or 1024)
+        slots = int(os.environ.get("INFW_TENANT_RULE_SLOTS") or 16)
+        spec = make_arena_spec(
+            "ctrie",
+            pages=max(self.tenants_max + 2, 4),
+            max_tenants=self.tenants_max,
+            entries=entries,
+            rule_slots=slots,
+            lut_rows=64,
+            root_nodes=4,
+            node_rows=4 * entries,
+            target_rows=8 * entries,
+            d_max=18,
+        )
+        clf = TorchArenaClassifier(spec, device=backend_device(backend))
+        return TenantRegistry(clf, rule_width=slots, event_ring=self.ring)
+
+    def scan_tenant_edits_once(self) -> int:
+        """Apply every per-tenant edit file under
+        <state-dir>/tenants/<name>/edits/ as ONE folded transaction per
+        file through the tenant registry.  A tenant is created (empty) the
+        first time its directory appears; bad files are consumed and
+        logged.  Returns ops applied."""
+        if self.tenant_registry is None:
+            return 0
+        n = 0
+        try:
+            names = sorted(os.listdir(self.tenants_dir))
+        except OSError:
+            return 0
+        for name in names:
+            edits = os.path.join(self.tenants_dir, name, "edits")
+            if not os.path.isdir(edits):
+                continue
+            if name not in self.tenant_registry.tenant_ids_by_name():
+                if name in self._tenant_create_failed:
+                    continue
+                try:
+                    self.tenant_registry.create_tenant(name, {})
+                except Exception as e:
+                    log.error("could not create tenant %r (will not retry; its edit files "
+                              "are left in place): %s", name, e)
+                    self._tenant_create_failed.add(name)
+                    continue
+            for fn in sorted(os.listdir(edits)):
+                path = os.path.join(edits, fn)
+                if fn.endswith(".tmp") or not os.path.isfile(path):
+                    continue
+                try:
+                    ops = read_edit_file(path)
+                    self.tenant_registry.apply_edit_transaction(name, ops)
+                    n += len(ops)
+                except Exception as e:
+                    log.error("bad tenant edit file %s/%s: %s", name, fn, e)
+                try:
+                    os.remove(path)
+                except OSError as e:
+                    log.error("could not remove tenant edit file %s: %s", fn, e)
+        return n
+
+    def _tenant_dedup_maintenance(self) -> None:
+        """File-loop upkeep of the tenant arena: every 5 s, re-hash slabs
+        whose content hash went stale (patches, clones) and re-merge pages
+        whose content re-converged, at most 64 a pass; flips only, never a
+        slab write."""
+        if self.tenant_registry is None:
+            return
+        now = time.monotonic()
+        if now - self._tenant_dedup_last < 5.0:
+            return
+        self._tenant_dedup_last = now
+        rep = self.tenant_registry.classifier.dedup_sweep(limit=64)
+        if rep.get("merged"):
+            log.info("tenant dedup sweep: %d page(s) re-hashed, %d tenant row(s) re-merged",
+                     rep["hashed"], rep["merged"])
 
     def _maybe_flush_edits(self, force: bool = False) -> bool:
         """Start a flush of the queued edits when the staleness policy
@@ -889,6 +1003,14 @@ class Daemon:
             except Exception as e:
                 log.error("edit scan error: %s", e)
             try:
+                self.scan_tenant_edits_once()
+            except Exception as e:
+                log.error("tenant edit scan error: %s", e)
+            try:
+                self._tenant_dedup_maintenance()
+            except Exception as e:
+                log.error("tenant dedup sweep error: %s", e)
+            try:
                 self.process_ingest_once()
             except Exception as e:
                 log.error("ingest error: %s", e)
@@ -977,6 +1099,14 @@ def main(argv: Optional[List[str]] = None) -> int:
                    help="batch-size flush threshold for queued rule edits "
                         "(default 1024): a queue this deep flushes regardless of "
                         "staleness.  CLI beats INFW_PATCH_MAX_OPS")
+    p.add_argument("--tenants", type=int, default=os.environ.get("INFW_TENANTS") or None,
+                   help="enable the multi-tenant paged arena with this many tenant ids: one "
+                        "preallocated ctrie pool on the daemon's device, tenants created "
+                        "lazily from <state-dir>/tenants/<name>/edits/ (the edit-file codec "
+                        "of edits/), ruleset activation by page-table flip, tenant_* "
+                        "counters on /metrics.  Slab geometry via INFW_TENANT_SLAB_ENTRIES "
+                        "(default 1024) and INFW_TENANT_RULE_SLOTS (default 16).  CLI beats "
+                        "INFW_TENANTS")
     for flag, env, item in REFUSED_FLAGS:
         p.add_argument(flag, nargs="?", const="1", default=None,
                        help=f"not in the port yet: {item} (also {env})")
@@ -1000,6 +1130,8 @@ def main(argv: Optional[List[str]] = None) -> int:
         p.error(f"--patch-staleness-us must be positive, got {args.patch_staleness_us}")
     if args.patch_max_ops is not None and args.patch_max_ops < 1:
         p.error(f"--patch-max-ops must be >= 1, got {args.patch_max_ops}")
+    if args.tenants is not None and int(args.tenants) < 1:
+        p.error(f"--tenants must be >= 1, got {args.tenants}")
 
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(name)s %(levelname)s %(message)s")
@@ -1020,6 +1152,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         compressed=False if args.no_compressed else (True if args.compressed else None),
         patch_staleness_us=args.patch_staleness_us,
         patch_max_ops=args.patch_max_ops,
+        tenants=int(args.tenants) if args.tenants else None,
     )
     stop = threading.Event()
 

@@ -1,18 +1,19 @@
 """Device kernels of the port and the plain PyTorch code around them.
 
 ``all_kernels()`` lists every hand-written kernel entry point (its
-``launches`` count included; K3's and K3b's fused entries share their
-sources' libraries); ``chip_smoke.py`` builds them together and checks
+``launches`` count included; K3's, K3b's and K6's fused entries share
+their sources' libraries); ``chip_smoke.py`` builds them together and checks
 each against its plain version.
 """
 from __future__ import annotations
 
 from typing import List
 
-from . import arena_walk, cwalk, dense, gather, walk, wire_decode
+from . import arena_dense, arena_walk, cwalk, dense, gather, walk, wire_decode
 from ._build import Kernel
 
 
 def all_kernels() -> List[Kernel]:
     return [dense.KERNEL, walk.KERNEL, cwalk.KERNEL, cwalk.FUSED_KERNEL, wire_decode.KERNEL,
-            arena_walk.KERNEL, arena_walk.FUSED_KERNEL, gather.KERNEL]
+            arena_walk.KERNEL, arena_walk.FUSED_KERNEL, gather.KERNEL, arena_dense.KERNEL,
+            arena_dense.FUSED_KERNEL]

@@ -1,7 +1,8 @@
 // The compressed skip-node walk's arithmetic, shared by K3 (ctrie_walk.cu,
 // one table) and K3b (arena_ctrie_walk.cu, the multi-tenant pool): one
 // skip-node step, the target resolve and the ordered joined-row scan, and
-// descend_scan, the per-packet walk over them.  Each kernel runs its own
+// descend_scan, the per-packet walk over them (scan_rules, the row scan,
+// also serves K6's dense slabs).  Each kernel runs its own
 // entry stage (the DIR-16 root slot).  Together they are the same bit for
 // bit as jaxpath._ctrie_descend + the target resolve + joined_rule_rows +
 // rule_scan over the uint16 packed rows.
@@ -104,13 +105,11 @@ __device__ __forceinline__ int resolve(uint32_t win, int best0, const int* __res
   return best0;
 }
 
-// The ordered first-match scan (kernel.c:222-258) of joined row `sel`:
-// (ruleId << 8) | action of the first hitting rule as stored, 0 when none
-// or when sel is 0 or past the rows.
-__device__ __forceinline__ int scan(int sel, int kind, int proto, int dport, int itype, int icode,
-                                    const uint16_t* __restrict__ joined, int n_joined, int R) {
-  if (sel <= 0 || sel >= n_joined) return 0;
-  const uint16_t* rules = joined + (size_t)sel * (3 + 5 * R) + 3;
+// The ordered first-match scan (kernel.c:222-258) of one packed rule row
+// (R rules of five u16): (ruleId << 8) | action of the first hitting rule
+// as stored, 0 when none.  K6 (arena_dense.cu) scans its slab rows with it.
+__device__ __forceinline__ int scan_rules(const uint16_t* __restrict__ rules, int R, int kind,
+                                          int proto, int dport, int itype, int icode) {
   const int fam = kind == kKindIPv4 ? kProtoICMP : kProtoICMPv6;
   for (int r = 0; r < R; ++r) {
     const uint16_t* s = rules + 5 * r;
@@ -132,6 +131,13 @@ __device__ __forceinline__ int scan(int sel, int kind, int proto, int dport, int
     if (hit) return (rid << 8) | (s0 >> 8);
   }
   return 0;
+}
+
+// The scan of joined row `sel`: 0 when sel is 0 or past the rows.
+__device__ __forceinline__ int scan(int sel, int kind, int proto, int dport, int itype, int icode,
+                                    const uint16_t* __restrict__ joined, int n_joined, int R) {
+  if (sel <= 0 || sel >= n_joined) return 0;
+  return scan_rules(joined + (size_t)sel * (3 + 5 * R) + 3, R, kind, proto, dport, itype, icode);
 }
 
 // One packet's walk from a resolved entry (alive, node = the first

@@ -107,11 +107,19 @@ def main_result_and_score(main: MainTables, fields: torch.Tensor, words: torch.T
         out = walk.trie_walk_classify(fields, words, main, n_levels)
         return out[:, 0], _score(out[:, 1], main.mask_len)
     out = cwalk.ctrie_walk_classify(fields, words, main)
-    sel = out[:, 1].long() + 1
-    J = main.joined.shape[0]
-    row = main.joined[sel.clamp(0, J - 1), :3].to(torch.int32) & 0xFFFF
+    return out[:, 0], joined_score(main.joined, out[:, 1])
+
+
+def joined_score(joined: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+    """The score of a ctrie walk's second column (joined position - 1, as
+    K3 and K3b return it): the joined row's mask length + 1 when its tidx
+    + 1 halves are non-zero, else 0 (no match, outside the rows, a zero
+    row)."""
+    sel = pos.long() + 1
+    J = joined.shape[0]
+    row = joined[sel.clamp(0, J - 1), :3].to(torch.int32) & 0xFFFF
     matched = (sel > 0) & (sel < J) & ((row[:, 0] | (row[:, 1] << 16)) > 0)
-    return out[:, 0], torch.where(matched, row[:, 2] + 1, 0)
+    return torch.where(matched, row[:, 2] + 1, 0)
 
 
 def combined_results(main: MainTables, ov: OverlayTables, batch: DeviceBatch,

@@ -187,17 +187,42 @@ def staged_rows(dev: torch.Tensor, pos: np.ndarray, rows: np.ndarray) -> torch.T
     after."""
     if len(pos) == 0:
         return dev
-    k = len(pos)
-    np_dtype = {torch.int32: np.int32, torch.int16: np.int16}[dev.dtype]
-    vals = np.ascontiguousarray(rows).view(np_dtype).reshape((k,) + tuple(dev.shape[1:]))
-    buf = np.empty(4 * k + vals.nbytes, np.uint8)
-    buf[: 4 * k] = np.asarray(pos, np.int32).view(np.uint8)
-    buf[4 * k:] = vals.reshape(-1).view(np.uint8)
-    staged = torch.from_numpy(buf).to(dev.device)
-    idx = staged[: 4 * k].view(torch.int32).long()
     out = dev.clone()
-    out.index_copy_(0, idx, staged[4 * k:].view(dev.dtype).reshape(vals.shape))
+    write_rows([(out, pos, rows)])
     return out
+
+
+def write_rows(entries) -> None:
+    """Write each entry's ``rows`` at its unique row positions ``pos``
+    into its tensor ``dev``, IN PLACE: every entry's positions and rows
+    cross to the device in ONE staged copy (each segment 16-byte
+    aligned), then one ``index_copy_`` per tensor on the current stream.
+    ``entries`` is a sequence of (dev, pos, rows); empty ones are
+    skipped."""
+    segs, layout, off = [], [], 0
+    for dev, pos, rows in entries:
+        k = len(pos)
+        if k == 0:
+            continue
+        np_dtype = {torch.int32: np.int32, torch.int16: np.int16}[dev.dtype]
+        vals = np.ascontiguousarray(rows).view(np_dtype).reshape((k,) + tuple(dev.shape[1:]))
+        parts = (np.asarray(pos, np.int32).view(np.uint8), vals.reshape(-1).view(np.uint8))
+        offs = []
+        for p in parts:
+            offs.append(off)
+            segs.append((off, p))
+            off += -(-p.nbytes // 16) * 16
+        layout.append((dev, k, offs, vals.shape))
+    if not layout:
+        return
+    buf = np.zeros(off, np.uint8)
+    for o, p in segs:
+        buf[o: o + p.nbytes] = p
+    staged = torch.from_numpy(buf).to(layout[0][0].device)
+    for dev, k, (po, vo), shape in layout:
+        idx = staged[po: po + 4 * k].view(torch.int32).long()
+        n = int(np.prod(shape)) * dev.element_size()
+        dev.index_copy_(0, idx, staged[vo: vo + n].view(dev.dtype).reshape(shape))
 
 
 def diff_rows(n_dev: int, old: np.ndarray, new: np.ndarray, fill=0):

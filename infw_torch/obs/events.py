@@ -13,7 +13,8 @@ accounting, events.go:79-82); a consumer thread decodes them and writes the
 same line format to a sink.  Replay-scale deny sets travel as one columnar
 BatchDenyRecord and drain as 32-byte binary spill rows (the summary line
 keeps the reference's "28B/event" text).  Other line records (one
-PatchTxnRecord per flushed edit transaction) share the ring.
+PatchTxnRecord per flushed edit transaction, one TenantSwapRecord per
+tenant lifecycle transition) share the ring.
 """
 from __future__ import annotations
 
@@ -162,6 +163,31 @@ class PatchTxnRecord:
             f"patch-txn: {self.ops} op(s) ({self.folded} folded) -> "
             f"{self.dirty_rows} dirty row(s), flush={self.reason}, "
             f"worst staleness {self.staleness_us:.0f}us{esc}"
+        ]
+
+
+@dataclass
+class TenantSwapRecord:
+    """One tenant lifecycle transition on the multi-tenant paged arena
+    (infw_torch.syncer.TenantRegistry): create / hot-swap / destroy, with
+    the two halves of a swap timed separately: slab staging against the
+    page-table row flip.  Counters (active slabs, swaps, compactions,
+    per-tenant packets and verdicts) live on /metrics; the event carries
+    the shape of each transition in the same stream as deny events."""
+
+    tenant: str
+    tenant_id: int
+    page: int
+    entries: int
+    kind: str          # "create" | "swap" | "destroy" | "patch"
+    stage_us: float = 0.0
+    flip_us: float = 0.0
+
+    def lines(self) -> List[str]:
+        return [
+            f"tenant-{self.kind}: {self.tenant!r} (id {self.tenant_id}) "
+            f"page {self.page}, {self.entries} entries, "
+            f"stage {self.stage_us:.0f}us + flip {self.flip_us:.0f}us"
         ]
 
 

@@ -30,8 +30,12 @@ Lifecycle semantics kept from the reference:
   ``IncrementalTables.apply`` and one ``load_tables``, with the sync
   path's overlay, journal and checkpoint discipline.
 
-Not in the port yet: the multi-tenant ``TenantRegistry``, which raises
-NotImplementedError naming its ROADMAP item.
+- **the multi-tenant control plane** (``TenantRegistry``, at the end of
+  this module): named tenants over ``TorchArenaClassifier``, each with its
+  own ``IncrementalTables``; create, incremental edits through the same
+  fold (rules-only edits land as per-slab patches or copy-on-write
+  clones), hot-swap by stage + flip, destroy, and the shared-page delta
+  routed to the overlay side-pool.
 """
 from __future__ import annotations
 
@@ -57,13 +61,13 @@ from .compiler import (
 )
 from .constants import MAX_RULES_PER_TARGET
 from .interfaces import InterfaceRegistry
+from .obs.events import TenantSwapRecord
 from .spec import IngressNodeFirewallRules
 from .txn import merge_rebuild_content
 
 log = logging.getLogger("infw_torch.syncer")
 
 #: where the parts of the reference syncer that the port leaves out are queued
-TENANTS_ITEM = "ROADMAP.md items 20 and 21 (the dense-family and spliced tenant arenas)"
 ANALYSIS_ITEM = "ROADMAP.md item 17 (verifiers for the port)"
 
 
@@ -895,9 +899,284 @@ class DataplaneSyncer:
                 pass
 
 
-class TenantRegistry:
-    """The multi-tenant control plane over the arena classifier; not in the
-    port yet."""
+class TenantError(SyncError):
+    """Tenant registry misuse: unknown name, duplicate create, or a table
+    the arena geometry cannot hold."""
 
-    def __init__(self, *args, **kwargs) -> None:
-        raise NotImplementedError(f"the tenant registry is {TENANTS_ITEM}")
+
+class TenantRegistry:
+    """Multi-tenant control plane over an arena classifier
+    (backend.cuda.TorchArenaClassifier; the JAX package's
+    infw.syncer.TenantRegistry): names tenants, owns one IncrementalTables
+    per tenant, and drives the tenant lifecycle:
+
+    - ``create_tenant``: compile, slab install, page-table flip;
+    - ``update_tenant`` / ``apply_edit_transaction``: per-tenant
+      incremental edits through the same fold and dirty hint as the
+      single-tenant path (infw_torch.txn.fold_ops), landing as per-slab
+      patches, copy-on-write clones or slab rewrites;
+    - ``swap_tenant``: full ruleset replacement as stage (a slab bake into
+      a free page) + activate (the page-table row flip);
+    - ``destroy_tenant``: the row flipped to -1 and the page released.
+
+    Every transition emits a TenantSwapRecord on the event ring (when
+    given one); the tenant_* counters surface through ``counter_values``
+    for /metrics.  Lifecycle operations serialize on one coarse lock (the
+    per-tenant IncrementalTables is not thread-safe); classify never takes
+    it.  Each create publishes its name only after its load succeeded (the
+    reference orders ``load_tenant`` before the store into ``_names``)."""
+
+    def __init__(self, classifier, rule_width: int, event_ring=None) -> None:
+        self._clf = classifier
+        self._rule_width = rule_width
+        self._ring = event_ring
+        self._lock = threading.Lock()
+        self._op_lock = threading.RLock()
+        self._names: Dict[str, int] = {}
+        self._updaters: Dict[int, IncrementalTables] = {}
+        #: per-tenant shared-delta overlay content: small deltas of a
+        #: tenant on a SHARED page ride the dense overlay side-pool
+        #: instead of forcing a copy-on-write clone.  Only brand-new
+        #: prefixes (and edits or deletes of overlay-resident ones) are
+        #: eligible: the combine is strictly longest-prefix, so an overlay
+        #: entry with a main-slab entry's prefix would lose the tie.
+        self._overlays: Dict[int, Dict[LpmKey, np.ndarray]] = {}
+        #: creates in flight: name -> reserved id
+        self._creating: Dict[str, int] = {}
+        self._next_id = 0
+        self._max = classifier.spec.max_tenants
+
+    # -- introspection -------------------------------------------------------
+
+    @property
+    def classifier(self):
+        return self._clf
+
+    def tenant_id(self, name: str) -> int:
+        with self._lock:
+            if name not in self._names:
+                raise TenantError(f"unknown tenant {name!r}")
+            return self._names[name]
+
+    def tenant_names(self):
+        with self._lock:
+            return sorted(self._names)
+
+    def tenant_ids_by_name(self) -> Dict[str, int]:
+        with self._lock:
+            return dict(self._names)
+
+    def counter_values(self) -> Dict[str, int]:
+        out = {"tenant_registered": len(self._names)}
+        getter = getattr(self._clf, "tenant_counters", None)
+        if getter is not None:
+            out.update(getter())
+        return out
+
+    def _emit(self, record) -> None:
+        if self._ring is not None:
+            try:
+                self._ring.push(record)
+            except Exception:
+                pass
+
+    def _alloc_id(self) -> int:
+        busy = set(self._updaters) | set(self._creating.values())
+        for _ in range(self._max):
+            tid = self._next_id % self._max
+            self._next_id += 1
+            if tid not in busy:
+                return tid
+        raise TenantError(f"tenant registry full ({self._max} ids)")
+
+    # -- lifecycle -----------------------------------------------------------
+
+    def create_tenant(self, name: str, content: Dict[LpmKey, np.ndarray]) -> int:
+        with self._op_lock:
+            with self._lock:
+                if name in self._names or name in self._creating:
+                    raise TenantError(f"tenant {name!r} already exists")
+                tid = self._alloc_id()
+                self._creating[name] = tid
+            try:
+                upd = IncrementalTables.from_content(dict(content), rule_width=self._rule_width)
+                snap = upd.snapshot()
+                t0 = time.perf_counter()
+                self._clf.load_tenant(tid, snap)
+                dt = (time.perf_counter() - t0) * 1e6
+                upd.start_dirty_tracking()
+            except Exception:
+                with self._lock:
+                    self._creating.pop(name, None)
+                raise
+            with self._lock:
+                self._creating.pop(name, None)
+                self._names[name] = tid
+                self._updaters[tid] = upd
+            self._emit(TenantSwapRecord(
+                tenant=name, tenant_id=tid, page=self._clf.allocator.page_of(tid) or 0,
+                entries=snap.num_entries, kind="create", stage_us=dt,
+            ))
+            return tid
+
+    def update_tenant(self, name: str, ups: Dict[LpmKey, np.ndarray], dels) -> str:
+        """Incremental per-tenant edit: one updater apply and one hinted
+        slab load.  A tenant on a SHARED page whose delta is
+        overlay-eligible (only brand-new prefixes added, or overlay-resident
+        ones edited or deleted) gets it on the overlay side-pool and the
+        shared slab stays untouched ("overlay").  Otherwise the edit lands
+        in the main slab (the allocator patches a private page or clones a
+        shared one), with any deferred overlay content folded back first.
+        Escalates to a rebuild as the single-tenant syncer does
+        (CompileError)."""
+        with self._op_lock:
+            tid = self.tenant_id(name)
+            with self._lock:
+                upd = self._updaters[tid]
+            if self._try_overlay_delta(tid, upd, ups, dels):
+                return "overlay"
+            merge_ov = self._overlays.get(tid)
+            if merge_ov:
+                # the deferred delta folds back before the edit that forced
+                # the clone; keys this edit deletes stay deleted (apply()
+                # runs deletes before upserts)
+                del_idents = {k.masked_identity() for k in dels}
+                ups = {
+                    **{k: v for k, v in merge_ov.items()
+                       if k.masked_identity() not in del_idents},
+                    **dict(ups),
+                }
+            try:
+                if ups and not upd.fits(ups):
+                    raise CompileError("trie depth exceeded; rebuild")
+                upd.apply(ups, list(dels))
+                upd.maybe_compact()
+            except CompileError:
+                upd = IncrementalTables.from_content(
+                    merge_rebuild_content(upd.content, ups, dels), rule_width=self._rule_width)
+                with self._lock:
+                    self._updaters[tid] = upd
+            hint = upd.peek_dirty()
+            snap = upd.snapshot()
+            path = self._clf.load_tenant(tid, snap, hint=hint)
+            upd.clear_dirty()
+            if merge_ov:
+                self._clear_overlay(tid)
+            return path
+
+    def _try_overlay_delta(self, tid: int, upd, ups, dels) -> bool:
+        """Route a small delta of a shared-page tenant into the overlay
+        side-pool.  Eligible iff the classifier has a side-pool, the
+        tenant's page is shared, every delete names an overlay-resident
+        identity and every upsert is overlay-resident or brand new.  The
+        overlay dict commits only after the device load succeeded; a
+        side-pool that cannot take it falls back to the clone."""
+        ov_alloc = getattr(self._clf, "overlay_allocator", None)
+        if ov_alloc is None:
+            return False
+        alloc = getattr(self._clf, "allocator", None)
+        if alloc is None or not alloc.tenant_shares_page(tid):
+            return False
+        ov = self._overlays.get(tid, {})
+        ov_idents = {k.masked_identity(): k for k in ov}
+        base_idents = set(upd._ident_to_t)
+        for k in dels:
+            if k.masked_identity() not in ov_idents:
+                return False
+        for k in ups:
+            ident = k.masked_identity()
+            if ident in base_idents and ident not in ov_idents:
+                return False
+        new_ov = dict(ov)
+        for k in dels:
+            new_ov.pop(ov_idents[k.masked_identity()], None)
+        for k, r in ups.items():
+            old_k = ov_idents.get(k.masked_identity())
+            if old_k is not None and old_k != k:
+                new_ov.pop(old_k, None)
+            new_ov[k] = np.asarray(r)
+        try:
+            if new_ov:
+                ct = compile_tables_from_content(new_ov, rule_width=self._rule_width)
+                self._clf.load_tenant_overlay(tid, ct)
+            else:
+                self._clf.load_tenant_overlay(tid, None)
+        except Exception:
+            # overlay slab bound exceeded or the side-pool full: the caller
+            # folds everything into the main slab instead
+            return False
+        self._overlays[tid] = new_ov
+        return True
+
+    def _clear_overlay(self, tid: int) -> None:
+        self._overlays.pop(tid, None)
+        if getattr(self._clf, "overlay_allocator", None) is not None:
+            try:
+                self._clf.load_tenant_overlay(tid, None)
+            except Exception:
+                pass
+
+    def apply_edit_transaction(self, name: str, ops) -> str:
+        """Fold and apply a batched edit transaction for one tenant through
+        the production fold (txn.fold_ops): N ops, one slab load.  The
+        transaction's own overlay routing is off (the side-pool is driven
+        by update_tenant), so every folded effect goes to update_tenant;
+        "noop" when the ops fold to nothing."""
+        with self._op_lock:
+            tid = self.tenant_id(name)
+            with self._lock:
+                upd = self._updaters[tid]
+            folded = txn_mod.fold_ops(ops, set(upd._ident_to_t))
+            ups, dels, _dirty = txn_mod.route_folded(folded, {}, False, 0)
+            if not ups and not dels:
+                return "noop"
+            return self.update_tenant(name, ups, dels)
+
+    def swap_tenant(self, name: str, content: Dict[LpmKey, np.ndarray]) -> None:
+        """Full ruleset replacement by page-table flip: bake the new slab
+        into a free page (stage), then activate."""
+        with self._op_lock:
+            tid = self.tenant_id(name)
+            upd = IncrementalTables.from_content(dict(content), rule_width=self._rule_width)
+            snap = upd.snapshot()
+            # the overlay delta belongs to the ruleset being replaced: clear
+            # it before the flip, so a classify sees old main + delta or old
+            # main alone, never the new main with a stale delta
+            self._clear_overlay(tid)
+            t0 = time.perf_counter()
+            page = self._clf.stage_tenant(snap)
+            t1 = time.perf_counter()
+            self._clf.activate_tenant(tid, page, snap)
+            t2 = time.perf_counter()
+            upd.start_dirty_tracking()
+            with self._lock:
+                self._updaters[tid] = upd
+            self._emit(TenantSwapRecord(
+                tenant=name, tenant_id=tid, page=page, entries=snap.num_entries, kind="swap",
+                stage_us=(t1 - t0) * 1e6, flip_us=(t2 - t1) * 1e6,
+            ))
+
+    def destroy_tenant(self, name: str) -> None:
+        with self._op_lock:
+            tid = self.tenant_id(name)
+            self._clf.destroy_tenant(tid)
+            self._overlays.pop(tid, None)  # destroy_tenant freed the side slab
+            with self._lock:
+                self._names.pop(name, None)
+                self._updaters.pop(tid, None)
+            self._emit(TenantSwapRecord(
+                tenant=name, tenant_id=tid, page=-1, entries=0, kind="destroy",
+            ))
+
+    # -- dataplane passthrough ----------------------------------------------
+
+    def classify_mixed(self, batch, tenant_names_or_ids, apply_stats: bool = True):
+        """Mixed-tenant classify: per-packet tenant tags by name (str) or id
+        (int), one batch, one dispatch.  Unknown names tag -1; ids of any
+        integer width pass as int64, so the classifier maps those outside
+        [0, max_tenants) to -1 (UNDEF) rather than wrapping them."""
+        tags = np.asarray([
+            self._names.get(t, -1) if isinstance(t, str) else int(t)
+            for t in tenant_names_or_ids
+        ], np.int64)
+        return self._clf.classify_tenants(batch, tags, apply_stats=apply_stats)

@@ -136,6 +136,21 @@ def random_tables_fast(
     mixes (v4 peaked at /24, v6 at /48), so nested and sibling prefixes
     stress longest-match tie-breaks.  Exactly ``n_entries`` distinct masked
     identities."""
+    return compile_tables_from_content(
+        random_content_fast(rng, n_entries, ifindexes, width, v6_fraction, group_size),
+        rule_width=width)
+
+
+def random_content_fast(
+    rng: np.random.Generator,
+    n_entries: int,
+    ifindexes: Tuple[int, ...] = (2, 3),
+    width: int = 16,
+    v6_fraction: float = 0.3,
+    group_size: int = 8,
+) -> Dict[LpmKey, np.ndarray]:
+    """random_tables_fast's {LpmKey: (width, 7) rules} content, uncompiled
+    (the same draws from ``rng``)."""
     content: Dict[LpmKey, np.ndarray] = {}
     seen = set()
     while len(content) < n_entries:
@@ -178,7 +193,7 @@ def random_tables_fast(
             content[key] = rules[i]
             if len(content) >= n_entries:
                 break
-    return compile_tables_from_content(content, rule_width=width)
+    return content
 
 
 def clean_columns_fast(

@@ -593,20 +593,8 @@ def _spec(**kw):
 
 
 REFUSALS = {
-    "hint": lambda: arena.ArenaAllocator(_spec(), "cpu").load_tenant(
-        0, _tables(testing, 100), hint={"dense": [0]}),
-    "classifier hint": lambda: TorchArenaClassifier(_spec(), "cpu").load_tenant(
-        0, _tables(testing, 100), hint={"dense": [0]}),
-    "overlay_spec": lambda: TorchArenaClassifier(
-        _spec(), "cpu", overlay_spec=arena.make_arena_spec("dense", 4, 4, 16, 4)),
-    "load_tenant_overlay": lambda: TorchArenaClassifier(_spec(), "cpu").load_tenant_overlay(
-        0, _tables(testing, 100)),
     "flow_table": lambda: TorchArenaClassifier(_spec(), "cpu", flow_table=1024),
     "check_invariants": lambda: TorchArenaClassifier(_spec(), "cpu", check_invariants=True),
-    "dense allocator": lambda: arena.ArenaAllocator(
-        arena.make_arena_spec("dense", 4, 4, 16, 4), "cpu"),
-    "dense classifier": lambda: TorchArenaClassifier(
-        arena.make_arena_spec("dense", 4, 4, 16, 4), "cpu"),
     "spliced": lambda: arena.ArenaAllocator(_spec(
         plane_slots=2, plane_node_rows=8, plane_target_rows=8, plane_joined_rows=8,
         splice_slots=2), "cpu"),

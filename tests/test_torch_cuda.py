@@ -16,8 +16,8 @@ import torch
 
 from infw_torch import arena, compiler, oracle, testing
 from infw_torch.backend.cuda import TorchArenaClassifier, TorchClassifier
-from infw_torch.kernels import (all_kernels, arena_walk, cwalk, dense, gather, torchpath, walk,
-                                wire_decode)
+from infw_torch.kernels import (all_kernels, arena_dense, arena_walk, cwalk, dense, gather,
+                                torchpath, walk, wire_decode)
 from infw_torch.packets import concat, narrow_wire, wire8
 
 pytestmark = pytest.mark.cuda
@@ -1032,3 +1032,190 @@ def test_daemon_applies_edit_files_on_the_card(cuda, tmp_path):
         np.testing.assert_array_equal(got, oracle.classify(edited, pcap.parse_frames_buf(fb)).results)
     finally:
         d.stop()
+
+
+# --- K6: the dense-family arena, its overlay side-pool and the tenants --------
+
+
+def _dense_arena(device, n_tenants, entries, destroy=1, seed0=100):
+    """A dense arena of ``n_tenants`` random tables (one destroyed) on
+    ``device``, two pages to spare."""
+    tabs = _arena_tenants(n_tenants, entries, seed0)
+    spec = arena.arena_spec_for("dense", tabs, pages=n_tenants + 2, max_tenants=n_tenants + 1)
+    al = arena.ArenaAllocator(spec, device)
+    for t, tab in enumerate(tabs):
+        al.load_tenant(t, tab)
+    al.destroy_tenant(destroy)
+    return tabs, spec, al
+
+
+def _mixed_tenants(tabs, per, seed=7):
+    batch = concat([testing.random_batch_fast(np.random.default_rng(seed + t), tab, per)
+                    for t, tab in enumerate(tabs)])
+    tenant = np.repeat(np.arange(len(tabs), dtype=np.int32), per)
+    tenant[:16], tenant[-16:] = -1, len(tabs) + 1
+    return batch, tenant
+
+
+@pytest.mark.parametrize("n_tenants,entries,per", [(3, 24, 200), (40, 64, 500), (5, 1024, 3000)])
+def test_k6_matches_plain(cuda, n_tenants, entries, per):
+    """K6's two-column entry against its plain version on the card and on
+    the CPU, on a mixed-tenant batch with invalid tenant ids (-1,
+    max_tenants, a destroyed tenant), at slabs of 32, 64 and 1024 rows."""
+    tabs, spec, al = _dense_arena(cuda, n_tenants, entries)
+    _, _, cpu = _dense_arena("cpu", n_tenants, entries)
+    batch, tenant = _mixed_tenants(tabs, per)
+    fields, words = torchpath.packet_fields(torchpath.device_batch(batch, cuda))
+    tt = torch.from_numpy(tenant).to(cuda)
+    before = _launch_counts()
+    got = arena_dense.arena_dense_classify(fields, words, tt, al.arena, pages=spec.pages)
+    torch.cuda.synchronize()
+    assert _launch_deltas(before) == {"arena_dense": 1}
+    assert torch.equal(got, arena_dense.arena_dense_classify_plain(fields, words, tt, al.arena,
+                                                                    pages=spec.pages))
+    assert torch.equal(got.cpu(), arena_dense.arena_dense_classify(
+        fields.cpu(), words.cpu(), tt.cpu(), cpu.arena, pages=spec.pages))
+    off = (tenant < 0) | (tenant > n_tenants - 1) | (tenant == 1)
+    assert not got[torch.from_numpy(off).to(cuda)].any()
+    assert int((got[:, 1] > 0).sum()) > per // 4
+
+
+@pytest.mark.parametrize("B", FUSED_SIZES)
+def test_k6_fused_matches_plain(cuda, B):
+    """K6's fused entry at every wire width on ragged mixed-tenant batches:
+    the whole read-back buffer equal to the plain version's on the card and
+    on the CPU, one launch and no other kernel; and on a grid of 1 and 7
+    blocks."""
+    tabs, spec, al = _dense_arena(cuda, 6, 64)
+    _, _, cpu = _dense_arena("cpu", 6, 64)
+    batch, tenant = _mixed_tenants(tabs, 12_000, seed=300)
+    order = np.random.default_rng(1).permutation(len(batch))
+    batch, tenant = batch.take(order), tenant[order]
+    wires = {d: _fused_wires(batch, d) for d in (cuda, "cpu")}
+    rows = _fused_rows(batch)
+    for width in cwalk.WIRE_WIDTHS:
+        pair = {}
+        for d, pool in ((cuda, al.arena), ("cpu", cpu.arena)):
+            wire = wires[d][width][0][:B]
+            t = torch.from_numpy(tenant[rows[width]][:B].copy()).to(d)
+            pair[d] = (lambda w=wire, t=t, p=pool: arena_dense.classify_arena_dense_wire_fused(
+                           p, w, t, pages=spec.pages),
+                       lambda w=wire, t=t, p=pool: arena_dense.classify_arena_dense_wire_fused_plain(
+                           p, w, t, pages=spec.pages))
+        got = _one_launch_equal(arena_dense.FUSED_KERNEL, pair[cuda], pair["cpu"])
+        n = len(rows[width][:B])
+        assert got.shape == ((n + 1) // 2 + 6144,), width
+        if n > 1000:
+            assert int((got[:(n + 1) // 2] != 0).sum()) > n // 8 and got[-6144:].any(), width
+    wire, t = wires[cuda][6][0], torch.from_numpy(tenant[rows[6]].copy()).to(cuda)
+    for grid in (1, 7):
+        _one_launch_equal(arena_dense.FUSED_KERNEL, (
+            lambda: arena_dense.classify_arena_dense_wire_fused(al.arena, wire, t,
+                                                                pages=spec.pages, _grid=grid),
+            lambda: arena_dense.classify_arena_dense_wire_fused_plain(al.arena, wire, t,
+                                                                      pages=spec.pages)))
+
+
+def test_k6_rejects_bad_operands(cuda):
+    tabs, spec, al = _dense_arena(cuda, 2, 24)
+    fields = torch.zeros((8, 8), dtype=torch.int32, device=cuda)
+    words = torch.zeros((8, 4), dtype=torch.int32, device=cuda)
+    tenant = torch.zeros(8, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        arena_dense.arena_dense_classify(fields, words, tenant.long(), al.arena, pages=spec.pages)
+    with pytest.raises(ValueError):
+        arena_dense.arena_dense_classify(fields, words, tenant[:7], al.arena, pages=spec.pages)
+    with pytest.raises(ValueError):
+        arena_dense.arena_dense_classify(fields, words, tenant, al.arena, pages=spec.pages + 1)
+    with pytest.raises(ValueError):
+        arena_dense.arena_dense_classify(fields, words, tenant,
+                                         al.arena._replace(rules=al.arena.rules.int()),
+                                         pages=spec.pages)
+    assert arena_dense.arena_dense_classify(fields[:0], words[:0], tenant[:0], al.arena,
+                                            pages=spec.pages).shape == (0, 2)
+
+
+def _oracle_check(out, batch, tenant, tables_of):
+    for t in np.unique(tenant):
+        idx = np.nonzero(tenant == t)[0]
+        tab = tables_of(int(t))
+        if tab is None:
+            assert not out.results[idx].any()
+            continue
+        np.testing.assert_array_equal(out.results[idx], oracle.classify(tab, batch.take(idx)).results)
+
+
+def test_dense_arena_and_overlay_classifiers_on_card(cuda):
+    """TorchArenaClassifier on the card with a dense spec (K6's fused entry
+    once per mixed classify, rules-only patches and a clone) and with a
+    ctrie spec plus a dense overlay side-pool (K3b's and K6's two-column
+    entries once each per classify): the same outputs and counters as on
+    the CPU and the per-tenant oracles of the merged content."""
+    tabs = _arena_tenants(4, 48)
+    dspec = arena.arena_spec_for("dense", tabs, pages=8, max_tenants=6)
+    clf, cpu = TorchArenaClassifier(dspec), TorchArenaClassifier(dspec, device="cpu")
+    # tenant 3 holds tenant 0's content, from its own updater: one shared page
+    upds = {t: compiler.IncrementalTables.from_content(dict(tabs[t % 3].content), rule_width=4)
+            for t in range(4)}
+    snaps = {t: u.snapshot() for t, u in upds.items()}
+    for c in (clf, cpu):
+        assert [c.load_tenant(t, snaps[t]) for t in range(4)] == ["assign"] * 3 + ["share"]
+    batch, tenant = _mixed_tenants(tabs[:3] + [tabs[0]], 500, seed=40)
+    wire = batch.pack_wire()
+
+    def both(launched, tables_of):
+        before = _launch_counts()
+        out = clf.classify_async_packed_tenant(wire, tenant).result()
+        assert _launch_deltas(before) == launched
+        ref = cpu.classify_async_packed_tenant(wire, tenant).result()
+        for f in ("results", "xdp", "stats_delta"):
+            np.testing.assert_array_equal(getattr(out, f), getattr(ref, f), err_msg=f)
+        _oracle_check(out, batch, tenant, tables_of)
+        assert clf.tenant_counters() == cpu.tenant_counters()
+
+    both({"arena_dense_fused": 1}, snaps.get)
+    # a rules-only edit of a private page (patch) and of the shared one (cow)
+    new = {}
+    for t, want in ((1, "patch"), (3, "cow")):
+        upd = upds[t]
+        upd.start_dirty_tracking()
+        k = sorted(upd.content, key=lambda k: (k.ingress_ifindex, k.ip_data))[0]
+        r = np.asarray(upd.content[k]).copy()
+        r[0] = [9, 0, 0, 0, 0, 0, 1]
+        upd.apply({k: r}, [])
+        hint, new[t] = upd.peek_dirty(), upd.snapshot()
+        assert [c.load_tenant(t, new[t], hint=hint) for c in (clf, cpu)] == [want] * 2
+    both({"arena_dense_fused": 1}, lambda t: new.get(t, snaps.get(t)))
+    # the patched pool equals a cold bake of the same content
+    cold = arena.ArenaAllocator(dspec, cuda)
+    cold.load_tenant(1, new[1])
+    p, q = clf.allocator.page_of(1), cold.page_of(1)
+    S = dspec.entries
+    for f in arena.DenseArena._fields[:4]:
+        assert torch.equal(getattr(clf.allocator.arena, f)[p * S:(p + 1) * S],
+                           getattr(cold.arena, f)[q * S:(q + 1) * S]), f
+
+    cspec = arena.arena_spec_for("ctrie", tabs, pages=8, max_tenants=6)
+    ov_spec = arena.make_arena_spec("dense", 8, 6, 1024, 4)
+    clf = TorchArenaClassifier(cspec, overlay_spec=ov_spec)
+    cpu = TorchArenaClassifier(cspec, device="cpu", overlay_spec=ov_spec)
+    merged = {}
+    for t, tab in enumerate(tabs):
+        ov = testing.random_tables_fast(np.random.default_rng(900 + t), 40, width=4,
+                                        ifindexes=(2, 3), v6_fraction=0.4)
+        content = {k: v for k, v in ov.content.items()
+                   if k.masked_identity() not in {kk.masked_identity() for kk in tab.content}}
+        ovt = compiler.compile_tables_from_content(content, rule_width=4)
+        for c in (clf, cpu):
+            c.load_tenant(t, tab)
+            if t % 2 == 0:
+                c.load_tenant_overlay(t, ovt)
+        merged[t] = (compiler.compile_tables_from_content({**tab.content, **content},
+                                                          rule_width=4) if t % 2 == 0 else tab)
+    batch = concat([testing.random_batch_fast(np.random.default_rng(60 + t), merged[t], 500)
+                    for t in range(4)])
+    tenant = np.repeat(np.arange(4, dtype=np.int32), 500)
+    tenant[:16] = 5
+    wire = batch.pack_wire()
+    both({"arena_ctrie_walk": 1, "arena_dense": 1},
+         lambda t: merged.get(t) if t < 4 else None)
