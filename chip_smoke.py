@@ -4,8 +4,8 @@
     python3 chip_smoke.py [--parent DIR]
 
 ``--parent DIR`` names the root of another tree of this repository (for
-example a ``git archive`` of the parent commit, unpacked): its K2, K3 and
-K3b are built from its sources and, after their outputs are held equal
+example a ``git archive`` of the parent commit, unpacked): its K2, K3, K3b
+and K6 are built from its sources and, after their outputs are held equal
 to this tree's, timed beside them in turns on the same inputs.
 
 Drives the port's dense, trie and ctrie classify paths, its wire codecs and
@@ -123,14 +123,20 @@ its multi-tenant arena on the card and fails (non-zero exit, no result line) on 
     private page, min of 3, the clone equal to a cold bake;
 9d. the dense-family arena (512 tenants x 1024 rows x 16 slots, 1000
     entries each; kernel K6): K6's two-column entry and its fused entry on
-    every wire width against the plain versions, the main path (one
-    memset and one launch of K6's fused entry) against the oracles, K6's
-    time, bound and row compares;
+    every wire width against the plain versions on the mixed batch
+    (grouped by tenant) and on it shuffled, then on 2^20 packets of one
+    tenant and on one packet per tenant; K6 against its formulation
+    (arena_dense.formulation) on 16 tenants' packets; the main path (one
+    call of K6's fused entry: one memset, its cooperative kernel and its
+    rule scan's, per the profiler) against the oracles; K6's times on the
+    grouped and the shuffled batch, the cooperative kernel's grouping,
+    staging and product apart, its bound (2 x row compares x 160 at the
+    int8 rate, as K1's) and row compares;
 9e. the overlay side-pool: the 512-tenant ctrie arena with a dense
     side-pool of 1024 rows x 16 slots, half the tenants with overlays of
     longer prefixes; one classify launches K3b's and K6's two-column
     entries once each, against the plain composition and the oracles of
-    the merged content;
+    the merged content; K6's two-column time over the side-pool;
 10. incremental patches and the overlay at the churn tier (K1 over the
     overlay against its plain version; the ctrie pass without the overlay
     fused against composed in turns), then edit transactions on both
@@ -157,9 +163,11 @@ its multi-tenant arena on the card and fails (non-zero exit, no result line) on 
     under ``two_column``), then the device JSON as the last line.
 
 With ``--parent``, K2 (as is and depth-sorted, every level count), K3
-(tables A and B, as is and depth-sorted; the adversarial batches) and K3b
-are also run from the other tree's build on the same operands, held
-equal, and timed in turns with this tree's (parent, this, this, parent).
+(tables A and B, as is and depth-sorted; the adversarial batches), K3b
+and K6 (fused, grouped and shuffled; two-column, on the dense arena and
+over the side-pool) are also run from the other tree's build on the same
+operands, held equal, and timed in turns with this tree's (parent, this,
+this, parent).
 
 Imports nothing of JAX or of the JAX package ``infw``.
 """
@@ -207,19 +215,30 @@ HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1.979e15
 
 
-#: --parent's kernels by name (K2, K3, K3b), built from its sources; empty
-#: without --parent
+#: --parent's kernels by name (K2, K3, K3b and K6's two entries), built
+#: from its sources; empty without --parent
 PARENT_KERNELS: dict = {}
 
 
+def k6_scratchless(csrc) -> bool:
+    """Whether a tree's K6 is the design before the grouped one: its
+    two-column entry point's C signature has no scratch pointer (nor, then,
+    a grid cap)."""
+    sig = re.search(r'extern "C" int infw_arena_dense_walk\(([^)]*)\)',
+                    (csrc / "arena_dense.cu").read_text())
+    return "scratch" not in sig.group(1)
+
+
 def parent_kernels(root: str) -> dict:
-    """K2, K3 and K3b of the tree at ``root``, unbuilt, under this tree's
-    names and C signatures; a K2 entry point without the trailing grid cap
-    (``max_grid``, added with the lane-refilling walk) is bound without
-    it."""
+    """K2, K3, K3b and K6 of the tree at ``root``, unbuilt, under this
+    tree's names and C signatures; a K2 entry point without the trailing
+    grid cap (``max_grid``, added with the lane-refilling walk) is bound
+    without it, and a K6 of the design before the grouped one with its own
+    signatures (no scratch; no grid cap on the two-column entry)."""
+    import ctypes
     from pathlib import Path
 
-    from infw_torch.kernels import _build, arena_walk, cwalk, walk
+    from infw_torch.kernels import _build, arena_dense, arena_walk, cwalk, walk
 
     csrc = Path(root) / "infw_torch" / "kernels" / "csrc"
     out = {}
@@ -228,7 +247,37 @@ def parent_kernels(root: str) -> dict:
         if k is walk.KERNEL and "int max_grid" not in (csrc / "trie_walk.cu").read_text():
             argtypes = argtypes[:-2] + argtypes[-1:]
         out[k.name] = _build.Kernel(k.name, k.symbol, argtypes, csrc=csrc)
+    if (csrc / "arena_dense.cu").exists():
+        old = k6_scratchless(csrc)
+        p, i = ctypes.c_void_p, ctypes.c_int
+        for k, was in ((arena_dense.KERNEL, [p] * 9 + [i] * 5 + [p]),
+                       (arena_dense.FUSED_KERNEL, [p] * 8 + [i] * 7 + [p])):
+            out[k.name] = _build.Kernel(k.name, k.symbol, was if old else k.argtypes, csrc=csrc,
+                                        source="arena_dense")
     return out
+
+
+def parent_k6_run(name: str, args_fn):
+    """A call of --parent's K6 entry ``name`` on the operands of this
+    tree's ``args_fn`` (``arena_dense.kernel_args`` or ``fused_args``: out,
+    scratch, arguments); the scratch pointer is left out for a parent
+    without one."""
+    import torch
+
+    kernel = PARENT_KERNELS[name]
+    at = 8 if name == "arena_dense" else 7  # the scratch pointer's position
+    old = k6_scratchless(kernel.csrc)
+
+    def run():
+        out, scratch, args = args_fn()
+        if old:
+            args = args[:at] + args[at + 1:]
+        cap = (0,) * (len(kernel.argtypes) - len(args) - 1)
+        kernel.launch(*args, *cap, torch.cuda.current_stream().cuda_stream)
+        del scratch
+        return out
+
+    return run
 
 
 def parent_run(name: str, kernel_args):
@@ -3202,12 +3251,10 @@ DENSE_TENANTS, DENSE_SLAB, DENSE_SLOTS, DENSE_ENTRIES = 512, 1024, 16, 1000
 # the overlay side-pool: the syncer's overlay cap (infw/syncer.py
 # OVERLAY_CAP) as the slab rows, 16 rule slots
 OVERLAY_CAP, OVERLAY_SLOTS = 1024, 16
-# K6's operations per (packet, live slab row): 5 XOR, 5 AND and 5 zero
-# tests of the 160-bit key, one mask-length compare; against the card's
-# float32 rate outside the tensor cores (67 TFLOP/s, the guide's table,
-# which lists no int32 rate)
-K6_OPS_PER_ROW = 16
-SIMT_OPS_PER_S = 67e12
+# K6's operations per k-step of a (packet, live slab row) compare: the
+# LPM's int8 product over 32 key bits, a multiply and an add each, against
+# the card's dense int8 rate (K1's formulation, 2 x 160 for a whole key)
+K6_OPS_PER_KSTEP = 2 * 32
 #: the device of the tenant, clone, dense-arena and overlay phases
 DEV = "cuda"
 
@@ -3541,13 +3588,17 @@ def clone_phase(tag: str) -> None:
 
 
 def dense_bound(arena_dense, torchpath, pool, wire, tenant, pages: int):
-    """K6's fused-entry bound: (ms, "bytes" | "operations", bytes, ops).
-    Bytes: the wire, tenant, results and statistics once, then for the
-    lanes finalize keeps (IP with an L4 header) whose tenant holds a page:
-    its page-table entry, the key, mask and length of each live row
-    (mask_len >= 0) of every slab they reach, and the rule row of each
-    distinct winning row.  Operations: K6_OPS_PER_ROW for every live row
-    of each such lane's slab."""
+    """K6's fused-entry bound: (ms, "bytes" | "operations", bytes, ops,
+    row compares, k-steps).  Bytes: the wire, tenant, results and
+    statistics once, then for the lanes finalize keeps (IP with an L4
+    header) whose tenant holds a page: its page-table entry, the key,
+    mask and length of each live row (mask_len >= 0) of every slab they
+    reach, and the rule row of each distinct winning row.  Operations:
+    K6_OPS_PER_KSTEP for each k-step (32 key bits) that each such lane's
+    compares need: a compare against a live row (mask_len 0..128) of the
+    lane's slab needs the key words the row's mask covers (its last
+    non-zero mask word + 1, at least 1), and an IPv4 lane compares only
+    the rows up to /32, the longest it can match."""
     import torch
 
     fields, words, mask = looked_up_operands(torchpath, wire)
@@ -3557,9 +3608,19 @@ def dense_bound(arena_dense, torchpath, pool, wire, tenant, pages: int):
     pt = pool.page_table.long()
     pg = torch.where(mask & (t >= 0) & (t < MT), pt[t.clamp(0, MT - 1)], -1)
     keep = pg >= 0
-    live = (pool.mask_len.view(-1, S) >= 0).sum(dim=1)
-    ops = int(live[pg[keep]].sum().item()) * K6_OPS_PER_ROW
-    pages_read = torch.unique(pg[keep])
+    ml = pool.mask_len.view(-1, S).long()
+    live = (ml >= 0) & (ml <= 128)
+    short = live & (ml <= 32)
+    covered = (pool.mask_words != 0).long() * torch.arange(1, 6, device=ml.device)
+    steps = covered.max(dim=1).values.clamp(min=1).view(-1, S)
+    v4 = (fields[:, 0] == arena_dense.KIND_IPV4)[keep]
+    lane_pg = pg[keep]
+    compares = int(torch.where(v4, short.sum(1)[lane_pg], live.sum(1)[lane_pg]).sum().item())
+    ksteps = int(torch.where(v4, (steps * short).sum(1)[lane_pg],
+                             (steps * live).sum(1)[lane_pg]).sum().item())
+    ops = ksteps * K6_OPS_PER_KSTEP
+    read = (ml >= 0).sum(dim=1)
+    pages_read = torch.unique(lane_pg)
     won = []
     f, w, tk = fields[keep], words[keep], tenant[keep]
     step = max(1, arena_dense.PLAIN_ROWS // S)
@@ -3569,9 +3630,34 @@ def dense_bound(arena_dense, torchpath, pool, wire, tenant, pages: int):
         won.append(win[score > 0])
     n_won = torch.unique(torch.cat(won)).numel() if won else 0
     nbytes = (fused_bound(wire, tenant, {})[1] + torch.unique(t[keep]).numel() * 4
-              + int(live[pages_read].sum().item()) * 44 + n_won * pool.rules.shape[1] * 2)
-    b_ms, o_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / SIMT_OPS_PER_S * 1e3
-    return max(b_ms, o_ms), ("operations" if o_ms > b_ms else "bytes"), nbytes, ops
+              + int(read[pages_read].sum().item()) * 44 + n_won * pool.rules.shape[1] * 2)
+    b_ms, o_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / INT8_OPS_PER_S * 1e3
+    return (max(b_ms, o_ms), ("operations" if o_ms > b_ms else "bytes"), nbytes, ops, compares,
+            ksteps)
+
+
+def k6_check(label: str, arena_dense, pool, fields, words, tt, wires, kw) -> int:
+    """K6's two-column entry against its plain version on (fields, words,
+    tt), and its fused entry on each (wire, tenant) of ``wires``: every
+    word equal; returns the largest absolute difference (0)."""
+    import torch
+
+    got = arena_dense.arena_dense_classify(fields, words, tt, pool, **kw)
+    want = arena_dense.arena_dense_classify_plain(fields, words, tt, pool, **kw)
+    torch.cuda.synchronize()
+    mism = int((got != want).any(dim=1).sum().item())
+    err = int((got.long() - want.long()).abs().max().item()) if got.numel() else 0
+    log(f"K6 two-column vs plain [{label}]: B={got.shape[0]} mismatching packets={mism} "
+        f"max_abs_err={err} matched={int((got[:, 1] > 0).sum().item())}")
+    if mism:
+        raise SystemExit(f"K6 disagrees with its plain version [{label}]")
+    for width, (w, tw) in wires.items():
+        err = max(err, check_fused(
+            f"fused K6 [{label}, width {width}]",
+            lambda w=w, tw=tw: arena_dense.classify_arena_dense_wire_fused(pool, w, tw, **kw),
+            lambda w=w, tw=tw: arena_dense.classify_arena_dense_wire_fused_plain(pool, w, tw, **kw),
+            w.shape[0]))
+    return err
 
 
 def dense_arena_phase(tag: str) -> dict:
@@ -3579,8 +3665,15 @@ def dense_arena_phase(tag: str) -> dict:
     1024, 16)): 512 tenant tables of 1000 entries x 16 rule slots loaded
     through TorchArenaClassifier, a 2^20-packet mixed batch with ids -1,
     512 and a destroyed tenant; K6's two-column and fused entries against
-    the plain versions, the main path (one memset and one launch of K6's
-    fused entry, nothing else) against the per-tenant oracles; K6's time,
+    the plain versions on it (grouped by tenant), on the same packets
+    shuffled, on 2^20 packets of one tenant and on one packet per tenant,
+    and the formulation (arena_dense.formulation) against the kernel on
+    16 tenants' packets; the main path (one call of K6's fused entry,
+    nothing else) against the per-tenant oracles; K6's times on the
+    grouped and the shuffled batch and its two kernels' device times (the
+    profiler must show one of each per call), the cooperative kernel's
+    time with every lane "none" and on a pool without live rows (the
+    grouping, the staging and the product apart), --parent's K6 in turns,
     its bound and compare count.  Returns its kernels-line entry."""
     import torch
 
@@ -3614,28 +3707,47 @@ def dense_arena_phase(tag: str) -> dict:
     tenant[::251], tenant[1::257] = -1, DENSE_TENANTS
     B = len(batch)
     kw = {"pages": spec.pages}
+    order = np.random.default_rng(7001).permutation(B)
+    put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(DEV)
 
-    # K6 against its plain versions on every packet
+    # K6 against its plain versions on every packet of four batches: the
+    # cell's (grouped by tenant), the same packets shuffled, 2^20 packets of
+    # one tenant, one packet per tenant
     fields, words = torchpath.packet_fields(torchpath.device_batch(batch, DEV))
-    tt = torch.from_numpy(tenant).to(DEV)
-    got = arena_dense.arena_dense_classify(fields, words, tt, pool, **kw)
-    want = arena_dense.arena_dense_classify_plain(fields, words, tt, pool, **kw)
-    torch.cuda.synchronize()
-    mism = int((got != want).any(dim=1).sum().item())
-    err = int((got.long() - want.long()).abs().max().item())
-    log(f"K6 two-column vs plain [{DENSE_TENANTS} tenants x {DENSE_SLAB} rows]: B={B} "
-        f"mismatching packets={mism} max_abs_err={err} matched={int((got[:, 1] > 0).sum().item())}")
-    if mism:
-        raise SystemExit("K6 disagrees with its plain version on the mixed batch")
-    wires = fused_wires(batch, tenant)
-    fused_err = 0
-    for width, (w, _m, tw, _idx) in wires.items():
-        fused_err = max(fused_err, check_fused(
-            f"fused K6 [{DENSE_TENANTS} tenants, width {width}]",
-            lambda w=w, tw=tw: arena_dense.classify_arena_dense_wire_fused(pool, w, tw, **kw),
-            lambda w=w, tw=tw: arena_dense.classify_arena_dense_wire_fused_plain(pool, w, tw,
-                                                                                 **kw),
-            w.shape[0]))
+    tt = put(tenant)
+    wires = {w: (x, tw) for w, (x, _m, tw, _i) in fused_wires(batch, tenant).items()}
+    err = k6_check(f"{DENSE_TENANTS} tenants x {DENSE_SLAB} rows, grouped", arena_dense, pool,
+                   fields, words, tt, wires, kw)
+    shuffled, s_tenant = batch.take(order), tenant[order]
+    s_fields, s_words = torchpath.packet_fields(torchpath.device_batch(shuffled, DEV))
+    s_wires = {w: (x, tw) for w, (x, _m, tw, _i) in fused_wires(shuffled, s_tenant).items()}
+    err = max(err, k6_check("shuffled", arena_dense, pool, s_fields, s_words, put(s_tenant),
+                            s_wires, kw))
+    one = testing.random_batch_fast(np.random.default_rng(7002), tabs[3], B)
+    o_fields, o_words = torchpath.packet_fields(torchpath.device_batch(one, DEV))
+    o_tenant = np.full(B, 3, np.int32)
+    err = max(err, k6_check("2^20 packets of tenant 3", arena_dense, pool, o_fields, o_words,
+                            put(o_tenant), {7: (put(one.pack_wire().view(np.int32)),
+                                                put(o_tenant))}, kw))
+    firsts = np.arange(DENSE_TENANTS) * TENANT_PER
+    per = batch.take(firsts)
+    p_fields, p_words = torchpath.packet_fields(torchpath.device_batch(per, DEV))
+    p_tenant = np.arange(DENSE_TENANTS, dtype=np.int32)
+    err = max(err, k6_check("one packet per tenant", arena_dense, pool, p_fields, p_words,
+                            put(p_tenant), {7: (put(per.pack_wire().view(np.int32)),
+                                                put(p_tenant))}, kw))
+    # the kernel's arithmetic step by step (the plain formulation, whose
+    # int64 product runs on the host) on 16 tenants
+    sub = np.nonzero((tenant >= 0) & (tenant < 16))[0]
+    sub_t = put(tenant[sub])
+    f16, w16 = fields[put(sub).long()], words[put(sub).long()]
+    got16 = arena_dense.arena_dense_classify(f16, w16, sub_t, pool, **kw).cpu()
+    form = arena_dense.formulation(f16.cpu(), w16.cpu(), sub_t.cpu(),
+                                   arena.DenseArena(*(t.cpu() for t in pool)), **kw)
+    if not torch.equal(form, got16):
+        raise SystemExit("K6 disagrees with its formulation on 16 tenants")
+    log(f"K6 against its formulation (page buckets, staged chunks, the integer product): "
+        f"{len(sub)} packets of 16 tenants equal")
 
     # the main path: one mixed classify, K6's fused entry once, nothing else
     wire = batch.pack_wire()
@@ -3662,54 +3774,97 @@ def dense_arena_phase(tag: str) -> dict:
         f"{DENSE_TENANTS - 1} tenants; {int(off.sum())} lanes of ids -1, {DENSE_TENANTS} and the "
         f"destroyed {gone} UNDEF; rule hits {int((out.results != 0).sum())}")
 
-    # timings on the main path's narrow wire
-    nw = torch.from_numpy(narrow_wire(wire).view(np.int32)).to(DEV)
-    ntt = torch.from_numpy(tenant).to(DEV)
+    # timings on the main path's narrow wire, grouped and shuffled
+    nw_np = narrow_wire(wire)
+    nw, ntt = put(nw_np.view(np.int32)), put(tenant)
+    snw, sntt = put(nw_np[order].view(np.int32)), put(s_tenant)
     run = lambda: arena_dense.classify_arena_dense_wire_fused(pool, nw, ntt, **kw)
-    fused_ms = cuda_ms(run, reps=5)
-    device_us = profiled_kernels(run, reps=3)
+    run_s = lambda: arena_dense.classify_arena_dense_wire_fused(pool, snw, sntt, **kw)
+    two = lambda: arena_dense.arena_dense_classify(fields, words, tt, pool, **kw)
+    s_tt = put(s_tenant)
+    two_s = lambda: arena_dense.arena_dense_classify(s_fields, s_words, s_tt, pool, **kw)
+    fused_ms, fused_s_ms = cuda_ms(run, reps=10), cuda_ms(run_s, reps=10)
+    per_call = {}
+    device_us = profiled_kernels(run, reps=3, counts=per_call)
+    short = lambda k: next((n for n in ("arena_dense_kernel", "rule_scan_kernel") if n in k), k)
+    if {short(k): v for k, v in per_call.items()} != {"arena_dense_kernel": 1.0,
+                                                       "rule_scan_kernel": 1.0}:
+        raise SystemExit(f"K6: the profiler shows kernels per call {per_call}, expected one "
+                         "arena_dense_kernel (cooperative) and one rule_scan_kernel")
     fplain = cuda_ms(lambda: arena_dense.classify_arena_dense_wire_fused_plain(pool, nw, ntt, **kw),
                      reps=1, warmup=0)
-    two_ms = cuda_ms(lambda: arena_dense.arena_dense_classify(fields, words, tt, pool, **kw),
-                     reps=5)
+    two_ms, two_s_ms = cuda_ms(two, reps=10), cuda_ms(two_s, reps=10)
     two_plain = cuda_ms(lambda: arena_dense.arena_dense_classify_plain(fields, words, tt, pool,
                                                                        **kw), reps=1, warmup=0)
-    bound_ms, bound_by, nbytes, ops = dense_bound(arena_dense, torchpath, pool, nw, ntt,
-                                                  spec.pages)
+    bound_ms, bound_by, nbytes, ops, compares, ksteps = dense_bound(
+        arena_dense, torchpath, pool, nw, ntt, spec.pages)
     log(f"{tag} K6 arena_dense_fused [{DENSE_TENANTS} tenants x S={DENSE_SLAB} x R={DENSE_SLOTS}, "
-        f"B={B}, narrow wire]: {fused_ms:.4f} ms ({B / fused_ms / 1e3:.1f} M packets/s); profiler "
-        f"device time per call (us): " + (", ".join(f"{k[:40]} {v:.2f}" for k, v in device_us.items())
-                                         or "not measured (no device events in the trace)"))
-    log(f"{tag} K6 bound: {bound_ms:.4f} ms by {bound_by} ({nbytes / 1e6:.2f} MB: wire, tenant, "
+        f"B={B}, narrow wire]: grouped {fused_ms:.4f} ms ({B / fused_ms / 1e3:.1f} M packets/s), "
+        f"shuffled {fused_s_ms:.4f} ms (shuffled / grouped {fused_s_ms / fused_ms:.3f}); profiler "
+        f"device time per call (us): " + ", ".join(f"{short(k)} {v:.2f}"
+                                                  for k, v in device_us.items()))
+    log(f"{tag} K6 bound: {bound_ms:.4f} ms by {bound_by} ({compares:.4g} row compares of "
+        f"{ksteps:.4g} k-steps, {ksteps / max(compares, 1):.3f} a compare, x 2 x 32 int8 ops / "
+        f"1,979 TOP/s; {nbytes / 1e6:.2f} MB: wire, tenant, "
         f"results, statistics, the live rows of the slabs reached and the winning rule rows / "
-        f"3.35 TB/s; {ops / K6_OPS_PER_ROW:.4g} row compares = B x live rows, x {K6_OPS_PER_ROW} "
-        f"ops / 67 TOP/s); K6 is {fused_ms / bound_ms:.1f}x its bound; plain version "
-        f"{fplain:.4f} ms; library call: none (no PyTorch call computes the lookup)")
-    log(f"{tag} K6 arena_dense two-column [{B} packets]: {two_ms:.4f} ms; plain version "
-        f"{two_plain:.4f} ms")
-    clf.close()
-    return {
+        f"3.35 TB/s); K6 is {fused_ms / bound_ms:.1f}x its bound; plain version {fplain:.4f} ms; "
+        f"library call: none (no PyTorch call computes the lookup)")
+    log(f"{tag} K6 arena_dense two-column [{B} packets]: grouped {two_ms:.4f} ms, shuffled "
+        f"{two_s_ms:.4f} ms; plain version {two_plain:.4f} ms")
+    # where the cooperative kernel's time goes: the same pass with every
+    # lane "none" (phases 0-3 alone), then on a pool without live rows
+    # (with the slab staging), then as is (with the product)
+    dead = pool._replace(mask_len=torch.full_like(pool.mask_len, -1))
+    coop = []
+    for p_, t_ in ((pool, torch.full_like(ntt, -1)), (dead, ntt), (pool, ntt)):
+        dev = profiled_kernels(
+            lambda p_=p_, t_=t_: arena_dense.classify_arena_dense_wire_fused(p_, nw, t_, **kw),
+            reps=3)
+        seen = [v for k, v in dev.items() if "arena_dense_kernel" in k]
+        coop.append(sum(seen) if seen else None)  # None: the traces lost the kernel
+    us = lambda v: "not measured" if v is None else f"{v:.2f}"
+    less = lambda a, b: None if a is None or b is None else a - b
+    log(f"{tag} K6 cooperative kernel, device us per call: every lane none {us(coop[0])} "
+        f"(grouping), no live rows {us(coop[1])} (+ staging {us(less(coop[1], coop[0]))}), as "
+        f"is {us(coop[2])} (+ product {us(less(coop[2], coop[1]))})")
+    entry = {
         "name": "arena_dense_fused",
         "route": "cuda",
         "source": "infw_torch/kernels/csrc/arena_dense.cu",
         "replaces": "infw/kernels/jaxpath.py:3755",
         "launches": launches["arena_dense_fused"],
         "mismatches": 0,
-        "max_abs_err": fused_err,
+        "max_abs_err": err,
         "ms": fused_ms,
         "plain_ms": fplain,
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": None,
         "device_ms": sum(device_us.values()) / 1e3 if device_us else None,
-        "row_compares": ops // K6_OPS_PER_ROW,
+        "ms_shuffled": fused_s_ms,
+        "cooperative_us": {"grouping": coop[0], "no_live_rows": coop[1], "as_is": coop[2]},
+        "row_compares": compares,
+        "k_steps": ksteps,
         "two_column": {
             "name": "arena_dense",
             "max_abs_err": err,
             "ms": two_ms,
+            "ms_shuffled": two_s_ms,
             "plain_ms": two_plain,
         },
     }
+    if "arena_dense_fused" in PARENT_KERNELS:
+        fa = lambda: arena_dense.fused_args(pool, nw, ntt, **kw)
+        fa_s = lambda: arena_dense.fused_args(pool, snw, sntt, **kw)
+        ka = lambda: arena_dense.kernel_args(fields, words, tt, pool, **kw)
+        entry["parent_ms"] = parent_turns(tag, "K6 fused, grouped", run,
+                                          parent_k6_run("arena_dense_fused", fa))["parent_ms"]
+        entry["parent_ms_shuffled"] = parent_turns(
+            tag, "K6 fused, shuffled", run_s, parent_k6_run("arena_dense_fused", fa_s))["parent_ms"]
+        entry["two_column"]["parent_ms"] = parent_turns(
+            tag, "K6 two-column, grouped", two, parent_k6_run("arena_dense", ka))["parent_ms"]
+    clf.close()
+    return entry
 
 
 def overlay_longer_prefixes(compiler, content, t: int):
@@ -3834,6 +3989,10 @@ def overlay_phase(tag: str, k6: dict) -> dict:
         f"{two_plain:.4f} ms), K3b two-column {k3b_ms:.4f} ms")
     k6["two_column"].update({"launches": launches["arena_dense"], "overlay_ms": two_ms,
                              "overlay_plain_ms": two_plain})
+    if "arena_dense" in PARENT_KERNELS:
+        ka = lambda: arena_dense.kernel_args(fields, words, tt, ov, pages=ov_spec.pages)
+        k6["two_column"]["overlay_parent_ms"] = parent_turns(
+            tag, "K6 two-column, side-pool", two, parent_k6_run("arena_dense", ka))["parent_ms"]
     clf.close()
     return launches
 
@@ -3843,8 +4002,8 @@ def main() -> int:
 
     parser = argparse.ArgumentParser(description="Chip smoke test of infw_torch on one card.")
     parser.add_argument("--parent", metavar="DIR",
-                        help="another tree of this repository whose K2, K3 and K3b are timed "
-                             "beside this tree's")
+                        help="another tree of this repository whose K2, K3, K3b and K6 are "
+                             "timed beside this tree's")
     opts = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3871,7 +4030,7 @@ def main() -> int:
         PARENT_KERNELS.update(parent_kernels(opts.parent))
     # one build per library: two entry points of one source share it
     own = list({k.library_path(): k for k in kernels}.values())
-    builds = own + list(PARENT_KERNELS.values())
+    builds = own + list({k.library_path(): k for k in PARENT_KERNELS.values()}.values())
     with ThreadPoolExecutor(len(builds)) as pool:
         list(pool.map(lambda k: k.build(), builds))
     log(f"build: {len(kernels)} kernel entry points from {len(own)} sources"

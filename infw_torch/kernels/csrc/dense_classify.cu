@@ -34,7 +34,8 @@
 //
 // What bounds it on this card: operations.  At most B x T x 160
 // multiply-adds (2^20 x 1000 x 160 at the headline shape; the groups leave
-// 27% of it).  Design:
+// 27% of it).  Design (the tensor-core helpers live in lpm_mma.cuh, which
+// K6's arena_dense.cu shares):
 //   - mma.sync.m16n8k32 s8 x s8 -> s32 (0..5 k-steps per 16 x 8 tile); each
 //     warp keeps the A fragments of kMTiles 16-packet tiles in registers,
 //     built once per packet tile from the five key words (__brev, then each
@@ -76,15 +77,15 @@
 #include <limits.h>
 #include <stdint.h>
 
+#include "lpm_mma.cuh"
+
 namespace {
+
+using namespace lpm;
 
 constexpr int kWarps = 16;
 constexpr int kThreads = kWarps * 32;
-constexpr int kMTiles = 2;                             // 16-packet tiles per warp
-constexpr int kWarpPackets = kMTiles * 16;
 constexpr int kTilePackets = kWarps * kWarpPackets;    // packets per block pass
-constexpr int kKeyBytes = 160;
-constexpr int kRowBytes = 176;                         // staged plane row, padded
 constexpr int kStageRows = 1280;                       // entries staged at once: 227 KB
 constexpr int kScanThreads = 256;                      // packets per scan block
 constexpr int kMaxGroups = 64;
@@ -98,8 +99,6 @@ struct GroupTable {
   int info[kMaxGroups];     // k-steps | kLonger | kFolded
   int ifindex[kMaxGroups];  // a folded group's ifindex
 };
-constexpr int kBig = 1 << 21;
-constexpr int kNever = -(1 << 30);
 constexpr int kKindIPv4 = 1;
 constexpr int kProtoICMP = 1;
 constexpr int kProtoTCP = 6;
@@ -113,33 +112,6 @@ constexpr size_t smem_bytes(int rows) {
   return (size_t)rows * (kRowBytes + 4) + kWarps * kWarpPackets * 4;
 }
 static_assert(smem_bytes(kStageRows) <= 232448, "above the 227 KB a block may have");
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-// Four 0/1 bytes from bits [4 * q, 4 * q + 4) of r (byte j = bit 4q + j).
-__device__ __forceinline__ uint32_t spread_nibble(uint32_t r, int q) {
-  return (((r >> (4 * q)) & 0xFu) * 0x00204081u) & 0x01010101u;
-}
-
-__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                       uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
-}
-
-__device__ __forceinline__ void ldmatrix_x2(uint32_t (&r)[2], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];"
-               : "=r"(r[0]), "=r"(r[1]) : "r"(addr));
-}
 
 // Stage kernel rows [row0, row0 + rows) of `order`: planes by cp.async (16
 // bytes at a time), constants by plain loads; padding rows are zero planes
@@ -165,65 +137,6 @@ __device__ void stage_rows(const int8_t* __restrict__ planes, const int* __restr
   }
   asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;" ::: "memory");
   __syncthreads();
-}
-
-// NT n-tiles of 8 staged entries from `row` against the warp's kMTiles
-// packet tiles over k-steps K0 .. K0 + NKS - 1: NT x kMTiles independent
-// products per k-step keep the tensor pipe busy across the mma latency; then
-// score = c - BIG * dot and a running max per packet row.
-template <int K0, int NKS, int NT>
-__device__ __forceinline__ void walk_tiles(const uint32_t (&a)[kMTiles][5][4], uint32_t lane_addr,
-                                           const int* sm_const, int row, int q,
-                                           int (&mx)[kMTiles][2]) {
-  uint32_t b[NT][NKS > 0 ? NKS : 1][2];
-#pragma unroll
-  for (int n = 0; n < NT; ++n) {
-    const uint32_t addr = lane_addr + (row + 8 * n) * kRowBytes + 32 * K0;
-#pragma unroll
-    for (int ks = 0; ks < NKS; ks += 2) {
-      if (ks + 1 < NKS) {
-        uint32_t r[4];
-        ldmatrix_x4(r, addr + 32 * ks);
-        b[n][ks][0] = r[0]; b[n][ks][1] = r[1]; b[n][ks + 1][0] = r[2]; b[n][ks + 1][1] = r[3];
-      } else {
-        uint32_t r[2];
-        ldmatrix_x2(r, addr + 32 * ks);
-        b[n][ks][0] = r[0]; b[n][ks][1] = r[1];
-      }
-    }
-  }
-  int d[NT][kMTiles][4] = {};
-#pragma unroll
-  for (int ks = 0; ks < NKS; ++ks)
-#pragma unroll
-    for (int n = 0; n < NT; ++n)
-#pragma unroll
-      for (int m = 0; m < kMTiles; ++m) mma_s8(d[n][m], a[m][K0 + ks], b[n][ks][0], b[n][ks][1]);
-#pragma unroll
-  for (int n = 0; n < NT; ++n) {
-    // d[n][m][0], [1]: row g, entries 2q, 2q + 1; [2], [3]: row g + 8
-    const int2 c = *reinterpret_cast<const int2*>(sm_const + row + 8 * n + 2 * q);
-#pragma unroll
-    for (int m = 0; m < kMTiles; ++m) {
-      mx[m][0] = __vimax3_s32(mx[m][0], c.x - kBig * d[n][m][0], c.y - kBig * d[n][m][1]);
-      mx[m][1] = __vimax3_s32(mx[m][1], c.x - kBig * d[n][m][2], c.y - kBig * d[n][m][3]);
-    }
-  }
-}
-
-// Staged rows [lo, hi) (a multiple of 8 apart), two n-tiles at a time.
-template <int K0, int NKS>
-__device__ __forceinline__ void walk_rows(const uint32_t (&a)[kMTiles][5][4], uint32_t lane_addr,
-                                       const int* sm_const, int lo, int hi, int q,
-                                       int (&mx)[kMTiles][2]) {
-  int row = lo;
-  for (; row + 16 <= hi; row += 16) walk_tiles<K0, NKS, 2>(a, lane_addr, sm_const, row, q, mx);
-  if (row < hi) walk_tiles<K0, NKS, 1>(a, lane_addr, sm_const, row, q, mx);
-}
-
-__device__ __forceinline__ int quad_max(int v) {
-  v = max(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return max(v, __shfl_xor_sync(0xffffffffu, v, 2));
 }
 
 // The packet fields the ordered scan reads.
@@ -271,9 +184,7 @@ lpm_kernel(const int4* __restrict__ fields, const uint4* __restrict__ words,
   const int g = lane >> 2, q = lane & 3;
   int* sm_best = sm_const + stage + warp * kWarpPackets;
   const bool resident = Tk <= kStageRows;
-  // ldmatrix row address of this lane: entry row (lane & 7) of an n-tile,
-  // 16-byte column (lane >> 3) of a 64-byte k-step pair
-  const uint32_t lane_addr = smem_addr(sm_planes) + (lane & 7) * kRowBytes + (lane >> 3) * 16;
+  const uint32_t lane_addr = lane_address(sm_planes, lane);
 
   if (resident) stage_rows(planes, lpm_const, order, 0, Tk, sm_planes, sm_const);
 
@@ -301,12 +212,7 @@ lpm_kernel(const int4* __restrict__ fields, const uint4* __restrict__ words,
           key[1] = w.x; key[2] = w.y; key[3] = w.z; key[4] = w.w;
         }
         ifx[m][h] = key[0];
-#pragma unroll
-        for (int ks = 0; ks < 5; ++ks) {
-          const uint32_t r = __brev(key[ks]);  // bit k of r = big-endian bit k
-          a[m][ks][h] = spread_nibble(r, q);          // k = 4q .. 4q + 3
-          a[m][ks][2 + h] = spread_nibble(r, 4 + q);  // k = 16 + 4q ..
-        }
+        key_fragments(a[m], h, key, q);
       }
     }
 

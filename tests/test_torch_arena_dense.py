@@ -19,7 +19,7 @@ from infw.backend.tpu import ArenaClassifier
 from infw.kernels import jaxpath
 from infw_torch import arena, compiler, oracle, packets, testing
 from infw_torch.backend.cuda import TorchArenaClassifier
-from infw_torch.kernels import arena_dense, torchpath
+from infw_torch.kernels import arena_dense, dense, torchpath
 from infw_torch.packets import narrow_wire
 
 from test_torch_arena import (MAX_TENANTS, N_TENANTS, PAGES, _assert_same_state, _extra,
@@ -437,3 +437,290 @@ def test_dense_classifier_matches_jax_arena_classifier(width):
     np.testing.assert_array_equal(
         pc.classify_tenants(pb, tenant, apply_stats=False).results,
         jc.classify_tenants(_jax_batch(pb), tenant, apply_stats=False).results)
+
+
+# --- K6's formulation: what the kernel computes, step by step ----------------------
+
+
+def _slab_rows(tab, width=4):
+    """A compiled table's dense rows (key, mask, mask_len, u16 rules),
+    unpadded."""
+    spec = arena.make_arena_spec("dense", 4, 1, max(tab.num_entries, 1), width)
+    k, m, ml, r = arena._dense_slab_arrays(spec, tab)
+    n = tab.num_entries
+    return k[:n], m[:n], ml[:n], r[:n]
+
+
+def _custom_pool(rows_of_page, S, pages, page_table, rng):
+    """Host pool arrays of ``pages`` slabs of S rows: page p holds the rows
+    ``rows_of_page[p]`` (key, mask, mask_len, rules) in their order at
+    sorted random positions, padding rows between them."""
+    width = next(iter(rows_of_page.values()))[3].shape[1]
+    N = pages * S
+    kw, mw = np.zeros((N, 5), np.uint32), np.zeros((N, 5), np.uint32)
+    ml, rules = np.full(N, -1, np.int32), np.zeros((N, width), np.uint16)
+    for p, (k, m, length, r) in rows_of_page.items():
+        n = len(length)
+        pos = np.sort(rng.choice(S, n, replace=False))
+        at = p * S + pos
+        kw[at], mw[at], ml[at], rules[at] = k, m, length, r
+    return {"key_words": kw, "mask_words": mw, "mask_len": ml, "rules": rules,
+            "page_table": np.asarray(page_table, np.int32)}
+
+
+def _both_pools(host):
+    """The same pool as the port's DenseArena (CPU) and JAX's."""
+    view = {np.dtype(np.uint32): np.int32, np.dtype(np.uint16): np.int16,
+            np.dtype(np.int32): np.int32}
+    port = arena.DenseArena(**{f: torch.from_numpy(a.view(view[a.dtype]))
+                               for f, a in host.items()})
+    return port, jaxpath.DenseArena(**{f: jax.device_put(a) for f, a in host.items()})
+
+
+def _held_three_ways(host, pages, pb, tenant):
+    """formulation == arena_dense_classify_plain == XLA's
+    arena_dense_result_and_score, column for column; returns the result."""
+    pool, jpool = _both_pools(host)
+    fields, words = torchpath.packet_fields(torchpath.device_batch(pb, "cpu"))
+    tt = torch.from_numpy(tenant)
+    got = arena_dense.formulation(fields, words, tt, pool, pages=pages)
+    plain = arena_dense.arena_dense_classify_plain(fields, words, tt, pool, pages=pages)
+    raw, score = jaxpath.arena_dense_result_and_score(
+        jpool, jaxpath.device_batch(_jax_batch(pb)), jax.device_put(tenant), pages=pages)
+    assert torch.equal(got, plain)
+    np.testing.assert_array_equal(got[:, 0].numpy(), np.asarray(raw).view(np.int32))
+    np.testing.assert_array_equal(got[:, 1].numpy(), np.asarray(score))
+    return got
+
+
+def test_page_buckets_sort_by_page_with_a_none_bucket():
+    """The grouping: pages 0..P-1, the clip page P (a page-table entry past
+    the pool), "none" P + 1 (tenant ids -1 and >= MT, absent and
+    destroyed tenants, lanes left out), two deduped tenants on one page
+    sharing its bucket; starts, the stable permutation and the tile
+    starts against a numpy recount."""
+    rng = np.random.default_rng(3)
+    P, MT, B = 6, 9, 3000
+    page_table = torch.tensor([0, 2, 2, -1, 5, 1, 7, 3, -1], dtype=torch.int32)  # 7: past P
+    tenant = torch.from_numpy(rng.integers(-2, MT + 2, B).astype(np.int32))
+    keep = torch.from_numpy(rng.random(B) < 0.9)
+    for k in (None, keep):
+        got = arena_dense.page_buckets(page_table, tenant, P, k)
+        t = tenant.numpy().astype(np.int64)
+        pg = np.where((t >= 0) & (t < MT), page_table.numpy()[np.clip(t, 0, MT - 1)], -1)
+        want = np.where(pg < 0, P + 1, np.minimum(pg, P))
+        if k is not None:
+            want = np.where(keep.numpy(), want, P + 1)
+        np.testing.assert_array_equal(got.bucket.numpy(), want)
+        counts = np.bincount(want, minlength=P + 2)
+        np.testing.assert_array_equal(got.start.numpy(), np.concatenate([[0], np.cumsum(counts)]))
+        np.testing.assert_array_equal(got.perm.numpy(), np.argsort(want, kind="stable"))
+        shared = (t == 1) | (t == 2)
+        if k is not None:
+            shared &= keep.numpy()
+        assert counts[2] == shared.sum()
+        assert counts[P] > 0 and counts[P + 1] > 0 and counts[4] == 0
+        tiles = arena_dense.tile_starts(got.start).numpy()
+        per = -(-counts[:P + 1] // arena_dense.TILE_PACKETS)
+        np.testing.assert_array_equal(tiles, np.concatenate([[0], np.cumsum(per)]))
+
+
+@pytest.mark.parametrize("n_rows", [1, 40, 1024])
+def test_chunk_operands_planes_constants_and_groups(n_rows):
+    """A staged chunk: every live row (mask_len 0..128) in exactly one
+    slot, in the group of its /32 cap and k-steps, its plane K1's host
+    plane (dense.lpm_planes) cut to those k-steps, its constant (mask_len
+    + 1) << 10 | (1023 - row) - 2^21 rowsum(M1); groups padded to 8 rows
+    of zero planes and the never-matching constant."""
+    rng = np.random.default_rng(n_rows)
+    tab = testing.random_tables_fast(rng, n_rows, width=4, v6_fraction=0.4)
+    k, m, ml, _r = _slab_rows(tab)
+    ml = ml.copy()
+    ml[::7] = -1          # padding rows among the live ones
+    ml[3::11] = 129       # never within any cap
+    kt, mt = torch.from_numpy(k.view(np.int32)), torch.from_numpy(m.view(np.int32))
+    ops = arena_dense.chunk_operands(kt, mt, torch.from_numpy(ml))
+    live = (ml >= 0) & (ml <= 128)
+    row = ops.row.numpy()
+    assert sorted(row[row >= 0]) == list(np.nonzero(live)[0])
+    gstart = ops.gstart.numpy()
+    assert (np.diff(gstart) % 8 == 0).all() and gstart[-1] == len(row)
+    planes, m1 = dense.lpm_planes(k, m)
+    for g in range(arena_dense.N_GROUPS):
+        sl = slice(gstart[g], gstart[g + 1])
+        rows = row[sl]
+        pad = rows < 0
+        assert (ops.planes[sl][torch.from_numpy(pad)] == 0).all()
+        assert (ops.const[sl].numpy()[pad] == arena_dense.LPM_NEVER).all()
+        rows = rows[~pad]
+        steps = g % 5 + 1
+        assert ((ml[rows] > 32) == (g >= 5)).all()
+        covered = np.where((m[rows] != 0).any(axis=1),
+                           5 - np.argmax((m[rows] != 0)[:, ::-1], axis=1), 1)
+        assert (covered == steps).all()
+        got = ops.planes[sl].numpy()[~pad]
+        np.testing.assert_array_equal(got[:, :32 * steps], planes[rows, :32 * steps])
+        assert not got[:, 32 * steps:].any() and not planes[rows, 32 * steps:].any()
+        key = ((ml[rows].astype(np.int64) + 1) << 10) | (1023 - rows)
+        np.testing.assert_array_equal(ops.const[sl].numpy()[~pad],
+                                      key - arena_dense.LPM_BIG * m1[rows].astype(np.int64))
+
+
+def test_packed_key_stays_in_int32_for_any_slab():
+    """The key is chunk-local, so the largest slab the spec allows (S up
+    to int32 pool indexing at the minimum 4 pages) has the same bounds as
+    one chunk: at 160 mismatches, and at a full match of 160 mask bits, on
+    rows 0 and 1023 of a chunk, every score stays within int32 and a match
+    is positive."""
+    s_max = ((2 ** 31 - 1) // 4) // 4096 * 4096
+    assert arena.make_arena_spec("dense", 4, 1, s_max, 1).entries == s_max
+    assert s_max > arena_dense.CHUNK and (4 * s_max) < 2 ** 31
+    n = arena_dense.CHUNK
+    ones = torch.full((n, 5), -1, dtype=torch.int32)
+    ml = torch.full((n,), 128, dtype=torch.int32)
+    ops = arena_dense.chunk_operands(ones, ones, ml)  # rowsum(M1) = 160 everywhere
+    fields = torch.zeros((2, 8), dtype=torch.int32)
+    fields[:, 0] = 2  # IPv6: every group
+    fields[0, 1], fields[1, 1] = -1, 0
+    words = torch.tensor([[-1] * 4, [0] * 4], dtype=torch.int32)
+    best = arena_dense.chunk_best(ops, fields, words)  # asserts the int32 range
+    assert int(best[0]) == (129 << 10) | 1023 and int(best[1]) < 0
+    assert int(ops.const.min()) >= -(2 ** 31) and arena_dense.LPM_BIG * 160 + int(
+        best[0]) < 2 ** 31
+
+
+def _special_rows(ifindex=2):
+    """Rows past /32 whose keys match an IPv4 packet's (a /64 and a /128
+    of 10.0.0.1 over zero high words), a v4 /0 and a v6 ::/0 (which match
+    every packet on the ifindex), each with a catch-all rule of its own."""
+    k = np.zeros((4, 5), np.uint32)
+    m = np.zeros((4, 5), np.uint32)
+    k[:, 0], m[:, 0] = ifindex, 0xFFFFFFFF
+    k[0:2, 1] = 0x0A000001
+    m[0, 1:3] = 0xFFFFFFFF
+    m[1, 1:5] = 0xFFFFFFFF
+    ml = np.array([64, 128, 0, 0], np.int32)
+    r = np.zeros((4, 20), np.uint16)
+    r[:, 0] = np.array([61, 62, 63, 64]) | (np.array([1, 2, 1, 2]) << 8)
+    return k, m, ml, r
+
+
+def _stack(*parts):
+    return tuple(np.concatenate([p[i] for p in parts]) for i in range(4))
+
+
+@pytest.mark.parametrize("case", ["mixed", "ties", "caps", "S8", "S5000", "S65544"])
+def test_formulation_matches_plain_and_xla(case):
+    """The formulation (the kernel's page grouping, staged chunks and
+    integer product) against the plain K6 and XLA's
+    arena_dense_result_and_score, bit for bit: a mixed batch over pages
+    with padding rows interleaved, two deduped tenants on one page, tenant
+    ids -1 and >= MT, an absent (destroyed) tenant and one whose page is
+    past the pool; ties between equal-length rows (the lowest wins, within
+    a chunk and across chunks); rows past /32 that match IPv4 packets and
+    /0 rows; slabs of 8, 1024 (one chunk), 5000 and 65544 rows."""
+    rng = np.random.default_rng(len(case))
+    S = {"S8": 8, "S5000": 5000, "S65544": 65544}.get(case, 1024)
+    pages = 4 if case == "S65544" else 6
+    n_entries = {"S8": 6, "ties": 400, "S5000": 2000, "S65544": 900}.get(case, 700)
+    per = {"S65544": 8, "S5000": 60}.get(case, 150)
+    tabs = [testing.random_tables_fast(np.random.default_rng(50 + t), n_entries, width=4,
+                                       v6_fraction=0.4, ifindexes=(2, 3)) for t in range(3)]
+    rows = {p: _slab_rows(tabs[p]) for p in range(3)}
+    if case in ("ties", "S5000", "S65544"):
+        # every row of page 0 again, later, with ruleId 0x33: ties
+        k, m, ml, r = rows[0]
+        r2 = r.copy()
+        r2[:, 0] = (r2[:, 0] & 0xFF00) | 0x33
+        rows[0] = _stack(rows[0], (k, m, ml, r2))
+    if case == "caps":
+        for p in range(3):
+            rows[p] = _stack(rows[p], _special_rows())
+    if case == "S8":
+        rows = {p: tuple(a[:S] for a in rows[p]) for p in rows}
+    # tenants: 0 -> page 0, 1 and 4 -> page 1 (deduped), 2 -> page 2,
+    # 3 destroyed (-1), 5 -> page 9 (past the pool: rows clip to the last)
+    page_table = [0, 1, 2, -1, 1, 9]
+    host = _custom_pool(rows, S, pages, page_table, rng)
+    # the pool's last row, which every row of page 9 clips to: a v4 /0
+    k, m, ml, r = _special_rows()
+    for f, v in zip(("key_words", "mask_words", "mask_len", "rules"), (k, m, ml, r)):
+        host[f][-1] = v[2]
+    parts, tags = [], []
+    for t, p in enumerate(page_table):
+        tab = tabs[p] if 0 <= p < 3 else tabs[0]
+        parts.append(testing.random_batch_fast(np.random.default_rng(70 + t), tab, per))
+        tags.append(np.full(per, t, np.int32))
+    if case == "caps":
+        srcs = ["10.0.0.1", "10.0.0.2", "a00:1::", "2001:db8::1"] * 2
+        parts.append(packets.make_batch(src=srcs, proto=[6] * 8, ifindex=[2] * 8,
+                                        dst_port=[80] * 8, kind=[1, 1, 2, 2, 1, 1, 2, 2]))
+        tags.append(np.array([0, 0, 0, 0, 1, 1, 4, 4], np.int32))
+    pb = packets.concat(parts)
+    tenant = np.concatenate(tags)
+    tenant[:5], tenant[-5:] = -1, len(page_table) + 3
+    got = _held_three_ways(host, pages, pb, tenant)
+    matched = got[:, 1] > 0
+    assert int(matched.sum()) > len(pb) // 4
+    assert not got[torch.from_numpy((tenant < 0) | (tenant == 3) | (tenant >= 6))].any()
+    if case in ("ties", "S5000", "S65544"):
+        assert ((got[:, 0] >> 8) & 0xFF).ne(0x33).all()
+    if case == "caps":
+        v4 = torch.from_numpy(pb.kind == 1)
+        assert (got[v4, 1] <= 33).all() and (got[~v4, 1] == 129).any()
+        assert (got[v4 & matched, 1] == 1).any()  # the /0 rows
+
+
+@pytest.mark.parametrize("width", [7, 6, 4, 3])
+def test_wire_formulation_matches_fused_plain_and_jax(width):
+    """The fused entry's formulation (finalize's zeroed lanes in the
+    "none" bucket) against classify_arena_dense_wire_fused's plain version
+    and jitted_classify_arena_wire_fused("dense"), word for word."""
+    ja, pa, _jt, ptabs = _dense_pair()
+    pb, tenant = _mixed(testing, ptabs, per=90, seed=80 + width)
+    if width in (4, 3):
+        idx = np.nonzero((pb.kind != 2) & ~pb.ip_words[:, 1:].any(axis=1))[0]
+        pb, tenant = pb.take(idx), tenant[idx]
+        wire = pb.pack_wire_v4()
+    else:
+        wire = pb.pack_wire()
+    if width in (6, 3):
+        wire = narrow_wire(wire)
+    tw = torch.from_numpy(wire.view(np.int32))
+    tt = torch.from_numpy(tenant)
+    got = arena_dense.wire_formulation(pa.arena, tw, tt, pages=PAGES)
+    assert torch.equal(got, arena_dense.classify_arena_dense_wire_fused_plain(pa.arena, tw, tt,
+                                                                              pages=PAGES))
+    fn = jaxpath.jitted_classify_arena_wire_fused("dense", PAGES, 0)
+    want = np.asarray(fn(ja.arena, jax.device_put(wire), jax.device_put(tenant)))
+    np.testing.assert_array_equal(got.numpy(), want.view(np.int32))
+
+
+def test_chip_smoke_dense_bound_counts_the_k_steps_compares_need():
+    """chip_smoke.py's K6 bound against a row-by-row count: for each lane
+    finalize keeps whose tenant holds a page, every live row of its slab
+    (an IPv4 lane's only up to /32) costs its k-steps (the key words its
+    mask covers, at least 1) x 2 x 32 int8 operations."""
+    import chip_smoke
+
+    _ja, pa, _jt, ptabs = _dense_pair()
+    pb, tenant = _mixed(testing, ptabs, per=60, seed=77)
+    wire = torch.from_numpy(narrow_wire(pb.pack_wire()).view(np.int32))
+    tt = torch.from_numpy(tenant)
+    _ms, _by, _nbytes, ops, compares, ksteps = chip_smoke.dense_bound(
+        arena_dense, torchpath, pa.arena, wire, tt, PAGES)
+    fields, _words, keep = chip_smoke.looked_up_operands(torchpath, wire)
+    S = arena_dense.slab_rows(pa.arena, PAGES)
+    pt, ml = pa.arena.page_table.numpy(), pa.arena.mask_len.numpy()
+    mw = pa.arena.mask_words.numpy()
+    want_c = want_k = 0
+    for i, t in enumerate(tenant):
+        if not keep[i] or not 0 <= t < len(pt) or pt[t] < 0:
+            continue
+        cap = 32 if int(fields[i, 0]) == arena_dense.KIND_IPV4 else 128
+        for r in range(pt[t] * S, pt[t] * S + S):
+            if 0 <= ml[r] <= cap:
+                want_c += 1
+                want_k += max(1, int(np.nonzero(mw[r])[0].max(initial=-1)) + 1)
+    assert want_c > 0 and (compares, ksteps) == (want_c, want_k)
+    assert ops == 64 * want_k

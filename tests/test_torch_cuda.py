@@ -1116,6 +1116,149 @@ def test_k6_fused_matches_plain(cuda, B):
                                                                       pages=spec.pages)))
 
 
+def _k6_against_plain(pool, pages, batch, tenant, device, grid=0):
+    """Both K6 entries on the card against their plain versions, bit for
+    bit, one launch each: the two-column entry on the batch, the fused
+    entry at wire widths 7, 6, 4 and 3 (the v4-compact ones on the
+    batch's IPv4-compactable packets).  Returns the two-column output."""
+    fields, words = torchpath.packet_fields(torchpath.device_batch(batch, device))
+    tt = torch.from_numpy(tenant).to(device)
+    before = _launch_counts()
+    got = arena_dense.arena_dense_classify(fields, words, tt, pool, pages=pages, _grid=grid)
+    torch.cuda.synchronize()
+    assert _launch_deltas(before) == {"arena_dense": 1}
+    assert torch.equal(got, arena_dense.arena_dense_classify_plain(fields, words, tt, pool,
+                                                                    pages=pages))
+    wires, rows = _fused_wires(batch, device), _fused_rows(batch)
+    for width in cwalk.WIRE_WIDTHS:
+        wire = wires[width][0]
+        t = torch.from_numpy(tenant[rows[width]].copy()).to(device)
+        _one_launch_equal(arena_dense.FUSED_KERNEL, (
+            lambda w=wire, t=t: arena_dense.classify_arena_dense_wire_fused(pool, w, t,
+                                                                            pages=pages,
+                                                                            _grid=grid),
+            lambda w=wire, t=t: arena_dense.classify_arena_dense_wire_fused_plain(pool, w, t,
+                                                                                  pages=pages)))
+    return got
+
+
+def _k6_case(case, device):
+    """(pool, pages, batch, tenant) of one skewed K6 batch."""
+    if case == "side_pool":  # the overlay side-pool: 1024-row slabs, 32 live rows
+        tabs = [testing.random_tables_fast(np.random.default_rng(900 + t), 32, width=4,
+                                           ifindexes=(2, 3), v6_fraction=0.4) for t in range(8)]
+        spec = arena.make_arena_spec("dense", 10, 8, 1024, 4)
+        al = arena.ArenaAllocator(spec, device)
+        for t, tab in enumerate(tabs):
+            al.load_tenant(t, tab)
+        batch, tenant = _mixed_tenants(tabs, 700, seed=31)
+        return al.arena, spec.pages, batch, tenant
+    n_tenants, entries = {"one_per_tenant": (40, 1000), "S4096": (3, 3000),
+                          "S8192": (2, 5000)}.get(case, (6, 1000))
+    tabs, spec, al = _dense_arena(device, n_tenants, entries)
+    if case == "one_tenant":  # every packet on tenant 2
+        batch = testing.random_batch_fast(np.random.default_rng(41), tabs[2], 20_000)
+        tenant = np.full(len(batch), 2, np.int32)
+    elif case == "one_per_tenant":  # one packet per tenant, and ids -1 and past the table
+        batch, tenant = _mixed_tenants(tabs, 1, seed=42)
+        tenant = np.concatenate([tenant, [-1, n_tenants + 7]]).astype(np.int32)
+        batch = concat([batch, batch.take(np.arange(2))])
+    elif case == "v4_v6_tile":  # IPv4 and IPv6 packets alternating within each tile
+        b = testing.random_batch_fast(np.random.default_rng(43), tabs[0], 4000)
+        v4, v6 = np.nonzero(b.kind == 1)[0], np.nonzero(b.kind == 2)[0]
+        n = min(len(v4), len(v6))
+        batch = b.take(np.stack([v4[:n], v6[:n]], axis=1).reshape(-1))
+        tenant = np.zeros(len(batch), np.int32)
+    else:  # a mixed batch shuffled; the large slabs span 4 and 8 staging chunks
+        batch, tenant = _mixed_tenants(tabs, 3000, seed=44)
+        order = np.random.default_rng(45).permutation(len(batch))
+        batch, tenant = batch.take(order), tenant[order]
+    return al.arena, spec.pages, batch, tenant
+
+
+@pytest.mark.parametrize("case", ["one_tenant", "one_per_tenant", "shuffled", "v4_v6_tile",
+                                  "side_pool", "S4096", "S8192"])
+def test_k6_entries_on_skewed_batches(cuda, case):
+    """Both K6 entries against their plain versions, bit for bit, on every
+    packet of one tenant, one packet per tenant, a shuffled mixed batch,
+    IPv4 and IPv6 packets in one tile, the overlay side-pool's 32 live
+    rows in 1024-row slabs, and slabs of 4096 and 8192 rows (4 and 8
+    staging chunks); each also on its first 1 and 17 packets and under a
+    grid of 3 blocks."""
+    pool, pages, batch, tenant = _k6_case(case, cuda)
+    assert pool.mask_len.shape[0] // pages == {"S4096": 4096, "S8192": 8192}.get(case, 1024)
+    got = _k6_against_plain(pool, pages, batch, tenant, cuda)
+    assert int((got[:, 1] > 0).sum()) > (0 if case == "one_per_tenant" else len(batch) // 4)
+    for B in (1, 17):
+        _k6_against_plain(pool, pages, batch.take(np.arange(B)), tenant[:B].copy(), cuda)
+    _k6_against_plain(pool, pages, batch, tenant, cuda, grid=3)
+
+
+def test_k6_sees_a_rules_only_patch_on_the_next_classify(cuda):
+    """A rules-only patch writes the live pool in place between two
+    classifies: the next launch of each K6 entry stages the new rows (K6
+    caches nothing between calls), equal to the plain versions."""
+    tabs = _arena_tenants(3, 200)
+    spec = arena.arena_spec_for("dense", tabs, pages=5, max_tenants=4)
+    al = arena.ArenaAllocator(spec, cuda)
+    upds = {t: compiler.IncrementalTables.from_content(dict(tab.content), rule_width=4)
+            for t, tab in enumerate(tabs)}
+    for t, u in upds.items():
+        al.load_tenant(t, u.snapshot())
+    batch, tenant = _mixed_tenants(tabs, 2000, seed=50)
+    before = _k6_against_plain(al.arena, spec.pages, batch, tenant, cuda)
+    upd = upds[1]
+    upd.start_dirty_tracking()
+    edits = {}
+    for k in sorted(upd.content, key=lambda k: (k.ingress_ifindex, k.ip_data))[:50]:
+        r = np.asarray(upd.content[k]).copy()
+        r[0] = [99, 0, 0, 0, 0, 0, 1]
+        edits[k] = r
+    upd.apply(edits, [])
+    assert al.load_tenant(1, upd.snapshot(), hint=upd.peek_dirty()) == "patch"
+    after = _k6_against_plain(al.arena, spec.pages, batch, tenant, cuda)
+    changed = (after != before).any(dim=1).cpu().numpy()
+    assert changed.any() and (tenant[changed] == 1).all()
+    assert ((after[:, 0] >> 8) & 0xFF == 99).any()
+
+
+def test_k6_passes_are_two_kernels(cuda):
+    """On the card each K6 entry is two kernels, the cooperative one (the
+    grouping, the staging and the product) and the rule scan's, the fused
+    entry with at most one memset: the profiler sees nothing else (traced
+    as chip_smoke.py traces, after a warm-up step, over 3 calls)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    pool, pages, batch, tenant = _k6_case("shuffled", cuda)
+    fields, words = torchpath.packet_fields(torchpath.device_batch(batch, cuda))
+    tt = torch.from_numpy(tenant).to(cuda)
+    wire = torch.from_numpy(narrow_wire(batch.pack_wire()).view(np.int32)).to(cuda)
+    short = lambda n: next((k for k in ("arena_dense_kernel", "rule_scan_kernel") if k in n), n)
+    for run, memsets_max in (
+            (lambda: arena_dense.arena_dense_classify(fields, words, tt, pool, pages=pages), 0),
+            (lambda: arena_dense.classify_arena_dense_wire_fused(pool, wire, tt, pages=pages), 1)):
+        run()
+        torch.cuda.synchronize()
+        for _ in range(5):  # traced again when the trace lost a kernel event
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                         schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+                run()
+                torch.cuda.synchronize()
+                prof.step()
+                for _ in range(3):
+                    run()
+                torch.cuda.synchronize()
+                prof.step()
+            dev = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA
+                   and not e.is_user_annotation and not e.name.startswith("ProfilerStep")]
+            kernels = [short(n) for n in dev if not n.startswith(("Memset", "Memcpy"))]
+            if len(kernels) >= 6:
+                break
+        assert sorted(kernels) == ["arena_dense_kernel"] * 3 + ["rule_scan_kernel"] * 3, kernels
+        assert len([n for n in dev if n.startswith("Memset")]) <= 3 * memsets_max, dev
+
+
 def test_k6_rejects_bad_operands(cuda):
     tabs, spec, al = _dense_arena(cuda, 2, 24)
     fields = torch.zeros((8, 8), dtype=torch.int32, device=cuda)
