@@ -8,8 +8,9 @@ example a ``git archive`` of the parent commit, unpacked): its K2, K3, K3b
 and K6 are built from its sources and, after their outputs are held equal
 to this tree's, timed beside them in turns on the same inputs.
 
-Drives the port's dense, trie and ctrie classify paths, its wire codecs and
-its multi-tenant arena on the card and fails (non-zero exit, no result line) on any error:
+Drives the port's dense, trie and ctrie classify paths, its wire codecs,
+its multi-tenant arena and its flow tier on the card and fails (non-zero
+exit, no result line) on any error:
 
 1. device: the card's name and power limit (nvidia-smi);
 2. build: every hand-written kernel from its source with nvcc, one nvcc
@@ -146,6 +147,25 @@ its multi-tenant arena on the card and fails (non-zero exit, no result line) on 
     flush under the profiler (host-to-device copies and kernels per
     flush), each step checked as the others;
 11. the gather microbenchmark's kernel K5 and its tool;
+11b. the stateful flow tier (ROADMAP item 9) at the JAX package's flow
+    bench (bench.py bench_flow): a 200K-entry v6-heavy table of 8 rule
+    slots (the trie path) and a 2^17-entry 4-way flow table, 2^18 packets
+    of testing.flow_trace_batch in 4096-packet chunks at 0, 50, 90 and 99%
+    established; per rung every chunk's verdicts against the stateless
+    classifier, then packets/s of the flow and the stateless pass in
+    turns, the measured hit rate and the launches of K7, K8 and K2 per
+    pass (counts zeroed before, read after); K7 and K8 against their
+    plain versions chunk by chunk over the 90% trace (fused buffers,
+    counts, all four columns); their times at B = 4096 and 2^18 (CUDA
+    events and the profiler's device time: three kernels and a memset a
+    call) beside their bounds and plain versions; the eviction storm (a
+    table 8x smaller than the flow population); the dense arena of 9d
+    with a flow table of 2^14 entries a page (K6 serves the misses)
+    against its stateless classify, each K7 and K8 call of it replayed by
+    the plain versions on a clone of its columns with the same generations,
+    page table, wire, tenants, flags and verdicts; the daemon with --flow-table 2^17
+    over a 1M-frame file read twice, against a stateless daemon, its
+    flow_* on /metrics against the classifier's counters;
 12. the port's daemon (infw_torch.daemon.Daemon, threads started): the
     headline CRs' ingress blocks as one NodeState file, then bench config
     5a's replay of the 100K trie re-adopted from a checkpoint; then an
@@ -158,7 +178,7 @@ its multi-tenant arena on the card and fails (non-zero exit, no result line) on 
     tables); every file's verdicts against the oracle on subsets and a
     host recount, stats, deny events and /metrics; launches per pass go
     on the kernels line as ``daemon_launches``;
-13. one JSON ``kernels`` line (K3, K3b and K6 as their fused entries,
+13. one JSON ``kernels`` line (K1-K8; K3, K3b and K6 as their fused entries,
     which the main paths run, each with its two-column entry's readings
     under ``two_column``), then the device JSON as the last line.
 
@@ -174,6 +194,7 @@ Imports nothing of JAX or of the JAX package ``infw``.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -3257,6 +3278,9 @@ OVERLAY_CAP, OVERLAY_SLOTS = 1024, 16
 K6_OPS_PER_KSTEP = 2 * 32
 #: the device of the tenant, clone, dense-arena and overlay phases
 DEV = "cuda"
+#: the dense arena of dense_arena_phase (spec, tables, the destroyed tenant,
+#: its stateless classifier), kept for the flow phase
+DENSE_ARENA: dict = {}
 
 
 def timed_device(fn):
@@ -3863,7 +3887,8 @@ def dense_arena_phase(tag: str) -> dict:
             tag, "K6 fused, shuffled", run_s, parent_k6_run("arena_dense_fused", fa_s))["parent_ms"]
         entry["two_column"]["parent_ms"] = parent_turns(
             tag, "K6 two-column, grouped", two, parent_k6_run("arena_dense", ka))["parent_ms"]
-    clf.close()
+    # the flow phase serves this arena again with a flow table in front
+    DENSE_ARENA.update(spec=spec, tabs=tabs, gone=gone, stateless=clf)
     return entry
 
 
@@ -3995,6 +4020,430 @@ def overlay_phase(tag: str, k6: dict) -> dict:
             tag, "K6 two-column, side-pool", two, parent_k6_run("arena_dense", ka))["parent_ms"]
     clf.close()
     return launches
+
+
+# the JAX package's flow ladder on a chip (bench.py bench_flow, on_tpu=True):
+# a v6-heavy 200K-entry table of 8 rule slots (the trie path), a 2^17-entry
+# 4-way flow table, 2^18 packets in 4096-packet chunks at four shares of
+# established traffic
+FLOW_TABLE_ENTRIES, FLOW_TABLE_WIDTH, FLOW_SLAB = 200_000, 8, 1 << 17
+FLOW_PACKETS, FLOW_CHUNK, FLOW_RUNGS, FLOW_REPS = 1 << 18, 4096, (0.0, 0.5, 0.9, 0.99), 3
+# the dense arena's flow table: 2^14 entries per slab, one slab per page
+FLOW_ARENA_SLAB, FLOW_ARENA_PER = 1 << 14, 256
+# the daemon's flow pass: a 1M-frame file of a 90%-established trace, twice
+FLOW_DAEMON_CIDRS, FLOW_DAEMON_FRAMES = 20_000, 1_000_000
+
+
+def flow_bytes(kind: str, wire_words: int, B: int, ways: int, hits: int = 0,
+               inserts: int = 0) -> int:
+    """The bytes the flow probe or the flow insert must move for one call,
+    whatever kernel computes it (each input read once, each output written
+    once): per lane the wire, the tenant and flags (and the verdict), W
+    candidate rows (probe: keys 32 + se 8 + vg 8 bytes; insert: keys and
+    se), the page and the generation; the probe's 2-byte result, its
+    bitmap and counts, the hit lanes' cnt rows read and written and their
+    se rows written (read with the candidates); the insert's winners'
+    60-byte rows (keys, vg, se, cnt) and counts.  Scratch that a kernel
+    keeps between its launches is the kernel's cost, not the function's,
+    and is not counted."""
+    if kind == "probe":
+        return (B * (wire_words * 4 + 8 + ways * 48 + 8 + 2) + -(-B // 32) * 4 + 8
+                + hits * (24 + 8))
+    return B * (wire_words * 4 + 12 + ways * 40 + 8) + inserts * 60 + 16
+
+
+def kernel_label(name: str) -> str:
+    """A profiler kernel name without its template arguments and
+    parameter list ("flow_probe_decide<7>(int const*, ...)" ->
+    "flow_probe_decide")."""
+    return (re.findall(r"(\w+)[<(]", name) or [name])[0]
+
+
+@contextlib.contextmanager
+def flow_kernels_held(kflow, label: str, seen: dict):
+    """While open, every K7 and K8 call is replayed by its plain version on
+    a clone of the columns it was given, with the same arguments (the
+    probe-time generations, page table and epoch; the same wire, tenants,
+    flags and verdicts): the fused buffer or the counts and all four
+    columns must be equal after each call.  ``seen`` counts the calls held
+    by kernel name.  The replay launches nothing, so the launch counts are
+    the kernels' own."""
+    import torch
+
+    kernels = {"flow_probe": (kflow.flow_probe, kflow.flow_probe_plain),
+               "flow_insert": (kflow.flow_insert, kflow.flow_insert_plain)}
+
+    def held(name, fn, plain):
+        def call(table, *args, **kw):
+            want = kflow.clone_flow_table(table)
+            got = fn(table, *args, **kw)
+            ref = plain(want, *args, **kw)
+            if not torch.equal(got, ref) or not all(
+                    torch.equal(getattr(table, f), getattr(want, f)) for f in kflow.COLUMNS):
+                raise SystemExit(f"{label}: {name} call {seen.get(name, 0)} disagrees with its "
+                                 f"plain version")
+            seen[name] = seen.get(name, 0) + 1
+            return got
+        return call
+
+    for name, (fn, plain) in kernels.items():
+        setattr(kflow, name, held(name, fn, plain))
+    try:
+        yield
+    finally:
+        for name, (fn, _plain) in kernels.items():
+            setattr(kflow, name, fn)
+
+
+def flow_phase(tag: str) -> tuple:
+    """The stateful flow tier (ROADMAP item 9) at the JAX package's flow
+    bench shape: per rung of established traffic, every chunk's verdicts
+    against the stateless classifier on the same tables before any timing,
+    then packets/s of the flow pass (from a cold table) and of the
+    stateless pass in turns, the measured hit rate and the launches of
+    K7, K8 and K2 per pass; K7 and K8 against their plain versions chunk by
+    chunk over the 90% trace (fused buffers, counts, all four columns);
+    their times at B = 4096 and 2^18 beside their bounds and plain
+    versions; the eviction storm; the dense arena of PERF.md section 4 with
+    a flow table, against its stateless classify (K6 serves the misses),
+    K7 and K8 held there against their plain versions;
+    and the daemon with --flow-table over a 1M-frame file read twice,
+    against a stateless daemon, flow_* on /metrics against the
+    classifier's counters.  Returns the kernels-line entries of K7 and
+    K8."""
+    import shutil
+
+    import torch
+
+    from infw_torch import compiler, daemon, spec as spec_mod, testing
+    from infw_torch.backend.cuda import TorchArenaClassifier, TorchClassifier
+    from infw_torch.flow import FlowConfig, host_unpack_wire
+    from infw_torch.interfaces import Interface, InterfaceRegistry
+    from infw_torch.kernels import all_kernels, flow as kflow
+    from infw_torch.obs import pcap
+
+    kernels = all_kernels()
+    t0 = time.perf_counter()
+    tables = testing.random_tables_fast(np.random.default_rng(77), FLOW_TABLE_ENTRIES,
+                                        width=FLOW_TABLE_WIDTH, v6_fraction=0.8, ifindexes=(2, 3))
+    cfg = FlowConfig.make(entries=FLOW_SLAB)
+    clf = TorchClassifier(device=DEV, flow_table=cfg)
+    base = TorchClassifier(device=DEV)
+    clf.load_tables(tables)
+    base.load_tables(tables)
+    if (clf.active_path, base.active_path) != ("trie", "trie"):
+        raise SystemExit(f"flow phase: paths {clf.active_path}, {base.active_path}; expected trie")
+    warm = clf.flow.warm([FLOW_CHUNK])
+    torch.cuda.synchronize()
+    log(f"flow: {tables.num_entries} entries x {tables.rule_width} rule slots (trie path), flow "
+        f"table {cfg.capacity} rows x {cfg.ways} ways "
+        f"({sum(t.numel() * 4 for t in clf.flow._flow) / 1e6:.1f} MB with K8's scratch), "
+        f"{warm} warm launches; set up in {time.perf_counter() - t0:.2f} s")
+
+    def run_pass(c, batch):
+        return [c.classify(batch.slice(lo, lo + FLOW_CHUNK), apply_stats=False)
+                for lo in range(0, len(batch), FLOW_CHUNK)]
+
+    def check(outs, want, label):
+        for k, (o, w) in enumerate(zip(outs, want)):
+            if not (np.array_equal(o.results, w.results) and np.array_equal(o.xdp, w.xdp)
+                    and np.array_equal(o.stats_delta, w.stats_delta)):
+                raise SystemExit(f"flow {label}: chunk {k} disagrees with the stateless path")
+
+    def flow_pass(c, batch):
+        c.flow.reset()
+        torch.cuda.synchronize()
+        for k in kernels:
+            k.launches = 0
+        s0 = c.flow.stats.values()
+        t = time.perf_counter()
+        run_pass(c, batch)
+        dt = time.perf_counter() - t
+        s1 = c.flow.stats.values()
+        return dt, (s1["hits"] - s0["hits"]) / len(batch), {k.name: k.launches for k in kernels
+                                                              if k.launches}
+
+    def base_pass(batch):
+        t = time.perf_counter()
+        run_pass(base, batch)
+        return time.perf_counter() - t
+
+    traces, ladder = {}, {}
+    for ef in FLOW_RUNGS:
+        pct = int(ef * 100)
+        batch, meta = testing.flow_trace_batch(np.random.default_rng(7700 + pct), tables,
+                                               FLOW_PACKETS, ef, chunk_packets=FLOW_CHUNK)
+        traces[pct] = (batch, meta)
+        clf.flow.reset()
+        check(run_pass(clf, batch), run_pass(base, batch), f"{pct}%")
+        flow_pass(clf, batch)  # warm, off the clock
+        base_pass(batch)
+        flow_s, base_s, hit_rate, launches = float("inf"), float("inf"), 0.0, {}
+        for _ in range(FLOW_REPS):  # in turns, min against min
+            dt, hr, ln = flow_pass(clf, batch)
+            if dt < flow_s:
+                flow_s, hit_rate, launches = dt, hr, ln
+            base_s = min(base_s, base_pass(batch))
+        if launches.get("flow_probe", 0) <= 0 or launches.get("flow_insert", 0) <= 0:
+            raise SystemExit(f"flow {pct}%: the flow pass launched {launches}")
+        ladder[pct] = {"flow_pps": FLOW_PACKETS / flow_s, "stateless_pps": FLOW_PACKETS / base_s,
+                       "hit_rate": hit_rate, "launches": launches}
+        log(f"{tag} flow ladder {pct}% established: {FLOW_PACKETS / flow_s / 1e6:.3f} M packets/s "
+            f"flow (measured hit rate {hit_rate:.4f}, {meta['n_flows']} flows) against "
+            f"{FLOW_PACKETS / base_s / 1e6:.3f} M packets/s stateless ({base_s / flow_s:.3f}x); "
+            f"launches per flow pass {launches} ({FLOW_PACKETS // FLOW_CHUNK} chunks); verdicts "
+            f"of every chunk equal to the stateless path's")
+
+    # K7 and K8 against their plain versions, chunk by chunk over the 90%
+    # trace, as the classifier drives them (the misses compacted)
+    batch, _meta = traces[90]
+    dev = torch.device(DEV)
+    put = lambda a: torch.from_numpy(np.ascontiguousarray(a).view(np.int32)).to(dev)  # noqa: E731
+    got = kflow.empty_flow_table(cfg.capacity, dev)
+    want = kflow.clone_flow_table(got)
+    one = torch.zeros(1, dtype=torch.int32, device=dev)
+    geo = {"slab_entries": cfg.entries, "ways": cfg.ways}
+    ref = run_pass(base, batch)
+    n_chunks = 0
+    for k, lo in enumerate(range(0, len(batch), FLOW_CHUNK)):
+        sub = batch.slice(lo, lo + FLOW_CHUNK)
+        wire_np = sub.pack_wire()
+        wire, fl = put(wire_np), put(sub.tcp_flags.astype(np.int32))
+        zt = torch.zeros(len(sub), dtype=torch.int32, device=dev)
+        fused = kflow.flow_probe(got, one, one, wire, zt, fl, k + 1, cfg.max_age, **geo)
+        pf = kflow.flow_probe_plain(want, one, one, wire, zt, fl, k + 1, cfg.max_age, **geo)
+        if not torch.equal(fused, pf):
+            raise SystemExit(f"K7: chunk {k} of the 90% trace disagrees with its plain version")
+        hit = kflow.split_flow_probe_outputs(fused.cpu().numpy(), len(sub))[1]
+        miss = np.nonzero(~hit)[0]
+        mw = put(wire_np[miss])
+        mt = torch.zeros(len(miss), dtype=torch.int32, device=dev)
+        mf = put(sub.tcp_flags[miss].astype(np.int32))
+        mv = put((ref[k].results[miss] & 0xFFFF).astype(np.int32))
+        c1 = kflow.flow_insert(got, one, one, mw, mt, mf, mv, k + 1, **geo)
+        c2 = kflow.flow_insert_plain(want, one, one, mw, mt, mf, mv, k + 1, **geo)
+        if not torch.equal(c1, c2) or not all(torch.equal(getattr(got, f), getattr(want, f))
+                                              for f in kflow.COLUMNS):
+            raise SystemExit(f"K8: chunk {k} of the 90% trace disagrees with its plain version")
+        n_chunks += 1
+    torch.cuda.synchronize()
+    log(f"K7 and K8 against their plain versions over the 90% trace: {n_chunks} chunks, fused "
+        f"buffers, counts and the four columns equal after every chunk "
+        f"({int((got.se[:, 0] > 0).sum())} live entries at the end)")
+
+    # times at B = 4096 (a steady-state chunk) and 2^18 (the trace as one
+    # batch), each on a copy of the warm table
+    timing = {}
+    for B in (FLOW_CHUNK, FLOW_PACKETS):
+        sub = batch.slice(len(batch) // 2, len(batch) // 2 + B) if B < len(batch) else batch
+        wire_np = sub.pack_wire()
+        wire, fl = put(wire_np), put(sub.tcp_flags.astype(np.int32))
+        zt = torch.zeros(len(sub), dtype=torch.int32, device=dev)
+        verdict = put(np.random.default_rng(B).integers(0, 1 << 16, len(sub)).astype(np.int32))
+        tbl = kflow.clone_flow_table(got)
+        hits = kflow.split_flow_probe_outputs(
+            kflow.flow_probe(kflow.clone_flow_table(got), one, one, wire, zt, fl, 999, cfg.max_age,
+                             **geo).cpu().numpy(), B)[2]
+        counts = kflow.flow_insert(kflow.clone_flow_table(got), one, one, wire, zt, fl, verdict,
+                                   999, **geo).cpu().numpy()
+        f = host_unpack_wire(wire_np)
+        rst = (f["proto"] == 6) & ((sub.tcp_flags & 0x04) != 0)
+        elig = int((((f["kind"] == 1) | (f["kind"] == 2)) & (f["l4_ok"] != 0) & ~rst).sum())
+        reps = 50 if B == FLOW_CHUNK else 10
+        k7 = cuda_ms(lambda: kflow.flow_probe(tbl, one, one, wire, zt, fl, 999, cfg.max_age, **geo),
+                     reps=reps)
+        k8 = cuda_ms(lambda: kflow.flow_insert(tbl, one, one, wire, zt, fl, verdict, 999, **geo),
+                     reps=reps)
+        ptbl = kflow.clone_flow_table(got)
+        p7 = cuda_ms(lambda: kflow.flow_probe_plain(ptbl, one, one, wire, zt, fl, 999,
+                                                    cfg.max_age, **geo), reps=3, warmup=1)
+        p8 = cuda_ms(lambda: kflow.flow_insert_plain(ptbl, one, one, wire, zt, fl, verdict, 999,
+                                                     **geo), reps=3, warmup=1)
+        # the device time per call from the profiler (CUDA events over a
+        # loop time the wrapper's host side when the device work is shorter)
+        c7, m7, c8, m8 = {}, {}, {}, {}
+        d7 = profiled_kernels(lambda: kflow.flow_probe(tbl, one, one, wire, zt, fl, 999,
+                                                       cfg.max_age, **geo), 20, c7, m7)
+        d8 = profiled_kernels(lambda: kflow.flow_insert(tbl, one, one, wire, zt, fl, verdict, 999,
+                                                        **geo), 20, c8, m8)
+        if d7 and (sum(c7.values()) != 3 or sum(m7.values()) != 1):
+            raise SystemExit(f"K7: {c7} kernels and {m7} memsets per call; expected 3 and 1")
+        if d8 and (sum(c8.values()) != 3 or sum(m8.values()) != 1):
+            raise SystemExit(f"K8: {c8} kernels and {m8} memsets per call; expected 3 and 1")
+        dev7 = sum(d7.values()) / 1e3 if d7 else None
+        dev8 = sum(d8.values()) / 1e3 if d8 else None
+        b7 = flow_bytes("probe", 7, B, cfg.ways, hits=hits) / HBM_BYTES_PER_S * 1e3
+        b8 = flow_bytes("insert", 7, B, cfg.ways, inserts=int(counts[0])) / HBM_BYTES_PER_S * 1e3
+        timing[B] = {"k7": k7, "k8": k8, "p7": p7, "p8": p8, "b7": b7, "b8": b8, "hits": hits,
+                     "inserts": int(counts[0]), "elig": elig, "d7": dev7, "d8": dev8}
+        us = lambda d: "not measured" if not d else ", ".join(  # noqa: E731
+            f"{kernel_label(n)} {v:.2f}" for n, v in d.items())
+        log(f"{tag} K7 flow_probe at B={B}: {k7:.4f} ms a call in a loop (CUDA events), device "
+            f"us per call: {us(d7)} ({hits} hits; bound {b7:.5f} ms by bytes), plain version "
+            f"{p7:.4f} ms; K8 flow_insert at B={B}: {k8:.4f} ms a call, device us: {us(d8)} "
+            f"({int(counts[0])} inserts of {elig} eligible lanes; bound {b8:.5f} ms by bytes), "
+            f"plain version {p8:.4f} ms")
+        del tbl, ptbl
+
+    # the eviction storm: the 90% trace against a table 8x smaller than
+    # its flow population
+    batch, meta = testing.flow_trace_batch(np.random.default_rng(7790), tables, FLOW_PACKETS, 0.9,
+                                           chunk_packets=FLOW_CHUNK)
+    small = FlowConfig.make(entries=max(meta["n_flows"] // 8, 64))
+    sclf = TorchClassifier(device=DEV, flow_table=small)
+    sclf.load_tables(tables)
+    check(run_pass(sclf, batch), run_pass(base, batch), "eviction storm")
+    dt, hr, ln = flow_pass(sclf, batch)
+    v = sclf.flow.stats.values()
+    log(f"{tag} flow eviction storm ({small.capacity} slots, {meta['n_flows']} flows): "
+        f"{FLOW_PACKETS / dt / 1e6:.3f} M packets/s, {v['evictions']} evictions in the pass, hit "
+        f"rate {hr:.4f}, launches {ln}; verdicts equal to the stateless path's")
+    sclf.close()
+    clf.close()
+    base.close()
+
+    # the dense arena of dense_arena_phase with a flow table: K6 serves the
+    # misses
+    arena_spec, tabs, gone = DENSE_ARENA["spec"], DENSE_ARENA["tabs"], DENSE_ARENA["gone"]
+    stateless = DENSE_ARENA["stateless"]
+    t0 = time.perf_counter()
+    fclf = TorchArenaClassifier(arena_spec, device=DEV, flow_table=FLOW_ARENA_SLAB)
+    for t, tab in enumerate(tabs):
+        fclf.load_tenant(t, tab)
+    fclf.destroy_tenant(gone)
+    parts, tags = [], []
+    for t, tab in enumerate(tabs):
+        b, _m = testing.flow_trace_batch(np.random.default_rng(7600 + t), tab, FLOW_ARENA_PER, 0.5,
+                                         chunk_packets=FLOW_ARENA_PER // 2)
+        parts.append(b)
+        tags.append(np.full(FLOW_ARENA_PER, t, np.int32))
+    from infw_torch.packets import concat
+    mixed = concat(parts)
+    tenant = np.concatenate(tags)
+    tenant[::509] = -1
+    wire_np = mixed.pack_wire()
+    log(f"flow dense arena: {fclf.flow.config.capacity} flow rows ({fclf.flow.config.pages} slabs "
+        f"of {fclf.flow.config.entries}), {len(tabs)} tenants loaded in "
+        f"{time.perf_counter() - t0:.2f} s; {len(mixed)} packets")
+    arena_launches, held = [], {}
+    for rnd in range(2):
+        torch.cuda.synchronize()
+        for k in kernels:
+            k.launches = 0
+        # K7 and K8 replayed by their plain versions at this shape: 514
+        # page-steered slabs, generations bumped by load and destroy,
+        # tenant -1 lanes
+        with flow_kernels_held(kflow, f"flow dense arena classify {rnd}", held):
+            out = fclf.classify_async_packed_tenant(wire_np, tenant,
+                                                    tcp_flags=mixed.tcp_flags).result()
+        arena_launches.append({k.name: k.launches for k in kernels if k.launches})
+        ref = stateless.classify_async_packed_tenant(wire_np, tenant).result()
+        if not (np.array_equal(out.results, ref.results) and np.array_equal(out.xdp, ref.xdp)
+                and np.array_equal(out.stats_delta, ref.stats_delta)):
+            raise SystemExit(f"flow dense arena: classify {rnd} disagrees with the stateless arena")
+    if held.get("flow_probe", 0) != 2 or held.get("flow_insert", 0) != 2:
+        raise SystemExit(f"flow dense arena: K7 and K8 held {held} times; expected 2 each")
+    fc = fclf.flow_counters()
+    if arena_launches[0].get("arena_dense_fused", 0) <= 0 or \
+            arena_launches[0].get("flow_probe", 0) <= 0 or fc["flow_hits_total"] <= 0:
+        raise SystemExit(f"flow dense arena: launches {arena_launches}, counters {fc}")
+    log(f"flow dense arena: two mixed classifies equal to the stateless arena's, K7 and K8 "
+        f"equal to their plain versions in both (fused buffers, counts, four columns); launches "
+        f"{arena_launches}; hits {fc['flow_hits_total']}, inserts {fc['flow_inserts_total']}, "
+        f"occupancy {fc['flow_occupancy']}")
+    fclf.close()
+
+    # the daemon with --flow-table over a 1M-frame file read twice, against
+    # a stateless daemon
+    registry = InterfaceRegistry()
+    for name, index in DAEMON_IFACES.items():
+        registry.add(Interface(name=name, index=index))
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "flow-smoke")
+    shutil.rmtree(root, ignore_errors=True)
+    doc = testing.random_nodestate(np.random.default_rng(41), DAEMON_NODE, DAEMON_IFACES,
+                                   FLOW_DAEMON_CIDRS, width=FLOW_TABLE_WIDTH)
+    ns = spec_mod.IngressNodeFirewallNodeState.from_dict(doc)
+    dtables = compiler.compile_tables(ns.spec.interface_ingress_rules, registry)
+    trace, tmeta = testing.flow_trace_batch(np.random.default_rng(7800), dtables,
+                                            FLOW_DAEMON_FRAMES, 0.9, chunk_packets=1 << 16)
+    fb = pcap.build_frames_bulk(trace.kind, trace.ip_words, trace.proto, trace.dst_port,
+                                trace.icmp_type, trace.icmp_code, l4_ok=trace.l4_ok)
+    fb.ifindex = np.asarray(trace.ifindex, np.uint32)
+    outs = {}
+    daemon_launches = {}
+    for name, table in (("stateless", None), ("flow", FlowConfig.make(entries=FLOW_SLAB))):
+        d = daemon.Daemon(state_dir=os.path.join(root, name), node_name=DAEMON_NODE,
+                          registry=registry, metrics_port=0, health_port=0, poll_period_s=0.1,
+                          file_poll_interval_s=0.02, flow_table=table,
+                          backend="cuda" if DEV == "cuda" else "cpu")
+        try:
+            d.start()
+            p = os.path.join(d.nodestates_dir, f"{DAEMON_NODE}.json")
+            with open(p + ".tmp", "w") as f:
+                json.dump(doc, f)
+            os.replace(p + ".tmp", p)
+            _wait(lambda: d.syncer.classifier is not None
+                  and d.syncer.classifier.tables is not None
+                  and bool(d.syncer.attached_interfaces()), f"the {name} daemon's NodeState", 300)
+            c = d.syncer.classifier
+            for rnd in range(2 if table is not None else 1):
+                fn = f"{rnd}.frames"
+                stage = os.path.join(d.state_dir, "staging")
+                os.makedirs(stage, exist_ok=True)
+                daemon.write_frames_file_v2(os.path.join(stage, fn), fb)
+                torch.cuda.synchronize()
+                for k in kernels:
+                    k.launches = 0
+                t = time.perf_counter()
+                os.replace(os.path.join(stage, fn), os.path.join(d.ingest_dir, fn))
+                _wait(lambda: os.path.exists(os.path.join(d.out_dir, fn + ".verdicts.json")),
+                      f"the {name} daemon's pass {rnd}", 600, 0.002)
+                dt = time.perf_counter() - t
+                ln = {k.name: k.launches for k in kernels if k.launches}
+                daemon_launches[f"{name} {rnd}"] = ln
+                outs[f"{name} {rnd}"] = open(os.path.join(d.out_dir, fn + ".verdicts.bin"),
+                                             "rb").read()
+                log(f"{tag} flow daemon ({name}, pass {rnd}): {len(fb)} frames in {dt:.3f} s = "
+                    f"{len(fb) / dt / 1e6:.3f} M packets/s, launches {ln}; path "
+                    f"{c.active_path}")
+            if table is not None:
+                fc = c.flow_counters()
+                for key in ("flow_hits_total", "flow_misses_total", "flow_inserts_total",
+                            "flow_evictions_total", "flow_invalidations_total", "flow_occupancy"):
+                    if _metric(d, key) != fc[key]:
+                        raise SystemExit(f"flow daemon: /metrics {key} {_metric(d, key)} is not "
+                                         f"the classifier's {fc[key]}")
+                if (fc["flow_hits_total"] <= 0
+                        or daemon_launches["flow 1"].get("flow_probe", 0) <= 0):
+                    raise SystemExit(f"flow daemon: counters {fc}, launches {daemon_launches}")
+                log(f"flow daemon: flow_* on /metrics equal the classifier's counters {fc}")
+        finally:
+            d.stop()
+    if not outs["flow 0"] == outs["flow 1"] == outs["stateless 0"]:
+        raise SystemExit("flow daemon: its verdict files differ from the stateless daemon's")
+    log(f"flow daemon: both passes' verdict files equal the stateless daemon's "
+        f"({tmeta['n_flows']} flows in {len(fb)} frames)")
+    shutil.rmtree(root, ignore_errors=True)
+
+    common = {"route": "cuda", "source": "infw_torch/kernels/csrc/flow_table.cu",
+              "max_abs_err": 0, "mismatches": 0, "bound_by": "bytes", "library_ms": None}
+    k7 = {"name": "flow_probe", **common, "replaces": "infw/kernels/jaxpath.py:6014",
+          "launches": ladder[90]["launches"]["flow_probe"],
+          "ms": timing[FLOW_CHUNK]["k7"], "plain_ms": timing[FLOW_CHUNK]["p7"],
+          "bound_ms": timing[FLOW_CHUNK]["b7"], "device_ms": timing[FLOW_CHUNK]["d7"],
+          "device_ms_2p18": timing[FLOW_PACKETS]["d7"], "ms_2p18": timing[FLOW_PACKETS]["k7"],
+          "plain_ms_2p18": timing[FLOW_PACKETS]["p7"], "bound_ms_2p18": timing[FLOW_PACKETS]["b7"],
+          "ladder": ladder, "arena_launches": arena_launches[0].get("flow_probe", 0)}
+    k8 = {"name": "flow_insert", **common, "replaces": "infw/kernels/jaxpath.py:6065",
+          "launches": ladder[90]["launches"]["flow_insert"],
+          "ms": timing[FLOW_CHUNK]["k8"], "plain_ms": timing[FLOW_CHUNK]["p8"],
+          "bound_ms": timing[FLOW_CHUNK]["b8"], "device_ms": timing[FLOW_CHUNK]["d8"],
+          "device_ms_2p18": timing[FLOW_PACKETS]["d8"], "ms_2p18": timing[FLOW_PACKETS]["k8"],
+          "plain_ms_2p18": timing[FLOW_PACKETS]["p8"], "bound_ms_2p18": timing[FLOW_PACKETS]["b8"],
+          "arena_launches": arena_launches[0].get("flow_insert", 0)}
+    for k in (k7, k8):
+        k["flow_daemon_launches"] = {p: c.get(k["name"], 0) for p, c in daemon_launches.items()}
+    return k7, k8
 
 
 def main() -> int:
@@ -4235,6 +4684,12 @@ def main() -> int:
     k5 = gather_phase(tag)
     log(f"phase gather: {time.perf_counter() - t_phase:.1f} s")
 
+    # 11b. the flow tier: the ladder, K7 and K8, the storm, the dense arena
+    # and the daemon with a flow table
+    t_phase = time.perf_counter()
+    k7, k8 = flow_phase(tag)
+    log(f"phase flow: {time.perf_counter() - t_phase:.1f} s")
+
     # 12. the daemon: the headline CRs' ingress blocks as one NodeState,
     # then bench config 5a's replay, through infw_torch.daemon
     crs = make_crs(np.random.default_rng(7))
@@ -4247,7 +4702,7 @@ def main() -> int:
         f"{time.perf_counter() - t_start:.1f} s so far")
     # each kernel's launches in each daemon pass, the two-column walks
     # under their own entries; a launch no entry names fails the run
-    entries = [k1, k2, k3, k4, k3b, k5, k6, k3["two_column"], k3b["two_column"],
+    entries = [k1, k2, k3, k4, k3b, k5, k6, k7, k8, k3["two_column"], k3b["two_column"],
                k6["two_column"]]
     for k in entries:
         k["daemon_launches"] = {p: c.get(k["name"], 0) for p, c in daemon_launches.items()}
@@ -4256,7 +4711,7 @@ def main() -> int:
         raise SystemExit(f"daemon: kernels {sorted(unlisted)} launched but not on the kernels line")
 
     # 13. the kernels line, then the device line last
-    print(json.dumps({"kernels": [k1, k2, k3, k4, k3b, k5, k6]}), flush=True)
+    print(json.dumps({"kernels": [k1, k2, k3, k4, k3b, k5, k6, k7, k8]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}),
           flush=True)
     return 0

@@ -79,6 +79,15 @@ results and statistics (results only for the wire8 and delta formats).
   a PendingClassify; the device-to-host read happens in ``.result()``.
 - statistics accumulate on the host in int64 from each batch's (1024, 6)
   int32 sums, applied exactly once when a batch materializes.
+- **flow tier** (``flow_table=``, else ``INFW_FLOW_TABLE``, else off; the
+  JAX package's ``_launch_flow``): a 4- or 7-word chunk is probed first
+  (kernel K7, flow.FlowTier), before the tables are snapshotted; the hits
+  serve their cached verdict, the misses are compacted into a power-of-two
+  bucket padded with KIND_OTHER rows and classified by the stateless path
+  above (every wire format still applies to them), and their verdicts are
+  inserted (kernel K8) when the batch materializes.  ``load_tables`` bumps
+  the flow generation once, after the install: every patch, edit flush,
+  rebuild and overlay change goes through it.
 
 The device is the first CUDA card unless the caller names another
 (``device="cpu"`` runs the plain PyTorch version of every kernel, which is
@@ -96,8 +105,10 @@ import torch
 
 from .. import arena as arena_mod
 from ..compiler import CompiledTables
+from .. import flow as flow_mod
 from ..constants import ALLOW, DENY, KIND_IPV6
 from ..kernels import arena_dense, arena_walk, cwalk, dense, torchpath, walk, wire_decode
+from ..kernels import flow as kflow
 from ..kernels import overlay as overlay_mod
 from ..layout import (
     build_depth_lut,
@@ -113,10 +124,79 @@ from ..packets import PacketBatch, encode_delta_wire, narrow_wire, wire8
 from .base import ClassifyOutput, PendingClassify, StatsAccumulator, stats_from_results
 
 #: where the parts this backend does not serve yet are queued
-FLOW_ITEM = "ROADMAP.md item 9 (the stateful flow tier)"
 INVARIANTS_ITEM = "ROADMAP.md item 17 (verifiers for the port)"
 #: host-to-device formats of a 4-word chunk on the trie and ctrie paths
 WIRE_CODECS = ("auto", "wire8", "delta")
+
+
+def _flow_config(flow_table, **geometry) -> "Optional[flow_mod.FlowConfig]":
+    """A classifier's flow tier: ``flow_table`` (a FlowConfig, whose pages
+    and max_tenants ``geometry`` overrides, or an entry count), else
+    INFW_FLOW_TABLE (an entry count), else None."""
+    if flow_table is None:
+        env = os.environ.get("INFW_FLOW_TABLE", "")
+        if env and env not in ("0", "false", "no"):
+            flow_table = int(env)
+    if flow_table is None or flow_table is False:
+        return None
+    if isinstance(flow_table, flow_mod.FlowConfig):
+        return flow_table._replace(**geometry)
+    return flow_mod.FlowConfig.make(entries=int(flow_table), **geometry)
+
+
+def _miss_bucket(wire_np: np.ndarray, miss: np.ndarray):
+    """The miss rows padded to flow_miss_bucket(m) with KIND_OTHER rows
+    (PASS, counted nowhere) -> (wire, m)."""
+    m = len(miss)
+    miss_wire = wire_np[miss]
+    bucket = flow_mod.flow_miss_bucket(m)
+    if bucket > m:
+        pad = np.zeros((bucket - m, miss_wire.shape[1]), np.uint32)
+        pad[:, 0] = 3  # KIND_OTHER
+        miss_wire = np.concatenate([miss_wire, pad])
+    return miss_wire, m
+
+
+def _miss_flags(tcp_flags, miss: np.ndarray, rows: int):
+    if tcp_flags is None:
+        return None
+    out = np.zeros(rows, np.int32)
+    out[: len(miss)] = np.asarray(tcp_flags, np.int32)[miss]
+    return out
+
+
+def _flow_materialize(tier, fused, ctx, wire_np: np.ndarray, kind: np.ndarray, tcp_flags,
+                      classify_misses, tenant: Optional[np.ndarray] = None):
+    """The flow plan's second half (tpu.py _launch_flow and
+    _classify_flow_tenant): decode the probe's buffer, take the hit lanes'
+    statistics from their verdicts and pkt_len, classify the compacted
+    misses with ``classify_misses(miss_wire, miss_tenant)`` (the
+    classifier's stateless dispatch; ``miss_tenant`` is None without a
+    ``tenant`` column, else -1 on the padding rows), merge, insert the
+    misses' verdicts with their flags, and finalize -> ClassifyOutput (its
+    statistics not yet applied)."""
+    n = wire_np.shape[0]
+    res16, hitmask, hits, stale = kflow.split_flow_probe_outputs(fused.cpu().numpy(), n)
+    tier.stats.add(hits=hits, misses=n - hits, stale_rejects=stale)
+    res16 = res16.copy()
+    pkt_len = TorchClassifier._wire4_pkt_len(wire_np)
+    stats_delta = stats_from_results(res16.astype(np.uint32), pkt_len)
+    miss = np.nonzero(~hitmask)[0]
+    if len(miss):
+        miss_wire, m = _miss_bucket(wire_np, miss)
+        miss_tenant = None
+        if tenant is not None:
+            miss_tenant = np.full(miss_wire.shape[0], -1, np.int32)
+            miss_tenant[:m] = tenant[miss]
+        out = classify_misses(miss_wire, miss_tenant)
+        res16[miss] = (out.results[:m] & 0xFFFF).astype(np.uint16)
+        stats_delta += out.stats_delta
+        verdicts = np.zeros(miss_wire.shape[0], np.uint32)
+        verdicts[:m] = res16[miss]
+        tier.insert(ctx, miss_wire, verdicts, tenant_np=miss_tenant,
+                    tflags_np=_miss_flags(tcp_flags, miss, miss_wire.shape[0]))
+    results, xdp = torchpath.host_finalize_wire(res16, kind)
+    return ClassifyOutput(results=results, xdp=xdp, stats_delta=stats_delta)
 
 
 class _Active(NamedTuple):
@@ -138,7 +218,8 @@ class TorchClassifier:
     def __init__(self, device=None, dense_limit: int = dense.MAX_DENSE_TARGETS,
                  force_path: Optional[str] = None,
                  compressed: Optional[bool] = None,
-                 wire_codec: Optional[str] = None) -> None:
+                 wire_codec: Optional[str] = None,
+                 flow_table=None, flow_track_model: bool = False) -> None:
         if force_path not in (None, "dense", "trie", "ctrie"):
             raise ValueError(
                 f"unknown force_path {force_path!r} (expected 'dense', 'trie', 'ctrie' or None)"
@@ -172,10 +253,27 @@ class TorchClassifier:
         self._depth_steer = None
         self._depth_gen = 0
         self._closed = False
+        # the JAX package's precedence: the argument (a FlowConfig or an
+        # entry count), else INFW_FLOW_TABLE (an entry count), else off
+        self._flow = None
+        cfg = _flow_config(flow_table)
+        if cfg is not None:
+            self._flow = flow_mod.FlowTier(cfg, device=self._device,
+                                           track_model=flow_track_model)
 
     @property
     def device(self) -> torch.device:
         return self._device
+
+    @property
+    def flow(self) -> "Optional[flow_mod.FlowTier]":
+        return self._flow
+
+    def flow_counters(self) -> dict:
+        return {} if self._flow is None else self._flow.counter_values()
+
+    def flow_age_tick(self, horizon=None) -> int:
+        return 0 if self._flow is None else self._flow.age(horizon)
 
     # -- rule loading -------------------------------------------------------
 
@@ -284,6 +382,10 @@ class TorchClassifier:
             self._last_load = last
             self._depth_gen += 1
             self._depth_steer = None if steer is None else steer + (self._depth_gen,)
+        if self._flow is not None:
+            # the invalidation chokepoint: every table mutation comes
+            # through here, so no cached verdict outlives its tables
+            self._flow.bump_generation(0)
 
     # -- classify -----------------------------------------------------------
 
@@ -318,6 +420,11 @@ class TorchClassifier:
         kind = np.asarray(batch.kind)
         v4_only = not bool((kind == KIND_IPV6).any())
         wire_np = batch.pack_wire_v4() if batch.is_v4_compactable() else batch.pack_wire()
+        if self._flow is not None:
+            # the flow tier first: only the misses reach the stateless path
+            return self.classify_prepared(
+                self.prepare_packed(wire_np, v4_only, tcp_flags=batch.tcp_flags),
+                apply_stats=apply_stats)
         n_levels = None
         if active.path == "trie":
             n = active.dev.n_levels
@@ -361,19 +468,35 @@ class TorchClassifier:
 
     def classify_async_packed(
         self, wire_np: np.ndarray, v4_only: bool, apply_stats: bool = True, depth=None,
+        tcp_flags: Optional[np.ndarray] = None,
     ) -> PendingClassify:
         """classify_async for a pre-packed (B, 4|7) uint32 wire array
         (PacketBatch.pack_wire_subset); ``depth`` is a (class, generation)
-        pair from v6_depth_groups.  Caller contract: supports_packed()."""
+        pair from v6_depth_groups; ``tcp_flags`` (B,) feeds the flow tier's
+        TCP model (None: no flags).  Caller contract: supports_packed()."""
         return self.classify_prepared(
-            self.prepare_packed(wire_np, v4_only, depth=depth), apply_stats=apply_stats
+            self.prepare_packed(wire_np, v4_only, depth=depth, tcp_flags=tcp_flags),
+            apply_stats=apply_stats,
         )
 
-    def prepare_packed(self, wire_np: np.ndarray, v4_only: bool, depth=None):
+    def prepare_packed(self, wire_np: np.ndarray, v4_only: bool, depth=None,
+                       tcp_flags: Optional[np.ndarray] = None):
         """First half of classify_async_packed: choose the walk depth and
         the wire width and start the host-to-device copy; returns the plan
         for classify_prepared, which finishes on the tables snapshotted
-        here."""
+        here.  With a flow tier a 4- or 7-word chunk is probed here instead
+        (tpu.py prepare_packed), BEFORE the snapshot: the probe captures the
+        flow generations, so a load_tables between the two captures can
+        only make the stamped generation older than the tables that
+        compute the misses (their inserts are stale on arrival, never
+        served); the reverse order could cache old-table verdicts under
+        the new generation."""
+        flow_probe = None
+        if self._flow is not None and wire_np.shape[1] in (4, 7):
+            with self._lock:
+                probe_ok = self._active is not None and not self._active.wide_rids
+            if probe_ok:
+                flow_probe = self._flow.probe(wire_np, tflags_np=tcp_flags)
         active = self._snapshot()
         if active.wide_rids:
             raise RuntimeError("wide-ruleId tables need the full-batch path (supports_packed)")
@@ -389,11 +512,37 @@ class TorchClassifier:
                 if dclass is not None and gen == cur_gen:
                     d = int(dclass)
             n_levels = v4_trie_depth(n) if v4_only else (n if d is None else 1 + d)
+        if flow_probe is not None:
+            fused, ctx = flow_probe
+            return {"flow": True, "fused": fused, "ctx": ctx, "wire_np": wire_np,
+                    "tcp_flags": tcp_flags, "active": active, "kind": kind,
+                    "n_levels": n_levels}
         return self._plan(active, wire_np, kind, n_levels)
 
     def classify_prepared(self, plan, apply_stats: bool = True) -> PendingClassify:
         """Second half: launch the classify on a prepare_packed plan."""
+        if plan.get("flow"):
+            return self._launch_flow(plan, apply_stats)
         return self._launch(plan, apply_stats)
+
+    def _launch_flow(self, plan, apply_stats: bool) -> PendingClassify:
+        """Complete a flow plan when the batch materializes (tpu.py
+        _launch_flow): the misses go through the stateless ``_plan`` and
+        ``_launch`` on the snapshotted tables (_flow_materialize)."""
+
+        def classify_misses(miss_wire, _tenant):
+            kind = (miss_wire[:, 0] & 3).astype(np.int32)
+            return self._launch(self._plan(plan["active"], miss_wire, kind, plan["n_levels"]),
+                                apply_stats=False).result()
+
+        def materialize() -> ClassifyOutput:
+            out = _flow_materialize(self._flow, plan["fused"], plan["ctx"], plan["wire_np"],
+                                    plan["kind"], plan["tcp_flags"], classify_misses)
+            if apply_stats:
+                self._stats.add(out.stats_delta)
+            return out
+
+        return PendingClassify(materialize)
 
     def _put(self, a: np.ndarray) -> torch.Tensor:
         a = np.ascontiguousarray(a)
@@ -607,13 +756,21 @@ class TorchArenaClassifier:
     overlay side-pool (``load_tenant_overlay``), which the tenant registry
     fills with the structurally new keys of a tenant on a shared page.
 
-    Not in this slice (NotImplementedError): the flow tier (item 9),
-    invariant checks (item 17) and spliced geometries (arena.SPLICE_ITEM)."""
+    ``flow_table`` (else INFW_FLOW_TABLE) adds the flow tier with one flow
+    slab per arena page, steered by the tenant's page (tpu.py
+    _classify_flow_tenant): a 4- or 7-word batch is probed first (K7), the
+    misses fall through to the stateless dispatch above and are inserted
+    (K8).  Every lifecycle change of a tenant re-steers its flow slab and
+    bumps its generation; ``compact`` re-steers every tenant and bumps all.
+    Tenant ids outside [0, max_tenants) become -1 before the int32 cast
+    here too, so they are never eligible for the flow table.
+
+    Not in this slice (NotImplementedError): invariant checks (item 17) and
+    spliced geometries (arena.SPLICE_ITEM)."""
 
     def __init__(self, spec: "arena_mod.ArenaSpec", device=None, overlay_spec=None,
-                 flow_table=None, check_invariants: Optional[bool] = None) -> None:
-        if flow_table is not None and flow_table is not False:
-            raise NotImplementedError(f"the arena flow table is {FLOW_ITEM}")
+                 flow_table=None, check_invariants: Optional[bool] = None,
+                 flow_track_model: bool = False) -> None:
         if check_invariants:
             raise NotImplementedError(f"arena invariant checks are {INVARIANTS_ITEM}")
         self._alloc = arena_mod.ArenaAllocator(spec, device)
@@ -628,6 +785,11 @@ class TorchArenaClassifier:
         # per-tenant verdict accounting {tid: [packets, allow, deny]}
         self._tenant_counts = {}
         self._closed = False
+        self._flow = None
+        cfg = _flow_config(flow_table, pages=spec.pages, max_tenants=spec.max_tenants)
+        if cfg is not None:
+            self._flow = flow_mod.FlowTier(cfg, device=self._device,
+                                           track_model=flow_track_model)
 
     # -- tenant lifecycle ----------------------------------------------------
 
@@ -657,13 +819,17 @@ class TorchArenaClassifier:
             raise RuntimeError("classifier is closed")
         had_page = self._alloc.page_of(tenant) is not None
         if self._alloc.family == "dense" or (had_page and hint_trie_unchanged(hint)):
-            return self._alloc.load_tenant(tenant, tables, hint=hint)
-        try:
-            page = self._alloc.stage(tables)
-        except arena_mod.ArenaCapacityError:
-            return self._alloc.load_tenant(tenant, tables, hint=hint)
-        self._alloc.activate(tenant, page, tables)
-        return "rewrite" if had_page else "assign"
+            path = self._alloc.load_tenant(tenant, tables, hint=hint)
+        else:
+            try:
+                page = self._alloc.stage(tables)
+            except arena_mod.ArenaCapacityError:
+                path = self._alloc.load_tenant(tenant, tables, hint=hint)
+            else:
+                self._alloc.activate(tenant, page, tables)
+                path = "rewrite" if had_page else "assign"
+        self._flow_note(tenant)
+        return path
 
     def load_tenant_overlay(self, tenant: int, overlay: Optional[CompiledTables]) -> None:
         """Install or clear one tenant's dense overlay side-slab (None or an
@@ -675,6 +841,10 @@ class TorchArenaClassifier:
                 self._ov_alloc.destroy_tenant(tenant)
         else:
             self._ov_alloc.load_tenant(tenant, overlay)
+        # an overlay change alters the tenant's verdicts as any edit does
+        # (the JAX package bumps nothing here; ROADMAP.md section 3)
+        if self._flow is not None:
+            self._flow.bump_generation(tenant)
 
     def stage_tenant(self, tables: CompiledTables) -> int:
         return self._alloc.stage(tables)
@@ -682,34 +852,110 @@ class TorchArenaClassifier:
     def activate_tenant(self, tenant: int, page: int,
                         tables: Optional[CompiledTables] = None) -> None:
         self._alloc.activate(tenant, page, tables)
+        self._flow_note(tenant)
 
     def swap_tenant(self, tenant: int, tables: CompiledTables) -> None:
         self._alloc.swap_tenant(tenant, tables)
+        self._flow_note(tenant)
 
     def destroy_tenant(self, tenant: int) -> None:
         self._alloc.destroy_tenant(tenant)
         if self._ov_alloc is not None and self._ov_alloc.page_of(tenant) is not None:
             self._ov_alloc.destroy_tenant(tenant)
+        self._flow_note(tenant)
 
     def compact(self) -> int:
-        return self._alloc.compact()
+        moved = self._alloc.compact()
+        if moved and self._flow is not None:
+            # moved slabs re-steer every tenant's flow slab; the pool-wide
+            # bump is the conservative invalidation
+            for t in self._alloc.tenants():
+                self._flow.set_page(t, self._alloc.page_of(t))
+            self._flow.bump_all_generations()
+        return moved
 
     def dedup_sweep(self, limit: Optional[int] = None) -> dict:
-        return self._alloc.dedup_sweep(limit)
+        rep = self._alloc.dedup_sweep(limit)
+        for t in rep["moved"]:
+            self._flow_note(t)
+        return rep
+
+    def _flow_note(self, tenant: int) -> None:
+        """After a lifecycle change: re-steer the tenant's flow slab to its
+        (possibly new) page and invalidate its cached verdicts."""
+        if self._flow is None:
+            return
+        page = self._alloc.page_of(tenant)
+        self._flow.set_page(tenant, -1 if page is None else page)
+        self._flow.bump_generation(tenant)
+
+    @property
+    def flow(self) -> "Optional[flow_mod.FlowTier]":
+        return self._flow
+
+    def flow_counters(self) -> dict:
+        return {} if self._flow is None else self._flow.counter_values()
+
+    def flow_age_tick(self, horizon=None) -> int:
+        return 0 if self._flow is None else self._flow.age(horizon)
 
     def tenant_ids(self):
         return self._alloc.tenants()
 
     # -- classify ------------------------------------------------------------
 
+    def _tenant32(self, tenant_np) -> np.ndarray:
+        """Tenant ids outside [0, max_tenants) become -1 before the int32
+        cast, so they classify to UNDEF and are never eligible for the flow
+        table (an id such as 2^32 + 1 must not wrap onto tenant 1)."""
+        t64 = np.asarray(tenant_np, np.int64)
+        t32 = np.where((t64 >= 0) & (t64 < self._alloc.spec.max_tenants), t64, -1)
+        return t32.astype(np.int32)
+
     def classify_async_packed_tenant(self, wire_np: np.ndarray, tenant_np: np.ndarray,
-                                     apply_stats: bool = True) -> PendingClassify:
-        """The mixed-tenant packed-wire dispatch (tpu.py
-        _classify_stateless_tenant): one batch, each packet steered to its
-        tenant's slab in-kernel; the host-to-device copy of the wire and of
-        the tenant column, the device pass (the family's fused entry, or
-        the overlay combine while the side-pool holds a tenant), and a
-        handle whose .result() reads back once."""
+                                     apply_stats: bool = True,
+                                     tcp_flags: Optional[np.ndarray] = None) -> PendingClassify:
+        """The mixed-tenant packed-wire dispatch: one batch, each packet
+        steered to its tenant's slab in-kernel.  With a flow tier a 4- or
+        7-word batch goes through it (``tcp_flags`` (B,) feeds its TCP
+        model), otherwise straight to the stateless dispatch."""
+        if self._flow is not None and wire_np.shape[1] in (4, 7):
+            return self._classify_flow_tenant(wire_np, tenant_np, apply_stats, tcp_flags)
+        return self._classify_stateless_tenant(wire_np, tenant_np, apply_stats)
+
+    def _classify_flow_tenant(self, wire_np, tenant_np, apply_stats, tcp_flags):
+        """tpu.py _classify_flow_tenant: probe, then at materialize the
+        compacted misses through the stateless dispatch (tenant -1 on the
+        padding rows), the merge, and the insert (_flow_materialize)."""
+        if self._closed:
+            raise RuntimeError("classifier is closed")
+        kind = (wire_np[:, 0] & 3).astype(np.int32)
+        t32 = self._tenant32(tenant_np)
+        fused, ctx = self._flow.probe(wire_np, tenant_np=t32, tflags_np=tcp_flags)
+
+        def classify_misses(miss_wire, miss_tenant):
+            return self._classify_stateless_tenant(miss_wire, miss_tenant, apply_stats=False,
+                                                   note_tenants=False).result()
+
+        def materialize() -> ClassifyOutput:
+            out = _flow_materialize(self._flow, fused, ctx, wire_np, kind, tcp_flags,
+                                    classify_misses, tenant=t32)
+            if apply_stats:
+                self._stats.add(out.stats_delta)
+            self._note_tenants(tenant_np, out.results)
+            return out
+
+        return PendingClassify(materialize)
+
+    def _classify_stateless_tenant(self, wire_np: np.ndarray, tenant_np: np.ndarray,
+                                   apply_stats: bool = True,
+                                   note_tenants: bool = True) -> PendingClassify:
+        """The stateless mixed-tenant dispatch (tpu.py
+        _classify_stateless_tenant; also the flow tier's miss path): the
+        host-to-device copy of the wire and of the tenant column, the
+        device pass (the family's fused entry, or the overlay combine while
+        the side-pool holds a tenant), and a handle whose .result() reads
+        back once."""
         if self._closed:
             raise RuntimeError("classifier is closed")
         n = wire_np.shape[0]
@@ -719,12 +965,8 @@ class TorchArenaClassifier:
             if narrow is not None:
                 wire_np = narrow
         wire = torch.from_numpy(np.ascontiguousarray(wire_np).view(np.int32)).to(self._device)
-        # ids outside [0, max_tenants) become -1 before the int32 cast, so
-        # they classify to UNDEF (an id such as 2^32 + 1 must not wrap onto
-        # tenant 1); _note_tenants counts them nowhere
-        t64 = np.asarray(tenant_np, np.int64)
-        t32 = np.where((t64 >= 0) & (t64 < self._alloc.spec.max_tenants), t64, -1)
-        tenant = torch.from_numpy(t32.astype(np.int32)).to(self._device)
+        # _note_tenants counts ids outside [0, max_tenants) nowhere
+        tenant = torch.from_numpy(self._tenant32(tenant_np)).to(self._device)
         self._note_wire(f"wire{wire_np.shape[1]}", n, wire_np.nbytes)
         spec = self._alloc.spec
         d_max = spec.d_max if spec.family == "ctrie" else 0
@@ -747,7 +989,8 @@ class TorchArenaClassifier:
             if apply_stats:
                 self._stats.add(stats_delta)
             results, xdp = torchpath.host_finalize_wire(res16, kind)
-            self._note_tenants(tenant_np, results)
+            if note_tenants:
+                self._note_tenants(tenant_np, results)
             return ClassifyOutput(results=results, xdp=xdp, stats_delta=stats_delta)
 
         return PendingClassify(materialize)

@@ -72,3 +72,25 @@ def get_rule_id(result: int) -> int:
 def set_actionrule_response(action: int, rule_id: int) -> int:
     """SET_ACTIONRULE_RESPONSE macro (ingress_node_firewall.h:22-23)."""
     return ((rule_id & 0xFFFFFF) << 8) | (action & 0xFF)
+
+
+# TCP flag bits of the optional per-packet flags column (PacketBatch
+# .tcp_flags); 0, the value when the source carries no flags, makes the
+# flow tier's TCP model established-on-first-packet.
+TCP_FIN = 0x01
+TCP_SYN = 0x02
+TCP_RST = 0x04
+TCP_ACK = 0x10
+
+# Flow entry states: EMPTY slots are free; NEW is a TCP flow that has only
+# shown a pure SYN (tracked, never served); EST and FIN serve their cached
+# verdict.
+FLOW_EMPTY = 0
+FLOW_NEW = 1
+FLOW_EST = 2
+FLOW_FIN = 3
+
+# Words of the flow key: tenant, ifindex, the 4 source-IP words, then
+# proto | dst_port << 8 | kind << 24 | l4_ok << 26 and icmp_type |
+# icmp_code << 8.
+FLOW_KEY_WORDS = 8

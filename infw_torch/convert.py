@@ -4,7 +4,9 @@
 CompiledTables as plain values (numpy arrays, ints, and optionally the
 content map) and returns the port's CompiledTables; ``arena_from_jax_arrays``
 takes the seven arrays of a JAX arena pool and returns the port's
-CtrieArena.  Neither imports anything from the JAX package: the caller
+CtrieArena; ``flow_from_jax_arrays`` takes the four columns of a JAX flow
+table with its generation and page vectors and returns the port's
+FlowTable and those two vectors.  Neither imports anything from the JAX package: the caller
 does ``{f: getattr(t, f) for f in FIELDS}`` (plus ``content``), or the same
 over the pool's fields, on its side.
 """
@@ -16,6 +18,7 @@ import numpy as np
 import torch
 
 from .arena import CtrieArena
+from .kernels.flow import FlowTable
 from .compiler import CompiledTables, LpmKey
 from .kernels.torchpath import resolve_device
 
@@ -71,3 +74,22 @@ def arena_from_jax_arrays(l0, nodes, targets, joined, root_lut, splice, page_tab
         splice=put(splice, np.int32, np.int32),
         page_table=put(page_table, np.int32, np.int32),
     )
+
+
+def flow_from_jax_arrays(keys, vg, se, cnt, gens, page_table, device=None):
+    """The columns of a JAX ``FlowTable`` (numpy: ``{f: np.asarray(getattr(
+    flow, f)) for f in FlowTable._fields}``) and the tier's generation and
+    page vectors -> (FlowTable, gens, page_table) on ``device``
+    (resolve_device); the uint32 keys as int32 bit patterns, the insert's
+    scratch cleared."""
+    device = resolve_device(device)
+
+    def put(a, dtype):
+        a = np.require(np.asarray(a, dtype).view(np.int32), requirements="CW")
+        return torch.from_numpy(a).to(device)
+
+    keys_t = put(keys, np.uint32)
+    flow = FlowTable(keys=keys_t, vg=put(vg, np.int32), se=put(se, np.int32),
+                     cnt=put(cnt, np.int32),
+                     winner=torch.full((keys_t.shape[0],), -1, dtype=torch.int32, device=device))
+    return flow, put(gens, np.int32), put(page_table, np.int32)

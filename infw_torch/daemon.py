@@ -48,8 +48,18 @@ contract NODE_NAME / NAMESPACE / POLL_PERIOD_SECONDS / ENABLE_LPM_LOOKUP_DBG
   whose content re-converged; ``tenant_*`` counters go to /metrics and
   ``tenant-*`` lines to ``events.log``.
 
+- ``--flow-table N`` (``INFW_FLOW_TABLE``; ways from ``INFW_FLOW_WAYS``,
+  the freshness horizon from ``INFW_FLOW_MAX_AGE``) adds the stateful flow
+  tier (infw_torch.flow, kernels K7 and K8) to every classifier the syncer
+  builds and to the ``--tenants`` arena: established flows serve their
+  cached verdict and only the misses are classified.  ``flow_*`` counters
+  (``tenant_flow_*`` for the arena) go to /metrics, ``flow-evict:`` lines
+  to ``events.log``, and the idle loop sweeps aged entries every 5 s.
+  Frames files carry no TCP flags, so their packets probe with flags 0, as
+  in the JAX daemon.
+
 The JAX daemon's scheduler, ingest ring, events socket,
-mesh, flow tier, resident loop, telemetry, tracing, scoring and payload
+mesh, resident loop, telemetry, tracing, scoring and payload
 options are not in the port yet: ``main`` refuses each of their flags,
 naming its ROADMAP item.
 """
@@ -78,10 +88,11 @@ from .arena import make_arena_spec
 from .backend.cuda import WIRE_CODECS, TorchArenaClassifier, TorchClassifier
 from .compiler import CompileError
 from .constants import KIND_IPV6, KIND_OTHER
+from .flow import FlowConfig
 from .interfaces import InterfaceError, InterfaceRegistry, default_registry
 from .kernels.torchpath import resolve_device
 from .nodestate_controller import NodeStateReconciler
-from .obs.events import EventRing, EventsLogger, emit_deny_events
+from .obs.events import EventRing, EventsLogger, FlowEvictRecord, emit_deny_events
 from .obs.pcap import FramesBuf, parse_frames_buf
 from .obs.statistics import Registry as MetricsRegistry, Statistics
 from .packets import PacketBatch, expand_wire_v4
@@ -115,7 +126,6 @@ _FRAMES_MAGIC2 = b"INFW2\n"
 _ITEM_24 = "ROADMAP.md item 24 (the scheduler, the ingest ring, the events sidecar)"
 REFUSED_FLAGS = (
     ("--mesh", "INFW_MESH", "ROADMAP.md item 15 (multi-device)"),
-    ("--flow-table", "INFW_FLOW_TABLE", "ROADMAP.md item 9 (the stateful flow tier)"),
     ("--resident", "INFW_RESIDENT", "ROADMAP.md item 10 (resident program and superbatch)"),
     ("--superbatch-k", "INFW_SUPERBATCH_K", "ROADMAP.md item 10 (resident program and superbatch)"),
     ("--telemetry", "INFW_TELEMETRY", "ROADMAP.md item 12 (telemetry)"),
@@ -253,18 +263,39 @@ def backend_device(backend: str):
 
 
 def make_classifier_factory(backend: str, wire_codec: Optional[str] = None,
-                            compressed: Optional[bool] = None):
+                            compressed: Optional[bool] = None,
+                            flow_table: Optional[FlowConfig] = None):
     """The syncer's classifier constructor: TorchClassifier on
     ``backend_device(backend)``.  ``wire_codec`` and ``compressed`` are
     TorchClassifier's (None keeps its INFW_WIRE_CODEC / INFW_COMPRESSED
-    defaults)."""
+    defaults); ``flow_table``, a FlowConfig built at launch, rides into
+    every classifier generation (on both backends: "cpu" runs the tier on
+    the plain versions of K7 and K8)."""
     device = backend_device(backend)
     kw = {}
     if wire_codec is not None:
         kw["wire_codec"] = wire_codec
     if compressed is not None:
         kw["compressed"] = compressed
+    if flow_table is not None:
+        kw["flow_table"] = flow_table
     return functools.partial(TorchClassifier, device=device, **kw)
+
+
+class _FlowCounters:
+    """The flow tier's flow_* counters and gauges on /metrics.  The getter
+    follows the classifier across table loads; ``prefix`` keeps the tenant
+    arena's tier apart (the registry sums same-named counters)."""
+
+    def __init__(self, clf_getter, prefix: str = "") -> None:
+        self._get = clf_getter
+        self._prefix = prefix
+
+    def counter_values(self) -> Dict[str, int]:
+        clf = self._get()
+        if clf is None:
+            return {}
+        return {f"{self._prefix}{k}": v for k, v in clf.flow_counters().items()}
 
 
 class _WireStatsCounters:
@@ -319,11 +350,17 @@ class Daemon:
         patch_staleness_us: Optional[float] = None,
         patch_max_ops: Optional[int] = None,
         tenants: Optional[int] = None,
+        flow_table: Optional[FlowConfig] = None,
     ) -> None:
         # resolve the device first: without a card the default backend
         # fails here, before any directory, thread or file is made
         factory = make_classifier_factory(backend, wire_codec=wire_codec,
-                                          compressed=compressed)
+                                          compressed=compressed, flow_table=flow_table)
+        # the flow tier (--flow-table): a validated FlowConfig or None; the
+        # daemon owns its eviction events and the idle-loop age sweep
+        self.flow_table = flow_table
+        self._flow_attached: set = set()
+        self._flow_age_last = 0.0
         self.state_dir = state_dir
         self.node_name = node_name
         self.namespace = namespace
@@ -404,6 +441,9 @@ class Daemon:
         # patch-transaction counters and the staleness histogram
         # (ingressnodefirewall_node_patch_txn_*)
         self.metrics_registry.register_counters(self.txn_stats)
+        if self.flow_table is not None:
+            self._flow_counters = _FlowCounters(lambda: self.syncer.classifier)
+            self.metrics_registry.register_counters(self._flow_counters)
         if self.tenants_max:
             self.tenant_registry = self._build_tenant_registry(backend)
             # tenant_* counters (slabs, swaps, flips, clones, per-tenant
@@ -559,8 +599,42 @@ class Daemon:
             target_rows=8 * entries,
             d_max=18,
         )
-        clf = TorchArenaClassifier(spec, device=backend_device(backend))
+        clf = TorchArenaClassifier(spec, device=backend_device(backend),
+                                   flow_table=self.flow_table)
+        if self.flow_table is not None:
+            self._attach_flow_events(clf)
+            # prefixed, so the arena's series never sum into the
+            # single-tenant flow_* series
+            self._tenant_flow_counters = _FlowCounters(lambda: clf, prefix="tenant_")
+            self.metrics_registry.register_counters(self._tenant_flow_counters)
         return TenantRegistry(clf, rule_width=slots, event_ring=self.ring)
+
+    def _attach_flow_events(self, clf) -> None:
+        """Wire a classifier's flow tier to the event ring, once per tier:
+        inserts that evict live flows surface as FlowEvictRecords."""
+        tier = getattr(clf, "flow", None)
+        if tier is None or id(tier) in self._flow_attached:
+            return
+        tier.on_evict = lambda ev, ins, ep: self.ring.push(
+            FlowEvictRecord(evicted=int(ev), inserted=int(ins), epoch=int(ep)))
+        self._flow_attached.add(id(tier))
+
+    def _flow_maintenance(self) -> None:
+        """Idle-loop flow upkeep: attach eviction events to each new
+        classifier generation and sweep aged entries every 5 s (stale
+        entries never serve anyway; the sweep frees their slots)."""
+        if self.flow_table is None:
+            return
+        now = time.monotonic()
+        for clf in (self.syncer.classifier,
+                    self.tenant_registry.classifier if self.tenant_registry is not None else None):
+            if clf is None:
+                continue
+            self._attach_flow_events(clf)
+            if now - self._flow_age_last >= 5.0:
+                clf.flow_age_tick()
+        if now - self._flow_age_last >= 5.0:
+            self._flow_age_last = now
 
     def scan_tenant_edits_once(self) -> int:
         """Apply every per-tenant edit file under
@@ -1014,6 +1088,10 @@ class Daemon:
                 self.process_ingest_once()
             except Exception as e:
                 log.error("ingest error: %s", e)
+            try:
+                self._flow_maintenance()
+            except Exception as e:
+                log.error("flow maintenance error: %s", e)
 
     def stop(self) -> None:
         """SIGTERM path: stop polling and serving, detach the dataplane but
@@ -1107,6 +1185,15 @@ def main(argv: Optional[List[str]] = None) -> int:
                         "counters on /metrics.  Slab geometry via INFW_TENANT_SLAB_ENTRIES "
                         "(default 1024) and INFW_TENANT_RULE_SLOTS (default 16).  CLI beats "
                         "INFW_TENANTS")
+    p.add_argument("--flow-table", type=int, default=os.environ.get("INFW_FLOW_TABLE") or None,
+                   help="enable the stateful flow tier with this many entries per flow slab "
+                        "(a power of two): an exact-match verdict cache on the card probed "
+                        "before the LPM and the rule scan (kernels K7 and K8); established "
+                        "flows serve their cached verdict and only the misses are "
+                        "classified; edits and tenant swaps invalidate by a generation "
+                        "bump.  INFW_FLOW_WAYS sets the ways (default 4), "
+                        "INFW_FLOW_MAX_AGE the freshness horizon in probes.  CLI beats "
+                        "INFW_FLOW_TABLE")
     for flag, env, item in REFUSED_FLAGS:
         p.add_argument(flag, nargs="?", const="1", default=None,
                        help=f"not in the port yet: {item} (also {env})")
@@ -1132,6 +1219,20 @@ def main(argv: Optional[List[str]] = None) -> int:
         p.error(f"--patch-max-ops must be >= 1, got {args.patch_max_ops}")
     if args.tenants is not None and int(args.tenants) < 1:
         p.error(f"--tenants must be >= 1, got {args.tenants}")
+    # a bad flow geometry (flag or env) fails the launch with a usage
+    # error, as in the JAX daemon
+    flow_cfg = None
+    if args.flow_table is not None and str(args.flow_table) not in ("0", "", "false", "no"):
+        if int(args.flow_table) < 1:
+            p.error(f"--flow-table must be >= 1, got {args.flow_table}")
+        try:
+            flow_cfg = FlowConfig.make(
+                entries=int(args.flow_table),
+                ways=int(os.environ.get("INFW_FLOW_WAYS") or 4),
+                max_age=int(os.environ.get("INFW_FLOW_MAX_AGE") or FlowConfig().max_age),
+            )
+        except ValueError as e:
+            p.error(str(e))
 
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(name)s %(levelname)s %(message)s")
@@ -1153,6 +1254,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         patch_staleness_us=args.patch_staleness_us,
         patch_max_ops=args.patch_max_ops,
         tenants=int(args.tenants) if args.tenants else None,
+        flow_table=flow_cfg,
     )
     stop = threading.Event()
 

@@ -191,6 +191,25 @@ class TenantSwapRecord:
         ]
 
 
+@dataclass
+class FlowEvictRecord:
+    """One flow-tier insert that displaced live flows (LRU eviction under
+    capacity pressure, infw_torch.flow).  The flow_* counters and the
+    occupancy gauge live on /metrics; the event carries the shape of
+    eviction pressure, one record per insert launch rather than per flow,
+    in the same stream as deny events."""
+
+    evicted: int
+    inserted: int
+    epoch: int
+
+    def lines(self) -> List[str]:
+        return [
+            f"flow-evict: {self.evicted} flow(s) displaced by "
+            f"{self.inserted} insert(s) at epoch {self.epoch}"
+        ]
+
+
 def convert_xdp_action_to_string(action: int) -> str:
     """convertXdpActionToString (events.go:173-181)."""
     if action == XDP_DROP:

@@ -41,15 +41,20 @@ class PacketBatch:
     icmp_type: np.ndarray  # (B,) int32
     icmp_code: np.ndarray  # (B,) int32
     pkt_len: np.ndarray    # (B,) int32
+    #: (B,) int32 TCP flag bits (flow.TCP_*) for the flow tier's state
+    #: model, or None when the source carries none (read as 0)
+    tcp_flags: Optional[np.ndarray] = None
 
     def __len__(self) -> int:
         return int(self.kind.shape[0])
 
     def slice(self, start: int, stop: int) -> "PacketBatch":
-        return PacketBatch(**{f: getattr(self, f)[start:stop] for f in _FIELDS})
+        return PacketBatch(**{f: getattr(self, f)[start:stop] for f in _FIELDS},
+                           tcp_flags=None if self.tcp_flags is None else self.tcp_flags[start:stop])
 
     def take(self, idx: np.ndarray) -> "PacketBatch":
-        return PacketBatch(**{f: getattr(self, f)[idx] for f in _FIELDS})
+        return PacketBatch(**{f: getattr(self, f)[idx] for f in _FIELDS},
+                           tcp_flags=None if self.tcp_flags is None else self.tcp_flags[idx])
 
     def pad_to(self, n: int) -> "PacketBatch":
         """Pad to ``n`` packets with KIND_OTHER rows (always XDP_PASS, no
@@ -63,6 +68,8 @@ class PacketBatch:
 
         out = {f: _pad(getattr(self, f)) for f in _FIELDS}
         out["kind"] = _pad(self.kind, 3)  # KIND_OTHER
+        if self.tcp_flags is not None:
+            out["tcp_flags"] = _pad(self.tcp_flags)
         return PacketBatch(**out)
 
     def pack_wire(self) -> np.ndarray:
@@ -165,8 +172,15 @@ def make_batch(
 
 
 def concat(batches: List[PacketBatch]) -> PacketBatch:
+    flags = None
+    if any(b.tcp_flags is not None for b in batches):
+        flags = np.concatenate([
+            b.tcp_flags if b.tcp_flags is not None else np.zeros(len(b), np.int32)
+            for b in batches
+        ])
     return PacketBatch(
-        **{f: np.concatenate([getattr(b, f) for b in batches]) for f in _FIELDS}
+        **{f: np.concatenate([getattr(b, f) for b in batches]) for f in _FIELDS},
+        tcp_flags=flags,
     )
 
 

@@ -23,6 +23,10 @@ from .constants import (
     IPPROTO_SCTP,
     IPPROTO_TCP,
     IPPROTO_UDP,
+    TCP_ACK,
+    TCP_FIN,
+    TCP_RST,
+    TCP_SYN,
 )
 from .packets import PacketBatch
 
@@ -354,6 +358,238 @@ def random_batch_fast(
         icmp_code=icmp_code,
         pkt_len=rng.integers(60, 1500, b).astype(np.int32),
     )
+
+
+def flow_locality_fids(
+    rng: np.random.Generator, n: int, established_fraction: float,
+    chunk_packets: int = 1024,
+) -> Tuple[np.ndarray, np.ndarray, int]:
+    """The chunk-aware flow ids under flow_trace_batch: (fid, fresh,
+    n_flows), where ``fresh`` marks first occurrences and a repeat only
+    names a flow born in an EARLIER chunk, so a verdict cache that inserts
+    at chunk boundaries sees about ``established_fraction`` hits in every
+    chunk after the first (chunk 0 is all fresh)."""
+    n = int(n)
+    e = float(established_fraction)
+    if not 0.0 <= e < 1.0:
+        raise ValueError(f"established_fraction must be in [0, 1), got {e}")
+    cp = max(int(chunk_packets), 1)
+    chunk = np.arange(n) // cp
+    chunk_starts = np.arange(0, n, cp)
+    fresh = (rng.random(n) >= e) | (chunk == 0)
+    seen = np.cumsum(fresh)
+    born_before = np.concatenate([[0], seen[chunk_starts[1:] - 1]])[chunk]
+    fresh = fresh | (born_before == 0)
+    seen = np.cumsum(fresh)
+    born_before = np.concatenate([[0], seen[chunk_starts[1:] - 1]])[chunk]
+    pick = rng.random(n)
+    fid = np.where(
+        fresh, seen - 1, (pick * np.maximum(born_before, 1)).astype(np.int64),
+    ).astype(np.int64)
+    return fid, fresh, int(seen[-1])
+
+
+def flow_trace_batch(
+    rng: np.random.Generator,
+    tables: CompiledTables,
+    n_packets: int,
+    established_fraction: float,
+    chunk_packets: int = 1024,
+    fin_fraction: float = 0.05,
+) -> Tuple[PacketBatch, Dict[str, int]]:
+    """Seeded packet stream with a set share of established flows, the
+    flow tier's hit-rate ladder: in every chunk of ``chunk_packets``
+    after the first, about ``established_fraction`` of the packets repeat
+    a flow born in an earlier chunk.  Flows come from random_batch_fast
+    over ``tables``, repaired to IPv4/IPv6 lanes with l4_ok = 1.  TCP
+    flags: SYN on a flow's first packet, ACK after, FIN|ACK on the last
+    packet of ``fin_fraction`` of the flows.  Returns (batch, {"n_flows",
+    "repeats"}); the batch carries ``tcp_flags``."""
+    n = int(n_packets)
+    fid, fresh, n_flows = flow_locality_fids(rng, n, established_fraction, chunk_packets)
+    pool = random_batch_fast(rng, tables, n_flows)
+    kind = np.asarray(pool.kind)
+    kind = np.where((kind == 1) | (kind == 2), kind, 1).astype(np.int32)
+    v4 = kind == 1
+    ipw = np.asarray(pool.ip_words).copy()
+    ipw[v4, 1:] = 0
+    batch = PacketBatch(
+        kind=kind[fid],
+        l4_ok=np.ones(n, np.int32),
+        ifindex=np.asarray(pool.ifindex)[fid],
+        ip_words=ipw[fid],
+        proto=np.asarray(pool.proto)[fid],
+        dst_port=np.asarray(pool.dst_port)[fid],
+        icmp_type=np.asarray(pool.icmp_type)[fid],
+        icmp_code=np.asarray(pool.icmp_code)[fid],
+        pkt_len=rng.integers(60, 1500, n).astype(np.int32),
+    )
+    is_tcp = batch.proto == IPPROTO_TCP
+    flags = np.where(is_tcp, TCP_ACK, 0).astype(np.int32)
+    flags[fresh & is_tcp] = TCP_SYN
+    last = np.zeros(n_flows, np.int64)
+    np.maximum.at(last, fid, np.arange(n, dtype=np.int64))
+    closing = last[rng.random(n_flows) < fin_fraction]
+    closing = closing[is_tcp[closing]]
+    flags[closing] = TCP_FIN | TCP_ACK
+    batch.tcp_flags = flags
+    return batch, {"n_flows": n_flows, "repeats": int(n - n_flows)}
+
+
+#: the named cases of flow_kernel_case
+FLOW_KERNEL_CASES = (
+    "fin_rst_same_slot", "teardown_then_hit", "duplicate_keys", "full_slab_tied_epochs",
+    "syn_then_ack_promote", "ways_1", "ways_8", "tenant_ranges", "epoch_near_int32_max",
+    "inert_lanes", "stale_generation",
+)
+
+
+def _flow_pool(rng: np.random.Generator, n: int, width: int) -> PacketBatch:
+    """``n`` distinct eligible flows (IPv4 only for the 4-word wire)."""
+    kind = np.ones(n, np.int32) if width == 4 else rng.choice([1, 2], n).astype(np.int32)
+    ip = rng.integers(0, 1 << 32, (n, 4), dtype=np.uint64).astype(np.uint32)
+    ip[kind == 1, 1:] = 0
+    proto = rng.choice([IPPROTO_TCP, IPPROTO_TCP, IPPROTO_UDP, IPPROTO_ICMP], n).astype(np.int32)
+    icmp = proto == IPPROTO_ICMP
+    return PacketBatch(
+        kind=kind, l4_ok=np.ones(n, np.int32), ifindex=rng.choice([2, 3], n).astype(np.int32),
+        ip_words=ip, proto=proto,
+        dst_port=np.where(icmp, 0, rng.integers(0, 65536, n)).astype(np.int32),
+        icmp_type=np.where(icmp, rng.integers(0, 256, n), 0).astype(np.int32),
+        icmp_code=np.where(icmp, rng.integers(0, 256, n), 0).astype(np.int32),
+        pkt_len=rng.integers(60, 1500, n).astype(np.int32),
+    )
+
+
+def _wire_of(b: PacketBatch, width: int) -> np.ndarray:
+    return b.pack_wire_v4() if width == 4 else b.pack_wire()
+
+
+def flow_kernel_case(name: str, width: int, seed: int = 0) -> Dict[str, object]:
+    """One probe-then-insert scenario of the flow kernels (K7, K8) from a
+    seed: the geometry (``entries``, ``pages``, ``ways``, ``max_age``),
+    the starting state (``keys`` uint32 (C, 8), ``vg``, ``se``, ``cnt``,
+    ``gens``, ``page_table``), then ``probe`` = (wire, tenant, tflags,
+    epoch) and ``insert`` = (wire, tenant, tflags, verdict, epoch), the
+    insert running on the columns the probe left.  ``width`` is the wire
+    width, 4 or 7.  The starting columns come from inserting a pool of
+    flows into an empty table with the host model
+    (infw_torch.flow.HostFlowModel)."""
+    from .flow import FlowConfig, HostFlowModel
+
+    if name not in FLOW_KERNEL_CASES or width not in (4, 7):
+        raise ValueError(f"unknown flow kernel case {name!r} / width {width}")
+    rng = np.random.default_rng([seed, FLOW_KERNEL_CASES.index(name), width])
+    entries, pages, ways, tenants, max_age = 64, 1, 4, 1, 1 << 20
+    if name == "ways_1":
+        ways = 1
+    elif name == "ways_8":
+        ways = 8
+    elif name == "full_slab_tied_epochs":
+        entries = 8
+    elif name == "tenant_ranges":
+        pages, tenants = 2, 3
+    elif name == "epoch_near_int32_max":
+        max_age = 67  # two of the four seeding epochs stay fresh
+    cfg = FlowConfig.make(entries=entries, pages=pages, ways=ways, max_tenants=tenants,
+                          max_age=max_age)
+    model = HostFlowModel(cfg)
+    if name == "tenant_ranges":
+        model.page_table[:] = [0, -1, 1]  # tenant 1 has no flow slab
+    model.gens[:] = rng.integers(0, 5, tenants)
+    n_pool = 40
+    pool = _flow_pool(rng, n_pool, width)
+    pool_tenant = rng.integers(0, tenants, n_pool).astype(np.int32)
+    epoch0 = (1 << 31) - 70 if name == "epoch_near_int32_max" else 100
+    seed_flags = np.where(pool.proto == IPPROTO_TCP,
+                          TCP_SYN if name == "syn_then_ack_promote" else TCP_ACK, 0)
+    if name != "full_slab_tied_epochs":
+        for k in range(4):  # the pool in four inserts at four epochs
+            idx = np.arange(k, n_pool, 4)
+            sub = pool.take(idx)
+            model.insert(_wire_of(sub, width), pool_tenant[idx], seed_flags[idx],
+                         rng.integers(0, 1 << 16, len(idx)), epoch0 + k)
+    else:
+        live = rng.integers(0, 1 << 32, (cfg.capacity, 8), dtype=np.uint64).astype(np.uint32)
+        model.keys[:] = live
+        model.se[:, 0] = 2
+        model.se[:, 1] = epoch0  # every way ties on the oldest epoch
+    if name == "stale_generation":
+        # a new generation, then half the pool re-inserted under it: the
+        # other half matches, live and fresh, under the old one
+        model.gens += 1
+        idx = np.arange(0, n_pool, 2)
+        model.insert(_wire_of(pool.take(idx), width), pool_tenant[idx], seed_flags[idx],
+                     rng.integers(0, 1 << 16, len(idx)), epoch0 + 4)
+    if name == "epoch_near_int32_max":
+        # entries last seen "before" the wrap: their int32 difference to
+        # the probe's epoch wraps to -6, so they count as fresh
+        live = np.nonzero(model.se[:, 0] > 0)[0]
+        model.se[live[::3], 1] = np.int32(-(1 << 31) + 5)
+
+    B = 96
+    pick = rng.integers(0, n_pool, B)
+    fresh = _flow_pool(rng, B, width)
+    use_fresh = rng.random(B) < 0.3
+    lanes = PacketBatch(**{
+        f: np.where(use_fresh.reshape((-1,) + (1,) * (getattr(pool, f).ndim - 1)),
+                    getattr(fresh, f), getattr(pool, f)[pick])
+        for f in ("kind", "l4_ok", "ifindex", "ip_words", "proto", "dst_port", "icmp_type",
+                  "icmp_code")
+    }, pkt_len=rng.integers(60, 0x1FFFFF, B).astype(np.int32))
+    tenant = np.where(use_fresh, rng.integers(0, tenants, B), pool_tenant[pick]).astype(np.int32)
+    is_tcp = lanes.proto == IPPROTO_TCP
+    tflags = np.where(is_tcp, rng.choice([0, TCP_ACK, TCP_SYN, TCP_SYN | TCP_ACK], B), 0)
+    if name == "fin_rst_same_slot":
+        tcp_pool = np.nonzero(pool.proto == IPPROTO_TCP)[0]
+        # lanes 0-3 FIN and 4-7 RST one flow, 8-11 ACK and 12-15 FIN another
+        for j, f in enumerate((TCP_FIN | TCP_ACK, TCP_RST, TCP_ACK, TCP_FIN)):
+            pick_j = tcp_pool[j // 2]
+            for fld in ("kind", "l4_ok", "ifindex", "proto", "dst_port", "icmp_type", "icmp_code"):
+                getattr(lanes, fld)[4 * j: 4 * j + 4] = getattr(pool, fld)[pick_j]
+            lanes.ip_words[4 * j: 4 * j + 4] = pool.ip_words[pick_j]
+            tenant[4 * j: 4 * j + 4] = pool_tenant[pick_j]
+            tflags[4 * j: 4 * j + 4] = f
+    elif name == "teardown_then_hit":
+        tcp_pool = np.nonzero(pool.proto == IPPROTO_TCP)[0]
+        for j, lane in enumerate((0, 50, 95)):
+            fl = tcp_pool[0]
+            for fld in ("kind", "l4_ok", "ifindex", "proto", "dst_port", "icmp_type", "icmp_code"):
+                getattr(lanes, fld)[lane] = getattr(pool, fld)[fl]
+            lanes.ip_words[lane] = pool.ip_words[fl]
+            tenant[lane] = pool_tenant[fl]
+            tflags[lane] = TCP_RST if j == 0 else TCP_ACK
+    elif name == "duplicate_keys":
+        dup = fresh.take(np.arange(3))
+        for lane in range(B):
+            if lane % 3 == 0:
+                d = lane % 9 // 3
+                for fld in ("kind", "l4_ok", "ifindex", "proto", "dst_port", "icmp_type",
+                            "icmp_code"):
+                    getattr(lanes, fld)[lane] = getattr(dup, fld)[d]
+                lanes.ip_words[lane] = dup.ip_words[d]
+                tenant[lane] = 0
+    elif name == "syn_then_ack_promote":
+        tflags = np.where(is_tcp, TCP_ACK, 0)
+    elif name == "tenant_ranges":
+        tenant = rng.choice([-1, 0, 1, 2, 3, 7], B).astype(np.int32)
+        tenant[: B // 2] = np.where(use_fresh, tenant, pool_tenant[pick])[: B // 2]
+    elif name == "inert_lanes":
+        odd = rng.random(B) < 0.4
+        lanes.kind[odd & (rng.random(B) < 0.5)] = 3   # KIND_OTHER
+        lanes.l4_ok[odd & (rng.random(B) < 0.5)] = 0
+        lanes.kind[odd & (rng.random(B) < 0.2)] = 0   # malformed
+    tflags = np.asarray(tflags, np.int32)
+    wire = _wire_of(lanes, width)
+    epoch = epoch0 + 10 if name != "epoch_near_int32_max" else (1 << 31) - 1
+    verdict = rng.integers(0, 1 << 20, B).astype(np.uint32)
+    return {
+        "entries": cfg.entries, "pages": cfg.pages, "ways": cfg.ways, "max_age": cfg.max_age,
+        "keys": model.keys.copy(), "vg": model.vg.copy(), "se": model.se.copy(),
+        "cnt": model.cnt.copy(), "gens": model.gens.copy(), "page_table": model.page_table.copy(),
+        "probe": (wire, tenant, tflags, epoch),
+        "insert": (wire, tenant, tflags, verdict, epoch),
+    }
 
 
 #: the packet orders of depth_adversarial

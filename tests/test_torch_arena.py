@@ -593,7 +593,6 @@ def _spec(**kw):
 
 
 REFUSALS = {
-    "flow_table": lambda: TorchArenaClassifier(_spec(), "cpu", flow_table=1024),
     "check_invariants": lambda: TorchArenaClassifier(_spec(), "cpu", check_invariants=True),
     "spliced": lambda: arena.ArenaAllocator(_spec(
         plane_slots=2, plane_node_rows=8, plane_target_rows=8, plane_joined_rows=8,
@@ -605,6 +604,16 @@ REFUSALS = {
 def test_left_out_parts_raise_not_implemented(case):
     with pytest.raises(NotImplementedError, match=r"ROADMAP\.md item \d+"):
         REFUSALS[case]()
+
+
+def test_flow_table_builds_a_tier():
+    """flow_table=1024 gives one 1024-entry flow slab per arena page, the
+    tenant count of the spec, and flow_* counters."""
+    clf = TorchArenaClassifier(_spec(), "cpu", flow_table=1024)
+    cfg = clf.flow.config
+    assert (cfg.entries, cfg.pages, cfg.max_tenants) == (1024, 4, 4)
+    assert clf.flow_counters()["flow_capacity"] == 4 * 1024
+    assert TorchArenaClassifier(_spec(), "cpu").flow is None
 
 
 def test_default_device_is_cuda_or_raises():

@@ -1,5 +1,5 @@
-"""Kernels K1, K2, K3, K4, K3b and K5 on the card against their plain
-PyTorch versions, at small sizes, K3's and K3b's fused wire-to-verdict
+"""Kernels K1, K2, K3, K4, K3b, K5, K6, K7 and K8 on the card against
+their plain PyTorch versions, at small sizes, K3's and K3b's fused wire-to-verdict
 entries, the wire codecs through the classifier, the multi-tenant arena
 classifier, patched tables and the overlay combine.
 
@@ -1362,3 +1362,122 @@ def test_dense_arena_and_overlay_classifiers_on_card(cuda):
     wire = batch.pack_wire()
     both({"arena_ctrie_walk": 1, "arena_dense": 1},
          lambda t: merged.get(t) if t < 4 else None)
+
+
+def _flow_case_on(case, device):
+    from infw_torch.kernels import flow as kflow
+
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a).view(np.int32).copy()).to(device)  # noqa: E731
+    cols = kflow.FlowTable(*(t(case[k]) for k in kflow.COLUMNS),
+                           winner=torch.full((case["se"].shape[0],), -1, dtype=torch.int32,
+                                             device=device))
+    probe = tuple(t(a) for a in case["probe"][:3]) + (case["probe"][3],)
+    insert = tuple(t(a) for a in case["insert"][:4]) + (case["insert"][4],)
+    return cols, t(case["gens"]), t(case["page_table"]), probe, insert
+
+
+@pytest.mark.parametrize("width", [4, 7])
+@pytest.mark.parametrize("name", testing.FLOW_KERNEL_CASES)
+def test_k7_k8_match_plain(cuda, name, width):
+    """K7 and K8 against their plain versions on the card, on every case
+    of the CPU tests: equal fused buffers, counts and columns, and the
+    insert's scratch back at -1."""
+    from infw_torch.kernels import flow as kflow
+
+    case = testing.flow_kernel_case(name, width)
+    geo = {"slab_entries": case["entries"], "ways": case["ways"]}
+    got, gens, pt, probe, insert = _flow_case_on(case, cuda)
+    want = kflow.clone_flow_table(got)
+    p0, i0 = kflow.PROBE_KERNEL.launches, kflow.INSERT_KERNEL.launches
+    fused = kflow.flow_probe(got, gens, pt, *probe, case["max_age"], **geo)
+    torch.cuda.synchronize()
+    assert kflow.PROBE_KERNEL.launches == p0 + 1
+    assert torch.equal(fused, kflow.flow_probe_plain(want, gens, pt, *probe, case["max_age"], **geo))
+    for k in kflow.COLUMNS:
+        assert torch.equal(getattr(got, k), getattr(want, k)), k
+    counts = kflow.flow_insert(got, gens, pt, *insert, **geo)
+    torch.cuda.synchronize()
+    assert kflow.INSERT_KERNEL.launches == i0 + 1
+    assert torch.equal(counts, kflow.flow_insert_plain(want, gens, pt, *insert, **geo))
+    for k in kflow.COLUMNS:
+        assert torch.equal(getattr(got, k), getattr(want, k)), k
+    assert bool((got.winner == -1).all())
+
+
+@pytest.mark.parametrize("b", [0, 1, 31, 33, 4096, (1 << 16) + 5])
+def test_k7_k8_ragged_batches_match_plain(cuda, b):
+    """K7 and K8 over a flow trace, chunk after chunk, at ragged batch
+    sizes: every chunk's probe buffer, counts and the columns equal the
+    plain versions' on the card."""
+    from infw_torch.kernels import flow as kflow
+
+    rng = np.random.default_rng(b)
+    tables = testing.random_tables_fast(rng, 300, width=4)
+    batch, _meta = testing.flow_trace_batch(rng, tables, max(3 * b, 1), 0.6, chunk_packets=max(b, 1))
+    S, W, C = 1 << 10, 4, 1 << 10
+    got = kflow.empty_flow_table(C, cuda)
+    want = kflow.clone_flow_table(got)
+    gens = torch.zeros(1, dtype=torch.int32, device=cuda)
+    pt = torch.zeros(1, dtype=torch.int32, device=cuda)
+    for k in range(3):
+        sub = batch.slice(k * b, (k + 1) * b)
+        wire = torch.from_numpy(sub.pack_wire().view(np.int32)).to(cuda)
+        ten = torch.zeros(len(sub), dtype=torch.int32, device=cuda)
+        fl = torch.from_numpy(sub.tcp_flags.astype(np.int32)).to(cuda)
+        fused = kflow.flow_probe(got, gens, pt, wire, ten, fl, k + 1, 1 << 20, slab_entries=S, ways=W)
+        assert torch.equal(fused, kflow.flow_probe_plain(want, gens, pt, wire, ten, fl, k + 1,
+                                                         1 << 20, slab_entries=S, ways=W))
+        verdict = torch.from_numpy(rng.integers(0, 1 << 16, len(sub)).astype(np.int32)).to(cuda)
+        counts = kflow.flow_insert(got, gens, pt, wire, ten, fl, verdict, k + 1, slab_entries=S,
+                                   ways=W)
+        assert torch.equal(counts, kflow.flow_insert_plain(want, gens, pt, wire, ten, fl, verdict,
+                                                           k + 1, slab_entries=S, ways=W))
+        for c in kflow.COLUMNS:
+            assert torch.equal(getattr(got, c), getattr(want, c)), (k, c)
+    torch.cuda.synchronize()
+
+
+def test_flow_wrappers_raise_on_wrong_operands(cuda):
+    """On a CUDA tensor K7 and K8 launch or raise: an int64 wire, a wire
+    width the kernels do not take, a non-power-of-two slab."""
+    from infw_torch.kernels import flow as kflow
+
+    fl = kflow.empty_flow_table(64, cuda)
+    z = torch.zeros(8, dtype=torch.int32, device=cuda)
+    one = torch.zeros(1, dtype=torch.int32, device=cuda)
+    geo = {"slab_entries": 64, "ways": 4}
+    for wire, g in ((torch.zeros((8, 7), dtype=torch.int64, device=cuda), geo),
+                    (torch.zeros((8, 6), dtype=torch.int32, device=cuda), geo),
+                    (torch.zeros((8, 7), dtype=torch.int32, device=cuda),
+                     {"slab_entries": 48, "ways": 4})):
+        with pytest.raises(ValueError):
+            kflow.flow_probe(fl, one, one, wire, z, z, 1, 10, **g)
+        with pytest.raises(ValueError):
+            kflow.flow_insert(fl, one, one, wire, z, z, z, 1, **g)
+
+
+def test_flow_classifier_on_the_card_matches_the_cpu(cuda):
+    """TorchClassifier(flow_table=...) on the card against the same
+    classifier on the CPU over a flow trace: equal outputs, flow counters
+    and columns; every chunk launches K7 once and K8 once."""
+    from infw_torch.kernels import flow as kflow
+
+    rng = np.random.default_rng(14)
+    tables = testing.random_tables_fast(rng, 5000, width=4, v6_fraction=0.5)
+    batch, _ = testing.flow_trace_batch(rng, tables, 4 * 1024, 0.9)
+    gpu = TorchClassifier(device=cuda, flow_table=512)
+    cpu = TorchClassifier(device="cpu", flow_table=512)
+    for c in (gpu, cpu):
+        c.load_tables(tables)
+    p0, i0 = kflow.PROBE_KERNEL.launches, kflow.INSERT_KERNEL.launches
+    for k in range(4):
+        sub = batch.slice(1024 * k, 1024 * k + 1024)
+        got, want = gpu.classify(sub), cpu.classify(sub)
+        for f in ("results", "xdp", "stats_delta"):
+            np.testing.assert_array_equal(getattr(got, f), getattr(want, f))
+    assert (kflow.PROBE_KERNEL.launches - p0, kflow.INSERT_KERNEL.launches - i0) == (4, 4)
+    assert gpu.flow_counters() == cpu.flow_counters()
+    assert gpu.flow_counters()["flow_hits_total"] > 0
+    gc, cc = gpu.flow.flow_columns(), cpu.flow.flow_columns()
+    for k in kflow.COLUMNS:
+        np.testing.assert_array_equal(gc[k], cc[k])

@@ -508,6 +508,39 @@ def test_refused_flags_name_their_roadmap_item(tmp_path, capsys, monkeypatch, fl
     assert not (tmp_path / "s").exists()
 
 
+@pytest.mark.parametrize("via", ["flag", "env"])
+def test_flow_table_starts_a_daemon_with_a_tier(tmp_path, monkeypatch, via):
+    """--flow-table N (or INFW_FLOW_TABLE, with INFW_FLOW_WAYS and
+    INFW_FLOW_MAX_AGE) reaches the daemon as a FlowConfig; a bad geometry
+    fails the launch with a usage error."""
+    for _f, e, _i in daemon.REFUSED_FLAGS:
+        monkeypatch.delenv(e, raising=False)
+    seen = {}
+
+    class Stub:
+        def __init__(self, **kw):
+            seen.update(kw)
+            raise SystemExit(0)
+
+    monkeypatch.setattr(daemon, "Daemon", Stub)
+    argv = ["--state-dir", str(tmp_path / "s"), "--node-name", NODE, "--backend", "cpu"]
+    monkeypatch.setenv("INFW_FLOW_WAYS", "2")
+    monkeypatch.setenv("INFW_FLOW_MAX_AGE", "77")
+    if via == "flag":
+        argv += ["--flow-table", "1000"]
+    else:
+        monkeypatch.setenv("INFW_FLOW_TABLE", "1000")
+    with pytest.raises(SystemExit) as e:
+        daemon.main(argv)
+    assert e.value.code == 0
+    assert seen["flow_table"] == daemon.FlowConfig(entries=1024, ways=2, max_age=77)
+    monkeypatch.setenv("INFW_FLOW_WAYS", "9")
+    with pytest.raises(SystemExit) as e:
+        daemon.main(argv)
+    assert e.value.code == 2
+    assert "--flow-table" not in [f for f, _e, _i in daemon.REFUSED_FLAGS]
+
+
 def test_overlay_routing_follows_the_reference(tmp_path):
     """TorchClassifier supports_overlay, so a structurally new key on a
     trie-scale table goes to the overlay as in the JAX syncer; the verdicts
