@@ -4,9 +4,9 @@
     python3 chip_smoke.py [--parent DIR]
 
 ``--parent DIR`` names the root of another tree of this repository (for
-example a ``git archive`` of the parent commit, unpacked): its K2, K3, K3b
-and K6 are built from its sources and, after their outputs are held equal
-to this tree's, timed beside them in turns on the same inputs.
+example a ``git archive`` of the parent commit, unpacked): its K2, K3, K3b,
+K6, K7 and K8 are built from its sources and, after their outputs are held
+equal to this tree's, timed beside them in turns on the same inputs.
 
 Drives the port's dense, trie and ctrie classify paths, its wire codecs,
 its multi-tenant arena and its flow tier on the card and fails (non-zero
@@ -155,10 +155,12 @@ exit, no result line) on any error:
     classifier, then packets/s of the flow and the stateless pass in
     turns, the measured hit rate and the launches of K7, K8 and K2 per
     pass (counts zeroed before, read after); K7 and K8 against their
-    plain versions chunk by chunk over the 90% trace (fused buffers,
-    counts, all four columns); their times at B = 4096 and 2^18 (CUDA
-    events and the profiler's device time: three kernels and a memset a
-    call) beside their bounds and plain versions; the eviction storm (a
+    plain versions chunk by chunk over the 90% trace, on its 7-word wire
+    and on the 4-word wire of its IPv4 form (fused buffers, counts, all
+    four columns); their times at B = 4096, 65536 and 2^18 on both wires
+    (the profiler's device time, which must be one kernel and no memset a
+    call; CUDA events with the host ahead of the card and in a loop; host
+    us a call) beside their bounds and plain versions; the eviction storm (a
     table 8x smaller than the flow population); the dense arena of 9d
     with a flow table of 2^14 entries a page (K6 serves the misses)
     against its stateless classify, each K7 and K8 call of it replayed by
@@ -183,11 +185,12 @@ exit, no result line) on any error:
     under ``two_column``), then the device JSON as the last line.
 
 With ``--parent``, K2 (as is and depth-sorted, every level count), K3
-(tables A and B, as is and depth-sorted; the adversarial batches), K3b
-and K6 (fused, grouped and shuffled; two-column, on the dense arena and
-over the side-pool) are also run from the other tree's build on the same
-operands, held equal, and timed in turns with this tree's (parent, this,
-this, parent).
+(tables A and B, as is and depth-sorted; the adversarial batches), K3b,
+K6 (fused, grouped and shuffled; two-column, on the dense arena and
+over the side-pool), K7 and K8 (every size and wire of phase 11b, on
+clones of the same columns, the columns held equal too) are also run from
+the other tree's build on the same operands, held equal, and timed in
+turns with this tree's (parent, this, this, parent).
 
 Imports nothing of JAX or of the JAX package ``infw``.
 """
@@ -250,16 +253,62 @@ def k6_scratchless(csrc) -> bool:
     return "scratch" not in sig.group(1)
 
 
+def flow_grid_capped(csrc) -> bool:
+    """Whether a tree's K7 and K8 entry points take a grid cap (the
+    cooperative design); the three-launch design's take none."""
+    sig = re.search(r'extern "C" int infw_flow_probe\(([^)]*)\)',
+                    (csrc / "flow_table.cu").read_text())
+    return "max_grid" in sig.group(1)
+
+
+class ParentFlowKernel:
+    """--parent's K7 or K8 behind this tree's launch arguments: the grid
+    cap before the stream is dropped for a parent whose entry point has
+    none; both designs take the (B, 2) lane scratch that this tree's
+    wrapper allocates behind its output."""
+
+    def __init__(self, kernel, capped: bool) -> None:
+        self.kernel, self.capped = kernel, capped
+
+    @property
+    def launches(self) -> int:
+        return self.kernel.launches
+
+    def launch(self, *args) -> None:
+        self.kernel.launch(*(args if self.capped else args[:-2] + args[-1:]))
+
+
+#: --parent's K7 and K8 behind this tree's launch arguments, made once
+PARENT_FLOW: list = []
+
+
+@contextlib.contextmanager
+def parent_flow(kflow):
+    """While open, this tree's K7 and K8 wrappers (checks, one allocation)
+    launch --parent's kernels."""
+    if not PARENT_FLOW:
+        capped = flow_grid_capped(PARENT_KERNELS["flow_probe"].csrc)
+        PARENT_FLOW.extend(ParentFlowKernel(PARENT_KERNELS[n], capped)
+                           for n in ("flow_probe", "flow_insert"))
+    mine = kflow.PROBE_KERNEL, kflow.INSERT_KERNEL
+    kflow.PROBE_KERNEL, kflow.INSERT_KERNEL = PARENT_FLOW
+    try:
+        yield
+    finally:
+        kflow.PROBE_KERNEL, kflow.INSERT_KERNEL = mine
+
+
 def parent_kernels(root: str) -> dict:
-    """K2, K3, K3b and K6 of the tree at ``root``, unbuilt, under this
-    tree's names and C signatures; a K2 entry point without the trailing
-    grid cap (``max_grid``, added with the lane-refilling walk) is bound
-    without it, and a K6 of the design before the grouped one with its own
-    signatures (no scratch; no grid cap on the two-column entry)."""
+    """K2, K3, K3b, K6, K7 and K8 of the tree at ``root``, unbuilt, under
+    this tree's names and C signatures; a K2 entry point without the
+    trailing grid cap (``max_grid``, added with the lane-refilling walk) is
+    bound without it, a K6 of the design before the grouped one with its
+    own signatures (no scratch; no grid cap on the two-column entry), and
+    K7 and K8 of the three-launch design without their grid cap."""
     import ctypes
     from pathlib import Path
 
-    from infw_torch.kernels import _build, arena_dense, arena_walk, cwalk, walk
+    from infw_torch.kernels import _build, arena_dense, arena_walk, cwalk, flow, walk
 
     csrc = Path(root) / "infw_torch" / "kernels" / "csrc"
     out = {}
@@ -275,6 +324,12 @@ def parent_kernels(root: str) -> dict:
                        (arena_dense.FUSED_KERNEL, [p] * 8 + [i] * 7 + [p])):
             out[k.name] = _build.Kernel(k.name, k.symbol, was if old else k.argtypes, csrc=csrc,
                                         source="arena_dense")
+    if (csrc / "flow_table.cu").exists():
+        capped = flow_grid_capped(csrc)
+        for k in (flow.PROBE_KERNEL, flow.INSERT_KERNEL):
+            argtypes = k.argtypes if capped else k.argtypes[:-2] + k.argtypes[-1:]
+            out[k.name] = _build.Kernel(k.name, k.symbol, argtypes, csrc=csrc,
+                                        source="flow_table")
     return out
 
 
@@ -353,6 +408,25 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
         fn()
     torch.cuda.synchronize()
     start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def device_paced_ms(fn, reps: int = 20) -> float:
+    """CUDA-event milliseconds per call of ``fn`` with the host ahead of
+    the card: a sleep kernel holds the stream while the calls are enqueued,
+    so the events time the card's work and the gaps between its launches,
+    not the wrapper's host side (which paces cuda_ms at small sizes)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(20_000_000)  # about 10 ms: longer than enqueueing the calls
     start.record()
     for _ in range(reps):
         fn()
@@ -4028,6 +4102,9 @@ def overlay_phase(tag: str, k6: dict) -> dict:
 # established traffic
 FLOW_TABLE_ENTRIES, FLOW_TABLE_WIDTH, FLOW_SLAB = 200_000, 8, 1 << 17
 FLOW_PACKETS, FLOW_CHUNK, FLOW_RUNGS, FLOW_REPS = 1 << 18, 4096, (0.0, 0.5, 0.9, 0.99), 3
+# K7 and K8 timed at a ladder chunk, a daemon job (DEFAULT_INGEST_CHUNK)
+# and the whole trace
+FLOW_SIZES = (FLOW_CHUNK, 1 << 16, FLOW_PACKETS)
 # the dense arena's flow table: 2^14 entries per slab, one slab per page
 FLOW_ARENA_SLAB, FLOW_ARENA_PER = 1 << 14, 256
 # the daemon's flow pass: a 1M-frame file of a 90%-established trace, twice
@@ -4050,13 +4127,6 @@ def flow_bytes(kind: str, wire_words: int, B: int, ways: int, hits: int = 0,
         return (B * (wire_words * 4 + 8 + ways * 48 + 8 + 2) + -(-B // 32) * 4 + 8
                 + hits * (24 + 8))
     return B * (wire_words * 4 + 12 + ways * 40 + 8) + inserts * 60 + 16
-
-
-def kernel_label(name: str) -> str:
-    """A profiler kernel name without its template arguments and
-    parameter list ("flow_probe_decide<7>(int const*, ...)" ->
-    "flow_probe_decide")."""
-    return (re.findall(r"(\w+)[<(]", name) or [name])[0]
 
 
 @contextlib.contextmanager
@@ -4095,6 +4165,32 @@ def flow_kernels_held(kflow, label: str, seen: dict):
             setattr(kflow, name, fn)
 
 
+def flow_parent_turns(tag: str, label: str, kflow, table, call) -> dict:
+    """--parent's K7 or K8 against this tree's through the same wrapper,
+    each on a clone of ``table``: the output and the four columns equal
+    after one call, then the times with the host ahead of the card, in
+    turns (parent, this, this, parent).  Returns {"ms": this tree's
+    mean, "parent_ms": the parent's}."""
+    import torch
+
+    mine, theirs = kflow.clone_flow_table(table), kflow.clone_flow_table(table)
+
+    def parent_fn():
+        with parent_flow(kflow):
+            return call(theirs)
+
+    a, b = call(mine), parent_fn()
+    torch.cuda.synchronize()
+    if not torch.equal(a, b) or not all(torch.equal(getattr(mine, f), getattr(theirs, f))
+                                        for f in kflow.COLUMNS):
+        raise SystemExit(f"--parent's kernel disagrees with this tree's [{label}]")
+    this_fn = lambda: call(mine)  # noqa: E731
+    p1, t1, t2, p2 = (device_paced_ms(fn) for fn in (parent_fn, this_fn, this_fn, parent_fn))
+    log(f"{tag} parent vs this tree [{label}], device-paced in turns: parent {p1:.5f}, {p2:.5f} "
+        f"ms; this {t1:.5f}, {t2:.5f} ms; this / parent {(t1 + t2) / (p1 + p2):.3f}")
+    return {"ms": (t1 + t2) / 2, "parent_ms": (p1 + p2) / 2}
+
+
 def flow_phase(tag: str) -> tuple:
     """The stateful flow tier (ROADMAP item 9) at the JAX package's flow
     bench shape: per rung of established traffic, every chunk's verdicts
@@ -4102,9 +4198,10 @@ def flow_phase(tag: str) -> tuple:
     then packets/s of the flow pass (from a cold table) and of the
     stateless pass in turns, the measured hit rate and the launches of
     K7, K8 and K2 per pass; K7 and K8 against their plain versions chunk by
-    chunk over the 90% trace (fused buffers, counts, all four columns);
-    their times at B = 4096 and 2^18 beside their bounds and plain
-    versions; the eviction storm; the dense arena of PERF.md section 4 with
+    chunk over the 90% trace on both wires (fused buffers, counts, all
+    four columns); their times at B = 4096, 65536 and 2^18 beside their
+    bounds and plain versions (and --parent's, in turns); the eviction
+    storm; the dense arena of PERF.md section 4 with
     a flow table, against its stateless classify (K6 serves the misses),
     K7 and K8 held there against their plain versions;
     and the daemon with --flow-table over a 1M-frame file read twice,
@@ -4195,95 +4292,117 @@ def flow_phase(tag: str) -> tuple:
             f"of every chunk equal to the stateless path's")
 
     # K7 and K8 against their plain versions, chunk by chunk over the 90%
-    # trace, as the classifier drives them (the misses compacted)
+    # trace, as the classifier drives them (the misses compacted): on the
+    # 7-word wire, then on the 4-word wire of the trace's IPv4 form (IP
+    # words 1-3 zeroed); the tables this leaves are the timings' state
     batch, _meta = traces[90]
+    v4 = batch.take(np.arange(len(batch)))
+    v4.kind[:] = 1
+    v4.ip_words[:, 1:] = 0
     dev = torch.device(DEV)
     put = lambda a: torch.from_numpy(np.ascontiguousarray(a).view(np.int32)).to(dev)  # noqa: E731
-    got = kflow.empty_flow_table(cfg.capacity, dev)
-    want = kflow.clone_flow_table(got)
+    pack = lambda b, width: b.pack_wire() if width == 7 else b.pack_wire_v4()  # noqa: E731
     one = torch.zeros(1, dtype=torch.int32, device=dev)
     geo = {"slab_entries": cfg.entries, "ways": cfg.ways}
-    ref = run_pass(base, batch)
-    n_chunks = 0
-    for k, lo in enumerate(range(0, len(batch), FLOW_CHUNK)):
-        sub = batch.slice(lo, lo + FLOW_CHUNK)
-        wire_np = sub.pack_wire()
-        wire, fl = put(wire_np), put(sub.tcp_flags.astype(np.int32))
-        zt = torch.zeros(len(sub), dtype=torch.int32, device=dev)
-        fused = kflow.flow_probe(got, one, one, wire, zt, fl, k + 1, cfg.max_age, **geo)
-        pf = kflow.flow_probe_plain(want, one, one, wire, zt, fl, k + 1, cfg.max_age, **geo)
-        if not torch.equal(fused, pf):
-            raise SystemExit(f"K7: chunk {k} of the 90% trace disagrees with its plain version")
-        hit = kflow.split_flow_probe_outputs(fused.cpu().numpy(), len(sub))[1]
-        miss = np.nonzero(~hit)[0]
-        mw = put(wire_np[miss])
-        mt = torch.zeros(len(miss), dtype=torch.int32, device=dev)
-        mf = put(sub.tcp_flags[miss].astype(np.int32))
-        mv = put((ref[k].results[miss] & 0xFFFF).astype(np.int32))
-        c1 = kflow.flow_insert(got, one, one, mw, mt, mf, mv, k + 1, **geo)
-        c2 = kflow.flow_insert_plain(want, one, one, mw, mt, mf, mv, k + 1, **geo)
-        if not torch.equal(c1, c2) or not all(torch.equal(getattr(got, f), getattr(want, f))
-                                              for f in kflow.COLUMNS):
-            raise SystemExit(f"K8: chunk {k} of the 90% trace disagrees with its plain version")
-        n_chunks += 1
-    torch.cuda.synchronize()
-    log(f"K7 and K8 against their plain versions over the 90% trace: {n_chunks} chunks, fused "
-        f"buffers, counts and the four columns equal after every chunk "
-        f"({int((got.se[:, 0] > 0).sum())} live entries at the end)")
+    warm = {}
+    for width, trace in ((7, batch), (4, v4)):
+        ref = run_pass(base, trace)
+        got = kflow.empty_flow_table(cfg.capacity, dev)
+        want = kflow.clone_flow_table(got)
+        n_chunks = 0
+        for k, lo in enumerate(range(0, len(trace), FLOW_CHUNK)):
+            sub = trace.slice(lo, lo + FLOW_CHUNK)
+            wire_np = pack(sub, width)
+            wire, fl = put(wire_np), put(sub.tcp_flags.astype(np.int32))
+            zt = torch.zeros(len(sub), dtype=torch.int32, device=dev)
+            fused = kflow.flow_probe(got, one, one, wire, zt, fl, k + 1, cfg.max_age, **geo)
+            pf = kflow.flow_probe_plain(want, one, one, wire, zt, fl, k + 1, cfg.max_age, **geo)
+            if not torch.equal(fused, pf):
+                raise SystemExit(f"K7: chunk {k} of the 90% trace ({width}-word wire) disagrees "
+                                 f"with its plain version")
+            hit = kflow.split_flow_probe_outputs(fused.cpu().numpy(), len(sub))[1]
+            miss = np.nonzero(~hit)[0]
+            mw = put(wire_np[miss])
+            mt = torch.zeros(len(miss), dtype=torch.int32, device=dev)
+            mf = put(sub.tcp_flags[miss].astype(np.int32))
+            mv = put((ref[k].results[miss] & 0xFFFF).astype(np.int32))
+            c1 = kflow.flow_insert(got, one, one, mw, mt, mf, mv, k + 1, **geo)
+            c2 = kflow.flow_insert_plain(want, one, one, mw, mt, mf, mv, k + 1, **geo)
+            if not torch.equal(c1, c2) or not all(torch.equal(getattr(got, f), getattr(want, f))
+                                                  for f in kflow.COLUMNS):
+                raise SystemExit(f"K8: chunk {k} of the 90% trace ({width}-word wire) disagrees "
+                                 f"with its plain version")
+            n_chunks += 1
+        torch.cuda.synchronize()
+        if not bool((got.winner == -1).all()):
+            raise SystemExit(f"K8 left its winner scratch dirty ({width}-word wire)")
+        log(f"K7 and K8 against their plain versions over the 90% trace, {width}-word wire: "
+            f"{n_chunks} chunks, fused buffers, counts and the four columns equal after every "
+            f"chunk ({int((got.se[:, 0] > 0).sum())} live entries at the end)")
+        warm[width] = (trace, got)
+        del want
 
-    # times at B = 4096 (a steady-state chunk) and 2^18 (the trace as one
-    # batch), each on a copy of the warm table
+    # times at B = 4096 (a ladder chunk), 65536 (a daemon job) and 2^18 (the
+    # trace as one batch) on both wires, each on a copy of the warm table
     timing = {}
-    for B in (FLOW_CHUNK, FLOW_PACKETS):
-        sub = batch.slice(len(batch) // 2, len(batch) // 2 + B) if B < len(batch) else batch
-        wire_np = sub.pack_wire()
+    for (width, (trace, got)), B in ((w, B) for w in warm.items() for B in FLOW_SIZES):
+        sub = trace.slice(len(trace) // 2, len(trace) // 2 + B) if B < len(trace) else trace
+        wire_np = pack(sub, width)
         wire, fl = put(wire_np), put(sub.tcp_flags.astype(np.int32))
         zt = torch.zeros(len(sub), dtype=torch.int32, device=dev)
         verdict = put(np.random.default_rng(B).integers(0, 1 << 16, len(sub)).astype(np.int32))
-        tbl = kflow.clone_flow_table(got)
+        calls = {
+            "k7": lambda t: kflow.flow_probe(t, one, one, wire, zt, fl, 999, cfg.max_age, **geo),
+            "k8": lambda t: kflow.flow_insert(t, one, one, wire, zt, fl, verdict, 999, **geo),
+        }
+        plains = {
+            "k7": lambda t: kflow.flow_probe_plain(t, one, one, wire, zt, fl, 999, cfg.max_age,
+                                                   **geo),
+            "k8": lambda t: kflow.flow_insert_plain(t, one, one, wire, zt, fl, verdict, 999,
+                                                    **geo),
+        }
         hits = kflow.split_flow_probe_outputs(
-            kflow.flow_probe(kflow.clone_flow_table(got), one, one, wire, zt, fl, 999, cfg.max_age,
-                             **geo).cpu().numpy(), B)[2]
-        counts = kflow.flow_insert(kflow.clone_flow_table(got), one, one, wire, zt, fl, verdict,
-                                   999, **geo).cpu().numpy()
+            calls["k7"](kflow.clone_flow_table(got)).cpu().numpy(), B)[2]
+        inserts = int(calls["k8"](kflow.clone_flow_table(got))[0])
         f = host_unpack_wire(wire_np)
         rst = (f["proto"] == 6) & ((sub.tcp_flags & 0x04) != 0)
         elig = int((((f["kind"] == 1) | (f["kind"] == 2)) & (f["l4_ok"] != 0) & ~rst).sum())
-        reps = 50 if B == FLOW_CHUNK else 10
-        k7 = cuda_ms(lambda: kflow.flow_probe(tbl, one, one, wire, zt, fl, 999, cfg.max_age, **geo),
-                     reps=reps)
-        k8 = cuda_ms(lambda: kflow.flow_insert(tbl, one, one, wire, zt, fl, verdict, 999, **geo),
-                     reps=reps)
-        ptbl = kflow.clone_flow_table(got)
-        p7 = cuda_ms(lambda: kflow.flow_probe_plain(ptbl, one, one, wire, zt, fl, 999,
-                                                    cfg.max_age, **geo), reps=3, warmup=1)
-        p8 = cuda_ms(lambda: kflow.flow_insert_plain(ptbl, one, one, wire, zt, fl, verdict, 999,
-                                                     **geo), reps=3, warmup=1)
-        # the device time per call from the profiler (CUDA events over a
-        # loop time the wrapper's host side when the device work is shorter)
-        c7, m7, c8, m8 = {}, {}, {}, {}
-        d7 = profiled_kernels(lambda: kflow.flow_probe(tbl, one, one, wire, zt, fl, 999,
-                                                       cfg.max_age, **geo), 20, c7, m7)
-        d8 = profiled_kernels(lambda: kflow.flow_insert(tbl, one, one, wire, zt, fl, verdict, 999,
-                                                        **geo), 20, c8, m8)
-        if d7 and (sum(c7.values()) != 3 or sum(m7.values()) != 1):
-            raise SystemExit(f"K7: {c7} kernels and {m7} memsets per call; expected 3 and 1")
-        if d8 and (sum(c8.values()) != 3 or sum(m8.values()) != 1):
-            raise SystemExit(f"K8: {c8} kernels and {m8} memsets per call; expected 3 and 1")
-        dev7 = sum(d7.values()) / 1e3 if d7 else None
-        dev8 = sum(d8.values()) / 1e3 if d8 else None
-        b7 = flow_bytes("probe", 7, B, cfg.ways, hits=hits) / HBM_BYTES_PER_S * 1e3
-        b8 = flow_bytes("insert", 7, B, cfg.ways, inserts=int(counts[0])) / HBM_BYTES_PER_S * 1e3
-        timing[B] = {"k7": k7, "k8": k8, "p7": p7, "p8": p8, "b7": b7, "b8": b8, "hits": hits,
-                     "inserts": int(counts[0]), "elig": elig, "d7": dev7, "d8": dev8}
-        us = lambda d: "not measured" if not d else ", ".join(  # noqa: E731
-            f"{kernel_label(n)} {v:.2f}" for n, v in d.items())
-        log(f"{tag} K7 flow_probe at B={B}: {k7:.4f} ms a call in a loop (CUDA events), device "
-            f"us per call: {us(d7)} ({hits} hits; bound {b7:.5f} ms by bytes), plain version "
-            f"{p7:.4f} ms; K8 flow_insert at B={B}: {k8:.4f} ms a call, device us: {us(d8)} "
-            f"({int(counts[0])} inserts of {elig} eligible lanes; bound {b8:.5f} ms by bytes), "
-            f"plain version {p8:.4f} ms")
-        del tbl, ptbl
+        bounds = {"k7": flow_bytes("probe", width, B, cfg.ways, hits=hits),
+                  "k8": flow_bytes("insert", width, B, cfg.ways, inserts=inserts)}
+        row = {}
+        for key, call in calls.items():
+            tbl, ptbl = kflow.clone_flow_table(got), kflow.clone_flow_table(got)
+            run = lambda: call(tbl)  # noqa: E731
+            counts, fills = {}, {}
+            dev_us = profiled_kernels(run, 20, counts, fills)
+            if dev_us and (sum(counts.values()) != 1 or fills):
+                raise SystemExit(f"{key}: {counts} kernels and {fills} memsets a call at B={B}; "
+                                 f"expected one kernel and no memset")
+            row[key] = {
+                "ms": cuda_ms(run, reps=50 if B == FLOW_CHUNK else 10),
+                "device_paced_ms": device_paced_ms(run),
+                "device_ms": sum(dev_us.values()) / 1e3 if dev_us else None,
+                "host_us": host_ms_per_call(run, 200) * 1e3,
+                "bound_ms": bounds[key] / HBM_BYTES_PER_S * 1e3,
+                "plain_ms": cuda_ms(lambda: plains[key](ptbl), reps=3, warmup=1),
+                "parent_in_turns": None,
+            }
+            if "flow_probe" in PARENT_KERNELS:
+                row[key]["parent_in_turns"] = flow_parent_turns(
+                    tag, f"{'K7' if key == 'k7' else 'K8'}, B={B}, {width}-word wire", kflow,
+                    got, call)
+            del tbl, ptbl
+        timing[(width, B)] = row
+        for key, name, extra in (("k7", "K7 flow_probe", f"{hits} hits"),
+                                 ("k8", "K8 flow_insert", f"{inserts} inserts of {elig} eligible "
+                                                          f"lanes")):
+            r = row[key]
+            dv = "not measured" if r["device_ms"] is None else f"{r['device_ms'] * 1e3:.2f} us"
+            log(f"{tag} {name} at B={B}, {width}-word wire: device {dv} a call (profiler, one "
+                f"kernel, no memset), {r['device_paced_ms']:.5f} ms a call with the host ahead, "
+                f"{r['ms']:.5f} ms a call in a loop (CUDA events), host {r['host_us']:.2f} us a "
+                f"call; bound {r['bound_ms']:.5f} ms by bytes ({extra}); plain version "
+                f"{r['plain_ms']:.4f} ms")
 
     # the eviction storm: the 90% trace against a table 8x smaller than
     # its flow population
@@ -4427,20 +4546,19 @@ def flow_phase(tag: str) -> tuple:
 
     common = {"route": "cuda", "source": "infw_torch/kernels/csrc/flow_table.cu",
               "max_abs_err": 0, "mismatches": 0, "bound_by": "bytes", "library_ms": None}
-    k7 = {"name": "flow_probe", **common, "replaces": "infw/kernels/jaxpath.py:6014",
-          "launches": ladder[90]["launches"]["flow_probe"],
-          "ms": timing[FLOW_CHUNK]["k7"], "plain_ms": timing[FLOW_CHUNK]["p7"],
-          "bound_ms": timing[FLOW_CHUNK]["b7"], "device_ms": timing[FLOW_CHUNK]["d7"],
-          "device_ms_2p18": timing[FLOW_PACKETS]["d7"], "ms_2p18": timing[FLOW_PACKETS]["k7"],
-          "plain_ms_2p18": timing[FLOW_PACKETS]["p7"], "bound_ms_2p18": timing[FLOW_PACKETS]["b7"],
-          "ladder": ladder, "arena_launches": arena_launches[0].get("flow_probe", 0)}
-    k8 = {"name": "flow_insert", **common, "replaces": "infw/kernels/jaxpath.py:6065",
-          "launches": ladder[90]["launches"]["flow_insert"],
-          "ms": timing[FLOW_CHUNK]["k8"], "plain_ms": timing[FLOW_CHUNK]["p8"],
-          "bound_ms": timing[FLOW_CHUNK]["b8"], "device_ms": timing[FLOW_CHUNK]["d8"],
-          "device_ms_2p18": timing[FLOW_PACKETS]["d8"], "ms_2p18": timing[FLOW_PACKETS]["k8"],
-          "plain_ms_2p18": timing[FLOW_PACKETS]["p8"], "bound_ms_2p18": timing[FLOW_PACKETS]["b8"],
-          "arena_launches": arena_launches[0].get("flow_insert", 0)}
+
+    def entry(key, name, replaces):
+        head = timing[(7, FLOW_CHUNK)][key]
+        return {"name": name, **common, "replaces": replaces,
+                "launches": ladder[90]["launches"][name],
+                **{k: head[k] for k in ("ms", "plain_ms", "bound_ms", "device_ms",
+                                        "device_paced_ms", "host_us", "parent_in_turns")},
+                "sizes": {f"{w}-word": {str(B): timing[(w, B)][key] for B in FLOW_SIZES}
+                          for w in (7, 4)},
+                "arena_launches": arena_launches[0].get(name, 0)}
+
+    k7 = {**entry("k7", "flow_probe", "infw/kernels/jaxpath.py:6014"), "ladder": ladder}
+    k8 = entry("k8", "flow_insert", "infw/kernels/jaxpath.py:6065")
     for k in (k7, k8):
         k["flow_daemon_launches"] = {p: c.get(k["name"], 0) for p, c in daemon_launches.items()}
     return k7, k8
@@ -4451,8 +4569,8 @@ def main() -> int:
 
     parser = argparse.ArgumentParser(description="Chip smoke test of infw_torch on one card.")
     parser.add_argument("--parent", metavar="DIR",
-                        help="another tree of this repository whose K2, K3, K3b and K6 are "
-                             "timed beside this tree's")
+                        help="another tree of this repository whose K2, K3, K3b, K6, K7 and "
+                             "K8 are timed beside this tree's")
     opts = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)

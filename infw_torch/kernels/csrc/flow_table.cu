@@ -15,35 +15,62 @@
 // 0xFF)].
 //
 // Read before write.  XLA gathers every lane's candidate rows from the OLD
-// columns before any scatter.  One launch cannot promise that (a lane may
-// see another lane's update), so each entry is split into launches on one
-// stream, each a full barrier for the next:
-//   probe:  decide (reads only) -> add + max -> min
-//   insert: decide (reads only; the per-slot winner by atomicMax into the
-//           scratch) -> the winners write their rows and zero their
-//           counters -> every eligible lane adds its counter seed and
-//           clears the scratch it touched
-// The probe's max-then-min order is XLA's: a FIN lane and an RST lane on
-// one slot leave state 0.  The insert's counters are the sums over ALL the
-// eligible lanes that chose the slot, which is what the winners' zero plus
-// everyone's add computes.  The winner scratch (C int32) belongs to the
-// table and is -1 between calls: the last launch restores each slot an
-// eligible lane touched, so no launch clears O(C) words (one memset of the
-// 4 count words is all).
+// columns before any scatter, applies the probe's max (FIN, epoch) before
+// its min (RST), lets the last eligible lane of a slot write the insert's
+// row and sums the counters over every eligible lane on it.  Each entry is
+// ONE cooperative launch of a grid that fits on the card at once; grid
+// barriers stand where launch boundaries stood (an earlier design ran three
+// kernels and a memset a call):
+//   probe:  1. decide: every lane reads its candidate rows (nothing is
+//              written to the columns), writes its u16 result and, per
+//              warp, its word of the hit bitmap; the two count words are
+//              zeroed | 2. add + max: each hit lane adds its counters and
+//              sets the epoch max(old, epoch_now) and, for a FIN, the state
+//              max(old, FIN): every hit lane on a slot computes the same
+//              maxima from the old row, so a lane that kept the row stores
+//              them (no atomic) and a lane from the scratch applies them by
+//              atomicMax; the blocks' hit and stale counts are added |
+//              3. min: the RST hit lanes store FLOW_EMPTY (a hit's state is
+//              live, so the min with 0 is 0; the epoch's min with INT_MAX
+//              keeps it).
+//   insert: 1. decide: every lane reads its candidate se and keys rows and
+//              chooses its way; an eligible lane bids for its slot by
+//              atomicMax of its index into the table's winner scratch; the
+//              counts are zeroed | 2. write: the winners write their rows
+//              and zero their counters; the blocks' counts are added |
+//              3. seed: every eligible lane adds [1, len >> 8, len & 0xFF]
+//              (pkt_len from what the decide kept) and puts the scratch
+//              back to -1 (no O(C) clear).
+// A launch for B = 0 zeroes the counts, so no call needs a memset.
 //
-// What bounds it on this card: bytes.  Per lane the wire (16 or 28 B), the
-// tenant and flags (8 B), W candidate rows of 48 B read (keys 32, se 8, vg
-// 8), the 2 B result and a bit of bitmap; a hit lane's cnt and se
-// read-modify-writes; for the insert the winners' 60 B rows and the
-// scratch.  Each candidate row is a random 32-byte sector, so the reads
-// are sector-bound, not bandwidth-bound, at the sizes here: a chunk of
-// 4096 lanes is a few hundred KB and the launches' own latency dominates.
-// The design is one thread per lane and the simplest correct split.
+// What bounds it on this card.  At the main path's sizes (a 4096-lane
+// ladder chunk, 2^16-lane daemon jobs), latency: a grid barrier costs
+// about what a launch does, and one launch with two barriers replaces
+// three launches and a memset; the blocks are as small as
+// 32 threads so that 4096 lanes reach 128 SMs; a lane's loads form a chain
+// (wire, tenant and flags; page and generation; then the rows), and the
+// rows come in three rounds, each way's loads issued together: every way's
+// se, the keys of the ways that could match, the verdict of the way that
+// matched (templated on the way count rounded up to 1, 2, 4 or 8).  At
+// 2^18 lanes, L2 sectors and atomics: the table stays in L2, and loading
+// every way's se, keys and vg at once (12 sectors a lane, not about 6)
+// made the decide slower there and no faster at 4096.  Lanes of a warp
+// combining their counter adds (__match_any_sync, __reduce_add_sync) made
+// every size slower: in a flow trace a warp's lanes seldom share a slot,
+// so each lane adds its own (tools/flow_variants.py times both).
+// A thread takes lanes i = gtid + r * T (T the grid's threads); its first
+// kRegLanes lanes stay in registers across the barriers, later ones keep
+// (slot, packed flags) in the (B, 2) scratch, read back through L2.
+// Scratch and winners written in the launch are read through L2 (__ldcg):
+// L1 is not coherent across SMs.  Warps reconverge (__syncwarp) before
+// each grid barrier, and every warp intrinsic runs with all 32 lanes.
 //
 // Layouts: wire (B, 4 | 7) u32 (the full layouts, wire_io.cuh); tenant,
 // tflags, verdict (B,) i32; gens (n_gens,), page_table (n_pages,) i32;
-// scratch (B, 2) i32 per call; probe out (B + 1) / 2 words of u16 results,
-// ceil(B / 32) bitmap words (LSB first), [hits, stale].
+// scratch (B, 2) i32, 8-byte aligned; probe out (B + 1) / 2 words of u16
+// results, ceil(B / 32) bitmap words (LSB first), [hits, stale]; insert
+// counts (4,) i32 [inserts, evictions, promotes, 0].
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <stdint.h>
@@ -52,35 +79,64 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kFlowEst = 2;
+namespace cg = cooperative_groups;
+
+constexpr int kMinThreads = 32;   // a block at small B: one warp
+constexpr int kMaxThreads = 256;  // a block at large B
+constexpr int kBlockSizes = 4;    // 32, 64, 128, 256
+constexpr int kMaxWarps = kMaxThreads / 32;
+constexpr int kRegLanes = 2;      // a thread's lanes kept in registers
+constexpr unsigned kFull = 0xFFFFFFFFu;
+constexpr int kFlowEmpty = 0;
 constexpr int kFlowNew = 1;
+constexpr int kFlowEst = 2;
 constexpr int kFlowFin = 3;
 constexpr int kTcp = 6;
 constexpr int kTcpFin = 0x01, kTcpSyn = 0x02, kTcpRst = 0x04, kTcpAck = 0x10;
 constexpr uint32_t kFnvBasis = 0x811C9DC5u, kFnvPrime = 0x01000193u;
+constexpr uint32_t kLenMask = 0xFFFFFFu;  // pkt_len is 21 bits on the wire
 
+struct Args {
+  const uint32_t* wire;
+  const int* tenant;
+  const int* tflags;
+  const int* verdict;  // the insert's
+  uint32_t* keys;
+  int2* vg;
+  int2* se;
+  int* cnt;
+  int* winner;  // the insert's, (C,) -1 between calls
+  const int* gens;
+  const int* page_table;
+  uint32_t* out;  // the probe's fused buffer, or the insert's 4 counts
+  int2* lanes;    // (B, 2) scratch: the lanes past a thread's registers
+  int B, n_gens, n_pages, S, ways, epoch_now, max_age;
+};
+
+// One lane's wire row decoded: its key words, flags, length, page and
+// generation.
 struct Lane {
   uint32_t key[8];
-  int kind_ip_l4;  // IPv4 or IPv6 with l4_ok
-  int tcp;
-  int tenant;
   uint32_t pkt_len;
-  int page;        // -1: tenant out of range or unmapped
-  int gen;         // gens[clip(tenant, 0, n_gens - 1)]
-  long long base;  // max(page, 0) * S
-  uint32_t h1, h2;
+  int tflags;
+  int page;  // -1: tenant out of range or unmapped
+  int gen;   // gens[clip(tenant, 0, n_gens - 1)]
+  bool ip_l4;
+  bool tcp;
 };
 
 template <int WW>
-__device__ __forceinline__ Lane lane_of(const uint32_t* __restrict__ wire,
-                                        const int* __restrict__ tenant, long long i,
-                                        const int* __restrict__ gens, int n_gens,
-                                        const int* __restrict__ page_table, int n_pages, int S) {
-  const wire_io::Packet p = wire_io::decode<WW>(wire, i, nullptr, 1);
+__device__ __forceinline__ Lane lane_of(const Args& a, int i) {
+  // the wire row, the tenant and the flags are independent loads; the
+  // page and the generation follow the tenant
+  const wire_io::Packet p = wire_io::decode<WW>(a.wire, i, nullptr, 1);
+  const int t = __ldg(a.tenant + i);
   Lane L;
-  const int t = __ldg(tenant + i);
-  L.tenant = t;
+  L.tflags = __ldg(a.tflags + i);
+  // the clips keep every gather in range (jaxpath._arena_pages, the gens
+  // take, _flow_slots' clip of page -1 to 0)
+  L.page = (t >= 0 && t < a.n_pages) ? __ldg(a.page_table + t) : -1;
+  L.gen = __ldg(a.gens + min(max(t, 0), a.n_gens - 1));
   L.key[0] = (uint32_t)t;
   L.key[1] = (uint32_t)p.ifindex;
   L.key[2] = p.w.x;
@@ -90,30 +146,29 @@ __device__ __forceinline__ Lane lane_of(const uint32_t* __restrict__ wire,
   L.key[6] = ((uint32_t)p.proto & 0xFFu) | (((uint32_t)p.dport & 0xFFFFu) << 8) |
              (((uint32_t)p.kind & 3u) << 24) | (((uint32_t)p.l4_ok & 1u) << 26);
   L.key[7] = ((uint32_t)p.itype & 0xFFu) | (((uint32_t)p.icode & 0xFFu) << 8);
-  L.kind_ip_l4 = wire_io::looked_up(p);
+  L.ip_l4 = wire_io::looked_up(p);
   L.tcp = p.proto == kTcp;
   L.pkt_len = p.pkt_len;
-  // the clips keep every gather in range (jaxpath._arena_pages, the gens
-  // take, _flow_slots' clip of page -1 to 0)
-  L.page = (t >= 0 && t < n_pages) ? __ldg(page_table + t) : -1;
-  L.gen = __ldg(gens + min(max(t, 0), n_gens - 1));
-  L.base = (long long)max(L.page, 0) * S;
-  uint32_t h = kFnvBasis;
-#pragma unroll
-  for (int w = 0; w < 8; ++w) h = (h ^ L.key[w]) * kFnvPrime;
-  L.h1 = h;
-  L.h2 = (h >> 16) | 1u;
   return L;
 }
 
-__device__ __forceinline__ long long slot_of(const Lane& L, int w, int S) {
-  return L.base + (long long)((L.h1 + (uint32_t)w * L.h2) & (uint32_t)(S - 1));
+// Candidate w of a lane on an eligible page.
+struct Probe {
+  int base;
+  uint32_t h1, h2;
+  __device__ __forceinline__ int slot(int w, int S) const {
+    return base + (int)((h1 + (uint32_t)w * h2) & (uint32_t)(S - 1));
+  }
+};
+
+__device__ __forceinline__ Probe probe_of(const Lane& L, int S) {
+  uint32_t h = kFnvBasis;
+#pragma unroll
+  for (int w = 0; w < 8; ++w) h = (h ^ L.key[w]) * kFnvPrime;
+  return Probe{L.page * S, h, (h >> 16) | 1u};
 }
 
-__device__ __forceinline__ bool key_eq(const uint32_t* __restrict__ keys, long long s,
-                                       const Lane& L) {
-  const uint4* r = reinterpret_cast<const uint4*>(keys + s * 8);
-  const uint4 a = r[0], b = r[1];
+__device__ __forceinline__ bool key_eq(const uint4& a, const uint4& b, const Lane& L) {
   return a.x == L.key[0] && a.y == L.key[1] && a.z == L.key[2] && a.w == L.key[3] &&
          b.x == L.key[4] && b.y == L.key[5] && b.z == L.key[6] && b.w == L.key[7];
 }
@@ -124,281 +179,509 @@ __device__ __forceinline__ int epoch_diff(int now, int then) {
   return (int)((uint32_t)now - (uint32_t)then);
 }
 
+__device__ __forceinline__ int lane_id() { return threadIdx.x & 31; }
+
+// A lane's [1, len >> 8, len & 0xFF] added to its slot's counters (u32
+// sums wrap as XLA's int32 scatter-add does, in any order).
+__device__ __forceinline__ void add_counters(int* cnt, int slot, uint32_t len) {
+  int* c = cnt + (size_t)slot * 3;
+  atomicAdd(c, 1);
+  const uint32_t hi = (len >> 8) & kLenMask, lo = len & 0xFFu;
+  if (hi) atomicAdd(c + 1, (int)hi);
+  if (lo) atomicAdd(c + 2, (int)lo);
+}
+
+// Per-warp counts into shared memory at the end of a phase (lane 0 holds
+// them), then, after the grid barrier's block barrier, summed by thread 0.
+template <int N>
+__device__ __forceinline__ void warp_counts_out(unsigned (*sm)[N], const unsigned* c) {
+  if (lane_id() == 0)
+    for (int k = 0; k < N; ++k) sm[threadIdx.x >> 5][k] = c[k];
+}
+
+template <int N>
+__device__ __forceinline__ void block_counts_add(unsigned (*sm)[N], uint32_t* dst) {
+  if (threadIdx.x != 0) return;
+  for (int k = 0; k < N; ++k) {
+    unsigned s = 0;
+    for (int w = 0; w < (int)(blockDim.x >> 5); ++w) s += sm[w][k];
+    if (s) atomicAdd(dst + k, s);
+  }
+}
+
 // --- K7 ------------------------------------------------------------------------
 
-template <int WW>
-__global__ void __launch_bounds__(kThreads)
-probe_decide(const uint32_t* __restrict__ wire, const int* __restrict__ tenant,
-             const int* __restrict__ tflags, const uint32_t* __restrict__ keys,
-             const int2* __restrict__ vg, const int2* __restrict__ se,
-             const int* __restrict__ gens, int n_gens, const int* __restrict__ page_table,
-             int n_pages, int B, int S, int ways, int epoch_now, int max_age,
-             uint32_t* __restrict__ out, int2* __restrict__ lanes) {
-  const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
+// A probe lane across the barriers.
+struct ProbeKept {
+  int slot;      // the hit slot, -1 for a miss or past B
+  uint32_t info; // pkt_len (24 bits) | fin << 24 | rst << 25
+  int2 old;      // the hit row's [state, epoch] as the decide read it
+};
+
+template <int WW, int MW>
+__device__ __forceinline__ ProbeKept probe_decide(const Args& a, int i, long long nw,
+                                                  long long nh, unsigned* counts) {
+  ProbeKept k{-1, 0u, make_int2(0, 0)};
   bool hit = false, stale = false;
-  if (i < B) {
-    const Lane L = lane_of<WW>(wire, tenant, i, gens, n_gens, page_table, n_pages, S);
-    const bool elig = L.kind_ip_l4 && L.page >= 0;
-    long long slot = -1;
+  if (i < a.B) {
+    const Lane L = lane_of<WW>(a, i);
     int res = 0;
-    if (elig) {
-      for (int w = 0; w < ways; ++w) {
-        const long long s = slot_of(L, w, S);
-        const int2 e = se[s];
-        if (e.x < kFlowEst || epoch_diff(epoch_now, e.y) > max_age) continue;
-        if (!key_eq(keys, s, L)) continue;
-        const int2 g = vg[s];
-        if (g.y == L.gen) {
-          hit = true;
-          slot = s;
-          res = g.x;
-          break;
+    if (L.ip_l4 && L.page >= 0) {
+      const Probe P = probe_of(L, a.S);
+      // every way's [state, epoch] at once, then the keys of the ways that
+      // could serve (live and fresh), then the verdicts of the ways whose
+      // key matches: three rounds of loads, each way's independent
+      int2 e[MW], g[MW];
+      uint4 ka[MW], kb[MW];
+      bool m[MW];
+#pragma unroll
+      for (int w = 0; w < MW; ++w)
+        if (w < a.ways) e[w] = a.se[P.slot(w, a.S)];
+#pragma unroll
+      for (int w = 0; w < MW; ++w) {
+        m[w] = w < a.ways && e[w].x >= kFlowEst &&
+               epoch_diff(a.epoch_now, e[w].y) <= a.max_age;
+        if (m[w]) {
+          const uint4* r = reinterpret_cast<const uint4*>(a.keys + (size_t)P.slot(w, a.S) * 8);
+          ka[w] = r[0];
+          kb[w] = r[1];
         }
-        stale = true;  // matches, live and fresh, but of another generation
       }
+#pragma unroll
+      for (int w = 0; w < MW; ++w) {
+        m[w] = m[w] && key_eq(ka[w], kb[w], L);
+        if (m[w]) g[w] = a.vg[P.slot(w, a.S)];
+      }
+#pragma unroll
+      for (int w = 0; w < MW; ++w) {
+        if (!m[w] || hit) continue;
+        if (g[w].y == L.gen) {
+          hit = true;
+          k.slot = P.slot(w, a.S);
+          k.old = e[w];
+          res = g[w].x;
+        } else {
+          stale = true;  // matches, live and fresh, but of another generation
+        }
+      }
+      stale = stale && !hit;
     }
-    if (hit) stale = false;
-    wire_io::put_res16(out, i, hit ? res : 0);
-    const int f = __ldg(tflags + i);
-    const uint32_t fin = (L.tcp && (f & kTcpFin)) ? 1u : 0u;
-    const uint32_t rst = (L.tcp && (f & kTcpRst)) ? 1u : 0u;
-    lanes[i] = make_int2((int)slot, (int)((L.pkt_len & 0xFFFFFFu) | (fin << 24) | (rst << 25)));
+    wire_io::put_res16(a.out, i, hit ? res : 0);
+    const uint32_t fin = (L.tcp && (L.tflags & kTcpFin)) ? 1u : 0u;
+    const uint32_t rst = (L.tcp && (L.tflags & kTcpRst)) ? 1u : 0u;
+    k.info = (L.pkt_len & kLenMask) | (fin << 24) | (rst << 25);
   }
-  // the bitmap word and the counts of this warp's 32 lanes
-  const unsigned hb = __ballot_sync(0xFFFFFFFFu, hit);
-  const unsigned sb = __ballot_sync(0xFFFFFFFFu, stale);
-  if ((threadIdx.x & 31) == 0) {
-    const long long word = i >> 5;
-    const long long nw = ((long long)B + 1) / 2, nh = ((long long)B + 31) / 32;
-    if (word < nh) out[nw + word] = hb;
-    if (hb) atomicAdd(out + nw + nh, (uint32_t)__popc(hb));
-    if (sb) atomicAdd(out + nw + nh + 1, (uint32_t)__popc(sb));
+  // the bitmap word of this warp's 32 lanes (i of lane 0 is a multiple of
+  // 32) and its counts
+  const unsigned hb = __ballot_sync(kFull, hit);
+  const unsigned sb = __ballot_sync(kFull, stale);
+  if (lane_id() == 0) {
+    const long long word = (long long)i >> 5;
+    if (word < nh) a.out[nw + word] = hb;
+    counts[0] += __popc(hb);
+    counts[1] += __popc(sb);
+  }
+  return k;
+}
+
+// Phase 2 for one hit lane: its counters, the epoch max and, for a FIN,
+// the state max.  Every hit lane on a slot computes the same maxima from
+// the old row, so a lane in registers stores them; a lane from the scratch
+// (which kept no row) applies them by atomicMax, which leaves the same.
+__device__ __forceinline__ void probe_add_max(const Args& a, const ProbeKept& k, bool in_regs) {
+  if (k.slot < 0) return;
+  add_counters(a.cnt, k.slot, k.info & kLenMask);
+  const bool fin = (k.info >> 24) & 1u;
+  int* row = reinterpret_cast<int*>(a.se + k.slot);
+  if (!in_regs) {
+    if (fin) atomicMax(row, kFlowFin);
+    atomicMax(row + 1, a.epoch_now);
+  } else if (fin) {
+    a.se[k.slot] = make_int2(max(k.old.x, kFlowFin), max(k.old.y, a.epoch_now));
+  } else {
+    row[1] = max(k.old.y, a.epoch_now);
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-probe_add_max(const int2* __restrict__ lanes, int B, int epoch_now, int* __restrict__ se,
-              int* __restrict__ cnt) {
-  const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (i >= B) return;
-  const int2 l = lanes[i];
-  if (l.x < 0) return;
-  const long long s = l.x;
-  const uint32_t len = (uint32_t)l.y & 0xFFFFFFu;
-  atomicAdd(cnt + s * 3, 1);
-  atomicAdd(cnt + s * 3 + 1, (int)((len >> 8) & 0xFFFFFFu));
-  atomicAdd(cnt + s * 3 + 2, (int)(len & 0xFFu));
-  atomicMax(se + s * 2, ((uint32_t)l.y >> 24) & 1u ? kFlowFin : -1);
-  atomicMax(se + s * 2 + 1, epoch_now);
+__device__ __forceinline__ ProbeKept probe_from_scratch(const Args& a, int i) {
+  ProbeKept k{-1, 0u, make_int2(0, 0)};
+  if (i < a.B) {
+    const int2 l = __ldcg(a.lanes + i);
+    k.slot = l.x;
+    k.info = (uint32_t)l.y;
+  }
+  return k;
 }
 
-__global__ void __launch_bounds__(kThreads)
-probe_min(const int2* __restrict__ lanes, int B, int* __restrict__ se) {
-  const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (i >= B) return;
-  const int2 l = lanes[i];
-  if (l.x < 0 || !(((uint32_t)l.y >> 25) & 1u)) return;
-  atomicMin(se + (long long)l.x * 2, 0);  // FLOW_EMPTY; the epoch's min with INT_MAX keeps it
+template <int WW, int MW>
+__global__ void __launch_bounds__(kMaxThreads) probe_kernel(const Args a) {
+  __shared__ unsigned warp_counts[kMaxWarps][2];
+  cg::grid_group grid = cg::this_grid();
+  const int T = gridDim.x * blockDim.x;
+  const int gtid = blockIdx.x * blockDim.x + threadIdx.x;
+  const int rounds = (int)(((long long)a.B + T - 1) / T);
+  const long long nw = ((long long)a.B + 1) / 2, nh = ((long long)a.B + 31) / 32;
+
+  // 1. decide; the counts zeroed, and the pad half of an odd B's last word
+  if (gtid == 0) {
+    a.out[nw + nh] = 0u;
+    a.out[nw + nh + 1] = 0u;
+    if (a.B & 1) wire_io::put_res16(a.out, a.B, 0);
+  }
+  unsigned counts[2] = {0u, 0u};
+  ProbeKept reg[kRegLanes];
+#pragma unroll
+  for (int r = 0; r < kRegLanes; ++r)
+    if (r < rounds) reg[r] = probe_decide<WW, MW>(a, r * T + gtid, nw, nh, counts);
+  for (int r = kRegLanes; r < rounds; ++r) {
+    const int i = r * T + gtid;
+    const ProbeKept k = probe_decide<WW, MW>(a, i, nw, nh, counts);
+    if (i < a.B) a.lanes[i] = make_int2(k.slot, (int)k.info);
+  }
+  warp_counts_out<2>(warp_counts, counts);
+  __syncwarp();
+  grid.sync();
+
+  // 2. add + max
+  block_counts_add<2>(warp_counts, a.out + nw + nh);
+#pragma unroll
+  for (int r = 0; r < kRegLanes; ++r)
+    if (r < rounds) probe_add_max(a, reg[r], true);
+  for (int r = kRegLanes; r < rounds; ++r)
+    probe_add_max(a, probe_from_scratch(a, r * T + gtid), false);
+  __syncwarp();
+  grid.sync();
+
+  // 3. min: RST on a hit (a live state) leaves FLOW_EMPTY; the epoch's min
+  // with INT_MAX keeps it
+#pragma unroll
+  for (int r = 0; r < kRegLanes; ++r)
+    if (r < rounds && reg[r].slot >= 0 && ((reg[r].info >> 25) & 1u))
+      reinterpret_cast<int*>(a.se + reg[r].slot)[0] = kFlowEmpty;
+  for (int r = kRegLanes; r < rounds; ++r) {
+    const ProbeKept k = probe_from_scratch(a, r * T + gtid);
+    if (k.slot >= 0 && ((k.info >> 25) & 1u))
+      reinterpret_cast<int*>(a.se + k.slot)[0] = kFlowEmpty;
+  }
 }
 
 // --- K8 ------------------------------------------------------------------------
 
-template <int WW>
-__global__ void __launch_bounds__(kThreads)
-insert_decide(const uint32_t* __restrict__ wire, const int* __restrict__ tenant,
-              const int* __restrict__ tflags, const uint32_t* __restrict__ keys,
-              const int2* __restrict__ se, const int* __restrict__ gens, int n_gens,
-              const int* __restrict__ page_table, int n_pages, int B, int S, int ways,
-              int* __restrict__ winner, int2* __restrict__ lanes) {
-  const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (i >= B) return;
-  const Lane L = lane_of<WW>(wire, tenant, i, gens, n_gens, page_table, n_pages, S);
-  const int f = __ldg(tflags + i);
-  const bool rst = L.tcp && (f & kTcpRst);
-  const bool elig = L.kind_ip_l4 && L.page >= 0 && !rst;
-  int m_first = -1, e_first = -1, oldest = 0, oldest_ep = INT_MAX;
-  int m_state = 0, e_state = 0, o_state = 0;
-  for (int w = 0; w < ways; ++w) {
-    const long long s = slot_of(L, w, S);
-    const int2 e = se[s];
-    if (w == 0 || e.y < oldest_ep) {  // argmin: the first of equal epochs
-      oldest = w;
-      oldest_ep = e.y;
-      o_state = e.x;
-    }
-    if (e.x == 0) {
-      if (e_first < 0) {
-        e_first = w;
-        e_state = e.x;
-      }
-    } else if (m_first < 0 && e.x > 0 && key_eq(keys, s, L)) {
-      m_first = w;
-      m_state = e.x;
-    }
-  }
-  const int way = m_first >= 0 ? m_first : (e_first >= 0 ? e_first : oldest);
-  const int old_state = m_first >= 0 ? m_state : (e_first >= 0 ? e_state : o_state);
-  const long long slot = slot_of(L, way, S);
-  if (elig) atomicMax(winner + slot, (int)i);
-  lanes[i] = make_int2(elig ? (int)slot : -1, (m_first >= 0 ? 1 : 0) | (old_state << 1));
-}
+// An insert lane across the barriers.
+struct InsertKept {
+  int slot;       // the chosen slot of an eligible lane, else -1
+  uint32_t info;  // pkt_len (24 bits) | matched << 24 | (old state > 0) << 25 |
+                  // (old state == FLOW_NEW) << 26 | new state << 27 (2 bits)
+};
 
-template <int WW>
-__global__ void __launch_bounds__(kThreads)
-insert_write(const uint32_t* __restrict__ wire, const int* __restrict__ tenant,
-             const int* __restrict__ tflags, const int* __restrict__ verdict,
-             const int* __restrict__ gens, int n_gens, const int* __restrict__ page_table,
-             int n_pages, int B, int S, int epoch_now, const int* __restrict__ winner,
-             const int2* __restrict__ lanes, uint32_t* __restrict__ keys, int2* __restrict__ vg,
-             int2* __restrict__ se, int* __restrict__ cnt, int* __restrict__ counts) {
-  const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
-  bool win = false, evict = false, promote = false;
-  if (i < B) {
-    const int2 l = lanes[i];
-    if (l.x >= 0 && winner[l.x] == (int)i) {
-      win = true;
-      const long long s = l.x;
-      const Lane L = lane_of<WW>(wire, tenant, i, gens, n_gens, page_table, n_pages, S);
-      const int f = __ldg(tflags + i);
+// What a winner writes besides its state; kept in registers for the
+// register lanes, decoded again for a winner from the scratch.
+struct InsertRow {
+  uint32_t key[8];
+  int gen;
+  int verdict;
+};
+
+template <int WW, int MW>
+__device__ __forceinline__ InsertKept insert_decide(const Args& a, int i, InsertRow& row) {
+  InsertKept k{-1, 0u};
+  if (i < a.B) {
+    const int verdict = __ldg(a.verdict + i);
+    const Lane L = lane_of<WW>(a, i);
+    const int f = L.tflags;
+    const bool rst = L.tcp && (f & kTcpRst);
+    if (L.ip_l4 && L.page >= 0 && !rst) {
+      const Probe P = probe_of(L, a.S);
+      // every way's [state, epoch] at once, then the keys of the live ways
+      int2 e[MW];
+      uint4 ka[MW], kb[MW];
+#pragma unroll
+      for (int w = 0; w < MW; ++w)
+        if (w < a.ways) e[w] = a.se[P.slot(w, a.S)];
+#pragma unroll
+      for (int w = 0; w < MW; ++w) {
+        if (w < a.ways && e[w].x > 0) {
+          const uint4* r = reinterpret_cast<const uint4*>(a.keys + (size_t)P.slot(w, a.S) * 8);
+          ka[w] = r[0];
+          kb[w] = r[1];
+        }
+      }
+      // the way holding the key (any live state), else the first empty,
+      // else the oldest epoch (the first of equal epochs)
+      int m_first = -1, e_first = -1, oldest = 0, oldest_ep = INT_MAX;
+      int m_state = 0, o_state = 0;
+#pragma unroll
+      for (int w = 0; w < MW; ++w) {
+        if (w >= a.ways) continue;
+        if (w == 0 || e[w].y < oldest_ep) {
+          oldest = w;
+          oldest_ep = e[w].y;
+          o_state = e[w].x;
+        }
+        if (e[w].x == 0) {
+          if (e_first < 0) e_first = w;
+        } else if (m_first < 0 && e[w].x > 0 && key_eq(ka[w], kb[w], L)) {
+          m_first = w;
+          m_state = e[w].x;
+        }
+      }
+      const int way = m_first >= 0 ? m_first : (e_first >= 0 ? e_first : oldest);
+      const int old_state = m_first >= 0 ? m_state : (e_first >= 0 ? 0 : o_state);
       const bool fin = L.tcp && (f & kTcpFin);
       const bool syn_only = L.tcp && (f & kTcpSyn) && !(f & kTcpAck);
-      const int state = fin ? kFlowFin : (syn_only ? kFlowNew : kFlowEst);
-      const bool matched = l.y & 1;
-      const int old_state = l.y >> 1;
-      evict = !matched && old_state > 0;
-      promote = matched && old_state == kFlowNew && state == kFlowEst;
-      uint4* r = reinterpret_cast<uint4*>(keys + s * 8);
-      r[0] = make_uint4(L.key[0], L.key[1], L.key[2], L.key[3]);
-      r[1] = make_uint4(L.key[4], L.key[5], L.key[6], L.key[7]);
-      vg[s] = make_int2(__ldg(verdict + i) & 0xFFFF, L.gen);
-      se[s] = make_int2(state, epoch_now);
-      cnt[s * 3] = 0;
-      cnt[s * 3 + 1] = 0;
-      cnt[s * 3 + 2] = 0;
+      const uint32_t state = fin ? kFlowFin : (syn_only ? kFlowNew : kFlowEst);
+      k.slot = P.slot(way, a.S);
+      k.info = (L.pkt_len & kLenMask) | ((m_first >= 0 ? 1u : 0u) << 24) |
+               ((old_state > 0 ? 1u : 0u) << 25) | ((old_state == kFlowNew ? 1u : 0u) << 26) |
+               (state << 27);
+#pragma unroll
+      for (int w = 0; w < 8; ++w) row.key[w] = L.key[w];
+      row.gen = L.gen;
+      row.verdict = verdict;
     }
   }
-  const unsigned wb = __ballot_sync(0xFFFFFFFFu, win);
-  const unsigned eb = __ballot_sync(0xFFFFFFFFu, evict);
-  const unsigned pb = __ballot_sync(0xFFFFFFFFu, promote);
-  if ((threadIdx.x & 31) == 0) {
-    if (wb) atomicAdd(counts, __popc(wb));
-    if (eb) atomicAdd(counts + 1, __popc(eb));
-    if (pb) atomicAdd(counts + 2, __popc(pb));
+  // the last eligible lane of a slot in batch order wins it
+  if (k.slot >= 0) atomicMax(a.winner + k.slot, i);
+  return k;
+}
+
+// Phase 2 for one lane: a winner writes its row and zeroes its counters.
+template <int WW>
+__device__ __forceinline__ void insert_write(const Args& a, int i, const InsertKept& k,
+                                             const InsertRow* row, unsigned* counts) {
+  bool win = false;
+  if (k.slot >= 0 && __ldcg(a.winner + k.slot) == i) {
+    win = true;
+    InsertRow r;
+    if (row) {
+      r = *row;
+    } else {
+      const Lane L = lane_of<WW>(a, i);
+#pragma unroll
+      for (int w = 0; w < 8; ++w) r.key[w] = L.key[w];
+      r.gen = L.gen;
+      r.verdict = __ldg(a.verdict + i);
+    }
+    const size_t s = (size_t)k.slot;
+    uint4* kr = reinterpret_cast<uint4*>(a.keys + s * 8);
+    kr[0] = make_uint4(r.key[0], r.key[1], r.key[2], r.key[3]);
+    kr[1] = make_uint4(r.key[4], r.key[5], r.key[6], r.key[7]);
+    a.vg[s] = make_int2(r.verdict & 0xFFFF, r.gen);
+    a.se[s] = make_int2((int)(k.info >> 27), a.epoch_now);
+    a.cnt[s * 3] = 0;
+    a.cnt[s * 3 + 1] = 0;
+    a.cnt[s * 3 + 2] = 0;
+  }
+  const bool matched = (k.info >> 24) & 1u;
+  const bool evict = win && !matched && ((k.info >> 25) & 1u);
+  const bool promote = win && matched && ((k.info >> 26) & 1u) && (k.info >> 27) == kFlowEst;
+  const unsigned wb = __ballot_sync(kFull, win);
+  const unsigned eb = __ballot_sync(kFull, evict);
+  const unsigned pb = __ballot_sync(kFull, promote);
+  if (lane_id() == 0) {
+    counts[0] += __popc(wb);
+    counts[1] += __popc(eb);
+    counts[2] += __popc(pb);
   }
 }
 
-template <int WW>
-__global__ void __launch_bounds__(kThreads)
-insert_seed(const uint32_t* __restrict__ wire, const int2* __restrict__ lanes, int B,
-            int* __restrict__ cnt, int* __restrict__ winner) {
-  const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (i >= B) return;
-  const int2 l = lanes[i];
-  if (l.x < 0) return;
-  const long long s = l.x;
-  const uint32_t len = wire_io::decode<WW>(wire, i, nullptr, 1).pkt_len;
-  atomicAdd(cnt + s * 3, 1);
-  atomicAdd(cnt + s * 3 + 1, (int)((len >> 8) & 0xFFFFFFu));
-  atomicAdd(cnt + s * 3 + 2, (int)(len & 0xFFu));
-  winner[s] = -1;  // the scratch back to its between-calls state
+// Phase 3 for one eligible lane: its counter seed, and the scratch back to
+// -1.
+__device__ __forceinline__ void insert_seed(const Args& a, const InsertKept& k) {
+  if (k.slot < 0) return;
+  add_counters(a.cnt, k.slot, k.info & kLenMask);
+  a.winner[k.slot] = -1;
 }
 
-unsigned blocks(int B) { return (unsigned)(((long long)B + kThreads - 1) / kThreads); }
-
-template <int WW>
-cudaError_t probe(const void* wire, const void* tenant, const void* tflags, void* keys, void* vg,
-                  void* se, void* cnt, const void* gens, const void* page_table, void* out,
-                  void* lanes, int B, int n_gens, int n_pages, int S, int ways, int epoch_now,
-                  int max_age, cudaStream_t st) {
-  probe_decide<WW><<<blocks(B), kThreads, 0, st>>>(
-      (const uint32_t*)wire, (const int*)tenant, (const int*)tflags, (const uint32_t*)keys,
-      (const int2*)vg, (const int2*)se, (const int*)gens, n_gens, (const int*)page_table,
-      n_pages, B, S, ways, epoch_now, max_age, (uint32_t*)out, (int2*)lanes);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  probe_add_max<<<blocks(B), kThreads, 0, st>>>((const int2*)lanes, B, epoch_now, (int*)se,
-                                                (int*)cnt);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  probe_min<<<blocks(B), kThreads, 0, st>>>((const int2*)lanes, B, (int*)se);
-  return cudaGetLastError();
+__device__ __forceinline__ InsertKept insert_from_scratch(const Args& a, int i) {
+  InsertKept k{-1, 0u};
+  if (i < a.B) {
+    const int2 l = __ldcg(a.lanes + i);
+    k.slot = l.x;
+    k.info = (uint32_t)l.y;
+  }
+  return k;
 }
 
-template <int WW>
-cudaError_t insert(const void* wire, const void* tenant, const void* tflags, const void* verdict,
-                   void* keys, void* vg, void* se, void* cnt, void* winner, const void* gens,
-                   const void* page_table, void* counts, void* lanes, int B, int n_gens,
-                   int n_pages, int S, int ways, int epoch_now, cudaStream_t st) {
-  insert_decide<WW><<<blocks(B), kThreads, 0, st>>>(
-      (const uint32_t*)wire, (const int*)tenant, (const int*)tflags, (const uint32_t*)keys,
-      (const int2*)se, (const int*)gens, n_gens, (const int*)page_table, n_pages, B, S, ways,
-      (int*)winner, (int2*)lanes);
-  cudaError_t err = cudaGetLastError();
+template <int WW, int MW>
+__global__ void __launch_bounds__(kMaxThreads) insert_kernel(const Args a) {
+  __shared__ unsigned warp_counts[kMaxWarps][3];
+  cg::grid_group grid = cg::this_grid();
+  const int T = gridDim.x * blockDim.x;
+  const int gtid = blockIdx.x * blockDim.x + threadIdx.x;
+  const int rounds = (int)(((long long)a.B + T - 1) / T);
+
+  // 1. decide; the counts zeroed
+  if (gtid == 0)
+    for (int k = 0; k < 4; ++k) a.out[k] = 0u;
+  InsertKept reg[kRegLanes];
+  InsertRow rows[kRegLanes];
+#pragma unroll
+  for (int r = 0; r < kRegLanes; ++r)
+    if (r < rounds) reg[r] = insert_decide<WW, MW>(a, r * T + gtid, rows[r]);
+  for (int r = kRegLanes; r < rounds; ++r) {
+    const int i = r * T + gtid;
+    InsertRow unused;
+    const InsertKept k = insert_decide<WW, MW>(a, i, unused);
+    if (i < a.B) a.lanes[i] = make_int2(k.slot, (int)k.info);
+  }
+  __syncwarp();
+  grid.sync();
+
+  // 2. write
+  unsigned counts[3] = {0u, 0u, 0u};
+#pragma unroll
+  for (int r = 0; r < kRegLanes; ++r)
+    if (r < rounds) insert_write<WW>(a, r * T + gtid, reg[r], &rows[r], counts);
+  for (int r = kRegLanes; r < rounds; ++r) {
+    const int i = r * T + gtid;
+    insert_write<WW>(a, i, insert_from_scratch(a, i), nullptr, counts);
+  }
+  warp_counts_out<3>(warp_counts, counts);
+  __syncwarp();
+  grid.sync();
+
+  // 3. seed and scratch clear
+  block_counts_add<3>(warp_counts, a.out);
+#pragma unroll
+  for (int r = 0; r < kRegLanes; ++r)
+    if (r < rounds) insert_seed(a, reg[r]);
+  for (int r = kRegLanes; r < rounds; ++r) insert_seed(a, insert_from_scratch(a, r * T + gtid));
+}
+
+// --- launch ----------------------------------------------------------------------
+
+// The block: the smallest of 32, 64, 128 and 256 threads with which one
+// block per SM covers B (so 4096 lanes take 128 SMs), 256 above.  The
+// grid: at most one block per `threads` lanes, at most the co-resident
+// blocks (the occupancy query, once per device and block size), and at
+// most max_grid when that is > 0 (tests force many lanes a thread).
+template <int WW, int MW, bool kProbe>
+cudaError_t launch(const Args& a, int max_grid, cudaStream_t stream) {
+  static int sms_of[wire_io::kMaxDevices];
+  static int per_sm_of[wire_io::kMaxDevices][kBlockSizes];
+  const void* kernel = kProbe ? (const void*)probe_kernel<WW, MW> : (const void*)insert_kernel<WW, MW>;
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return err;
-  insert_write<WW><<<blocks(B), kThreads, 0, st>>>(
-      (const uint32_t*)wire, (const int*)tenant, (const int*)tflags, (const int*)verdict,
-      (const int*)gens, n_gens, (const int*)page_table, n_pages, B, S, epoch_now,
-      (const int*)winner, (const int2*)lanes, (uint32_t*)keys, (int2*)vg, (int2*)se, (int*)cnt,
-      (int*)counts);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  insert_seed<WW><<<blocks(B), kThreads, 0, st>>>((const uint32_t*)wire, (const int2*)lanes, B,
-                                                  (int*)cnt, (int*)winner);
-  return cudaGetLastError();
+  if (device < 0 || device >= wire_io::kMaxDevices) return cudaErrorInvalidDevice;
+  if (sms_of[device] == 0) {
+    int sms = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    if (err != cudaSuccess) return err;
+    sms_of[device] = sms;
+  }
+  const int sms = sms_of[device];
+  int threads = kMinThreads, size = 0;
+  while (threads < kMaxThreads && (long long)threads * sms < a.B) {
+    threads *= 2;
+    ++size;
+  }
+  if (per_sm_of[device][size] == 0) {
+    int per_sm = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, 0);
+    if (err != cudaSuccess) return err;
+    if (per_sm <= 0) return cudaErrorCooperativeLaunchTooLarge;
+    per_sm_of[device][size] = per_sm;
+  }
+  long long grid = ((long long)a.B + threads - 1) / threads;
+  if (grid > (long long)sms * per_sm_of[device][size]) grid = (long long)sms * per_sm_of[device][size];
+  if (max_grid > 0 && grid > max_grid) grid = max_grid;
+  if (grid < 1) grid = 1;
+  void* args[] = {(void*)&a};
+  return cudaLaunchCooperativeKernel(kernel, dim3((unsigned)grid), dim3(threads), args, 0,
+                                     stream);
+}
+
+template <bool kProbe, int WW>
+cudaError_t launch_ways(const Args& a, int max_grid, cudaStream_t stream) {
+  if (a.ways <= 1) return launch<WW, 1, kProbe>(a, max_grid, stream);
+  if (a.ways <= 2) return launch<WW, 2, kProbe>(a, max_grid, stream);
+  if (a.ways <= 4) return launch<WW, 4, kProbe>(a, max_grid, stream);
+  return launch<WW, 8, kProbe>(a, max_grid, stream);
+}
+
+template <bool kProbe>
+int dispatch(const Args& a, int wire_w, int max_grid, void* stream) {
+  cudaError_t err;
+  if (a.B < 0 || a.ways < 1 || a.ways > 8 || a.S < 1 || a.n_gens < 1) {
+    err = cudaErrorInvalidValue;
+  } else if (wire_w == 4) {
+    err = launch_ways<kProbe, 4>(a, max_grid, (cudaStream_t)stream);
+  } else if (wire_w == 7) {
+    err = launch_ways<kProbe, 7>(a, max_grid, (cudaStream_t)stream);
+  } else {
+    err = cudaErrorInvalidValue;
+  }
+  const cudaError_t last = cudaGetLastError();
+  return (int)(err != cudaSuccess ? err : last);
 }
 
 }  // namespace
 
-// K7.  Launches on `stream` and returns cudaGetLastError(); allocates
-// nothing.  wire_w is 4 or 7; C = n_pages_total * S rows; `lanes` is (B, 2)
-// i32 scratch; `out` has (B + 1) / 2 + ceil(B / 32) + 2 words (the wrapper
-// checks shapes, types and alignment).
+// K7: one cooperative launch on `stream` (also for B = 0); returns its
+// error, else cudaGetLastError().  Allocates nothing.  wire_w is 4 or 7;
+// C = n_pages_total * S rows; `lanes` is (B, 2) i32 scratch; `out` has
+// (B + 1) / 2 + ceil(B / 32) + 2 words (the wrapper checks shapes, types
+// and alignment); max_grid > 0 caps the grid (tests), 0 takes what fits.
 extern "C" int infw_flow_probe(const void* wire, const void* tenant, const void* tflags,
                                void* keys, void* vg, void* se, void* cnt, const void* gens,
                                const void* page_table, void* out, void* lanes, int B, int wire_w,
                                int n_gens, int n_pages, int C, int S, int ways, int epoch_now,
-                               int max_age, void* stream) {
+                               int max_age, int max_grid, void* stream) {
   (void)C;
-  cudaStream_t st = (cudaStream_t)stream;
-  // the one memset: the pad half of an odd B's last result word, the
-  // bitmap and the two counts (every other word is written by a lane)
-  const long long nw = ((long long)B + 1) / 2;
-  const long long first = (B & 1) ? nw - 1 : nw;
-  const long long total = nw + ((long long)B + 31) / 32 + 2;
-  cudaError_t err = cudaMemsetAsync((uint32_t*)out + first, 0,
-                                    (size_t)(total - first) * sizeof(uint32_t), st);
-  if (err != cudaSuccess || B == 0) return (int)(err != cudaSuccess ? err : cudaGetLastError());
-  if (wire_w == 4)
-    err = probe<4>(wire, tenant, tflags, keys, vg, se, cnt, gens, page_table, out, lanes, B,
-                   n_gens, n_pages, S, ways, epoch_now, max_age, st);
-  else if (wire_w == 7)
-    err = probe<7>(wire, tenant, tflags, keys, vg, se, cnt, gens, page_table, out, lanes, B,
-                   n_gens, n_pages, S, ways, epoch_now, max_age, st);
-  else
-    err = cudaErrorInvalidValue;
-  return (int)err;
+  Args a{};
+  a.wire = (const uint32_t*)wire;
+  a.tenant = (const int*)tenant;
+  a.tflags = (const int*)tflags;
+  a.keys = (uint32_t*)keys;
+  a.vg = (int2*)vg;
+  a.se = (int2*)se;
+  a.cnt = (int*)cnt;
+  a.gens = (const int*)gens;
+  a.page_table = (const int*)page_table;
+  a.out = (uint32_t*)out;
+  a.lanes = (int2*)lanes;
+  a.B = B;
+  a.n_gens = n_gens;
+  a.n_pages = n_pages;
+  a.S = S;
+  a.ways = ways;
+  a.epoch_now = epoch_now;
+  a.max_age = max_age;
+  return dispatch<true>(a, wire_w, max_grid, stream);
 }
 
-// K8.  Launches on `stream` and returns cudaGetLastError(); allocates
-// nothing.  `winner` (C,) must be -1 on entry and is -1 again after the
-// last launch; `counts` (4,) i32 receives [inserts, evictions, promotes, 0].
+// K8: one cooperative launch on `stream` (also for B = 0); returns its
+// error, else cudaGetLastError().  Allocates nothing.  `winner` (C,) must
+// be -1 on entry and is -1 again when the launch ends; `counts` (4,) i32
+// receives [inserts, evictions, promotes, 0]; `lanes` and max_grid as K7's.
 extern "C" int infw_flow_insert(const void* wire, const void* tenant, const void* tflags,
                                 const void* verdict, void* keys, void* vg, void* se, void* cnt,
                                 void* winner, const void* gens, const void* page_table,
                                 void* counts, void* lanes, int B, int wire_w, int n_gens,
-                                int n_pages, int C, int S, int ways, int epoch_now,
+                                int n_pages, int C, int S, int ways, int epoch_now, int max_grid,
                                 void* stream) {
   (void)C;
-  cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t err = cudaMemsetAsync(counts, 0, 4 * sizeof(int), st);
-  if (err != cudaSuccess || B == 0) return (int)(err != cudaSuccess ? err : cudaGetLastError());
-  if (wire_w == 4)
-    err = insert<4>(wire, tenant, tflags, verdict, keys, vg, se, cnt, winner, gens, page_table,
-                    counts, lanes, B, n_gens, n_pages, S, ways, epoch_now, st);
-  else if (wire_w == 7)
-    err = insert<7>(wire, tenant, tflags, verdict, keys, vg, se, cnt, winner, gens, page_table,
-                    counts, lanes, B, n_gens, n_pages, S, ways, epoch_now, st);
-  else
-    err = cudaErrorInvalidValue;
-  return (int)err;
+  Args a{};
+  a.wire = (const uint32_t*)wire;
+  a.tenant = (const int*)tenant;
+  a.tflags = (const int*)tflags;
+  a.verdict = (const int*)verdict;
+  a.keys = (uint32_t*)keys;
+  a.vg = (int2*)vg;
+  a.se = (int2*)se;
+  a.cnt = (int*)cnt;
+  a.winner = (int*)winner;
+  a.gens = (const int*)gens;
+  a.page_table = (const int*)page_table;
+  a.out = (uint32_t*)counts;
+  a.lanes = (int2*)lanes;
+  a.B = B;
+  a.n_gens = n_gens;
+  a.n_pages = n_pages;
+  a.S = S;
+  a.ways = ways;
+  a.epoch_now = epoch_now;
+  return dispatch<false>(a, wire_w, max_grid, stream);
 }

@@ -24,14 +24,18 @@ launches of gathers and scatters per chunk.
   reduction over ``se``, plain PyTorch on both devices.
 
 Both kernels update the columns in place.  XLA reads every lane's
-candidate rows from the old columns before any scatter; the kernels keep
-that by deciding in one launch and scattering in the next (see the
-source).  On a CPU tensor the wrappers run the plain versions; on a CUDA
-tensor they launch the kernel or raise.
+candidate rows from the old columns before any scatter; each kernel keeps
+that in one cooperative launch whose phases are grid barriers apart (see
+the source).  On a CPU tensor the wrappers run the plain versions; on a
+CUDA tensor they launch the kernel or raise.  A call checks the table's
+columns and geometry only when the table is not the last one checked
+(``_check_table``), its other operands every time, and allocates one
+buffer: the output with the kernel's lane scratch behind it.
 """
 from __future__ import annotations
 
 import ctypes
+import weakref
 from typing import NamedTuple, Tuple
 
 import numpy as np
@@ -58,12 +62,12 @@ from .torchpath import DeviceBatch, _pack_res16, unpack_res16_host, unpack_wire,
 INT32_MAX = np.iinfo(np.int32).max
 PROBE_KERNEL = _build.Kernel(
     "flow_probe", "infw_flow_probe",
-    [ctypes.c_void_p] * 11 + [ctypes.c_int] * 9 + [ctypes.c_void_p],
+    [ctypes.c_void_p] * 11 + [ctypes.c_int] * 10 + [ctypes.c_void_p],
     source="flow_table",
 )
 INSERT_KERNEL = _build.Kernel(
     "flow_insert", "infw_flow_insert",
-    [ctypes.c_void_p] * 13 + [ctypes.c_int] * 8 + [ctypes.c_void_p],
+    [ctypes.c_void_p] * 13 + [ctypes.c_int] * 9 + [ctypes.c_void_p],
     source="flow_table",
 )
 
@@ -302,90 +306,132 @@ def flow_occupancy(se: torch.Tensor) -> torch.Tensor:
 
 # --- the kernels -----------------------------------------------------------------
 
+#: the last table whose columns and geometry passed _check_table: weak
+#: references to its five tensors, the device, slab_entries and ways
+_checked_table = None
 
-def _check(who: str, flow: FlowTable, gens, page_table, wire, tenant, tflags, extra=()):
+
+def _bad_tensor(t, dev) -> str:
+    """Why ``t`` is no operand of the kernels on ``dev`` ("" when it is)."""
+    if t.device != dev or t.dtype != torch.int32:
+        return f"must be int32 on {dev}, got {t.dtype} on {t.device}"
+    if not t.is_contiguous() or t.data_ptr() % 16:
+        return "must be contiguous and 16-byte aligned"
+    return ""
+
+
+def _check_table(who: str, flow: FlowTable, dev, slab_entries: int, ways: int) -> None:
+    """The five columns and the geometry, checked once per table: a call
+    with the table, device and geometry last checked (the same five tensor
+    objects) skips the checks; any other table is checked in full."""
+    global _checked_table
+    seen = _checked_table
+    if (seen is not None and seen[1] == dev and seen[2] == slab_entries and seen[3] == ways
+            and all(ref() is t for ref, t in zip(seen[0], flow))):
+        return
+    C = flow.capacity
+    shapes = {"keys": (C, FLOW_KEY_WORDS), "vg": (C, 2), "se": (C, 2), "cnt": (C, 3),
+              "winner": (C,)}
+    for name in FlowTable._fields:
+        t = getattr(flow, name)
+        bad = _bad_tensor(t, dev)
+        if bad:
+            raise ValueError(f"{who}: {name} {bad}")
+        if tuple(t.shape) != shapes[name]:
+            raise ValueError(f"{who}: {name} {tuple(t.shape)}, expected {shapes[name]}")
+    if slab_entries < 1 or slab_entries & (slab_entries - 1) or C % slab_entries:
+        raise ValueError(f"{who}: slab_entries {slab_entries} must be a power of two "
+                         f"dividing the capacity {C}")
+    if not 1 <= ways <= 8:
+        raise ValueError(f"{who}: ways must be in [1, 8], got {ways}")
+    if C > INT32_MAX:
+        raise ValueError(f"{who}: capacity {C} past int32")
+    _checked_table = (tuple(weakref.ref(t) for t in flow), dev, slab_entries, ways)
+
+
+def _check_operands(who: str, gens, page_table, wire, lanes) -> None:
+    """The per-call operands: the wire, the (B,) lane columns (tenant,
+    flags and the insert's verdicts) and the generation and page vectors."""
     dev = wire.device
     if wire.dim() != 2 or wire.shape[1] not in (4, 7):
         raise ValueError(f"{who}: wire {tuple(wire.shape)}, expected (B, 4) or (B, 7)")
     B = wire.shape[0]
-    C = flow.capacity
-    shapes = {"keys": (C, FLOW_KEY_WORDS), "vg": (C, 2), "se": (C, 2), "cnt": (C, 3),
-              "winner": (C,)}
-    named = [(f, getattr(flow, f)) for f in FlowTable._fields]
-    named += [("gens", gens), ("page_table", page_table), ("wire", wire), ("tenant", tenant),
-              ("tflags", tflags)] + list(extra)
-    for name, t in named:
-        if t.device != dev or t.dtype != torch.int32:
-            raise ValueError(f"{who}: {name} must be int32 on {dev}, got {t.dtype} on {t.device}")
-        if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError(f"{who}: {name} must be contiguous and 16-byte aligned")
-        if name in shapes and tuple(t.shape) != shapes[name]:
-            raise ValueError(f"{who}: {name} {tuple(t.shape)}, expected {shapes[name]}")
-    for name, t in (("tenant", tenant), ("tflags", tflags)) + tuple(extra):
+    for name, t in (("wire", wire), ("gens", gens), ("page_table", page_table)) + lanes:
+        bad = _bad_tensor(t, dev)
+        if bad:
+            raise ValueError(f"{who}: {name} {bad}")
+    for name, t in lanes:
         if tuple(t.shape) != (B,):
             raise ValueError(f"{who}: {name} {tuple(t.shape)}, expected ({B},)")
     if gens.dim() != 1 or page_table.dim() != 1 or gens.shape[0] < 1 or page_table.shape[0] < 1:
         raise ValueError(f"{who}: gens and page_table must be non-empty vectors")
 
 
-def _geometry(who: str, flow: FlowTable, slab_entries: int, ways: int) -> None:
-    if slab_entries < 1 or slab_entries & (slab_entries - 1) or flow.capacity % slab_entries:
-        raise ValueError(f"{who}: slab_entries {slab_entries} must be a power of two "
-                         f"dividing the capacity {flow.capacity}")
-    if not 1 <= ways <= 8:
-        raise ValueError(f"{who}: ways must be in [1, 8], got {ways}")
+def _with_scratch(words: int, B: int, device) -> Tuple[torch.Tensor, int]:
+    """One allocation for a call: ``words`` of output, then the kernel's
+    (B, 2) lane scratch from an even word; returns (buffer, scratch
+    address)."""
+    at = words + (words & 1)
+    buf = torch.empty(at + 2 * B, dtype=torch.int32, device=device)
+    return buf, buf.data_ptr() + 4 * at
+
+
+def _launch(kernel: "_build.Kernel", device, *args) -> None:
+    """Call ``kernel`` on the current stream of ``device``, entering the
+    device only when it is not the current one."""
+    if device.index == torch.cuda.current_device():
+        kernel.launch(*args, torch.cuda.current_stream().cuda_stream)
+    else:
+        with torch.cuda.device(device):
+            kernel.launch(*args, torch.cuda.current_stream().cuda_stream)
 
 
 def flow_probe(flow: FlowTable, gens, page_table, wire, tenant, tflags, epoch_now: int,
-               max_age: int, *, slab_entries: int, ways: int) -> torch.Tensor:
+               max_age: int, *, slab_entries: int, ways: int, _grid: int = 0) -> torch.Tensor:
     """Kernel K7.  A CPU tensor runs flow_probe_plain; a CUDA tensor
     launches the CUDA kernel (building it on first use) or raises.  The
-    columns are updated in place; returns the fused int32 buffer."""
+    columns are updated in place; returns the fused int32 buffer.
+    ``_grid`` > 0 caps the kernel's grid (tests)."""
     if wire.device.type == "cpu":
         return flow_probe_plain(flow, gens, page_table, wire, tenant, tflags, epoch_now, max_age,
                                 slab_entries=slab_entries, ways=ways)
     if wire.device.type != "cuda":
         raise ValueError(f"flow_probe: unsupported device {wire.device}")
-    _check("flow_probe", flow, gens, page_table, wire, tenant, tflags)
-    _geometry("flow_probe", flow, slab_entries, ways)
+    _check_table("flow_probe", flow, wire.device, slab_entries, ways)
+    _check_operands("flow_probe", gens, page_table, wire, (("tenant", tenant), ("tflags", tflags)))
     B = wire.shape[0]
-    out = torch.empty(probe_out_words(B), dtype=torch.int32, device=wire.device)
-    scratch = torch.empty((max(B, 1), 2), dtype=torch.int32, device=wire.device)
-    with torch.cuda.device(wire.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        PROBE_KERNEL.launch(
+    words = probe_out_words(B)
+    buf, scratch = _with_scratch(words, B, wire.device)
+    _launch(PROBE_KERNEL, wire.device,
             wire.data_ptr(), tenant.data_ptr(), tflags.data_ptr(), flow.keys.data_ptr(),
             flow.vg.data_ptr(), flow.se.data_ptr(), flow.cnt.data_ptr(), gens.data_ptr(),
-            page_table.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+            page_table.data_ptr(), buf.data_ptr(), scratch,
             B, wire.shape[1], gens.shape[0], page_table.shape[0], flow.capacity, slab_entries,
-            ways, int(epoch_now), int(max_age), stream,
-        )
-    return out
+            ways, int(epoch_now), int(max_age), int(_grid))
+    return buf[:words]
 
 
 def flow_insert(flow: FlowTable, gens, page_table, wire, tenant, tflags, verdict,
-                epoch_now: int, *, slab_entries: int, ways: int) -> torch.Tensor:
+                epoch_now: int, *, slab_entries: int, ways: int, _grid: int = 0) -> torch.Tensor:
     """Kernel K8.  A CPU tensor runs flow_insert_plain; a CUDA tensor
     launches the CUDA kernel (building it on first use) or raises.  The
     columns are updated in place and ``flow.winner`` is left at -1;
-    returns (4,) int32 [inserts, evictions, promotes, 0]."""
+    returns (4,) int32 [inserts, evictions, promotes, 0].  ``_grid`` > 0
+    caps the kernel's grid (tests)."""
     if wire.device.type == "cpu":
         return flow_insert_plain(flow, gens, page_table, wire, tenant, tflags, verdict, epoch_now,
                                  slab_entries=slab_entries, ways=ways)
     if wire.device.type != "cuda":
         raise ValueError(f"flow_insert: unsupported device {wire.device}")
-    _check("flow_insert", flow, gens, page_table, wire, tenant, tflags, (("verdict", verdict),))
-    _geometry("flow_insert", flow, slab_entries, ways)
+    _check_table("flow_insert", flow, wire.device, slab_entries, ways)
+    _check_operands("flow_insert", gens, page_table, wire,
+                    (("tenant", tenant), ("tflags", tflags), ("verdict", verdict)))
     B = wire.shape[0]
-    counts = torch.empty(4, dtype=torch.int32, device=wire.device)
-    scratch = torch.empty((max(B, 1), 2), dtype=torch.int32, device=wire.device)
-    with torch.cuda.device(wire.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        INSERT_KERNEL.launch(
+    buf, scratch = _with_scratch(4, B, wire.device)
+    _launch(INSERT_KERNEL, wire.device,
             wire.data_ptr(), tenant.data_ptr(), tflags.data_ptr(), verdict.data_ptr(),
             flow.keys.data_ptr(), flow.vg.data_ptr(), flow.se.data_ptr(), flow.cnt.data_ptr(),
-            flow.winner.data_ptr(), gens.data_ptr(), page_table.data_ptr(), counts.data_ptr(),
-            scratch.data_ptr(), B, wire.shape[1], gens.shape[0], page_table.shape[0],
-            flow.capacity, slab_entries, ways, int(epoch_now), stream,
-        )
-    return counts
+            flow.winner.data_ptr(), gens.data_ptr(), page_table.data_ptr(), buf.data_ptr(),
+            scratch, B, wire.shape[1], gens.shape[0], page_table.shape[0], flow.capacity,
+            slab_entries, ways, int(epoch_now), int(_grid))
+    return buf[:4]

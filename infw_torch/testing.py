@@ -6,6 +6,7 @@ tables and batches on both sides.
 """
 from __future__ import annotations
 
+import copy
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -440,8 +441,11 @@ def flow_trace_batch(
 FLOW_KERNEL_CASES = (
     "fin_rst_same_slot", "teardown_then_hit", "duplicate_keys", "full_slab_tied_epochs",
     "syn_then_ack_promote", "ways_1", "ways_8", "tenant_ranges", "epoch_near_int32_max",
-    "inert_lanes", "stale_generation",
+    "inert_lanes", "stale_generation", "hot_slot", "warp_mixed_slots", "lanes_beyond_grid",
 )
+#: lanes of the cases whose batch is not the default 96: "lanes_beyond_grid"
+#: holds more lanes than the threads an H100 keeps resident (132 SMs x 2048)
+FLOW_CASE_LANES = {"hot_slot": 512, "warp_mixed_slots": 256, "lanes_beyond_grid": 300_007}
 
 
 def _flow_pool(rng: np.random.Generator, n: int, width: int) -> PacketBatch:
@@ -527,7 +531,7 @@ def flow_kernel_case(name: str, width: int, seed: int = 0) -> Dict[str, object]:
         live = np.nonzero(model.se[:, 0] > 0)[0]
         model.se[live[::3], 1] = np.int32(-(1 << 31) + 5)
 
-    B = 96
+    B = FLOW_CASE_LANES.get(name, 96)
     pick = rng.integers(0, n_pool, B)
     fresh = _flow_pool(rng, B, width)
     use_fresh = rng.random(B) < 0.3
@@ -569,6 +573,31 @@ def flow_kernel_case(name: str, width: int, seed: int = 0) -> Dict[str, object]:
                     getattr(lanes, fld)[lane] = getattr(dup, fld)[d]
                 lanes.ip_words[lane] = dup.ip_words[d]
                 tenant[lane] = 0
+    elif name in ("hot_slot", "warp_mixed_slots"):
+        # the TCP flows of the pool that the seeding left live: a probe of
+        # a copy of the model
+        _res, live, _h, _s = copy.deepcopy(model).probe(
+            _wire_of(pool, width), pool_tenant, np.zeros(n_pool, np.int32), epoch0 + 10)
+        tcp_pool = np.nonzero((pool.proto == IPPROTO_TCP) & live)[0]
+        if name == "hot_slot":
+            # three lanes in four one live TCP flow, with every flag mix:
+            # its counters summed across warps, FIN's max and RST's min on
+            # one slot, and the insert's last lane on it
+            flows = np.where(rng.random(B) < 0.75, tcp_pool[0], -1)
+        else:
+            # each warp's lanes over two or three live flows, interleaved
+            flows = np.concatenate([
+                rng.choice(tcp_pool, n, replace=False)[np.arange(32) % n]
+                for n in rng.integers(2, 4, B // 32)])
+            flows[rng.random(B) < 0.1] = -1
+        on = flows >= 0
+        for fld in ("kind", "l4_ok", "ifindex", "proto", "dst_port", "icmp_type", "icmp_code"):
+            getattr(lanes, fld)[on] = getattr(pool, fld)[flows[on]]
+        lanes.ip_words[on] = pool.ip_words[flows[on]]
+        tenant[on] = pool_tenant[flows[on]]
+        is_tcp = lanes.proto == IPPROTO_TCP
+        mix = [TCP_ACK, TCP_ACK, TCP_SYN, TCP_SYN | TCP_ACK, TCP_FIN | TCP_ACK, TCP_RST, 0]
+        tflags = np.where(is_tcp, rng.choice(mix, B), 0)
     elif name == "syn_then_ack_promote":
         tflags = np.where(is_tcp, TCP_ACK, 0)
     elif name == "tenant_ranges":

@@ -1437,23 +1437,134 @@ def test_k7_k8_ragged_batches_match_plain(cuda, b):
     torch.cuda.synchronize()
 
 
+@pytest.mark.parametrize("grid", [1, 2, 7])
+@pytest.mark.parametrize("name", ["hot_slot", "warp_mixed_slots", "lanes_beyond_grid",
+                                  "duplicate_keys"])
+def test_k7_k8_forced_grid_match_plain(cuda, name, grid):
+    """K7 and K8 under a forced grid of 1, 2 and 7 blocks (the private
+    ``_grid`` keyword): each thread takes many lanes, all but its first
+    two through the lane scratch, and the fused buffer, the counts and
+    the columns still equal the plain versions', the scratch back at -1."""
+    from infw_torch.kernels import flow as kflow
+
+    case = testing.flow_kernel_case(name, 7)
+    geo = {"slab_entries": case["entries"], "ways": case["ways"]}
+    got, gens, pt, probe, insert = _flow_case_on(case, cuda)
+    want = kflow.clone_flow_table(got)
+    fused = kflow.flow_probe(got, gens, pt, *probe, case["max_age"], **geo, _grid=grid)
+    assert torch.equal(fused, kflow.flow_probe_plain(want, gens, pt, *probe, case["max_age"], **geo))
+    counts = kflow.flow_insert(got, gens, pt, *insert, **geo, _grid=grid)
+    assert torch.equal(counts, kflow.flow_insert_plain(want, gens, pt, *insert, **geo))
+    for k in kflow.COLUMNS:
+        assert torch.equal(getattr(got, k), getattr(want, k)), k
+    assert bool((got.winner == -1).all())
+
+
+def _ops_per_call(fn, reps: int = 10):
+    """torch.profiler over ``reps`` calls after a warm one, with 20 ms of
+    margin on each side of them in the recorded window: ({kernel name:
+    launches a call}, memsets a call), traced again (up to five times)
+    when the trace holds fewer kernels than the runtime's launch records."""
+    import time
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(5):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+            time.sleep(0.02)
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            time.sleep(0.02)
+            prof.step()
+        dev = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA
+               and not e.is_user_annotation and not e.name.startswith("ProfilerStep")]
+        api = sum(e.name.startswith(("cudaLaunch", "cuLaunch")) for e in prof.events()
+                  if e.device_type == DeviceType.CPU)
+        kernels = [n for n in dev if not n.startswith(("Memset", "Memcpy"))]
+        if len(kernels) >= api:
+            counts = {}
+            for n in kernels:
+                counts[n] = counts.get(n, 0) + 1 / reps
+            return counts, sum(n.startswith("Memset") for n in dev) / reps
+    raise AssertionError("the profiler lost kernel events five times")
+
+
+@pytest.mark.parametrize("b", [0, 4096, 1 << 18])
+def test_k7_k8_are_one_kernel_a_call(cuda, b):
+    """Each K7 and K8 call is one cooperative kernel on the card and no
+    memset (the profiler), also for an empty batch."""
+    from infw_torch.kernels import flow as kflow
+
+    rng = np.random.default_rng(b)
+    tables = testing.random_tables_fast(rng, 300, width=4)
+    batch, _meta = testing.flow_trace_batch(rng, tables, max(b, 1), 0.9, chunk_packets=4096)
+    batch = batch.slice(0, b)
+    fl = kflow.empty_flow_table(1 << 14, cuda)
+    one = torch.zeros(1, dtype=torch.int32, device=cuda)
+    wire = torch.from_numpy(batch.pack_wire().view(np.int32)).to(cuda)
+    ten = torch.zeros(b, dtype=torch.int32, device=cuda)
+    fl_ = torch.from_numpy(batch.tcp_flags.astype(np.int32)).to(cuda)
+    geo = {"slab_entries": 1 << 14, "ways": 4}
+    for name, run in (
+            ("probe_kernel", lambda: kflow.flow_probe(fl, one, one, wire, ten, fl_, 5, 100, **geo)),
+            ("insert_kernel", lambda: kflow.flow_insert(fl, one, one, wire, ten, fl_, ten, 5,
+                                                        **geo))):
+        kernels, memsets = _ops_per_call(run)
+        assert len(kernels) == 1 and name in next(iter(kernels)), (name, kernels)
+        assert next(iter(kernels.values())) == pytest.approx(1.0), (name, kernels)
+        assert memsets == 0, (name, memsets)
+    assert bool((fl.winner == -1).all())
+
+
 def test_flow_wrappers_raise_on_wrong_operands(cuda):
     """On a CUDA tensor K7 and K8 launch or raise: an int64 wire, a wire
-    width the kernels do not take, a non-power-of-two slab."""
+    width the kernels do not take, a non-power-of-two slab; and after a
+    good call, which leaves that table's checks done, another table with
+    a column of the wrong shape or type, or misaligned, still raises."""
     from infw_torch.kernels import flow as kflow
 
     fl = kflow.empty_flow_table(64, cuda)
     z = torch.zeros(8, dtype=torch.int32, device=cuda)
     one = torch.zeros(1, dtype=torch.int32, device=cuda)
     geo = {"slab_entries": 64, "ways": 4}
+    good = torch.zeros((8, 7), dtype=torch.int32, device=cuda)
     for wire, g in ((torch.zeros((8, 7), dtype=torch.int64, device=cuda), geo),
                     (torch.zeros((8, 6), dtype=torch.int32, device=cuda), geo),
-                    (torch.zeros((8, 7), dtype=torch.int32, device=cuda),
-                     {"slab_entries": 48, "ways": 4})):
+                    (good, {"slab_entries": 48, "ways": 4}),
+                    (good, {"slab_entries": 64, "ways": 9})):
         with pytest.raises(ValueError):
             kflow.flow_probe(fl, one, one, wire, z, z, 1, 10, **g)
         with pytest.raises(ValueError):
             kflow.flow_insert(fl, one, one, wire, z, z, z, 1, **g)
+    kflow.flow_probe(fl, one, one, good, z, z, 1, 10, **geo)
+    kflow.flow_insert(fl, one, one, good, z, z, z, 1, **geo)
+    C = fl.capacity
+    odd = torch.zeros(C * 8 + 1, dtype=torch.int32, device=cuda)[1:].view(C, 8)
+    copy = kflow.clone_flow_table(fl)
+    for bad in (copy._replace(se=torch.zeros((C, 3), dtype=torch.int32, device=cuda)),
+                copy._replace(cnt=copy.cnt.long()),
+                copy._replace(keys=odd),
+                copy._replace(winner=torch.full((C + 1,), -1, dtype=torch.int32, device=cuda)),
+                kflow.empty_flow_table(C, "cpu")):
+        with pytest.raises(ValueError):
+            kflow.flow_probe(bad, one, one, good, z, z, 2, 10, **geo)
+        with pytest.raises(ValueError):
+            kflow.flow_insert(bad, one, one, good, z, z, z, 2, **geo)
+    with pytest.raises(ValueError):  # a per-call operand on the checked table
+        kflow.flow_probe(fl, one, one, good, z[:7], z, 2, 10, **geo)
+    with pytest.raises(ValueError):
+        kflow.flow_insert(fl, one.long(), one, good, z, z, z, 2, **geo)
+    kflow.flow_probe(fl, one, one, good, z, z, 2, 10, **geo)
+    torch.cuda.synchronize()
+    assert bool((fl.winner == -1).all())
 
 
 def test_flow_classifier_on_the_card_matches_the_cpu(cuda):

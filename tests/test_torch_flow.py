@@ -99,6 +99,12 @@ def test_plain_k7_k8_match_jax(name, width):
         assert int(counts[1]) == pt.capacity  # every way evicted, first of the ties
     if name in ("fin_rst_same_slot", "teardown_then_hit"):
         assert hits > 0
+    if name == "hot_slot":
+        assert hits > 300  # hundreds of lanes of one flow hit its slot
+    if name == "warp_mixed_slots":
+        assert hits > len(wire) // 2
+    if name == "lanes_beyond_grid":
+        assert len(wire) > 132 * 2048  # an H100's resident threads
 
 
 def test_fin_and_rst_on_one_slot_leave_it_empty():
