@@ -168,6 +168,34 @@ exit, no result line) on any error:
     page table, wire, tenants, flags and verdicts; the daemon with --flow-table 2^17
     over a 1M-frame file read twice, against a stateless daemon, its
     flow_* on /metrics against the classifier's counters;
+11c. the resident step and the superbatch (ROADMAP item 10): at
+    bench_resident's shape (a 100K-entry table of 8 rule slots, a 2^17-entry
+    flow table, 100 admissions of 32 and of 128 packets of a 90% trace)
+    every admission against the multi-dispatch flow plan and the stateless
+    classifier and the columns against the former after each pass, then
+    the p50 per admission of the three in turns from a cold table; at the
+    flow ladder's shape (11b's tables and traces) the same gate and
+    packets/s of the three in turns, the launches of a resident pass (K7's
+    and K8's resident entries and K2 must run, the classic K7 and K8 not);
+    the resident entries against their plain versions chunk by chunk over
+    the 90% trace; kernels, memsets and copies per admission of each plan
+    from the profiler (one host-to-device and one device-to-host copy a
+    resident admission); the entries' times beside their bounds and plain
+    versions, and one graph replay's beside the eager step's, the
+    stateless classify alone eager and as a graph too; the superbatch
+    (K = 4, a 2^14-entry table) against four single dispatches, then
+    packets/s of both; 1000 dispatches after mark_resident_warm with no
+    allocation and no capture; serving while rules change (a rules-only
+    edit loaded every 8th admission of the 128-packet trace: the resident
+    classifier keeping its graphs, the same retiring them at every
+    generation, the multi-dispatch plan and the stateless classifier in
+    turns, every admission against the stateless one's); and the daemon
+    with --resident over 11b's 1M-frame file read twice, its verdict
+    files against the stateless daemon's and resident_* and flow_* on
+    /metrics against the classifier's counters, then read again without
+    and with edit files landing every 50 ms, beside a multi-dispatch flow
+    daemon doing the same.  K7's and K8's kernels-line entries carry these
+    readings under ``resident``;
 12. the port's daemon (infw_torch.daemon.Daemon, threads started): the
     headline CRs' ingress blocks as one NodeState file, then bench config
     5a's replay of the 100K trie re-adopted from a checkpoint; then an
@@ -4191,6 +4219,12 @@ def flow_parent_turns(tag: str, label: str, kflow, table, call) -> dict:
     return {"ms": (t1 + t2) / 2, "parent_ms": (p1 + p2) / 2}
 
 
+#: what the flow phase hands to the resident phase: the ladder's tables,
+#: traces and rungs, and the daemon pass's NodeState, frames and the
+#: stateless daemon's verdict file
+FLOW_STASH: dict = {}
+
+
 def flow_phase(tag: str) -> tuple:
     """The stateful flow tier (ROADMAP item 9) at the JAX package's flow
     bench shape: per rung of established traffic, every chunk's verdicts
@@ -4266,6 +4300,7 @@ def flow_phase(tag: str) -> tuple:
         return time.perf_counter() - t
 
     traces, ladder = {}, {}
+    FLOW_STASH.update(tables=tables, traces=traces, ladder=ladder)
     for ef in FLOW_RUNGS:
         pct = int(ef * 100)
         batch, meta = testing.flow_trace_batch(np.random.default_rng(7700 + pct), tables,
@@ -4540,6 +4575,8 @@ def flow_phase(tag: str) -> tuple:
             d.stop()
     if not outs["flow 0"] == outs["flow 1"] == outs["stateless 0"]:
         raise SystemExit("flow daemon: its verdict files differ from the stateless daemon's")
+    FLOW_STASH.update(daemon_doc=doc, daemon_fb=fb, daemon_registry=registry,
+                      daemon_stateless=outs["stateless 0"])
     log(f"flow daemon: both passes' verdict files equal the stateless daemon's "
         f"({tmeta['n_flows']} flows in {len(fb)} frames)")
     shutil.rmtree(root, ignore_errors=True)
@@ -4562,6 +4599,769 @@ def flow_phase(tag: str) -> tuple:
     for k in (k7, k8):
         k["flow_daemon_launches"] = {p: c.get(k["name"], 0) for p, c in daemon_launches.items()}
     return k7, k8
+
+
+# the resident step (ROADMAP item 10): bench_resident's shape (bench.py
+# bench_resident, on_tpu: a 100K-entry table of 8 rule slots, half IPv6, a
+# 2^17-entry 4-way flow table, admissions of 32 and 128 packets of a
+# 90%-established trace, 100 of each), the flow ladder's (the flow phase's
+# tables and traces), the superbatch at bench_pipeline's (K = 4, the 100K
+# table, a 2^14-entry flow table), the warmed steady state and the daemon
+RESIDENT_ENTRIES, RESIDENT_BATCHES, RESIDENT_CHUNKS, RESIDENT_REPS = 100_000, (32, 128), 100, 3
+SUPER_K, SUPER_SLAB, SUPER_BATCHES = 4, 1 << 14, (32, 128)
+STEADY_DISPATCHES = 1000
+# serving while rules change: a rules-only edit of EDIT_KEYS keys loaded
+# before every EDIT_EVERY-th admission of bench_resident's 128-packet trace
+# (the classifier), and an edit file of EDIT_KEYS rules edits landing every
+# EDIT_FILE_S seconds while the daemons read the 1M-frame file
+EDIT_KEYS, EDIT_EVERY, EDIT_FILE_S = 4, 8, 0.05
+
+
+def resident_insert_bytes(width: int, B: int, ways: int, hits: int, inserts: int) -> int:
+    """K8's resident entry: the hit bitmap of every lane; for each lane that
+    missed (the only eligible ones) the wire, tenant and flags, W candidate
+    rows (keys and se), the page and generation, the 2-byte packed verdict
+    and the 2-byte merged result written; the winners' 60-byte rows, the
+    counts, and the device epoch read and written.  A lane that hit needs
+    only its bit."""
+    misses = B - hits
+    return (misses * (width * 4 + 8 + ways * 40 + 8 + 2 + 2) + -(-B // 32) * 4
+            + inserts * 60 + 16 + 8)
+
+
+def resident_edit_passes(tag: str, tables, chunks, res, multi, base, admit, same) -> dict:
+    """Serving while rules change, on the classifier: from an
+    IncrementalTables of ``tables``' content, a rules-only edit of
+    EDIT_KEYS keys loaded with its dirty hint (as the daemon's edit flush
+    loads it) before every EDIT_EVERY-th admission of ``chunks``.  Four
+    passes in turns, twice, each from a cold flow table: the resident
+    classifier as it is (a generation of the same layout keeps its graphs),
+    the same with every generation retiring its graphs (the pool's
+    ``same_layout`` answering False: the behavior before graphs were kept),
+    the multi-dispatch flow plan and the stateless classifier.  Every
+    admission equals the stateless one's.  Returns per pass the p50 and
+    mean admission, the loads' mean, packets/s over admissions and loads,
+    and the captures."""
+    import torch
+
+    from infw_torch import compiler
+    from infw_torch import resident as resident_mod
+    from infw_torch import testing
+
+    t0 = time.perf_counter()
+    inc = compiler.IncrementalTables.from_content(dict(tables.content),
+                                                  rule_width=tables.rule_width)
+    gens = [(inc.snapshot(), None)]
+    inc.clear_dirty()
+    rng = np.random.default_rng(8816)
+    keys = list(tables.content)
+    for _ in range(1, len(chunks) // EDIT_EVERY):
+        picks = rng.choice(len(keys), size=EDIT_KEYS, replace=False)
+        inc.apply({keys[int(i)]: testing.random_rules(rng, tables.rule_width) for i in picks})
+        gens.append((inc.snapshot(), inc.peek_dirty()))
+        inc.clear_dirty()
+    log(f"resident edits: {len(gens) - 1} rules-only generations of {EDIT_KEYS} keys made in "
+        f"{time.perf_counter() - t0:.2f} s")
+
+    def edit_pass(c):
+        flows = chunks if c.flow is not None else [ch[:2] + (None,) for ch in chunks]
+        c.load_tables(gens[0][0])
+        for chunk in flows[:2]:  # both slots on the first generation
+            admit(c, chunk)
+        if c.flow is not None:
+            c.flow.reset()
+        allocs0 = c.resident_counters()["resident_allocs_total"] if c.resident else 0
+        torch.cuda.synchronize()
+        times, loads, outs = [], [], []
+        for k, chunk in enumerate(flows):
+            if k and k % EDIT_EVERY == 0 and k // EDIT_EVERY < len(gens):
+                t = time.perf_counter()
+                snap, hint = gens[k // EDIT_EVERY]
+                c.load_tables(snap, dirty_hint=hint)
+                loads.append(time.perf_counter() - t)
+            t = time.perf_counter()
+            outs.append(admit(c, chunk))
+            times.append(time.perf_counter() - t)
+        total = sum(times) + sum(loads)
+        # one alloc is each generation's context; the rest are captures
+        captures = (c.resident_counters()["resident_allocs_total"] - allocs0 - len(loads)
+                    if c.resident else 0)
+        return outs, {"p50_us": float(np.median(times)) * 1e6,
+                      "mean_us": float(np.mean(times)) * 1e6,
+                      "load_mean_us": float(np.mean(loads)) * 1e6, "loads": len(loads),
+                      "pps": len(chunks) * len(chunks[0][0]) / total, "captures": captures}
+
+    def retiring(c):
+        keep = resident_mod.same_layout
+        resident_mod.same_layout = lambda a, b: False
+        try:
+            return edit_pass(c)
+        finally:
+            resident_mod.same_layout = keep
+
+    runs = (("kept", lambda: edit_pass(res)), ("retiring", lambda: retiring(res)),
+            ("multi", lambda: edit_pass(multi)), ("stateless", lambda: edit_pass(base)))
+    best = {}
+    for _rep in range(2):
+        outs = {}
+        for name, run in runs:
+            outs[name], r = run()
+            if name not in best or r["pps"] > best[name]["pps"]:
+                best[name] = r
+        for name in ("kept", "retiring", "multi"):
+            for k, (a, b) in enumerate(zip(outs[name], outs["stateless"])):
+                if not same(a, b):
+                    raise SystemExit(f"resident edits ({name}): admission {k} differs from the "
+                                     f"stateless classifier's")
+    if best["kept"]["captures"] != 0:
+        raise SystemExit(f"resident edits: a rules-only generation captured again {best}")
+    for name, r in best.items():
+        log(f"{tag} resident edits ({name}): {len(chunks)} admissions of {len(chunks[0][0])}, "
+            f"{r['loads']} rules-only loads: p50 {r['p50_us']:.1f} us, mean {r['mean_us']:.1f} "
+            f"us an admission, load {r['load_mean_us']:.1f} us, {r['pps'] / 1e6:.4f} M packets/s "
+            f"over admissions and loads, {r['captures']} captures (the better of 2 passes in "
+            f"turns, each from a cold table); every admission equal to the stateless one")
+    return best
+
+
+def daemon_edit_pass(tag: str, d, fb, label: str) -> dict:
+    """The daemon ``d`` (NodeState loaded) reads ``fb`` once without edits
+    and once while an edit file of EDIT_KEYS rules-only edits lands every
+    EDIT_FILE_S seconds: the seconds of each pass, the edit flushes, and
+    the resident pool's allocations (contexts and captures) during the
+    edit pass.  Each verdict file must hold one verdict a frame (the
+    verdicts of an edited pass are each the before's or the after's and
+    are not compared here: the classifier's edit passes hold them)."""
+    import threading
+
+    from infw_torch import daemon, testing, txn
+
+    c = d.syncer.classifier
+    keys = list(c.tables.content)
+    width = c.tables.rule_width
+    rng = np.random.default_rng(8817)
+    out = {}
+    for name in ("plain", "edits"):
+        fn = f"{label}-{name}.frames"
+        stage = os.path.join(d.state_dir, "staging")
+        os.makedirs(stage, exist_ok=True)
+        daemon.write_frames_file_v2(os.path.join(stage, fn), fb)
+        before = d.txn_stats.snapshot()
+        allocs0 = c.resident_counters().get("resident_allocs_total", 0)
+        done = threading.Event()
+        landed = [0]
+
+        def land():
+            estage = os.path.join(d.state_dir, "edit-staging")
+            os.makedirs(estage, exist_ok=True)
+            while True:
+                picks = rng.choice(len(keys), size=EDIT_KEYS, replace=False)
+                ops = [txn.EditOp("rules_edit", keys[int(i)], testing.random_rules(rng, width))
+                       for i in picks]
+                e = f"{label}-{landed[0]:04d}.json"
+                txn.write_edit_file(os.path.join(estage, e), ops)
+                os.replace(os.path.join(estage, e), os.path.join(d.edits_dir, e))
+                landed[0] += 1
+                if done.wait(EDIT_FILE_S):
+                    return
+
+        lander = threading.Thread(target=land) if name == "edits" else None
+        t = time.perf_counter()
+        os.replace(os.path.join(stage, fn), os.path.join(d.ingest_dir, fn))
+        if lander is not None:
+            lander.start()
+        try:
+            _wait(lambda: os.path.exists(os.path.join(d.out_dir, fn + ".verdicts.json")),
+                  f"the {label} daemon's {name} pass", 600, 0.002)
+            dt = time.perf_counter() - t
+        finally:
+            done.set()
+            if lander is not None:
+                lander.join()
+        n = os.path.getsize(os.path.join(d.out_dir, fn + ".verdicts.bin")) // 4
+        if n != len(fb):
+            raise SystemExit(f"{label} daemon {name} pass: {n} verdicts for {len(fb)} frames")
+        flushed_in_pass = d.txn_stats.snapshot()["txns"] - before["txns"]
+        _wait(lambda: not os.listdir(d.edits_dir) and not (
+            d._edit_flush_thread is not None and d._edit_flush_thread.is_alive()),
+            f"the {label} daemon's edits/ to drain", 60)
+        flushes = d.txn_stats.snapshot()["txns"] - before["txns"]
+        allocs = c.resident_counters().get("resident_allocs_total", 0) - allocs0
+        if name == "edits" and flushes <= 0:
+            raise SystemExit(f"{label} daemon: no edit flushed during the edit pass")
+        out[name] = {"s": dt, "pps": len(fb) / dt, "files": landed[0], "flushes": flushes,
+                     "flushes_in_pass": flushed_in_pass, "resident_allocs": allocs}
+        log(f"{tag} {label} daemon, {name} pass: {len(fb)} frames in {dt:.3f} s = "
+            f"{len(fb) / dt / 1e6:.3f} M packets/s; {landed[0]} edit files landed, {flushes} "
+            f"flushes ({flushed_in_pass} before the pass ended), {allocs} resident allocations "
+            f"(a context a flush, the rest captures)")
+    return out
+
+
+def admission_profile(fn, reps: int = 10) -> dict:
+    """torch.profiler over ``reps`` calls of ``fn`` after a warm one:
+    kernels, memsets, host-to-device and device-to-host copies per call,
+    and the kernels' device microseconds per call.  Eight short spin
+    kernels precede the calls and eight follow them inside the recorded
+    window: a trace that drops its first or last events (as traces taken
+    after the resident graphs did) drops some of those, and is taken
+    again, up to five times (then nothing is measured: every value
+    None)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _attempt in range(5):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(8):
+                torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+            for _ in range(reps):
+                fn()
+            for _ in range(8):
+                torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+        out = {"kernels": 0.0, "memsets": 0.0, "h2d": 0.0, "d2h": 0.0, "device_us": 0.0}
+        spins = 0
+        for e in prof.events():
+            if e.device_type != DeviceType.CUDA or e.is_user_annotation:
+                continue
+            if "spin_kernel" in e.name:
+                spins += 1
+            elif e.name.startswith("Memset"):
+                out["memsets"] += 1 / reps
+            elif "HtoD" in e.name:
+                out["h2d"] += 1 / reps
+            elif "DtoH" in e.name:
+                out["d2h"] += 1 / reps
+            elif not e.name.startswith("Memcpy"):
+                out["kernels"] += 1 / reps
+                out["device_us"] += e.time_range.elapsed_us() / reps
+        if spins == 16:
+            return {k: round(v, 6) for k, v in out.items()}
+    return dict.fromkeys(out)
+
+
+def resident_profile_child() -> None:
+    """Run in a fresh process by the resident phase: one resident admission
+    of the flow ladder's 90% trace (its 4096-packet chunk at the middle of
+    the trace, on the table the trace before it filled) under
+    admission_profile, printed as one JSON line.  A trace of graph replays
+    taken in a process whose earlier profiler sessions traced other work
+    loses events (PR 16), so this count runs where the trace is the
+    process's first."""
+    from infw_torch import testing
+    from infw_torch.backend.cuda import TorchClassifier
+    from infw_torch.flow import FlowConfig
+
+    tables = testing.random_tables_fast(np.random.default_rng(77), FLOW_TABLE_ENTRIES,
+                                        width=FLOW_TABLE_WIDTH, v6_fraction=0.8, ifindexes=(2, 3))
+    batch, _meta = testing.flow_trace_batch(np.random.default_rng(7790), tables, FLOW_PACKETS, 0.9,
+                                            chunk_packets=FLOW_CHUNK)
+    clf = TorchClassifier(device=DEV, flow_table=FlowConfig.make(entries=FLOW_SLAB), resident=True)
+    clf.load_tables(tables)
+    half = len(batch) // 2
+    for lo in range(0, half, FLOW_CHUNK):
+        clf.classify(batch.slice(lo, lo + FLOW_CHUNK), apply_stats=False)
+    sub = batch.slice(half, half + FLOW_CHUNK)
+    print(json.dumps(admission_profile(lambda: clf.classify(sub, apply_stats=False))), flush=True)
+
+
+def resident_phase(tag: str, k7: dict, k8: dict) -> None:
+    """The resident step (ROADMAP item 10), the kernels line's ``resident``
+    readings of K7 and K8 (their resident entries) added to ``k7`` and
+    ``k8``:
+
+    1. bench_resident's shape: every admission's results, verdicts and
+       statistics against the multi-dispatch flow plan and the stateless
+       classifier, the four flow columns against the multi-dispatch plan
+       after each pass; then the p50 per admission of both (and of the
+       stateless classifier) in turns, each pass from a cold table;
+    2. the flow ladder's shape: per rung the same gate chunk by chunk, then
+       packets/s of the resident, the multi-dispatch and the stateless pass
+       in turns (launch counts zeroed before the resident pass and read
+       after it); K7's and K8's resident entries against their plain
+       versions chunk by chunk over the 90% trace (the step run eagerly,
+       outputs, epochs and columns); per admission from the profiler: the
+       kernels, memsets and copies of each plan; the entries' times beside
+       their bounds and plain versions, and one graph replay's against the
+       eager step;
+    3. the superbatch (K = 4): every row and the columns against four
+       single resident dispatches, then packets/s of both in turns;
+    4. 1000 dispatches after mark_resident_warm: no capture, no
+       allocation;
+    5. serving while rules change (resident_edit_passes); the daemon with
+       --resident over the flow phase's 1M-frame file read twice: its
+       verdict files against the stateless daemon's, resident_* and
+       flow_* on /metrics against the classifier's counters; then that
+       daemon and a multi-dispatch flow daemon each read it without and
+       with edit files landing (daemon_edit_pass)."""
+    import shutil
+
+    import torch
+
+    from infw_torch import daemon, testing
+    from infw_torch.backend.cuda import TorchClassifier
+    from infw_torch.flow import FlowConfig, ResidentOps
+    from infw_torch.kernels import all_kernels, flow as kflow
+    from infw_torch.kernels.resident import resident_out_words, resident_step, stateless_res16
+
+    kernels = all_kernels()
+    t0 = time.perf_counter()
+    tables = testing.random_tables_fast(np.random.default_rng(8800), RESIDENT_ENTRIES, width=8,
+                                        v6_fraction=0.5, ifindexes=(2, 3))
+    cfg = FlowConfig.make(entries=FLOW_SLAB)
+    res = TorchClassifier(device=DEV, force_path="trie", flow_table=cfg, resident=True)
+    multi = TorchClassifier(device=DEV, force_path="trie", flow_table=cfg)
+    base = TorchClassifier(device=DEV, force_path="trie")
+    for c in (res, multi, base):
+        c.load_tables(tables)
+    log(f"resident: {tables.num_entries} entries x {tables.rule_width} rule slots (trie path), "
+        f"flow table {cfg.capacity} x {cfg.ways}; set up in {time.perf_counter() - t0:.2f} s")
+
+    def same(a, b) -> bool:
+        return (np.array_equal(a.results, b.results) and np.array_equal(a.xdp, b.xdp)
+                and np.array_equal(a.stats_delta, b.stats_delta))
+
+    def same_columns(a, b, label: str) -> None:
+        ca, cb = a.flow.flow_columns(), b.flow.flow_columns()
+        if not all(np.array_equal(ca[k], cb[k]) for k in kflow.COLUMNS):
+            raise SystemExit(f"resident {label}: the flow columns differ from the multi-dispatch "
+                             f"plan's")
+
+    def admit(c, chunk):
+        w, v4, f = chunk
+        return c.classify_prepared(c.prepare_packed(w, v4, tcp_flags=f), apply_stats=False).result()
+
+    # 1. bench_resident's shape
+    bench = {}
+    steady_chunks = []
+    bench_chunks = {}
+    for bs in RESIDENT_BATCHES:
+        batch, _meta = testing.flow_trace_batch(np.random.default_rng(8800 + bs), tables,
+                                                bs * RESIDENT_CHUNKS, 0.9, chunk_packets=bs)
+        tflags = np.asarray(batch.tcp_flags, np.int32)
+        chunks = []
+        for lo in range(0, len(batch), bs):
+            sub = np.arange(lo, lo + bs, dtype=np.int64)
+            w, v4 = batch.pack_wire_subset(sub)
+            chunks.append((w, v4, np.ascontiguousarray(tflags[sub])))
+        steady_chunks += chunks
+        bench_chunks[bs] = chunks
+
+        def lat_pass(c):
+            if c.flow is not None:
+                c.flow.reset()
+            torch.cuda.synchronize()
+            times = []
+            for chunk in chunks:
+                t = time.perf_counter()
+                admit(c, chunk)
+                times.append(time.perf_counter() - t)
+            return float(np.median(times))
+
+        res.flow.reset()
+        multi.flow.reset()
+        for k, chunk in enumerate(chunks):
+            o = admit(res, chunk)
+            if not (same(o, admit(multi, chunk)) and same(o, admit(base, chunk[:2] + (None,)))):
+                raise SystemExit(f"resident B={bs}: admission {k} differs from the multi-dispatch "
+                                 f"plan or the stateless classifier")
+        same_columns(res, multi, f"B={bs} gate")
+        r_p50 = m_p50 = s_p50 = float("inf")
+        for _rep in range(RESIDENT_REPS):  # in turns, min of the p50s
+            r_p50 = min(r_p50, lat_pass(res))
+            m_p50 = min(m_p50, lat_pass(multi))
+            same_columns(res, multi, f"B={bs} timed pass")
+            s_p50 = min(s_p50, lat_pass(base))
+        bench[bs] = {"resident_p50_us": r_p50 * 1e6, "multi_p50_us": m_p50 * 1e6,
+                     "stateless_p50_us": s_p50 * 1e6}
+        log(f"{tag} resident admission p50 at B={bs} ({RESIDENT_CHUNKS} admissions of a 90% "
+            f"trace, each pass from a cold table, min of {RESIDENT_REPS} in turns): resident "
+            f"{r_p50 * 1e6:.1f} us, multi-dispatch {m_p50 * 1e6:.1f} us ({m_p50 / r_p50:.3f}x), "
+            f"stateless {s_p50 * 1e6:.1f} us; every admission equal to both, the columns "
+            f"equal to the multi-dispatch plan's after every pass")
+
+    # 2. the flow ladder's shape
+    ltables, traces = FLOW_STASH["tables"], FLOW_STASH["traces"]
+    lres = TorchClassifier(device=DEV, flow_table=cfg, resident=True)
+    lmulti = TorchClassifier(device=DEV, flow_table=cfg)
+    lbase = TorchClassifier(device=DEV)
+    for c in (lres, lmulti, lbase):
+        c.load_tables(ltables)
+
+    def run_pass(c, batch):
+        return [c.classify(batch.slice(lo, lo + FLOW_CHUNK), apply_stats=False)
+                for lo in range(0, len(batch), FLOW_CHUNK)]
+
+    def timed_pass(c, batch):
+        if c.flow is not None:
+            c.flow.reset()
+        torch.cuda.synchronize()
+        for k in kernels:
+            k.launches = 0
+        t = time.perf_counter()
+        run_pass(c, batch)
+        return time.perf_counter() - t, {k.name: k.launches for k in kernels if k.launches}
+
+    ladder = {}
+    for pct, (batch, meta) in traces.items():
+        lres.flow.reset()
+        lmulti.flow.reset()
+        outs = run_pass(lres, batch)
+        for k, (o, m, b) in enumerate(zip(outs, run_pass(lmulti, batch), run_pass(lbase, batch))):
+            if not (same(o, m) and same(o, b)):
+                raise SystemExit(f"resident ladder {pct}%: chunk {k} differs from the "
+                                 f"multi-dispatch plan or the stateless path")
+        same_columns(lres, lmulti, f"ladder {pct}% gate")
+        for c in (lres, lmulti, lbase):
+            timed_pass(c, batch)  # warm, off the clock
+        best = {"resident": (float("inf"), {}), "multi": (float("inf"), {}),
+                "stateless": (float("inf"), {})}
+        for _rep in range(FLOW_REPS):
+            for name, c in (("resident", lres), ("multi", lmulti), ("stateless", lbase)):
+                dt, ln = timed_pass(c, batch)
+                if dt < best[name][0]:
+                    best[name] = (dt, ln)
+            same_columns(lres, lmulti, f"ladder {pct}% timed pass")
+        ln = best["resident"][1]
+        for name in ("flow_probe_resident", "flow_insert_resident", "trie_walk"):
+            if ln.get(name, 0) <= 0:
+                raise SystemExit(f"resident ladder {pct}%: {name} was not launched ({ln})")
+        if ln.get("flow_probe", 0) or ln.get("flow_insert", 0):
+            raise SystemExit(f"resident ladder {pct}%: the classic K7 or K8 ran ({ln})")
+        pps = {k: FLOW_PACKETS / v[0] for k, v in best.items()}
+        ladder[pct] = {f"{k}_pps": v for k, v in pps.items()}
+        ladder[pct]["resident_launches"] = ln
+        log(f"{tag} resident ladder {pct}% established: {pps['resident'] / 1e6:.3f} M packets/s "
+            f"resident, {pps['multi'] / 1e6:.3f} multi-dispatch, {pps['stateless'] / 1e6:.3f} "
+            f"stateless (resident / multi {pps['resident'] / pps['multi']:.3f}x, resident / "
+            f"stateless {pps['resident'] / pps['stateless']:.3f}x; {meta['n_flows']} flows); "
+            f"launches per resident pass {ln} ({FLOW_PACKETS // FLOW_CHUNK} chunks); every chunk "
+            f"equal to both, the columns equal after every pass")
+
+    # K7's and K8's resident entries against their plain versions over the
+    # 90% trace, the step run eagerly on a card table and a clone of it
+    batch, _meta = traces[90]
+    dev = torch.device(DEV)
+    ctx = lres.resident.context(lres)
+    n_levels = ctx.tables.dev.n_levels
+    step_tables = ctx.tables._replace(n_levels=n_levels)
+    geo = {"slab_entries": cfg.entries, "ways": cfg.ways}
+    got = kflow.empty_flow_table(cfg.capacity, dev)
+    want = kflow.clone_flow_table(got)
+    e_got = torch.zeros(1, dtype=torch.int32, device=dev)
+    e_want = e_got.clone()
+    one = torch.zeros(1, dtype=torch.int32, device=dev)
+    zt = torch.zeros(FLOW_CHUNK, dtype=torch.int32, device=dev)
+    put = lambda a: torch.from_numpy(np.ascontiguousarray(a).view(np.int32)).to(dev)  # noqa: E731
+    nw, nh = (FLOW_CHUNK + 1) // 2, -(-FLOW_CHUNK // 32)
+    n_chunks = 0
+    for k, lo in enumerate(range(0, len(batch), FLOW_CHUNK)):
+        sub = batch.slice(lo, lo + FLOW_CHUNK)
+        wire, fl = put(sub.pack_wire()), put(sub.tcp_flags.astype(np.int32))
+        ops = ResidentOps(got, one, one, e_got, zt, fl, cfg.max_age, cfg.entries, cfg.ways)
+        out = resident_step(ops, step_tables, wire)
+        ref = torch.empty_like(out)
+        kflow.flow_probe_resident_plain(want, one, one, wire, zt, fl, e_want, cfg.max_age,
+                                        ref[: nw + nh + 2], **geo)
+        kflow.flow_insert_resident_plain(want, one, one, wire, zt, fl,
+                                         stateless_res16(step_tables, wire)[:nw],
+                                         ref[nw: nw + nh], ref[:nw], ref[nw + nh + 2:], e_want,
+                                         **geo)
+        if not (torch.equal(out, ref) and torch.equal(e_got, e_want)
+                and all(torch.equal(getattr(got, f), getattr(want, f)) for f in kflow.COLUMNS)):
+            raise SystemExit(f"resident entries: chunk {k} of the 90% trace disagrees with the "
+                             f"plain versions")
+        n_chunks += 1
+    torch.cuda.synchronize()
+    log(f"K7 and K8 resident entries against their plain versions over the 90% trace: "
+        f"{n_chunks} chunks, outputs, device epochs and the four columns equal after every chunk "
+        f"({int((got.se[:, 0] > 0).sum())} live entries at the end)")
+
+    # per admission from the profiler, and the entries' and the step's times
+    sub = batch.slice(len(batch) // 2, len(batch) // 2 + FLOW_CHUNK)
+    wire_np, flags_np = sub.pack_wire(), sub.tcp_flags
+    per_admission = {}
+    here = os.path.dirname(os.path.abspath(__file__))
+    child = subprocess.run([sys.executable, "-c", "import chip_smoke; "
+                            "chip_smoke.resident_profile_child()"], cwd=here,
+                           capture_output=True, text=True, timeout=600)
+    if child.returncode != 0:
+        raise SystemExit(f"resident profile child failed:\n{child.stderr[-3000:]}")
+    for name, c in (("resident", lres), ("multi", lmulti), ("stateless", lbase)):
+        per_admission[name] = (json.loads(child.stdout.strip().splitlines()[-1])
+                               if name == "resident" else
+                               admission_profile(lambda c=c: c.classify(sub, apply_stats=False)))
+        t = time.perf_counter()
+        for _ in range(50):
+            c.classify(sub, apply_stats=False)
+        per_admission[name]["host_us"] = (time.perf_counter() - t) / 50 * 1e6
+        log(f"{tag} per admission at B={FLOW_CHUNK} ({name}): "
+            + ", ".join(f"{k} {'not measured' if v is None else f'{v:.2f}'}"
+                        for k, v in per_admission[name].items())
+            + " (kernels, memsets and copies from the profiler, the resident admission's in a "
+              "fresh process; device_us the kernels' sum; host_us the wall of a classify)")
+    if (per_admission["resident"]["h2d"], per_admission["resident"]["d2h"]) != (1.0, 1.0):
+        raise SystemExit(f"resident: {per_admission['resident']} copies per admission; expected "
+                         f"one each way")
+    wire, fl = put(wire_np), put(flags_np.astype(np.int32))
+    ops = ResidentOps(kflow.clone_flow_table(got), one, one, e_got.clone(), zt, fl, cfg.max_age,
+                      cfg.entries, cfg.ways)
+    res16 = stateless_res16(step_tables, wire)
+    hits = int(kflow.split_flow_probe_outputs(kflow.flow_probe_resident(
+        kflow.clone_flow_table(got), one, one, wire, zt, fl, e_got.clone(), cfg.max_age,
+        torch.empty(resident_out_words(FLOW_CHUNK), dtype=torch.int32, device=dev),
+        **geo).cpu().numpy(), FLOW_CHUNK)[2])
+    tbl = kflow.clone_flow_table(got)
+    buf = torch.empty(resident_out_words(FLOW_CHUNK), dtype=torch.int32, device=dev)
+    e_t = e_got.clone()
+
+    def k7_call(t=tbl, b=buf, plain=False):
+        fn = kflow.flow_probe_resident_plain if plain else kflow.flow_probe_resident
+        return fn(t, one, one, wire, zt, fl, e_t, cfg.max_age, b, **geo)
+
+    def k8_call(t=tbl, b=buf, plain=False):
+        fn = kflow.flow_insert_resident_plain if plain else kflow.flow_insert_resident
+        return fn(t, one, one, wire, zt, fl, res16[:nw], b[nw: nw + nh], b[:nw],
+                  b[nw + nh + 2:], e_t, **geo)
+
+    k7_call()
+    inserts = int(k8_call()[0])
+    timings = {}
+    for key, call, bound in (
+            ("k7", k7_call, flow_bytes("probe", 7, FLOW_CHUNK, cfg.ways, hits=hits) + 4),
+            ("k8", k8_call, resident_insert_bytes(7, FLOW_CHUNK, cfg.ways, hits, inserts))):
+        prof = admission_profile(call, 20)
+        if prof["kernels"] is not None and (prof["kernels"] != 1 or prof["memsets"]):
+            raise SystemExit(f"resident {key}: {prof} a call; expected one kernel, no memset")
+        ptbl = kflow.clone_flow_table(got)
+        pbuf = buf.clone()
+        timings[key] = {
+            "ms": cuda_ms(call, reps=50),
+            "device_paced_ms": device_paced_ms(call),
+            "device_ms": None if prof["device_us"] is None else prof["device_us"] / 1e3,
+            "host_us": host_ms_per_call(call, 200) * 1e3,
+            "bound_ms": bound / HBM_BYTES_PER_S * 1e3,
+            "plain_ms": cuda_ms(lambda: call(ptbl, pbuf, True), reps=3, warmup=1),
+        }
+        r = timings[key]
+        dv = "not measured" if r["device_ms"] is None else f"{r['device_ms'] * 1e3:.2f} us"
+        log(f"{tag} {'K7' if key == 'k7' else 'K8'} resident entry at B={FLOW_CHUNK}, 7-word "
+            f"wire: device {dv} a call (profiler, one kernel, no memset), "
+            f"{r['device_paced_ms']:.5f} ms with the host ahead, {r['ms']:.5f} ms in a loop, host "
+            f"{r['host_us']:.2f} us a call; bound {r['bound_ms']:.3e} ms by bytes ({hits} hits, "
+            f"{inserts} inserts); plain version {r['plain_ms']:.4f} ms")
+    # one graph replay against the eager step on the same operands
+    g = next(iter(ctx.graphs.values()), None)
+    eager_ops = ops._replace(flow=kflow.clone_flow_table(got))
+    eager_out = torch.empty(resident_out_words(FLOW_CHUNK), dtype=torch.int32, device=dev)
+    eager_ms = cuda_ms(lambda: resident_step(eager_ops, step_tables, wire, eager_out), reps=20)
+    eager_paced = device_paced_ms(lambda: resident_step(eager_ops, step_tables, wire, eager_out))
+    replay_ms = cuda_ms(g.graph.replay, reps=50) if g is not None else None
+    replay_paced = device_paced_ms(g.graph.replay) if g is not None else None
+    log(f"{tag} resident step at B={FLOW_CHUNK}: eager {eager_ms:.5f} ms in a loop, "
+        f"{eager_paced:.5f} ms with the host ahead; one graph replay (bucket "
+        f"{g.bucket if g else '-'}) {replay_ms:.5f} ms in a loop, {replay_paced:.5f} ms with the "
+        f"host ahead")
+    # the step's layers eager and as a graph: the stateless classify of
+    # every lane (the path's fused wire entry and its torch ops) alone
+    sgraph = torch.cuda.CUDAGraph()
+    stateless_res16(step_tables, wire)
+    with torch.cuda.graph(sgraph):
+        stateless_res16(step_tables, wire)
+    split = {}
+    for name, fn in (("stateless_eager", lambda: stateless_res16(step_tables, wire)),
+                     ("stateless_replay", sgraph.replay),
+                     ("step_eager", lambda: resident_step(eager_ops, step_tables, wire,
+                                                          eager_out)),
+                     ("step_replay", g.graph.replay if g is not None else None)):
+        if fn is not None:
+            split[name] = {"ms": cuda_ms(fn, reps=20), "paced_ms": device_paced_ms(fn),
+                           "host_us": host_ms_per_call(fn, 100) * 1e3}
+    log(f"{tag} eager against graph at B={FLOW_CHUNK} (ms in a loop, ms with the host ahead, "
+        f"host us a call): " + "; ".join(
+            f"{k} {v['ms']:.5f} / {v['paced_ms']:.5f} / {v['host_us']:.1f}"
+            for k, v in split.items()))
+    del sgraph
+    del g, ctx
+    for c in (lres, lmulti, lbase):
+        c.close()
+
+    # 3. the superbatch (K = 4) against single resident dispatches, at
+    # bench_pipeline's two admission sizes
+    scfg = FlowConfig.make(entries=SUPER_SLAB)
+    sup = TorchClassifier(device=DEV, force_path="trie", flow_table=scfg, resident=True)
+    one_c = TorchClassifier(device=DEV, force_path="trie", flow_table=scfg, resident=True)
+    for c in (sup, one_c):
+        c.load_tables(tables)
+    superbatch = {}
+    for bs in SUPER_BATCHES:
+        sbatch, _meta = testing.flow_trace_batch(np.random.default_rng(8900 + bs), tables,
+                                                 bs * RESIDENT_CHUNKS, 0.9, chunk_packets=bs)
+        wires = sbatch.pack_wire().reshape(-1, SUPER_K, bs, 7)
+        sflags = np.asarray(sbatch.tcp_flags, np.int32).reshape(-1, SUPER_K, bs)
+
+        def sup_pass():
+            sup.flow.reset()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            rows = []
+            for w, f in zip(wires, sflags):
+                rows += [r.result() for r in sup.classify_prepared_super(
+                    sup.prepare_packed_super(w, False, f), apply_stats=False)]
+            return time.perf_counter() - t, rows
+
+        def one_pass():
+            one_c.flow.reset()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            rows = [one_c.classify_prepared(one_c.prepare_packed(w[j], False, tcp_flags=f[j]),
+                                            apply_stats=False).result()
+                    for w, f in zip(wires, sflags) for j in range(SUPER_K)]
+            return time.perf_counter() - t, rows
+
+        _dt, rows_s = sup_pass()
+        _dt, rows_1 = one_pass()
+        for k, (a, b) in enumerate(zip(rows_s, rows_1)):
+            if not same(a, b):
+                raise SystemExit(f"superbatch B={bs}: admission {k} differs from the single "
+                                 f"dispatch")
+        same_columns(sup, one_c, f"superbatch B={bs}")
+        s_best = o_best = float("inf")
+        for _rep in range(RESIDENT_REPS):
+            s_best = min(s_best, sup_pass()[0])
+            o_best = min(o_best, one_pass()[0])
+        n_super = wires.shape[0] * SUPER_K * bs
+        superbatch[bs] = {"superbatch_pps": n_super / s_best, "single_pps": n_super / o_best}
+        log(f"{tag} resident superbatch K={SUPER_K} at B={bs} ({scfg.capacity}-entry flow "
+            f"table, {wires.shape[0]} superbatches): {n_super / s_best / 1e6:.3f} M packets/s "
+            f"against {n_super / o_best / 1e6:.3f} M single dispatches ({o_best / s_best:.3f}x, "
+            f"min of {RESIDENT_REPS} in turns, each pass from a cold table); every admission and "
+            f"the columns equal to the single dispatches'")
+    sup.close()
+    one_c.close()
+
+    # 4. the warmed steady state: every shape on both slots, then 1000
+    # dispatches
+    shapes = {}
+    for chunk in steady_chunks:
+        shapes.setdefault((chunk[0].shape, chunk[1]), chunk)
+    for chunk in shapes.values():
+        for _ in range(2):
+            admit(res, chunk)
+    res.flow.warm(RESIDENT_BATCHES)
+    res.mark_resident_warm()
+    graphs = res.resident.graphs()
+    t = time.perf_counter()
+    for i in range(STEADY_DISPATCHES):
+        admit(res, steady_chunks[i % len(steady_chunks)])
+    steady_s = time.perf_counter() - t
+    if res.resident.steady_allocs() != 0 or res.resident.graphs() != graphs:
+        raise SystemExit(f"resident steady state: {res.resident.steady_allocs()} allocations, "
+                         f"{res.resident.graphs() - graphs} new graphs in {STEADY_DISPATCHES} "
+                         f"dispatches")
+    log(f"resident steady state: {STEADY_DISPATCHES} dispatches after mark_resident_warm in "
+        f"{steady_s:.3f} s, 0 allocations, no capture ({graphs} graphs); counters "
+        f"{res.resident_counters()}")
+
+    # 5. serving while rules change
+    edits = resident_edit_passes(tag, tables, bench_chunks[128], res, multi, base, admit, same)
+    for c in (res, multi, base):
+        c.close()
+
+    # the daemon with --resident over the flow phase's 1M-frame file, twice
+    st = FLOW_STASH
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "resident-smoke")
+    shutil.rmtree(root, ignore_errors=True)
+    d = daemon.Daemon(state_dir=os.path.join(root, "resident"), node_name=DAEMON_NODE,
+                      registry=st["daemon_registry"], metrics_port=0, health_port=0,
+                      poll_period_s=0.1, file_poll_interval_s=0.02,
+                      flow_table=FlowConfig.make(entries=FLOW_SLAB), resident=True,
+                      backend="cuda" if DEV == "cuda" else "cpu")
+    daemon_launches = {}
+    try:
+        d.start()
+        p = os.path.join(d.nodestates_dir, f"{DAEMON_NODE}.json")
+        with open(p + ".tmp", "w") as f:
+            json.dump(st["daemon_doc"], f)
+        os.replace(p + ".tmp", p)
+        _wait(lambda: d.syncer.classifier is not None and d.syncer.classifier.tables is not None
+              and bool(d.syncer.attached_interfaces()), "the resident daemon's NodeState", 300)
+        c = d.syncer.classifier
+        fb = st["daemon_fb"]
+        for rnd in range(2):
+            fn = f"{rnd}.frames"
+            stage = os.path.join(d.state_dir, "staging")
+            os.makedirs(stage, exist_ok=True)
+            daemon.write_frames_file_v2(os.path.join(stage, fn), fb)
+            torch.cuda.synchronize()
+            for k in kernels:
+                k.launches = 0
+            t = time.perf_counter()
+            os.replace(os.path.join(stage, fn), os.path.join(d.ingest_dir, fn))
+            _wait(lambda: os.path.exists(os.path.join(d.out_dir, fn + ".verdicts.json")),
+                  f"the resident daemon's pass {rnd}", 600, 0.002)
+            dt = time.perf_counter() - t
+            ln = {k.name: k.launches for k in kernels if k.launches}
+            daemon_launches[f"resident {rnd}"] = ln
+            got_bytes = open(os.path.join(d.out_dir, fn + ".verdicts.bin"), "rb").read()
+            if got_bytes != st["daemon_stateless"]:
+                raise SystemExit(f"resident daemon: pass {rnd}'s verdict file differs from the "
+                                 f"stateless daemon's")
+            log(f"{tag} resident daemon (pass {rnd}): {len(fb)} frames in {dt:.3f} s = "
+                f"{len(fb) / dt / 1e6:.3f} M packets/s, launches {ln}; verdict file equal to the "
+                f"stateless daemon's")
+        if daemon_launches["resident 1"].get("flow_probe_resident", 0) <= 0:
+            raise SystemExit(f"resident daemon: launches {daemon_launches}")
+        counters = {**c.flow_counters(), **c.resident_counters()}
+        for key in ("flow_hits_total", "flow_misses_total", "flow_inserts_total",
+                    "flow_evictions_total", "flow_occupancy", "resident_dispatches_total",
+                    "resident_fallbacks_total", "resident_allocs_total",
+                    "resident_slot0_dispatches_total", "resident_slot1_dispatches_total"):
+            if _metric(d, key) != counters[key]:
+                raise SystemExit(f"resident daemon: /metrics {key} {_metric(d, key)} is not the "
+                                 f"classifier's {counters[key]}")
+        log(f"resident daemon: resident_* and flow_* on /metrics equal the classifier's "
+            f"counters {counters}")
+        edits["daemon"] = {"resident": daemon_edit_pass(tag, d, fb, "resident")}
+    finally:
+        d.stop()
+    # the multi-dispatch flow daemon under the same edit files
+    d = daemon.Daemon(state_dir=os.path.join(root, "multi"), node_name=DAEMON_NODE,
+                      registry=st["daemon_registry"], metrics_port=0, health_port=0,
+                      poll_period_s=0.1, file_poll_interval_s=0.02,
+                      flow_table=FlowConfig.make(entries=FLOW_SLAB),
+                      backend="cuda" if DEV == "cuda" else "cpu")
+    try:
+        d.start()
+        p = os.path.join(d.nodestates_dir, f"{DAEMON_NODE}.json")
+        with open(p + ".tmp", "w") as f:
+            json.dump(st["daemon_doc"], f)
+        os.replace(p + ".tmp", p)
+        _wait(lambda: d.syncer.classifier is not None and d.syncer.classifier.tables is not None
+              and bool(d.syncer.attached_interfaces()), "the flow daemon's NodeState", 300)
+        edits["daemon"]["multi"] = daemon_edit_pass(tag, d, st["daemon_fb"], "multi-dispatch")
+    finally:
+        d.stop()
+    shutil.rmtree(root, ignore_errors=True)
+
+    for entry, key, name in ((k7, "k7", "flow_probe_resident"), (k8, "k8", "flow_insert_resident")):
+        lad = ladder[90]["resident_launches"]
+        entry["resident"] = {
+            "name": name, "launches": lad.get(name, 0),
+            "admissions": FLOW_PACKETS // FLOW_CHUNK,
+            "launches_per_admission": lad.get(name, 0) / (FLOW_PACKETS // FLOW_CHUNK),
+            **timings[key], "bound_by": "bytes",
+            "daemon_launches": {p: cnt.get(name, 0) for p, cnt in daemon_launches.items()},
+        }
+    k7["resident"].update(ladder=ladder, bench_resident=bench, superbatch=superbatch,
+                          per_admission=per_admission, edits=edits,
+                          step_ms={"eager": eager_ms, "eager_paced": eager_paced,
+                                   "replay": replay_ms, "replay_paced": replay_paced},
+                          eager_graph_split=split)
 
 
 def main() -> int:
@@ -4807,6 +5607,13 @@ def main() -> int:
     t_phase = time.perf_counter()
     k7, k8 = flow_phase(tag)
     log(f"phase flow: {time.perf_counter() - t_phase:.1f} s")
+
+    # 11c. the resident step and the superbatch: bench_resident's shape, the
+    # flow ladder's, K = 4, the warmed steady state and the daemon
+    t_phase = time.perf_counter()
+    resident_phase(tag, k7, k8)
+    FLOW_STASH.clear()
+    log(f"phase resident: {time.perf_counter() - t_phase:.1f} s")
 
     # 12. the daemon: the headline CRs' ingress blocks as one NodeState,
     # then bench config 5a's replay, through infw_torch.daemon

@@ -88,6 +88,17 @@ results and statistics (results only for the wire8 and delta formats).
   inserted (kernel K8) when the batch materializes.  ``load_tables`` bumps
   the flow generation once, after the install: every patch, edit flush,
   rebuild and overlay change goes through it.
+- **resident serving** (``resident=``, else ``INFW_RESIDENT``, else off;
+  the JAX package's ``_plan_resident``): a flow tier is implied (a default
+  ``FlowConfig.make()`` when none was given), and ``prepare_packed``
+  dispatches a 4- or 7-word chunk, as it is (no narrowing, wire8 or delta),
+  through the resident step (kernels/resident.py, infw_torch/resident.py):
+  one copy in, K7, the path's classify of every lane, the merge and K8 in
+  one CUDA graph, and one read back of the merged results, the hit bitmap
+  and the flow counts, from which the host derives the statistics.  A
+  generation the step cannot serve (wide ruleIds) counts a ``fallback`` and
+  takes the multi-dispatch plan.  ``prepare_packed_super`` /
+  ``classify_prepared_super`` run K stacked chunks as one superbatch.
 
 The device is the first CUDA card unless the caller names another
 (``device="cpu"`` runs the plain PyTorch version of every kernel, which is
@@ -106,10 +117,12 @@ import torch
 from .. import arena as arena_mod
 from ..compiler import CompiledTables
 from .. import flow as flow_mod
+from .. import resident as resident_mod
 from ..constants import ALLOW, DENY, KIND_IPV6
 from ..kernels import arena_dense, arena_walk, cwalk, dense, torchpath, walk, wire_decode
 from ..kernels import flow as kflow
 from ..kernels import overlay as overlay_mod
+from ..kernels.resident import resident_fused_host, split_resident_outputs
 from ..layout import (
     build_depth_lut,
     check_wire_ruleids,
@@ -219,7 +232,8 @@ class TorchClassifier:
                  force_path: Optional[str] = None,
                  compressed: Optional[bool] = None,
                  wire_codec: Optional[str] = None,
-                 flow_table=None, flow_track_model: bool = False) -> None:
+                 flow_table=None, flow_track_model: bool = False,
+                 resident: Optional[bool] = None) -> None:
         if force_path not in (None, "dense", "trie", "ctrie"):
             raise ValueError(
                 f"unknown force_path {force_path!r} (expected 'dense', 'trie', 'ctrie' or None)"
@@ -257,6 +271,16 @@ class TorchClassifier:
         # entry count), else INFW_FLOW_TABLE (an entry count), else off
         self._flow = None
         cfg = _flow_config(flow_table)
+        # the resident pool: the argument, else INFW_RESIDENT, else off; it
+        # implies a flow tier (a default one when none was configured)
+        if resident is None:
+            env = os.environ.get("INFW_RESIDENT", "")
+            resident = bool(env) and env not in ("0", "false", "no")
+        self._resident = None
+        if resident:
+            if cfg is None:
+                cfg = flow_mod.FlowConfig.make()
+            self._resident = resident_mod.ResidentPool(self._device)
         if cfg is not None:
             self._flow = flow_mod.FlowTier(cfg, device=self._device,
                                            track_model=flow_track_model)
@@ -274,6 +298,24 @@ class TorchClassifier:
 
     def flow_age_tick(self, horizon=None) -> int:
         return 0 if self._flow is None else self._flow.age(horizon)
+
+    @property
+    def resident(self) -> "Optional[resident_mod.ResidentPool]":
+        """The ResidentPool when resident serving is on."""
+        return self._resident
+
+    def resident_counters(self) -> dict:
+        """resident_* gauges for /metrics (empty when off)."""
+        return {} if self._resident is None else self._resident.counter_values()
+
+    def mark_resident_warm(self) -> None:
+        """Bring the device epoch to the host counter (the classic warm
+        moved only the latter), then freeze the pool's allocation baseline:
+        any allocation after this is the serving path's."""
+        if self._resident is not None:
+            if self._flow is not None:
+                self._flow.resident_seed_epoch()
+            self._resident.mark_warm()
 
     # -- rule loading -------------------------------------------------------
 
@@ -490,7 +532,12 @@ class TorchClassifier:
         only make the stamped generation older than the tables that
         compute the misses (their inserts are stale on arrival, never
         served); the reverse order could cache old-table verdicts under
-        the new generation."""
+        the new generation.  With the resident pool a 4- or 7-word chunk is
+        dispatched whole here (``_plan_resident``)."""
+        if self._resident is not None and self._flow is not None:
+            plan = self._plan_resident(wire_np, v4_only, depth, tcp_flags)
+            if plan is not None:
+                return plan
         flow_probe = None
         if self._flow is not None and wire_np.shape[1] in (4, 7):
             with self._lock:
@@ -521,9 +568,123 @@ class TorchClassifier:
 
     def classify_prepared(self, plan, apply_stats: bool = True) -> PendingClassify:
         """Second half: launch the classify on a prepare_packed plan."""
+        if plan.get("resident"):
+            return self._launch_resident(plan, apply_stats)
         if plan.get("flow"):
             return self._launch_flow(plan, apply_stats)
         return self._launch(plan, apply_stats)
+
+    # -- resident serving ----------------------------------------------------
+
+    def _resident_levels(self, ctx, v4_only: bool, depth) -> Optional[int]:
+        """The trie path's level count for a resident step (tpu.py
+        _plan_resident: an IPv4-only chunk walks the levels within /32, a
+        current depth class d 1 + d, any other chunk every level)."""
+        if ctx.tables.path != "trie":
+            return None
+        n = ctx.tables.dev.n_levels
+        if v4_only:
+            return v4_trie_depth(n)
+        if depth is not None:
+            dclass, gen = depth
+            with self._lock:
+                cur_gen = self._depth_steer[3] if self._depth_steer else -1
+            if dclass is not None and gen == cur_gen:
+                return 1 + int(dclass)
+        return n
+
+    def _plan_resident(self, wire_np: np.ndarray, v4_only: bool, depth, tcp_flags):
+        """Dispatch one admission through the resident step (tpu.py
+        _plan_resident); the plan only carries what its materialize needs.
+        Returns None for a chunk the step does not take (a width other than
+        4 or 7) or a generation it cannot serve (wide ruleIds: counted as a
+        fallback), and the caller takes the multi-dispatch plan."""
+        if wire_np.shape[1] not in (4, 7):
+            return None
+        tier, pool = self._flow, self._resident
+        # the flow generations before the tables (resident_gens_snapshot)
+        gens_snap = tier.resident_gens_snapshot()
+        ctx = pool.context(self)
+        if ctx is None:
+            pool.note("fallbacks")
+            return None
+        n = wire_np.shape[0]
+        fused, epoch = pool.dispatch(tier, ctx, self._resident_levels(ctx, v4_only, depth),
+                                     wire_np, tcp_flags, gens_snap)
+        pool.note("dispatches")
+        pool.note(f"slot{(epoch - 1) & 1}_dispatches")
+        self._note_wire(f"wire{wire_np.shape[1]}", n, wire_np.nbytes)
+        return {"resident": True, "fused": fused, "n": n, "epoch": epoch,
+                "kind": (wire_np[:, 0] & 3).astype(np.int32),
+                "pkt_len": self._wire4_pkt_len(wire_np)}
+
+    def _resident_output(self, arr: np.ndarray, n: int, epoch: int, kind, pkt_len,
+                         apply_stats: bool) -> ClassifyOutput:
+        """One admission's read-back (tpu.py _launch_resident's
+        materialize): the flow counters, the model's replay up to this
+        epoch, eviction events, the verdicts, and the statistics from the
+        verdicts and the host's pkt_len column."""
+        tier = self._flow
+        res16, _hit, hits, stale, (inserts, evictions, promotes) = split_resident_outputs(arr, n)
+        tier.stats.add(hits=hits, misses=n - hits, stale_rejects=stale, inserts=inserts,
+                       evictions=evictions, promotes=promotes)
+        tier.resident_note_materialized(epoch)
+        if evictions and tier.on_evict is not None:
+            try:
+                tier.on_evict(evictions, inserts, epoch)
+            except Exception:
+                pass
+        results, xdp = torchpath.host_finalize_wire(res16, kind)
+        stats_delta = stats_from_results(results, pkt_len)
+        if apply_stats:
+            self._stats.add(stats_delta)
+        return ClassifyOutput(results=results, xdp=xdp, stats_delta=stats_delta)
+
+    def _launch_resident(self, plan, apply_stats: bool) -> PendingClassify:
+        """The resident plan's second half: one read back when the batch
+        materializes."""
+        return PendingClassify(lambda: self._resident_output(
+            resident_fused_host(plan["fused"]), plan["n"], plan["epoch"], plan["kind"],
+            plan["pkt_len"], apply_stats))
+
+    def prepare_packed_super(self, wire_stack: np.ndarray, v4_only: bool,
+                             tcp_flags_stack: Optional[np.ndarray] = None):
+        """Dispatch ``k`` stacked admissions of one shape, (k, b, 4 | 7),
+        as one superbatch (tpu.py prepare_packed_super): the flow columns
+        and the device epoch carry from step to step on the card, and the
+        (k, L) outputs come back in one read.  ``tcp_flags_stack`` is (k, b)
+        or None.  Returns None when the resident path cannot serve (no pool,
+        another shape, wide ruleIds: a counted fallback)."""
+        if (self._resident is None or self._flow is None or wire_stack.ndim != 3
+                or wire_stack.shape[2] not in (4, 7)):
+            return None
+        tier, pool = self._flow, self._resident
+        gens_snap = tier.resident_gens_snapshot()
+        ctx = pool.context(self)
+        if ctx is None:
+            pool.note("fallbacks")
+            return None
+        k, n, w = wire_stack.shape
+        fused, epoch = pool.dispatch(tier, ctx, self._resident_levels(ctx, v4_only, None),
+                                     wire_stack, tcp_flags_stack, gens_snap, k=k)
+        pool.note("dispatches")
+        pool.note("superbatch_dispatches")
+        pool.note("superbatch_admissions", k)
+        self._note_wire(f"wire{w}", k * n, wire_stack.nbytes)
+        return {"resident_super": True, "fused": fused, "k": k, "n": n, "epoch0": epoch - k,
+                "kinds": (wire_stack[:, :, 0] & 3).astype(np.int32),
+                "pkt_lens": [self._wire4_pkt_len(wire_stack[j]) for j in range(k)]}
+
+    def classify_prepared_super(self, plan, apply_stats: bool = True):
+        """A superbatch plan's second half: one PendingClassify per
+        admission, in dispatch order; reading them out of order is safe,
+        the model replays in epoch order."""
+        def row(j: int) -> PendingClassify:
+            return PendingClassify(lambda: self._resident_output(
+                resident_fused_host((plan["fused"], j)), plan["n"], plan["epoch0"] + 1 + j,
+                plan["kinds"][j], plan["pkt_lens"][j], apply_stats))
+
+        return [row(j) for j in range(plan["k"])]
 
     def _launch_flow(self, plan, apply_stats: bool) -> PendingClassify:
         """Complete a flow plan when the batch materializes (tpu.py

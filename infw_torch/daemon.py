@@ -58,10 +58,17 @@ contract NODE_NAME / NAMESPACE / POLL_PERIOD_SECONDS / ENABLE_LPM_LOOKUP_DBG
   Frames files carry no TCP flags, so their packets probe with flags 0, as
   in the JAX daemon.
 
-The JAX daemon's scheduler, ingest ring, events socket,
-mesh, resident loop, telemetry, tracing, scoring and payload
-options are not in the port yet: ``main`` refuses each of their flags,
-naming its ROADMAP item.
+- ``--resident`` (``INFW_RESIDENT``; not with ``--backend cpu``, as in the
+  JAX daemon) serves each job through the resident step
+  (infw_torch/resident.py): one copy in, one CUDA graph of K7, the
+  classify of every lane, the merge and K8, and one read back.  It implies
+  a flow table (the default geometry without ``--flow-table``);
+  ``resident_*`` and ``flow_*`` counters go to /metrics.
+
+The JAX daemon's scheduler, ingest ring (with the superbatch that only
+the ring reads, ``--superbatch-k``), events socket, mesh, telemetry,
+tracing, scoring and payload options are not in the port yet: ``main``
+refuses each of their flags, naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -126,8 +133,8 @@ _FRAMES_MAGIC2 = b"INFW2\n"
 _ITEM_24 = "ROADMAP.md item 24 (the scheduler, the ingest ring, the events sidecar)"
 REFUSED_FLAGS = (
     ("--mesh", "INFW_MESH", "ROADMAP.md item 15 (multi-device)"),
-    ("--resident", "INFW_RESIDENT", "ROADMAP.md item 10 (resident program and superbatch)"),
-    ("--superbatch-k", "INFW_SUPERBATCH_K", "ROADMAP.md item 10 (resident program and superbatch)"),
+    ("--superbatch-k", "INFW_SUPERBATCH_K",
+     "ROADMAP.md item 24c (the ingest ring, the superbatch's only reader)"),
     ("--telemetry", "INFW_TELEMETRY", "ROADMAP.md item 12 (telemetry)"),
     ("--telemetry-drain", "INFW_TELEMETRY_DRAIN", "ROADMAP.md item 12 (telemetry)"),
     ("--trace", "INFW_TRACE", "ROADMAP.md item 12 (telemetry and tracing)"),
@@ -264,13 +271,16 @@ def backend_device(backend: str):
 
 def make_classifier_factory(backend: str, wire_codec: Optional[str] = None,
                             compressed: Optional[bool] = None,
-                            flow_table: Optional[FlowConfig] = None):
+                            flow_table: Optional[FlowConfig] = None,
+                            resident: bool = False):
     """The syncer's classifier constructor: TorchClassifier on
     ``backend_device(backend)``.  ``wire_codec`` and ``compressed`` are
     TorchClassifier's (None keeps its INFW_WIRE_CODEC / INFW_COMPRESSED
     defaults); ``flow_table``, a FlowConfig built at launch, rides into
     every classifier generation (on both backends: "cpu" runs the tier on
-    the plain versions of K7 and K8)."""
+    the plain versions of K7 and K8); ``resident`` turns the resident pool
+    on (``main`` refuses it with the cpu backend, as the JAX daemon does;
+    the class takes it, for the tests)."""
     device = backend_device(backend)
     kw = {}
     if wire_codec is not None:
@@ -279,7 +289,21 @@ def make_classifier_factory(backend: str, wire_codec: Optional[str] = None,
         kw["compressed"] = compressed
     if flow_table is not None:
         kw["flow_table"] = flow_table
+    if resident:
+        kw["resident"] = True
     return functools.partial(TorchClassifier, device=device, **kw)
+
+
+class _ResidentCounters:
+    """The resident pool's resident_* gauges on /metrics; the getter
+    follows the classifier across table loads."""
+
+    def __init__(self, clf_getter) -> None:
+        self._get = clf_getter
+
+    def counter_values(self) -> Dict[str, int]:
+        clf = self._get()
+        return {} if clf is None else clf.resident_counters()
 
 
 class _FlowCounters:
@@ -351,11 +375,14 @@ class Daemon:
         patch_max_ops: Optional[int] = None,
         tenants: Optional[int] = None,
         flow_table: Optional[FlowConfig] = None,
+        resident: bool = False,
     ) -> None:
         # resolve the device first: without a card the default backend
         # fails here, before any directory, thread or file is made
         factory = make_classifier_factory(backend, wire_codec=wire_codec,
-                                          compressed=compressed, flow_table=flow_table)
+                                          compressed=compressed, flow_table=flow_table,
+                                          resident=resident)
+        self.resident = bool(resident)
         # the flow tier (--flow-table): a validated FlowConfig or None; the
         # daemon owns its eviction events and the idle-loop age sweep
         self.flow_table = flow_table
@@ -441,9 +468,13 @@ class Daemon:
         # patch-transaction counters and the staleness histogram
         # (ingressnodefirewall_node_patch_txn_*)
         self.metrics_registry.register_counters(self.txn_stats)
-        if self.flow_table is not None:
+        if self.flow_table is not None or self.resident:
+            # the resident pool implies a flow tier
             self._flow_counters = _FlowCounters(lambda: self.syncer.classifier)
             self.metrics_registry.register_counters(self._flow_counters)
+        if self.resident:
+            self._resident_counters = _ResidentCounters(lambda: self.syncer.classifier)
+            self.metrics_registry.register_counters(self._resident_counters)
         if self.tenants_max:
             self.tenant_registry = self._build_tenant_registry(backend)
             # tenant_* counters (slabs, swaps, flips, clones, per-tenant
@@ -1194,6 +1225,12 @@ def main(argv: Optional[List[str]] = None) -> int:
                         "bump.  INFW_FLOW_WAYS sets the ways (default 4), "
                         "INFW_FLOW_MAX_AGE the freshness horizon in probes.  CLI beats "
                         "INFW_FLOW_TABLE")
+    p.add_argument("--resident", action="store_true", default=_env_set("INFW_RESIDENT"),
+                   help="serve each job through the resident step: one copy in, one CUDA "
+                        "graph of the flow probe, the classify, the merge and the flow "
+                        "insert, one read back (cuda backend); implies a flow table (the "
+                        "default geometry without --flow-table); resident_* gauges on "
+                        "/metrics.  CLI beats INFW_RESIDENT")
     for flag, env, item in REFUSED_FLAGS:
         p.add_argument(flag, nargs="?", const="1", default=None,
                        help=f"not in the port yet: {item} (also {env})")
@@ -1207,6 +1244,9 @@ def main(argv: Optional[List[str]] = None) -> int:
         p.error("environment variable NODE_NAME or --node-name is required")
     if args.backend not in BACKENDS:
         p.error(f"invalid backend {args.backend!r} (expected one of {BACKENDS})")
+    if args.resident and args.backend == "cpu":
+        p.error("--resident requires the cuda backend (the cpu backend serves the "
+                "multi-dispatch path)")
     # argparse checks choices only on explicit flags, not env defaults: a
     # bad INFW_WIRE_CODEC must fail the launch, not the first sync
     if args.wire_codec is not None and args.wire_codec not in WIRE_CODECS:
@@ -1255,6 +1295,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         patch_max_ops=args.patch_max_ops,
         tenants=int(args.tenants) if args.tenants else None,
         flow_table=flow_cfg,
+        resident=args.resident,
     )
     stop = threading.Event()
 

@@ -29,6 +29,20 @@ established on its first packet.
 
 ``HostFlowModel`` mirrors every device mutation bit for bit in numpy; a
 tier built with ``track_model=True`` keeps one beside its columns.
+
+Resident serving (the JAX package's ``resident_*``; the step itself is
+kernels/resident.py, its pool ``infw_torch/resident.py``): one device
+program per admission, K7, the stateless classify of every lane, the
+merge and K8 under ``lane_ok = ~hit``.  The tier keeps a device epoch, a
+(1,) int32 tensor that the step reads and advances in place (the port's
+form of JAX's donated epoch), beside the host counter: both advance
+together under the lock, +1 a step and +K a superbatch, and a classic
+probe between resident dispatches (which moves the host counter only)
+re-seeds the device epoch once.  The generation and page vectors reach
+the step through two operand tensors the tier owns and refills from the
+dispatch's snapshot, so a CUDA graph that baked their addresses serves
+the generations of its turn.  With ``track_model`` the host model replays
+each resident dispatch when its output is read, in epoch order.
 """
 from __future__ import annotations
 
@@ -269,10 +283,12 @@ class HostFlowModel:
         return res16, hit, int(hit.sum()), int(stale.sum())
 
     def insert(self, wire, tenant, tflags, verdict16, epoch_now: int,
-               gens: Optional[np.ndarray] = None):
+               gens: Optional[np.ndarray] = None, lane_ok: Optional[np.ndarray] = None):
         """Mirror of kernels.flow.flow_insert_plain -> (inserts, evictions,
         promotes).  ``gens`` overrides the generation stamp source (the tier
-        passes its probe-time snapshot)."""
+        passes its probe-time snapshot); ``lane_ok`` (B,) bool is the
+        resident step's in-program miss mask (the same eligible lanes, in
+        the same order, as the host's compaction of the misses)."""
         cfg = self.config
         f, tenant, tflags, page, keyw, is_ip, cand = self._lanes(wire, tenant, tflags)
         if gens is None:
@@ -283,6 +299,8 @@ class HostFlowModel:
         fin = is_tcp & ((tflags & TCP_FIN) != 0)
         rst = is_tcp & ((tflags & TCP_RST) != 0)
         elig = is_ip & (f["l4_ok"] != 0) & (page >= 0) & ~rst
+        if lane_ok is not None:
+            elig = elig & np.asarray(lane_ok, bool)
         ek = self.keys[cand]
         ese = self.se[cand]
         est = ese[:, :, 0]
@@ -369,6 +387,16 @@ class FlowTier:
         self._zeros_cache: Dict[int, tuple] = {}
         # (event, stream) of the last launch on a card
         self._last = None
+        # resident serving: the device epoch (made at the first resident
+        # dispatch) and the host value it holds once the queued steps ran,
+        # the step's generation and page operands and the snapshots they
+        # were last filled from, the model's queue of resident dispatches
+        # to replay (track_model only)
+        self._epoch_dev: Optional[torch.Tensor] = None
+        self._epoch_dev_val = -1
+        self._res_ops = None
+        self._res_src = (None, None)
+        self._mirror_q: list = []
         self.model = HostFlowModel(config) if track_model else None
 
     @property
@@ -518,11 +546,13 @@ class FlowTier:
         return aged
 
     def reset(self) -> None:
-        """Drop every flow (fresh zero columns); generations and pages
+        """Drop every flow (the columns zeroed in place, so a CUDA graph of
+        the resident step keeps its addresses); generations and pages
         stay."""
         with self._lock:
             stream = self._ordered()
-            self._flow = kflow.empty_flow_table(self.config.capacity, self._device)
+            for name in kflow.COLUMNS:
+                getattr(self._flow, name).zero_()
             self._record(stream)
             if self.model is not None:
                 m = HostFlowModel(self.config)
@@ -539,6 +569,125 @@ class FlowTier:
     def epoch(self) -> int:
         with self._lock:
             return self._epoch
+
+    # -- resident serving (the resident step, kernels/resident.py) -------------------
+
+    def resident_gens_snapshot(self):
+        """(generation tensor, host copy) under the lock.  The resident plan
+        takes it BEFORE it snapshots the tables, so a load_tables between
+        the two can only make the stamped generation older than the tables
+        that compute the verdicts (their inserts are stale on arrival)."""
+        with self._lock:
+            return self._gens_dev, self._gens_host.copy()
+
+    def _resident_operands(self, gens_src):
+        """Under the lock: the step's generation and page operands, refilled
+        (a copy on the current stream) from ``gens_src`` and the tier's
+        page vector when either is another tensor than last time."""
+        if self._res_ops is None:
+            self._res_ops = (torch.empty_like(self._gens_dev), torch.empty_like(self._pages_dev))
+        gens_op, pages_op = self._res_ops
+        if self._res_src[0] is not gens_src:
+            gens_op.copy_(gens_src)
+        if self._res_src[1] is not self._pages_dev:
+            pages_op.copy_(self._pages_dev)
+        self._res_src = (gens_src, self._pages_dev)
+        return gens_op, pages_op
+
+    def _resident_epoch(self, epoch0: int, alloc_note) -> torch.Tensor:
+        """Under the lock: the device epoch holding ``epoch0`` when the
+        dispatch's steps run.  It is made at the first resident dispatch and
+        re-seeded in place when a classic probe moved the host counter since
+        the last resident one (one small copy, counted by ``alloc_note`` as
+        the JAX package counts its re-seed upload)."""
+        if self._epoch_dev is None or self._epoch_dev_val != epoch0:
+            if self._epoch_dev is None:
+                self._epoch_dev = torch.empty(1, dtype=torch.int32, device=self._device)
+            self._epoch_dev.fill_(wrap_epoch(epoch0))
+            if alloc_note is not None:
+                alloc_note()
+        return self._epoch_dev
+
+    def _zeros_noted(self, key, alloc_note):
+        if key not in self._zeros_cache and alloc_note is not None:
+            alloc_note()
+        return self._zeros(key)
+
+    def resident_dispatch(self, launch, b: int, wire_np: Optional[np.ndarray] = None,
+                          tenant=None, tflags=None, tenant_np: Optional[np.ndarray] = None,
+                          tflags_np: Optional[np.ndarray] = None, gens_snap=None,
+                          alloc_note=None, k: int = 0):
+        """Run one resident step (``k`` = 0) or a superbatch of ``k`` steps
+        (flow.py resident_dispatch and resident_dispatch_super).  Under the
+        lock the host epoch advances by one step each, the device epoch is
+        chained or re-seeded, and ``launch(ResidentOps)`` enqueues the work
+        on the current stream; it returns the dispatch's output handle
+        (``.host()`` gives the fused words, (L,) or (k, L)).  ``tenant`` and
+        ``tflags`` are device columns ((b,) or (k, b)), None for the tier's
+        zero columns; ``tenant_np`` / ``tflags_np`` feed the model's
+        mirror.  Returns (handle, last epoch)."""
+        steps = max(int(k), 1)
+        key = (k, b) if k else b
+        if tenant is None:
+            tenant = self._zeros_noted(key, alloc_note)[0]
+        if tflags is None:
+            tflags = self._zeros_noted(key, alloc_note)[1]
+        with self._lock:
+            epoch0 = self._epoch
+            self._epoch += steps
+            epoch = self._epoch
+            # the re-seed and the operand refills write buffers that the
+            # previous launch may still read: order them after it
+            stream = self._ordered()
+            epoch_dev = self._resident_epoch(epoch0, alloc_note)
+            gens_src = self._gens_dev if gens_snap is None else gens_snap[0]
+            gens_op, pages_op = self._resident_operands(gens_src)
+            handle = launch(ResidentOps(self._flow, gens_op, pages_op, epoch_dev, tenant, tflags,
+                                        self.config.max_age, self.config.entries,
+                                        self.config.ways))
+            self._record(stream)
+            self._epoch_dev_val = epoch
+            if self.model is not None:
+                gens_host = self._gens_host.copy() if gens_snap is None else gens_snap[1]
+                wires = np.asarray(wire_np, np.uint32)
+                for j in range(steps):
+                    pick = (lambda a: None if a is None else np.asarray(
+                        a[j] if k else a, np.int32).copy())
+                    self._mirror_q.append((epoch0 + 1 + j, (wires[j] if k else wires).copy(),
+                                           pick(tenant_np), pick(tflags_np),
+                                           (handle, j if k else None), gens_host))
+        return handle, epoch
+
+    def resident_seed_epoch(self) -> None:
+        """Bring the device epoch to the host counter (the JAX package's
+        re-seed at warm-mark time: the classic warm moved the host counter
+        only, and the first serving dispatch must not pay the re-seed)."""
+        with self._lock:
+            if self._epoch_dev_val != self._epoch:
+                stream = self._ordered()
+                self._resident_epoch(self._epoch, None)
+                self._record(stream)
+                self._epoch_dev_val = self._epoch
+
+    def resident_note_materialized(self, epoch: int) -> None:
+        """Replay the queued resident dispatches up to ``epoch`` into the
+        host model, in epoch order (track_model only): a dispatch's insert
+        needs its merged verdicts, on the host only once it is read, so a
+        result read out of order still replays in device order."""
+        if self.model is None:
+            return
+        from .kernels.resident import split_resident_outputs
+
+        with self._lock:
+            while self._mirror_q and self._mirror_q[0][0] <= epoch:
+                ep, wire_np, tenant_np, tflags_np, (handle, row), gens_host = \
+                    self._mirror_q.pop(0)
+                arr = handle.host()
+                res16, hit, _h, _s, _c = split_resident_outputs(
+                    arr if row is None else arr[row], wire_np.shape[0])
+                self.model.probe(wire_np, tenant_np, tflags_np, ep)
+                self.model.insert(wire_np, tenant_np, tflags_np, res16, ep, gens=gens_host,
+                                  lane_ok=~hit)
 
     def flow_columns(self) -> Dict[str, np.ndarray]:
         """Host copies of the four columns (``keys`` as uint32)."""
@@ -579,6 +728,27 @@ class FlowTier:
                 self.insert(ctx, wire, np.zeros(int(b), np.uint16))
                 n += 2
         return n
+
+
+class ResidentOps(NamedTuple):
+    """What a resident launch gets from the tier: the columns, the
+    generation and page operands, the device epoch, the tenant and flag
+    columns, and the geometry."""
+
+    flow: kflow.FlowTable
+    gens: torch.Tensor
+    pages: torch.Tensor
+    epoch_dev: torch.Tensor
+    tenant: torch.Tensor
+    tflags: torch.Tensor
+    max_age: int
+    slab_entries: int
+    ways: int
+
+
+def wrap_epoch(e: int) -> int:
+    """A host epoch as the int32 the device holds."""
+    return int(np.int64(e).astype(np.int32))
 
 
 def flow_miss_bucket(m: int) -> int:

@@ -2,7 +2,7 @@
 
 ``all_kernels()`` lists every hand-written kernel entry point (its
 ``launches`` count included; K3's, K3b's and K6's fused entries share
-their sources' libraries, as K7 and K8 share flow_table's); ``chip_smoke.py`` builds them together and checks
+their sources' libraries, as K7 and K8 and their resident entries share flow_table's); ``chip_smoke.py`` builds them together and checks
 each against its plain version.
 """
 from __future__ import annotations
@@ -16,4 +16,5 @@ from ._build import Kernel
 def all_kernels() -> List[Kernel]:
     return [dense.KERNEL, walk.KERNEL, cwalk.KERNEL, cwalk.FUSED_KERNEL, wire_decode.KERNEL,
             arena_walk.KERNEL, arena_walk.FUSED_KERNEL, gather.KERNEL, arena_dense.KERNEL,
-            arena_dense.FUSED_KERNEL, flow.PROBE_KERNEL, flow.INSERT_KERNEL]
+            arena_dense.FUSED_KERNEL, flow.PROBE_KERNEL, flow.INSERT_KERNEL,
+            flow.PROBE_RESIDENT_KERNEL, flow.INSERT_RESIDENT_KERNEL]

@@ -43,6 +43,17 @@
 //              back to -1 (no O(C) clear).
 // A launch for B = 0 zeroes the counts, so no call needs a memset.
 //
+// The resident entries (infw_flow_probe_resident, infw_flow_insert_
+// resident; the resident step of kernels/resident.py, jaxpath.
+// _resident_step_core) are the same kernels with three operands more.
+// Both serve the epoch *epoch_dev + 1, read in the launch, so that a CUDA
+// graph replays them with the epoch of their turn.  The insert takes the
+// whole batch: the stateless classify's verdicts as packed res16 words and
+// K7's hit bitmap; a lane whose hit bit is 0 writes its verdict into K7's
+// res16 words (the merge) and is eligible as on the classic entry, a hit
+// lane is not (lane_ok = ~hit).  Its last phase stores the served epoch
+// to *epoch_dev, after every thread of both launches has read it.
+//
 // What bounds it on this card.  At the main path's sizes (a 4096-lane
 // ladder chunk, 2^16-lane daemon jobs), latency: a grid barrier costs
 // about what a launch does, and one launch with two barriers replaces
@@ -100,7 +111,7 @@ struct Args {
   const uint32_t* wire;
   const int* tenant;
   const int* tflags;
-  const int* verdict;  // the insert's
+  const int* verdict;  // the insert's: (B,) i32, or packed u16 on the resident entry
   uint32_t* keys;
   int2* vg;
   int2* se;
@@ -110,8 +121,22 @@ struct Args {
   const int* page_table;
   uint32_t* out;  // the probe's fused buffer, or the insert's 4 counts
   int2* lanes;    // (B, 2) scratch: the lanes past a thread's registers
+  // the resident entries: the device epoch (the launch serves *epoch_dev
+  // + 1; null: epoch_now), and the insert's hit bitmap (a lane whose bit
+  // is set is not eligible) and merged res16 words (null on the classic
+  // entries)
+  int* epoch_dev;
+  const uint32_t* hit_bits;
+  uint32_t* merged;
   int B, n_gens, n_pages, S, ways, epoch_now, max_age;
 };
+
+// The epoch a launch serves: the host's scalar, or the device epoch + 1
+// (int32 wrap, as XLA's add); read by every thread before the first grid
+// barrier.
+__device__ __forceinline__ int served_epoch(const Args& a) {
+  return a.epoch_dev ? (int)((uint32_t)__ldcg(a.epoch_dev) + 1u) : a.epoch_now;
+}
 
 // One lane's wire row decoded: its key words, flags, length, page and
 // generation.
@@ -219,8 +244,8 @@ struct ProbeKept {
 };
 
 template <int WW, int MW>
-__device__ __forceinline__ ProbeKept probe_decide(const Args& a, int i, long long nw,
-                                                  long long nh, unsigned* counts) {
+__device__ __forceinline__ ProbeKept probe_decide(const Args& a, int i, int epoch_now,
+                                                  long long nw, long long nh, unsigned* counts) {
   ProbeKept k{-1, 0u, make_int2(0, 0)};
   bool hit = false, stale = false;
   if (i < a.B) {
@@ -240,7 +265,7 @@ __device__ __forceinline__ ProbeKept probe_decide(const Args& a, int i, long lon
 #pragma unroll
       for (int w = 0; w < MW; ++w) {
         m[w] = w < a.ways && e[w].x >= kFlowEst &&
-               epoch_diff(a.epoch_now, e[w].y) <= a.max_age;
+               epoch_diff(epoch_now, e[w].y) <= a.max_age;
         if (m[w]) {
           const uint4* r = reinterpret_cast<const uint4*>(a.keys + (size_t)P.slot(w, a.S) * 8);
           ka[w] = r[0];
@@ -288,18 +313,19 @@ __device__ __forceinline__ ProbeKept probe_decide(const Args& a, int i, long lon
 // the state max.  Every hit lane on a slot computes the same maxima from
 // the old row, so a lane in registers stores them; a lane from the scratch
 // (which kept no row) applies them by atomicMax, which leaves the same.
-__device__ __forceinline__ void probe_add_max(const Args& a, const ProbeKept& k, bool in_regs) {
+__device__ __forceinline__ void probe_add_max(const Args& a, const ProbeKept& k, int epoch_now,
+                                              bool in_regs) {
   if (k.slot < 0) return;
   add_counters(a.cnt, k.slot, k.info & kLenMask);
   const bool fin = (k.info >> 24) & 1u;
   int* row = reinterpret_cast<int*>(a.se + k.slot);
   if (!in_regs) {
     if (fin) atomicMax(row, kFlowFin);
-    atomicMax(row + 1, a.epoch_now);
+    atomicMax(row + 1, epoch_now);
   } else if (fin) {
-    a.se[k.slot] = make_int2(max(k.old.x, kFlowFin), max(k.old.y, a.epoch_now));
+    a.se[k.slot] = make_int2(max(k.old.x, kFlowFin), max(k.old.y, epoch_now));
   } else {
-    row[1] = max(k.old.y, a.epoch_now);
+    row[1] = max(k.old.y, epoch_now);
   }
 }
 
@@ -321,6 +347,7 @@ __global__ void __launch_bounds__(kMaxThreads) probe_kernel(const Args a) {
   const int gtid = blockIdx.x * blockDim.x + threadIdx.x;
   const int rounds = (int)(((long long)a.B + T - 1) / T);
   const long long nw = ((long long)a.B + 1) / 2, nh = ((long long)a.B + 31) / 32;
+  const int epoch_now = served_epoch(a);
 
   // 1. decide; the counts zeroed, and the pad half of an odd B's last word
   if (gtid == 0) {
@@ -332,10 +359,10 @@ __global__ void __launch_bounds__(kMaxThreads) probe_kernel(const Args a) {
   ProbeKept reg[kRegLanes];
 #pragma unroll
   for (int r = 0; r < kRegLanes; ++r)
-    if (r < rounds) reg[r] = probe_decide<WW, MW>(a, r * T + gtid, nw, nh, counts);
+    if (r < rounds) reg[r] = probe_decide<WW, MW>(a, r * T + gtid, epoch_now, nw, nh, counts);
   for (int r = kRegLanes; r < rounds; ++r) {
     const int i = r * T + gtid;
-    const ProbeKept k = probe_decide<WW, MW>(a, i, nw, nh, counts);
+    const ProbeKept k = probe_decide<WW, MW>(a, i, epoch_now, nw, nh, counts);
     if (i < a.B) a.lanes[i] = make_int2(k.slot, (int)k.info);
   }
   warp_counts_out<2>(warp_counts, counts);
@@ -346,9 +373,9 @@ __global__ void __launch_bounds__(kMaxThreads) probe_kernel(const Args a) {
   block_counts_add<2>(warp_counts, a.out + nw + nh);
 #pragma unroll
   for (int r = 0; r < kRegLanes; ++r)
-    if (r < rounds) probe_add_max(a, reg[r], true);
+    if (r < rounds) probe_add_max(a, reg[r], epoch_now, true);
   for (int r = kRegLanes; r < rounds; ++r)
-    probe_add_max(a, probe_from_scratch(a, r * T + gtid), false);
+    probe_add_max(a, probe_from_scratch(a, r * T + gtid), epoch_now, false);
   __syncwarp();
   grid.sync();
 
@@ -382,11 +409,28 @@ struct InsertRow {
   int verdict;
 };
 
+// A lane's verdict: (B,) i32 on the classic entry, packed u16 (the
+// stateless classify's res16 words) on the resident one.
+__device__ __forceinline__ int lane_verdict(const Args& a, int i) {
+  return a.hit_bits ? (int)__ldg(reinterpret_cast<const uint16_t*>(a.verdict) + i)
+                    : __ldg(a.verdict + i);
+}
+
+// On the resident entry a hit (K7 served it, its bit set) is not
+// eligible, and reads nothing more.  Lanes are never hits on the classic
+// entry.
+__device__ __forceinline__ bool lane_hit(const Args& a, int i) {
+  return a.hit_bits && ((__ldg(a.hit_bits + (i >> 5)) >> (i & 31)) & 1u);
+}
+
 template <int WW, int MW>
 __device__ __forceinline__ InsertKept insert_decide(const Args& a, int i, InsertRow& row) {
   InsertKept k{-1, 0u};
-  if (i < a.B) {
-    const int verdict = __ldg(a.verdict + i);
+  if (i < a.B && !lane_hit(a, i)) {
+    const int verdict = lane_verdict(a, i);
+    // the resident merge: a miss's verdict replaces K7's 0 in the merged
+    // res16 words
+    if (a.hit_bits) wire_io::put_res16(a.merged, i, verdict);
     const Lane L = lane_of<WW>(a, i);
     const int f = L.tflags;
     const bool rst = L.tcp && (f & kTcpRst);
@@ -448,7 +492,8 @@ __device__ __forceinline__ InsertKept insert_decide(const Args& a, int i, Insert
 // Phase 2 for one lane: a winner writes its row and zeroes its counters.
 template <int WW>
 __device__ __forceinline__ void insert_write(const Args& a, int i, const InsertKept& k,
-                                             const InsertRow* row, unsigned* counts) {
+                                             const InsertRow* row, int epoch_now,
+                                             unsigned* counts) {
   bool win = false;
   if (k.slot >= 0 && __ldcg(a.winner + k.slot) == i) {
     win = true;
@@ -460,14 +505,14 @@ __device__ __forceinline__ void insert_write(const Args& a, int i, const InsertK
 #pragma unroll
       for (int w = 0; w < 8; ++w) r.key[w] = L.key[w];
       r.gen = L.gen;
-      r.verdict = __ldg(a.verdict + i);
+      r.verdict = lane_verdict(a, i);
     }
     const size_t s = (size_t)k.slot;
     uint4* kr = reinterpret_cast<uint4*>(a.keys + s * 8);
     kr[0] = make_uint4(r.key[0], r.key[1], r.key[2], r.key[3]);
     kr[1] = make_uint4(r.key[4], r.key[5], r.key[6], r.key[7]);
     a.vg[s] = make_int2(r.verdict & 0xFFFF, r.gen);
-    a.se[s] = make_int2((int)(k.info >> 27), a.epoch_now);
+    a.se[s] = make_int2((int)(k.info >> 27), epoch_now);
     a.cnt[s * 3] = 0;
     a.cnt[s * 3 + 1] = 0;
     a.cnt[s * 3 + 2] = 0;
@@ -510,6 +555,7 @@ __global__ void __launch_bounds__(kMaxThreads) insert_kernel(const Args a) {
   const int T = gridDim.x * blockDim.x;
   const int gtid = blockIdx.x * blockDim.x + threadIdx.x;
   const int rounds = (int)(((long long)a.B + T - 1) / T);
+  const int epoch_now = served_epoch(a);
 
   // 1. decide; the counts zeroed
   if (gtid == 0)
@@ -532,17 +578,20 @@ __global__ void __launch_bounds__(kMaxThreads) insert_kernel(const Args a) {
   unsigned counts[3] = {0u, 0u, 0u};
 #pragma unroll
   for (int r = 0; r < kRegLanes; ++r)
-    if (r < rounds) insert_write<WW>(a, r * T + gtid, reg[r], &rows[r], counts);
+    if (r < rounds) insert_write<WW>(a, r * T + gtid, reg[r], &rows[r], epoch_now, counts);
   for (int r = kRegLanes; r < rounds; ++r) {
     const int i = r * T + gtid;
-    insert_write<WW>(a, i, insert_from_scratch(a, i), nullptr, counts);
+    insert_write<WW>(a, i, insert_from_scratch(a, i), nullptr, epoch_now, counts);
   }
   warp_counts_out<3>(warp_counts, counts);
   __syncwarp();
   grid.sync();
 
-  // 3. seed and scratch clear
+  // 3. seed and scratch clear; on the resident entry the device epoch
+  // advances to the one this launch served (every thread read it before
+  // the first barrier, and K7 before this launch)
   block_counts_add<3>(warp_counts, a.out);
+  if (gtid == 0 && a.epoch_dev) *a.epoch_dev = epoch_now;
 #pragma unroll
   for (int r = 0; r < kRegLanes; ++r)
     if (r < rounds) insert_seed(a, reg[r]);
@@ -683,5 +732,83 @@ extern "C" int infw_flow_insert(const void* wire, const void* tenant, const void
   a.S = S;
   a.ways = ways;
   a.epoch_now = epoch_now;
+  return dispatch<false>(a, wire_w, max_grid, stream);
+}
+
+// K7's resident entry: infw_flow_probe serving the device epoch, e =
+// *epoch_dev + 1, read in the launch (so a CUDA graph replays it with the
+// epoch of its turn); *epoch_dev is not written.
+extern "C" int infw_flow_probe_resident(const void* wire, const void* tenant, const void* tflags,
+                                        void* keys, void* vg, void* se, void* cnt,
+                                        const void* gens, const void* page_table, void* out,
+                                        void* lanes, void* epoch_dev, int B, int wire_w,
+                                        int n_gens, int n_pages, int C, int S, int ways,
+                                        int max_age, int max_grid, void* stream) {
+  (void)C;
+  if (!epoch_dev) return (int)cudaErrorInvalidValue;
+  Args a{};
+  a.wire = (const uint32_t*)wire;
+  a.tenant = (const int*)tenant;
+  a.tflags = (const int*)tflags;
+  a.keys = (uint32_t*)keys;
+  a.vg = (int2*)vg;
+  a.se = (int2*)se;
+  a.cnt = (int*)cnt;
+  a.gens = (const int*)gens;
+  a.page_table = (const int*)page_table;
+  a.out = (uint32_t*)out;
+  a.lanes = (int2*)lanes;
+  a.epoch_dev = (int*)epoch_dev;
+  a.B = B;
+  a.n_gens = n_gens;
+  a.n_pages = n_pages;
+  a.S = S;
+  a.ways = ways;
+  a.max_age = max_age;
+  return dispatch<true>(a, wire_w, max_grid, stream);
+}
+
+// K8's resident entry (jaxpath._flow_insert_core with lane_ok = ~hit,
+// and the resident step's merge): `verdict16` holds the stateless
+// classify's packed res16 words of the full batch, `hit_bits` K7's hit
+// bitmap of it.  A lane whose hit bit is 0 writes its verdict into
+// `merged` (K7's res16 words, which hold the hits' cached verdicts) and
+// is eligible as on infw_flow_insert; a hit lane is not.  Eligible lanes
+// keep batch order, so the last-lane winner is the one the host's
+// compaction of the misses gives.  Serves *epoch_dev + 1 and, after its
+// last grid barrier, stores it to *epoch_dev.  `counts` receives
+// [inserts, evictions, promotes, 0] (any 4-byte aligned place, such as
+// the resident step's fused output).
+extern "C" int infw_flow_insert_resident(const void* wire, const void* tenant, const void* tflags,
+                                         const void* verdict16, const void* hit_bits,
+                                         void* merged, void* keys, void* vg, void* se, void* cnt,
+                                         void* winner, const void* gens, const void* page_table,
+                                         void* counts, void* lanes, void* epoch_dev, int B,
+                                         int wire_w, int n_gens, int n_pages, int C, int S,
+                                         int ways, int max_grid, void* stream) {
+  (void)C;
+  if (!epoch_dev || !hit_bits || !merged || !verdict16) return (int)cudaErrorInvalidValue;
+  Args a{};
+  a.wire = (const uint32_t*)wire;
+  a.tenant = (const int*)tenant;
+  a.tflags = (const int*)tflags;
+  a.verdict = (const int*)verdict16;
+  a.keys = (uint32_t*)keys;
+  a.vg = (int2*)vg;
+  a.se = (int2*)se;
+  a.cnt = (int*)cnt;
+  a.winner = (int*)winner;
+  a.gens = (const int*)gens;
+  a.page_table = (const int*)page_table;
+  a.out = (uint32_t*)counts;
+  a.lanes = (int2*)lanes;
+  a.epoch_dev = (int*)epoch_dev;
+  a.hit_bits = (const uint32_t*)hit_bits;
+  a.merged = (uint32_t*)merged;
+  a.B = B;
+  a.n_gens = n_gens;
+  a.n_pages = n_pages;
+  a.S = S;
+  a.ways = ways;
   return dispatch<false>(a, wire_w, max_grid, stream);
 }

@@ -20,6 +20,15 @@ launches of gathers and scatters per chunk.
   the fused read-back buffer that ``split_flow_probe_outputs`` decodes.
 - ``flow_insert`` (K8): batch-insert miss verdicts in place; returns
   (4,) int32 [inserts, evictions, promotes, 0].
+- ``flow_probe_resident`` / ``flow_insert_resident``: the same kernels
+  through their resident entries, for the resident step
+  (kernels/resident.py): both serve the device epoch + 1 (a (1,) int32
+  tensor, so a CUDA graph replays them with the epoch of their turn); the
+  probe writes into a caller-given buffer; the insert takes the whole
+  batch, the stateless verdicts as packed res16 words and the probe's hit
+  bitmap, merges the verdicts of the lanes that missed into the probe's
+  res16 words, inserts those lanes only (lane_ok = ~hit), writes its
+  counts where the caller says and advances the device epoch.
 - ``flow_age`` / ``flow_occupancy``: one elementwise pass and one
   reduction over ``se``, plain PyTorch on both devices.
 
@@ -68,6 +77,16 @@ PROBE_KERNEL = _build.Kernel(
 INSERT_KERNEL = _build.Kernel(
     "flow_insert", "infw_flow_insert",
     [ctypes.c_void_p] * 13 + [ctypes.c_int] * 9 + [ctypes.c_void_p],
+    source="flow_table",
+)
+PROBE_RESIDENT_KERNEL = _build.Kernel(
+    "flow_probe_resident", "infw_flow_probe_resident",
+    [ctypes.c_void_p] * 12 + [ctypes.c_int] * 9 + [ctypes.c_void_p],
+    source="flow_table",
+)
+INSERT_RESIDENT_KERNEL = _build.Kernel(
+    "flow_insert_resident", "infw_flow_insert_resident",
+    [ctypes.c_void_p] * 16 + [ctypes.c_int] * 8 + [ctypes.c_void_p],
     source="flow_table",
 )
 
@@ -163,6 +182,20 @@ def pack_bits32(mask: torch.Tensor) -> torch.Tensor:
     return wrap_int32((m.view(nw, 32) << shifts).sum(dim=1))
 
 
+def unpack_bits32(words: torch.Tensor, b: int) -> torch.Tensor:
+    """Inverse of pack_bits32 on the tensor's device -> (b,) bool."""
+    shifts = torch.arange(32, dtype=torch.int64, device=words.device)
+    bits = ((words.long() & 0xFFFFFFFF)[:, None] >> shifts) & 1
+    return bits.reshape(-1)[:b] != 0
+
+
+def unpack_res16(words: torch.Tensor, b: int) -> torch.Tensor:
+    """Packed res16 words -> (b,) int64 on the tensor's device (the
+    inverse of torchpath._pack_res16)."""
+    w = words.long() & 0xFFFFFFFF
+    return torch.stack([w & 0xFFFF, w >> 16], dim=1).reshape(-1)[:b]
+
+
 def unpack_bits32_host(words: np.ndarray, b: int) -> np.ndarray:
     u = np.asarray(words).view(np.uint32)
     bits = (u[:, None] >> np.arange(32, dtype=np.uint32)[None, :]) & 1
@@ -235,15 +268,16 @@ def flow_probe_plain(flow: FlowTable, gens, page_table, wire, tenant, tflags,
 
 def flow_insert_plain(flow: FlowTable, gens, page_table, wire, tenant, tflags,
                       verdict, epoch_now: int, *, slab_entries: int,
-                      ways: int) -> torch.Tensor:
-    """K8's function in plain PyTorch (jaxpath._flow_insert_core, without
-    ``lane_ok``): each lane picks the way holding its key (any live
-    state), else the first empty way, else the oldest epoch (the first of
-    equal epochs); the last eligible lane of a slot in batch order writes
-    the row, whose counters are the sums over every eligible lane that
-    chose the slot.  RST lanes, non-IP kinds, l4_ok = 0 and page -1 are
-    ineligible.  Updates ``keys``, ``vg``, ``se`` and ``cnt`` in place;
-    returns (4,) int32 [inserts, evictions, promotes, 0]."""
+                      ways: int, lane_ok=None) -> torch.Tensor:
+    """K8's function in plain PyTorch (jaxpath._flow_insert_core): each
+    lane picks the way holding its key (any live state), else the first
+    empty way, else the oldest epoch (the first of equal epochs); the last
+    eligible lane of a slot in batch order writes the row, whose counters
+    are the sums over every eligible lane that chose the slot.  RST lanes,
+    non-IP kinds, l4_ok = 0, page -1 and, when ``lane_ok`` (B,) bool is
+    given, its False lanes are ineligible.  Updates ``keys``, ``vg``,
+    ``se`` and ``cnt`` in place; returns (4,) int32 [inserts, evictions,
+    promotes, 0]."""
     b, page, keyw32, cand, is_ip, mygen, match_all = _lanes(
         flow, gens, page_table, wire, tenant, slab_entries=slab_entries, ways=ways)
     is_tcp = b.proto == IPPROTO_TCP
@@ -252,6 +286,8 @@ def flow_insert_plain(flow: FlowTable, gens, page_table, wire, tenant, tflags,
     fin = is_tcp & ((tflags & TCP_FIN) != 0)
     rst = is_tcp & ((tflags & TCP_RST) != 0)
     elig = is_ip & (b.l4_ok != 0) & (page >= 0) & ~rst
+    if lane_ok is not None:
+        elig = elig & lane_ok
     ese = flow.se[cand]
     est, eep = ese[:, :, 0], ese[:, :, 1]
     match_w = match_all & (est > 0)
@@ -288,6 +324,49 @@ def flow_insert_plain(flow: FlowTable, gens, page_table, wire, tenant, tflags,
     promote = win & matched & (old_state == FLOW_NEW) & (state_val == FLOW_EST)
     return torch.stack([win.sum(), evict.sum(), promote.sum(), win.new_zeros((), dtype=torch.int64)]
                        ).to(torch.int32)
+
+
+def served_epoch(epoch_dev: torch.Tensor) -> int:
+    """The epoch a resident launch serves: the device epoch + 1, with the
+    int32 wrap of XLA's add."""
+    return int(wrap_int32(epoch_dev.long()[0] + 1))
+
+
+def flow_probe_resident_plain(flow: FlowTable, gens, page_table, wire, tenant, tflags,
+                              epoch_dev, max_age: int, out, *, slab_entries: int,
+                              ways: int) -> torch.Tensor:
+    """K7's resident entry in plain PyTorch: flow_probe_plain at the
+    served epoch (``epoch_dev`` is read, not written), its buffer copied
+    into ``out``; returns ``out``'s first probe_out_words(B) words."""
+    fused = flow_probe_plain(flow, gens, page_table, wire, tenant, tflags,
+                             served_epoch(epoch_dev), max_age, slab_entries=slab_entries,
+                             ways=ways)
+    out[: fused.shape[0]].copy_(fused)
+    return out[: fused.shape[0]]
+
+
+def flow_insert_resident_plain(flow: FlowTable, gens, page_table, wire, tenant, tflags,
+                               verdict16, hit_bits, merged, counts, epoch_dev, *,
+                               slab_entries: int, ways: int) -> torch.Tensor:
+    """K8's resident entry in plain PyTorch (jaxpath._resident_step_core's
+    merge and ``_flow_insert_core(..., lane_ok=~hit)``): the lanes whose
+    bit in ``hit_bits`` is 0 take their verdict from ``verdict16`` (packed
+    res16 words) into ``merged`` and are inserted at the served epoch; the
+    hit lanes keep ``merged`` and are not eligible.  Writes the four counts
+    into ``counts`` and the served epoch into ``epoch_dev``; returns
+    ``counts``."""
+    B = wire.shape[0]
+    nw = (B + 1) // 2
+    e1 = served_epoch(epoch_dev)
+    hit = unpack_bits32(hit_bits[: -(-B // 32)], B)
+    verdict = unpack_res16(verdict16[:nw], B)
+    served = unpack_res16(merged[:nw], B)
+    merged[:nw].copy_(_pack_res16(torch.where(hit, served, verdict)))
+    c = flow_insert_plain(flow, gens, page_table, wire, tenant, tflags, verdict, e1,
+                          slab_entries=slab_entries, ways=ways, lane_ok=~hit)
+    counts[:4].copy_(c)
+    epoch_dev.fill_(e1)
+    return counts[:4]
 
 
 def flow_age(se: torch.Tensor, cutoff: int) -> torch.Tensor:
@@ -435,3 +514,94 @@ def flow_insert(flow: FlowTable, gens, page_table, wire, tenant, tflags, verdict
             scratch, B, wire.shape[1], gens.shape[0], page_table.shape[0], flow.capacity,
             slab_entries, ways, int(epoch_now), int(_grid))
     return buf[:4]
+
+
+def _check_view(who: str, name: str, t, dev, words: int) -> None:
+    """A resident operand that may be a view into a larger buffer: a
+    contiguous int32 vector of at least ``words`` words on ``dev``."""
+    if t.device != dev or t.dtype != torch.int32 or t.dim() != 1 or not t.is_contiguous():
+        raise ValueError(f"{who}: {name} must be a contiguous int32 vector on {dev}")
+    if t.shape[0] < words:
+        raise ValueError(f"{who}: {name} has {t.shape[0]} words, needs {words}")
+
+
+def _lane_scratch(B: int, device) -> torch.Tensor:
+    """The kernels' (B, 2) int32 lane scratch, 16-byte aligned."""
+    return torch.empty(2 * B + 4, dtype=torch.int32, device=device)
+
+
+def flow_probe_resident(flow: FlowTable, gens, page_table, wire, tenant, tflags, epoch_dev,
+                        max_age: int, out, scratch=None, *, slab_entries: int, ways: int,
+                        _grid: int = 0) -> torch.Tensor:
+    """Kernel K7 through its resident entry: the probe at the device epoch
+    + 1 (``epoch_dev`` a (1,) int32 tensor, read and not written), its
+    buffer written into ``out`` (at least probe_out_words(B) words).  A
+    CPU tensor runs flow_probe_resident_plain; a CUDA tensor launches the
+    kernel or raises.  ``scratch`` is the kernel's lane scratch (allocated
+    when None); returns ``out``'s first probe_out_words(B) words."""
+    if wire.device.type == "cpu":
+        return flow_probe_resident_plain(flow, gens, page_table, wire, tenant, tflags, epoch_dev,
+                                         max_age, out, slab_entries=slab_entries, ways=ways)
+    if wire.device.type != "cuda":
+        raise ValueError(f"flow_probe_resident: unsupported device {wire.device}")
+    who = "flow_probe_resident"
+    _check_table(who, flow, wire.device, slab_entries, ways)
+    _check_operands(who, gens, page_table, wire, (("tenant", tenant), ("tflags", tflags)))
+    B = wire.shape[0]
+    words = probe_out_words(B)
+    _check_view(who, "epoch_dev", epoch_dev, wire.device, 1)
+    _check_view(who, "out", out, wire.device, words)
+    if scratch is None:
+        scratch = _lane_scratch(B, wire.device)
+    _check_view(who, "scratch", scratch, wire.device, 2 * B)
+    if scratch.data_ptr() % 8:
+        raise ValueError(f"{who}: scratch must be 8-byte aligned")
+    _launch(PROBE_RESIDENT_KERNEL, wire.device,
+            wire.data_ptr(), tenant.data_ptr(), tflags.data_ptr(), flow.keys.data_ptr(),
+            flow.vg.data_ptr(), flow.se.data_ptr(), flow.cnt.data_ptr(), gens.data_ptr(),
+            page_table.data_ptr(), out.data_ptr(), scratch.data_ptr(), epoch_dev.data_ptr(),
+            B, wire.shape[1], gens.shape[0], page_table.shape[0], flow.capacity, slab_entries,
+            ways, int(max_age), int(_grid))
+    return out[:words]
+
+
+def flow_insert_resident(flow: FlowTable, gens, page_table, wire, tenant, tflags, verdict16,
+                         hit_bits, merged, counts, epoch_dev, scratch=None, *,
+                         slab_entries: int, ways: int, _grid: int = 0) -> torch.Tensor:
+    """Kernel K8 through its resident entry (see the module docstring):
+    ``verdict16`` the ceil(B/2) packed res16 words of the stateless
+    classify of the whole batch, ``hit_bits`` the probe's ceil(B/32)
+    bitmap words, ``merged`` the probe's ceil(B/2) res16 words (the missed
+    lanes' verdicts are written into them), ``counts`` 4 words for
+    [inserts, evictions, promotes, 0], ``epoch_dev`` the (1,) int32 device
+    epoch, which the call advances to the epoch it served.  A CPU tensor
+    runs flow_insert_resident_plain; a CUDA tensor launches the kernel or
+    raises.  Returns ``counts``' first 4 words."""
+    if wire.device.type == "cpu":
+        return flow_insert_resident_plain(flow, gens, page_table, wire, tenant, tflags,
+                                          verdict16, hit_bits, merged, counts, epoch_dev,
+                                          slab_entries=slab_entries, ways=ways)
+    if wire.device.type != "cuda":
+        raise ValueError(f"flow_insert_resident: unsupported device {wire.device}")
+    who = "flow_insert_resident"
+    _check_table(who, flow, wire.device, slab_entries, ways)
+    _check_operands(who, gens, page_table, wire, (("tenant", tenant), ("tflags", tflags)))
+    B = wire.shape[0]
+    nw, nh = (B + 1) // 2, -(-B // 32)
+    for name, t, words in (("verdict16", verdict16, nw), ("hit_bits", hit_bits, nh),
+                           ("merged", merged, nw), ("counts", counts, 4),
+                           ("epoch_dev", epoch_dev, 1)):
+        _check_view(who, name, t, wire.device, words)
+    if scratch is None:
+        scratch = _lane_scratch(B, wire.device)
+    _check_view(who, "scratch", scratch, wire.device, 2 * B)
+    if scratch.data_ptr() % 8:
+        raise ValueError(f"{who}: scratch must be 8-byte aligned")
+    _launch(INSERT_RESIDENT_KERNEL, wire.device,
+            wire.data_ptr(), tenant.data_ptr(), tflags.data_ptr(), verdict16.data_ptr(),
+            hit_bits.data_ptr(), merged.data_ptr(), flow.keys.data_ptr(), flow.vg.data_ptr(),
+            flow.se.data_ptr(), flow.cnt.data_ptr(), flow.winner.data_ptr(), gens.data_ptr(),
+            page_table.data_ptr(), counts.data_ptr(), scratch.data_ptr(), epoch_dev.data_ptr(),
+            B, wire.shape[1], gens.shape[0], page_table.shape[0], flow.capacity, slab_entries,
+            ways, int(_grid))
+    return counts[:4]

@@ -1,0 +1,133 @@
+"""The resident step: one admission's device work as one fixed sequence on
+one stream, and the superbatch of K such steps.
+
+Counterpart of the JAX package's ``jaxpath._resident_step_core``,
+``jitted_resident_step``, ``jitted_resident_superbatch``,
+``split_resident_outputs`` and ``resident_fused_host``.  There the step is
+one XLA program whose flow columns and epoch are donated; here it is a
+sequence of hand kernels that updates the flow columns and a (1,) int32
+device epoch in place, and that a CUDA graph captures whole (the pool in
+``infw_torch/resident.py`` replays it):
+
+1. K7 through its resident entry (kernels/flow.py): the probe at the
+   device epoch + 1, written into the first words of the fused output;
+2. the path's fused wire entry over every lane, on the same table
+   snapshot: K1 (``dense.classify_dense_wire_fused``), K2
+   (``walk.classify_walk_wire_fused`` at the plan's level count), K3
+   (``cwalk.classify_ctrie_wire_fused``), or the overlay combine
+   (``overlay.classify_overlay_wire_fused``) when an overlay is live; its
+   first ceil(B/2) words are the stateless results as 16-bit words, ``res
+   & 0xFFFF`` (its statistics are not read: the host derives them from the
+   merged verdicts and the pkt_len column, the wire8 contract);
+3. K8 through its resident entry: the merge ``where(hit, served, res &
+   0xFFFF)`` into the fused output's result words, the insert of the lanes
+   that missed (``lane_ok = ~hit``, the same eligible lanes in the same
+   order as the host's compaction of the misses), its counts into the
+   fused output, and the device epoch advanced.
+
+The fused output is JAX's word layout: ceil(B/2) words of u16-pair-packed
+merged results, ceil(B/32) words of the hit bitmap, [hits, stale], then
+[inserts, evictions, promotes, 0].  On CPU tensors every entry runs its
+plain version; on CUDA tensors the kernels (nothing here syncs with the
+host, so the sequence captures into a graph).
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Union
+
+import numpy as np
+import torch
+
+from . import cwalk, dense, overlay, walk
+from . import flow as kflow
+from .torchpath import unpack_res16_host
+
+
+class StepTables(NamedTuple):
+    """The stateless half of a step: the path, its device tables, the
+    overlay's (None without one) and the trie path's level count (None on
+    the other paths)."""
+
+    path: str  # "dense" | "trie" | "ctrie"
+    dev: Union[dense.DenseTables, walk.TrieTables, cwalk.CTrieTables]
+    ov: Optional[overlay.OverlayTables] = None
+    n_levels: Optional[int] = None
+
+
+def resident_out_words(b: int) -> int:
+    """Words of a step's fused output for ``b`` lanes."""
+    return (b + 1) // 2 + -(-b // 32) + 6
+
+
+def stateless_res16(tables: StepTables, wire: torch.Tensor) -> torch.Tensor:
+    """The path's fused wire entry over every lane of ``wire`` (B, 4 | 7);
+    the returned buffer's first ceil(B/2) words are the packed ``res &
+    0xFFFF``."""
+    if tables.ov is not None:
+        return overlay.classify_overlay_wire_fused(tables.dev, tables.ov, wire, tables.n_levels)
+    if tables.path == "dense":
+        return dense.classify_dense_wire_fused(tables.dev, wire)
+    if tables.path == "ctrie":
+        return cwalk.classify_ctrie_wire_fused(tables.dev, wire)
+    return walk.classify_walk_wire_fused(tables.dev, wire, tables.n_levels)
+
+
+def resident_step(ops, tables: StepTables, wire: torch.Tensor,
+                  out: Optional[torch.Tensor] = None,
+                  scratch: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One admission (jaxpath._resident_step_core): ``ops`` is the flow
+    tier's flow.ResidentOps (columns, generation and page operands, device
+    epoch, tenant and flag columns, geometry), ``wire`` the (B, 4 | 7)
+    int32 wire.  Updates the columns and the device epoch in place; writes
+    and returns the fused output (``out``, at least resident_out_words(B)
+    words, allocated when None).  ``scratch`` is the kernels' (B, 2) lane
+    scratch (allocated when None)."""
+    B = wire.shape[0]
+    nw, nh = (B + 1) // 2, -(-B // 32)
+    if out is None:
+        out = torch.empty(resident_out_words(B), dtype=torch.int32, device=wire.device)
+    geo = {"slab_entries": ops.slab_entries, "ways": ops.ways}
+    kflow.flow_probe_resident(ops.flow, ops.gens, ops.pages, wire, ops.tenant, ops.tflags,
+                              ops.epoch_dev, ops.max_age, out[: nw + nh + 2], scratch, **geo)
+    res16 = stateless_res16(tables, wire)
+    kflow.flow_insert_resident(ops.flow, ops.gens, ops.pages, wire, ops.tenant, ops.tflags,
+                               res16[:nw], out[nw: nw + nh], out[:nw],
+                               out[nw + nh + 2: nw + nh + 6], ops.epoch_dev, scratch, **geo)
+    return out[: resident_out_words(B)]
+
+
+def resident_superbatch(ops, tables: StepTables, wire: torch.Tensor,
+                        out: Optional[torch.Tensor] = None,
+                        scratch: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K admissions in one sequence (jaxpath.jitted_resident_superbatch):
+    ``wire`` (K, B, W), ``ops.tenant`` and ``ops.tflags`` (K, B); step j
+    serves the device epoch as step j - 1 left it.  Returns the (K, L)
+    fused outputs (``out`` when given)."""
+    K, B = wire.shape[0], wire.shape[1]
+    L = resident_out_words(B)
+    if out is None:
+        out = torch.empty((K, L), dtype=torch.int32, device=wire.device)
+    for j in range(K):
+        resident_step(ops._replace(tenant=ops.tenant[j], tflags=ops.tflags[j]), tables, wire[j],
+                      out[j], scratch)
+    return out
+
+
+def split_resident_outputs(arr: np.ndarray, b: int):
+    """Host inverse of a step's fused output -> (res16[b], hit mask (b,)
+    bool, hits, stale, (inserts, evictions, promotes))."""
+    nw, nh = (b + 1) // 2, -(-b // 32)
+    res16 = unpack_res16_host(arr[:nw], b)
+    hit = kflow.unpack_bits32_host(arr[nw: nw + nh], b)
+    counts = tuple(int(x) for x in arr[nw + nh + 2: nw + nh + 5])
+    return res16, hit, int(arr[nw + nh]), int(arr[nw + nh + 1]), counts
+
+
+def resident_fused_host(fused) -> np.ndarray:
+    """The host words of one admission: a dispatch handle (``.host()``) or
+    a (handle, row) pair naming one row of a superbatch's (K, L) output.
+    Blocks until the dispatch has landed."""
+    if isinstance(fused, tuple):
+        stack, row = fused
+        return stack.host()[int(row)]
+    return fused.host()

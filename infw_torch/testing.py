@@ -442,6 +442,9 @@ FLOW_KERNEL_CASES = (
     "fin_rst_same_slot", "teardown_then_hit", "duplicate_keys", "full_slab_tied_epochs",
     "syn_then_ack_promote", "ways_1", "ways_8", "tenant_ranges", "epoch_near_int32_max",
     "inert_lanes", "stale_generation", "hot_slot", "warp_mixed_slots", "lanes_beyond_grid",
+    # the way counts the kernels serve through a wider template's guards
+    # (3, 5, 6, 7) or a template of their own (2); default cases are 4-way
+    "ways_2", "ways_3", "ways_5", "ways_6", "ways_7",
 )
 #: lanes of the cases whose batch is not the default 96: "lanes_beyond_grid"
 #: holds more lanes than the threads an H100 keeps resident (132 SMs x 2048)
@@ -485,10 +488,8 @@ def flow_kernel_case(name: str, width: int, seed: int = 0) -> Dict[str, object]:
         raise ValueError(f"unknown flow kernel case {name!r} / width {width}")
     rng = np.random.default_rng([seed, FLOW_KERNEL_CASES.index(name), width])
     entries, pages, ways, tenants, max_age = 64, 1, 4, 1, 1 << 20
-    if name == "ways_1":
-        ways = 1
-    elif name == "ways_8":
-        ways = 8
+    if name.startswith("ways_"):
+        ways = int(name[len("ways_"):])
     elif name == "full_slab_tied_epochs":
         entries = 8
     elif name == "tenant_ranges":

@@ -1497,31 +1497,62 @@ def _ops_per_call(fn, reps: int = 10):
     raise AssertionError("the profiler lost kernel events five times")
 
 
-@pytest.mark.parametrize("b", [0, 4096, 1 << 18])
-def test_k7_k8_are_one_kernel_a_call(cuda, b):
-    """Each K7 and K8 call is one cooperative kernel on the card and no
-    memset (the profiler), also for an empty batch."""
+def _k7_k8_ops(b: int, device="cuda:0") -> dict:
+    """{kernel name: (kernels a call, memsets a call)} of one K7 and one K8
+    call at ``b`` lanes (``_ops_per_call``)."""
     from infw_torch.kernels import flow as kflow
 
     rng = np.random.default_rng(b)
     tables = testing.random_tables_fast(rng, 300, width=4)
     batch, _meta = testing.flow_trace_batch(rng, tables, max(b, 1), 0.9, chunk_packets=4096)
     batch = batch.slice(0, b)
-    fl = kflow.empty_flow_table(1 << 14, cuda)
-    one = torch.zeros(1, dtype=torch.int32, device=cuda)
-    wire = torch.from_numpy(batch.pack_wire().view(np.int32)).to(cuda)
-    ten = torch.zeros(b, dtype=torch.int32, device=cuda)
-    fl_ = torch.from_numpy(batch.tcp_flags.astype(np.int32)).to(cuda)
+    fl = kflow.empty_flow_table(1 << 14, device)
+    one = torch.zeros(1, dtype=torch.int32, device=device)
+    wire = torch.from_numpy(batch.pack_wire().view(np.int32)).to(device)
+    ten = torch.zeros(b, dtype=torch.int32, device=device)
+    fl_ = torch.from_numpy(batch.tcp_flags.astype(np.int32)).to(device)
     geo = {"slab_entries": 1 << 14, "ways": 4}
+    out = {}
     for name, run in (
             ("probe_kernel", lambda: kflow.flow_probe(fl, one, one, wire, ten, fl_, 5, 100, **geo)),
             ("insert_kernel", lambda: kflow.flow_insert(fl, one, one, wire, ten, fl_, ten, 5,
                                                         **geo))):
-        kernels, memsets = _ops_per_call(run)
+        out[name] = _ops_per_call(run)
+    out["winner_clear"] = bool((fl.winner == -1).all())
+    return out
+
+
+#: _k7_k8_ops in a fresh process: a profiler trace taken in a process whose
+#: earlier profiler sessions traced other work can lose kernel events
+_K7_K8_OPS_CHILD = r"""
+import json, sys
+sys.path.insert(0, "tests")
+import test_torch_cuda
+print(json.dumps(test_torch_cuda._k7_k8_ops(int(sys.argv[1]))))
+"""
+
+
+@pytest.mark.parametrize("b", [0, 4096, 1 << 18])
+def test_k7_k8_are_one_kernel_a_call(cuda, b):
+    """Each K7 and K8 call is one cooperative kernel on the card and no
+    memset (the profiler, in a process of its own), also for an empty
+    batch."""
+    import json
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    proc = subprocess.run([sys.executable, "-c", _K7_K8_OPS_CHILD, str(b)],
+                          cwd=Path(__file__).resolve().parents[1], capture_output=True, text=True,
+                          timeout=600)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    for name in ("probe_kernel", "insert_kernel"):
+        kernels, memsets = got[name]
         assert len(kernels) == 1 and name in next(iter(kernels)), (name, kernels)
         assert next(iter(kernels.values())) == pytest.approx(1.0), (name, kernels)
         assert memsets == 0, (name, memsets)
-    assert bool((fl.winner == -1).all())
+    assert got["winner_clear"]
 
 
 def test_flow_wrappers_raise_on_wrong_operands(cuda):
@@ -1592,3 +1623,380 @@ def test_flow_classifier_on_the_card_matches_the_cpu(cuda):
     gc, cc = gpu.flow.flow_columns(), cpu.flow.flow_columns()
     for k in kflow.COLUMNS:
         np.testing.assert_array_equal(gc[k], cc[k])
+
+
+# --- the resident step (kernels/resident.py, infw_torch/resident.py) ----------------
+
+
+def _resident_entries_against_plain(cuda, case, grid=0):
+    """K7's and K8's resident entries on the card against their plain
+    versions on clones of the same card tensors; returns the launches."""
+    from infw_torch.kernels import flow as kflow
+
+    geo = {"slab_entries": case["entries"], "ways": case["ways"]}
+    got, gens, pt, probe, insert = _flow_case_on(case, cuda)
+    want = kflow.clone_flow_table(got)
+    wire, ten, fl, epoch = probe
+    B = wire.shape[0]
+    nw, nh = (B + 1) // 2, -(-B // 32)
+    e_got = torch.tensor([epoch - 1], dtype=torch.int64).to(torch.int32).to(cuda)
+    e_want = e_got.clone()
+    out_got = torch.full((nw + nh + 6,), -7, dtype=torch.int32, device=cuda)
+    out_want = out_got.clone()
+    v16 = kflow._pack_res16(insert[3] & 0xFFFF)
+    p0 = kflow.PROBE_RESIDENT_KERNEL.launches
+    i0 = kflow.INSERT_RESIDENT_KERNEL.launches
+    kflow.flow_probe_resident(got, gens, pt, wire, ten, fl, e_got, case["max_age"], out_got,
+                              **geo, _grid=grid)
+    kflow.flow_probe_resident_plain(want, gens, pt, wire, ten, fl, e_want, case["max_age"],
+                                    out_want, **geo)
+    torch.cuda.synchronize()
+    assert torch.equal(out_got, out_want) and torch.equal(e_got, e_want)
+    for out, f, e in ((out_got, got, e_got), (out_want, want, e_want)):
+        (kflow.flow_insert_resident(f, gens, pt, wire, ten, fl, v16, out[nw: nw + nh], out[:nw],
+                                    out[nw + nh + 2:], e, **geo, _grid=grid) if f is got else
+         kflow.flow_insert_resident_plain(f, gens, pt, wire, ten, fl, v16, out[nw: nw + nh],
+                                          out[:nw], out[nw + nh + 2:], e, **geo))
+    torch.cuda.synchronize()
+    assert torch.equal(out_got, out_want)
+    assert int(e_got[0]) == int(e_want[0]) == int(np.int64(epoch).astype(np.int32))
+    for k in kflow.COLUMNS:
+        assert torch.equal(getattr(got, k), getattr(want, k)), k
+    assert bool((got.winner == -1).all())
+    return (kflow.PROBE_RESIDENT_KERNEL.launches - p0, kflow.INSERT_RESIDENT_KERNEL.launches - i0)
+
+
+@pytest.mark.parametrize("width", [4, 7])
+@pytest.mark.parametrize("name", testing.FLOW_KERNEL_CASES)
+def test_k7_k8_resident_entries_match_plain(cuda, name, width):
+    """K7 at the device epoch and K8 under the hit mask with the merge (the
+    resident entries) against their plain versions, on every case and
+    every way count of the CPU tests: equal output words, epochs and
+    columns; one launch each."""
+    assert _resident_entries_against_plain(cuda, testing.flow_kernel_case(name, width)) == (1, 1)
+
+
+@pytest.mark.parametrize("grid", [1, 2, 7])
+@pytest.mark.parametrize("name", ["hot_slot", "warp_mixed_slots", "lanes_beyond_grid",
+                                  "duplicate_keys", "ways_3"])
+def test_k7_k8_resident_forced_grid_match_plain(cuda, name, grid):
+    """The resident entries under a forced grid of 1, 2 and 7 blocks: most
+    lanes go through the scratch, and a winner from the scratch decodes
+    its packed verdict again."""
+    _resident_entries_against_plain(cuda, testing.flow_kernel_case(name, 7), grid)
+
+
+def _resident_pair(cuda, path, tables, overlay=None, **kw):
+    gpu = TorchClassifier(device=cuda, force_path=path, resident=True, flow_table=512, **kw)
+    cpu = TorchClassifier(device="cpu", force_path=path, resident=True, flow_table=512, **kw)
+    for c in (gpu, cpu):
+        c.load_tables(tables, overlay=overlay)
+    return gpu, cpu
+
+
+def _same_outputs(got, want, label=""):
+    for f in ("results", "xdp", "stats_delta"):
+        np.testing.assert_array_equal(getattr(got, f), getattr(want, f), err_msg=f"{label} {f}")
+
+
+@pytest.mark.parametrize("path", ["dense", "trie", "ctrie", "trie_overlay"])
+def test_resident_graph_replay_matches_the_cpu_and_the_eager_step(cuda, path):
+    """The resident classifier on the card (one graph replay an admission)
+    against the same classifier on the CPU over a flow trace, at ragged
+    sizes padded to buckets and on both slots: equal outputs, counters,
+    columns and epochs; then one more admission's graph against the eager
+    step sequence on clones of the columns."""
+    from infw_torch import flow as flow_mod
+    from infw_torch.kernels import flow as kflow
+    from infw_torch.kernels.resident import resident_step
+
+    rng = np.random.default_rng(16)
+    base = path.split("_")[0]
+    n = 300 if base == "dense" else 5000
+    tables = testing.random_tables_fast(rng, n, width=4, v6_fraction=0.5)
+    ov = None
+    if path.endswith("overlay"):
+        ov_tables = testing.random_tables_fast(np.random.default_rng(17), 16, width=4)
+        taken = {k.masked_identity() for k in tables.content}
+        ov = compiler.compile_tables_from_content(
+            {k: v for k, v in ov_tables.content.items() if k.masked_identity() not in taken},
+            rule_width=4)
+    gpu, cpu = _resident_pair(cuda, None if base == "dense" else base, tables, ov)
+    assert gpu.active_path == base
+    batch, _ = testing.flow_trace_batch(rng, tables, 4 * 1024, 0.9, chunk_packets=1024)
+    start = 0
+    for k, size in enumerate((1024, 61, 1000, 1024, 8, 1)):
+        sub = batch.slice(start, start + size)
+        start += size
+        _same_outputs(gpu.classify(sub), cpu.classify(sub), f"{path} chunk {k}")
+    assert gpu.flow_counters() == cpu.flow_counters()
+    assert gpu.flow_counters()["flow_hits_total"] > 0
+    gc, cc = gpu.flow.flow_columns(), cpu.flow.flow_columns()
+    for c in kflow.COLUMNS:
+        np.testing.assert_array_equal(gc[c], cc[c])
+    assert int(gpu.flow._epoch_dev[0]) == gpu.flow.epoch == cpu.flow.epoch == 6
+    rc = gpu.resident_counters()
+    assert rc["resident_dispatches_total"] == 6 and rc["resident_slot1_dispatches_total"] == 3
+
+    # the graph against the eager sequence
+    sub = batch.slice(0, 1024)
+    wire_np = sub.pack_wire()
+    ctx = gpu.resident.context(gpu)
+    tables_step = ctx.tables._replace(
+        n_levels=None if base != "trie" else ctx.tables.dev.n_levels)
+    tier = gpu.flow
+    eager_flow = kflow.clone_flow_table(tier._flow)
+    eager_epoch = tier._epoch_dev.clone()
+    gens_op, pages_op = tier._res_ops
+    fl = torch.from_numpy(sub.tcp_flags.astype(np.int32)).to(cuda)
+    ops = flow_mod.ResidentOps(eager_flow, gens_op.clone(), pages_op.clone(), eager_epoch,
+                               torch.zeros(1024, dtype=torch.int32, device=cuda), fl,
+                               tier.config.max_age, tier.config.entries, tier.config.ways)
+    eager = resident_step(ops, tables_step, torch.from_numpy(wire_np.view(np.int32)).to(cuda))
+    plan = gpu.prepare_packed(wire_np, False, tcp_flags=sub.tcp_flags)
+    from infw_torch.kernels.resident import resident_fused_host
+
+    np.testing.assert_array_equal(resident_fused_host(plan["fused"]), eager.cpu().numpy())
+    for c in kflow.COLUMNS:
+        assert torch.equal(getattr(tier._flow, c), getattr(eager_flow, c)), c
+    assert torch.equal(tier._epoch_dev, eager_epoch)
+
+
+def test_resident_two_slots_with_unread_outputs(cuda):
+    """Six admissions dispatched back to back, none read, then read in the
+    order 3, 0, 5, 1, 4, 2: the third and later dispatches on a slot keep
+    the unread output of the one before, so every result equals the
+    oracle's, and the tracked model equals the columns."""
+    rng = np.random.default_rng(23)
+    tables = testing.random_tables_fast(rng, 5000, width=4, v6_fraction=0.5)
+    clf = TorchClassifier(device=cuda, force_path="trie", resident=True, flow_table=512,
+                          flow_track_model=True)
+    clf.load_tables(tables)
+    batch, _ = testing.flow_trace_batch(rng, tables, 6 * 128, 0.8, chunk_packets=128)
+    chunks = [batch.slice(128 * j, 128 * (j + 1)) for j in range(6)]
+    plans = [clf.prepare_packed(c.pack_wire(), False, tcp_flags=c.tcp_flags) for c in chunks]
+    for i in (3, 0, 5, 1, 4, 2):
+        out = clf.classify_prepared(plans[i], apply_stats=False).result()
+        want = oracle.classify(tables, chunks[i])
+        np.testing.assert_array_equal(out.results, want.results, err_msg=f"plan {i}")
+    cols = clf.flow.flow_columns()
+    model = clf.flow.model.columns()
+    for k in cols:
+        np.testing.assert_array_equal(cols[k], np.asarray(model[k]).view(cols[k].dtype))
+
+
+def test_resident_warm_state_captures_nothing(cuda):
+    """After one admission per shape and slot and mark_resident_warm, 200
+    more at those shapes capture no graph and allocate nothing."""
+    rng = np.random.default_rng(24)
+    tables = testing.random_tables_fast(rng, 5000, width=4, v6_fraction=0.5)
+    clf = TorchClassifier(device=cuda, force_path="trie", resident=True, flow_table=512)
+    clf.load_tables(tables)
+    batch, _ = testing.flow_trace_batch(rng, tables, 4096, 0.9, chunk_packets=128)
+    v4 = batch.take(np.nonzero(batch.kind == 1)[0][:128])
+    shapes = [(batch.slice(0, 128).pack_wire(), False), (v4.pack_wire_v4(), True)]
+    for wire, is_v4 in shapes:
+        for _ in range(2):  # both slots
+            clf.classify_prepared(clf.prepare_packed(wire, is_v4)).result()
+    clf.flow.warm([128])  # classic probes move the host epoch only
+    clf.mark_resident_warm()
+    graphs = clf.resident.graphs()
+    assert graphs == 4
+    for j in range(100):
+        for wire, is_v4 in shapes:
+            clf.classify_prepared(clf.prepare_packed(wire, is_v4)).result()
+    assert clf.resident.steady_allocs() == 0 and clf.resident.graphs() == graphs
+
+
+#: one resident admission profiled in a fresh process (a trace of graph
+#: replays taken in a process whose earlier profiler sessions traced other
+#: work loses events): the resident entries' and K3's launch counts over
+#: four admissions, and the copies the trace saw, with eight spin kernels
+#: on each side of the admissions to show the trace whole
+_COPIES_CHILD = r"""
+import json
+import numpy as np
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+from infw_torch import testing
+from infw_torch.backend.cuda import TorchClassifier
+from infw_torch.kernels import cwalk, flow as kflow
+
+rng = np.random.default_rng(25)
+tables = testing.random_tables_fast(rng, 5000, width=4, v6_fraction=0.5)
+clf = TorchClassifier(device="cuda:0", force_path="ctrie", resident=True, flow_table=512)
+clf.load_tables(tables)
+batch, _ = testing.flow_trace_batch(rng, tables, 4096, 0.9, chunk_packets=1024)
+wire = batch.slice(0, 1024).pack_wire()
+for _ in range(3):
+    clf.classify_prepared(clf.prepare_packed(wire, False)).result()
+kernels = (kflow.PROBE_RESIDENT_KERNEL, kflow.INSERT_RESIDENT_KERNEL, cwalk.FUSED_KERNEL)
+before = [k.launches for k in kernels]
+torch.cuda.synchronize()
+with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    for _ in range(8):
+        torch.cuda._sleep(1000)
+    torch.cuda.synchronize()
+    for _ in range(4):
+        clf.classify_prepared(clf.prepare_packed(wire, False)).result()
+    for _ in range(8):
+        torch.cuda._sleep(1000)
+    torch.cuda.synchronize()
+names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+print(json.dumps({"launches": [k.launches - b for k, b in zip(kernels, before)],
+                  "spins": sum("spin_kernel" in n for n in names),
+                  "h2d": sum("HtoD" in n for n in names),
+                  "d2h": sum("DtoH" in n for n in names), "names": sorted(set(names))}))
+"""
+
+
+def test_resident_admission_is_one_copy_in_one_graph_one_copy_out(cuda):
+    """An admission launches K7's and K8's resident entries and K3 once
+    each (the counts a replay adds), and the profiler sees one
+    host-to-device and one device-to-host copy an admission."""
+    import json
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    proc = subprocess.run([sys.executable, "-c", _COPIES_CHILD],
+                          cwd=Path(__file__).resolve().parents[1], capture_output=True, text=True,
+                          timeout=600)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert got["launches"] == [4, 4, 4], got
+    assert got["spins"] == 16, got  # the trace is whole
+    assert (got["h2d"], got["d2h"]) == (4, 4), got
+
+
+def test_resident_superbatch_matches_the_cpu(cuda):
+    """prepare_packed_super (K = 4) on the card against the CPU's: equal
+    rows, columns and epochs."""
+    rng = np.random.default_rng(26)
+    tables = testing.random_tables_fast(rng, 5000, width=4, v6_fraction=0.5)
+    gpu, cpu = _resident_pair(cuda, "trie", tables)
+    batch, _ = testing.flow_trace_batch(rng, tables, 8 * 256, 0.9, chunk_packets=256)
+    for rnd in range(2):
+        stack = np.stack([batch.slice(256 * (4 * rnd + j), 256 * (4 * rnd + j + 1)).pack_wire()
+                          for j in range(4)])
+        flags = np.asarray(batch.tcp_flags[1024 * rnd: 1024 * (rnd + 1)], np.int32).reshape(4, 256)
+        got = gpu.classify_prepared_super(gpu.prepare_packed_super(stack, False, flags))
+        want = cpu.classify_prepared_super(cpu.prepare_packed_super(stack, False, flags))
+        for j in (3, 1, 0, 2):
+            _same_outputs(got[j].result(), want[j].result(), f"round {rnd} row {j}")
+    gc, cc = gpu.flow.flow_columns(), cpu.flow.flow_columns()
+    for k in gc:
+        np.testing.assert_array_equal(gc[k], cc[k])
+    assert int(gpu.flow._epoch_dev[0]) == gpu.flow.epoch == 8
+
+
+def test_resident_patch_between_dispatches_on_the_card(cuda):
+    """Loads between dispatches: a rules-only edit keeps the layout, so
+    its generation keeps every graph (one context, no capture), and a
+    structural one that changes a tensor's shape captures again; after
+    each load the next admission serves the new tables."""
+    from infw_torch.resident import same_layout
+
+    rng = np.random.default_rng(27)
+    tables = testing.random_tables_fast(rng, 5000, width=4, v6_fraction=0.5)
+    clf = TorchClassifier(device=cuda, force_path="trie", resident=True, flow_table=512)
+    inc = compiler.IncrementalTables.from_content(dict(tables.content), rule_width=4)
+    clf.load_tables(inc.snapshot())
+    batch = testing.random_batch_fast(rng, tables, 512)
+    for _ in range(2):
+        clf.classify(batch)
+    graphs = clf.resident.graphs()
+    keys = list(tables.content)
+    inc.apply({k: testing.random_rules(rng, 4) for k in keys[:64]}, [])
+    for rules_only in (True, False):
+        if not rules_only:
+            inc.apply({}, keys[::2])
+        old = clf.resident.context(clf).tables
+        allocs = clf.resident_counters()["resident_allocs_total"]
+        snap = inc.snapshot()
+        clf.load_tables(snap, dirty_hint=inc.peek_dirty())
+        kept = same_layout(old, clf.resident.context(clf).tables)
+        assert kept or not rules_only
+        for _ in range(2):
+            out = clf.classify(batch)
+            np.testing.assert_array_equal(out.results, oracle.classify(snap, batch).results)
+        captures = clf.resident_counters()["resident_allocs_total"] - allocs - 1
+        assert (captures, clf.resident.graphs()) == ((0, graphs) if kept else (graphs, graphs))
+
+
+def test_resident_dispatches_from_two_streams(cuda):
+    """Admissions alternate between two streams, with classic probes (which
+    re-seed the device epoch) and a rules-only load between them, read
+    after all were dispatched: the results, columns and epochs equal the
+    same admissions on the CPU."""
+    rng = np.random.default_rng(28)
+    tables = testing.random_tables_fast(rng, 5000, width=4, v6_fraction=0.5)
+    gpu, cpu = _resident_pair(cuda, "trie", tables)
+    batch, _ = testing.flow_trace_batch(rng, tables, 8 * 128, 0.8, chunk_packets=128)
+    chunks = [batch.slice(128 * j, 128 * (j + 1)) for j in range(8)]
+    inc = compiler.IncrementalTables.from_content(dict(tables.content), rule_width=4)
+    inc.apply({k: testing.random_rules(rng, 4) for k in list(tables.content)[:32]}, [])
+    snap = inc.snapshot()
+    streams = [torch.cuda.Stream(cuda), torch.cuda.Stream(cuda)]
+    pending = []
+    for j, c in enumerate(chunks):
+        if j == 4:
+            for clf in (gpu, cpu):
+                clf.load_tables(snap, dirty_hint=inc.peek_dirty())
+        if j % 3 == 2:
+            for clf in (gpu, cpu):
+                clf.flow.warm([8])
+        with torch.cuda.stream(streams[j % 2]):
+            got = gpu.classify_prepared(gpu.prepare_packed(c.pack_wire(), False,
+                                                           tcp_flags=c.tcp_flags))
+        want = cpu.classify_prepared(cpu.prepare_packed(c.pack_wire(), False,
+                                                         tcp_flags=c.tcp_flags)).result()
+        pending.append((got, want))
+    for j, (got, want) in enumerate(pending):
+        _same_outputs(got.result(), want, f"chunk {j}")
+    gc, cc = gpu.flow.flow_columns(), cpu.flow.flow_columns()
+    for k in gc:
+        np.testing.assert_array_equal(gc[k], cc[k])
+    assert int(gpu.flow._epoch_dev[0]) == gpu.flow.epoch == cpu.flow.epoch
+
+
+def test_resident_dispatches_from_threads_on_their_streams(cuda):
+    """Three threads, each on a stream of its own, dispatch admissions at
+    once and read them back: every result equals the oracle's, every
+    dispatch is counted, and the tracked host model (replayed in epoch
+    order) equals the columns."""
+    import threading
+
+    rng = np.random.default_rng(29)
+    tables = testing.random_tables_fast(rng, 5000, width=4, v6_fraction=0.5)
+    clf = TorchClassifier(device=cuda, force_path="trie", resident=True, flow_table=512,
+                          flow_track_model=True)
+    clf.load_tables(tables)
+    batch, _ = testing.flow_trace_batch(rng, tables, 24 * 128, 0.8, chunk_packets=128)
+    chunks = [batch.slice(128 * j, 128 * (j + 1)) for j in range(24)]
+    errors = []
+
+    def worker(t):
+        try:
+            with torch.cuda.stream(torch.cuda.Stream(cuda)):
+                for c in chunks[t::3]:
+                    plan = clf.prepare_packed(c.pack_wire(), False, tcp_flags=c.tcp_flags)
+                    out = clf.classify_prepared(plan, apply_stats=False).result()
+                    np.testing.assert_array_equal(out.results,
+                                                  oracle.classify(tables, c).results)
+        except BaseException as e:  # noqa: BLE001 - re-raised below
+            errors.append(e)
+
+    threads = [threading.Thread(target=worker, args=(t,)) for t in range(3)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert not errors, errors[0]
+    assert clf.resident_counters()["resident_dispatches_total"] == 24
+    torch.cuda.synchronize()
+    cols = clf.flow.flow_columns()
+    model = clf.flow.model.columns()
+    for k in cols:
+        np.testing.assert_array_equal(cols[k], np.asarray(model[k]).view(cols[k].dtype))

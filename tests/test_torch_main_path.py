@@ -363,7 +363,8 @@ def test_import_loads_no_jax_and_no_infw():
         "             'infw_torch.kernels.wire_decode', 'infw_torch.backend.cuda',\n"
         "             'infw_torch.kernels.cwalk', 'infw_torch.arena',\n"
         "             'infw_torch.kernels.arena_walk', 'infw_torch.daemon',\n"
-        "             'infw_torch.syncer', 'infw_torch.txn', 'infw_torch'):\n"
+        "             'infw_torch.syncer', 'infw_torch.txn', 'infw_torch.resident',\n"
+        "             'infw_torch.kernels.resident', 'infw_torch'):\n"
         "    importlib.import_module(name)\n"
         "    bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'infw')]\n"
         "    assert not bad, (name, bad)\n"
