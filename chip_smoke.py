@@ -5,8 +5,8 @@
 
 ``--parent DIR`` names the root of another tree of this repository (for
 example a ``git archive`` of the parent commit, unpacked): its K2, K3, K3b,
-K6, K7 and K8 are built from its sources and, after their outputs are held
-equal to this tree's, timed beside them in turns on the same inputs.
+K5, K6, K7 and K8 are built from its sources and, after their outputs are
+held equal to this tree's, timed beside them in turns on the same inputs.
 
 Drives the port's dense, trie and ctrie classify paths, its wire codecs,
 its multi-tenant arena and its flow tier on the card and fails (non-zero
@@ -146,7 +146,16 @@ exit, no result line) on any error:
     one-edit generations per edit (interleaved, min of 2 rounds) and one folded
     flush under the profiler (host-to-device copies and kernels per
     flush), each step checked as the others;
-11. the gather microbenchmark's kernel K5 and its tool;
+11. the gather microbenchmark's kernel K5 (one cooperative launch: each
+    table row summed once, the sums staged in shared memory, or read
+    through L2 above the staging cap) against its plain version, exact, on
+    both branches: tables (4096, 128), (1, 4), (4096, 4), (5000, 256) and
+    (65536, 8) (above the cap), B = 1, 3, 1023, 1025, 2^20 and 2^20 + 3,
+    indices outside [0, N) with the int32 edges, at the co-resident grid
+    and a forced grid of 3 blocks; at B = 2^20 over (4096, 128) and
+    (65536, 8) its CUDA-event time, the profiler's device time (one
+    gather_rowsum_kernel and no memset a call), its bound, the plain
+    version and index_select + sum; then its tool (the main path);
 11b. the stateful flow tier (ROADMAP item 9) at the JAX package's flow
     bench (bench.py bench_flow): a 200K-entry v6-heavy table of 8 rule
     slots (the trie path) and a 2^17-entry 4-way flow table, 2^18 packets
@@ -214,7 +223,7 @@ exit, no result line) on any error:
 
 With ``--parent``, K2 (as is and depth-sorted, every level count), K3
 (tables A and B, as is and depth-sorted; the adversarial batches), K3b,
-K6 (fused, grouped and shuffled; two-column, on the dense arena and
+K5 (B = 2^20 over (4096, 128) and (65536, 8)), K6 (fused, grouped and shuffled; two-column, on the dense arena and
 over the side-pool), K7 and K8 (every size and wire of phase 11b, on
 clones of the same columns, the columns held equal too) are also run from
 the other tree's build on the same operands, held equal, and timed in
@@ -267,8 +276,8 @@ HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1.979e15
 
 
-#: --parent's kernels by name (K2, K3, K3b and K6's two entries), built
-#: from its sources; empty without --parent
+#: --parent's kernels by name (K2, K3, K3b, K5, K6's two entries, K7 and
+#: K8), built from its sources; empty without --parent
 PARENT_KERNELS: dict = {}
 
 
@@ -279,6 +288,15 @@ def k6_scratchless(csrc) -> bool:
     sig = re.search(r'extern "C" int infw_arena_dense_walk\(([^)]*)\)',
                     (csrc / "arena_dense.cu").read_text())
     return "scratch" not in sig.group(1)
+
+
+def k5_scratchless(csrc) -> bool:
+    """Whether a tree's K5 is the design before the cooperative one (one
+    warp per index): its C signature has no row-sum scratch (nor, then, a
+    grid cap)."""
+    sig = re.search(r'extern "C" int infw_gather_rowsum\(([^)]*)\)',
+                    (csrc / "gather_rowsum.cu").read_text())
+    return "sums" not in sig.group(1)
 
 
 def flow_grid_capped(csrc) -> bool:
@@ -327,16 +345,18 @@ def parent_flow(kflow):
 
 
 def parent_kernels(root: str) -> dict:
-    """K2, K3, K3b, K6, K7 and K8 of the tree at ``root``, unbuilt, under
-    this tree's names and C signatures; a K2 entry point without the
+    """K2, K3, K3b, K5, K6, K7 and K8 of the tree at ``root``, unbuilt,
+    under this tree's names and C signatures; a K2 entry point without the
     trailing grid cap (``max_grid``, added with the lane-refilling walk) is
-    bound without it, a K6 of the design before the grouped one with its
-    own signatures (no scratch; no grid cap on the two-column entry), and
-    K7 and K8 of the three-launch design without their grid cap."""
+    bound without it, a K5 of the one-warp-per-index design with its own
+    signature (three pointers, three ints and the stream: no row-sum
+    scratch, no grid cap), a K6 of the design before the grouped one with
+    its own signatures (no scratch; no grid cap on the two-column entry),
+    and K7 and K8 of the three-launch design without their grid cap."""
     import ctypes
     from pathlib import Path
 
-    from infw_torch.kernels import _build, arena_dense, arena_walk, cwalk, flow, walk
+    from infw_torch.kernels import _build, arena_dense, arena_walk, cwalk, flow, gather, walk
 
     csrc = Path(root) / "infw_torch" / "kernels" / "csrc"
     out = {}
@@ -345,9 +365,13 @@ def parent_kernels(root: str) -> dict:
         if k is walk.KERNEL and "int max_grid" not in (csrc / "trie_walk.cu").read_text():
             argtypes = argtypes[:-2] + argtypes[-1:]
         out[k.name] = _build.Kernel(k.name, k.symbol, argtypes, csrc=csrc)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    k = gather.KERNEL
+    out[k.name] = _build.Kernel(k.name, k.symbol,
+                                [p] * 3 + [i] * 3 + [p] if k5_scratchless(csrc) else k.argtypes,
+                                csrc=csrc)
     if (csrc / "arena_dense.cu").exists():
         old = k6_scratchless(csrc)
-        p, i = ctypes.c_void_p, ctypes.c_int
         for k, was in ((arena_dense.KERNEL, [p] * 9 + [i] * 5 + [p]),
                        (arena_dense.FUSED_KERNEL, [p] * 8 + [i] * 7 + [p])):
             out[k.name] = _build.Kernel(k.name, k.symbol, was if old else k.argtypes, csrc=csrc,
@@ -2740,11 +2764,48 @@ def churn_phase(tag: str, n_entries: int = CHURN_ENTRIES, n_packets: int = CHURN
     return timings
 
 
+#: K5's tables: the tool's (4096, 128), one row, narrow rows, a width past
+#: one warp's load, and (65536, 8), above the rows whose sums the kernel
+#: stages (gather.STAGED_MAX_ROWS); the batches held against the plain version
+K5_SHAPES = ((4096, 128), (1, 4), (4096, 4), (5000, 256), (65536, 8))
+K5_BATCHES = (1, 3, 1023, 1025, 1 << 20, (1 << 20) + 3)
+#: the shapes timed at B = 2^20: the tool's table and the above-cap branch
+K5_TIMED = ((4096, 128), (65536, 8))
+
+
+def k5_table(rng, n: int, w: int):
+    import torch
+
+    return torch.from_numpy(rng.integers(0, 2**32, (n, w), dtype=np.int64).astype(np.uint32)
+                            .view(np.int32)).to("cuda")
+
+
+def parent_k5_run(idx, table):
+    """A call of --parent's K5 on ``idx`` and ``table`` (a row-sum scratch
+    for a parent of the cooperative design)."""
+    import torch
+
+    b, (n, w) = idx.shape[0], table.shape
+    old = k5_scratchless(PARENT_KERNELS["gather_rowsum"].csrc)
+    sums = torch.empty((n + 3) // 4 * 4, dtype=torch.int32, device=idx.device)
+
+    def args():
+        out = torch.empty(b, dtype=torch.int32, device=idx.device)
+        ptrs = (idx.data_ptr(), table.data_ptr()) + (() if old else (sums.data_ptr(),))
+        return out, ptrs + (out.data_ptr(), b, n, w)
+
+    return parent_run("gather_rowsum", args)
+
+
 def gather_phase(tag: str) -> dict:
-    """K5 against its plain version (exact, B = 2^20 and 1, 1023, 1025,
-    indices outside [0, 4095] among them), its times against its bound,
-    the plain version and index_select + sum, then the main path: a short
-    run of infw_torch/tools/profile_gather.py's ladder and K5 chain.
+    """K5 against its plain version (exact) on both branches, at every
+    shape of K5_SHAPES and batch of K5_BATCHES, indices outside [0, N) and
+    the int32 edges among them, at the co-resident grid and a forced grid
+    of 3 blocks; at B = 2^20 over each of K5_TIMED its CUDA-event and
+    device times (the profiler must show one gather_rowsum_kernel and no
+    memset a call) against its bound, the plain version and index_select +
+    sum (with --parent, the parent's K5 in turns); then the main path: a
+    short run of infw_torch/tools/profile_gather.py's ladder and K5 chain.
     Returns K5's kernels-line entry."""
     import torch
 
@@ -2752,39 +2813,76 @@ def gather_phase(tag: str) -> dict:
     from infw_torch.tools import profile_gather
 
     rng = np.random.default_rng(23)
-    n, w = profile_gather.K5_ROWS, profile_gather.K5_WIDTH
-    table = torch.from_numpy(rng.integers(0, 2**32, (n, w), dtype=np.int64).astype(np.uint32)
-                             .view(np.int32)).to("cuda")
     err = 0
-    for b in (1 << 20, 1, 1023, 1025):
-        idx_np = rng.integers(0, n, b).astype(np.int32)
-        idx_np[::97] = rng.integers(-(2**31), 2**31 - 1, len(idx_np[::97]), dtype=np.int64)
-        idx = torch.from_numpy(idx_np).to("cuda")
-        got = gather.gather_rowsum(idx, table)
-        want = gather.gather_rowsum_plain(idx, table)
-        torch.cuda.synchronize()
-        mism = int((got != want).sum().item())
-        err = max(err, int((got.long() - want.long()).abs().max().item()))
-        log(f"K5 vs plain [B={b}]: mismatching rows={mism} (indices outside [0, {n - 1}]: "
-            f"{int(((idx_np < 0) | (idx_np >= n)).sum())})")
-        if mism:
-            raise SystemExit(f"K5 disagrees with its plain version at B={b}")
-    idx = torch.from_numpy(rng.integers(0, n, 1 << 20).astype(np.int32)).to("cuda")
-    k5_ms = cuda_ms(lambda: gather.gather_rowsum(idx, table), reps=50)
-    plain_ms = cuda_ms(lambda: gather.gather_rowsum_plain(idx, table), reps=5, warmup=1)
-    lib_ms = cuda_ms(lambda: table.index_select(0, idx).sum(dim=1, dtype=torch.int32), reps=20)
-    b = idx.shape[0]
-    moved = b * 4 + n * w * 4 + b * 4
-    bound_ms = moved / HBM_BYTES_PER_S * 1e3
+    for n, w in K5_SHAPES:
+        table = k5_table(rng, n, w)
+        outside = 0
+        for b in K5_BATCHES:
+            idx_np = rng.integers(0, n, b).astype(np.int64)
+            idx_np[::97] = rng.integers(-(2**31), 2**31, len(idx_np[::97]), dtype=np.int64)
+            idx_np[: min(b, 3)] = [2**31 - 1, -(2**31), n][: min(b, 3)]
+            idx_np = idx_np.astype(np.int32)
+            outside += int(((idx_np < 0) | (idx_np >= n)).sum())
+            idx = torch.from_numpy(idx_np).to("cuda")
+            want = gather.gather_rowsum_plain(idx, table)
+            for grid in (0, 3):
+                got = gather.gather_rowsum(idx, table, _grid=grid)
+                torch.cuda.synchronize()
+                mism = int((got != want).sum().item())
+                err = max(err, int((got.long() - want.long()).abs().max().item()))
+                if mism:
+                    raise SystemExit(f"K5 disagrees with its plain version at ({n}, {w}), B={b}, "
+                                     f"grid cap {grid}: {mism} rows")
+        branch = ("sums staged in shared memory" if n <= gather.STAGED_MAX_ROWS
+                  else "sums read through L2")
+        log(f"K5 vs plain [({n}, {w}), {branch}]: B = {', '.join(map(str, K5_BATCHES))}, "
+            f"co-resident grid and 3 blocks: mismatching rows=0 ({outside} indices outside "
+            f"[0, {n - 1}])")
+    timed = {}
+    for n, w in K5_TIMED:
+        table = k5_table(rng, n, w)
+        idx = torch.from_numpy(rng.integers(0, n, 1 << 20).astype(np.int32)).to("cuda")
+        b = idx.shape[0]
+        k5_fn = lambda: gather.gather_rowsum(idx, table)
+        t = {"ms": cuda_ms(k5_fn, reps=50)}
+        per_call, fills = {}, {}
+        device_us = profiled_kernels(k5_fn, reps=20, counts=per_call, memsets=fills)
+        if (len(per_call) != 1 or "gather_rowsum_kernel" not in next(iter(per_call))
+                or list(per_call.values()) != [1.0] or fills):
+            raise SystemExit(f"K5 ({n}, {w}): the profiler shows kernels per call {per_call} and "
+                             f"memsets {fills}, expected one gather_rowsum_kernel and no memset")
+        t["device_ms"] = sum(device_us.values()) / 1e3
+        t["paced_ms"] = device_paced_ms(k5_fn)
+        t["host_ms"] = host_ms_per_call(k5_fn)
+        t["plain_ms"] = cuda_ms(lambda: gather.gather_rowsum_plain(idx, table), reps=5, warmup=1)
+        t["library_ms"] = cuda_ms(
+            lambda: table.index_select(0, idx).sum(dim=1, dtype=torch.int32), reps=20)
+        moved = b * 4 + n * w * 4 + b * 4
+        t["bound_ms"] = moved / HBM_BYTES_PER_S * 1e3
+        if PARENT_KERNELS:
+            parent_fn = parent_k5_run(idx, table)
+            t["parent_in_turns"] = parent_turns(tag, f"K5 ({n}, {w}), B={b}", k5_fn, parent_fn)
+            # the host paces this tree's calls: in turns again with the host ahead
+            p1, t1, t2, p2 = (device_paced_ms(fn) for fn in (parent_fn, k5_fn, k5_fn, parent_fn))
+            t["parent_in_turns"].update(paced_ms=(t1 + t2) / 2, parent_paced_ms=(p1 + p2) / 2)
+            log(f"{tag} parent vs this tree [K5 ({n}, {w}), B={b}], with the host ahead, in "
+                f"turns: parent {p1:.5f}, {p2:.5f} ms; this {t1:.5f}, {t2:.5f} ms; this / parent "
+                f"{(t1 + t2) / (p1 + p2):.3f}")
+        log(f"{tag} K5 gather_rowsum [({n}, {w}) u32, B={b}]: {t['ms']:.4f} ms, profiler device "
+            f"time {t['device_ms'] * 1e3:.2f} us a call (one kernel, no memset); bound "
+            f"{t['bound_ms']:.4f} ms by bytes ({moved / 1e6:.2f} MB: indices, table and sums "
+            f"once each, over 3.35 TB/s; the row-sum scratch and its staging are the design's and "
+            f"not counted); {t['ms'] / t['bound_ms']:.2f}x its bound by events, "
+            f"{t['device_ms'] / t['bound_ms']:.2f}x by device time; with the host ahead "
+            f"{t['paced_ms']:.5f} ms a call; host {t['host_ms'] * 1e3:.2f} us a call")
+        log(f"{tag} K5 plain version [({n}, {w})]: {t['plain_ms']:.4f} ms; library call "
+            f"index_select + sum: {t['library_ms']:.4f} ms")
+        timed[(n, w)] = (t, table, idx)
+    head, table, idx = timed[K5_TIMED[0]]
     slope_s = profile_gather.slope(profile_gather.k5_step(table), idx, "K5 chain (phase)",
                                    min_span=0.05)
-    log(f"{tag} K5 gather_rowsum: {k5_ms:.4f} ms at B={b}, table ({n}, {w}) u32; bound "
-        f"{bound_ms:.4f} ms by bytes ({moved / 1e6:.2f} MB: indices, table and sums once each, "
-        f"over 3.35 TB/s; the {b * w * 4 / 2**20:.0f} MiB of row reads come from L2 and are not "
-        f"counted); {k5_ms / bound_ms:.1f}x its bound; chained step (K5 + add + mod, two-point "
-        f"slope) {slope_s * 1e3:.4f} ms")
-    log(f"{tag} K5 plain version: {plain_ms:.4f} ms; library call index_select + sum (W=128, "
-        f"N=4096): {lib_ms:.4f} ms")
+    log(f"{tag} K5 chained step (K5 + add + mod, two-point slope) at ({table.shape[0]}, "
+        f"{table.shape[1]}): {slope_s * 1e3:.4f} ms")
     # the main path: the port's profiling tool, launch counts zeroed first
     kernels = all_kernels()
     for k in kernels:
@@ -2797,6 +2895,7 @@ def gather_phase(tag: str) -> dict:
             f"{k} {v * 1e3:.4f} ms/step" for k, v in ladder.items()))
     if set(launches) != {"gather_rowsum"}:
         raise SystemExit("the gather tool must launch gather_rowsum and nothing else")
+    above, _, _ = timed[K5_TIMED[1]]
     return {
         "name": "gather_rowsum",
         "route": "cuda",
@@ -2805,12 +2904,15 @@ def gather_phase(tag: str) -> dict:
         "launches": launches["gather_rowsum"],
         "mismatches": 0,
         "max_abs_err": err,
-        "ms": k5_ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
+        "ms": head["ms"],
+        "plain_ms": head["plain_ms"],
+        "bound_ms": head["bound_ms"],
         "bound_by": "bytes",
-        "library_ms": lib_ms,
+        "library_ms": head["library_ms"],
+        **{k: head[k] for k in ("device_ms", "paced_ms", "host_ms", "parent_in_turns")
+           if k in head},
         "slope_step_ms": slope_s * 1e3,
+        "above_cap": {"table": list(K5_TIMED[1]), **above},
     }
 
 
@@ -5369,8 +5471,8 @@ def main() -> int:
 
     parser = argparse.ArgumentParser(description="Chip smoke test of infw_torch on one card.")
     parser.add_argument("--parent", metavar="DIR",
-                        help="another tree of this repository whose K2, K3, K3b, K6, K7 and "
-                             "K8 are timed beside this tree's")
+                        help="another tree of this repository whose K2, K3, K3b, K5, K6, K7 "
+                             "and K8 are timed beside this tree's")
     opts = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)

@@ -167,10 +167,12 @@ constexpr int kMaxDevices = 64;
 // items: the resident blocks (the occupancy maximum per SM times the SM
 // count, queried once per device into `cached`), at most one block per
 // `threads` items and, when `max_grid` > 0, at most `max_grid` (a test
-// forces a small grid so that each thread takes many packets).
+// forces a small grid so that each thread takes many packets).  The
+// occupancy is taken at `smem` bytes of dynamic shared memory a block; a
+// kernel launched with several sizes keeps a `cached` per size it queries.
 template <typename Kernel>
 cudaError_t persistent_grid(Kernel kernel, int threads, int* cached, long long work,
-                            int max_grid, int* grid) {
+                            int max_grid, int* grid, size_t smem = 0) {
   int device = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return err;
@@ -179,7 +181,7 @@ cudaError_t persistent_grid(Kernel kernel, int threads, int* cached, long long w
     int sms = 0, per_sm = 0;
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
     if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, 0);
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
     if (err != cudaSuccess) return err;
     if (sms * per_sm <= 0) return cudaErrorLaunchOutOfResources;
     cached[device] = sms * per_sm;

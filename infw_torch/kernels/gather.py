@@ -7,8 +7,11 @@ microbenchmark (``tools/profile_gather.py``, ``kern`` launched by
 tool (``infw_torch/tools/profile_gather.py``) times it.
 
 - ``gather_rowsum``: the wrapper of the hand-written CUDA kernel
-  ``csrc/gather_rowsum.cu``.  On a CUDA tensor it launches the kernel or
-  raises; on a CPU tensor it runs ``gather_rowsum_plain``;
+  ``csrc/gather_rowsum.cu``, one cooperative launch that sums each table
+  row once into an (N,) scratch, then gathers the sums (staged in shared
+  memory up to ``STAGED_MAX_ROWS`` rows, read through L2 above).  On a
+  CUDA tensor it launches the kernel or raises; on a CPU tensor it runs
+  ``gather_rowsum_plain``;
 - ``gather_rowsum_plain``: the same function in plain PyTorch, chunked
   over indices so it also runs at 2^20 indices on the card.
 
@@ -25,11 +28,14 @@ from .torchpath import wrap_int32
 
 #: indices per step of the plain version, which bounds its temporaries
 PLAIN_CHUNK = 1 << 16
+#: the most table rows whose sums the kernel stages in shared memory
+#: (``kStageCapBytes`` in csrc/gather_rowsum.cu over 4 bytes a sum)
+STAGED_MAX_ROWS = 200 * 1024 // 4
 
 KERNEL = _build.Kernel(
     "gather_rowsum",
     "infw_gather_rowsum",
-    [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
 )
 
 
@@ -44,10 +50,12 @@ def gather_rowsum_plain(idx: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def gather_rowsum(idx: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+def gather_rowsum(idx: torch.Tensor, table: torch.Tensor, *, _grid: int = 0) -> torch.Tensor:
     """Kernel K5: (B,) int32 indices + (N, W) int32 table -> (B,) int32
     uint32 row sums.  A CPU tensor runs the plain version; a CUDA tensor
-    launches the CUDA kernel (building it on first use) or raises."""
+    launches the CUDA kernel (building it on first use) or raises.  An
+    empty batch launches nothing.  ``_grid`` > 0 caps the kernel's grid
+    (tests)."""
     if idx.device.type == "cpu":
         return gather_rowsum_plain(idx, table)
     if idx.device.type != "cuda":
@@ -55,14 +63,21 @@ def gather_rowsum(idx: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     if idx.dim() != 1 or table.dim() != 2 or table.shape[0] < 1 or table.shape[1] % 4:
         raise ValueError(f"gather_rowsum: idx {tuple(idx.shape)} / table {tuple(table.shape)}, "
                          "expected (B,) / (N >= 1, W) with W a multiple of 4")
+    b, n = idx.shape[0], table.shape[0]
+    if max(b, n, table.shape[1]) >= 2**31:
+        raise ValueError("gather_rowsum: B, N and W must be below 2^31")
     for t in (idx, table):
         if t.device != idx.device or t.dtype != torch.int32:
             raise ValueError("gather_rowsum: operands must be int32 on one device")
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError("gather_rowsum: operands must be contiguous and 16-byte aligned")
-    out = torch.empty(idx.shape[0], dtype=torch.int32, device=idx.device)
+    if b == 0:
+        return torch.empty(0, dtype=torch.int32, device=idx.device)
+    # one allocation: the output, then (16-byte aligned) the row-sum scratch
+    b4 = (b + 3) // 4 * 4
+    buf = torch.empty(b4 + (n + 3) // 4 * 4, dtype=torch.int32, device=idx.device)
     with torch.cuda.device(idx.device):
         stream = torch.cuda.current_stream().cuda_stream
-        KERNEL.launch(idx.data_ptr(), table.data_ptr(), out.data_ptr(), idx.shape[0],
-                      table.shape[0], table.shape[1], stream)
-    return out
+        KERNEL.launch(idx.data_ptr(), table.data_ptr(), buf.data_ptr() + 4 * b4, buf.data_ptr(),
+                      b, n, table.shape[1], int(_grid), stream)
+    return buf[:b]

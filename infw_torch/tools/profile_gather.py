@@ -9,7 +9,9 @@ The counterpart of the JAX package's ``tools/profile_gather.py``:
   2^20 indices and a row sum, for W = 8, 32, 64, 128, 256;
 - kernel K5 (kernels/gather.py): the row gather + uint32 row sum from a
   (4096, 128) table, which the JAX tool runs as a Pallas kernel holding the
-  table in VMEM.
+  table in VMEM.  The port's K5 sums each table row once and gathers the
+  sums (one cooperative launch), so its line times the function K5
+  computes; the ladder is what times a row gather per row width.
 
 Both are timed by the JAX tool's chained two-point slope: ``k`` dependent
 steps ``idx = step(idx ^ i)`` with ``step(idx) = (idx + rowsum(idx)) %
@@ -110,7 +112,7 @@ def main(argv=None, device=None) -> dict:
         out[label] = slope(library_step(rand_table(LADDER_ROWS, w)), idx0, label, args.min_span)
     print("=== K5 gather_rowsum (hand-written CUDA) ===", file=sys.stderr, flush=True)
     idx5 = torch.from_numpy(rng.integers(0, K5_ROWS, args.batch).astype(np.int32)).to(device)
-    label = f"K5 gather_rowsum N={K5_ROWS} row={K5_WIDTH * 4}B"
+    label = f"K5 gather_rowsum N={K5_ROWS} row={K5_WIDTH * 4}B (each row summed once)"
     out[label] = slope(k5_step(rand_table(K5_ROWS, K5_WIDTH)), idx5, label, args.min_span)
     return out
 

@@ -542,22 +542,96 @@ def test_arena_classifier_on_card_matches_oracle_after_swap(cuda):
     assert clf.tenant_counters() == cpu.tenant_counters()
 
 
-@pytest.mark.parametrize("n", [1, 1023, 1025, 4096])
-def test_k5_matches_plain(cuda, n):
-    """K5 against its plain version, exact, with indices outside [0, N)
-    and row sums that wrap."""
-    rng = np.random.default_rng(n)
-    table = torch.from_numpy((2**32 - rng.integers(1, 2**20, (4096, 128))).astype(np.uint32)
-                             .view(np.int32)).to(cuda)
-    idx = rng.integers(-5000, 9000, n).astype(np.int32)
-    idx[:1] = 2**31 - 1
-    idx = torch.from_numpy(idx).to(cuda)
-    before = gather.KERNEL.launches
-    got = gather.gather_rowsum(idx, table)
-    torch.cuda.synchronize()
-    assert gather.KERNEL.launches == before + 1
-    assert torch.equal(got, gather.gather_rowsum_plain(idx, table))
+#: K5's tables: the tool's (4096, 128), one row, narrow rows, a width past
+#: one warp's load, and (65536, 8), above the rows whose sums it stages
+K5_SHAPES = ((4096, 128), (1, 4), (4096, 4), (5000, 256), (65536, 8))
+
+
+def _k5_operands(n: int, w: int, b: int, device):
+    """Indices outside [0, N) with the int32 edges among them, and table
+    words near 2^32 so that every row sum wraps."""
+    rng = np.random.default_rng(n * 31 + w + b)
+    table = torch.from_numpy((2**32 - rng.integers(1, 2**26, (n, w))).astype(np.uint32)
+                             .view(np.int32)).to(device)
+    idx = rng.integers(-n, 2 * n, b).astype(np.int64)
+    idx[: min(b, 3)] = [2**31 - 1, -(2**31), n][: min(b, 3)]
+    return torch.from_numpy(idx.astype(np.int32)).to(device), table
+
+
+@pytest.mark.parametrize("b", [1, 3, 1023, 1025, (1 << 20) + 3])
+@pytest.mark.parametrize("n,w", K5_SHAPES)
+def test_k5_matches_plain(cuda, n, w, b):
+    """K5 against its plain version, exact, on both branches (row sums
+    staged in shared memory, and read through L2 above the cap), at the
+    co-resident grid and under forced grids of 1 and 3 blocks (each thread
+    then serves many groups of four indices); one launch a call."""
+    idx, table = _k5_operands(n, w, b, cuda)
+    assert (n > gather.STAGED_MAX_ROWS) == ((n, w) == (65536, 8))
+    want = gather.gather_rowsum_plain(idx, table)
+    for grid in (0, 1, 3):
+        before = gather.KERNEL.launches
+        got = gather.gather_rowsum(idx, table, _grid=grid)
+        torch.cuda.synchronize()
+        assert gather.KERNEL.launches == before + 1
+        assert torch.equal(got, want), grid
     assert torch.equal(got.cpu(), gather.gather_rowsum(idx.cpu(), table.cpu()))
+
+
+def test_k5_rejects_bad_operands(cuda):
+    """On a CUDA tensor K5 launches or raises; an empty batch launches
+    nothing."""
+    idx, table = _k5_operands(4096, 128, 64, cuda)
+    before = gather.KERNEL.launches
+    assert gather.gather_rowsum(idx[:0], table).shape == (0,)
+    assert gather.KERNEL.launches == before
+    with pytest.raises(ValueError, match="int32"):
+        gather.gather_rowsum(idx.long(), table)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        gather.gather_rowsum(idx, table[:, :6].contiguous())
+    with pytest.raises(ValueError, match="aligned"):
+        gather.gather_rowsum(idx[1:], table)
+    with pytest.raises(ValueError, match="contiguous"):
+        gather.gather_rowsum(idx, table[:, :64])
+    with pytest.raises(ValueError, match="N >= 1"):
+        gather.gather_rowsum(idx, table[:0])
+    assert gather.KERNEL.launches == before
+
+
+def _k5_ops(n: int, w: int) -> dict:
+    """(kernels a call, memsets a call) of one K5 call at B = 2^20 over an
+    (n, w) table (``_ops_per_call``)."""
+    idx, table = _k5_operands(n, w, 1 << 20, "cuda:0")
+    kernels, memsets = _ops_per_call(lambda: gather.gather_rowsum(idx, table))
+    return {"kernels": kernels, "memsets": memsets}
+
+
+#: _k5_ops in a fresh process (see _K7_K8_OPS_CHILD)
+_K5_OPS_CHILD = r"""
+import json, sys
+sys.path.insert(0, "tests")
+import test_torch_cuda
+print(json.dumps(test_torch_cuda._k5_ops(int(sys.argv[1]), int(sys.argv[2]))))
+"""
+
+
+@pytest.mark.parametrize("n,w", [(4096, 128), (65536, 8)])
+def test_k5_is_one_kernel_a_call(cuda, n, w):
+    """Each K5 call is one cooperative kernel on the card and no memset
+    (the profiler, in a process of its own), on both branches."""
+    import json
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    proc = subprocess.run([sys.executable, "-c", _K5_OPS_CHILD, str(n), str(w)],
+                          cwd=Path(__file__).resolve().parents[1], capture_output=True, text=True,
+                          timeout=600)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    kernels = got["kernels"]
+    assert len(kernels) == 1 and "gather_rowsum_kernel" in next(iter(kernels)), kernels
+    assert next(iter(kernels.values())) == pytest.approx(1.0), kernels
+    assert got["memsets"] == 0, got
 
 
 def _churn(rng, content, r):
