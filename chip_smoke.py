@@ -60,7 +60,8 @@ exit, no result line) on any error:
    and the packed chunks), launch counts zeroed before and read after
    (ctrie_walk launched, trie_walk not), checked against the trie path
    (K2) on the whole batch, a host recount of the statistics and the
-   HashLpmOracle on 4096-packet subsets and the first packets of the run;
+   HashLpmOracle on 4096-packet subsets and the first packets of the run
+   (built per batch over the entries its packets can match: ColumnOracle);
    K3's fused wire-to-verdict entry against its plain version on every
    wire width and wire8, both tables, every word of the read-back buffer;
    the device pass on the main path's narrow wire, fused against the
@@ -142,7 +143,7 @@ exit, no result line) on any error:
     overlay against its plain version; the ctrie pass without the overlay
     fused against composed in turns), then edit transactions on both
     layouts (txn.TxnApplier): one 64-op transaction of the edit generator's
-    full mix, bench_churn's A/B of 64 folded rules-only edits against 32
+    full mix, bench_churn's A/B of 64 folded rules-only edits against 8
     one-edit generations per edit (interleaved, min of 2 rounds) and one folded
     flush under the profiler (host-to-device copies and kernels per
     flush), each step checked as the others;
@@ -205,6 +206,21 @@ exit, no result line) on any error:
     and with edit files landing every 50 ms, beside a multi-dispatch flow
     daemon doing the same.  K7's and K8's kernels-line entries carry these
     readings under ``resident``;
+11d. the telemetry plane (ROADMAP item 12) at the JAX package's
+    bench_telemetry shape (bench.py:3613; telemetry_phase): kernel K9
+    against its plain version (both entries at B = 1 to 65536, 4- and
+    7-word wires, ways 1-8, depth 1-8, a saturating sat, hot keys, forced
+    and co-resident grids), the synflood trace's 80 chunks of 256 packets
+    through a resident classifier with the plane on (launch counts zeroed
+    before and read after), gated before any timing line by verdicts equal
+    with the plane off and to the oracle and by tracked twins' tensors
+    equal to their HostSketchModels; throughput on against off, the
+    admissions until a drained summary names the attacker, K9's times
+    (events, host ahead, profiler in a fresh process, plain, bound) on
+    the synflood and a uniform trace, the resident admission with the
+    sketch on and off, the graph against the eager step, and the daemon
+    with --resident --telemetry --trace over 11b's 1M-frame file (span
+    histograms and telemetry_* on /metrics, summaries in events.log);
 12. the port's daemon (infw_torch.daemon.Daemon, threads started): the
     headline CRs' ingress blocks as one NodeState file, then bench config
     5a's replay of the 100K trie re-adopted from a checkpoint; then an
@@ -217,7 +233,7 @@ exit, no result line) on any error:
     tables); every file's verdicts against the oracle on subsets and a
     host recount, stats, deny events and /metrics; launches per pass go
     on the kernels line as ``daemon_launches``;
-13. one JSON ``kernels`` line (K1-K8; K3, K3b and K6 as their fused entries,
+13. one JSON ``kernels`` line (K1-K9; K3, K3b and K6 as their fused entries,
     which the main paths run, each with its two-column entry's readings
     under ``two_column``), then the device JSON as the last line.
 
@@ -268,9 +284,9 @@ SWAP_ENTRIES, SWAP_PACKETS = 1_000_000, 1 << 19
 # the JAX package's churn tier (bench.py bench_churn on a chip) and the
 # overlay the syncer fills (infw/syncer.py OVERLAY_CAP)
 CHURN_ENTRIES, CHURN_WIDTH, CHURN_PACKETS, CHURN_OVERLAY = 1_000_000, 4, 1 << 19, 1024
-# one-edit generations a round of the churn A/B (bench_churn runs 64; 32
-# keep the script within its time since the tenant phases came in)
-AB_ONE_EDITS = 32
+# one-edit generations a round of the churn A/B (bench_churn runs 64; 8
+# keep the script within its time since the telemetry phase came in)
+AB_ONE_EDITS = 8
 # Published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, dense int8 ops/s.
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1.979e15
@@ -1442,7 +1458,7 @@ def ctrie_phase(tag: str, trie_tables, trie_batch):
     hist = np.bincount(out.xdp, minlength=3)
     log(f"ctrie main path verdicts: drop={hist[1]} pass={hist[2]} "
         f"rule hits={int((out.results != 0).sum())}")
-    hashed = timed_stage(loads, "HashLpmOracle", lambda: oracle.HashLpmOracle(tables))
+    hashed = timed_stage(loads, "ColumnOracle", lambda: ColumnOracle(tables))
     check_oracle(clf, hashed.classify, {
         "mixed": batch.slice(0, ORACLE_PACKETS),
         "v4-only": batch.take(np.nonzero(batch.kind != 2)[0][:ORACLE_PACKETS]),
@@ -2202,7 +2218,7 @@ def arena_phase(tag: str) -> dict:
     spec2 = arena.arena_spec_for("ctrie", (big, big2), pages=4, max_tenants=8)
     swap_build_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    oracles = {id(big): oracle.HashLpmOracle(big), id(big2): oracle.HashLpmOracle(big2)}
+    oracles = {id(big): ColumnOracle(big), id(big2): ColumnOracle(big2)}
     oracle_s = time.perf_counter() - t0
     rng = np.random.default_rng(2025)
     batches = {id(big): testing.random_batch_fast(rng, big, SWAP_PACKETS),
@@ -2216,7 +2232,7 @@ def arena_phase(tag: str) -> dict:
     stage_s = time.perf_counter() - t0
     pg_b = alloc.page_of(0)
     log(f"swap pair: 2 x {SWAP_ENTRIES} entries, spec {spec2}; tables + spec {swap_build_s:.2f} s, "
-        f"HashLpmOracle x2 {oracle_s:.2f} s, load + stage {stage_s:.2f} s; pool "
+        f"ColumnOracle x2 {oracle_s:.2f} s, load + stage {stage_s:.2f} s; pool "
         f"{alloc.pool_bytes() / 1e6:.1f} MB; nvidia-smi memory used, total: {gpu_memory_used()}")
 
     def check_active(active, label):
@@ -2424,6 +2440,84 @@ class _Content:
         self.content = content
 
 
+def oracle_for(content, batch):
+    """oracle.HashLpmOracle over the entries of ``content`` (a {LpmKey:
+    rules} map) that ``batch``'s packets can match, picked as ColumnOracle
+    picks them, in one pass over the map: exact for every packet of
+    ``batch``.  One full oracle of a 1M-entry content map takes about 5 s
+    of host time, and the churn phase needs six."""
+    from infw_torch import oracle
+
+    ifx = np.asarray(batch.ifindex).astype(np.int64) << 32
+    ip0 = np.asarray(batch.ip_words)[:, 0].astype(np.int64)
+    wanted, sub = {}, {}
+    for k, v in content.items():
+        m = min(max(k.prefix_len - 32, 0), 32)
+        w = wanted.get(m)
+        if w is None:
+            mask = ((0xFFFFFFFF << (32 - m)) & 0xFFFFFFFF) if m else 0
+            w = wanted[m] = (mask, set((ifx | (ip0 & mask)).tolist()))
+        if ((k.ingress_ifindex << 32) | (int.from_bytes(k.ip_data[:4], "big") & w[0])) in w[1]:
+            sub[k] = v
+    return oracle.HashLpmOracle(_Content(sub))
+
+
+class ColumnOracle:
+    """oracle.HashLpmOracle over only the content entries that can match a
+    batch's packets, picked per call from the table's content columns (the
+    LazyContent's own source, not the compiled arrays): every entry whose
+    ifindex and first address word, masked to the entry's length (at most
+    32 bits), equal some packet's.  That keeps every entry a packet's
+    longest-prefix match could name, in content order (so the oracle's
+    masked-identity dedup is unchanged), and the answer is the full
+    oracle's for every packet it is asked about.  A full HashLpmOracle of
+    the 10M-entry table takes about 111 s of host time; this reads the
+    columns once and each batch in milliseconds."""
+
+    def __init__(self, tables):
+        from infw_torch import oracle
+
+        cols = tables.content.columns() if hasattr(tables.content, "columns") else None
+        # a built content map may have left the columns stale: the full
+        # oracle then
+        self._full = oracle.HashLpmOracle(tables) if cols is None else None
+        if cols is None:
+            return
+        self._plen, self._ifx, self._rules = cols.prefix_len, cols.ifindex, cols.rules
+        ip = np.asarray(cols.ip, np.uint8)
+        self._ip_b = np.ascontiguousarray(ip).tobytes()
+        ip0 = ((ip[:, 0].astype(np.uint64) << 24) | (ip[:, 1].astype(np.uint64) << 16)
+               | (ip[:, 2].astype(np.uint64) << 8) | ip[:, 3].astype(np.uint64))
+        bits = np.clip(np.asarray(self._plen, np.int64) - 32, 0, 32)
+        self._groups = []
+        for m in np.unique(bits):
+            rows = np.nonzero(bits == m)[0]
+            word_mask = np.uint64(((0xFFFFFFFF << (32 - int(m))) & 0xFFFFFFFF) if m else 0)
+            keys = (np.asarray(self._ifx, np.uint64)[rows] << np.uint64(32)) | (ip0[rows]
+                                                                                & word_mask)
+            order = np.argsort(keys, kind="stable")
+            self._groups.append((word_mask, keys[order], rows[order]))
+
+    def classify(self, batch):
+        from infw_torch import oracle
+        from infw_torch.compiler import LpmKey
+
+        if self._full is not None:
+            return self._full.classify(batch)
+        ifx = np.asarray(batch.ifindex).astype(np.uint64) << np.uint64(32)
+        ip0 = np.asarray(batch.ip_words)[:, 0].astype(np.uint64)
+        picked = []
+        for word_mask, keys, rows in self._groups:
+            q = np.unique(ifx | (ip0 & word_mask))
+            lo, hi = np.searchsorted(keys, q, "left"), np.searchsorted(keys, q, "right")
+            picked += [rows[a:b] for a, b in zip(lo, hi) if b > a]
+        sel = np.unique(np.concatenate(picked)) if picked else np.zeros(0, np.int64)
+        ip_b = self._ip_b
+        content = {LpmKey(int(self._plen[t]), int(self._ifx[t]), ip_b[16 * t: 16 * t + 16]):
+                   self._rules[t] for t in sel}
+        return oracle.HashLpmOracle(_Content(content)).classify(batch)
+
+
 def churn_phase(tag: str, n_entries: int = CHURN_ENTRIES, n_packets: int = CHURN_PACKETS,
                 device: str = "cuda") -> dict:
     """The JAX package's churn tier (bench.py:1899-1938, bench_churn) at
@@ -2435,7 +2529,7 @@ def churn_phase(tag: str, n_entries: int = CHURN_ENTRIES, n_packets: int = CHURN
     1024-key overlay; then the edit transactions (txn.TxnApplier): one
     64-op transaction of the edit generator's full mix (rules edits, new
     CIDRs to the overlay, deletes, re-adds), bench_churn's A/B (64
-    rules-only edits folded into one transaction against 32 one-edit
+    rules-only edits folded into one transaction against 8 one-edit
     generations, per edit, interleaved, the min of 2 rounds) and one folded flush
     under the profiler (its host-to-device copies and kernels).  After each
     step: the resident tables against a fresh padded build, K2/K3 (and K1
@@ -2565,7 +2659,9 @@ def churn_phase(tag: str, n_entries: int = CHURN_ENTRIES, n_packets: int = CHURN
                 content = dict(snap.content)
                 content.update(ov_content)
                 t0 = time.perf_counter()
-                oracles[step] = oracle.HashLpmOracle(_Content(content))
+                # over the entries the checked subsets can match
+                oracles[step] = oracle_for(content, batch.take(np.concatenate(
+                    list(subsets.values()))))
                 oracle_s += time.perf_counter() - t0
             for name, ix in subsets.items():
                 ref = oracles[step].classify(batch.take(ix))
@@ -2714,7 +2810,7 @@ def churn_phase(tag: str, n_entries: int = CHURN_ENTRIES, n_packets: int = CHURN
             f"recount equal")
         txn_t = {"mix": {"ops": rep.n_ops, "folded": rep.n_folded, "mode": rep.mode,
                          "rows": rep.dirty_rows, "ms": ms, "event_ms": ev_ms}}
-        # bench_churn's A/B on live keys: one-edit generations (32 a round,
+        # bench_churn's A/B on live keys: one-edit generations (AB_ONE_EDITS = 8 a round,
         # the script's time limit) against one folded 64-edit transaction,
         # per edit, interleaved, the min of 2 rounds
         keys = list(applier.updater.content)
@@ -2760,7 +2856,7 @@ def churn_phase(tag: str, n_entries: int = CHURN_ENTRIES, n_packets: int = CHURN
             raise SystemExit("churn: the trie and ctrie layouts disagree")
     log(f"churn: the trie and ctrie layouts agree on the whole batch after every step; phase "
         f"{time.perf_counter() - phase_t0:.2f} s (host clock), of which {len(oracles)} "
-        f"HashLpmOracle builds {oracle_s:.2f} s")
+        f"restricted HashLpmOracle builds (oracle_for) {oracle_s:.2f} s")
     return timings
 
 
@@ -2918,7 +3014,9 @@ def gather_phase(tag: str) -> dict:
 
 # the daemon phase: a NodeState file and frames files through the port's
 # daemon (bench config 5a of the JAX package, bench.py bench_replay_10m)
-REPLAY_FILES, REPLAY_PACKETS, REPLAY_PASSES = 10, 1_000_000, 3
+# bench config 5a's replay: 10 files of 1M frames; 2 passes (3 until the
+# telemetry phase came in)
+REPLAY_FILES, REPLAY_PACKETS, REPLAY_PASSES = 10, 1_000_000, 2
 DAEMON_NODE = "node-0"
 DAEMON_IFACES = {"eth0": 2, "eth1": 3, "eth2": 4}
 
@@ -5466,6 +5564,531 @@ def resident_phase(tag: str, k7: dict, k8: dict) -> None:
                           eager_graph_split=split)
 
 
+# --- the telemetry plane (K9) -----------------------------------------------------
+#
+# bench_telemetry's shape (bench.py:3613-3920): random_tables_fast(100,000
+# entries, width 8, 40% IPv6, ifindexes 2, 3) on the trie path,
+# SketchSpec.make(), a synflood attack trace of 80 chunks of 256 packets
+# (testing.attack_trace_batch, seed 1300), a 2^14 flow table, resident.
+
+TELEMETRY_ENTRIES, TELEMETRY_CHUNK, TELEMETRY_CHUNKS = 100_000, 256, 80
+#: batch sizes K9 is held against its plain version at, and timed at
+K9_SIZES, K9_TIMED = (1, 31, 256, 4096, 65536), (256, 4096, 1 << 18)
+
+
+def telemetry_tables():
+    from infw_torch import testing
+
+    return testing.random_tables_fast(np.random.default_rng(1300), TELEMETRY_ENTRIES, width=8,
+                                      v6_fraction=0.4, ifindexes=(2, 3))
+
+
+def k9_traces(tables, b: int) -> dict:
+    """{"synflood": ..., "uniform": ...} K9 inputs of ``b`` lanes on the CPU
+    (wire (b, 7), tenant, flags, u32 verdicts): the synflood attack trace
+    (about 40% of its lanes from 2 sources after the first quarter) and
+    uniform random_batch_fast packets, each with the oracle-free verdicts
+    of a seeded draw."""
+    import torch
+
+    from infw_torch import testing
+
+    syn, _meta = testing.attack_trace_batch(np.random.default_rng(1301), tables, b, "synflood",
+                                            attack_start=0.0, chunk_packets=1)
+    uni = testing.random_batch_fast(np.random.default_rng(1302), tables, b)
+    uni.tcp_flags = np.random.default_rng(1303).integers(0, 32, b).astype(np.int32)
+    out = {}
+    for name, bt in (("synflood", syn), ("uniform", uni)):
+        rng = np.random.default_rng(1304)
+        res = (rng.integers(1, 3, b).astype(np.uint32)
+               | (rng.integers(0, 8, b).astype(np.uint32) << 8))
+        t = lambda a: torch.from_numpy(np.ascontiguousarray(a).view(np.int32))  # noqa: E731
+        out[name] = (t(bt.pack_wire()), t(np.zeros(b, np.int32)),
+                     t(np.asarray(bt.tcp_flags, np.int32)), t(res))
+    return out
+
+
+def k9_bytes(spec, b: int, width: int) -> int:
+    """What the update must move: a lane's wire row, tenant, flags and
+    verdict read once; the state (count-min rows, heavy-hitter keys and
+    counts, tenant counters) read and written once each (it stays in L2,
+    so this over-counts DRAM traffic: the bound is a floor of a floor)."""
+    state = spec.depth * spec.width + spec.topk * 7 + spec.max_tenants * 4
+    return b * (width + 3) * 4 + 2 * state * 4
+
+
+def k9_check(ksk, spec, batches, grid: int = 0, resident: bool = False) -> int:
+    """K9 on the card against its plain version (plain PyTorch on the same
+    card tensors) over ``batches`` from one state; the winner scratch back
+    at -1 after every call and one launch a call.  Raises on a mismatch;
+    returns the largest absolute difference (0)."""
+    import torch
+
+    from infw_torch.kernels.torchpath import _pack_res16
+
+    dev = torch.device(DEV)
+    got, want = ksk.zero_state(spec, dev), ksk.zero_state(spec, dev)
+    winner = ksk.empty_winner(spec, dev)
+    kern = ksk.RESIDENT_KERNEL if resident else ksk.KERNEL
+    for wire, tenant, flags, res in batches:
+        wire, tenant, flags, res = (x.to(dev) for x in (wire, tenant, flags, res))
+        before = kern.launches
+        if resident:
+            res = res & 0xFFFF
+            ksk.sketch_update_resident(got, wire, tenant, flags, _pack_res16(res.long()), spec,
+                                       winner=winner, _grid=grid)
+        else:
+            ksk.sketch_update(got, wire, tenant, flags, res, spec, winner=winner, _grid=grid)
+        ksk.sketch_update_plain(want, wire, tenant, flags, res, spec)
+        torch.cuda.synchronize()
+        if kern.launches != before + 1:
+            raise SystemExit(f"K9: {kern.launches - before} launches in one call")
+        for f in ksk.SketchState._fields:
+            if not torch.equal(getattr(got, f), getattr(want, f)):
+                diff = (getattr(got, f).long() - getattr(want, f).long()).abs().max()
+                raise SystemExit(f"K9 {'resident' if resident else 'classic'} entry disagrees "
+                                 f"with its plain version on {f} (max |diff| {int(diff)}), "
+                                 f"spec {spec}, B={wire.shape[0]}, grid {grid}")
+        if not bool((winner == -1).all()):
+            raise SystemExit("K9 left its winner scratch dirty")
+    return 0
+
+
+def k9_profile_child() -> None:
+    """Run in a fresh process by the telemetry phase (a trace in a process
+    whose earlier profiler traces covered other work loses events): K9's
+    kernels and device microseconds per call at each timed size on both
+    traces, and one resident admission of the e2e cell (B = 4096) with the
+    sketch on and off, printed as one JSON line."""
+    from infw_torch import testing
+    from infw_torch.backend.cuda import TorchClassifier
+    from infw_torch.flow import FlowConfig
+    from infw_torch.kernels import sketch as ksk
+
+    import torch
+
+    tables = telemetry_tables()
+    spec = ksk.SketchSpec.make()
+    out = {"k9": {}, "admission": {}}
+    for b in K9_TIMED:
+        for name, (wire, tenant, flags, res) in k9_traces(tables, b).items():
+            st = ksk.zero_state(spec, DEV)
+            winner = ksk.empty_winner(spec, DEV)
+            args = [x.to(DEV) for x in (wire, tenant, flags, res)]
+            counts = {}
+            dev_us = profiled_kernels(lambda: ksk.sketch_update(st, *args, spec, winner=winner),
+                                      10, counts)
+            out["k9"][f"{name} {b}"] = {"device_us": sum(dev_us.values()) if dev_us else None,
+                                        "kernels": counts}
+    batch, _meta = testing.attack_trace_batch(np.random.default_rng(1300), tables, 4096 * 4,
+                                              "synflood", chunk_packets=4096)
+    for label, tel in (("on", spec), ("off", None)):
+        clf = TorchClassifier(device=DEV, force_path="trie", resident=True,
+                              flow_table=FlowConfig.make(entries=1 << 14), telemetry=tel)
+        clf.load_tables(tables)
+        for lo in range(0, 3 * 4096, 4096):
+            clf.classify(batch.slice(lo, lo + 4096), apply_stats=False)
+        sub = batch.slice(3 * 4096, 4 * 4096)
+        out["admission"][label] = admission_profile(lambda: clf.classify(sub, apply_stats=False))
+    torch.cuda.synchronize()
+    print(json.dumps(out), flush=True)
+
+
+def telemetry_phase(tag: str) -> dict:
+    """The telemetry plane (ROADMAP item 12) on the card; returns K9's
+    kernels-line entry.
+
+    1. K9 against its plain version: both entries at B = 1, 31, 256, 4096
+       and 65536 on the 4- and 7-word wires (several batches from one
+       state, tenants in and out of range), every way count 1-8 and depth
+       1-8 at 4096, a saturating ``sat`` of 3, the synflood trace's hot
+       keys, a forced grid of 1 and 3 blocks and the co-resident grid;
+    2. bench_telemetry's cell through the entry points a user calls: the
+       synflood trace's 80 chunks through a resident classifier with the
+       telemetry plane, launch counts zeroed before and read after; the gate
+       before any timing line: verdicts with telemetry on equal those with
+       it off and the oracle's, and the sketch tensors of tracked twins
+       (resident: K9's resident entry; multi-dispatch: its classic entry)
+       equal their HostSketchModels; then packets/s with the plane on and
+       off in turns (resident and multi-dispatch), and the chunks until a
+       drained summary names the planted attacker (synflood, denystorm);
+    3. K9's times at B = 256, 4096 and 2^18 on the synflood and a uniform
+       trace: CUDA events back to back, with the host ahead, the device time
+       from the profiler (a fresh process), the plain version, the bound;
+       the resident admission's device time with the sketch on and off
+       (the same child); the step graph against the eager step with the
+       sketch (outputs, columns and state equal; times with the host
+       ahead);
+    4. the daemon with --resident --telemetry --trace over the flow phase's
+       1M-frame file: its verdict file against the stateless daemon's, the
+       span histograms and telemetry_* counters on /metrics (the latter
+       equal to the classifier's), the summaries in events.log."""
+    import shutil
+
+    import torch
+
+    from infw_torch import daemon, oracle, testing
+    from infw_torch.backend.cuda import TorchClassifier
+    from infw_torch.flow import FlowConfig, ResidentOps
+    from infw_torch.kernels import all_kernels, sketch as ksk
+    from infw_torch.kernels import flow as kflow
+    from infw_torch.kernels.resident import resident_fused_host, resident_step
+    from infw_torch.obs.telemetry import SketchOps
+
+    kernels = all_kernels()
+    t0 = time.perf_counter()
+    tables = telemetry_tables()
+    spec = ksk.SketchSpec.make()
+    log(f"telemetry: {tables.num_entries} entries x {tables.rule_width} rule slots, spec {spec}; "
+        f"made in {time.perf_counter() - t0:.2f} s")
+
+    # 1. K9 against its plain version
+    t0 = time.perf_counter()
+    checked = 0
+    pool = k9_traces(tables, 65536)
+    rng = np.random.default_rng(1310)
+
+    def draws(b, width, n=3, name="uniform", tenants=2):
+        wire, _t, flags, res = pool[name]
+        out = []
+        for _ in range(n):
+            idx = torch.from_numpy(rng.integers(0, wire.shape[0], b))
+            w = wire[idx]
+            if width == 4:
+                w4 = np.ascontiguousarray(w.numpy().view(np.uint32)[:, [0, 1, 2, 3]])
+                w4[:, 0] = (w4[:, 0] & ~np.uint32(3)) | np.uint32(1)
+                w = torch.from_numpy(w4.view(np.int32))
+            ten = torch.from_numpy(rng.integers(-1, tenants + 1, b).astype(np.int32))
+            out.append((w, ten, flags[idx], res[idx]))
+        return out
+
+    two = ksk.SketchSpec.make(max_tenants=2)
+    for b in K9_SIZES:
+        for width in (4, 7):
+            for resident in (False, True):
+                checked += 1 + k9_check(ksk, two, draws(b, width), resident=resident)
+    for k in range(1, 9):
+        checked += 1 + k9_check(ksk, ksk.SketchSpec.make(ways=k, topk=64, max_tenants=2),
+                                draws(4096, 7))
+        checked += 1 + k9_check(ksk, ksk.SketchSpec.make(depth=k, width=256, max_tenants=2),
+                                draws(4096, 7))
+    checked += 1 + k9_check(ksk, ksk.SketchSpec.make(sat=3, width=64, topk=16, max_tenants=2),
+                            draws(4096, 7))
+    for grid in (1, 3):
+        checked += 1 + k9_check(ksk, two, draws(65536, 7, name="synflood"), grid=grid)
+        checked += 1 + k9_check(ksk, two, draws(65536, 7, name="synflood"), grid=grid,
+                                resident=True)
+    checked += 1 + k9_check(ksk, spec, [pool["synflood"]] * 3)
+    log(f"K9 vs plain: {checked} configurations (both entries at B = {list(K9_SIZES)} on the 4- "
+        f"and 7-word wires, ways 1-8, depth 1-8, sat 3, the synflood trace's hot keys, grids of "
+        f"1 and 3 blocks and the co-resident grid), 3 batches each from one state: every "
+        f"tensor equal, the winner scratch back at -1; {time.perf_counter() - t0:.1f} s")
+
+    # 2. bench_telemetry's cell through the classifier
+    bs = TELEMETRY_CHUNK
+    trace, meta = testing.attack_trace_batch(np.random.default_rng(1300), tables,
+                                             bs * TELEMETRY_CHUNKS, "synflood", chunk_packets=bs)
+    tflags = np.asarray(trace.tcp_flags, np.int32)
+    chunks = []
+    for lo in range(0, len(trace), bs):
+        sub = np.arange(lo, lo + bs, dtype=np.int64)
+        w, v4 = trace.pack_wire_subset(sub)
+        chunks.append((w, v4, np.ascontiguousarray(tflags[sub])))
+    fcfg = lambda: FlowConfig.make(entries=1 << 14)  # noqa: E731
+    on = TorchClassifier(device=DEV, force_path="trie", flow_table=fcfg(), resident=True,
+                         telemetry=spec)
+    off = TorchClassifier(device=DEV, force_path="trie", flow_table=fcfg(), resident=True)
+    con = TorchClassifier(device=DEV, force_path="trie", telemetry=spec)
+    coff = TorchClassifier(device=DEV, force_path="trie")
+    twin = TorchClassifier(device=DEV, force_path="trie", flow_table=fcfg(), resident=True,
+                           telemetry=spec, telemetry_track_model=True)
+    ctwin = TorchClassifier(device=DEV, force_path="trie", telemetry=spec,
+                            telemetry_track_model=True)
+    for c in (on, off, con, coff, twin, ctwin):
+        c.load_tables(tables)
+
+    def admit(c, chunk):
+        w, v4, f = chunk
+        return c.classify_prepared(c.prepare_packed(w, v4, tcp_flags=f), apply_stats=False).result()
+
+    ref = oracle.classify(tables, trace)
+    torch.cuda.synchronize()
+    for k in kernels:
+        k.launches = 0
+    outs = [admit(on, ch) for ch in chunks]
+    launches = {k.name: k.launches for k in kernels if k.launches}
+    # one launch an admission, and one more for each graph captured (its
+    # first run, eager on inert rows, before the capture)
+    captures = on.resident.graphs()
+    if (launches.get("sketch_update_resident", 0) != len(chunks) + captures
+            or launches.get("sketch_update")):
+        raise SystemExit(f"telemetry main path: launches {launches}; expected "
+                         f"{len(chunks)} + {captures} of sketch_update_resident and no classic "
+                         f"one")
+    n_div = 0
+    for j, (o, ch) in enumerate(zip(outs, chunks)):
+        want = ref.results[j * bs: (j + 1) * bs]
+        n_div += int((o.results != want).sum())
+        n_div += int((o.results != admit(off, ch).results).sum())
+        n_div += int((o.results != admit(con, ch).results).sum())
+        admit(twin, ch)
+        admit(ctwin, ch)
+    if n_div:
+        raise SystemExit(f"telemetry gate: {n_div} verdicts differ (on, off, multi-dispatch, "
+                         f"oracle)")
+    for c, label in ((twin, "resident"), (ctwin, "multi-dispatch")):
+        tel = c.telemetry
+        tel.resident_note_materialized(0)
+        cols, model = tel.columns(), tel.model.columns()
+        for f in cols:
+            if not np.array_equal(cols[f], model[f]):
+                raise SystemExit(f"telemetry gate: the {label} twin's {f} differs from its "
+                                 f"HostSketchModel")
+    onc = on.telemetry.columns()
+    if not all(np.array_equal(onc[f], twin.telemetry.columns()[f]) for f in onc):
+        raise SystemExit("telemetry gate: the resident classifier's sketch differs from its twin")
+    log(f"telemetry main path: {len(chunks)} admissions of {bs} packets (synflood, "
+        f"{meta['n_attack']} attack lanes), launches {launches} ({captures} graph captures, "
+        f"each after one eager run); gate: verdicts with the plane "
+        f"on equal those with it off, the multi-dispatch plan's and the oracle's; the sketch "
+        f"tensors of both tracked twins equal their HostSketchModels; tcnt {onc['tcnt'].tolist()}")
+
+    def run_pass(c):
+        if c.flow is not None:
+            c.flow.reset()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for ch in chunks:
+            admit(c, ch)
+        return time.perf_counter() - t
+
+    best = {n: float("inf") for n in ("on", "off", "con", "coff")}
+    for _ in range(3):
+        for n, c in (("off", off), ("on", on), ("coff", coff), ("con", con)):
+            best[n] = min(best[n], run_pass(c))
+    pps = {n: len(trace) / v for n, v in best.items()}
+    log(f"{tag} telemetry throughput ({len(trace)} packets in {bs}-packet admissions, min of 3 "
+        f"in turns): resident {pps['on'] / 1e6:.4f} M/s on, {pps['off'] / 1e6:.4f} off "
+        f"({pps['on'] / pps['off']:.3f}x); multi-dispatch {pps['con'] / 1e6:.4f} on, "
+        f"{pps['coff'] / 1e6:.4f} off ({pps['con'] / pps['coff']:.3f}x)")
+    detect = {}
+    for mode in ("synflood", "denystorm"):
+        dtrace, dmeta = testing.attack_trace_batch(np.random.default_rng(1400), tables, bs * 40,
+                                                   mode, chunk_packets=bs)
+        dflags = np.asarray(dtrace.tcp_flags, np.int32)
+        det = TorchClassifier(device=DEV, force_path="trie", telemetry=spec)
+        det.load_tables(tables)
+        tier = det.telemetry
+        tier.min_packets, tier.syn_flood_frac, tier.deny_storm_frac = 32, 0.3, 0.3
+        start = dmeta["start"] // bs
+        srcs = {".".join(str(x) for x in int(s[0]).to_bytes(4, "big")) if k == 1 else "v6"
+                for s, k in dmeta["attackers"]}
+        for ci in range(len(dtrace) // bs):
+            sub = np.arange(ci * bs, (ci + 1) * bs, dtype=np.int64)
+            w, v4 = dtrace.pack_wire_subset(sub)
+            admit(det, (w, v4, np.ascontiguousarray(dflags[sub])))
+            if ci < start:
+                continue
+            rec = tier.drain(force=True)[0]
+            hit = any(h["src"] in srcs for h in rec.top)
+            hit = hit and any(t["syn_flood" if mode == "synflood" else "deny_storm"]
+                              for t in rec.tenants)
+            if hit:
+                detect[mode] = ci - start + 1
+                break
+        else:
+            raise SystemExit(f"telemetry: the {mode} attacker never surfaced in a summary")
+        det.close()
+    log(f"telemetry detection: the drained summary names the attacker after "
+        f"{detect['synflood']} (synflood) and {detect['denystorm']} (denystorm) admissions of "
+        f"{bs} packets from the attack's start")
+
+    # 3. K9's times, the resident admission on and off, graph against eager
+    timings = {}
+    for b in K9_TIMED:
+        for name, (wire, tenant, flags, res) in k9_traces(tables, b).items():
+            st = ksk.zero_state(spec, DEV)
+            winner = ksk.empty_winner(spec, DEV)
+            args = [x.to(DEV) for x in (wire, tenant, flags, res)]
+            fn = lambda: ksk.sketch_update(st, *args, spec, winner=winner)  # noqa: E731
+            plain_st = ksk.zero_state(spec, DEV)
+            timings[f"{name} {b}"] = {
+                "ms": cuda_ms(fn, reps=20), "paced_ms": device_paced_ms(fn, reps=20),
+                "plain_ms": cuda_ms(lambda: ksk.sketch_update_plain(plain_st, *args, spec),
+                                    reps=3, warmup=1),
+                "bound_ms": k9_bytes(spec, b, 7) / HBM_BYTES_PER_S * 1e3,
+            }
+    here = os.path.dirname(os.path.abspath(__file__))
+    child = subprocess.run([sys.executable, "-c", "import chip_smoke; "
+                            "chip_smoke.k9_profile_child()"], cwd=here,
+                           capture_output=True, text=True, timeout=600)
+    if child.returncode != 0:
+        raise SystemExit(f"K9 profile child failed:\n{child.stderr[-3000:]}")
+    prof = json.loads(child.stdout.strip().splitlines()[-1])
+    for key, t in timings.items():
+        t["device_us"] = prof["k9"][key]["device_us"]
+        t["kernels"] = prof["k9"][key]["kernels"]
+        dev_ms = t["device_us"] / 1e3 if t["device_us"] else None
+        log(f"{tag} K9 sketch_update [{key}]: events {t['ms']:.5f} ms, with the host ahead "
+            f"{t['paced_ms']:.5f} ms, device {t['device_us'] if t['device_us'] else 'lost'} us "
+            f"({t['kernels']}); bound {t['bound_ms']:.6f} ms by bytes"
+            + (f" ({dev_ms / t['bound_ms']:.2f}x)" if dev_ms else "")
+            + f"; plain {t['plain_ms']:.4f} ms")
+    adm = prof["admission"]
+    log(f"{tag} resident admission (4096 packets, synflood trace) device time: sketch on "
+        f"{adm['on']['device_us']} us in {adm['on']['kernels']} kernels, off "
+        f"{adm['off']['device_us']} us in {adm['off']['kernels']} kernels; copies "
+        f"{adm['on']['h2d']} / {adm['on']['d2h']} on, {adm['off']['h2d']} / {adm['off']['d2h']} "
+        f"off")
+    # the graph against the eager step, with the sketch
+    big, _m = testing.attack_trace_batch(np.random.default_rng(1305), tables, 4096 * 3,
+                                         "synflood", chunk_packets=4096)
+    for lo in range(0, 2 * 4096, 4096):
+        on.classify(big.slice(lo, lo + 4096), apply_stats=False)
+    sub = big.slice(2 * 4096, 3 * 4096)
+    wire_np = sub.pack_wire()
+    ctx = on.resident.context(on)
+    step_tables = ctx.tables._replace(n_levels=ctx.tables.dev.n_levels)
+    tier, tel = on.flow, on.telemetry
+    eager_flow = kflow.clone_flow_table(tier._flow)
+    eager_epoch = tier._epoch_dev.clone()
+    eager_sk = ksk.SketchState(*(t.clone() for t in tel._state))
+    gens_op, pages_op = tier._res_ops
+    dev = torch.device(DEV)
+    fl = torch.from_numpy(np.asarray(sub.tcp_flags, np.int32)).to(dev)
+    ops = ResidentOps(eager_flow, gens_op.clone(), pages_op.clone(), eager_epoch,
+                      torch.zeros(4096, dtype=torch.int32, device=dev), fl, tier.config.max_age,
+                      tier.config.entries, tier.config.ways,
+                      SketchOps(eager_sk, ksk.empty_winner(spec, dev), spec))
+    wire_dev = torch.from_numpy(wire_np.view(np.int32)).to(dev)
+    eager = resident_step(ops, step_tables, wire_dev)
+    plan = on.prepare_packed(wire_np, False, tcp_flags=sub.tcp_flags)
+    if not np.array_equal(resident_fused_host(plan["fused"]), eager.cpu().numpy()):
+        raise SystemExit("telemetry: the resident graph's output differs from the eager step's")
+    for c in kflow.COLUMNS:
+        if not torch.equal(getattr(tier._flow, c), getattr(eager_flow, c)):
+            raise SystemExit(f"telemetry: the graph's flow column {c} differs from the eager step")
+    for f in ksk.SketchState._fields:
+        if not torch.equal(getattr(tel._state, f), getattr(eager_sk, f)):
+            raise SystemExit(f"telemetry: the graph's sketch {f} differs from the eager step's")
+    on.classify_prepared(plan, apply_stats=False).result()
+    graph = next((g for key, g in ctx.graphs.items() if key[0] == 4096), None)
+    if graph is None and DEV == "cuda":
+        raise SystemExit("telemetry: the resident pool captured no 4096-lane graph")
+    eager_ms = device_paced_ms(lambda: resident_step(ops, step_tables, wire_dev), reps=10)
+    replay_ms = None if graph is None else device_paced_ms(graph.graph.replay, reps=10)
+    log(f"{tag} resident step with the sketch, 4096 packets: the graph's output, flow columns and "
+        f"sketch equal the eager step's; with the host ahead the eager step {eager_ms:.4f} ms, "
+        f"the graph replay {replay_ms} ms")
+    for c in (on, off, con, coff, twin, ctwin):
+        c.close()
+
+    # 4. the daemon with --resident --telemetry --trace
+    st = FLOW_STASH
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "telemetry-smoke")
+    shutil.rmtree(root, ignore_errors=True)
+    d = daemon.Daemon(state_dir=os.path.join(root, "state"), node_name=DAEMON_NODE,
+                      registry=st["daemon_registry"], metrics_port=0, health_port=0,
+                      poll_period_s=0.1, file_poll_interval_s=0.02,
+                      flow_table=FlowConfig.make(entries=FLOW_SLAB), resident=True,
+                      telemetry=spec, telemetry_drain=4, trace=True,
+                      backend="cuda" if DEV == "cuda" else "cpu")
+    daemon_launches = {}
+    try:
+        d.start()
+        p = os.path.join(d.nodestates_dir, f"{DAEMON_NODE}.json")
+        with open(p + ".tmp", "w") as f:
+            json.dump(st["daemon_doc"], f)
+        os.replace(p + ".tmp", p)
+        _wait(lambda: d.syncer.classifier is not None and d.syncer.classifier.tables is not None
+              and bool(d.syncer.attached_interfaces()), "the telemetry daemon's NodeState", 300)
+        c = d.syncer.classifier
+        # the idle loop attaches the ring and the drain cadence after the
+        # tick that synced: land the file once it has
+        _wait(lambda: id(c.telemetry) in d._telemetry_attached,
+              "the telemetry daemon's idle-loop attach", 60)
+        fb = st["daemon_fb"]
+        stage_dir = os.path.join(d.state_dir, "staging")
+        os.makedirs(stage_dir, exist_ok=True)
+        daemon.write_frames_file_v2(os.path.join(stage_dir, "0.frames"), fb)
+        torch.cuda.synchronize()
+        for k in kernels:
+            k.launches = 0
+        t = time.perf_counter()
+        os.replace(os.path.join(stage_dir, "0.frames"), os.path.join(d.ingest_dir, "0.frames"))
+        _wait(lambda: os.path.exists(os.path.join(d.out_dir, "0.frames.verdicts.json")),
+              "the telemetry daemon's pass", 600, 0.002)
+        dt = time.perf_counter() - t
+        daemon_launches["telemetry 0"] = {k.name: k.launches for k in kernels if k.launches}
+        got = open(os.path.join(d.out_dir, "0.frames.verdicts.bin"), "rb").read()
+        if got != st["daemon_stateless"]:
+            raise SystemExit("telemetry daemon: its verdict file differs from the stateless "
+                             "daemon's")
+        if daemon_launches["telemetry 0"].get("sketch_update_resident", 0) <= 0:
+            raise SystemExit(f"telemetry daemon: launches {daemon_launches}")
+        # every admission lands in exactly one drained window: once the idle
+        # loop's timer has closed the last window, the summaries' admissions
+        # add up to the tier's and their seqs run 1..drain_seq without a gap
+        # (the jobs in flight are dispatched before the first drain
+        # materializes, so the cadence alone does not fix the drain count)
+        _wait(lambda: c.telemetry_counters()["telemetry_window_admissions"] == 0,
+              "the telemetry daemon's last window to drain", 60)
+        tc = c.telemetry_counters()
+
+        def summaries():
+            return [tuple(int(x.split("=")[1]) for x in line.split()[1:3])
+                    for line in open(d.events_path).read().splitlines()
+                    if line.startswith("telemetry-summary ")]
+
+        _wait(lambda: len(summaries()) >= tc["telemetry_drain_seq"],
+              "the telemetry daemon's summaries in events.log", 60)
+        got = summaries()
+        if ([seq for seq, _a in got] != list(range(1, tc["telemetry_drain_seq"] + 1))
+                or sum(a for _seq, a in got) != tc["telemetry_admissions_total"]
+                or not got):
+            raise SystemExit(f"telemetry daemon: summaries (seq, admissions) {got} against the "
+                             f"tier's {tc}")
+        import urllib.request
+
+        body = urllib.request.urlopen(f"http://127.0.0.1:{d.actual_metrics_port}/metrics",
+                                      timeout=10).read().decode()
+        stages = [s for s in ("ingest", "pack", "h2d", "dispatch", "materialize", "drain")
+                  if f'ingressnodefirewall_node_span_us_count{{stage="{s}"}}' in body]
+        if len(stages) != 6:
+            raise SystemExit(f"telemetry daemon: /metrics has span histograms for {stages}")
+        for key in ("telemetry_updates_total", "telemetry_drains_total",
+                    "telemetry_summaries_total", "telemetry_admissions_total"):
+            if _metric(d, key) != tc[key]:
+                raise SystemExit(f"telemetry daemon: /metrics {key} {_metric(d, key)} is not the "
+                                 f"classifier's {tc[key]}")
+        counts = {s: d.tracer.histograms.values()[s]["count"] for s in stages}
+        log(f"{tag} telemetry daemon (--resident --telemetry --trace): {len(fb)} frames in "
+            f"{dt:.3f} s = {len(fb) / dt / 1e6:.3f} M packets/s, launches "
+            f"{daemon_launches['telemetry 0']}; verdict file equal to the stateless daemon's; "
+            f"/metrics span histograms for {stages} (counts {counts}), telemetry_* equal to the "
+            f"classifier's {tc}; telemetry-summary records (seq, admissions) {got} in events.log, "
+            f"every admission in one")
+    finally:
+        d.stop()
+    shutil.rmtree(root, ignore_errors=True)
+
+    main = timings[f"synflood {TELEMETRY_CHUNK}"]
+    return {
+        "name": "sketch_update", "route": "cuda",
+        "source": "infw_torch/kernels/csrc/sketch_update.cu",
+        "replaces": "infw/kernels/sketch.py:281",
+        "launches": launches.get("sketch_update_resident", 0),
+        "mismatches": 0, "max_abs_err": 0,
+        "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+        "bound_by": "bytes", "library_ms": None,
+        "entries": {"classic": "sketch_update", "resident": "sketch_update_resident"},
+        "checked_configurations": checked, "timings": timings, "admission": adm,
+        "step_ms": {"eager_paced": eager_ms, "replay_paced": replay_ms},
+        "throughput_pps": pps, "detect_admissions": detect,
+        "telemetry_daemon_launches": daemon_launches,
+    }
+
+
 def main() -> int:
     import torch
 
@@ -5714,8 +6337,14 @@ def main() -> int:
     # flow ladder's, K = 4, the warmed steady state and the daemon
     t_phase = time.perf_counter()
     resident_phase(tag, k7, k8)
-    FLOW_STASH.clear()
     log(f"phase resident: {time.perf_counter() - t_phase:.1f} s")
+
+    # 11d. the telemetry plane: K9 against its plain version, bench_telemetry's
+    # cell, K9's times, the daemon with --resident --telemetry --trace
+    t_phase = time.perf_counter()
+    k9 = telemetry_phase(tag)
+    FLOW_STASH.clear()
+    log(f"phase telemetry: {time.perf_counter() - t_phase:.1f} s")
 
     # 12. the daemon: the headline CRs' ingress blocks as one NodeState,
     # then bench config 5a's replay, through infw_torch.daemon
@@ -5729,7 +6358,7 @@ def main() -> int:
         f"{time.perf_counter() - t_start:.1f} s so far")
     # each kernel's launches in each daemon pass, the two-column walks
     # under their own entries; a launch no entry names fails the run
-    entries = [k1, k2, k3, k4, k3b, k5, k6, k7, k8, k3["two_column"], k3b["two_column"],
+    entries = [k1, k2, k3, k4, k3b, k5, k6, k7, k8, k9, k3["two_column"], k3b["two_column"],
                k6["two_column"]]
     for k in entries:
         k["daemon_launches"] = {p: c.get(k["name"], 0) for p, c in daemon_launches.items()}
@@ -5738,7 +6367,7 @@ def main() -> int:
         raise SystemExit(f"daemon: kernels {sorted(unlisted)} launched but not on the kernels line")
 
     # 13. the kernels line, then the device line last
-    print(json.dumps({"kernels": [k1, k2, k3, k4, k3b, k5, k6, k7, k8]}), flush=True)
+    print(json.dumps({"kernels": [k1, k2, k3, k4, k3b, k5, k6, k7, k8, k9]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}),
           flush=True)
     return 0

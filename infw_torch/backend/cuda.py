@@ -99,6 +99,18 @@ results and statistics (results only for the wire8 and delta formats).
   generation the step cannot serve (wide ruleIds) counts a ``fallback`` and
   takes the multi-dispatch plan.  ``prepare_packed_super`` /
   ``classify_prepared_super`` run K stacked chunks as one superbatch.
+- **telemetry plane** (``telemetry=``: True, a count-min width or a
+  SketchSpec; else ``INFW_TELEMETRY``; else off; the JAX package's
+  ``TelemetryTier`` hooks): count-min, heavy-hitter and per-tenant
+  counters on the card (obs.telemetry.TelemetryTier, kernel K9).  A
+  resident admission updates them as the step's fourth stage; any other
+  ``prepare_packed`` plan (flow or stateless) launches K9 once when it
+  materializes, over the served verdicts (the flow plan's miss
+  sub-dispatch is not counted again).  The batch path without a flow tier
+  (``classify`` of a PacketBatch) updates nothing, as in the reference.
+  ``telemetry`` is the tier, ``telemetry_counters()`` its /metrics
+  counters.  ``TorchArenaClassifier`` has no telemetry, as in the
+  reference.
 
 The device is the first CUDA card unless the caller names another
 (``device="cpu"`` runs the plain PyTorch version of every kernel, which is
@@ -123,6 +135,7 @@ from ..kernels import arena_dense, arena_walk, cwalk, dense, torchpath, walk, wi
 from ..kernels import flow as kflow
 from ..kernels import overlay as overlay_mod
 from ..kernels.resident import resident_fused_host, split_resident_outputs
+from ..kernels.sketch import SketchSpec
 from ..layout import (
     build_depth_lut,
     check_wire_ruleids,
@@ -133,6 +146,7 @@ from ..layout import (
     tune_depth_classes,
     v4_trie_depth,
 )
+from ..obs.telemetry import TelemetryTier
 from ..packets import PacketBatch, encode_delta_wire, narrow_wire, wire8
 from .base import ClassifyOutput, PendingClassify, StatsAccumulator, stats_from_results
 
@@ -233,7 +247,8 @@ class TorchClassifier:
                  compressed: Optional[bool] = None,
                  wire_codec: Optional[str] = None,
                  flow_table=None, flow_track_model: bool = False,
-                 resident: Optional[bool] = None) -> None:
+                 resident: Optional[bool] = None, telemetry=None,
+                 telemetry_track_model: bool = False) -> None:
         if force_path not in (None, "dense", "trie", "ctrie"):
             raise ValueError(
                 f"unknown force_path {force_path!r} (expected 'dense', 'trie', 'ctrie' or None)"
@@ -284,6 +299,20 @@ class TorchClassifier:
         if cfg is not None:
             self._flow = flow_mod.FlowTier(cfg, device=self._device,
                                            track_model=flow_track_model)
+        # the telemetry plane: the argument (True, a count-min width or a
+        # SketchSpec), else INFW_TELEMETRY ("1"/"true"/"yes" or a width),
+        # else off
+        if telemetry is None:
+            env = os.environ.get("INFW_TELEMETRY", "")
+            if env and env not in ("0", "false", "no"):
+                telemetry = True if env in ("1", "true", "yes") else int(env)
+        self._telemetry = None
+        if telemetry is not None and telemetry is not False:
+            if not isinstance(telemetry, SketchSpec):
+                telemetry = (SketchSpec.make() if telemetry is True
+                             else SketchSpec.make(width=int(telemetry)))
+            self._telemetry = TelemetryTier(telemetry, device=self._device,
+                                            track_model=telemetry_track_model)
 
     @property
     def device(self) -> torch.device:
@@ -307,6 +336,15 @@ class TorchClassifier:
     def resident_counters(self) -> dict:
         """resident_* gauges for /metrics (empty when off)."""
         return {} if self._resident is None else self._resident.counter_values()
+
+    @property
+    def telemetry(self) -> "Optional[TelemetryTier]":
+        """The TelemetryTier when the telemetry plane is on."""
+        return self._telemetry
+
+    def telemetry_counters(self) -> dict:
+        """telemetry_* counters for /metrics (empty when off)."""
+        return {} if self._telemetry is None else self._telemetry.counter_values()
 
     def mark_resident_warm(self) -> None:
         """Bring the device epoch to the host counter (the classic warm
@@ -561,18 +599,39 @@ class TorchClassifier:
             n_levels = v4_trie_depth(n) if v4_only else (n if d is None else 1 + d)
         if flow_probe is not None:
             fused, ctx = flow_probe
-            return {"flow": True, "fused": fused, "ctx": ctx, "wire_np": wire_np,
+            plan = {"flow": True, "fused": fused, "ctx": ctx, "wire_np": wire_np,
                     "tcp_flags": tcp_flags, "active": active, "kind": kind,
                     "n_levels": n_levels}
-        return self._plan(active, wire_np, kind, n_levels)
+        else:
+            plan = self._plan(active, wire_np, kind, n_levels)
+        if self._telemetry is not None:
+            # the multi-dispatch telemetry launch runs at materialize time
+            # over the admission's served verdicts; a flow plan's miss
+            # sub-dispatch goes through _plan / _launch and never counts
+            plan["telem_wire"] = wire_np
+            plan["telem_flags"] = tcp_flags
+        return plan
 
     def classify_prepared(self, plan, apply_stats: bool = True) -> PendingClassify:
-        """Second half: launch the classify on a prepare_packed plan."""
+        """Second half: launch the classify on a prepare_packed plan (a
+        resident plan's sketch update rode its step; any other plan's is
+        one K9 launch when it materializes)."""
         if plan.get("resident"):
             return self._launch_resident(plan, apply_stats)
         if plan.get("flow"):
-            return self._launch_flow(plan, apply_stats)
-        return self._launch(plan, apply_stats)
+            pending = self._launch_flow(plan, apply_stats)
+        else:
+            pending = self._launch(plan, apply_stats)
+        tel = self._telemetry
+        if tel is None or "telem_wire" not in plan:
+            return pending
+
+        def materialize() -> ClassifyOutput:
+            out = pending.result()
+            tel.update(plan["telem_wire"], out.results, tflags_np=plan["telem_flags"])
+            return out
+
+        return PendingClassify(materialize)
 
     # -- resident serving ----------------------------------------------------
 
@@ -610,7 +669,7 @@ class TorchClassifier:
             return None
         n = wire_np.shape[0]
         fused, epoch = pool.dispatch(tier, ctx, self._resident_levels(ctx, v4_only, depth),
-                                     wire_np, tcp_flags, gens_snap)
+                                     wire_np, tcp_flags, gens_snap, telemetry=self._telemetry)
         pool.note("dispatches")
         pool.note(f"slot{(epoch - 1) & 1}_dispatches")
         self._note_wire(f"wire{wire_np.shape[1]}", n, wire_np.nbytes)
@@ -629,6 +688,8 @@ class TorchClassifier:
         tier.stats.add(hits=hits, misses=n - hits, stale_rejects=stale, inserts=inserts,
                        evictions=evictions, promotes=promotes)
         tier.resident_note_materialized(epoch)
+        if self._telemetry is not None:
+            self._telemetry.resident_note_materialized(epoch)
         if evictions and tier.on_evict is not None:
             try:
                 tier.on_evict(evictions, inserts, epoch)
@@ -666,7 +727,8 @@ class TorchClassifier:
             return None
         k, n, w = wire_stack.shape
         fused, epoch = pool.dispatch(tier, ctx, self._resident_levels(ctx, v4_only, None),
-                                     wire_stack, tcp_flags_stack, gens_snap, k=k)
+                                     wire_stack, tcp_flags_stack, gens_snap, k=k,
+                                     telemetry=self._telemetry)
         pool.note("dispatches")
         pool.note("superbatch_dispatches")
         pool.note("superbatch_admissions", k)

@@ -6,7 +6,9 @@ content map) and returns the port's CompiledTables; ``arena_from_jax_arrays``
 takes the seven arrays of a JAX arena pool and returns the port's
 CtrieArena; ``flow_from_jax_arrays`` takes the four columns of a JAX flow
 table with its generation and page vectors and returns the port's
-FlowTable and those two vectors.  Neither imports anything from the JAX package: the caller
+FlowTable and those two vectors; ``sketch_state_from_jax`` takes the four
+arrays of a JAX telemetry tier and returns the port's SketchState.  None
+imports anything from the JAX package: the caller
 does ``{f: getattr(t, f) for f in FIELDS}`` (plus ``content``), or the same
 over the pool's fields, on its side.
 """
@@ -93,3 +95,22 @@ def flow_from_jax_arrays(keys, vg, se, cnt, gens, page_table, device=None):
                      cnt=put(cnt, np.int32),
                      winner=torch.full((keys_t.shape[0],), -1, dtype=torch.int32, device=device))
     return flow, put(gens, np.int32), put(page_table, np.int32)
+
+
+def sketch_state_from_jax(cms, keys, cnt, tcnt, device=None):
+    """The four arrays of a JAX telemetry ``SketchState`` (numpy: ``{f:
+    np.asarray(getattr(tier._state, f)) for f in SketchState._fields}``) ->
+    the port's SketchState on ``device`` (resolve_device): int32 tensors
+    that share no memory with the arrays, the uint32 keys as int32 bit
+    patterns."""
+    from .kernels.sketch import SketchState
+
+    device = resolve_device(device)
+
+    def put(a, dtype):
+        # a copy: the port updates the state in place, and on the CPU
+        # from_numpy would share the caller's buffer
+        return torch.from_numpy(np.array(a, dtype).view(np.int32)).to(device)
+
+    return SketchState(cms=put(cms, np.int32), keys=put(keys, np.uint32),
+                       cnt=put(cnt, np.int32), tcnt=put(tcnt, np.int32))

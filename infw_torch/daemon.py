@@ -65,10 +65,32 @@ contract NODE_NAME / NAMESPACE / POLL_PERIOD_SECONDS / ENABLE_LPM_LOOKUP_DBG
   a flow table (the default geometry without ``--flow-table``);
   ``resident_*`` and ``flow_*`` counters go to /metrics.
 
+- ``--telemetry [WIDTH]`` (``INFW_TELEMETRY``; depth and top-K from
+  ``INFW_TELEMETRY_DEPTH`` / ``INFW_TELEMETRY_TOPK``; not with ``--backend
+  cpu``, as in the JAX daemon) adds the telemetry plane
+  (infw_torch.obs.telemetry, kernel K9) to every classifier the syncer
+  builds: count-min, heavy-hitter and per-tenant counters on the card,
+  updated in the resident step or by one K9 launch per job.  The idle
+  loop attaches the event ring and ``--telemetry-drain`` (admissions a
+  drain, ``INFW_TELEMETRY_DRAIN``, 256) to each new tier and drains
+  every 5 s when a window is open; ``telemetry-summary`` lines go to
+  ``events.log``, ``telemetry_*`` counters to /metrics, and raw deny
+  events pass a per-tenant token bucket (the rest count as
+  ``telemetry_suppressed_events``).
+- ``--trace`` (``INFW_TRACE``) times each job's serving stages, the JAX
+  daemon's names: ``ingest`` (file read) and ``pack`` (frame parse) per
+  file, then per job ``pack`` (gather and wire pack), ``h2d``
+  (prepare_packed), ``dispatch`` (the launch), ``materialize`` (the read
+  back) and ``drain`` (verdicts out, finalize); the histograms
+  (``ingressnodefirewall_node_span_us``) and ``trace_*`` counters go to
+  /metrics, and a job slower than ``--trace-slow-us``
+  (``INFW_TRACE_SLOW_US``, 50000) leaves a sampled ``trace-span:`` line
+  in ``events.log``.
+
 The JAX daemon's scheduler, ingest ring (with the superbatch that only
-the ring reads, ``--superbatch-k``), events socket, mesh, telemetry,
-tracing, scoring and payload options are not in the port yet: ``main``
-refuses each of their flags, naming its ROADMAP item.
+the ring reads, ``--superbatch-k``), events socket, mesh, scoring and
+payload options are not in the port yet: ``main`` refuses each of their
+flags, naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -94,11 +116,12 @@ from .backend.base import stats_from_results
 from .arena import make_arena_spec
 from .backend.cuda import WIRE_CODECS, TorchArenaClassifier, TorchClassifier
 from .compiler import CompileError
-from .constants import KIND_IPV6, KIND_OTHER
+from .constants import DENY, KIND_IPV6, KIND_OTHER
 from .flow import FlowConfig
 from .interfaces import InterfaceError, InterfaceRegistry, default_registry
 from .kernels.torchpath import resolve_device
 from .nodestate_controller import NodeStateReconciler
+from .kernels.sketch import SketchSpec
 from .obs.events import EventRing, EventsLogger, FlowEvictRecord, emit_deny_events
 from .obs.pcap import FramesBuf, parse_frames_buf
 from .obs.statistics import Registry as MetricsRegistry, Statistics
@@ -135,10 +158,6 @@ REFUSED_FLAGS = (
     ("--mesh", "INFW_MESH", "ROADMAP.md item 15 (multi-device)"),
     ("--superbatch-k", "INFW_SUPERBATCH_K",
      "ROADMAP.md item 24c (the ingest ring, the superbatch's only reader)"),
-    ("--telemetry", "INFW_TELEMETRY", "ROADMAP.md item 12 (telemetry)"),
-    ("--telemetry-drain", "INFW_TELEMETRY_DRAIN", "ROADMAP.md item 12 (telemetry)"),
-    ("--trace", "INFW_TRACE", "ROADMAP.md item 12 (telemetry and tracing)"),
-    ("--trace-slow-us", "INFW_TRACE_SLOW_US", "ROADMAP.md item 12 (telemetry and tracing)"),
     ("--mlscore", "INFW_MLSCORE", "ROADMAP.md item 13 (anomaly scoring)"),
     ("--mlscore-mode", "INFW_MLSCORE_MODE", "ROADMAP.md item 13 (anomaly scoring)"),
     ("--payload", "INFW_PAYLOAD", "ROADMAP.md item 14 (the payload tier)"),
@@ -272,15 +291,17 @@ def backend_device(backend: str):
 def make_classifier_factory(backend: str, wire_codec: Optional[str] = None,
                             compressed: Optional[bool] = None,
                             flow_table: Optional[FlowConfig] = None,
-                            resident: bool = False):
+                            resident: bool = False,
+                            telemetry: Optional[SketchSpec] = None):
     """The syncer's classifier constructor: TorchClassifier on
     ``backend_device(backend)``.  ``wire_codec`` and ``compressed`` are
     TorchClassifier's (None keeps its INFW_WIRE_CODEC / INFW_COMPRESSED
     defaults); ``flow_table``, a FlowConfig built at launch, rides into
     every classifier generation (on both backends: "cpu" runs the tier on
     the plain versions of K7 and K8); ``resident`` turns the resident pool
-    on (``main`` refuses it with the cpu backend, as the JAX daemon does;
-    the class takes it, for the tests)."""
+    on and ``telemetry``, a SketchSpec, the telemetry plane (``main``
+    refuses both with the cpu backend, as the JAX daemon does; the class
+    takes them, for the tests)."""
     device = backend_device(backend)
     kw = {}
     if wire_codec is not None:
@@ -291,6 +312,8 @@ def make_classifier_factory(backend: str, wire_codec: Optional[str] = None,
         kw["flow_table"] = flow_table
     if resident:
         kw["resident"] = True
+    if telemetry is not None:
+        kw["telemetry"] = telemetry
     return functools.partial(TorchClassifier, device=device, **kw)
 
 
@@ -304,6 +327,18 @@ class _ResidentCounters:
     def counter_values(self) -> Dict[str, int]:
         clf = self._get()
         return {} if clf is None else clf.resident_counters()
+
+
+class _TelemetryCounters:
+    """The telemetry plane's telemetry_* counters on /metrics; the getter
+    follows the classifier across table loads."""
+
+    def __init__(self, clf_getter) -> None:
+        self._get = clf_getter
+
+    def counter_values(self) -> Dict[str, int]:
+        clf = self._get()
+        return {} if clf is None else clf.telemetry_counters()
 
 
 class _FlowCounters:
@@ -376,13 +411,31 @@ class Daemon:
         tenants: Optional[int] = None,
         flow_table: Optional[FlowConfig] = None,
         resident: bool = False,
+        telemetry: Optional[SketchSpec] = None,
+        telemetry_drain: int = 256,
+        trace: bool = False,
+        trace_slow_us: float = 50_000.0,
     ) -> None:
         # resolve the device first: without a card the default backend
         # fails here, before any directory, thread or file is made
         factory = make_classifier_factory(backend, wire_codec=wire_codec,
                                           compressed=compressed, flow_table=flow_table,
-                                          resident=resident)
+                                          resident=resident, telemetry=telemetry)
         self.resident = bool(resident)
+        # the telemetry plane (--telemetry): a validated SketchSpec or None;
+        # the daemon owns the drain cadence, the summary records on the
+        # event ring, the telemetry_* counters and the deny-event sampling
+        self.telemetry = telemetry
+        self.telemetry_drain = max(1, int(telemetry_drain))
+        self._telemetry_attached: set = set()
+        self._telemetry_drain_last = 0.0
+        # serving-path tracing (--trace): span histograms on /metrics and
+        # sampled TraceSpanRecords for slow jobs
+        self.tracer = None
+        if trace:
+            from .obs.telemetry import SpanTracer
+
+            self.tracer = SpanTracer(slow_us=float(trace_slow_us))
         # the flow tier (--flow-table): a validated FlowConfig or None; the
         # daemon owns its eviction events and the idle-loop age sweep
         self.flow_table = flow_table
@@ -475,6 +528,17 @@ class Daemon:
         if self.resident:
             self._resident_counters = _ResidentCounters(lambda: self.syncer.classifier)
             self.metrics_registry.register_counters(self._resident_counters)
+        if self.telemetry is not None:
+            # updates, drains, summaries, sampled and suppressed raw events,
+            # the drain seq
+            self._telemetry_counters = _TelemetryCounters(lambda: self.syncer.classifier)
+            self.metrics_registry.register_counters(self._telemetry_counters)
+        if self.tracer is not None:
+            # span histograms (ingressnodefirewall_node_span_us) and trace_*
+            # counters; slow-job TraceSpanRecords share the event ring
+            self.tracer.attach_ring(self.ring)
+            self.metrics_registry.register_histograms(self.tracer.histograms)
+            self.metrics_registry.register_counters(self.tracer)
         if self.tenants_max:
             self.tenant_registry = self._build_tenant_registry(backend)
             # tenant_* counters (slabs, swaps, flips, clones, per-tenant
@@ -793,6 +857,7 @@ class Daemon:
         processed = 0
         chunk = self.ingest_chunk
         st = self.stage_seconds
+        tracer = self.tracer
 
         def finalize(fctx) -> None:
             """Write verdicts, consume the file, then apply stats and emit
@@ -820,7 +885,7 @@ class Daemon:
             os.replace(jpath + ".tmp", jpath)
             os.remove(fctx["path"])
             clf.stats.add(stats_from_results(results, np.asarray(batch.pkt_len)))
-            emit_deny_events(self.ring, results, batch.ifindex, batch.pkt_len, fb, batch=batch)
+            self._emit_deny_sampled(clf, results, batch.ifindex, batch.pkt_len, fb, batch)
             processed += 1
 
         def seg_done(fctx) -> None:
@@ -847,8 +912,14 @@ class Daemon:
                 fb = read_frames_any(path)
                 t1 = time.perf_counter()
                 batch = parse_frames_buf(fb)
+                t2 = time.perf_counter()
                 st["read"] += t1 - t0
-                st["parse"] += time.perf_counter() - t1
+                st["parse"] += t2 - t1
+                if tracer is not None:
+                    # per file: ingest = the file read, pack = the frame
+                    # parse (the wire pack is charged per job in prepare)
+                    tracer.histograms.observe("ingest", (t1 - t0) * 1e6)
+                    tracer.histograms.observe("pack", (t2 - t1) * 1e6)
             except (OSError, ValueError, struct.error, IndexError) as e:
                 # a bad file is consumed, or it would wedge every tick
                 log.error("bad ingest file %s: %s", fn, e)
@@ -929,11 +1000,14 @@ class Daemon:
             pad it, and (prepare_packed) choose the format, encode and
             start the copy.  None when every segment already failed."""
             nonlocal packed_ok
+            t_prep0 = time.perf_counter()
             segs = [(f, idx) for f, idx in job["segments"] if not f["failed"]]
             job["segments"] = segs
             if not segs:
                 return None
             n = sum(len(idx) for _f, idx in segs)
+            if tracer is not None:
+                job["trace"] = tracer.begin(n)
             if packed_ok:
                 parts = [f["batch"].pack_wire_subset(np.ascontiguousarray(idx, np.int64))
                          for f, idx in segs]
@@ -948,7 +1022,13 @@ class Daemon:
                     wire = np.concatenate([wire, padrows])
                 v4_only = all(v4 for _w, v4 in parts)
                 try:
-                    return ("plan", clf.prepare_packed(wire, v4_only, depth=job["depth"]))
+                    t_h2d0 = time.perf_counter()
+                    plan = clf.prepare_packed(wire, v4_only, depth=job["depth"])
+                    tr = job.get("trace")
+                    if tr is not None:
+                        tr.add("pack", t_h2d0 - t_prep0)
+                        tr.add("h2d", time.perf_counter() - t_h2d0)
+                    return ("plan", plan)
                 except RuntimeError:
                     # a concurrent load can flip the table to wide ruleIds
                     # (the full-batch path); a closed classifier re-raises
@@ -982,6 +1062,7 @@ class Daemon:
 
         def drain_one() -> None:
             job, pending = inflight.popleft()
+            tr = job.get("trace")
             t0 = time.perf_counter()
             try:
                 out = pending.result()
@@ -991,6 +1072,8 @@ class Daemon:
                 return
             t1 = time.perf_counter()
             st["wait"] += t1 - t0
+            if tr is not None:
+                tr.add("materialize", t1 - t0)
             results, xdp = np.asarray(out.results), np.asarray(out.xdp)
             off = 0
             for f, idx in job["segments"]:
@@ -1002,6 +1085,9 @@ class Daemon:
             st["finalize"] += time.perf_counter() - t1
             for f, _idx in job["segments"]:
                 seg_done(f)
+            if tr is not None:
+                tr.add("drain", time.perf_counter() - t1)
+                tracer.finish(tr)
 
         inflight: deque = deque()
         staged: deque = deque()
@@ -1036,6 +1122,9 @@ class Daemon:
                 t0 = time.perf_counter()
                 try:
                     pending = launch(prep)
+                    tr = job.get("trace")
+                    if tr is not None:
+                        tr.add("dispatch", time.perf_counter() - t0)
                 except Exception as e:
                     job_failed(job, e)
                     continue
@@ -1046,6 +1135,51 @@ class Daemon:
             if inflight:
                 drain_one()
         return processed
+
+    def _telemetry_maintenance(self) -> None:
+        """Idle-loop telemetry upkeep: attach the event ring and the drain
+        cadence to each new classifier generation's tier, and drain every
+        5 s when a window is open, so a quiet node still reports (the
+        admission-count cadence only fires under load)."""
+        if self.telemetry is None:
+            return
+        tier = getattr(self.syncer.classifier, "telemetry", None)
+        if tier is None:
+            return
+        if id(tier) not in self._telemetry_attached:
+            tier.attach_ring(self.ring)
+            tier.drain_every = self.telemetry_drain
+            self._telemetry_attached.add(id(tier))
+        now = time.monotonic()
+        if now - self._telemetry_drain_last >= 5.0:
+            self._telemetry_drain_last = now
+            if tier.counter_values()["telemetry_window_admissions"] > 0:
+                tier.drain(force=True)
+
+    def _emit_deny_sampled(self, clf, results, ifindex, pkt_len, frames, batch) -> None:
+        """Deny-event export with the telemetry tier's per-tenant token
+        bucket in front: the exact totals travel in the sketch summaries,
+        the bucket releases at most its budget of raw records, and the
+        rest count as telemetry_suppressed_events (policy, not ring
+        loss).  Without a telemetry tier every deny is emitted."""
+        tel = getattr(clf, "telemetry", None)
+        if tel is None:
+            emit_deny_events(self.ring, results, ifindex, pkt_len, frames, batch=batch)
+            return
+        results = np.asarray(results)
+        deny_idx = np.nonzero((results & 0xFF) == DENY)[0]
+        if len(deny_idx) == 0:
+            return
+        grant = tel.sample_allow(0, len(deny_idx))
+        if grant >= len(deny_idx):
+            emit_deny_events(self.ring, results, ifindex, pkt_len, frames, batch=batch)
+            return
+        if grant == 0:
+            return
+        keep = deny_idx[:grant]
+        emit_deny_events(self.ring, results[keep], np.asarray(ifindex)[keep],
+                         np.asarray(pkt_len)[keep],
+                         None if frames is None else [frames[int(i)] for i in keep])
 
     # -- HTTP endpoints ------------------------------------------------------
 
@@ -1123,6 +1257,10 @@ class Daemon:
                 self._flow_maintenance()
             except Exception as e:
                 log.error("flow maintenance error: %s", e)
+            try:
+                self._telemetry_maintenance()
+            except Exception as e:
+                log.error("telemetry maintenance error: %s", e)
 
     def stop(self) -> None:
         """SIGTERM path: stop polling and serving, detach the dataplane but
@@ -1231,6 +1369,29 @@ def main(argv: Optional[List[str]] = None) -> int:
                         "insert, one read back (cuda backend); implies a flow table (the "
                         "default geometry without --flow-table); resident_* gauges on "
                         "/metrics.  CLI beats INFW_RESIDENT")
+    p.add_argument("--telemetry", nargs="?", const="2048",
+                   default=os.environ.get("INFW_TELEMETRY") or None,
+                   help="the telemetry plane on the card (cuda backend): count-min and "
+                        "heavy-hitter sketches and per-tenant counters updated in the "
+                        "serving dispatch (kernel K9), per-tenant top-talker / deny-storm / "
+                        "SYN-rate summaries in events.log at a decimated cadence, "
+                        "telemetry_* counters on /metrics, token-bucket sampling of raw deny "
+                        "events.  Optional value = count-min width (default 2048); "
+                        "INFW_TELEMETRY_DEPTH and INFW_TELEMETRY_TOPK set depth and top-K.  "
+                        "CLI beats INFW_TELEMETRY")
+    p.add_argument("--telemetry-drain", type=int,
+                   default=os.environ.get("INFW_TELEMETRY_DRAIN") or 256,
+                   help="admissions per sketch drain (one small read back each; default "
+                        "256).  CLI beats INFW_TELEMETRY_DRAIN")
+    p.add_argument("--trace", action="store_true", default=_env_set("INFW_TRACE"),
+                   help="serving-path tracing: per-stage span clocks (ingest -> pack -> "
+                        "h2d -> dispatch -> materialize -> drain) as Prometheus histograms "
+                        "on /metrics, with sampled trace-span lines for slow jobs in "
+                        "events.log.  CLI beats INFW_TRACE")
+    p.add_argument("--trace-slow-us", type=float,
+                   default=os.environ.get("INFW_TRACE_SLOW_US") or 50_000.0,
+                   help="slow-job threshold of the sampled trace-span lines (default "
+                        "50000us).  CLI beats INFW_TRACE_SLOW_US")
     for flag, env, item in REFUSED_FLAGS:
         p.add_argument(flag, nargs="?", const="1", default=None,
                        help=f"not in the port yet: {item} (also {env})")
@@ -1273,6 +1434,30 @@ def main(argv: Optional[List[str]] = None) -> int:
             )
         except ValueError as e:
             p.error(str(e))
+    # a bad sketch width or drain cadence (flag or env) fails the launch,
+    # never the sync loop (the JAX daemon's validation)
+    telemetry_spec = None
+    if args.telemetry is not None and str(args.telemetry) not in ("0", "", "false", "no"):
+        if args.backend == "cpu":
+            p.error("--telemetry requires the cuda backend (the cpu backend has no device "
+                    "sketch plane)")
+        raw = str(args.telemetry)
+        if raw in ("1", "true", "yes"):
+            raw = "2048"  # bare flag or truthy env: the default geometry
+        try:
+            if int(raw) < 8:
+                raise ValueError(f"--telemetry width must be >= 8, got {raw}")
+            telemetry_spec = SketchSpec.make(
+                width=int(raw),
+                depth=int(os.environ.get("INFW_TELEMETRY_DEPTH") or 4),
+                topk=int(os.environ.get("INFW_TELEMETRY_TOPK") or 256),
+            )
+        except ValueError as e:
+            p.error(str(e))
+    if int(args.telemetry_drain) < 1:
+        p.error(f"--telemetry-drain must be >= 1, got {args.telemetry_drain}")
+    if not float(args.trace_slow_us) > 0:
+        p.error(f"--trace-slow-us must be positive, got {args.trace_slow_us}")
 
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(name)s %(levelname)s %(message)s")
@@ -1296,6 +1481,10 @@ def main(argv: Optional[List[str]] = None) -> int:
         tenants=int(args.tenants) if args.tenants else None,
         flow_table=flow_cfg,
         resident=args.resident,
+        telemetry=telemetry_spec,
+        telemetry_drain=int(args.telemetry_drain),
+        trace=args.trace,
+        trace_slow_us=float(args.trace_slow_us),
     )
     stop = threading.Event()
 

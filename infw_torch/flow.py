@@ -385,6 +385,7 @@ class FlowTier:
         # per-B zero tenant and flags columns, so the common dispatch
         # uploads neither
         self._zeros_cache: Dict[int, tuple] = {}
+        self._zeros_lock = threading.Lock()
         # (event, stream) of the last launch on a card
         self._last = None
         # resident serving: the device epoch (made at the first resident
@@ -407,12 +408,18 @@ class FlowTier:
         return torch.from_numpy(np.ascontiguousarray(a).view(np.int32).copy()).to(self._device)
 
     def _zeros(self, b: int):
-        z = self._zeros_cache.get(b)
-        if z is None:
-            z = (torch.zeros(b, dtype=torch.int32, device=self._device),
-                 torch.zeros(b, dtype=torch.int32, device=self._device))
-            self._zeros_cache[b] = z
-        return z
+        """The zero tenant and flags columns of ``b`` lanes (or (k, b) for a
+        superbatch), made once per shape and kept for the tier's life: a CUDA
+        graph bakes their address.  Made under a lock of their own by a
+        blocking copy, so every thread gets the same pair and every stream
+        reads the zeros."""
+        with self._zeros_lock:
+            z = self._zeros_cache.get(b)
+            if z is None:
+                zero = np.zeros(b if isinstance(b, int) else tuple(b), np.int32)
+                z = (self._put(zero), self._put(zero))
+                self._zeros_cache[b] = z
+            return z
 
     def _columns(self, b: int, tenant_np, tflags_np):
         zt, zf = self._zeros(b)
@@ -609,14 +616,16 @@ class FlowTier:
         return self._epoch_dev
 
     def _zeros_noted(self, key, alloc_note):
-        if key not in self._zeros_cache and alloc_note is not None:
+        with self._zeros_lock:
+            fresh = key not in self._zeros_cache
+        if fresh and alloc_note is not None:
             alloc_note()
         return self._zeros(key)
 
     def resident_dispatch(self, launch, b: int, wire_np: Optional[np.ndarray] = None,
                           tenant=None, tflags=None, tenant_np: Optional[np.ndarray] = None,
                           tflags_np: Optional[np.ndarray] = None, gens_snap=None,
-                          alloc_note=None, k: int = 0):
+                          alloc_note=None, k: int = 0, telemetry=None):
         """Run one resident step (``k`` = 0) or a superbatch of ``k`` steps
         (flow.py resident_dispatch and resident_dispatch_super).  Under the
         lock the host epoch advances by one step each, the device epoch is
@@ -625,7 +634,10 @@ class FlowTier:
         (``.host()`` gives the fused words, (L,) or (k, L)).  ``tenant`` and
         ``tflags`` are device columns ((b,) or (k, b)), None for the tier's
         zero columns; ``tenant_np`` / ``tflags_np`` feed the model's
-        mirror.  Returns (handle, last epoch)."""
+        mirror.  With ``telemetry`` (an obs.telemetry.TelemetryTier) the
+        launch runs inside its exchange, under its lock taken inside this
+        tier's (the one nesting order), with the plane's operands in
+        ``ResidentOps.sketch``.  Returns (handle, last epoch)."""
         steps = max(int(k), 1)
         key = (k, b) if k else b
         if tenant is None:
@@ -642,9 +654,14 @@ class FlowTier:
             epoch_dev = self._resident_epoch(epoch0, alloc_note)
             gens_src = self._gens_dev if gens_snap is None else gens_snap[0]
             gens_op, pages_op = self._resident_operands(gens_src)
-            handle = launch(ResidentOps(self._flow, gens_op, pages_op, epoch_dev, tenant, tflags,
-                                        self.config.max_age, self.config.entries,
-                                        self.config.ways))
+            ops = ResidentOps(self._flow, gens_op, pages_op, epoch_dev, tenant, tflags,
+                              self.config.max_age, self.config.entries, self.config.ways)
+            if telemetry is None:
+                handle = launch(ops)
+            else:
+                handle = telemetry.resident_exchange(
+                    lambda sk: launch(ops._replace(sketch=sk)), wire_np, tenant_np, tflags_np,
+                    k=k)
             self._record(stream)
             self._epoch_dev_val = epoch
             if self.model is not None:
@@ -744,6 +761,8 @@ class ResidentOps(NamedTuple):
     max_age: int
     slab_entries: int
     ways: int
+    #: the telemetry plane's obs.telemetry.SketchOps (None when off)
+    sketch: object = None
 
 
 def wrap_epoch(e: int) -> int:

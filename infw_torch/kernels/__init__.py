@@ -2,14 +2,15 @@
 
 ``all_kernels()`` lists every hand-written kernel entry point (its
 ``launches`` count included; K3's, K3b's and K6's fused entries share
-their sources' libraries, as K7 and K8 and their resident entries share flow_table's); ``chip_smoke.py`` builds them together and checks
+their sources' libraries, as K7 and K8 and their resident entries share
+flow_table's, and K9's two entries sketch_update's); ``chip_smoke.py`` builds them together and checks
 each against its plain version.
 """
 from __future__ import annotations
 
 from typing import List
 
-from . import arena_dense, arena_walk, cwalk, dense, flow, gather, walk, wire_decode
+from . import arena_dense, arena_walk, cwalk, dense, flow, gather, sketch, walk, wire_decode
 from ._build import Kernel
 
 
@@ -17,4 +18,5 @@ def all_kernels() -> List[Kernel]:
     return [dense.KERNEL, walk.KERNEL, cwalk.KERNEL, cwalk.FUSED_KERNEL, wire_decode.KERNEL,
             arena_walk.KERNEL, arena_walk.FUSED_KERNEL, gather.KERNEL, arena_dense.KERNEL,
             arena_dense.FUSED_KERNEL, flow.PROBE_KERNEL, flow.INSERT_KERNEL,
-            flow.PROBE_RESIDENT_KERNEL, flow.INSERT_RESIDENT_KERNEL]
+            flow.PROBE_RESIDENT_KERNEL, flow.INSERT_RESIDENT_KERNEL, sketch.KERNEL,
+            sketch.RESIDENT_KERNEL]

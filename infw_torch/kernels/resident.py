@@ -23,7 +23,12 @@ device epoch in place, and that a CUDA graph captures whole (the pool in
    0xFFFF)`` into the fused output's result words, the insert of the lanes
    that missed (``lane_ok = ~hit``, the same eligible lanes in the same
    order as the host's compaction of the misses), its counts into the
-   fused output, and the device epoch advanced.
+   fused output, and the device epoch advanced;
+4. with the telemetry plane on (``ops.sketch``, obs.telemetry.SketchOps),
+   K9 through its resident entry (kernels/sketch.py): the sketch update
+   over every lane with the merged verdicts K8 wrote (the served verdicts,
+   ``_sketch_update_core`` on ``merged3``); the bucket's KIND_OTHER
+   padding rows touch nothing.
 
 The fused output is JAX's word layout: ceil(B/2) words of u16-pair-packed
 merged results, ceil(B/32) words of the hit bitmap, [hits, stale], then
@@ -40,6 +45,7 @@ import torch
 
 from . import cwalk, dense, overlay, walk
 from . import flow as kflow
+from . import sketch as ksketch
 from .torchpath import unpack_res16_host
 
 
@@ -77,7 +83,8 @@ def resident_step(ops, tables: StepTables, wire: torch.Tensor,
                   scratch: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One admission (jaxpath._resident_step_core): ``ops`` is the flow
     tier's flow.ResidentOps (columns, generation and page operands, device
-    epoch, tenant and flag columns, geometry), ``wire`` the (B, 4 | 7)
+    epoch, tenant and flag columns, geometry, the telemetry plane's
+    operands or None), ``wire`` the (B, 4 | 7)
     int32 wire.  Updates the columns and the device epoch in place; writes
     and returns the fused output (``out``, at least resident_out_words(B)
     words, allocated when None).  ``scratch`` is the kernels' (B, 2) lane
@@ -93,6 +100,10 @@ def resident_step(ops, tables: StepTables, wire: torch.Tensor,
     kflow.flow_insert_resident(ops.flow, ops.gens, ops.pages, wire, ops.tenant, ops.tflags,
                                res16[:nw], out[nw: nw + nh], out[:nw],
                                out[nw + nh + 2: nw + nh + 6], ops.epoch_dev, scratch, **geo)
+    if ops.sketch is not None:
+        sk = ops.sketch
+        ksketch.sketch_update_resident(sk.state, wire, ops.tenant, ops.tflags, out[:nw], sk.spec,
+                                       winner=sk.winner)
     return out[: resident_out_words(B)]
 
 

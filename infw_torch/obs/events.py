@@ -14,7 +14,9 @@ same line format to a sink.  Replay-scale deny sets travel as one columnar
 BatchDenyRecord and drain as 32-byte binary spill rows (the summary line
 keeps the reference's "28B/event" text).  Other line records (one
 PatchTxnRecord per flushed edit transaction, one TenantSwapRecord per
-tenant lifecycle transition) share the ring.
+tenant lifecycle transition, one FlowEvictRecord per evicting insert, one
+TelemetrySummaryRecord per telemetry drain and one TraceSpanRecord per
+sampled slow admission) share the ring.
 """
 from __future__ import annotations
 
@@ -22,8 +24,8 @@ import ipaddress
 import struct
 import threading
 from collections import deque
-from dataclasses import dataclass
-from typing import Callable, List, Optional, Sequence
+from dataclasses import dataclass, field
+from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 
@@ -207,6 +209,65 @@ class FlowEvictRecord:
         return [
             f"flow-evict: {self.evicted} flow(s) displaced by "
             f"{self.inserted} insert(s) at epoch {self.epoch}"
+        ]
+
+
+@dataclass
+class TelemetrySummaryRecord:
+    """One decimated drain window of the telemetry plane, exactly once
+    (infw_torch.obs.telemetry): per-tenant traffic summaries (packets /
+    allow / deny / pure-SYN counts with deny-storm and SYN-flood flags)
+    and the window's heavy hitters decoded from the device top-K table.
+    ``seq`` is the gap-free drain generation: consumers detect loss by
+    sequence, not by absence."""
+
+    seq: int
+    admissions: int
+    tenants: List[dict] = field(default_factory=list)
+    top: List[dict] = field(default_factory=list)
+
+    def lines(self) -> List[str]:
+        out = [
+            f"telemetry-summary seq={self.seq} "
+            f"admissions={self.admissions} tenants={len(self.tenants)}"
+        ]
+        for t in self.tenants:
+            flags = []
+            if t.get("deny_storm"):
+                flags.append("DENY-STORM")
+            if t.get("syn_flood"):
+                flags.append("SYN-FLOOD")
+            tag = (" [" + ",".join(flags) + "]") if flags else ""
+            out.append(
+                f"\ttenant {t['tenant']}: {t['packets']} pkts, "
+                f"{t['allow']} allow, {t['deny']} deny, "
+                f"{t['syn']} syn{tag}"
+            )
+        for h in self.top:
+            out.append(
+                f"\ttop-talker tenant {h['tenant']} {h['src']} "
+                f"{h['verdict']}: ~{h['count']} pkts"
+            )
+        return out
+
+
+@dataclass
+class TraceSpanRecord:
+    """One sampled slow admission's per-stage span breakdown (the
+    histograms carry the population; the record the shape of one
+    outlier)."""
+
+    total_us: float
+    n_packets: int
+    spans_us: Dict[str, float] = field(default_factory=dict)
+
+    def lines(self) -> List[str]:
+        parts = " ".join(
+            f"{k}={v:.0f}us" for k, v in self.spans_us.items() if v > 0
+        )
+        return [
+            f"trace-span: {self.total_us:.0f}us over {self.n_packets} "
+            f"pkt(s) [{parts}]"
         ]
 
 

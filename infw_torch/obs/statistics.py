@@ -88,6 +88,10 @@ class Registry:
         # {short_name: int}, rendered as TYPE counter under the node
         # namespace (the deny-event ring's lost/queued totals)
         self._counter_refs: List["weakref.ref"] = []
+        # histogram providers: objects exposing render_histograms() ->
+        # pre-rendered Prometheus histogram text (the serving-path span
+        # tracer, obs.telemetry.SpanHistograms), weak like the rest
+        self._hist_refs: List["weakref.ref"] = []
 
     def register(self, inst: "Statistics") -> None:
         """Idempotent (regOnce, statistics.go:79-86)."""
@@ -106,6 +110,15 @@ class Registry:
             if any(r() is provider for r in self._counter_refs):
                 return
             self._counter_refs.append(weakref.ref(provider))
+
+    def register_histograms(self, provider) -> None:
+        """Register a histogram provider (weakly, like collectors);
+        idempotent per provider."""
+        with self._lock:
+            self._hist_refs = [r for r in self._hist_refs if r() is not None]
+            if any(r() is provider for r in self._hist_refs):
+                return
+            self._hist_refs.append(weakref.ref(provider))
 
     def unregister(self, inst: "Statistics") -> None:
         with self._lock:
@@ -143,7 +156,15 @@ class Registry:
             full = f"{METRIC_INF_NAMESPACE}_{METRIC_INF_SUBSYSTEM_NODE}_{name}"
             lines.append(f"# TYPE {full} counter")
             lines.append(f"{full} {counters[name]}")
-        return out + ("\n".join(lines) + "\n" if lines else "")
+        out = out + ("\n".join(lines) + "\n" if lines else "")
+        with self._lock:
+            hists = [h for r in self._hist_refs if (h := r()) is not None]
+        for h in hists:
+            try:
+                out += h.render_histograms()
+            except Exception:
+                pass
+        return out
 
 
 class Statistics:

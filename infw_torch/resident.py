@@ -11,7 +11,8 @@ whose probe, miss classify and insert each read back.
 over (``context``) and, on the card, the CUDA graphs that replay it:
 
 - one ``torch.cuda.CUDAGraph`` per (table layout, bucket, wire width,
-  flags or none, trie level count, superbatch K, pipeline slot).  A graph
+  flags or none, trie level count, superbatch K, telemetry on or off,
+  pipeline slot).  A graph
   reads the tables from static buffers of the context's layout, which each
   dispatch refills in stream order from its own generation's tensors (a
   copy of each tensor that changed since the last dispatch; a patch clones
@@ -35,7 +36,14 @@ over (``context``) and, on the card, the CUDA graphs that replay it:
   output was not read yet first waits for that output's event and keeps a
   host copy of it (the JAX package's back-to-back unread outputs).  A
   graph's lock is held from there until its replay is enqueued, so
-  dispatches from several threads that land on one graph take turns;
+  dispatches from several threads that land on one graph take turns.
+  Reading an output takes only a leaf lock of its graph (``land_lock``),
+  never the graph's: the flow and telemetry tiers read outputs under
+  their own locks when they replay their host models, and a dispatch
+  holds the graph's lock while it waits for theirs;
+- a graph keeps the operands and tables its capture baked in (``baked``):
+  the tiers' columns and zero columns, the static tables, the epoch, so
+  no address it replays is freed and reused;
 - capturing is not launching: the kernels' ``launches`` counts taken
   during a capture are taken back, and each replay adds them again.
 
@@ -154,7 +162,13 @@ class _Graph:
         self.pinned_out = torch.empty(self.out_words, dtype=torch.int32, pin_memory=True)
         self.event = torch.cuda.Event()
         self.lock = threading.RLock()
+        # guards only the read of the last dispatch's output; taken inside
+        # ``lock`` and inside the tiers' locks, and takes no lock itself
+        self.land_lock = threading.Lock()
         self.graph = None
+        # the operands and tables the capture baked in: held as long as the
+        # graph, so no address it replays is freed and reused
+        self.baked = None
         self.deltas: Dict[object, int] = {}
         self.landing: Optional["_Landing"] = None  # the last dispatch's, until read
 
@@ -207,7 +221,9 @@ class _Landing:
     def host(self) -> np.ndarray:
         g = self._g
         if self._arr is None and g is not None:
-            with g.lock:  # not while a dispatch refills this slot
+            # a dispatch that reuses the slot reads this output first, under
+            # the same leaf lock, so the event is still this dispatch's
+            with g.land_lock:
                 if self._arr is None:
                     g.event.synchronize()
                     arr = _rebucket(g.pinned_out.numpy().reshape(max(g.k, 1), -1), self._n,
@@ -338,7 +354,14 @@ class ResidentPool:
         new = ResidentContext(gen=gen, tables=step_tables, active=active, graphs=graphs,
                               static=static)
         with self._lock:
-            old, self._ctx = self._ctx, new
+            cur = self._ctx
+            if cur is not None and cur is not ctx and cur.gen == gen:
+                new = None  # another thread installed this generation first
+            else:
+                old, self._ctx = cur, new
+        if new is None:
+            self.note("reuses")
+            return cur
         if old is not None and old.graphs is not graphs:
             for g in list(old.graphs.values()):
                 g.event.synchronize()
@@ -349,10 +372,11 @@ class ResidentPool:
 
     def dispatch(self, tier, ctx: ResidentContext, n_levels: Optional[int],
                  wire_np: np.ndarray, tflags_np: Optional[np.ndarray], gens_snap,
-                 k: int = 0):
+                 k: int = 0, telemetry=None):
         """Enqueue one step (``k`` = 0, ``wire_np`` (B, W)) or a superbatch
         of ``k`` steps (``wire_np`` (k, B, W)) through the flow tier ->
-        (output handle, last epoch)."""
+        (output handle, last epoch).  ``telemetry`` (a TelemetryTier or
+        None) adds the sketch update to each step."""
         tables = ctx.tables._replace(n_levels=n_levels)
         b, width = wire_np.shape[-2], wire_np.shape[-1]
         step = resident_superbatch if k else resident_step
@@ -366,21 +390,21 @@ class ResidentPool:
 
             return tier.resident_dispatch(launch, b, wire_np=wire_np, tflags=tflags,
                                           tflags_np=tflags_np, gens_snap=gens_snap,
-                                          alloc_note=self.note_alloc, k=k)
+                                          alloc_note=self.note_alloc, k=k, telemetry=telemetry)
         bucket = _bucket(b)
         with self._lock:
             slot, self._slot = self._slot, self._slot ^ 1
-            key = (bucket, width, tflags_np is not None, n_levels, k, slot)
+            key = (bucket, width, tflags_np is not None, n_levels, k, telemetry is not None, slot)
             g = ctx.graphs.get(key)
             if g is None:
                 g = _Graph(k, bucket, width, tflags_np is not None, self._device)
                 ctx.graphs[key] = g
         with g.lock:
             return self._dispatch_graph(tier, ctx, g, step, n_levels, b, wire_np, tflags_np,
-                                        gens_snap, k)
+                                        gens_snap, k, telemetry)
 
     def _dispatch_graph(self, tier, ctx: ResidentContext, g: _Graph, step, n_levels, b: int,
-                        wire_np, tflags_np, gens_snap, k: int):
+                        wire_np, tflags_np, gens_snap, k: int, telemetry):
         """dispatch's card half, under ``g``'s lock."""
         g.take_landing()
         g.event.synchronize()  # the pinned input's last copy has run
@@ -406,7 +430,7 @@ class ResidentPool:
 
         return tier.resident_dispatch(launch, g.bucket, wire_np=wire_np, tflags=g.tflags(),
                                       tflags_np=tflags_np, gens_snap=gens_snap,
-                                      alloc_note=self.note_alloc, k=k)
+                                      alloc_note=self.note_alloc, k=k, telemetry=telemetry)
 
     def _capture(self, g: _Graph, ops, tables: StepTables, step) -> None:
         """Capture ``step`` on ``g``'s buffers and the tier's operands.  A
@@ -425,6 +449,7 @@ class ResidentPool:
         # while this one captures
         with torch.cuda.graph(graph, capture_error_mode="thread_local"):
             step(ops, tables, g.wire(), g.fused(), g.scratch)
+        g.baked = (ops, tables)
         g.deltas = {}
         for k, n0 in zip(kernels, before):
             if k.launches != n0:

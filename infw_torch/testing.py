@@ -437,6 +437,87 @@ def flow_trace_batch(
     return batch, {"n_flows": n_flows, "repeats": int(n - n_flows)}
 
 
+# --- adversarial attack traces (the telemetry tier's workload) ---------------
+
+ATTACK_MODES = ("synflood", "portscan", "denystorm")
+
+
+def attack_trace_batch(
+    rng: np.random.Generator,
+    tables: CompiledTables,
+    n_packets: int,
+    mode: str = "synflood",
+    attack_fraction: float = 0.4,
+    attack_start: float = 0.25,
+    chunk_packets: int = 1024,
+    n_attackers: int = 2,
+) -> Tuple[PacketBatch, Dict[str, object]]:
+    """Seeded adversarial traffic for the telemetry plane: background
+    traffic with flow locality (flow_trace_batch at 50% established)
+    carrying an attack that begins at ``attack_start`` of the stream
+    (rounded down to a chunk boundary) and claims ``attack_fraction`` of
+    the lanes from then on.
+
+    Modes: ``synflood`` (``n_attackers`` IPv4 sources send pure-SYN TCP to
+    one port), ``portscan`` (one IPv4 source sweeps destination ports),
+    ``denystorm`` (attackers replay packets the oracle says this ruleset
+    denies).  Byte-identical to the JAX package's generator for the same
+    seeded rng and arguments.  Returns (batch, meta) with meta = {"mode",
+    "start", "n_attack", "attackers": [(ip_words row, kind)],
+    "attack_mask", "n_flows"}."""
+    if mode not in ATTACK_MODES:
+        raise ValueError(f"unknown attack mode {mode!r} (expected one of {ATTACK_MODES})")
+    n = int(n_packets)
+    batch, meta = flow_trace_batch(rng, tables, n, 0.5, chunk_packets=chunk_packets)
+    cp = max(int(chunk_packets), 1)
+    start = (int(n * float(attack_start)) // cp) * cp
+    mask = (np.arange(n) >= start) & (rng.random(n) < float(attack_fraction))
+    k = int(mask.sum())
+    flags = np.asarray(batch.tcp_flags, np.int32)
+    attackers: List[Tuple[np.ndarray, int]] = []
+    if mode in ("synflood", "portscan"):
+        n_src = 1 if mode == "portscan" else max(1, int(n_attackers))
+        srcs = np.zeros((n_src, 4), np.uint32)
+        srcs[:, 0] = rng.integers(1, 1 << 32, n_src, dtype=np.uint64)
+        lane_src = np.arange(k) % n_src
+        batch.kind[mask] = 1
+        batch.l4_ok[mask] = 1
+        batch.ip_words[mask] = srcs[lane_src]
+        batch.proto[mask] = IPPROTO_TCP
+        batch.icmp_type[mask] = 0
+        batch.icmp_code[mask] = 0
+        if mode == "synflood":
+            batch.dst_port[mask] = 443
+            flags[mask] = TCP_SYN  # pure SYN, never promotes
+        else:
+            batch.dst_port[mask] = np.arange(k) % 65536
+            flags[mask] = TCP_ACK
+        attackers = [(srcs[i].copy(), 1) for i in range(n_src)]
+    else:  # denystorm: oracle-confirmed deny lanes, replayed verbatim
+        from . import oracle
+
+        pool = random_batch_fast(rng, tables, max(4 * n_attackers, 256))
+        ref = oracle.classify(tables, pool)
+        deny = np.nonzero((ref.results & 0xFF) == 1)[0]
+        if len(deny) == 0:
+            raise ValueError("denystorm needs at least one oracle-DENY lane in the "
+                             "table-biased pool; got none (all-allow ruleset?)")
+        picks = deny[: max(1, int(n_attackers))]
+        lane_src = np.arange(k) % len(picks)
+        for f in ("kind", "l4_ok", "ifindex", "ip_words", "proto", "dst_port", "icmp_type",
+                  "icmp_code"):
+            getattr(batch, f)[mask] = np.asarray(getattr(pool, f))[picks][lane_src]
+        flags[mask] = np.where(np.asarray(pool.proto)[picks][lane_src] == IPPROTO_TCP,
+                               TCP_ACK, 0)
+        attackers = [(np.asarray(pool.ip_words)[i].copy(), int(np.asarray(pool.kind)[i]))
+                     for i in picks]
+    batch.tcp_flags = flags
+    return batch, {
+        "mode": mode, "start": int(start), "n_attack": k, "attackers": attackers,
+        "attack_mask": mask, "n_flows": meta["n_flows"],
+    }
+
+
 #: the named cases of flow_kernel_case
 FLOW_KERNEL_CASES = (
     "fin_rst_same_slot", "teardown_then_hit", "duplicate_keys", "full_slab_tied_epochs",

@@ -1,4 +1,4 @@
-"""Kernels K1, K2, K3, K4, K3b, K5, K6, K7 and K8 on the card against
+"""Kernels K1, K2, K3, K4, K3b, K5, K6, K7, K8 and K9 on the card against
 their plain PyTorch versions, at small sizes, K3's and K3b's fused wire-to-verdict
 entries, the wire codecs through the classifier, the multi-tenant arena
 classifier, patched tables and the overlay combine.
@@ -2038,14 +2038,18 @@ def test_resident_dispatches_from_two_streams(cuda):
 def test_resident_dispatches_from_threads_on_their_streams(cuda):
     """Three threads, each on a stream of its own, dispatch admissions at
     once and read them back: every result equals the oracle's, every
-    dispatch is counted, and the tracked host model (replayed in epoch
-    order) equals the columns."""
+    dispatch is counted, and the tracked host models (replayed in epoch
+    order) equal the flow columns and, with the telemetry plane on, the
+    sketch tensors."""
     import threading
+
+    from infw_torch.kernels.sketch import SketchSpec
 
     rng = np.random.default_rng(29)
     tables = testing.random_tables_fast(rng, 5000, width=4, v6_fraction=0.5)
     clf = TorchClassifier(device=cuda, force_path="trie", resident=True, flow_table=512,
-                          flow_track_model=True)
+                          flow_track_model=True, telemetry=SketchSpec.make(width=256, topk=64),
+                          telemetry_track_model=True)
     clf.load_tables(tables)
     batch, _ = testing.flow_trace_batch(rng, tables, 24 * 128, 0.8, chunk_packets=128)
     chunks = [batch.slice(128 * j, 128 * (j + 1)) for j in range(24)]
@@ -2074,3 +2078,203 @@ def test_resident_dispatches_from_threads_on_their_streams(cuda):
     model = clf.flow.model.columns()
     for k in cols:
         np.testing.assert_array_equal(cols[k], np.asarray(model[k]).view(cols[k].dtype))
+    tel = clf.telemetry
+    tel.resident_note_materialized(0)
+    assert tel.counter_values()["telemetry_updates_total"] == 24
+    sk, sm = tel.columns(), tel.model.columns()
+    for k in sk:
+        np.testing.assert_array_equal(sk[k], sm[k], err_msg=k)
+    assert sk["tcnt"][0, 0] > 0
+
+
+# --- K9, the telemetry plane's sketch update -------------------------------------------
+
+
+def _k9_case(rng, tables, b, width, spec_kw, pool=64):
+    """(spec, wire, tenant, tflags, res) of ``b`` lanes drawn from ``pool``
+    packets (so keys repeat), on the CPU."""
+    from infw_torch.kernels.sketch import SketchSpec
+
+    spec = SketchSpec.make(**spec_kw)
+    p = testing.random_batch_fast(rng, tables, max(pool, 8))
+    if width == 4:
+        p = p.take(np.nonzero(p.kind == 1)[0])
+        wire = p.pack_wire_subset(np.arange(len(p)))[0]
+    else:
+        wire = p.pack_wire()
+    n = wire.shape[0]
+    res = rng.integers(0, 4, n).astype(np.uint32) | (rng.integers(0, 5, n).astype(np.uint32) << 8)
+    tenant = rng.integers(-1, spec.max_tenants + 1, n).astype(np.int32)
+    idx = rng.integers(0, n, b)
+    flags = rng.integers(0, 32, b).astype(np.int32)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a).view(np.int32))  # noqa: E731
+    return spec, t(wire[idx]), t(tenant[idx]), t(flags), t(res[idx])
+
+
+def _k9_against_plain(cuda, spec, batches, grid=0, resident=False):
+    """K9 on the card against the plain version on the CPU over several
+    batches from the same (non-zero) state: equal state after each, the
+    winner scratch back at -1, one launch a call."""
+    from infw_torch.kernels import sketch as ksk
+    from infw_torch.kernels.torchpath import _pack_res16
+
+    dev_state, cpu_state = ksk.zero_state(spec, cuda), ksk.zero_state(spec, "cpu")
+    winner = ksk.empty_winner(spec, cuda)
+    kern = ksk.RESIDENT_KERNEL if resident else ksk.KERNEL
+    for wire, tenant, flags, res in batches:
+        if resident:
+            res_in = _pack_res16(res.long() & 0xFFFF)
+            res = res & 0xFFFF
+        else:
+            res_in = res
+        before = kern.launches
+        entry = ksk.sketch_update_resident if resident else ksk.sketch_update
+        entry(dev_state, wire.to(cuda), tenant.to(cuda), flags.to(cuda), res_in.to(cuda), spec,
+              winner=winner, _grid=grid)
+        torch.cuda.synchronize()
+        assert kern.launches == before + 1
+        ksk.sketch_update_plain(cpu_state, wire, tenant, flags, res, spec)
+        for f in ksk.SketchState._fields:
+            assert torch.equal(getattr(dev_state, f).cpu(), getattr(cpu_state, f)), f
+        assert bool((winner == -1).all())
+    return cpu_state
+
+
+@pytest.mark.parametrize("b", [1, 31, 256, 4096, 65536])
+@pytest.mark.parametrize("width", [4, 7])
+def test_k9_matches_plain(cuda, b, width):
+    rng = np.random.default_rng(b + width)
+    tables = testing.random_tables_fast(rng, 500, width=4, v6_fraction=0.4)
+    batches = [_k9_case(rng, tables, b, width, dict(width=256, topk=64, max_tenants=2))
+               for _ in range(3)]
+    st = _k9_against_plain(cuda, batches[0][0], [x[1:] for x in batches])
+    assert int(st.tcnt[:, 0].sum()) > 0
+
+
+@pytest.mark.parametrize("geom", ["ways1", "ways2", "ways3", "ways5", "ways8", "depth1",
+                                  "depth8", "sat3", "topk8", "tenants5"])
+def test_k9_geometries_match_plain(cuda, geom):
+    rng = np.random.default_rng(len(geom) * 7 + ord(geom[-1]))
+    tables = testing.random_tables_fast(rng, 500, width=4, v6_fraction=0.4)
+    kw = dict(width=64, topk=32, max_tenants=2)
+    if geom.startswith("ways"):
+        kw["ways"] = int(geom[4:])
+    elif geom.startswith("depth"):
+        kw["depth"] = int(geom[5:])
+    elif geom == "sat3":
+        kw.update(sat=3, width=16)
+    elif geom == "topk8":
+        kw.update(topk=8, ways=1)
+    else:
+        kw["max_tenants"] = 5
+    batches = [_k9_case(rng, tables, 2000, 7, kw, pool=128) for _ in range(3)]
+    st = _k9_against_plain(cuda, batches[0][0], [x[1:] for x in batches])
+    if geom == "sat3":
+        assert int(st.cms.max()) == 3
+
+
+@pytest.mark.parametrize("grid", [1, 3])
+def test_k9_forced_grid_matches_plain(cuda, grid):
+    """Many lanes a thread: every phase's grid-stride loop and the warp
+    aggregation over lanes past the first round."""
+    rng = np.random.default_rng(grid)
+    tables = testing.random_tables_fast(rng, 500, width=4, v6_fraction=0.4)
+    batches = [_k9_case(rng, tables, 20_001, 7, dict(width=128, topk=32)) for _ in range(2)]
+    _k9_against_plain(cuda, batches[0][0], [x[1:] for x in batches], grid=grid)
+
+
+def test_k9_resident_entry_matches_plain(cuda):
+    rng = np.random.default_rng(99)
+    tables = testing.random_tables_fast(rng, 500, width=4, v6_fraction=0.4)
+    batches = [_k9_case(rng, tables, 4097, 7, dict(width=256, topk=64)) for _ in range(3)]
+    _k9_against_plain(cuda, batches[0][0], [x[1:] for x in batches], resident=True)
+
+
+def test_k9_hot_keys_and_a_wrapping_counter(cuda):
+    """One key on every lane (one bucket a row, one slot, one tenant row:
+    the warp aggregation's whole-warp groups), then a counter at 2^31 - 2
+    that the adds wrap past, against the plain version."""
+    from infw_torch.kernels import sketch as ksk
+
+    rng = np.random.default_rng(5)
+    tables = testing.random_tables_fast(rng, 100, width=4)
+    spec, wire, tenant, flags, res = _k9_case(rng, tables, 70_000, 7, dict(width=64, topk=16),
+                                              pool=1)
+    tenant[:] = 0
+    wire[:] = wire[0]
+    wire[:, 0] = (wire[:, 0] & ~3) | 1
+    res[:] = res[0]
+    dev = ksk.zero_state(spec, cuda)
+    cpu = ksk.zero_state(spec, "cpu")
+    for st in (dev, cpu):
+        st.cms.fill_(2**31 - 2)
+    ksk.sketch_update(dev, wire.to(cuda), tenant.to(cuda), flags.to(cuda), res.to(cuda), spec)
+    ksk.sketch_update_plain(cpu, wire, tenant, flags, res, spec)
+    torch.cuda.synchronize()
+    for f in ksk.SketchState._fields:
+        assert torch.equal(getattr(dev, f).cpu(), getattr(cpu, f)), f
+    assert int(cpu.cms.min()) < 0 and int(cpu.tcnt[0, 0]) == 70_000
+
+
+@pytest.mark.parametrize("path", ["dense", "trie"])
+def test_resident_graph_with_sketch_matches_the_cpu_and_the_eager_step(cuda, path):
+    """The resident classifier with the telemetry plane on the card against
+    the same on the CPU over a flow trace at ragged sizes: equal outputs,
+    flow columns and sketch tensors, each equal to the tracked model; one
+    more admission's graph against the eager step (K9 as step 4) on clones
+    of the columns and the sketch."""
+    from infw_torch import flow as flow_mod
+    from infw_torch.kernels import flow as kflow
+    from infw_torch.kernels import sketch as ksk
+    from infw_torch.kernels.resident import resident_fused_host, resident_step
+    from infw_torch.obs.telemetry import SketchOps
+
+    rng = np.random.default_rng(31)
+    tables = testing.random_tables_fast(rng, 300 if path == "dense" else 5000, width=4,
+                                        v6_fraction=0.5)
+    spec = ksk.SketchSpec.make(width=512, topk=64)
+    fp = None if path == "dense" else path
+    gpu = TorchClassifier(device=cuda, force_path=fp, resident=True, flow_table=4096,
+                          telemetry=spec, telemetry_track_model=True)
+    cpu = TorchClassifier(device="cpu", force_path=fp, resident=True, flow_table=4096,
+                          telemetry=spec)
+    for c in (gpu, cpu):
+        c.load_tables(tables)
+    batch, _ = testing.flow_trace_batch(rng, tables, 4 * 1024, 0.9, chunk_packets=1024)
+    start = 0
+    for k, size in enumerate((1024, 61, 1000, 1024, 8, 1)):
+        sub = batch.slice(start, start + size)
+        start += size
+        _same_outputs(gpu.classify(sub), cpu.classify(sub), f"{path} chunk {k}")
+    gt, ct = gpu.telemetry.columns(), cpu.telemetry.columns()
+    gpu.telemetry.resident_note_materialized(0)
+    for f in gt:
+        np.testing.assert_array_equal(gt[f], ct[f], err_msg=f)
+        np.testing.assert_array_equal(gt[f], gpu.telemetry.model.columns()[f], err_msg=f)
+    assert gt["tcnt"][0, 0] > 0 and gpu.telemetry_counters() == cpu.telemetry_counters()
+
+    sub = batch.slice(0, 1024)
+    wire_np = sub.pack_wire()
+    ctx = gpu.resident.context(gpu)
+    tables_step = ctx.tables._replace(
+        n_levels=None if path != "trie" else ctx.tables.dev.n_levels)
+    tier, tel = gpu.flow, gpu.telemetry
+    eager_flow = kflow.clone_flow_table(tier._flow)
+    eager_epoch = tier._epoch_dev.clone()
+    eager_sk = ksk.SketchState(*(t.clone() for t in tel._state))
+    gens_op, pages_op = tier._res_ops
+    fl = torch.from_numpy(sub.tcp_flags.astype(np.int32)).to(cuda)
+    ops = flow_mod.ResidentOps(eager_flow, gens_op.clone(), pages_op.clone(), eager_epoch,
+                               torch.zeros(1024, dtype=torch.int32, device=cuda), fl,
+                               tier.config.max_age, tier.config.entries, tier.config.ways,
+                               SketchOps(eager_sk, ksk.empty_winner(spec, cuda), spec))
+    before = ksk.RESIDENT_KERNEL.launches
+    eager = resident_step(ops, tables_step, torch.from_numpy(wire_np.view(np.int32)).to(cuda))
+    assert ksk.RESIDENT_KERNEL.launches == before + 1
+    plan = gpu.prepare_packed(wire_np, False, tcp_flags=sub.tcp_flags)
+    np.testing.assert_array_equal(resident_fused_host(plan["fused"]), eager.cpu().numpy())
+    assert ksk.RESIDENT_KERNEL.launches == before + 2
+    for c in kflow.COLUMNS:
+        assert torch.equal(getattr(tier._flow, c), getattr(eager_flow, c)), c
+    for f in ksk.SketchState._fields:
+        assert torch.equal(getattr(tel._state, f), getattr(eager_sk, f)), f
