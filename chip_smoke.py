@@ -292,8 +292,8 @@ HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1.979e15
 
 
-#: --parent's kernels by name (K2, K3, K3b, K5, K6's two entries, K7 and
-#: K8), built from its sources; empty without --parent
+#: --parent's kernels by name (K2, K3, K3b, K5, K6's two entries, K7, K8
+#: and K9's two entries), built from its sources; empty without --parent
 PARENT_KERNELS: dict = {}
 
 
@@ -361,18 +361,21 @@ def parent_flow(kflow):
 
 
 def parent_kernels(root: str) -> dict:
-    """K2, K3, K3b, K5, K6, K7 and K8 of the tree at ``root``, unbuilt,
+    """K2, K3, K3b, K5, K6, K7, K8 and K9 of the tree at ``root``, unbuilt,
     under this tree's names and C signatures; a K2 entry point without the
     trailing grid cap (``max_grid``, added with the lane-refilling walk) is
     bound without it, a K5 of the one-warp-per-index design with its own
     signature (three pointers, three ints and the stream: no row-sum
     scratch, no grid cap), a K6 of the design before the grouped one with
     its own signatures (no scratch; no grid cap on the two-column entry),
-    and K7 and K8 of the three-launch design without their grid cap."""
+    K7 and K8 of the three-launch design without their grid cap, and K9's
+    two entries (the one-plan design takes a 0 where this tree passes its
+    plan, and a (B, 4) lane scratch)."""
     import ctypes
     from pathlib import Path
 
-    from infw_torch.kernels import _build, arena_dense, arena_walk, cwalk, flow, gather, walk
+    from infw_torch.kernels import (_build, arena_dense, arena_walk, cwalk, flow, gather, sketch,
+                                    walk)
 
     csrc = Path(root) / "infw_torch" / "kernels" / "csrc"
     out = {}
@@ -398,6 +401,10 @@ def parent_kernels(root: str) -> dict:
             argtypes = k.argtypes if capped else k.argtypes[:-2] + k.argtypes[-1:]
             out[k.name] = _build.Kernel(k.name, k.symbol, argtypes, csrc=csrc,
                                         source="flow_table")
+    if (csrc / "sketch_update.cu").exists():
+        for k in (sketch.KERNEL, sketch.RESIDENT_KERNEL):
+            out[k.name] = _build.Kernel(k.name, k.symbol, k.argtypes, csrc=csrc,
+                                        source="sketch_update")
     return out
 
 
@@ -508,36 +515,48 @@ def profiled_kernels(fn, reps: int, counts: dict = None, memsets: dict = None):
     device microseconds per call}, from the CUDA events of the trace
     (kernels only, no copies or fills).  The calls run inside the recorded
     window with 20 ms of margin on each side, after a warm-up step.  A
-    trace that holds fewer kernels than the launches the runtime recorded
-    lost events: it is taken again, up to five times, and after that the
-    result is empty (not measured), never a short count.  ``counts``, when
-    given, receives {kernel name: launches per call}, ``memsets`` {memset
-    event name: per call}."""
+    trace drops device events at its start, more of them the more traces
+    the process has taken before (none in its first trace; on the H100
+    with torch 2.11, 8 of 20 calls and at times all of them late in this
+    script's run): short spin kernels,
+    left out of the result, lead the calls to take those drops, and eight
+    follow them.  A trace that still holds fewer of ``fn``'s kernels than
+    the launches the runtime recorded for them is taken again with four
+    times the lead, up to six times, and after that the result is empty
+    (not measured), never a short count.  ``counts``, when given, receives
+    {kernel name: launches per call}, ``memsets`` {memset event name: per
+    call}."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
 
     fn()
     torch.cuda.synchronize()
-    for attempt in range(5):
+    lead = 64
+    for attempt in range(6):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                      schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
             fn()
             torch.cuda.synchronize()
             prof.step()
             time.sleep(0.02)
+            for _ in range(lead):
+                torch.cuda._sleep(1000)
             for _ in range(reps):
                 fn()
+            for _ in range(8):
+                torch.cuda._sleep(1000)
             torch.cuda.synchronize()
             time.sleep(0.02)
             prof.step()
-        out, launches, fills, api = {}, {}, {}, 0
+        out, launches, fills, api = {}, {}, {}, -(lead + 8)
         for e in prof.events():
             if e.is_user_annotation or e.name.startswith("ProfilerStep"):
                 continue  # the schedule's step ranges, on both timelines
             if e.device_type == DeviceType.CUDA and e.name.startswith("Memset"):
                 fills[e.name] = fills.get(e.name, 0) + 1
-            elif e.device_type == DeviceType.CUDA and not e.name.startswith("Memcpy"):
+            elif (e.device_type == DeviceType.CUDA and not e.name.startswith("Memcpy")
+                  and "spin_kernel" not in e.name):
                 out[e.name] = out.get(e.name, 0.0) + e.time_range.elapsed_us() / reps
                 launches[e.name] = launches.get(e.name, 0) + 1
             elif e.device_type == DeviceType.CPU and e.name.startswith(("cudaLaunch", "cuLaunch")):
@@ -545,7 +564,8 @@ def profiled_kernels(fn, reps: int, counts: dict = None, memsets: dict = None):
         if sum(launches.values()) >= api:
             break
         log(f"profiler: {sum(launches.values())} kernels in the trace of {api} launches "
-            f"(attempt {attempt + 1}); tracing again")
+            f"after a lead of {lead} spin kernels (attempt {attempt + 1}); tracing again")
+        lead *= 4
     else:
         out, launches, fills = {}, {}, {}
     if counts is not None:
@@ -5574,38 +5594,22 @@ def resident_phase(tag: str, k7: dict, k8: dict) -> None:
 TELEMETRY_ENTRIES, TELEMETRY_CHUNK, TELEMETRY_CHUNKS = 100_000, 256, 80
 #: batch sizes K9 is held against its plain version at, and timed at
 K9_SIZES, K9_TIMED = (1, 31, 256, 4096, 65536), (256, 4096, 1 << 18)
+#: the sizes both K9 plans are timed at (infw_torch.tools.sketch_plans)
+K9_LADDER = (256, 1024, 1536, 2048, 2560, 3072, 4096, 8192)
 
 
 def telemetry_tables():
-    from infw_torch import testing
+    from infw_torch.tools.sketch_plans import telemetry_tables
 
-    return testing.random_tables_fast(np.random.default_rng(1300), TELEMETRY_ENTRIES, width=8,
-                                      v6_fraction=0.4, ifindexes=(2, 3))
+    return telemetry_tables()
 
 
 def k9_traces(tables, b: int) -> dict:
     """{"synflood": ..., "uniform": ...} K9 inputs of ``b`` lanes on the CPU
-    (wire (b, 7), tenant, flags, u32 verdicts): the synflood attack trace
-    (about 40% of its lanes from 2 sources after the first quarter) and
-    uniform random_batch_fast packets, each with the oracle-free verdicts
-    of a seeded draw."""
-    import torch
+    (infw_torch.tools.sketch_plans.traces, which times both plans on them)."""
+    from infw_torch.tools.sketch_plans import traces
 
-    from infw_torch import testing
-
-    syn, _meta = testing.attack_trace_batch(np.random.default_rng(1301), tables, b, "synflood",
-                                            attack_start=0.0, chunk_packets=1)
-    uni = testing.random_batch_fast(np.random.default_rng(1302), tables, b)
-    uni.tcp_flags = np.random.default_rng(1303).integers(0, 32, b).astype(np.int32)
-    out = {}
-    for name, bt in (("synflood", syn), ("uniform", uni)):
-        rng = np.random.default_rng(1304)
-        res = (rng.integers(1, 3, b).astype(np.uint32)
-               | (rng.integers(0, 8, b).astype(np.uint32) << 8))
-        t = lambda a: torch.from_numpy(np.ascontiguousarray(a).view(np.int32))  # noqa: E731
-        out[name] = (t(bt.pack_wire()), t(np.zeros(b, np.int32)),
-                     t(np.asarray(bt.tcp_flags, np.int32)), t(res))
-    return out
+    return traces(tables, b)
 
 
 def k9_bytes(spec, b: int, width: int) -> int:
@@ -5617,9 +5621,11 @@ def k9_bytes(spec, b: int, width: int) -> int:
     return b * (width + 3) * 4 + 2 * state * 4
 
 
-def k9_check(ksk, spec, batches, grid: int = 0, resident: bool = False) -> int:
+def k9_check(ksk, spec, batches, grid: int = 0, resident: bool = False, plan=None,
+             start=None) -> int:
     """K9 on the card against its plain version (plain PyTorch on the same
-    card tensors) over ``batches`` from one state; the winner scratch back
+    card tensors) over ``batches`` from one state (``start``'s count-min
+    rows, else zeros); ``plan`` forces K9's plan; the winner scratch back
     at -1 after every call and one launch a call.  Raises on a mismatch;
     returns the largest absolute difference (0)."""
     import torch
@@ -5628,6 +5634,9 @@ def k9_check(ksk, spec, batches, grid: int = 0, resident: bool = False) -> int:
 
     dev = torch.device(DEV)
     got, want = ksk.zero_state(spec, dev), ksk.zero_state(spec, dev)
+    if start is not None:
+        got.cms.copy_(start)
+        want.cms.copy_(start)
     winner = ksk.empty_winner(spec, dev)
     kern = ksk.RESIDENT_KERNEL if resident else ksk.KERNEL
     for wire, tenant, flags, res in batches:
@@ -5636,9 +5645,10 @@ def k9_check(ksk, spec, batches, grid: int = 0, resident: bool = False) -> int:
         if resident:
             res = res & 0xFFFF
             ksk.sketch_update_resident(got, wire, tenant, flags, _pack_res16(res.long()), spec,
-                                       winner=winner, _grid=grid)
+                                       winner=winner, _grid=grid, _plan=plan)
         else:
-            ksk.sketch_update(got, wire, tenant, flags, res, spec, winner=winner, _grid=grid)
+            ksk.sketch_update(got, wire, tenant, flags, res, spec, winner=winner, _grid=grid,
+                              _plan=plan)
         ksk.sketch_update_plain(want, wire, tenant, flags, res, spec)
         torch.cuda.synchronize()
         if kern.launches != before + 1:
@@ -5648,10 +5658,56 @@ def k9_check(ksk, spec, batches, grid: int = 0, resident: bool = False) -> int:
                 diff = (getattr(got, f).long() - getattr(want, f).long()).abs().max()
                 raise SystemExit(f"K9 {'resident' if resident else 'classic'} entry disagrees "
                                  f"with its plain version on {f} (max |diff| {int(diff)}), "
-                                 f"spec {spec}, B={wire.shape[0]}, grid {grid}")
+                                 f"spec {spec}, B={wire.shape[0]}, grid {grid}, plan {plan}")
         if not bool((winner == -1).all()):
             raise SystemExit("K9 left its winner scratch dirty")
     return 0
+
+
+def k9_parent_turns(tag: str, ksk, spec, args, label: str) -> dict:
+    """--parent's K9 against this tree's on one timed input: both entries
+    from one state leave equal tensors (the parent's classic entry, and its
+    resident entry on the same verdicts packed), then the classic entries
+    with the host ahead in turns (parent, this, this, parent).  Returns
+    {"paced_ms": this tree's mean, "parent_paced_ms": the parent's}."""
+    import torch
+
+    from infw_torch.kernels.torchpath import _pack_res16
+
+    wire, tenant, flags, res = args
+    B = wire.shape[0]
+    winner = ksk.empty_winner(spec, DEV)
+    lanes = torch.empty(4 * B, dtype=torch.int32, device=DEV)
+    res16 = _pack_res16(res.long() & 0xFFFF)
+
+    def parent(st, resident=False):
+        name = "sketch_update_resident" if resident else "sketch_update"
+        a = ksk.kernel_args(st, winner, spec, wire, tenant, flags, res16 if resident else res,
+                            lanes, 0, "L")
+        PARENT_KERNELS[name].launch(*a, torch.cuda.current_stream().cuda_stream)
+
+    for resident in (False, True):
+        mine, theirs = ksk.zero_state(spec, DEV), ksk.zero_state(spec, DEV)
+        for _ in range(2):
+            if resident:
+                ksk.sketch_update_resident(mine, wire, tenant, flags, res16, spec, winner=winner)
+            else:
+                ksk.sketch_update(mine, wire, tenant, flags, res, spec, winner=winner)
+            parent(theirs, resident)
+        torch.cuda.synchronize()
+        if not all(torch.equal(getattr(mine, f), getattr(theirs, f))
+                   for f in ksk.SketchState._fields) or not bool((winner == -1).all()):
+            raise SystemExit(f"--parent's K9 disagrees with this tree's [{label}, "
+                             f"{'resident' if resident else 'classic'} entry]")
+    st_p, st_t = ksk.zero_state(spec, DEV), ksk.zero_state(spec, DEV)
+    this_fn = lambda: ksk.sketch_update(st_t, wire, tenant, flags, res, spec, winner=winner)  # noqa: E731
+    parent_fn = lambda: parent(st_p)  # noqa: E731
+    p1, t1, t2, p2 = (device_paced_ms(fn, reps=20)
+                      for fn in (parent_fn, this_fn, this_fn, parent_fn))
+    log(f"{tag} parent vs this tree [K9 {label}], with the host ahead, in turns: parent "
+        f"{p1:.5f}, {p2:.5f} ms; this {t1:.5f}, {t2:.5f} ms; this / parent "
+        f"{(t1 + t2) / (p1 + p2):.3f}")
+    return {"paced_ms": (t1 + t2) / 2, "parent_paced_ms": (p1 + p2) / 2}
 
 
 def k9_profile_child() -> None:
@@ -5702,7 +5758,9 @@ def telemetry_phase(tag: str) -> dict:
        and 65536 on the 4- and 7-word wires (several batches from one
        state, tenants in and out of range), every way count 1-8 and depth
        1-8 at 4096, a saturating ``sat`` of 3, the synflood trace's hot
-       keys, a forced grid of 1 and 3 blocks and the co-resident grid;
+       keys, a forced grid of 1 and 3 blocks and the co-resident grid; each
+       plan forced on both entries, the crossover and a lane either side,
+       depth 8 x width 65536 (plan L unstaged), a start state above sat;
     2. bench_telemetry's cell through the entry points a user calls: the
        synflood trace's 80 chunks through a resident classifier with the
        telemetry plane, launch counts zeroed before and read after; the gate
@@ -5713,8 +5771,11 @@ def telemetry_phase(tag: str) -> dict:
        off in turns (resident and multi-dispatch), and the chunks until a
        drained summary names the planted attacker (synflood, denystorm);
     3. K9's times at B = 256, 4096 and 2^18 on the synflood and a uniform
-       trace: CUDA events back to back, with the host ahead, the device time
-       from the profiler (a fresh process), the plain version, the bound;
+       trace (the plan plan_for takes at each): CUDA events back to back,
+       with the host ahead, the device time from the profiler (a fresh
+       process), the plain version, the bound; --parent's K9 held equal and
+       timed in turns; both plans over a ladder of sizes (the crossover,
+       ``infw_torch.tools.sketch_plans`` in a fresh process);
        the resident admission's device time with the sketch on and off
        (the same child); the step graph against the eager step with the
        sketch (outputs, columns and state equal; times with the host
@@ -5779,10 +5840,42 @@ def telemetry_phase(tag: str) -> dict:
         checked += 1 + k9_check(ksk, two, draws(65536, 7, name="synflood"), grid=grid,
                                 resident=True)
     checked += 1 + k9_check(ksk, spec, [pool["synflood"]] * 3)
+    # the two plans: each forced on both entries, both sides of the
+    # crossover as plan_for chooses, the oversized geometry (plan L on
+    # global atomics, unstaged) at small and large B and under forced grids,
+    # a start state whose untouched count-min cells sit above sat
+    cross = ksk.BLOCK_PLAN_MAX_LANES
+    limit = ksk.smem_limit(torch.device(DEV))
+    chosen = {b: ksk.plan_for(b, two, limit) for b in (cross - 1, cross, cross + 1)}
+    if list(chosen.values()) != ["S", "S", "L"]:
+        raise SystemExit(f"K9: plan_for around the crossover {cross}: {chosen}")
+    for b in chosen:
+        for resident in (False, True):
+            checked += 1 + k9_check(ksk, two, draws(b, 7, n=2), resident=resident)
+    for plan in ("S", "L"):
+        for resident in (False, True):
+            for b in (1, 256, 4096, 9000):
+                checked += 1 + k9_check(ksk, two, draws(b, 7, n=2), resident=resident,
+                                        plan=plan)
+    big = ksk.SketchSpec.make(depth=8, width=65536, max_tenants=2)
+    for b, grids in ((256, (0,)), (65536, (0, 1, 3))):
+        if ksk.plan_for(b, big, limit) != "L":
+            raise SystemExit("K9: plan_for took plan S for the oversized geometry")
+        for grid in grids:
+            checked += 1 + k9_check(ksk, big, draws(b, 7, n=2), grid=grid)
+    sat40 = ksk.SketchSpec.make(sat=40, max_tenants=2)
+    above = torch.from_numpy(rng.integers(0, 200, (4, 2048)).astype(np.int32))
+    for plan in ("S", "L"):
+        for resident in (False, True):
+            checked += 1 + k9_check(ksk, sat40, draws(300, 7, n=2), resident=resident,
+                                    plan=plan, start=above)
     log(f"K9 vs plain: {checked} configurations (both entries at B = {list(K9_SIZES)} on the 4- "
         f"and 7-word wires, ways 1-8, depth 1-8, sat 3, the synflood trace's hot keys, grids of "
-        f"1 and 3 blocks and the co-resident grid), 3 batches each from one state: every "
-        f"tensor equal, the winner scratch back at -1; {time.perf_counter() - t0:.1f} s")
+        f"1 and 3 blocks and the co-resident grid; each plan forced on both entries at B = 1, "
+        f"256, 4096, 9000; the crossover {cross} and one lane either side as plan_for chooses "
+        f"({chosen}); depth 8 x width 65536 at B = 256 and 65536, grids of 0, 1 and 3; a start "
+        f"state above sat 40 on both plans), 2-3 batches each from one state: every tensor "
+        f"equal, the winner scratch back at -1; {time.perf_counter() - t0:.1f} s")
 
     # 2. bench_telemetry's cell through the classifier
     bs = TELEMETRY_CHUNK
@@ -5913,11 +6006,15 @@ def telemetry_phase(tag: str) -> dict:
             fn = lambda: ksk.sketch_update(st, *args, spec, winner=winner)  # noqa: E731
             plain_st = ksk.zero_state(spec, DEV)
             timings[f"{name} {b}"] = {
+                "plan": ksk.plan_for(b, spec, limit),
                 "ms": cuda_ms(fn, reps=20), "paced_ms": device_paced_ms(fn, reps=20),
                 "plain_ms": cuda_ms(lambda: ksk.sketch_update_plain(plain_st, *args, spec),
                                     reps=3, warmup=1),
                 "bound_ms": k9_bytes(spec, b, 7) / HBM_BYTES_PER_S * 1e3,
             }
+            if "sketch_update" in PARENT_KERNELS:
+                timings[f"{name} {b}"]["parent_in_turns"] = k9_parent_turns(
+                    tag, ksk, spec, args, f"{name} {b}")
     here = os.path.dirname(os.path.abspath(__file__))
     child = subprocess.run([sys.executable, "-c", "import chip_smoke; "
                             "chip_smoke.k9_profile_child()"], cwd=here,
@@ -5929,11 +6026,23 @@ def telemetry_phase(tag: str) -> dict:
         t["device_us"] = prof["k9"][key]["device_us"]
         t["kernels"] = prof["k9"][key]["kernels"]
         dev_ms = t["device_us"] / 1e3 if t["device_us"] else None
-        log(f"{tag} K9 sketch_update [{key}]: events {t['ms']:.5f} ms, with the host ahead "
-            f"{t['paced_ms']:.5f} ms, device {t['device_us'] if t['device_us'] else 'lost'} us "
-            f"({t['kernels']}); bound {t['bound_ms']:.6f} ms by bytes"
+        log(f"{tag} K9 sketch_update [{key}], plan {t['plan']}: events {t['ms']:.5f} ms, with "
+            f"the host ahead {t['paced_ms']:.5f} ms, device "
+            f"{t['device_us'] if t['device_us'] else 'lost'} us ({t['kernels']}); bound "
+            f"{t['bound_ms']:.6f} ms by bytes"
             + (f" ({dev_ms / t['bound_ms']:.2f}x)" if dev_ms else "")
             + f"; plain {t['plain_ms']:.4f} ms")
+    # the crossover: both plans over a ladder of sizes, in a fresh process
+    child = subprocess.run([sys.executable, "-m", "infw_torch.tools.sketch_plans", "--sizes",
+                            ",".join(str(b) for b in K9_LADDER)], cwd=here, capture_output=True,
+                           text=True, timeout=600)
+    if child.returncode != 0:
+        raise SystemExit(f"K9 plan ladder failed:\n{child.stderr[-3000:]}")
+    for line in child.stdout.strip().splitlines()[:-1]:
+        log(f"{tag} {line}")
+    ladder = json.loads(child.stdout.strip().splitlines()[-1])
+    log(f"{tag} K9 crossover: plan S no slower than plan L on both traces up to B = "
+        f"{ladder['crossover']} of the ladder; plan_for's crossover {ksk.BLOCK_PLAN_MAX_LANES}")
     adm = prof["admission"]
     log(f"{tag} resident admission (4096 packets, synflood trace) device time: sketch on "
         f"{adm['on']['device_us']} us in {adm['on']['kernels']} kernels, off "
@@ -6083,6 +6192,8 @@ def telemetry_phase(tag: str) -> dict:
         "bound_by": "bytes", "library_ms": None,
         "entries": {"classic": "sketch_update", "resident": "sketch_update_resident"},
         "checked_configurations": checked, "timings": timings, "admission": adm,
+        "plans": {key: t["plan"] for key, t in timings.items()},
+        "plan_ladder": ladder["sizes"], "crossover_measured": ladder["crossover"],
         "step_ms": {"eager_paced": eager_ms, "replay_paced": replay_ms},
         "throughput_pps": pps, "detect_admissions": detect,
         "telemetry_daemon_launches": daemon_launches,
@@ -6094,8 +6205,8 @@ def main() -> int:
 
     parser = argparse.ArgumentParser(description="Chip smoke test of infw_torch on one card.")
     parser.add_argument("--parent", metavar="DIR",
-                        help="another tree of this repository whose K2, K3, K3b, K5, K6, K7 "
-                             "and K8 are timed beside this tree's")
+                        help="another tree of this repository whose K2, K3, K3b, K5, K6, K7, "
+                             "K8 and K9 are timed beside this tree's")
     opts = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)

@@ -98,6 +98,11 @@ class Kernel:
                 self._fn = fn
             return self._fn
 
+    def query(self, *args) -> int:
+        """Call a C entry point that launches nothing (a device query or
+        set-up) and return its result; counts nothing."""
+        return (self._fn or self._entry())(*args)
+
     def launch(self, *args) -> None:
         """Call the C entry point (which launches on the given stream and
         returns cudaGetLastError()); raise if it reports an error."""

@@ -19,8 +19,10 @@ a CUDA graph of the resident step keeps their addresses):
   count replaces it (the largest wanting lane index wins a slot);
 - ``tcnt`` (T, 4): exact per-tenant [packets, allows, denies, pure SYNs].
 
-Beside the state the kernel keeps ``winner`` (K,) int32, its per-slot
-scratch, -1 between calls (``empty_winner``).
+Beside the state the wrappers take ``winner`` (K,) int32, the per-slot
+scratch of K9's first design, -1 between calls (``empty_winner``): the
+entries keep it in their signatures, and K9 leaves it as it is (its plans
+keep their bids in shared memory or in the call's scratch).
 
 - ``sketch_update`` (K9, classic entry): (B, 4 | 7) wire, (B,) tenant,
   flags and u32 results;
@@ -32,6 +34,13 @@ scratch, -1 between calls (``empty_winner``).
 On a CPU tensor the wrappers run ``sketch_update_plain``, which mirrors
 ``_sketch_update_core`` statement for statement; on a CUDA tensor they
 launch K9 or raise.  ``HostSketchModel`` mirrors every update in numpy.
+
+K9 has two plans, chosen per call by ``plan_for`` (a pure function of B,
+the geometry and the card's opt-in shared-memory limit, so one CUDA graph
+always captures one plan): "S", one block with the whole state in shared
+memory, for B up to ``BLOCK_PLAN_MAX_LANES`` lanes where it fits; "L", a
+cooperative grid (block-local tallies of the adds, the state staged in
+each block's shared memory where it fits), for the rest.
 """
 from __future__ import annotations
 
@@ -58,6 +67,19 @@ RESIDENT_KERNEL = _build.Kernel(
     [ctypes.c_void_p] * 10 + [ctypes.c_int] * 10 + [ctypes.c_void_p],
     source="sketch_update",
 )
+#: the library's set-up entry (no kernel): raises K9's shared-memory caps on
+#: the current device and returns the card's opt-in limit a block, in bytes
+PREPARE = _build.Kernel("sketch_prepare", "infw_sketch_prepare", [ctypes.c_int],
+                        source="sketch_update")
+
+#: threads of a block on both plans, and lanes a thread keeps in registers
+#: (csrc/sketch_update.cu kThreads, kRegLanes)
+BLOCK_THREADS, REG_LANES = 1024, 4
+#: the crossover: plan S serves calls of at most this many lanes (measured
+#: on an H100 by ``python -m infw_torch.tools.sketch_plans``; PERF.md)
+BLOCK_PLAN_MAX_LANES = 2048
+#: each plan's code in the C entry's ``plan`` argument
+PLANS = {"L": 0, "S": 1}
 
 
 def _pow2(n: int, floor: int = 8) -> int:
@@ -346,6 +368,51 @@ def sketch_update_plain(sk: SketchState, wire: torch.Tensor, tenant: torch.Tenso
 # --- the kernel --------------------------------------------------------------------
 
 
+def block_plan_bytes(b: int, spec: SketchSpec) -> int:
+    """Plan S's shared memory at ``b`` lanes (csrc/sketch_update.cu
+    block_words): the bids (K 8-byte words), cms, cnt, the slots' key
+    hashes, the matched maxima, tcnt and keys, rounded to 16 bytes, then a
+    16-byte carry a lane past the register lanes."""
+    words = spec.depth * spec.width + 11 * spec.topk + 4 * spec.max_tenants
+    spill = max(0, b - REG_LANES * BLOCK_THREADS)
+    return 4 * ((words + 3) // 4 * 4) + 16 * spill
+
+
+def grid_scratch_words(b: int, spec: SketchSpec) -> int:
+    """Plan L's scratch at ``b`` lanes (csrc/sketch_update.cu
+    grid_scratch_head): the bids (K 8-byte words), the matched maxima (K
+    words) and a count of blocks, to 16 bytes, then a 16-byte carry a
+    lane."""
+    return (3 * spec.topk + 4) // 4 * 4 + 4 * b
+
+
+def plan_for(b: int, spec: SketchSpec, smem_limit: int) -> str:
+    """K9's plan for a call of ``b`` lanes on a card whose blocks may opt in
+    to ``smem_limit`` bytes of shared memory: "S" (one block, the state in
+    shared memory) up to the crossover where it fits, else "L" (the
+    cooperative grid)."""
+    return ("S" if b <= BLOCK_PLAN_MAX_LANES and block_plan_bytes(b, spec) <= smem_limit
+            else "L")
+
+
+_SMEM_LIMIT: dict = {}
+
+
+def smem_limit(device: torch.device) -> int:
+    """The opt-in shared memory a block may use on ``device`` (a CUDA
+    device, current), in bytes; the first call on a device also raises K9's
+    shared-memory caps there (outside any graph capture: each graph the
+    port captures runs once eagerly first)."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    if index not in _SMEM_LIMIT:
+        got = PREPARE.query(0)
+        if got <= 0:
+            raise RuntimeError(f"sketch_update: the set-up on cuda:{index} failed with error "
+                               f"{-got}")
+        _SMEM_LIMIT[index] = got
+    return _SMEM_LIMIT[index]
+
+
 def _check(who: str, sk: SketchState, winner, spec: SketchSpec, wire, tenant, tflags,
            res, res_words: int) -> None:
     dev = wire.device
@@ -372,35 +439,62 @@ def _check(who: str, sk: SketchState, winner, spec: SketchSpec, wire, tenant, tf
         raise ValueError(f"{who}: depth and ways must be in [1, 8]")
 
 
-def _launch(kernel: "_build.Kernel", sk: SketchState, winner, spec: SketchSpec, wire, tenant,
-            tflags, res, scratch, grid: int) -> None:
-    B = wire.shape[0]
-    if scratch is None:
-        scratch = torch.empty(4 * max(B, 1), dtype=torch.int32, device=wire.device)
-    if scratch.numel() < 4 * B or scratch.data_ptr() % 16:
-        raise ValueError(f"{kernel.name}: scratch needs {4 * B} words, 16-byte aligned")
-    args = (wire.data_ptr(), tenant.data_ptr(), tflags.data_ptr(), res.data_ptr(),
+def kernel_args(sk: SketchState, winner, spec: SketchSpec, wire, tenant, tflags, res,
+                spill, grid: int, plan: str) -> tuple:
+    """The C entry's arguments but the stream (``spill`` plan L's scratch,
+    None on plan S)."""
+    return (wire.data_ptr(), tenant.data_ptr(), tflags.data_ptr(), res.data_ptr(),
             sk.cms.data_ptr(), sk.keys.data_ptr(), sk.cnt.data_ptr(), sk.tcnt.data_ptr(),
-            winner.data_ptr(), scratch.data_ptr(), B, wire.shape[1], spec.depth, spec.width,
-            spec.topk, spec.ways, spec.max_tenants, spec.sat, int(grid), 0)
+            winner.data_ptr(), None if spill is None else spill.data_ptr(), wire.shape[0],
+            wire.shape[1], spec.depth, spec.width, spec.topk, spec.ways, spec.max_tenants,
+            spec.sat, int(grid), PLANS[plan])
+
+
+def _launch(kernel: "_build.Kernel", sk: SketchState, winner, spec: SketchSpec, wire, tenant,
+            tflags, res, scratch, grid: int, plan: Optional[str]) -> None:
+    B = wire.shape[0]
     dev = wire.device
-    if dev.index == torch.cuda.current_device():
-        kernel.launch(*args, torch.cuda.current_stream().cuda_stream)
+    limit = smem_limit(dev)
+    if plan is None:
+        plan = "L" if grid > 0 else plan_for(B, spec, limit)
+    if plan not in PLANS:
+        raise ValueError(f"{kernel.name}: plan {plan!r}, expected one of {sorted(PLANS)}")
+    if plan == "S" and (grid > 0 or block_plan_bytes(B, spec) > limit):
+        raise ValueError(f"{kernel.name}: plan S takes no grid cap and needs "
+                         f"{block_plan_bytes(B, spec)} bytes of shared memory ({limit} on {dev})")
+    if plan == "S":
+        scratch = None
     else:
-        with torch.cuda.device(dev):
-            kernel.launch(*args, torch.cuda.current_stream().cuda_stream)
+        words = grid_scratch_words(B, spec)
+        if scratch is None:
+            scratch = torch.empty(words, dtype=torch.int32, device=dev)
+        elif scratch.numel() < words or scratch.data_ptr() % 16:
+            raise ValueError(f"{kernel.name}: scratch needs {words} words, 16-byte aligned")
+    args = kernel_args(sk, winner, spec, wire, tenant, tflags, res, scratch, grid, plan)
+    kernel.launch(*args, torch.cuda.current_stream().cuda_stream)
+
+
+def _launch_on(kernel: "_build.Kernel", sk: SketchState, winner, spec: SketchSpec, wire, *rest):
+    """_launch with ``wire``'s device current."""
+    if wire.device.index == torch.cuda.current_device():
+        _launch(kernel, sk, winner, spec, wire, *rest)
+    else:
+        with torch.cuda.device(wire.device):
+            _launch(kernel, sk, winner, spec, wire, *rest)
 
 
 def sketch_update(sk: SketchState, wire: torch.Tensor, tenant: torch.Tensor,
                   tflags: torch.Tensor, res: torch.Tensor, spec: SketchSpec,
                   winner: Optional[torch.Tensor] = None, scratch: Optional[torch.Tensor] = None,
-                  _grid: int = 0) -> None:
+                  _grid: int = 0, _plan: Optional[str] = None) -> None:
     """Kernel K9, classic entry: ``res`` (B,) int32 holding the u32
     verdicts.  A CPU tensor runs sketch_update_plain; a CUDA tensor
     launches K9 (building it on first use) or raises.  ``winner`` is the
-    (K,) scratch, -1 on entry and on return (made when None); ``scratch``
-    the kernel's (B, 4) lane scratch (made when None); ``_grid`` > 0 caps
-    the cooperative grid (tests)."""
+    (K,) per-slot scratch, -1 on entry and on return (made when None; both
+    plans keep their bids elsewhere and leave it as it is); ``scratch``
+    plan L's scratch (``grid_scratch_words``, made when None); ``_plan``
+    "S" or "L" forces a plan, ``_grid`` > 0 caps plan L's grid and selects
+    plan L (tests); otherwise ``plan_for`` chooses."""
     if wire.device.type == "cpu":
         sketch_update_plain(sk, wire, tenant, tflags, res, spec)
         return
@@ -411,13 +505,14 @@ def sketch_update(sk: SketchState, wire: torch.Tensor, tenant: torch.Tensor,
     _check("sketch_update", sk, winner, spec, wire, tenant, tflags, res, wire.shape[0])
     if wire.shape[0] == 0:
         return
-    _launch(KERNEL, sk, winner, spec, wire, tenant, tflags, res, scratch, _grid)
+    _launch_on(KERNEL, sk, winner, spec, wire, tenant, tflags, res, scratch, _grid, _plan)
 
 
 def sketch_update_resident(sk: SketchState, wire: torch.Tensor, tenant: torch.Tensor,
                            tflags: torch.Tensor, res16_words: torch.Tensor, spec: SketchSpec,
                            winner: Optional[torch.Tensor] = None,
-                           scratch: Optional[torch.Tensor] = None, _grid: int = 0) -> None:
+                           scratch: Optional[torch.Tensor] = None, _grid: int = 0,
+                           _plan: Optional[str] = None) -> None:
     """Kernel K9, resident entry (step 4 of kernels/resident.py's step):
     the verdicts are the ceil(B/2) packed u16 words ``res16_words`` (the
     merged results K8 wrote into the step's output).  Otherwise as
@@ -435,23 +530,30 @@ def sketch_update_resident(sk: SketchState, wire: torch.Tensor, tenant: torch.Te
            (B + 1) // 2)
     if B == 0:
         return
-    _launch(RESIDENT_KERNEL, sk, winner, spec, wire, tenant, tflags, res16_words, scratch,
-            _grid)
+    _launch_on(RESIDENT_KERNEL, sk, winner, spec, wire, tenant, tflags, res16_words, scratch,
+               _grid, _plan)
 
 
 def formulation(state: dict, wire: np.ndarray, res: np.ndarray, tenant: np.ndarray,
-                tflags: np.ndarray, spec: SketchSpec) -> dict:
+                tflags: np.ndarray, spec: SketchSpec, plan: str = "S",
+                blocks: int = 1) -> dict:
     """K9's phases replayed in numpy, lane by lane as its threads run them
     (``csrc/sketch_update.cu``), on host copies ``state`` (the four arrays,
-    updated in place).  P1: each eligible lane adds 1 to its D buckets
-    (int32 wrap) and its row of tcnt; P2: the whole array clamped at
-    ``sat``, each lane's estimate min_d(min(cms, sat)), its decide by one
-    pass over the ways (the lowest occupied way holding the key; the first
-    empty way; the first way of least count) and a wanting lane's bid;
-    P3: a matched lane's max where no lane won the slot, the winners'
-    stores.  Returns {"matched", "winners", "max_and_win"}: how many lanes
-    matched, how many won a slot, and how many slots had both a matched
-    lane and a winner (the case where the winner's store overrides)."""
+    updated in place).  The adds: each eligible lane adds 1 to its D
+    buckets and its row of tcnt, int32 wrapping; on plan "S" into the
+    block's copy, on plan "L" into each of ``blocks`` blocks' tallies (a
+    block takes a contiguous run of ceil(B / blocks) lanes), which are then
+    added into the state.  Each lane's probe, by one pass over the ways
+    (the lowest occupied way holding the key, compared only where the hash
+    of the slot's key, taken before any write, equals the lane's; the first
+    empty way; the first way of least count); then its estimate
+    min_d(min(cms, sat)) (plan L clamps the whole array first, plan S when
+    it writes the array back) and a wanting lane's bid; then each slot
+    settled: the largest bidding lane stores its key and estimate, else the
+    matched lanes' max raises the count.  Returns {"matched", "winners",
+    "max_and_win"}: how many lanes matched, how many won a slot, and how
+    many slots had both a matched lane and a winner (the case where the
+    winner's store overrides)."""
     from ..flow import host_unpack_wire
 
     D, W, K, Wy = spec.depth, spec.width, spec.topk, spec.ways
@@ -468,25 +570,34 @@ def formulation(state: dict, wire: np.ndarray, res: np.ndarray, tenant: np.ndarr
     act = (res & 0xFF).astype(np.int64)
     syn = ((f["proto"] == IPPROTO_TCP) & ((tflags & TCP_SYN) != 0)
            & ((tflags & TCP_ACK) == 0))
-    cms = state["cms"].reshape(-1)
-    keys, cnt, tcnt = state["keys"], state["cnt"], state["tcnt"]
+    keys, cnt = state["keys"], state["cnt"]
     idx = [[int(d * W + ((int(h1[i]) + d * int(h2[i])) & 0xFFFFFFFF & (W - 1)))
             for d in range(D)] for i in range(b)]
-    # P1
-    for i in np.nonzero(elig)[0]:
-        for c in idx[i]:
-            cms[c] = np.int32(np.int64(cms[c]) + 1 if cms[c] != 0x7FFFFFFF else -2**31)
-        row = tcnt[tenant[i]]
-        row += np.array([1, act[i] == ALLOW, act[i] == DENY, syn[i]], np.int32)
-    # P2
-    np.minimum(cms, np.int32(spec.sat), out=cms)
+    # the adds: per block (plan L's tallies) or into the one block's copy
+    group = (np.arange(b) // -(-b // blocks) if plan == "L" and b
+             else np.zeros(b, np.int64))
+    cms = state["cms"].reshape(-1).astype(np.int64)
+    tcnt = state["tcnt"].astype(np.int64)
+    for g in range(blocks if plan == "L" else 1):
+        tally, ttally = np.zeros_like(cms), np.zeros_like(tcnt)
+        for i in np.nonzero(elig & (group == g))[0]:
+            for c in idx[i]:
+                tally[c] += 1
+            ttally[tenant[i]] += [1, act[i] == ALLOW, act[i] == DENY, syn[i]]
+        cms += tally
+        tcnt += ttally
+    cms = ((cms + 2**31) % 2**32 - 2**31).astype(np.int32)
+    state["tcnt"][:] = ((tcnt + 2**31) % 2**32 - 2**31).astype(np.int32)
+    if plan == "L":
+        np.minimum(cms, np.int32(spec.sat), out=cms)
+    kh1 = _hash_np(keys)[0]  # the slots' key hashes, before any write
     winner = np.full(K, -1, np.int64)
     lanes = []
     for i in range(b):
         if not elig[i]:
             lanes.append((0, -1, -1))
             continue
-        est = min(int(cms[c]) for c in idx[i])
+        est = min(min(int(cms[c]), spec.sat) for c in idx[i])
         m_slot = e_slot = v_slot = -1
         v_cnt = 0
         for w in range(Wy):
@@ -495,7 +606,8 @@ def formulation(state: dict, wire: np.ndarray, res: np.ndarray, tenant: np.ndarr
             if w == 0 or c < v_cnt:
                 v_cnt, v_slot = c, slot
             if c > 0:
-                if m_slot < 0 and np.array_equal(keys[slot], keyw[i]):
+                if (m_slot < 0 and kh1[slot] == h1[i]
+                        and np.array_equal(keys[slot], keyw[i])):
                     m_slot = slot
             elif e_slot < 0:
                 e_slot = slot
@@ -508,7 +620,7 @@ def formulation(state: dict, wire: np.ndarray, res: np.ndarray, tenant: np.ndarr
             lanes.append((est, -1, want_slot))
         else:
             lanes.append((est, -1, -1))
-    # P3
+    # the maxima and the winners' stores
     stats = {"matched": 0, "winners": 0, "max_and_win": 0}
     for i, (est, m_slot, v_slot) in enumerate(lanes):
         if m_slot >= 0:
@@ -521,5 +633,5 @@ def formulation(state: dict, wire: np.ndarray, res: np.ndarray, tenant: np.ndarr
             stats["winners"] += 1
             keys[v_slot] = keyw[i]
             cnt[v_slot] = est
-    state["cms"] = cms.reshape(D, W)
+    state["cms"] = np.minimum(cms, np.int32(spec.sat)).reshape(D, W)
     return stats

@@ -2111,14 +2111,18 @@ def _k9_case(rng, tables, b, width, spec_kw, pool=64):
     return spec, t(wire[idx]), t(tenant[idx]), t(flags), t(res[idx])
 
 
-def _k9_against_plain(cuda, spec, batches, grid=0, resident=False):
+def _k9_against_plain(cuda, spec, batches, grid=0, resident=False, plan=None, start=None):
     """K9 on the card against the plain version on the CPU over several
-    batches from the same (non-zero) state: equal state after each, the
-    winner scratch back at -1, one launch a call."""
+    batches from the same (non-zero) state (``start``, {field: tensor},
+    else zeros): equal state after each, the winner scratch back at -1,
+    one launch a call; ``plan`` forces K9's plan."""
     from infw_torch.kernels import sketch as ksk
     from infw_torch.kernels.torchpath import _pack_res16
 
     dev_state, cpu_state = ksk.zero_state(spec, cuda), ksk.zero_state(spec, "cpu")
+    for f, t in (start or {}).items():
+        getattr(dev_state, f).copy_(t)
+        getattr(cpu_state, f).copy_(t)
     winner = ksk.empty_winner(spec, cuda)
     kern = ksk.RESIDENT_KERNEL if resident else ksk.KERNEL
     for wire, tenant, flags, res in batches:
@@ -2130,7 +2134,7 @@ def _k9_against_plain(cuda, spec, batches, grid=0, resident=False):
         before = kern.launches
         entry = ksk.sketch_update_resident if resident else ksk.sketch_update
         entry(dev_state, wire.to(cuda), tenant.to(cuda), flags.to(cuda), res_in.to(cuda), spec,
-              winner=winner, _grid=grid)
+              winner=winner, _grid=grid, _plan=plan)
         torch.cuda.synchronize()
         assert kern.launches == before + 1
         ksk.sketch_update_plain(cpu_state, wire, tenant, flags, res, spec)
@@ -2214,6 +2218,165 @@ def test_k9_hot_keys_and_a_wrapping_counter(cuda):
     for f in ksk.SketchState._fields:
         assert torch.equal(getattr(dev, f).cpu(), getattr(cpu, f)), f
     assert int(cpu.cms.min()) < 0 and int(cpu.tcnt[0, 0]) == 70_000
+
+
+@pytest.mark.parametrize("resident", [False, True])
+@pytest.mark.parametrize("plan", ["S", "L"])
+@pytest.mark.parametrize("b", [1, 31, 1024, 4096, 4097, 12_000])
+def test_k9_plans_match_plain(cuda, plan, resident, b):
+    """Each plan forced, on both entries, at sizes within a thread's
+    register lanes and past them (plan S's shared spill, plan L's lane
+    scratch at a small grid)."""
+    rng = np.random.default_rng(b * 4 + (plan == "S") * 2 + resident)
+    tables = testing.random_tables_fast(rng, 500, width=4, v6_fraction=0.4)
+    batches = [_k9_case(rng, tables, b, 7, dict(width=256, topk=64, max_tenants=2))
+               for _ in range(3)]
+    _k9_against_plain(cuda, batches[0][0], [x[1:] for x in batches], resident=resident,
+                      plan=plan)
+
+
+@pytest.mark.parametrize("delta", [-1, 0, 1])
+@pytest.mark.parametrize("resident", [False, True])
+def test_k9_both_sides_of_the_crossover_match_plain(cuda, delta, resident):
+    """The default geometry at the crossover and one lane either side,
+    each call on the plan ``plan_for`` chooses (S at and below, L above)."""
+    from infw_torch.kernels import sketch as ksk
+
+    b = ksk.BLOCK_PLAN_MAX_LANES + delta
+    spec = ksk.SketchSpec.make(max_tenants=2)
+    assert ksk.plan_for(b, spec, ksk.smem_limit(cuda)) == ("L" if delta > 0 else "S")
+    rng = np.random.default_rng(b + resident)
+    tables = testing.random_tables_fast(rng, 2000, width=4, v6_fraction=0.4)
+    batches = [_k9_case(rng, tables, b, 7, spec._asdict(), pool=4096) for _ in range(2)]
+    _k9_against_plain(cuda, spec, [x[1:] for x in batches], resident=resident)
+
+
+@pytest.mark.parametrize("grid", [0, 1, 3])
+@pytest.mark.parametrize("b", [256, 70_000])
+def test_k9_oversized_geometry_matches_plain(cuda, b, grid):
+    """Depth 8 x width 65536: neither the block's state nor plan L's tally
+    or stage fits in shared memory, so every call is plan L on global
+    atomics and an unstaged decide, under the co-resident grid and forced
+    grids of 1 and 3 blocks."""
+    from infw_torch.kernels import sketch as ksk
+
+    spec = ksk.SketchSpec.make(depth=8, width=65536, max_tenants=2)
+    assert ksk.plan_for(b, spec, ksk.smem_limit(cuda)) == "L"
+    rng = np.random.default_rng(b + grid)
+    tables = testing.random_tables_fast(rng, 500, width=4, v6_fraction=0.4)
+    batches = [_k9_case(rng, tables, b, 7, spec._asdict(), pool=256) for _ in range(2)]
+    _k9_against_plain(cuda, spec, [x[1:] for x in batches], grid=grid)
+
+
+@pytest.mark.parametrize("resident", [False, True])
+@pytest.mark.parametrize("plan", ["S", "L"])
+def test_k9_above_sat_start_is_clamped_whole(cuda, plan, resident):
+    """A start state whose count-min cells sit above sat, most of them
+    untouched by the lanes (a state carried across from the JAX package):
+    every cell comes out min(c, sat), on both plans and entries."""
+    from infw_torch.kernels import sketch as ksk
+
+    rng = np.random.default_rng(17 + resident)
+    tables = testing.random_tables_fast(rng, 500, width=4, v6_fraction=0.4)
+    kw = dict(width=2048, topk=64, sat=40, max_tenants=2)
+    batches = [_k9_case(rng, tables, 300, 7, kw) for _ in range(2)]
+    spec = batches[0][0]
+    start = {"cms": torch.from_numpy(rng.integers(0, 200, (4, 2048)).astype(np.int32))}
+    got = _k9_against_plain(cuda, spec, [x[1:] for x in batches], resident=resident, plan=plan,
+                            start=start)
+    assert int(got.cms.max()) == 40 and int((start["cms"] > 40).sum()) > 4 * 300
+
+
+@pytest.mark.parametrize("grid", [1, 3])
+@pytest.mark.parametrize("resident", [False, True])
+def test_k9_plan_l_forced_grid_matches_plain(cuda, grid, resident):
+    """Plan L at the default geometry (tally and stage in shared memory)
+    under forced grids: most lanes past a thread's register lanes, each
+    block's tally and slice of the clamp."""
+    from infw_torch.kernels import sketch as ksk
+
+    rng = np.random.default_rng(grid * 2 + resident)
+    tables = testing.random_tables_fast(rng, 500, width=4, v6_fraction=0.4)
+    spec = ksk.SketchSpec.make(max_tenants=2, sat=30)
+    batches = [_k9_case(rng, tables, 40_000, 7, spec._asdict(), pool=512) for _ in range(2)]
+    got = _k9_against_plain(cuda, spec, [x[1:] for x in batches], grid=grid, resident=resident)
+    assert int(got.cms.max()) == 30
+
+
+def _k9_ops(b: int, plan: str) -> dict:
+    """torch.profiler over K9 calls of ``b`` lanes at the default geometry
+    (``plan`` forced, "" for plan_for's): {"kernels": {name: per call},
+    "memsets": per call}."""
+    from infw_torch.kernels import sketch as ksk
+
+    cuda = torch.device("cuda:0")
+    rng = np.random.default_rng(b)
+    tables = testing.random_tables_fast(rng, 500, width=4, v6_fraction=0.4)
+    spec, wire, tenant, flags, res = _k9_case(rng, tables, b, 7, {}, pool=512)
+    st, winner = ksk.zero_state(spec, cuda), ksk.empty_winner(spec, cuda)
+    args = [x.to(cuda) for x in (wire, tenant, flags, res)]
+    kernels, memsets = {}, 0
+    for _ in range(3):
+        names, fills = _device_ops(lambda: ksk.sketch_update(st, *args, spec, winner=winner,
+                                                             _plan=plan or None))
+        for n in names:
+            kernels[n] = kernels.get(n, 0) + 1 / 3
+        memsets += len(fills) / 3
+    return {"kernels": kernels, "memsets": memsets}
+
+
+#: _k9_ops in a fresh process (see _K7_K8_OPS_CHILD)
+_K9_OPS_CHILD = r"""
+import json, sys
+sys.path.insert(0, "tests")
+import test_torch_cuda
+print(json.dumps(test_torch_cuda._k9_ops(int(sys.argv[1]), sys.argv[2])))
+"""
+
+
+def test_k9_profiler_names_the_plan(cuda):
+    """Each K9 call is one kernel and no memset (the profiler, in a process
+    of its own), and the kernel names its plan: block_kernel up to the
+    crossover, grid_kernel past it or when plan L is forced."""
+    import json
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    from infw_torch.kernels import sketch as ksk
+
+    cross = ksk.BLOCK_PLAN_MAX_LANES
+    for b, plan, want in ((256, "", "block_kernel"), (cross, "", "block_kernel"),
+                          (cross + 1, "", "grid_kernel"), (256, "L", "grid_kernel")):
+        proc = subprocess.run([sys.executable, "-c", _K9_OPS_CHILD, str(b), plan],
+                              cwd=Path(__file__).resolve().parents[1], capture_output=True,
+                              text=True, timeout=600)
+        assert proc.returncode == 0, proc.stderr[-3000:]
+        got = json.loads(proc.stdout.strip().splitlines()[-1])
+        kernels = got["kernels"]
+        assert len(kernels) == 1 and want in next(iter(kernels)), (b, plan, kernels)
+        assert next(iter(kernels.values())) == pytest.approx(1.0), kernels
+        assert got["memsets"] == 0, got
+
+
+def test_k9_wrapper_refuses_a_plan_that_does_not_fit(cuda):
+    """Plan S forced where the state does not fit, or with a grid cap,
+    raises before any launch; an unknown plan raises."""
+    from infw_torch.kernels import sketch as ksk
+
+    big = ksk.SketchSpec.make(depth=8, width=65536)
+    st, winner = ksk.zero_state(big, cuda), ksk.empty_winner(big, cuda)
+    z = torch.zeros(8, dtype=torch.int32, device=cuda)
+    wire = torch.zeros((8, 7), dtype=torch.int32, device=cuda)
+    before = ksk.KERNEL.launches
+    for kw in (dict(_plan="S"), dict(_plan="X")):
+        with pytest.raises(ValueError):
+            ksk.sketch_update(st, wire, z, z, z, big, winner=winner, **kw)
+    small = ksk.SketchSpec.make(width=64, topk=16)
+    with pytest.raises(ValueError):
+        ksk.sketch_update(ksk.zero_state(small, cuda), wire, z, z, z, small,
+                          winner=ksk.empty_winner(small, cuda), _plan="S", _grid=2)
+    assert ksk.KERNEL.launches == before
 
 
 @pytest.mark.parametrize("path", ["dense", "trie"])

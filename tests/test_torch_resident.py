@@ -11,6 +11,8 @@ order; a patch between dispatches; wide ruleIds; and both daemons.
 
 One flow geometry (512 entries, 4 ways) and 64-packet chunks throughout,
 as the JAX package's resident tests use, so its jit caches are shared."""
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -396,6 +398,20 @@ def test_mark_warm_seeds_the_epoch_and_counts_no_steady_allocation(tabs):
 # --- the daemons ----------------------------------------------------------------------
 
 
+class _SweepClock:
+    """A daemon module's ``time`` with ``monotonic()`` fixed at ``now``: the
+    flow-age sweep timer reads it, every other name is the real module's."""
+
+    def __init__(self, now: float) -> None:
+        self.now = now
+
+    def monotonic(self) -> float:
+        return self.now
+
+    def __getattr__(self, name):
+        return getattr(time, name)
+
+
 def test_daemons_agree_under_resident(tmp_path):
     """Both daemons with resident serving and a 256-entry flow table (dense
     path), the same frames files of a 90%-established trace dropped twice:
@@ -428,13 +444,18 @@ def test_daemons_agree_under_resident(tmp_path):
             fbs.append(fb)
             start += n
         for rnd in range(2):
-            for d in (jd, pd):
+            for d, mod in ((jd, jax_daemon), (pd, daemon)):
                 tdaemon._drop(d, fbs)
-                d._flow_maintenance()
+                # both daemons sweep on the same ticks: each module's clock
+                # reads one fake through the maintenance call, 10 s apart
+                with pytest.MonkeyPatch.context() as mp:
+                    mp.setattr(mod, "time", _SweepClock(1000.0 + 10.0 * rnd))
+                    d._flow_maintenance()
             assert jd.process_ingest_once() == pd.process_ingest_once()
             assert tdaemon._out_files(pd) == tdaemon._out_files(jd), rnd
         assert pclf.flow_counters() == jclf.flow_counters()
         assert pclf.flow_counters()["flow_hits_total"] > 0
+        assert pclf.flow_counters()["flow_age_sweeps_total"] == 2  # one a round
         pr = pclf.resident_counters()
         assert pr["resident_dispatches_total"] > 0 and pr["resident_fallbacks_total"] == 0
         np.testing.assert_array_equal(pclf.stats.snapshot(), jclf.stats.snapshot())

@@ -126,6 +126,15 @@ def _case(name, tables):
         kw.update(max_tenants=3)
         pool = _Pool(rng, tables, tenants=(-5, 7))
         batches = [pool.draw(128) for _ in range(2)]
+    elif name == "above_sat_start":
+        # a state carried across whose count-min cells sit above sat, most of
+        # them untouched by the lanes: the whole array comes out clamped
+        kw.update(sat=6)
+        start = {"cms": rng.integers(0, 20, (4, 64)).astype(np.int32),
+                 "keys": np.zeros((32, 6), np.uint32), "cnt": np.zeros(32, np.int32),
+                 "tcnt": np.zeros((2, 4), np.int32)}
+        x = pool.draw(24)
+        batches = [x, [a.copy() for a in x], pool.draw(24)]
     elif name == "non_ip":
         pool = _Pool(rng, tables, kinds=[0, 1, 2, 3])
         batches = [pool.draw(128) for _ in range(2)]
@@ -143,7 +152,7 @@ def _case(name, tables):
 
 
 CASES = (["seeded", "duplicate_keys", "one_key", "slot_collisions", "sat3", "wrap", "tenants",
-          "non_ip", "wire4"] + [f"ways{k}" for k in range(1, 9)]
+          "non_ip", "wire4", "above_sat_start"] + [f"ways{k}" for k in range(1, 9)]
          + [f"depth{k}" for k in range(1, 9)])
 
 
@@ -151,14 +160,15 @@ CASES = (["seeded", "duplicate_keys", "one_key", "slot_collisions", "sat3", "wra
 def test_update_matches_jax_bit_for_bit(tables, name):
     """Per batch: the JAX update, both host models, the port's plain update
     on CPU tensors (started from the JAX state through
-    convert.sketch_state_from_jax) and K9's phases replayed in numpy leave
-    the same four arrays."""
+    convert.sketch_state_from_jax) and K9's phases replayed in numpy, plan S
+    and plan L over three blocks, leave the same four arrays."""
     kw, start, batches = _case(name, tables)
     jspec, pspec = jsk.SketchSpec.make(**kw), psk.SketchSpec.make(**kw)
     host = start or {f: np.asarray(a) for f, a in zip(FIELDS, jsk.zero_state_host(jspec))}
     jst = jsk.SketchState(*(jnp.asarray(np.array(host[f])) for f in FIELDS))
     pst = convert.sketch_state_from_jax(**{f: host[f] for f in FIELDS}, device="cpu")
     form = {f: np.array(host[f]) for f in FIELDS}
+    form_l = {f: np.array(host[f]) for f in FIELDS}
     jm, pm = jsk.HostSketchModel(jspec), psk.HostSketchModel(pspec)
     for m in (jm, pm):
         m.cms, m.keys, m.cnt, m.tcnt = (np.array(host[f]) for f in FIELDS)
@@ -172,11 +182,13 @@ def test_update_matches_jax_bit_for_bit(tables, name):
         pm.update(wire, res, tenant, tflags)
         for k, v in psk.formulation(form, wire, res, tenant, tflags, pspec).items():
             stats[k] += v
+        psk.formulation(form_l, wire, res, tenant, tflags, pspec, plan="L", blocks=3)
         got = psk.state_to_host(pst)
         for f in FIELDS:
             want = np.asarray(getattr(jst, f))
             for side, arr in (("plain", got[f]), ("port model", pm.columns()[f]),
-                              ("jax model", jm.columns()[f]), ("formulation", form[f])):
+                              ("jax model", jm.columns()[f]), ("formulation", form[f]),
+                              ("formulation, plan L", form_l[f])):
                 np.testing.assert_array_equal(np.asarray(arr).view(want.dtype), want,
                                               err_msg=f"{name} {f} {side}")
     assert stats["matched"] > 0 and stats["winners"] > 0
@@ -186,6 +198,15 @@ def test_update_matches_jax_bit_for_bit(tables, name):
         assert int(form["cms"].max()) == 3
     if name == "wrap":
         assert int(form["cms"].min()) < 0
+    if name == "above_sat_start":
+        touched = {c for wire, res, tenant, _f in batches
+                   for i, row in enumerate(_buckets(pspec, wire, res, tenant))
+                   if (wire[i, 0] & 3) in (1, 2) and 0 <= tenant[i] < pspec.max_tenants
+                   for c in row}
+        above = [c for c in np.nonzero(start["cms"].reshape(-1) > pspec.sat)[0]
+                 if c not in touched]
+        assert above and int(form["cms"].max()) == pspec.sat
+        assert (form["cms"].reshape(-1)[above] == pspec.sat).all()
 
 
 def test_resident_entry_reads_packed_verdicts(tables):
@@ -220,6 +241,40 @@ def test_spec_and_wrappers_refuse_bad_input():
     for entry in (psk.sketch_update, psk.sketch_update_resident):
         with pytest.raises(ValueError, match="unsupported device"):
             entry(st, wire, z, z, z, spec)
+
+
+def test_plan_chooser_takes_the_block_within_its_limits():
+    """K9's host-side plan choice, with the card's shared-memory limit
+    passed in: plan S within the limit and the crossover, plan L past
+    either (the oversized geometry, many tenants, a limit below the state,
+    a spill past the limit); the bytes as csrc/sketch_update.cu lays them
+    out, and plan L's scratch."""
+    spec = psk.SketchSpec.make()
+    h100 = 232_448  # an H100's opt-in shared memory a block
+    cross, reg = psk.BLOCK_PLAN_MAX_LANES, psk.REG_LANES * psk.BLOCK_THREADS
+    state = 4 * (4 * 2048 + 11 * 256 + 4)
+    assert psk.block_plan_bytes(1, spec) == psk.block_plan_bytes(reg, spec) == state
+    assert psk.block_plan_bytes(reg + 3, spec) == state + 48
+    assert psk.grid_scratch_words(1000, spec) == 772 + 4000  # 3 K + 1 words, then the carries
+    assert psk.grid_scratch_words(1, psk.SketchSpec(topk=2)) == 8 + 4
+    for b in (1, 31, 256, cross - 1, cross):
+        assert psk.plan_for(b, spec, h100) == "S", b
+    for b in (cross + 1, 65536, 1 << 18):
+        assert psk.plan_for(b, spec, h100) == "L", b
+    assert psk.plan_for(256, spec, state) == "S"
+    assert psk.plan_for(256, spec, state - 1) == "L"
+    big = psk.SketchSpec.make(depth=8, width=65536)
+    assert psk.block_plan_bytes(1, big) > h100
+    assert [psk.plan_for(b, big, h100) for b in (1, 256, 1 << 18)] == ["L"] * 3
+    many = psk.SketchSpec.make(max_tenants=20_000)
+    assert psk.plan_for(256, many, h100) == "L"
+    assert psk.plan_for(256, psk.SketchSpec.make(max_tenants=2), h100) == "S"
+    b = reg + 1
+    lim = psk.block_plan_bytes(b, spec)
+    assert psk.plan_for(b, spec, lim) == ("S" if b <= cross else "L")
+    assert psk.plan_for(b, spec, lim - 1) == "L"
+    odd = psk.SketchSpec(depth=1, width=2, topk=2, ways=1, sat=5, max_tenants=1)
+    assert psk.block_plan_bytes(1, odd) == 4 * 28  # 2 + 22 + 4 words, on 16 bytes
 
 
 # --- summaries, sampling, the drain ---------------------------------------------------
