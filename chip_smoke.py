@@ -9,8 +9,9 @@ K5, K6, K7 and K8 are built from its sources and, after their outputs are
 held equal to this tree's, timed beside them in turns on the same inputs.
 
 Drives the port's dense, trie and ctrie classify paths, its wire codecs,
-its multi-tenant arena and its flow tier on the card and fails (non-zero
-exit, no result line) on any error:
+its multi-tenant arena, its flow tier, the resident step, the telemetry
+plane and anomaly scoring on the card and fails (non-zero exit, no result
+line) on any error:
 
 1. device: the card's name and power limit (nvidia-smi);
 2. build: every hand-written kernel from its source with nvcc, one nvcc
@@ -221,6 +222,19 @@ exit, no result line) on any error:
     sketch on and off, the graph against the eager step, and the daemon
     with --resident --telemetry --trace over 11b's 1M-frame file (span
     histograms and telemetry_* on /metrics, summaries in events.log);
+11e. the anomaly-scoring tier (ROADMAP item 13) at the JAX package's
+    bench_mlscore shape (bench.py:4029-4083; mlscore_phase): kernel K10
+    against its plain version through both entries (chained admissions at
+    B = 1 to 2^18 on synflood and uniform traces, heads of 0, 8 and 64, sat
+    2^31 - 1, 4 and 100 tenants, shadow and enforce, a start above sat), the
+    60 synflood admissions of 256 through resident and multi-dispatch
+    classifiers on the card and the CPU's plain versions in shadow and
+    enforce (launch counts zeroed before and read after; all equal, shadow
+    equal to the oracle, every rewrite a Deny with ruleId 0 off the failsafe
+    cells), a model swap and mode flips with no capture, the admissions
+    until a drained anomaly-verdict record names the attacker, K10's times,
+    the resident admission with scoring on and off, and the daemon with
+    --resident --mlscore and a model dropped into models/;
 12. the port's daemon (infw_torch.daemon.Daemon, threads started): the
     headline CRs' ingress blocks as one NodeState file, then bench config
     5a's replay of the 100K trie re-adopted from a checkpoint; then an
@@ -233,7 +247,7 @@ exit, no result line) on any error:
     tables); every file's verdicts against the oracle on subsets and a
     host recount, stats, deny events and /metrics; launches per pass go
     on the kernels line as ``daemon_launches``;
-13. one JSON ``kernels`` line (K1-K9; K3, K3b and K6 as their fused entries,
+13. one JSON ``kernels`` line (K1-K10; K3, K3b and K6 as their fused entries,
     which the main paths run, each with its two-column entry's readings
     under ``two_column``), then the device JSON as the last line.
 
@@ -6200,6 +6214,535 @@ def telemetry_phase(tag: str) -> dict:
     }
 
 
+MLSCORE_CHUNK, MLSCORE_CHUNKS = 256, 60
+K10_SIZES, K10_TIMED = (1, 256, 4096, 1 << 18), (256, 4096, 1 << 18)
+
+
+def mlscore_tables():
+    """bench_mlscore's tables (bench.py:4064-4067): 100,000 entries, width 8,
+    40% IPv6, ifindexes 2, 3 (the trie path: K2 serves)."""
+    from infw_torch import testing
+
+    return testing.random_tables_fast(np.random.default_rng(2024), 100_000, width=8,
+                                      v6_fraction=0.4, ifindexes=(2, 3))
+
+
+def k10_bytes(spec, b: int, width: int) -> int:
+    """What the score update must move: a lane's wire row, tenant, flags and
+    verdict read once and its score, anomaly flag and verdict written once;
+    the state (source keys and columns, count-min rows, tenant counters,
+    epoch) read and written once each; the model's values and the policy
+    rows read once."""
+    T, D, L, H = spec.trees, spec.depth, spec.leaves, spec.hidden
+    state = (spec.slots * 14 + spec.cms_depth * spec.cms_width + spec.max_tenants * 4 + 1) * 4
+    model = 2 * T * D * 4 + T * L + 16 * H + 5 * H + 4 + 8 + spec.max_tenants * 8
+    return b * (width + 3 + 3) * 4 + 2 * state + model
+
+
+def k10_check(kms, spec, model, tparams, batches, resident: bool = False, start=None,
+              seed: int = 0) -> int:
+    """K10 on the card against its plain version (plain PyTorch on the same
+    card tensors) over chained admissions from one state (``start``, host
+    arrays, else zeros): after each, equal state tensors, equal outputs
+    (classic: [score, anom, res']; resident: the probe's and the stateless
+    words and the anomaly and score words, from a random hit bitmap and
+    served words), one launch a call.  Raises on a mismatch; returns the
+    largest absolute difference (0)."""
+    import torch
+
+    from infw_torch.kernels.flow import pack_bits32
+    from infw_torch.kernels.torchpath import _pack_res16
+
+    dev = torch.device(DEV)
+    host = start or {k: np.asarray(v) for k, v in zip(kms.ScoreState._fields,
+                                                      kms.zero_state_host(spec))}
+
+    def ops():
+        return kms.ScoreOps(kms.state_from_host(host, dev), kms.model_device(model, dev),
+                            torch.from_numpy(tparams.copy()).to(dev), None, spec)
+
+    got, want = ops(), ops()
+    rng = np.random.default_rng(seed)
+    kern = kms.RESIDENT_KERNEL if resident else kms.KERNEL
+    for j, batch in enumerate(batches):
+        wire, tenant, flags, res = (x.to(dev) for x in batch)
+        B = wire.shape[0]
+        before = kern.launches
+        if resident:
+            nw, nh = (B + 1) // 2, -(-B // 32)
+            hit = torch.from_numpy(rng.random(B) < 0.5).to(dev)
+            served = torch.from_numpy(rng.integers(0, 1 << 16, B)).to(dev)
+            words = []
+            for o, entry in ((got, kms.score_update_resident),
+                             (want, kms.score_update_resident_plain)):
+                bufs = (_pack_res16(served), pack_bits32(hit), _pack_res16(res.long() & 0xFFFF),
+                        torch.full((nh + nw,), -7, dtype=torch.int32, device=dev))
+                entry(o, wire, tenant, flags, *bufs)
+                words.append(bufs)
+            pairs = list(zip(("served", "hit", "res16", "out"), *words))
+        else:
+            pairs = [("out", kms.score_update(got, wire, tenant, flags, res),
+                      kms.score_update_out_plain(want, wire, tenant, flags, res))]
+        torch.cuda.synchronize()
+        if kern.launches != before + 1:
+            raise SystemExit(f"K10: {kern.launches - before} launches in one call")
+        for name, a, b in pairs:
+            if not torch.equal(a, b):
+                raise SystemExit(f"K10 {'resident' if resident else 'classic'} entry disagrees "
+                                 f"with its plain version on {name} (admission {j}), spec "
+                                 f"{spec}, B={B}")
+        for f in kms.ScoreState._fields:
+            a, b = getattr(got.state, f), getattr(want.state, f)
+            if not torch.equal(a, b):
+                diff = int((a.long() - b.long()).abs().max())
+                raise SystemExit(f"K10 {'resident' if resident else 'classic'} entry disagrees "
+                                 f"with its plain version on {f} (max |diff| {diff}, admission "
+                                 f"{j}), spec {spec}, B={B}")
+    return 0
+
+
+def k10_profile_child() -> None:
+    """Run in a fresh process by the scoring phase: K10's kernels and device
+    microseconds per call at each timed size on both traces, and one
+    resident admission of bench_mlscore's tables at B = 4096 with scoring
+    on and off, printed as one JSON line."""
+    import torch
+
+    from infw_torch import testing
+    from infw_torch.backend.cuda import TorchClassifier
+    from infw_torch.flow import FlowConfig
+    from infw_torch.kernels import mxu_score as kms
+
+    tables = mlscore_tables()
+    spec = kms.ScoreSpec.make()
+    model = kms.default_model(spec)
+    out = {"k10": {}, "admission": {}}
+    for b in K10_TIMED:
+        for name, args in k9_traces(tables, b).items():
+            ops = kms.ScoreOps(kms.zero_state(spec, DEV), kms.model_device(model, DEV),
+                               torch.from_numpy(kms.zero_tparams(spec)).to(DEV), None, spec)
+            args = [x.to(DEV) for x in args]
+            counts = {}
+            dev_us = profiled_kernels(lambda: kms.score_update(ops, *args), 10, counts)
+            out["k10"][f"{name} {b}"] = {"device_us": sum(dev_us.values()) if dev_us else None,
+                                         "kernels": counts, "per_kernel_us": dev_us}
+    batch, _meta = testing.attack_trace_batch(np.random.default_rng(1400), tables, 4096 * 4,
+                                              "synflood", chunk_packets=4096)
+    for label, ml in (("on", spec), ("off", None)):
+        clf = TorchClassifier(device=DEV, force_path="trie", resident=True,
+                              flow_table=FlowConfig.make(entries=1 << 14), mlscore=ml)
+        clf.load_tables(tables)
+        for lo in range(0, 3 * 4096, 4096):
+            clf.classify(batch.slice(lo, lo + 4096), apply_stats=False)
+        sub = batch.slice(3 * 4096, 4 * 4096)
+        out["admission"][label] = admission_profile(lambda: clf.classify(sub, apply_stats=False))
+    torch.cuda.synchronize()
+    print(json.dumps(out), flush=True)
+
+
+def mlscore_phase(tag: str) -> dict:
+    """The anomaly-scoring tier (ROADMAP item 13) on the card; returns K10's
+    kernels-line entry.
+
+    1. K10 against its plain version through both entries, three chained
+       admissions each, at B = 1, 256, 4096 and 2^18 on the synflood and a
+       uniform trace: the default spec (forest only), a head of 8 with the
+       clamp-stress model, a head of 64 of random weights with qshift (2, 5),
+       sat 2^31 - 1, four tenants with ids -1 and 4 in the trace, 100 tenants
+       (past the block tally of the tenant counters), shadow and enforce with
+       a threshold that fires; the 4-word wire; a start state above sat on
+       both entries;
+    2. bench_mlscore's cell (bench.py:4029-4083) through the entry points a
+       user calls: 60 synflood admissions of 256 packets (seed 1400), a 2^14
+       flow table, served resident and multi-dispatch on the card and resident
+       on the CPU (the plain versions), in shadow and in enforce, launch
+       counts zeroed before and read after each: verdicts, XDP, statistics,
+       score tensors, recent masks and flow columns equal across the three,
+       shadow verdicts equal to the oracle, every enforced rewrite a Deny
+       with ruleId 0 off the failsafe cells, failsafe cells keep their rule
+       verdicts with everything anomalous; a model swap and two mode flips
+       bump the flow generation and capture no graph; the admissions from
+       the attack's onset until a drained anomaly-verdict record names the
+       attacker (synflood, portscan);
+    3. K10's times at B = 256, 4096 and 2^18 (CUDA events back to back and
+       with the host ahead, the profiler's device time in a fresh process,
+       the plain version, the bound); the resident admission at 4096 with
+       scoring on and off (the same child);
+    4. the daemon with --resident --mlscore over the flow phase's 1M-frame
+       file: verdict files equal to the stateless daemon's; a model artifact
+       dropped into models/ between two passes swaps (mlscore_model_swaps_total
+       1, the flow generation bumped, no graph captured by the second pass);
+       mlscore_* on /metrics equal to the classifier's; anomaly-verdict lines
+       in events.log."""
+    import shutil
+
+    import torch
+
+    from infw_torch import daemon, mlscore as ml, oracle, testing
+    from infw_torch.backend.cuda import TorchClassifier
+    from infw_torch.flow import FlowConfig
+    from infw_torch.kernels import all_kernels, mxu_score as kms
+
+    kernels = all_kernels()
+    t0 = time.perf_counter()
+    tables = mlscore_tables()
+    spec = kms.ScoreSpec.make()
+    model = kms.default_model(spec)
+    log(f"mlscore: {tables.num_entries} entries x {tables.rule_width} rule slots, spec {spec}; "
+        f"made in {time.perf_counter() - t0:.2f} s")
+
+    # 1. K10 against its plain version
+    t0 = time.perf_counter()
+    pool = k9_traces(tables, 1 << 18)
+    rng = np.random.default_rng(1410)
+
+    def draws(b, name, n=3, tenants=None, width=7):
+        wire, tenant, flags, res = pool[name]
+        out = []
+        for _ in range(n):
+            idx = torch.from_numpy(rng.integers(0, wire.shape[0], b))
+            w = wire[idx]
+            if width == 4:
+                w4 = np.ascontiguousarray(w.numpy().view(np.uint32)[:, [0, 1, 2, 3]])
+                w4[:, 0] = (w4[:, 0] & ~np.uint32(3)) | np.uint32(1)
+                w = torch.from_numpy(w4.view(np.int32))
+            ten = (tenant[idx] if tenants is None else
+                   torch.from_numpy(rng.choice(np.asarray(tenants, np.int32), b)))
+            out.append((w, ten, flags[idx], res[idx]))
+        return out
+
+    h8, h64 = kms.ScoreSpec.make(hidden=8), kms.ScoreSpec.make(hidden=64)
+    sat_max, t4 = kms.ScoreSpec.make(sat=2**31 - 1), kms.ScoreSpec.make(max_tenants=4, hidden=4)
+    t100 = kms.ScoreSpec.make(max_tenants=100, hidden=4)
+    configs = [
+        ("default", spec, model, kms.zero_tparams(spec), None),
+        ("head 8, clamp-stress, enforce", h8, kms.clamp_stress_model(h8),
+         kms.zero_tparams(h8, enforce=True), None),
+        ("head 64, random, qshift (2, 5), enforce", h64,
+         testing.random_score_model(np.random.default_rng(64), h64),
+         kms.zero_tparams(h64, threshold=0, enforce=True), None),
+        ("sat 2^31 - 1", sat_max, kms.default_model(sat_max), kms.zero_tparams(sat_max), None),
+        ("4 tenants, ids -1..4, enforce", t4, kms.clamp_stress_model(t4),
+         kms.zero_tparams(t4, threshold=-1000, enforce=True), (-1, 0, 1, 2, 3, 4)),
+        ("100 tenants (counters past the block tally), enforce", t100,
+         kms.clamp_stress_model(t100), kms.zero_tparams(t100, threshold=-1000, enforce=True),
+         tuple(range(-1, 102))),
+        ("shadow, threshold 0", spec, model, kms.zero_tparams(spec, threshold=0), None),
+        ("enforce, threshold 0", spec, model, kms.zero_tparams(spec, threshold=0, enforce=True),
+         None),
+    ]
+    checked = 0
+    for label, sp, m, tp, tenants in configs:
+        for b in K10_SIZES:
+            for name in ("synflood", "uniform"):
+                for resident in (False, True):
+                    checked += 1 + k10_check(kms, sp, m, tp, draws(b, name, tenants=tenants),
+                                             resident=resident, seed=checked)
+    for resident in (False, True):
+        checked += 1 + k10_check(kms, spec, model, kms.zero_tparams(spec, 0, True),
+                                 draws(4096, "uniform", width=4), resident=resident)
+    sat40 = kms.ScoreSpec.make(sat=40, slots=32, ways=2, cms_width=64, hidden=8)
+    start = {k: np.asarray(v).copy() for k, v in zip(kms.ScoreState._fields,
+                                                    kms.zero_state_host(sat40))}
+    start["cms"][:] = rng.integers(0, 200, start["cms"].shape)
+    start["cms"][0, :4] = 2**31 - 1
+    start["scols"][:, :4] = rng.integers(0, 200, (32, 4))
+    start["scols"][:, 6] = rng.integers(0, 200, 32)
+    start["scols"][:3, :4] = 2**31 - 1
+    for resident in (False, True):
+        checked += 1 + k10_check(kms, sat40, kms.clamp_stress_model(sat40),
+                                 kms.zero_tparams(sat40, threshold=50, enforce=True),
+                                 draws(300, "synflood"), resident=resident, start=start)
+    log(f"K10 vs plain: {checked} configurations (both entries at B = {list(K10_SIZES)} on the "
+        f"synflood and uniform traces: {[c[0] for c in configs]}; the 4-word wire; a start state "
+        f"above sat 40), 2-3 chained admissions each: every state tensor and output word equal, "
+        f"one launch a call; {time.perf_counter() - t0:.1f} s")
+
+    # 2. bench_mlscore's cell through the classifiers
+    t0 = time.perf_counter()
+    bs = MLSCORE_CHUNK
+    trace, meta = testing.attack_trace_batch(np.random.default_rng(1400), tables,
+                                             bs * MLSCORE_CHUNKS, "synflood", chunk_packets=bs)
+    tflags = np.asarray(trace.tcp_flags, np.int32)
+    chunks = []
+    for lo in range(0, len(trace), bs):
+        sub = np.arange(lo, lo + bs, dtype=np.int64)
+        w, v4 = trace.pack_wire_subset(sub)
+        chunks.append((w, v4, np.ascontiguousarray(tflags[sub])))
+    ref = oracle.classify(tables, trace).results
+
+    def admit(c, chunk):
+        w, v4, f = chunk
+        return c.classify_prepared(c.prepare_packed(w, v4, tcp_flags=f), apply_stats=False).result()
+
+    def classifier(device, resident, mode):
+        c = TorchClassifier(device=device, force_path="trie", resident=resident,
+                            flow_table=FlowConfig.make(entries=1 << 14), mlscore=spec,
+                            mlscore_model=model, mlscore_mode=mode)
+        c.load_tables(tables)
+        c.mlscore.set_keep_masks(len(chunks))
+        return c
+
+    cell = {}
+    for mode in ("shadow", "enforce"):
+        plans = {"resident": classifier(DEV, True, mode), "multi-dispatch": classifier(DEV, False, mode),
+                 "plain (CPU)": classifier("cpu", True, mode)}
+        outs, launches = {}, {}
+        for label, c in plans.items():
+            torch.cuda.synchronize()
+            for k in kernels:
+                k.launches = 0
+            outs[label] = [admit(c, ch) for ch in chunks]
+            launches[label] = {k.name: k.launches for k in kernels if k.launches}
+        captures = plans["resident"].resident.graphs()
+        lr, lm = launches["resident"], launches["multi-dispatch"]
+        if (lr.get("score_update_resident", 0) != len(chunks) + captures or lr.get("score_update")
+                or lm.get("score_update", 0) != len(chunks) or lm.get("score_update_resident")
+                or launches["plain (CPU)"]):
+            raise SystemExit(f"mlscore main path ({mode}): launches {launches}; expected "
+                             f"{len(chunks)} + {captures} resident K10 calls, {len(chunks)} "
+                             f"classic, none on the CPU")
+        base = plans["resident"]
+        for label, c in plans.items():
+            for j, (a, b) in enumerate(zip(outs[label], outs["resident"])):
+                if not (np.array_equal(a.results, b.results) and np.array_equal(a.xdp, b.xdp)
+                        and np.array_equal(a.stats_delta, b.stats_delta)):
+                    raise SystemExit(f"mlscore {mode}: the {label} plan's admission {j} differs "
+                                     f"from the resident plan's")
+            cols, bcols = c.mlscore.columns(), base.mlscore.columns()
+            fl, bfl = c.flow.flow_columns(), base.flow.flow_columns()
+            if not (all(np.array_equal(cols[f], bcols[f]) for f in cols)
+                    and all(np.array_equal(fl[f], bfl[f]) for f in fl)):
+                raise SystemExit(f"mlscore {mode}: the {label} plan's score or flow tensors "
+                                 f"differ from the resident plan's")
+            for (e1, a1, s1), (e2, a2, s2) in zip(c.mlscore.recent_masks(),
+                                                  base.mlscore.recent_masks()):
+                if e1 != e2 or not np.array_equal(a1, a2) or not np.array_equal(s1, s2):
+                    raise SystemExit(f"mlscore {mode}: the {label} plan's scores differ")
+        got = np.concatenate([o.results for o in outs["resident"]])
+        anom = np.concatenate([a for _e, a, _s in base.mlscore.recent_masks()])
+        if mode == "shadow":
+            if not np.array_equal(got, ref):
+                raise SystemExit(f"mlscore shadow: {int((got != ref).sum())} verdicts differ "
+                                 f"from the oracle's")
+        else:
+            fs = kms.failsafe_lane_mask_np(trace.proto, trace.dst_port)
+            rewritten = got != ref
+            if (rewritten & ((got != 1) | fs)).any() or not rewritten.any():
+                raise SystemExit("mlscore enforce: a rewrite is not a Deny with ruleId 0, or "
+                                 "lands on a failsafe cell, or nothing was rewritten")
+            truth = np.asarray(meta["attack_mask"], bool)
+            post = np.arange(len(trace)) >= meta["start"]
+            cell["mitigated"] = float((got[truth & post] == 1).mean())
+            base.mlscore.drain()
+            cell["enforced"] = base.mlscore.counter_values()["mlscore_enforced_total"]
+            # failsafe precedence with everything anomalous (bench.py:4362-4383)
+            base.mlscore.set_threshold(-(10**6))
+            fsb = testing.random_batch_fast(np.random.default_rng(9), tables, bs)
+            fsb.kind[:] = 1
+            fsb.l4_ok[:] = 1
+            fsb.proto[:] = 6
+            fs_ports = np.asarray([22, 6443, 2379, 2380, 10250, 10257, 10259], np.int32)
+            fsb.dst_port[:] = fs_ports[np.arange(bs) % len(fs_ports)]
+            fsb.tcp_flags = np.full(bs, 0x10, np.int32)
+            w, v4 = fsb.pack_wire_subset(np.arange(bs, dtype=np.int64))
+            o = admit(base, (w, v4, fsb.tcp_flags))
+            if not np.array_equal(o.results, oracle.classify(tables, fsb).results):
+                raise SystemExit("mlscore enforce: a failsafe cell lost its rule verdict")
+        cell[mode] = {"launches": launches, "captures": captures,
+                      "anomalous_lanes": int(anom.sum())}
+        if mode == "shadow":
+            # a model swap and two mode flips: the flow generation bumps, no capture
+            g0, a0 = base.resident.graphs(), base.resident_counters()["resident_allocs_total"]
+            gen0 = int(base.flow._gens_host[0])
+            base.set_score_model(model._replace(version="v2"))
+            base.mlscore.set_mode("enforce")
+            base.mlscore.set_mode("shadow")
+            for ch in chunks[:8]:
+                admit(base, ch)
+            g1, a1 = base.resident.graphs(), base.resident_counters()["resident_allocs_total"]
+            gen1 = int(base.flow._gens_host[0])
+            if (g1, a1, gen1) != (g0, a0, gen0 + 3):
+                raise SystemExit(f"mlscore: swap and flips moved graphs {g0} -> {g1}, allocs "
+                                 f"{a0} -> {a1}, generation {gen0} -> {gen1}")
+            cell["swap"] = {"graphs": g1, "allocs": a1, "generation_bumps": gen1 - gen0}
+        for c in plans.values():
+            c.close()
+    detect = {}
+    for mode in ("synflood", "portscan"):
+        dtrace, dmeta = testing.attack_trace_batch(np.random.default_rng(1400), tables,
+                                                   bs * MLSCORE_CHUNKS, mode, chunk_packets=bs)
+        dflags = np.asarray(dtrace.tcp_flags, np.int32)
+        det = TorchClassifier(device=DEV, force_path="trie", resident=True,
+                              flow_table=FlowConfig.make(entries=1 << 14), mlscore=spec,
+                              mlscore_model=model)
+        det.load_tables(tables)
+        srcs = {".".join(str(x) for x in int(s[0]).to_bytes(4, "big")) if k == 1 else "v6"
+                for s, k in dmeta["attackers"]}
+        start = dmeta["start"] // bs
+        for ci in range(len(dtrace) // bs):
+            sub = np.arange(ci * bs, (ci + 1) * bs, dtype=np.int64)
+            w, v4 = dtrace.pack_wire_subset(sub)
+            admit(det, (w, v4, np.ascontiguousarray(dflags[sub])))
+            if ci < start:
+                continue
+            rec = det.mlscore.drain(force=True)[0]
+            if any(h["src"] in srcs for h in rec.top):
+                detect[mode] = ci - start + 1
+                break
+        else:
+            raise SystemExit(f"mlscore: the {mode} attacker never surfaced in a drained record")
+        det.close()
+    log(f"{tag} mlscore main path (bench_mlscore's cell, {len(chunks)} admissions of {bs}): "
+        f"launches {cell['shadow']['launches']} (shadow), {cell['enforce']['launches']} "
+        f"(enforce); resident, multi-dispatch and the CPU's plain versions equal (verdicts, XDP, "
+        f"statistics, score and flow tensors, scores); shadow verdicts equal the oracle's; "
+        f"enforce: {cell['mitigated']:.4f} of post-onset attack lanes denied, "
+        f"{cell['enforced']} rewrites, every one a Deny with ruleId 0 off the failsafe cells, "
+        f"failsafe cells keep their rule verdicts; a swap and two flips: {cell['swap']}; a drained "
+        f"record names the attacker after {detect['synflood']} (synflood) and "
+        f"{detect['portscan']} (portscan) admissions from the onset; "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # 3. K10's times and the resident admission on and off
+    timings = {}
+    for b in K10_TIMED:
+        for name, args in k9_traces(tables, b).items():
+            mk = lambda: kms.ScoreOps(kms.zero_state(spec, DEV), kms.model_device(model, DEV),  # noqa: E731
+                                      torch.from_numpy(kms.zero_tparams(spec)).to(DEV), None,
+                                      spec)
+            o_k, o_p = mk(), mk()
+            args = [x.to(DEV) for x in args]
+            fn = lambda: kms.score_update(o_k, *args)  # noqa: E731
+            timings[f"{name} {b}"] = {
+                "ms": cuda_ms(fn, reps=20), "paced_ms": device_paced_ms(fn, reps=20),
+                "plain_ms": cuda_ms(lambda: kms.score_update_out_plain(o_p, *args), reps=3,
+                                    warmup=1),
+                "bound_ms": k10_bytes(spec, b, 7) / HBM_BYTES_PER_S * 1e3,
+            }
+    here = os.path.dirname(os.path.abspath(__file__))
+    child = subprocess.run([sys.executable, "-c", "import chip_smoke; "
+                            "chip_smoke.k10_profile_child()"], cwd=here,
+                           capture_output=True, text=True, timeout=600)
+    if child.returncode != 0:
+        raise SystemExit(f"K10 profile child failed:\n{child.stderr[-3000:]}")
+    prof = json.loads(child.stdout.strip().splitlines()[-1])
+    for key, t in timings.items():
+        p = prof["k10"][key]
+        t.update(device_us=p["device_us"], kernels=p["kernels"], per_kernel_us=p["per_kernel_us"])
+        dev_ms = t["device_us"] / 1e3 if t["device_us"] else None
+        log(f"{tag} K10 score_update [{key}]: events {t['ms']:.5f} ms, with the host ahead "
+            f"{t['paced_ms']:.5f} ms, device {t['device_us'] if t['device_us'] else 'lost'} us "
+            f"({t['per_kernel_us']}); bound {t['bound_ms']:.6f} ms by bytes"
+            + (f" ({dev_ms / t['bound_ms']:.2f}x)" if dev_ms else "")
+            + f"; plain {t['plain_ms']:.4f} ms")
+    adm = prof["admission"]
+    ratio = (adm["on"]["device_us"] / adm["off"]["device_us"]
+             if adm["on"]["device_us"] and adm["off"]["device_us"] else None)
+    log(f"{tag} resident admission (4096 packets, synflood, bench_mlscore's tables) device time: "
+        f"scoring on {adm['on']['device_us']} us in {adm['on']['kernels']} kernels, off "
+        f"{adm['off']['device_us']} us in {adm['off']['kernels']} kernels ({ratio}x); copies "
+        f"{adm['on']['h2d']} / {adm['on']['d2h']} on, {adm['off']['h2d']} / {adm['off']['d2h']} "
+        f"off")
+
+    # 4. the daemon with --resident --mlscore, a model dropped into models/
+    st = FLOW_STASH
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "mlscore-smoke")
+    shutil.rmtree(root, ignore_errors=True)
+    d = daemon.Daemon(state_dir=os.path.join(root, "state"), node_name=DAEMON_NODE,
+                      registry=st["daemon_registry"], metrics_port=0, health_port=0,
+                      poll_period_s=0.1, file_poll_interval_s=0.02,
+                      flow_table=FlowConfig.make(entries=FLOW_SLAB), resident=True,
+                      mlscore=(spec, model), mlscore_mode="shadow",
+                      backend="cuda" if DEV == "cuda" else "cpu")
+    daemon_launches, passes = {}, []
+    try:
+        d.start()
+        p = os.path.join(d.nodestates_dir, f"{DAEMON_NODE}.json")
+        with open(p + ".tmp", "w") as f:
+            json.dump(st["daemon_doc"], f)
+        os.replace(p + ".tmp", p)
+        _wait(lambda: d.syncer.classifier is not None and d.syncer.classifier.tables is not None
+              and bool(d.syncer.attached_interfaces()), "the mlscore daemon's NodeState", 300)
+        c = d.syncer.classifier
+        _wait(lambda: id(c.mlscore) in d._mlscore_attached, "the mlscore daemon's attach", 60)
+        fb = st["daemon_fb"]
+        stage_dir = os.path.join(d.state_dir, "staging")
+        os.makedirs(stage_dir, exist_ok=True)
+        gen0 = None
+        for k in range(2):
+            daemon.write_frames_file_v2(os.path.join(stage_dir, f"{k}.frames"), fb)
+            torch.cuda.synchronize()
+            for kern in kernels:
+                kern.launches = 0
+            t = time.perf_counter()
+            os.replace(os.path.join(stage_dir, f"{k}.frames"),
+                       os.path.join(d.ingest_dir, f"{k}.frames"))
+            _wait(lambda: os.path.exists(os.path.join(d.out_dir, f"{k}.frames.verdicts.json")),
+                  "the mlscore daemon's pass", 600, 0.002)
+            dt = time.perf_counter() - t
+            daemon_launches[f"mlscore {k}"] = {x.name: x.launches for x in kernels if x.launches}
+            got = open(os.path.join(d.out_dir, f"{k}.frames.verdicts.bin"), "rb").read()
+            if got != st["daemon_stateless"]:
+                raise SystemExit(f"mlscore daemon: pass {k}'s verdict file differs from the "
+                                 f"stateless daemon's")
+            if daemon_launches[f"mlscore {k}"].get("score_update_resident", 0) <= 0:
+                raise SystemExit(f"mlscore daemon: launches {daemon_launches}")
+            passes.append({"s": dt, "graphs": c.resident.graphs(),
+                           "allocs": c.resident_counters()["resident_allocs_total"]})
+            if k == 0:
+                gen0 = int(c.flow._gens_host[0])
+                ml.save_model(model._replace(version="dropped"),
+                              os.path.join(d.models_dir, "m1.npz"))
+                _wait(lambda: c.mlscore_counters()["mlscore_model_swaps_total"] == 1,
+                      "the mlscore daemon's model swap", 60)
+        gen1 = int(c.flow._gens_host[0])
+        if (c.mlscore.model_version != "dropped" or gen1 != gen0 + 1 or os.listdir(d.models_dir)
+                or (passes[1]["graphs"], passes[1]["allocs"]) != (passes[0]["graphs"],
+                                                                  passes[0]["allocs"])):
+            raise SystemExit(f"mlscore daemon: after the swap version {c.mlscore.model_version}, "
+                             f"generation {gen0} -> {gen1}, models/ {os.listdir(d.models_dir)}, "
+                             f"passes {passes}")
+        _wait(lambda: c.mlscore_counters()["mlscore_window_admissions"] == 0,
+              "the mlscore daemon's last window to drain", 60)
+        mc = c.mlscore_counters()
+        for key in ("mlscore_updates_total", "mlscore_model_swaps_total", "mlscore_drains_total",
+                    "mlscore_admissions_total", "mlscore_anomalies_total"):
+            if _metric(d, key) != mc[key]:
+                raise SystemExit(f"mlscore daemon: /metrics {key} {_metric(d, key)} is not the "
+                                 f"classifier's {mc[key]}")
+        d.events_logger.drain_once()
+        records = [ln for ln in open(d.events_path).read().splitlines()
+                   if ln.startswith("anomaly-verdict ")]
+        if len(records) != mc["mlscore_drain_seq"] or not records:
+            raise SystemExit(f"mlscore daemon: {len(records)} anomaly-verdict lines for "
+                             f"{mc['mlscore_drain_seq']} drains")
+        log(f"{tag} mlscore daemon (--resident --mlscore): 2 passes of {len(fb)} frames in "
+            f"{passes[0]['s']:.3f} / {passes[1]['s']:.3f} s, launches {daemon_launches}; verdict "
+            f"files equal to the stateless daemon's; a model dropped into models/ between them "
+            f"swapped (generation {gen0} -> {gen1}, graphs {passes[0]['graphs']} and allocs "
+            f"{passes[0]['allocs']} unchanged by the second pass); mlscore_* on /metrics equal to "
+            f"the classifier's {mc}; {len(records)} anomaly-verdict records in events.log")
+    finally:
+        d.stop()
+    shutil.rmtree(root, ignore_errors=True)
+
+    main = timings[f"synflood {MLSCORE_CHUNK}"]
+    return {
+        "name": "score_update", "route": "cuda",
+        "source": "infw_torch/kernels/csrc/score_update.cu",
+        "replaces": "infw/kernels/mxu_score.py:734",
+        "launches": cell["shadow"]["launches"]["resident"].get("score_update_resident", 0),
+        "mismatches": 0, "max_abs_err": 0,
+        "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+        "bound_by": "bytes", "library_ms": None,
+        "entries": {"classic": "score_update", "resident": "score_update_resident"},
+        "checked_configurations": checked, "timings": timings, "admission": adm,
+        "admission_on_off": ratio, "cell": cell, "detect_admissions": detect,
+        "mlscore_daemon_launches": daemon_launches, "daemon_passes": passes,
+    }
+
+
 def main() -> int:
     import torch
 
@@ -6454,8 +6997,14 @@ def main() -> int:
     # cell, K9's times, the daemon with --resident --telemetry --trace
     t_phase = time.perf_counter()
     k9 = telemetry_phase(tag)
-    FLOW_STASH.clear()
     log(f"phase telemetry: {time.perf_counter() - t_phase:.1f} s")
+
+    # 11e. the anomaly-scoring tier: K10 against its plain version,
+    # bench_mlscore's cell, K10's times, the daemon with --resident --mlscore
+    t_phase = time.perf_counter()
+    k10 = mlscore_phase(tag)
+    FLOW_STASH.clear()
+    log(f"phase mlscore: {time.perf_counter() - t_phase:.1f} s")
 
     # 12. the daemon: the headline CRs' ingress blocks as one NodeState,
     # then bench config 5a's replay, through infw_torch.daemon
@@ -6469,8 +7018,8 @@ def main() -> int:
         f"{time.perf_counter() - t_start:.1f} s so far")
     # each kernel's launches in each daemon pass, the two-column walks
     # under their own entries; a launch no entry names fails the run
-    entries = [k1, k2, k3, k4, k3b, k5, k6, k7, k8, k9, k3["two_column"], k3b["two_column"],
-               k6["two_column"]]
+    entries = [k1, k2, k3, k4, k3b, k5, k6, k7, k8, k9, k10, k3["two_column"],
+               k3b["two_column"], k6["two_column"]]
     for k in entries:
         k["daemon_launches"] = {p: c.get(k["name"], 0) for p, c in daemon_launches.items()}
     unlisted = {n for c in daemon_launches.values() for n in c} - {k["name"] for k in entries}
@@ -6478,7 +7027,7 @@ def main() -> int:
         raise SystemExit(f"daemon: kernels {sorted(unlisted)} launched but not on the kernels line")
 
     # 13. the kernels line, then the device line last
-    print(json.dumps({"kernels": [k1, k2, k3, k4, k3b, k5, k6, k7, k8, k9]}), flush=True)
+    print(json.dumps({"kernels": [k1, k2, k3, k4, k3b, k5, k6, k7, k8, k9, k10]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}),
           flush=True)
     return 0

@@ -111,6 +111,23 @@ results and statistics (results only for the wire8 and delta formats).
   ``telemetry`` is the tier, ``telemetry_counters()`` its /metrics
   counters.  ``TorchArenaClassifier`` has no telemetry, as in the
   reference.
+- **anomaly scoring** (``mlscore=``: True, a slot count or a ScoreSpec;
+  else ``INFW_MLSCORE``; else off; ``mlscore_model=`` a ScoreModel,
+  ``mlscore_mode=`` shadow | enforce, else ``INFW_MLSCORE_MODE``, else
+  shadow; the JAX package's ``AnomalyTier`` hooks): per-source features,
+  a decision forest and an optional int8 MLP head on the card
+  (infw_torch.mlscore.AnomalyTier, kernel K10), with a per-tenant policy
+  that in enforce mode rewrites anomalous lanes to Deny (ruleId 0), never
+  a failsafe cell or a rule Deny.  A resident admission scores as a stage
+  of its step, between the probe and the insert, so the flow table caches
+  the enforced verdicts; a flow plan launches K10 once when it
+  materializes, between the merge and the insert; a stateless plan once
+  when it materializes, before the telemetry launch, and re-derives
+  verdicts, XDP and statistics on the host when the policy rewrote a
+  lane.  A model swap (``set_score_model``) or a policy flip bumps the
+  flow generation.  ``mlscore`` is the tier, ``mlscore_counters()`` its
+  /metrics counters.  ``TorchArenaClassifier`` scores nothing, as in the
+  reference.
 
 The device is the first CUDA card unless the caller names another
 (``device="cpu"`` runs the plain PyTorch version of every kernel, which is
@@ -134,7 +151,12 @@ from ..constants import ALLOW, DENY, KIND_IPV6
 from ..kernels import arena_dense, arena_walk, cwalk, dense, torchpath, walk, wire_decode
 from ..kernels import flow as kflow
 from ..kernels import overlay as overlay_mod
-from ..kernels.resident import resident_fused_host, split_resident_outputs
+from ..kernels.mxu_score import ScoreSpec
+from ..kernels.resident import (
+    resident_fused_host,
+    split_resident_outputs,
+    split_resident_score_outputs,
+)
 from ..kernels.sketch import SketchSpec
 from ..layout import (
     build_depth_lut,
@@ -146,6 +168,7 @@ from ..layout import (
     tune_depth_classes,
     v4_trie_depth,
 )
+from ..mlscore import AnomalyTier
 from ..obs.telemetry import TelemetryTier
 from ..packets import PacketBatch, encode_delta_wire, narrow_wire, wire8
 from .base import ClassifyOutput, PendingClassify, StatsAccumulator, stats_from_results
@@ -193,15 +216,18 @@ def _miss_flags(tcp_flags, miss: np.ndarray, rows: int):
 
 
 def _flow_materialize(tier, fused, ctx, wire_np: np.ndarray, kind: np.ndarray, tcp_flags,
-                      classify_misses, tenant: Optional[np.ndarray] = None):
+                      classify_misses, tenant: Optional[np.ndarray] = None, score=None):
     """The flow plan's second half (tpu.py _launch_flow and
     _classify_flow_tenant): decode the probe's buffer, take the hit lanes'
     statistics from their verdicts and pkt_len, classify the compacted
     misses with ``classify_misses(miss_wire, miss_tenant)`` (the
     classifier's stateless dispatch; ``miss_tenant`` is None without a
-    ``tenant`` column, else -1 on the padding rows), merge, insert the
-    misses' verdicts with their flags, and finalize -> ClassifyOutput (its
-    statistics not yet applied)."""
+    ``tenant`` column, else -1 on the padding rows), merge, score the merged
+    verdicts with ``score(res16) -> res16'`` when given (the statistics
+    re-derived when the policy rewrote a lane, and the rewritten verdicts
+    are what the flow table caches), insert the misses' verdicts with their
+    flags, and finalize -> ClassifyOutput (its statistics not yet
+    applied)."""
     n = wire_np.shape[0]
     res16, hitmask, hits, stale = kflow.split_flow_probe_outputs(fused.cpu().numpy(), n)
     tier.stats.add(hits=hits, misses=n - hits, stale_rejects=stale)
@@ -218,6 +244,12 @@ def _flow_materialize(tier, fused, ctx, wire_np: np.ndarray, kind: np.ndarray, t
         out = classify_misses(miss_wire, miss_tenant)
         res16[miss] = (out.results[:m] & 0xFFFF).astype(np.uint16)
         stats_delta += out.stats_delta
+    if score is not None:
+        new16 = score(res16)
+        if not np.array_equal(new16, res16):
+            res16 = new16
+            stats_delta = stats_from_results(res16.astype(np.uint32), pkt_len)
+    if len(miss):
         verdicts = np.zeros(miss_wire.shape[0], np.uint32)
         verdicts[:m] = res16[miss]
         tier.insert(ctx, miss_wire, verdicts, tenant_np=miss_tenant,
@@ -248,7 +280,9 @@ class TorchClassifier:
                  wire_codec: Optional[str] = None,
                  flow_table=None, flow_track_model: bool = False,
                  resident: Optional[bool] = None, telemetry=None,
-                 telemetry_track_model: bool = False) -> None:
+                 telemetry_track_model: bool = False, mlscore=None, mlscore_model=None,
+                 mlscore_mode: Optional[str] = None,
+                 mlscore_track_model: bool = False) -> None:
         if force_path not in (None, "dense", "trie", "ctrie"):
             raise ValueError(
                 f"unknown force_path {force_path!r} (expected 'dense', 'trie', 'ctrie' or None)"
@@ -313,6 +347,24 @@ class TorchClassifier:
                              else SketchSpec.make(width=int(telemetry)))
             self._telemetry = TelemetryTier(telemetry, device=self._device,
                                             track_model=telemetry_track_model)
+        # anomaly scoring: the argument (True, a slot count or a ScoreSpec),
+        # else INFW_MLSCORE, else off; the mode the argument, else
+        # INFW_MLSCORE_MODE, else shadow
+        if mlscore is None:
+            env = os.environ.get("INFW_MLSCORE", "")
+            if env and env not in ("0", "false", "no"):
+                mlscore = True
+        if mlscore_mode is None:
+            mlscore_mode = os.environ.get("INFW_MLSCORE_MODE") or "shadow"
+        self._mlscore = None
+        if mlscore is not None and mlscore is not False:
+            if not isinstance(mlscore, ScoreSpec):
+                mlscore = (ScoreSpec.make() if mlscore is True
+                           else ScoreSpec.make(slots=int(mlscore)))
+            self._mlscore = AnomalyTier(mlscore, model=mlscore_model, device=self._device,
+                                        mode=mlscore_mode, track_model=mlscore_track_model)
+            # a model swap or a policy flip behaves like a rule patch
+            self._mlscore.on_swap = self._on_score_model_swap
 
     @property
     def device(self) -> torch.device:
@@ -345,6 +397,29 @@ class TorchClassifier:
     def telemetry_counters(self) -> dict:
         """telemetry_* counters for /metrics (empty when off)."""
         return {} if self._telemetry is None else self._telemetry.counter_values()
+
+    @property
+    def mlscore(self) -> "Optional[AnomalyTier]":
+        """The AnomalyTier when anomaly scoring is on."""
+        return self._mlscore
+
+    def mlscore_counters(self) -> dict:
+        """mlscore_* counters for /metrics (empty when off)."""
+        return {} if self._mlscore is None else self._mlscore.counter_values()
+
+    def set_score_model(self, model, version=None) -> None:
+        """Hot-swap the anomaly model (its value tensors rewritten in place,
+        nothing captured again); the tier's on_swap then bumps the flow
+        generation."""
+        if self._mlscore is None:
+            raise RuntimeError("mlscore tier is not enabled")
+        self._mlscore.swap_model(model, version=version)
+
+    def _on_score_model_swap(self) -> None:
+        """Flow entries caching verdicts decided by the old model or policy
+        go stale through the generation stamps every table edit uses."""
+        if self._flow is not None:
+            self._flow.bump_generation()
 
     def mark_resident_warm(self) -> None:
         """Bring the device epoch to the host counter (the classic warm
@@ -610,28 +685,58 @@ class TorchClassifier:
             # sub-dispatch goes through _plan / _launch and never counts
             plan["telem_wire"] = wire_np
             plan["telem_flags"] = tcp_flags
+        if self._mlscore is not None and wire_np.shape[1] in (4, 7):
+            # one K10 launch when the plan materializes, over the merged rule
+            # verdicts: a flow plan's between its merge and its insert, a
+            # stateless plan's before the telemetry launch; a flow plan's miss
+            # sub-dispatch goes through _plan / _launch and is not scored
+            plan["ml_wire"] = wire_np
+            plan["ml_flags"] = tcp_flags
         return plan
 
     def classify_prepared(self, plan, apply_stats: bool = True) -> PendingClassify:
         """Second half: launch the classify on a prepare_packed plan (a
-        resident plan's sketch update rode its step; any other plan's is
-        one K9 launch when it materializes)."""
+        resident plan's score and sketch updates rode its step; a flow
+        plan's score update runs inside its materialize; any other plan's
+        is one K10 and one K9 launch when it materializes)."""
         if plan.get("resident"):
             return self._launch_resident(plan, apply_stats)
         if plan.get("flow"):
             pending = self._launch_flow(plan, apply_stats)
+            run_ml = False
         else:
             pending = self._launch(plan, apply_stats)
+            run_ml = self._mlscore is not None and "ml_wire" in plan
         tel = self._telemetry
-        if tel is None or "telem_wire" not in plan:
+        run_tel = tel is not None and "telem_wire" in plan
+        if not run_ml and not run_tel:
             return pending
 
         def materialize() -> ClassifyOutput:
             out = pending.result()
-            tel.update(plan["telem_wire"], out.results, tflags_np=plan["telem_flags"])
+            if run_ml:
+                out = self._apply_mlscore_wire(out, plan["ml_wire"], plan["ml_flags"],
+                                               apply_stats)
+            if run_tel:
+                tel.update(plan["telem_wire"], out.results, tflags_np=plan["telem_flags"])
             return out
 
         return PendingClassify(materialize)
+
+    def _apply_mlscore_wire(self, out: ClassifyOutput, wire_np: np.ndarray, tcp_flags,
+                            apply_stats: bool) -> ClassifyOutput:
+        """Score one stateless admission (tpu.py _apply_mlscore_wire) and, when
+        the policy rewrote a lane, re-derive its verdicts, XDP and
+        statistics on the host."""
+        res16, _anom, _scores = self._mlscore.update(wire_np, out.results, tflags_np=tcp_flags)
+        if np.array_equal(res16, (out.results & 0xFFFF).astype(np.uint16)):
+            return out
+        results, xdp = torchpath.host_finalize_wire(res16, (wire_np[:, 0] & 3).astype(np.int32))
+        stats_delta = stats_from_results(results, self._wire4_pkt_len(wire_np))
+        if apply_stats:
+            # the launch applied the pre-policy statistics: swap them
+            self._stats.add(stats_delta - out.stats_delta)
+        return ClassifyOutput(results=results, xdp=xdp, stats_delta=stats_delta)
 
     # -- resident serving ----------------------------------------------------
 
@@ -669,27 +774,39 @@ class TorchClassifier:
             return None
         n = wire_np.shape[0]
         fused, epoch = pool.dispatch(tier, ctx, self._resident_levels(ctx, v4_only, depth),
-                                     wire_np, tcp_flags, gens_snap, telemetry=self._telemetry)
+                                     wire_np, tcp_flags, gens_snap, telemetry=self._telemetry,
+                                     mlscore=self._mlscore)
         pool.note("dispatches")
         pool.note(f"slot{(epoch - 1) & 1}_dispatches")
         self._note_wire(f"wire{wire_np.shape[1]}", n, wire_np.nbytes)
         return {"resident": True, "fused": fused, "n": n, "epoch": epoch,
+                "mlscore": self._mlscore is not None,
                 "kind": (wire_np[:, 0] & 3).astype(np.int32),
                 "pkt_len": self._wire4_pkt_len(wire_np)}
 
     def _resident_output(self, arr: np.ndarray, n: int, epoch: int, kind, pkt_len,
-                         apply_stats: bool) -> ClassifyOutput:
+                         apply_stats: bool, score: bool = False) -> ClassifyOutput:
         """One admission's read-back (tpu.py _launch_resident's
         materialize): the flow counters, the model's replay up to this
-        epoch, eviction events, the verdicts, and the statistics from the
-        verdicts and the host's pkt_len column."""
+        epoch, the score outcome (``score``: the read back carries the
+        scoring extension; its verdicts are the policy's), eviction events,
+        the verdicts, and the statistics from the verdicts and the host's
+        pkt_len column."""
         tier = self._flow
-        res16, _hit, hits, stale, (inserts, evictions, promotes) = split_resident_outputs(arr, n)
+        anom = scores = None
+        if score:
+            (res16, _hit, hits, stale, (inserts, evictions, promotes), anom,
+             scores) = split_resident_score_outputs(arr, n)
+        else:
+            res16, _hit, hits, stale, (inserts, evictions, promotes) = split_resident_outputs(
+                arr, n)
         tier.stats.add(hits=hits, misses=n - hits, stale_rejects=stale, inserts=inserts,
                        evictions=evictions, promotes=promotes)
         tier.resident_note_materialized(epoch)
         if self._telemetry is not None:
             self._telemetry.resident_note_materialized(epoch)
+        if anom is not None and self._mlscore is not None:
+            self._mlscore.resident_note_materialized(epoch, anom_np=anom, score_np=scores)
         if evictions and tier.on_evict is not None:
             try:
                 tier.on_evict(evictions, inserts, epoch)
@@ -706,7 +823,7 @@ class TorchClassifier:
         materializes."""
         return PendingClassify(lambda: self._resident_output(
             resident_fused_host(plan["fused"]), plan["n"], plan["epoch"], plan["kind"],
-            plan["pkt_len"], apply_stats))
+            plan["pkt_len"], apply_stats, plan.get("mlscore", False)))
 
     def prepare_packed_super(self, wire_stack: np.ndarray, v4_only: bool,
                              tcp_flags_stack: Optional[np.ndarray] = None):
@@ -728,12 +845,13 @@ class TorchClassifier:
         k, n, w = wire_stack.shape
         fused, epoch = pool.dispatch(tier, ctx, self._resident_levels(ctx, v4_only, None),
                                      wire_stack, tcp_flags_stack, gens_snap, k=k,
-                                     telemetry=self._telemetry)
+                                     telemetry=self._telemetry, mlscore=self._mlscore)
         pool.note("dispatches")
         pool.note("superbatch_dispatches")
         pool.note("superbatch_admissions", k)
         self._note_wire(f"wire{w}", k * n, wire_stack.nbytes)
         return {"resident_super": True, "fused": fused, "k": k, "n": n, "epoch0": epoch - k,
+                "mlscore": self._mlscore is not None,
                 "kinds": (wire_stack[:, :, 0] & 3).astype(np.int32),
                 "pkt_lens": [self._wire4_pkt_len(wire_stack[j]) for j in range(k)]}
 
@@ -744,7 +862,7 @@ class TorchClassifier:
         def row(j: int) -> PendingClassify:
             return PendingClassify(lambda: self._resident_output(
                 resident_fused_host((plan["fused"], j)), plan["n"], plan["epoch0"] + 1 + j,
-                plan["kinds"][j], plan["pkt_lens"][j], apply_stats))
+                plan["kinds"][j], plan["pkt_lens"][j], apply_stats, plan.get("mlscore", False)))
 
         return [row(j) for j in range(plan["k"])]
 
@@ -758,9 +876,16 @@ class TorchClassifier:
             return self._launch(self._plan(plan["active"], miss_wire, kind, plan["n_levels"]),
                                 apply_stats=False).result()
 
+        score = None
+        if self._mlscore is not None and "ml_wire" in plan:
+            def score(res16):
+                return self._mlscore.update(plan["ml_wire"], res16.astype(np.uint32),
+                                            tflags_np=plan["ml_flags"])[0]
+
         def materialize() -> ClassifyOutput:
             out = _flow_materialize(self._flow, plan["fused"], plan["ctx"], plan["wire_np"],
-                                    plan["kind"], plan["tcp_flags"], classify_misses)
+                                    plan["kind"], plan["tcp_flags"], classify_misses,
+                                    score=score)
             if apply_stats:
                 self._stats.add(out.stats_delta)
             return out

@@ -7,7 +7,9 @@ takes the seven arrays of a JAX arena pool and returns the port's
 CtrieArena; ``flow_from_jax_arrays`` takes the four columns of a JAX flow
 table with its generation and page vectors and returns the port's
 FlowTable and those two vectors; ``sketch_state_from_jax`` takes the four
-arrays of a JAX telemetry tier and returns the port's SketchState.  None
+arrays of a JAX telemetry tier and returns the port's SketchState;
+``score_state_from_jax`` and ``score_model_from_jax`` take a JAX scoring
+tier's five arrays and a JAX ScoreModel and return the port's.  None
 imports anything from the JAX package: the caller
 does ``{f: getattr(t, f) for f in FIELDS}`` (plus ``content``), or the same
 over the pool's fields, on its side.
@@ -114,3 +116,25 @@ def sketch_state_from_jax(cms, keys, cnt, tcnt, device=None):
 
     return SketchState(cms=put(cms, np.int32), keys=put(keys, np.uint32),
                        cnt=put(cnt, np.int32), tcnt=put(tcnt, np.int32))
+
+
+def score_state_from_jax(skeys, scols, cms, tstat, epoch, device=None):
+    """The five arrays of a JAX scoring ``ScoreState`` (numpy) -> the port's
+    ScoreState on ``device`` (resolve_device): int32 tensors that share no
+    memory with the arrays, the uint32 keys as int32 bit patterns."""
+    from .kernels.mxu_score import state_from_host
+
+    return state_from_host({"skeys": skeys, "scols": scols, "cms": cms, "tstat": tstat,
+                            "epoch": epoch}, resolve_device(device))
+
+
+def score_model_from_jax(model):
+    """A JAX ``ScoreModel`` (its spec a NamedTuple of the same fields, its
+    value arrays numpy) -> the port's ScoreModel, validated."""
+    from .kernels.mxu_score import MODEL_FIELDS, ScoreModel, ScoreSpec, validate_model
+
+    spec = ScoreSpec.make(**dict(model.spec._asdict()))
+    out = ScoreModel(spec, *(np.array(getattr(model, f)) for f in MODEL_FIELDS),
+                     version=str(model.version))
+    validate_model(out)
+    return out

@@ -87,10 +87,23 @@ contract NODE_NAME / NAMESPACE / POLL_PERIOD_SECONDS / ENABLE_LPM_LOOKUP_DBG
   (``INFW_TRACE_SLOW_US``, 50000) leaves a sampled ``trace-span:`` line
   in ``events.log``.
 
+- ``--mlscore [MODEL]`` (``INFW_MLSCORE``; not with ``--backend cpu``, as
+  in the JAX daemon) adds the anomaly-scoring tier (infw_torch.mlscore,
+  kernel K10) to every classifier the syncer builds: the built-in forest,
+  or the versioned artifact MODEL (``.npz`` + ``.json`` manifest,
+  ``mlscore.save_model``); ``--mlscore-mode shadow|enforce``
+  (``INFW_MLSCORE_MODE``, shadow; enforce without ``--mlscore`` is a usage
+  error).  The idle loop attaches the event ring to each new tier, drains
+  every 5 s when a window is open (``anomaly-verdict`` lines in
+  ``events.log``) and hot-swaps complete npz + manifest pairs dropped into
+  ``<state-dir>/models/`` (consumed; bad pairs consumed and logged; the
+  last swapped model is applied again to a rebuilt classifier);
+  ``mlscore_*`` counters go to /metrics.
+
 The JAX daemon's scheduler, ingest ring (with the superbatch that only
-the ring reads, ``--superbatch-k``), events socket, mesh, scoring and
-payload options are not in the port yet: ``main`` refuses each of their
-flags, naming its ROADMAP item.
+the ring reads, ``--superbatch-k``), events socket, mesh and payload
+options are not in the port yet: ``main`` refuses each of their flags,
+naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -121,6 +134,7 @@ from .flow import FlowConfig
 from .interfaces import InterfaceError, InterfaceRegistry, default_registry
 from .kernels.torchpath import resolve_device
 from .nodestate_controller import NodeStateReconciler
+from .kernels.mxu_score import ScoreSpec, default_model
 from .kernels.sketch import SketchSpec
 from .obs.events import EventRing, EventsLogger, FlowEvictRecord, emit_deny_events
 from .obs.pcap import FramesBuf, parse_frames_buf
@@ -158,8 +172,6 @@ REFUSED_FLAGS = (
     ("--mesh", "INFW_MESH", "ROADMAP.md item 15 (multi-device)"),
     ("--superbatch-k", "INFW_SUPERBATCH_K",
      "ROADMAP.md item 24c (the ingest ring, the superbatch's only reader)"),
-    ("--mlscore", "INFW_MLSCORE", "ROADMAP.md item 13 (anomaly scoring)"),
-    ("--mlscore-mode", "INFW_MLSCORE_MODE", "ROADMAP.md item 13 (anomaly scoring)"),
     ("--payload", "INFW_PAYLOAD", "ROADMAP.md item 14 (the payload tier)"),
     ("--payload-mode", "INFW_PAYLOAD_MODE", "ROADMAP.md item 14 (the payload tier)"),
     ("--payload-plen", "INFW_PAYLOAD_PLEN", "ROADMAP.md item 14 (the payload tier)"),
@@ -292,16 +304,18 @@ def make_classifier_factory(backend: str, wire_codec: Optional[str] = None,
                             compressed: Optional[bool] = None,
                             flow_table: Optional[FlowConfig] = None,
                             resident: bool = False,
-                            telemetry: Optional[SketchSpec] = None):
+                            telemetry: Optional[SketchSpec] = None,
+                            mlscore=None, mlscore_mode: Optional[str] = None):
     """The syncer's classifier constructor: TorchClassifier on
     ``backend_device(backend)``.  ``wire_codec`` and ``compressed`` are
     TorchClassifier's (None keeps its INFW_WIRE_CODEC / INFW_COMPRESSED
     defaults); ``flow_table``, a FlowConfig built at launch, rides into
     every classifier generation (on both backends: "cpu" runs the tier on
     the plain versions of K7 and K8); ``resident`` turns the resident pool
-    on and ``telemetry``, a SketchSpec, the telemetry plane (``main``
-    refuses both with the cpu backend, as the JAX daemon does; the class
-    takes them, for the tests)."""
+    on, ``telemetry``, a SketchSpec, the telemetry plane and ``mlscore``, a
+    (ScoreSpec, ScoreModel) pair, the scoring tier in ``mlscore_mode``
+    (``main`` refuses the three with the cpu backend, as the JAX daemon
+    does; the class takes them, for the tests)."""
     device = backend_device(backend)
     kw = {}
     if wire_codec is not None:
@@ -314,6 +328,9 @@ def make_classifier_factory(backend: str, wire_codec: Optional[str] = None,
         kw["resident"] = True
     if telemetry is not None:
         kw["telemetry"] = telemetry
+    if mlscore is not None:
+        spec, model = mlscore
+        kw.update(mlscore=spec, mlscore_model=model, mlscore_mode=mlscore_mode or "shadow")
     return functools.partial(TorchClassifier, device=device, **kw)
 
 
@@ -339,6 +356,18 @@ class _TelemetryCounters:
     def counter_values(self) -> Dict[str, int]:
         clf = self._get()
         return {} if clf is None else clf.telemetry_counters()
+
+
+class _MlScoreCounters:
+    """The scoring tier's mlscore_* counters on /metrics; the getter follows
+    the classifier across table loads."""
+
+    def __init__(self, clf_getter) -> None:
+        self._get = clf_getter
+
+    def counter_values(self) -> Dict[str, int]:
+        clf = self._get()
+        return {} if clf is None else clf.mlscore_counters()
 
 
 class _FlowCounters:
@@ -415,12 +444,15 @@ class Daemon:
         telemetry_drain: int = 256,
         trace: bool = False,
         trace_slow_us: float = 50_000.0,
+        mlscore=None,
+        mlscore_mode: Optional[str] = None,
     ) -> None:
         # resolve the device first: without a card the default backend
         # fails here, before any directory, thread or file is made
         factory = make_classifier_factory(backend, wire_codec=wire_codec,
                                           compressed=compressed, flow_table=flow_table,
-                                          resident=resident, telemetry=telemetry)
+                                          resident=resident, telemetry=telemetry,
+                                          mlscore=mlscore, mlscore_mode=mlscore_mode)
         self.resident = bool(resident)
         # the telemetry plane (--telemetry): a validated SketchSpec or None;
         # the daemon owns the drain cadence, the summary records on the
@@ -429,6 +461,17 @@ class Daemon:
         self.telemetry_drain = max(1, int(telemetry_drain))
         self._telemetry_attached: set = set()
         self._telemetry_drain_last = 0.0
+        # anomaly scoring (--mlscore): a validated (ScoreSpec, ScoreModel) or
+        # None; the daemon owns the anomaly-verdict records on the event
+        # ring, the mlscore_* counters and the <state-dir>/models/ hot swap
+        self.mlscore = mlscore
+        self.mlscore_mode = mlscore_mode or "shadow"
+        self._mlscore_attached: set = set()
+        self._mlscore_drain_last = 0.0
+        # the last hot-swapped model (its files consumed), applied again to a
+        # rebuilt classifier so a rebuild never reverts to the launch model
+        self._mlscore_swapped_model = None
+        self.models_dir = os.path.join(state_dir, "models")
         # serving-path tracing (--trace): span histograms on /metrics and
         # sampled TraceSpanRecords for slow jobs
         self.tracer = None
@@ -479,6 +522,8 @@ class Daemon:
         dirs = [self.nodestates_dir, self.ingest_dir, self.edits_dir, self.out_dir]
         if self.tenants_max:
             dirs.append(self.tenants_dir)
+        if self.mlscore is not None:
+            dirs.append(self.models_dir)
         for d in dirs:
             os.makedirs(d, exist_ok=True)
 
@@ -533,6 +578,10 @@ class Daemon:
             # the drain seq
             self._telemetry_counters = _TelemetryCounters(lambda: self.syncer.classifier)
             self.metrics_registry.register_counters(self._telemetry_counters)
+        if self.mlscore is not None:
+            # updates, anomalies, enforced denies, model swaps, the drain seq
+            self._mlscore_counters = _MlScoreCounters(lambda: self.syncer.classifier)
+            self.metrics_registry.register_counters(self._mlscore_counters)
         if self.tracer is not None:
             # span histograms (ingressnodefirewall_node_span_us) and trace_*
             # counters; slow-job TraceSpanRecords share the event ring
@@ -1156,6 +1205,60 @@ class Daemon:
             if tier.counter_values()["telemetry_window_admissions"] > 0:
                 tier.drain(force=True)
 
+    def _mlscore_maintenance(self) -> None:
+        """Idle-loop scoring upkeep (infw.daemon._mlscore_maintenance):
+        attach the event ring to each new classifier generation's tier (and
+        apply the last hot-swapped model to it), drain every 5 s when a
+        window is open, and consume the complete npz + manifest pairs in
+        <state-dir>/models/, each a hot swap through set_score_model (the
+        flow generation bumps); a bad pair is consumed and logged."""
+        if self.mlscore is None:
+            return
+        clf = self.syncer.classifier
+        tier = getattr(clf, "mlscore", None)
+        if tier is None:
+            return
+        if id(tier) not in self._mlscore_attached:
+            tier.attach_ring(self.ring)
+            self._mlscore_attached.add(id(tier))
+            swapped = self._mlscore_swapped_model
+            if swapped is not None and tier.model_version != swapped.version:
+                try:
+                    clf.set_score_model(swapped)
+                    log.info("mlscore: re-applied hot-swapped model %s to new classifier "
+                             "generation", swapped.version)
+                except Exception as e:
+                    log.error("mlscore: re-apply of swapped model failed: %s", e)
+        now = time.monotonic()
+        if now - self._mlscore_drain_last >= 5.0:
+            self._mlscore_drain_last = now
+            if tier.counter_values()["mlscore_window_admissions"] > 0:
+                tier.drain(force=True)
+        from .mlscore import load_model
+
+        try:
+            names = sorted(os.listdir(self.models_dir))
+        except OSError:
+            return
+        for fn in names:
+            if not fn.endswith(".npz"):
+                continue
+            path = os.path.join(self.models_dir, fn)
+            if not os.path.exists(path + ".json"):
+                continue  # the manifest has not landed yet
+            try:
+                model = load_model(path)
+                clf.set_score_model(model)
+                self._mlscore_swapped_model = model
+                log.info("mlscore: hot-swapped model %s (version %s)", fn, tier.model_version)
+            except Exception as e:
+                log.error("mlscore: model artifact %s rejected: %s", fn, e)
+            for q in (path, path + ".json"):
+                try:
+                    os.unlink(q)
+                except OSError:
+                    pass
+
     def _emit_deny_sampled(self, clf, results, ifindex, pkt_len, frames, batch) -> None:
         """Deny-event export with the telemetry tier's per-tenant token
         bucket in front: the exact totals travel in the sketch summaries,
@@ -1261,6 +1364,10 @@ class Daemon:
                 self._telemetry_maintenance()
             except Exception as e:
                 log.error("telemetry maintenance error: %s", e)
+            try:
+                self._mlscore_maintenance()
+            except Exception as e:
+                log.error("mlscore maintenance error: %s", e)
 
     def stop(self) -> None:
         """SIGTERM path: stop polling and serving, detach the dataplane but
@@ -1392,6 +1499,21 @@ def main(argv: Optional[List[str]] = None) -> int:
                    default=os.environ.get("INFW_TRACE_SLOW_US") or 50_000.0,
                    help="slow-job threshold of the sampled trace-span lines (default "
                         "50000us).  CLI beats INFW_TRACE_SLOW_US")
+    p.add_argument("--mlscore", nargs="?", const="default",
+                   default=os.environ.get("INFW_MLSCORE") or None,
+                   help="the anomaly-scoring tier on the card (cuda backend): per-source "
+                        "features, a decision forest and an optional int8 MLP head scored in "
+                        "the serving dispatch (kernel K10).  Optional value = a versioned "
+                        "model artifact (.npz + .json manifest, infw_torch.mlscore.save_model); "
+                        "the bare flag loads the built-in detection forest.  anomaly-verdict "
+                        "records in events.log, mlscore_* counters on /metrics, and "
+                        "<state-dir>/models/ hot-swaps artifacts (a swap behaves like a rule "
+                        "patch).  CLI beats INFW_MLSCORE")
+    p.add_argument("--mlscore-mode", choices=("shadow", "enforce"),
+                   default=os.environ.get("INFW_MLSCORE_MODE") or "shadow",
+                   help="anomaly mitigation: shadow (default) scores and records only; "
+                        "enforce rewrites anomalous lanes to Deny (ruleId 0), never a "
+                        "failsafe port and never a rule Deny.  CLI beats INFW_MLSCORE_MODE")
     for flag, env, item in REFUSED_FLAGS:
         p.add_argument(flag, nargs="?", const="1", default=None,
                        help=f"not in the port yet: {item} (also {env})")
@@ -1458,6 +1580,29 @@ def main(argv: Optional[List[str]] = None) -> int:
         p.error(f"--telemetry-drain must be >= 1, got {args.telemetry_drain}")
     if not float(args.trace_slow_us) > 0:
         p.error(f"--trace-slow-us must be positive, got {args.trace_slow_us}")
+    # a cpu backend, a bad INFW_MLSCORE_MODE, a bad artifact or enforce
+    # without scoring fail the launch with a usage error (the JAX daemon's)
+    mlscore_bundle = None
+    if args.mlscore is not None and str(args.mlscore) not in ("0", "", "false", "no"):
+        if args.backend == "cpu":
+            p.error("--mlscore requires the cuda backend (the cpu backend has no scoring plane)")
+        if args.mlscore_mode not in ("shadow", "enforce"):
+            p.error(f"invalid INFW_MLSCORE_MODE {args.mlscore_mode!r} (expected shadow|enforce)")
+        raw = str(args.mlscore)
+        try:
+            if raw in ("default", "1", "true", "yes"):
+                spec = ScoreSpec.make()
+                model = default_model(spec)
+            else:
+                from .mlscore import load_model
+
+                model = load_model(raw)
+                spec = model.spec
+            mlscore_bundle = (spec, model)
+        except (ValueError, OSError) as e:
+            p.error(f"--mlscore: {e}")
+    elif args.mlscore_mode == "enforce":
+        p.error("--mlscore-mode enforce requires --mlscore")
 
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(name)s %(levelname)s %(message)s")
@@ -1485,6 +1630,8 @@ def main(argv: Optional[List[str]] = None) -> int:
         telemetry_drain=int(args.telemetry_drain),
         trace=args.trace,
         trace_slow_us=float(args.trace_slow_us),
+        mlscore=mlscore_bundle,
+        mlscore_mode=args.mlscore_mode,
     )
     stop = threading.Event()
 

@@ -625,7 +625,7 @@ class FlowTier:
     def resident_dispatch(self, launch, b: int, wire_np: Optional[np.ndarray] = None,
                           tenant=None, tflags=None, tenant_np: Optional[np.ndarray] = None,
                           tflags_np: Optional[np.ndarray] = None, gens_snap=None,
-                          alloc_note=None, k: int = 0, telemetry=None):
+                          alloc_note=None, k: int = 0, telemetry=None, mlscore=None):
         """Run one resident step (``k`` = 0) or a superbatch of ``k`` steps
         (flow.py resident_dispatch and resident_dispatch_super).  Under the
         lock the host epoch advances by one step each, the device epoch is
@@ -637,7 +637,10 @@ class FlowTier:
         mirror.  With ``telemetry`` (an obs.telemetry.TelemetryTier) the
         launch runs inside its exchange, under its lock taken inside this
         tier's (the one nesting order), with the plane's operands in
-        ``ResidentOps.sketch``.  Returns (handle, last epoch)."""
+        ``ResidentOps.sketch``; with ``mlscore`` (an mlscore.AnomalyTier)
+        the same inside the telemetry tier's exchange (flow -> telemetry ->
+        mlscore), with its operands in ``ResidentOps.score``.  Returns
+        (handle, last epoch)."""
         steps = max(int(k), 1)
         key = (k, b) if k else b
         if tenant is None:
@@ -656,11 +659,18 @@ class FlowTier:
             gens_op, pages_op = self._resident_operands(gens_src)
             ops = ResidentOps(self._flow, gens_op, pages_op, epoch_dev, tenant, tflags,
                               self.config.max_age, self.config.entries, self.config.ways)
+            run = launch
+            if mlscore is not None:
+                # the scoring tier's lock nests inside the telemetry tier's
+                def run(o, inner=run):
+                    return mlscore.resident_exchange(
+                        lambda sc: inner(o._replace(score=sc)), wire_np, tenant_np, tflags_np,
+                        k=k)
             if telemetry is None:
-                handle = launch(ops)
+                handle = run(ops)
             else:
                 handle = telemetry.resident_exchange(
-                    lambda sk: launch(ops._replace(sketch=sk)), wire_np, tenant_np, tflags_np,
+                    lambda sk: run(ops._replace(sketch=sk)), wire_np, tenant_np, tflags_np,
                     k=k)
             self._record(stream)
             self._epoch_dev_val = epoch
@@ -763,6 +773,8 @@ class ResidentOps(NamedTuple):
     ways: int
     #: the telemetry plane's obs.telemetry.SketchOps (None when off)
     sketch: object = None
+    #: the scoring tier's kernels.mxu_score.ScoreOps (None when off)
+    score: object = None
 
 
 def wrap_epoch(e: int) -> int:

@@ -24,6 +24,13 @@ device epoch in place, and that a CUDA graph captures whole (the pool in
    that missed (``lane_ok = ~hit``, the same eligible lanes in the same
    order as the host's compaction of the misses), its counts into the
    fused output, and the device epoch advanced;
+3a. with the anomaly-scoring tier on (``ops.score``, a
+   kernels.mxu_score.ScoreOps), between 2 and 3, K10 through its resident
+   entry: the merge computed from the probe's words, its hit bitmap and
+   the stateless words, scored (``_score_update_core`` on ``merged``), the
+   policy's verdicts ``merged2`` written into both the probe's and the
+   stateless words, so K8's merge yields ``merged2`` on every lane and
+   caches it for the misses, and K9 counts it;
 4. with the telemetry plane on (``ops.sketch``, obs.telemetry.SketchOps),
    K9 through its resident entry (kernels/sketch.py): the sketch update
    over every lane with the merged verdicts K8 wrote (the served verdicts,
@@ -32,7 +39,9 @@ device epoch in place, and that a CUDA graph captures whole (the pool in
 
 The fused output is JAX's word layout: ceil(B/2) words of u16-pair-packed
 merged results, ceil(B/32) words of the hit bitmap, [hits, stale], then
-[inserts, evictions, promotes, 0].  On CPU tensors every entry runs its
+[inserts, evictions, promotes, 0], and with scoring on the anomaly
+bitmap (ceil(B/32) words) and the int16-saturated scores (ceil(B/2)
+words).  On CPU tensors every entry runs its
 plain version; on CUDA tensors the kernels (nothing here syncs with the
 host, so the sequence captures into a graph).
 """
@@ -45,6 +54,7 @@ import torch
 
 from . import cwalk, dense, overlay, walk
 from . import flow as kflow
+from . import mxu_score as kscore
 from . import sketch as ksketch
 from .torchpath import unpack_res16_host
 
@@ -60,9 +70,11 @@ class StepTables(NamedTuple):
     n_levels: Optional[int] = None
 
 
-def resident_out_words(b: int) -> int:
-    """Words of a step's fused output for ``b`` lanes."""
-    return (b + 1) // 2 + -(-b // 32) + 6
+def resident_out_words(b: int, score: bool = False) -> int:
+    """Words of a step's fused output for ``b`` lanes (``score``: with the
+    scoring extension)."""
+    nw, nh = (b + 1) // 2, -(-b // 32)
+    return nw + nh + 6 + ((nh + nw) if score else 0)
 
 
 def stateless_res16(tables: StepTables, wire: torch.Tensor) -> torch.Tensor:
@@ -84,19 +96,23 @@ def resident_step(ops, tables: StepTables, wire: torch.Tensor,
     """One admission (jaxpath._resident_step_core): ``ops`` is the flow
     tier's flow.ResidentOps (columns, generation and page operands, device
     epoch, tenant and flag columns, geometry, the telemetry plane's
-    operands or None), ``wire`` the (B, 4 | 7)
+    operands or None, the scoring tier's or None), ``wire`` the (B, 4 | 7)
     int32 wire.  Updates the columns and the device epoch in place; writes
     and returns the fused output (``out``, at least resident_out_words(B)
     words, allocated when None).  ``scratch`` is the kernels' (B, 2) lane
     scratch (allocated when None)."""
     B = wire.shape[0]
     nw, nh = (B + 1) // 2, -(-B // 32)
+    words = resident_out_words(B, ops.score is not None)
     if out is None:
-        out = torch.empty(resident_out_words(B), dtype=torch.int32, device=wire.device)
+        out = torch.empty(words, dtype=torch.int32, device=wire.device)
     geo = {"slab_entries": ops.slab_entries, "ways": ops.ways}
     kflow.flow_probe_resident(ops.flow, ops.gens, ops.pages, wire, ops.tenant, ops.tflags,
                               ops.epoch_dev, ops.max_age, out[: nw + nh + 2], scratch, **geo)
     res16 = stateless_res16(tables, wire)
+    if ops.score is not None:
+        kscore.score_update_resident(ops.score, wire, ops.tenant, ops.tflags, out[:nw],
+                                     out[nw: nw + nh], res16[:nw], out[nw + nh + 6: words])
     kflow.flow_insert_resident(ops.flow, ops.gens, ops.pages, wire, ops.tenant, ops.tflags,
                                res16[:nw], out[nw: nw + nh], out[:nw],
                                out[nw + nh + 2: nw + nh + 6], ops.epoch_dev, scratch, **geo)
@@ -104,7 +120,7 @@ def resident_step(ops, tables: StepTables, wire: torch.Tensor,
         sk = ops.sketch
         ksketch.sketch_update_resident(sk.state, wire, ops.tenant, ops.tflags, out[:nw], sk.spec,
                                        winner=sk.winner)
-    return out[: resident_out_words(B)]
+    return out[:words]
 
 
 def resident_superbatch(ops, tables: StepTables, wire: torch.Tensor,
@@ -115,7 +131,7 @@ def resident_superbatch(ops, tables: StepTables, wire: torch.Tensor,
     serves the device epoch as step j - 1 left it.  Returns the (K, L)
     fused outputs (``out`` when given)."""
     K, B = wire.shape[0], wire.shape[1]
-    L = resident_out_words(B)
+    L = resident_out_words(B, ops.score is not None)
     if out is None:
         out = torch.empty((K, L), dtype=torch.int32, device=wire.device)
     for j in range(K):
@@ -132,6 +148,20 @@ def split_resident_outputs(arr: np.ndarray, b: int):
     hit = kflow.unpack_bits32_host(arr[nw: nw + nh], b)
     counts = tuple(int(x) for x in arr[nw + nh + 2: nw + nh + 5])
     return res16, hit, int(arr[nw + nh]), int(arr[nw + nh + 1]), counts
+
+
+def split_resident_score_outputs(arr: np.ndarray, b: int):
+    """Host inverse of a scoring step's fused output -> (res16[b], the
+    policy's verdicts; hit mask; hits; stale; (inserts, evictions,
+    promotes); anom mask (b,) bool; scores (b,) int32 from the int16
+    read back)."""
+    nw, nh = (b + 1) // 2, -(-b // 32)
+    res16, hit, hits, stale, counts = split_resident_outputs(arr[: nw + nh + 6], b)
+    base = nw + nh + 6
+    anom = kflow.unpack_bits32_host(arr[base: base + nh], b)
+    s16 = unpack_res16_host(np.ascontiguousarray(arr[base + nh: base + nh + nw]), b)
+    scores = s16.astype(np.uint16).astype(np.int16).astype(np.int32)
+    return res16, hit, hits, stale, counts, anom, scores
 
 
 def resident_fused_host(fused) -> np.ndarray:

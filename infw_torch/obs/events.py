@@ -15,8 +15,9 @@ BatchDenyRecord and drain as 32-byte binary spill rows (the summary line
 keeps the reference's "28B/event" text).  Other line records (one
 PatchTxnRecord per flushed edit transaction, one TenantSwapRecord per
 tenant lifecycle transition, one FlowEvictRecord per evicting insert, one
-TelemetrySummaryRecord per telemetry drain and one TraceSpanRecord per
-sampled slow admission) share the ring.
+TelemetrySummaryRecord per telemetry drain, one AnomalyVerdictRecord per
+anomaly-scoring drain and one TraceSpanRecord per sampled slow admission)
+share the ring.
 """
 from __future__ import annotations
 
@@ -247,6 +248,39 @@ class TelemetrySummaryRecord:
             out.append(
                 f"\ttop-talker tenant {h['tenant']} {h['src']} "
                 f"{h['verdict']}: ~{h['count']} pkts"
+            )
+        return out
+
+
+@dataclass
+class AnomalyVerdictRecord:
+    """One decimated drain window of the anomaly-scoring tier, exactly once
+    (infw_torch.mlscore): per-tenant scored / anomalous / enforced counts
+    with the window's max score and the tenant's policy row, and the
+    window's most-anomalous sources decoded from the device feature table.
+    ``seq`` is the gap-free drain generation."""
+
+    seq: int
+    admissions: int
+    tenants: List[dict] = field(default_factory=list)
+    top: List[dict] = field(default_factory=list)
+
+    def lines(self) -> List[str]:
+        out = [
+            f"anomaly-verdict seq={self.seq} "
+            f"admissions={self.admissions} tenants={len(self.tenants)}"
+        ]
+        for t in self.tenants:
+            mode = "ENFORCE" if t.get("enforce") else "shadow"
+            out.append(
+                f"\ttenant {t['tenant']}: {t['scored']} scored, "
+                f"{t['anom']} anomalous, {t['enforced']} enforced, "
+                f"max {t['max_score']} (thr {t['threshold']}, {mode})"
+            )
+        for h in self.top:
+            out.append(
+                f"\tanomalous-src tenant {h['tenant']} {h['src']}: "
+                f"{h['anom_hits']} hit(s), ~{h['pkts']} pkts"
             )
         return out
 

@@ -12,7 +12,7 @@ over (``context``) and, on the card, the CUDA graphs that replay it:
 
 - one ``torch.cuda.CUDAGraph`` per (table layout, bucket, wire width,
   flags or none, trie level count, superbatch K, telemetry on or off,
-  pipeline slot).  A graph
+  anomaly scoring on or off, pipeline slot).  A graph
   reads the tables from static buffers of the context's layout, which each
   dispatch refills in stream order from its own generation's tensors (a
   copy of each tensor that changed since the last dispatch; a patch clones
@@ -42,8 +42,10 @@ over (``context``) and, on the card, the CUDA graphs that replay it:
   their own locks when they replay their host models, and a dispatch
   holds the graph's lock while it waits for theirs;
 - a graph keeps the operands and tables its capture baked in (``baked``):
-  the tiers' columns and zero columns, the static tables, the epoch, so
-  no address it replays is freed and reused;
+  the tiers' columns and zero columns, the static tables, the epoch, the
+  scoring tier's state, model, policy rows and scratch, so no address it
+  replays is freed and reused (a model swap or a policy flip rewrites those
+  tensors in place and captures nothing);
 - capturing is not launching: the kernels' ``launches`` counts taken
   during a capture are taken back, and each replay adds them again.
 
@@ -150,11 +152,13 @@ class _Graph:
     """One captured step (or superbatch) and its buffers (see the module
     docstring)."""
 
-    def __init__(self, k: int, bucket: int, width: int, flags: bool, device) -> None:
+    def __init__(self, k: int, bucket: int, width: int, flags: bool, device,
+                 score: bool = False) -> None:
         steps = max(k, 1)
         self.k, self.bucket, self.width, self.flags = k, bucket, width, flags
+        self.score = score
         self.in_words = steps * bucket * (width + (1 if flags else 0))
-        self.out_words = steps * resident_out_words(bucket)
+        self.out_words = steps * resident_out_words(bucket, score)
         self.stage = torch.empty(self.in_words, dtype=torch.int32, device=device)
         self.out = torch.empty(self.out_words, dtype=torch.int32, device=device)
         self.scratch = torch.empty(2 * bucket + 4, dtype=torch.int32, device=device)
@@ -227,7 +231,7 @@ class _Landing:
                 if self._arr is None:
                     g.event.synchronize()
                     arr = _rebucket(g.pinned_out.numpy().reshape(max(g.k, 1), -1), self._n,
-                                    g.bucket)
+                                    g.bucket, g.score)
                     self._arr = np.array(arr if g.k else arr[0])
                     if g.landing is self:
                         g.landing = None
@@ -235,23 +239,34 @@ class _Landing:
         return self._arr
 
 
-def _rebucket(arr: np.ndarray, n: int, bucket: int) -> np.ndarray:
+def _rebucket(arr: np.ndarray, n: int, bucket: int, score: bool = False) -> np.ndarray:
     """(rows, resident_out_words(bucket)) fused outputs of a padded step ->
     the (rows, resident_out_words(n)) layout of ``n`` lanes: the padding
-    lanes are KIND_OTHER rows (result 0, never hit), so the result and
-    bitmap words of the first ``n`` lanes are kept and the counts moved."""
+    lanes are KIND_OTHER rows (result 0, never hit, never anomalous), so the
+    result and bitmap words of the first ``n`` lanes are kept and the counts
+    moved, and with ``score`` the anomaly bitmap and score words too."""
     if n == bucket:
         return arr
     nwb, nhb = (bucket + 1) // 2, -(-bucket // 32)
     nw, nh = (n + 1) // 2, -(-n // 32)
-    out = np.zeros((arr.shape[0], resident_out_words(n)), np.int32)
-    out[:, :nw] = arr[:, :nw]
-    if n & 1:
-        out[:, nw - 1] &= 0xFFFF  # the odd lane's pad half
-    out[:, nw: nw + nh] = arr[:, nwb: nwb + nh]
-    if n & 31:
-        out[:, nw + nh - 1] &= np.int32((1 << (n & 31)) - 1)
-    out[:, nw + nh:] = arr[:, nwb + nhb:]
+    out = np.zeros((arr.shape[0], resident_out_words(n, score)), np.int32)
+
+    def halves(dst, src):  # packed 16-bit words
+        out[:, dst: dst + nw] = arr[:, src: src + nw]
+        if n & 1:
+            out[:, dst + nw - 1] &= 0xFFFF  # the odd lane's pad half
+
+    def bits(dst, src):  # bitmap words
+        out[:, dst: dst + nh] = arr[:, src: src + nh]
+        if n & 31:
+            out[:, dst + nh - 1] &= np.int32((1 << (n & 31)) - 1)
+
+    halves(0, 0)
+    bits(nw, nwb)
+    out[:, nw + nh: nw + nh + 6] = arr[:, nwb + nhb: nwb + nhb + 6]
+    if score:
+        bits(nw + nh + 6, nwb + nhb + 6)
+        halves(nw + nh + 6 + nh, nwb + nhb + 6 + nhb)
     return out
 
 
@@ -372,11 +387,12 @@ class ResidentPool:
 
     def dispatch(self, tier, ctx: ResidentContext, n_levels: Optional[int],
                  wire_np: np.ndarray, tflags_np: Optional[np.ndarray], gens_snap,
-                 k: int = 0, telemetry=None):
+                 k: int = 0, telemetry=None, mlscore=None):
         """Enqueue one step (``k`` = 0, ``wire_np`` (B, W)) or a superbatch
         of ``k`` steps (``wire_np`` (k, B, W)) through the flow tier ->
         (output handle, last epoch).  ``telemetry`` (a TelemetryTier or
-        None) adds the sketch update to each step."""
+        None) adds the sketch update to each step, ``mlscore`` (an
+        AnomalyTier or None) the score update."""
         tables = ctx.tables._replace(n_levels=n_levels)
         b, width = wire_np.shape[-2], wire_np.shape[-1]
         step = resident_superbatch if k else resident_step
@@ -390,21 +406,24 @@ class ResidentPool:
 
             return tier.resident_dispatch(launch, b, wire_np=wire_np, tflags=tflags,
                                           tflags_np=tflags_np, gens_snap=gens_snap,
-                                          alloc_note=self.note_alloc, k=k, telemetry=telemetry)
+                                          alloc_note=self.note_alloc, k=k, telemetry=telemetry,
+                                          mlscore=mlscore)
         bucket = _bucket(b)
         with self._lock:
             slot, self._slot = self._slot, self._slot ^ 1
-            key = (bucket, width, tflags_np is not None, n_levels, k, telemetry is not None, slot)
+            key = (bucket, width, tflags_np is not None, n_levels, k, telemetry is not None,
+                   mlscore is not None, slot)
             g = ctx.graphs.get(key)
             if g is None:
-                g = _Graph(k, bucket, width, tflags_np is not None, self._device)
+                g = _Graph(k, bucket, width, tflags_np is not None, self._device,
+                           score=mlscore is not None)
                 ctx.graphs[key] = g
         with g.lock:
             return self._dispatch_graph(tier, ctx, g, step, n_levels, b, wire_np, tflags_np,
-                                        gens_snap, k, telemetry)
+                                        gens_snap, k, telemetry, mlscore)
 
     def _dispatch_graph(self, tier, ctx: ResidentContext, g: _Graph, step, n_levels, b: int,
-                        wire_np, tflags_np, gens_snap, k: int, telemetry):
+                        wire_np, tflags_np, gens_snap, k: int, telemetry, mlscore):
         """dispatch's card half, under ``g``'s lock."""
         g.take_landing()
         g.event.synchronize()  # the pinned input's last copy has run
@@ -430,17 +449,23 @@ class ResidentPool:
 
         return tier.resident_dispatch(launch, g.bucket, wire_np=wire_np, tflags=g.tflags(),
                                       tflags_np=tflags_np, gens_snap=gens_snap,
-                                      alloc_note=self.note_alloc, k=k, telemetry=telemetry)
+                                      alloc_note=self.note_alloc, k=k, telemetry=telemetry,
+                                      mlscore=mlscore)
 
     def _capture(self, g: _Graph, ops, tables: StepTables, step) -> None:
         """Capture ``step`` on ``g``'s buffers and the tier's operands.  A
         first run on KIND_OTHER rows, with an epoch and an output of its
         own, builds and loads every kernel and fills their launch caches
-        (inert rows touch no column); then the capture, whose launch counts
-        are taken back."""
+        (inert rows touch no column; the score update, which advances its
+        epoch and clamps on any rows, runs on a state of its own); then the
+        capture, whose launch counts are taken back."""
         inert = torch.zeros_like(g.wire())
         inert[..., 0] = KIND_OTHER
         warm_ops = ops._replace(epoch_dev=torch.zeros_like(ops.epoch_dev))
+        if ops.score is not None:
+            st = ops.score.state
+            warm_ops = warm_ops._replace(score=ops.score._replace(
+                state=type(st)(*(torch.zeros_like(t) for t in st))))
         step(warm_ops, tables, inert, torch.empty_like(g.fused()), g.scratch)
         kernels = all_kernels()
         before = [k.launches for k in kernels]

@@ -918,3 +918,34 @@ def generate_edit_ops(rng: np.random.Generator, n: int, tables, width: int) -> l
             live.append(k)
             ops.append(EditOp("cidr_add", k, random_rules(rng, width)))
     return ops
+
+
+def score_traffic(rng: np.random.Generator, tables, b: int, syn_frac: float = 0.3):
+    """A (batch, 7-word wire, verdicts) admission for the scoring tier (the
+    JAX package's tests/test_mlscore.py traffic, over random_batch_fast):
+    ``syn_frac`` of the lanes carry a pure SYN, the rest an ACK, and each
+    lane a random u32 verdict (action 0-2, ruleId 1-8)."""
+    from .constants import TCP_ACK, TCP_SYN
+
+    batch = random_batch_fast(rng, tables, b)
+    batch.tcp_flags = np.where(rng.random(b) < syn_frac, TCP_SYN, TCP_ACK).astype(np.int32)
+    res = (rng.integers(0, 3, b).astype(np.uint32)
+           | (rng.integers(1, 9, b).astype(np.uint32) << 8))
+    return batch, batch.pack_wire(), res
+
+
+def random_score_model(rng: np.random.Generator, spec, qshift=(2, 5)):
+    """A scoring model of random values at ``spec``'s geometry: thresholds
+    in [0, 300) over random features, int8 leaves and weights, int32 biases
+    over the whole range (so the head's sums wrap) and the given shifts."""
+    from .kernels.mxu_score import default_model
+
+    m = default_model(spec)
+    H = spec.hidden
+    i8 = lambda *shape: rng.integers(-128, 128, shape).astype(np.int8)  # noqa: E731
+    i32 = lambda n: rng.integers(-2**31, 2**31, n).astype(np.int32)  # noqa: E731
+    return m._replace(
+        fidx=rng.integers(0, 16, m.fidx.shape).astype(np.int32),
+        fthr=rng.integers(0, 300, m.fthr.shape).astype(np.int32),
+        leaf=i8(m.leaf.shape[0]), w1=i8(16, H), b1=i32(H), w2=i8(H), b2=i32(1),
+        qshift=np.asarray(qshift, np.int32), version="random")

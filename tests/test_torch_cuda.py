@@ -1,4 +1,4 @@
-"""Kernels K1, K2, K3, K4, K3b, K5, K6, K7, K8 and K9 on the card against
+"""Kernels K1, K2, K3, K4, K3b, K5, K6, K7, K8, K9 and K10 on the card against
 their plain PyTorch versions, at small sizes, K3's and K3b's fused wire-to-verdict
 entries, the wire codecs through the classifier, the multi-tenant arena
 classifier, patched tables and the overlay combine.
@@ -2047,9 +2047,13 @@ def test_resident_dispatches_from_threads_on_their_streams(cuda):
 
     rng = np.random.default_rng(29)
     tables = testing.random_tables_fast(rng, 5000, width=4, v6_fraction=0.5)
+    from infw_torch.kernels.mxu_score import ScoreSpec
+
     clf = TorchClassifier(device=cuda, force_path="trie", resident=True, flow_table=512,
                           flow_track_model=True, telemetry=SketchSpec.make(width=256, topk=64),
-                          telemetry_track_model=True)
+                          telemetry_track_model=True,
+                          mlscore=ScoreSpec.make(slots=64, ways=2, hidden=4),
+                          mlscore_track_model=True)
     clf.load_tables(tables)
     batch, _ = testing.flow_trace_batch(rng, tables, 24 * 128, 0.8, chunk_packets=128)
     chunks = [batch.slice(128 * j, 128 * (j + 1)) for j in range(24)]
@@ -2085,6 +2089,13 @@ def test_resident_dispatches_from_threads_on_their_streams(cuda):
     for k in sk:
         np.testing.assert_array_equal(sk[k], sm[k], err_msg=k)
     assert sk["tcnt"][0, 0] > 0
+    ml = clf.mlscore
+    ml.resident_note_materialized(0)
+    assert ml.counter_values()["mlscore_updates_total"] == 24
+    sc, scm = ml.columns(), ml.model.columns()
+    for k in sc:
+        np.testing.assert_array_equal(sc[k], scm[k], err_msg=k)
+    assert sc["tstat"][0, 0] > 0 and int(sc["epoch"][0]) == 24
 
 
 # --- K9, the telemetry plane's sketch update -------------------------------------------
@@ -2441,3 +2452,276 @@ def test_resident_graph_with_sketch_matches_the_cpu_and_the_eager_step(cuda, pat
         assert torch.equal(getattr(tier._flow, c), getattr(eager_flow, c)), c
     for f in ksk.SketchState._fields:
         assert torch.equal(getattr(tel._state, f), getattr(eager_sk, f)), f
+
+
+# --- K10, the anomaly-scoring tier's score update ------------------------------------------
+
+
+def _k10_model(kind, spec, rng):
+    from infw_torch.kernels import mxu_score as kms
+
+    if kind == "default":
+        return kms.default_model(spec)
+    if kind == "stress":
+        return kms.clamp_stress_model(spec)
+    return testing.random_score_model(rng, spec)
+
+
+def _k10_batches(rng, tables, b, width, spec, n=3, tenants=(0, 1), pool=96):
+    """``n`` (wire, tenant, tflags, res) admissions of ``b`` lanes drawn from
+    ``pool`` packets (so sources repeat), on the CPU."""
+    p, _w, res = testing.score_traffic(rng, tables, pool)
+    if width == 4:
+        keep = np.nonzero(p.kind == 1)[0]
+        p, res = p.take(keep), res[keep]
+        wire = p.pack_wire_subset(np.arange(len(p)))[0]
+    else:
+        wire = p.pack_wire()
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a).view(np.int32))  # noqa: E731
+    out = []
+    for _ in range(n):
+        idx = rng.integers(0, wire.shape[0], b)
+        ten = rng.choice(np.asarray(tenants, np.int32), b)
+        out.append((t(wire[idx]), t(ten), t(np.asarray(p.tcp_flags, np.int32)[idx]),
+                    t(res[idx])))
+    return out
+
+
+def _k10_against_plain(cuda, spec, model, tparams, batches, resident=False, start=None):
+    """K10 on the card against the plain version on the CPU over chained
+    admissions from one state (``start``, host arrays, else zeros): equal
+    state, scores, anomaly flags and verdicts after each, one launch a call
+    (the resident entry: equal probe, stateless and output words, from
+    random hit bitmaps and served words).  Returns the CPU state."""
+    from infw_torch.kernels import mxu_score as kms
+    from infw_torch.kernels.flow import pack_bits32
+    from infw_torch.kernels.torchpath import _pack_res16
+
+    host = start or {k: np.asarray(v) for k, v in zip(kms.ScoreState._fields,
+                                                      kms.zero_state_host(spec))}
+    ops = {}
+    for dev in (cuda, torch.device("cpu")):
+        ops[dev.type] = kms.ScoreOps(kms.state_from_host(host, dev), kms.model_device(model, dev),
+                                     torch.from_numpy(tparams.copy()).to(dev), None, spec)
+    rng = np.random.default_rng(len(batches))
+    kern = kms.RESIDENT_KERNEL if resident else kms.KERNEL
+    for j, (wire, tenant, flags, res) in enumerate(batches):
+        B = wire.shape[0]
+        before = kern.launches
+        if resident:
+            nw, nh = (B + 1) // 2, -(-B // 32)
+            hit = torch.from_numpy(rng.random(B) < 0.5)
+            served = torch.from_numpy(rng.integers(0, 1 << 16, B))
+            words = {}
+            for dev in ("cuda", "cpu"):
+                bufs = (_pack_res16(served).to(dev), pack_bits32(hit).to(dev),
+                        _pack_res16(res.long() & 0xFFFF).to(dev),
+                        torch.full((nh + nw,), -7, dtype=torch.int32, device=dev))
+                d = cuda if dev == "cuda" else "cpu"
+                kms.score_update_resident(ops[dev], wire.to(d), tenant.to(d), flags.to(d), *bufs)
+                words[dev] = bufs
+            torch.cuda.synchronize()
+            for name, g, c in zip(("served", "hit", "res16", "out"), words["cuda"], words["cpu"]):
+                assert torch.equal(g.cpu(), c), (j, name)
+        else:
+            got = kms.score_update(ops["cuda"], wire.to(cuda), tenant.to(cuda), flags.to(cuda),
+                                   res.to(cuda))
+            want = kms.score_update(ops["cpu"], wire, tenant, flags, res)
+            torch.cuda.synchronize()
+            assert torch.equal(got.cpu(), want), j
+        assert kern.launches == before + 1
+        for f in kms.ScoreState._fields:
+            assert torch.equal(getattr(ops["cuda"].state, f).cpu(),
+                               getattr(ops["cpu"].state, f)), (j, f)
+    return ops["cpu"].state
+
+
+K10_CONFIGS = {  # spec keywords, model, threshold, enforce, tenants
+    "default": ({}, "default", 100, False, (0,)),
+    "stress8": (dict(hidden=8), "stress", 100, True, (0,)),
+    "random64": (dict(hidden=64, slots=64, ways=3), "random", 0, True, (0,)),
+    "sat_max": (dict(sat=2**31 - 1, slots=16, ways=2, cms_width=64), "default", 100, False,
+                (0,)),
+    "tenants4": (dict(max_tenants=4, slots=64), "stress4", -1000, True, (-1, 0, 1, 2, 3, 4)),
+    "enforce_fires": (dict(slots=32, ways=2), "default", 0, True, (0,)),
+    "tenants100": (dict(max_tenants=100, slots=64), "stress4", -1000, True, tuple(range(-1, 102))),
+}
+
+
+@pytest.mark.parametrize("resident", [False, True])
+@pytest.mark.parametrize("b", [1, 256, 4096])
+@pytest.mark.parametrize("config", sorted(K10_CONFIGS))
+def test_k10_matches_plain(cuda, config, b, resident):
+    from infw_torch.kernels import mxu_score as kms
+
+    kw, kind, thr, enforce, tenants = K10_CONFIGS[config]
+    if kind == "stress4":
+        kw, kind = dict(kw, hidden=4), "stress"
+    spec = kms.ScoreSpec.make(**kw)
+    rng = np.random.default_rng(len(config) * 1000 + b)
+    tables = testing.random_tables_fast(rng, 500, width=4, v6_fraction=0.4)
+    model = _k10_model(kind, spec, rng)
+    tparams = kms.zero_tparams(spec, threshold=thr, enforce=enforce)
+    batches = _k10_batches(rng, tables, b, 7 if b != 256 else 4, spec, n=4, tenants=tenants)
+    st = _k10_against_plain(cuda, spec, model, tparams, batches, resident=resident)
+    assert int(st.epoch[0]) == 4
+
+
+def test_k10_large_batch_and_above_sat_start(cuda):
+    """K10 at 2^18 lanes on the default spec, and from a start state whose
+    count-min cells and source columns sit above sat (every cell clamped,
+    the adds wrapping first), on both entries."""
+    from infw_torch.kernels import mxu_score as kms
+
+    rng = np.random.default_rng(18)
+    tables = testing.random_tables_fast(rng, 2000, width=4, v6_fraction=0.4)
+    spec = kms.ScoreSpec.make()
+    tp = kms.zero_tparams(spec)
+    _k10_against_plain(cuda, spec, kms.default_model(spec), tp,
+                       _k10_batches(rng, tables, 1 << 18, 7, spec, n=2, pool=4096))
+    sat = kms.ScoreSpec.make(sat=40, slots=32, ways=2, cms_width=64, hidden=8)
+    start = {k: np.asarray(v).copy() for k, v in zip(kms.ScoreState._fields,
+                                                    kms.zero_state_host(sat))}
+    start["cms"][:] = rng.integers(0, 200, start["cms"].shape)
+    start["cms"][0, :4] = 2**31 - 1
+    start["scols"][:, :4] = rng.integers(0, 200, (32, 4))
+    start["scols"][:, 6] = rng.integers(0, 200, 32)
+    start["scols"][:3, :4] = 2**31 - 1
+    for resident in (False, True):
+        st = _k10_against_plain(cuda, sat, kms.clamp_stress_model(sat),
+                                kms.zero_tparams(sat, threshold=50, enforce=True),
+                                _k10_batches(rng, tables, 300, 7, sat, n=2), resident=resident,
+                                start=start)
+        assert int(st.cms.max()) <= 40 and int(st.scols[:, :4].max()) <= 40
+
+
+def test_k10_wrapper_refuses_bad_operands(cuda):
+    from infw_torch.kernels import mxu_score as kms
+
+    spec = kms.ScoreSpec.make()
+    ops = kms.ScoreOps(kms.zero_state(spec, cuda), kms.model_device(kms.default_model(spec), cuda),
+                       torch.from_numpy(kms.zero_tparams(spec)).to(cuda), None, spec)
+    z = torch.zeros(8, dtype=torch.int32, device=cuda)
+    before = kms.KERNEL.launches
+    with pytest.raises(ValueError):
+        kms.score_update(ops, torch.zeros((8, 5), dtype=torch.int32, device=cuda), z, z, z)
+    with pytest.raises(ValueError):
+        kms.score_update(ops._replace(tparams=ops.tparams.cpu()),
+                         torch.zeros((8, 7), dtype=torch.int32, device=cuda), z, z, z)
+    assert kms.KERNEL.launches == before
+
+
+@pytest.mark.parametrize("path", ["dense", "trie"])
+def test_resident_graph_with_scoring_matches_the_cpu_and_the_eager_step(cuda, path):
+    """The resident classifier with anomaly scoring in enforce mode (a
+    threshold that fires) on the card against the same on the CPU over a
+    flow trace at ragged sizes: equal outputs, flow columns, score tensors
+    and recent masks; one more admission's graph against the eager step (K10
+    as a stage between the probe and the insert) on clones of the columns
+    and the score state."""
+    from infw_torch import flow as flow_mod
+    from infw_torch.kernels import flow as kflow
+    from infw_torch.kernels import mxu_score as kms
+    from infw_torch.kernels.resident import resident_fused_host, resident_step
+
+    rng = np.random.default_rng(37)
+    tables = testing.random_tables_fast(rng, 300 if path == "dense" else 5000, width=4,
+                                        v6_fraction=0.5)
+    spec = kms.ScoreSpec.make(slots=128, ways=2, hidden=4)
+    fp = None if path == "dense" else path
+    kw = dict(force_path=fp, resident=True, flow_table=4096, mlscore=spec,
+              mlscore_model=kms.clamp_stress_model(spec), mlscore_mode="enforce")
+    gpu, cpu = TorchClassifier(device=cuda, **kw), TorchClassifier(device="cpu", **kw)
+    for c in (gpu, cpu):
+        c.load_tables(tables)
+        c.mlscore.set_threshold(60)
+        c.mlscore.set_keep_masks(16)
+    batch, _ = testing.flow_trace_batch(rng, tables, 4 * 1024, 0.9, chunk_packets=1024)
+    start = 0
+    for k, size in enumerate((1024, 61, 1000, 1024, 8, 1)):
+        sub = batch.slice(start, start + size)
+        start += size
+        _same_outputs(gpu.classify(sub), cpu.classify(sub), f"{path} chunk {k}")
+    gs, cs = gpu.mlscore.columns(), cpu.mlscore.columns()
+    for f in gs:
+        np.testing.assert_array_equal(gs[f], cs[f], err_msg=f)
+    for (e1, a1, s1), (e2, a2, s2) in zip(gpu.mlscore.recent_masks(), cpu.mlscore.recent_masks()):
+        assert e1 == e2 and np.array_equal(a1, a2) and np.array_equal(s1, s2)
+    assert gs["tstat"][0, 2] > 0 and gpu.mlscore_counters() == cpu.mlscore_counters()
+    gf, cf = gpu.flow.flow_columns(), cpu.flow.flow_columns()
+    for k in gf:
+        np.testing.assert_array_equal(gf[k], cf[k], err_msg=k)
+
+    sub = batch.slice(0, 1024)
+    wire_np = sub.pack_wire()
+    ctx = gpu.resident.context(gpu)
+    tables_step = ctx.tables._replace(
+        n_levels=None if path != "trie" else ctx.tables.dev.n_levels)
+    tier, ml = gpu.flow, gpu.mlscore
+    eager_flow = kflow.clone_flow_table(tier._flow)
+    eager_epoch = tier._epoch_dev.clone()
+    eager_sc = ml.ops()._replace(state=kms.ScoreState(*(t.clone() for t in ml._state)))
+    gens_op, pages_op = tier._res_ops
+    fl = torch.from_numpy(sub.tcp_flags.astype(np.int32)).to(cuda)
+    ops = flow_mod.ResidentOps(eager_flow, gens_op.clone(), pages_op.clone(), eager_epoch,
+                               torch.zeros(1024, dtype=torch.int32, device=cuda), fl,
+                               tier.config.max_age, tier.config.entries, tier.config.ways,
+                               score=eager_sc)
+    before = kms.RESIDENT_KERNEL.launches
+    eager = resident_step(ops, tables_step, torch.from_numpy(wire_np.view(np.int32)).to(cuda))
+    assert kms.RESIDENT_KERNEL.launches == before + 1
+    plan = gpu.prepare_packed(wire_np, False, tcp_flags=sub.tcp_flags)
+    np.testing.assert_array_equal(resident_fused_host(plan["fused"]), eager.cpu().numpy())
+    assert kms.RESIDENT_KERNEL.launches == before + 2
+    for c in kflow.COLUMNS:
+        assert torch.equal(getattr(tier._flow, c), getattr(eager_flow, c)), c
+    for f in kms.ScoreState._fields:
+        assert torch.equal(getattr(ml._state, f), getattr(eager_sc.state, f)), f
+
+
+def test_score_swap_flip_drain_and_reset_write_in_place(cuda):
+    """On a warmed resident classifier with scoring: a model swap, a mode
+    flip, a threshold change, a drain and a reset rewrite the tensors the
+    graphs baked in place (same addresses), capture nothing and allocate
+    nothing; each later admission equals the CPU classifier's after the same
+    steps."""
+    from infw_torch.kernels import mxu_score as kms
+
+    rng = np.random.default_rng(41)
+    tables = testing.random_tables_fast(rng, 5000, width=4, v6_fraction=0.5)
+    spec = kms.ScoreSpec.make(slots=128, ways=2, hidden=4)
+    kw = dict(force_path="trie", resident=True, flow_table=4096, mlscore=spec,
+              mlscore_model=kms.clamp_stress_model(spec))
+    gpu, cpu = TorchClassifier(device=cuda, **kw), TorchClassifier(device="cpu", **kw)
+    for c in (gpu, cpu):
+        c.load_tables(tables)
+    batch, _ = testing.flow_trace_batch(rng, tables, 6 * 256, 0.8, chunk_packets=256)
+    chunks = [batch.slice(256 * j, 256 * (j + 1)) for j in range(6)]
+    for sub in chunks[:2]:
+        _same_outputs(gpu.classify(sub), cpu.classify(sub), "warm")
+    gpu.mark_resident_warm()
+    ml = gpu.mlscore
+    ptrs = [t.data_ptr() for t in (*ml._state, *ml._model_dev, ml._tparams_dev, ml._scratch)]
+    graphs = gpu.resident.graphs()
+    gen0 = int(gpu.flow._gens_host[0])
+    steps = [
+        lambda c: c.set_score_model(testing.random_score_model(np.random.default_rng(5), spec)),
+        lambda c: c.mlscore.set_mode("enforce"),
+        lambda c: c.mlscore.set_threshold(-1000),
+        lambda c: c.mlscore.drain(),
+        lambda c: c.mlscore.reset_state(),
+        lambda c: c.mlscore.set_mode("shadow"),
+    ]
+    for j, step in enumerate(steps):
+        for c in (gpu, cpu):
+            step(c)
+        sub = chunks[j % len(chunks)]
+        _same_outputs(gpu.classify(sub), cpu.classify(sub), f"step {j}")
+        gs, cs = gpu.mlscore.columns(), cpu.mlscore.columns()
+        for f in gs:
+            np.testing.assert_array_equal(gs[f], cs[f], err_msg=f"step {j} {f}")
+    assert ptrs == [t.data_ptr() for t in (*ml._state, *ml._model_dev, ml._tparams_dev,
+                                           ml._scratch)]
+    assert gpu.resident.graphs() == graphs and gpu.resident.steady_allocs() == 0
+    # the swap, two mode flips and the threshold each bump the generation
+    assert int(gpu.flow._gens_host[0]) == int(cpu.flow._gens_host[0]) == gen0 + 4
