@@ -226,14 +226,18 @@ line) on any error:
     bench_mlscore shape (bench.py:4029-4083; mlscore_phase): kernel K10
     against its plain version through both entries (chained admissions at
     B = 1 to 2^18 on synflood and uniform traces, heads of 0, 8 and 64, sat
-    2^31 - 1, 4 and 100 tenants, shadow and enforce, a start above sat), the
+    2^31 - 1, 4 and 100 tenants, shadow and enforce, a start above sat; on
+    plan_for's plan and on each plan forced, the slot scratch back at -1 /
+    0 after every call), the
     60 synflood admissions of 256 through resident and multi-dispatch
     classifiers on the card and the CPU's plain versions in shadow and
     enforce (launch counts zeroed before and read after; all equal, shadow
     equal to the oracle, every rewrite a Deny with ruleId 0 off the failsafe
     cells), a model swap and mode flips with no capture, the admissions
-    until a drained anomaly-verdict record names the attacker, K10's times,
-    the resident admission with scoring on and off, and the daemon with
+    until a drained anomaly-verdict record names the attacker, K10's times
+    (the plan per size) and both plans over a ladder of sizes
+    (infw_torch.tools.score_plans: the crossover), the resident admission
+    with scoring on and off, and the daemon with
     --resident --mlscore and a model dropped into models/;
 12. the port's daemon (infw_torch.daemon.Daemon, threads started): the
     headline CRs' ingress blocks as one NodeState file, then bench config
@@ -255,7 +259,8 @@ With ``--parent``, K2 (as is and depth-sorted, every level count), K3
 (tables A and B, as is and depth-sorted; the adversarial batches), K3b,
 K5 (B = 2^20 over (4096, 128) and (65536, 8)), K6 (fused, grouped and shuffled; two-column, on the dense arena and
 over the side-pool), K7 and K8 (every size and wire of phase 11b, on
-clones of the same columns, the columns held equal too) are also run from
+clones of the same columns, the columns held equal too), K9 and K10 (each
+timed size and trace of phases 11d and 11e) are also run from
 the other tree's build on the same operands, held equal, and timed in
 turns with this tree's (parent, this, this, parent).
 
@@ -298,16 +303,16 @@ SWAP_ENTRIES, SWAP_PACKETS = 1_000_000, 1 << 19
 # the JAX package's churn tier (bench.py bench_churn on a chip) and the
 # overlay the syncer fills (infw/syncer.py OVERLAY_CAP)
 CHURN_ENTRIES, CHURN_WIDTH, CHURN_PACKETS, CHURN_OVERLAY = 1_000_000, 4, 1 << 19, 1024
-# one-edit generations a round of the churn A/B (bench_churn runs 64; 8
-# keep the script within its time since the telemetry phase came in)
-AB_ONE_EDITS = 8
+# one-edit generations a round of the churn A/B (bench_churn runs 64; 4
+# keep the script within its time since the scoring phase's plan ladder came in)
+AB_ONE_EDITS = 4
 # Published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, dense int8 ops/s.
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1.979e15
 
 
-#: --parent's kernels by name (K2, K3, K3b, K5, K6's two entries, K7, K8
-#: and K9's two entries), built from its sources; empty without --parent
+#: --parent's kernels by name (K2, K3, K3b, K5, K6's two entries, K7, K8,
+#: K9's and K10's two entries), built from its sources; empty without --parent
 PARENT_KERNELS: dict = {}
 
 
@@ -327,6 +332,12 @@ def k5_scratchless(csrc) -> bool:
     sig = re.search(r'extern "C" int infw_gather_rowsum\(([^)]*)\)',
                     (csrc / "gather_rowsum.cu").read_text())
     return "sums" not in sig.group(1)
+
+
+def k10_planless(csrc) -> bool:
+    """Whether a tree's K10 is the five-launch design: its C entries take a
+    per-lane scratch and no plan (nor, then, a grid cap)."""
+    return "int plan" not in (csrc / "score_update.cu").read_text()
 
 
 def flow_grid_capped(csrc) -> bool:
@@ -382,14 +393,16 @@ def parent_kernels(root: str) -> dict:
     signature (three pointers, three ints and the stream: no row-sum
     scratch, no grid cap), a K6 of the design before the grouped one with
     its own signatures (no scratch; no grid cap on the two-column entry),
-    K7 and K8 of the three-launch design without their grid cap, and K9's
+    K7 and K8 of the three-launch design without their grid cap, K9's
     two entries (the one-plan design takes a 0 where this tree passes its
-    plan, and a (B, 4) lane scratch)."""
+    plan, and a (B, 4) lane scratch), and K10's two entries (the five-launch
+    design with its own signature: a per-lane scratch, no grid cap, no
+    plan)."""
     import ctypes
     from pathlib import Path
 
-    from infw_torch.kernels import (_build, arena_dense, arena_walk, cwalk, flow, gather, sketch,
-                                    walk)
+    from infw_torch.kernels import (_build, arena_dense, arena_walk, cwalk, flow, gather,
+                                    mxu_score, sketch, walk)
 
     csrc = Path(root) / "infw_torch" / "kernels" / "csrc"
     out = {}
@@ -419,6 +432,12 @@ def parent_kernels(root: str) -> dict:
         for k in (sketch.KERNEL, sketch.RESIDENT_KERNEL):
             out[k.name] = _build.Kernel(k.name, k.symbol, k.argtypes, csrc=csrc,
                                         source="sketch_update")
+    if (csrc / "score_update.cu").exists():
+        old = k10_planless(csrc)
+        for k in (mxu_score.KERNEL, mxu_score.RESIDENT_KERNEL):
+            argtypes = [p] * 23 + [i] * 11 + [p] if old else k.argtypes
+            out[k.name] = _build.Kernel(k.name, k.symbol, argtypes, csrc=csrc,
+                                        source="score_update")
     return out
 
 
@@ -2844,7 +2863,7 @@ def churn_phase(tag: str, n_entries: int = CHURN_ENTRIES, n_packets: int = CHURN
             f"recount equal")
         txn_t = {"mix": {"ops": rep.n_ops, "folded": rep.n_folded, "mode": rep.mode,
                          "rows": rep.dirty_rows, "ms": ms, "event_ms": ev_ms}}
-        # bench_churn's A/B on live keys: one-edit generations (AB_ONE_EDITS = 8 a round,
+        # bench_churn's A/B on live keys: one-edit generations (AB_ONE_EDITS a round,
         # the script's time limit) against one folded 64-edit transaction,
         # per edit, interleaved, the min of 2 rounds
         keys = list(applier.updater.content)
@@ -5608,8 +5627,9 @@ def resident_phase(tag: str, k7: dict, k8: dict) -> None:
 TELEMETRY_ENTRIES, TELEMETRY_CHUNK, TELEMETRY_CHUNKS = 100_000, 256, 80
 #: batch sizes K9 is held against its plain version at, and timed at
 K9_SIZES, K9_TIMED = (1, 31, 256, 4096, 65536), (256, 4096, 1 << 18)
-#: the sizes both K9 plans are timed at (infw_torch.tools.sketch_plans)
-K9_LADDER = (256, 1024, 1536, 2048, 2560, 3072, 4096, 8192)
+#: the sizes both K9 plans are timed at (infw_torch.tools.sketch_plans; either
+#: side of its 2048-lane crossover, cut from eight sizes for the script's time)
+K9_LADDER = (256, 2048, 2560, 4096)
 
 
 def telemetry_tables():
@@ -6216,6 +6236,9 @@ def telemetry_phase(tag: str) -> dict:
 
 MLSCORE_CHUNK, MLSCORE_CHUNKS = 256, 60
 K10_SIZES, K10_TIMED = (1, 256, 4096, 1 << 18), (256, 4096, 1 << 18)
+#: the sizes the scoring phase's plan ladder times both of K10's plans at (either
+#: side of the 1024-lane crossover)
+K10_LADDER = (256, 1024, 1280, 4096)
 
 
 def mlscore_tables():
@@ -6240,14 +6263,15 @@ def k10_bytes(spec, b: int, width: int) -> int:
 
 
 def k10_check(kms, spec, model, tparams, batches, resident: bool = False, start=None,
-              seed: int = 0) -> int:
+              seed: int = 0, plan=None) -> int:
     """K10 on the card against its plain version (plain PyTorch on the same
     card tensors) over chained admissions from one state (``start``, host
     arrays, else zeros): after each, equal state tensors, equal outputs
     (classic: [score, anom, res']; resident: the probe's and the stateless
     words and the anomaly and score words, from a random hit bitmap and
-    served words), one launch a call.  Raises on a mismatch; returns the
-    largest absolute difference (0)."""
+    served words), one launch a call, the per-slot scratch back at -1 / 0;
+    ``plan`` forces K10's plan (None: plan_for's).  Raises on a mismatch;
+    returns the largest absolute difference (0)."""
     import torch
 
     from infw_torch.kernels.flow import pack_bits32
@@ -6259,11 +6283,14 @@ def k10_check(kms, spec, model, tparams, batches, resident: bool = False, start=
 
     def ops():
         return kms.ScoreOps(kms.state_from_host(host, dev), kms.model_device(model, dev),
-                            torch.from_numpy(tparams.copy()).to(dev), None, spec)
+                            torch.from_numpy(tparams.copy()).to(dev),
+                            kms.empty_scratch(spec, dev), spec)
 
     got, want = ops(), ops()
+    idle = kms.empty_scratch(spec, dev)
     rng = np.random.default_rng(seed)
     kern = kms.RESIDENT_KERNEL if resident else kms.KERNEL
+    where = f"spec {spec}, plan {plan or 'plan_for'}"
     for j, batch in enumerate(batches):
         wire, tenant, flags, res = (x.to(dev) for x in batch)
         B = wire.shape[0]
@@ -6273,7 +6300,7 @@ def k10_check(kms, spec, model, tparams, batches, resident: bool = False, start=
             hit = torch.from_numpy(rng.random(B) < 0.5).to(dev)
             served = torch.from_numpy(rng.integers(0, 1 << 16, B)).to(dev)
             words = []
-            for o, entry in ((got, kms.score_update_resident),
+            for o, entry in ((got, lambda *x: kms.score_update_resident(*x, plan=plan)),
                              (want, kms.score_update_resident_plain)):
                 bufs = (_pack_res16(served), pack_bits32(hit), _pack_res16(res.long() & 0xFFFF),
                         torch.full((nh + nw,), -7, dtype=torch.int32, device=dev))
@@ -6281,7 +6308,7 @@ def k10_check(kms, spec, model, tparams, batches, resident: bool = False, start=
                 words.append(bufs)
             pairs = list(zip(("served", "hit", "res16", "out"), *words))
         else:
-            pairs = [("out", kms.score_update(got, wire, tenant, flags, res),
+            pairs = [("out", kms.score_update(got, wire, tenant, flags, res, plan=plan),
                       kms.score_update_out_plain(want, wire, tenant, flags, res))]
         torch.cuda.synchronize()
         if kern.launches != before + 1:
@@ -6289,16 +6316,103 @@ def k10_check(kms, spec, model, tparams, batches, resident: bool = False, start=
         for name, a, b in pairs:
             if not torch.equal(a, b):
                 raise SystemExit(f"K10 {'resident' if resident else 'classic'} entry disagrees "
-                                 f"with its plain version on {name} (admission {j}), spec "
-                                 f"{spec}, B={B}")
+                                 f"with its plain version on {name} (admission {j}), {where}, "
+                                 f"B={B}")
         for f in kms.ScoreState._fields:
             a, b = getattr(got.state, f), getattr(want.state, f)
             if not torch.equal(a, b):
                 diff = int((a.long() - b.long()).abs().max())
                 raise SystemExit(f"K10 {'resident' if resident else 'classic'} entry disagrees "
                                  f"with its plain version on {f} (max |diff| {diff}, admission "
-                                 f"{j}), spec {spec}, B={B}")
+                                 f"{j}), {where}, B={B}")
+        if not torch.equal(got.scratch, idle):
+            raise SystemExit(f"K10 left its slot scratch dirty (admission {j}), {where}, B={B}")
     return 0
+
+
+def k10_ops(kms, spec, model):
+    """Zero score state, ``model`` and the default policy rows on the card,
+    with a per-slot scratch of its own (no fill a call)."""
+    import torch
+
+    return kms.ScoreOps(kms.zero_state(spec, DEV), kms.model_device(model, DEV),
+                        torch.from_numpy(kms.zero_tparams(spec)).to(DEV),
+                        kms.empty_scratch(spec, DEV), spec)
+
+
+def k10_parent_turns(tag: str, kms, spec, model, args, label: str) -> dict:
+    """--parent's K10 against this tree's on one timed input: from one state,
+    two admissions through each entry leave equal state tensors and outputs
+    (the resident entry on the same verdicts packed, with a seeded hit
+    bitmap and served words), then the classic entries with the host ahead
+    in turns (parent, this, this, parent).  The parent's five-launch design
+    takes a per-lane scratch and its own slot scratch (it leaves its bids
+    there).  Returns {"paced_ms": this tree's mean, "parent_paced_ms": the
+    parent's}."""
+    import torch
+
+    from infw_torch.kernels.flow import pack_bits32
+    from infw_torch.kernels.torchpath import _pack_res16
+
+    wire, tenant, flags, res = args
+    B = wire.shape[0]
+    nw, nh = (B + 1) // 2, -(-B // 32)
+    old = k10_planless(PARENT_KERNELS["score_update"].csrc)
+    lanes = torch.empty(4 * B, dtype=torch.int32, device=DEV)
+    theirs_scratch = kms.empty_scratch(spec, DEV)
+    rng = np.random.default_rng(B)
+    hit = pack_bits32(torch.from_numpy(rng.random(B) < 0.5).to(DEV))
+    served0 = _pack_res16(torch.from_numpy(rng.integers(0, 1 << 16, B)).to(DEV))
+
+    def parent(ops, words=None):
+        o = ops._replace(scratch=theirs_scratch)
+        if words is None:
+            out = torch.empty(3 * B, dtype=torch.int32, device=DEV)
+            a = kms.kernel_args(o, wire, tenant, flags, res, None, None, theirs_scratch, lanes,
+                                out, 0, "L")
+        else:
+            out = words[3]
+            a = kms.kernel_args(o, wire, tenant, flags, words[2], words[0], words[1],
+                                theirs_scratch, lanes, out, 0,
+                                kms.plan_for(B, spec, kms.smem_limit(torch.device(DEV))))
+        if old:
+            a = a[:-2]
+        elif words is None:
+            a = a[:-1] + (kms.PLANS[kms.plan_for(B, spec, kms.smem_limit(torch.device(DEV)))],)
+        name = "score_update" if words is None else "score_update_resident"
+        PARENT_KERNELS[name].launch(*a, torch.cuda.current_stream().cuda_stream)
+        return out
+
+    for resident in (False, True):
+        mine, theirs = k10_ops(kms, spec, model), k10_ops(kms, spec, model)
+        outs = []
+        for _ in range(2):
+            if resident:
+                wm = (served0.clone(), hit, _pack_res16(res.long() & 0xFFFF),
+                      torch.zeros(nh + nw, dtype=torch.int32, device=DEV))
+                wt = tuple(t.clone() for t in wm)
+                kms.score_update_resident(mine, wire, tenant, flags, *wm)
+                parent(theirs, wt)
+                outs.append((wm, wt))
+            else:
+                outs.append(((kms.score_update(mine, wire, tenant, flags, res),),
+                             (parent(theirs),)))
+        torch.cuda.synchronize()
+        same = all(torch.equal(getattr(mine.state, f), getattr(theirs.state, f))
+                   for f in kms.ScoreState._fields)
+        same = same and all(torch.equal(x, y) for m, t in outs for x, y in zip(m, t))
+        if not same:
+            raise SystemExit(f"--parent's K10 disagrees with this tree's [{label}, "
+                             f"{'resident' if resident else 'classic'} entry]")
+    st_p, st_t = k10_ops(kms, spec, model), k10_ops(kms, spec, model)
+    this_fn = lambda: kms.score_update(st_t, wire, tenant, flags, res)  # noqa: E731
+    parent_fn = lambda: parent(st_p)  # noqa: E731
+    p1, t1, t2, p2 = (device_paced_ms(fn, reps=20)
+                      for fn in (parent_fn, this_fn, this_fn, parent_fn))
+    log(f"{tag} parent vs this tree [K10 {label}], with the host ahead, in turns: parent "
+        f"{p1:.5f}, {p2:.5f} ms; this {t1:.5f}, {t2:.5f} ms; this / parent "
+        f"{(t1 + t2) / (p1 + p2):.3f}")
+    return {"paced_ms": (t1 + t2) / 2, "parent_paced_ms": (p1 + p2) / 2}
 
 
 def k10_profile_child() -> None:
@@ -6319,8 +6433,7 @@ def k10_profile_child() -> None:
     out = {"k10": {}, "admission": {}}
     for b in K10_TIMED:
         for name, args in k9_traces(tables, b).items():
-            ops = kms.ScoreOps(kms.zero_state(spec, DEV), kms.model_device(model, DEV),
-                               torch.from_numpy(kms.zero_tparams(spec)).to(DEV), None, spec)
+            ops = k10_ops(kms, spec, model)
             args = [x.to(DEV) for x in args]
             counts = {}
             dev_us = profiled_kernels(lambda: kms.score_update(ops, *args), 10, counts)
@@ -6431,16 +6544,26 @@ def mlscore_phase(tag: str) -> dict:
         ("enforce, threshold 0", spec, model, kms.zero_tparams(spec, threshold=0, enforce=True),
          None),
     ]
-    checked = 0
+    limit = kms.smem_limit(torch.device(DEV))
+    checked, runs = 0, 0
+
+    def check(sp, m, tp, batches, **kw):
+        """One configuration on plan_for's plan, then each plan forced (S
+        where it fits)."""
+        nonlocal checked, runs
+        b = batches[0][0].shape[0]
+        for plan in [None] + (["S"] if kms.block_plan_bytes(b, sp) <= limit else []) + ["L"]:
+            runs += 1 + k10_check(kms, sp, m, tp, batches, seed=checked, plan=plan, **kw)
+        checked += 1
+
     for label, sp, m, tp, tenants in configs:
         for b in K10_SIZES:
             for name in ("synflood", "uniform"):
                 for resident in (False, True):
-                    checked += 1 + k10_check(kms, sp, m, tp, draws(b, name, tenants=tenants),
-                                             resident=resident, seed=checked)
+                    check(sp, m, tp, draws(b, name, tenants=tenants), resident=resident)
     for resident in (False, True):
-        checked += 1 + k10_check(kms, spec, model, kms.zero_tparams(spec, 0, True),
-                                 draws(4096, "uniform", width=4), resident=resident)
+        check(spec, model, kms.zero_tparams(spec, 0, True), draws(4096, "uniform", width=4),
+              resident=resident)
     sat40 = kms.ScoreSpec.make(sat=40, slots=32, ways=2, cms_width=64, hidden=8)
     start = {k: np.asarray(v).copy() for k, v in zip(kms.ScoreState._fields,
                                                     kms.zero_state_host(sat40))}
@@ -6450,13 +6573,14 @@ def mlscore_phase(tag: str) -> dict:
     start["scols"][:, 6] = rng.integers(0, 200, 32)
     start["scols"][:3, :4] = 2**31 - 1
     for resident in (False, True):
-        checked += 1 + k10_check(kms, sat40, kms.clamp_stress_model(sat40),
-                                 kms.zero_tparams(sat40, threshold=50, enforce=True),
-                                 draws(300, "synflood"), resident=resident, start=start)
+        check(sat40, kms.clamp_stress_model(sat40),
+              kms.zero_tparams(sat40, threshold=50, enforce=True), draws(300, "synflood"),
+              resident=resident, start=start)
     log(f"K10 vs plain: {checked} configurations (both entries at B = {list(K10_SIZES)} on the "
         f"synflood and uniform traces: {[c[0] for c in configs]}; the 4-word wire; a start state "
-        f"above sat 40), 2-3 chained admissions each: every state tensor and output word equal, "
-        f"one launch a call; {time.perf_counter() - t0:.1f} s")
+        f"above sat 40), each on plan_for's plan and on each plan forced (S where it fits): "
+        f"{runs} runs of 2-3 chained admissions, every state tensor and output word equal, one "
+        f"launch a call, the slot scratch back at -1 / 0; {time.perf_counter() - t0:.1f} s")
 
     # 2. bench_mlscore's cell through the classifiers
     t0 = time.perf_counter()
@@ -6608,18 +6732,19 @@ def mlscore_phase(tag: str) -> dict:
     timings = {}
     for b in K10_TIMED:
         for name, args in k9_traces(tables, b).items():
-            mk = lambda: kms.ScoreOps(kms.zero_state(spec, DEV), kms.model_device(model, DEV),  # noqa: E731
-                                      torch.from_numpy(kms.zero_tparams(spec)).to(DEV), None,
-                                      spec)
-            o_k, o_p = mk(), mk()
+            o_k, o_p = k10_ops(kms, spec, model), k10_ops(kms, spec, model)
             args = [x.to(DEV) for x in args]
             fn = lambda: kms.score_update(o_k, *args)  # noqa: E731
             timings[f"{name} {b}"] = {
+                "plan": kms.plan_for(b, spec, limit),
                 "ms": cuda_ms(fn, reps=20), "paced_ms": device_paced_ms(fn, reps=20),
                 "plain_ms": cuda_ms(lambda: kms.score_update_out_plain(o_p, *args), reps=3,
                                     warmup=1),
                 "bound_ms": k10_bytes(spec, b, 7) / HBM_BYTES_PER_S * 1e3,
             }
+            if "score_update" in PARENT_KERNELS:
+                timings[f"{name} {b}"]["parent_in_turns"] = k10_parent_turns(
+                    tag, kms, spec, model, args, f"{name} {b}")
     here = os.path.dirname(os.path.abspath(__file__))
     child = subprocess.run([sys.executable, "-c", "import chip_smoke; "
                             "chip_smoke.k10_profile_child()"], cwd=here,
@@ -6631,11 +6756,23 @@ def mlscore_phase(tag: str) -> dict:
         p = prof["k10"][key]
         t.update(device_us=p["device_us"], kernels=p["kernels"], per_kernel_us=p["per_kernel_us"])
         dev_ms = t["device_us"] / 1e3 if t["device_us"] else None
-        log(f"{tag} K10 score_update [{key}]: events {t['ms']:.5f} ms, with the host ahead "
+        log(f"{tag} K10 score_update [{key}], plan {t['plan']}: events {t['ms']:.5f} ms, with the "
+            f"host ahead "
             f"{t['paced_ms']:.5f} ms, device {t['device_us'] if t['device_us'] else 'lost'} us "
             f"({t['per_kernel_us']}); bound {t['bound_ms']:.6f} ms by bytes"
             + (f" ({dev_ms / t['bound_ms']:.2f}x)" if dev_ms else "")
             + f"; plain {t['plain_ms']:.4f} ms")
+    # the crossover: both plans over a ladder of sizes, in a fresh process
+    child = subprocess.run([sys.executable, "-m", "infw_torch.tools.score_plans", "--sizes",
+                            ",".join(str(b) for b in K10_LADDER)], cwd=here, capture_output=True,
+                           text=True, timeout=600)
+    if child.returncode != 0:
+        raise SystemExit(f"K10 plan ladder failed:\n{child.stderr[-3000:]}")
+    for line in child.stdout.strip().splitlines()[:-1]:
+        log(f"{tag} {line}")
+    ladder = json.loads(child.stdout.strip().splitlines()[-1])
+    log(f"{tag} K10 crossover: plan S no slower than plan L on both traces up to B = "
+        f"{ladder['crossover']} of the ladder; plan_for's crossover {kms.BLOCK_PLAN_MAX_LANES}")
     adm = prof["admission"]
     ratio = (adm["on"]["device_us"] / adm["off"]["device_us"]
              if adm["on"]["device_us"] and adm["off"]["device_us"] else None)
@@ -6737,8 +6874,10 @@ def mlscore_phase(tag: str) -> dict:
         "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
         "bound_by": "bytes", "library_ms": None,
         "entries": {"classic": "score_update", "resident": "score_update_resident"},
-        "checked_configurations": checked, "timings": timings, "admission": adm,
-        "admission_on_off": ratio, "cell": cell, "detect_admissions": detect,
+        "checked_configurations": checked, "checked_runs": runs, "timings": timings,
+        "plans": {key: t["plan"] for key, t in timings.items()},
+        "plan_ladder": ladder["sizes"], "crossover_measured": ladder["crossover"],
+        "admission": adm, "admission_on_off": ratio, "cell": cell, "detect_admissions": detect,
         "mlscore_daemon_launches": daemon_launches, "daemon_passes": passes,
     }
 

@@ -646,13 +646,16 @@ class TorchClassifier:
         compute the misses (their inserts are stale on arrival, never
         served); the reverse order could cache old-table verdicts under
         the new generation.  With the resident pool a 4- or 7-word chunk is
-        dispatched whole here (``_plan_resident``)."""
-        if self._resident is not None and self._flow is not None:
+        dispatched whole here (``_plan_resident``).  An empty chunk takes the
+        stateless plan alone: nothing to probe, cache, score or sketch, so no
+        tier's state or counter moves (the JAX package raises there)."""
+        stateful = wire_np.shape[0] > 0
+        if self._resident is not None and self._flow is not None and stateful:
             plan = self._plan_resident(wire_np, v4_only, depth, tcp_flags)
             if plan is not None:
                 return plan
         flow_probe = None
-        if self._flow is not None and wire_np.shape[1] in (4, 7):
+        if self._flow is not None and wire_np.shape[1] in (4, 7) and stateful:
             with self._lock:
                 probe_ok = self._active is not None and not self._active.wide_rids
             if probe_ok:
@@ -679,13 +682,13 @@ class TorchClassifier:
                     "n_levels": n_levels}
         else:
             plan = self._plan(active, wire_np, kind, n_levels)
-        if self._telemetry is not None:
+        if self._telemetry is not None and stateful:
             # the multi-dispatch telemetry launch runs at materialize time
             # over the admission's served verdicts; a flow plan's miss
             # sub-dispatch goes through _plan / _launch and never counts
             plan["telem_wire"] = wire_np
             plan["telem_flags"] = tcp_flags
-        if self._mlscore is not None and wire_np.shape[1] in (4, 7):
+        if self._mlscore is not None and wire_np.shape[1] in (4, 7) and stateful:
             # one K10 launch when the plan materializes, over the merged rule
             # verdicts: a flow plan's between its merge and its insert, a
             # stateless plan's before the telemetry launch; a flow plan's miss
@@ -832,10 +835,13 @@ class TorchClassifier:
         and the device epoch carry from step to step on the card, and the
         (k, L) outputs come back in one read.  ``tcp_flags_stack`` is (k, b)
         or None.  Returns None when the resident path cannot serve (no pool,
-        another shape, wide ruleIds: a counted fallback)."""
+        another shape, wide ruleIds: a counted fallback).  Empty admissions
+        (b = 0) take the stateless plan each, as in prepare_packed."""
         if (self._resident is None or self._flow is None or wire_stack.ndim != 3
                 or wire_stack.shape[2] not in (4, 7)):
             return None
+        if wire_stack.shape[1] == 0:
+            return {"rows": [self.prepare_packed(w, v4_only) for w in wire_stack]}
         tier, pool = self._flow, self._resident
         gens_snap = tier.resident_gens_snapshot()
         ctx = pool.context(self)
@@ -859,6 +865,9 @@ class TorchClassifier:
         """A superbatch plan's second half: one PendingClassify per
         admission, in dispatch order; reading them out of order is safe,
         the model replays in epoch order."""
+        if "rows" in plan:
+            return [self.classify_prepared(p, apply_stats) for p in plan["rows"]]
+
         def row(j: int) -> PendingClassify:
             return PendingClassify(lambda: self._resident_output(
                 resident_fused_host((plan["fused"], j)), plan["n"], plan["epoch0"] + 1 + j,

@@ -43,14 +43,16 @@ On a CPU tensor the wrappers run ``score_update_plain``, which mirrors
 ``_score_update_core`` statement for statement; on a CUDA tensor they
 launch K10 or raise.  ``HostScoreModel`` mirrors every update in numpy.
 
-K10 is one C call of five launches on one stream (csrc/score_update.cu):
-reset the per-slot scratch; per lane the count-min adds, the probe of the
-rows before any write and the per-slot bids and seeds; per slot the row
-writes and the count-min clamp; per lane the features, the inference and
-the policy with the anomaly and tenant adds; per slot the anomaly column's
-clamp, the epoch, and (resident entry) the packed output words.  The
-per-slot scratch (``slot_scratch_words``) is the caller's (the tier keeps
-one, so a graph bakes it); the per-lane scratch is allocated per call.
+K10 is one launch a call (csrc/score_update.cu), on one of two plans that
+``plan_for`` picks per call (a pure function of B, the geometry and the
+card's opt-in shared-memory limit, so one CUDA graph always captures one
+plan): "S", one block with the state in shared memory, for B up to
+``BLOCK_PLAN_MAX_LANES`` lanes where it fits; "L", a cooperative grid whose
+blocks tally their lanes' adds, bids and seeds in shared memory where the
+geometry fits, for the rest.  The per-slot scratch (``slot_scratch_words``:
+bids, seeds, anomaly hits and a count) is the caller's (the tier keeps one,
+so a graph bakes it), -1 / 0 on entry and again after every call; plan L
+takes a per-lane spill only where a block's lanes outrun its registers.
 """
 from __future__ import annotations
 
@@ -86,10 +88,24 @@ ANOMALY_DENY_RESULT = DENY
 #: default per-tenant anomaly threshold (one >= 100 leaf fires alone)
 DEFAULT_THRESHOLD = 100
 
-_ARGS = [ctypes.c_void_p] * 23 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+_ARGS = [ctypes.c_void_p] * 23 + [ctypes.c_int] * 13 + [ctypes.c_void_p]
 KERNEL = _build.Kernel("score_update", "infw_score_update", _ARGS)
 RESIDENT_KERNEL = _build.Kernel("score_update_resident", "infw_score_update_resident", _ARGS,
                                 source="score_update")
+#: the library's set-up entry (no kernel): raises K10's shared-memory caps on
+#: the current device and returns the card's opt-in limit a block, in bytes
+PREPARE = _build.Kernel("score_prepare", "infw_score_prepare", [ctypes.c_int],
+                        source="score_update")
+
+#: threads of a block on both plans, lanes whose carry a thread keeps in
+#: registers, and plan L's lanes a block (csrc/score_update.cu kThreads,
+#: kRegLanes, kGridLanes)
+BLOCK_THREADS, REG_LANES, GRID_LANES = 1024, 2, 256
+#: the crossover: plan S serves calls of at most this many lanes (measured
+#: on an H100 by ``python -m infw_torch.tools.score_plans``; PERF.md)
+BLOCK_PLAN_MAX_LANES = 1024
+#: each plan's code in the C entry's ``plan`` argument
+PLANS = {"L": 0, "S": 1}
 
 
 def _pow2(n: int, floor: int = 8) -> int:
@@ -263,14 +279,18 @@ def zero_tparams(spec: ScoreSpec, threshold: int = DEFAULT_THRESHOLD,
 
 
 def slot_scratch_words(spec: ScoreSpec) -> int:
-    """K10's per-slot scratch: a winner word and four seed words a slot."""
-    return 5 * spec.slots
+    """K10's per-slot scratch: a bid, four seed words and an anomaly-hit word
+    a slot, then a count of plan L's blocks done, to 16 bytes
+    (csrc/score_update.cu Args)."""
+    return 6 * spec.slots + 4
 
 
-def lane_scratch_words(b: int) -> int:
-    """K10's per-lane scratch: slot, flag bits, last epoch (then the
-    score) and the packed outcome of each lane."""
-    return 4 * b
+def empty_scratch(spec: ScoreSpec, device) -> torch.Tensor:
+    """A per-slot scratch as K10 takes it: bids -1, seeds, hits and the
+    count 0 (and so it leaves it after every call)."""
+    t = torch.zeros(slot_scratch_words(spec), dtype=torch.int32, device=device)
+    t[: spec.slots] = -1
+    return t
 
 
 def score_drain(state: ScoreState) -> None:
@@ -789,12 +809,82 @@ def split_score_outputs(arr: np.ndarray, b: int):
     return arr[0].copy(), arr[1] != 0, arr[2].view(np.uint32).copy()
 
 
-def _check(who: str, ops: ScoreOps, wire, tenant, tflags, scratch, words: int) -> None:
+def _r4(words: int) -> int:
+    return (words + 3) // 4 * 4
+
+
+def model_words(spec: ScoreSpec) -> int:
+    """The model's shared copy in words (csrc/score_update.cu model_words):
+    fidx and fthr (trees x depth) and b1 (hidden) as int32, then the int8
+    leaves, w1 (16 x hidden) and w2 (hidden), each segment on 16 bytes."""
+    td, h = spec.trees * spec.depth, spec.hidden
+    return (2 * _r4(td) + _r4(h) + _r4((spec.trees * spec.leaves + 3) // 4) + 4 * h
+            + _r4((h + 3) // 4))
+
+
+def block_plan_bytes(b: int, spec: ScoreSpec) -> int:
+    """Plan S's shared memory at ``b`` lanes (csrc/score_update.cu
+    block_words): the model, the source columns and keys (14 S words), the
+    count-min rows (D W), the tenant counters (4 T), the bids and seeds (5
+    S), then a 16-byte carry a lane past the register lanes."""
+    spill = max(0, b - REG_LANES * BLOCK_THREADS)
+    return 4 * (model_words(spec) + 19 * spec.slots + spec.cms_depth * spec.cms_width
+                + 4 * spec.max_tenants + 4 * spill)
+
+
+def grid_plan_bytes(spec: ScoreSpec) -> int:
+    """Plan L's shared memory where its tallies fit (csrc/score_update.cu
+    grid_words): the model, the staged rows (14 S words), then the larger of
+    phase A's tallies (5 S + D W) and phase C's (S + 4 T)."""
+    a = 5 * spec.slots + spec.cms_depth * spec.cms_width
+    return 4 * (model_words(spec) + 14 * spec.slots + max(a, spec.slots + 4 * spec.max_tenants))
+
+
+def plan_for(b: int, spec: ScoreSpec, smem_limit: int) -> str:
+    """K10's plan for a call of ``b`` lanes on a card whose blocks may opt in
+    to ``smem_limit`` bytes of shared memory: "S" (one block, the state in
+    shared memory) up to the crossover where it fits, else "L" (the
+    cooperative grid)."""
+    return ("S" if b <= BLOCK_PLAN_MAX_LANES and block_plan_bytes(b, spec) <= smem_limit
+            else "L")
+
+
+def spill_words(b: int, sms: int, grid: int = 0) -> int:
+    """Plan L's per-lane spill at ``b`` lanes on a card of ``sms`` SMs (a
+    grid cap ``grid`` > 0): 16 bytes a lane where a block may take more lanes
+    than its threads carry in registers (at least one block an SM, or the
+    cap, runs; each takes ceil(b / blocks) lanes rounded up to 32), else 0."""
+    blocks = min(-(-b // GRID_LANES), sms, grid if grid > 0 else sms)
+    per = -(-b // max(blocks, 1))
+    return 4 * b if (per + 31) // 32 * 32 > REG_LANES * BLOCK_THREADS else 0
+
+
+_SMEM_LIMIT: dict = {}
+
+
+def smem_limit(device: torch.device) -> int:
+    """The opt-in shared memory a block may use on ``device`` (a CUDA
+    device, current), in bytes; the first call on a device also raises
+    K10's shared-memory caps there (outside any graph capture: each graph the
+    port captures runs once eagerly first)."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    if index not in _SMEM_LIMIT:
+        got = PREPARE.query(0)
+        if got <= 0:
+            raise RuntimeError(f"score_update: the set-up on cuda:{index} failed with error "
+                               f"{-got}")
+        _SMEM_LIMIT[index] = got
+    return _SMEM_LIMIT[index]
+
+
+def _check(who: str, ops: ScoreOps, wire, tenant, tflags) -> None:
     dev = wire.device
     spec = ops.spec
     if wire.dim() != 2 or wire.shape[1] not in (4, 7):
         raise ValueError(f"{who}: wire {tuple(wire.shape)}, expected (B, 4) or (B, 7)")
     B = wire.shape[0]
+    if B >= 1 << 30:
+        raise ValueError(f"{who}: {B} lanes, at most 2^30 - 1")
     st, m = ops.state, ops.model
     H, T, D = spec.hidden, spec.trees, spec.depth
     shapes = (
@@ -817,12 +907,20 @@ def _check(who: str, ops: ScoreOps, wire, tenant, tflags, scratch, words: int) -
             raise ValueError(f"{who}: {name} must be contiguous {dtype} on {dev}")
         if tuple(t.shape) != shape:
             raise ValueError(f"{who}: {name} {tuple(t.shape)}, expected {shape}")
-    if (scratch.device != dev or scratch.dtype != torch.int32 or scratch.dim() != 1
-            or not scratch.is_contiguous() or scratch.shape[0] < words):
+    scratch, words = ops.scratch, slot_scratch_words(spec)
+    if scratch is not None and (scratch.device != dev or scratch.dtype != torch.int32
+                                or scratch.dim() != 1 or not scratch.is_contiguous()
+                                or scratch.shape[0] < words):
         raise ValueError(f"{who}: scratch must be a contiguous int32 vector of at least "
                          f"{words} words on {dev}")
+    for name, t in (("skeys", st.skeys), ("scols", st.scols), ("cms", st.cms),
+                    ("tstat", st.tstat), ("scratch", scratch)):
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError(f"{who}: {name} must be 16-byte aligned")
     if spec.slots & (spec.slots - 1) or spec.cms_width & (spec.cms_width - 1):
         raise ValueError(f"{who}: slots and cms_width must be powers of two")
+    if spec.slots > 1 << 25:
+        raise ValueError(f"{who}: at most 2^25 slots on the card, got {spec.slots}")
 
 
 def _view(who: str, name: str, t, dev, words: int) -> None:
@@ -832,32 +930,51 @@ def _view(who: str, name: str, t, dev, words: int) -> None:
         raise ValueError(f"{who}: {name} has {t.shape[0]} words, needs {words}")
 
 
-def kernel_args(ops: ScoreOps, wire, tenant, tflags, res, served, hit, scratch, lanes,
-                out) -> tuple:
+def kernel_args(ops: ScoreOps, wire, tenant, tflags, res, served, hit, scratch, spill, out,
+                grid: int, plan: str) -> tuple:
     """The C entry's arguments but the stream (``served`` and ``hit`` None
-    on the classic entry)."""
+    on the classic entry, ``spill`` None where plan L needs none)."""
     st, m, spec = ops.state, ops.model, ops.spec
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     return (ptr(wire), ptr(tenant), ptr(tflags), ptr(res), ptr(served), ptr(hit),
             ptr(st.skeys), ptr(st.scols), ptr(st.cms), ptr(st.tstat), ptr(st.epoch),
             ptr(m.fidx), ptr(m.fthr), ptr(m.leaf), ptr(m.w1), ptr(m.b1), ptr(m.w2), ptr(m.b2),
-            ptr(m.qshift), ptr(ops.tparams), ptr(scratch), ptr(lanes), ptr(out),
+            ptr(m.qshift), ptr(ops.tparams), ptr(scratch), ptr(spill), ptr(out),
             wire.shape[0], wire.shape[1], spec.slots, spec.ways, spec.cms_depth,
-            spec.cms_width, spec.max_tenants, spec.trees, spec.depth, spec.hidden, spec.sat)
+            spec.cms_width, spec.max_tenants, spec.trees, spec.depth, spec.hidden, spec.sat,
+            int(grid), PLANS[plan])
 
 
-def _launch(kernel: "_build.Kernel", args: tuple, device) -> None:
-    if device.index is None or device.index == torch.cuda.current_device():
-        kernel.launch(*args, torch.cuda.current_stream().cuda_stream)
+def _launch(kernel: "_build.Kernel", ops: ScoreOps, wire, tenant, tflags, res, served, hit,
+            out, plan: Optional[str], grid: int) -> None:
+    """Choose (or check a forced) plan, make what it needs and launch on
+    ``wire``'s device, current."""
+    B, dev, spec = wire.shape[0], wire.device, ops.spec
+    limit = smem_limit(dev)
+    if plan is None:
+        plan = "L" if grid > 0 else plan_for(B, spec, limit)
+    if plan not in PLANS:
+        raise ValueError(f"{kernel.name}: plan {plan!r}, expected one of {sorted(PLANS)}")
+    if plan == "S" and (grid > 0 or block_plan_bytes(B, spec) > limit):
+        raise ValueError(f"{kernel.name}: plan S takes no grid cap and needs "
+                         f"{block_plan_bytes(B, spec)} bytes of shared memory ({limit} on {dev})")
+    scratch = ops.scratch if ops.scratch is not None else empty_scratch(spec, dev)
+    spill = None
+    if plan == "L":
+        words = spill_words(B, torch.cuda.get_device_properties(dev).multi_processor_count, grid)
+        if words:
+            spill = torch.empty(words, dtype=torch.int32, device=dev)
+    kernel.launch(*kernel_args(ops, wire, tenant, tflags, res, served, hit, scratch, spill, out,
+                               grid, plan), torch.cuda.current_stream().cuda_stream)
+
+
+def _launch_on(kernel: "_build.Kernel", ops: ScoreOps, wire, *rest) -> None:
+    """_launch with ``wire``'s device current."""
+    if wire.device.index is None or wire.device.index == torch.cuda.current_device():
+        _launch(kernel, ops, wire, *rest)
     else:
-        with torch.cuda.device(device):
-            kernel.launch(*args, torch.cuda.current_stream().cuda_stream)
-
-
-def _scratch(ops: ScoreOps, dev) -> torch.Tensor:
-    if ops.scratch is not None:
-        return ops.scratch
-    return torch.empty(slot_scratch_words(ops.spec), dtype=torch.int32, device=dev)
+        with torch.cuda.device(wire.device):
+            _launch(kernel, ops, wire, *rest)
 
 
 def score_update_out_plain(ops: ScoreOps, wire, tenant, tflags, res) -> torch.Tensor:
@@ -887,32 +1004,32 @@ def score_update_resident_plain(ops: ScoreOps, wire, tenant, tflags, served, hit
 
 
 def score_update(ops: ScoreOps, wire: torch.Tensor, tenant: torch.Tensor,
-                 tflags: torch.Tensor, res: torch.Tensor) -> torch.Tensor:
+                 tflags: torch.Tensor, res: torch.Tensor, plan: Optional[str] = None,
+                 grid: int = 0) -> torch.Tensor:
     """Kernel K10, classic entry: ``res`` (B,) int32 holding the u32
     verdicts.  Updates ``ops.state`` in place and returns the (3 B,) int32
     output [score, anom, res'] (``split_score_outputs``).  A CPU tensor runs
     score_update_plain; a CUDA tensor launches K10 (building it on first
-    use) or raises."""
+    use) or raises.  ``plan`` "S" or "L" forces a plan, ``grid`` > 0 caps
+    plan L's grid and selects plan L (tests); otherwise ``plan_for``
+    chooses.  ``ops.scratch`` None: a fresh per-slot scratch (one fill)."""
     B = wire.shape[0]
     if wire.device.type == "cpu":
         return score_update_out_plain(ops, wire, tenant, tflags, res)
     if wire.device.type != "cuda":
         raise ValueError(f"score_update: unsupported device {wire.device}")
-    scratch = _scratch(ops, wire.device)
-    _check("score_update", ops, wire, tenant, tflags, scratch, slot_scratch_words(ops.spec))
+    _check("score_update", ops, wire, tenant, tflags)
     _view("score_update", "res", res, wire.device, B)
-    buf = torch.empty(score_out_words(B) + lane_scratch_words(B), dtype=torch.int32,
-                      device=wire.device)
-    out, lanes = buf[: score_out_words(B)], buf[score_out_words(B):]
+    out = torch.empty(score_out_words(B), dtype=torch.int32, device=wire.device)
     if B:
-        _launch(KERNEL, kernel_args(ops, wire, tenant, tflags, res, None, None, scratch, lanes,
-                                    out), wire.device)
+        _launch_on(KERNEL, ops, wire, tenant, tflags, res, None, None, out, plan, grid)
     return out
 
 
 def score_update_resident(ops: ScoreOps, wire: torch.Tensor, tenant: torch.Tensor,
                           tflags: torch.Tensor, served: torch.Tensor, hit: torch.Tensor,
-                          res16: torch.Tensor, out: torch.Tensor) -> None:
+                          res16: torch.Tensor, out: torch.Tensor, plan: Optional[str] = None,
+                          grid: int = 0) -> None:
     """Kernel K10, resident entry (a stage of kernels/resident.py's step,
     between K7 and K8): ``served`` the probe's ceil(B/2) packed res16 words,
     ``hit`` its ceil(B/32) bitmap words, ``res16`` the stateless classify's
@@ -920,7 +1037,8 @@ def score_update_resident(ops: ScoreOps, wire: torch.Tensor, tenant: torch.Tenso
     the policy's verdicts into both ``served`` and ``res16`` (the odd
     lane's pad half 0), and into ``out`` the anomaly bitmap (ceil(B/32)
     words) then the int16-saturated scores (ceil(B/2) words).  A CPU tensor
-    runs the plain version; a CUDA tensor launches K10 or raises."""
+    runs the plain version; a CUDA tensor launches K10 or raises.  ``plan``
+    and ``grid`` as ``score_update``."""
     B = wire.shape[0]
     nw, nh = (B + 1) // 2, -(-B // 32)
     if wire.device.type == "cpu":
@@ -929,13 +1047,10 @@ def score_update_resident(ops: ScoreOps, wire: torch.Tensor, tenant: torch.Tenso
     if wire.device.type != "cuda":
         raise ValueError(f"score_update_resident: unsupported device {wire.device}")
     who = "score_update_resident"
-    scratch = _scratch(ops, wire.device)
-    _check(who, ops, wire, tenant, tflags, scratch, slot_scratch_words(ops.spec))
+    _check(who, ops, wire, tenant, tflags)
     for name, t, words in (("served", served, nw), ("hit", hit, nh), ("res16", res16, nw),
                            ("out", out, nh + nw)):
         _view(who, name, t, wire.device, words)
     if B == 0:
         return
-    lanes = torch.empty(lane_scratch_words(B), dtype=torch.int32, device=wire.device)
-    _launch(RESIDENT_KERNEL, kernel_args(ops, wire, tenant, tflags, res16, served, hit, scratch,
-                                         lanes, out), wire.device)
+    _launch_on(RESIDENT_KERNEL, ops, wire, tenant, tflags, res16, served, hit, out, plan, grid)

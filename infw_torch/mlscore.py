@@ -207,8 +207,7 @@ class AnomalyTier:
         self._model_dev = kms.model_device(host_model, self._device)
         self._tparams_np = zero_tparams(spec, threshold=threshold, enforce=(mode == "enforce"))
         self._tparams_dev = torch.from_numpy(self._tparams_np.copy()).to(self._device)
-        self._scratch = torch.empty(kms.slot_scratch_words(spec), dtype=torch.int32,
-                                    device=self._device)
+        self._scratch = kms.empty_scratch(spec, self._device)
         self.model = HostScoreModel(spec, host_model, self._tparams_np) if track_model else None
         #: pending model mirrors in device order: resident entries hold
         #: their dispatch's output handle, replayed once it materializes

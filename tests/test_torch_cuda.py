@@ -2487,12 +2487,15 @@ def _k10_batches(rng, tables, b, width, spec, n=3, tenants=(0, 1), pool=96):
     return out
 
 
-def _k10_against_plain(cuda, spec, model, tparams, batches, resident=False, start=None):
+def _k10_against_plain(cuda, spec, model, tparams, batches, resident=False, start=None,
+                       plan=None, grid=0):
     """K10 on the card against the plain version on the CPU over chained
     admissions from one state (``start``, host arrays, else zeros): equal
-    state, scores, anomaly flags and verdicts after each, one launch a call
-    (the resident entry: equal probe, stateless and output words, from
-    random hit bitmaps and served words).  Returns the CPU state."""
+    state, scores, anomaly flags and verdicts after each, one launch a call,
+    the per-slot scratch back at -1 / 0 (the resident entry: equal probe,
+    stateless and output words, from random hit bitmaps and served words);
+    ``plan`` and ``grid`` force K10's plan and cap plan L's grid.  Returns
+    the CPU state."""
     from infw_torch.kernels import mxu_score as kms
     from infw_torch.kernels.flow import pack_bits32
     from infw_torch.kernels.torchpath import _pack_res16
@@ -2502,7 +2505,10 @@ def _k10_against_plain(cuda, spec, model, tparams, batches, resident=False, star
     ops = {}
     for dev in (cuda, torch.device("cpu")):
         ops[dev.type] = kms.ScoreOps(kms.state_from_host(host, dev), kms.model_device(model, dev),
-                                     torch.from_numpy(tparams.copy()).to(dev), None, spec)
+                                     torch.from_numpy(tparams.copy()).to(dev),
+                                     kms.empty_scratch(spec, dev), spec)
+    idle = kms.empty_scratch(spec, "cpu")
+    force = dict(plan=plan, grid=grid)
     rng = np.random.default_rng(len(batches))
     kern = kms.RESIDENT_KERNEL if resident else kms.KERNEL
     for j, (wire, tenant, flags, res) in enumerate(batches):
@@ -2518,14 +2524,15 @@ def _k10_against_plain(cuda, spec, model, tparams, batches, resident=False, star
                         _pack_res16(res.long() & 0xFFFF).to(dev),
                         torch.full((nh + nw,), -7, dtype=torch.int32, device=dev))
                 d = cuda if dev == "cuda" else "cpu"
-                kms.score_update_resident(ops[dev], wire.to(d), tenant.to(d), flags.to(d), *bufs)
+                kms.score_update_resident(ops[dev], wire.to(d), tenant.to(d), flags.to(d), *bufs,
+                                          **(force if dev == "cuda" else {}))
                 words[dev] = bufs
             torch.cuda.synchronize()
             for name, g, c in zip(("served", "hit", "res16", "out"), words["cuda"], words["cpu"]):
                 assert torch.equal(g.cpu(), c), (j, name)
         else:
             got = kms.score_update(ops["cuda"], wire.to(cuda), tenant.to(cuda), flags.to(cuda),
-                                   res.to(cuda))
+                                   res.to(cuda), **force)
             want = kms.score_update(ops["cpu"], wire, tenant, flags, res)
             torch.cuda.synchronize()
             assert torch.equal(got.cpu(), want), j
@@ -2533,6 +2540,7 @@ def _k10_against_plain(cuda, spec, model, tparams, batches, resident=False, star
         for f in kms.ScoreState._fields:
             assert torch.equal(getattr(ops["cuda"].state, f).cpu(),
                                getattr(ops["cpu"].state, f)), (j, f)
+        assert torch.equal(ops["cuda"].scratch.cpu(), idle), j
     return ops["cpu"].state
 
 
@@ -2608,6 +2616,252 @@ def test_k10_wrapper_refuses_bad_operands(cuda):
     with pytest.raises(ValueError):
         kms.score_update(ops._replace(tparams=ops.tparams.cpu()),
                          torch.zeros((8, 7), dtype=torch.int32, device=cuda), z, z, z)
+    assert kms.KERNEL.launches == before
+
+
+#: K10's plans as the card tests force them: (plan, plan L's grid cap)
+K10_PLANS = [("S", 0), ("L", 0), ("L", 1), ("L", 3)]
+
+
+@pytest.mark.parametrize("resident", [False, True])
+@pytest.mark.parametrize("plan,grid", K10_PLANS)
+@pytest.mark.parametrize("b", [1, 31, 1024, 4096, 4097, 12_000])
+def test_k10_plans_match_plain(cuda, plan, grid, resident, b):
+    """Each plan forced, on both entries, at sizes within a thread's
+    register lanes and past them (plan S's shared spill; plan L's spill
+    under forced grids of 1 and 3 blocks), on a head of 4 in enforce with a
+    threshold that fires and tenant ids -1 to 2 of 2."""
+    from infw_torch.kernels import mxu_score as kms
+
+    spec = kms.ScoreSpec.make(slots=64, ways=3, hidden=4, max_tenants=2)
+    rng = np.random.default_rng(b * 8 + len(plan) * 4 + grid + resident)
+    tables = testing.random_tables_fast(rng, 500, width=4, v6_fraction=0.4)
+    batches = _k10_batches(rng, tables, b, 7, spec, n=3, tenants=(-1, 0, 1, 2), pool=400)
+    st = _k10_against_plain(cuda, spec, kms.clamp_stress_model(spec),
+                            kms.zero_tparams(spec, threshold=60, enforce=True), batches,
+                            resident=resident, plan=plan, grid=grid)
+    assert int(st.epoch[0]) == 3
+
+
+@pytest.mark.parametrize("resident", [False, True])
+@pytest.mark.parametrize("plan,grid", K10_PLANS)
+def test_k10_hot_key_and_a_wrapping_cell(cuda, plan, grid, resident):
+    """Every lane one key, one tenant, one slot (the same-address adds,
+    bids, seeds, anomaly and tenant adds), from a state whose count-min
+    cells sit at 2^31 - 2, so the adds wrap past 2^31 - 1 before the clamp,
+    on each plan and both entries."""
+    from infw_torch.kernels import mxu_score as kms
+
+    spec = kms.ScoreSpec.make(sat=2**31 - 1, hidden=4)
+    rng = np.random.default_rng(77 + resident)
+    tables = testing.random_tables_fast(rng, 500, width=4, v6_fraction=0.0)
+    p, _w, res = testing.score_traffic(rng, tables, 64)
+    first = int(np.nonzero(p.kind == 1)[0][0])
+    wire = np.repeat(p.pack_wire()[first: first + 1], 5000, axis=0)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a).view(np.int32))  # noqa: E731
+    batch = (t(wire), t(np.zeros(5000, np.int32)), t(np.full(5000, 0x02, np.int32)),
+             t(np.full(5000, res[first], np.uint32)))
+    start = {k: np.asarray(v).copy() for k, v in zip(kms.ScoreState._fields,
+                                                    kms.zero_state_host(spec))}
+    start["cms"][:] = 2**31 - 2
+    got = _k10_against_plain(cuda, spec, kms.clamp_stress_model(spec),
+                             kms.zero_tparams(spec, threshold=0, enforce=True), [batch, batch],
+                             resident=resident, start=start, plan=plan, grid=grid)
+    assert int(got.cms.min()) < 0 and int(got.tstat[0, 0]) == 10_000
+    assert int((got.scols[:, 0] > 0).sum()) == 1
+
+
+@pytest.mark.parametrize("resident", [False, True])
+@pytest.mark.parametrize("grid", [0, 1, 3])
+@pytest.mark.parametrize("b", [256, 70_000])
+def test_k10_oversized_geometry_matches_plain(cuda, b, grid, resident):
+    """65536 slots, count-min rows of 65536 and 100 tenants: neither the
+    block's state nor plan L's tallies fit in shared memory, so every call
+    is plan L on global atomics, under the co-resident grid and forced
+    grids of 1 and 3 blocks."""
+    from infw_torch.kernels import mxu_score as kms
+
+    spec = kms.ScoreSpec.make(slots=65536, cms_width=65536, max_tenants=100, hidden=4)
+    limit = kms.smem_limit(cuda)
+    assert kms.grid_plan_bytes(spec) > limit and kms.block_plan_bytes(1, spec) > limit
+    assert kms.plan_for(b, spec, limit) == "L"
+    rng = np.random.default_rng(b + grid + resident)
+    tables = testing.random_tables_fast(rng, 500, width=4, v6_fraction=0.4)
+    batches = _k10_batches(rng, tables, b, 7, spec, n=2, tenants=tuple(range(-1, 102)),
+                           pool=2000)
+    _k10_against_plain(cuda, spec, kms.clamp_stress_model(spec),
+                       kms.zero_tparams(spec, threshold=-1000, enforce=True), batches,
+                       resident=resident, grid=grid)
+
+
+@pytest.mark.parametrize("delta", [-1, 0, 1])
+@pytest.mark.parametrize("resident", [False, True])
+def test_k10_both_sides_of_the_crossover_match_plain(cuda, delta, resident):
+    """The default geometry at the crossover and one lane either side, each
+    call on the plan ``plan_for`` chooses (S at and below, L above)."""
+    from infw_torch.kernels import mxu_score as kms
+
+    b = kms.BLOCK_PLAN_MAX_LANES + delta
+    spec = kms.ScoreSpec.make()
+    assert kms.plan_for(b, spec, kms.smem_limit(cuda)) == ("L" if delta > 0 else "S")
+    rng = np.random.default_rng(b + resident)
+    tables = testing.random_tables_fast(rng, 2000, width=4, v6_fraction=0.4)
+    _k10_against_plain(cuda, spec, kms.default_model(spec), kms.zero_tparams(spec, threshold=0),
+                       _k10_batches(rng, tables, b, 7, spec, n=2, pool=4096),
+                       resident=resident)
+
+
+@pytest.mark.parametrize("resident", [False, True])
+@pytest.mark.parametrize("plan", ["S", "L"])
+def test_k10_graph_replay_matches_the_eager_call(cuda, plan, resident):
+    """K10 captured in a CUDA graph on each plan (plan L's cooperative
+    launch, plan S's opt-in shared memory): two replays leave the state,
+    the outputs and the scratch equal to two eager calls from the same
+    state."""
+    from infw_torch.kernels import mxu_score as kms
+    from infw_torch.kernels.flow import pack_bits32
+    from infw_torch.kernels.torchpath import _pack_res16
+
+    spec = kms.ScoreSpec.make(hidden=4)
+    rng = np.random.default_rng(61 + resident)
+    tables = testing.random_tables_fast(rng, 500, width=4, v6_fraction=0.4)
+    wire, tenant, flags, res = (x.to(cuda) for x in _k10_batches(rng, tables, 2048, 7, spec,
+                                                                  n=1)[0])
+    model = kms.model_device(kms.clamp_stress_model(spec), cuda)
+    tp = torch.from_numpy(kms.zero_tparams(spec, threshold=60, enforce=True)).to(cuda)
+    B = wire.shape[0]
+    served0 = _pack_res16(torch.from_numpy(rng.integers(0, 1 << 16, B)).to(cuda))
+    hit = pack_bits32(torch.from_numpy(rng.random(B) < 0.5).to(cuda))
+
+    def make():
+        ops = kms.ScoreOps(kms.zero_state(spec, cuda), model, tp, kms.empty_scratch(spec, cuda),
+                           spec)
+        if not resident:
+            return ops, None
+        bufs = (served0.clone(), hit, _pack_res16(res.long() & 0xFFFF),
+                torch.zeros(B // 32 + B // 2, dtype=torch.int32, device=cuda))
+        return ops, bufs
+
+    def call(ops, bufs):
+        if resident:
+            kms.score_update_resident(ops, wire, tenant, flags, *bufs, plan=plan)
+            return bufs[3]
+        return kms.score_update(ops, wire, tenant, flags, res, plan=plan)
+
+    call(*make())  # builds, sets up the shared-memory caps, warms the allocator
+    g_ops, g_bufs = make()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        g_out = call(g_ops, g_bufs)
+    e_ops, e_bufs = make()
+    for _ in range(2):
+        graph.replay()
+        if resident:  # the verdict words the next admission reads come in fresh
+            g_bufs[0].copy_(served0)
+            e_bufs[0].copy_(served0)
+        e_out = call(e_ops, e_bufs)
+    torch.cuda.synchronize()
+    assert torch.equal(g_out, e_out)
+    for f in kms.ScoreState._fields:
+        assert torch.equal(getattr(g_ops.state, f), getattr(e_ops.state, f)), f
+    assert torch.equal(g_ops.scratch, e_ops.scratch)
+    assert int(g_ops.state.epoch[0]) == 2
+
+
+def _k10_ops(b: int, plan: str) -> dict:
+    """torch.profiler over K10 calls of ``b`` lanes at the default geometry
+    (``plan`` forced, "" for plan_for's) on both entries: {entry: {"kernels":
+    {name: per call}, "memsets": per call}}."""
+    from infw_torch.kernels import mxu_score as kms
+    from infw_torch.kernels.flow import pack_bits32
+    from infw_torch.kernels.torchpath import _pack_res16
+
+    cuda = torch.device("cuda:0")
+    rng = np.random.default_rng(b)
+    tables = testing.random_tables_fast(rng, 500, width=4, v6_fraction=0.4)
+    spec = kms.ScoreSpec.make()
+    wire, tenant, flags, res = (x.to(cuda) for x in _k10_batches(rng, tables, b, 7, spec, n=1,
+                                                                  pool=512)[0])
+    ops = kms.ScoreOps(kms.zero_state(spec, cuda), kms.model_device(kms.default_model(spec), cuda),
+                       torch.from_numpy(kms.zero_tparams(spec)).to(cuda),
+                       kms.empty_scratch(spec, cuda), spec)
+    nw, nh = (b + 1) // 2, -(-b // 32)
+    words = (_pack_res16(res.long() & 0xFFFF), pack_bits32(torch.zeros(b, dtype=torch.bool,
+                                                                       device=cuda)),
+             _pack_res16(res.long() & 0xFFFF), torch.empty(nw + nh, dtype=torch.int32,
+                                                           device=cuda))
+    force = plan or None
+    runs = {"classic": lambda: kms.score_update(ops, wire, tenant, flags, res, plan=force),
+            "resident": lambda: kms.score_update_resident(ops, wire, tenant, flags, *words,
+                                                          plan=force)}
+    out = {}
+    for entry, fn in runs.items():
+        kernels, memsets = {}, 0
+        for _ in range(3):
+            names, fills = _device_ops(fn)
+            for n in names:
+                kernels[n] = kernels.get(n, 0) + 1 / 3
+            memsets += len(fills) / 3
+        out[entry] = {"kernels": kernels, "memsets": memsets}
+    return out
+
+
+#: _k10_ops in a fresh process (see _K7_K8_OPS_CHILD)
+_K10_OPS_CHILD = r"""
+import json, sys
+sys.path.insert(0, "tests")
+import test_torch_cuda
+print(json.dumps(test_torch_cuda._k10_ops(int(sys.argv[1]), sys.argv[2])))
+"""
+
+
+def test_k10_is_one_kernel_a_call_named_by_its_plan(cuda):
+    """Each K10 call, on both entries, is one kernel and no memset (the
+    profiler, in a process of its own), and the kernel names its plan:
+    block_kernel up to the crossover, grid_kernel past it or when plan L
+    is forced."""
+    import json
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    from infw_torch.kernels import mxu_score as kms
+
+    cross = kms.BLOCK_PLAN_MAX_LANES
+    for b, plan, want in ((256, "", "block_kernel"), (cross, "", "block_kernel"),
+                          (cross + 1, "", "grid_kernel"), (256, "L", "grid_kernel"),
+                          (1 << 18, "", "grid_kernel")):
+        proc = subprocess.run([sys.executable, "-c", _K10_OPS_CHILD, str(b), plan],
+                              cwd=Path(__file__).resolve().parents[1], capture_output=True,
+                              text=True, timeout=600)
+        assert proc.returncode == 0, proc.stderr[-3000:]
+        for entry, got in json.loads(proc.stdout.strip().splitlines()[-1]).items():
+            kernels = got["kernels"]
+            assert len(kernels) == 1 and want in next(iter(kernels)), (b, plan, entry, kernels)
+            assert next(iter(kernels.values())) == pytest.approx(1.0), (entry, kernels)
+            assert got["memsets"] == 0, (entry, got)
+
+
+def test_k10_wrapper_refuses_a_plan_that_does_not_fit(cuda):
+    """Plan S forced where the state does not fit, or with a grid cap,
+    raises before any launch; an unknown plan raises."""
+    from infw_torch.kernels import mxu_score as kms
+
+    def ops_for(spec):
+        return kms.ScoreOps(kms.zero_state(spec, cuda),
+                            kms.model_device(kms.default_model(spec), cuda),
+                            torch.from_numpy(kms.zero_tparams(spec)).to(cuda),
+                            kms.empty_scratch(spec, cuda), spec)
+
+    big = kms.ScoreSpec.make(slots=65536, cms_width=65536)
+    z = torch.zeros(8, dtype=torch.int32, device=cuda)
+    wire = torch.zeros((8, 7), dtype=torch.int32, device=cuda)
+    before = kms.KERNEL.launches
+    for kw in (dict(plan="S"), dict(plan="X")):
+        with pytest.raises(ValueError):
+            kms.score_update(ops_for(big), wire, z, z, z, **kw)
+    with pytest.raises(ValueError):
+        kms.score_update(ops_for(kms.ScoreSpec.make()), wire, z, z, z, plan="S", grid=2)
     assert kms.KERNEL.launches == before
 
 

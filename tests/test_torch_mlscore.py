@@ -28,11 +28,13 @@ from infw import mlscore as jml
 from infw import testing as jax_testing
 from infw.backend.tpu import TpuClassifier
 from infw.kernels import mxu_score as jms
+from infw.kernels import sketch as jsk
 from infw.kernels.jaxpath import TCP_ACK, TCP_SYN
 from infw_torch import convert, daemon, flow, mlscore as pml, testing
 from infw_torch.backend.cuda import TorchClassifier
 from infw_torch.constants import DENY
 from infw_torch.kernels import mxu_score as pms
+from infw_torch.kernels import sketch as psk
 from infw_torch.kernels.resident import resident_step, split_resident_score_outputs
 
 import test_torch_daemon as tdaemon
@@ -294,12 +296,22 @@ def test_resident_entry_equals_the_classic_entry(tabs):
 
 # --- the classifiers ----------------------------------------------------------------
 
-PLANS = {  # flow table, resident, superbatch K
-    "stateless": (False, False, 0),
-    "flow": (True, False, 0),
-    "resident": (True, True, 0),
-    "superbatch": (True, True, 4),
+PLANS = {  # path, flow table, resident, superbatch K, telemetry on
+    "stateless": ("trie", False, False, 0, False),
+    "flow": ("trie", True, False, 0, False),
+    "resident": ("trie", True, True, 0, False),
+    "superbatch": ("trie", True, True, 4, False),
+    "dense_stateless": ("dense", False, False, 0, False),
+    "dense_resident": ("dense", True, True, 0, False),
+    "ctrie_stateless": ("ctrie", False, False, 0, False),
+    "ctrie_resident": ("ctrie", True, True, 0, False),
+    "trie_flow_telemetry": ("trie", True, False, 0, True),
+    "dense_resident_telemetry": ("dense", True, True, 0, True),
+    "ctrie_superbatch_telemetry": ("ctrie", True, True, 4, True),
+    "dense_stateless_telemetry": ("dense", False, False, 0, True),
 }
+#: the telemetry plane's geometry beside scoring (test_torch_telemetry.py SPEC)
+TEL_SPEC = dict(depth=3, width=128, topk=32, ways=2, max_tenants=2)
 
 
 def _admit(clf, batch, k=0):
@@ -322,18 +334,24 @@ def test_classifier_matches_tpu_classifier(tabs, plan, mode):
     score tensors, recent masks, counters and flow columns.  In enforce mode
     (everything anomalous) the second pass over the same packets serves
     hits: an enforced hit comes back Deny with ruleId 0 and an enforced miss
-    was cached as Deny."""
-    use_flow, resident, k = PLANS[plan]
+    was cached as Deny.  On the dense, trie and ctrie paths, and with the
+    telemetry plane on beside scoring (equal sketch tensors and counters)."""
+    path, use_flow, resident, k, tel = PLANS[plan]
+    fp = None if path == "dense" else path
     jspec, pspec = _specs(**SMALL)
     jkw = {"flow_table": jax_flow.FlowConfig.make(entries=1024), "resident": resident} \
         if use_flow else {}
     pkw = {"flow_table": 1024, "resident": resident} if use_flow else {}
-    jc = TpuClassifier(force_path="trie", interpret=True, mlscore=jspec,
+    if tel:
+        jkw["telemetry"] = jsk.SketchSpec.make(**TEL_SPEC)
+        pkw["telemetry"] = psk.SketchSpec.make(**TEL_SPEC)
+    jc = TpuClassifier(force_path=fp, interpret=True, mlscore=jspec,
                        mlscore_model=jms.clamp_stress_model(jspec), mlscore_mode=mode, **jkw)
-    pc = TorchClassifier(device="cpu", force_path="trie", mlscore=pspec,
+    pc = TorchClassifier(device="cpu", force_path=fp, mlscore=pspec,
                          mlscore_model=pms.clamp_stress_model(pspec), mlscore_mode=mode, **pkw)
     jc.load_tables(tabs["jt"])
     pc.load_tables(tabs["pt"])
+    assert pc.active_path == path
     for c in (jc, pc):
         c.mlscore.set_keep_masks(16)
         if mode == "enforce":
@@ -357,6 +375,12 @@ def test_classifier_matches_tpu_classifier(tabs, plan, mode):
         np.testing.assert_array_equal(a2, a1)
         np.testing.assert_array_equal(s2, np.clip(s1, -32768, 32767))
     assert pc.mlscore_counters() == jc.mlscore_counters()
+    if tel:
+        t1, t2 = jc.telemetry.columns(), pc.telemetry.columns()
+        for f in t2:
+            np.testing.assert_array_equal(t2[f], np.asarray(t1[f]), err_msg=f)
+        assert t2["tcnt"][0, 0] > 0
+        assert pc.telemetry_counters() == jc.telemetry_counters()
     if use_flow:
         f1, f2 = jc.flow.flow_columns(), pc.flow.flow_columns()
         for f in f2:
@@ -377,6 +401,75 @@ def test_classifier_matches_tpu_classifier(tabs, plan, mode):
         assert rec.lines() == jc.mlscore.drain()[0].lines()
         assert any(t["enforced"] > 0 for t in rec.tenants)
     for c in (jc, pc):
+        c.close()
+
+
+EMPTY_PLANS = {"flow": (False, 0), "resident": (True, 0), "superbatch": (True, 3)}
+
+
+def _tier_snapshot(clf) -> dict:
+    """Every counter and state tensor an admission can move: the flow,
+    resident, telemetry and scoring counters, the flow columns and epoch,
+    the sketch and score tensors, the classifier's statistics."""
+    out = {}
+    for name in ("flow_counters", "resident_counters", "telemetry_counters",
+                 "mlscore_counters"):
+        out.update({f"{name}.{k}": v for k, v in getattr(clf, name)().items()})
+    for pre, cols in (("score", clf.mlscore.columns()), ("sketch", clf.telemetry.columns()),
+                      ("flow", clf.flow.flow_columns())):
+        out.update({f"{pre}.{k}": np.asarray(v).copy() for k, v in cols.items()})
+    out["flow.epoch"] = int(clf.flow.epoch)
+    out["stats"] = np.asarray(clf.stats.snapshot()).copy()
+    return out
+
+
+@pytest.mark.parametrize("width", [4, 7])
+@pytest.mark.parametrize("plan", sorted(EMPTY_PLANS))
+def test_empty_chunk_moves_no_tier(tabs, plan, width):
+    """An empty (0, 4) or (0, 7) chunk through the flow, resident and
+    superbatch plans with scoring and the telemetry plane on, after a
+    non-empty admission: empty results and XDP, zero statistics, and no
+    counter or state tensor moved against the state before the call (the
+    JAX package raises on an empty chunk, so it cannot be the reference);
+    the next admission then equals a classifier that never saw the empty
+    chunk."""
+    resident, k = EMPTY_PLANS[plan]
+    _jspec, pspec = _specs(**SMALL)
+
+    def make():
+        c = TorchClassifier(device="cpu", force_path="trie", flow_table=1024, resident=resident,
+                            mlscore=pspec, mlscore_model=pms.clamp_stress_model(pspec),
+                            mlscore_mode="enforce", telemetry=psk.SketchSpec.make(**TEL_SPEC))
+        c.load_tables(tabs["pt"])
+        c.mlscore.set_threshold(60)
+        return c
+
+    pc, ref = make(), make()
+    batch, _w, _r = _traffic(tabs["j0"], 300, b=64)
+    for c in (pc, ref):
+        _admit(c, batch)
+    before = _tier_snapshot(pc)
+    empty = np.zeros((0, width), np.uint32)
+    if k:
+        outs = [r.result() for r in pc.classify_prepared_super(
+            pc.prepare_packed_super(np.stack([empty] * k), width == 4, np.zeros((k, 0), np.int32)))]
+    else:
+        outs = [pc.classify_prepared(pc.prepare_packed(empty, width == 4,
+                                                       tcp_flags=np.zeros(0, np.int32))).result()]
+    assert len(outs) == max(k, 1)
+    for o in outs:
+        assert o.results.shape == (0,) and o.xdp.shape == (0,)
+        assert not np.asarray(o.stats_delta).any()
+    after = _tier_snapshot(pc)
+    assert sorted(after) == sorted(before)
+    moved = [key for key in before if not np.array_equal(before[key], after[key])]
+    assert moved == []
+    nxt, _w, _r = _traffic(tabs["j0"], 301, b=64)
+    for o1, o2 in zip(_admit(pc, nxt), _admit(ref, nxt)):
+        np.testing.assert_array_equal(o1.results, o2.results)
+    for f in FIELDS:
+        np.testing.assert_array_equal(pc.mlscore.columns()[f], ref.mlscore.columns()[f])
+    for c in (pc, ref):
         c.close()
 
 
@@ -730,6 +823,59 @@ def test_daemon_mlscore_flag_validation(tmp_path, monkeypatch):
     with pytest.raises(SystemExit):
         daemon.main(base)
     assert seen["mlscore"][0] == spec and seen["mlscore_mode"] == "shadow"
+
+
+# --- K10's plan choice (kernels/mxu_score.py plan_for), on the CPU -------------------------
+
+
+def test_plan_chooser_takes_the_block_within_its_limits():
+    """K10's host-side plan choice, with the card's shared-memory limit
+    passed in: plan S within the limit and the crossover, plan L past
+    either (the oversized geometry, many tenants, a limit just below the
+    state, a spill past the limit); the bytes as csrc/score_update.cu lays
+    them out (model, 19 S + D W + 4 T words, the carries past the register
+    lanes; plan L's staged rows and tallies), plan L's spill and the slot
+    scratch."""
+    spec = pms.ScoreSpec.make()
+    h100 = 232_448  # an H100's opt-in shared memory a block
+    cross, reg = pms.BLOCK_PLAN_MAX_LANES, pms.REG_LANES * pms.BLOCK_THREADS
+    # fidx and fthr 4 x 3 (12 words each), no b1, 32 leaf bytes (8 words), no head
+    assert pms.model_words(spec) == 12 + 12 + 8
+    state = 4 * (32 + 19 * 512 + 2 * 1024 + 4)
+    assert pms.block_plan_bytes(1, spec) == pms.block_plan_bytes(reg, spec) == state
+    assert pms.block_plan_bytes(reg + 3, spec) == state + 48
+    assert pms.grid_plan_bytes(spec) == 4 * (32 + 14 * 512 + 5 * 512 + 2 * 1024)
+    assert pms.grid_plan_bytes(pms.ScoreSpec.make(max_tenants=2000)) == 4 * (32 + 15 * 512 + 8000)
+    head = pms.ScoreSpec.make(trees=16, depth=6, hidden=64)
+    assert pms.model_words(head) == 96 + 96 + 64 + 256 + 256 + 16
+    odd = pms.ScoreSpec(trees=3, depth=1, slots=8, ways=1, cms_depth=1, cms_width=8, sat=5,
+                        hidden=5, max_tenants=1)
+    assert pms.model_words(odd) == 4 + 4 + 8 + 4 + 20 + 4
+    for b in (1, 31, 256, cross - 1, cross):
+        assert pms.plan_for(b, spec, h100) == "S", b
+    for b in (cross + 1, 4097, 65536, 1 << 18):
+        assert pms.plan_for(b, spec, h100) == "L", b
+    assert pms.plan_for(256, spec, state) == "S"
+    assert pms.plan_for(256, spec, state - 1) == "L"
+    big = pms.ScoreSpec.make(slots=65536, cms_width=65536, max_tenants=100)
+    assert pms.block_plan_bytes(1, big) == 4 * (32 + 19 * 65536 + 2 * 65536 + 400) > h100
+    assert pms.grid_plan_bytes(big) == 4 * (32 + 19 * 65536 + 2 * 65536) > h100
+    assert [pms.plan_for(b, big, h100) for b in (1, 256, 1 << 18)] == ["L"] * 3
+    assert pms.plan_for(256, pms.ScoreSpec.make(max_tenants=20_000), h100) == "L"
+    assert pms.plan_for(256, pms.ScoreSpec.make(max_tenants=64), h100) == "S"
+    b = reg + 1
+    lim = pms.block_plan_bytes(b, spec)
+    assert pms.plan_for(b, spec, lim) == ("S" if b <= cross else "L")
+    assert pms.plan_for(b, spec, lim - 1) == "L"
+    # plan L's spill: only where a block may take more lanes than its registers carry
+    assert pms.spill_words(1 << 18, 132) == 0
+    assert pms.spill_words(1 << 20, 132) == 4 << 20
+    assert pms.spill_words(12_000, 132, 3) == 4 * 12_000
+    assert pms.spill_words(reg, 132, 1) == 0
+    assert pms.spill_words(reg + 1, 132, 1) == 4 * (reg + 1)
+    assert pms.slot_scratch_words(spec) == 6 * 512 + 4
+    scratch = pms.empty_scratch(spec, "cpu").numpy()
+    assert (scratch[:512] == -1).all() and not scratch[512:].any()
 
 
 # --- chip_smoke.py's checks, on the CPU ------------------------------------------------------
