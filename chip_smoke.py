@@ -10,7 +10,7 @@ held equal to this tree's, timed beside them in turns on the same inputs.
 
 Drives the port's dense, trie and ctrie classify paths, its wire codecs,
 its multi-tenant arena, its flow tier, the resident step, the telemetry
-plane and anomaly scoring on the card and fails (non-zero exit, no result
+plane, anomaly scoring and the payload tier on the card and fails (non-zero exit, no result
 line) on any error:
 
 1. device: the card's name and power limit (nvidia-smi);
@@ -239,6 +239,19 @@ line) on any error:
     (infw_torch.tools.score_plans: the crossover), the resident admission
     with scoring on and off, and the daemon with
     --resident --mlscore and a model dropped into models/;
+11f. the payload tier (ROADMAP item 14) at the JAX package's bench_payload
+    shape (bench.py:4449-4640; payload_phase): kernel K11 against its plain
+    version through both entries over the card tests' grid (S 64 to 32768,
+    PW 1 to 64, L 64 and 128, B = 1 to 2^18, synflood and attack columns),
+    40 admissions of 256 with a 10% attack mix through resident and
+    multi-dispatch classifiers on the card and the CPU's plain versions in
+    shadow and enforce (launch counts zeroed before and read after; all
+    equal, shadow equal to the oracle, the retained bitmaps equal to the
+    naive reference, every rewrite a Deny with ruleId 0 off the failsafe
+    cells and rule Denies), a pattern swap and mode flips mid-stream with no
+    capture, the automaton ladder, K11's times, the resident admission with
+    the tier on and off, and the daemon with --resident --payload default
+    and a pattern set dropped into patterns/;
 12. the port's daemon (infw_torch.daemon.Daemon, threads started): the
     headline CRs' ingress blocks as one NodeState file, then bench config
     5a's replay of the 100K trie re-adopted from a checkpoint; then an
@@ -6882,6 +6895,531 @@ def mlscore_phase(tag: str) -> dict:
     }
 
 
+PAYLOAD_CHUNK, PAYLOAD_CHUNKS = 256, 40
+#: the card tests' grid of K11 automata: pattern count, matmul (-> S, PW):
+#: 8 (64 states, 1 word, a matmul spec), 64 (1024, 2), 1024 (16384, 32), 2048 (32768, 64)
+K11_GRID = {"S 64, PW 1, matmul": (8, True), "S 1024, PW 2": (64, False),
+            "S 16384, PW 32": (1024, False), "PW 64": (2048, False)}
+K11_SIZES, K11_TIMED = (1, 31, 33, 256, 4096, 1 << 18), (256, 4096, 1 << 18)
+#: bench_payload's automaton ladder (bench.py:4576-4602): patterns x prefix bytes at B = 256
+K11_LADDER = (64, 256, 1024)
+_K11_MODELS: dict = {}
+
+
+def k11_model(count: int, plen: int, matmul=None, seed=None):
+    """The compiled signature set of ``count`` patterns (seed ``count``, or
+    ``seed``), cached: the grid, the ladder and the cell share them."""
+    from infw_torch import payload as ppay
+    from infw_torch.kernels import acmatch as kac
+
+    key = (count, plen, matmul, seed)
+    if key not in _K11_MODELS:
+        pats = ppay.signature_patterns(np.random.default_rng(count if seed is None else seed),
+                                       count, plen)
+        _K11_MODELS[key] = kac.compile_patterns(pats, plen=plen, matmul=matmul)
+    return _K11_MODELS[key]
+
+
+def payload_mix(prng, n: int, pats, plen: int, attack_frac: float = 0.1):
+    """bench_payload's traffic (bench.py:4505-4516): benign HTTP prefixes with
+    a planted-signature minority, shuffled -> (pay (n, plen) uint8, lengths
+    (n,) int32)."""
+    from infw_torch import payload as ppay
+
+    k = max(1, int(n * attack_frac))
+    pay_a, len_a = ppay.attack_payloads(prng, k, pats, plen=plen)
+    pay_b, len_b = ppay.benign_payloads(prng, n - k, plen=plen)
+    perm = prng.permutation(n)
+    return (np.ascontiguousarray(np.concatenate([pay_a, pay_b])[perm]),
+            np.ascontiguousarray(np.concatenate([len_a, len_b])[perm].astype(np.int32)))
+
+
+def k11_columns(rng, model, b: int, kind: str):
+    """K11's inputs at any size: "synflood" rows (8 of 10 with no payload,
+    the rest a few junk bytes) or the "attack" mix (bench_payload's, tiled
+    from a block of 2048 rows, with the length edge cases in front)."""
+    L = model.spec.plen
+    if kind == "synflood":
+        pay = np.zeros((b, L), np.uint8)
+        pay[:, :8] = rng.integers(0, 256, (b, 8), dtype=np.uint8)
+        lens = np.where(rng.random(b) < 0.8, 0, rng.integers(1, 9, b)).astype(np.int32)
+        return pay, lens
+    n = min(b, 2048)
+    bp, bl = payload_mix(rng, n, model.patterns, L)
+    reps = -(-b // n)
+    pay = np.ascontiguousarray(np.tile(bp, (reps, 1))[:b])
+    lens = np.tile(bl, reps)[:b].astype(np.int32)
+    edge = np.asarray([0, -1, L + 1, 2**31 - 1, L, L - 1, -2**31, 1], np.int32)
+    lens[: min(b, 8)] = edge[: min(b, 8)]
+    return pay, lens
+
+
+def k11_walk_reads(model, pay, plen):
+    """A replay of K11's walk in numpy -> (the (state, byte) entries of
+    ``delta`` it reads, the states whose matchmap rows it reads)."""
+    S, L = model.spec.states, model.spec.plen
+    data = np.asarray(pay, np.uint8)[:, :L].astype(np.int64)
+    n = np.clip(np.asarray(plen, np.int64), 0, L)
+    delta = np.asarray(model.delta, np.int64)
+    state = np.zeros(data.shape[0], np.int64)
+    codes, landed = [], []
+    for p in range(L):
+        act = n > p
+        if not act.any():
+            break
+        s, c = np.clip(state[act], 0, S - 1), data[act, p]
+        codes.append(np.unique(s * 256 + c))
+        nxt = np.clip(delta[s, c], 0, S - 1)
+        state[act] = nxt
+        landed.append(np.unique(nxt))
+    codes = np.unique(np.concatenate(codes)) if codes else np.zeros(0, np.int64)
+    land = np.unique(np.concatenate(landed)) if landed else np.zeros(0, np.int64)
+    return {(int(x) >> 8, int(x) & 255) for x in codes}, {int(x) for x in land}
+
+
+def k11_bound_bytes(model, pay, plen) -> int:
+    """What the match must move: each lane's active payload bytes, its
+    length and its PW bitmap words once, and each delta entry and matchmap
+    row the walks read once (this run's data, k11_walk_reads)."""
+    L, PW = model.spec.plen, model.spec.pwords
+    b = np.asarray(pay).shape[0]
+    active = int(np.clip(np.asarray(plen, np.int64), 0, L).sum())
+    entries, landed = k11_walk_reads(model, pay, plen)
+    return active + 4 * b + 4 * PW * b + 4 * len(entries) + 4 * PW * len(landed)
+
+
+def k11_check(kac, model, pay_np, lens_np, rng, label: str) -> int:
+    """K11 on the card against its plain version (plain PyTorch on the same
+    card tensors): the classic entry's bitmaps, and the resident entry's
+    word vectors and tail in shadow and enforce from random probe words, hit
+    bitmap, stateless words and wire (failsafe ports among them); one launch
+    a call.  Raises on a mismatch; returns the largest absolute difference
+    (0)."""
+    import torch
+
+    from infw_torch.kernels.flow import pack_bits32
+    from infw_torch.kernels.torchpath import _pack_res16
+
+    dev = kac.model_device(model, DEV)
+    pay, lens = torch.from_numpy(pay_np).to(DEV), torch.from_numpy(lens_np).to(DEV)
+    b = pay.shape[0]
+    before = kac.KERNEL.launches
+    got = kac.acmatch(dev, pay, lens, model.spec)
+    want = kac.acmatch_plain(dev, pay, lens, model.spec)
+    torch.cuda.synchronize()
+    if kac.KERNEL.launches != before + 1:
+        raise SystemExit(f"K11: {kac.KERNEL.launches - before} launches in one call")
+    if not torch.equal(got, want):
+        raise SystemExit(f"K11 classic entry disagrees with its plain version [{label}]")
+    proto = rng.choice([6, 17, 1], b).astype(np.uint32)
+    dport = rng.choice([22, 68, 80, 443, 2379, 10250], b).astype(np.uint32)
+    wire = np.zeros((b, 7), np.uint32)
+    wire[:, 0] = 1 | (1 << 2) | (proto << 3)
+    wire[:, 1] = dport
+    wire_t = torch.from_numpy(wire.view(np.int32)).to(DEV)
+    res = rng.integers(0, 3, b) | (rng.integers(0, 9, b) << 8)
+    hit_m = rng.random(b) < 0.4
+    words = (_pack_res16(torch.from_numpy(np.where(hit_m, res, 7))).to(DEV),
+             pack_bits32(torch.from_numpy(hit_m)).to(DEV),
+             _pack_res16(torch.from_numpy(np.where(hit_m, 5, res))).to(DEV))
+    nh = -(-b // 32)
+    for mode in (0, 1):
+        ops = kac.PayloadOps(dev, torch.tensor([mode], dtype=torch.int32, device=DEV),
+                             model.spec, pay, lens)
+        outs = []
+        for fn in (kac.acmatch_resident, kac.acmatch_resident_plain):
+            s, r = words[0].clone(), words[2].clone()
+            tail = torch.full((2 * nh,), -1, dtype=torch.int32, device=DEV)
+            fn(ops, wire_t, s, words[1], r, tail)
+            outs.append((s, r, tail))
+        torch.cuda.synchronize()
+        for name, x, y in zip(("served", "res16", "tail"), *outs):
+            if not torch.equal(x, y):
+                raise SystemExit(f"K11 resident entry disagrees with its plain version on {name} "
+                                 f"[{label}, {'enforce' if mode else 'shadow'}]")
+    return 0
+
+
+def k11_profile_child() -> None:
+    """Run in a fresh process by the payload phase: K11's kernels and device
+    microseconds per call at each timed size (bench_payload's 64 patterns x
+    64 B, its attack mix), and one resident admission of 4096 packets with
+    the payload tier on and off, printed as one JSON line."""
+    import torch
+
+    from infw_torch import testing
+    from infw_torch.backend.cuda import TorchClassifier
+    from infw_torch.flow import FlowConfig
+    from infw_torch.kernels import acmatch as kac
+
+    model = k11_model(64, 64, seed=11)
+    dev = kac.model_device(model, DEV)
+    out = {"k11": {}, "admission": {}}
+    for b in K11_TIMED:
+        pay, lens = k11_columns(np.random.default_rng(b), model, b, "attack")
+        pay, lens = torch.from_numpy(pay).to(DEV), torch.from_numpy(lens).to(DEV)
+        counts = {}
+        dev_us = profiled_kernels(lambda: kac.acmatch(dev, pay, lens, model.spec), 10, counts)
+        out["k11"][str(b)] = {"device_us": sum(dev_us.values()) if dev_us else None,
+                              "kernels": counts, "per_kernel_us": dev_us}
+    tables = mlscore_tables()
+    batch = testing.random_batch_fast(np.random.default_rng(1500), tables, 4 * 4096)
+    batch.tcp_flags = np.full(len(batch), 0x10, np.int32)
+    batch.payload, batch.payload_len = payload_mix(np.random.default_rng(1503), len(batch),
+                                                   model.patterns, 64)
+    for label, pats in (("on", list(model.patterns)), ("off", None)):
+        clf = TorchClassifier(device=DEV, force_path="trie", resident=True,
+                              flow_table=FlowConfig.make(entries=1 << 14), payload=pats)
+        clf.load_tables(tables)
+        for lo in range(0, 3 * 4096, 4096):
+            clf.classify(batch.slice(lo, lo + 4096), apply_stats=False)
+        sub = batch.slice(3 * 4096, 4 * 4096)
+        out["admission"][label] = admission_profile(lambda: clf.classify(sub, apply_stats=False))
+    torch.cuda.synchronize()
+    print(json.dumps(out), flush=True)
+
+
+def payload_phase(tag: str) -> dict:
+    """The payload tier (ROADMAP item 14) on the card; returns K11's
+    kernels-line entry.
+
+    1. K11 against its plain version through both entries over the card
+       tests' grid: S 64 (a matmul spec, PW 1), 1024 (PW 2), 16384 (PW 32)
+       and a 64-word bitmap, L 64 and 128, B = 1, 31, 33, 256, 4096, 2^18,
+       synflood-like and attack-mix columns with the length edge cases;
+    2. bench_payload's cell (bench.py:4449-4640) through the entry points a
+       user calls: 100K x 8, 40% IPv6, trie; 64 signature patterns x 64 B;
+       40 chunks of 256 packets, a 10% attack mix; a 2^14 flow table;
+       resident and multi-dispatch on the card and resident on the CPU,
+       launch counts zeroed before and read after each: verdicts, XDP,
+       statistics, payload counters and flow columns equal across the three,
+       shadow verdicts equal to the oracle; the oracle gate (tracking on):
+       the retained bitmaps of both card plans equal payload_match_ref, the
+       served matched bits their any-bit; the enforce leg: every rewrite a
+       Deny with ruleId 0 off the failsafe cells and rule Denies, the
+       matched lanes denied; a pattern swap and two mode flips mid-stream:
+       the flow generation bumps each time, 0 new captures, 0 allocations,
+       and the next admissions equal the CPU's after the same steps;
+    3. the ladder (64 / 256 / 1024 patterns x 64 / 128 B at B = 256) and
+       K11's times at B = 256, 4096 and 2^18 (CUDA events, with the host
+       ahead, the profiler's device time in a fresh process, the plain
+       version, the bytes bound); the resident admission at 4096 with the
+       tier on and off (the same child);
+    4. the daemon with --resident --payload default over the flow phase's
+       1M-frame file: verdict files equal to the stateless daemon's (frames
+       carry no payload bytes); a pattern artifact dropped into patterns/
+       between two passes swaps (the flow generation bumped, no graph
+       captured by the second pass); payload_* on /metrics equal to the
+       classifier's."""
+    import shutil
+
+    import torch
+
+    from infw_torch import daemon, oracle, testing
+    from infw_torch import payload as ppay
+    from infw_torch.backend.cuda import TorchClassifier
+    from infw_torch.flow import FlowConfig
+    from infw_torch.kernels import acmatch as kac
+    from infw_torch.kernels import all_kernels, mxu_score as kms
+
+    kernels = all_kernels()
+
+    # 1. K11 against its plain version over the grid
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(1510)
+    checked = 0
+    for label, (count, matmul) in K11_GRID.items():
+        for plen in (64, 128):
+            model = k11_model(count, plen, matmul=matmul or None)
+            for b in K11_SIZES:
+                for kind in ("synflood", "attack"):
+                    pay, lens = k11_columns(rng, model, b, kind)
+                    k11_check(kac, model, pay, lens, rng,
+                              f"{label}, S {model.spec.states}, PW {model.spec.pwords}, L {plen}, "
+                              f"B {b}, {kind}")
+                    checked += 1
+    log(f"K11 vs plain: {checked} configurations ({list(K11_GRID)} x L 64 / 128 x B = "
+        f"{list(K11_SIZES)} x synflood / attack mix), both entries, the resident one in shadow "
+        f"and enforce: every bitmap and word equal, one launch a call; "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # 2. bench_payload's cell through the classifiers
+    t0 = time.perf_counter()
+    tables = mlscore_tables()
+    model = k11_model(64, 64, seed=11)
+    pats = list(model.patterns)
+    bs = PAYLOAD_CHUNK
+    trace = testing.random_batch_fast(np.random.default_rng(1500), tables, bs * PAYLOAD_CHUNKS)
+    trace.tcp_flags = np.full(len(trace), 0x10, np.int32)
+    tpay, tlen = payload_mix(np.random.default_rng(1503), len(trace), pats, 64)
+    fs_rows = np.arange(0, len(trace), 97)
+    trace.kind[fs_rows], trace.l4_ok[fs_rows], trace.proto[fs_rows] = 1, 1, 6
+    trace.dst_port[fs_rows] = 22  # failsafe cells with payload bytes
+    ref = oracle.classify(tables, trace).results
+    chunks = []
+    for lo in range(0, len(trace), bs):
+        sub = np.arange(lo, lo + bs, dtype=np.int64)
+        w, v4 = trace.pack_wire_subset(sub)
+        chunks.append((w, v4, np.ascontiguousarray(trace.tcp_flags[sub]),
+                       np.ascontiguousarray(tpay[lo:lo + bs]), np.ascontiguousarray(tlen[lo:lo + bs])))
+
+    def admit(c, chunk):
+        w, v4, f, p, n = chunk
+        return c.classify_prepared(c.prepare_packed(w, v4, tcp_flags=f, payload=p, payload_len=n),
+                                   apply_stats=False).result()
+
+    def classifier(device, resident, mode):
+        c = TorchClassifier(device=device, force_path="trie", resident=resident,
+                            flow_table=FlowConfig.make(entries=1 << 14), payload=pats,
+                            payload_plen=64, payload_mode=mode)
+        c.load_tables(tables)
+        return c
+
+    want_bitmap = kac.host_match_bitmap(model, tpay, tlen)
+    cell = {}
+    for mode in ("shadow", "enforce"):
+        plans = {"resident": classifier(DEV, True, mode),
+                 "multi-dispatch": classifier(DEV, False, mode),
+                 "plain (CPU)": classifier("cpu", True, mode)}
+        outs, launches = {}, {}
+        for label, c in plans.items():
+            torch.cuda.synchronize()
+            for k in kernels:
+                k.launches = 0
+            outs[label] = [admit(c, ch) for ch in chunks]
+            launches[label] = {k.name: k.launches for k in kernels if k.launches}
+        captures = plans["resident"].resident.graphs()
+        lr, lm = launches["resident"], launches["multi-dispatch"]
+        if (lr.get("payload_match_resident", 0) != len(chunks) + captures
+                or lr.get("payload_match") or lm.get("payload_match", 0) != len(chunks)
+                or lm.get("payload_match_resident") or launches["plain (CPU)"]):
+            raise SystemExit(f"payload main path ({mode}): launches {launches}; expected "
+                             f"{len(chunks)} + {captures} resident K11 calls, {len(chunks)} "
+                             f"classic, none on the CPU")
+        base = plans["resident"]
+        for label, c in plans.items():
+            for j, (a, b) in enumerate(zip(outs[label], outs["resident"])):
+                if not (np.array_equal(a.results, b.results) and np.array_equal(a.xdp, b.xdp)
+                        and np.array_equal(a.stats_delta, b.stats_delta)):
+                    raise SystemExit(f"payload {mode}: the {label} plan's admission {j} differs "
+                                     f"from the resident plan's")
+            fl, bfl = c.flow.flow_columns(), base.flow.flow_columns()
+            if (c.payload_counters() != base.payload_counters()
+                    or not all(np.array_equal(fl[f], bfl[f]) for f in fl)):
+                raise SystemExit(f"payload {mode}: the {label} plan's counters or flow columns "
+                                 f"differ from the resident plan's")
+        got = np.concatenate([o.results for o in outs["resident"]])
+        hit = want_bitmap.any(axis=1)
+        counters = base.payload_counters()
+        if counters["payload_matched_total"] != int(hit.sum()):
+            raise SystemExit(f"payload {mode}: {counters['payload_matched_total']} matched lanes, "
+                             f"the naive reference {int(hit.sum())}")
+        if mode == "shadow":
+            if not np.array_equal(got, ref):
+                raise SystemExit(f"payload shadow: {int((got != ref).sum())} verdicts differ from "
+                                 f"the oracle's")
+        else:
+            fs = kms.failsafe_lane_mask_np(trace.proto, trace.dst_port)
+            deny = (ref & 0xFF) == 1
+            rw = hit & ~fs & ~deny
+            if (not rw.any() or not (got[rw] == 1).all()
+                    or not np.array_equal(got[~rw], ref[~rw]) or not (hit & fs).any()):
+                raise SystemExit("payload enforce: a matched lane was not denied with ruleId 0, "
+                                 "or a failsafe cell, a rule Deny or an unmatched lane changed")
+            cell["enforced"] = counters["payload_enforced_total"]
+        # the oracle gate: tracking on, both card plans, a subset of the chunks
+        for label in ("resident", "multi-dispatch"):
+            c = plans[label]
+            c.payload.set_keep_masks(4)
+            for ch in chunks[:4]:
+                admit(c, ch)
+            for pay, plen, bitmap, served_hit in c.payload.recent_masks():
+                want = kac.host_match_bitmap(model, pay, plen)
+                if not (np.array_equal(bitmap, want)
+                        and np.array_equal(served_hit, want.any(axis=1))):
+                    raise SystemExit(f"payload oracle gate ({label}, {mode}): a bitmap or the "
+                                     f"served matched bits differ from payload_match_ref")
+            c.payload.set_keep_masks(0)
+        cell[mode] = {"launches": launches, "captures": captures,
+                      "matched_lanes": counters["payload_matched_total"]}
+        if mode == "shadow":
+            # a swap and two mode flips mid-stream: 0 captures, 0 allocations
+            cpu = plans["plain (CPU)"]
+            base.mark_resident_warm()
+            g0, a0 = base.resident.graphs(), base.resident_counters()["resident_allocs_total"]
+            gen0 = int(base.flow._gens_host[0])
+            other = ppay.signature_patterns(np.random.default_rng(12), 64, 64)
+            steps = [lambda c: c.set_payload_patterns(other),
+                     lambda c: c.set_payload_mode("enforce"),
+                     lambda c: c.set_payload_mode("shadow")]
+            for j, step in enumerate(steps):
+                for c in (base, cpu):
+                    step(c)
+                for ch in chunks[4 * j: 4 * j + 4]:
+                    a, b = admit(base, ch), admit(cpu, ch)
+                    if not (np.array_equal(a.results, b.results)
+                            and np.array_equal(a.stats_delta, b.stats_delta)):
+                        raise SystemExit(f"payload: after step {j} of the swap and flips the "
+                                         f"card and the CPU differ")
+            g1, a1 = base.resident.graphs(), base.resident_counters()["resident_allocs_total"]
+            gen1 = int(base.flow._gens_host[0])
+            if (g1, a1, gen1, base.resident.steady_allocs()) != (g0, a0, gen0 + 3, 0):
+                raise SystemExit(f"payload: swap and flips moved graphs {g0} -> {g1}, allocs "
+                                 f"{a0} -> {a1}, generation {gen0} -> {gen1}")
+            cell["swap"] = {"graphs": g1, "new_captures": g1 - g0, "allocs": a1 - a0,
+                            "generation_bumps": gen1 - gen0}
+        for c in plans.values():
+            c.close()
+    log(f"{tag} payload main path (bench_payload's cell, {len(chunks)} admissions of {bs}, "
+        f"64 patterns x 64 B, {model.spec}): launches {cell['shadow']['launches']} (shadow), "
+        f"{cell['enforce']['launches']} (enforce); resident, multi-dispatch and the CPU's plain "
+        f"versions equal (verdicts, XDP, statistics, payload counters, flow columns); shadow "
+        f"verdicts equal the oracle's; {cell['shadow']['matched_lanes']} matched lanes as the "
+        f"naive reference; the oracle gate clean on both card plans; enforce: {cell['enforced']} "
+        f"rewrites, every matched lane off the failsafe cells and rule Denies a Deny with ruleId "
+        f"0, the rest unchanged; a swap and two flips mid-stream: {cell['swap']}; "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # 3. the ladder, K11's times and the resident admission on and off
+    t0 = time.perf_counter()
+    timings, ladder = {}, {}
+
+    def timed(m, b, key, store):
+        pay_np, lens_np = k11_columns(np.random.default_rng(b), m, b, "attack")
+        d = kac.model_device(m, DEV)
+        pay, lens = torch.from_numpy(pay_np).to(DEV), torch.from_numpy(lens_np).to(DEV)
+        fn = lambda: kac.acmatch(d, pay, lens, m.spec)  # noqa: E731
+        store[key] = {
+            "ms": cuda_ms(fn, reps=20), "paced_ms": device_paced_ms(fn, reps=20),
+            "plain_ms": cuda_ms(lambda: kac.acmatch_plain(d, pay, lens, m.spec), reps=3, warmup=1),
+            "bound_ms": k11_bound_bytes(m, pay_np, lens_np) / HBM_BYTES_PER_S * 1e3,
+            "spec": list(m.spec),
+        }
+
+    for count in K11_LADDER:
+        for plen in (64, 128):
+            m = k11_model(count, plen, seed=100 + count)
+            timed(m, PAYLOAD_CHUNK, f"{count} x {plen}", ladder)
+            t = ladder[f"{count} x {plen}"]
+            log(f"{tag} K11 ladder [{count} patterns x {plen} B, S {m.spec.states}, PW "
+                f"{m.spec.pwords}, B {PAYLOAD_CHUNK}]: events {t['ms']:.5f} ms, with the host "
+                f"ahead {t['paced_ms']:.5f} ms ({PAYLOAD_CHUNK / t['paced_ms'] / 1e3:.3f} M "
+                f"packets/s); bound {t['bound_ms']:.7f} ms by bytes; plain {t['plain_ms']:.4f} ms")
+    for b in K11_TIMED:
+        timed(model, b, str(b), timings)
+    here = os.path.dirname(os.path.abspath(__file__))
+    child = subprocess.run([sys.executable, "-c", "import chip_smoke; "
+                            "chip_smoke.k11_profile_child()"], cwd=here,
+                           capture_output=True, text=True, timeout=600)
+    if child.returncode != 0:
+        raise SystemExit(f"K11 profile child failed:\n{child.stderr[-3000:]}")
+    prof = json.loads(child.stdout.strip().splitlines()[-1])
+    for key, t in timings.items():
+        p = prof["k11"][key]
+        t.update(device_us=p["device_us"], kernels=p["kernels"], per_kernel_us=p["per_kernel_us"])
+        dev_ms = t["device_us"] / 1e3 if t["device_us"] else None
+        log(f"{tag} K11 payload_match [B {key}, 64 patterns x 64 B, attack mix]: events "
+            f"{t['ms']:.5f} ms, with the host ahead {t['paced_ms']:.5f} ms, device "
+            f"{t['device_us'] if t['device_us'] else 'lost'} us ({t['per_kernel_us']}); bound "
+            f"{t['bound_ms']:.7f} ms by bytes" + (f" ({dev_ms / t['bound_ms']:.1f}x)" if dev_ms
+                                                  else "")
+            + f"; plain {t['plain_ms']:.4f} ms")
+    adm = prof["admission"]
+    ratio = (adm["on"]["device_us"] / adm["off"]["device_us"]
+             if adm["on"]["device_us"] and adm["off"]["device_us"] else None)
+    log(f"{tag} resident admission (4096 packets, bench_payload's tables and mix) device time: "
+        f"payload on {adm['on']['device_us']} us in {adm['on']['kernels']} kernels, off "
+        f"{adm['off']['device_us']} us in {adm['off']['kernels']} kernels ({ratio}x); copies "
+        f"{adm['on']['h2d']} / {adm['on']['d2h']} on, {adm['off']['h2d']} / {adm['off']['d2h']} "
+        f"off; {time.perf_counter() - t0:.1f} s")
+
+    # 4. the daemon with --resident --payload default, a set dropped into patterns/
+    st = FLOW_STASH
+    root = os.path.join(here, "build", "payload-smoke")
+    shutil.rmtree(root, ignore_errors=True)
+    default = ppay.signature_patterns(np.random.default_rng(0), 32, plen=64)
+    d = daemon.Daemon(state_dir=os.path.join(root, "state"), node_name=DAEMON_NODE,
+                      registry=st["daemon_registry"], metrics_port=0, health_port=0,
+                      poll_period_s=0.1, file_poll_interval_s=0.02,
+                      flow_table=FlowConfig.make(entries=FLOW_SLAB), resident=True,
+                      payload=default, payload_mode="shadow",
+                      backend="cuda" if DEV == "cuda" else "cpu")
+    daemon_launches, passes = {}, []
+    try:
+        d.start()
+        p = os.path.join(d.nodestates_dir, f"{DAEMON_NODE}.json")
+        with open(p + ".tmp", "w") as f:
+            json.dump(st["daemon_doc"], f)
+        os.replace(p + ".tmp", p)
+        _wait(lambda: d.syncer.classifier is not None and d.syncer.classifier.tables is not None
+              and bool(d.syncer.attached_interfaces()), "the payload daemon's NodeState", 300)
+        c = d.syncer.classifier
+        _wait(lambda: id(c.payload) in d._payload_attached, "the payload daemon's attach", 60)
+        fb = st["daemon_fb"]
+        stage_dir = os.path.join(d.state_dir, "staging")
+        os.makedirs(stage_dir, exist_ok=True)
+        gen0 = None
+        for k in range(2):
+            daemon.write_frames_file_v2(os.path.join(stage_dir, f"{k}.frames"), fb)
+            torch.cuda.synchronize()
+            for kern in kernels:
+                kern.launches = 0
+            t = time.perf_counter()
+            os.replace(os.path.join(stage_dir, f"{k}.frames"),
+                       os.path.join(d.ingest_dir, f"{k}.frames"))
+            _wait(lambda: os.path.exists(os.path.join(d.out_dir, f"{k}.frames.verdicts.json")),
+                  "the payload daemon's pass", 600, 0.002)
+            dt = time.perf_counter() - t
+            daemon_launches[f"payload {k}"] = {x.name: x.launches for x in kernels if x.launches}
+            got = open(os.path.join(d.out_dir, f"{k}.frames.verdicts.bin"), "rb").read()
+            if got != st["daemon_stateless"]:
+                raise SystemExit(f"payload daemon: pass {k}'s verdict file differs from the "
+                                 f"stateless daemon's")
+            passes.append({"s": dt, "graphs": c.resident.graphs(),
+                           "allocs": c.resident_counters()["resident_allocs_total"]})
+            if k == 0:
+                gen0 = int(c.flow._gens_host[0])
+                ppay.save_patterns(ppay.signature_patterns(np.random.default_rng(1), 32, 64),
+                                   os.path.join(d.patterns_dir, "p1.npz"), version="dropped")
+                _wait(lambda: c.payload_counters()["payload_pattern_swaps_total"] == 1,
+                      "the payload daemon's pattern swap", 60)
+        gen1 = int(c.flow._gens_host[0])
+        if (gen1 != gen0 + 1 or os.listdir(d.patterns_dir)
+                or (passes[1]["graphs"], passes[1]["allocs"]) != (passes[0]["graphs"],
+                                                                  passes[0]["allocs"])):
+            raise SystemExit(f"payload daemon: after the swap generation {gen0} -> {gen1}, "
+                             f"patterns/ {os.listdir(d.patterns_dir)}, passes {passes}")
+        pc = c.payload_counters()
+        for key in pc:
+            if _metric(d, key) != pc[key]:
+                raise SystemExit(f"payload daemon: /metrics {key} {_metric(d, key)} is not the "
+                                 f"classifier's {pc[key]}")
+        log(f"{tag} payload daemon (--resident --payload default): 2 passes of {len(fb)} frames "
+            f"in {passes[0]['s']:.3f} / {passes[1]['s']:.3f} s, launches {daemon_launches} "
+            f"(frames carry no payload bytes: served on headers); verdict files equal to the "
+            f"stateless daemon's; a set dropped into patterns/ between them swapped (generation "
+            f"{gen0} -> {gen1}, graphs {passes[0]['graphs']} and allocs {passes[0]['allocs']} "
+            f"unchanged by the second pass); payload_* on /metrics equal to the classifier's {pc}")
+    finally:
+        d.stop()
+    shutil.rmtree(root, ignore_errors=True)
+
+    main = timings[str(PAYLOAD_CHUNK)]
+    return {
+        "name": "payload_match", "route": "cuda",
+        "source": "infw_torch/kernels/csrc/payload_match.cu",
+        "replaces": "infw/kernels/acmatch.py:274",
+        "launches": cell["shadow"]["launches"]["resident"].get("payload_match_resident", 0),
+        "mismatches": 0, "max_abs_err": 0,
+        "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+        "bound_by": "bytes", "library_ms": None,
+        "entries": {"classic": "payload_match", "resident": "payload_match_resident"},
+        "checked_configurations": checked, "timings": timings, "ladder": ladder,
+        "admission": adm, "admission_on_off": ratio, "cell": cell,
+        "payload_daemon_launches": daemon_launches, "daemon_passes": passes,
+    }
+
+
 def main() -> int:
     import torch
 
@@ -7142,8 +7680,14 @@ def main() -> int:
     # bench_mlscore's cell, K10's times, the daemon with --resident --mlscore
     t_phase = time.perf_counter()
     k10 = mlscore_phase(tag)
-    FLOW_STASH.clear()
     log(f"phase mlscore: {time.perf_counter() - t_phase:.1f} s")
+
+    # 11f. the payload tier: K11 against its plain version, bench_payload's
+    # cell, K11's times, the daemon with --resident --payload default
+    t_phase = time.perf_counter()
+    k11 = payload_phase(tag)
+    FLOW_STASH.clear()
+    log(f"phase payload: {time.perf_counter() - t_phase:.1f} s")
 
     # 12. the daemon: the headline CRs' ingress blocks as one NodeState,
     # then bench config 5a's replay, through infw_torch.daemon
@@ -7157,7 +7701,7 @@ def main() -> int:
         f"{time.perf_counter() - t_start:.1f} s so far")
     # each kernel's launches in each daemon pass, the two-column walks
     # under their own entries; a launch no entry names fails the run
-    entries = [k1, k2, k3, k4, k3b, k5, k6, k7, k8, k9, k10, k3["two_column"],
+    entries = [k1, k2, k3, k4, k3b, k5, k6, k7, k8, k9, k10, k11, k3["two_column"],
                k3b["two_column"], k6["two_column"]]
     for k in entries:
         k["daemon_launches"] = {p: c.get(k["name"], 0) for p, c in daemon_launches.items()}
@@ -7166,7 +7710,8 @@ def main() -> int:
         raise SystemExit(f"daemon: kernels {sorted(unlisted)} launched but not on the kernels line")
 
     # 13. the kernels line, then the device line last
-    print(json.dumps({"kernels": [k1, k2, k3, k4, k3b, k5, k6, k7, k8, k9, k10]}), flush=True)
+    print(json.dumps({"kernels": [k1, k2, k3, k4, k3b, k5, k6, k7, k8, k9, k10, k11]}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}),
           flush=True)
     return 0

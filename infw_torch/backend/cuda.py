@@ -128,6 +128,25 @@ results and statistics (results only for the wire8 and delta formats).
   flow generation.  ``mlscore`` is the tier, ``mlscore_counters()`` its
   /metrics counters.  ``TorchArenaClassifier`` scores nothing, as in the
   reference.
+- **payload tier** (``payload=``: a PayloadTier, an AcModel, a pattern
+  list, an artifact path, True or a pattern count; else ``INFW_PAYLOAD``;
+  else off; ``payload_mode=`` shadow | enforce, else ``INFW_PAYLOAD_MODE``,
+  else shadow; ``payload_plen=`` 64 or 128; the JAX package's
+  ``PayloadTier`` hooks): Aho-Corasick matching of each packet's payload
+  prefix on the card (infw_torch.payload.PayloadTier, kernel K11), which in
+  enforce mode rewrites matched lanes to Deny (ruleId 0), never a failsafe
+  cell or a rule Deny.  Only admissions that carry a payload column
+  (``batch.payload``, ``prepare_packed(payload=, payload_len=)``,
+  ``prepare_packed_super(payload_stack=, payload_len_stack=)``) are
+  matched.  A resident admission matches as a stage of its step, after the
+  score and before the insert; a flow plan launches K11 once when it
+  materializes, after the score and before the insert, so the flow table
+  caches the enforced verdicts; a stateless plan (and ``classify`` without
+  a flow tier) once when it materializes, after the score and before the
+  telemetry launch.  A pattern swap (``set_payload_patterns``) or a mode
+  flip (``set_payload_mode``) bumps the flow generation.  ``payload`` is
+  the tier, ``payload_counters()`` its /metrics counters.
+  ``TorchArenaClassifier`` has no payload tier, as in the reference.
 
 The device is the first CUDA card unless the caller names another
 (``device="cpu"`` runs the plain PyTorch version of every kernel, which is
@@ -152,11 +171,7 @@ from ..kernels import arena_dense, arena_walk, cwalk, dense, torchpath, walk, wi
 from ..kernels import flow as kflow
 from ..kernels import overlay as overlay_mod
 from ..kernels.mxu_score import ScoreSpec
-from ..kernels.resident import (
-    resident_fused_host,
-    split_resident_outputs,
-    split_resident_score_outputs,
-)
+from ..kernels.resident import resident_fused_host, split_resident_step_outputs
 from ..kernels.sketch import SketchSpec
 from ..layout import (
     build_depth_lut,
@@ -169,7 +184,9 @@ from ..layout import (
     v4_trie_depth,
 )
 from ..mlscore import AnomalyTier
+from ..kernels.acmatch import AcModel
 from ..obs.telemetry import TelemetryTier
+from ..payload import PayloadTier, clamp_payload
 from ..packets import PacketBatch, encode_delta_wire, narrow_wire, wire8
 from .base import ClassifyOutput, PendingClassify, StatsAccumulator, stats_from_results
 
@@ -258,6 +275,50 @@ def _flow_materialize(tier, fused, ctx, wire_np: np.ndarray, kind: np.ndarray, t
     return ClassifyOutput(results=results, xdp=xdp, stats_delta=stats_delta)
 
 
+def _payload_tier(payload, mode: Optional[str], plen: Optional[int],
+                  device) -> Optional[PayloadTier]:
+    """A classifier's payload tier (tpu.py's precedence): ``payload`` (a
+    PayloadTier, used as it is; an AcModel; a pattern list; an artifact path;
+    True or a count of seeded signature patterns), else INFW_PAYLOAD (an
+    artifact path or a count), else None; the mode ``mode``, else
+    INFW_PAYLOAD_MODE, else shadow; ``plen`` (else 64) the prefix width of a
+    list or a count."""
+    if payload is None:
+        env = os.environ.get("INFW_PAYLOAD", "")
+        if env and env not in ("0", "false", "no"):
+            payload = env
+    if mode is None:
+        mode = os.environ.get("INFW_PAYLOAD_MODE") or "shadow"
+    if payload is None or payload is False:
+        return None
+    from ..payload import load_patterns, signature_patterns
+
+    plen = int(plen or 64)
+    if isinstance(payload, PayloadTier):
+        return payload
+    if isinstance(payload, AcModel):
+        return PayloadTier(payload, mode=mode, device=device)
+    if isinstance(payload, (list, tuple)):
+        return PayloadTier(payload, plen=plen, mode=mode, device=device)
+    if isinstance(payload, str) and payload not in ("1", "true", "yes") and not payload.isdigit():
+        pats, spec, _version = load_patterns(payload)
+        return PayloadTier(pats, plen=spec.plen, mode=mode, spec=spec, device=device)
+    count = 64 if payload is True or payload in ("1", "true", "yes") else int(payload)
+    return PayloadTier(signature_patterns(np.random.default_rng(0), count, plen=plen), plen=plen,
+                       mode=mode, device=device)
+
+
+def _payload_columns(payload, payload_len):
+    """An admission's payload column and its lengths (all of the row when
+    None) as numpy, or (None, None) without a column."""
+    if payload is None:
+        return None, None
+    pay = np.asarray(payload)
+    plen = (np.asarray(payload_len, np.int32) if payload_len is not None
+            else np.full(pay.shape[0], pay.shape[1], np.int32))
+    return pay, plen
+
+
 class _Active(NamedTuple):
     path: str  # "dense" | "trie" | "ctrie"
     dev: Union[dense.DenseTables, walk.TrieTables, cwalk.CTrieTables]
@@ -282,7 +343,9 @@ class TorchClassifier:
                  resident: Optional[bool] = None, telemetry=None,
                  telemetry_track_model: bool = False, mlscore=None, mlscore_model=None,
                  mlscore_mode: Optional[str] = None,
-                 mlscore_track_model: bool = False) -> None:
+                 mlscore_track_model: bool = False, payload=None,
+                 payload_mode: Optional[str] = None, payload_plen: Optional[int] = None,
+                 payload_track: bool = False) -> None:
         if force_path not in (None, "dense", "trie", "ctrie"):
             raise ValueError(
                 f"unknown force_path {force_path!r} (expected 'dense', 'trie', 'ctrie' or None)"
@@ -365,6 +428,12 @@ class TorchClassifier:
                                         mode=mlscore_mode, track_model=mlscore_track_model)
             # a model swap or a policy flip behaves like a rule patch
             self._mlscore.on_swap = self._on_score_model_swap
+        self._payload = _payload_tier(payload, payload_mode, payload_plen, self._device)
+        if self._payload is not None:
+            if payload_track:
+                self._payload.set_keep_masks(256)
+            # a pattern swap behaves like a rule patch
+            self._payload.on_swap = self._on_pattern_swap
 
     @property
     def device(self) -> torch.device:
@@ -418,6 +487,37 @@ class TorchClassifier:
     def _on_score_model_swap(self) -> None:
         """Flow entries caching verdicts decided by the old model or policy
         go stale through the generation stamps every table edit uses."""
+        if self._flow is not None:
+            self._flow.bump_generation()
+
+    @property
+    def payload(self) -> "Optional[PayloadTier]":
+        """The PayloadTier when the payload tier is on."""
+        return self._payload
+
+    def payload_counters(self) -> dict:
+        """payload_* counters for /metrics (empty when off)."""
+        return {} if self._payload is None else self._payload.counter_values()
+
+    def set_payload_patterns(self, patterns_or_model, plen: Optional[int] = None) -> None:
+        """Hot-swap the pattern set within the tier's AcSpec (the tables
+        rewritten in place, nothing captured again); the tier's on_swap then
+        bumps the flow generation."""
+        if self._payload is None:
+            raise RuntimeError("payload tier is not enabled")
+        self._payload.swap_patterns(patterns_or_model, plen=plen)
+
+    def set_payload_mode(self, mode: str) -> None:
+        """Flip shadow / enforce (the mode tensor written in place); flow
+        entries cached under the old mode go stale."""
+        if self._payload is None:
+            raise RuntimeError("payload tier is not enabled")
+        self._payload.set_mode(mode)
+        self._on_pattern_swap()
+
+    def _on_pattern_swap(self) -> None:
+        """Flow entries caching verdicts decided by the old pattern set or
+        mode go stale through the generation stamps every table edit uses."""
         if self._flow is not None:
             self._flow.bump_generation()
 
@@ -575,16 +675,25 @@ class TorchClassifier:
         kind = np.asarray(batch.kind)
         v4_only = not bool((kind == KIND_IPV6).any())
         wire_np = batch.pack_wire_v4() if batch.is_v4_compactable() else batch.pack_wire()
+        pay_np = plen_np = None
+        if self._payload is not None and len(batch):
+            pay_np, plen_np = _payload_columns(batch.payload, batch.payload_len)
         if self._flow is not None:
             # the flow tier first: only the misses reach the stateless path
             return self.classify_prepared(
-                self.prepare_packed(wire_np, v4_only, tcp_flags=batch.tcp_flags),
+                self.prepare_packed(wire_np, v4_only, tcp_flags=batch.tcp_flags,
+                                    payload=pay_np, payload_len=plen_np),
                 apply_stats=apply_stats)
         n_levels = None
         if active.path == "trie":
             n = active.dev.n_levels
             n_levels = v4_trie_depth(n) if v4_only else n
-        return self._launch(self._plan(active, wire_np, kind, n_levels), apply_stats)
+        pending = self._launch(self._plan(active, wire_np, kind, n_levels), apply_stats)
+        if pay_np is None:
+            return pending
+        # one follow-on K11 launch an admission (tpu.py classify_async)
+        return PendingClassify(lambda: self._apply_payload_wire(
+            pending.result(), pay_np, plen_np, wire_np, apply_stats))
 
     def classify(self, batch: PacketBatch, apply_stats: bool = True) -> ClassifyOutput:
         return self.classify_async(batch, apply_stats=apply_stats).result()
@@ -623,19 +732,25 @@ class TorchClassifier:
 
     def classify_async_packed(
         self, wire_np: np.ndarray, v4_only: bool, apply_stats: bool = True, depth=None,
-        tcp_flags: Optional[np.ndarray] = None,
+        tcp_flags: Optional[np.ndarray] = None, payload: Optional[np.ndarray] = None,
+        payload_len: Optional[np.ndarray] = None,
     ) -> PendingClassify:
         """classify_async for a pre-packed (B, 4|7) uint32 wire array
         (PacketBatch.pack_wire_subset); ``depth`` is a (class, generation)
         pair from v6_depth_groups; ``tcp_flags`` (B,) feeds the flow tier's
-        TCP model (None: no flags).  Caller contract: supports_packed()."""
+        TCP model (None: no flags); ``payload`` (B, L) uint8 and
+        ``payload_len`` (B,) the payload tier's column.  Caller contract:
+        supports_packed()."""
         return self.classify_prepared(
-            self.prepare_packed(wire_np, v4_only, depth=depth, tcp_flags=tcp_flags),
+            self.prepare_packed(wire_np, v4_only, depth=depth, tcp_flags=tcp_flags,
+                                payload=payload, payload_len=payload_len),
             apply_stats=apply_stats,
         )
 
     def prepare_packed(self, wire_np: np.ndarray, v4_only: bool, depth=None,
-                       tcp_flags: Optional[np.ndarray] = None):
+                       tcp_flags: Optional[np.ndarray] = None,
+                       payload: Optional[np.ndarray] = None,
+                       payload_len: Optional[np.ndarray] = None):
         """First half of classify_async_packed: choose the walk depth and
         the wire width and start the host-to-device copy; returns the plan
         for classify_prepared, which finishes on the tables snapshotted
@@ -647,11 +762,12 @@ class TorchClassifier:
         served); the reverse order could cache old-table verdicts under
         the new generation.  With the resident pool a 4- or 7-word chunk is
         dispatched whole here (``_plan_resident``).  An empty chunk takes the
-        stateless plan alone: nothing to probe, cache, score or sketch, so no
-        tier's state or counter moves (the JAX package raises there)."""
+        stateless plan alone: nothing to probe, cache, score, match or sketch,
+        so no tier's state or counter moves (the JAX package raises there, or
+        on the dense path counts an empty payload admission)."""
         stateful = wire_np.shape[0] > 0
         if self._resident is not None and self._flow is not None and stateful:
-            plan = self._plan_resident(wire_np, v4_only, depth, tcp_flags)
+            plan = self._plan_resident(wire_np, v4_only, depth, tcp_flags, payload, payload_len)
             if plan is not None:
                 return plan
         flow_probe = None
@@ -695,24 +811,32 @@ class TorchClassifier:
             # sub-dispatch goes through _plan / _launch and is not scored
             plan["ml_wire"] = wire_np
             plan["ml_flags"] = tcp_flags
+        if self._payload is not None and payload is not None and stateful:
+            # one K11 launch when the plan materializes: a flow plan's after
+            # its score and before its insert, a stateless plan's after the
+            # score and before the telemetry launch
+            plan["pay_np"], plan["plen_np"] = _payload_columns(payload, payload_len)
+            plan["pay_wire"] = wire_np
         return plan
 
     def classify_prepared(self, plan, apply_stats: bool = True) -> PendingClassify:
         """Second half: launch the classify on a prepare_packed plan (a
-        resident plan's score and sketch updates rode its step; a flow
-        plan's score update runs inside its materialize; any other plan's
-        is one K10 and one K9 launch when it materializes)."""
+        resident plan's score, match and sketch updates rode its step; a
+        flow plan's score and match run inside its materialize; any other
+        plan's are one K10, one K11 and one K9 launch when it
+        materializes)."""
         if plan.get("resident"):
             return self._launch_resident(plan, apply_stats)
         if plan.get("flow"):
             pending = self._launch_flow(plan, apply_stats)
-            run_ml = False
+            run_ml = run_pay = False
         else:
             pending = self._launch(plan, apply_stats)
             run_ml = self._mlscore is not None and "ml_wire" in plan
+            run_pay = self._payload is not None and "pay_np" in plan
         tel = self._telemetry
         run_tel = tel is not None and "telem_wire" in plan
-        if not run_ml and not run_tel:
+        if not run_ml and not run_pay and not run_tel:
             return pending
 
         def materialize() -> ClassifyOutput:
@@ -720,6 +844,10 @@ class TorchClassifier:
             if run_ml:
                 out = self._apply_mlscore_wire(out, plan["ml_wire"], plan["ml_flags"],
                                                apply_stats)
+            if run_pay:
+                # score, then payload, then telemetry counts what was served
+                out = self._apply_payload_wire(out, plan["pay_np"], plan["plen_np"],
+                                               plan["pay_wire"], apply_stats)
             if run_tel:
                 tel.update(plan["telem_wire"], out.results, tflags_np=plan["telem_flags"])
             return out
@@ -741,6 +869,30 @@ class TorchClassifier:
             self._stats.add(stats_delta - out.stats_delta)
         return ClassifyOutput(results=results, xdp=xdp, stats_delta=stats_delta)
 
+    def _apply_payload_wire(self, out: ClassifyOutput, pay_np, plen_np, wire_np: np.ndarray,
+                            apply_stats: bool) -> ClassifyOutput:
+        """Match one stateless admission (tpu.py _apply_payload_wire) and,
+        when enforce rewrote a lane, re-derive its verdicts, XDP and
+        statistics on the host."""
+        res16 = (out.results & 0xFFFF).astype(np.uint16)
+        new16 = self._payload_policy(wire_np, res16, pay_np, plen_np)
+        if np.array_equal(new16, res16):
+            return out
+        results, xdp = torchpath.host_finalize_wire(new16, (wire_np[:, 0] & 3).astype(np.int32))
+        stats_delta = stats_from_results(results, self._wire4_pkt_len(wire_np))
+        if apply_stats:
+            # the launch applied the pre-policy statistics: swap them
+            self._stats.add(stats_delta - out.stats_delta)
+        return ClassifyOutput(results=results, xdp=xdp, stats_delta=stats_delta)
+
+    def _payload_policy(self, wire_np: np.ndarray, res16: np.ndarray, pay_np,
+                        plen_np) -> np.ndarray:
+        """One K11 launch and the enforce rewrite on the host -> res16'."""
+        f = flow_mod.host_unpack_wire(wire_np)
+        new16, _hit = self._payload.apply_wire(res16.astype(np.uint16), pay_np, plen_np,
+                                               f["proto"], f["dst_port"])
+        return np.asarray(new16, np.uint16)
+
     # -- resident serving ----------------------------------------------------
 
     def _resident_levels(self, ctx, v4_only: bool, depth) -> Optional[int]:
@@ -760,7 +912,17 @@ class TorchClassifier:
                 return 1 + int(dclass)
         return n
 
-    def _plan_resident(self, wire_np: np.ndarray, v4_only: bool, depth, tcp_flags):
+    def _payload_stage(self, payload, payload_len):
+        """The resident step's payload operands -> (tier, pay, plen), the
+        column clamped to the tier's width (tpu.py _clamp_payload), or None
+        without a tier or a column."""
+        pt = self._payload
+        if pt is None or payload is None:
+            return None
+        return (pt,) + clamp_payload(payload, payload_len, pt.spec.plen)
+
+    def _plan_resident(self, wire_np: np.ndarray, v4_only: bool, depth, tcp_flags,
+                       payload=None, payload_len=None):
         """Dispatch one admission through the resident step (tpu.py
         _plan_resident); the plan only carries what its materialize needs.
         Returns None for a chunk the step does not take (a width other than
@@ -776,33 +938,34 @@ class TorchClassifier:
             pool.note("fallbacks")
             return None
         n = wire_np.shape[0]
+        pay = self._payload_stage(payload, payload_len)
         fused, epoch = pool.dispatch(tier, ctx, self._resident_levels(ctx, v4_only, depth),
                                      wire_np, tcp_flags, gens_snap, telemetry=self._telemetry,
-                                     mlscore=self._mlscore)
+                                     mlscore=self._mlscore, payload=pay)
         pool.note("dispatches")
         pool.note(f"slot{(epoch - 1) & 1}_dispatches")
         self._note_wire(f"wire{wire_np.shape[1]}", n, wire_np.nbytes)
+        if pay is not None:
+            self._note_wire("payload", n, pay[1].nbytes + pay[2].nbytes)
         return {"resident": True, "fused": fused, "n": n, "epoch": epoch,
-                "mlscore": self._mlscore is not None,
+                "mlscore": self._mlscore is not None, "payload": pay,
                 "kind": (wire_np[:, 0] & 3).astype(np.int32),
                 "pkt_len": self._wire4_pkt_len(wire_np)}
 
     def _resident_output(self, arr: np.ndarray, n: int, epoch: int, kind, pkt_len,
-                         apply_stats: bool, score: bool = False) -> ClassifyOutput:
+                         apply_stats: bool, score: bool = False,
+                         payload=None) -> ClassifyOutput:
         """One admission's read-back (tpu.py _launch_resident's
         materialize): the flow counters, the model's replay up to this
         epoch, the score outcome (``score``: the read back carries the
-        scoring extension; its verdicts are the policy's), eviction events,
-        the verdicts, and the statistics from the verdicts and the host's
-        pkt_len column."""
+        scoring extension; its verdicts are the policy's), the payload
+        outcome (``payload``: the step's (tier, pay, plen); the read back
+        ends with the matched and rewritten lanes' bitmaps), eviction
+        events, the verdicts, and the statistics from the verdicts and the
+        host's pkt_len column."""
         tier = self._flow
-        anom = scores = None
-        if score:
-            (res16, _hit, hits, stale, (inserts, evictions, promotes), anom,
-             scores) = split_resident_score_outputs(arr, n)
-        else:
-            res16, _hit, hits, stale, (inserts, evictions, promotes) = split_resident_outputs(
-                arr, n)
+        (res16, _hit, hits, stale, (inserts, evictions, promotes), anom, scores, pay_hit,
+         pay_rw) = split_resident_step_outputs(arr, n, score, payload is not None)
         tier.stats.add(hits=hits, misses=n - hits, stale_rejects=stale, inserts=inserts,
                        evictions=evictions, promotes=promotes)
         tier.resident_note_materialized(epoch)
@@ -810,6 +973,8 @@ class TorchClassifier:
             self._telemetry.resident_note_materialized(epoch)
         if anom is not None and self._mlscore is not None:
             self._mlscore.resident_note_materialized(epoch, anom_np=anom, score_np=scores)
+        if pay_hit is not None:
+            self._note_payload_resident(payload, pay_hit, pay_rw)
         if evictions and tier.on_evict is not None:
             try:
                 tier.on_evict(evictions, inserts, epoch)
@@ -821,22 +986,34 @@ class TorchClassifier:
             self._stats.add(stats_delta)
         return ClassifyOutput(results=results, xdp=xdp, stats_delta=stats_delta)
 
+    def _note_payload_resident(self, payload, pay_hit: np.ndarray, pay_rw: np.ndarray) -> None:
+        """Count one resident admission's payload outcome (tpu.py
+        _note_payload_resident); with tracking on, the full bitmap comes
+        from one classic K11 launch over the same column."""
+        pt, pay_np, plen_np = payload
+        bitmap = pt.match(pay_np, plen_np) if pt.tracking else None
+        pt.note(bitmap, pay_hit, pay_rw, pay_np=pay_np, plen_np=plen_np)
+
     def _launch_resident(self, plan, apply_stats: bool) -> PendingClassify:
         """The resident plan's second half: one read back when the batch
         materializes."""
         return PendingClassify(lambda: self._resident_output(
             resident_fused_host(plan["fused"]), plan["n"], plan["epoch"], plan["kind"],
-            plan["pkt_len"], apply_stats, plan.get("mlscore", False)))
+            plan["pkt_len"], apply_stats, plan.get("mlscore", False), plan.get("payload")))
 
     def prepare_packed_super(self, wire_stack: np.ndarray, v4_only: bool,
-                             tcp_flags_stack: Optional[np.ndarray] = None):
+                             tcp_flags_stack: Optional[np.ndarray] = None,
+                             payload_stack: Optional[np.ndarray] = None,
+                             payload_len_stack: Optional[np.ndarray] = None):
         """Dispatch ``k`` stacked admissions of one shape, (k, b, 4 | 7),
         as one superbatch (tpu.py prepare_packed_super): the flow columns
         and the device epoch carry from step to step on the card, and the
         (k, L) outputs come back in one read.  ``tcp_flags_stack`` is (k, b)
-        or None.  Returns None when the resident path cannot serve (no pool,
-        another shape, wide ruleIds: a counted fallback).  Empty admissions
-        (b = 0) take the stateless plan each, as in prepare_packed."""
+        or None, ``payload_stack`` (k, b, L) and ``payload_len_stack``
+        (k, b) the payload columns or None.  Returns None when the resident
+        path cannot serve (no pool, another shape, wide ruleIds: a counted
+        fallback).  Empty admissions (b = 0) take the stateless plan each,
+        as in prepare_packed."""
         if (self._resident is None or self._flow is None or wire_stack.ndim != 3
                 or wire_stack.shape[2] not in (4, 7)):
             return None
@@ -849,15 +1026,19 @@ class TorchClassifier:
             pool.note("fallbacks")
             return None
         k, n, w = wire_stack.shape
+        pay = self._payload_stage(payload_stack, payload_len_stack)
         fused, epoch = pool.dispatch(tier, ctx, self._resident_levels(ctx, v4_only, None),
                                      wire_stack, tcp_flags_stack, gens_snap, k=k,
-                                     telemetry=self._telemetry, mlscore=self._mlscore)
+                                     telemetry=self._telemetry, mlscore=self._mlscore,
+                                     payload=pay)
         pool.note("dispatches")
         pool.note("superbatch_dispatches")
         pool.note("superbatch_admissions", k)
         self._note_wire(f"wire{w}", k * n, wire_stack.nbytes)
+        if pay is not None:
+            self._note_wire("payload", k * n, pay[1].nbytes + pay[2].nbytes)
         return {"resident_super": True, "fused": fused, "k": k, "n": n, "epoch0": epoch - k,
-                "mlscore": self._mlscore is not None,
+                "mlscore": self._mlscore is not None, "payload": pay,
                 "kinds": (wire_stack[:, :, 0] & 3).astype(np.int32),
                 "pkt_lens": [self._wire4_pkt_len(wire_stack[j]) for j in range(k)]}
 
@@ -869,9 +1050,13 @@ class TorchClassifier:
             return [self.classify_prepared(p, apply_stats) for p in plan["rows"]]
 
         def row(j: int) -> PendingClassify:
+            pay = plan.get("payload")
+            if pay is not None:
+                pay = (pay[0], pay[1][j], pay[2][j])
             return PendingClassify(lambda: self._resident_output(
                 resident_fused_host((plan["fused"], j)), plan["n"], plan["epoch0"] + 1 + j,
-                plan["kinds"][j], plan["pkt_lens"][j], apply_stats, plan.get("mlscore", False)))
+                plan["kinds"][j], plan["pkt_lens"][j], apply_stats, plan.get("mlscore", False),
+                pay))
 
         return [row(j) for j in range(plan["k"])]
 
@@ -885,11 +1070,19 @@ class TorchClassifier:
             return self._launch(self._plan(plan["active"], miss_wire, kind, plan["n_levels"]),
                                 apply_stats=False).result()
 
-        score = None
+        steps = []
         if self._mlscore is not None and "ml_wire" in plan:
-            def score(res16):
-                return self._mlscore.update(plan["ml_wire"], res16.astype(np.uint32),
-                                            tflags_np=plan["ml_flags"])[0]
+            steps.append(lambda res16: self._mlscore.update(
+                plan["ml_wire"], res16.astype(np.uint32), tflags_np=plan["ml_flags"])[0])
+        if self._payload is not None and "pay_np" in plan:
+            steps.append(lambda res16: self._payload_policy(
+                plan["pay_wire"], res16, plan["pay_np"], plan["plen_np"]))
+        score = None
+        if steps:
+            def score(res16):  # the score, then the payload match
+                for step in steps:
+                    res16 = np.asarray(step(res16), np.uint16)
+                return res16
 
         def materialize() -> ClassifyOutput:
             out = _flow_materialize(self._flow, plan["fused"], plan["ctx"], plan["wire_np"],

@@ -9,7 +9,9 @@ table with its generation and page vectors and returns the port's
 FlowTable and those two vectors; ``sketch_state_from_jax`` takes the four
 arrays of a JAX telemetry tier and returns the port's SketchState;
 ``score_state_from_jax`` and ``score_model_from_jax`` take a JAX scoring
-tier's five arrays and a JAX ScoreModel and return the port's.  None
+tier's five arrays and a JAX ScoreModel and return the port's;
+``ac_model_from_jax`` takes a JAX AcModel (the payload tier's compiled
+automaton) and returns the port's.  None
 imports anything from the JAX package: the caller
 does ``{f: getattr(t, f) for f in FIELDS}`` (plus ``content``), or the same
 over the pool's fields, on its side.
@@ -138,3 +140,17 @@ def score_model_from_jax(model):
                      version=str(model.version))
     validate_model(out)
     return out
+
+
+def ac_model_from_jax(model):
+    """A JAX ``AcModel`` (its spec a NamedTuple of the same fields, its
+    ``delta`` and ``matchmap`` numpy) -> the port's AcModel with copies of
+    its arrays and its patterns."""
+    from .kernels.acmatch import AcModel, AcSpec
+
+    spec = AcSpec(**dict(model.spec._asdict()))
+    delta = np.array(model.delta, np.int32)
+    matchmap = np.array(model.matchmap, np.uint32)
+    if delta.shape != (spec.states, 256) or matchmap.shape != (spec.states, spec.pwords):
+        raise ValueError(f"automaton arrays {delta.shape} / {matchmap.shape} do not fit {spec}")
+    return AcModel(spec, delta, matchmap, tuple(bytes(p) for p in model.patterns))

@@ -100,10 +100,26 @@ contract NODE_NAME / NAMESPACE / POLL_PERIOD_SECONDS / ENABLE_LPM_LOOKUP_DBG
   last swapped model is applied again to a rebuilt classifier);
   ``mlscore_*`` counters go to /metrics.
 
+- ``--payload [default | N | ARTIFACT]`` (``INFW_PAYLOAD``; not with
+  ``--backend cpu``, as in the JAX daemon) adds the payload tier
+  (infw_torch.payload, kernel K11) to every classifier the syncer builds:
+  32 seeded signature patterns (``default``), N of them, or the versioned
+  artifact (``.npz`` + ``.json`` manifest, ``payload.save_patterns``);
+  ``--payload-mode shadow|enforce`` (``INFW_PAYLOAD_MODE``, shadow; enforce
+  without ``--payload`` is a usage error); ``--payload-plen 64|128``
+  (``INFW_PAYLOAD_PLEN``; default 64 or the artifact's width).  The idle
+  loop hot-swaps complete npz + manifest pairs dropped into
+  ``<state-dir>/patterns/`` (consumed; bad pairs consumed and logged; the
+  last swapped set is applied again to a rebuilt classifier);
+  ``payload_*`` counters go to /metrics.  The frames files carry no
+  payload bytes (the JAX daemon's only source of them is the ingest ring,
+  ROADMAP.md item 24c), so the tier matches nothing there: the daemon
+  serves on headers, as the JAX daemon does without ``--ring``.
+
 The JAX daemon's scheduler, ingest ring (with the superbatch that only
-the ring reads, ``--superbatch-k``), events socket, mesh and payload
-options are not in the port yet: ``main`` refuses each of their flags,
-naming its ROADMAP item.
+the ring reads, ``--superbatch-k``), events socket and mesh options are
+not in the port yet: ``main`` refuses each of their flags, naming its
+ROADMAP item.
 """
 from __future__ import annotations
 
@@ -172,9 +188,6 @@ REFUSED_FLAGS = (
     ("--mesh", "INFW_MESH", "ROADMAP.md item 15 (multi-device)"),
     ("--superbatch-k", "INFW_SUPERBATCH_K",
      "ROADMAP.md item 24c (the ingest ring, the superbatch's only reader)"),
-    ("--payload", "INFW_PAYLOAD", "ROADMAP.md item 14 (the payload tier)"),
-    ("--payload-mode", "INFW_PAYLOAD_MODE", "ROADMAP.md item 14 (the payload tier)"),
-    ("--payload-plen", "INFW_PAYLOAD_PLEN", "ROADMAP.md item 14 (the payload tier)"),
     ("--deadline-us", "INFW_DEADLINE_US", _ITEM_24),
     ("--max-batch", "INFW_MAX_BATCH", _ITEM_24),
     ("--ring", "INFW_RING", _ITEM_24),
@@ -305,7 +318,9 @@ def make_classifier_factory(backend: str, wire_codec: Optional[str] = None,
                             flow_table: Optional[FlowConfig] = None,
                             resident: bool = False,
                             telemetry: Optional[SketchSpec] = None,
-                            mlscore=None, mlscore_mode: Optional[str] = None):
+                            mlscore=None, mlscore_mode: Optional[str] = None,
+                            payload=None, payload_mode: Optional[str] = None,
+                            payload_plen: Optional[int] = None):
     """The syncer's classifier constructor: TorchClassifier on
     ``backend_device(backend)``.  ``wire_codec`` and ``compressed`` are
     TorchClassifier's (None keeps its INFW_WIRE_CODEC / INFW_COMPRESSED
@@ -313,9 +328,11 @@ def make_classifier_factory(backend: str, wire_codec: Optional[str] = None,
     every classifier generation (on both backends: "cpu" runs the tier on
     the plain versions of K7 and K8); ``resident`` turns the resident pool
     on, ``telemetry``, a SketchSpec, the telemetry plane and ``mlscore``, a
-    (ScoreSpec, ScoreModel) pair, the scoring tier in ``mlscore_mode``
-    (``main`` refuses the three with the cpu backend, as the JAX daemon
-    does; the class takes them, for the tests)."""
+    (ScoreSpec, ScoreModel) pair, the scoring tier in ``mlscore_mode``,
+    and ``payload``, a pattern list, AcModel or PayloadTier, the payload
+    tier in ``payload_mode`` at ``payload_plen`` (``main`` refuses the four
+    with the cpu backend, as the JAX daemon does; the class takes them, for
+    the tests)."""
     device = backend_device(backend)
     kw = {}
     if wire_codec is not None:
@@ -331,6 +348,10 @@ def make_classifier_factory(backend: str, wire_codec: Optional[str] = None,
     if mlscore is not None:
         spec, model = mlscore
         kw.update(mlscore=spec, mlscore_model=model, mlscore_mode=mlscore_mode or "shadow")
+    if payload is not None:
+        kw.update(payload=payload, payload_mode=payload_mode or "shadow")
+        if payload_plen is not None:
+            kw["payload_plen"] = payload_plen
     return functools.partial(TorchClassifier, device=device, **kw)
 
 
@@ -368,6 +389,18 @@ class _MlScoreCounters:
     def counter_values(self) -> Dict[str, int]:
         clf = self._get()
         return {} if clf is None else clf.mlscore_counters()
+
+
+class _PayloadCounters:
+    """The payload tier's payload_* counters on /metrics; the getter follows
+    the classifier across table loads."""
+
+    def __init__(self, clf_getter) -> None:
+        self._get = clf_getter
+
+    def counter_values(self) -> Dict[str, int]:
+        clf = self._get()
+        return {} if clf is None else clf.payload_counters()
 
 
 class _FlowCounters:
@@ -446,13 +479,18 @@ class Daemon:
         trace_slow_us: float = 50_000.0,
         mlscore=None,
         mlscore_mode: Optional[str] = None,
+        payload=None,
+        payload_mode: Optional[str] = None,
+        payload_plen: Optional[int] = None,
     ) -> None:
         # resolve the device first: without a card the default backend
         # fails here, before any directory, thread or file is made
         factory = make_classifier_factory(backend, wire_codec=wire_codec,
                                           compressed=compressed, flow_table=flow_table,
                                           resident=resident, telemetry=telemetry,
-                                          mlscore=mlscore, mlscore_mode=mlscore_mode)
+                                          mlscore=mlscore, mlscore_mode=mlscore_mode,
+                                          payload=payload, payload_mode=payload_mode,
+                                          payload_plen=payload_plen)
         self.resident = bool(resident)
         # the telemetry plane (--telemetry): a validated SketchSpec or None;
         # the daemon owns the drain cadence, the summary records on the
@@ -472,6 +510,17 @@ class Daemon:
         # rebuilt classifier so a rebuild never reverts to the launch model
         self._mlscore_swapped_model = None
         self.models_dir = os.path.join(state_dir, "models")
+        # the payload tier (--payload): a pattern list (or AcModel /
+        # PayloadTier) or None; the daemon owns the payload_* counters and
+        # the <state-dir>/patterns/ hot swap
+        self.payload = payload
+        self.payload_mode = payload_mode or "shadow"
+        self.payload_plen = payload_plen
+        self._payload_attached: set = set()
+        # the last hot-swapped set (its files consumed), applied again to a
+        # rebuilt classifier: (patterns, plen, version)
+        self._payload_swapped = None
+        self.patterns_dir = os.path.join(state_dir, "patterns")
         # serving-path tracing (--trace): span histograms on /metrics and
         # sampled TraceSpanRecords for slow jobs
         self.tracer = None
@@ -524,6 +573,8 @@ class Daemon:
             dirs.append(self.tenants_dir)
         if self.mlscore is not None:
             dirs.append(self.models_dir)
+        if self.payload is not None:
+            dirs.append(self.patterns_dir)
         for d in dirs:
             os.makedirs(d, exist_ok=True)
 
@@ -582,6 +633,11 @@ class Daemon:
             # updates, anomalies, enforced denies, model swaps, the drain seq
             self._mlscore_counters = _MlScoreCounters(lambda: self.syncer.classifier)
             self.metrics_registry.register_counters(self._mlscore_counters)
+        if self.payload is not None:
+            # admissions, scanned lanes, matches, enforced rewrites, pattern
+            # swaps, the set's size and version
+            self._payload_counters = _PayloadCounters(lambda: self.syncer.classifier)
+            self.metrics_registry.register_counters(self._payload_counters)
         if self.tracer is not None:
             # span histograms (ingressnodefirewall_node_span_us) and trace_*
             # counters; slow-job TraceSpanRecords share the event ring
@@ -1259,6 +1315,54 @@ class Daemon:
                 except OSError:
                     pass
 
+    def _payload_maintenance(self) -> None:
+        """Idle-loop payload upkeep (infw.daemon._payload_maintenance): apply
+        the last hot-swapped set to a new classifier generation's tier, then
+        consume the complete npz + manifest pairs in <state-dir>/patterns/,
+        each a hot swap through set_payload_patterns (the flow generation
+        bumps); a bad pair is consumed and logged."""
+        if self.payload is None:
+            return
+        clf = self.syncer.classifier
+        tier = getattr(clf, "payload", None)
+        if tier is None:
+            return
+        if id(tier) not in self._payload_attached:
+            self._payload_attached.add(id(tier))
+            if self._payload_swapped is not None:
+                pats, plen, label = self._payload_swapped
+                try:
+                    clf.set_payload_patterns(pats, plen=plen)
+                    log.info("payload: re-applied hot-swapped pattern set %s to new "
+                             "classifier generation", label)
+                except Exception as e:
+                    log.error("payload: re-apply of swapped pattern set failed: %s", e)
+        from .payload import load_patterns
+
+        try:
+            names = sorted(os.listdir(self.patterns_dir))
+        except OSError:
+            return
+        for fn in names:
+            if not fn.endswith(".npz"):
+                continue
+            path = os.path.join(self.patterns_dir, fn)
+            if not os.path.exists(path + ".json"):
+                continue  # the manifest has not landed yet
+            try:
+                pats, pspec, label = load_patterns(path)
+                clf.set_payload_patterns(pats, plen=pspec.plen)
+                self._payload_swapped = (pats, pspec.plen, label)
+                log.info("payload: hot-swapped pattern set %s (version %s, %d patterns)", fn,
+                         label, len(pats))
+            except Exception as e:
+                log.error("payload: pattern artifact %s rejected: %s", fn, e)
+            for q in (path, path + ".json"):
+                try:
+                    os.unlink(q)
+                except OSError:
+                    pass
+
     def _emit_deny_sampled(self, clf, results, ifindex, pkt_len, frames, batch) -> None:
         """Deny-event export with the telemetry tier's per-tenant token
         bucket in front: the exact totals travel in the sketch summaries,
@@ -1368,6 +1472,10 @@ class Daemon:
                 self._mlscore_maintenance()
             except Exception as e:
                 log.error("mlscore maintenance error: %s", e)
+            try:
+                self._payload_maintenance()
+            except Exception as e:
+                log.error("payload maintenance error: %s", e)
 
     def stop(self) -> None:
         """SIGTERM path: stop polling and serving, detach the dataplane but
@@ -1514,6 +1622,27 @@ def main(argv: Optional[List[str]] = None) -> int:
                    help="anomaly mitigation: shadow (default) scores and records only; "
                         "enforce rewrites anomalous lanes to Deny (ruleId 0), never a "
                         "failsafe port and never a rule Deny.  CLI beats INFW_MLSCORE_MODE")
+    p.add_argument("--payload", nargs="?", const="default",
+                   default=os.environ.get("INFW_PAYLOAD") or None,
+                   help="the payload tier on the card (cuda backend): Aho-Corasick matching "
+                        "of each packet's payload prefix in the serving dispatch (kernel "
+                        "K11).  Optional value = a versioned pattern-set artifact (.npz + "
+                        ".json manifest, infw_torch.payload.save_patterns) or a count of "
+                        "seeded signature patterns; the bare flag (or 'default') takes 32.  "
+                        "payload_* counters on /metrics, and <state-dir>/patterns/ hot-swaps "
+                        "artifacts (a swap behaves like a rule patch).  Frames files carry "
+                        "no payload bytes, so they are served on headers.  CLI beats "
+                        "INFW_PAYLOAD")
+    p.add_argument("--payload-mode", choices=("shadow", "enforce"),
+                   default=os.environ.get("INFW_PAYLOAD_MODE") or "shadow",
+                   help="payload mitigation: shadow (default) matches and counts only; "
+                        "enforce rewrites matched lanes to Deny (ruleId 0), never a failsafe "
+                        "port and never a rule Deny.  CLI beats INFW_PAYLOAD_MODE")
+    p.add_argument("--payload-plen", type=int,
+                   default=int(os.environ.get("INFW_PAYLOAD_PLEN") or 0) or None,
+                   help="the payload prefix width in bytes, 64 or 128 (occurrences crossing "
+                        "it never match).  Default 64, or the artifact's width.  CLI beats "
+                        "INFW_PAYLOAD_PLEN")
     for flag, env, item in REFUSED_FLAGS:
         p.add_argument(flag, nargs="?", const="1", default=None,
                        help=f"not in the port yet: {item} (also {env})")
@@ -1603,6 +1732,40 @@ def main(argv: Optional[List[str]] = None) -> int:
             p.error(f"--mlscore: {e}")
     elif args.mlscore_mode == "enforce":
         p.error("--mlscore-mode enforce requires --mlscore")
+    # the payload knobs: the same launch-time validation (the JAX daemon's)
+    payload_patterns = None
+    payload_plen = None
+    if args.payload is not None and str(args.payload) not in ("0", "", "false", "no"):
+        if args.backend == "cpu":
+            p.error("--payload requires the cuda backend (the cpu backend has no payload "
+                    "plane)")
+        if args.payload_mode not in ("shadow", "enforce"):
+            p.error(f"invalid INFW_PAYLOAD_MODE {args.payload_mode!r} (expected shadow|enforce)")
+        from .kernels.wire_decode import PAYLOAD_PREFIX_WIDTHS
+
+        if args.payload_plen is not None:
+            if int(args.payload_plen) not in PAYLOAD_PREFIX_WIDTHS:
+                p.error(f"--payload-plen must be one of {PAYLOAD_PREFIX_WIDTHS}, got "
+                        f"{args.payload_plen}")
+            payload_plen = int(args.payload_plen)
+        raw = str(args.payload)
+        try:
+            if raw in ("default", "1", "true", "yes") or raw.isdigit():
+                from .payload import signature_patterns
+
+                payload_patterns = signature_patterns(
+                    np.random.default_rng(0), int(raw) if raw.isdigit() else 32,
+                    plen=payload_plen or PAYLOAD_PREFIX_WIDTHS[0])
+            else:
+                from .payload import load_patterns
+
+                payload_patterns, pspec, _version = load_patterns(raw)
+                if payload_plen is None:
+                    payload_plen = int(pspec.plen)
+        except (ValueError, OSError) as e:
+            p.error(f"--payload: {e}")
+    elif args.payload_mode == "enforce":
+        p.error("--payload-mode enforce requires --payload")
 
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(name)s %(levelname)s %(message)s")
@@ -1632,6 +1795,9 @@ def main(argv: Optional[List[str]] = None) -> int:
         trace_slow_us=float(args.trace_slow_us),
         mlscore=mlscore_bundle,
         mlscore_mode=args.mlscore_mode,
+        payload=payload_patterns,
+        payload_mode=args.payload_mode,
+        payload_plen=payload_plen,
     )
     stop = threading.Event()
 

@@ -625,7 +625,8 @@ class FlowTier:
     def resident_dispatch(self, launch, b: int, wire_np: Optional[np.ndarray] = None,
                           tenant=None, tflags=None, tenant_np: Optional[np.ndarray] = None,
                           tflags_np: Optional[np.ndarray] = None, gens_snap=None,
-                          alloc_note=None, k: int = 0, telemetry=None, mlscore=None):
+                          alloc_note=None, k: int = 0, telemetry=None, mlscore=None,
+                          payload=None):
         """Run one resident step (``k`` = 0) or a superbatch of ``k`` steps
         (flow.py resident_dispatch and resident_dispatch_super).  Under the
         lock the host epoch advances by one step each, the device epoch is
@@ -639,8 +640,11 @@ class FlowTier:
         tier's (the one nesting order), with the plane's operands in
         ``ResidentOps.sketch``; with ``mlscore`` (an mlscore.AnomalyTier)
         the same inside the telemetry tier's exchange (flow -> telemetry ->
-        mlscore), with its operands in ``ResidentOps.score``.  Returns
-        (handle, last epoch)."""
+        mlscore), with its operands in ``ResidentOps.score``; with
+        ``payload`` (a payload.PayloadTier, the device column and lengths)
+        the same innermost (flow -> telemetry -> mlscore -> payload), with
+        its operands in ``ResidentOps.payload``.  Returns (handle, last
+        epoch)."""
         steps = max(int(k), 1)
         key = (k, b) if k else b
         if tenant is None:
@@ -660,6 +664,12 @@ class FlowTier:
             ops = ResidentOps(self._flow, gens_op, pages_op, epoch_dev, tenant, tflags,
                               self.config.max_age, self.config.entries, self.config.ways)
             run = launch
+            if payload is not None:
+                ptier, pay, plen = payload
+
+                def run(o, inner=run):
+                    return ptier.resident_exchange(
+                        lambda po: inner(o._replace(payload=po)), pay, plen)
             if mlscore is not None:
                 # the scoring tier's lock nests inside the telemetry tier's
                 def run(o, inner=run):
@@ -775,6 +785,9 @@ class ResidentOps(NamedTuple):
     sketch: object = None
     #: the scoring tier's kernels.mxu_score.ScoreOps (None when off)
     score: object = None
+    #: the payload tier's kernels.acmatch.PayloadOps with the admission's
+    #: column (None when off or the admission carries none)
+    payload: object = None
 
 
 def wrap_epoch(e: int) -> int:

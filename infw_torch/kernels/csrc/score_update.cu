@@ -86,6 +86,7 @@
 #include <limits.h>
 #include <stdint.h>
 
+#include "failsafe.cuh"
 #include "wire_io.cuh"
 
 namespace {
@@ -98,8 +99,7 @@ constexpr int kGridLanes = 256;  // plan L: a block a 256 lanes, up to the co-re
 constexpr unsigned kFull = 0xFFFFFFFFu;
 constexpr int kFeatures = 16;
 constexpr int kFirstSight = 65535;
-constexpr int kProtoTCP = 6;
-constexpr int kProtoUDP = 17;
+constexpr int kProtoTCP = failsafe_cells::kProtoTCP;
 constexpr int kTcpSyn = 0x02;
 constexpr int kTcpAck = 0x10;
 constexpr int kDeny = 1;
@@ -110,11 +110,6 @@ constexpr int kPlanGrid = 0, kPlanBlock = 1;
 constexpr int kElig = 1, kMatched = 2, kSynLane = 4, kDenyLane = 8, kNewport = 16;
 constexpr int kNoLane = -1;  // a carry's first word: no lane (past B or past the block's run)
 constexpr int kBitsShift = 5;  // a carry's first word: slot << kBitsShift | flag bits
-
-// The failsafe cells (infw_torch/failsaferules.py; a CPU test holds these
-// equal to kernels/mxu_score.py FAILSAFE_TCP / FAILSAFE_UDP).
-__constant__ int kFailsafeTcp[] = {22, 2379, 2380, 6443, 10250, 10257, 10259};
-__constant__ int kFailsafeUdp[] = {68};
 
 struct Args {
   const uint32_t* wire;
@@ -199,19 +194,6 @@ __device__ __forceinline__ int floor_div(int x, int d) {
   int q = x / d;
   if ((x % d) != 0 && x < 0) --q;
   return q;
-}
-
-__device__ __forceinline__ bool failsafe(int proto, int dport) {
-  if (proto == kProtoTCP) {
-#pragma unroll
-    for (int k = 0; k < (int)(sizeof(kFailsafeTcp) / sizeof(int)); ++k)
-      if (dport == kFailsafeTcp[k]) return true;
-  } else if (proto == kProtoUDP) {
-#pragma unroll
-    for (int k = 0; k < (int)(sizeof(kFailsafeUdp) / sizeof(int)); ++k)
-      if (dport == kFailsafeUdp[k]) return true;
-  }
-  return false;
 }
 
 __device__ __forceinline__ uint32_t sat16(int v) {
@@ -545,7 +527,7 @@ __device__ __forceinline__ void lane_c(const Args& a, const Model& m, int i, int
     tc = ten < 0 ? 0 : (ten > a.T - 1 ? a.T - 1 : ten);
     anom = elig && sc >= __ldg(a.tparams + tc * 2);
     const bool enf = __ldg(a.tparams + tc * 2 + 1) != 0;
-    rewrite = anom && enf && !failsafe(proto, dport) && (int)(r & 0xFFu) != kDeny;
+    rewrite = anom && enf && !failsafe_cells::failsafe(proto, dport) && (int)(r & 0xFFu) != kDeny;
     res_out = rewrite ? (uint32_t)kDeny : r;
     // the winner writes its slot's lastport, the epoch and (replaced) its key
     if (elig && bid == 2 * i + ((bits & kMatched) ? 1 : 0)) {

@@ -31,17 +31,26 @@ device epoch in place, and that a CUDA graph captures whole (the pool in
    policy's verdicts ``merged2`` written into both the probe's and the
    stateless words, so K8's merge yields ``merged2`` on every lane and
    caches it for the misses, and K9 counts it;
+3b. with the payload tier on (``ops.payload``, a kernels.acmatch.PayloadOps
+   carrying the admission's payload column), after 3a and before 3, K11
+   through its resident entry: the merge from the same words, the
+   Aho-Corasick walk of each lane's prefix, the enforce rewrite
+   (``_payload_merge_core`` on ``merged2``), the verdicts ``merged3``
+   written into both word vectors as 3a does, and the matched and rewritten
+   lanes' bitmaps into the last 2 ceil(B/32) words of the fused output;
 4. with the telemetry plane on (``ops.sketch``, obs.telemetry.SketchOps),
    K9 through its resident entry (kernels/sketch.py): the sketch update
    over every lane with the merged verdicts K8 wrote (the served verdicts,
    ``_sketch_update_core`` on ``merged3``); the bucket's KIND_OTHER
-   padding rows touch nothing.
+   padding rows touch nothing (and their payload length is 0).
 
 The fused output is JAX's word layout: ceil(B/2) words of u16-pair-packed
 merged results, ceil(B/32) words of the hit bitmap, [hits, stale], then
 [inserts, evictions, promotes, 0], and with scoring on the anomaly
 bitmap (ceil(B/32) words) and the int16-saturated scores (ceil(B/2)
-words).  On CPU tensors every entry runs its
+words), and with the payload tier the matched-lane then the rewritten-lane
+bitmaps (ceil(B/32) words each, always the last words).  On CPU tensors
+every entry runs its
 plain version; on CUDA tensors the kernels (nothing here syncs with the
 host, so the sequence captures into a graph).
 """
@@ -52,6 +61,7 @@ from typing import NamedTuple, Optional, Union
 import numpy as np
 import torch
 
+from . import acmatch as kac
 from . import cwalk, dense, overlay, walk
 from . import flow as kflow
 from . import mxu_score as kscore
@@ -70,11 +80,11 @@ class StepTables(NamedTuple):
     n_levels: Optional[int] = None
 
 
-def resident_out_words(b: int, score: bool = False) -> int:
+def resident_out_words(b: int, score: bool = False, payload: bool = False) -> int:
     """Words of a step's fused output for ``b`` lanes (``score``: with the
-    scoring extension)."""
+    scoring extension, ``payload``: with the payload tail)."""
     nw, nh = (b + 1) // 2, -(-b // 32)
-    return nw + nh + 6 + ((nh + nw) if score else 0)
+    return nw + nh + 6 + ((nh + nw) if score else 0) + (2 * nh if payload else 0)
 
 
 def stateless_res16(tables: StepTables, wire: torch.Tensor) -> torch.Tensor:
@@ -103,7 +113,7 @@ def resident_step(ops, tables: StepTables, wire: torch.Tensor,
     scratch (allocated when None)."""
     B = wire.shape[0]
     nw, nh = (B + 1) // 2, -(-B // 32)
-    words = resident_out_words(B, ops.score is not None)
+    words = resident_out_words(B, ops.score is not None, ops.payload is not None)
     if out is None:
         out = torch.empty(words, dtype=torch.int32, device=wire.device)
     geo = {"slab_entries": ops.slab_entries, "ways": ops.ways}
@@ -113,6 +123,9 @@ def resident_step(ops, tables: StepTables, wire: torch.Tensor,
     if ops.score is not None:
         kscore.score_update_resident(ops.score, wire, ops.tenant, ops.tflags, out[:nw],
                                      out[nw: nw + nh], res16[:nw], out[nw + nh + 6: words])
+    if ops.payload is not None:
+        kac.acmatch_resident(ops.payload, wire, out[:nw], out[nw: nw + nh], res16[:nw],
+                             out[words - 2 * nh: words])
     kflow.flow_insert_resident(ops.flow, ops.gens, ops.pages, wire, ops.tenant, ops.tflags,
                                res16[:nw], out[nw: nw + nh], out[:nw],
                                out[nw + nh + 2: nw + nh + 6], ops.epoch_dev, scratch, **geo)
@@ -131,12 +144,15 @@ def resident_superbatch(ops, tables: StepTables, wire: torch.Tensor,
     serves the device epoch as step j - 1 left it.  Returns the (K, L)
     fused outputs (``out`` when given)."""
     K, B = wire.shape[0], wire.shape[1]
-    L = resident_out_words(B, ops.score is not None)
+    L = resident_out_words(B, ops.score is not None, ops.payload is not None)
     if out is None:
         out = torch.empty((K, L), dtype=torch.int32, device=wire.device)
     for j in range(K):
-        resident_step(ops._replace(tenant=ops.tenant[j], tflags=ops.tflags[j]), tables, wire[j],
-                      out[j], scratch)
+        step_ops = ops._replace(tenant=ops.tenant[j], tflags=ops.tflags[j])
+        if ops.payload is not None:
+            step_ops = step_ops._replace(payload=ops.payload._replace(
+                pay=ops.payload.pay[j], plen=ops.payload.plen[j]))
+        resident_step(step_ops, tables, wire[j], out[j], scratch)
     return out
 
 
@@ -162,6 +178,36 @@ def split_resident_score_outputs(arr: np.ndarray, b: int):
     s16 = unpack_res16_host(np.ascontiguousarray(arr[base + nh: base + nh + nw]), b)
     scores = s16.astype(np.uint16).astype(np.int16).astype(np.int32)
     return res16, hit, hits, stale, counts, anom, scores
+
+
+def split_resident_payload_outputs(arr: np.ndarray, b: int, score: bool = False):
+    """Host inverse of a payload step's fused output: the split_resident_
+    outputs (``score``: split_resident_score_outputs) tuple with the matched
+    and rewritten lanes' masks (b,) bool appended.  The payload tail is the
+    last 2 ceil(b/32) words whatever rides before it, so it anchors from
+    the end."""
+    arr = np.asarray(arr)
+    nh = -(-b // 32)
+    base, tail = arr[: arr.shape[0] - 2 * nh], arr[arr.shape[0] - 2 * nh:]
+    head = split_resident_score_outputs(base, b) if score else split_resident_outputs(base, b)
+    return head + (kflow.unpack_bits32_host(tail[:nh], b),
+                   kflow.unpack_bits32_host(tail[nh:], b))
+
+
+def split_resident_step_outputs(arr: np.ndarray, b: int, score: bool, payload: bool):
+    """Any step's fused output -> (res16, hit, hits, stale, (inserts,
+    evictions, promotes), anom, scores, pay_hit, pay_rw), the parts of a
+    tier that is off None."""
+    if payload:
+        parts = split_resident_payload_outputs(arr, b, score)
+        head, tail = parts[:-2], parts[-2:]
+    else:
+        head = (split_resident_score_outputs(arr, b) if score
+                else split_resident_outputs(arr, b))
+        tail = (None, None)
+    if not score:
+        head = head + (None, None)
+    return head + tail
 
 
 def resident_fused_host(fused) -> np.ndarray:

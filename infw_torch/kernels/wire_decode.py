@@ -11,6 +11,9 @@ pkt_len column (backend.base.stats_from_results).
 - ``payload_bucket`` / ``pad_payload`` / ``pad_dict``: the shapes shipped
   (the auto codec's byte count depends on the bucket, so the format choice
   matches the JAX package's);
+- ``PAYLOAD_PREFIX_WIDTHS`` / ``payload_prefix_bucket`` /
+  ``pad_payload_prefix``: the two widths of the payload tier's prefix
+  column (kernels/acmatch.py), unrelated to the delta stream's payload;
 - ``decode_scan``: the wrapper of the hand-written CUDA kernel
   ``csrc/wire_decode.cu``, which replaces the Pallas ``_decode_scan_kernel``:
   the 1/2/4-byte little-endian combine of section C into deltas and their
@@ -63,6 +66,38 @@ def payload_bucket(n: int) -> int:
         return _PAYLOAD_BUCKET_MIN
     step = 1 << max(n.bit_length() - 1 - 3, 0)
     return -(-n // step) * step
+
+
+#: payload-prefix column widths of the payload tier: a (B, L) prefix column
+#: is bucketed to one of these, which is also the matched length
+PAYLOAD_PREFIX_WIDTHS = (64, 128)
+
+
+def payload_prefix_bucket(n: int) -> int:
+    """The smaller prefix width that holds an ``n``-byte column (128 for
+    anything wider: the producer truncates)."""
+    for w in PAYLOAD_PREFIX_WIDTHS:
+        if n <= w:
+            return w
+    return PAYLOAD_PREFIX_WIDTHS[-1]
+
+
+def pad_payload_prefix(pay: np.ndarray, plen: np.ndarray):
+    """A (B, L) payload-prefix column zero-padded (or truncated) to
+    ``payload_prefix_bucket(L)`` bytes, with its valid-length column clipped
+    to [0, bucket] -> (pay, plen int32).  The pad bytes are inert: the
+    matcher masks positions at or past plen."""
+    pay = np.asarray(pay, np.uint8)
+    b, ln = pay.shape
+    cap = payload_prefix_bucket(ln)
+    if ln < cap:
+        out = np.zeros((b, cap), np.uint8)
+        out[:, :ln] = pay
+    elif ln > cap:
+        out = np.ascontiguousarray(pay[:, :cap])
+    else:
+        out = pay
+    return out, np.clip(np.asarray(plen), 0, cap).astype(np.int32)
 
 
 def pad_payload(payload: np.ndarray) -> np.ndarray:

@@ -229,3 +229,75 @@ def _bump(stats: Dict[int, List[int]], rule_id: int, deny: bool, length: int) ->
     else:
         entry[0] += 1
         entry[1] += length
+
+
+# --- the payload tier's references -------------------------------------------
+#
+# Both are independent of the compiled DFA (kernels/acmatch.py): the naive
+# substring scan and an Aho-Corasick automaton that walks its failure links at
+# match time, so a construction bug in the DFA cannot be shared by them.
+
+
+def payload_match_ref(patterns, pay, plen, prefix_len, pwords) -> np.ndarray:
+    """Naive multi-pattern reference -> (B, pwords) uint32 bitmaps (pattern
+    j -> bit j).  ``pay`` (B, L) uint8, ``plen`` (B,) valid byte counts,
+    ``prefix_len`` the matched prefix length: pattern j is claimed for packet
+    i iff an occurrence ends within the first min(plen[i], prefix_len, L)
+    bytes (an occurrence crossing that boundary claims nothing)."""
+    pay = np.asarray(pay, np.uint8)
+    plen = np.asarray(plen).astype(np.int64)
+    out = np.zeros((pay.shape[0], int(pwords)), np.uint32)
+    pats = [bytes(p) for p in patterns]
+    for i in range(pay.shape[0]):
+        n = int(min(plen[i], prefix_len, pay.shape[1]))
+        hay = pay[i, :max(n, 0)].tobytes()
+        for j, p in enumerate(pats):
+            if p in hay:
+                out[i, j // 32] |= np.uint32(1 << (j % 32))
+    return out
+
+
+class HostAcAutomaton:
+    """A small Aho-Corasick automaton (goto and failure links, the links
+    walked at match time, nothing folded): the second reference."""
+
+    def __init__(self, patterns) -> None:
+        from collections import deque
+
+        self.patterns = [bytes(p) for p in patterns]
+        self.goto: List[dict] = [{}]
+        self.out: List[set] = [set()]
+        for j, p in enumerate(self.patterns):
+            s = 0
+            for ch in p:
+                if ch not in self.goto[s]:
+                    self.goto.append({})
+                    self.out.append(set())
+                    self.goto[s][ch] = len(self.goto) - 1
+                s = self.goto[s][ch]
+            self.out[s].add(j)
+        self.fail = [0] * len(self.goto)
+        q = deque(self.goto[0].values())
+        while q:
+            s = q.popleft()
+            for ch, t in self.goto[s].items():
+                f = self.fail[s]
+                while f and ch not in self.goto[f]:
+                    f = self.fail[f]
+                cand = self.goto[f].get(ch, 0)
+                self.fail[t] = cand if cand != t else 0
+                q.append(t)
+
+    def matches(self, data: bytes) -> set:
+        """The indices of the patterns with an occurrence ending in ``data``."""
+        found = set()
+        s = 0
+        for ch in data:
+            while s and ch not in self.goto[s]:
+                s = self.fail[s]
+            s = self.goto[s].get(ch, 0)
+            f = s
+            while f:
+                found |= self.out[f]
+                f = self.fail[f]
+        return found

@@ -28,6 +28,8 @@ _FIELDS = (
     "kind", "l4_ok", "ifindex", "ip_words", "proto", "dst_port",
     "icmp_type", "icmp_code", "pkt_len",
 )
+#: the optional columns, None or one row per packet
+_OPTIONAL = ("tcp_flags", "payload", "payload_len")
 
 
 @dataclass
@@ -44,17 +46,26 @@ class PacketBatch:
     #: (B,) int32 TCP flag bits (flow.TCP_*) for the flow tier's state
     #: model, or None when the source carries none (read as 0)
     tcp_flags: Optional[np.ndarray] = None
+    #: (B, L) uint8 payload-prefix column (the first 64 or 128 bytes) for
+    #: the payload tier, and its (B,) int32 valid byte counts; None for
+    #: header-only sources.  Neither crosses the classify wire.
+    payload: Optional[np.ndarray] = None
+    payload_len: Optional[np.ndarray] = None
 
     def __len__(self) -> int:
         return int(self.kind.shape[0])
 
+    def _optional(self, pick) -> dict:
+        return {f: None if getattr(self, f) is None else pick(getattr(self, f))
+                for f in _OPTIONAL}
+
     def slice(self, start: int, stop: int) -> "PacketBatch":
         return PacketBatch(**{f: getattr(self, f)[start:stop] for f in _FIELDS},
-                           tcp_flags=None if self.tcp_flags is None else self.tcp_flags[start:stop])
+                           **self._optional(lambda a: a[start:stop]))
 
     def take(self, idx: np.ndarray) -> "PacketBatch":
         return PacketBatch(**{f: getattr(self, f)[idx] for f in _FIELDS},
-                           tcp_flags=None if self.tcp_flags is None else self.tcp_flags[idx])
+                           **self._optional(lambda a: a[idx]))
 
     def pad_to(self, n: int) -> "PacketBatch":
         """Pad to ``n`` packets with KIND_OTHER rows (always XDP_PASS, no
@@ -68,8 +79,7 @@ class PacketBatch:
 
         out = {f: _pad(getattr(self, f)) for f in _FIELDS}
         out["kind"] = _pad(self.kind, 3)  # KIND_OTHER
-        if self.tcp_flags is not None:
-            out["tcp_flags"] = _pad(self.tcp_flags)
+        out.update(self._optional(_pad))  # padding rows: no flags, no payload bytes
         return PacketBatch(**out)
 
     def pack_wire(self) -> np.ndarray:

@@ -12,7 +12,8 @@ over (``context``) and, on the card, the CUDA graphs that replay it:
 
 - one ``torch.cuda.CUDAGraph`` per (table layout, bucket, wire width,
   flags or none, trie level count, superbatch K, telemetry on or off,
-  anomaly scoring on or off, pipeline slot).  A graph
+  anomaly scoring on or off, the payload tier's AcSpec or none, pipeline
+  slot).  A graph
   reads the tables from static buffers of the context's layout, which each
   dispatch refills in stream order from its own generation's tensors (a
   copy of each tensor that changed since the last dispatch; a patch clones
@@ -24,8 +25,10 @@ over (``context``) and, on the card, the CUDA graphs that replay it:
   padded with KIND_OTHER rows to a power-of-two bucket (at least 8), rows
   that no kernel counts, caches or inserts, so a daemon's tails reuse a
   few graphs;
-- a graph owns its device input (wire, then flags), its fused output, its
-  lane scratch, and a pinned host buffer for each direction.  A dispatch
+- a graph owns its device input (wire, then flags, then the payload
+  column's bytes and lengths), its fused output, its lane scratch, and a
+  pinned host buffer for each direction (so the payload column rides the
+  wire's one copy in).  A dispatch
   fills the pinned input, copies it in (``non_blocking``), replays the
   graph and copies the output back into the pinned output, then records an
   event: one H2D, one replay, one D2H.  The flow columns, the device
@@ -43,9 +46,10 @@ over (``context``) and, on the card, the CUDA graphs that replay it:
   holds the graph's lock while it waits for theirs;
 - a graph keeps the operands and tables its capture baked in (``baked``):
   the tiers' columns and zero columns, the static tables, the epoch, the
-  scoring tier's state, model, policy rows and scratch, so no address it
-  replays is freed and reused (a model swap or a policy flip rewrites those
-  tensors in place and captures nothing);
+  scoring tier's state, model, policy rows and scratch, the payload tier's
+  automaton and mode tensor, so no address it replays is freed and reused
+  (a model swap, a pattern swap or a mode flip rewrites those tensors in
+  place and captures nothing);
 - capturing is not launching: the kernels' ``launches`` counts taken
   during a capture are taken back, and each replay adds them again.
 
@@ -153,12 +157,14 @@ class _Graph:
     docstring)."""
 
     def __init__(self, k: int, bucket: int, width: int, flags: bool, device,
-                 score: bool = False) -> None:
+                 score: bool = False, pay_width: int = 0) -> None:
         steps = max(k, 1)
         self.k, self.bucket, self.width, self.flags = k, bucket, width, flags
         self.score = score
-        self.in_words = steps * bucket * (width + (1 if flags else 0))
-        self.out_words = steps * resident_out_words(bucket, score)
+        self.pay_width = pay_width  # the payload column's bytes a row, 0 without one
+        self.pay_at = steps * bucket * (width + (1 if flags else 0))  # a multiple of 8 words
+        self.in_words = self.pay_at + steps * bucket * (pay_width // 4 + 1 if pay_width else 0)
+        self.out_words = steps * resident_out_words(bucket, score, pay_width > 0)
         self.stage = torch.empty(self.in_words, dtype=torch.int32, device=device)
         self.out = torch.empty(self.out_words, dtype=torch.int32, device=device)
         self.scratch = torch.empty(2 * bucket + 4, dtype=torch.int32, device=device)
@@ -185,14 +191,35 @@ class _Graph:
         if not self.flags:
             return None
         n = max(self.k, 1) * self.bucket * self.width
-        return self.stage[n:].view((self.k, self.bucket) if self.k else (self.bucket,))
+        return self.stage[n: self.pay_at].view((self.k, self.bucket) if self.k
+                                              else (self.bucket,))
+
+    def _rows(self) -> tuple:
+        return (self.k, self.bucket) if self.k else (self.bucket,)
+
+    def pay(self) -> Optional[torch.Tensor]:
+        """The payload column's bytes on the card, (…, bucket, pay_width)
+        uint8, 16-byte aligned rows."""
+        if not self.pay_width:
+            return None
+        n = max(self.k, 1) * self.bucket * self.pay_width // 4
+        return self.stage[self.pay_at: self.pay_at + n].view(torch.uint8).view(
+            self._rows() + (self.pay_width,))
+
+    def plen(self) -> Optional[torch.Tensor]:
+        if not self.pay_width:
+            return None
+        at = self.pay_at + max(self.k, 1) * self.bucket * self.pay_width // 4
+        return self.stage[at: self.in_words].view(self._rows())
 
     def fused(self) -> torch.Tensor:
         return self.out.view(self.k, -1) if self.k else self.out
 
-    def fill(self, wire_np: np.ndarray, tflags_np: Optional[np.ndarray]) -> None:
+    def fill(self, wire_np: np.ndarray, tflags_np: Optional[np.ndarray], pay_np=None,
+             plen_np=None) -> None:
         """The pinned input: the rows, KIND_OTHER rows up to the bucket,
-        then the flags (0 on the padding rows)."""
+        then the flags (0 on the padding rows), then the payload bytes and
+        lengths (length 0 on the padding rows: they never match)."""
         steps = max(self.k, 1)
         host = self.pinned_in.numpy()
         nwire = steps * self.bucket * self.width
@@ -203,9 +230,18 @@ class _Graph:
         rows[:, n:] = 0
         rows[:, n:, 0] = KIND_OTHER
         if self.flags:
-            fl = host[nwire:].reshape(steps, self.bucket)
+            fl = host[nwire: self.pay_at].reshape(steps, self.bucket)
             fl[:, :n] = np.asarray(tflags_np, np.int32).reshape(steps, n)
             fl[:, n:] = 0
+        if self.pay_width:
+            nb = steps * self.bucket * self.pay_width // 4
+            pay = host[self.pay_at: self.pay_at + nb].view(np.uint8).reshape(
+                steps, self.bucket, self.pay_width)
+            pay[:, :n] = np.asarray(pay_np, np.uint8).reshape(steps, n, self.pay_width)
+            pay[:, n:] = 0
+            pl = host[self.pay_at + nb: self.in_words].reshape(steps, self.bucket)
+            pl[:, :n] = np.asarray(plen_np, np.int32).reshape(steps, n)
+            pl[:, n:] = 0
 
     def take_landing(self) -> None:
         """Keep a host copy of the last dispatch's output before the slot is
@@ -231,7 +267,7 @@ class _Landing:
                 if self._arr is None:
                     g.event.synchronize()
                     arr = _rebucket(g.pinned_out.numpy().reshape(max(g.k, 1), -1), self._n,
-                                    g.bucket, g.score)
+                                    g.bucket, g.score, g.pay_width > 0)
                     self._arr = np.array(arr if g.k else arr[0])
                     if g.landing is self:
                         g.landing = None
@@ -239,17 +275,20 @@ class _Landing:
         return self._arr
 
 
-def _rebucket(arr: np.ndarray, n: int, bucket: int, score: bool = False) -> np.ndarray:
+def _rebucket(arr: np.ndarray, n: int, bucket: int, score: bool = False,
+              payload: bool = False) -> np.ndarray:
     """(rows, resident_out_words(bucket)) fused outputs of a padded step ->
     the (rows, resident_out_words(n)) layout of ``n`` lanes: the padding
-    lanes are KIND_OTHER rows (result 0, never hit, never anomalous), so the
-    result and bitmap words of the first ``n`` lanes are kept and the counts
-    moved, and with ``score`` the anomaly bitmap and score words too."""
+    lanes are KIND_OTHER rows (result 0, never hit, never anomalous, payload
+    length 0), so the result and bitmap words of the first ``n`` lanes are
+    kept and the counts moved, with ``score`` the anomaly bitmap and score
+    words too, and with ``payload`` the matched and rewritten bitmaps."""
     if n == bucket:
         return arr
     nwb, nhb = (bucket + 1) // 2, -(-bucket // 32)
     nw, nh = (n + 1) // 2, -(-n // 32)
-    out = np.zeros((arr.shape[0], resident_out_words(n, score)), np.int32)
+    words = resident_out_words(n, score, payload)
+    out = np.zeros((arr.shape[0], words), np.int32)
 
     def halves(dst, src):  # packed 16-bit words
         out[:, dst: dst + nw] = arr[:, src: src + nw]
@@ -267,6 +306,10 @@ def _rebucket(arr: np.ndarray, n: int, bucket: int, score: bool = False) -> np.n
     if score:
         bits(nw + nh + 6, nwb + nhb + 6)
         halves(nw + nh + 6 + nh, nwb + nhb + 6 + nhb)
+    if payload:
+        src = arr.shape[1] - 2 * nhb
+        bits(words - 2 * nh, src)
+        bits(words - nh, src + nhb)
     return out
 
 
@@ -387,12 +430,14 @@ class ResidentPool:
 
     def dispatch(self, tier, ctx: ResidentContext, n_levels: Optional[int],
                  wire_np: np.ndarray, tflags_np: Optional[np.ndarray], gens_snap,
-                 k: int = 0, telemetry=None, mlscore=None):
+                 k: int = 0, telemetry=None, mlscore=None, payload=None):
         """Enqueue one step (``k`` = 0, ``wire_np`` (B, W)) or a superbatch
         of ``k`` steps (``wire_np`` (k, B, W)) through the flow tier ->
         (output handle, last epoch).  ``telemetry`` (a TelemetryTier or
         None) adds the sketch update to each step, ``mlscore`` (an
-        AnomalyTier or None) the score update."""
+        AnomalyTier or None) the score update, ``payload`` (a PayloadTier,
+        the (…, B, L) uint8 column at the tier's width and the (…, B) int32
+        lengths, or None) the payload match."""
         tables = ctx.tables._replace(n_levels=n_levels)
         b, width = wire_np.shape[-2], wire_np.shape[-1]
         step = resident_superbatch if k else resident_step
@@ -404,30 +449,36 @@ class ResidentPool:
             def launch(ops):
                 return HostOutput(step(ops, tables, wire))
 
+            pay_ops = None
+            if payload is not None:
+                pay_ops = (payload[0], torch.from_numpy(np.ascontiguousarray(payload[1])),
+                           torch.from_numpy(np.ascontiguousarray(payload[2], np.int32)))
             return tier.resident_dispatch(launch, b, wire_np=wire_np, tflags=tflags,
                                           tflags_np=tflags_np, gens_snap=gens_snap,
                                           alloc_note=self.note_alloc, k=k, telemetry=telemetry,
-                                          mlscore=mlscore)
+                                          mlscore=mlscore, payload=pay_ops)
         bucket = _bucket(b)
+        pay_spec = None if payload is None else payload[0].spec
         with self._lock:
             slot, self._slot = self._slot, self._slot ^ 1
             key = (bucket, width, tflags_np is not None, n_levels, k, telemetry is not None,
-                   mlscore is not None, slot)
+                   mlscore is not None, pay_spec, slot)
             g = ctx.graphs.get(key)
             if g is None:
                 g = _Graph(k, bucket, width, tflags_np is not None, self._device,
-                           score=mlscore is not None)
+                           score=mlscore is not None,
+                           pay_width=0 if pay_spec is None else pay_spec.plen)
                 ctx.graphs[key] = g
         with g.lock:
             return self._dispatch_graph(tier, ctx, g, step, n_levels, b, wire_np, tflags_np,
-                                        gens_snap, k, telemetry, mlscore)
+                                        gens_snap, k, telemetry, mlscore, payload)
 
     def _dispatch_graph(self, tier, ctx: ResidentContext, g: _Graph, step, n_levels, b: int,
-                        wire_np, tflags_np, gens_snap, k: int, telemetry, mlscore):
+                        wire_np, tflags_np, gens_snap, k: int, telemetry, mlscore, payload):
         """dispatch's card half, under ``g``'s lock."""
         g.take_landing()
         g.event.synchronize()  # the pinned input's last copy has run
-        g.fill(wire_np, tflags_np)
+        g.fill(wire_np, tflags_np, *(payload[1:] if payload is not None else ()))
         if ctx.active.ready is not None:
             event, stream = ctx.active.ready
             current = torch.cuda.current_stream(self._device)
@@ -450,7 +501,9 @@ class ResidentPool:
         return tier.resident_dispatch(launch, g.bucket, wire_np=wire_np, tflags=g.tflags(),
                                       tflags_np=tflags_np, gens_snap=gens_snap,
                                       alloc_note=self.note_alloc, k=k, telemetry=telemetry,
-                                      mlscore=mlscore)
+                                      mlscore=mlscore,
+                                      payload=None if payload is None else (
+                                          payload[0], g.pay(), g.plen()))
 
     def _capture(self, g: _Graph, ops, tables: StepTables, step) -> None:
         """Capture ``step`` on ``g``'s buffers and the tier's operands.  A
@@ -458,10 +511,14 @@ class ResidentPool:
         own, builds and loads every kernel and fills their launch caches
         (inert rows touch no column; the score update, which advances its
         epoch and clamps on any rows, runs on a state of its own); then the
-        capture, whose launch counts are taken back."""
+        capture, whose launch counts are taken back.  The payload stage's
+        first run reads an all-zero column of length 0 (never a match)."""
         inert = torch.zeros_like(g.wire())
         inert[..., 0] = KIND_OTHER
         warm_ops = ops._replace(epoch_dev=torch.zeros_like(ops.epoch_dev))
+        if ops.payload is not None:
+            warm_ops = warm_ops._replace(payload=ops.payload._replace(
+                pay=torch.zeros_like(ops.payload.pay), plen=torch.zeros_like(ops.payload.plen)))
         if ops.score is not None:
             st = ops.score.state
             warm_ops = warm_ops._replace(score=ops.score._replace(

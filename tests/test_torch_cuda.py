@@ -1,4 +1,4 @@
-"""Kernels K1, K2, K3, K4, K3b, K5, K6, K7, K8, K9 and K10 on the card against
+"""Kernels K1, K2, K3, K4, K3b, K5, K6, K7, K8, K9, K10 and K11 on the card against
 their plain PyTorch versions, at small sizes, K3's and K3b's fused wire-to-verdict
 entries, the wire codecs through the classifier, the multi-tenant arena
 classifier, patched tables and the overlay combine.
@@ -2979,3 +2979,276 @@ def test_score_swap_flip_drain_and_reset_write_in_place(cuda):
     assert gpu.resident.graphs() == graphs and gpu.resident.steady_allocs() == 0
     # the swap, two mode flips and the threshold each bump the generation
     assert int(gpu.flow._gens_host[0]) == int(cpu.flow._gens_host[0]) == gen0 + 4
+
+
+# --- K11: the payload tier's Aho-Corasick walk ------------------------------------------
+
+#: automata of the card grid: pattern count, matmul flag -> (S, PW)
+K11_SETS = {"s64_pw1_matmul": (8, True), "s1024_pw2": (64, False),
+            "s16384_pw32": (1024, False), "pw64": (2048, False)}
+
+
+def _k11_model(name, plen):
+    from infw_torch import payload as ppay
+    from infw_torch.kernels import acmatch as kac
+
+    key = (name, plen)
+    if key not in _K11_MODELS:
+        count, matmul = K11_SETS[name]
+        pats = ppay.signature_patterns(np.random.default_rng(count), count, plen)
+        _K11_MODELS[key] = kac.compile_patterns(pats, plen=plen, matmul=matmul or None)
+    return _K11_MODELS[key]
+
+
+_K11_MODELS = {}
+
+
+def _k11_columns(rng, model, b, kind, stride=None):
+    """(pay (b, stride) uint8, plen (b,) int32): "synflood" rows (no payload
+    or a few junk bytes) or an "attack" mix (10% planted signatures, benign
+    HTTP lines, the length edge cases)."""
+    from infw_torch import payload as ppay
+
+    L = model.spec.plen
+    stride = stride or L
+    pay = np.zeros((b, stride), np.uint8)
+    if kind == "synflood":
+        lens = np.where(rng.random(b) < 0.8, 0, rng.integers(1, 9, b)).astype(np.int32)
+        pay[:, :8] = rng.integers(0, 256, (b, 8), dtype=np.uint8)
+    else:
+        n_b = min(b, 2048)  # the generators loop in Python: tile a block
+        bp, bl = ppay.benign_payloads(rng, n_b, L)
+        ap, al = ppay.attack_payloads(rng, n_b, model.patterns, L)
+        att = rng.random(n_b) < 0.1
+        bp[att], bl[att] = ap[att], al[att]
+        reps = -(-b // n_b)
+        pay[:, :L] = np.tile(bp, (reps, 1))[:b]
+        lens = np.tile(bl, reps)[:b].astype(np.int32)
+        edge = np.asarray([0, -1, L + 1, 2**31 - 1, L, L - 1, -2**31, 1], np.int32)
+        lens[: min(b, 8)] = edge[: min(b, 8)]
+    if stride > L:
+        pay[:, L:] = rng.integers(0, 256, (b, stride - L), dtype=np.uint8)
+    return pay, lens
+
+
+def _k11_resident_operands(rng, b, device):
+    from infw_torch.kernels.flow import pack_bits32
+    from infw_torch.kernels.torchpath import _pack_res16
+
+    proto = rng.choice([6, 17, 1], b).astype(np.uint32)
+    dport = rng.choice([22, 68, 80, 443, 2379, 10250], b).astype(np.uint32)
+    wire = np.zeros((b, 7), np.uint32)
+    wire[:, 0] = 1 | (1 << 2) | (proto << 3)
+    wire[:, 1] = dport
+    res = rng.integers(0, 3, b) | (rng.integers(0, 9, b) << 8)
+    hit = rng.random(b) < 0.4
+    served = _pack_res16(torch.from_numpy(np.where(hit, res, 7)))
+    stateless = _pack_res16(torch.from_numpy(np.where(hit, 5, res)))
+    return (torch.from_numpy(wire.view(np.int32)).to(device), served.to(device),
+            pack_bits32(torch.from_numpy(hit)).to(device), stateless.to(device))
+
+
+@pytest.mark.parametrize("kind", ["synflood", "attack"])
+@pytest.mark.parametrize("b", [1, 31, 33, 256, 4096, 1 << 18])
+@pytest.mark.parametrize("plen", [64, 128])
+@pytest.mark.parametrize("name", sorted(K11_SETS))
+def test_k11_matches_plain(cuda, name, plen, b, kind):
+    """K11's classic entry (bitmaps) and resident entry (the merge, the
+    enforce rewrite, both word vectors and the tail) against their plain
+    versions on the card's tensors, one launch each."""
+    from infw_torch.kernels import acmatch as kac
+
+    model = _k11_model(name, plen)
+    rng = np.random.default_rng(b + plen)
+    pay_np, lens_np = _k11_columns(rng, model, b, kind)
+    dev = kac.model_device(model, cuda)
+    pay, lens = torch.from_numpy(pay_np).to(cuda), torch.from_numpy(lens_np).to(cuda)
+    before = kac.KERNEL.launches
+    got = kac.acmatch(dev, pay, lens, model.spec)
+    torch.cuda.synchronize()
+    assert kac.KERNEL.launches == before + 1
+    want = kac.acmatch_plain(dev, pay, lens, model.spec)
+    assert torch.equal(got, want)
+    if kind == "attack" and b > 8:  # the first 8 rows carry the length edge cases
+        assert (got != 0).any()
+    nh = -(-b // 32)
+    wire, served, hit, res16 = _k11_resident_operands(rng, b, cuda)
+    for mode in (0, 1):
+        ops = kac.PayloadOps(dev, torch.tensor([mode], dtype=torch.int32, device=cuda),
+                             model.spec, pay, lens)
+        outs = []
+        for fn in (kac.acmatch_resident, kac.acmatch_resident_plain):
+            s, r = served.clone(), res16.clone()
+            tail = torch.full((2 * nh,), -1, dtype=torch.int32, device=cuda)
+            fn(ops, wire, s, hit, r, tail)
+            outs.append((s, r, tail))
+        for x, y in zip(*outs):
+            assert torch.equal(x, y), (name, plen, b, kind, mode)
+    assert kac.RESIDENT_KERNEL.launches >= 2
+
+
+@pytest.mark.parametrize("stride", [72, 200])
+def test_k11_unaligned_and_wide_columns_match_plain(cuda, stride):
+    """A column wider than L whose rows are not 16-byte aligned (the byte
+    load path) or wider still: the bytes past L are ignored."""
+    from infw_torch.kernels import acmatch as kac
+
+    model = _k11_model("s1024_pw2", 64)
+    rng = np.random.default_rng(stride)
+    pay_np, lens_np = _k11_columns(rng, model, 999, "attack", stride=stride)
+    dev = kac.model_device(model, cuda)
+    pay, lens = torch.from_numpy(pay_np).to(cuda), torch.from_numpy(lens_np).to(cuda)
+    got = kac.acmatch(dev, pay, lens, model.spec)
+    assert torch.equal(got, kac.acmatch_plain(dev, pay, lens, model.spec))
+    assert torch.equal(got, kac.acmatch(dev, pay[:, :64].contiguous(), lens, model.spec))
+
+
+def test_k11_wrapper_refuses_bad_operands(cuda):
+    from infw_torch.kernels import acmatch as kac
+
+    model = _k11_model("s1024_pw2", 64)
+    dev = kac.model_device(model, cuda)
+    pay = torch.zeros((8, 64), dtype=torch.uint8, device=cuda)
+    lens = torch.zeros(8, dtype=torch.int32, device=cuda)
+    before = kac.KERNEL.launches
+    bad = [(dev, pay[:, :32].contiguous(), lens), (dev, pay.to(torch.int32), lens),
+           (dev, pay, lens.cpu()), (dev, pay, lens[:4]), (dev, pay, lens.to(torch.int64)),
+           (kac.AcDev(dev.delta[:10], dev.matchmap), pay, lens)]
+    for d, p, n in bad:
+        with pytest.raises(ValueError):
+            kac.acmatch(d, p, n, model.spec)
+    assert kac.KERNEL.launches == before
+    assert kac.acmatch(dev, pay[:0], lens[:0], model.spec).shape == (0, model.spec.pwords)
+    assert kac.KERNEL.launches == before
+
+
+def _with_payload(rng, batch, pats, plen=64):
+    from infw_torch import payload as ppay
+
+    n = len(batch)
+    pay, lens = ppay.benign_payloads(rng, n, plen)
+    att = rng.random(n) < 0.3
+    ap, al = ppay.attack_payloads(rng, int(att.sum()), pats, plen)
+    pay[att], lens[att] = ap, al
+    batch.payload, batch.payload_len = pay, lens.astype(np.int32)
+    return batch
+
+
+@pytest.mark.parametrize("path", ["dense", "trie", "ctrie"])
+def test_resident_graph_with_payload_matches_the_cpu_and_the_eager_step(cuda, path):
+    """The resident classifier with the payload tier in enforce mode (and
+    scoring beside it on the trie path) on the card against the same on the
+    CPU over a flow trace with payload columns at ragged sizes: equal
+    outputs, counters and flow columns; one more admission's graph against
+    the eager step (K11 as the stage between the score and the insert) on
+    clones of the columns."""
+    from infw_torch import flow as flow_mod
+    from infw_torch import payload as ppay
+    from infw_torch.kernels import acmatch as kac
+    from infw_torch.kernels import flow as kflow
+    from infw_torch.kernels.resident import resident_fused_host, resident_step
+
+    rng = np.random.default_rng(43)
+    tables = testing.random_tables_fast(rng, 300 if path == "dense" else 5000, width=4,
+                                        v6_fraction=0.5)
+    pats = ppay.signature_patterns(np.random.default_rng(0), 64)
+    fp = None if path == "dense" else path
+    kw = dict(force_path=fp, resident=True, flow_table=4096, payload=pats,
+              payload_mode="enforce", payload_track=True)
+    gpu, cpu = TorchClassifier(device=cuda, **kw), TorchClassifier(device="cpu", **kw)
+    for c in (gpu, cpu):
+        c.load_tables(tables)
+    batch, _ = testing.flow_trace_batch(rng, tables, 4 * 1024, 0.9, chunk_packets=1024)
+    batch = _with_payload(rng, batch, pats)
+    start = 0
+    for k, size in enumerate((1024, 61, 1000, 1024, 8, 1)):
+        sub = batch.slice(start, start + size)
+        start += size
+        _same_outputs(gpu.classify(sub), cpu.classify(sub), f"{path} chunk {k}")
+    assert gpu.payload_counters() == cpu.payload_counters()
+    assert gpu.payload_counters()["payload_enforced_total"] > 0
+    for (a, b) in zip(gpu.payload.recent_masks(), cpu.payload.recent_masks()):
+        for x, y in zip(a, b):
+            np.testing.assert_array_equal(x, y)
+    gf, cf = gpu.flow.flow_columns(), cpu.flow.flow_columns()
+    for k in gf:
+        np.testing.assert_array_equal(gf[k], cf[k], err_msg=k)
+
+    sub = batch.slice(0, 1024)
+    wire_np = sub.pack_wire()
+    ctx = gpu.resident.context(gpu)
+    tables_step = ctx.tables._replace(
+        n_levels=None if path != "trie" else ctx.tables.dev.n_levels)
+    tier = gpu.flow
+    eager_flow = kflow.clone_flow_table(tier._flow)
+    eager_epoch = tier._epoch_dev.clone()
+    gens_op, pages_op = tier._res_ops
+    fl = torch.from_numpy(sub.tcp_flags.astype(np.int32)).to(cuda)
+    pops = gpu.payload.ops()._replace(pay=torch.from_numpy(sub.payload).to(cuda),
+                                      plen=torch.from_numpy(sub.payload_len).to(cuda))
+    ops = flow_mod.ResidentOps(eager_flow, gens_op.clone(), pages_op.clone(), eager_epoch,
+                               torch.zeros(1024, dtype=torch.int32, device=cuda), fl,
+                               tier.config.max_age, tier.config.entries, tier.config.ways,
+                               payload=pops)
+    before = kac.RESIDENT_KERNEL.launches
+    eager = resident_step(ops, tables_step, torch.from_numpy(wire_np.view(np.int32)).to(cuda))
+    assert kac.RESIDENT_KERNEL.launches == before + 1
+    plan = gpu.prepare_packed(wire_np, False, tcp_flags=sub.tcp_flags, payload=sub.payload,
+                              payload_len=sub.payload_len)
+    np.testing.assert_array_equal(resident_fused_host(plan["fused"]), eager.cpu().numpy())
+    assert kac.RESIDENT_KERNEL.launches == before + 2
+    for c in kflow.COLUMNS:
+        assert torch.equal(getattr(tier._flow, c), getattr(eager_flow, c)), c
+
+
+def test_payload_swap_and_flip_write_in_place_and_capture_nothing(cuda):
+    """On a warmed resident classifier with the payload tier (and a
+    superbatch): a pattern swap and mode flips rewrite the automaton and the
+    mode tensor in place (same addresses), capture nothing and allocate
+    nothing; each later admission equals the CPU classifier's after the same
+    steps, and the flow generation bumps each time."""
+    from infw_torch import payload as ppay
+
+    rng = np.random.default_rng(47)
+    tables = testing.random_tables_fast(rng, 5000, width=4, v6_fraction=0.5)
+    pats = ppay.signature_patterns(np.random.default_rng(0), 64)
+    other = ppay.signature_patterns(np.random.default_rng(9), 64)
+    kw = dict(force_path="trie", resident=True, flow_table=4096, payload=pats)
+    gpu, cpu = TorchClassifier(device=cuda, **kw), TorchClassifier(device="cpu", **kw)
+    for c in (gpu, cpu):
+        c.load_tables(tables)
+    batch, _ = testing.flow_trace_batch(rng, tables, 6 * 256, 0.8, chunk_packets=256)
+    batch = _with_payload(rng, batch, pats + other)
+    chunks = [batch.slice(256 * j, 256 * (j + 1)) for j in range(6)]
+
+    def superbatch(c, j):
+        subs = [chunks[(j + i) % 6] for i in range(2)]
+        plan = c.prepare_packed_super(np.stack([s.pack_wire() for s in subs]), False,
+                                      np.stack([s.tcp_flags for s in subs]),
+                                      payload_stack=np.stack([s.payload for s in subs]),
+                                      payload_len_stack=np.stack([s.payload_len for s in subs]))
+        return [r.result() for r in c.classify_prepared_super(plan)]
+
+    for sub in chunks[:2]:
+        _same_outputs(gpu.classify(sub), cpu.classify(sub), "warm")
+    for o1, o2 in zip(superbatch(gpu, 0), superbatch(cpu, 0)):
+        _same_outputs(o1, o2, "warm super")
+    gpu.mark_resident_warm()
+    pt = gpu.payload
+    ptrs = [t.data_ptr() for t in (*pt._dev, pt._pmode)]
+    graphs = gpu.resident.graphs()
+    gen0 = int(gpu.flow._gens_host[0])
+    steps = [lambda c: c.set_payload_mode("enforce"), lambda c: c.set_payload_patterns(other),
+             lambda c: c.set_payload_mode("shadow"), lambda c: c.set_payload_mode("enforce")]
+    for j, step in enumerate(steps):
+        for c in (gpu, cpu):
+            step(c)
+        sub = chunks[j % len(chunks)]
+        _same_outputs(gpu.classify(sub), cpu.classify(sub), f"step {j}")
+        for o1, o2 in zip(superbatch(gpu, j), superbatch(cpu, j)):
+            _same_outputs(o1, o2, f"step {j} super")
+    assert ptrs == [t.data_ptr() for t in (*pt._dev, pt._pmode)]
+    assert gpu.resident.graphs() == graphs and gpu.resident.steady_allocs() == 0
+    assert int(gpu.flow._gens_host[0]) == int(cpu.flow._gens_host[0]) == gen0 + 4
+    assert gpu.payload_counters() == cpu.payload_counters()
+    assert gpu.payload_counters()["payload_enforced_total"] > 0

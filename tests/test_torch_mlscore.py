@@ -205,8 +205,12 @@ def test_infer_matches_the_host_models():
 
 def test_failsafe_cells_match_the_kernel_source_and_jax():
     """The failsafe ports: the port's list, the JAX package's and the
-    constants compiled into K10 are the same cells."""
-    src = open(os.path.join(os.path.dirname(pms.__file__), "csrc", "score_update.cu")).read()
+    constants compiled into K10 and K11 (csrc/failsafe.cuh, which
+    score_update.cu and payload_match.cu include) are the same cells."""
+    csrc = os.path.join(os.path.dirname(pms.__file__), "csrc")
+    src = open(os.path.join(csrc, "failsafe.cuh")).read()
+    for user in ("score_update.cu", "payload_match.cu"):
+        assert '#include "failsafe.cuh"' in open(os.path.join(csrc, user)).read()
 
     def ports(name):
         body = re.search(name + r"\[\] = \{([^}]*)\}", src).group(1)
