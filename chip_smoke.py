@@ -107,16 +107,16 @@ line) on any error:
    device operations, as for K3; K3b times, its bound, the plain
    version, mixed against sequential
    per-tenant dispatch, the stage split and the pool against padded
-   tables; then the 1M-entry swap pair (clean_tables_fast): the
+   tables; then the swap pair at 250K entries (clean_tables_fast): the
    page-table flip against a full upload, each flip checked against the
    active table's HashLpmOracle, and a destroy + compaction;
-9b. the daemon with --tenants 512 (Daemon(tenants=512), threads started,
+9b. the daemon with --tenants 64 (Daemon(tenants=64), threads started,
     the JAX daemon's default slab geometry, 1024 entries x 16 rule slots,
-    514 pages): one creating edit file of 1000 key_adds per tenant dir,
-    all landed at once (64 tenants with identical content share a page),
-    then one rules-only file per tenant (449 "patch", 63 "cow"), a swap, a
+    66 pages): one creating edit file of 1000 key_adds per tenant dir,
+    all landed at once (16 tenants with identical content share a page),
+    then one rules-only file per tenant (49 "patch", 15 "cow"), a swap, a
     destroy and a dedup sweep that merges two re-converged clones; a
-    2^20-packet classify_mixed with ids -1, >= 512, 2^32 + 1 and the
+    2^20-packet classify_mixed with ids -1, >= 64, 2^32 + 1 and the
     destroyed tenant: one launch of K3b's fused entry, against the plain
     K3b on every packet and each updater's oracle; ms per create, fill,
     patch and cow on the host clock and in CUDA events, the edit-file to
@@ -140,7 +140,8 @@ line) on any error:
     longer prefixes; one classify launches K3b's and K6's two-column
     entries once each, against the plain composition and the oracles of
     the merged content; K6's two-column time over the side-pool;
-10. incremental patches and the overlay at the churn tier (K1 over the
+10. incremental patches and the overlay at the churn tier, cut to 125K
+    entries (K1 over the
     overlay against its plain version; the ctrie pass without the overlay
     fused against composed in turns), then edit transactions on both
     layouts (txn.TxnApplier): one 64-op transaction of the edit generator's
@@ -249,12 +250,14 @@ line) on any error:
     equal, shadow equal to the oracle, the retained bitmaps equal to the
     naive reference, every rewrite a Deny with ruleId 0 off the failsafe
     cells and rule Denies), a pattern swap and mode flips mid-stream with no
-    capture, the automaton ladder, K11's times, the resident admission with
-    the tier on and off, and the daemon with --resident --payload default
-    and a pattern set dropped into patterns/;
+    capture, the automaton ladder, K11's times (with --parent in turns
+    against the parent's K11), the chain floor, K11's plan ladder, the
+    resident admission with the tier on and off, and the daemon with
+    --resident --payload default and a pattern set dropped into patterns/;
 12. the port's daemon (infw_torch.daemon.Daemon, threads started): the
     headline CRs' ingress blocks as one NodeState file, then bench config
-    5a's replay of the 100K trie re-adopted from a checkpoint; then an
+    5a's replay of the 100K trie re-adopted from a checkpoint (2 files of
+    1M frames a pass); then an
     edit file of 1024 ops of the full mix into ``edits/`` (one "batch"
     flush; the edit-visible latency, the patch_txn_* counters against
     /metrics) and a 1M-frame file against the oracle of the edited
@@ -284,6 +287,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import faulthandler
 import json
 import os
 import re
@@ -310,22 +314,28 @@ K4_SIZES = (1, 1023, 1024, 1025, 1 << 20, (1 << 20) + 7)
 # packets of each clustered chunk that takes a fixed-stride delta plan
 FIXED_PACKETS = 8192
 # the JAX package's tenant bench (bench.py bench_tenant): the 512-tenant
-# mixed batch and the 1M-entry hot-swap pair
+# mixed batch and the hot-swap pair (1M entries each there, 250K here for
+# the script's time limit)
 ARENA_TENANTS, ARENA_ENTRIES, ARENA_PER_TENANT = 512, 64, 2048
-SWAP_ENTRIES, SWAP_PACKETS = 1_000_000, 1 << 19
-# the JAX package's churn tier (bench.py bench_churn on a chip) and the
-# overlay the syncer fills (infw/syncer.py OVERLAY_CAP)
-CHURN_ENTRIES, CHURN_WIDTH, CHURN_PACKETS, CHURN_OVERLAY = 1_000_000, 4, 1 << 19, 1024
+SWAP_ENTRIES, SWAP_PACKETS = 250_000, 1 << 19
+# the JAX package's churn tier (bench.py bench_churn on a chip: 1M entries,
+# cut to 125K for the script's time limit) and the overlay the syncer fills
+# (infw/syncer.py OVERLAY_CAP)
+CHURN_ENTRIES, CHURN_WIDTH, CHURN_PACKETS, CHURN_OVERLAY = 125_000, 4, 1 << 19, 1024
 # one-edit generations a round of the churn A/B (bench_churn runs 64; 4
 # keep the script within its time since the scoring phase's plan ladder came in)
 AB_ONE_EDITS = 4
 # Published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, dense int8 ops/s.
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1.979e15
+#: seconds after the start at which a run still going prints every thread's
+#: stack on standard error (the run's limit is 1200 s)
+WATCHDOG_S = 1100
 
 
 #: --parent's kernels by name (K2, K3, K3b, K5, K6's two entries, K7, K8,
-#: K9's and K10's two entries), built from its sources; empty without --parent
+#: K9's, K10's and K11's two entries), built from its sources; empty without
+#: --parent
 PARENT_KERNELS: dict = {}
 
 
@@ -351,6 +361,13 @@ def k10_planless(csrc) -> bool:
     """Whether a tree's K10 is the five-launch design: its C entries take a
     per-lane scratch and no plan (nor, then, a grid cap)."""
     return "int plan" not in (csrc / "score_update.cu").read_text()
+
+
+def k11_first_design(csrc) -> bool:
+    """Whether a tree's K11 is the design that walks the dense DFA itself
+    (one thread a lane, delta and matchmap as its operands): its source has
+    no set-up query and no kernel layout."""
+    return "infw_acmatch_query" not in (csrc / "payload_match.cu").read_text()
 
 
 def flow_grid_capped(csrc) -> bool:
@@ -408,14 +425,15 @@ def parent_kernels(root: str) -> dict:
     its own signatures (no scratch; no grid cap on the two-column entry),
     K7 and K8 of the three-launch design without their grid cap, K9's
     two entries (the one-plan design takes a 0 where this tree passes its
-    plan, and a (B, 4) lane scratch), and K10's two entries (the five-launch
+    plan, and a (B, 4) lane scratch), K10's two entries (the five-launch
     design with its own signature: a per-lane scratch, no grid cap, no
-    plan)."""
+    plan), and K11's two entries (the first design with its own signature:
+    the dense DFA, no layout, no launch shape)."""
     import ctypes
     from pathlib import Path
 
-    from infw_torch.kernels import (_build, arena_dense, arena_walk, cwalk, flow, gather,
-                                    mxu_score, sketch, walk)
+    from infw_torch.kernels import (_build, acmatch, arena_dense, arena_walk, cwalk, flow,
+                                    gather, mxu_score, sketch, walk)
 
     csrc = Path(root) / "infw_torch" / "kernels" / "csrc"
     out = {}
@@ -451,6 +469,12 @@ def parent_kernels(root: str) -> dict:
             argtypes = [p] * 23 + [i] * 11 + [p] if old else k.argtypes
             out[k.name] = _build.Kernel(k.name, k.symbol, argtypes, csrc=csrc,
                                         source="score_update")
+    if (csrc / "payload_match.cu").exists():
+        old = k11_first_design(csrc)
+        for k, was in ((acmatch.KERNEL, [p] * 5 + [i] * 5 + [p]),
+                       (acmatch.RESIDENT_KERNEL, [p] * 10 + [i] * 6 + [p])):
+            out[k.name] = _build.Kernel(k.name, k.symbol, was if old else k.argtypes, csrc=csrc,
+                                        source="payload_match")
     return out
 
 
@@ -512,6 +536,69 @@ def parent_turns(tag: str, label: str, this_fn, parent_fn) -> dict:
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def log_phase(msg: str) -> None:
+    """A phase's end, on standard output and on standard error: a run cut
+    at its time limit shows in its error stream how far it came."""
+    log(msg)
+    print(f"chip_smoke: {msg}", file=sys.stderr, flush=True)
+
+
+#: the profile children started by start_child and not yet finished
+CHILDREN: list = []
+
+
+def start_child(name: str) -> subprocess.Popen:
+    """Start ``chip_smoke.<name>()`` in a fresh process from the script's
+    directory.  It imports and builds its host inputs at once, then waits
+    for finish_child's go on its standard input before it touches the
+    card; a parent that exits first closes that input, and the child ends."""
+    proc = subprocess.Popen([sys.executable, "-c", f"import chip_smoke; chip_smoke.{name}()"],
+                            cwd=os.path.dirname(os.path.abspath(__file__)),
+                            stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+    proc.started = time.perf_counter()
+    CHILDREN.append(proc)
+    return proc
+
+
+def finish_child(proc: subprocess.Popen, label: str) -> str:
+    """Send ``proc`` its go and wait for it; its wall time goes to the log,
+    a non-zero exit fails the run.  Returns its standard output."""
+    t0 = time.perf_counter()
+    out, err = proc.communicate("go\n", timeout=600)
+    CHILDREN.remove(proc)
+    if proc.returncode != 0:
+        raise SystemExit(f"{label} failed:\n{err[-3000:]}")
+    log(f"{label}: {time.perf_counter() - t0:.1f} s after its go, started "
+        f"{t0 - proc.started:.1f} s before it")
+    return out
+
+
+def wait_for_go() -> None:
+    """In a child of start_child: block until the parent's go; exit if the
+    parent has gone."""
+    if sys.stdin.readline().strip() != "go":
+        sys.exit(3)
+
+
+def stop_children() -> None:
+    for proc in CHILDREN:
+        proc.kill()
+        proc.wait()
+
+
+def run_child(argv: list, label: str) -> subprocess.CompletedProcess:
+    """Run ``argv`` from the script's directory in a fresh process; its
+    wall time goes to the log, a non-zero exit fails the run."""
+    t0 = time.perf_counter()
+    child = subprocess.run(argv, cwd=os.path.dirname(os.path.abspath(__file__)),
+                           capture_output=True, text=True, timeout=600)
+    if child.returncode != 0:
+        raise SystemExit(f"{label} failed:\n{child.stderr[-3000:]}")
+    log(f"{label}: {time.perf_counter() - t0:.1f} s in a fresh process")
+    return child
 
 
 def card_line() -> str:
@@ -1396,19 +1483,13 @@ def looked_up_operands(torchpath, wire, ifmap=None):
     return fields, words, mask
 
 
-def ctrie_phase(tag: str, trie_tables, trie_batch):
-    """The ctrie path at the JAX package's 10M-entry tier (table A), with
-    K3 also held against its plain version on the trie phase's 100K table
-    (table B, deep /128 skip chains); returns K3's kernels-line entry,
-    table A, its batch and its HashLpmOracle."""
-    import torch
+def ctrie_table_a() -> dict:
+    """The ctrie phase's table A on the host (no device work, so it runs
+    while the kernels build): clean /24 + /48 columns, Allow-only,
+    ifindexes 2 and 3, compiled, its host layouts built (memoized on the
+    tables), and its batch; each stage timed on the host clock."""
+    from infw_torch import compiler, layout, testing
 
-    from infw_torch import compiler, layout, oracle, testing
-    from infw_torch.backend.cuda import TorchClassifier
-    from infw_torch.kernels import all_kernels, cwalk, torchpath
-    from infw_torch.packets import narrow_wire
-
-    # table A: clean /24 + /48 columns, Allow-only, ifindexes 2 and 3
     build = {}
     rng = np.random.default_rng(2024)
     cols = timed_stage(build, "corpus", lambda: testing.clean_columns_fast(
@@ -1435,9 +1516,27 @@ def ctrie_phase(tag: str, trie_tables, trie_batch):
     _l0, nodes, _targets, d_max = timed_stage(build, "build_cpoptrie",
                                               lambda: layout.build_cpoptrie(tables))
     timed_stage(build, "joined rows", lambda: layout.joined_by_tidx(tables))
+    batch = testing.random_batch_fast(rng, tables, CTRIE_PACKETS)
+    return {"tables": tables, "batch": batch, "build": build, "arrays_s": arrays_s[0],
+            "nodes": nodes, "d_max": d_max}
+
+
+def ctrie_phase(tag: str, trie_tables, trie_batch, table_a: dict):
+    """The ctrie path at the JAX package's 10M-entry tier (table A, built
+    on the host by ctrie_table_a), with K3 also held against its plain
+    version on the trie phase's 100K table (table B, deep /128 skip
+    chains); returns K3's kernels-line entry, table A, its batch and its
+    HashLpmOracle."""
+    import torch
+
+    from infw_torch.backend.cuda import TorchClassifier
+    from infw_torch.kernels import all_kernels, cwalk, torchpath
+    from infw_torch.packets import narrow_wire
+
+    tables, batch, build = table_a["tables"], table_a["batch"], table_a["build"]
+    nodes, d_max = table_a["nodes"], table_a["d_max"]
     ct = timed_stage(build, "upload", lambda: cwalk.build_ctrie_tables(tables, "cuda",
                                                                               pad=True))
-    batch = testing.random_batch_fast(rng, tables, CTRIE_PACKETS)
     table_bytes = sum(t.numel() * t.element_size() for t in ct[:5])
     log(f"ctrie table A: {tables.num_entries} entries x {tables.rule_width} rule slots, "
         f"{tables.levels} trie levels; {nodes.shape[0]} node rows, "
@@ -1445,10 +1544,10 @@ def ctrie_phase(tag: str, trie_tables, trie_batch):
         f"{table_bytes / 1e6:.1f} MB (l0 {ct.l0.numel() * 4 / 1e6:.1f}, nodes "
         f"{ct.nodes.numel() * 4 / 1e6:.1f}, targets {ct.targets.numel() * 4 / 1e6:.1f}, "
         f"joined {ct.joined.numel() * 2 / 1e6:.1f})")
-    log("ctrie table A build (host clock, s): "
+    log("ctrie table A build (host clock, s; all but the upload while the kernels built): "
         + ", ".join(f"{k} {v:.2f}" for k, v in build.items())
-        + f"; compile split: arrays {arrays_s[0]:.2f}, "
-        f"content map {build['compile'] - arrays_s[0]:.2f}")
+        + f"; compile split: arrays {table_a['arrays_s']:.2f}, "
+        f"content map {build['compile'] - table_a['arrays_s']:.2f}")
     log(f"host memory after the build: peak RSS {peak_rss_gib():.2f} GiB of "
         f"{os.sysconf('SC_PAGE_SIZE') * os.sysconf('SC_PHYS_PAGES') / 2**30:.2f} GiB host RAM")
 
@@ -2039,7 +2138,7 @@ def arena_phase(tag: str) -> dict:
     """The multi-tenant ctrie arena at the JAX package's tenant bench
     (bench.py bench_tenant): 512 tenants x 64 entries on a 2^20-packet
     mixed batch (K3b against its plain version, the main path, the
-    oracles, timings), then the hot-swap pair at 1M entries.  Returns K3b's
+    oracles, timings), then the hot-swap pair at SWAP_ENTRIES.  Returns K3b's
     kernels-line entry."""
     import torch
 
@@ -2277,7 +2376,7 @@ def arena_phase(tag: str) -> dict:
     del pool, fields, words, tt, got, want
     clf.close()
 
-    # 5. the hot-swap pair at 1M entries (bench.py:2188-2225)
+    # 5. the hot-swap pair (bench.py:2188-2225, 1M entries there)
     t0 = time.perf_counter()
     big = testing.clean_tables_fast(np.random.default_rng(2024), SWAP_ENTRIES, width=4)
     big2 = testing.clean_tables_fast(np.random.default_rng(4242), SWAP_ENTRIES, width=4)
@@ -2586,9 +2685,9 @@ class ColumnOracle:
 
 def churn_phase(tag: str, n_entries: int = CHURN_ENTRIES, n_packets: int = CHURN_PACKETS,
                 device: str = "cuda") -> dict:
-    """The JAX package's churn tier (bench.py:1899-1938, bench_churn) at
-    full size on both layouts: one table of random_tables_fast(1,000,000
-    entries, width 4, ifindexes 2, 3, 4) loaded through
+    """The JAX package's churn tier (bench.py:1899-1938, bench_churn) on
+    both layouts, cut to an eighth of its 1M entries: one table of
+    random_tables_fast(CHURN_ENTRIES entries, width 4, ifindexes 2, 3, 4) loaded through
     IncrementalTables.from_content into TorchClassifier(force_path=...,
     wire_codec="wire8"), then four steps: one rules-only edit, 64 folded
     rules-only edits, a structural round (4 deletes, 5 adds) and a
@@ -3080,9 +3179,10 @@ def gather_phase(tag: str) -> dict:
 
 # the daemon phase: a NodeState file and frames files through the port's
 # daemon (bench config 5a of the JAX package, bench.py bench_replay_10m)
-# bench config 5a's replay: 10 files of 1M frames; 2 passes (3 until the
-# telemetry phase came in)
-REPLAY_FILES, REPLAY_PACKETS, REPLAY_PASSES = 10, 1_000_000, 2
+# bench config 5a's replay: 2 of its 10 files of 1M frames a pass (10 until
+# the script's time limit cut them); 2 passes (3 until the telemetry phase
+# came in)
+REPLAY_FILES, REPLAY_PACKETS, REPLAY_PASSES = 2, 1_000_000, 2
 DAEMON_NODE = "node-0"
 DAEMON_IFACES = {"eth0": 2, "eth1": 3, "eth2": 4}
 
@@ -3629,14 +3729,16 @@ def daemon_phase(tag: str, iface_rules: dict) -> dict:
 
 # the daemon's --tenants arena at the JAX daemon's default slab geometry
 # (infw/daemon.py:1019-1055: 1024 entries x 16 rule slots, tenants + 2
-# pages) for the arena tier's 512 tenants, each filled by one edit file of
-# about 1000 key_adds, 64 of them with byte-identical content; 2048
-# packets per tenant
-TENANT_COUNT, TENANT_KEYS, TENANT_SHARED, TENANT_PER = 512, 1000, 64, 2048
+# pages) for 64 tenants (the arena tier's 512, cut for the script's time
+# limit), each filled by one edit file of about 1000 key_adds, 16 of them
+# with byte-identical content; 16384 packets per tenant (2^20 in all)
+TENANT_COUNT, TENANT_KEYS, TENANT_SHARED, TENANT_PER = 64, 1000, 16, 16384
 # the JAX bench's production-sized clone-then-patch (bench.py:2418-2470)
 CLONE_ENTRIES = 200_000
-# the dense-family arena: 512 tenants x S = 1024 rows x 16 rule slots
+# the dense-family arena: 512 tenants x S = 1024 rows x 16 rule slots,
+# 2048 packets per tenant (2^20 in all)
 DENSE_TENANTS, DENSE_SLAB, DENSE_SLOTS, DENSE_ENTRIES = 512, 1024, 16, 1000
+DENSE_PER = 2048
 # the overlay side-pool: the syncer's overlay cap (infw/syncer.py
 # OVERLAY_CAP) as the slab rows, 16 rule slots
 OVERLAY_CAP, OVERLAY_SLOTS = 1024, 16
@@ -3687,13 +3789,14 @@ def tenant_keys_edit(txn, content, t: int, n: int = 8):
 
 
 def tenant_phase(tag: str) -> dict:
-    """The port's daemon with --tenants 512 on the card (threads started,
-    the default slab geometry): one creating edit file per tenant dir
-    landed at once (64 tenants with identical content share a page), then
+    """The port's daemon with --tenants TENANT_COUNT on the card (threads
+    started, the default slab geometry): one creating edit file per tenant
+    dir landed at once (TENANT_SHARED tenants with identical content share
+    a page), then
     one rules-only file per tenant (private pages "patch", the shared ones
     "cow"), one swap, one destroy, a dedup sweep once two clones
     re-converged; then a 2^20-packet classify_mixed across the tenants
-    (ids -1, >= 512 and the destroyed one among them): one launch of K3b's
+    (ids -1, >= TENANT_COUNT and the destroyed one among them): one launch of K3b's
     fused entry, bit for bit against the plain K3b and each updater's
     per-tenant oracle.  Returns the readings for the kernels line."""
     import shutil
@@ -4092,10 +4195,10 @@ def dense_arena_phase(tag: str) -> dict:
     pool = clf.allocator.arena
     log(f"dense arena: spec {spec}; pool {clf.allocator.pool_bytes() / 1e6:.1f} MB; "
         f"{DENSE_TENANTS} tables {gen_s:.2f} s, loads {load_s:.2f} s; tenant {gone} destroyed")
-    parts = [testing.random_batch_fast(np.random.default_rng(7500 + t), tab, TENANT_PER)
+    parts = [testing.random_batch_fast(np.random.default_rng(7500 + t), tab, DENSE_PER)
              for t, tab in enumerate(tabs)]
     batch = concat(parts)
-    tenant = np.repeat(np.arange(DENSE_TENANTS, dtype=np.int32), TENANT_PER)
+    tenant = np.repeat(np.arange(DENSE_TENANTS, dtype=np.int32), DENSE_PER)
     tenant[::251], tenant[1::257] = -1, DENSE_TENANTS
     B = len(batch)
     kw = {"pages": spec.pages}
@@ -4121,7 +4224,7 @@ def dense_arena_phase(tag: str) -> dict:
     err = max(err, k6_check("2^20 packets of tenant 3", arena_dense, pool, o_fields, o_words,
                             put(o_tenant), {7: (put(one.pack_wire().view(np.int32)),
                                                 put(o_tenant))}, kw))
-    firsts = np.arange(DENSE_TENANTS) * TENANT_PER
+    firsts = np.arange(DENSE_TENANTS) * DENSE_PER
     per = batch.take(firsts)
     p_fields, p_words = torchpath.packet_fields(torchpath.device_batch(per, DEV))
     p_tenant = np.arange(DENSE_TENANTS, dtype=np.int32)
@@ -4320,10 +4423,10 @@ def overlay_phase(tag: str, k6: dict) -> dict:
     log(f"overlay: {ARENA_TENANTS}-tenant ctrie arena + dense side-pool {ov_spec}; "
         f"{len(n_ov)} overlays of {min(n_ov)}-{max(n_ov)} entries; loads {load_s:.2f} s; pools "
         f"{clf.allocator.pool_bytes() / 1e6:.1f} + {ov_alloc.pool_bytes() / 1e6:.1f} MB")
-    parts = [testing.random_batch_fast(np.random.default_rng(9500 + t), merged[t], TENANT_PER)
-             for t in range(ARENA_TENANTS)]
+    parts = [testing.random_batch_fast(np.random.default_rng(9500 + t), merged[t],
+                                       ARENA_PER_TENANT) for t in range(ARENA_TENANTS)]
     batch = concat(parts)
-    tenant = np.repeat(np.arange(ARENA_TENANTS, dtype=np.int32), TENANT_PER)
+    tenant = np.repeat(np.arange(ARENA_TENANTS, dtype=np.int32), ARENA_PER_TENANT)
     tenant[::253] = -1
     B = len(batch)
     wire = batch.pack_wire()
@@ -5118,7 +5221,7 @@ def resident_profile_child() -> None:
     taken in a process whose earlier profiler sessions traced other work
     loses events (PR 16), so this count runs where the trace is the
     process's first."""
-    from infw_torch import testing
+    from infw_torch import layout, testing
     from infw_torch.backend.cuda import TorchClassifier
     from infw_torch.flow import FlowConfig
 
@@ -5126,6 +5229,8 @@ def resident_profile_child() -> None:
                                         width=FLOW_TABLE_WIDTH, v6_fraction=0.8, ifindexes=(2, 3))
     batch, _meta = testing.flow_trace_batch(np.random.default_rng(7790), tables, FLOW_PACKETS, 0.9,
                                             chunk_packets=FLOW_CHUNK)
+    layout.build_poptrie(tables)  # the trie path's host layout, memoized for the loads
+    wait_for_go()
     clf = TorchClassifier(device=DEV, flow_table=FlowConfig.make(entries=FLOW_SLAB), resident=True)
     clf.load_tables(tables)
     half = len(batch) // 2
@@ -5174,6 +5279,8 @@ def resident_phase(tag: str, k7: dict, k8: dict) -> None:
     from infw_torch.kernels import all_kernels, flow as kflow
     from infw_torch.kernels.resident import resident_out_words, resident_step, stateless_res16
 
+    # the profile child builds its host inputs while this phase runs
+    profile = start_child("resident_profile_child")
     kernels = all_kernels()
     t0 = time.perf_counter()
     tables = testing.random_tables_fast(np.random.default_rng(8800), RESIDENT_ENTRIES, width=8,
@@ -5351,14 +5458,9 @@ def resident_phase(tag: str, k7: dict, k8: dict) -> None:
     sub = batch.slice(len(batch) // 2, len(batch) // 2 + FLOW_CHUNK)
     wire_np, flags_np = sub.pack_wire(), sub.tcp_flags
     per_admission = {}
-    here = os.path.dirname(os.path.abspath(__file__))
-    child = subprocess.run([sys.executable, "-c", "import chip_smoke; "
-                            "chip_smoke.resident_profile_child()"], cwd=here,
-                           capture_output=True, text=True, timeout=600)
-    if child.returncode != 0:
-        raise SystemExit(f"resident profile child failed:\n{child.stderr[-3000:]}")
+    child = finish_child(profile, "resident profile child")
     for name, c in (("resident", lres), ("multi", lmulti), ("stateless", lbase)):
-        per_admission[name] = (json.loads(child.stdout.strip().splitlines()[-1])
+        per_admission[name] = (json.loads(child.strip().splitlines()[-1])
                                if name == "resident" else
                                admission_profile(lambda c=c: c.classify(sub, apply_stats=False)))
         t = time.perf_counter()
@@ -5763,7 +5865,7 @@ def k9_profile_child() -> None:
     kernels and device microseconds per call at each timed size on both
     traces, and one resident admission of the e2e cell (B = 4096) with the
     sketch on and off, printed as one JSON line."""
-    from infw_torch import testing
+    from infw_torch import layout, testing
     from infw_torch.backend.cuda import TorchClassifier
     from infw_torch.flow import FlowConfig
     from infw_torch.kernels import sketch as ksk
@@ -5772,9 +5874,14 @@ def k9_profile_child() -> None:
 
     tables = telemetry_tables()
     spec = ksk.SketchSpec.make()
+    traces = {b: k9_traces(tables, b) for b in K9_TIMED}
+    batch, _meta = testing.attack_trace_batch(np.random.default_rng(1300), tables, 4096 * 4,
+                                              "synflood", chunk_packets=4096)
+    layout.build_poptrie(tables)  # the trie path's host layout, memoized for the loads
+    wait_for_go()
     out = {"k9": {}, "admission": {}}
     for b in K9_TIMED:
-        for name, (wire, tenant, flags, res) in k9_traces(tables, b).items():
+        for name, (wire, tenant, flags, res) in traces[b].items():
             st = ksk.zero_state(spec, DEV)
             winner = ksk.empty_winner(spec, DEV)
             args = [x.to(DEV) for x in (wire, tenant, flags, res)]
@@ -5783,8 +5890,6 @@ def k9_profile_child() -> None:
                                       10, counts)
             out["k9"][f"{name} {b}"] = {"device_us": sum(dev_us.values()) if dev_us else None,
                                         "kernels": counts}
-    batch, _meta = testing.attack_trace_batch(np.random.default_rng(1300), tables, 4096 * 4,
-                                              "synflood", chunk_packets=4096)
     for label, tel in (("on", spec), ("off", None)):
         clf = TorchClassifier(device=DEV, force_path="trie", resident=True,
                               flow_table=FlowConfig.make(entries=1 << 14), telemetry=tel)
@@ -5843,6 +5948,8 @@ def telemetry_phase(tag: str) -> dict:
     from infw_torch.kernels.resident import resident_fused_host, resident_step
     from infw_torch.obs.telemetry import SketchOps
 
+    # the profile child builds its host inputs while this phase runs
+    profile = start_child("k9_profile_child")
     kernels = all_kernels()
     t0 = time.perf_counter()
     tables = telemetry_tables()
@@ -6062,13 +6169,8 @@ def telemetry_phase(tag: str) -> dict:
             if "sketch_update" in PARENT_KERNELS:
                 timings[f"{name} {b}"]["parent_in_turns"] = k9_parent_turns(
                     tag, ksk, spec, args, f"{name} {b}")
-    here = os.path.dirname(os.path.abspath(__file__))
-    child = subprocess.run([sys.executable, "-c", "import chip_smoke; "
-                            "chip_smoke.k9_profile_child()"], cwd=here,
-                           capture_output=True, text=True, timeout=600)
-    if child.returncode != 0:
-        raise SystemExit(f"K9 profile child failed:\n{child.stderr[-3000:]}")
-    prof = json.loads(child.stdout.strip().splitlines()[-1])
+    child = finish_child(profile, "K9 profile child")
+    prof = json.loads(child.strip().splitlines()[-1])
     for key, t in timings.items():
         t["device_us"] = prof["k9"][key]["device_us"]
         t["kernels"] = prof["k9"][key]["kernels"]
@@ -6080,11 +6182,8 @@ def telemetry_phase(tag: str) -> dict:
             + (f" ({dev_ms / t['bound_ms']:.2f}x)" if dev_ms else "")
             + f"; plain {t['plain_ms']:.4f} ms")
     # the crossover: both plans over a ladder of sizes, in a fresh process
-    child = subprocess.run([sys.executable, "-m", "infw_torch.tools.sketch_plans", "--sizes",
-                            ",".join(str(b) for b in K9_LADDER)], cwd=here, capture_output=True,
-                           text=True, timeout=600)
-    if child.returncode != 0:
-        raise SystemExit(f"K9 plan ladder failed:\n{child.stderr[-3000:]}")
+    child = run_child([sys.executable, "-m", "infw_torch.tools.sketch_plans", "--sizes",
+                       ",".join(str(b) for b in K9_LADDER)], "K9 plan ladder")
     for line in child.stdout.strip().splitlines()[:-1]:
         log(f"{tag} {line}")
     ladder = json.loads(child.stdout.strip().splitlines()[-1])
@@ -6435,25 +6534,28 @@ def k10_profile_child() -> None:
     on and off, printed as one JSON line."""
     import torch
 
-    from infw_torch import testing
+    from infw_torch import layout, testing
     from infw_torch.backend.cuda import TorchClassifier
     from infw_torch.flow import FlowConfig
     from infw_torch.kernels import mxu_score as kms
 
     tables = mlscore_tables()
+    traces = {b: k9_traces(tables, b) for b in K10_TIMED}
+    batch, _meta = testing.attack_trace_batch(np.random.default_rng(1400), tables, 4096 * 4,
+                                              "synflood", chunk_packets=4096)
+    layout.build_poptrie(tables)  # the trie path's host layout, memoized for the loads
+    wait_for_go()
     spec = kms.ScoreSpec.make()
     model = kms.default_model(spec)
     out = {"k10": {}, "admission": {}}
     for b in K10_TIMED:
-        for name, args in k9_traces(tables, b).items():
+        for name, args in traces[b].items():
             ops = k10_ops(kms, spec, model)
             args = [x.to(DEV) for x in args]
             counts = {}
             dev_us = profiled_kernels(lambda: kms.score_update(ops, *args), 10, counts)
             out["k10"][f"{name} {b}"] = {"device_us": sum(dev_us.values()) if dev_us else None,
                                          "kernels": counts, "per_kernel_us": dev_us}
-    batch, _meta = testing.attack_trace_batch(np.random.default_rng(1400), tables, 4096 * 4,
-                                              "synflood", chunk_packets=4096)
     for label, ml in (("on", spec), ("off", None)):
         clf = TorchClassifier(device=DEV, force_path="trie", resident=True,
                               flow_table=FlowConfig.make(entries=1 << 14), mlscore=ml)
@@ -6509,6 +6611,8 @@ def mlscore_phase(tag: str) -> dict:
     from infw_torch.flow import FlowConfig
     from infw_torch.kernels import all_kernels, mxu_score as kms
 
+    # the profile child builds its host inputs while this phase runs
+    profile = start_child("k10_profile_child")
     kernels = all_kernels()
     t0 = time.perf_counter()
     tables = mlscore_tables()
@@ -6758,13 +6862,8 @@ def mlscore_phase(tag: str) -> dict:
             if "score_update" in PARENT_KERNELS:
                 timings[f"{name} {b}"]["parent_in_turns"] = k10_parent_turns(
                     tag, kms, spec, model, args, f"{name} {b}")
-    here = os.path.dirname(os.path.abspath(__file__))
-    child = subprocess.run([sys.executable, "-c", "import chip_smoke; "
-                            "chip_smoke.k10_profile_child()"], cwd=here,
-                           capture_output=True, text=True, timeout=600)
-    if child.returncode != 0:
-        raise SystemExit(f"K10 profile child failed:\n{child.stderr[-3000:]}")
-    prof = json.loads(child.stdout.strip().splitlines()[-1])
+    child = finish_child(profile, "K10 profile child")
+    prof = json.loads(child.strip().splitlines()[-1])
     for key, t in timings.items():
         p = prof["k10"][key]
         t.update(device_us=p["device_us"], kernels=p["kernels"], per_kernel_us=p["per_kernel_us"])
@@ -6776,11 +6875,8 @@ def mlscore_phase(tag: str) -> dict:
             + (f" ({dev_ms / t['bound_ms']:.2f}x)" if dev_ms else "")
             + f"; plain {t['plain_ms']:.4f} ms")
     # the crossover: both plans over a ladder of sizes, in a fresh process
-    child = subprocess.run([sys.executable, "-m", "infw_torch.tools.score_plans", "--sizes",
-                            ",".join(str(b) for b in K10_LADDER)], cwd=here, capture_output=True,
-                           text=True, timeout=600)
-    if child.returncode != 0:
-        raise SystemExit(f"K10 plan ladder failed:\n{child.stderr[-3000:]}")
+    child = run_child([sys.executable, "-m", "infw_torch.tools.score_plans", "--sizes",
+                       ",".join(str(b) for b in K10_LADDER)], "K10 plan ladder")
     for line in child.stdout.strip().splitlines()[:-1]:
         log(f"{tag} {line}")
     ladder = json.loads(child.stdout.strip().splitlines()[-1])
@@ -6901,6 +6997,8 @@ PAYLOAD_CHUNK, PAYLOAD_CHUNKS = 256, 40
 K11_GRID = {"S 64, PW 1, matmul": (8, True), "S 1024, PW 2": (64, False),
             "S 16384, PW 32": (1024, False), "PW 64": (2048, False)}
 K11_SIZES, K11_TIMED = (1, 31, 33, 256, 4096, 1 << 18), (256, 4096, 1 << 18)
+#: K11's plan ladder: two sizes either side of the measured crossover
+K11_PLAN_LADDER = (65536, 1 << 17, 196608, 1 << 18)
 #: bench_payload's automaton ladder (bench.py:4576-4602): patterns x prefix bytes at B = 256
 K11_LADDER = (64, 256, 1024)
 _K11_MODELS: dict = {}
@@ -6988,6 +7086,28 @@ def k11_bound_bytes(model, pay, plen) -> int:
     return active + 4 * b + 4 * PW * b + 4 * len(entries) + 4 * PW * len(landed)
 
 
+def k11_resident_words(rng, b: int):
+    """The resident entry's other operands on the card: a (b, 7) wire
+    (failsafe ports among them), the probe's words, its hit bitmap and the
+    stateless words."""
+    import torch
+
+    from infw_torch.kernels.flow import pack_bits32
+    from infw_torch.kernels.torchpath import _pack_res16
+
+    proto = rng.choice([6, 17, 1], b).astype(np.uint32)
+    dport = rng.choice([22, 68, 80, 443, 2379, 10250], b).astype(np.uint32)
+    wire = np.zeros((b, 7), np.uint32)
+    wire[:, 0] = 1 | (1 << 2) | (proto << 3)
+    wire[:, 1] = dport
+    res = rng.integers(0, 3, b) | (rng.integers(0, 9, b) << 8)
+    hit_m = rng.random(b) < 0.4
+    return (torch.from_numpy(wire.view(np.int32)).to(DEV),
+            _pack_res16(torch.from_numpy(np.where(hit_m, res, 7))).to(DEV),
+            pack_bits32(torch.from_numpy(hit_m)).to(DEV),
+            _pack_res16(torch.from_numpy(np.where(hit_m, 5, res))).to(DEV))
+
+
 def k11_check(kac, model, pay_np, lens_np, rng, label: str) -> int:
     """K11 on the card against its plain version (plain PyTorch on the same
     card tensors): the classic entry's bitmaps, and the resident entry's
@@ -6996,9 +7116,6 @@ def k11_check(kac, model, pay_np, lens_np, rng, label: str) -> int:
     a call.  Raises on a mismatch; returns the largest absolute difference
     (0)."""
     import torch
-
-    from infw_torch.kernels.flow import pack_bits32
-    from infw_torch.kernels.torchpath import _pack_res16
 
     dev = kac.model_device(model, DEV)
     pay, lens = torch.from_numpy(pay_np).to(DEV), torch.from_numpy(lens_np).to(DEV)
@@ -7011,17 +7128,7 @@ def k11_check(kac, model, pay_np, lens_np, rng, label: str) -> int:
         raise SystemExit(f"K11: {kac.KERNEL.launches - before} launches in one call")
     if not torch.equal(got, want):
         raise SystemExit(f"K11 classic entry disagrees with its plain version [{label}]")
-    proto = rng.choice([6, 17, 1], b).astype(np.uint32)
-    dport = rng.choice([22, 68, 80, 443, 2379, 10250], b).astype(np.uint32)
-    wire = np.zeros((b, 7), np.uint32)
-    wire[:, 0] = 1 | (1 << 2) | (proto << 3)
-    wire[:, 1] = dport
-    wire_t = torch.from_numpy(wire.view(np.int32)).to(DEV)
-    res = rng.integers(0, 3, b) | (rng.integers(0, 9, b) << 8)
-    hit_m = rng.random(b) < 0.4
-    words = (_pack_res16(torch.from_numpy(np.where(hit_m, res, 7))).to(DEV),
-             pack_bits32(torch.from_numpy(hit_m)).to(DEV),
-             _pack_res16(torch.from_numpy(np.where(hit_m, 5, res))).to(DEV))
+    wire_t, *words = k11_resident_words(rng, b)
     nh = -(-b // 32)
     for mode in (0, 1):
         ops = kac.PayloadOps(dev, torch.tensor([mode], dtype=torch.int32, device=DEV),
@@ -7040,6 +7147,69 @@ def k11_check(kac, model, pay_np, lens_np, rng, label: str) -> int:
     return 0
 
 
+def k11_parent_turns(tag: str, kac, model, b: int) -> dict:
+    """--parent's K11 against this tree's on bench_payload's mix at ``b``
+    lanes: both entries' outputs equal (the resident one in enforce mode),
+    then each entry with the host ahead in turns (parent, this, this,
+    parent).  A parent of the first design takes the dense DFA and no launch
+    shape.  Returns {entry: {"paced_ms": this tree's mean, "parent_paced_ms":
+    the parent's}}."""
+    import torch
+
+    spec = model.spec
+    d = kac.model_device(model, DEV)
+    pay_np, lens_np = k11_columns(np.random.default_rng(b), model, b, "attack")
+    pay, lens = torch.from_numpy(pay_np).to(DEV), torch.from_numpy(lens_np).to(DEV)
+    wire, served, hit, res16 = k11_resident_words(np.random.default_rng(b + 1), b)
+    ops = kac.PayloadOps(d, torch.ones(1, dtype=torch.int32, device=DEV), spec, pay, lens)
+    nh = -(-b // 32)
+    old = k11_first_design(PARENT_KERNELS["payload_match"].csrc)
+    lp = kac._plan(b, spec, torch.device(DEV), None, None)
+    ptr = lambda *ts: tuple(t.data_ptr() for t in ts)  # noqa: E731
+    model_ptrs = ptr(d.delta, d.matchmap) if old else ptr(d.next, d.mrows, d.head)
+    shape = ((spec.plen, pay.shape[1], spec.states, spec.pwords) if old
+             else kac._shape_args(lp, spec, pay))
+    stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
+    out = torch.empty((b, spec.pwords), dtype=torch.int32, device=DEV)
+    bufs = [served.clone(), res16.clone(), torch.empty(2 * nh, dtype=torch.int32, device=DEV)]
+
+    def parent_classic():
+        PARENT_KERNELS["payload_match"].launch(*model_ptrs, *ptr(pay, lens, out), b, *shape,
+                                               stream())
+        return out
+
+    def parent_resident(s, r, t):
+        PARENT_KERNELS["payload_match_resident"].launch(
+            *model_ptrs, *ptr(pay, lens, ops.pmode, wire, s, hit, r, t), b, 7, *shape, stream())
+
+    mine = kac.acmatch(d, pay, lens, spec)
+    theirs = parent_classic().clone()
+    outs = []
+    for fn in (kac.acmatch_resident, None):
+        x = [served.clone(), res16.clone(), torch.full((2 * nh,), -1, dtype=torch.int32,
+                                                       device=DEV)]
+        if fn is None:
+            parent_resident(*x)
+        else:
+            fn(ops, wire, x[0], hit, x[1], x[2])
+        outs.append(x)
+    torch.cuda.synchronize()
+    if not (torch.equal(mine, theirs) and all(torch.equal(x, y) for x, y in zip(*outs))):
+        raise SystemExit(f"--parent's K11 disagrees with this tree's [B {b}]")
+    fns = {"classic": (lambda: kac.acmatch(d, pay, lens, spec), parent_classic),
+           "resident": (lambda: kac.acmatch_resident(ops, wire, bufs[0], hit, bufs[1], bufs[2]),
+                        lambda: parent_resident(*bufs))}
+    res = {}
+    for entry, (this_fn, parent_fn) in fns.items():
+        p1, t1, t2, p2 = (device_paced_ms(fn, reps=20)
+                          for fn in (parent_fn, this_fn, this_fn, parent_fn))
+        log(f"{tag} parent vs this tree [K11 {entry} entry, B {b}, 64 patterns x 64 B, attack "
+            f"mix], with the host ahead, in turns: parent {p1:.5f}, {p2:.5f} ms; this {t1:.5f}, "
+            f"{t2:.5f} ms; this / parent {(t1 + t2) / (p1 + p2):.3f}")
+        res[entry] = {"paced_ms": (t1 + t2) / 2, "parent_paced_ms": (p1 + p2) / 2}
+    return res
+
+
 def k11_profile_child() -> None:
     """Run in a fresh process by the payload phase: K11's kernels and device
     microseconds per call at each timed size (bench_payload's 64 patterns x
@@ -7047,26 +7217,36 @@ def k11_profile_child() -> None:
     the payload tier on and off, printed as one JSON line."""
     import torch
 
-    from infw_torch import testing
+    from infw_torch import layout, testing
     from infw_torch.backend.cuda import TorchClassifier
     from infw_torch.flow import FlowConfig
     from infw_torch.kernels import acmatch as kac
 
     model = k11_model(64, 64, seed=11)
-    dev = kac.model_device(model, DEV)
-    out = {"k11": {}, "admission": {}}
-    for b in K11_TIMED:
-        pay, lens = k11_columns(np.random.default_rng(b), model, b, "attack")
-        pay, lens = torch.from_numpy(pay).to(DEV), torch.from_numpy(lens).to(DEV)
-        counts = {}
-        dev_us = profiled_kernels(lambda: kac.acmatch(dev, pay, lens, model.spec), 10, counts)
-        out["k11"][str(b)] = {"device_us": sum(dev_us.values()) if dev_us else None,
-                              "kernels": counts, "per_kernel_us": dev_us}
+    columns = {b: k11_columns(np.random.default_rng(b), model, b, "attack") for b in K11_TIMED}
     tables = mlscore_tables()
     batch = testing.random_batch_fast(np.random.default_rng(1500), tables, 4 * 4096)
     batch.tcp_flags = np.full(len(batch), 0x10, np.int32)
     batch.payload, batch.payload_len = payload_mix(np.random.default_rng(1503), len(batch),
                                                    model.patterns, 64)
+    layout.build_poptrie(tables)  # the trie path's host layout, memoized for the loads
+    wait_for_go()
+    dev = kac.model_device(model, DEV)
+    out = {"k11": {}, "admission": {}}
+    for b in K11_TIMED:
+        pay, lens = (torch.from_numpy(x).to(DEV) for x in columns[b])
+        counts, rcounts = {}, {}
+        dev_us = profiled_kernels(lambda: kac.acmatch(dev, pay, lens, model.spec), 10, counts)
+        wire, served, hit, res16 = k11_resident_words(np.random.default_rng(b + 1), b)
+        tail = torch.empty(2 * (-(-b // 32)), dtype=torch.int32, device=DEV)
+        ops = kac.PayloadOps(dev, torch.ones(1, dtype=torch.int32, device=DEV), model.spec,
+                             pay, lens)
+        res_us = profiled_kernels(
+            lambda: kac.acmatch_resident(ops, wire, served, hit, res16, tail), 10, rcounts)
+        out["k11"][str(b)] = {"device_us": sum(dev_us.values()) if dev_us else None,
+                              "kernels": counts, "per_kernel_us": dev_us,
+                              "resident_device_us": sum(res_us.values()) if res_us else None,
+                              "plan": kac.plan_for(b)}
     for label, pats in (("on", list(model.patterns)), ("off", None)):
         clf = TorchClassifier(device=DEV, force_path="trie", resident=True,
                               flow_table=FlowConfig.make(entries=1 << 14), payload=pats)
@@ -7102,9 +7282,13 @@ def payload_phase(tag: str) -> dict:
        and the next admissions equal the CPU's after the same steps;
     3. the ladder (64 / 256 / 1024 patterns x 64 / 128 B at B = 256) and
        K11's times at B = 256, 4096 and 2^18 (CUDA events, with the host
-       ahead, the profiler's device time in a fresh process, the plain
-       version, the bytes bound); the resident admission at 4096 with the
-       tier on and off (the same child);
+       ahead, the profiler's device time of both entries in a fresh
+       process, the plain version, the bytes bound); with --parent, both
+       entries in turns against the parent's K11 at those sizes; the chain
+       floor (64 and 128 dependent shared-memory loads on one warp); both
+       plans over a ladder of sizes either side of the crossover
+       (infw_torch.tools.payload_plans); the resident admission at 4096
+       with the tier on and off (the profiling child);
     4. the daemon with --resident --payload default over the flow phase's
        1M-frame file: verdict files equal to the stateless daemon's (frames
        carry no payload bytes); a pattern artifact dropped into patterns/
@@ -7122,6 +7306,8 @@ def payload_phase(tag: str) -> dict:
     from infw_torch.kernels import acmatch as kac
     from infw_torch.kernels import all_kernels, mxu_score as kms
 
+    # the profile child builds its host inputs while this phase runs
+    profile = start_child("k11_profile_child")
     kernels = all_kernels()
 
     # 1. K11 against its plain version over the grid
@@ -7308,22 +7494,41 @@ def payload_phase(tag: str) -> dict:
     for b in K11_TIMED:
         timed(model, b, str(b), timings)
     here = os.path.dirname(os.path.abspath(__file__))
-    child = subprocess.run([sys.executable, "-c", "import chip_smoke; "
-                            "chip_smoke.k11_profile_child()"], cwd=here,
-                           capture_output=True, text=True, timeout=600)
-    if child.returncode != 0:
-        raise SystemExit(f"K11 profile child failed:\n{child.stderr[-3000:]}")
-    prof = json.loads(child.stdout.strip().splitlines()[-1])
+    child = finish_child(profile, "K11 profile child")
+    prof = json.loads(child.strip().splitlines()[-1])
     for key, t in timings.items():
         p = prof["k11"][key]
-        t.update(device_us=p["device_us"], kernels=p["kernels"], per_kernel_us=p["per_kernel_us"])
+        t.update(device_us=p["device_us"], kernels=p["kernels"], per_kernel_us=p["per_kernel_us"],
+                 resident_device_us=p["resident_device_us"], plan=p["plan"])
         dev_ms = t["device_us"] / 1e3 if t["device_us"] else None
-        log(f"{tag} K11 payload_match [B {key}, 64 patterns x 64 B, attack mix]: events "
-            f"{t['ms']:.5f} ms, with the host ahead {t['paced_ms']:.5f} ms, device "
-            f"{t['device_us'] if t['device_us'] else 'lost'} us ({t['per_kernel_us']}); bound "
+        log(f"{tag} K11 payload_match [B {key}, 64 patterns x 64 B, attack mix], plan "
+            f"{t['plan']}: events {t['ms']:.5f} ms, with the host ahead {t['paced_ms']:.5f} ms, "
+            f"device {t['device_us'] if t['device_us'] else 'lost'} us ({t['per_kernel_us']}), "
+            f"the resident entry {t['resident_device_us'] or 'lost'} us; bound "
             f"{t['bound_ms']:.7f} ms by bytes" + (f" ({dev_ms / t['bound_ms']:.1f}x)" if dev_ms
                                                   else "")
             + f"; plain {t['plain_ms']:.4f} ms")
+    if "payload_match" in PARENT_KERNELS:
+        for b in K11_TIMED:
+            timings[str(b)]["parent"] = k11_parent_turns(tag, kac, model, b)
+    # the chain floor: one warp's dependent shared-memory loads
+    floor = {steps: kac.chain_floor(steps, torch.device(DEV)) for steps in (64, 128)}
+    for steps, f in floor.items():
+        ghz = f["clock_khz"] / 1e6
+        log(f"{tag} K11 chain floor: {steps} dependent shared-memory loads on one warp, a "
+            f"pointer chase: {f['chase_cycles']} cycles ({f['chase_cycles'] / steps:.1f} a load, "
+            f"{f['chase_cycles'] / ghz / 1e3:.3f} us at the {ghz:.3f} GHz the card reports); "
+            f"the walk's own step (index from a byte, a 16-bit load, the mask): "
+            f"{f['step_cycles']} cycles ({f['step_cycles'] / steps:.1f} a step, "
+            f"{f['step_cycles'] / ghz / 1e3:.3f} us)")
+    # the crossover: both plans over a ladder of sizes, in a fresh process
+    child = run_child([sys.executable, "-m", "infw_torch.tools.payload_plans", "--sizes",
+                       ",".join(str(b) for b in K11_PLAN_LADDER)], "K11 plan ladder")
+    for line in child.stdout.strip().splitlines()[:-1]:
+        log(f"{tag} {line}")
+    plans = json.loads(child.stdout.strip().splitlines()[-1])
+    log(f"{tag} K11 crossover: plan S no slower than plan L on both entries up to B = "
+        f"{plans['crossover']} of the ladder; plan_for's crossover {kac.STAGED_PLAN_MAX_LANES}")
     adm = prof["admission"]
     ratio = (adm["on"]["device_us"] / adm["off"]["device_us"]
              if adm["on"]["device_us"] and adm["off"]["device_us"] else None)
@@ -7415,6 +7620,8 @@ def payload_phase(tag: str) -> dict:
         "bound_by": "bytes", "library_ms": None,
         "entries": {"classic": "payload_match", "resident": "payload_match_resident"},
         "checked_configurations": checked, "timings": timings, "ladder": ladder,
+        "plan_ladder": plans["sizes"], "crossover_measured": plans["crossover"],
+        "chain_floor": floor,
         "admission": adm, "admission_on_off": ratio, "cell": cell,
         "payload_daemon_launches": daemon_launches, "daemon_passes": passes,
     }
@@ -7426,7 +7633,7 @@ def main() -> int:
     parser = argparse.ArgumentParser(description="Chip smoke test of infw_torch on one card.")
     parser.add_argument("--parent", metavar="DIR",
                         help="another tree of this repository whose K2, K3, K3b, K5, K6, K7, "
-                             "K8 and K9 are timed beside this tree's")
+                             "K8, K9, K10 and K11 are timed beside this tree's")
     opts = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -7439,6 +7646,8 @@ def main() -> int:
 
     # 1. device
     t_start = time.perf_counter()
+    # a run still going near its limit prints where each thread stands
+    faulthandler.dump_traceback_later(WATCHDOG_S, exit=False)
     kind = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
     card = card_line()
@@ -7454,11 +7663,21 @@ def main() -> int:
     # one build per library: two entry points of one source share it
     own = list({k.library_path(): k for k in kernels}.values())
     builds = own + list({k.library_path(): k for k in PARENT_KERNELS.values()}.values())
+    def build(k):
+        k.build()
+        return time.perf_counter()
+
     with ThreadPoolExecutor(len(builds)) as pool:
-        list(pool.map(lambda k: k.build(), builds))
+        done = [pool.submit(build, k) for k in builds]
+        # the ctrie phase's table A takes about a minute of host work:
+        # it is built meanwhile
+        table_a = ctrie_table_a()
+        host_s = time.perf_counter() - t0
+        build_s = max(f.result() for f in done) - t0
     log(f"build: {len(kernels)} kernel entry points from {len(own)} sources"
         + (f" and --parent's {len(builds) - len(own)}" if opts.parent else "")
-        + f" in {time.perf_counter() - t0:.2f} s")
+        + f" in {build_s:.2f} s; the ctrie phase's table A built on the host meanwhile in "
+        f"{host_s:.2f} s")
     for k in own:
         for line in k.build_log().splitlines():
             if any(s in line for s in ("registers", "spill", "smem", "Compiling entry")):
@@ -7602,19 +7821,23 @@ def main() -> int:
         "imma_instructions": imma,
     }
 
-    log(f"phase dense: {time.perf_counter() - t_start:.1f} s since the start")
+    log_phase(f"phase dense: {time.perf_counter() - t_start:.1f} s since the start")
     # 6. the trie path
     t_phase = time.perf_counter()
     k2, trie_tables, trie_batch = trie_phase(tag)
-    log(f"phase trie: {time.perf_counter() - t_phase:.1f} s")
+    log_phase(f"phase trie: {time.perf_counter() - t_phase:.1f} s; "
+              f"{time.perf_counter() - t_start:.1f} s since the start")
 
     # 7. the ctrie path, then both walks on the depth-adversarial batches
     t_phase = time.perf_counter()
-    k3, ctrie_tables, ctrie_batch, hashed = ctrie_phase(tag, trie_tables, trie_batch)
-    log(f"phase ctrie: {time.perf_counter() - t_phase:.1f} s")
+    k3, ctrie_tables, ctrie_batch, hashed = ctrie_phase(tag, trie_tables, trie_batch, table_a)
+    del table_a
+    log_phase(f"phase ctrie: {time.perf_counter() - t_phase:.1f} s; "
+              f"{time.perf_counter() - t_start:.1f} s since the start")
     t_phase = time.perf_counter()
     k2["ms_depth_adversarial"], k3["two_column"]["ms_depth_adversarial"] = depth_phase(tag)
-    log(f"phase depth-adversarial: {time.perf_counter() - t_phase:.1f} s")
+    log_phase(f"phase depth-adversarial: {time.perf_counter() - t_phase:.1f} s; "
+              f"{time.perf_counter() - t_start:.1f} s since the start")
 
     # 8. the wire codecs on both paths' IPv4-compact chunks
     t_phase = time.perf_counter()
@@ -7625,69 +7848,82 @@ def main() -> int:
          hashed.classify),
     ])
 
-    log(f"phase codecs: {time.perf_counter() - t_phase:.1f} s")
+    log_phase(f"phase codecs: {time.perf_counter() - t_phase:.1f} s; "
+              f"{time.perf_counter() - t_start:.1f} s since the start")
     del trie_tables, trie_batch, ctrie_tables, ctrie_batch, hashed
 
     # 9. the multi-tenant arena, the daemon's tenants, the clone-then-patch,
     # the dense-family arena (K6) and the overlay side-pool
     t_phase = time.perf_counter()
     k3b = arena_phase(tag)
-    log(f"phase arena: {time.perf_counter() - t_phase:.1f} s")
+    log_phase(f"phase arena: {time.perf_counter() - t_phase:.1f} s; "
+              f"{time.perf_counter() - t_start:.1f} s since the start")
     t_phase = time.perf_counter()
     tenants = tenant_phase(tag)
     k3b["tenant_launches"] = tenants["launches"]
-    log(f"phase tenants: {time.perf_counter() - t_phase:.1f} s")
+    log_phase(f"phase tenants: {time.perf_counter() - t_phase:.1f} s; "
+              f"{time.perf_counter() - t_start:.1f} s since the start")
     t_phase = time.perf_counter()
     clone_phase(tag)
-    log(f"phase clone-then-patch: {time.perf_counter() - t_phase:.1f} s")
+    log_phase(f"phase clone-then-patch: {time.perf_counter() - t_phase:.1f} s; "
+              f"{time.perf_counter() - t_start:.1f} s since the start")
     t_phase = time.perf_counter()
     k6 = dense_arena_phase(tag)
-    log(f"phase dense arena: {time.perf_counter() - t_phase:.1f} s")
+    log_phase(f"phase dense arena: {time.perf_counter() - t_phase:.1f} s; "
+              f"{time.perf_counter() - t_start:.1f} s since the start")
     t_phase = time.perf_counter()
     ov_launches = overlay_phase(tag, k6)
     k3b["two_column"]["overlay_launches"] = ov_launches["arena_ctrie_walk"]
-    log(f"phase overlay: {time.perf_counter() - t_phase:.1f} s")
+    log_phase(f"phase overlay: {time.perf_counter() - t_phase:.1f} s; "
+              f"{time.perf_counter() - t_start:.1f} s since the start")
 
     # 10. incremental patches and the overlay at the churn tier
     t_phase = time.perf_counter()
     churn_phase(tag)
-    log(f"phase churn: {time.perf_counter() - t_phase:.1f} s")
+    log_phase(f"phase churn: {time.perf_counter() - t_phase:.1f} s; "
+              f"{time.perf_counter() - t_start:.1f} s since the start")
 
     # 11. the gather microbenchmark's kernel and tool
     t_phase = time.perf_counter()
     k5 = gather_phase(tag)
-    log(f"phase gather: {time.perf_counter() - t_phase:.1f} s")
+    log_phase(f"phase gather: {time.perf_counter() - t_phase:.1f} s; "
+              f"{time.perf_counter() - t_start:.1f} s since the start")
 
     # 11b. the flow tier: the ladder, K7 and K8, the storm, the dense arena
     # and the daemon with a flow table
     t_phase = time.perf_counter()
     k7, k8 = flow_phase(tag)
-    log(f"phase flow: {time.perf_counter() - t_phase:.1f} s")
+    log_phase(f"phase flow: {time.perf_counter() - t_phase:.1f} s; "
+              f"{time.perf_counter() - t_start:.1f} s since the start")
 
     # 11c. the resident step and the superbatch: bench_resident's shape, the
     # flow ladder's, K = 4, the warmed steady state and the daemon
     t_phase = time.perf_counter()
     resident_phase(tag, k7, k8)
-    log(f"phase resident: {time.perf_counter() - t_phase:.1f} s")
+    log_phase(f"phase resident: {time.perf_counter() - t_phase:.1f} s; "
+              f"{time.perf_counter() - t_start:.1f} s since the start")
 
     # 11d. the telemetry plane: K9 against its plain version, bench_telemetry's
     # cell, K9's times, the daemon with --resident --telemetry --trace
     t_phase = time.perf_counter()
     k9 = telemetry_phase(tag)
-    log(f"phase telemetry: {time.perf_counter() - t_phase:.1f} s")
+    log_phase(f"phase telemetry: {time.perf_counter() - t_phase:.1f} s; "
+              f"{time.perf_counter() - t_start:.1f} s since the start")
 
     # 11e. the anomaly-scoring tier: K10 against its plain version,
     # bench_mlscore's cell, K10's times, the daemon with --resident --mlscore
     t_phase = time.perf_counter()
     k10 = mlscore_phase(tag)
-    log(f"phase mlscore: {time.perf_counter() - t_phase:.1f} s")
+    log_phase(f"phase mlscore: {time.perf_counter() - t_phase:.1f} s; "
+              f"{time.perf_counter() - t_start:.1f} s since the start")
 
     # 11f. the payload tier: K11 against its plain version, bench_payload's
     # cell, K11's times, the daemon with --resident --payload default
     t_phase = time.perf_counter()
     k11 = payload_phase(tag)
     FLOW_STASH.clear()
-    log(f"phase payload: {time.perf_counter() - t_phase:.1f} s")
+    log_phase(f"phase payload: {time.perf_counter() - t_phase:.1f} s; "
+              f"{time.perf_counter() - t_start:.1f} s since the start")
 
     # 12. the daemon: the headline CRs' ingress blocks as one NodeState,
     # then bench config 5a's replay, through infw_torch.daemon
@@ -7697,7 +7933,7 @@ def main() -> int:
         name: [ing for cr in crs if name in cr["spec"]["interfaces"] for ing in cr["spec"]["ingress"]]
         for name in DAEMON_IFACES
     })
-    log(f"phase daemon: {time.perf_counter() - t_phase:.1f} s; script "
+    log_phase(f"phase daemon: {time.perf_counter() - t_phase:.1f} s; script "
         f"{time.perf_counter() - t_start:.1f} s so far")
     # each kernel's launches in each daemon pass, the two-column walks
     # under their own entries; a launch no entry names fails the run
@@ -7709,6 +7945,7 @@ def main() -> int:
     if unlisted:
         raise SystemExit(f"daemon: kernels {sorted(unlisted)} launched but not on the kernels line")
 
+    faulthandler.cancel_dump_traceback_later()
     # 13. the kernels line, then the device line last
     print(json.dumps({"kernels": [k1, k2, k3, k4, k3b, k5, k6, k7, k8, k9, k10, k11]}),
           flush=True)
@@ -7718,4 +7955,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        sys.exit(main())
+    finally:
+        stop_children()

@@ -3122,6 +3122,157 @@ def test_k11_wrapper_refuses_bad_operands(cuda):
     assert kac.KERNEL.launches == before
 
 
+def _k11_both_entries(kac, dev, model, pay, lens, rng, cuda, **kw):
+    """K11's classic and resident entries (enforce mode) with ``kw`` (a
+    forced plan or row count) against their plain versions."""
+    b = pay.shape[0]
+    got = kac.acmatch(dev, pay, lens, model.spec, **kw)
+    assert torch.equal(got, kac.acmatch_plain(dev, pay, lens, model.spec)), kw
+    nh = -(-b // 32)
+    wire, served, hit, res16 = _k11_resident_operands(rng, b, cuda)
+    ops = kac.PayloadOps(dev, torch.ones(1, dtype=torch.int32, device=cuda), model.spec, pay, lens)
+    outs = []
+    for fn, extra in ((kac.acmatch_resident, kw), (kac.acmatch_resident_plain, {})):
+        s, r = served.clone(), res16.clone()
+        tail = torch.full((2 * nh,), -1, dtype=torch.int32, device=cuda)
+        fn(ops, wire, s, hit, r, tail, **extra)
+        outs.append((s, r, tail))
+    for x, y in zip(*outs):
+        assert torch.equal(x, y), kw
+    return got
+
+
+@pytest.mark.parametrize("b", [1, 31, 33, 256, 4096, 1 << 17, (1 << 17) + 1, 1 << 18])
+@pytest.mark.parametrize("plan", ["S", "L"])
+@pytest.mark.parametrize("name", ["s1024_pw2", "pw64"])
+def test_k11_forced_plans_match_plain(cuda, name, plan, b):
+    """Each of K11's plans forced at each size, both entries, against the
+    plain versions (plan S stages the reachable rows, plan L none)."""
+    from infw_torch.kernels import acmatch as kac
+
+    model = _k11_model(name, 64)
+    rng = np.random.default_rng(b + 7)
+    pay_np, lens_np = _k11_columns(rng, model, b, "attack")
+    dev = kac.model_device(model, cuda)
+    pay, lens = torch.from_numpy(pay_np).to(cuda), torch.from_numpy(lens_np).to(cuda)
+    before = kac.KERNEL.launches
+    _k11_both_entries(kac, dev, model, pay, lens, rng, cuda, plan=plan)
+    assert kac.KERNEL.launches == before + 1
+
+
+@pytest.mark.parametrize("b", [33, 4096, 1 << 18])
+@pytest.mark.parametrize("name", ["s64_pw1_matmul", "s1024_pw2", "s16384_pw32"])
+def test_k11_staging_forced_to_one_row(cuda, name, b):
+    """Staging cut to the root's row (and to none): almost every step then
+    takes the global path, and both entries still equal the plain ones."""
+    from infw_torch.kernels import acmatch as kac
+
+    model = _k11_model(name, 128)
+    rng = np.random.default_rng(b)
+    pay_np, lens_np = _k11_columns(rng, model, b, "attack")
+    dev = kac.model_device(model, cuda)
+    pay, lens = torch.from_numpy(pay_np).to(cuda), torch.from_numpy(lens_np).to(cuda)
+    for rows in (1, 0):
+        _k11_both_entries(kac, dev, model, pay, lens, rng, cuda, plan="S", rows=rows)
+    with pytest.raises(ValueError):
+        kac.acmatch(dev, pay, lens, model.spec, rows=model.spec.states + 1)
+
+
+@pytest.mark.parametrize("plan", ["S", "L"])
+def test_k11_out_of_range_delta_matches_plain(cuda, plan):
+    """A delta seeded with negative and >= S entries: the layout folds XLA's
+    clip into the table, so both entries equal the plain versions (which
+    clip at every read)."""
+    from infw_torch.kernels import acmatch as kac
+
+    model = _k11_model("s1024_pw2", 64)
+    rng = np.random.default_rng(11)
+    delta = model.delta.copy()
+    at = rng.integers(0, delta.size, 20000)
+    delta.flat[at] = rng.choice([-1, -9, -2**31, model.spec.states, 10**6, 2**31 - 1], 20000)
+    bad = model._replace(delta=delta)
+    dev = kac.model_device(bad, cuda)
+    pay_np, lens_np = _k11_columns(rng, bad, 4096, "attack")
+    pay, lens = torch.from_numpy(pay_np).to(cuda), torch.from_numpy(lens_np).to(cuda)
+    _k11_both_entries(kac, dev, bad, pay, lens, rng, cuda, plan=plan)
+
+
+@pytest.mark.parametrize("name", ["s1024_pw2", "pw64"])
+def test_k11_one_walk_and_lanes_past_their_slots(cuda, name):
+    """PW 2 and PW 64 (above the 32 words held in registers) in one launch
+    of one walk a lane, on the attack mix and on rows that land on more
+    reporting states than a lane's slots (pattern after pattern, and one
+    pattern repeated), which take the slow path."""
+    from infw_torch.kernels import acmatch as kac
+
+    model = _k11_model(name, 128)
+    rng = np.random.default_rng(5)
+    b = 3000
+    pay_np, lens_np = _k11_columns(rng, model, b, "attack")
+    short = [p for p in model.patterns if len(p) <= 4][:8] or list(model.patterns[:8])
+    for i in range(0, b, 3):
+        row = b"".join(short[(i + k) % len(short)] for k in range(32))[:128]
+        if i % 2:
+            row = (short[0] * 64)[:128]
+        pay_np[i, :len(row)] = np.frombuffer(row, np.uint8)
+        lens_np[i] = len(row)
+    dev = kac.model_device(model, cuda)
+    pay, lens = torch.from_numpy(pay_np).to(cuda), torch.from_numpy(lens_np).to(cuda)
+    before = kac.KERNEL.launches
+    got = _k11_both_entries(kac, dev, model, pay, lens, rng, cuda)
+    assert kac.KERNEL.launches == before + 1
+    bits = kac.layout_walk_plain(dev, pay, lens, model.spec)[0]
+    assert torch.equal(got, bits)
+    reported = np.unpackbits(got.cpu().numpy().view(np.uint8), axis=1).sum(axis=1)
+    assert reported[::3].max() > 4  # some lane reported more patterns than it has slots
+
+
+def test_k11_captured_resident_graph_replays_across_a_swap(cuda):
+    """The resident entry captured in a CUDA graph, then replayed after
+    PayloadTier.swap_patterns to a set with another reachable-state count
+    (the header and tables rewritten in place, no capture): every replay
+    equals the plain entry over the set in force."""
+    from infw_torch import payload as ppay
+    from infw_torch.kernels import acmatch as kac
+
+    spec = kac.AcSpec.make(1024, 64, 64)
+    sets = [ppay.signature_patterns(np.random.default_rng(s), n, 64)
+            for s, n in ((0, 64), (9, 40))]
+    tier = ppay.PayloadTier(kac.compile_patterns(sets[0], spec=spec), device=cuda)
+    heads = []
+    rng = np.random.default_rng(3)
+    b = 2048
+    pay_np, lens_np = _k11_columns(rng, tier.model, b, "attack")
+    ap, al = ppay.attack_payloads(rng, b // 4, sets[1], 64)
+    pay_np[1::4], lens_np[1::4] = ap[: len(pay_np[1::4])], al[: len(pay_np[1::4])]
+    pay, lens = torch.from_numpy(pay_np).to(cuda), torch.from_numpy(lens_np).to(cuda)
+    wire, served, hit, res16 = _k11_resident_operands(rng, b, cuda)
+    ops = tier.ops()._replace(pay=pay, plen=lens)
+    nh = -(-b // 32)
+    bufs = [served.clone(), res16.clone(), torch.zeros(2 * nh, dtype=torch.int32, device=cuda)]
+    kac.acmatch_resident(ops, wire, bufs[0], hit, bufs[1], bufs[2])  # eager first: the set-up
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        kac.acmatch_resident(ops, wire, bufs[0], hit, bufs[1], bufs[2])
+    launches = kac.RESIDENT_KERNEL.launches
+    for k, pats in enumerate([None, sets[1], sets[0]]):
+        if pats is not None:
+            tier.swap_patterns(pats)
+        heads.append(int(tier.ops().dev.head[0]))
+        bufs[0].copy_(served)
+        bufs[1].copy_(res16)
+        graph.replay()
+        want = [served.clone(), res16.clone(), torch.zeros(2 * nh, dtype=torch.int32,
+                                                           device=cuda)]
+        kac.acmatch_resident_plain(ops, wire, want[0], hit, want[1], want[2])
+        torch.cuda.synchronize()
+        for x, y in zip(bufs, want):
+            assert torch.equal(x, y), k
+    assert heads[0] != heads[1] and heads[0] == heads[2]
+    assert kac.RESIDENT_KERNEL.launches == launches  # replays launch through the graph
+
+
 def _with_payload(rng, batch, pats, plen=64):
     from infw_torch import payload as ppay
 

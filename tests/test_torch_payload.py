@@ -623,6 +623,181 @@ def test_ac_model_from_jax_and_the_constructor_forms(monkeypatch):
     assert TorchClassifier(device="cpu", payload=False).payload is None
 
 
+# --- K11's kernel layout -----------------------------------------------------------------
+
+#: automata of the layout tests: patterns, plen, pattern seed (bench_payload's
+#: set is seed 11; the ladder's chip_smoke.k11_model seeds, 100 + count)
+LAYOUT_SETS = {
+    "bench_payload": (64, 64, 11), "ladder64x64": (64, 64, 164),
+    "ladder64x128": (64, 128, 164), "ladder256x64": (256, 64, 356),
+    "ladder256x128": (256, 128, 356), "ladder1024x64": (1024, 64, 1124),
+    "ladder1024x128": (1024, 128, 1124),
+}
+
+
+def _layout_columns(rng, pats, plen, n=400):
+    """bench_payload's mix (10% planted signatures, benign HTTP prefixes)
+    with the length edge cases in front."""
+    k = n // 10
+    pa, la = ppay.attack_payloads(rng, k, pats, plen)
+    pb, lb = ppay.benign_payloads(rng, n - k, plen)
+    perm = rng.permutation(n)
+    pay = np.ascontiguousarray(np.concatenate([pa, pb])[perm])
+    lens = np.concatenate([la, lb])[perm].astype(np.int32)
+    lens[:8] = (0, -1, plen + 1, 2**31 - 1, -2**31, plen, plen - 1, 1)
+    return pay, lens
+
+
+def _check_layout(m, lay):
+    """The layout's invariants against its (delta, matchmap)."""
+    S = m.spec.states
+    perm = lay.perm
+    assert perm[0] == 0 and np.array_equal(np.sort(perm), np.arange(S))
+    order = np.argsort(perm)  # kernel id -> state id
+    reach = lay.depth >= 0
+    n_reach = int(reach.sum())
+    # reachable first, by depth (never decreasing) then id; the rest by id
+    assert reach[:n_reach].all() and not reach[n_reach:].any()
+    assert (np.diff(lay.depth[:n_reach]) >= 0).all()
+    for d in np.unique(lay.depth[:n_reach]):
+        ids = order[:n_reach][lay.depth[:n_reach] == d]
+        assert (np.diff(ids) > 0).all()
+    assert (np.diff(order[n_reach:]) > 0).all()
+    np.testing.assert_array_equal(lay.depth, pac.bfs_depth(m.delta)[order])
+    # every entry: the renumbered clipped target, the flag iff its row reports
+    shift = 15 if lay.next.dtype == np.uint16 else 31
+    e = lay.next.astype(np.int64)
+    target = np.clip(m.delta.astype(np.int64), 0, S - 1)[order]
+    np.testing.assert_array_equal(e & ((1 << shift) - 1), perm[target])
+    np.testing.assert_array_equal((e >> shift) != 0, m.matchmap.any(axis=1)[target])
+    np.testing.assert_array_equal(lay.mrows, m.matchmap[order])
+    np.testing.assert_array_equal(lay.head, [n_reach])
+
+
+@pytest.mark.parametrize("name", sorted(LAYOUT_SETS) + ["out_of_range_delta"])
+def test_kernel_layout_walk_equals_plain_and_jitted_acmatch(name):
+    """K11's layout (a BFS permutation with pi(0) = 0, the flag of each
+    entry equal to "the target's matchmap row is non-zero") and a plain walk
+    over it, bit for bit equal to acmatch_plain and the JAX package's
+    jitted_acmatch: bench_payload's mix, the 64 / 256 / 1024-pattern ladder
+    automata at 64 and 128 B, the length edge cases, and a delta seeded
+    with negative and >= S entries (the clip folded into the table)."""
+    count, plen, seed = LAYOUT_SETS.get(name, (64, 64, 11))
+    pats = _pats(count, plen, seed=seed)
+    jm = jac.compile_patterns(pats, plen=plen)
+    rng = np.random.default_rng(count + plen)
+    if name == "out_of_range_delta":
+        delta = jm.delta.copy()
+        at = rng.integers(0, delta.size, 4000)
+        delta.flat[at] = rng.choice([-1, -7, -2**31, jm.spec.states, 10**6, 2**31 - 1], 4000)
+        jm = jm._replace(delta=delta)
+    pm = convert.ac_model_from_jax(jm)
+    lay = pac.kernel_layout(pm.delta, pm.matchmap)
+    assert lay.next.dtype == np.uint16
+    _check_layout(pm, lay)
+    pay, lens = _layout_columns(rng, pats, plen)
+    dev = pac.model_device(pm, "cpu")
+    assert np.array_equal(dev.next.numpy().view(np.uint16), lay.next)
+    p, n = torch.from_numpy(pay), torch.from_numpy(lens)
+    got, hit = pac.layout_walk_plain(dev, p, n, pm.spec)
+    want = pac.acmatch_plain(dev, p, n, pm.spec)
+    assert torch.equal(got, want) and torch.equal(hit, (want != 0).any(dim=1))
+    jax_want = np.asarray(jac.jitted_acmatch(jm.spec)(*jac.model_device(jm), pay, lens))
+    np.testing.assert_array_equal(got.numpy().view(np.uint32), jax_want)
+    assert hit[8:].any() and not hit[[0, 1, 4]].any()
+
+
+def test_kernel_layout_above_32768_states_takes_32_bit_entries():
+    """A spec of 65536 states: 32-bit entries, the flag in bit 31, and the
+    walk over them equal to acmatch_plain."""
+    pats = _pats(64, 64, seed=11)
+    pm = pac.compile_patterns(pats, spec=pac.AcSpec.make(65536, 64, 64))
+    lay = pac.kernel_layout(pm.delta, pm.matchmap)
+    assert lay.next.dtype == np.uint32 and pac.entry_bytes(pm.spec) == 4
+    _check_layout(pm, lay)
+    dev = pac.model_device(pm, "cpu")
+    assert dev.next.dtype == torch.int32
+    pay, lens = _layout_columns(np.random.default_rng(5), pats, 64, n=120)
+    p, n = torch.from_numpy(pay), torch.from_numpy(lens)
+    got, hit = pac.layout_walk_plain(dev, p, n, pm.spec)
+    assert torch.equal(got, pac.acmatch_plain(dev, p, n, pm.spec)) and hit.any()
+
+
+def test_model_copy_rewrites_the_layout_in_place():
+    """After model_copy_ to another set of one spec (another reachable
+    count), every tensor equals a fresh model_device's and keeps its
+    address, and the first set's host arrays are untouched (the CPU's
+    tensors are copies, never views of them); the tier's swap does the
+    same."""
+    spec = pac.AcSpec.make(1024, 64, 64)
+    a = pac.compile_patterns(_pats(64, seed=11), spec=spec)
+    b = pac.compile_patterns(_pats(40, seed=3), spec=spec)
+    kept = (a.delta.copy(), a.matchmap.copy())
+    dev = pac.model_device(a, "cpu")
+    ptrs = [t.data_ptr() for t in dev]
+    pac.model_copy_(dev, b)
+    fresh = pac.model_device(b, "cpu")
+    assert [t.data_ptr() for t in dev] == ptrs
+    assert all(torch.equal(x, y) for x, y in zip(dev, fresh))
+    assert int(fresh.head[-1]) != int(pac.model_device(a, "cpu").head[-1])
+    tier = ppay.PayloadTier(a, device="cpu")
+    ptrs = [t.data_ptr() for t in tier.ops().dev]
+    tier.swap_patterns(b)
+    assert [t.data_ptr() for t in tier.ops().dev] == ptrs
+    assert all(torch.equal(x, y) for x, y in zip(tier.ops().dev, fresh))
+    assert np.array_equal(a.delta, kept[0]) and np.array_equal(a.matchmap, kept[1])
+
+
+@pytest.mark.parametrize("b", [1, 31, 256, 257, 4096, 1 << 17, (1 << 17) + 1, 1 << 18])
+def test_k11_launch_plans(b):
+    """plan_for and launch_plan: plan S up to the crossover; at most one
+    block an SM, a block's threads whole warps of at most MAX_THREADS that
+    with the plan's lanes a thread cover every lane with the stride loop, at
+    most the plan's lanes a block short of a full grid; plan S's blocks
+    stage the rows their shared memory holds beside the slots, plan L's
+    none, a forced count in between."""
+    spec = pac.AcSpec.make(1024, 64, 64)
+    limit, sms = 232448, 132
+    assert pac.plan_for(b) == ("S" if b <= pac.STAGED_PLAN_MAX_LANES else "L")
+    for name, (_, per_block, lanes, staged) in pac.PLANS.items():
+        lp = pac.launch_plan(name, b, spec, limit, sms)
+        assert 1 <= lp.grid <= sms and lp.threads % 32 == 0 and 32 <= lp.threads <= 1024
+        assert lp.grid * lp.threads * lanes >= min(b, sms * pac.MAX_THREADS * lanes)
+        assert lp.grid == sms or -(-b // lp.grid) <= per_block
+        assert lp.rows == (pac.row_cap(spec, limit) if staged else 0)
+        if staged:
+            assert pac.launch_plan(name, b, spec, limit, sms, rows=1).rows == 1
+        with pytest.raises(ValueError):
+            pac.launch_plan(name, b, spec, limit, sms, rows=423 if staged else 1)
+    assert pac.row_cap(spec, limit) == 422
+    assert pac.row_cap(pac.AcSpec.make(64, 8), limit) == 64
+    assert pac.row_cap(pac.AcSpec.make(65536, 64), limit) == 211
+    with pytest.raises(ValueError):
+        pac.launch_plan("X", b, spec, limit, sms)
+
+
+def test_payload_plans_inputs_and_no_card(capsys):
+    """The plan tool's inputs: bench_payload's automaton (seed 11) as the
+    JAX package compiles it, its 10% attack mix with the length edge cases
+    in front, and the resident entry's operands; without a card it exits 2
+    and prints no result."""
+    from infw_torch.tools import payload_plans
+
+    model = payload_plans.bench_model()
+    jm = jac.compile_patterns(jpay.signature_patterns(np.random.default_rng(11), 64, 64), plen=64)
+    assert model.delta.tobytes() == jm.delta.tobytes() and tuple(model.spec) == tuple(jm.spec)
+    pay, lens = payload_plans.attack_columns(model, 3000)
+    assert pay.shape == (3000, 64) and pay.dtype == np.uint8 and lens.dtype == np.int32
+    assert list(lens[:8]) == [0, -1, 65, 2**31 - 1, 64, 63, -2**31, 1]
+    hit = (pac.host_match_bitmap(model, pay, lens) != 0).any(axis=1)
+    assert 0.05 < hit[8:2048].mean() < 0.2
+    wire, served, hitw, res16 = payload_plans.resident_operands(33, "cpu")
+    assert wire.shape == (33, 7) and served.numel() == 17 == res16.numel() and hitw.numel() == 2
+    if not torch.cuda.is_available():
+        assert payload_plans.main(["--sizes", "256"]) == 2
+        assert capsys.readouterr().out == ""
+
+
 # --- the daemons -------------------------------------------------------------------------
 
 @pytest.mark.parametrize("mode", ["shadow", "enforce"])
