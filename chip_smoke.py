@@ -4945,7 +4945,7 @@ def flow_phase(tag: str) -> tuple:
     if not outs["flow 0"] == outs["flow 1"] == outs["stateless 0"]:
         raise SystemExit("flow daemon: its verdict files differ from the stateless daemon's")
     FLOW_STASH.update(daemon_doc=doc, daemon_fb=fb, daemon_registry=registry,
-                      daemon_stateless=outs["stateless 0"])
+                      daemon_tables=dtables, daemon_stateless=outs["stateless 0"])
     log(f"flow daemon: both passes' verdict files equal the stateless daemon's "
         f"({tmeta['n_flows']} flows in {len(fb)} frames)")
     shutil.rmtree(root, ignore_errors=True)
@@ -5743,8 +5743,8 @@ TELEMETRY_ENTRIES, TELEMETRY_CHUNK, TELEMETRY_CHUNKS = 100_000, 256, 80
 #: batch sizes K9 is held against its plain version at, and timed at
 K9_SIZES, K9_TIMED = (1, 31, 256, 4096, 65536), (256, 4096, 1 << 18)
 #: the sizes both K9 plans are timed at (infw_torch.tools.sketch_plans; either
-#: side of its 2048-lane crossover, cut from eight sizes for the script's time)
-K9_LADDER = (256, 2048, 2560, 4096)
+#: side of its 2048-lane crossover; two sizes for the script's time)
+K9_LADDER = (2048, 2560)
 
 
 def telemetry_tables():
@@ -6349,8 +6349,8 @@ def telemetry_phase(tag: str) -> dict:
 MLSCORE_CHUNK, MLSCORE_CHUNKS = 256, 60
 K10_SIZES, K10_TIMED = (1, 256, 4096, 1 << 18), (256, 4096, 1 << 18)
 #: the sizes the scoring phase's plan ladder times both of K10's plans at (either
-#: side of the 1024-lane crossover)
-K10_LADDER = (256, 1024, 1280, 4096)
+#: side of the 1024-lane crossover; two sizes for the script's time)
+K10_LADDER = (1024, 1280)
 
 
 def mlscore_tables():
@@ -6997,8 +6997,9 @@ PAYLOAD_CHUNK, PAYLOAD_CHUNKS = 256, 40
 K11_GRID = {"S 64, PW 1, matmul": (8, True), "S 1024, PW 2": (64, False),
             "S 16384, PW 32": (1024, False), "PW 64": (2048, False)}
 K11_SIZES, K11_TIMED = (1, 31, 33, 256, 4096, 1 << 18), (256, 4096, 1 << 18)
-#: K11's plan ladder: two sizes either side of the measured crossover
-K11_PLAN_LADDER = (65536, 1 << 17, 196608, 1 << 18)
+#: K11's plan ladder: one size either side of the measured crossover (for the
+#: script's time)
+K11_PLAN_LADDER = (1 << 17, 196608)
 #: bench_payload's automaton ladder (bench.py:4576-4602): patterns x prefix bytes at B = 256
 K11_LADDER = (64, 256, 1024)
 _K11_MODELS: dict = {}
@@ -7627,6 +7628,397 @@ def payload_phase(tag: str) -> dict:
     }
 
 
+# the daemon's ingest ring (ROADMAP item 24c): records of RING_RECORD packets
+# (7-word wire) of flow_trace_batch traffic over the flow phase's daemon
+# table, SYN / ACK / FIN and a 2% share of RST|ACK lanes, with
+# bench_payload's 64-byte payload prefixes at its 10% attack mix; a pass is
+# RING_RECORDS records with one 4-word record of IPv4 lanes among them (a
+# shape-class break), and a last record of RST_ROWS RST|ACK packets of
+# established flows
+RING_RECORD, RING_RECORDS, RING_K, RING_SEED, RST_ROWS = 4096, 32, 4, 7900, 4096
+# the daemon's tick budget (and the ring's slot size) and its pipeline depth:
+# 20 slots of 32768 packets, 8 records a tick
+RING_TICK_PACKETS, RING_DEPTH = 8 * 4096, 8
+
+
+def ring_traffic(tables, pats) -> tuple:
+    """The ring phase's records: (one pass's records, the RST record), each
+    record (wire, v4_only, flags, payload, lengths) in push order, and the
+    pass's trace, payload and lengths for the producer."""
+    from infw_torch import testing
+    from infw_torch.constants import IPPROTO_TCP, TCP_ACK, TCP_RST
+
+    rng = np.random.default_rng(RING_SEED)
+    n = RING_RECORD * RING_RECORDS
+    trace, _meta = testing.flow_trace_batch(rng, tables, n, 0.9, chunk_packets=RING_RECORD)
+    flags = np.asarray(trace.tcp_flags).copy()
+    flags[(flags == TCP_ACK) & (rng.random(n) < 0.02)] = TCP_RST | TCP_ACK
+    trace.tcp_flags = flags
+    pay, plen = payload_mix(np.random.default_rng(1500), n, pats, 64)
+
+    def rec(idx, fl=None, p=None, pl=None):
+        w, v4 = trace.pack_wire_subset(np.asarray(idx, np.int64))
+        return (w, v4, flags[idx] if fl is None else fl, pay[idx] if p is None else p,
+                plen[idx] if pl is None else pl)
+
+    half = RING_RECORDS // 2
+    recs = [rec(np.arange(i * RING_RECORD, (i + 1) * RING_RECORD)) for i in range(RING_RECORDS)]
+    v4 = np.nonzero(np.asarray(trace.kind) == 1)[0][:RING_RECORD]
+    brk = rec(v4)
+    if brk[0].shape[1] != 4 or any(r[0].shape[1] != 7 for r in recs):
+        raise SystemExit(f"ring: record widths {[r[0].shape for r in recs]} and {brk[0].shape}")
+    recs.insert(half, brk)
+    # the RST record: one packet of each of RST_ROWS established TCP flows
+    wire7 = trace.pack_wire()
+    tcp = np.nonzero((np.asarray(trace.proto) == IPPROTO_TCP) & (flags == TCP_ACK))[0]
+    _u, first = np.unique(wire7[tcp], axis=0, return_index=True)
+    pick = np.sort(tcp[first])[:RST_ROWS]
+    rst = rec(pick, fl=np.full(len(pick), TCP_RST | TCP_ACK, np.int32),
+              p=np.zeros((len(pick), 64), np.uint8), pl=np.zeros(len(pick), np.int32))
+    return recs, rst, trace, pay, plen
+
+
+def ring_producer(ring_path: str, trace, pay, plen, brk) -> tuple:
+    """A producer thread on the port's loadgen (push_records): one pass, the
+    first half of the records, the break record, the second half.  ->
+    (thread, its result list)."""
+    import threading
+
+    from infw_torch.ring import IngestRing
+    from infw_torch.tools import loadgen
+
+    half = RING_RECORDS // 2 * RING_RECORD
+    out: list = []
+
+    def run():
+        prod = IngestRing.attach(ring_path)
+        try:
+            out.append(loadgen.push_records(prod, trace.slice(0, half), RING_RECORD,
+                                            pay[:half], plen[:half], timeout=300.0))
+            w, v4, fl, p, pl = brk
+            prod.push(w, v4_only=v4, tcp_flags=fl, payload=p, payload_len=pl, timeout=300.0)
+            n = len(trace)
+            out.append(loadgen.push_records(prod, trace.slice(half, n), RING_RECORD,
+                                            pay[half:], plen[half:], timeout=300.0))
+        except Exception as e:  # surfaced by the phase
+            out.append(e)
+        finally:
+            prod.close()
+
+    t = threading.Thread(target=run, name="ring-producer")
+    t.start()
+    return t, out
+
+
+def ring_config(tag: str, name: str, pats, mode: str, resident: bool, recs, rst, trace, pay,
+                plen) -> dict:
+    """One daemon configuration of the ring phase (see ring_phase)."""
+    import shutil
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from infw_torch import daemon
+    from infw_torch.backend.cuda import TorchClassifier
+    from infw_torch.constants import FLOW_FIN
+    from infw_torch.flow import FlowConfig
+    from infw_torch.kernels import all_kernels
+    from infw_torch.ring import IngestRing
+
+    st = FLOW_STASH
+    kernels = all_kernels()
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "ring-smoke", name)
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    extra = {"resident": True, "superbatch_k": RING_K} if resident else {}
+    d = daemon.Daemon(state_dir=os.path.join(root, "state"), node_name=DAEMON_NODE,
+                      registry=st["daemon_registry"], metrics_port=0, health_port=0,
+                      poll_period_s=0.1, file_poll_interval_s=0.002,
+                      pipeline_depth=RING_DEPTH, max_tick_packets=RING_TICK_PACKETS,
+                      flow_table=FlowConfig.make(entries=FLOW_SLAB), payload=pats,
+                      payload_mode=mode, trace=True, ring=os.path.join(root, "ingest.ring"),
+                      backend="cuda" if DEV == "cuda" else "cpu", **extra)
+    ring = d.ingest_ring
+    card = DEV == "cuda"
+    if card and ring.pinned == resident:
+        raise SystemExit(f"ring {name}: staging {ring.pinned} (pinned staging is the "
+                         f"multi-dispatch daemon's, the resident pool stages its own)")
+    # the daemon's order of pops (each record's dispatch follows its pop at
+    # once) and drains, and each record's verdicts (PendingClassify caches
+    # them): the multi-dispatch plan inserts a record's misses when it
+    # materializes, so the flow tier's counters depend on that order
+    served, pinned_views, events = {}, [], []
+    drain, pop = d._ring_drain_one, ring.pop
+
+    def drain_one():
+        chunk, pending, _trace = d._ring_inflight[0]
+        if card and not resident and len(pinned_views) < 4:
+            pinned_views.append(all(torch.from_numpy(a).is_pinned() for a in (
+                chunk.wire, chunk.tcp_flags, chunk.payload, chunk.payload_len)))
+        # read back and noted before drain() releases the slot, which the
+        # main thread waits on
+        served[chunk.seq] = pending.result()
+        events.append(("drain", chunk.seq))
+        drain()
+
+    def pop_logged(timeout=0.0):
+        chunk = pop(timeout)
+        if chunk is not None:
+            events.append(("pop", chunk.seq))
+        return chunk
+
+    d._ring_drain_one, ring.pop = drain_one, pop_logged
+    total = 3 * len(recs) + 1
+
+    def wait_drained(what: str, n: int) -> None:
+        _wait(lambda: ring.tail >= n, f"the ring {name} daemon's {what}", 300, 0.001)
+
+    out = {"records": total}
+    try:
+        d.start()
+        for k in kernels:
+            k.launches = 0
+        # pass 1: records wait in the ring until the NodeState lands, so the
+        # first ticks find it full (superbatches of K in the resident daemon)
+        thread, res = ring_producer(ring.path, trace, pay, plen, recs[len(recs) // 2])
+        _wait(lambda: len(ring) >= min(ring.slots, len(recs)) or not thread.is_alive(),
+              f"the ring {name} prefill", 120)
+        p = os.path.join(d.nodestates_dir, f"{DAEMON_NODE}.json")
+        with open(p + ".tmp", "w") as f:
+            json.dump(st["daemon_doc"], f)
+        os.replace(p + ".tmp", p)
+        wait_drained("pass 1", len(recs))
+        thread.join()
+        c = d.syncer.classifier
+        # pass 2, timed: the producer writes while the daemon serves (a
+        # superbatch of another size than pass 1's captures its graph here)
+        graphs0 = c.resident.graphs() if resident else 0
+        spans0 = d.tracer.histograms.values()
+        t = time.perf_counter()
+        thread, res2 = ring_producer(ring.path, trace, pay, plen, recs[len(recs) // 2])
+        wait_drained("pass 2", 2 * len(recs))
+        wall = time.perf_counter() - t
+        thread.join()
+        spans1 = d.tracer.histograms.values()
+        split = {s: (spans1[s]["sum_us"] - spans0[s]["sum_us"]) / 1e3
+                 for s in ("ingest", "h2d", "dispatch", "materialize", "drain")}
+        errs = [r for r in res + res2 if isinstance(r, Exception)]
+        if errs:
+            raise SystemExit(f"ring {name}: the producer failed: {errs[0]!r}")
+        npk = sum(len(r[0]) for r in recs)
+        out.update(pass_s=wall, packets=npk, packets_per_s=npk / wall, stage_ms=split,
+                   pass_captures=(c.resident.graphs() - graphs0) if resident else 0,
+                   producer=res2[-1])
+        # pass 3, profiled: the copies' kinds and the card's idle share
+        disp0 = c.resident_counters().get("resident_dispatches_total", 0)
+        with profile(activities=[ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if card
+                                                          else [])) as prof:
+            if card:
+                for _ in range(64):
+                    torch.cuda._sleep(1000)  # takes the trace's first, dropped events
+                torch.cuda.synchronize()
+            t = time.perf_counter()
+            thread, res3 = ring_producer(ring.path, trace, pay, plen, recs[len(recs) // 2])
+            wait_drained("pass 3", 3 * len(recs))
+            wall3 = time.perf_counter() - t
+            thread.join()
+            if card:
+                torch.cuda.synchronize()
+        errs = [r for r in res3 if isinstance(r, Exception)]
+        if errs:
+            raise SystemExit(f"ring {name}: the producer failed: {errs[0]!r}")
+        _copy_ms, _over, names, busy_ms = copy_overlap(prof)
+        pinned = names.get("Memcpy HtoD (Pinned -> Device)", 0)
+        pageable = names.get("Memcpy HtoD (Pageable -> Device)", 0)
+        disp3 = c.resident_counters().get("resident_dispatches_total", 0) - disp0
+        out.update(profiled_pass_s=wall3, busy_ms=busy_ms,
+                   idle_share=max(0.0, 1.0 - busy_ms / 1e3 / wall3), copies=names)
+        # the RST record: each of its lanes that hits tears its flow down
+        fc0 = c.flow_counters()
+        w, v4, fl, p, pl = rst
+        prod = IngestRing.attach(ring.path)
+        prod.push(w, v4_only=v4, tcp_flags=fl, payload=p, payload_len=pl, timeout=60.0)
+        prod.close()
+        wait_drained("RST record", total)
+        fc1 = c.flow_counters()
+        launches = {k.name: k.launches for k in kernels if k.launches}
+        cols = c.flow.flow_columns()
+        fin_entries = int((cols["se"][:, 0] == FLOW_FIN).sum())
+        out.update(launches=launches, flow=fc1, fin_entries=fin_entries,
+                   rst_torn=fc0["flow_occupancy"] - fc1["flow_occupancy"],
+                   payload=c.payload_counters(), ring=ring.counter_values())
+        if resident:
+            out["resident"] = c.resident_counters()
+            # each graph's first run (before its capture) launches its steps
+            warm = sum(max(key[4], 1) for key in c.resident._ctx.graphs)
+            out["graphs"] = len(c.resident._ctx.graphs)
+            if card and not all(g.pinned_in.is_pinned()
+                                for g in c.resident._ctx.graphs.values()):
+                raise SystemExit(f"ring {name}: a graph's input buffer is not pinned")
+        # every slot released, /metrics' ring_* the ring's
+        if not (ring.tail == ring.head == total and not d._ring_inflight
+                and len(served) == total):
+            raise SystemExit(f"ring {name}: tail {ring.tail}, head {ring.head}, "
+                             f"{len(d._ring_inflight)} in flight, {len(served)} served of {total}")
+        for key, v in ring.counter_values().items():
+            if _metric(d, key) != v:
+                raise SystemExit(f"ring {name}: /metrics {key} {_metric(d, key)} is not {v}")
+        # the same records in the same order through the classic entry points
+        ref = TorchClassifier(device=None if card else "cpu", payload=pats, payload_mode=mode,
+                              flow_table=FlowConfig.make(entries=FLOW_SLAB))
+        ref.load_tables(st["daemon_tables"])
+        # (the multi-dispatch daemon's pops and drains replayed in its order;
+        # a resident step inserts before the next step probes, so the
+        # resident daemon's order is the records')
+        order = recs * 3 + [rst]
+        replay = events if not resident else [(e, seq) for seq in range(total)
+                                               for e in ("pop", "drain")]
+        pend = {}
+        for ev, seq in replay:
+            if ev == "pop":
+                w, v4, fl, p, pl = order[seq]
+                pend[seq] = ref.classify_async_packed(w, v4, tcp_flags=fl, payload=p,
+                                                      payload_len=pl)
+                continue
+            o, g = pend.pop(seq).result(), served[seq]
+            if not (np.array_equal(g.results, o.results) and np.array_equal(g.xdp, o.xdp)):
+                raise SystemExit(f"ring {name}: record {seq}'s verdicts differ from the classic "
+                                 f"entry's ({int((g.results != o.results).sum())} lanes)")
+        if not np.array_equal(np.asarray(c.stats.snapshot()), np.asarray(ref.stats.snapshot())):
+            raise SystemExit(f"ring {name}: statistics differ from the classic entry's")
+        if c.payload_counters() != ref.payload_counters():
+            raise SystemExit(f"ring {name}: payload counters {c.payload_counters()} are not the "
+                             f"classic entry's {ref.payload_counters()}")
+        # all but the idle loop's age sweeps, timed by the wall clock (which
+        # aged nothing)
+        rfc = ref.flow_counters()
+        rfc["flow_age_sweeps_total"] = fc1["flow_age_sweeps_total"]
+        if fc1 != rfc or fc1["flow_aged_total"]:
+            raise SystemExit(f"ring {name}: flow counters {fc1} are not the classic entry's "
+                             f"{rfc}")
+        ref.close()
+        # the flags reached K7 and K8; K11 launched as expected
+        if (fc1["flow_promotes_total"] <= 0 or fin_entries <= 0 or out["rst_torn"] <= 0):
+            raise SystemExit(f"ring {name}: SYN promotes {fc1['flow_promotes_total']}, FIN "
+                             f"entries {fin_entries}, RST teardowns {out['rst_torn']}")
+        if not card:
+            k11 = None  # the plain versions count no launch
+        elif resident:
+            k11 = launches.get("payload_match_resident", 0)
+            want = total + warm
+            sb = out["resident"]["resident_superbatch_dispatches_total"]
+            if k11 != want or sb <= 0 or launches.get("payload_match", 0):
+                raise SystemExit(f"ring {name}: K11 resident launches {k11}, expected {want} "
+                                 f"(one a step: {total} records, {warm} in the first runs of "
+                                 f"{out['graphs']} graphs), superbatches {sb}, {launches}")
+            if pinned < disp3:
+                raise SystemExit(f"ring {name}: {pinned} pinned and {pageable} pageable copies "
+                                 f"in the profiled pass of {disp3} dispatches")
+        else:
+            k11 = launches.get("payload_match", 0)
+            if k11 != total:
+                raise SystemExit(f"ring {name}: K11 launches {k11}, expected one a record "
+                                 f"({total}); {launches}")
+            if not all(pinned_views) or pinned < 3 * len(recs):
+                raise SystemExit(f"ring {name}: popped views pinned {pinned_views}, {pinned} "
+                                 f"pinned and {pageable} pageable copies in the profiled pass "
+                                 f"of {len(recs)} records")
+        out.update(pinned_copies=pinned, pageable_copies=pageable, k11=k11,
+                   profiled_dispatches=disp3 if resident else len(recs))
+        log(f"{tag} ring {name}: {len(recs)} records ({npk} packets, one 4-word) a pass in "
+            f"{wall:.3f} s = {npk / wall / 1e6:.3f} M packets/s ({out['pass_captures']} graphs "
+            f"captured in it; the producer writing "
+            f"alongside: {out['producer']}); ring spans of the pass (ms, summed over records): "
+            f"{ {k: round(v, 3) for k, v in split.items()} }; profiled pass {wall3:.3f} s, card "
+            f"busy {busy_ms:.3f} ms = idle share {out['idle_share']:.4f}; copies {names}; "
+            f"launches over {total} records {launches}; flow {fc1}; FIN entries {fin_entries}, "
+            f"RST teardowns {out['rst_torn']}; payload {out['payload']}"
+            + (f"; resident {out['resident']}, graphs {out['graphs']}" if resident else ""))
+    finally:
+        d.stop()
+    shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+def ring_phase(tag: str) -> dict:
+    """The daemon's ingest ring (ROADMAP item 24c) on the card: a producer
+    thread (infw_torch.tools.loadgen.push_records) writes the records of
+    ring_traffic into the daemon's ring, which serves them:
+
+    (a) --ring --flow-table --payload (bench_payload's 64 patterns x 64 B,
+        seed 11, shadow) on the multi-dispatch plan, the ring's pinned
+        staging on;
+    (b) --ring --resident --superbatch-k 4 --payload (the same set,
+        enforce), the resident pool's pinned input.
+
+    Each: pass 1 fills the ring before the NodeState lands; pass 2 is timed
+    (packets/s, the ring spans); pass 3 runs under the profiler (the
+    copies' kinds, the card's busy time); then the RST record.  Fatal: the
+    verdicts of every record, the statistics, the payload and flow
+    counters equal to the same records through the classic entry point
+    (classify_async_packed) in the same order; K11 launched once a record
+    (a) or once a step, superbatch or single, plus the first runs of the
+    graphs captured (b); SYN promotes, FIN entries and RST teardowns above
+    0; every slot released, ring_* on /metrics equal to the ring's; the
+    popped views pinned and three pinned copies a record in the profiled
+    pass (a), the graphs' inputs pinned (b)."""
+    from infw_torch import payload as ppay
+
+    pats = ppay.signature_patterns(np.random.default_rng(11), 64, plen=64)
+    recs, rst, trace, pay, plen = ring_traffic(FLOW_STASH["daemon_tables"], pats)
+    out = {"register": ring_register_probe(tag)} if DEV == "cuda" else {}
+    for name, mode, resident in (("a", "shadow", False), ("b", "enforce", True)):
+        out[name] = ring_config(tag, name, pats, mode, resident, recs, rst, trace, pay, plen)
+    log(f"{tag} ring (b) against (a): {out['b']['packets_per_s'] / 1e6:.3f} against "
+        f"{out['a']['packets_per_s'] / 1e6:.3f} M packets/s, idle share "
+        f"{out['b']['idle_share']:.4f} against {out['a']['idle_share']:.4f}")
+    return out
+
+
+def ring_register_probe(tag: str) -> int:
+    """Whether CUDA registers a ring file's mapping under build/ as
+    page-locked memory (cudaHostRegister), the JAX ring's zero-copy design;
+    the daemon stages each record into pinned buffers instead, whatever
+    this answers.  Returns the CUDA error code (0: registered)."""
+    import shutil
+    import threading
+
+    import torch
+
+    from infw_torch.ring import IngestRing
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    root = os.path.join(here, "build", "ring-register")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    ring = IngestRing.create(os.path.join(root, "r.ring"), slots=8, slot_packets=4096)
+    buf = np.frombuffer(ring._mm, np.uint8)
+    ptr, size = int(buf.ctypes.data), int(buf.nbytes)
+    del buf
+    cudart, result = torch.cuda.cudart(), []
+
+    def register():
+        rc = int(cudart.cudaHostRegister(ptr, size, 0))
+        if rc == 0:
+            cudart.cudaHostUnregister(ptr)
+        result.append(rc)
+
+    # on a thread of its own: the runtime keeps a refused call's error as
+    # that thread's last error, which the next launch check on the same
+    # thread would raise
+    probe = threading.Thread(target=register, name="ring-register")
+    probe.start()
+    probe.join()
+    rc = result[0]
+    ring.close()
+    shutil.rmtree(root, ignore_errors=True)
+    fs = subprocess.run(["stat", "-f", "-c", "%T", here], capture_output=True,
+                        text=True).stdout.strip()
+    log(f"{tag} ring: cudaHostRegister of a {size}-byte ring mapping on this checkout's "
+        f"filesystem ({fs}) returns CUDA error {rc} (0 registered, 1 cudaErrorInvalidValue)")
+    return rc
+
+
 def main() -> int:
     import torch
 
@@ -7921,8 +8313,20 @@ def main() -> int:
     # cell, K11's times, the daemon with --resident --payload default
     t_phase = time.perf_counter()
     k11 = payload_phase(tag)
-    FLOW_STASH.clear()
     log_phase(f"phase payload: {time.perf_counter() - t_phase:.1f} s; "
+              f"{time.perf_counter() - t_start:.1f} s since the start")
+
+    # 11g. the daemon's ingest ring: a producer thread, the multi-dispatch
+    # daemon and the resident superbatch daemon against the classic entry
+    t_phase = time.perf_counter()
+    ring = ring_phase(tag)
+    FLOW_STASH.clear()
+    for k, names in ((k7, ("flow_probe", "flow_probe_resident")),
+                     (k8, ("flow_insert", "flow_insert_resident")),
+                     (k11, ("payload_match", "payload_match_resident"))):
+        k["ring_daemon_launches"] = {cfg: {n: ring[cfg]["launches"].get(n, 0) for n in names}
+                                     for cfg in ("a", "b")}
+    log_phase(f"phase daemon ring: {time.perf_counter() - t_phase:.1f} s; "
               f"{time.perf_counter() - t_start:.1f} s since the start")
 
     # 12. the daemon: the headline CRs' ingress blocks as one NodeState,

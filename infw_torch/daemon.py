@@ -112,14 +112,28 @@ contract NODE_NAME / NAMESPACE / POLL_PERIOD_SECONDS / ENABLE_LPM_LOOKUP_DBG
   ``<state-dir>/patterns/`` (consumed; bad pairs consumed and logged; the
   last swapped set is applied again to a rebuilt classifier);
   ``payload_*`` counters go to /metrics.  The frames files carry no
-  payload bytes (the JAX daemon's only source of them is the ingest ring,
-  ROADMAP.md item 24c), so the tier matches nothing there: the daemon
-  serves on headers, as the JAX daemon does without ``--ring``.
+  payload bytes, so the tier matches nothing there: the daemon serves them
+  on headers; the ingest ring carries the column.
 
-The JAX daemon's scheduler, ingest ring (with the superbatch that only
-the ring reads, ``--superbatch-k``), events socket and mesh options are
-not in the port yet: ``main`` refuses each of their flags, naming its
-ROADMAP item.
+- ``--ring PATH`` (``INFW_RING``) creates the ingest ring
+  (infw_torch.ring) at PATH: ``max(8, 2 * pipeline_depth + 4)`` slots of
+  ``max(max_tick_packets, 4096)`` packets, each with room for the TCP
+  flags and, with ``--payload``, the payload column.  A producer
+  (``python -m infw_torch.tools.loadgen --ring PATH``, or the JAX
+  package's) writes packed-wire records in place; the file loop, before
+  the frames files, serves the committed records through
+  ``prepare_packed`` (flags to K7 and K8, the column to K11), up to
+  ``pipeline_depth`` in flight, and releases each slot after its verdicts
+  materialized.  ``--superbatch-k K`` (``INFW_SUPERBATCH_K``, 1) lets a
+  ``--resident`` daemon stack up to K committed records of one shape into
+  one superbatch.  On the card a daemon without ``--resident`` copies each
+  popped record once into page-locked memory (``IngestRing.stage_pinned``)
+  so its copies to the card are pinned.  ``ring_*`` gauges go to
+  /metrics; with ``--trace`` each record's ring spans (ingest = the pop,
+  h2d, dispatch, materialize, drain) join the span histograms.
+
+The JAX daemon's scheduler, events socket and mesh options are not in the
+port yet: ``main`` refuses each of their flags, naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -183,16 +197,13 @@ _FRAMES_MAGIC2 = b"INFW2\n"
 #: asks for the option when it is set to anything but "", "0", "false" or
 #: "no" (INFW_FUSED_DEEP the other way round: "0", "false" or "no" turn the
 #: fused walk off, which is what --no-fused-deep asks for)
-_ITEM_24 = "ROADMAP.md item 24 (the scheduler, the ingest ring, the events sidecar)"
 REFUSED_FLAGS = (
     ("--mesh", "INFW_MESH", "ROADMAP.md item 15 (multi-device)"),
-    ("--superbatch-k", "INFW_SUPERBATCH_K",
-     "ROADMAP.md item 24c (the ingest ring, the superbatch's only reader)"),
-    ("--deadline-us", "INFW_DEADLINE_US", _ITEM_24),
-    ("--max-batch", "INFW_MAX_BATCH", _ITEM_24),
-    ("--ring", "INFW_RING", _ITEM_24),
-    ("--events-socket", "INFW_EVENTS_SOCKET", _ITEM_24),
-    ("--no-fused-deep", "INFW_FUSED_DEEP", _ITEM_24),
+    ("--deadline-us", "INFW_DEADLINE_US", "ROADMAP.md item 24b (the deadline scheduler)"),
+    ("--max-batch", "INFW_MAX_BATCH", "ROADMAP.md item 24b (the deadline scheduler)"),
+    ("--events-socket", "INFW_EVENTS_SOCKET", "ROADMAP.md item 24d (the events sidecar)"),
+    ("--no-fused-deep", "INFW_FUSED_DEEP",
+     "ROADMAP.md item 24e (the unfused deep walk)"),
     ("--no-h2d-overlap", "INFW_H2D_OVERLAP",
      "ROADMAP.md item 19 (pinned staging; the copy does not overlap yet)"),
 )
@@ -439,6 +450,13 @@ class _WireStatsCounters:
         return out
 
 
+def _shape_class(chunk) -> tuple:
+    """What a superbatch's records must share: the wire's shape, v4_only,
+    whether flags ride along, and the payload column's shape."""
+    return (chunk.wire.shape, chunk.v4_only, chunk.tcp_flags is None,
+            None if chunk.payload is None else chunk.payload.shape)
+
+
 # --- daemon ------------------------------------------------------------------
 
 #: the stages process_ingest_once times (seconds, summed over calls):
@@ -482,6 +500,8 @@ class Daemon:
         payload=None,
         payload_mode: Optional[str] = None,
         payload_plen: Optional[int] = None,
+        ring: Optional[str] = None,
+        superbatch_k: Optional[int] = None,
     ) -> None:
         # resolve the device first: without a card the default backend
         # fails here, before any directory, thread or file is made
@@ -544,6 +564,34 @@ class Daemon:
         self.max_tick_packets = max(1, int(max_tick_packets))
         self.stage_seconds = dict.fromkeys(STAGES, 0.0)
         self.registry = registry if registry is not None else default_registry
+        # the ingest ring (--ring): a shared-memory file producers write
+        # packed-wire records into in place (infw_torch.ring); the file
+        # loop admits by ring cursor and releases each slot after the
+        # dispatch that read it materialized.  With --superbatch-k K >= 2 a
+        # resident daemon stacks up to K committed records of one shape
+        # class into one superbatch dispatch (K = 1: each record alone)
+        if superbatch_k is None:
+            superbatch_k = int(os.environ.get("INFW_SUPERBATCH_K", "1") or 1)
+        self.superbatch_k = max(1, int(superbatch_k))
+        self.ingest_ring = None
+        self._ring_inflight: deque = deque()
+        if ring:
+            from .kernels.wire_decode import PAYLOAD_PREFIX_WIDTHS
+            from .ring import IngestRing
+
+            # a payload tier grows each slot by the prefix column (n * (L +
+            # 4) bytes)
+            ring_pw = 0
+            if payload is not None:
+                ring_pw = int(payload_plen or PAYLOAD_PREFIX_WIDTHS[0])
+            self.ingest_ring = IngestRing.create(
+                ring, slots=max(8, 2 * self.pipeline_depth + 4),
+                slot_packets=max(self.max_tick_packets, 4096), payload_width=ring_pw)
+            if backend == "cuda" and not self.resident:
+                # the copies that read a record onto the card read a
+                # page-locked copy of it (a resident step's one host copy
+                # is into the pool's own pinned input)
+                self.ingest_ring.stage_pinned()
         # edit batching (txn): edit files queue here and flush as one
         # folded transaction on the staleness deadline or the batch
         # threshold, checked between ingest admissions and on the file loop
@@ -644,6 +692,9 @@ class Daemon:
             self.tracer.attach_ring(self.ring)
             self.metrics_registry.register_histograms(self.tracer.histograms)
             self.metrics_registry.register_counters(self.tracer)
+        if self.ingest_ring is not None:
+            # ring_* cursor and backpressure gauges
+            self.metrics_registry.register_counters(self.ingest_ring)
         if self.tenants_max:
             self.tenant_registry = self._build_tenant_registry(backend)
             # tenant_* counters (slabs, swaps, flips, clones, per-tenant
@@ -1241,6 +1292,137 @@ class Daemon:
                 drain_one()
         return processed
 
+    # -- ring ingest ---------------------------------------------------------
+
+    def process_ring_once(self, budget: Optional[int] = None) -> int:
+        """Serve the committed ring records (the JAX daemon's
+        process_ring_once): admission by ring cursor, each record one job
+        of the packed dispatch (prepare_packed with its TCP flags and payload
+        column), up to ``pipeline_depth`` in flight, each slot released only
+        after the dispatch that read it materialized.  With ``superbatch_k``
+        K >= 2, up to K committed records of one shape class (width,
+        v4_only, flags present, the payload column's shape) go out as one
+        superbatch dispatch; a record of another class carries to the next
+        turn, and a superbatch the classifier declines is served record by
+        record.  Returns the packets served."""
+        ring = self.ingest_ring
+        if ring is None:
+            return 0
+        clf = self.syncer.classifier
+        if clf is None or not clf.supports_packed():
+            # no tables yet: the records wait in the ring.  (Tables with
+            # ruleIds past the wire's 8 bits would not take the packed
+            # dispatch, but a NodeState's orders stay below 100.)
+            return 0
+        budget = self.max_tick_packets if budget is None else int(budget)
+        processed = 0
+        inflight = self._ring_inflight
+        tracer = self.tracer
+        super_k = self.superbatch_k
+        can_super = super_k >= 2
+        carry: list = []  # popped, not dispatched (a shape-class break)
+
+        def dispatch_one(chunk, trace) -> bool:
+            try:
+                plan = clf.prepare_packed(chunk.wire, chunk.v4_only, tcp_flags=chunk.tcp_flags,
+                                          payload=chunk.payload, payload_len=chunk.payload_len)
+                if trace is not None:
+                    trace.mark("h2d")
+                pending = clf.classify_prepared(plan, apply_stats=True)
+                if trace is not None:
+                    trace.mark("dispatch")
+            except Exception as e:
+                log.error("ring ingest dispatch failed: %s", e)
+                chunk.release()
+                return False
+            inflight.append((chunk, pending, trace))
+            return True
+
+        while processed < budget:
+            t0 = time.perf_counter()
+            chunk = carry.pop(0) if carry else ring.pop(timeout=0.0)
+            if chunk is None:
+                break
+            trace = None
+            if tracer is not None:
+                # the ring path's spans: ingest = the cursor pop, h2d =
+                # prepare_packed (the record arrives packed: the pack is the
+                # producer's), dispatch = the launch, materialize = the read
+                # back, drain = the slot's release
+                trace = tracer.begin(chunk.wire.shape[0])
+                trace.add("ingest", time.perf_counter() - t0)
+            group = [chunk]
+            if can_super and not carry:
+                while len(group) < super_k:
+                    try:
+                        nxt = ring.pop(timeout=0.0)
+                    except ValueError as e:
+                        log.error("ring ingest pop failed: %s", e)
+                        break
+                    if nxt is None:
+                        break
+                    if _shape_class(nxt) != _shape_class(chunk):
+                        carry.append(nxt)
+                        break
+                    group.append(nxt)
+            if len(group) >= 2:
+                # one stacked copy in (slots are not contiguous with each
+                # other) and one superbatch dispatch for the group
+                pends = None
+                try:
+                    plan = clf.prepare_packed_super(
+                        np.stack([c.wire for c in group]), chunk.v4_only,
+                        tcp_flags_stack=(None if chunk.tcp_flags is None
+                                         else np.stack([c.tcp_flags for c in group])),
+                        payload_stack=(None if chunk.payload is None
+                                       else np.stack([c.payload for c in group])),
+                        payload_len_stack=(None if chunk.payload is None
+                                           else np.stack([c.payload_len for c in group])))
+                    if plan is not None:
+                        if trace is not None:
+                            trace.mark("h2d")
+                        pends = clf.classify_prepared_super(plan, apply_stats=True)
+                        if trace is not None:
+                            trace.mark("dispatch")
+                except Exception as e:
+                    log.error("ring superbatch dispatch failed: %s", e)
+                    pends = None
+                if pends is not None:
+                    for j, (c, p) in enumerate(zip(group, pends)):
+                        inflight.append((c, p, trace if j == 0 else None))
+                        processed += c.wire.shape[0]
+                    while len(inflight) > self.pipeline_depth:
+                        self._ring_drain_one()
+                    continue
+                # declined: each gathered record through the single path
+            for j, c in enumerate(group):
+                if dispatch_one(c, trace if j == 0 else None):
+                    processed += c.wire.shape[0]
+            while len(inflight) > self.pipeline_depth:
+                self._ring_drain_one()
+        # a shape-class break popped one record past the budget: it is
+        # dispatched now (releases stay in pop order)
+        for c in carry:
+            if dispatch_one(c, None):
+                processed += c.wire.shape[0]
+        while inflight:
+            self._ring_drain_one()
+        return processed
+
+    def _ring_drain_one(self) -> None:
+        chunk, pending, trace = self._ring_inflight.popleft()
+        try:
+            pending.result()
+            if trace is not None:
+                trace.mark("materialize")
+        except Exception as e:
+            log.error("ring ingest classify failed: %s", e)
+        finally:
+            chunk.release()
+            if trace is not None:
+                trace.mark("drain")
+                self.tracer.finish(trace)
+
     def _telemetry_maintenance(self) -> None:
         """Idle-loop telemetry upkeep: attach the event ring and the drain
         cadence to each new classifier generation's tier, and drain every
@@ -1457,6 +1639,10 @@ class Daemon:
             except Exception as e:
                 log.error("tenant dedup sweep error: %s", e)
             try:
+                self.process_ring_once()
+            except Exception as e:
+                log.error("ring ingest error: %s", e)
+            try:
                 self.process_ingest_once()
             except Exception as e:
                 log.error("ingest error: %s", e)
@@ -1495,6 +1681,10 @@ class Daemon:
         self.stats.unregister()
         self.syncer.shutdown()
         self._event_file.close()
+        if self.ingest_ring is not None:
+            while self._ring_inflight:
+                self._ring_drain_one()
+            self.ingest_ring.close()
 
     @property
     def actual_metrics_port(self) -> int:
@@ -1643,6 +1833,17 @@ def main(argv: Optional[List[str]] = None) -> int:
                    help="the payload prefix width in bytes, 64 or 128 (occurrences crossing "
                         "it never match).  Default 64, or the artifact's width.  CLI beats "
                         "INFW_PAYLOAD_PLEN")
+    p.add_argument("--ring", default=os.environ.get("INFW_RING") or None,
+                   help="the ingest ring: path of a shared-memory ring file the daemon "
+                        "CREATES and consumes (producers attach with python -m "
+                        "infw_torch.tools.loadgen --ring PATH).  Producers write packed "
+                        "wire records in place, with TCP flags and, with --payload, the "
+                        "payload prefix column; the file loop admits by ring cursor, "
+                        "ring_* gauges on /metrics.  CLI beats INFW_RING")
+    p.add_argument("--superbatch-k", type=int, default=None,
+                   help="stack up to K committed ring records of one shape into one "
+                        "superbatch dispatch of the resident step (default "
+                        "INFW_SUPERBATCH_K or 1 = each record alone)")
     for flag, env, item in REFUSED_FLAGS:
         p.add_argument(flag, nargs="?", const="1", default=None,
                        help=f"not in the port yet: {item} (also {env})")
@@ -1659,6 +1860,10 @@ def main(argv: Optional[List[str]] = None) -> int:
     if args.resident and args.backend == "cpu":
         p.error("--resident requires the cuda backend (the cpu backend serves the "
                 "multi-dispatch path)")
+    if args.ring:
+        ring_dir = os.path.dirname(os.path.abspath(args.ring)) or "."
+        if not os.path.isdir(ring_dir):
+            p.error(f"--ring directory does not exist: {ring_dir}")
     # argparse checks choices only on explicit flags, not env defaults: a
     # bad INFW_WIRE_CODEC must fail the launch, not the first sync
     if args.wire_codec is not None and args.wire_codec not in WIRE_CODECS:
@@ -1798,6 +2003,8 @@ def main(argv: Optional[List[str]] = None) -> int:
         payload=payload_patterns,
         payload_mode=args.payload_mode,
         payload_plen=payload_plen,
+        ring=args.ring,
+        superbatch_k=args.superbatch_k,
     )
     stop = threading.Event()
 

@@ -69,7 +69,7 @@ from .constants import (
     TCP_SYN,
 )
 from .kernels import flow as kflow
-from .kernels.torchpath import resolve_device
+from .kernels.torchpath import host_to_device, resolve_device
 
 
 def _pow2(n: int) -> int:
@@ -405,7 +405,7 @@ class FlowTier:
         return self._device
 
     def _put(self, a: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(a).view(np.int32).copy()).to(self._device)
+        return host_to_device(np.ascontiguousarray(a).view(np.int32), self._device)
 
     def _zeros(self, b: int):
         """The zero tenant and flags columns of ``b`` lanes (or (k, b) for a

@@ -78,6 +78,19 @@ def resolve_device(device=None) -> torch.device:
     return device
 
 
+def host_to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host array as a tensor on ``device``: a copy on a CUDA device (of
+    a page-locked array, such as an ingest-ring record's staged copy,
+    without blocking the host: the caller keeps the array unchanged until
+    the work that reads it has materialized), a copy on the CPU too, so the
+    tensor never aliases the caller's array."""
+    a = np.ascontiguousarray(a)
+    if device.type != "cuda" or not a.flags.writeable:
+        return torch.from_numpy(a.copy()).to(device)
+    t = torch.from_numpy(a)
+    return t.to(device, non_blocking=t.is_pinned())
+
+
 def device_batch(batch: PacketBatch, device=None) -> DeviceBatch:
     """Host PacketBatch -> DeviceBatch on ``device`` (resolve_device)."""
     device = resolve_device(device)

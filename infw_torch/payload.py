@@ -53,7 +53,7 @@ from .kernels.acmatch import (
     host_payload_rewrite,
     validate_patterns,
 )
-from .kernels.torchpath import resolve_device
+from .kernels.torchpath import host_to_device, resolve_device
 
 #: manifest format tag
 PATTERN_FORMAT = "infw-acmatch-v1"
@@ -195,7 +195,10 @@ def clamp_payload(pay, plen, cap: int):
         k = min(cap, w)
         fixed[..., :k] = pay[..., :k]
         pay = fixed
-    return pay, np.minimum(np.ascontiguousarray(plen, np.int32), np.int32(cap))
+    plen = np.ascontiguousarray(plen, np.int32)
+    if plen.size and int(plen.max()) > cap:
+        plen = np.minimum(plen, np.int32(cap))
+    return pay, plen
 
 
 # --- the serving tier ---------------------------------------------------------------
@@ -301,8 +304,8 @@ class PayloadTier:
         """One K11 launch -> (B, PW) uint32 bitmaps (the column fixed to the
         spec's width first)."""
         pay_np, plen_np = clamp_payload(pay_np, plen_np, self.spec.plen)
-        pay = torch.from_numpy(pay_np).to(self._device)
-        plen = torch.from_numpy(plen_np).to(self._device)
+        pay = host_to_device(pay_np, self._device)
+        plen = host_to_device(plen_np, self._device)
         with self._lock:
             stream = self._ordered()
             out = kac.acmatch(self._dev, pay, plen, self.spec)

@@ -361,6 +361,28 @@ def random_batch_fast(
     )
 
 
+def poisson_arrivals(rng: np.random.Generator, rate_pps: float, n: int) -> np.ndarray:
+    """(n,) float64 cumulative arrival offsets (seconds) of a Poisson
+    process at ``rate_pps``: exponential gaps, the same per (seeded rng,
+    rate, n) as infw.testing's."""
+    if rate_pps <= 0:
+        raise ValueError(f"rate must be positive, got {rate_pps}")
+    return np.cumsum(rng.exponential(1.0 / float(rate_pps), int(n)))
+
+
+def burst_arrivals(rng: np.random.Generator, rate_pps: float, n: int,
+                   burst: int = 64) -> np.ndarray:
+    """(n,) float64 arrival offsets at the same mean rate as
+    poisson_arrivals, in back-to-back groups of ``burst`` packets with
+    exponential gaps (mean burst / rate) between groups."""
+    if rate_pps <= 0:
+        raise ValueError(f"rate must be positive, got {rate_pps}")
+    burst = max(1, int(burst))
+    n = int(n)
+    starts = np.cumsum(rng.exponential(burst / float(rate_pps), -(-n // burst)))
+    return np.repeat(starts, burst)[:n]
+
+
 def flow_locality_fids(
     rng: np.random.Generator, n: int, established_fraction: float,
     chunk_packets: int = 1024,

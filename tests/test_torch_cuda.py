@@ -3403,3 +3403,162 @@ def test_payload_swap_and_flip_write_in_place_and_capture_nothing(cuda):
     assert int(gpu.flow._gens_host[0]) == int(cpu.flow._gens_host[0]) == gen0 + 4
     assert gpu.payload_counters() == cpu.payload_counters()
     assert gpu.payload_counters()["payload_enforced_total"] > 0
+
+
+# --- the ingest ring ---------------------------------------------------------------------
+
+
+def _ring_stream(tables, n_records: int, record: int, seed: int, pats):
+    """flow_trace_batch records with SYN / ACK / FIN / RST flags and a 10%
+    signature mix in a 64-byte payload column: [(wire, v4, flags, pay,
+    plen)]."""
+    from infw_torch import payload as ppay
+
+    rng = np.random.default_rng(seed)
+    n = n_records * record
+    batch, _meta = testing.flow_trace_batch(rng, tables, n, 0.8, chunk_packets=record)
+    flags = np.asarray(batch.tcp_flags).copy()
+    flags[::29] |= 0x04
+    k = n // 10
+    pay_a, len_a = ppay.attack_payloads(rng, k, pats, plen=64)
+    pay_b, len_b = ppay.benign_payloads(rng, n - k, plen=64)
+    perm = rng.permutation(n)
+    pay = np.concatenate([pay_a, pay_b])[perm]
+    plen = np.concatenate([len_a, len_b])[perm].astype(np.int32)
+    out = []
+    for lo in range(0, n, record):
+        idx = np.arange(lo, lo + record)
+        w, v4 = batch.pack_wire_subset(idx)
+        out.append((w, v4, flags[idx], pay[idx], plen[idx]))
+    return out
+
+
+def test_ring_staged_slot_views_are_pinned(cuda, tmp_path):
+    """stage_pinned on the card: a popped record's views are page-locked, a
+    tensor over them copies to the card without blocking and equals the
+    record, and the staged buffer is reused by the slot's next record."""
+    from infw_torch.ring import IngestRing
+
+    ring = IngestRing.create(str(tmp_path / "r.ring"), slots=2, slot_packets=512,
+                             payload_width=64)
+    ring.stage_pinned()
+    rng = np.random.default_rng(1)
+    bufs = []
+    for n in (512, 100, 512):
+        w = rng.integers(0, 1 << 32, (n, 7), dtype=np.uint64).astype(np.uint32)
+        fl = rng.integers(0, 32, n).astype(np.int32)
+        pay = rng.integers(0, 256, (n, 64), dtype=np.uint8)
+        plen = rng.integers(0, 65, n).astype(np.int32)
+        ring.push(w, tcp_flags=fl, payload=pay, payload_len=plen)
+        c = ring.pop()
+        views = (c.wire, c.tcp_flags, c.payload, c.payload_len)
+        assert all(torch.from_numpy(v).is_pinned() for v in views)
+        dev = torch.from_numpy(c.wire.view(np.int32)).to(cuda, non_blocking=True)
+        dpay = torch.from_numpy(c.payload).to(cuda, non_blocking=True)
+        torch.cuda.synchronize()
+        assert np.array_equal(dev.cpu().numpy().view(np.uint32), w)
+        assert np.array_equal(dpay.cpu().numpy(), pay)
+        bufs.append(c.wire.__array_interface__["data"][0])
+        c.release()
+    assert bufs[2] == bufs[0]  # slot 0's buffer, reused
+    ring.close()
+
+
+@pytest.mark.parametrize("resident", [False, True], ids=["multi", "resident"])
+def test_ring_fed_daemon_equals_the_classic_classify(cuda, tmp_path, resident):
+    """Daemon(ring=...) on the card (flow tier, payload tier in enforce;
+    the resident one at --superbatch-k 4) over records pushed before the
+    tick: each record's verdicts, the statistics, the payload and the flow
+    counters equal the same records through classify_async_packed on a
+    classic classifier in the daemon's order of pops and read backs; K11
+    launched on the card; every slot released."""
+    import json
+    import os
+
+    from infw_torch import daemon, spec
+    from infw_torch import payload as ppay
+    from infw_torch.flow import FlowConfig
+    from infw_torch.interfaces import Interface, InterfaceRegistry
+    from infw_torch.ring import IngestRing
+
+    ifaces = {"eth0": 2, "eth1": 3}
+    reg = InterfaceRegistry()
+    for name, index in ifaces.items():
+        reg.add(Interface(name=name, index=index))
+    pats = ppay.signature_patterns(np.random.default_rng(11), 64, plen=64)
+    extra = {"resident": True, "superbatch_k": 4} if resident else {}
+    d = daemon.Daemon(state_dir=str(tmp_path / "state"), node_name="n", registry=reg,
+                      metrics_port=0, health_port=0, file_poll_interval_s=60.0,
+                      pipeline_depth=3, max_tick_packets=4096, ring=str(tmp_path / "in.ring"),
+                      flow_table=FlowConfig.make(entries=1 << 14), payload=pats,
+                      payload_mode="enforce", **extra)
+    try:
+        assert d.ingest_ring.pinned != resident
+        assert d.ingest_ring.slots == 10  # room for the 9 records pushed before the tick
+        doc = testing.random_nodestate(np.random.default_rng(5), "n", ifaces, 3000)
+        with open(os.path.join(d.nodestates_dir, "n.json"), "w") as f:
+            json.dump(doc, f)
+        d.scan_nodestates_once()
+        ns = spec.IngressNodeFirewallNodeState.from_dict(doc)
+        tables = compiler.compile_tables(ns.spec.interface_ingress_rules, reg)
+        recs = _ring_stream(tables, 9, 1024, 3, pats)
+        # the daemon's pops and drains in order: the multi-dispatch plan
+        # inserts a record's misses (with enforced verdicts) when it
+        # materializes, so a record probed before the last one's insert
+        # can miss where a sequential classify hits
+        served, events = {}, []
+        drain, pop = d._ring_drain_one, d.ingest_ring.pop
+
+        def drain_one():
+            chunk, pending, _t = d._ring_inflight[0]
+            drain()
+            served[chunk.seq] = pending.result()
+            events.append(("drain", chunk.seq))
+
+        def pop_logged(timeout=0.0):
+            chunk = pop(timeout)
+            if chunk is not None:
+                events.append(("pop", chunk.seq))
+            return chunk
+
+        d._ring_drain_one, d.ingest_ring.pop = drain_one, pop_logged
+        prod = IngestRing.attach(d.ingest_ring.path)
+        for w, v4, fl, pay, plen in recs:
+            prod.push(w, v4_only=v4, tcp_flags=fl, payload=pay, payload_len=plen)
+        prod.close()
+        for k in all_kernels():
+            k.launches = 0
+        assert d.process_ring_once(budget=10 ** 9) == 9 * 1024
+        launches = {k.name: k.launches for k in all_kernels() if k.launches}
+        clf = d.syncer.classifier
+        ref = TorchClassifier(device=cuda, flow_table=FlowConfig.make(entries=1 << 14),
+                              payload=pats, payload_mode="enforce")
+        ref.load_tables(tables)
+        # a resident step inserts before the next step probes: the records'
+        # order is the daemon's
+        replay = ([(e, seq) for seq in range(9) for e in ("pop", "drain")] if resident
+                  else events)
+        pend = {}
+        for ev, seq in replay:
+            if ev == "pop":
+                w, v4, fl, pay, plen = recs[seq]
+                pend[seq] = ref.classify_async_packed(w, v4, tcp_flags=fl, payload=pay,
+                                                      payload_len=plen)
+                continue
+            o = pend.pop(seq).result()
+            np.testing.assert_array_equal(served[seq].results, o.results)
+            np.testing.assert_array_equal(served[seq].xdp, o.xdp)
+        np.testing.assert_array_equal(np.asarray(clf.stats.snapshot()),
+                                      np.asarray(ref.stats.snapshot()))
+        assert clf.payload_counters() == ref.payload_counters()
+        assert clf.flow_counters() == ref.flow_counters()
+        if resident:
+            assert clf.resident_counters()["resident_superbatch_dispatches_total"] >= 2
+            assert launches.get("payload_match_resident", 0) >= 9, launches
+        else:
+            assert launches.get("payload_match", 0) == 9, launches
+            assert launches.get("flow_probe", 0) == 9, launches
+        assert d.ingest_ring.tail == d.ingest_ring.head == 9 and not d._ring_inflight
+        ref.close()
+    finally:
+        d.stop()

@@ -474,8 +474,8 @@ def test_daemons_agree_under_resident(tmp_path):
 
 def test_daemon_resident_flags(tmp_path, monkeypatch):
     """--resident (or INFW_RESIDENT) reaches the daemon; with --backend cpu
-    it is a usage error, as in the JAX daemon; --superbatch-k stays
-    refused and names the ingest ring's item."""
+    it is a usage error, as in the JAX daemon; --superbatch-k, which the
+    ingest ring reads, is no longer refused and reaches the daemon."""
     for _f, e, _i in daemon.REFUSED_FLAGS:
         monkeypatch.delenv(e, raising=False)
     monkeypatch.delenv("INFW_RESIDENT", raising=False)
@@ -501,5 +501,9 @@ def test_daemon_resident_flags(tmp_path, monkeypatch):
             daemon.main(argv + ["--backend", "cuda"] + extra)
         assert e.value.code == 0 and seen["resident"] is True
     flags = {f: item for f, _e, item in daemon.REFUSED_FLAGS}
-    assert "--resident" not in flags and "item 24c" in flags["--superbatch-k"]
+    assert "--resident" not in flags and "--superbatch-k" not in flags
+    monkeypatch.delenv("INFW_RESIDENT", raising=False)
+    with pytest.raises(SystemExit) as e:
+        daemon.main(argv + ["--backend", "cuda", "--resident", "--superbatch-k", "4"])
+    assert e.value.code == 0 and seen["superbatch_k"] == 4
     assert not (tmp_path / "s").exists()
